@@ -1,0 +1,333 @@
+"""Full-tree evaluation: P-matrices → pruning sweep → log-likelihood.
+
+Counterpart: ``libpll_tpu/engine/evaluate.py`` (``:31-335``).  The
+``make_*`` factories keep their names and return ``nn.Module``s whose
+forward takes the model dict (:func:`libpll_tpu_torch.engine.params.
+model_from_numpy`) and the CLV or tip input.  Topology (the operation
+schedule and the evaluation edge) is fixed when a module is built; its
+index tables are buffers, so ``.to(device)`` moves the module, and a call
+whose inputs lie on another device raises.
+
+  * :func:`make_forward` — plain level sweep + edge logL (the float64
+    reference path);
+  * :func:`make_forward_fused` — K2 (``ops.clv_fused.fused_sweep``) + edge
+    logL;
+  * :func:`make_score` — K1 (``ops.clv_fused.fused_edge_score``), the
+    tree-search scoring path, with +I in the kernel and asc-bias through
+    :func:`make_asc_tail`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..errors import EinvalError
+from ..ops import clv_fused as cf
+from ..ops import likelihood as lk_ops
+from ..ops.pmatrix import compute_pmatrices
+from ..ops.sweep import LevelSchedule, build_level_schedule, make_level_sweep
+from ..utils.constants import SCALE_PER_RATE, SCALE_PER_SITE
+
+
+class EvalTopology(NamedTuple):
+    """Static description of one evaluation: schedule + evaluation edge.
+
+    CLV/scaler indices are in the *level-major* space of the schedule
+    (see ops/sweep.py); ``topology_from_tree`` performs the translation from
+    the reference index conventions.
+    """
+
+    schedule: LevelSchedule
+    matrix_indices: np.ndarray  # [B] int32
+    n_pmatrices: int
+    parent_clv: int
+    child_clv: int
+    edge_matrix: int
+    sites: int
+    scale_mode: int = SCALE_PER_SITE
+    asc_mode: int = 0
+
+    @property
+    def dummy_scaler(self) -> int:
+        return self.schedule.n_inner
+
+    def scaler_row(self, clv_row: int) -> int:
+        return (clv_row - self.schedule.tips
+                if clv_row >= self.schedule.tips else self.dummy_scaler)
+
+
+def topology_from_tree(tree, sites, scale_mode=SCALE_PER_SITE, asc_mode=0):
+    """Static evaluation description from a UTree; returns (topo, branches)."""
+    from ..tree import utree as ut
+
+    trav = ut.traverse(tree.root)
+    ops, branches, pmat_idx = ut.create_operations(trav)
+    schedule = build_level_schedule(ops, tree.tip_count)
+    root = tree.root
+
+    return EvalTopology(
+        schedule=schedule,
+        matrix_indices=np.asarray(pmat_idx, dtype=np.int32),
+        n_pmatrices=len(branches),
+        parent_clv=schedule.clv_map[root.clv_index],
+        child_clv=schedule.clv_map[root.back.clv_index],
+        edge_matrix=root.pmatrix_index,
+        sites=sites,
+        scale_mode=scale_mode,
+        asc_mode=asc_mode,
+    ), np.asarray(branches)
+
+
+def _pmatrices(model, topo, dtype, matrix_indices):
+    """[n_pmatrices, C, S, S] with each branch's matrix at its reference
+    pmatrix index (``matrix_indices``: the topology's, on the device)."""
+    pmat = compute_pmatrices(
+        model["branch_lengths"], model["rates"], model["prop_invar"],
+        model["params_indices"], model["eigenvals"], model["left"],
+        model["right"], dtype=dtype)
+    pmatrix = pmat.new_zeros((topo.n_pmatrices,) + pmat.shape[1:])
+    pmatrix[matrix_indices] = pmat
+    return pmatrix
+
+
+def _floats(model, dtype):
+    """The model's per-category and per-site vectors in the working dtype."""
+    return {k: model[k].to(dtype)
+            for k in ("freqs_pc", "rate_weights", "pattern_weights",
+                      "prop_invar_pc")}
+
+
+class _TopologyModule(nn.Module):
+    """Holds one evaluation topology; its device is that of its buffers."""
+
+    def __init__(self, topo: EvalTopology):
+        super().__init__()
+        self.topo = topo
+        self.register_buffer(
+            "matrix_indices",
+            torch.as_tensor(topo.matrix_indices, dtype=torch.long),
+            persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.matrix_indices.device
+
+    def _check_device(self, model, *tensors):
+        for t in (*model.values(), *tensors):
+            if isinstance(t, torch.Tensor) and t.device != self.device:
+                raise EinvalError(f"input on {t.device}, module on "
+                                  f"{self.device}: move one with .to()")
+
+    def pmatrices(self, model, dtype):
+        return _pmatrices(model, self.topo, dtype, self.matrix_indices)
+
+
+class Forward(_TopologyModule):
+    """``forward(model, clv, scalers) -> (logl, persite)``: the plain
+    level sweep and edge log-likelihood (counterpart ``make_forward``).
+
+    clv: [tips + n_inner, C, S, L] level-major; scalers [n_inner+1, (C,) L].
+    """
+
+    def __init__(self, topo: EvalTopology):
+        super().__init__(topo)
+        self.sweep = make_level_sweep(topo.schedule, topo.scale_mode)
+
+    def forward(self, model, clv, scalers):
+        self._check_device(model, clv, scalers)
+        topo = self.topo
+        pmatrix = self.pmatrices(model, clv.dtype)
+        clv, scalers = self.sweep(clv, scalers, pmatrix)
+        f = _floats(model, clv.dtype)
+        return lk_ops.edge_loglikelihood(
+            clv[topo.parent_clv], clv[topo.child_clv],
+            scalers[topo.scaler_row(topo.parent_clv)],
+            scalers[topo.scaler_row(topo.child_clv)],
+            pmatrix[topo.edge_matrix], f["freqs_pc"], f["rate_weights"],
+            f["pattern_weights"], f["prop_invar_pc"], model["invariant"],
+            sites=topo.sites, per_rate=topo.scale_mode == SCALE_PER_RATE,
+            asc_mode=topo.asc_mode)
+
+
+def make_forward(topo: EvalTopology) -> Forward:
+    """Build the float64 reference forward (``evaluate.py:138``)."""
+    return Forward(topo)
+
+
+def _working_dtype(model, tips_packed, tip_encoding):
+    return (model["freqs_pc"].dtype if tip_encoding in ("chars", "masks")
+            else tips_packed.dtype)
+
+
+class ForwardFused(_TopologyModule):
+    """``forward(model, tips_packed) -> (logl, persite, inner, scalers)``:
+    P-matrices → K2 → edge log-likelihood (counterpart
+    ``make_forward_fused``).
+
+    ``tips_packed``: [tips, C, S, L] tip CLVs ("clv"), pack_tipchars words
+    ("chars") or [tips, L] int32 bitmasks ("masks"); the asc-bias pseudo
+    columns, when asked for, ride the site axis.  ``inner`` [n_inner, C, S,
+    L] and ``scalers`` are returned for reuse.
+    """
+
+    def __init__(self, topo, rate_cats, states, tip_encoding="clv"):
+        super().__init__(topo)
+        cf.check_tip_encoding(tip_encoding, states)
+        self.rate_cats, self.states = rate_cats, states
+        self.tip_encoding = tip_encoding
+        self.register_buffer("ops", cf.op_table(topo.schedule),
+                             persistent=False)
+
+    def _row(self, tips_packed, inner, idx, dtype):
+        tips = self.topo.schedule.tips
+        if idx >= tips:
+            return inner[idx - tips]
+        rows = torch.arange(idx, idx + 1, device=tips_packed.device)
+        return cf.decode_tips(tips_packed, self.tip_encoding, rows,
+                              self.rate_cats, self.states, dtype)[0]
+
+    def forward(self, model, tips_packed):
+        self._check_device(model, tips_packed)
+        topo = self.topo
+        dtype = _working_dtype(model, tips_packed, self.tip_encoding)
+        pmatrix = self.pmatrices(model, dtype)
+        inner, scalers = cf.fused_sweep(
+            topo.schedule, tips_packed, pmatrix, ops=self.ops,
+            scale_mode=topo.scale_mode, tip_encoding=self.tip_encoding)
+        f = _floats(model, dtype)
+        logl, persite = lk_ops.edge_loglikelihood(
+            self._row(tips_packed, inner, topo.parent_clv, dtype),
+            self._row(tips_packed, inner, topo.child_clv, dtype),
+            scalers[topo.scaler_row(topo.parent_clv)],
+            scalers[topo.scaler_row(topo.child_clv)],
+            pmatrix[topo.edge_matrix], f["freqs_pc"], f["rate_weights"],
+            f["pattern_weights"], f["prop_invar_pc"], model["invariant"],
+            sites=topo.sites, per_rate=topo.scale_mode == SCALE_PER_RATE,
+            asc_mode=topo.asc_mode)
+        return logl, persite, inner, scalers
+
+
+def make_forward_fused(topo: EvalTopology, rate_cats: int, states: int,
+                       tip_encoding: str = "clv") -> ForwardFused:
+    """Build the K2 forward (``evaluate.py:167``); unlike the JAX one it
+    also takes pattern tips, as K2 does."""
+    return ForwardFused(topo, rate_cats, states, tip_encoding)
+
+
+class AscTail(_TopologyModule):
+    """``forward(model, pmatrix) -> correction``: the ascertainment-bias
+    correction as a plain side sweep over the S all-one-state pseudo
+    columns (reference `src/pll.c:490-495`), so the score kernel stays
+    asc-free.  ``model`` carries ``asc_weights`` [S] (Lewis ignores them).
+    Counterpart ``make_asc_tail``."""
+
+    def __init__(self, topo, rate_cats, states):
+        super().__init__(topo)
+        self.rate_cats, self.states = rate_cats, states
+        self.sweep = make_level_sweep(topo.schedule, topo.scale_mode)
+
+    def forward(self, model, pmatrix):
+        self._check_device(model, pmatrix)
+        topo = self.topo
+        c, s = self.rate_cats, self.states
+        tips, n_inner = topo.schedule.tips, topo.schedule.n_inner
+        per_rate = topo.scale_mode == SCALE_PER_RATE
+        dtype = pmatrix.dtype
+        eye = torch.eye(s, dtype=dtype, device=pmatrix.device)
+        clv = torch.cat([eye[None, None].expand(tips, c, s, s),
+                         pmatrix.new_zeros((n_inner, c, s, s))])
+        sshape = (n_inner + 1, c, s) if per_rate else (n_inner + 1, s)
+        clv, scalers = self.sweep(
+            clv, torch.zeros(sshape, dtype=torch.int32,
+                             device=pmatrix.device), pmatrix)
+
+        f = _floats(model, dtype)
+        termb = torch.matmul(pmatrix[topo.edge_matrix], clv[topo.child_clv])
+        term_r = (clv[topo.parent_clv] * f["freqs_pc"][:, :, None]
+                  * termb).sum(dim=1)
+        comb = (scalers[topo.scaler_row(topo.parent_clv)]
+                + scalers[topo.scaler_row(topo.child_clv)])
+        if per_rate:
+            site_scal, diff = lk_ops.fold_rate_scalers(comb)
+            term_r = lk_ops.apply_rate_fold(term_r, diff, dtype)
+        else:
+            site_scal = comb
+        return lk_ops.asc_correction_terms(
+            term_r, site_scal, f["rate_weights"],
+            model["asc_weights"].to(dtype), f["pattern_weights"].sum(),
+            topo.asc_mode, dtype)
+
+
+def make_asc_tail(topo: EvalTopology, rate_cats: int,
+                  states: int) -> AscTail:
+    """Build the asc-bias side sweep (``evaluate.py:219``)."""
+    return AscTail(topo, rate_cats, states)
+
+
+def _pinv_score_inputs(model, dtype):
+    """(weight_vec, inv_add) for the linear in-kernel prop-invar fold:
+    ``Σ_c w_c[(1-p_c)·term_c + p_c·f_c[inv]]`` splits into a re-scaled
+    weight vector and a per-site additive term [L] (reference mix order,
+    `src/core_likelihood.c:960-978`: the invariant likelihood enters
+    unscaled)."""
+    f = _floats(model, dtype)
+    freqs, pinv, rw = f["freqs_pc"], f["prop_invar_pc"], f["rate_weights"]
+    inv = model["invariant"]
+    wvec = cf.pack_weight_vec(freqs * (1.0 - pinv)[:, None], rw)
+    has = inv >= 0
+    inv_lk = torch.where(has[None, :], freqs[:, torch.clamp(inv, min=0).long()],
+                         torch.zeros((), dtype=dtype, device=freqs.device))
+    inv_add = ((rw * pinv)[:, None] * inv_lk).sum(dim=0)
+    return wvec, inv_add
+
+
+class Score(_TopologyModule):
+    """``forward(model, tips_packed) -> logl`` (float64): P-matrices → K1,
+    the whole sweep with the edge log-likelihood folded in (counterpart
+    ``make_score``).  Per-site or no scaling; +I through the in-kernel
+    linear fold (``use_pinv``); asc-bias (``topo.asc_mode``) through
+    :class:`AscTail`.  ``tips_packed`` as in :class:`ForwardFused`."""
+
+    def __init__(self, topo, rate_cats, states, use_pinv=False,
+                 tip_encoding="clv"):
+        super().__init__(topo)
+        if topo.asc_mode and use_pinv:
+            raise EinvalError("asc-bias and prop-invar are mutually exclusive")
+        cf.check_score_scope(topo.schedule, topo.scale_mode, topo.parent_clv)
+        cf.check_tip_encoding(tip_encoding, states)
+        self.use_pinv = use_pinv
+        self.tip_encoding = tip_encoding
+        self.register_buffer("ops", cf.op_table(topo.schedule),
+                             persistent=False)
+        self.asc_tail = (AscTail(topo, rate_cats, states)
+                         if topo.asc_mode else None)
+
+    def forward(self, model, tips_packed):
+        self._check_device(model, tips_packed)
+        topo = self.topo
+        dtype = _working_dtype(model, tips_packed, self.tip_encoding)
+        pmatrix = self.pmatrices(model, dtype)
+        f = _floats(model, dtype)
+        if self.use_pinv:
+            wvec, inv_add = _pinv_score_inputs(model, dtype)
+        else:
+            wvec = cf.pack_weight_vec(f["freqs_pc"], f["rate_weights"])
+            inv_add = None
+        logl = cf.fused_edge_score(
+            topo.schedule, tips_packed, pmatrix, wvec, f["pattern_weights"],
+            inv_add, ops=self.ops, parent_clv=topo.parent_clv,
+            child_clv=topo.child_clv, edge_matrix=topo.edge_matrix,
+            scale_mode=topo.scale_mode, tip_encoding=self.tip_encoding)
+        if self.asc_tail is not None:
+            logl = logl + self.asc_tail(model, pmatrix)
+        return logl
+
+
+def make_score(topo: EvalTopology, rate_cats: int, states: int,
+               use_pinv: bool = False, tip_encoding: str = "clv") -> Score:
+    """Build the K1 scorer (``evaluate.py:288``)."""
+    return Score(topo, rate_cats, states, use_pinv, tip_encoding)

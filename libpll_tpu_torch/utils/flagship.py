@@ -1,0 +1,134 @@
+"""The flagship configuration, as numpy: a random binary topology, a
+GTR+Γ model and tips, all made from one seed.
+
+Counterpart: ``__graft_entry__.py:22-145`` (``_draw_tip_masks``,
+``_simulate_tips``, ``_build_flagship``).  The rng is consumed in the same
+order, so a seed gives the same tree, model and tips as the JAX builder;
+the arrays come back as numpy (hand the model to
+:func:`libpll_tpu_torch.engine.params.model_from_numpy`).  The flagship
+itself is 64 taxa × 262 144 site patterns, DNA, four Γ categories,
+per-site scaling.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+FLAGSHIP_TIPS = 64
+FLAGSHIP_SITES = 262144
+FLAGSHIP_RATE_CATS = 4
+FLAGSHIP_STATES = 4
+
+
+def draw_tip_masks(rng, tips, sites, step=None):
+    """[tips, sites] uint32 single-state ambiguity bitmasks, drawn in
+    row-chunks of ``step`` to bound host staging.  Each row comes from its
+    own spawned child generator, so the result does not depend on the
+    chunk layout."""
+    if step is None:
+        step = max(1, (1 << 28) // max(sites, 1))
+    masks = np.empty((tips, sites), np.uint32)
+    for i in range(0, tips, step):
+        j = min(tips, i + step)
+        for r, child in zip(range(i, j), rng.spawn(j - i)):
+            st = child.integers(0, 4, sites, dtype=np.uint8)
+            masks[r] = np.uint32(1) << st.astype(np.uint32)
+    return masks
+
+
+def simulate_tips(tree, tips, sites, w, left, right, freqs, rng):
+    """Evolve sequences down the (unrooted) tree under the GTR process;
+    returns [tips, sites] uint8 states."""
+    def pmat(t):
+        # P(t) = left @ diag(expm1(w t)) @ right + I (ops/pmatrix.py)
+        p = (left * np.expm1(w * t)[None, :]) @ right + np.eye(len(w))
+        p = np.clip(p, 0.0, None)
+        return p / p.sum(1, keepdims=True)
+
+    def evolve(seq, t):
+        p = pmat(t)  # rows: parent state -> child state distribution
+        u = rng.random(sites)
+        cdf = np.cumsum(p, axis=1)[seq]  # [sites, states]
+        return (u[:, None] > cdf).sum(1).astype(np.uint8)
+
+    states = np.empty((tips, sites), np.uint8)
+    root = tree.root
+    root_seq = rng.choice(len(freqs), size=sites, p=freqs).astype(np.uint8)
+    # stack of (node entered via its .back edge, sequence at that vertex)
+    stack = [(m.back, evolve(root_seq, m.length))
+             for m in (root, root.next, root.next.next)]
+    while stack:
+        node, seq = stack.pop()
+        if node.is_tip:
+            states[node.clv_index] = seq
+            continue
+        for m in (node.next, node.next.next):
+            stack.append((m.back, evolve(seq, m.length)))
+    return states
+
+
+def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
+                   tip_masks=False, simulate=False):
+    """(topo, model, tips_data, scalers) for a flagship-shaped problem.
+
+    ``tip_masks=True``: ``tips_data`` is [tips, sites] uint32 ambiguity
+    bitmasks and ``scalers`` is None.  Otherwise ``tips_data`` is the
+    [2·tips − 2, C, 4, sites] CLV array (tips one-hot, inner rows zero) and
+    ``scalers`` the zero [n_inner + 1, sites] int32 counters."""
+    from ..engine.evaluate import topology_from_tree
+    from ..models.gamma import compute_gamma_cats
+    from ..models.gtr import eigen_decompose
+    from ..tree import utree as ut
+    from .constants import SCALE_PER_SITE
+
+    rng = np.random.default_rng(seed)
+
+    # random binary topology
+    items = [f"t{i}:{rng.uniform(0.05, 0.5):.4f}" for i in range(tips)]
+    while len(items) > 3:
+        i, j = sorted(rng.choice(len(items), 2, replace=False))
+        b = items.pop(j)
+        a = items.pop(i)
+        items.append(f"({a},{b}):{rng.uniform(0.05, 0.5):.4f}")
+    tree = ut.parse_newick_string(f"({items[0]},{items[1]},{items[2]});")
+
+    topo, branches = topology_from_tree(tree, sites,
+                                        scale_mode=SCALE_PER_SITE)
+
+    # model: GTR + Gamma
+    params = rng.uniform(0.5, 2.0, 6)
+    freqs = rng.uniform(0.1, 1.0, 4)
+    freqs /= freqs.sum()
+    w, left, right = eigen_decompose(params, freqs)
+    rates = compute_gamma_cats(1.0, rate_cats)
+
+    model = {
+        "branch_lengths": np.asarray(branches, dtype),
+        "rates": np.asarray(rates, dtype),
+        "prop_invar": np.zeros((1,), dtype),
+        "params_indices": np.zeros(rate_cats, np.int32),
+        "eigenvals": np.asarray(w[None], dtype),
+        "left": np.asarray(left[None], dtype),
+        "right": np.asarray(right[None], dtype),
+        "freqs_pc": np.asarray(np.broadcast_to(freqs, (rate_cats, 4)),
+                               dtype),
+        "prop_invar_pc": np.zeros((rate_cats,), dtype),
+        "rate_weights": np.full((rate_cats,), 1.0 / rate_cats, dtype),
+        "pattern_weights": np.ones((sites,), dtype),
+        "invariant": np.full((sites,), -1, np.int32),
+    }
+
+    if tip_masks:
+        return topo, model, draw_tip_masks(rng, tips, sites), None
+
+    # tip CLVs from random (or tree-simulated) sequences; inner CLVs zero
+    nodes = 2 * tips - 2
+    clv = np.zeros((nodes, rate_cats, 4, sites), dtype=np.float32)
+    if simulate:
+        states = simulate_tips(tree, tips, sites, w, left, right, freqs, rng)
+    else:
+        states = rng.integers(0, 4, (tips, sites))
+    onehot = np.eye(4, dtype=np.float32)[states]  # [tips, sites, 4]
+    clv[:tips] = onehot.transpose(0, 2, 1)[:, None, :, :]
+    scalers = np.zeros((topo.schedule.n_inner + 1, sites), np.int32)
+    return topo, model, clv.astype(dtype), scalers

@@ -1,0 +1,96 @@
+"""The port's CUDA kernels on the card (marker ``gpu``).
+
+Run on a machine with an NVIDIA GPU, where jax need not be installed:
+
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+
+(``--noconftest`` skips ``tests/conftest.py``, which configures jax for the
+CPU suite.)  Each test decides inside its fixture whether a card is
+present and skips without one, so this file imports neither jax nor
+``libpll_tpu``.  Tolerances are chip_smoke.py's: float64 logL rel 1e-12,
+scalers equal; float32 logL within 2e-6·|logL| + 5e-3, scalers agree at
+>= 99.9%, CLVs rtol 1e-5 where they agree.
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from libpll_tpu_torch.engine import evaluate as ev
+from libpll_tpu_torch.engine.params import model_from_numpy
+from libpll_tpu_torch.errors import EinvalError
+from libpll_tpu_torch.ops import clv_fused as cf
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_card(cuda):
+    """chip_smoke's phase 3: every tip encoding, scale mode, +I, dtype and
+    rate-category count, with a ragged last block, kernel vs plain."""
+    before = (cf.fused_sweep.launches, cf.fused_edge_score.launches)
+    assert chip_smoke.check_small(cuda)[0] > 0
+    assert cf.fused_sweep.launches > before[0]
+    assert cf.fused_edge_score.launches > before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tip_encoding", ["clv", "chars", "masks"])
+def test_modules_on_card_match_cpu(cuda, tip_encoding):
+    """make_score / make_forward_fused moved to the card (kernels) equal
+    the same modules on the CPU (plain versions) in float64."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(10, np.random.default_rng(5)), 300, 4, 5)
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, torch.float64)
+        tp = chip_smoke.tip_input(masks, tip_encoding, 4, torch.float64,
+                                  device)
+        score = ev.make_score(topo, 4, 4, use_pinv=True,
+                              tip_encoding=tip_encoding).to(device)
+        fwd = ev.make_forward_fused(topo, 4, 4, tip_encoding).to(device)
+        logl, persite, inner, scalers = fwd(model, tp)
+        out[str(device)] = (float(score(model, tp)), float(logl),
+                            inner.cpu(), scalers.cpu())
+    (s0, f0, i0, c0), (s1, f1, i1, c1) = out.values()
+    assert abs(s1 - s0) <= 1e-12 * abs(s0)
+    assert abs(f1 - f0) <= 1e-12 * abs(f0)
+    torch.testing.assert_close(i1, i0, rtol=1e-12, atol=0)
+    assert torch.equal(c1, c0)
+    with pytest.raises(EinvalError):  # inputs on another device
+        ev.make_score(topo, 4, 4, tip_encoding=tip_encoding)(
+            model_from_numpy(model_np, cuda, torch.float64), tp)
+
+
+@pytest.mark.gpu
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    newick = chip_smoke.random_newick(8, np.random.default_rng(4))
+    for rate_cats, bad in ((3, "rate_cats"), (4, "dtype"),
+                           (4, "contiguity"), (4, "device")):
+        topo, model_np, masks = chip_smoke.small_case(newick, 40, rate_cats,
+                                                      4)
+        pm = chip_smoke.kernel_inputs(topo, model_np, torch.float64, cuda,
+                                      False)[0]
+        tips = chip_smoke.tip_input(masks, "clv", rate_cats, torch.float64,
+                                    cuda)
+        if bad == "dtype":
+            tips = tips.float()
+        elif bad == "contiguity":
+            tips = tips.transpose(1, 2)
+        elif bad == "device":
+            pm = pm.cpu()
+        with pytest.raises(EinvalError):
+            cf.fused_sweep(topo.schedule, tips, pm)
