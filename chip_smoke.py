@@ -3,15 +3,25 @@
 
     python3 chip_smoke.py
 
-The main path is one full-tree log-likelihood evaluation of the flagship
-configuration (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
-per-site scaling, nibble-packed pattern tips): model parameters →
-P-matrices → the fused edge-score kernel K1 (``make_score``), and the fused
-sweep kernel K2 (``make_forward_fused``).  Phases, one line each:
+Two main paths, each driven once with the launch counters set to 0 just
+before it and read just after:
+
+  * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
+    per-site scaling, nibble-packed pattern tips): model parameters →
+    P-matrices → the fused edge-score kernel K1 (``make_score``), and the
+    fused sweep kernel K2 (``make_forward_fused``);
+  * the large-tree tier: ``make_score_unbounded`` (the dyn score kernel
+    K6 over the tree's segments) at BASELINE.json's large configuration,
+    10 240 taxa × 1 048 576 sites, GTR+Γ4, float32, per-site scaling,
+    nibble-packed tips drawn on the card; and the dyn sweep kernel K5
+    (``make_dyn_sweep``) at 4 096 × 8 192.
+
+Phases, one line each:
 
   1. card: name and power limit (nvidia-smi);
-  2. build: nvcc builds ``libpll_tpu_torch/csrc/clv_fused.cu`` for sm_90a;
-  3. small configs: each kernel against its plain PyTorch version on the
+  2. build: nvcc builds ``csrc/clv_fused.cu`` and ``csrc/clv_dyn.cu`` for
+     sm_90a, one process each, both at once;
+  3. small configs: K1/K2 against their plain PyTorch versions on the
      card, for every tip encoding, scale mode, +I and rate-category count,
      in float64 (logL rel <= 1e-12, scalers equal, CLVs rel 1e-12) and
      float32 (logL within the f32 budget, scalers agree at >= 99.9% of
@@ -19,8 +29,29 @@ sweep kernel K2 (``make_forward_fused``).  Phases, one line each:
   4. flagship: ``make_score`` and ``make_forward_fused`` in float32 against
      the plain float64 ``make_forward`` on the card, |ΔlogL| <= 2e-6·|logL|
      + 5e-3 (the engine's f32 budget), launch counters > 0;
-  5. times: each kernel and its plain version at the flagship shapes, with
-     CUDA events.
+  5. times: K1/K2 and their plain versions at the flagship shapes, with
+     CUDA events;
+  6. dyn build: ``clv_dyn.cu``'s instances, registers and spills (built
+     in phase 2);
+  7. small dyn configs: K5 and K6 against their plain versions on the
+     card with phase 3's tolerances: every tip encoding (masks only for
+     protein), scale mode, float32/float64, C in {1, 2, 4, 8}, S in
+     {4, 20}, ±I, single- and multi-segment trees, and one instance
+     scoring two topologies by a table swap (``dynamic_edge``);
+  8. mid configs (BASELINE.md): 4 096 × 8 192 DNA with per-rate scalers
+     through ``make_score_unbounded`` and ``make_dyn_sweep`` (K5, cut into
+     segments), and 256 × 16 384 protein (20-bit masks) through
+     ``make_score_unbounded``, each against the plain float64
+     ``make_forward`` on the card within the f32 budget;
+  9. giant: ``make_score_unbounded`` at 10 240 × 1 048 576; the logL is
+     finite and the kernel's partial sums of eight 128-site blocks (the
+     last among them) match the plain float64 ``make_forward`` run on
+     those sites' tip columns, each within 2e-6·|block| + 5e-3; K6 matches
+     its plain version (segment by segment, float32) on the same inputs,
+     in logL and in every block, within the f32 budget; segments, row
+     budget, peak device memory, schedule time and ms/eval;
+ 10. dyn times: K5 and K6 against their plain versions at 4 096 × 8 192,
+     and K6 against its plain version at the giant.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -82,8 +113,15 @@ def caterpillar_newick(tips):
     return f"({s}:0.1,t{tips - 2}:0.1,t{tips - 1}:0.1);"
 
 
-def small_case(newick, sites, rate_cats, seed):
-    """(topo, numpy model with +I, [tips, sites] IUPAC masks)."""
+# protein: single states, B = D|N, Z = E|Q, X/gap
+PROTEIN_POOL = np.array([1 << k for k in range(20)]
+                        + [(1 << 2) | (1 << 11), (1 << 3) | (1 << 13),
+                           (1 << 20) - 1], np.uint32)
+
+
+def small_case(newick, sites, rate_cats, seed, states=4):
+    """(topo, numpy model with +I, [tips, sites] ambiguity masks: IUPAC
+    for DNA, B/Z/X among the protein states)."""
     from libpll_tpu_torch.engine.evaluate import topology_from_tree
     from libpll_tpu_torch.models.gamma import compute_gamma_cats
     from libpll_tpu_torch.models.gtr import eigen_decompose
@@ -92,29 +130,30 @@ def small_case(newick, sites, rate_cats, seed):
     rng = np.random.default_rng(seed)
     topo, branches = topology_from_tree(ut.parse_newick_string(newick),
                                         sites)
-    freqs = rng.uniform(0.1, 1.0, 4)
+    freqs = rng.uniform(0.1, 1.0, states)
     freqs /= freqs.sum()
-    w, left, right = eigen_decompose(rng.uniform(0.5, 2.0, 6), freqs)
+    w, left, right = eigen_decompose(
+        rng.uniform(0.5, 2.0, states * (states - 1) // 2), freqs)
     invariant = np.full(sites, -1, np.int32)
-    invariant[: sites // 10] = rng.integers(0, 4, sites // 10)
+    invariant[: sites // 10] = rng.integers(0, states, sites // 10)
     model = {
         "branch_lengths": np.asarray(branches),
         "rates": compute_gamma_cats(0.8, rate_cats),
         "prop_invar": np.asarray([0.2]),
         "params_indices": np.zeros(rate_cats, np.int32),
         "eigenvals": w[None], "left": left[None], "right": right[None],
-        "freqs_pc": np.broadcast_to(freqs, (rate_cats, 4)),
+        "freqs_pc": np.broadcast_to(freqs, (rate_cats, states)),
         "prop_invar_pc": np.full(rate_cats, 0.2),
         "rate_weights": np.full(rate_cats, 1.0 / rate_cats),
         "pattern_weights": rng.integers(1, 4, sites).astype(np.float64),
         "invariant": invariant,
     }
-    masks = IUPAC_POOL[rng.integers(0, len(IUPAC_POOL),
-                                    (topo.schedule.tips, sites))]
+    pool = IUPAC_POOL if states == 4 else PROTEIN_POOL
+    masks = pool[rng.integers(0, len(pool), (topo.schedule.tips, sites))]
     return topo, model, masks
 
 
-def tip_input(masks, tip_encoding, rate_cats, dtype, device):
+def tip_input(masks, tip_encoding, rate_cats, dtype, device, states=4):
     import torch
 
     from libpll_tpu_torch.ops import clv_fused as cf
@@ -125,7 +164,7 @@ def tip_input(masks, tip_encoding, rate_cats, dtype, device):
     if tip_encoding == "masks":
         return words
     rows = torch.arange(masks.shape[0], device=device)
-    return cf.decode_tips(words, "masks", rows, rate_cats, 4,
+    return cf.decode_tips(words, "masks", rows, rate_cats, states,
                           dtype).contiguous()
 
 
@@ -248,6 +287,224 @@ def check_small(device):
     return n, k1_err, k2_err
 
 
+# --------------------------------------------------------------- dyn tier
+def stacked(tables, device):
+    """Per-segment tables as [n_segments, ...] tensors on ``device``."""
+    import torch
+
+    return [torch.stack(list(t)).to(device) for t in tables]
+
+
+def check_dyn_small(device):
+    """Phase 7: K5 and K6 against their plain versions.  Returns
+    (configurations checked, largest float32 K5 CLV abs error, largest
+    float32 K6 |d logL|)."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE, SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    rng = np.random.default_rng(2)
+    # (label, newick, states, rate categories, row budget; None: one
+    # segment); 1000 sites leave a ragged last block of 104
+    trees = [("random16", random_newick(16, rng), 4, (4,), None),
+             ("random16/8rows", random_newick(16, rng), 4, (4,), 8),
+             ("caterpillar48/12rows", caterpillar_newick(48), 4, (4,), 12),
+             ("random12/6rows", random_newick(12, rng), 4, (1, 2, 8), 6),
+             ("protein12/6rows", random_newick(12, rng), 20, (1, 2, 4, 8),
+              6)]
+    n, k5_err, k6_err = 0, 0.0, 0.0
+    for label, newick, states, cats, max_rows in trees:
+        for rate_cats in cats:
+            topo, model_np, masks = small_case(newick, 1000, rate_cats,
+                                               seed=rate_cats, states=states)
+            dyn = cd.build_dyn_schedule(
+                topo.schedule, rate_cats=rate_cats, states=states,
+                max_rows=max_rows, sites=1000,
+                ensure_rows=[topo.parent_clv, topo.child_clv])
+            check((max_rows is None) == (len(dyn.segments) == 1),
+                  f"{label}: {len(dyn.segments)} segments")
+            tables = stacked(cd.dyn_score_args(dyn), device)
+            edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
+            for dtype in (torch.float32, torch.float64):
+                for enc in (("clv", "chars", "masks") if states == 4
+                            else ("masks",)):
+                    tp = tip_input(masks, enc, rate_cats, dtype, device,
+                                   states)
+                    where = (f"{label} S={states} C={rate_cats} {dtype} "
+                             f"{enc}")
+                    for scale in (SCALE_NONE, SCALE_PER_SITE,
+                                  SCALE_PER_RATE):
+                        pm = kernel_inputs(topo, model_np, dtype, device,
+                                           False)[0]
+                        sweep = cd.make_dyn_sweep(
+                            dyn, scale, rate_cats=rate_cats, states=states,
+                            tip_encoding=enc)
+                        got = sweep(tp, *tables[:2], pm)
+                        want = sweep.plain(tp, *tables[:2], pm)
+                        torch.cuda.synchronize()
+                        ok, err, agree = sweep_close(*got, *want, dtype)
+                        check(ok, f"K5 {where} scale={scale}: max abs err "
+                                  f"{err}, scaler agreement {agree}")
+                        if dtype == torch.float32:
+                            k5_err = max(k5_err, err)
+                        n += 1
+                        for pinv in (False, True):
+                            args = kernel_inputs(topo, model_np, dtype,
+                                                 device, pinv)
+                            score = cd.make_dyn_score(
+                                dyn, *edge, scale, rate_cats=rate_cats,
+                                states=states, tip_encoding=enc,
+                                use_pinv=pinv)
+                            got = float(score(tp, *tables, *args))
+                            want = float(score.plain(tp, *tables, *args))
+                            check(np.isfinite(got) and logl_close(
+                                got, want, dtype),
+                                f"K6 {where} scale={scale} pinv={pinv}: "
+                                f"{got} vs plain {want}")
+                            if dtype == torch.float32:
+                                k6_err = max(k6_err, abs(got - want))
+                            n += 1
+    return n + check_dyn_swap(device), k5_err, k6_err
+
+
+def check_dyn_swap(device):
+    """One K6 instance (``dynamic_edge``) scores two 16-taxon topologies
+    built with matching envelope floors by swapping their tables, eval
+    locations, edge matrix, import wiring and tip rows: each result equals
+    a fresh instance's bit for bit and the plain version's within
+    tolerance.  Returns the configurations checked."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_dyn as cd
+
+    rng = np.random.default_rng(7)
+    cases = [small_case(random_newick(16, rng), 1000, 4, seed=7)
+             for _ in range(2)]
+
+    def schedule(topo, floors):
+        return cd.build_dyn_schedule(
+            topo.schedule, rate_cats=4, states=4, max_rows=8,
+            ensure_rows=[topo.parent_clv, topo.child_clv], **floors)
+
+    probes = [schedule(topo, {}) for topo, _, _ in cases]
+    floors = dict(
+        min_r_tip=max(p.r_tip for p in probes) + 2,
+        min_r_imp=max(p.r_imp for p in probes) + 2,
+        min_r_loc=max(p.r_loc for p in probes),
+        min_segments=max(len(p.segments) for p in probes) + 1,
+        min_r_exp=max(cd._export_tables(p)[2] for p in probes) + 2)
+    dyns = [schedule(topo, floors) for topo, _, _ in cases]
+    topo0 = cases[0][0]
+    shared = cd.make_dyn_score(dyns[0], topo0.parent_clv, topo0.child_clv,
+                               topo0.edge_matrix, rate_cats=4, states=4,
+                               dynamic_edge=True)
+    n = 0
+    for (topo, model_np, masks), dyn in zip(cases, dyns):
+        tp = tip_input(masks, "chars", 4, None, device)
+        tables, m_g, exp_t, imp_src = cd.dyn_swap_args(dyn)
+        data = dict(
+            eval_locs=torch.from_numpy(cd.dyn_eval_locs(
+                dyn, topo.parent_clv, topo.child_clv)).to(device),
+            edge_matrix_idx=torch.tensor(topo.edge_matrix, device=device),
+            imp_src=imp_src.to(device),
+            tip_globals=cd.dyn_tip_globals(dyn).to(device))
+        tabs = stacked((tables, m_g, exp_t), device)
+        fresh = cd.make_dyn_score(dyn, topo.parent_clv, topo.child_clv,
+                                  topo.edge_matrix, rate_cats=4, states=4)
+        for dtype in (torch.float32, torch.float64):
+            args = kernel_inputs(topo, model_np, dtype, device, False)
+            got = float(shared(tp, *tabs, *args, **data))
+            want = float(fresh(tp, *tabs, *args))
+            plain = float(shared.plain(tp, *tabs, *args, **data))
+            check(got == want and logl_close(got, plain, dtype),
+                  f"K6 table swap {dtype}: {got} vs fresh {want}, plain "
+                  f"{plain}")
+            n += 1
+    return n
+
+
+def plain_forward_f64(topo, tips_packed, tip_encoding, model64, states):
+    """The plain float64 make_forward on the card: (logL, per-site)."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+    device = tips_packed.device
+    sched, sites = topo.schedule, tips_packed.shape[-1]
+    c = model64["freqs_pc"].shape[0]
+    clv = torch.zeros((sched.tips + sched.n_inner, c, states, sites),
+                      dtype=torch.float64, device=device)
+    clv[:sched.tips] = cf.decode_tips(
+        tips_packed, tip_encoding, torch.arange(sched.tips, device=device),
+        c, states, torch.float64)
+    sshape = ((sched.n_inner + 1, c, sites)
+              if topo.scale_mode == SCALE_PER_RATE
+              else (sched.n_inner + 1, sites))
+    scal = torch.zeros(sshape, dtype=torch.int32, device=device)
+    logl, persite = ev.make_forward(topo).to(device)(model64, clv, scal)
+    return float(logl), persite
+
+
+def sweep_logl(topo, dyn, inner, scalers, tips_packed, model, pmatrix):
+    """The edge log-likelihood of a K5 output (segment-major rows)."""
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import likelihood as lk
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+    import torch
+
+    tips, c = dyn.tips, pmatrix.shape[1]
+
+    def row(idx):
+        if idx >= tips:
+            return inner[dyn.inner_row(idx - tips)]
+        rows = torch.arange(idx, idx + 1, device=tips_packed.device)
+        return cf.decode_tips(tips_packed, "chars", rows, c, 4,
+                              pmatrix.dtype)[0]
+
+    def srow(idx):
+        return scalers[dyn.scaler_row(idx - tips) if idx >= tips
+                       else dyn.n_inner]
+
+    f = ev._floats(model, pmatrix.dtype)
+    return float(lk.edge_loglikelihood(
+        row(topo.parent_clv), row(topo.child_clv), srow(topo.parent_clv),
+        srow(topo.child_clv), pmatrix[topo.edge_matrix], f["freqs_pc"],
+        f["rate_weights"], f["pattern_weights"], f["prop_invar_pc"],
+        model["invariant"], sites=topo.sites,
+        per_rate=topo.scale_mode == SCALE_PER_RATE)[0])
+
+
+def ptxas_report(name):
+    """[(instance, registers, spill bytes)] from nvcc's -Xptxas -v log."""
+    import re
+
+    from libpll_tpu_torch.ops import _build
+
+    rows, current, spill = [], None, 0
+    log = _build.library_path(name).with_suffix(".log")
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            t = re.search(r"I([fd])Li(\d+)E", current)
+            label = (f"<{'float' if t.group(1) == 'f' else 'double'},"
+                     f"{t.group(2)}>" if t else current)
+            rows.append((label, int(m.group(1)), spill))
+            current = None
+    return rows
+
+
 # ------------------------------------------------------------- timing
 def time_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
     """(device ms, host ms) per call over ``iters`` back-to-back calls:
@@ -270,6 +527,206 @@ def time_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
     return start.elapsed_time(end) / iters, host
 
 
+MID_TIPS, MID_SITES = 4096, 8192
+K5_MAX_ROWS = 1024  # cuts the mid tree into segments, so K5 imports
+PROTEIN_TIPS, PROTEIN_SITES = 256, 16384
+GIANT_TIPS, GIANT_SITES = 10240, 1 << 20
+GIANT_BLOCKS = 8
+PLAIN_ITERS = 3  # the plain dyn versions take ~1 s a call at the mid size
+
+
+def phase_mid(device):
+    """Phase 8, and the times of phase 10.  Returns the numbers the JSON
+    line reports."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+    from libpll_tpu_torch.utils.flagship import (build_flagship_topology,
+                                                 draw_tipchars_cuda)
+
+    t0 = time.perf_counter()
+    topo, model_np = build_flagship_topology(MID_TIPS, MID_SITES, seed=1)
+    topo = topo._replace(scale_mode=SCALE_PER_RATE)
+    tp = draw_tipchars_cuda(MID_TIPS, MID_SITES, 1, device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    want = plain_forward_f64(topo, tp, "chars", model_from_numpy(
+        model_np, device, torch.float64), 4)[0]
+    torch.cuda.empty_cache()
+    budget = ACC_REL * abs(want) + ACC_ABS
+    score = ev.ScoreUnbounded(topo, 4, 4, tp, "chars").to(device)
+    got = float(score(m32))
+    check(np.isfinite(got) and abs(got - want) <= budget,
+          f"mid make_score_unbounded {got} vs plain f64 {want}")
+
+    dyn = cd.build_dyn_schedule(
+        topo.schedule, rate_cats=4, states=4, max_rows=K5_MAX_ROWS,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    sweep = cd.make_dyn_sweep(dyn, SCALE_PER_RATE, rate_cats=4, states=4,
+                              tip_encoding="chars")
+    tables = stacked(cd.dyn_runtime_args(dyn), device)
+    pm = score.pmatrices(m32, torch.float32)
+    cd.DynSweep.launches = 0
+    inner, scal = sweep(tp, *tables, pm)
+    torch.cuda.synchronize()
+    k5_launches = cd.DynSweep.launches
+    check(k5_launches > 0, "make_dyn_sweep launched no K5")
+    got_k5 = sweep_logl(topo, dyn, inner, scal, tp, m32, pm)
+    check(abs(got_k5 - want) <= budget,
+          f"mid K5 logL {got_k5} vs plain f64 {want}")
+    ok, k5_err, agree = sweep_close(inner, scal, *sweep.plain(tp, *tables,
+                                                             pm),
+                                    torch.float32)
+    check(ok, f"mid K5 vs plain: max abs err {k5_err}, scalers agree "
+              f"{agree}")
+    del inner, scal
+    wvec = cf.pack_weight_vec(m32["freqs_pc"], m32["rate_weights"])
+    k6_args = (score.tips, score.tables, score.m_ops, score.exp_tables, pm,
+               wvec, m32["pattern_weights"])
+    k6_err = abs(float(score.kernel(*k6_args))
+                 - float(score.kernel.plain(*k6_args)))
+    check(k6_err <= budget, f"mid K6 vs plain: |d logL| {k6_err}")
+    print(f"[8 dyn mid] {MID_TIPS} x {MID_SITES} DNA per-rate f32: "
+          f"make_score_unbounded {got:.6f} ({len(score.dyn.segments)} "
+          f"segment(s)), K5 make_dyn_sweep logL {got_k5:.6f} "
+          f"({len(dyn.segments)} segments, {k5_launches} launches), plain "
+          f"f64 make_forward {want:.6f} (|d| {abs(got - want):.3e}, "
+          f"{abs(got_k5 - want):.3e} <= {budget:.3e}); K5-plain max abs "
+          f"{k5_err:.3e}, scalers agree {agree:.6f}; K6-plain |d logL| "
+          f"{k6_err:.3e}", flush=True)
+
+    ptopo, pmodel, pmasks = small_case(
+        random_newick(PROTEIN_TIPS, np.random.default_rng(3)),
+        PROTEIN_SITES, 4, seed=3, states=20)
+    pmodel["prop_invar"] = np.zeros(1)
+    pmodel["prop_invar_pc"] = np.zeros(4)
+    pwant = plain_forward_f64(
+        ptopo, torch.from_numpy(pmasks.astype(np.int32)).to(device),
+        "masks", model_from_numpy(pmodel, device, torch.float64), 20)[0]
+    torch.cuda.empty_cache()
+    pscore = ev.make_score_unbounded(ptopo, 4, 20, pmasks).to(device)
+    pgot = float(pscore(model_from_numpy(pmodel, device, torch.float32)))
+    pbudget = ACC_REL * abs(pwant) + ACC_ABS
+    check(np.isfinite(pgot) and abs(pgot - pwant) <= pbudget,
+          f"protein make_score_unbounded {pgot} vs plain f64 {pwant}")
+    print(f"[8 dyn mid] {PROTEIN_TIPS} x {PROTEIN_SITES} protein (20-bit "
+          f"masks, B/Z/X codes) f32: make_score_unbounded {pgot:.6f} vs "
+          f"plain f64 make_forward {pwant:.6f} (|d| {abs(pgot - pwant):.3e}"
+          f" <= {pbudget:.3e}); {len(pscore.dyn.segments)} segment(s) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del pscore
+
+    ms = {"k6": time_ms(lambda: score.kernel(*k6_args))[0],
+          "k6_plain": time_ms(lambda: score.kernel.plain(*k6_args),
+                              PLAIN_ITERS, 1)[0],
+          "k5": time_ms(lambda: sweep(tp, *tables, pm))[0],
+          "k5_plain": time_ms(lambda: sweep.plain(tp, *tables, pm),
+                              PLAIN_ITERS, 1)[0]}
+    return dict(k5_launches=k5_launches, k5_err=k5_err, k6_err=k6_err,
+                k5_segments=len(dyn.segments), ms=ms)
+
+
+def phase_giant(device):
+    """Phase 9: the large-tree tier at full width on one card."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.flagship import (build_flagship_topology,
+                                                 draw_tipchars_cuda)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    topo, model_np = build_flagship_topology(GIANT_TIPS, GIANT_SITES, seed=0)
+    topo_s = time.perf_counter() - t0
+    tp = draw_tipchars_cuda(GIANT_TIPS, GIANT_SITES, 0, device)
+    t0 = time.perf_counter()
+    score = ev.ScoreUnbounded(topo, 4, 4, tp, "chars").to(device)
+    sched_s = time.perf_counter() - t0
+    m32 = model_from_numpy(model_np, device, torch.float32)
+
+    cd.DynScore.launches = 0
+    logl = float(score(m32))
+    torch.cuda.synchronize()
+    launches = cd.DynScore.launches
+    check(launches > 0, "make_score_unbounded launched no K6")
+    check(np.isfinite(logl), f"giant logL {logl}")
+    partials = score(m32, return_partials=True)
+    check(abs(float(partials.sum()) - logl) <= 1e-9 * abs(logl),
+          "giant partials do not sum to the logL")
+    peak = torch.cuda.max_memory_allocated()
+
+    # per-site scaling is site-local: the plain f64 path on the tip
+    # columns of a few blocks gives those blocks' per-site values
+    n_blocks = partials.shape[0]
+    blocks = sorted({int(b) for b in
+                     np.linspace(0, n_blocks - 1, GIANT_BLOCKS).round()})
+    check(len(blocks) == GIANT_BLOCKS and blocks[-1] == n_blocks - 1,
+          f"sampled blocks {blocks}")
+    spans = [np.arange(b * cd.BLOCK_SITES,
+                       min((b + 1) * cd.BLOCK_SITES, GIANT_SITES))
+             for b in blocks]
+    cols = np.concatenate(spans)
+    sub = dict(model_np, pattern_weights=model_np["pattern_weights"][cols],
+               invariant=model_np["invariant"][cols])
+    idx = torch.from_numpy(cols).to(device)
+    persite = plain_forward_f64(
+        topo._replace(sites=len(cols)), tp[:, idx].contiguous(), "chars",
+        model_from_numpy(sub, device, torch.float64), 4)[1]
+    want = torch.stack([p.sum() for p in
+                        persite.split([len(x) for x in spans])])
+    got = partials[blocks]
+    diff = (got - want).abs()
+    tol = ACC_REL * want.abs() + ACC_ABS
+    check(bool((diff <= tol).all()),
+          f"giant blocks {blocks}: kernel {got.tolist()} vs plain f64 "
+          f"{want.tolist()}")
+    del persite
+    torch.cuda.empty_cache()
+
+    # K6 against its plain version on the same inputs at these shapes: the
+    # plain version runs segment by segment, ~14 GB of state at a time
+    pm = score.pmatrices(m32, torch.float32)
+    wvec = cf.pack_weight_vec(m32["freqs_pc"], m32["rate_weights"])
+    k6_args = (score.tips, score.tables, score.m_ops, score.exp_tables, pm,
+               wvec, m32["pattern_weights"])
+    plain = score.kernel.plain(*k6_args, return_partials=True)
+    k6_err = abs(float(partials.sum()) - float(plain.sum()))
+    block_err = (partials - plain).abs()
+    check(k6_err <= ACC_REL * abs(logl) + ACC_ABS and bool(
+        (block_err <= ACC_REL * plain.abs() + ACC_ABS).all()),
+        f"giant K6 vs plain: |d logL| {k6_err}, largest block |d| "
+        f"{float(block_err.max())}")
+    del plain, partials
+    torch.cuda.empty_cache()
+    ms, host = time_ms(lambda: score(m32), iters=3, warmup=1)
+    k6_ms = time_ms(lambda: score.kernel(*k6_args), iters=3, warmup=1)[0]
+    k6_plain_ms = time_ms(lambda: score.kernel.plain(*k6_args), iters=1,
+                          warmup=0)[0]
+    print(f"[9 giant] {GIANT_TIPS} taxa x {GIANT_SITES} sites x 4 rates "
+          f"f32 chars, per-site scaling, one card: make_score_unbounded "
+          f"logL {logl:.6f} (finite); {len(score.dyn.segments)} segments, "
+          f"max_rows {cd.dyn_max_rows(4, 4, GIANT_SITES)} (r_tip "
+          f"{score.dyn.r_tip}, r_imp {score.dyn.r_imp}, r_loc "
+          f"{score.dyn.r_loc}), {launches} K6 launches per eval; blocks "
+          f"{blocks} match the plain f64 path on their columns (largest "
+          f"|d| {float(diff.max()):.3e}, tolerance >= "
+          f"{float(tol.min()):.3e}); K6 vs its plain version |d logL| "
+          f"{k6_err:.3e}, largest block |d| {float(block_err.max()):.3e}; "
+          f"peak device memory "
+          f"{peak / 2**30:.2f} GiB; host: topology {topo_s:.2f} s, "
+          f"schedule {sched_s:.2f} s; {ms:.2f} ms/eval (host issues a call "
+          f"in {host:.2f} ms)", flush=True)
+    return dict(launches=launches, ms=ms, k6_err=k6_err, k6_ms=k6_ms,
+                k6_plain_ms=k6_plain_ms)
+
+
 def main():
     try:
         import torch
@@ -287,6 +744,7 @@ def main():
     from libpll_tpu_torch.engine import evaluate as ev
     from libpll_tpu_torch.engine.params import model_from_numpy
     from libpll_tpu_torch.ops import _build
+    from libpll_tpu_torch.ops import clv_dyn as cd
     from libpll_tpu_torch.ops import clv_fused as cf
     from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
                                                  FLAGSHIP_SITES,
@@ -302,16 +760,16 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    cf.load_kernels()
+    _build.build_all(["clv_fused", "clv_dyn"])  # one nvcc each, at once
     build_s = time.perf_counter() - t0
-    logs = sorted(_build.BUILD_DIR.glob("clv_fused-*.log"))
-    usage = [ln.strip() for ln in logs[-1].read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if logs else []
-    spills = [ln for ln in usage if "spill" in ln and " 0 bytes spill" not in ln]
-    print(f"[2 build] clv_fused.cu for sm_90a in {build_s:.2f} s; "
-          f"{len(usage) // 2} kernel instances; ptxas: "
-          f"{usage[1] if len(usage) > 1 else 'n/a'}; "
-          f"instances with spills: {len(spills)}", flush=True)
+    cf.load_kernels()
+    cd.load_kernels()
+    fused = ptxas_report("clv_fused")
+    print(f"[2 build] clv_fused.cu and clv_dyn.cu for sm_90a in "
+          f"{build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
+          f"instances, at most {max(r for _, r, _ in fused)} registers, "
+          f"instances with spills: {sum(1 for *_, b in fused if b)}",
+          flush=True)
 
     t0 = time.perf_counter()
     n, k1_small, k2_small = check_small(device)
@@ -408,16 +866,52 @@ def main():
           f"plain {ms['k2_plain']:.4f} ms ({TIMED_ITERS} calls after "
           f"{WARMUP} warm-up, CUDA events)", flush=True)
 
-    src = "libpll_tpu_torch/csrc/clv_fused.cu"
+    # ---------------------------------------------------- 6-10: dyn tier
+    dyn_rows = ptxas_report("clv_dyn")
+    print(f"[6 dyn build] clv_dyn.cu: {len(dyn_rows)} kernel instances "
+          f"(dtype, states): " + "; ".join(
+              f"{lab} {r} registers, {b} B spill" for lab, r, b in dyn_rows),
+          flush=True)
+    del score, fwd, tp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    n, k5_small, k6_small = check_dyn_small(device)
+    print(f"[7 dyn small] {n} kernel configurations match their plain "
+          f"versions ({time.perf_counter() - t0:.1f} s); largest f32 "
+          f"deviations: K5 CLV abs {k5_small:.3e}, K6 |d logL| "
+          f"{k6_small:.3e}", flush=True)
+
+    mid = phase_mid(device)
+    giant = phase_giant(device)
+    print(f"[10 dyn times] {card}: at {MID_TIPS} x {MID_SITES} (DNA, "
+          f"per-rate) K6 "
+          f"{mid['ms']['k6']:.4f} ms vs plain {mid['ms']['k6_plain']:.4f} "
+          f"ms; K5 {mid['ms']['k5']:.4f} ms vs plain "
+          f"{mid['ms']['k5_plain']:.4f} ms ({mid['k5_segments']} segments); "
+          f"at {GIANT_TIPS} x {GIANT_SITES} K6 {giant['k6_ms']:.2f} ms vs "
+          f"plain {giant['k6_plain_ms']:.2f} ms (make_score_unbounded "
+          f"{giant['ms']:.2f} ms/eval); CUDA events", flush=True)
+
+    fused_src = "libpll_tpu_torch/csrc/clv_fused.cu"
+    dyn_src = "libpll_tpu_torch/csrc/clv_dyn.cu"
     print(json.dumps({"kernels": [
-        {"name": "fused_edge_score", "route": "cuda", "source": src,
+        {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
          "launches": launches["fused_edge_score"], "max_abs_err": k1_err,
          "ms": ms["k1"], "plain_ms": ms["k1_plain"]},
-        {"name": "fused_sweep", "route": "cuda", "source": src,
+        {"name": "fused_sweep", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:673",
          "launches": launches["fused_sweep"], "max_abs_err": k2_err,
-         "ms": ms["k2"], "plain_ms": ms["k2_plain"]}]}))
+         "ms": ms["k2"], "plain_ms": ms["k2_plain"]},
+        {"name": "dyn_sweep", "route": "cuda", "source": dyn_src,
+         "replaces": "libpll_tpu/ops/clv_pallas_dyn.py:383",
+         "launches": mid["k5_launches"], "max_abs_err": mid["k5_err"],
+         "ms": mid["ms"]["k5"], "plain_ms": mid["ms"]["k5_plain"]},
+        {"name": "dyn_score", "route": "cuda", "source": dyn_src,
+         "replaces": "libpll_tpu/ops/clv_pallas_dyn.py:695",
+         "launches": giant["launches"], "max_abs_err": giant["k6_err"],
+         "ms": giant["k6_ms"], "plain_ms": giant["k6_plain_ms"]}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

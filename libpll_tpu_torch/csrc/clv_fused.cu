@@ -49,18 +49,12 @@
 
 #include <cmath>
 
+#include "clv_common.cuh"
+
 namespace {
 
-constexpr int kStates = 4;     // DNA; wider alphabets are a later port
+constexpr int kStates = 4;     // DNA; clv_dyn.cu also takes protein
 constexpr int kOpFields = 8;   // prow, c1, m1, c2, m2, s1, s2, has_scaler
-constexpr int kThreads = 128;  // sites per block
-
-enum { TIP_CLV = 0, TIP_CHARS = 1, TIP_MASKS = 2 };
-enum { SCALE_NONE = 0, SCALE_PER_SITE = 1, SCALE_PER_RATE = 2 };
-
-template <typename T> struct Shift;
-template <> struct Shift<float> { static constexpr int bits = 32; };
-template <> struct Shift<double> { static constexpr int bits = 256; };
 
 template <typename T>
 struct SweepArgs {
@@ -93,15 +87,6 @@ struct ScoreArgs {
   T log_scale;
   double* partials;          // [n_blocks]
 };
-
-__device__ __forceinline__ float dev_log(float x) { return logf(x); }
-__device__ __forceinline__ double dev_log(double x) { return log(x); }
-__device__ __forceinline__ float dev_fma(float x, float y, float z) {
-  return fmaf(x, y, z);
-}
-__device__ __forceinline__ double dev_fma(double x, double y, double z) {
-  return fma(x, y, z);
-}
 
 // CLV rows of node `idx` at one site.  Inner rows are read with plain
 // loads: this kernel wrote them, so the non-coherent read-only path is
@@ -244,19 +229,6 @@ __device__ T edge_site_lnl(const SweepArgs<T>& a, const ScoreArgs<T>& s,
                    load_count(a, s.child_srow, 1, 0, site);
   return (dev_log(site_term) + (T)snum * s.log_scale) *
          __ldg(s.pattern_weights + site);
-}
-
-__device__ void block_sum_store(double v, double* out) {
-  __shared__ double warp_sums[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double total = 0.0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    out[blockIdx.x] = total;
-  }
 }
 
 template <typename T, int C, bool kScore>

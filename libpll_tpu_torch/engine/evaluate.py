@@ -14,7 +14,10 @@ whose inputs lie on another device raises.
     logL;
   * :func:`make_score` — K1 (``ops.clv_fused.fused_edge_score``), the
     tree-search scoring path, with +I in the kernel and asc-bias through
-    :func:`make_asc_tail`.
+    :func:`make_asc_tail`;
+  * :func:`make_score_unbounded` — K6 (``ops.clv_dyn.make_dyn_score``),
+    the same scoring for trees of any size: the tree is cut into segments
+    whose rows fit a device-memory budget, and tips are pattern tips.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from ..errors import EinvalError
+from ..ops import clv_dyn as cd
 from ..ops import clv_fused as cf
 from ..ops import likelihood as lk_ops
 from ..ops.pmatrix import compute_pmatrices
@@ -331,3 +335,74 @@ def make_score(topo: EvalTopology, rate_cats: int, states: int,
                use_pinv: bool = False, tip_encoding: str = "clv") -> Score:
     """Build the K1 scorer (``evaluate.py:288``)."""
     return Score(topo, rate_cats, states, use_pinv, tip_encoding)
+
+
+class ScoreUnbounded(_TopologyModule):
+    """``forward(model, return_partials=False) -> logl`` (float64):
+    P-matrices → K6 over the tree's segments, tips baked in at build time
+    (counterpart ``make_score_unbounded``, ``evaluate.py:451``).
+
+    ``tips_packed``: the whole tree's pattern tips, ``clv_fused.
+    pack_tipchars`` nibbles (``"chars"``) or [tips, L] int32 bitmasks
+    (``"masks"``), on any device; the module's buffers follow ``.to()``.
+    Segments take at most ``clv_dyn.dyn_max_rows`` rows at the tips' site
+    count.  +I through the in-kernel linear fold, asc-bias through
+    :class:`AscTail`.  ``return_partials`` returns the float64 partial
+    sums of each 128-site block instead of their total."""
+
+    def __init__(self, topo, rate_cats, states, tips_packed, tip_encoding,
+                 use_pinv=False, mxu_precision="highest"):
+        super().__init__(topo)
+        if topo.asc_mode and use_pinv:
+            raise EinvalError("asc-bias and prop-invar are mutually exclusive")
+        self.dyn = cd.build_dyn_schedule(
+            topo.schedule, rate_cats=rate_cats, states=states,
+            sites=tips_packed.shape[-1],
+            ensure_rows=[topo.parent_clv, topo.child_clv])
+        self.kernel = cd.make_dyn_score(
+            self.dyn, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+            topo.scale_mode, rate_cats=rate_cats, states=states,
+            tip_encoding=tip_encoding, use_pinv=use_pinv,
+            mxu_precision=mxu_precision)
+        self.use_pinv = use_pinv
+        tables, m_ops, exp_tables = cd.dyn_score_args(self.dyn)
+        for name, t in (("tips", tips_packed),
+                        ("tables", torch.stack(tables)),
+                        ("m_ops", torch.stack(m_ops)),
+                        ("exp_tables", torch.stack(exp_tables))):
+            self.register_buffer(name, t, persistent=False)
+        self.asc_tail = (AscTail(topo, rate_cats, states)
+                         if topo.asc_mode else None)
+
+    def forward(self, model, return_partials=False):
+        self._check_device(model, self.tips)
+        dtype = model["freqs_pc"].dtype
+        pmatrix = self.pmatrices(model, dtype)
+        f = _floats(model, dtype)
+        if self.use_pinv:
+            wvec, inv_add = _pinv_score_inputs(model, dtype)
+        else:
+            wvec = cf.pack_weight_vec(f["freqs_pc"], f["rate_weights"])
+            inv_add = None
+        out = self.kernel(self.tips, self.tables, self.m_ops,
+                          self.exp_tables, pmatrix, wvec,
+                          f["pattern_weights"], inv_add,
+                          return_partials=return_partials)
+        if self.asc_tail is not None and not return_partials:
+            out = out + self.asc_tail(model, pmatrix)
+        return out
+
+
+def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
+                         tip_masks, use_pinv: bool = False,
+                         mxu_precision: str = "highest"
+                         ) -> ScoreUnbounded:
+    """Build the K6 scorer from [tips, sites] ambiguity bitmasks
+    (``evaluate.py:451``): nibble-packed where DNA masks fit four bits,
+    one int32 word per tip and site otherwise."""
+    masks = np.asarray(tip_masks)
+    enc = "chars" if states <= 4 and int(masks.max()) <= 0xF else "masks"
+    tips = (cf.pack_tipchars(masks) if enc == "chars"
+            else torch.from_numpy(masks.astype(np.int32)))
+    return ScoreUnbounded(topo, rate_cats, states, tips, enc, use_pinv,
+                          mxu_precision)

@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library that
 ctypes loads; nothing includes PyTorch's headers, so a build takes seconds.
 The library lands in ``libpll_tpu_torch/_build/`` under a file name keyed
-on the hash of the source and the flags, at first use: a changed source
-builds anew, an unchanged one loads what is there.  ``nvcc``'s resource
-report (``-Xptxas -v``: registers, spills, shared memory per kernel) is
-kept beside the library as ``<name>-<hash>.log``.
+on the hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, at first use: a changed source builds anew, an unchanged one loads
+what is there.  :func:`build_all` starts one ``nvcc`` per source at once.
+``nvcc``'s resource report (``-Xptxas -v``: registers, spills, shared
+memory per kernel) is kept beside the library as ``<name>-<hash>.log``.
 
 Counterpart: none in ``libpll_tpu`` (Pallas kernels compile inside jit).
 """
@@ -41,30 +42,48 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source and
-    these flags exists; return the library's path."""
-    src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private temporary name, then an atomic rename: concurrent builds
-    # (test workers) never load a half-written library
-    tmp = BUILD_DIR / f"{name}-{key}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelError(f"nvcc failed on {src.name} "
-                          f"(exit {proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` as it stands now lives."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> list:
+    """Compile each ``csrc/<name>.cu`` that has no library for its exact
+    sources and flags, one ``nvcc`` per source, all at once; return the
+    libraries' paths."""
+    outs = [library_path(name) for name in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a private temporary name, then an atomic rename: concurrent
+        # builds (test workers) never load a half-written library
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+        src = CSRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, out, tmp, proc))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {src.name} "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)
+    if failed:
+        raise KernelError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build_all([name])[0]))

@@ -1,0 +1,893 @@
+"""Schedule-as-data segment sweep (K5) and segment score (K6): the host
+schedules and tip packers, the plain PyTorch versions, and the CUDA
+wrappers.
+
+Counterpart: ``libpll_tpu/ops/clv_pallas_dyn.py``.  K5 replaces
+``make_dyn_sweep`` (``:383``, ``pallas_call`` at ``:521``); K6 replaces
+``make_dyn_score`` (``:695``; leaf segments at ``:928``, the root segment at
+``:990``).  Both kernels are ``csrc/clv_dyn.cu``; that file says how they
+are laid out on the card and what bounds them.
+
+The host part is the JAX package's, table for table: a tree is cut into
+segments of at most ``max_rows`` rows (``ops/clv_seg.py``), and every
+segment is padded to one shape, ``r_tip`` tip rows, ``r_imp`` import rows
+and ``r_loc`` local rows, so that all segments run one kernel with other
+tables.  A segment's state rows are numbered ``[0, r_tip)`` tips, then its
+imports, then its locals, then one trash row; its scaler rows are the
+imports' counters, the locals', one always-zero dummy and one trash row.
+Table rows are (parent, child1, child2, scaler1, scaler2, has_scaler) in
+those numbers; pad rows read and write the trash rows and never scale.
+
+What differs from the TPU tier, and why:
+
+  * **Row budget.**  A TPU segment lived in 10 MB of VMEM.  The kernels
+    here keep a segment's local rows in one device scratch of ``r_loc``
+    rows, allocated per call and reused by every segment, so the budget is
+    device memory: :func:`dyn_max_rows` gives ``max_rows`` from a fixed
+    scratch budget (``SCRATCH_BUDGET``) and the row size at the call's
+    site count.  ``chunk`` (the TPU's ops per grid step) only rounds
+    ``r_loc`` up here; it defaults to 1.
+  * **Tips.**  The kernels read the one packed tip array of the whole
+    tree (``clv_fused.pack_tipchars`` nibbles, int32 masks or tip CLVs) by
+    global tip id, through each segment's ``tip_globals``
+    (:func:`dyn_tip_globals`).  The per-segment slab packers
+    (:func:`pack_tipchars_dyn` and its siblings) give the JAX package's
+    slabs, for the segmented tier and for comparison.
+  * **Imports.**  A segment reads its imports where they lie: K5 from the
+    inner rows it has written, K6 from the export rows of earlier
+    segments, by an index per import slot.  Nothing is gathered into a
+    per-segment copy.
+  * ``impl`` ("vpu"/"mxu") is accepted for signature parity: the port has
+    one contraction.  ``mxu_precision`` other than "highest" raises.  The
+    site block is the kernels' thread block (``BLOCK_SITES``), which also
+    sets the granularity of the score's partial sums.
+
+Each wrapper takes its plain version for a tensor on the CPU, and only
+there: on a CUDA tensor it launches its kernel, once per segment, or
+raises.  Each counts its launches in its class's ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..errors import EinvalError, KernelError
+from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
+                               scale_consts)
+from . import _build
+from . import clv_fused as cf
+from . import likelihood as lk
+from .clv_seg import build_segmented_schedule
+from .sweep import LevelSchedule
+
+TABLE_FIELDS = 6  # parent, child1, child2, scaler1, scaler2, has_scaler
+KERNEL_STATES = (4, 20)  # DNA and protein
+KERNEL_RATE_CATS = cf.KERNEL_RATE_CATS
+BLOCK_SITES = cf.BLOCK_SITES
+# device memory for one call's local rows: 16 GiB holds 204 rows of
+# 4 rates x 4 states at 2**20 sites in float32 (64 MiB of CLV and 16 MiB of
+# per-rate counters each), and every row of smaller problems
+SCRATCH_BUDGET = 16 << 30
+
+
+@dataclass(frozen=True)
+class DynSegment:
+    table: np.ndarray        # [r_loc, 6] int32
+    m_ops: np.ndarray        # [r_loc, 2] int32 matrix ids (op order)
+    tip_globals: np.ndarray  # [n_tips_used] int64 global tip ids
+    imports: Tuple[Tuple[int, int], ...]  # (segment, local) refs
+    n_local: int             # real (unpadded) local count
+
+
+@dataclass(frozen=True)
+class DynSchedule:
+    segments: Tuple[DynSegment, ...]
+    tips: int
+    n_inner: int
+    r_tip: int
+    r_imp: int
+    r_loc: int
+    n_chunks: int
+    chunk: int
+    seg_offsets: Tuple[int, ...]  # segment-major inner row offsets
+    loc_of: dict    # level-major inner row -> (segment, local)
+    min_r_exp: int = 0  # export-table row floor (table-swap envelopes)
+
+    def inner_row(self, level_major_inner_row: int) -> int:
+        s, l = self.loc_of[level_major_inner_row]
+        return self.seg_offsets[s] + l
+
+    scaler_row = inner_row
+
+
+@dataclass(frozen=True)
+class _Rows:
+    """Row numbering of one segment's state and scaler space."""
+
+    r_tip: int
+    r_imp: int
+    r_loc: int
+
+    @property
+    def loc0(self):
+        return self.r_tip + self.r_imp
+
+    @property
+    def trash_state(self):
+        return self.loc0 + self.r_loc
+
+    @property
+    def n_state(self):
+        return self.trash_state + 1
+
+    @property
+    def dummy_scal(self):  # scaler rows: imports | locals | dummy | trash
+        return self.r_imp + self.r_loc
+
+    @property
+    def trash_scal(self):
+        return self.dummy_scal + 1
+
+    @property
+    def n_scal(self):
+        return self.trash_scal + 1
+
+
+def _rows(dyn: DynSchedule) -> _Rows:
+    return _Rows(dyn.r_tip, dyn.r_imp, dyn.r_loc)
+
+
+def dyn_max_rows(rate_cats: int, states: int, sites: int) -> int:
+    """Segment row budget on the GPU: as many local rows (a float32 CLV
+    row of ``rate_cats·states·sites`` values and, at most, one int32
+    counter per rate and site) as fit ``SCRATCH_BUDGET`` bytes; at least
+    16.  A float64 call holds twice the budget."""
+    per_row = sites * 4 * (rate_cats * states + rate_cats)
+    return int(max(16, SCRATCH_BUDGET // max(per_row, 1)))
+
+
+def build_dyn_schedule(schedule: LevelSchedule, *, rate_cats: int,
+                       states: int, max_rows: Optional[int] = None,
+                       chunk: Optional[int] = None,
+                       ensure_rows: Sequence[int] = (),
+                       min_r_tip: int = 0, min_r_imp: int = 0,
+                       min_r_loc: int = 0, min_segments: int = 0,
+                       min_r_exp: int = 0,
+                       sites: Optional[int] = None) -> DynSchedule:
+    """Segment ``schedule`` and pad every segment to one shape
+    (``clv_pallas_dyn.py:99``).
+
+    ``max_rows`` defaults to :func:`dyn_max_rows` at ``sites``.  The
+    ``min_*`` floors pin the padded shape across topologies, so that one
+    kernel instance scores another tree by a swap of its tables
+    (:func:`dyn_swap_args`); ``min_segments`` adds inert all-trash segments
+    just before the final (root) segment."""
+    if chunk is None:
+        chunk = 1
+    if max_rows is None:
+        if sites is None:
+            raise EinvalError("build_dyn_schedule needs max_rows or sites")
+        max_rows = dyn_max_rows(rate_cats, states, sites)
+    seg = build_segmented_schedule(schedule, max_rows=max_rows,
+                                   ensure_rows=ensure_rows)
+    tips, n_inner = seg.tips, seg.n_inner
+    r_tip = max(max(len(s.tip_globals) for s in seg.segments), 1, min_r_tip)
+    r_imp = max(max(len(s.imports) for s in seg.segments), 1, min_r_imp)
+    r_loc_real = max(max(s.n_local for s in seg.segments), min_r_loc)
+    n_chunks = -(-r_loc_real // chunk)
+    g = _Rows(r_tip, r_imp, n_chunks * chunk)
+
+    def s_state(src):
+        kind, i = src[0], (src[1] if len(src) > 1 else 0)
+        if kind == "tip":
+            return i
+        if kind == "imp":
+            return r_tip + i
+        return g.loc0 + i
+
+    def s_scal(src):
+        if src[0] == "zero":
+            return g.dummy_scal
+        if src[0] == "simp":
+            return src[1]
+        return r_imp + src[1]
+
+    def pad_table():
+        table = np.zeros((g.r_loc, TABLE_FIELDS), np.int32)
+        table[:, 0:3] = g.trash_state
+        table[:, 3:5] = g.trash_scal
+        return table, np.zeros((g.r_loc, 2), np.int32)
+
+    dsegs: List[DynSegment] = []
+    offsets: List[int] = []
+    acc = 0
+    for s in seg.segments:
+        table, m_ops = pad_table()
+        for (lp, src1, m1, src2, m2, sr1, sr2, has) in s.ops:
+            table[lp] = (g.loc0 + lp, s_state(src1), s_state(src2),
+                         s_scal(sr1), s_scal(sr2), int(has))
+            m_ops[lp] = (m1, m2)
+        dsegs.append(DynSegment(table, m_ops,
+                                np.asarray(s.tip_globals, np.int64),
+                                tuple(s.imports), s.n_local))
+        offsets.append(acc)
+        acc += s.n_local
+    assert acc == n_inner
+
+    loc_of = dict(seg.loc_of)
+    n_pad_segs = min_segments - len(dsegs)
+    if n_pad_segs > 0:
+        # inert segments go just before the final segment: only its index
+        # shifts, and imports always reference earlier segments
+        old_last = len(dsegs) - 1
+        pads = [DynSegment(*pad_table(), np.zeros(0, np.int64), (), 0)
+                for _ in range(n_pad_segs)]
+        dsegs[old_last:old_last] = pads
+        offsets[old_last:old_last] = [offsets[old_last]] * n_pad_segs
+        loc_of = {k: ((old_last + n_pad_segs, l) if s == old_last
+                      else (s, l))
+                  for k, (s, l) in loc_of.items()}
+
+    return DynSchedule(tuple(dsegs), tips, n_inner, r_tip, r_imp, g.r_loc,
+                       n_chunks, chunk, tuple(offsets), loc_of, min_r_exp)
+
+
+# --------------------------------------------------------------------------
+# tip packing
+# --------------------------------------------------------------------------
+def _tip_slabs(rows: np.ndarray, dyn: DynSchedule, height: int):
+    """Per-segment copies of ``rows[tip_globals]``, zero-padded to
+    ``height`` rows."""
+    out = []
+    for s in dyn.segments:
+        slab = np.zeros((height,) + rows.shape[1:], rows.dtype)
+        slab[:len(s.tip_globals)] = rows[s.tip_globals]
+        out.append(slab)
+    return out
+
+
+def pack_tips_dyn(tips_clv, dyn: DynSchedule) -> List[torch.Tensor]:
+    """Per-segment tip CLV slabs [r_tip, C*S, L], rows rate-major (the JAX
+    package's ``impl="mxu"`` packing, ``clv_pallas_dyn.py:203``)."""
+    clv = np.asarray(tips_clv)
+    packed = clv.reshape(clv.shape[0], -1, clv.shape[-1])
+    return [torch.from_numpy(s) for s in _tip_slabs(packed, dyn, dyn.r_tip)]
+
+
+def pack_tipmasks_dyn(tip_masks, dyn: DynSchedule) -> List[torch.Tensor]:
+    """Per-segment slabs of one int32 ambiguity bitmask per tip and site
+    [r_tip, L] (``clv_pallas_dyn.py:224``): the wide-alphabet pattern tips
+    (protein masks are 20 bits)."""
+    masks = np.asarray(tip_masks, dtype=np.uint32)
+    if masks.max() > 0x7FFFFFFF:
+        raise EinvalError("tip masks must fit 31 bits (states <= 31)")
+    return [torch.from_numpy(s.astype(np.int32))
+            for s in _tip_slabs(masks, dyn, dyn.r_tip)]
+
+
+def pack_tipchars_dyn(tip_masks, dyn: DynSchedule) -> List[torch.Tensor]:
+    """Per-segment slabs of nibble-packed 4-bit codes [ceil(r_tip/8), L]
+    (``clv_pallas_dyn.py:246``, the layout of ``clv_fused.pack_tipchars``
+    over each segment's tips)."""
+    masks = np.asarray(tip_masks, dtype=np.uint32)
+    if masks.max() > 0xF:
+        raise EinvalError("tipchars mode supports 4-bit codes (states<=4)")
+    words = -(-dyn.r_tip // 8)
+    return [cf.pack_tipchars(s) for s in _tip_slabs(masks, dyn, words * 8)]
+
+
+def dyn_tip_globals(dyn: DynSchedule) -> torch.Tensor:
+    """[n_segments, r_tip] int32: the global tip id of each segment's tip
+    row (padding rows read tip 0 and are never referenced)."""
+    out = np.zeros((len(dyn.segments), dyn.r_tip), np.int32)
+    for si, s in enumerate(dyn.segments):
+        out[si, :len(s.tip_globals)] = s.tip_globals
+    return torch.from_numpy(out)
+
+
+# --------------------------------------------------------------------------
+# tables as data
+# --------------------------------------------------------------------------
+def dyn_runtime_args(dyn: DynSchedule):
+    """(tables, m_gathers): the per-segment op tables the kernels read."""
+    return ([torch.from_numpy(s.table) for s in dyn.segments],
+            [torch.from_numpy(s.m_ops) for s in dyn.segments])
+
+
+def _export_tables(dyn: DynSchedule):
+    """Per-segment export tables [r_exp, 2] (state row, scaler row), padded
+    with trash reads; the (segment, local) -> export position map; r_exp."""
+    g = _rows(dyn)
+    referenced = {}
+    for s in dyn.segments:
+        for (a, b) in s.imports:
+            referenced.setdefault(a, set()).add(b)
+    r_exp = max(max((len(v) for v in referenced.values()), default=0), 1,
+                dyn.min_r_exp)
+    tables, pos_of = [], {}
+    for si in range(len(dyn.segments)):
+        tab = np.full((r_exp, 2), g.trash_state, np.int32)
+        tab[:, 1] = g.trash_scal
+        for i, l in enumerate(sorted(referenced.get(si, set()))):
+            tab[i] = (g.loc0 + l, dyn.r_imp + l)
+            pos_of[(si, l)] = i
+        tables.append(tab)
+    return tables, pos_of, r_exp
+
+
+def dyn_score_args(dyn: DynSchedule):
+    """(tables, m_gathers, exp_tables) for make_dyn_score."""
+    tables, m_gathers = dyn_runtime_args(dyn)
+    return (tables, m_gathers,
+            [torch.from_numpy(x) for x in _export_tables(dyn)[0]])
+
+
+def dyn_swap_args(dyn: DynSchedule):
+    """(tables, m_gathers, exp_tables, imp_src) for swapping another
+    topology's tables into a built make_dyn_score: ``imp_src``
+    [n_segments, r_imp, 2] int32 holds each import slot's (source segment,
+    export position).  Both topologies need matching envelope floors, and
+    the evaluation edge needs ``ensure_rows`` (``clv_pallas_dyn.py:1073``)."""
+    tables, m_gathers = dyn_runtime_args(dyn)
+    exp_tabs, pos_of, _ = _export_tables(dyn)
+    src = np.zeros((len(dyn.segments), dyn.r_imp, 2), np.int32)
+    for si, s in enumerate(dyn.segments):
+        for k, (a, b) in enumerate(s.imports):
+            src[si, k] = (a, pos_of[(a, b)])
+    return (tables, m_gathers, [torch.from_numpy(x) for x in exp_tabs],
+            torch.from_numpy(src))
+
+
+def dyn_identity_tips(dyn: DynSchedule) -> DynSchedule:
+    """Remap a single-segment schedule's tip references to global tip ids,
+    so its tip rows do not depend on the topology
+    (``clv_pallas_dyn.py:621``)."""
+    if len(dyn.segments) != 1:
+        raise EinvalError("identity tip remap requires a single segment")
+    s = dyn.segments[0]
+    if len(s.tip_globals) != dyn.tips or dyn.r_tip != dyn.tips:
+        raise EinvalError("single segment must reference every tip")
+    remap = np.asarray(s.tip_globals, np.int64)
+    table = s.table.copy()
+    for col in (1, 2):
+        is_tip = table[:, col] < dyn.r_tip
+        table[is_tip, col] = remap[table[is_tip, col]]
+    seg = DynSegment(table, s.m_ops, np.arange(dyn.tips, dtype=np.int64),
+                     s.imports, s.n_local)
+    return DynSchedule((seg,), dyn.tips, dyn.n_inner, dyn.r_tip, dyn.r_imp,
+                       dyn.r_loc, dyn.n_chunks, dyn.chunk, dyn.seg_offsets,
+                       dyn.loc_of, dyn.min_r_exp)
+
+
+def _locate(dyn: DynSchedule, lm: int, tip_by_position: bool):
+    """(state row, scaler row) of level-major CLV ``lm`` in the final
+    segment.  A tip is found by its position in the final segment's tip
+    list, or, for a single segment after :func:`dyn_identity_tips`
+    (``tip_by_position`` false), is its own row."""
+    g = _rows(dyn)
+    last = len(dyn.segments) - 1
+    fin = dyn.segments[last]
+    if lm < dyn.tips:
+        if not tip_by_position:
+            return lm, g.dummy_scal
+        tg = list(fin.tip_globals)
+        if lm not in tg:
+            raise EinvalError(f"eval tip {lm} not in the final segment's "
+                              "tips: build the schedule with ensure_rows")
+        return tg.index(lm), g.dummy_scal
+    sseg, sloc = dyn.loc_of[lm - dyn.tips]
+    if sseg == last:
+        return g.loc0 + sloc, dyn.r_imp + sloc
+    # the ROOT segment's import position, not the exporter's export
+    # position: the two coincide only on chains
+    try:
+        pos = list(fin.imports).index((sseg, sloc))
+    except ValueError:
+        raise EinvalError(f"eval row {lm} lives in segment {sseg}, not "
+                          "imported by the final segment: build the "
+                          "schedule with ensure_rows") from None
+    return dyn.r_tip + pos, pos
+
+
+def dyn_eval_locs(dyn: DynSchedule, parent_lm: int,
+                  child_lm: int) -> np.ndarray:
+    """(p_state, c_state, p_scal, c_scal) int32 for make_dyn_score's
+    ``dynamic_edge`` mode: the evaluation edge as data
+    (``clv_pallas_dyn.py:646``).  Scaler rows are in node units."""
+    by_position = len(dyn.segments) != 1
+    p_state, p_scal = _locate(dyn, parent_lm, by_position)
+    c_state, c_scal = _locate(dyn, child_lm, by_position)
+    return np.asarray([p_state, c_state, p_scal, c_scal], np.int32)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+def _plain_segment(g: _Rows, table, m_ops, tip_rows, imp_clv, imp_scal,
+                   tips_packed, tip_encoding, pmatrix, scale_mode):
+    """Run one segment's op table over all sites.  ``imp_clv``
+    [r_imp, C, S, L] and ``imp_scal`` [r_imp·srows, L] fill the import
+    rows.  Returns (state [n_state, C, S, L], scalers [n_scal·srows, L])."""
+    _, c, s, _ = pmatrix.shape
+    dtype, device = pmatrix.dtype, pmatrix.device
+    sites = tips_packed.shape[-1]
+    srows = c if scale_mode == SCALE_PER_RATE else 1
+    thresh, factor = scale_consts(dtype)
+    state = pmatrix.new_zeros((g.n_state, c, s, sites))
+    state[:g.r_tip] = cf.decode_tips(tips_packed, tip_encoding,
+                                     tip_rows.long(), c, s, dtype)
+    state[g.r_tip:g.loc0] = imp_clv
+    scal = torch.zeros((g.n_scal * srows, sites), dtype=torch.int32,
+                       device=device)
+    scal[:g.r_imp * srows] = imp_scal
+    for i, ((p, c1, c2, s1, s2, has), (m1, m2)) in enumerate(
+            zip(table.tolist(), m_ops.tolist())):
+        if p == g.trash_state:
+            continue  # a pad op
+        x = (torch.matmul(pmatrix[m1], state[c1])
+             * torch.matmul(pmatrix[m2], state[c2]))
+        cnt = (scal[s1 * srows:(s1 + 1) * srows]
+               + scal[s2 * srows:(s2 + 1) * srows])
+        if has and scale_mode == SCALE_PER_SITE:
+            mask = (x < thresh).all(dim=1).all(dim=0)  # [L]
+            x = torch.where(mask, x * factor, x)
+            cnt = cnt + mask.to(torch.int32)
+        elif has and scale_mode == SCALE_PER_RATE:
+            mask = (x < thresh).all(dim=1)  # [C, L]
+            x = torch.where(mask[:, None], x * factor, x)
+            cnt = cnt + mask.to(torch.int32)
+        state[p] = x
+        scal[(g.r_imp + i) * srows:(g.r_imp + i + 1) * srows] = cnt
+    return state, scal
+
+
+def _block_partials(lnl: torch.Tensor) -> torch.Tensor:
+    """Per-site log-likelihoods [L] -> float64 sums per BLOCK_SITES sites,
+    as the kernel's thread blocks form them."""
+    sites = lnl.shape[0]
+    blocks = -(-sites // BLOCK_SITES)
+    padded = lnl.new_zeros(blocks * BLOCK_SITES, dtype=torch.float64)
+    padded[:sites] = lnl
+    return padded.view(blocks, BLOCK_SITES).sum(dim=1)
+
+
+# --------------------------------------------------------------------------
+# CUDA binding
+# --------------------------------------------------------------------------
+_TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
+_MODE_SWEEP, _MODE_LEAF, _MODE_ROOT = 0, 1, 2
+_SEGMENT_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_int64]
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 19)
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/clv_dyn.cu``, once per
+    process."""
+    lib = _build.load("clv_dyn")
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"clv_dyn_segment_{suffix}")
+        fn.argtypes = _SEGMENT_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.clv_dyn_error_string.argtypes = [ctypes.c_int]
+    lib.clv_dyn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _stacked(x) -> torch.Tensor:
+    """Per-segment tables as one [n_segments, ...] tensor."""
+    return torch.stack(list(x)) if isinstance(x, (list, tuple)) else x
+
+
+def _ptr(t: Optional[torch.Tensor], row: int = 0, row_elems: int = 0):
+    """Address of ``row`` of ``t`` (rows of ``row_elems`` elements); None
+    for no tensor."""
+    if t is None:
+        return None
+    return t.data_ptr() + row * row_elems * t.element_size()
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise EinvalError(f"dyn kernel input: {what}")
+
+
+class _DynKernel:
+    """What K5 and K6 share: the schedule, its checks and per-device
+    copies of its static tables, and the plain segment loop."""
+
+    def __init__(self, dyn, scale_mode, rate_cats, states, tip_encoding,
+                 impl, mxu_precision):
+        if scale_mode not in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
+            raise EinvalError(f"unsupported scale mode {scale_mode}")
+        cf.check_tip_encoding(tip_encoding, states)
+        if impl not in ("auto", "vpu", "mxu"):
+            raise EinvalError(f"unknown impl {impl!r}")
+        if mxu_precision != "highest":
+            raise EinvalError("mxu_precision: the port computes in full "
+                              "precision only ('highest')")
+        self.dyn, self.g = dyn, _rows(dyn)
+        self.scale_mode, self.tip_encoding = scale_mode, tip_encoding
+        self.rate_cats, self.states = rate_cats, states
+        self.srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
+        self._host = {"tip_globals": dyn_tip_globals(dyn)}
+        self._device = {}
+        self.max_matrix = max(int(s.m_ops.max()) for s in dyn.segments)
+
+    def static(self, name: str, device) -> torch.Tensor:
+        """A static table of the schedule, copied to ``device`` once."""
+        key = (name, str(device))
+        if key not in self._device:
+            self._device[key] = self._host[name].to(device)
+        return self._device[key]
+
+    def check(self, tips_packed, pmatrix, tables) -> str:
+        """Validate what every launch shares; return the dtype suffix."""
+        device = tips_packed.device
+        if device.type != "cuda":
+            raise EinvalError(f"dyn kernels run on CUDA tensors, not {device}")
+        c, s = self.rate_cats, self.states
+        _require(pmatrix.dtype in (torch.float32, torch.float64),
+                 f"pmatrix dtype {pmatrix.dtype} (float32 or float64)")
+        _require(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:]) == (c, s, s),
+                 f"pmatrix {tuple(pmatrix.shape)} for C={c}, S={s}")
+        _require(s in KERNEL_STATES, f"states {s} (the kernels take 4 or 20)")
+        _require(c in KERNEL_RATE_CATS, f"rate_cats {c} (one of 1, 2, 4, 8)")
+        _require(self.max_matrix < pmatrix.shape[0],
+                 f"schedule uses matrix {self.max_matrix} of "
+                 f"{pmatrix.shape[0]}")
+        tips, sites = self.dyn.tips, tips_packed.shape[-1]
+        if self.tip_encoding == "clv":
+            _require(tips_packed.dtype == pmatrix.dtype
+                     and tuple(tips_packed.shape) == (tips, c, s, sites),
+                     f"clv tips {tuple(tips_packed.shape)} "
+                     f"{tips_packed.dtype}")
+        else:
+            rows = -(-tips // 8) if self.tip_encoding == "chars" else tips
+            _require(tips_packed.dtype == torch.int32
+                     and tuple(tips_packed.shape) == (rows, sites),
+                     f"{self.tip_encoding} tips {tuple(tips_packed.shape)} "
+                     f"{tips_packed.dtype}")
+        _require(sites > 0, "no sites")
+        for name, t in (("tips", tips_packed), ("pmatrix", pmatrix)):
+            _require(t.device == device, f"{name} on {t.device}")
+            _require(t.is_contiguous(), f"{name} is not contiguous")
+        n_seg = len(self.dyn.segments)
+        for name, t, tail in tables:
+            _require(t.dtype == torch.int32 and t.device == device
+                     and t.is_contiguous()
+                     and tuple(t.shape) == (n_seg,) + tail,
+                     f"{name} {tuple(t.shape)} {t.dtype} on {t.device}, "
+                     f"want [{n_seg}, {', '.join(map(str, tail))}] int32")
+        return "f32" if pmatrix.dtype == torch.float32 else "f64"
+
+    def launch(self, suffix, mode, tips_packed, pmatrix, si, *, table, m_ops,
+               tip_globals, imp_rows, src, src_scal, loc, loc_scal,
+               exp_table=None, r_exp=0, exp=None, exp_scal=None, edge=None,
+               weight_vec=None, pattern_weights=None, inv_add=None,
+               partials=None):
+        """One segment's kernel on the current stream of the tensors'
+        card.  ``loc``/``loc_scal``/``exp``/``exp_scal`` are addresses."""
+        g = self.g
+        lib = load_kernels()
+        with torch.cuda.device(tips_packed.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = getattr(lib, f"clv_dyn_segment_{suffix}")(
+                mode, self.states, self.rate_cats,
+                _TIP_CODE[self.tip_encoding], self.scale_mode,
+                tips_packed.shape[-1], g.r_tip, g.r_imp, g.r_loc, r_exp,
+                _ptr(table[si]), _ptr(m_ops[si]), _ptr(tip_globals[si]),
+                _ptr(imp_rows[si]), _ptr(tips_packed), _ptr(pmatrix),
+                _ptr(src), _ptr(src_scal), loc, loc_scal,
+                None if exp_table is None else _ptr(exp_table[si]), exp,
+                exp_scal, _ptr(edge), _ptr(weight_vec),
+                _ptr(pattern_weights), _ptr(inv_add), _ptr(partials),
+                stream)
+        if rc != 0:
+            msg = lib.clv_dyn_error_string(rc).decode()
+            raise KernelError(f"dyn segment launch failed: CUDA error {rc} "
+                              f"({msg})")
+
+
+class DynSweep(_DynKernel):
+    """K5: ``sweep(tips_packed, tables, m_gathers, pmatrix, tip_globals=None)
+    -> (inner [n_inner, C, S, L], scalers)``, inner rows segment-major
+    (``dyn.inner_row`` translates level-major ids); scalers
+    [n_inner + 1, L], or [n_inner + 1, C, L] per rate, the last row the
+    zero dummy.  ``tables``/``m_gathers`` from :func:`dyn_runtime_args`
+    (lists or stacked), on the tips' device; ``tip_globals`` defaults to
+    the schedule's (:func:`dyn_tip_globals`)."""
+
+    launches = 0
+
+    def __init__(self, dyn, scale_mode, rate_cats, states, tip_encoding,
+                 impl, mxu_precision):
+        super().__init__(dyn, scale_mode, rate_cats, states, tip_encoding,
+                         impl, mxu_precision)
+        rows = np.zeros((len(self.dyn.segments), self.g.r_imp), np.int32)
+        for si, s in enumerate(self.dyn.segments):
+            for k, (a, b) in enumerate(s.imports):
+                rows[si, k] = self.dyn.seg_offsets[a] + b
+        self._host["imp_rows"] = torch.from_numpy(rows)
+
+    def _inputs(self, tips_packed, tables, m_gathers, tip_globals):
+        device = tips_packed.device
+        if tip_globals is None:
+            tip_globals = self.static("tip_globals", device)
+        return (_stacked(tables), _stacked(m_gathers), tip_globals,
+                self.static("imp_rows", device))
+
+    def _outputs(self, pmatrix, sites, fill):
+        dyn, c, s = self.dyn, self.rate_cats, self.states
+        inner = fill((dyn.n_inner, c, s, sites), dtype=pmatrix.dtype,
+                     device=pmatrix.device)
+        scalers = torch.zeros(((dyn.n_inner + 1) * self.srows, sites),
+                              dtype=torch.int32, device=pmatrix.device)
+        return inner, scalers
+
+    def _shaped(self, inner, scalers):
+        if self.scale_mode == SCALE_PER_RATE:
+            scalers = scalers.view(self.dyn.n_inner + 1, self.rate_cats, -1)
+        return inner, scalers
+
+    def plain(self, tips_packed, tables, m_gathers, pmatrix,
+              tip_globals=None):
+        """Plain version of K5: the segment tables run segment by segment
+        with PyTorch ops, imports read from the inner rows written so far."""
+        tables, m_ops, tg, imp_rows = self._inputs(tips_packed, tables,
+                                                   m_gathers, tip_globals)
+        g, srows, sites = self.g, self.srows, tips_packed.shape[-1]
+        inner, scalers = self._outputs(pmatrix, sites, torch.zeros)
+        node_scal = scalers.view(-1, srows, sites)
+        for si, seg in enumerate(self.dyn.segments):
+            rows = imp_rows[si].long()
+            state, scal = _plain_segment(
+                g, tables[si], m_ops[si], tg[si], inner[rows],
+                node_scal[rows].reshape(-1, sites), tips_packed,
+                self.tip_encoding, pmatrix, self.scale_mode)
+            off, n = self.dyn.seg_offsets[si], seg.n_local
+            inner[off:off + n] = state[g.loc0:g.loc0 + n]
+            scalers[off * srows:(off + n) * srows] = (
+                scal[g.r_imp * srows:(g.r_imp + n) * srows])
+        return self._shaped(inner, scalers)
+
+    def __call__(self, tips_packed, tables, m_gathers, pmatrix,
+                 tip_globals=None):
+        if tips_packed.device.type == "cpu":
+            return self.plain(tips_packed, tables, m_gathers, pmatrix,
+                              tip_globals)
+        tables, m_ops, tg, imp_rows = self._inputs(tips_packed, tables,
+                                                   m_gathers, tip_globals)
+        g = self.g
+        suffix = self.check(tips_packed, pmatrix, [
+            ("tables", tables, (g.r_loc, TABLE_FIELDS)),
+            ("m_gathers", m_ops, (g.r_loc, 2)),
+            ("tip_globals", tg, (g.r_tip,)),
+            ("imp_rows", imp_rows, (g.r_imp,))])
+        sites = tips_packed.shape[-1]
+        inner, scalers = self._outputs(pmatrix, sites, torch.empty)
+        cs, srows = self.rate_cats * self.states, self.srows
+        for si in range(len(self.dyn.segments)):
+            off = self.dyn.seg_offsets[si]
+            self.launch(suffix, _MODE_SWEEP, tips_packed, pmatrix, si,
+                        table=tables, m_ops=m_ops, tip_globals=tg,
+                        imp_rows=imp_rows, src=inner, src_scal=scalers,
+                        loc=_ptr(inner, off, cs * sites),
+                        loc_scal=_ptr(scalers, off * srows, sites))
+            DynSweep.launches += 1
+        return self._shaped(inner, scalers)
+
+
+def make_dyn_sweep(dyn: DynSchedule, scale_mode: int = SCALE_PER_SITE, *,
+                   rate_cats: int, states: int, tip_encoding: str = "clv",
+                   impl: str = "auto",
+                   mxu_precision: str = "highest") -> DynSweep:
+    """Build K5 (``clv_pallas_dyn.py:383``); see :class:`DynSweep`."""
+    return DynSweep(dyn, scale_mode, rate_cats, states, tip_encoding, impl,
+                    mxu_precision)
+
+
+class DynScore(_DynKernel):
+    """K6: ``score(tips_packed, tables, m_gathers, exp_tables, pmatrix,
+    weight_vec, pattern_weights, inv_add=None, eval_locs=None,
+    edge_matrix_idx=None, imp_src=None, tip_globals=None,
+    return_partials=False) -> logl`` (float64).
+
+    Leaf segments keep their rows in a scratch and export the rows later
+    segments import; the root segment folds the edge log-likelihood, one
+    float64 partial per BLOCK_SITES sites, folded here in float64
+    (``return_partials`` returns them instead).  ``weight_vec``:
+    ``clv_fused.pack_weight_vec`` ([C*S], (1 - p_inv) folded in under +I);
+    ``pattern_weights`` and ``inv_add`` [L].  ``eval_locs``
+    (``dynamic_edge``, from :func:`dyn_eval_locs`), ``edge_matrix_idx``,
+    ``imp_src`` (from :func:`dyn_swap_args`) and ``tip_globals`` take the
+    evaluation edge and the schedule from data: another topology built
+    with the same envelope scores through this instance by swapping them
+    with its tables.  On the card all of them are read there, without a
+    sync to the host."""
+
+    launches = 0
+
+    def __init__(self, dyn, parent_lm, child_lm, edge_matrix, scale_mode,
+                 rate_cats, states, tip_encoding, impl, use_pinv,
+                 dynamic_edge, mxu_precision):
+        super().__init__(dyn, scale_mode, rate_cats, states, tip_encoding,
+                         impl, mxu_precision)
+        self.use_pinv, self.dynamic_edge = use_pinv, dynamic_edge
+        self.edge_matrix = edge_matrix
+        _, pos_of, self.r_exp = _export_tables(dyn)
+        rows = np.zeros((len(dyn.segments), self.g.r_imp), np.int32)
+        for si, s in enumerate(dyn.segments):
+            for k, (a, b) in enumerate(s.imports):
+                rows[si, k] = a * self.r_exp + pos_of[(a, b)]
+        self._host["imp_rows"] = torch.from_numpy(rows)
+        if not dynamic_edge:
+            locs = [*_locate(dyn, parent_lm, True),
+                    *_locate(dyn, child_lm, True)]
+            self._host["edge"] = torch.tensor(
+                [locs[0], locs[2], locs[1], locs[3], edge_matrix],
+                dtype=torch.int32)
+
+    def _inputs(self, tips_packed, tables, m_gathers, exp_tables, eval_locs,
+                edge_matrix_idx, imp_src, tip_globals):
+        """The stacked tables, import rows and edge vector
+        (p_state, c_state, p_scal, c_scal, edge matrix) on the tips'
+        device."""
+        device = tips_packed.device
+        if tip_globals is None:
+            tip_globals = self.static("tip_globals", device)
+        if imp_src is None:
+            imp_rows = self.static("imp_rows", device)
+        else:
+            src = torch.as_tensor(imp_src, device=device)
+            imp_rows = (src[..., 0] * self.r_exp + src[..., 1]).to(
+                torch.int32).contiguous()
+        if eval_locs is None and edge_matrix_idx is None:
+            edge = self.static("edge", device)
+        else:
+            locs = (self.static("edge", device)[:4] if eval_locs is None
+                    else torch.as_tensor(eval_locs, device=device))
+            if isinstance(edge_matrix_idx, torch.Tensor):
+                em = edge_matrix_idx.to(device).reshape(1)
+            else:
+                em = torch.full((1,), self.edge_matrix
+                                if edge_matrix_idx is None
+                                else int(edge_matrix_idx), device=device)
+            edge = torch.cat([locs.to(torch.int32).reshape(4),
+                              em.to(torch.int32)])
+        return (_stacked(tables), _stacked(m_gathers), _stacked(exp_tables),
+                tip_globals, imp_rows, edge)
+
+    def _check_call(self, inv_add, eval_locs):
+        if (inv_add is not None) != self.use_pinv:
+            raise EinvalError("inv_add is given exactly when use_pinv")
+        if (eval_locs is not None) != self.dynamic_edge:
+            raise EinvalError("eval_locs is given exactly when dynamic_edge")
+
+    def plain(self, tips_packed, tables, m_gathers, exp_tables, pmatrix,
+              weight_vec, pattern_weights, inv_add=None, eval_locs=None,
+              edge_matrix_idx=None, imp_src=None, tip_globals=None,
+              return_partials=False):
+        """Plain version of K6: the same tables, segment by segment, with
+        PyTorch ops; exports copied out by the export tables."""
+        self._check_call(inv_add, eval_locs)
+        tables, m_ops, exp_tabs, tg, imp_rows, edge = self._inputs(
+            tips_packed, tables, m_gathers, exp_tables, eval_locs,
+            edge_matrix_idx, imp_src, tip_globals)
+        g, srows, r_exp = self.g, self.srows, self.r_exp
+        c, s = self.rate_cats, self.states
+        sites, dtype = tips_packed.shape[-1], pmatrix.dtype
+        n_seg = len(self.dyn.segments)
+        exports = pmatrix.new_zeros((n_seg * r_exp, c, s, sites))
+        exp_scal = torch.zeros((n_seg * r_exp, srows, sites),
+                               dtype=torch.int32, device=pmatrix.device)
+        for si in range(n_seg):
+            rows = imp_rows[si].long()
+            state, scal = _plain_segment(
+                g, tables[si], m_ops[si], tg[si], exports[rows],
+                exp_scal[rows].reshape(-1, sites), tips_packed,
+                self.tip_encoding, pmatrix, self.scale_mode)
+            if si < n_seg - 1:
+                for e, (st, sc) in enumerate(exp_tabs[si].tolist()):
+                    exports[si * r_exp + e] = state[st]
+                    exp_scal[si * r_exp + e] = scal[sc * srows:
+                                                    (sc + 1) * srows]
+        ps, cs_, psc, csc, em = edge.tolist()
+        termb = torch.matmul(pmatrix[em], state[cs_])
+        y = state[ps] * termb * weight_vec.reshape(c, s, 1)
+        snum = (scal[psc * srows:(psc + 1) * srows]
+                + scal[csc * srows:(csc + 1) * srows])
+        if self.scale_mode == SCALE_PER_RATE:
+            term_r, site_scal = lk.fold_rate_scalers_inkernel(
+                y.sum(dim=1), snum, scale_consts(dtype)[0])
+            term = term_r.sum(dim=0)
+        else:
+            term, site_scal = y.sum(dim=(0, 1)), snum[0]
+        if inv_add is not None:
+            term = term + inv_add
+        partials = _block_partials(lk.site_lnl(term, site_scal,
+                                               pattern_weights, dtype))
+        return partials if return_partials else cf.sum_block_partials(
+            partials)
+
+    def __call__(self, tips_packed, tables, m_gathers, exp_tables, pmatrix,
+                 weight_vec, pattern_weights, inv_add=None, eval_locs=None,
+                 edge_matrix_idx=None, imp_src=None, tip_globals=None,
+                 return_partials=False):
+        if tips_packed.device.type == "cpu":
+            return self.plain(tips_packed, tables, m_gathers, exp_tables,
+                              pmatrix, weight_vec, pattern_weights, inv_add,
+                              eval_locs, edge_matrix_idx, imp_src,
+                              tip_globals, return_partials)
+        self._check_call(inv_add, eval_locs)
+        tables, m_ops, exp_tabs, tg, imp_rows, edge = self._inputs(
+            tips_packed, tables, m_gathers, exp_tables, eval_locs,
+            edge_matrix_idx, imp_src, tip_globals)
+        g, r_exp, srows = self.g, self.r_exp, self.srows
+        suffix = self.check(tips_packed, pmatrix, [
+            ("tables", tables, (g.r_loc, TABLE_FIELDS)),
+            ("m_gathers", m_ops, (g.r_loc, 2)),
+            ("exp_tables", exp_tabs, (r_exp, 2)),
+            ("tip_globals", tg, (g.r_tip,)),
+            ("imp_rows", imp_rows, (g.r_imp,))])
+        device, dtype = tips_packed.device, pmatrix.dtype
+        sites = tips_packed.shape[-1]
+        cs = self.rate_cats * self.states
+        _require(edge.dtype == torch.int32 and tuple(edge.shape) == (5,)
+                 and edge.device == device, "eval_locs / edge_matrix_idx")
+        vectors = [("weight_vec", weight_vec, (cs,)),
+                   ("pattern_weights", pattern_weights, (sites,))]
+        if inv_add is not None:
+            vectors.append(("inv_add", inv_add, (sites,)))
+        for name, t, shape in vectors:
+            _require(t.device == device and t.dtype == dtype
+                     and tuple(t.shape) == shape and t.is_contiguous(),
+                     f"{name} {tuple(t.shape)} {t.dtype} on {t.device}")
+        n_seg = len(self.dyn.segments)
+        exports = torch.empty((n_seg * r_exp, cs, sites), dtype=dtype,
+                              device=device)
+        exp_scal = torch.empty((n_seg * r_exp * srows, sites),
+                               dtype=torch.int32, device=device)
+        scratch = torch.empty((g.r_loc, cs, sites), dtype=dtype,
+                              device=device)
+        scratch_scal = torch.empty((g.r_loc * srows, sites),
+                                   dtype=torch.int32, device=device)
+        partials = torch.empty((-(-sites // BLOCK_SITES),),
+                               dtype=torch.float64, device=device)
+        for si in range(n_seg):
+            root = si == n_seg - 1
+            self.launch(
+                suffix, _MODE_ROOT if root else _MODE_LEAF, tips_packed,
+                pmatrix, si, table=tables, m_ops=m_ops, tip_globals=tg,
+                imp_rows=imp_rows, src=exports, src_scal=exp_scal,
+                loc=_ptr(scratch), loc_scal=_ptr(scratch_scal),
+                exp_table=exp_tabs, r_exp=r_exp,
+                exp=_ptr(exports, si * r_exp, cs * sites),
+                exp_scal=_ptr(exp_scal, si * r_exp * srows, sites),
+                edge=edge, weight_vec=weight_vec,
+                pattern_weights=pattern_weights, inv_add=inv_add,
+                partials=partials)
+            DynScore.launches += 1
+        return partials if return_partials else cf.sum_block_partials(
+            partials)
+
+
+def make_dyn_score(dyn: DynSchedule, parent_lm: int, child_lm: int,
+                   edge_matrix: int, scale_mode: int = SCALE_PER_SITE, *,
+                   rate_cats: int, states: int,
+                   tip_encoding: str = "chars", impl: str = "auto",
+                   use_pinv: bool = False, dynamic_edge: bool = False,
+                   mxu_precision: str = "highest") -> DynScore:
+    """Build K6 (``clv_pallas_dyn.py:695``); see :class:`DynScore`.
+    ``parent_lm``/``child_lm`` are level-major CLV ids of the evaluation
+    edge, which must reach the final segment (``ensure_rows``) unless
+    ``dynamic_edge`` takes it from data."""
+    return DynScore(dyn, parent_lm, child_lm, edge_matrix, scale_mode,
+                    rate_cats, states, tip_encoding, impl, use_pinv,
+                    dynamic_edge, mxu_precision)

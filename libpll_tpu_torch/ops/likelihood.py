@@ -64,6 +64,20 @@ def apply_rate_fold(term_r, diff, dtype):
     return term_r * scale_pow(diff, dtype)
 
 
+def fold_rate_scalers_inkernel(term_r, snum, down):
+    """The score kernels' min/cap fold of per-rate scalers (counterpart
+    ``clv_pallas.py:399``): per site the minimum over rates is the common
+    counter; each rate's remainder, capped at SCALE_RATE_MAXDIFF, multiplies
+    its term by ``down`` (2**-shift) that many times, one product at a time
+    as the kernels do it.  term_r, snum: [C, L].  Returns (folded term_r,
+    site counters [L])."""
+    site = snum.min(dim=0).values
+    diff = torch.clamp(snum - site[None, :], max=SCALE_RATE_MAXDIFF)
+    for k in range(1, SCALE_RATE_MAXDIFF + 1):
+        term_r = torch.where(diff >= k, term_r * down, term_r)
+    return term_r, site
+
+
 def _mix_rates(term_r, freqs_pc, rate_weights, prop_invar, invariant):
     """Rate mixing with invariant-site handling.
 

@@ -67,21 +67,14 @@ def simulate_tips(tree, tips, sites, w, left, right, freqs, rng):
     return states
 
 
-def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
-                   tip_masks=False, simulate=False):
-    """(topo, model, tips_data, scalers) for a flagship-shaped problem.
-
-    ``tip_masks=True``: ``tips_data`` is [tips, sites] uint32 ambiguity
-    bitmasks and ``scalers`` is None.  Otherwise ``tips_data`` is the
-    [2·tips − 2, C, 4, sites] CLV array (tips one-hot, inner rows zero) and
-    ``scalers`` the zero [n_inner + 1, sites] int32 counters."""
+def _topology_and_model(tips, sites, rate_cats, dtype, rng):
+    """(tree, topo, model, (w, left, right, freqs)) drawn from ``rng`` in
+    the JAX builder's order: the topology, then the GTR+Γ model."""
     from ..engine.evaluate import topology_from_tree
     from ..models.gamma import compute_gamma_cats
     from ..models.gtr import eigen_decompose
     from ..tree import utree as ut
     from .constants import SCALE_PER_SITE
-
-    rng = np.random.default_rng(seed)
 
     # random binary topology
     items = [f"t{i}:{rng.uniform(0.05, 0.5):.4f}" for i in range(tips)]
@@ -117,6 +110,58 @@ def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
         "pattern_weights": np.ones((sites,), dtype),
         "invariant": np.full((sites,), -1, np.int32),
     }
+    return tree, topo, model, (w, left, right, freqs)
+
+
+def build_flagship_topology(tips, sites, rate_cats=4, dtype=np.float32,
+                            seed=0):
+    """(topo, model) of :func:`build_flagship` without drawing tips: at
+    10 240 taxa × 2**20 sites host tip masks would take 43 GB
+    (:func:`draw_tipchars_cuda` draws them on the card instead)."""
+    _, topo, model, _ = _topology_and_model(
+        tips, sites, rate_cats, dtype, np.random.default_rng(seed))
+    return topo, model
+
+
+def draw_tipchars_cuda(tips, sites, seed, device, tips_per_chunk=256):
+    """Random single-state DNA tips, drawn on ``device`` from a seeded
+    ``torch.Generator`` and nibble-packed as ``clv_fused.pack_tipchars``
+    lays them out: [ceil(tips/8), sites] int32.  Rows are drawn
+    ``tips_per_chunk`` at a time, so the card never holds more than that
+    many unpacked rows.  (The numbers are not numpy's: a card-drawn
+    alignment has no host twin.)"""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    words = -(-tips // 8)
+    out = torch.empty((words, sites), dtype=torch.int32, device=device)
+    step = max(8, tips_per_chunk // 8 * 8)
+    shifts = (4 * torch.arange(8, device=device))[:, None]
+    for t0 in range(0, words * 8, step):
+        rows = min(step, words * 8 - t0)
+        codes = torch.ones((), dtype=torch.int64, device=device) << (
+            torch.randint(0, 4, (rows, sites), generator=gen, device=device))
+        codes[max(0, tips - t0):] = 0  # padding tips of the last word
+        # nibbles are disjoint, so the sum is their bitwise or; the top
+        # bit of a word becomes int32's sign bit
+        packed = (codes.view(rows // 8, 8, sites) << shifts).sum(dim=1)
+        out[t0 // 8:(t0 + rows) // 8] = torch.where(
+            packed >= 1 << 31, packed - (1 << 32), packed)
+    return out
+
+
+def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
+                   tip_masks=False, simulate=False):
+    """(topo, model, tips_data, scalers) for a flagship-shaped problem.
+
+    ``tip_masks=True``: ``tips_data`` is [tips, sites] uint32 ambiguity
+    bitmasks and ``scalers`` is None.  Otherwise ``tips_data`` is the
+    [2·tips − 2, C, 4, sites] CLV array (tips one-hot, inner rows zero) and
+    ``scalers`` the zero [n_inner + 1, sites] int32 counters."""
+    rng = np.random.default_rng(seed)
+    tree, topo, model, (w, left, right, freqs) = _topology_and_model(
+        tips, sites, rate_cats, dtype, rng)
 
     if tip_masks:
         return topo, model, draw_tip_masks(rng, tips, sites), None

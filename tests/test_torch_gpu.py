@@ -9,7 +9,8 @@ CPU suite.)  Each test decides inside its fixture whether a card is
 present and skips without one, so this file imports neither jax nor
 ``libpll_tpu``.  Tolerances are chip_smoke.py's: float64 logL rel 1e-12,
 scalers equal; float32 logL within 2e-6·|logL| + 5e-3, scalers agree at
->= 99.9%, CLVs rtol 1e-5 where they agree.
+>= 99.9%, CLVs rtol 1e-5 where they agree.  K1/K2 (``clv_fused``) and
+K5/K6 (``clv_dyn``) are covered.
 """
 
 import sys
@@ -22,6 +23,7 @@ import torch
 from libpll_tpu_torch.engine import evaluate as ev
 from libpll_tpu_torch.engine.params import model_from_numpy
 from libpll_tpu_torch.errors import EinvalError
+from libpll_tpu_torch.ops import clv_dyn as cd
 from libpll_tpu_torch.ops import clv_fused as cf
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -94,3 +96,67 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             pm = pm.cpu()
         with pytest.raises(EinvalError):
             cf.fused_sweep(topo.schedule, tips, pm)
+
+
+@pytest.mark.gpu
+def test_dyn_kernels_match_plain_on_card(cuda):
+    """chip_smoke's phase 7: K5 and K6 against their plain versions for
+    every encoding, scale mode, dtype, C, S in {4, 20}, ±I, one and many
+    segments, and a table swap."""
+    before = (cd.DynSweep.launches, cd.DynScore.launches)
+    assert chip_smoke.check_dyn_small(cuda)[0] > 0
+    assert cd.DynSweep.launches > before[0]
+    assert cd.DynScore.launches > before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("states", [4, 20])
+def test_dyn_modules_on_card_match_cpu(cuda, states, monkeypatch):
+    """make_score_unbounded and make_dyn_sweep on a multi-segment tree,
+    moved to the card (kernels), equal the same modules on the CPU (plain
+    versions) in float64."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(24, np.random.default_rng(9)), 300, 4, 9,
+        states=states)
+    # a 16-row budget at 300 sites cuts the 24-taxon tree into segments
+    monkeypatch.setattr(cd, "SCRATCH_BUDGET",
+                        16 * 300 * 4 * (4 * states + 4))
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, torch.float64)
+        score = ev.make_score_unbounded(topo, 4, states, masks,
+                                        use_pinv=True)
+        assert len(score.dyn.segments) > 2
+        score = score.to(device)
+        sweep = cd.make_dyn_sweep(score.dyn, topo.scale_mode, rate_cats=4,
+                                  states=states,
+                                  tip_encoding=score.kernel.tip_encoding)
+        inner, scalers = sweep(score.tips, score.tables, score.m_ops,
+                               score.pmatrices(model, torch.float64))
+        out[str(device)] = (float(score(model)), inner.cpu(), scalers.cpu())
+    (s0, i0, c0), (s1, i1, c1) = out.values()
+    assert abs(s1 - s0) <= 1e-12 * abs(s0)
+    torch.testing.assert_close(i1, i0, rtol=1e-12, atol=0)
+    assert torch.equal(c1, c0)
+
+
+@pytest.mark.gpu
+def test_dyn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    newick = chip_smoke.random_newick(8, np.random.default_rng(4))
+    for rate_cats, states, bad in ((3, 4, "rate_cats"), (4, 5, "states"),
+                                   (4, 4, "tables on the host")):
+        topo, model_np, masks = chip_smoke.small_case(newick, 40, rate_cats,
+                                                      4, states=states)
+        dyn = cd.build_dyn_schedule(
+            topo.schedule, rate_cats=rate_cats, states=states, sites=40,
+            ensure_rows=[topo.parent_clv, topo.child_clv])
+        tables = [torch.stack(t) for t in cd.dyn_runtime_args(dyn)]
+        if bad != "tables on the host":
+            tables = [t.to(cuda) for t in tables]
+        pm = chip_smoke.kernel_inputs(topo, model_np, torch.float64, cuda,
+                                      False)[0]
+        tips = torch.from_numpy(masks.astype(np.int32)).to(cuda)
+        sweep = cd.make_dyn_sweep(dyn, rate_cats=rate_cats, states=states,
+                                  tip_encoding="masks")
+        with pytest.raises(EinvalError):
+            sweep(tips, *tables, pm)
