@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two main paths, each driven once with the launch counters set to 0 just
+Four main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -14,13 +14,20 @@ before it and read just after:
     K6 over the tree's segments) at BASELINE.json's large configuration,
     10 240 taxa × 1 048 576 sites, GTR+Γ4, float32, per-site scaling,
     nibble-packed tips drawn on the card; and the dyn sweep kernel K5
-    (``make_dyn_sweep``) at 4 096 × 8 192.
+    (``make_dyn_sweep``) at 4 096 × 8 192;
+  * the segmented tier at the README's configuration, 1 024 taxa × 32 768
+    sites, GTR+Γ4, float32, per-site scaling, CLV tips: the segmented
+    score K4 (``make_segmented_score``) and the segmented sweep K3
+    (``make_segmented_sweep``), cut at the shared-memory row budget;
+  * the roofline probes: the FP32 multiply-add peak K7 and the DNA
+    contraction K8 (``ops/roofline.py``), timed over two chain lengths.
 
 Phases, one line each:
 
   1. card: name and power limit (nvidia-smi);
-  2. build: nvcc builds ``csrc/clv_fused.cu`` and ``csrc/clv_dyn.cu`` for
-     sm_90a, one process each, both at once;
+  2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
+     ``clv_seg.cu`` and ``roofline.cu`` for sm_90a, one process each, all
+     at once;
   3. small configs: K1/K2 against their plain PyTorch versions on the
      card, for every tip encoding, scale mode, +I and rate-category count,
      in float64 (logL rel <= 1e-12, scalers equal, CLVs rel 1e-12) and
@@ -51,7 +58,20 @@ Phases, one line each:
      in logL and in every block, within the f32 budget; segments, row
      budget, peak device memory, schedule time and ms/eval;
  10. dyn times: K5 and K6 against their plain versions at 4 096 × 8 192,
-     and K6 against its plain version at the giant.
+     and K6 against its plain version at the giant;
+ 11. seg build: ``clv_seg.cu``'s and ``roofline.cu``'s instances,
+     registers and spills;
+ 12. small seg configs: K3 and K4 against their plain versions on the card
+     with phase 3's tolerances: CLV tips, every scale mode, float32/float64,
+     C in {1, 2, 4, 8}, S in {4, 20}, one and many segments, a deep
+     caterpillar that scales;
+ 13. README configuration: K4 and K3 (see ``phase_readme``), segments,
+     shared memory per block, the peak device memory of each call (K4's
+     below K3's), and ms per call for K3, K4 and their plain versions;
+ 14. roofline: K7 and K8 against their plain versions at small chain
+     lengths (rel 1e-5), their sustained rates and K7's share of the FP32
+     peak, and the contraction rates K1 (flagship) and K3 (README
+     configuration) imply against K8's.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -498,8 +518,10 @@ def ptxas_report(name):
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
             t = re.search(r"I([fd])Li(\d+)E", current)
+            k = re.search(r"\d([a-z_]+_kernel)", current)
             label = (f"<{'float' if t.group(1) == 'f' else 'double'},"
-                     f"{t.group(2)}>" if t else current)
+                     f"{t.group(2)}>" if t else k.group(1) if k
+                     else current)
             rows.append((label, int(m.group(1)), spill))
             current = None
     return rows
@@ -727,6 +749,318 @@ def phase_giant(device):
                 k6_plain_ms=k6_plain_ms)
 
 
+# ---------------------------------------------------------- segmented tier
+def check_seg_small(device):
+    """Phase 12: K3 and K4 against their plain versions, CLV tips: every
+    scale mode, float32/float64, C in {1, 2, 4, 8}, S in {4, 20}, one
+    segment and many (cut at the row budget where it is smaller), a deep
+    caterpillar that scales.  Returns (configurations checked, largest
+    float32 K3 CLV abs error, largest float32 K4 |d logL|)."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE, SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    rng = np.random.default_rng(3)
+    # (label, newick, states, rate categories, row budget; None: one
+    # segment); 1000 sites leave a ragged last block of 104
+    trees = [("random10", random_newick(10, rng), 4, (4,), None),
+             ("random16/8rows", random_newick(16, rng), 4, (4,), 8),
+             ("caterpillar48/12rows", caterpillar_newick(48), 4, (4,), 12),
+             ("random12/6rows", random_newick(12, rng), 4, (1, 2, 8), 6),
+             ("protein12/6rows", random_newick(12, rng), 20, (1, 2, 4, 8),
+              6)]
+    n, k3_err, k4_err = 0, 0.0, 0.0
+    for label, newick, states, cats, max_rows in trees:
+        for rate_cats in cats:
+            topo, model_np, masks = small_case(newick, 1000, rate_cats,
+                                               seed=rate_cats, states=states)
+            edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
+            for dtype in (torch.float32, torch.float64):
+                budget = cseg.seg_max_rows(rate_cats, states, dtype)
+                seg = cseg.build_segmented_schedule(
+                    topo.schedule, max_rows=(1 << 20 if max_rows is None
+                                             else min(max_rows, budget)),
+                    ensure_rows=[topo.parent_clv, topo.child_clv])
+                check((max_rows is None) == (len(seg.segments) == 1),
+                      f"{label}: {len(seg.segments)} segments")
+                slabs = cseg.pack_tips_segmented(tip_input(
+                    masks, "clv", rate_cats, dtype, device, states), seg)
+                pm, wvec, pw, _ = kernel_inputs(topo, model_np, dtype,
+                                                device, False)
+                where = f"{label} S={states} C={rate_cats} {dtype}"
+                for scale in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
+                    sweep = cseg.make_segmented_sweep(
+                        seg, scale, rate_cats=rate_cats, states=states)
+                    got = sweep(slabs, pm)
+                    want = sweep.plain(slabs, pm)
+                    torch.cuda.synchronize()
+                    ok, err, agree = sweep_close(*got, *want, dtype)
+                    check(ok, f"K3 {where} scale={scale}: max abs err "
+                              f"{err}, scaler agreement {agree}")
+                    score = cseg.make_segmented_score(
+                        seg, *edge, scale, rate_cats=rate_cats,
+                        states=states)
+                    got = float(score(slabs, pm, wvec, pw))
+                    want = float(score.plain(slabs, pm, wvec, pw))
+                    check(np.isfinite(got) and logl_close(got, want, dtype),
+                          f"K4 {where} scale={scale}: {got} vs plain {want}")
+                    if dtype == torch.float32:
+                        k3_err = max(k3_err, err)
+                        k4_err = max(k4_err, abs(got - want))
+                    n += 2
+    return n, k3_err, k4_err
+
+
+README_TIPS, README_SITES = 1024, 32768  # README "Performance": segmented
+F64_CHUNK = 64  # inner rows per step of the float64 deviation
+# K3's float32 rows against the float64 level sweep, relative to each
+# (node, site) block's largest value.  Not F32_RTOL: that rule holds float32
+# against float32, while here float32 rounding of the P-matrices and of
+# every contraction and product below a row adds up over the README tree's
+# 1 022 inner nodes (1.85e-5 measured on an H100, 1.6e-5 on a CPU at 256
+# sites).  A wrong row or a missed scaling event is off by O(1).
+F32_VS_F64_RTOL = 1e-4
+
+
+def f64_deviation(seg, inner, scal, clv64, scal64):
+    """Largest |K3 - float64 level sweep| relative to each (node, site)
+    block's largest value, the float64 rows carried into K3's scaling
+    units (exact powers of two)."""
+    import torch
+
+    tips, worst = seg.tips, 0.0
+    for r0 in range(0, seg.n_inner, F64_CHUNK):
+        lm = range(r0, min(r0 + F64_CHUNK, seg.n_inner))
+        idx = torch.as_tensor([seg.inner_row(r) for r in lm],
+                              device=inner.device)
+        got = inner[idx].double()
+        shift = (32 * scal[idx].long() - 256 * scal64[r0:lm.stop].long())
+        want = torch.ldexp(clv64[tips + r0:tips + lm.stop],
+                           shift[:, None, None, :].double())
+        span = want.abs().amax(dim=(1, 2), keepdim=True)
+        worst = max(worst, float(((got - want).abs() / span).max()))
+    return worst
+
+
+def phase_readme(device):
+    """Phase 13: the README's segmented configuration, 1 024 taxa x 32 768
+    sites, GTR+Γ4, float32, per-site scaling, CLV tips, seed 0, cut at
+    ``seg_max_rows``.  K4 (``make_segmented_score``) and K3
+    (``make_segmented_sweep``) are the main path, each with its counter at
+    0 and its device memory peak; K4's logL, and the edge logL of K3's
+    rows, are held to the plain float64 ``make_forward`` within the f32
+    budget; K3 to its plain version (scalers at >= 99.9%, CLVs at rtol 1e-5
+    where they agree) and K4 to its plain version within the budget; K3's
+    rows to the float64 level sweep within ``F32_VS_F64_RTOL``."""
+    import torch
+
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.ops.sweep import make_level_sweep
+    from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
+    from libpll_tpu_torch.utils.flagship import (build_flagship_topology,
+                                                 draw_tipchars_cuda)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    topo, model_np = build_flagship_topology(README_TIPS, README_SITES,
+                                             seed=0)
+    tp = draw_tipchars_cuda(README_TIPS, README_SITES, 0, device)
+    tip_rows = torch.arange(README_TIPS, device=device)
+    max_rows = cseg.seg_max_rows(4, 4, torch.float32)
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=max_rows,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    slabs = cseg.pack_tips_segmented(
+        cf.decode_tips(tp, "chars", tip_rows, 4, 4, torch.float32), seg)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    pm, wvec, pw, _ = kernel_inputs(topo, model_np, torch.float32, device,
+                                    False)
+    score = cseg.make_segmented_score(
+        seg, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+        SCALE_PER_SITE, rate_cats=4, states=4)
+    sweep = cseg.make_segmented_sweep(seg, SCALE_PER_SITE, rate_cats=4,
+                                      states=4)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cseg.SegmentedScore.launches = 0
+    logl = float(score(slabs, pm, wvec, pw))
+    torch.cuda.synchronize()
+    k4_launches = cseg.SegmentedScore.launches
+    k4_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cseg.SegmentedSweep.launches = 0
+    inner, scal = sweep(slabs, pm)
+    torch.cuda.synchronize()
+    k3_launches = cseg.SegmentedSweep.launches
+    k3_peak = torch.cuda.max_memory_allocated()
+    check(k4_launches > 0 and k3_launches > 0,
+          f"README config: launches K4 {k4_launches}, K3 {k3_launches}")
+    check(k4_peak < k3_peak, f"K4 peak {k4_peak} B not below K3's {k3_peak}")
+
+    m64 = model_from_numpy(model_np, device, torch.float64)
+    want = plain_forward_f64(topo, tp, "chars", m64, 4)[0]
+    torch.cuda.empty_cache()
+    budget = ACC_REL * abs(want) + ACC_ABS
+    k3_logl = sweep_logl(topo, seg, inner, scal, tp, m32, pm)
+    check(np.isfinite(logl) and abs(logl - want) <= budget,
+          f"README K4 logL {logl} vs plain f64 {want}")
+    check(abs(k3_logl - want) <= budget,
+          f"README K3 logL {k3_logl} vs plain f64 {want}")
+    ok, k3_err, agree = sweep_close(inner, scal, *sweep.plain(slabs, pm),
+                                    torch.float32)
+    check(ok, f"README K3 vs plain: max abs err {k3_err}, scalers agree "
+              f"{agree}")
+    k4_err = abs(logl - float(score.plain(slabs, pm, wvec, pw)))
+    check(k4_err <= budget, f"README K4 vs plain: |d logL| {k4_err}")
+    torch.cuda.empty_cache()
+
+    sched = topo.schedule
+    clv64 = torch.cat([
+        cf.decode_tips(tp, "chars", tip_rows, 4, 4, torch.float64),
+        torch.zeros((sched.n_inner, 4, 4, README_SITES), dtype=torch.float64,
+                    device=device)])
+    pm64 = kernel_inputs(topo, model_np, torch.float64, device, False)[0]
+    clv64, scal64 = make_level_sweep(sched, SCALE_PER_SITE)(
+        clv64, torch.zeros((sched.n_inner + 1, README_SITES),
+                           dtype=torch.int32, device=device), pm64)
+    deviation = f64_deviation(seg, inner, scal, clv64, scal64)
+    check(deviation <= F32_VS_F64_RTOL,
+          f"README K3 rows vs the f64 level sweep: deviation {deviation}")
+    del clv64, scal64, inner, scal
+    torch.cuda.empty_cache()
+
+    ms = {"k4": time_ms(lambda: score(slabs, pm, wvec, pw))[0],
+          "k4_plain": time_ms(lambda: score.plain(slabs, pm, wvec, pw),
+                              PLAIN_ITERS, 1)[0],
+          "k3": time_ms(lambda: sweep(slabs, pm))[0],
+          "k3_plain": time_ms(lambda: sweep.plain(slabs, pm),
+                              PLAIN_ITERS, 1)[0]}
+    cs_bytes = 4 * 4 * 4 * README_SITES  # one float32 row
+    tip_bytes = README_TIPS * cs_bytes
+    k3_bytes = tip_bytes + sched.n_inner * (cs_bytes + 4 * README_SITES)
+    local = max(s.n_local for s in seg.segments)
+    print(f"[13 seg README] {README_TIPS} taxa x {README_SITES} sites x 4 "
+          f"rates f32 CLV tips, per-site scaling: {len(seg.segments)} "
+          f"segments (max_rows {max_rows}, at most {local} local rows = "
+          f"{local * 128 * (64 + 4) // 1024} KB of shared memory per block "
+          f"of the card's {cseg.max_smem(4, torch.float32) // 1024} KB; "
+          f"set-up {setup_s:.2f} s); K4 make_segmented_score {logl:.6f}, "
+          f"K3 rows' edge logL {k3_logl:.6f}, plain f64 make_forward "
+          f"{want:.6f} (|d| {abs(logl - want):.3e}, "
+          f"{abs(k3_logl - want):.3e} <= {budget:.3e}); K3 vs plain max abs "
+          f"{k3_err:.3e}, scalers agree {agree:.6f}; K4 vs plain |d logL| "
+          f"{k4_err:.3e}; K3 rows vs the f64 level sweep: largest deviation "
+          f"{deviation:.3e} of a block's maximum (<= {F32_VS_F64_RTOL:.0e}); "
+          f"launches K4 {k4_launches}, "
+          f"K3 {k3_launches}; peak device memory K4 "
+          f"{k4_peak / 2**30:.2f} GiB < K3 {k3_peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[13 seg README times] K4 {ms['k4']:.4f} ms vs plain "
+          f"{ms['k4_plain']:.2f} ms; K3 {ms['k3']:.4f} ms vs plain "
+          f"{ms['k3_plain']:.2f} ms; K4 reads {tip_bytes / 1e9:.2f} GB of "
+          f"tips: {tip_bytes / ms['k4'] / 1e9:.3f} TB/s; K3 moves "
+          f"{k3_bytes / 1e9:.2f} GB (tips in, rows and counters out): "
+          f"{k3_bytes / ms['k3'] / 1e9:.3f} TB/s; CUDA events", flush=True)
+    return dict(k3_launches=k3_launches, k4_launches=k4_launches,
+                k3_err=k3_err, k4_err=k4_err, ms=ms,
+                n_inner=sched.n_inner)
+
+
+# --------------------------------------------------------------- roofline
+PROBE_K = (1, 16)  # chain lengths at which the probes meet their plain
+PROBE_REL = 1e-5
+
+
+def check_roofline_small(device):
+    """K7 and K8 against their plain versions at small chain lengths, at
+    the width that fills the card's SMs, each value within rel 1e-5.
+    Returns the largest (abs, rel) error of K7 and of K8."""
+    import torch
+
+    from libpll_tpu_torch.ops import roofline as rf
+
+    w = rf.probe_width(
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    x = rf.fma_input(w, device)
+    rx, coeff = rf.roll_inputs(w, device)
+    errs = [(0.0, 0.0), (0.0, 0.0)]
+    for k in PROBE_K:
+        for i, (got, want) in enumerate((
+                (rf.fma_chain(x, k), rf.fma_chain_plain(x, k)),
+                (rf.roll_contract(rx, coeff, k),
+                 rf.roll_contract_plain(rx, coeff, k)))):
+            diff = (got - want).abs()
+            rel = float((diff / want.abs()).max())
+            check(rel <= PROBE_REL, f"K{7 + i} at k={k}: rel err {rel}")
+            errs[i] = (max(errs[i][0], float(diff.max())),
+                       max(errs[i][1], rel))
+    return errs[0], errs[1]
+
+
+def phase_roofline(device, card, k1_ms, k3_ms, n_inner_k3):
+    """Phase 14: K7 and K8 against their plain versions at small k, then
+    their sustained rates (the main path of the probes, counters at 0),
+    the FP32 peak share, and the contraction rates K1 (flagship) and K3
+    (README configuration) imply."""
+    import torch
+
+    from libpll_tpu_torch.ops import roofline as rf
+    from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
+                                                 FLAGSHIP_SITES,
+                                                 FLAGSHIP_TIPS)
+
+    (k7_abs, k7_err), (k8_abs, k8_err) = check_roofline_small(device)
+    w = rf.probe_width(
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    x = rf.fma_input(w, device)
+    rx, coeff = rf.roll_inputs(w, device)
+    k = PROBE_K[-1]
+    ms = {"k7": time_ms(lambda: rf.fma_chain(x, k))[0],
+          "k7_plain": time_ms(lambda: rf.fma_chain_plain(x, k))[0],
+          "k8": time_ms(lambda: rf.roll_contract(rx, coeff, k))[0],
+          "k8_plain": time_ms(lambda: rf.roll_contract_plain(rx, coeff,
+                                                             k))[0]}
+    rf.fma_chain.launches = 0
+    rf.roll_contract.launches = 0
+    m = rf.measure(device)
+    launches = {"k7": rf.fma_chain.launches, "k8": rf.roll_contract.launches}
+    check(all(v > 0 for v in launches.values()),
+          f"the roofline probes launched no kernel: {launches}")
+    print(f"[14 roofline] {card}: {m['sm_count']} SMs, max SM clock "
+          f"{m['max_clock_mhz']:.0f} MHz, FP32 peak {m['peak'] / 1e12:.2f} "
+          f"Tflop/s; K7 vs plain at k in {PROBE_K}: rel err {k7_err:.2e}, "
+          f"K8 {k8_err:.2e}; K7 multiply-add sustained "
+          f"{m['fma'] / 1e12:.3f} Tflop/s ({m['fma'] / m['peak'] * 100:.1f}% "
+          f"of the peak), K8 DNA contraction sustained "
+          f"{m['roll'] / 1e12:.3f} Tflop/s ({m['roll'] / m['fma'] * 100:.1f}%"
+          f" of K7), [16, {512 * m['width']}] tiles, chain pairs by CUDA "
+          f"events; at k={k}: K7 {ms['k7']:.4f} ms vs plain "
+          f"{ms['k7_plain']:.4f} ms, K8 {ms['k8']:.4f} ms vs plain "
+          f"{ms['k8_plain']:.4f} ms", flush=True)
+
+    # every child of every op and the edge's child is contracted:
+    # (2S - 1)·S flop per rate and site (the script's count, :169-172)
+    per = (2 * 4 - 1) * 4
+    k1_flop = (2 * (FLAGSHIP_TIPS - 2) + 1) * FLAGSHIP_SITES * \
+        FLAGSHIP_RATE_CATS * per
+    k3_flop = 2 * n_inner_k3 * README_SITES * 4 * per
+    for name, flop, t in (("K1 at the flagship", k1_flop, k1_ms),
+                          ("K3 at the README configuration", k3_flop,
+                           k3_ms)):
+        rate = flop / (t * 1e-3)
+        print(f"[14 roofline] {name}: {flop / 1e9:.3f} Gflop of "
+              f"contraction in {t:.4f} ms = {rate / 1e12:.3f} Tflop/s, "
+              f"{rate / m['roll'] * 100:.2f}% of K8's rate, "
+              f"{rate / m['peak'] * 100:.2f}% of the FP32 peak", flush=True)
+    return dict(launches=launches, k7_err=k7_abs, k8_err=k8_abs, ms=ms)
+
+
 def main():
     try:
         import torch
@@ -746,6 +1080,8 @@ def main():
     from libpll_tpu_torch.ops import _build
     from libpll_tpu_torch.ops import clv_dyn as cd
     from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.ops import roofline as rf
     from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
                                                  FLAGSHIP_SITES,
                                                  FLAGSHIP_STATES,
@@ -760,13 +1096,14 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    _build.build_all(["clv_fused", "clv_dyn"])  # one nvcc each, at once
+    sources = ["clv_fused", "clv_dyn", "clv_seg", "roofline"]
+    _build.build_all(sources)  # one nvcc each, all at once
     build_s = time.perf_counter() - t0
-    cf.load_kernels()
-    cd.load_kernels()
+    for module in (cf, cd, cseg, rf):
+        module.load_kernels()
     fused = ptxas_report("clv_fused")
-    print(f"[2 build] clv_fused.cu and clv_dyn.cu for sm_90a in "
-          f"{build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
+    print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
+          f"in {build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
           f"instances, at most {max(r for _, r, _ in fused)} registers, "
           f"instances with spills: {sum(1 for *_, b in fused if b)}",
           flush=True)
@@ -893,8 +1230,27 @@ def main():
           f"plain {giant['k6_plain_ms']:.2f} ms (make_score_unbounded "
           f"{giant['ms']:.2f} ms/eval); CUDA events", flush=True)
 
+    # ---------------------------------------------------- 11-14: seg tier
+    for name in ("clv_seg", "roofline"):
+        rows = ptxas_report(name)
+        print(f"[11 seg build] {name}.cu: {len(rows)} kernel instances: "
+              + "; ".join(f"{lab} {r} registers, {b} B spill"
+                          for lab, r, b in rows), flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n, k3_small, k4_small = check_seg_small(device)
+    print(f"[12 seg small] {n} kernel configurations match their plain "
+          f"versions ({time.perf_counter() - t0:.1f} s); largest f32 "
+          f"deviations: K3 CLV abs {k3_small:.3e}, K4 |d logL| "
+          f"{k4_small:.3e}", flush=True)
+    readme = phase_readme(device)
+    roof = phase_roofline(device, card, ms["k1"], readme["ms"]["k3"],
+                          readme["n_inner"])
+
     fused_src = "libpll_tpu_torch/csrc/clv_fused.cu"
     dyn_src = "libpll_tpu_torch/csrc/clv_dyn.cu"
+    seg_src = "libpll_tpu_torch/csrc/clv_seg.cu"
+    roof_src = "libpll_tpu_torch/csrc/roofline.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
@@ -911,7 +1267,23 @@ def main():
         {"name": "dyn_score", "route": "cuda", "source": dyn_src,
          "replaces": "libpll_tpu/ops/clv_pallas_dyn.py:695",
          "launches": giant["launches"], "max_abs_err": giant["k6_err"],
-         "ms": giant["k6_ms"], "plain_ms": giant["k6_plain_ms"]}]}))
+         "ms": giant["k6_ms"], "plain_ms": giant["k6_plain_ms"]},
+        {"name": "segmented_sweep", "route": "cuda", "source": seg_src,
+         "replaces": "libpll_tpu/ops/clv_pallas_seg.py:327",
+         "launches": readme["k3_launches"], "max_abs_err": readme["k3_err"],
+         "ms": readme["ms"]["k3"], "plain_ms": readme["ms"]["k3_plain"]},
+        {"name": "segmented_score", "route": "cuda", "source": seg_src,
+         "replaces": "libpll_tpu/ops/clv_pallas_seg.py:425",
+         "launches": readme["k4_launches"], "max_abs_err": readme["k4_err"],
+         "ms": readme["ms"]["k4"], "plain_ms": readme["ms"]["k4_plain"]},
+        {"name": "fma_chain", "route": "cuda", "source": roof_src,
+         "replaces": "scripts/bench_vpu_roofline.py:84",
+         "launches": roof["launches"]["k7"], "max_abs_err": roof["k7_err"],
+         "ms": roof["ms"]["k7"], "plain_ms": roof["ms"]["k7_plain"]},
+        {"name": "roll_contract", "route": "cuda", "source": roof_src,
+         "replaces": "scripts/bench_vpu_roofline.py:110",
+         "launches": roof["launches"]["k8"], "max_abs_err": roof["k8_err"],
+         "ms": roof["ms"]["k8"], "plain_ms": roof["ms"]["k8_plain"]}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -73,9 +73,7 @@
 
 namespace {
 
-constexpr int kFields = 6;       // parent, c1, c2, s1, s2, has_scaler
-constexpr int kRateMaxDiff = 4;  // SCALE_RATE_MAXDIFF
-constexpr int kMaxRates = 8;
+constexpr int kFields = 6;  // parent, c1, c2, s1, s2, has_scaler
 
 enum { MODE_SWEEP = 0, MODE_LEAF = 1, MODE_ROOT = 2 };
 
@@ -106,7 +104,7 @@ struct DynArgs {
   const T* pattern_weights;    // root: [sites]
   const T* inv_add;            // root: [sites], or null without +I
   double* partials;            // root: [n_blocks]
-  T thresh, factor, log_scale;
+  Scale<T> u;
 };
 
 // A state row at one site: a CLV row (ptr at its k = 0 value), or a
@@ -157,15 +155,6 @@ __device__ __forceinline__ void load_rate(const Row<T>& r, int c,
   }
 }
 
-// sum_d row[d] * x[d], in K1's order.
-template <typename T, int S>
-__device__ __forceinline__ T dot(const T* row, const T (&x)[S]) {
-  T acc = __ldg(row) * x[0];
-#pragma unroll
-  for (int d = 1; d < S; ++d) acc = dev_fma(__ldg(row + d), x[d], acc);
-  return acc;
-}
-
 // Counter of scaler row `srow`, rate c (c = 0 with one row per node).
 template <typename T>
 __device__ __forceinline__ int count(const DynArgs<T>& a, int srow,
@@ -185,7 +174,6 @@ __device__ void run_ops(const DynArgs<T>& a, int64_t site) {
   const int64_t cs_sites = (int64_t)C * S * a.sites;
   const int64_t pm_size = (int64_t)C * S * S;
   const bool per_rate = a.scale_mode == SCALE_PER_RATE;
-  const int srows = per_rate ? C : 1;
   const int loc0 = a.r_tip + a.r_imp;
   for (int i = 0; i < a.r_loc; ++i) {
     const int32_t* op = a.table + i * kFields;
@@ -203,21 +191,13 @@ __device__ void run_ops(const DynArgs<T>& a, int64_t site) {
     for (int c = 0; c < C; ++c) {
       T x[S], t[S];
       load_rate<T, S>(r1, c, a.sites, x);
-#pragma unroll
-      for (int s = 0; s < S; ++s) t[s] = dot<T, S>(p1 + (c * S + s) * S, x);
+      contract_rate<T, S>(p1, c, x, t);
       load_rate<T, S>(r2, c, a.sites, x);
-#pragma unroll
-      for (int s = 0; s < S; ++s) t[s] *= dot<T, S>(p2 + (c * S + s) * S, x);
-      T mx = t[0];
-#pragma unroll
-      for (int s = 1; s < S; ++s) mx = t[s] > mx ? t[s] : mx;
+      mul_contract_rate<T, S>(p2, c, x, t);
+      const T mx = max_of<T, S>(t);
       if (per_rate) {
-        int cnt = count(a, s1, C, c, site) + count(a, s2, C, c, site);
-        if (has && mx < a.thresh) {
-#pragma unroll
-          for (int s = 0; s < S; ++s) t[s] *= a.factor;
-          cnt += 1;
-        }
+        const int cnt = count(a, s1, C, c, site) + count(a, s2, C, c, site) +
+                        scale_rate<T, S>(has, t, a.u);
         a.loc_scal[((int64_t)local * C + c) * a.sites + site] = cnt;
       }
       site_max = (c == 0 || mx > site_max) ? mx : site_max;
@@ -226,8 +206,9 @@ __device__ void run_ops(const DynArgs<T>& a, int64_t site) {
     }
     if (!per_rate) {
       int cnt = count(a, s1, 1, 0, site) + count(a, s2, 1, 0, site);
-      if (a.scale_mode == SCALE_PER_SITE && has && site_max < a.thresh) {
-        for (int k = 0; k < C * S; ++k) out[(int64_t)k * a.sites] *= a.factor;
+      if (a.scale_mode == SCALE_PER_SITE && scales(has, site_max, a.u)) {
+        for (int k = 0; k < C * S; ++k)
+          out[(int64_t)k * a.sites] *= a.u.factor;
         cnt += 1;
       }
       a.loc_scal[(int64_t)local * a.sites + site] = cnt;
@@ -274,31 +255,18 @@ __device__ T edge_site_lnl(const DynArgs<T>& a, int64_t site) {
     T pv[S], x[S];
     load_rate<T, S>(rp, c, a.sites, pv);
     load_rate<T, S>(rc, c, a.sites, x);
-    T acc = 0;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      acc = dev_fma(pv[s] * dot<T, S>(pe + (c * S + s) * S, x),
-                    __ldg(a.weight_vec + c * S + s), acc);
-    term_r[c] = acc;
+    term_r[c] = edge_rate_term<T, S>(pe, c, pv, x, a.weight_vec);
   }
   T term = 0;
   int snum;
   if (a.scale_mode == SCALE_PER_RATE) {
     int sn[kMaxRates];
-    snum = 0;
 #pragma unroll
     for (int c = 0; c < kMaxRates; ++c) {
       if (c >= C) break;
       sn[c] = count(a, psc, C, c, site) + count(a, csc, C, c, site);
-      snum = (c == 0 || sn[c] < snum) ? sn[c] : snum;
     }
-#pragma unroll
-    for (int c = 0; c < kMaxRates; ++c) {
-      if (c >= C) break;
-      const int diff = min(sn[c] - snum, kRateMaxDiff);
-      for (int k = 0; k < diff; ++k) term_r[c] *= a.thresh;
-      term += term_r[c];
-    }
+    term = fold_rates<T>(term_r, sn, C, a.u.thresh, snum);
   } else {
 #pragma unroll
     for (int c = 0; c < kMaxRates; ++c) {
@@ -308,8 +276,7 @@ __device__ T edge_site_lnl(const DynArgs<T>& a, int64_t site) {
     snum = count(a, psc, 1, 0, site) + count(a, csc, 1, 0, site);
   }
   if (a.inv_add != nullptr) term += __ldg(a.inv_add + site);
-  return (dev_log(term) + (T)snum * a.log_scale) *
-         __ldg(a.pattern_weights + site);
+  return site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + site));
 }
 
 template <typename T, int S>
@@ -369,9 +336,7 @@ int segment(int mode, int states, int rate_cats, int tip_encoding,
   a.pattern_weights = static_cast<const T*>(pattern_weights);
   a.inv_add = static_cast<const T*>(inv_add);
   a.partials = partials;
-  a.factor = (T)std::ldexp(1.0, Shift<T>::bits);
-  a.thresh = (T)std::ldexp(1.0, -Shift<T>::bits);
-  a.log_scale = (T)(-Shift<T>::bits * 0.69314718055994530942);
+  a.u = scale_units<T>();
   const unsigned blocks = (unsigned)((sites + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (states) {

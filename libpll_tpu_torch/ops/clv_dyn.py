@@ -58,17 +58,14 @@ import numpy as np
 import torch
 
 from ..errors import EinvalError, KernelError
-from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
-                               scale_consts)
+from ..utils.constants import SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE
 from . import _build
 from . import clv_fused as cf
-from . import likelihood as lk
-from .clv_seg import build_segmented_schedule
+from .clv_seg import (TABLE_FIELDS, Segment, _ptr, _Rows,
+                      build_segmented_schedule, check_pmatrix,
+                      plain_edge_partials, plain_segment, segment_table)
 from .sweep import LevelSchedule
 
-TABLE_FIELDS = 6  # parent, child1, child2, scaler1, scaler2, has_scaler
-KERNEL_STATES = (4, 20)  # DNA and protein
-KERNEL_RATE_CATS = cf.KERNEL_RATE_CATS
 BLOCK_SITES = cf.BLOCK_SITES
 # device memory for one call's local rows: 16 GiB holds 204 rows of
 # 4 rates x 4 states at 2**20 sites in float32 (64 MiB of CLV and 16 MiB of
@@ -104,39 +101,6 @@ class DynSchedule:
         return self.seg_offsets[s] + l
 
     scaler_row = inner_row
-
-
-@dataclass(frozen=True)
-class _Rows:
-    """Row numbering of one segment's state and scaler space."""
-
-    r_tip: int
-    r_imp: int
-    r_loc: int
-
-    @property
-    def loc0(self):
-        return self.r_tip + self.r_imp
-
-    @property
-    def trash_state(self):
-        return self.loc0 + self.r_loc
-
-    @property
-    def n_state(self):
-        return self.trash_state + 1
-
-    @property
-    def dummy_scal(self):  # scaler rows: imports | locals | dummy | trash
-        return self.r_imp + self.r_loc
-
-    @property
-    def trash_scal(self):
-        return self.dummy_scal + 1
-
-    @property
-    def n_scal(self):
-        return self.trash_scal + 1
 
 
 def _rows(dyn: DynSchedule) -> _Rows:
@@ -183,36 +147,18 @@ def build_dyn_schedule(schedule: LevelSchedule, *, rate_cats: int,
     n_chunks = -(-r_loc_real // chunk)
     g = _Rows(r_tip, r_imp, n_chunks * chunk)
 
-    def s_state(src):
-        kind, i = src[0], (src[1] if len(src) > 1 else 0)
-        if kind == "tip":
-            return i
-        if kind == "imp":
-            return r_tip + i
-        return g.loc0 + i
-
-    def s_scal(src):
-        if src[0] == "zero":
-            return g.dummy_scal
-        if src[0] == "simp":
-            return src[1]
-        return r_imp + src[1]
-
-    def pad_table():
-        table = np.zeros((g.r_loc, TABLE_FIELDS), np.int32)
-        table[:, 0:3] = g.trash_state
-        table[:, 3:5] = g.trash_scal
-        return table, np.zeros((g.r_loc, 2), np.int32)
+    def padded_table(s):
+        # pad rows read and write the trash rows and never scale
+        table, m_ops = segment_table(s, g)
+        table[s.n_local:, 0:3] = g.trash_state
+        table[s.n_local:, 3:5] = g.trash_scal
+        return table, m_ops
 
     dsegs: List[DynSegment] = []
     offsets: List[int] = []
     acc = 0
     for s in seg.segments:
-        table, m_ops = pad_table()
-        for (lp, src1, m1, src2, m2, sr1, sr2, has) in s.ops:
-            table[lp] = (g.loc0 + lp, s_state(src1), s_state(src2),
-                         s_scal(sr1), s_scal(sr2), int(has))
-            m_ops[lp] = (m1, m2)
+        table, m_ops = padded_table(s)
         dsegs.append(DynSegment(table, m_ops,
                                 np.asarray(s.tip_globals, np.int64),
                                 tuple(s.imports), s.n_local))
@@ -226,7 +172,8 @@ def build_dyn_schedule(schedule: LevelSchedule, *, rate_cats: int,
         # inert segments go just before the final segment: only its index
         # shifts, and imports always reference earlier segments
         old_last = len(dsegs) - 1
-        pads = [DynSegment(*pad_table(), np.zeros(0, np.int64), (), 0)
+        pads = [DynSegment(*padded_table(Segment()), np.zeros(0, np.int64),
+                           (), 0)
                 for _ in range(n_pad_segs)]
         dsegs[old_last:old_last] = pads
         offsets[old_last:old_last] = [offsets[old_last]] * n_pad_segs
@@ -409,54 +356,6 @@ def dyn_eval_locs(dyn: DynSchedule, parent_lm: int,
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
-def _plain_segment(g: _Rows, table, m_ops, tip_rows, imp_clv, imp_scal,
-                   tips_packed, tip_encoding, pmatrix, scale_mode):
-    """Run one segment's op table over all sites.  ``imp_clv``
-    [r_imp, C, S, L] and ``imp_scal`` [r_imp·srows, L] fill the import
-    rows.  Returns (state [n_state, C, S, L], scalers [n_scal·srows, L])."""
-    _, c, s, _ = pmatrix.shape
-    dtype, device = pmatrix.dtype, pmatrix.device
-    sites = tips_packed.shape[-1]
-    srows = c if scale_mode == SCALE_PER_RATE else 1
-    thresh, factor = scale_consts(dtype)
-    state = pmatrix.new_zeros((g.n_state, c, s, sites))
-    state[:g.r_tip] = cf.decode_tips(tips_packed, tip_encoding,
-                                     tip_rows.long(), c, s, dtype)
-    state[g.r_tip:g.loc0] = imp_clv
-    scal = torch.zeros((g.n_scal * srows, sites), dtype=torch.int32,
-                       device=device)
-    scal[:g.r_imp * srows] = imp_scal
-    for i, ((p, c1, c2, s1, s2, has), (m1, m2)) in enumerate(
-            zip(table.tolist(), m_ops.tolist())):
-        if p == g.trash_state:
-            continue  # a pad op
-        x = (torch.matmul(pmatrix[m1], state[c1])
-             * torch.matmul(pmatrix[m2], state[c2]))
-        cnt = (scal[s1 * srows:(s1 + 1) * srows]
-               + scal[s2 * srows:(s2 + 1) * srows])
-        if has and scale_mode == SCALE_PER_SITE:
-            mask = (x < thresh).all(dim=1).all(dim=0)  # [L]
-            x = torch.where(mask, x * factor, x)
-            cnt = cnt + mask.to(torch.int32)
-        elif has and scale_mode == SCALE_PER_RATE:
-            mask = (x < thresh).all(dim=1)  # [C, L]
-            x = torch.where(mask[:, None], x * factor, x)
-            cnt = cnt + mask.to(torch.int32)
-        state[p] = x
-        scal[(g.r_imp + i) * srows:(g.r_imp + i + 1) * srows] = cnt
-    return state, scal
-
-
-def _block_partials(lnl: torch.Tensor) -> torch.Tensor:
-    """Per-site log-likelihoods [L] -> float64 sums per BLOCK_SITES sites,
-    as the kernel's thread blocks form them."""
-    sites = lnl.shape[0]
-    blocks = -(-sites // BLOCK_SITES)
-    padded = lnl.new_zeros(blocks * BLOCK_SITES, dtype=torch.float64)
-    padded[:sites] = lnl
-    return padded.view(blocks, BLOCK_SITES).sum(dim=1)
-
-
 # --------------------------------------------------------------------------
 # CUDA binding
 # --------------------------------------------------------------------------
@@ -483,14 +382,6 @@ def load_kernels() -> ctypes.CDLL:
 def _stacked(x) -> torch.Tensor:
     """Per-segment tables as one [n_segments, ...] tensor."""
     return torch.stack(list(x)) if isinstance(x, (list, tuple)) else x
-
-
-def _ptr(t: Optional[torch.Tensor], row: int = 0, row_elems: int = 0):
-    """Address of ``row`` of ``t`` (rows of ``row_elems`` elements); None
-    for no tensor."""
-    if t is None:
-        return None
-    return t.data_ptr() + row * row_elems * t.element_size()
 
 
 def _require(cond: bool, what: str) -> None:
@@ -533,15 +424,7 @@ class _DynKernel:
         if device.type != "cuda":
             raise EinvalError(f"dyn kernels run on CUDA tensors, not {device}")
         c, s = self.rate_cats, self.states
-        _require(pmatrix.dtype in (torch.float32, torch.float64),
-                 f"pmatrix dtype {pmatrix.dtype} (float32 or float64)")
-        _require(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:]) == (c, s, s),
-                 f"pmatrix {tuple(pmatrix.shape)} for C={c}, S={s}")
-        _require(s in KERNEL_STATES, f"states {s} (the kernels take 4 or 20)")
-        _require(c in KERNEL_RATE_CATS, f"rate_cats {c} (one of 1, 2, 4, 8)")
-        _require(self.max_matrix < pmatrix.shape[0],
-                 f"schedule uses matrix {self.max_matrix} of "
-                 f"{pmatrix.shape[0]}")
+        suffix = check_pmatrix(pmatrix, c, s, self.max_matrix)
         tips, sites = self.dyn.tips, tips_packed.shape[-1]
         if self.tip_encoding == "clv":
             _require(tips_packed.dtype == pmatrix.dtype
@@ -565,7 +448,7 @@ class _DynKernel:
                      and tuple(t.shape) == (n_seg,) + tail,
                      f"{name} {tuple(t.shape)} {t.dtype} on {t.device}, "
                      f"want [{n_seg}, {', '.join(map(str, tail))}] int32")
-        return "f32" if pmatrix.dtype == torch.float32 else "f64"
+        return suffix
 
     def launch(self, suffix, mode, tips_packed, pmatrix, si, *, table, m_ops,
                tip_globals, imp_rows, src, src_scal, loc, loc_scal,
@@ -647,7 +530,7 @@ class DynSweep(_DynKernel):
         node_scal = scalers.view(-1, srows, sites)
         for si, seg in enumerate(self.dyn.segments):
             rows = imp_rows[si].long()
-            state, scal = _plain_segment(
+            state, scal = plain_segment(
                 g, tables[si], m_ops[si], tg[si], inner[rows],
                 node_scal[rows].reshape(-1, sites), tips_packed,
                 self.tip_encoding, pmatrix, self.scale_mode)
@@ -782,14 +665,14 @@ class DynScore(_DynKernel):
             edge_matrix_idx, imp_src, tip_globals)
         g, srows, r_exp = self.g, self.srows, self.r_exp
         c, s = self.rate_cats, self.states
-        sites, dtype = tips_packed.shape[-1], pmatrix.dtype
+        sites = tips_packed.shape[-1]
         n_seg = len(self.dyn.segments)
         exports = pmatrix.new_zeros((n_seg * r_exp, c, s, sites))
         exp_scal = torch.zeros((n_seg * r_exp, srows, sites),
                                dtype=torch.int32, device=pmatrix.device)
         for si in range(n_seg):
             rows = imp_rows[si].long()
-            state, scal = _plain_segment(
+            state, scal = plain_segment(
                 g, tables[si], m_ops[si], tg[si], exports[rows],
                 exp_scal[rows].reshape(-1, sites), tips_packed,
                 self.tip_encoding, pmatrix, self.scale_mode)
@@ -798,21 +681,9 @@ class DynScore(_DynKernel):
                     exports[si * r_exp + e] = state[st]
                     exp_scal[si * r_exp + e] = scal[sc * srows:
                                                     (sc + 1) * srows]
-        ps, cs_, psc, csc, em = edge.tolist()
-        termb = torch.matmul(pmatrix[em], state[cs_])
-        y = state[ps] * termb * weight_vec.reshape(c, s, 1)
-        snum = (scal[psc * srows:(psc + 1) * srows]
-                + scal[csc * srows:(csc + 1) * srows])
-        if self.scale_mode == SCALE_PER_RATE:
-            term_r, site_scal = lk.fold_rate_scalers_inkernel(
-                y.sum(dim=1), snum, scale_consts(dtype)[0])
-            term = term_r.sum(dim=0)
-        else:
-            term, site_scal = y.sum(dim=(0, 1)), snum[0]
-        if inv_add is not None:
-            term = term + inv_add
-        partials = _block_partials(lk.site_lnl(term, site_scal,
-                                               pattern_weights, dtype))
+        partials = plain_edge_partials(
+            state, scal, edge.tolist(), pmatrix, weight_vec,
+            pattern_weights, inv_add, self.scale_mode)
         return partials if return_partials else cf.sum_block_partials(
             partials)
 

@@ -9,8 +9,9 @@ CPU suite.)  Each test decides inside its fixture whether a card is
 present and skips without one, so this file imports neither jax nor
 ``libpll_tpu``.  Tolerances are chip_smoke.py's: float64 logL rel 1e-12,
 scalers equal; float32 logL within 2e-6·|logL| + 5e-3, scalers agree at
->= 99.9%, CLVs rtol 1e-5 where they agree.  K1/K2 (``clv_fused``) and
-K5/K6 (``clv_dyn``) are covered.
+>= 99.9%, CLVs rtol 1e-5 where they agree.  K1/K2 (``clv_fused``),
+K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``) and the roofline probes K7/K8
+(``roofline``, rel 1e-5 at small chain lengths) are covered.
 """
 
 import sys
@@ -25,6 +26,8 @@ from libpll_tpu_torch.engine.params import model_from_numpy
 from libpll_tpu_torch.errors import EinvalError
 from libpll_tpu_torch.ops import clv_dyn as cd
 from libpll_tpu_torch.ops import clv_fused as cf
+from libpll_tpu_torch.ops import clv_seg as cseg
+from libpll_tpu_torch.ops import roofline as rf
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -160,3 +163,84 @@ def test_dyn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                   tip_encoding="masks")
         with pytest.raises(EinvalError):
             sweep(tips, *tables, pm)
+
+
+@pytest.mark.gpu
+def test_seg_kernels_match_plain_on_card(cuda):
+    """chip_smoke's phase 12: K3 and K4 against their plain versions for
+    every scale mode, dtype, C, S in {4, 20}, one and many segments."""
+    before = (cseg.SegmentedSweep.launches, cseg.SegmentedScore.launches)
+    assert chip_smoke.check_seg_small(cuda)[0] > 0
+    assert cseg.SegmentedSweep.launches > before[0]
+    assert cseg.SegmentedScore.launches > before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("states", [4, 20])
+def test_seg_modules_on_card_match_cpu(cuda, states):
+    """K3 and K4 on a multi-segment tree on the card (kernels) equal the
+    same schedule on the CPU (plain versions) in float64."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(24, np.random.default_rng(9)), 300, 4, 9,
+        states=states)
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=cseg.seg_max_rows(4, states, torch.float64),
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    assert len(seg.segments) > 2
+    out = {}
+    for device in ("cpu", cuda):
+        slabs = cseg.pack_tips_segmented(chip_smoke.tip_input(
+            masks, "clv", 4, torch.float64, device, states), seg)
+        pm, wvec, pw, _ = chip_smoke.kernel_inputs(topo, model_np,
+                                                   torch.float64, device,
+                                                   False)
+        sweep = cseg.make_segmented_sweep(seg, topo.scale_mode, rate_cats=4,
+                                          states=states)
+        inner, scalers = sweep(slabs, pm)
+        score = cseg.make_segmented_score(
+            seg, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+            topo.scale_mode, rate_cats=4, states=states)
+        out[str(device)] = (float(score(slabs, pm, wvec, pw)), inner.cpu(),
+                            scalers.cpu())
+    (s0, i0, c0), (s1, i1, c1) = out.values()
+    assert abs(s1 - s0) <= 1e-12 * abs(s0)
+    torch.testing.assert_close(i1, i0, rtol=1e-12, atol=0)
+    assert torch.equal(c1, c0)
+
+
+@pytest.mark.gpu
+def test_seg_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(12, np.random.default_rng(4)), 40, 4, 4)
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=8,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    pm = chip_smoke.kernel_inputs(topo, model_np, torch.float64, cuda,
+                                  False)[0]
+    slabs = cseg.pack_tips_segmented(chip_smoke.tip_input(
+        masks, "clv", 4, torch.float64, cuda), seg)
+    sweep = cseg.make_segmented_sweep(seg, rate_cats=4, states=4)
+    for bad in (slabs[:-1], [s.float() for s in slabs],
+                [slabs[0].cpu()] + slabs[1:]):
+        with pytest.raises(EinvalError):
+            sweep(bad, pm)
+    with pytest.raises(EinvalError):  # three rates against a C = 4 pmatrix
+        cseg.make_segmented_sweep(seg, rate_cats=3, states=4)(slabs, pm)
+    assert cseg.max_smem(4, torch.float32) >= cseg.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+def test_roofline_probes_match_plain_on_card(cuda):
+    """K7 and K8 at the width that fills the card, chain lengths 1 and 16,
+    against their plain versions at rel 1e-5; a chain-pair rate is
+    positive."""
+    before = (rf.fma_chain.launches, rf.roll_contract.launches)
+    chip_smoke.check_roofline_small(cuda)
+    assert rf.fma_chain.launches > before[0]
+    assert rf.roll_contract.launches > before[1]
+    x = rf.fma_input(1, cuda)
+    rate, per_iter, dts = rf.chain_rate(lambda k: rf.fma_chain(x, k),
+                                        rf.fma_flops(x), 256, 4096, pairs=3)
+    assert rate > 0 and per_iter > 0 and dts
+    with pytest.raises(EinvalError):  # a tile of the wrong height
+        rf.roll_contract(x[:8].contiguous(), rf.roll_inputs(1, cuda)[1], 4)
