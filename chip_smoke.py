@@ -43,22 +43,27 @@ Phases, one line each:
   7. small dyn configs: K5 and K6 against their plain versions on the
      card with phase 3's tolerances: every tip encoding (masks only for
      protein), scale mode, float32/float64, C in {1, 2, 4, 8}, S in
-     {4, 20}, ±I, single- and multi-segment trees, and one instance
-     scoring two topologies by a table swap (``dynamic_edge``);
+     {4, 20}, ±I, single- and multi-segment trees; the same with the
+     shared-memory pool capped at ``SPILL_CAPS`` slots, so that rows spill
+     to device memory; and one instance scoring two topologies by a table
+     swap (``dynamic_edge``, slot plan included);
   8. mid configs (BASELINE.md): 4 096 × 8 192 DNA with per-rate scalers
      through ``make_score_unbounded`` and ``make_dyn_sweep`` (K5, cut into
      segments), and 256 × 16 384 protein (20-bit masks) through
      ``make_score_unbounded``, each against the plain float64
-     ``make_forward`` on the card within the f32 budget;
+     ``make_forward`` on the card within the f32 budget; the pool of each
+     (slots, spilled rows, scratch rows), DNA without spills;
   9. giant: ``make_score_unbounded`` at 10 240 × 1 048 576; the logL is
      finite and the kernel's partial sums of eight 128-site blocks (the
      last among them) match the plain float64 ``make_forward`` run on
      those sites' tip columns, each within 2e-6·|block| + 5e-3; K6 matches
      its plain version (segment by segment, float32) on the same inputs,
      in logL and in every block, within the f32 budget; segments, row
-     budget, peak device memory, schedule time and ms/eval;
- 10. dyn times: K5 and K6 against their plain versions at 4 096 × 8 192,
-     and K6 against its plain version at the giant;
+     budget, the pool (no spills, no scratch), peak device memory,
+     schedule time, ms/eval, K6's time against its bound;
+ 10. dyn times: K5 and K6 against their plain versions and their bounds
+     at 4 096 × 8 192, K6 at the protein configuration, and K6 against
+     its plain version and its bound at the giant;
  11. seg build: ``clv_seg.cu``'s and ``roofline.cu``'s instances,
      registers and spills;
  12. small seg configs: K3 and K4 against their plain versions on the card
@@ -73,7 +78,9 @@ Phases, one line each:
      peak, and the contraction rates K1 (flagship) and K3 (README
      configuration) imply against K8's.
 
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels, each with its
+bound (the larger of its operations at the card's FP32 peak and its bytes
+at 3.35 TB/s, from this run's shapes); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before either is printed; so does a machine without CUDA, or a directory
 without the package.
@@ -318,7 +325,7 @@ def stacked(tables, device):
 def check_dyn_small(device):
     """Phase 7: K5 and K6 against their plain versions.  Returns
     (configurations checked, largest float32 K5 CLV abs error, largest
-    float32 K6 |d logL|)."""
+    float32 K6 |d logL|, configurations with forced spills)."""
     import torch
 
     from libpll_tpu_torch.ops import clv_dyn as cd
@@ -386,7 +393,73 @@ def check_dyn_small(device):
                             if dtype == torch.float32:
                                 k6_err = max(k6_err, abs(got - want))
                             n += 1
-    return n + check_dyn_swap(device), k5_err, k6_err
+    n_spill = check_dyn_spill(device)
+    return n + n_spill + check_dyn_swap(device), k5_err, k6_err, n_spill
+
+
+SPILL_CAPS = (0, 1, 2)  # pool slots that force spills in the small trees
+
+
+def check_dyn_spill(device):
+    """K5 and K6 with their pools capped below the plan's peak (at each of
+    ``SPILL_CAPS`` that is), so that local rows spill to device memory
+    (K6's scratch, K5's output rows), against their plain versions with
+    phase 3's tolerances: DNA (chars tips) on one segment, on many and on a
+    caterpillar that scales, protein (masks) at four rates; every scale
+    mode, float32/float64, +I under per-site scaling.  Returns the
+    configurations checked."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE, SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    rng = np.random.default_rng(5)
+    trees = [("random24", random_newick(24, rng), 4, "chars", None),
+             ("random64/24rows", random_newick(64, rng), 4, "chars", 24),
+             ("caterpillar48", caterpillar_newick(48), 4, "chars", None),
+             ("protein16", random_newick(16, rng), 20, "masks", None)]
+    n = 0
+    for label, newick, states, enc, max_rows in trees:
+        topo, model_np, masks = small_case(newick, 1000, 4, seed=5,
+                                           states=states)
+        dyn = cd.build_dyn_schedule(
+            topo.schedule, rate_cats=4, states=states, max_rows=max_rows,
+            sites=1000, ensure_rows=[topo.parent_clv, topo.child_clv])
+        tables = stacked(cd.dyn_score_args(dyn), device)
+        edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
+        tp = tip_input(masks, enc, 4, None, device, states)
+        for dtype in (torch.float32, torch.float64):
+            for scale in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
+                pm = kernel_inputs(topo, model_np, dtype, device, False)[0]
+                sweep = cd.make_dyn_sweep(dyn, scale, rate_cats=4,
+                                          states=states, tip_encoding=enc)
+                pinv = scale == SCALE_PER_SITE
+                args = kernel_inputs(topo, model_np, dtype, device, pinv)
+                score = cd.make_dyn_score(dyn, *edge, scale, rate_cats=4,
+                                          states=states, tip_encoding=enc,
+                                          use_pinv=pinv)
+                k5_want = sweep.plain(tp, *tables[:2], pm)
+                k6_want = float(score.plain(tp, *tables, *args))
+                peak = min(max(sweep.plan.n_slots), max(score.plan.n_slots))
+                caps = [cap for cap in SPILL_CAPS if cap < peak]
+                check(caps, f"{label}: peak {peak} live rows")
+                for cap in caps:
+                    where = (f"{label} S={states} {dtype} scale={scale} "
+                             f"pool cap {cap}")
+                    sweep.slot_cap = score.slot_cap = cap
+                    got = sweep(tp, *tables[:2], pm)
+                    torch.cuda.synchronize()
+                    ok, err, agree = sweep_close(*got, *k5_want, dtype)
+                    check(ok, f"K5 {where}: max abs err {err}, scaler "
+                              f"agreement {agree}")
+                    got = float(score(tp, *tables, *args))
+                    check(np.isfinite(got) and logl_close(got, k6_want,
+                                                          dtype),
+                          f"K6 {where} pinv={pinv}: {got} vs plain "
+                          f"{k6_want}")
+                    n += 2
+    return n
 
 
 def check_dyn_swap(device):
@@ -423,12 +496,12 @@ def check_dyn_swap(device):
     n = 0
     for (topo, model_np, masks), dyn in zip(cases, dyns):
         tp = tip_input(masks, "chars", 4, None, device)
-        tables, m_g, exp_t, imp_src = cd.dyn_swap_args(dyn)
+        tables, m_g, exp_t, imp_src, plan = cd.dyn_swap_args(dyn)
         data = dict(
             eval_locs=torch.from_numpy(cd.dyn_eval_locs(
                 dyn, topo.parent_clv, topo.child_clv)).to(device),
             edge_matrix_idx=torch.tensor(topo.edge_matrix, device=device),
-            imp_src=imp_src.to(device),
+            imp_src=imp_src.to(device), slot_plan=plan.to(device),
             tip_globals=cd.dyn_tip_globals(dyn).to(device))
         tabs = stacked((tables, m_g, exp_t), device)
         fresh = cd.make_dyn_score(dyn, topo.parent_clv, topo.child_clv,
@@ -549,6 +622,27 @@ def time_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
     return start.elapsed_time(end) / iters, host
 
 
+HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device memory (data sheet)
+CONTRACT_FLOP = (2 * 4 - 1) * 4  # per contracted child, rate and site (DNA)
+
+
+def bound(flop, nbytes, peak):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``flop`` float32 operations at ``peak`` flop/s and ``nbytes``
+    moved at HBM_BYTES_PER_S, the larger of the two."""
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def pool_line(kernel, dtype):
+    """The pool of a K5/K6 instance at ``dtype``: (text, layout)."""
+    lay = kernel.layout(dtype)
+    return (f"pool {max(lay.pools)} slots (plan peak "
+            f"{max(kernel.plan.n_slots)}), {lay.spills} spilled rows, "
+            f"scratch rows {lay.scratch}"), lay
+
+
 MID_TIPS, MID_SITES = 4096, 8192
 K5_MAX_ROWS = 1024  # cuts the mid tree into segments, so K5 imports
 PROTEIN_TIPS, PROTEIN_SITES = 256, 16384
@@ -557,9 +651,10 @@ GIANT_BLOCKS = 8
 PLAIN_ITERS = 3  # the plain dyn versions take ~1 s a call at the mid size
 
 
-def phase_mid(device):
+def phase_mid(device, peak):
     """Phase 8, and the times of phase 10.  Returns the numbers the JSON
-    line reports."""
+    line reports.  DNA float32 runs without spills: the pools hold each
+    segment's live rows and no scratch is allocated."""
     import torch
 
     from libpll_tpu_torch.engine import evaluate as ev
@@ -611,6 +706,10 @@ def phase_mid(device):
     k6_err = abs(float(score.kernel(*k6_args))
                  - float(score.kernel.plain(*k6_args)))
     check(k6_err <= budget, f"mid K6 vs plain: |d logL| {k6_err}")
+    k6_pool, k6_lay = pool_line(score.kernel, torch.float32)
+    k5_pool, k5_lay = pool_line(sweep, torch.float32)
+    check(k6_lay.spills == k5_lay.spills == k6_lay.scratch == 0,
+          f"mid DNA f32 spills: K6 {k6_pool}; K5 {k5_pool}")
     print(f"[8 dyn mid] {MID_TIPS} x {MID_SITES} DNA per-rate f32: "
           f"make_score_unbounded {got:.6f} ({len(score.dyn.segments)} "
           f"segment(s)), K5 make_dyn_sweep logL {got_k5:.6f} "
@@ -618,7 +717,7 @@ def phase_mid(device):
           f"f64 make_forward {want:.6f} (|d| {abs(got - want):.3e}, "
           f"{abs(got_k5 - want):.3e} <= {budget:.3e}); K5-plain max abs "
           f"{k5_err:.3e}, scalers agree {agree:.6f}; K6-plain |d logL| "
-          f"{k6_err:.3e}", flush=True)
+          f"{k6_err:.3e}; K6 {k6_pool}; K5 {k5_pool}", flush=True)
 
     ptopo, pmodel, pmasks = small_case(
         random_newick(PROTEIN_TIPS, np.random.default_rng(3)),
@@ -634,12 +733,19 @@ def phase_mid(device):
     pbudget = ACC_REL * abs(pwant) + ACC_ABS
     check(np.isfinite(pgot) and abs(pgot - pwant) <= pbudget,
           f"protein make_score_unbounded {pgot} vs plain f64 {pwant}")
+    p_pool = pool_line(pscore.kernel, torch.float32)[0]
     print(f"[8 dyn mid] {PROTEIN_TIPS} x {PROTEIN_SITES} protein (20-bit "
           f"masks, B/Z/X codes) f32: make_score_unbounded {pgot:.6f} vs "
           f"plain f64 make_forward {pwant:.6f} (|d| {abs(pgot - pwant):.3e}"
-          f" <= {pbudget:.3e}); {len(pscore.dyn.segments)} segment(s) "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    del pscore
+          f" <= {pbudget:.3e}); {len(pscore.dyn.segments)} segment(s), "
+          f"K6 {p_pool} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    pm32 = model_from_numpy(pmodel, device, torch.float32)
+    p_args = (pscore.tips, pscore.tables, pscore.m_ops, pscore.exp_tables,
+              pscore.pmatrices(pm32, torch.float32),
+              cf.pack_weight_vec(pm32["freqs_pc"], pm32["rate_weights"]),
+              pm32["pattern_weights"])
+    protein_ms = time_ms(lambda: pscore.kernel(*p_args))[0]
+    del pscore, p_args
 
     ms = {"k6": time_ms(lambda: score.kernel(*k6_args))[0],
           "k6_plain": time_ms(lambda: score.kernel.plain(*k6_args),
@@ -647,12 +753,24 @@ def phase_mid(device):
           "k5": time_ms(lambda: sweep(tp, *tables, pm))[0],
           "k5_plain": time_ms(lambda: sweep.plain(tp, *tables, pm),
                               PLAIN_ITERS, 1)[0]}
+    ms["protein_k6"] = protein_ms
+    sched = topo.schedule
+    k5_bytes = (sched.n_inner * 4 * 4 * MID_SITES * 4  # rows out
+                + (sched.n_inner + 1) * 4 * MID_SITES * 4  # counters out
+                + -(-MID_TIPS // 8) * MID_SITES * 4)  # tip words in
+    k6_flop = (2 * sched.n_inner + 1) * MID_SITES * 4 * CONTRACT_FLOP
     return dict(k5_launches=k5_launches, k5_err=k5_err, k6_err=k6_err,
-                k5_segments=len(dyn.segments), ms=ms)
+                k5_segments=len(dyn.segments), ms=ms,
+                k5_bound=bound(2 * sched.n_inner * MID_SITES * 4
+                               * CONTRACT_FLOP, k5_bytes, peak),
+                k6_bound=bound(k6_flop, -(-MID_TIPS // 8) * MID_SITES * 4,
+                               peak))
 
 
-def phase_giant(device):
-    """Phase 9: the large-tree tier at full width on one card."""
+def phase_giant(device, peak):
+    """Phase 9: the large-tree tier at full width on one card, without
+    spills: the pools hold every segment's live rows, so K6 allocates no
+    scratch."""
     import torch
 
     from libpll_tpu_torch.engine import evaluate as ev
@@ -679,10 +797,12 @@ def phase_giant(device):
     launches = cd.DynScore.launches
     check(launches > 0, "make_score_unbounded launched no K6")
     check(np.isfinite(logl), f"giant logL {logl}")
+    pool, lay = pool_line(score.kernel, torch.float32)
+    check(lay.spills == lay.scratch == 0, f"giant spills: {pool}")
     partials = score(m32, return_partials=True)
     check(abs(float(partials.sum()) - logl) <= 1e-9 * abs(logl),
           "giant partials do not sum to the logL")
-    peak = torch.cuda.max_memory_allocated()
+    peak_mem = torch.cuda.max_memory_allocated()
 
     # per-site scaling is site-local: the plain f64 path on the tip
     # columns of a few blocks gives those blocks' per-site values
@@ -731,6 +851,10 @@ def phase_giant(device):
     k6_ms = time_ms(lambda: score.kernel(*k6_args), iters=3, warmup=1)[0]
     k6_plain_ms = time_ms(lambda: score.kernel.plain(*k6_args), iters=1,
                           warmup=0)[0]
+    # every child of every op and the edge's child is contracted; the tip
+    # words are read once, the rest is small
+    k6_bound = bound((2 * topo.schedule.n_inner + 1) * GIANT_SITES * 4
+                     * CONTRACT_FLOP, tp.numel() * 4, peak)
     print(f"[9 giant] {GIANT_TIPS} taxa x {GIANT_SITES} sites x 4 rates "
           f"f32 chars, per-site scaling, one card: make_score_unbounded "
           f"logL {logl:.6f} (finite); {len(score.dyn.segments)} segments, "
@@ -741,12 +865,15 @@ def phase_giant(device):
           f"|d| {float(diff.max()):.3e}, tolerance >= "
           f"{float(tol.min()):.3e}); K6 vs its plain version |d logL| "
           f"{k6_err:.3e}, largest block |d| {float(block_err.max()):.3e}; "
-          f"peak device memory "
-          f"{peak / 2**30:.2f} GiB; host: topology {topo_s:.2f} s, "
+          f"K6 {pool}; peak device memory "
+          f"{peak_mem / 2**30:.2f} GiB; host: topology {topo_s:.2f} s, "
           f"schedule {sched_s:.2f} s; {ms:.2f} ms/eval (host issues a call "
-          f"in {host:.2f} ms)", flush=True)
+          f"in {host:.2f} ms); K6 {k6_ms:.2f} ms against its bound "
+          f"{k6_bound[0]:.2f} ms ({k6_bound[1]}): "
+          f"{k6_bound[0] / k6_ms * 100:.1f}%", flush=True)
     return dict(launches=launches, ms=ms, k6_err=k6_err, k6_ms=k6_ms,
-                k6_plain_ms=k6_plain_ms)
+                k6_plain_ms=k6_plain_ms, k6_bound=k6_bound,
+                peak_gib=peak_mem / 2**30, pool=pool)
 
 
 # ---------------------------------------------------------- segmented tier
@@ -844,7 +971,7 @@ def f64_deviation(seg, inner, scal, clv64, scal64):
     return worst
 
 
-def phase_readme(device):
+def phase_readme(device, peak):
     """Phase 13: the README's segmented configuration, 1 024 taxa x 32 768
     sites, GTR+Γ4, float32, per-site scaling, CLV tips, seed 0, cut at
     ``seg_max_rows``.  K4 (``make_segmented_score``) and K3
@@ -967,9 +1094,11 @@ def phase_readme(device):
           f"tips: {tip_bytes / ms['k4'] / 1e9:.3f} TB/s; K3 moves "
           f"{k3_bytes / 1e9:.2f} GB (tips in, rows and counters out): "
           f"{k3_bytes / ms['k3'] / 1e9:.3f} TB/s; CUDA events", flush=True)
+    flop = 2 * sched.n_inner * README_SITES * 4 * CONTRACT_FLOP
     return dict(k3_launches=k3_launches, k4_launches=k4_launches,
                 k3_err=k3_err, k4_err=k4_err, ms=ms,
-                n_inner=sched.n_inner)
+                n_inner=sched.n_inner, k3_bound=bound(flop, k3_bytes, peak),
+                k4_bound=bound(flop, tip_bytes, peak))
 
 
 # --------------------------------------------------------------- roofline
@@ -1058,7 +1187,12 @@ def phase_roofline(device, card, k1_ms, k3_ms, n_inner_k3):
               f"contraction in {t:.4f} ms = {rate / 1e12:.3f} Tflop/s, "
               f"{rate / m['roll'] * 100:.2f}% of K8's rate, "
               f"{rate / m['peak'] * 100:.2f}% of the FP32 peak", flush=True)
-    return dict(launches=launches, k7_err=k7_abs, k8_err=k8_abs, ms=ms)
+    return dict(launches=launches, k7_err=k7_abs, k8_err=k8_abs, ms=ms,
+                k7_bound=bound(rf.fma_flops(x) * k, 2 * x.numel() * 4,
+                               m["peak"]),
+                k8_bound=bound(rf.roll_flops(rx) * k,
+                               (2 * rx.numel() + coeff.numel()) * 4,
+                               m["peak"]))
 
 
 def main():
@@ -1091,6 +1225,9 @@ def main():
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    fp32_peak = rf.fp32_peak(
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        rf.max_sm_clock_mhz())
     print(f"[1 card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices {torch.cuda.device_count()}",
           flush=True)
@@ -1186,6 +1323,11 @@ def main():
         return cf.fused_edge_score_plain(sched, tp, pmatrix, w,
                                          m32["pattern_weights"], **edge)
 
+    k1_bound = bound((2 * (tips - 2) + 1) * sites * c * CONTRACT_FLOP,
+                     (tp.numel() + sites) * 4, fp32_peak)
+    k2_bound = bound(2 * sched.n_inner * sites * c * CONTRACT_FLOP,
+                     (tp.numel() + sched.n_inner * c * s * sites
+                      + (sched.n_inner + 1) * sites) * 4, fp32_peak)
     runs = {"score": lambda: score(m32, tp), "score_plain": score_plain,
             "forward_fused": lambda: fwd(m32, tp), "k1": k1,
             "k1_plain": k1_plain, "k2": k2, "k2_plain": k2_plain}
@@ -1213,22 +1355,34 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    n, k5_small, k6_small = check_dyn_small(device)
+    n, k5_small, k6_small, n_spill = check_dyn_small(device)
     print(f"[7 dyn small] {n} kernel configurations match their plain "
-          f"versions ({time.perf_counter() - t0:.1f} s); largest f32 "
+          f"versions, {n_spill} of them with pools capped at "
+          f"{SPILL_CAPS} slots so that rows spill "
+          f"({time.perf_counter() - t0:.1f} s); largest f32 "
           f"deviations: K5 CLV abs {k5_small:.3e}, K6 |d logL| "
           f"{k6_small:.3e}", flush=True)
 
-    mid = phase_mid(device)
-    giant = phase_giant(device)
+    mid = phase_mid(device, fp32_peak)
+    giant = phase_giant(device, fp32_peak)
+
+    def share(ms_, b):
+        return f"bound {b[0]:.4f} ms ({b[1]}), {b[0] / ms_ * 100:.1f}%"
+
     print(f"[10 dyn times] {card}: at {MID_TIPS} x {MID_SITES} (DNA, "
           f"per-rate) K6 "
           f"{mid['ms']['k6']:.4f} ms vs plain {mid['ms']['k6_plain']:.4f} "
-          f"ms; K5 {mid['ms']['k5']:.4f} ms vs plain "
-          f"{mid['ms']['k5_plain']:.4f} ms ({mid['k5_segments']} segments); "
-          f"at {GIANT_TIPS} x {GIANT_SITES} K6 {giant['k6_ms']:.2f} ms vs "
-          f"plain {giant['k6_plain_ms']:.2f} ms (make_score_unbounded "
-          f"{giant['ms']:.2f} ms/eval); CUDA events", flush=True)
+          f"ms, {share(mid['ms']['k6'], mid['k6_bound'])}; K5 "
+          f"{mid['ms']['k5']:.4f} ms vs plain "
+          f"{mid['ms']['k5_plain']:.4f} ms ({mid['k5_segments']} segments), "
+          f"{share(mid['ms']['k5'], mid['k5_bound'])}; protein "
+          f"{PROTEIN_TIPS} x {PROTEIN_SITES} K6 {mid['ms']['protein_k6']:.4f}"
+          f" ms; at {GIANT_TIPS} x {GIANT_SITES} K6 {giant['k6_ms']:.2f} ms "
+          f"vs plain {giant['k6_plain_ms']:.2f} ms, "
+          f"{share(giant['k6_ms'], giant['k6_bound'])} "
+          f"(make_score_unbounded {giant['ms']:.2f} ms/eval, {giant['pool']},"
+          f" peak device memory {giant['peak_gib']:.2f} GiB); CUDA events",
+          flush=True)
 
     # ---------------------------------------------------- 11-14: seg tier
     for name in ("clv_seg", "roofline"):
@@ -1243,9 +1397,14 @@ def main():
           f"versions ({time.perf_counter() - t0:.1f} s); largest f32 "
           f"deviations: K3 CLV abs {k3_small:.3e}, K4 |d logL| "
           f"{k4_small:.3e}", flush=True)
-    readme = phase_readme(device)
+    readme = phase_readme(device, fp32_peak)
     roof = phase_roofline(device, card, ms["k1"], readme["ms"]["k3"],
                           readme["n_inner"])
+
+    def bound_keys(b):
+        # no single PyTorch call computes any of these functions (a whole
+        # tree sweep, or a dependent multiply-add chain): no library time
+        return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
     fused_src = "libpll_tpu_torch/csrc/clv_fused.cu"
     dyn_src = "libpll_tpu_torch/csrc/clv_dyn.cu"
@@ -1255,35 +1414,43 @@ def main():
         {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
          "launches": launches["fused_edge_score"], "max_abs_err": k1_err,
-         "ms": ms["k1"], "plain_ms": ms["k1_plain"]},
+         "ms": ms["k1"], "plain_ms": ms["k1_plain"],
+         **bound_keys(k1_bound)},
         {"name": "fused_sweep", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:673",
          "launches": launches["fused_sweep"], "max_abs_err": k2_err,
-         "ms": ms["k2"], "plain_ms": ms["k2_plain"]},
+         "ms": ms["k2"], "plain_ms": ms["k2_plain"],
+         **bound_keys(k2_bound)},
         {"name": "dyn_sweep", "route": "cuda", "source": dyn_src,
          "replaces": "libpll_tpu/ops/clv_pallas_dyn.py:383",
          "launches": mid["k5_launches"], "max_abs_err": mid["k5_err"],
-         "ms": mid["ms"]["k5"], "plain_ms": mid["ms"]["k5_plain"]},
+         "ms": mid["ms"]["k5"], "plain_ms": mid["ms"]["k5_plain"],
+         **bound_keys(mid["k5_bound"])},
         {"name": "dyn_score", "route": "cuda", "source": dyn_src,
          "replaces": "libpll_tpu/ops/clv_pallas_dyn.py:695",
          "launches": giant["launches"], "max_abs_err": giant["k6_err"],
-         "ms": giant["k6_ms"], "plain_ms": giant["k6_plain_ms"]},
+         "ms": giant["k6_ms"], "plain_ms": giant["k6_plain_ms"],
+         **bound_keys(giant["k6_bound"])},
         {"name": "segmented_sweep", "route": "cuda", "source": seg_src,
          "replaces": "libpll_tpu/ops/clv_pallas_seg.py:327",
          "launches": readme["k3_launches"], "max_abs_err": readme["k3_err"],
-         "ms": readme["ms"]["k3"], "plain_ms": readme["ms"]["k3_plain"]},
+         "ms": readme["ms"]["k3"], "plain_ms": readme["ms"]["k3_plain"],
+         **bound_keys(readme["k3_bound"])},
         {"name": "segmented_score", "route": "cuda", "source": seg_src,
          "replaces": "libpll_tpu/ops/clv_pallas_seg.py:425",
          "launches": readme["k4_launches"], "max_abs_err": readme["k4_err"],
-         "ms": readme["ms"]["k4"], "plain_ms": readme["ms"]["k4_plain"]},
+         "ms": readme["ms"]["k4"], "plain_ms": readme["ms"]["k4_plain"],
+         **bound_keys(readme["k4_bound"])},
         {"name": "fma_chain", "route": "cuda", "source": roof_src,
          "replaces": "scripts/bench_vpu_roofline.py:84",
          "launches": roof["launches"]["k7"], "max_abs_err": roof["k7_err"],
-         "ms": roof["ms"]["k7"], "plain_ms": roof["ms"]["k7_plain"]},
+         "ms": roof["ms"]["k7"], "plain_ms": roof["ms"]["k7_plain"],
+         **bound_keys(roof["k7_bound"])},
         {"name": "roll_contract", "route": "cuda", "source": roof_src,
          "replaces": "scripts/bench_vpu_roofline.py:110",
          "launches": roof["launches"]["k8"], "max_abs_err": roof["k8_err"],
-         "ms": roof["ms"]["k8"], "plain_ms": roof["ms"]["k8_plain"]}]}))
+         "ms": roof["ms"]["k8"], "plain_ms": roof["ms"]["k8_plain"],
+         **bound_keys(roof["k8_bound"])}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

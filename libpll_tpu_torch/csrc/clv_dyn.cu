@@ -27,41 +27,65 @@
 //            + counters * log(2^-shift)) * pattern_weight,
 //     per-rate counters first folded to their per-site minimum with the
 //     remainder (capped at 4) applied to each rate's term as the reference
-//     does (src/core_likelihood.c:916-941); one float64 partial per block.
+//     does (src/core_likelihood.c:916-941); one float64 partial per 32
+//     sites, the sum of one warp's worth of sites in block_sum_store's
+//     order (the wrapper adds four of them into each 128-site partial).
 //
 // Design on this card, and what was decided:
-//  * The TPU kernel kept a segment's rows in VMEM (10 MB) and sized
-//    segments to it.  An H100 block has 227 KB of shared memory, less than
-//    one site's rows of a useful segment.  So, as K1 (clv_fused.cu), one
-//    thread runs one site through the whole op table, and a segment's
-//    local rows live in device memory laid out [row, C*S, site] with the
-//    site innermost, so that a warp's loads and stores are coalesced.  K5
-//    writes them straight into the tree's inner CLV array; K6 into one
-//    scratch of r_loc rows that every segment reuses.  The row budget is
-//    therefore a device-memory budget (clv_dyn.dyn_max_rows: 16 GiB of
-//    scratch, 204 rows at 10 240 taxa x 2^20 sites in float32), not the
-//    TPU's VMEM constants.
+//  * The TPU kernel kept a whole segment's rows in VMEM (10 MB).  An H100
+//    block has 227 KB of shared memory, less than one site's rows of a
+//    useful segment, but only a few rows of a segment are live at once: a
+//    row lives from its op to its last reader (13 at most at 10 240 taxa,
+//    19 in the one 4 094-row segment at 4 096 taxa).  The host plans a slot
+//    for each local row (clv_dyn.dyn_slot_plan, first fit in op order, one
+//    int32 per row, data like the op table).  A block keeps a pool of P
+//    slots in dynamic shared memory laid out [slot, S, 32*C], one column
+//    per (site, rate) thread, and their counters [slot, 32] (per rate
+//    [slot, 32*C]).  A row whose slot is P or above is a spill: K6 keeps it
+//    in device scratch row slot - P (allocated only when a row spills), K5
+//    reads it back from its output row.  P is each segment's peak up to
+//    what leaves two blocks per SM (clv_dyn.pool_cap): DNA float32 never
+//    spills; protein and float64 spill when their peak is higher.
+//  * A block is a tile of 32 sites run by 32*C threads, one per (site,
+//    rate): warp c runs rate c of the 32 sites, so 4 096 x 8 192 runs 256
+//    blocks, not 64, and every P-matrix row a warp reads is one address
+//    (a broadcast; protein's rows from L1/L2 gained most).  A thread
+//    touches only its own column of the pool, and a site's counter (one
+//    per node) only warp 0's lane, so a parent may take its child's slot
+//    without a barrier.  The per-site scaling test needs the site's C
+//    rates: each warp votes, and one block barrier per scaled op shows the
+//    votes to all.  The edge fold gathers a site's C terms through shared
+//    memory and sums them in rate order.
+//  * Ops are staged kChunk at a time: one thread per op resolves its row
+//    numbers (tip, import, pool slot or spill) into shared memory, then the
+//    block reads the chunk's tip codes and, for DNA, its P-matrices
+//    (16-byte vectors) into shared memory in bulk.  An op then waits on no
+//    device-memory load: without staging each op waited on a chain of
+//    dependent loads (table, tip id, tip word) and on its P rows from L2.
+//  * The arithmetic of every value is the first port's (dot in K1's order,
+//    products, scaling by exact powers of two), so the float32 results are
+//    the same bits.  Partials are summed per 32-site tile in
+//    block_sum_store's order, and the wrapper adds four into each 128-site
+//    partial as block_sum_store did: the logL is bit for bit the same.
 //  * Imports are read where they lie (K5: earlier segments' inner rows;
 //    K6: earlier segments' export rows) through one index per import slot,
-//    and tips are read from the tree's one packed tip array by global id
-//    (tip_globals): no per-segment copies.
-//  * The contraction runs rate by rate, so a thread holds S values of a
-//    child and S of the product, not C*S of each: the template is over the
-//    dtype and S in {4, 20} only (4 instances), the rate count is a runtime
-//    loop, and protein (S = 20) fits the registers at any rate count.  A
-//    rate's product is stored as soon as it is done; under per-site
-//    scaling the thread keeps the running maximum and, in the rare case
-//    that the site scales, reads its C*S values back and multiplies them.
-//    Scaling by a power of two is exact, so this equals scaling in
-//    registers.
+//    and tips from the tree's one packed tip array by global id.  K6
+//    leaves write only their export rows to device memory, the root only
+//    its partials; K5 writes every row and counter (its output).
 //  * Pad ops (parent = trash row) and pad export entries are skipped.
-//  * Mode, tip encoding, scale mode and +I are warp-uniform runtime
-//    branches, as in K1.
+//    Mode, tip encoding, scale mode and +I are block-uniform runtime
+//    branches; the template is over the dtype and S in {4, 20}.
 //
-// What bounds it: per op and site it moves one CLV row out (C*S values)
-// and one in for each inner child, against 2*C*S*S multiply-adds; for DNA
-// (C*S = 16 floats, 64 B) that is ~130 B per 128 flop: memory-bound, as
-// K1.  At 10 240 taxa x 2^20 sites an evaluation moves ~1.4 TB (0.4 s at
+// What bounds it: with the rows on chip, K6 at 10 240 taxa x 2^20 sites
+// moves 6-43 GB (tip words, exports) against 2.40e12 flop of contraction
+// (35.9 ms at the FP32 peak), so its roofline is the contraction; the
+// kernel stays far above it, held by the work around each op (per (site,
+// rate) and op, several times as many issued instructions as its 36
+// multiply-adds: descriptor and tip decode, counters, the vote, pool
+// stores) and by the shared-memory reads of the P rows.  Other mappings
+// (a site's rates in one warp, two sites or four rates per thread) were
+// measured and lost at one size or another (PERF.md).  K5 writes every
+// row and counter: 2.70 GB at 4 096 x 8 192 per rate (0.81 ms at
 // 3.35 TB/s).
 
 #include <cuda_runtime.h>
@@ -73,9 +97,16 @@
 
 namespace {
 
-constexpr int kFields = 6;  // parent, c1, c2, s1, s2, has_scaler
+constexpr int kFields = 6;      // parent, c1, c2, s1, s2, has_scaler
+constexpr int kTileSites = 32;  // sites per block, and per partial sum
+constexpr int kChunk = 16;      // ops staged at once
 
 enum { MODE_SWEEP = 0, MODE_LEAF = 1, MODE_ROOT = 2 };
+
+// DNA stages each chunk's P-matrices in shared memory (8 KB of float32 at
+// four rates); protein reads its rate rows (1.6 KB) from L1/L2.
+template <int S>
+constexpr bool kStagePm = S == 4;
 
 template <typename T>
 struct DynArgs {
@@ -85,17 +116,21 @@ struct DynArgs {
   int scale_mode;
   int64_t sites;
   int r_tip, r_imp, r_loc, r_exp;
+  int pool;                    // P: slots in shared memory
   const int32_t* table;        // [r_loc, kFields]
   const int32_t* m_ops;        // [r_loc, 2]
   const int32_t* tip_globals;  // [r_tip]: global tip id of each tip row
   const int32_t* imp_rows;     // [r_imp]: row of each import in src
+  const int32_t* slots;        // [r_loc]: the slot of each local row
   const T* tip_clv;            // [tips, C*S, sites]             ("clv")
   const int32_t* tip_words;    // [ceil(tips/8) or tips, sites]
   const T* pmatrix;            // [M, C, S, S]
   const T* src;                // import rows [*, C*S, sites]
   const int32_t* src_scal;     // their counters [* x srows, sites]
-  T* loc;                      // local rows [r_loc, C*S, sites]
-  int32_t* loc_scal;           // [r_loc x srows, sites]
+  T* loc;                      // sweep: the segment's inner rows (every
+                               // local's output); else the spill scratch
+                               // [*, C*S, sites], row slot - P
+  int32_t* loc_scal;           // their counters [* x srows, sites]
   const int32_t* exp_table;    // leaf: [r_exp, 2] (state row, scaler row)
   T* exports;                  // leaf: [r_exp, C*S, sites]
   int32_t* export_scal;        // leaf: [r_exp x srows, sites]
@@ -107,165 +142,489 @@ struct DynArgs {
   Scale<T> u;
 };
 
-// A state row at one site: a CLV row (ptr at its k = 0 value), or a
-// pattern tip's ambiguity bits.
-template <typename T>
-struct Row {
-  const T* ptr;
-  uint32_t code;
+// What one thread is: rate c of site `site` (clamped to the last site for
+// loads past the end; `live` says whether it is a real site).  Warp c of a
+// block runs rate c of the tile's 32 sites, lane sl site sl.
+struct Lane {
+  int c;
+  int sl;  // site within the tile
+  int64_t site;
+  bool live;
 };
 
+// The shared-memory pool of a block, laid out [slot, S, nt] (one column
+// per thread, nt = 32 * C threads) with its counters [slot, 32] (per rate
+// [slot, nt]), and the P-matrices of the staged ops (DNA).  A site's
+// counter (one per node) is read and written by warp 0 only.
+template <typename T>
+struct Pool {
+  T* clv;
+  int32_t* scal;
+  T* pm;       // [kChunk, 2, C, S, S], or null (S = 20)
+  int nt;      // threads per block
+  int sstride; // counters per slot
+};
+
+// Value 0 of the thread's column of pool slot `slot`; value e is e * nt
+// further.
+template <int S>
+__device__ __forceinline__ int pool_at(int slot, int nt) {
+  return slot * S * nt + threadIdx.x;
+}
+
+// The thread's counter in a slot: its site's (warp 0's), or per rate its
+// own.
+__device__ __forceinline__ int scal_at(bool per_rate, int slot,
+                                       const Lane& ln, int sstride) {
+  return slot * sstride + (per_rate ? (int)threadIdx.x : ln.sl);
+}
+
+// Value 0 of the thread's rate of device row `row` (rows [*, C*S, sites]);
+// value e is e * sites further.
 template <typename T, int S>
-__device__ __forceinline__ Row<T> resolve(const DynArgs<T>& a, int row,
-                                          int64_t site) {
-  const int64_t cs_sites = (int64_t)a.rate_cats * S * a.sites;
-  Row<T> r{nullptr, 0u};
+__device__ __forceinline__ int64_t at(const DynArgs<T>& a, const Lane& ln,
+                                      int64_t row) {
+  return (row * a.rate_cats + ln.c) * S * a.sites + ln.site;
+}
+
+// Where local row l lives: its pool slot (< P), or its device row in loc.
+struct Home {
+  bool pooled;
+  int index;
+};
+
+template <typename T>
+__device__ __forceinline__ Home home(const DynArgs<T>& a, int l) {
+  const int slot = __ldg(a.slots + l);
+  if (slot < a.pool) return {true, slot};
+  return {false, a.mode == MODE_SWEEP ? l : slot - a.pool};
+}
+
+// The thread's S values of a row named by its state-row number (the
+// exports and the edge).  Rows this launch writes are read with plain
+// loads (not the read-only path).
+template <typename T, int S>
+__device__ __forceinline__ void load_state_row(const DynArgs<T>& a,
+                                               const Pool<T>& pl,
+                                               const Lane& ln, int row,
+                                               T (&x)[S]) {
+  const T* p;
   if (row < a.r_tip) {
     const int64_t g = __ldg(a.tip_globals + row);
-    if (a.tip_encoding == TIP_CLV) {
-      r.ptr = a.tip_clv + g * cs_sites + site;
-    } else if (a.tip_encoding == TIP_CHARS) {
-      const uint32_t word =
-          (uint32_t)__ldg(a.tip_words + (g >> 3) * a.sites + site);
-      r.code = (word >> (4 * (g & 7))) & 0xFu;
-    } else {
-      r.code = (uint32_t)__ldg(a.tip_words + g * a.sites + site);
+    if (a.tip_encoding != TIP_CLV) {
+      const uint32_t code =
+          a.tip_encoding == TIP_CHARS
+              ? ((uint32_t)__ldg(a.tip_words + (g >> 3) * a.sites + ln.site) >>
+                 (4 * (g & 7))) & 0xFu
+              : (uint32_t)__ldg(a.tip_words + g * a.sites + ln.site);
+#pragma unroll
+      for (int e = 0; e < S; ++e) x[e] = (T)((code >> e) & 1u);
+      return;
     }
+    p = a.tip_clv + at<T, S>(a, ln, g);
   } else if (row < a.r_tip + a.r_imp) {
-    r.ptr = a.src + (int64_t)__ldg(a.imp_rows + row - a.r_tip) * cs_sites +
-            site;
+    p = a.src + at<T, S>(a, ln, __ldg(a.imp_rows + row - a.r_tip));
   } else {
-    r.ptr = a.loc + (int64_t)(row - a.r_tip - a.r_imp) * cs_sites + site;
+    const Home h = home(a, row - a.r_tip - a.r_imp);
+    if (h.pooled) {
+#pragma unroll
+      for (int e = 0; e < S; ++e)
+        x[e] = pl.clv[pool_at<S>(h.index, pl.nt) + e * pl.nt];
+      return;
+    }
+    p = a.loc + at<T, S>(a, ln, h.index);
   }
-  return r;
+#pragma unroll
+  for (int e = 0; e < S; ++e) x[e] = p[e * a.sites];
 }
 
-// The S values of rate c of a row.  Rows this launch writes are read with
-// plain loads (not the read-only path).
-template <typename T, int S>
-__device__ __forceinline__ void load_rate(const Row<T>& r, int c,
-                                          int64_t sites, T (&x)[S]) {
-  if (r.ptr != nullptr) {
-    const T* base = r.ptr + (int64_t)c * S * sites;
-#pragma unroll
-    for (int d = 0; d < S; ++d) x[d] = base[d * sites];
-  } else {
-#pragma unroll
-    for (int d = 0; d < S; ++d) x[d] = (T)((r.code >> d) & 1u);
-  }
-}
-
-// Counter of scaler row `srow`, rate c (c = 0 with one row per node).
+// The thread's counter of scaler row `srow`.
 template <typename T>
-__device__ __forceinline__ int count(const DynArgs<T>& a, int srow,
-                                     int srows, int c, int64_t site) {
+__device__ __forceinline__ int count(const DynArgs<T>& a, const Pool<T>& pl,
+                                     const Lane& ln, int srow) {
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  const int srows = per_rate ? a.rate_cats : 1;
+  const int cc = per_rate ? ln.c : 0;
   if (srow < a.r_imp)
-    return a.src_scal[((int64_t)__ldg(a.imp_rows + srow) * srows + c) *
-                          a.sites + site];
+    return a.src_scal[((int64_t)__ldg(a.imp_rows + srow) * srows + cc) *
+                          a.sites + ln.site];
   const int l = srow - a.r_imp;
-  if (l < a.r_loc)
-    return a.loc_scal[((int64_t)l * srows + c) * a.sites + site];
-  return 0;  // the dummy row
+  if (l >= a.r_loc) return 0;  // the dummy row
+  const Home h = home(a, l);
+  if (h.pooled) return pl.scal[scal_at(per_rate, h.index, ln, pl.sstride)];
+  return a.loc_scal[((int64_t)h.index * srows + cc) * a.sites + ln.site];
 }
 
+// 16-byte vector loads of a P-matrix row.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+
+template <typename T, int S, bool kShared>
+__device__ __forceinline__ void load_pm_row(const T* row, T (&p)[S]) {
+  using V = typename Vec16<T>::type;
+  constexpr int n = Vec16<T>::n;
+  static_assert(S % n == 0, "P-matrix rows load as whole vectors");
+  const V* v = reinterpret_cast<const V*>(row);
+#pragma unroll
+  for (int k = 0; k < S / n; ++k) {
+    const V w = kShared ? v[k] : __ldg(v + k);
+    if constexpr (n == 4) {
+      p[4 * k] = w.x; p[4 * k + 1] = w.y;
+      p[4 * k + 2] = w.z; p[4 * k + 3] = w.w;
+    } else {
+      p[2 * k] = w.x; p[2 * k + 1] = w.y;
+    }
+  }
+}
+
+// sum_d p[d] * x[d], in K1's order (clv_common.cuh's dot).
 template <typename T, int S>
-__device__ void run_ops(const DynArgs<T>& a, int64_t site) {
+__device__ __forceinline__ T dot_regs(const T (&p)[S], const T (&x)[S]) {
+  T acc = p[0] * x[0];
+#pragma unroll
+  for (int d = 1; d < S; ++d) acc = dev_fma(p[d], x[d], acc);
+  return acc;
+}
+
+// t = (P1 x1) * (P2 x2) for the thread's rate (p1, p2 at its [S, S]
+// block): P rows from the staged chunk (kShared) or from device memory.
+template <typename T, int S, bool kShared>
+__device__ __forceinline__ void contract(const T* p1, const T* p2,
+                                         const T (&x1)[S], const T (&x2)[S],
+                                         T (&t)[S]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T row[S];
+    load_pm_row<T, S, kShared>(p1 + s * S, row);
+    t[s] = dot_regs<T, S>(row, x1);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T row[S];
+    load_pm_row<T, S, kShared>(p2 + s * S, row);
+    t[s] *= dot_regs<T, S>(row, x2);
+  }
+}
+
+// An op as the block stages it in shared memory: the parent's local row
+// (-1 for a pad op) and home, the children's and their counters' sources
+// as (kind << 28 | index) (K_ZERO for no counter), the matrices, the
+// scaling flag.  16-byte aligned: three vector loads read one.
+enum { K_TIP = 0, K_IMP = 1, K_POOL = 2, K_SPILL = 3 };
+constexpr int K_ZERO = -1;
+constexpr int kIndexBits = 28;
+
+struct __align__(16) OpDesc {
+  int parent, home, c[2], s[2], m[2], has, pad[3];
+};
+
+__device__ __forceinline__ int desc(int kind, int index) {
+  return (kind << kIndexBits) | index;
+}
+__device__ __forceinline__ int kind_of(int d) { return d >> kIndexBits; }
+__device__ __forceinline__ int index_of(int d) {
+  return d & ((1 << kIndexBits) - 1);
+}
+
+template <typename T>
+__device__ __forceinline__ int home_desc(const DynArgs<T>& a, int l) {
+  const Home h = home(a, l);
+  return desc(h.pooled ? K_POOL : K_SPILL, h.index);
+}
+
+// Resolve op i of the table (one thread per op).
+template <typename T>
+__device__ void stage_op(const DynArgs<T>& a, int i, OpDesc& o) {
+  const int loc0 = a.r_tip + a.r_imp;
+  const int32_t* op = a.table + i * kFields;
+  const int p = __ldg(op);
+  o.parent = -1;
+  if (p >= loc0 + a.r_loc) return;  // a pad op
+  o.parent = p - loc0;
+  o.home = home_desc(a, p - loc0);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int row = __ldg(op + 1 + k);
+    if (row < a.r_tip)
+      o.c[k] = desc(K_TIP, __ldg(a.tip_globals + row));
+    else if (row < loc0)
+      o.c[k] = desc(K_IMP, __ldg(a.imp_rows + row - a.r_tip));
+    else
+      o.c[k] = home_desc(a, row - loc0);
+    const int srow = __ldg(op + 3 + k);
+    if (srow < a.r_imp)
+      o.s[k] = desc(K_IMP, __ldg(a.imp_rows + srow));
+    else if (srow < a.r_imp + a.r_loc)
+      o.s[k] = home_desc(a, srow - a.r_imp);
+    else
+      o.s[k] = K_ZERO;  // the dummy or trash row
+    o.m[k] = __ldg(a.m_ops + 2 * i + k);
+  }
+  o.has = __ldg(op + 5);
+}
+
+// The pattern codes of a chunk's tip children at the tile's sites, read
+// in bulk (consecutive threads, consecutive sites; kBatch loads in flight
+// per thread) so that no op waits on a tip load.
+template <typename T>
+__device__ void stage_codes(const DynArgs<T>& a, const OpDesc* ops, int n,
+                            uint32_t (*codes)[2][kTileSites]) {
+  constexpr int kBatch = 8;
+  const int64_t tile = (int64_t)blockIdx.x * kTileSites;
+  const int total = n * 2 * kTileSites;
+  for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
+    uint32_t w[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      w[u] = 0;
+      if (it >= total) continue;
+      const int d = ops[it / (2 * kTileSites)].c[(it / kTileSites) & 1];
+      if (ops[it / (2 * kTileSites)].parent < 0 || kind_of(d) != K_TIP)
+        continue;
+      const int64_t g = index_of(d);
+      const int64_t site = tile + it % kTileSites;
+      const int64_t s = site < a.sites ? site : a.sites - 1;
+      if (a.tip_encoding == TIP_CHARS)
+        w[u] = ((uint32_t)__ldg(a.tip_words + (g >> 3) * a.sites + s) >>
+                (4 * (g & 7))) & 0xFu;
+      else
+        w[u] = (uint32_t)__ldg(a.tip_words + g * a.sites + s);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      if (it < total)
+        codes[it / (2 * kTileSites)][(it / kTileSites) & 1]
+             [it % kTileSites] = w[u];
+    }
+  }
+}
+
+// The P-matrices of a chunk's ops in shared memory, [j, k, C, S, S], read
+// in bulk as 16-byte vectors (kBatch in flight per thread): the ops then
+// read them from shared memory, not from L2 one op at a time.
+template <typename T, int S>
+__device__ void stage_pmatrices(const DynArgs<T>& a, const OpDesc* ops,
+                                int n, T* pm) {
+  using V = typename Vec16<T>::type;
+  constexpr int kBatch = 4;
+  const int per = a.rate_cats * S * S / Vec16<T>::n;  // vectors a matrix
+  const int64_t pm_size = (int64_t)a.rate_cats * S * S;
+  const int total = n * 2 * per;
+  for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
+    V w[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      const int j = it / (2 * per), k = (it / per) & 1;
+      if (it < total && ops[j].parent >= 0)
+        w[u] = __ldg(reinterpret_cast<const V*>(a.pmatrix +
+                                                ops[j].m[k] * pm_size) +
+                     it % per);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      if (it < total && ops[it / (2 * per)].parent >= 0)
+        reinterpret_cast<V*>(pm)[it] = w[u];
+    }
+  }
+}
+
+// A staged child's S values for this thread (code: its staged tip code).
+template <typename T, int S>
+__device__ __forceinline__ void load_child(const DynArgs<T>& a,
+                                           const Pool<T>& pl, const Lane& ln,
+                                           int d, uint32_t code, T (&x)[S]) {
+  const int kind = kind_of(d);
+  const int v = index_of(d);
+  if (kind == K_POOL) {
+#pragma unroll
+    for (int e = 0; e < S; ++e) x[e] = pl.clv[pool_at<S>(v, pl.nt) + e * pl.nt];
+    return;
+  }
+  if (kind == K_TIP && a.tip_encoding != TIP_CLV) {
+#pragma unroll
+    for (int e = 0; e < S; ++e) x[e] = (T)((code >> e) & 1u);
+    return;
+  }
+  const T* base = kind == K_TIP ? a.tip_clv : kind == K_IMP ? a.src : a.loc;
+  const T* p = base + at<T, S>(a, ln, v);
+#pragma unroll
+  for (int e = 0; e < S; ++e) x[e] = p[e * a.sites];
+}
+
+// The thread's counter from a staged counter source.
+template <typename T>
+__device__ __forceinline__ int staged_count(const DynArgs<T>& a,
+                                            const Pool<T>& pl,
+                                            const Lane& ln, int d) {
+  if (d < 0) return 0;
+  const int kind = kind_of(d);
+  const int v = index_of(d);
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  if (kind == K_POOL) return pl.scal[scal_at(per_rate, v, ln, pl.sstride)];
+  const int64_t row = per_rate ? (int64_t)v * a.rate_cats + ln.c : v;
+  const int32_t* base = kind == K_IMP ? a.src_scal : a.loc_scal;
+  return base[row * a.sites + ln.site];
+}
+
+// Store the thread's values and counter of local row l at its home (a
+// pool slot, or device row `index` of loc), and under sweep also at its
+// output row l.
+template <typename T, int S>
+__device__ __forceinline__ void store_local(const DynArgs<T>& a,
+                                            const Pool<T>& pl, const Lane& ln,
+                                            int l, bool pooled, int index,
+                                            const T (&t)[S], int cnt) {
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  if (pooled) {
+#pragma unroll
+    for (int e = 0; e < S; ++e)
+      pl.clv[pool_at<S>(index, pl.nt) + e * pl.nt] = t[e];
+    if (per_rate || ln.c == 0)
+      pl.scal[scal_at(per_rate, index, ln, pl.sstride)] = cnt;
+  }
+  if ((a.mode == MODE_SWEEP || !pooled) && ln.live) {
+    const int64_t row = a.mode == MODE_SWEEP ? l : index;
+    T* out = a.loc + at<T, S>(a, ln, row);
+#pragma unroll
+    for (int e = 0; e < S; ++e) out[e * a.sites] = t[e];
+    if (per_rate)
+      a.loc_scal[(row * a.rate_cats + ln.c) * a.sites + ln.site] = cnt;
+    else if (ln.c == 0)
+      a.loc_scal[row * a.sites + ln.site] = cnt;
+  }
+}
+
+// Every thread runs every op, past-the-end sites included (their loads
+// clamped, their device stores skipped): the votes need whole warps.  A
+// thread reads and writes only its own column of the pool (a site's
+// counter: warp 0's lane), so ops need no barrier but the per-site vote's.
+template <typename T, int S>
+__device__ void run_ops(const DynArgs<T>& a, const Pool<T>& pl,
+                        const Lane& ln, OpDesc* ops,
+                        uint32_t (*codes)[2][kTileSites]) {
+  __shared__ unsigned votes[2][kMaxRates];
   const int C = a.rate_cats;
-  const int64_t cs_sites = (int64_t)C * S * a.sites;
   const int64_t pm_size = (int64_t)C * S * S;
   const bool per_rate = a.scale_mode == SCALE_PER_RATE;
-  const int loc0 = a.r_tip + a.r_imp;
-  for (int i = 0; i < a.r_loc; ++i) {
-    const int32_t* op = a.table + i * kFields;
-    const int p = __ldg(op);
-    if (p >= loc0 + a.r_loc) continue;  // a pad op
-    const int local = p - loc0;
-    const Row<T> r1 = resolve<T, S>(a, __ldg(op + 1), site);
-    const Row<T> r2 = resolve<T, S>(a, __ldg(op + 2), site);
-    const int s1 = __ldg(op + 3), s2 = __ldg(op + 4);
-    const bool has = __ldg(op + 5) != 0;
-    const T* p1 = a.pmatrix + __ldg(a.m_ops + 2 * i) * pm_size;
-    const T* p2 = a.pmatrix + __ldg(a.m_ops + 2 * i + 1) * pm_size;
-    T* out = a.loc + local * cs_sites + site;
-    T site_max = 0;
-    for (int c = 0; c < C; ++c) {
-      T x[S], t[S];
-      load_rate<T, S>(r1, c, a.sites, x);
-      contract_rate<T, S>(p1, c, x, t);
-      load_rate<T, S>(r2, c, a.sites, x);
-      mul_contract_rate<T, S>(p2, c, x, t);
-      const T mx = max_of<T, S>(t);
+  const bool counts = per_rate || ln.c == 0;  // warp-uniform
+  int vb = 0;  // the votes buffer; a barrier lies between two uses of one
+  for (int base = 0; base < a.r_loc; base += kChunk) {
+    const int n = min(kChunk, a.r_loc - base);
+    __syncthreads();  // the previous chunk is done with what is staged
+    if ((int)threadIdx.x < n) stage_op(a, base + threadIdx.x, ops[threadIdx.x]);
+    __syncthreads();
+    if (a.tip_encoding != TIP_CLV) stage_codes(a, ops, n, codes);
+    if (pl.pm != nullptr) stage_pmatrices<T, S>(a, ops, n, pl.pm);
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {
+      const OpDesc o = ops[j];
+      if (o.parent < 0) continue;  // a pad op
+      int cnt = counts ? staged_count(a, pl, ln, o.s[0]) +
+                             staged_count(a, pl, ln, o.s[1])
+                       : 0;
+      T x1[S], x2[S], t[S];
+      load_child<T, S>(a, pl, ln, o.c[0], codes[j][0][ln.sl], x1);
+      load_child<T, S>(a, pl, ln, o.c[1], codes[j][1][ln.sl], x2);
+      if (pl.pm != nullptr) {
+        const T* p = pl.pm + (2 * j * C + ln.c) * S * S;
+        contract<T, S, true>(p, p + C * S * S, x1, x2, t);
+      } else {
+        contract<T, S, false>(a.pmatrix + o.m[0] * pm_size + ln.c * S * S,
+                              a.pmatrix + o.m[1] * pm_size + ln.c * S * S,
+                              x1, x2, t);
+      }
+      const bool has = o.has != 0;
       if (per_rate) {
-        const int cnt = count(a, s1, C, c, site) + count(a, s2, C, c, site) +
-                        scale_rate<T, S>(has, t, a.u);
-        a.loc_scal[((int64_t)local * C + c) * a.sites + site] = cnt;
-      }
-      site_max = (c == 0 || mx > site_max) ? mx : site_max;
+        cnt += scale_rate<T, S>(has, t, a.u);
+      } else if (a.scale_mode == SCALE_PER_SITE && has) {
+        // a site scales when all its C*S values are small: each rate's
+        // warp votes, and the block barrier shows every warp the C votes
+        const unsigned small =
+            __ballot_sync(0xffffffffu, max_of<T, S>(t) < a.u.thresh);
+        if ((threadIdx.x & 31) == 0) votes[vb][ln.c] = small;
+        __syncthreads();
+        unsigned all = 0xffffffffu;
+        for (int c = 0; c < C; ++c) all &= votes[vb][c];
+        vb ^= 1;
+        if ((all >> ln.sl) & 1u) {
 #pragma unroll
-      for (int s = 0; s < S; ++s) out[(int64_t)(c * S + s) * a.sites] = t[s];
-    }
-    if (!per_rate) {
-      int cnt = count(a, s1, 1, 0, site) + count(a, s2, 1, 0, site);
-      if (a.scale_mode == SCALE_PER_SITE && scales(has, site_max, a.u)) {
-        for (int k = 0; k < C * S; ++k)
-          out[(int64_t)k * a.sites] *= a.u.factor;
-        cnt += 1;
+          for (int s = 0; s < S; ++s) t[s] *= a.u.factor;
+          cnt += 1;
+        }
       }
-      a.loc_scal[(int64_t)local * a.sites + site] = cnt;
+      store_local<T, S>(a, pl, ln, o.parent, kind_of(o.home) == K_POOL,
+                        index_of(o.home), t, cnt);
     }
   }
 }
 
 // Leaf: copy the rows later segments import into this segment's exports.
 template <typename T, int S>
-__device__ void export_rows(const DynArgs<T>& a, int64_t site) {
-  const int C = a.rate_cats;
-  const int srows = a.scale_mode == SCALE_PER_RATE ? C : 1;
+__device__ void export_rows(const DynArgs<T>& a, const Pool<T>& pl,
+                            const Lane& ln) {
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
   const int trash = a.r_tip + a.r_imp + a.r_loc;
   for (int e = 0; e < a.r_exp; ++e) {
     const int st = __ldg(a.exp_table + 2 * e);
     if (st >= trash) continue;  // a pad entry
-    const int sc = __ldg(a.exp_table + 2 * e + 1);
-    const Row<T> r = resolve<T, S>(a, st, site);
-    T* out = a.exports + (int64_t)e * C * S * a.sites + site;
-    for (int c = 0; c < C; ++c) {
-      T x[S];
-      load_rate<T, S>(r, c, a.sites, x);
+    T x[S];
+    load_state_row<T, S>(a, pl, ln, st, x);
+    const int cnt = count(a, pl, ln, __ldg(a.exp_table + 2 * e + 1));
+    if (!ln.live) continue;
+    T* out = a.exports + ((int64_t)e * a.rate_cats + ln.c) * S * a.sites +
+             ln.site;
 #pragma unroll
-      for (int s = 0; s < S; ++s) out[(int64_t)(c * S + s) * a.sites] = x[s];
-    }
-    for (int c = 0; c < srows; ++c)
-      a.export_scal[((int64_t)e * srows + c) * a.sites + site] =
-          count(a, sc, srows, c, site);
+    for (int s = 0; s < S; ++s) out[s * a.sites] = x[s];
+    if (per_rate)
+      a.export_scal[((int64_t)e * a.rate_cats + ln.c) * a.sites + ln.site] =
+          cnt;
+    else if (ln.c == 0)
+      a.export_scal[(int64_t)e * a.sites + ln.site] = cnt;
   }
 }
 
-// Root: the weighted log-likelihood of one site across the evaluation edge.
+// Root: the weighted log-likelihood of the thread's site across the
+// evaluation edge (the same value in every thread of the site).
 template <typename T, int S>
-__device__ T edge_site_lnl(const DynArgs<T>& a, int64_t site) {
+__device__ T edge_site_lnl(const DynArgs<T>& a, const Pool<T>& pl,
+                           const Lane& ln, void* exchange) {
   const int C = a.rate_cats;
-  const Row<T> rp = resolve<T, S>(a, __ldg(a.edge + 0), site);
-  const Row<T> rc = resolve<T, S>(a, __ldg(a.edge + 1), site);
-  const int psc = __ldg(a.edge + 2), csc = __ldg(a.edge + 3);
+  T pv[S], x[S];
+  load_state_row<T, S>(a, pl, ln, __ldg(a.edge + 0), pv);
+  load_state_row<T, S>(a, pl, ln, __ldg(a.edge + 1), x);
   const T* pe = a.pmatrix + (int64_t)__ldg(a.edge + 4) * C * S * S;
+  const T mine = edge_rate_term<T, S>(pe, ln.c, pv, x, a.weight_vec);
+  const int my_sn =
+      count(a, pl, ln, __ldg(a.edge + 2)) + count(a, pl, ln, __ldg(a.edge + 3));
+  // every thread gathers its site's terms and counters, rate by rate,
+  // from the C warps through shared memory
+  T* term_s = static_cast<T*>(exchange);              // [C, 32]
+  int* sn_s = reinterpret_cast<int*>(term_s + C * kTileSites);
+  term_s[threadIdx.x] = mine;
+  sn_s[threadIdx.x] = my_sn;
+  __syncthreads();
   T term_r[kMaxRates];
+  int sn[kMaxRates];
 #pragma unroll
   for (int c = 0; c < kMaxRates; ++c) {
     if (c >= C) break;
-    T pv[S], x[S];
-    load_rate<T, S>(rp, c, a.sites, pv);
-    load_rate<T, S>(rc, c, a.sites, x);
-    term_r[c] = edge_rate_term<T, S>(pe, c, pv, x, a.weight_vec);
+    term_r[c] = term_s[c * kTileSites + ln.sl];
+    sn[c] = sn_s[c * kTileSites + ln.sl];
   }
   T term = 0;
   int snum;
   if (a.scale_mode == SCALE_PER_RATE) {
-    int sn[kMaxRates];
-#pragma unroll
-    for (int c = 0; c < kMaxRates; ++c) {
-      if (c >= C) break;
-      sn[c] = count(a, psc, C, c, site) + count(a, csc, C, c, site);
-    }
     term = fold_rates<T>(term_r, sn, C, a.u.thresh, snum);
   } else {
 #pragma unroll
@@ -273,39 +632,95 @@ __device__ T edge_site_lnl(const DynArgs<T>& a, int64_t site) {
       if (c >= C) break;
       term += term_r[c];
     }
-    snum = count(a, psc, 1, 0, site) + count(a, csc, 1, 0, site);
+    snum = sn[0];
   }
-  if (a.inv_add != nullptr) term += __ldg(a.inv_add + site);
-  return site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + site));
+  if (a.inv_add != nullptr) term += __ldg(a.inv_add + ln.site);
+  return site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + ln.site));
+}
+
+// Warp 0's sum of the tile's 32 per-site values in block_sum_store's
+// order (one warp's shuffle tree), stored at out[blockIdx.x].
+__device__ void tile_sum_store(double v, double* out) {
+  if (threadIdx.x >= 32) return;
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
 template <typename T, int S>
-__global__ void __launch_bounds__(kThreads) dyn_kernel(DynArgs<T> a) {
-  const int64_t site = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  double lnl = 0.0;
-  if (site < a.sites) {
-    run_ops<T, S>(a, site);
-    if (a.mode == MODE_LEAF)
-      export_rows<T, S>(a, site);
-    else if (a.mode == MODE_ROOT)
-      lnl = (double)edge_site_lnl<T, S>(a, site);
+__global__ void __launch_bounds__(kTileSites * kMaxRates)
+    dyn_kernel(DynArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ OpDesc ops[kChunk];
+  // the staged tip codes; after the ops, the edge fold's exchange
+  __shared__ __align__(16) uint32_t codes[kChunk][2][kTileSites];
+  static_assert(sizeof(codes) >= kMaxRates * kTileSites * (sizeof(T) + 4),
+                "the edge fold's exchange fits the codes' buffer");
+  const int C = a.rate_cats;
+  Lane ln;
+  ln.c = threadIdx.x / kTileSites;
+  ln.sl = threadIdx.x % kTileSites;
+  const int64_t site = (int64_t)blockIdx.x * kTileSites + ln.sl;
+  ln.live = site < a.sites;
+  ln.site = ln.live ? site : a.sites - 1;
+  Pool<T> pl;
+  pl.nt = kTileSites * C;
+  pl.sstride = a.scale_mode == SCALE_PER_RATE ? pl.nt : kTileSites;
+  pl.clv = reinterpret_cast<T*>(smem);
+  pl.scal = reinterpret_cast<int32_t*>(pl.clv + a.pool * S * pl.nt);
+  pl.pm = kStagePm<S> ? reinterpret_cast<T*>(pl.scal + a.pool * pl.sstride)
+                      : nullptr;
+
+  run_ops<T, S>(a, pl, ln, ops, codes);
+  // the last ops' counters (warp 0's) are read by every warp below, and
+  // the codes' buffer is taken for the edge fold
+  __syncthreads();
+  if (a.mode == MODE_LEAF) {
+    export_rows<T, S>(a, pl, ln);
+  } else if (a.mode == MODE_ROOT) {
+    // past-the-end sites add 0
+    const double lnl = (double)edge_site_lnl<T, S>(a, pl, ln, codes);
+    tile_sum_store(ln.live ? lnl : 0.0, a.partials);
   }
-  // every thread of a root block joins the reduction, masked sites with 0
-  if (a.mode == MODE_ROOT) block_sum_store(lnl, a.partials);
+}
+
+template <typename T, int S>
+int launch(const DynArgs<T>& a, cudaStream_t st) {
+  const int threads = kTileSites * a.rate_cats;
+  const int counters =
+      a.scale_mode == SCALE_PER_RATE ? threads : kTileSites;
+  const size_t smem =
+      (size_t)a.pool * ((size_t)S * threads * sizeof(T) +
+                        (size_t)counters * sizeof(int32_t)) +
+      (kStagePm<S> ? (size_t)kChunk * 2 * a.rate_cats * S * S * sizeof(T)
+                   : 0);
+  // above 48 KB only after raising the kernel's limit; a pool the card
+  // cannot hold makes this call fail, and nothing is launched
+  cudaError_t err = cudaFuncSetAttribute(
+      dyn_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks =
+      (unsigned)((a.sites + kTileSites - 1) / kTileSites);
+  dyn_kernel<T, S><<<blocks, threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int segment(int mode, int states, int rate_cats, int tip_encoding,
             int scale_mode, int64_t sites, int r_tip, int r_imp, int r_loc,
-            int r_exp, const int32_t* table, const int32_t* m_ops,
+            int r_exp, int pool, const int32_t* table, const int32_t* m_ops,
             const int32_t* tip_globals, const int32_t* imp_rows,
-            const void* tips, const void* pmatrix, const void* src,
-            const int32_t* src_scal, void* loc, int32_t* loc_scal,
-            const int32_t* exp_table, void* exports, int32_t* export_scal,
-            const int32_t* edge, const void* weight_vec,
-            const void* pattern_weights, const void* inv_add,
-            double* partials, void* stream) {
-  if (rate_cats < 1 || rate_cats > kMaxRates) return (int)cudaErrorInvalidValue;
+            const int32_t* slots, const void* tips, const void* pmatrix,
+            const void* src, const int32_t* src_scal, void* loc,
+            int32_t* loc_scal, const int32_t* exp_table, void* exports,
+            int32_t* export_scal, const int32_t* edge,
+            const void* weight_vec, const void* pattern_weights,
+            const void* inv_add, double* partials, void* stream) {
+  // the lanes of a site share a warp: C must divide 32
+  if (rate_cats < 1 || rate_cats > kMaxRates || (32 % rate_cats) != 0 ||
+      pool < 0)
+    return (int)cudaErrorInvalidValue;
   DynArgs<T> a;
   a.mode = mode;
   a.rate_cats = rate_cats;
@@ -316,10 +731,12 @@ int segment(int mode, int states, int rate_cats, int tip_encoding,
   a.r_imp = r_imp;
   a.r_loc = r_loc;
   a.r_exp = r_exp;
+  a.pool = pool;
   a.table = table;
   a.m_ops = m_ops;
   a.tip_globals = tip_globals;
   a.imp_rows = imp_rows;
+  a.slots = slots;
   a.tip_clv = tip_encoding == TIP_CLV ? static_cast<const T*>(tips) : nullptr;
   a.tip_words =
       tip_encoding == TIP_CLV ? nullptr : static_cast<const int32_t*>(tips);
@@ -337,14 +754,12 @@ int segment(int mode, int states, int rate_cats, int tip_encoding,
   a.inv_add = static_cast<const T*>(inv_add);
   a.partials = partials;
   a.u = scale_units<T>();
-  const unsigned blocks = (unsigned)((sites + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (states) {
-    case 4: dyn_kernel<T, 4><<<blocks, kThreads, 0, st>>>(a); break;
-    case 20: dyn_kernel<T, 20><<<blocks, kThreads, 0, st>>>(a); break;
+    case 4: return launch<T, 4>(a, st);
+    case 20: return launch<T, 20>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -354,20 +769,21 @@ int segment(int mode, int states, int rate_cats, int tip_encoding,
 
 #define SEGMENT_PARAMS                                                       \
   int mode, int states, int rate_cats, int tip_encoding, int scale_mode,    \
-      int64_t sites, int r_tip, int r_imp, int r_loc, int r_exp,            \
+      int64_t sites, int r_tip, int r_imp, int r_loc, int r_exp, int pool,  \
       const int32_t *table, const int32_t *m_ops,                           \
       const int32_t *tip_globals, const int32_t *imp_rows,                  \
-      const void *tips, const void *pmatrix, const void *src,               \
-      const int32_t *src_scal, void *loc, int32_t *loc_scal,                \
-      const int32_t *exp_table, void *exports, int32_t *export_scal,         \
-      const int32_t *edge, const void *weight_vec,                          \
+      const int32_t *slots, const void *tips, const void *pmatrix,          \
+      const void *src, const int32_t *src_scal, void *loc,                  \
+      int32_t *loc_scal, const int32_t *exp_table, void *exports,           \
+      int32_t *export_scal, const int32_t *edge, const void *weight_vec,    \
       const void *pattern_weights, const void *inv_add, double *partials,   \
       void *stream
 #define SEGMENT_ARGS                                                         \
   mode, states, rate_cats, tip_encoding, scale_mode, sites, r_tip, r_imp,   \
-      r_loc, r_exp, table, m_ops, tip_globals, imp_rows, tips, pmatrix,     \
-      src, src_scal, loc, loc_scal, exp_table, exports, export_scal, edge,   \
-      weight_vec, pattern_weights, inv_add, partials, stream
+      r_loc, r_exp, pool, table, m_ops, tip_globals, imp_rows, slots, tips, \
+      pmatrix, src, src_scal, loc, loc_scal, exp_table, exports,            \
+      export_scal, edge, weight_vec, pattern_weights, inv_add, partials,    \
+      stream
 
 extern "C" int clv_dyn_segment_f32(SEGMENT_PARAMS) {
   return segment<float>(SEGMENT_ARGS);

@@ -20,13 +20,19 @@ those numbers; pad rows read and write the trash rows and never scale.
 
 What differs from the TPU tier, and why:
 
-  * **Row budget.**  A TPU segment lived in 10 MB of VMEM.  The kernels
-    here keep a segment's local rows in one device scratch of ``r_loc``
-    rows, allocated per call and reused by every segment, so the budget is
-    device memory: :func:`dyn_max_rows` gives ``max_rows`` from a fixed
-    scratch budget (``SCRATCH_BUDGET``) and the row size at the call's
-    site count.  ``chunk`` (the TPU's ops per grid step) only rounds
-    ``r_loc`` up here; it defaults to 1.
+  * **Rows on chip.**  A TPU segment lived in 10 MB of VMEM.  Here a
+    segment's live rows live in a shared-memory pool of each thread
+    block: :func:`dyn_slot_plan` gives every local row a slot on the host
+    (first fit in op order; a row lives from its op to its last reader,
+    exports and the edge's rows to the end), and a block holds each
+    segment's peak number of slots up to :func:`pool_cap` (two blocks per
+    SM).  A row whose slot is past the pool spills to device memory: K6
+    keeps it in a scratch allocated only then, K5 in its own output row.
+    The plan is data beside the op table (:func:`dyn_swap_args` carries
+    it).  The segment cut's ``max_rows`` is unchanged: :func:`dyn_max_rows`
+    sizes it from ``SCRATCH_BUDGET`` as the first port did, so schedules
+    stay the JAX package's.  ``chunk`` (the TPU's ops per grid step) only
+    rounds ``r_loc`` up here; it defaults to 1.
   * **Tips.**  The kernels read the one packed tip array of the whole
     tree (``clv_fused.pack_tipchars`` nibbles, int32 masks or tip CLVs) by
     global tip id, through each segment's ``tip_globals``
@@ -39,18 +45,22 @@ What differs from the TPU tier, and why:
     per-segment copy.
   * ``impl`` ("vpu"/"mxu") is accepted for signature parity: the port has
     one contraction.  ``mxu_precision`` other than "highest" raises.  The
-    site block is the kernels' thread block (``BLOCK_SITES``), which also
-    sets the granularity of the score's partial sums.
+    score's partial sums are per ``BLOCK_SITES`` sites; the kernel's per
+    ``SLOT_SITES`` are folded into them in ``block_sum_store``'s order.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there: on a CUDA tensor it launches its kernel, once per segment, or
-raises.  Each counts its launches in its class's ``launches``.
+raises.  Each counts its launches in its class's ``launches``.  Beside
+the plain versions, ``plain_slotted`` runs the same tables through the
+kernels' pool and spill addressing (:func:`plain_slotted_segment`), so the
+slot plan is tested where no kernel runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -58,18 +68,32 @@ import numpy as np
 import torch
 
 from ..errors import EinvalError, KernelError
-from ..utils.constants import SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE
+from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
+                               scale_consts)
 from . import _build
 from . import clv_fused as cf
-from .clv_seg import (TABLE_FIELDS, Segment, _ptr, _Rows,
+from .clv_seg import (TABLE_FIELDS, Segment, _itemsize, _ptr, _Rows,
                       build_segmented_schedule, check_pmatrix,
-                      plain_edge_partials, plain_segment, segment_table)
+                      plain_edge_partials, plain_op, plain_segment,
+                      segment_table)
 from .sweep import LevelSchedule
 
-BLOCK_SITES = cf.BLOCK_SITES
-# device memory for one call's local rows: 16 GiB holds 204 rows of
-# 4 rates x 4 states at 2**20 sites in float32 (64 MiB of CLV and 16 MiB of
-# per-rate counters each), and every row of smaller problems
+BLOCK_SITES = cf.BLOCK_SITES  # sites per partial sum of the score
+SLOT_SITES = 32  # sites per partial sum of csrc/clv_dyn.cu (kTileSites)
+# shared memory of one block of csrc/clv_dyn.cu: its static part (a chunk of
+# STAGE_OPS staged op descriptors and their tip codes, the per-site votes)
+# and, for DNA, the chunk's P-matrices (stage_bytes); the pool takes at most
+# the rest of a block's 227 KB (POOL_LIMIT), and by default what leaves two
+# blocks per SM (POOL_BUDGET: half an SM's 228 KB less the 1 KB the card
+# reserves per block)
+STAGE_OPS = 16
+STATIC_SMEM = 5120
+POOL_LIMIT = 232448 - STATIC_SMEM
+POOL_BUDGET = 233472 // 2 - 1024 - STATIC_SMEM
+# the segment cut's row budget, kept from the first port (which held a
+# segment's locals in a device scratch): 16 GiB holds 204 rows of 4 rates x
+# 4 states at 2**20 sites in float32 (64 MiB of CLV and 16 MiB of per-rate
+# counters each), and every row of smaller problems
 SCRATCH_BUDGET = 16 << 30
 
 
@@ -276,11 +300,13 @@ def dyn_score_args(dyn: DynSchedule):
 
 
 def dyn_swap_args(dyn: DynSchedule):
-    """(tables, m_gathers, exp_tables, imp_src) for swapping another
-    topology's tables into a built make_dyn_score: ``imp_src``
+    """(tables, m_gathers, exp_tables, imp_src, slot_plan) for swapping
+    another topology's tables into a built make_dyn_score: ``imp_src``
     [n_segments, r_imp, 2] int32 holds each import slot's (source segment,
-    export position).  Both topologies need matching envelope floors, and
-    the evaluation edge needs ``ensure_rows`` (``clv_pallas_dyn.py:1073``)."""
+    export position), ``slot_plan`` the schedule's :func:`dyn_slot_plan`
+    for a ``dynamic_edge`` score.  Both topologies need matching envelope
+    floors, and the evaluation edge needs ``ensure_rows``
+    (``clv_pallas_dyn.py:1073``)."""
     tables, m_gathers = dyn_runtime_args(dyn)
     exp_tabs, pos_of, _ = _export_tables(dyn)
     src = np.zeros((len(dyn.segments), dyn.r_imp, 2), np.int32)
@@ -288,7 +314,7 @@ def dyn_swap_args(dyn: DynSchedule):
         for k, (a, b) in enumerate(s.imports):
             src[si, k] = (a, pos_of[(a, b)])
     return (tables, m_gathers, [torch.from_numpy(x) for x in exp_tabs],
-            torch.from_numpy(src))
+            torch.from_numpy(src), torch.from_numpy(dyn_slot_plan(dyn).slots))
 
 
 def dyn_identity_tips(dyn: DynSchedule) -> DynSchedule:
@@ -354,15 +380,197 @@ def dyn_eval_locs(dyn: DynSchedule, parent_lm: int,
 
 
 # --------------------------------------------------------------------------
+# the slot plan
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SlotPlan:
+    """Where each local row of each segment lives while the kernel runs:
+    ``slots`` [n_segments, r_loc] int32, a slot number per row (-1 for the
+    pad rows no op writes).  Slots are numbered first fit in op order, so
+    the numbers do not depend on the pool: with a pool of ``P`` slots a
+    row whose slot is below ``P`` lives in shared memory, any other in
+    device row ``slot - P`` of the scratch (K6) or in its own output row
+    (K5).  Two rows share a number only when their lives do not overlap,
+    so neither the pool nor the scratch is overwritten while live."""
+
+    slots: np.ndarray
+    n_slots: Tuple[int, ...]  # per segment: its peak live count
+
+    def pools(self, cap: int) -> Tuple[int, ...]:
+        """Each segment's pool at a cap of ``cap`` slots."""
+        return tuple(min(n, cap) for n in self.n_slots)
+
+    def spills(self, cap: int) -> int:
+        """Local rows that live in device memory at a cap of ``cap``."""
+        return int((self.slots >= cap).sum())
+
+    def scratch_rows(self, cap: int) -> int:
+        return max(0, max(self.n_slots, default=0) - cap)
+
+
+def _segment_slots(table: np.ndarray, g: _Rows, keep) -> np.ndarray:
+    """First-fit slots [r_loc] of one segment's local rows.  A row lives
+    from its op to its last reader (a child or scaler reference); rows in
+    ``keep`` live to the end.  An op's children free their slots before
+    its parent takes one: the kernel reads a child into registers before
+    it writes the parent (the same thread's column; counters shared by a
+    site's lanes are fenced by a warp barrier)."""
+    n, loc0 = g.r_loc, g.loc0
+    live_ops = [i for i in range(n) if table[i, 0] != g.trash_state]
+    end = np.full(n, -1, np.int64)
+    for i in live_ops:
+        _, c1, c2, s1, s2, _ = table[i]
+        for ref, base in ((c1, loc0), (c2, loc0), (s1, g.r_imp),
+                          (s2, g.r_imp)):
+            if base <= ref < base + n:
+                end[ref - base] = max(end[ref - base], i)
+    end[list(keep)] = n
+    slots = np.full(n, -1, np.int32)
+    free, n_used, release = [], 0, {}
+    for i in live_ops:
+        for slot in release.pop(i, ()):
+            heapq.heappush(free, slot)
+        if free:
+            slot = heapq.heappop(free)
+        else:
+            slot, n_used = n_used, n_used + 1
+        l = int(table[i, 0]) - loc0
+        slots[l] = slot
+        # a row no later op reads frees its slot at the next op
+        release.setdefault(max(int(end[l]), i + 1), []).append(slot)
+    return slots
+
+
+def dyn_slot_plan(dyn: DynSchedule, final_keep=None,
+                  exports: bool = True) -> SlotPlan:
+    """The slot plan of ``dyn`` (:class:`SlotPlan`).  Kept to the end: with
+    ``exports``, every row a later segment imports (K6 copies them out
+    last); in the final segment the locals in ``final_keep`` (the rows the
+    evaluation edge reads), or all of them when it is None (a
+    ``dynamic_edge`` score may read any)."""
+    g = _rows(dyn)
+    referenced = {}
+    if exports:
+        for s in dyn.segments:
+            for (a, b) in s.imports:
+                referenced.setdefault(a, set()).add(b)
+    last = len(dyn.segments) - 1
+    rows = []
+    for si, s in enumerate(dyn.segments):
+        keep = set(referenced.get(si, ()))
+        if si == last:
+            keep |= (set(range(s.n_local)) if final_keep is None
+                     else set(final_keep))
+        rows.append(_segment_slots(s.table, g, sorted(keep)))
+    slots = np.stack(rows)
+    return SlotPlan(slots, tuple(int(r.max()) + 1 if (r >= 0).any() else 0
+                                 for r in rows))
+
+
+def pool_bytes(slots: int, rate_cats: int, states: int, dtype,
+               srows: int) -> int:
+    """Shared memory of one block's pool: C·S values and ``srows`` int32
+    counters per slot at each of the block's ``SLOT_SITES`` sites."""
+    return slots * SLOT_SITES * (rate_cats * states * _itemsize(dtype)
+                                 + srows * 4)
+
+
+
+def stage_bytes(rate_cats: int, states: int, dtype) -> int:
+    """Shared memory of the P-matrices a block stages per chunk of ops
+    (DNA only): 8 KB at four rates in float32."""
+    if states != 4:
+        return 0
+    return STAGE_OPS * 2 * rate_cats * states * states * _itemsize(dtype)
+
+
+def pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
+    """The most slots a block's pool takes: as many as fit
+    ``POOL_BUDGET`` beside the staged P-matrices (two blocks per SM at
+    worst); 47 for DNA at four rates in float32, 10 for protein."""
+    return ((POOL_BUDGET - stage_bytes(rate_cats, states, dtype))
+            // pool_bytes(1, rate_cats, states, dtype, srows))
+
+
+# --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
+def plain_slotted_segment(g: _Rows, table, m_ops, slots, pool: int,
+                          tip_rows, imp_clv, imp_scal, tips_packed,
+                          tip_encoding, pmatrix, scale_mode, spill,
+                          spill_scal, sweep: bool):
+    """Run one segment as the kernel addresses it, with PyTorch ops: local
+    row ``l`` lives in pool slot ``slots[l]`` when that is below ``pool``,
+    else in row ``l`` (``sweep``) or ``slots[l] - pool`` of ``spill``
+    [n, C, S, L] / ``spill_scal`` [n·srows, L]; under ``sweep`` every row
+    is also written to its row of ``spill`` (K5's output).  Returns (state,
+    scalers) as :func:`clv_seg.plain_segment` does, each local read back
+    where it lives at the end (``spill`` under ``sweep``): rows whose slot
+    was reused hold their successor's values."""
+    _, c, s, _ = pmatrix.shape
+    sites = tips_packed.shape[-1]
+    srows = c if scale_mode == SCALE_PER_RATE else 1
+    thresh, factor = scale_consts(pmatrix.dtype)
+    tips = cf.decode_tips(tips_packed, tip_encoding, tip_rows.long(), c, s,
+                          pmatrix.dtype)
+    pool_clv = pmatrix.new_zeros((pool, c, s, sites))
+    pool_scal = torch.zeros((pool, srows, sites), dtype=torch.int32,
+                            device=pmatrix.device)
+    if spill_scal is not None:  # None: nothing spills
+        spill_scal = spill_scal.view(-1, srows, sites)
+    slots = [int(v) for v in slots]
+    zero_clv = pmatrix.new_zeros((c, s, sites))
+    zero_scal = pool_scal.new_zeros((srows, sites))
+    done = False  # the op loop has ended: under sweep, read back outputs
+
+    def where(l):
+        """(values, counters, row) of local ``l``; None for a pad row."""
+        slot = slots[l]
+        if slot < 0:
+            return None
+        if slot < pool and not (sweep and done):
+            return pool_clv, pool_scal, slot
+        return spill, spill_scal, (l if sweep else slot - pool)
+
+    def row(r):
+        if r < g.r_tip:
+            return tips[r]
+        if r < g.loc0:
+            return imp_clv[r - g.r_tip]
+        at = where(r - g.loc0) if r < g.trash_state else None
+        return zero_clv if at is None else at[0][at[2]]
+
+    def counters(r):
+        if r < g.r_imp:
+            return imp_scal[r * srows:(r + 1) * srows]
+        at = where(r - g.r_imp) if r < g.dummy_scal else None
+        return zero_scal if at is None else at[1][at[2]]
+
+    for (p, c1, c2, s1, s2, has), (m1, m2) in zip(table.tolist(),
+                                                  m_ops.tolist()):
+        if p == g.trash_state:
+            continue
+        x, cnt = plain_op(pmatrix, m1, m2, row(c1), row(c2),
+                          counters(s1) + counters(s2), has, scale_mode,
+                          thresh, factor)
+        l = p - g.loc0
+        clv, scal, k = where(l)
+        clv[k], scal[k] = x, cnt
+        if sweep:
+            spill[l], spill_scal[l] = x, cnt
+    done = True
+    state = torch.stack([row(r) for r in range(g.n_state)])
+    scal = torch.cat([counters(r) for r in range(g.n_scal)])
+    return state, scal
+
+
 # --------------------------------------------------------------------------
 # CUDA binding
 # --------------------------------------------------------------------------
 _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
 _MODE_SWEEP, _MODE_LEAF, _MODE_ROOT = 0, 1, 2
 _SEGMENT_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_int64]
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 19)
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 20)
 
 
 @functools.lru_cache(maxsize=None)
@@ -389,12 +597,36 @@ def _require(cond: bool, what: str) -> None:
         raise EinvalError(f"dyn kernel input: {what}")
 
 
+def fold_tile_partials(tiles: torch.Tensor, sites: int) -> torch.Tensor:
+    """The kernel's float64 partial of each ``SLOT_SITES`` sites, summed
+    into one per ``BLOCK_SITES`` sites in ``block_sum_store``'s order
+    (``tiles`` zero past the last tile)."""
+    per = BLOCK_SITES // SLOT_SITES
+    v = tiles.view(-(-sites // BLOCK_SITES), per)
+    out = v[:, 0]
+    for k in range(1, per):
+        out = out + v[:, k]
+    return out
+
+
+@dataclass(frozen=True)
+class PoolLayout:
+    """One call's pool: the slot table it runs, each segment's pool size
+    and the scratch rows of its spills."""
+
+    slots: Optional[torch.Tensor]  # [n_segments, r_loc]; None: the plan's
+    pools: Tuple[int, ...]
+    scratch: int
+    spills: Optional[int]  # spilled rows (None for a plan given as data)
+
+
 class _DynKernel:
-    """What K5 and K6 share: the schedule, its checks and per-device
-    copies of its static tables, and the plain segment loop."""
+    """What K5 and K6 share: the schedule and its slot plan, their checks
+    and per-device copies of its static tables, the pool layout, and one
+    segment's launch."""
 
     def __init__(self, dyn, scale_mode, rate_cats, states, tip_encoding,
-                 impl, mxu_precision):
+                 impl, mxu_precision, plan: SlotPlan):
         if scale_mode not in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
             raise EinvalError(f"unsupported scale mode {scale_mode}")
         cf.check_tip_encoding(tip_encoding, states)
@@ -407,7 +639,11 @@ class _DynKernel:
         self.scale_mode, self.tip_encoding = scale_mode, tip_encoding
         self.rate_cats, self.states = rate_cats, states
         self.srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
-        self._host = {"tip_globals": dyn_tip_globals(dyn)}
+        self.plan = plan
+        # the most pool slots a launch takes; None: pool_cap's budget
+        self.slot_cap: Optional[int] = None
+        self._host = {"tip_globals": dyn_tip_globals(dyn),
+                      "slots": torch.from_numpy(plan.slots)}
         self._device = {}
         self.max_matrix = max(int(s.m_ops.max()) for s in dyn.segments)
 
@@ -418,6 +654,41 @@ class _DynKernel:
             self._device[key] = self._host[name].to(device)
         return self._device[key]
 
+    def layout(self, dtype, slot_plan=None) -> PoolLayout:
+        """The pool of a call at ``dtype``: each segment's pool is its
+        plan's peak up to the cap.  A plan given as data (another
+        topology's, from :func:`dyn_swap_args`) gets the cap, or ``r_loc``
+        below it, and scratch for every row above."""
+        c, s, srows = self.rate_cats, self.states, self.srows
+        cap = (pool_cap(c, s, dtype, srows) if self.slot_cap is None
+               else self.slot_cap)
+        need = pool_bytes(cap, c, s, dtype, srows) + stage_bytes(c, s, dtype)
+        if cap < 0 or need > POOL_LIMIT:
+            raise EinvalError(f"a pool of {cap} slots takes {need} bytes "
+                              f"of shared memory, over the {POOL_LIMIT} a "
+                              f"block has for it")
+        if slot_plan is None:
+            return PoolLayout(None, self.plan.pools(cap),
+                              self.plan.scratch_rows(cap),
+                              self.plan.spills(cap))
+        pool = min(self.g.r_loc, cap)
+        return PoolLayout(slot_plan, (pool,) * len(self.dyn.segments),
+                          self.g.r_loc - pool, None)
+
+    def _slot_table(self, lay: PoolLayout, device) -> torch.Tensor:
+        if lay.slots is None:
+            return self.static("slots", device)
+        return _stacked(lay.slots).to(device=device, dtype=torch.int32)
+
+    def _scratch(self, lay: PoolLayout, pmatrix, sites, fill):
+        """(rows, counters) of the spilled locals, or (None, None)."""
+        if lay.scratch == 0:
+            return None, None
+        return (fill((lay.scratch, self.rate_cats, self.states, sites),
+                     dtype=pmatrix.dtype, device=pmatrix.device),
+                fill((lay.scratch * self.srows, sites), dtype=torch.int32,
+                     device=pmatrix.device))
+
     def check(self, tips_packed, pmatrix, tables) -> str:
         """Validate what every launch shares; return the dtype suffix."""
         device = tips_packed.device
@@ -425,7 +696,11 @@ class _DynKernel:
             raise EinvalError(f"dyn kernels run on CUDA tensors, not {device}")
         c, s = self.rate_cats, self.states
         suffix = check_pmatrix(pmatrix, c, s, self.max_matrix)
+        _require(pmatrix.data_ptr() % 16 == 0,
+                 "pmatrix is not 16-byte aligned (its rows load as vectors)")
         tips, sites = self.dyn.tips, tips_packed.shape[-1]
+        # the kernel stages row indices in 28 bits
+        _require(max(tips, self.dyn.n_inner) < 1 << 28, "tree too large")
         if self.tip_encoding == "clv":
             _require(tips_packed.dtype == pmatrix.dtype
                      and tuple(tips_packed.shape) == (tips, c, s, sites),
@@ -450,11 +725,11 @@ class _DynKernel:
                      f"want [{n_seg}, {', '.join(map(str, tail))}] int32")
         return suffix
 
-    def launch(self, suffix, mode, tips_packed, pmatrix, si, *, table, m_ops,
-               tip_globals, imp_rows, src, src_scal, loc, loc_scal,
-               exp_table=None, r_exp=0, exp=None, exp_scal=None, edge=None,
-               weight_vec=None, pattern_weights=None, inv_add=None,
-               partials=None):
+    def launch(self, suffix, mode, tips_packed, pmatrix, si, pool, *, table,
+               m_ops, tip_globals, imp_rows, slots, src, src_scal, loc,
+               loc_scal, exp_table=None, r_exp=0, exp=None, exp_scal=None,
+               edge=None, weight_vec=None, pattern_weights=None,
+               inv_add=None, partials=None):
         """One segment's kernel on the current stream of the tensors'
         card.  ``loc``/``loc_scal``/``exp``/``exp_scal`` are addresses."""
         g = self.g
@@ -465,9 +740,10 @@ class _DynKernel:
                 mode, self.states, self.rate_cats,
                 _TIP_CODE[self.tip_encoding], self.scale_mode,
                 tips_packed.shape[-1], g.r_tip, g.r_imp, g.r_loc, r_exp,
-                _ptr(table[si]), _ptr(m_ops[si]), _ptr(tip_globals[si]),
-                _ptr(imp_rows[si]), _ptr(tips_packed), _ptr(pmatrix),
-                _ptr(src), _ptr(src_scal), loc, loc_scal,
+                pool, _ptr(table[si]), _ptr(m_ops[si]),
+                _ptr(tip_globals[si]), _ptr(imp_rows[si]), _ptr(slots[si]),
+                _ptr(tips_packed), _ptr(pmatrix), _ptr(src), _ptr(src_scal),
+                loc, loc_scal,
                 None if exp_table is None else _ptr(exp_table[si]), exp,
                 exp_scal, _ptr(edge), _ptr(weight_vec),
                 _ptr(pattern_weights), _ptr(inv_add), _ptr(partials),
@@ -479,20 +755,23 @@ class _DynKernel:
 
 
 class DynSweep(_DynKernel):
-    """K5: ``sweep(tips_packed, tables, m_gathers, pmatrix, tip_globals=None)
-    -> (inner [n_inner, C, S, L], scalers)``, inner rows segment-major
-    (``dyn.inner_row`` translates level-major ids); scalers
+    """K5: ``sweep(tips_packed, tables, m_gathers, pmatrix, tip_globals=None,
+    slot_plan=None) -> (inner [n_inner, C, S, L], scalers)``, inner rows
+    segment-major (``dyn.inner_row`` translates level-major ids); scalers
     [n_inner + 1, L], or [n_inner + 1, C, L] per rate, the last row the
     zero dummy.  ``tables``/``m_gathers`` from :func:`dyn_runtime_args`
     (lists or stacked), on the tips' device; ``tip_globals`` defaults to
-    the schedule's (:func:`dyn_tip_globals`)."""
+    the schedule's (:func:`dyn_tip_globals`); other tables than the
+    schedule's need their ``slot_plan`` (:func:`dyn_slot_plan`)."""
 
     launches = 0
 
     def __init__(self, dyn, scale_mode, rate_cats, states, tip_encoding,
                  impl, mxu_precision):
+        # every row goes out as it is made: nothing is kept to the end
         super().__init__(dyn, scale_mode, rate_cats, states, tip_encoding,
-                         impl, mxu_precision)
+                         impl, mxu_precision,
+                         dyn_slot_plan(dyn, final_keep=(), exports=False))
         rows = np.zeros((len(self.dyn.segments), self.g.r_imp), np.int32)
         for si, s in enumerate(self.dyn.segments):
             for k, (a, b) in enumerate(s.imports):
@@ -520,9 +799,22 @@ class DynSweep(_DynKernel):
         return inner, scalers
 
     def plain(self, tips_packed, tables, m_gathers, pmatrix,
-              tip_globals=None):
+              tip_globals=None, slot_plan=None):
         """Plain version of K5: the segment tables run segment by segment
-        with PyTorch ops, imports read from the inner rows written so far."""
+        with PyTorch ops, imports read from the inner rows written so far.
+        ``slot_plan`` is accepted for the call's signature; no pool."""
+        return self._plain(tips_packed, tables, m_gathers, pmatrix,
+                           tip_globals)
+
+    def plain_slotted(self, tips_packed, tables, m_gathers, pmatrix,
+                      tip_globals=None, slot_plan=None):
+        """:meth:`plain` through the kernel's pool and spill addressing
+        (:func:`plain_slotted_segment`), for testing the plan."""
+        return self._plain(tips_packed, tables, m_gathers, pmatrix,
+                           tip_globals, self.layout(pmatrix.dtype, slot_plan))
+
+    def _plain(self, tips_packed, tables, m_gathers, pmatrix, tip_globals,
+               lay=None):
         tables, m_ops, tg, imp_rows = self._inputs(tips_packed, tables,
                                                    m_gathers, tip_globals)
         g, srows, sites = self.g, self.srows, tips_packed.shape[-1]
@@ -530,37 +822,47 @@ class DynSweep(_DynKernel):
         node_scal = scalers.view(-1, srows, sites)
         for si, seg in enumerate(self.dyn.segments):
             rows = imp_rows[si].long()
-            state, scal = plain_segment(
-                g, tables[si], m_ops[si], tg[si], inner[rows],
-                node_scal[rows].reshape(-1, sites), tips_packed,
-                self.tip_encoding, pmatrix, self.scale_mode)
             off, n = self.dyn.seg_offsets[si], seg.n_local
+            args = (tg[si], inner[rows], node_scal[rows].reshape(-1, sites),
+                    tips_packed, self.tip_encoding, pmatrix, self.scale_mode)
+            if lay is None:
+                state, scal = plain_segment(g, tables[si], m_ops[si], *args)
+            else:
+                state, scal = plain_slotted_segment(
+                    g, tables[si], m_ops[si],
+                    self._slot_table(lay, pmatrix.device)[si], lay.pools[si],
+                    *args, inner[off:off + n],
+                    scalers[off * srows:(off + n) * srows], sweep=True)
             inner[off:off + n] = state[g.loc0:g.loc0 + n]
             scalers[off * srows:(off + n) * srows] = (
                 scal[g.r_imp * srows:(g.r_imp + n) * srows])
         return self._shaped(inner, scalers)
 
     def __call__(self, tips_packed, tables, m_gathers, pmatrix,
-                 tip_globals=None):
+                 tip_globals=None, slot_plan=None):
         if tips_packed.device.type == "cpu":
             return self.plain(tips_packed, tables, m_gathers, pmatrix,
-                              tip_globals)
+                              tip_globals, slot_plan)
         tables, m_ops, tg, imp_rows = self._inputs(tips_packed, tables,
                                                    m_gathers, tip_globals)
         g = self.g
+        lay = self.layout(pmatrix.dtype, slot_plan)
+        slots = self._slot_table(lay, tips_packed.device)
         suffix = self.check(tips_packed, pmatrix, [
             ("tables", tables, (g.r_loc, TABLE_FIELDS)),
             ("m_gathers", m_ops, (g.r_loc, 2)),
             ("tip_globals", tg, (g.r_tip,)),
-            ("imp_rows", imp_rows, (g.r_imp,))])
+            ("imp_rows", imp_rows, (g.r_imp,)),
+            ("slot_plan", slots, (g.r_loc,))])
         sites = tips_packed.shape[-1]
         inner, scalers = self._outputs(pmatrix, sites, torch.empty)
         cs, srows = self.rate_cats * self.states, self.srows
         for si in range(len(self.dyn.segments)):
             off = self.dyn.seg_offsets[si]
             self.launch(suffix, _MODE_SWEEP, tips_packed, pmatrix, si,
-                        table=tables, m_ops=m_ops, tip_globals=tg,
-                        imp_rows=imp_rows, src=inner, src_scal=scalers,
+                        lay.pools[si], table=tables, m_ops=m_ops,
+                        tip_globals=tg, imp_rows=imp_rows, slots=slots,
+                        src=inner, src_scal=scalers,
                         loc=_ptr(inner, off, cs * sites),
                         loc_scal=_ptr(scalers, off * srows, sites))
             DynSweep.launches += 1
@@ -580,28 +882,36 @@ class DynScore(_DynKernel):
     """K6: ``score(tips_packed, tables, m_gathers, exp_tables, pmatrix,
     weight_vec, pattern_weights, inv_add=None, eval_locs=None,
     edge_matrix_idx=None, imp_src=None, tip_globals=None,
-    return_partials=False) -> logl`` (float64).
+    return_partials=False, slot_plan=None) -> logl`` (float64).
 
-    Leaf segments keep their rows in a scratch and export the rows later
-    segments import; the root segment folds the edge log-likelihood, one
-    float64 partial per BLOCK_SITES sites, folded here in float64
-    (``return_partials`` returns them instead).  ``weight_vec``:
-    ``clv_fused.pack_weight_vec`` ([C*S], (1 - p_inv) folded in under +I);
-    ``pattern_weights`` and ``inv_add`` [L].  ``eval_locs``
-    (``dynamic_edge``, from :func:`dyn_eval_locs`), ``edge_matrix_idx``,
-    ``imp_src`` (from :func:`dyn_swap_args`) and ``tip_globals`` take the
-    evaluation edge and the schedule from data: another topology built
-    with the same envelope scores through this instance by swapping them
-    with its tables.  On the card all of them are read there, without a
-    sync to the host."""
+    Leaf segments keep their live rows in the pool (spills in a scratch)
+    and export the rows later segments import; the root segment folds the
+    edge log-likelihood, one float64 partial per BLOCK_SITES sites, folded
+    here in float64 (``return_partials`` returns them instead).
+    ``weight_vec``: ``clv_fused.pack_weight_vec`` ([C*S], (1 - p_inv)
+    folded in under +I); ``pattern_weights`` and ``inv_add`` [L].
+    ``eval_locs`` (``dynamic_edge``, from :func:`dyn_eval_locs`),
+    ``edge_matrix_idx``, ``imp_src``, ``slot_plan`` (from
+    :func:`dyn_swap_args`) and ``tip_globals`` take the evaluation edge and
+    the schedule from data: another topology built with the same envelope
+    scores through this instance by swapping them with its tables.  On the
+    card all of them are read there, without a sync to the host."""
 
     launches = 0
 
     def __init__(self, dyn, parent_lm, child_lm, edge_matrix, scale_mode,
                  rate_cats, states, tip_encoding, impl, use_pinv,
                  dynamic_edge, mxu_precision):
+        g = _rows(dyn)
+        locs = ([*_locate(dyn, parent_lm, True),
+                 *_locate(dyn, child_lm, True)] if not dynamic_edge else None)
+        # the rows the edge reads stay to the end: under dynamic_edge any
+        # row of the final segment
+        plan = dyn_slot_plan(dyn, None if dynamic_edge else [
+            r - g.loc0 for r in (locs[0], locs[2])
+            if g.loc0 <= r < g.trash_state])
         super().__init__(dyn, scale_mode, rate_cats, states, tip_encoding,
-                         impl, mxu_precision)
+                         impl, mxu_precision, plan)
         self.use_pinv, self.dynamic_edge = use_pinv, dynamic_edge
         self.edge_matrix = edge_matrix
         _, pos_of, self.r_exp = _export_tables(dyn)
@@ -611,8 +921,6 @@ class DynScore(_DynKernel):
                 rows[si, k] = a * self.r_exp + pos_of[(a, b)]
         self._host["imp_rows"] = torch.from_numpy(rows)
         if not dynamic_edge:
-            locs = [*_locate(dyn, parent_lm, True),
-                    *_locate(dyn, child_lm, True)]
             self._host["edge"] = torch.tensor(
                 [locs[0], locs[2], locs[1], locs[3], edge_matrix],
                 dtype=torch.int32)
@@ -656,13 +964,33 @@ class DynScore(_DynKernel):
     def plain(self, tips_packed, tables, m_gathers, exp_tables, pmatrix,
               weight_vec, pattern_weights, inv_add=None, eval_locs=None,
               edge_matrix_idx=None, imp_src=None, tip_globals=None,
-              return_partials=False):
+              return_partials=False, slot_plan=None):
         """Plain version of K6: the same tables, segment by segment, with
-        PyTorch ops; exports copied out by the export tables."""
+        PyTorch ops; exports copied out by the export tables.
+        ``slot_plan`` is accepted for the call's signature; no pool."""
+        return self._plain(
+            (tips_packed, tables, m_gathers, exp_tables, eval_locs,
+             edge_matrix_idx, imp_src, tip_globals), pmatrix, weight_vec,
+            pattern_weights, inv_add, eval_locs, return_partials)
+
+    def plain_slotted(self, tips_packed, tables, m_gathers, exp_tables,
+                      pmatrix, weight_vec, pattern_weights, inv_add=None,
+                      eval_locs=None, edge_matrix_idx=None, imp_src=None,
+                      tip_globals=None, return_partials=False,
+                      slot_plan=None):
+        """:meth:`plain` through the kernel's pool and spill addressing
+        (:func:`plain_slotted_segment`), for testing the plan."""
+        return self._plain(
+            (tips_packed, tables, m_gathers, exp_tables, eval_locs,
+             edge_matrix_idx, imp_src, tip_globals), pmatrix, weight_vec,
+            pattern_weights, inv_add, eval_locs, return_partials,
+            self.layout(pmatrix.dtype, slot_plan))
+
+    def _plain(self, inputs, pmatrix, weight_vec, pattern_weights, inv_add,
+               eval_locs, return_partials, lay=None):
         self._check_call(inv_add, eval_locs)
-        tables, m_ops, exp_tabs, tg, imp_rows, edge = self._inputs(
-            tips_packed, tables, m_gathers, exp_tables, eval_locs,
-            edge_matrix_idx, imp_src, tip_globals)
+        tables, m_ops, exp_tabs, tg, imp_rows, edge = self._inputs(*inputs)
+        tips_packed = inputs[0]
         g, srows, r_exp = self.g, self.srows, self.r_exp
         c, s = self.rate_cats, self.states
         sites = tips_packed.shape[-1]
@@ -670,12 +998,20 @@ class DynScore(_DynKernel):
         exports = pmatrix.new_zeros((n_seg * r_exp, c, s, sites))
         exp_scal = torch.zeros((n_seg * r_exp, srows, sites),
                                dtype=torch.int32, device=pmatrix.device)
+        if lay is not None:
+            scratch, scratch_scal = self._scratch(lay, pmatrix, sites,
+                                                  torch.zeros)
+            slots = self._slot_table(lay, pmatrix.device)
         for si in range(n_seg):
             rows = imp_rows[si].long()
-            state, scal = plain_segment(
-                g, tables[si], m_ops[si], tg[si], exports[rows],
-                exp_scal[rows].reshape(-1, sites), tips_packed,
-                self.tip_encoding, pmatrix, self.scale_mode)
+            args = (tg[si], exports[rows], exp_scal[rows].reshape(-1, sites),
+                    tips_packed, self.tip_encoding, pmatrix, self.scale_mode)
+            if lay is None:
+                state, scal = plain_segment(g, tables[si], m_ops[si], *args)
+            else:
+                state, scal = plain_slotted_segment(
+                    g, tables[si], m_ops[si], slots[si], lay.pools[si],
+                    *args, scratch, scratch_scal, sweep=False)
             if si < n_seg - 1:
                 for e, (st, sc) in enumerate(exp_tabs[si].tolist()):
                     exports[si * r_exp + e] = state[st]
@@ -690,24 +1026,27 @@ class DynScore(_DynKernel):
     def __call__(self, tips_packed, tables, m_gathers, exp_tables, pmatrix,
                  weight_vec, pattern_weights, inv_add=None, eval_locs=None,
                  edge_matrix_idx=None, imp_src=None, tip_globals=None,
-                 return_partials=False):
+                 return_partials=False, slot_plan=None):
         if tips_packed.device.type == "cpu":
             return self.plain(tips_packed, tables, m_gathers, exp_tables,
                               pmatrix, weight_vec, pattern_weights, inv_add,
                               eval_locs, edge_matrix_idx, imp_src,
-                              tip_globals, return_partials)
+                              tip_globals, return_partials, slot_plan)
         self._check_call(inv_add, eval_locs)
         tables, m_ops, exp_tabs, tg, imp_rows, edge = self._inputs(
             tips_packed, tables, m_gathers, exp_tables, eval_locs,
             edge_matrix_idx, imp_src, tip_globals)
         g, r_exp, srows = self.g, self.r_exp, self.srows
+        device, dtype = tips_packed.device, pmatrix.dtype
+        lay = self.layout(dtype, slot_plan)
+        slots = self._slot_table(lay, device)
         suffix = self.check(tips_packed, pmatrix, [
             ("tables", tables, (g.r_loc, TABLE_FIELDS)),
             ("m_gathers", m_ops, (g.r_loc, 2)),
             ("exp_tables", exp_tabs, (r_exp, 2)),
             ("tip_globals", tg, (g.r_tip,)),
-            ("imp_rows", imp_rows, (g.r_imp,))])
-        device, dtype = tips_packed.device, pmatrix.dtype
+            ("imp_rows", imp_rows, (g.r_imp,)),
+            ("slot_plan", slots, (g.r_loc,))])
         sites = tips_packed.shape[-1]
         cs = self.rate_cats * self.states
         _require(edge.dtype == torch.int32 and tuple(edge.shape) == (5,)
@@ -725,26 +1064,27 @@ class DynScore(_DynKernel):
                               device=device)
         exp_scal = torch.empty((n_seg * r_exp * srows, sites),
                                dtype=torch.int32, device=device)
-        scratch = torch.empty((g.r_loc, cs, sites), dtype=dtype,
-                              device=device)
-        scratch_scal = torch.empty((g.r_loc * srows, sites),
-                                   dtype=torch.int32, device=device)
-        partials = torch.empty((-(-sites // BLOCK_SITES),),
-                               dtype=torch.float64, device=device)
+        scratch, scratch_scal = self._scratch(lay, pmatrix, sites,
+                                              torch.empty)
+        n_blocks = -(-sites // BLOCK_SITES)
+        # one partial per SLOT_SITES sites, zero past the last tile
+        tiles = torch.zeros((n_blocks * (BLOCK_SITES // SLOT_SITES),),
+                            dtype=torch.float64, device=device)
         for si in range(n_seg):
             root = si == n_seg - 1
             self.launch(
                 suffix, _MODE_ROOT if root else _MODE_LEAF, tips_packed,
-                pmatrix, si, table=tables, m_ops=m_ops, tip_globals=tg,
-                imp_rows=imp_rows, src=exports, src_scal=exp_scal,
-                loc=_ptr(scratch), loc_scal=_ptr(scratch_scal),
-                exp_table=exp_tabs, r_exp=r_exp,
-                exp=_ptr(exports, si * r_exp, cs * sites),
+                pmatrix, si, lay.pools[si], table=tables, m_ops=m_ops,
+                tip_globals=tg, imp_rows=imp_rows, slots=slots,
+                src=exports, src_scal=exp_scal, loc=_ptr(scratch),
+                loc_scal=_ptr(scratch_scal), exp_table=exp_tabs,
+                r_exp=r_exp, exp=_ptr(exports, si * r_exp, cs * sites),
                 exp_scal=_ptr(exp_scal, si * r_exp * srows, sites),
                 edge=edge, weight_vec=weight_vec,
                 pattern_weights=pattern_weights, inv_add=inv_add,
-                partials=partials)
+                partials=tiles)
             DynScore.launches += 1
+        partials = fold_tile_partials(tiles, sites)
         return partials if return_partials else cf.sum_block_partials(
             partials)
 

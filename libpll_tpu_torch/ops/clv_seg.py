@@ -29,8 +29,10 @@ rows fit ``SMEM_BUDGET`` (two blocks per SM), and :func:`seg_max_rows` the
 cut's ``max_rows`` whose segments hold no more (a binary subtree of s
 rows, tips and imports counted, has (s - 1) / 2 locals).  A call whose
 segments need more shared memory than one block may have (``SMEM_LIMIT``)
-raises :class:`EinvalError` before anything runs.  The dyn tier keeps its
-rows in device memory and has its own budget (``clv_dyn.dyn_max_rows``).
+raises :class:`EinvalError` before anything runs.  The dyn tier keeps only
+a segment's live rows in shared memory, planned slot by slot
+(``clv_dyn.dyn_slot_plan``), and cuts segments by its own budget
+(``clv_dyn.dyn_max_rows``).
 
 K3/K4 take CLV tips only (per-segment slabs from
 :func:`pack_tips_segmented`, rows rate-major: the JAX package's "mxu"
@@ -441,21 +443,28 @@ def plain_segment(g: _Rows, table, m_ops, tip_rows, imp_clv, imp_scal,
             zip(table.tolist(), m_ops.tolist())):
         if p == g.trash_state:
             continue  # a pad op
-        x = (torch.matmul(pmatrix[m1], state[c1])
-             * torch.matmul(pmatrix[m2], state[c2]))
-        cnt = (scal[s1 * srows:(s1 + 1) * srows]
-               + scal[s2 * srows:(s2 + 1) * srows])
-        if has and scale_mode == SCALE_PER_SITE:
-            mask = (x < thresh).all(dim=1).all(dim=0)  # [L]
-            x = torch.where(mask, x * factor, x)
-            cnt = cnt + mask.to(torch.int32)
-        elif has and scale_mode == SCALE_PER_RATE:
-            mask = (x < thresh).all(dim=1)  # [C, L]
-            x = torch.where(mask[:, None], x * factor, x)
-            cnt = cnt + mask.to(torch.int32)
-        state[p] = x
-        scal[(g.r_imp + i) * srows:(g.r_imp + i + 1) * srows] = cnt
+        state[p], scal[(g.r_imp + i) * srows:(g.r_imp + i + 1) * srows] = (
+            plain_op(pmatrix, m1, m2, state[c1], state[c2],
+                     scal[s1 * srows:(s1 + 1) * srows]
+                     + scal[s2 * srows:(s2 + 1) * srows], has, scale_mode,
+                     thresh, factor))
     return state, scal
+
+
+def plain_op(pmatrix, m1, m2, x1, x2, cnt, has, scale_mode, thresh, factor):
+    """One op with PyTorch ops: the parent row (P[m1] x1) * (P[m2] x2)
+    [C, S, L] and its counters ``cnt`` [srows, L] (the children's sum),
+    both after the op's scaling test."""
+    x = torch.matmul(pmatrix[m1], x1) * torch.matmul(pmatrix[m2], x2)
+    if has and scale_mode == SCALE_PER_SITE:
+        mask = (x < thresh).all(dim=1).all(dim=0)  # [L]
+        x = torch.where(mask, x * factor, x)
+        cnt = cnt + mask.to(torch.int32)
+    elif has and scale_mode == SCALE_PER_RATE:
+        mask = (x < thresh).all(dim=1)  # [C, L]
+        x = torch.where(mask[:, None], x * factor, x)
+        cnt = cnt + mask.to(torch.int32)
+    return x, cnt
 
 
 def plain_edge_partials(state, scal, edge, pmatrix, weight_vec,

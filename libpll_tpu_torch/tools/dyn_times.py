@@ -1,0 +1,180 @@
+"""Time the dyn kernels K5/K6 of several checkouts, or of source variants
+of ``csrc/clv_dyn.cu``, in turns on one card.
+
+    python3 libpll_tpu_torch/tools/dyn_times.py [TREE ...]
+    python3 libpll_tpu_torch/tools/dyn_times.py --variants SPEC.json NAME ...
+
+Each run is its own process, in the order given (parent, change, change,
+parent compares two commits on one card).  A TREE is a checkout's root
+(default: this one); it is measured with its own package and its own
+``chip_smoke.py`` helpers.  A variant is this checkout's ``clv_dyn.cu``
+with the text substitutions ``SPEC.json`` names for it
+(``{"name": [["old", "new"], ...]}``; an empty list is the source as it
+stands), built by nvcc beside the package's build and loaded in place of
+its library.  Measured, with CUDA events (``chip_smoke.time_ms``):
+
+  * K6 (``make_score_unbounded``'s kernel) at the large configuration,
+    10 240 taxa x 2^20 sites, DNA, float32, per-site scaling: ms per
+    evaluation, the logL and the peak device memory of one evaluation;
+  * K6 and K5 at the mid configuration, 4 096 x 8 192 DNA, per-rate
+    scaling (K5 cut at chip_smoke's K5_MAX_ROWS);
+  * K6 at the protein configuration, 256 x 16 384, 20-bit masks.
+
+Each run prints one JSON line; the card's name and power limit come first.
+"""
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def measure(tree, lib=None):
+    """One run in this process: the numbers of the module docstring."""
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import _build
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+    from libpll_tpu_torch.utils.flagship import (build_flagship_topology,
+                                                 draw_tipchars_cuda)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if lib is None:
+        _build.build_all(["clv_dyn"])
+    else:
+        loaded = ctypes.CDLL(str(lib))
+        for suffix in ("f32", "f64"):
+            fn = getattr(loaded, f"clv_dyn_segment_{suffix}")
+            fn.argtypes = cd._SEGMENT_ARGTYPES
+            fn.restype = ctypes.c_int
+        loaded.clv_dyn_error_string.argtypes = [ctypes.c_int]
+        loaded.clv_dyn_error_string.restype = ctypes.c_char_p
+        cd.load_kernels = lambda: loaded
+    device = torch.device("cuda", 0)
+
+    def k6_args(score, model):
+        pm = score.pmatrices(model, torch.float32)
+        return (score.tips, score.tables, score.m_ops, score.exp_tables, pm,
+                cf.pack_weight_vec(model["freqs_pc"], model["rate_weights"]),
+                model["pattern_weights"])
+
+    out = {"tree": str(tree), "variant": None if lib is None else
+           Path(lib).stem}
+    topo, model_np = build_flagship_topology(cs.GIANT_TIPS, cs.GIANT_SITES,
+                                             seed=0)
+    tp = draw_tipchars_cuda(cs.GIANT_TIPS, cs.GIANT_SITES, 0, device)
+    score = ev.ScoreUnbounded(topo, 4, 4, tp, "chars").to(device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["giant_logl"] = float(score(m32))
+    out["giant_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    args = k6_args(score, m32)
+    out["giant_k6_ms"] = cs.time_ms(lambda: score.kernel(*args), iters=3,
+                                    warmup=1)[0]
+    del score, tp, args
+    torch.cuda.empty_cache()
+
+    topo, model_np = build_flagship_topology(cs.MID_TIPS, cs.MID_SITES, seed=1)
+    topo = topo._replace(scale_mode=SCALE_PER_RATE)
+    tp = draw_tipchars_cuda(cs.MID_TIPS, cs.MID_SITES, 1, device)
+    score = ev.ScoreUnbounded(topo, 4, 4, tp, "chars").to(device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    args = k6_args(score, m32)
+    out["mid_logl"] = float(score.kernel(*args))
+    out["mid_k6_ms"] = cs.time_ms(lambda: score.kernel(*args))[0]
+    dyn = cd.build_dyn_schedule(topo.schedule, rate_cats=4, states=4,
+                                max_rows=cs.K5_MAX_ROWS,
+                                ensure_rows=[topo.parent_clv, topo.child_clv])
+    sweep = cd.make_dyn_sweep(dyn, SCALE_PER_RATE, rate_cats=4, states=4,
+                              tip_encoding="chars")
+    tables = cs.stacked(cd.dyn_runtime_args(dyn), device)
+    out["mid_k5_ms"] = cs.time_ms(lambda: sweep(tp, *tables, args[4]))[0]
+
+    ptopo, pmodel, pmasks = cs.small_case(
+        cs.random_newick(cs.PROTEIN_TIPS, np.random.default_rng(3)),
+        cs.PROTEIN_SITES, 4, seed=3, states=20)
+    pmodel["prop_invar"] = np.zeros(1)
+    pmodel["prop_invar_pc"] = np.zeros(4)
+    pscore = ev.make_score_unbounded(ptopo, 4, 20, pmasks).to(device)
+    pargs = k6_args(pscore, model_from_numpy(pmodel, device, torch.float32))
+    out["protein_logl"] = float(pscore.kernel(*pargs))
+    out["protein_k6_ms"] = cs.time_ms(lambda: pscore.kernel(*pargs))[0]
+    print(json.dumps(out), flush=True)
+
+
+def build_variants(spec, names):
+    """nvcc each named variant of csrc/clv_dyn.cu, all at once; return
+    {name: library path}."""
+    sys.path.insert(0, str(ROOT))
+    from libpll_tpu_torch.ops import _build
+
+    unknown = sorted(set(names) - set(spec))
+    if unknown:
+        raise SystemExit(f"variants not in the spec: {', '.join(unknown)}")
+    source = (_build.CSRC_DIR / "clv_dyn.cu").read_text()
+    folder = _build.BUILD_DIR / "variants"
+    folder.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in dict.fromkeys(names):
+        text = source
+        for old, new in spec[name]:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {old!r} not in the source")
+            text = text.replace(old, new)
+        src = folder / f"clv_dyn_{name}.cu"
+        src.write_text(text)
+        lib = folder / f"clv_dyn_{name}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+             "-o", str(lib), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    libs, failed = {}, []
+    for name, (lib, proc) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"variant {name} does not build:\n{stderr}")
+            continue
+        regs = [line.split("Used")[1].split(",")[0].strip()
+                for line in (stdout + stderr).splitlines()
+                if "Used" in line and "registers" in line]
+        print(f"variant {name}: {', '.join(regs)}", flush=True)
+        libs[name] = lib
+    if failed:
+        raise SystemExit("\n".join(failed))
+    return libs
+
+
+def main(argv):
+    if argv[:1] == ["--measure"]:
+        measure(argv[1], argv[2] if len(argv) > 2 else None)
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    if argv[:1] == ["--variants"]:
+        names = argv[2:]
+        libs = build_variants(json.loads(Path(argv[1]).read_text()), names)
+        runs = [(ROOT, libs[name]) for name in names]
+    else:
+        runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]
+    for tree, lib in runs:
+        cmd = [sys.executable, __file__, "--measure", str(tree)]
+        subprocess.run(cmd + ([str(lib)] if lib else []), check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -344,13 +344,13 @@ def test_dyn_score_table_swap():
         idx = torch.as_tensor(topo.matrix_indices, dtype=torch.long)
         pm = tev._pmatrices(tm, topo, torch.float64, idx)
         wvec = cf.pack_weight_vec(tm["freqs_pc"], tm["rate_weights"])
-        tables, m_g, exp_t, imp_src = cd.dyn_swap_args(dyn)
+        tables, m_g, exp_t, imp_src, slot_plan = cd.dyn_swap_args(dyn)
         locs = torch.from_numpy(cd.dyn_eval_locs(dyn, topo.parent_clv,
                                                  topo.child_clv))
         got = float(shared(tp, tables, m_g, exp_t, pm, wvec,
                            tm["pattern_weights"], eval_locs=locs,
                            edge_matrix_idx=torch.tensor(topo.edge_matrix),
-                           imp_src=imp_src,
+                           imp_src=imp_src, slot_plan=slot_plan,
                            tip_globals=cd.dyn_tip_globals(dyn)))
         fresh = float(cd.make_dyn_score(
             dyn, topo.parent_clv, topo.child_clv, topo.edge_matrix,

@@ -119,6 +119,8 @@ def test_dyn_schedule_and_tables_equal_jax(config):
     for a, b in zip(got_swap[:3], want_swap[:3]):
         _assert_tensors_equal(a, b)
     assert np.array_equal(got_swap[3].numpy(), np.asarray(want_swap[3]))
+    # the port's swap data also carries the slot plan of its pool
+    assert np.array_equal(got_swap[4].numpy(), cd.dyn_slot_plan(got).slots)
     gt, gp, gr = cd._export_tables(got)
     wt, wp, wr = jcd._export_tables(want)
     assert (gp, gr) == (wp, wr)

@@ -144,6 +144,42 @@ def test_dyn_modules_on_card_match_cpu(cuda, states, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("states", [4, 20])
+def test_dyn_spilled_pool_on_card_matches_cpu(cuda, states, monkeypatch):
+    """K5 and K6 with their pools capped at one slot, so that most local
+    rows spill to device memory (K6's scratch, K5's output rows), on a
+    multi-segment tree in float64: equal to the plain versions on the CPU
+    and to the slotted runner that follows the same addressing."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(24, np.random.default_rng(11)), 300, 4, 11,
+        states=states)
+    monkeypatch.setattr(cd, "SCRATCH_BUDGET",
+                        16 * 300 * 4 * (4 * states + 4))
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, torch.float64)
+        score = ev.make_score_unbounded(topo, 4, states, masks).to(device)
+        sweep = cd.make_dyn_sweep(score.dyn, topo.scale_mode, rate_cats=4,
+                                  states=states,
+                                  tip_encoding=score.kernel.tip_encoding)
+        score.kernel.slot_cap = sweep.slot_cap = 1
+        assert score.kernel.layout(torch.float64).spills > 0
+        assert sweep.layout(torch.float64).spills > 0
+        pm = score.pmatrices(model, torch.float64)
+        args = (score.tips, score.tables, score.m_ops, pm)
+        inner, scalers = sweep(*args)
+        out[str(device)] = (float(score(model)), inner.cpu(), scalers.cpu())
+        if device == "cpu":
+            slotted = sweep.plain_slotted(*args)
+            assert torch.equal(slotted[0], inner)
+            assert torch.equal(slotted[1], scalers)
+    (s0, i0, c0), (s1, i1, c1) = out.values()
+    assert abs(s1 - s0) <= 1e-12 * abs(s0)
+    torch.testing.assert_close(i1, i0, rtol=1e-12, atol=0)
+    assert torch.equal(c1, c0)
+
+
+@pytest.mark.gpu
 def test_dyn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     newick = chip_smoke.random_newick(8, np.random.default_rng(4))
     for rate_cats, states, bad in ((3, 4, "rate_cats"), (4, 5, "states"),
