@@ -69,10 +69,14 @@ Phases, one line each:
  12. small seg configs: K3 and K4 against their plain versions on the card
      with phase 3's tolerances: CLV tips, every scale mode, float32/float64,
      C in {1, 2, 4, 8}, S in {4, 20}, one and many segments, a deep
-     caterpillar that scales;
- 13. README configuration: K4 and K3 (see ``phase_readme``), segments,
-     shared memory per block, the peak device memory of each call (K4's
-     below K3's), and ms per call for K3, K4 and their plain versions;
+     caterpillar that scales, segments as large as a block's shared memory
+     holds, an odd site count, one launch per call (and once one per
+     segment);
+ 13. README configuration: K4 and K3 (see ``phase_readme``), one launch
+     per call each, segments, the pool, shared memory and blocks per SM,
+     the peak device memory of each call (K4's below K3's), ms per call
+     for K3, K4 and their plain versions, the host's time per call with
+     the card idle, and the logLs to the last digit;
  14. roofline: K7 and K8 against their plain versions at small chain
      lengths (rel 1e-5), their sustained rates and K7's share of the FP32
      peak, and the contraction rates K1 (flagship) and K3 (README
@@ -622,6 +626,23 @@ def time_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
     return start.elapsed_time(end) / iters, host
 
 
+def host_ms(fn, iters=TIMED_ITERS):
+    """Median wall time of one call's issue, in ms, with the card idle
+    (synchronised before each call, the clock stopped before the
+    synchronisation after it)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device memory (data sheet)
 CONTRACT_FLOP = (2 * 4 - 1) * 4  # per contracted child, rate and site (DNA)
 
@@ -877,12 +898,82 @@ def phase_giant(device, peak):
 
 
 # ---------------------------------------------------------- segmented tier
+def seg_pair(device, topo, model_np, masks, seg, rate_cats, states, dtype,
+             where, scales, split=False):
+    """K3 and K4 on one schedule against their plain versions at each of
+    ``scales``, phase 3's tolerances; one launch per call (``split``: one
+    per segment).  Returns (configurations, largest K3 CLV abs error,
+    largest K4 |d logL|, largest dynamic shared memory per block)."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_seg as cseg
+
+    slabs = cseg.pack_tips_segmented(tip_input(
+        masks, "clv", rate_cats, dtype, device, states), seg)
+    pm, wvec, pw, _ = kernel_inputs(topo, model_np, dtype, device, False)
+    edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
+    per_call = len(seg.segments) if split else 1
+    n, k3_err, k4_err, smem = 0, 0.0, 0.0, 0
+    for scale in scales:
+        sweep = cseg.make_segmented_sweep(seg, scale, rate_cats=rate_cats,
+                                          states=states)
+        score = cseg.make_segmented_score(seg, *edge, scale,
+                                          rate_cats=rate_cats, states=states)
+        sweep.split = score.split = split
+        smem = max(smem, sweep.smem(dtype), score.smem(dtype))
+        before = cseg.SegmentedSweep.launches
+        got = sweep(slabs, pm)
+        check(cseg.SegmentedSweep.launches - before == per_call,
+              f"K3 {where}: {cseg.SegmentedSweep.launches - before} "
+              f"launches, want {per_call}")
+        want = sweep.plain(slabs, pm)
+        torch.cuda.synchronize()
+        ok, err, agree = sweep_close(*got, *want, dtype)
+        check(ok, f"K3 {where} scale={scale}: max abs err {err}, scaler "
+                  f"agreement {agree}")
+        before = cseg.SegmentedScore.launches
+        got = float(score(slabs, pm, wvec, pw))
+        check(cseg.SegmentedScore.launches - before == per_call,
+              f"K4 {where}: {cseg.SegmentedScore.launches - before} "
+              f"launches, want {per_call}")
+        want = float(score.plain(slabs, pm, wvec, pw))
+        check(np.isfinite(got) and logl_close(got, want, dtype),
+              f"K4 {where} scale={scale}: {got} vs plain {want}")
+        if dtype == torch.float32:
+            k3_err = max(k3_err, err)
+            k4_err = max(k4_err, abs(got - want))
+        n += 2
+    return n, k3_err, k4_err, smem
+
+
+def limit_cut(topo, rate_cats, states, dtype):
+    """The schedule of the largest cut of ``topo`` whose K3/K4 layout
+    (per-rate counters, the largest) fits one block's ``SMEM_LIMIT``."""
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+    ensure = [topo.parent_clv, topo.child_clv]
+    for max_rows in range(2 * topo.schedule.tips, 2, -1):
+        seg = cseg.build_segmented_schedule(topo.schedule, max_rows=max_rows,
+                                            ensure_rows=ensure)
+        kw = dict(rate_cats=rate_cats, states=states)
+        kernels = (cseg.make_segmented_sweep(seg, SCALE_PER_RATE, **kw),
+                   cseg.make_segmented_score(
+                       seg, *ensure, topo.edge_matrix, SCALE_PER_RATE, **kw))
+        if max(k.smem(dtype) for k in kernels) <= cseg.SMEM_LIMIT:
+            return seg
+    fail(f"no cut of a {topo.schedule.tips}-taxon tree fits a block")
+
+
 def check_seg_small(device):
     """Phase 12: K3 and K4 against their plain versions, CLV tips: every
     scale mode, float32/float64, C in {1, 2, 4, 8}, S in {4, 20}, one
     segment and many (cut at the row budget where it is smaller), a deep
-    caterpillar that scales.  Returns (configurations checked, largest
-    float32 K3 CLV abs error, largest float32 K4 |d logL|)."""
+    caterpillar that scales; segments cut as large as a block's shared
+    memory holds (``limit_cut``); an odd site count (tip rows not 16-byte
+    aligned); one launch per segment (``split``).  Returns
+    (configurations checked, largest float32 K3 CLV abs error, largest
+    float32 K4 |d logL|, the largest layout checked in bytes)."""
     import torch
 
     from libpll_tpu_torch.ops import clv_seg as cseg
@@ -891,53 +982,54 @@ def check_seg_small(device):
 
     rng = np.random.default_rng(3)
     # (label, newick, states, rate categories, row budget; None: one
-    # segment); 1000 sites leave a ragged last block of 104
-    trees = [("random10", random_newick(10, rng), 4, (4,), None),
-             ("random16/8rows", random_newick(16, rng), 4, (4,), 8),
-             ("caterpillar48/12rows", caterpillar_newick(48), 4, (4,), 12),
-             ("random12/6rows", random_newick(12, rng), 4, (1, 2, 8), 6),
+    # segment, "limit": limit_cut), dtypes, sites; 1000 sites leave a
+    # ragged last tile of 8, 1001 one of 9 and rows that are not 16-byte
+    # aligned.  Every scale mode, but the 256-taxon protein tree underflows
+    # float32 unscaled
+    both = (torch.float32, torch.float64)
+    scaled = (SCALE_PER_SITE, SCALE_PER_RATE)
+    trees = [("random10", random_newick(10, rng), 4, (4,), None, both, 1000),
+             ("random16/8rows", random_newick(16, rng), 4, (4,), 8, both,
+              1000),
+             ("caterpillar48/12rows", caterpillar_newick(48), 4, (4,), 12,
+              both, 1000),
+             ("random12/6rows", random_newick(12, rng), 4, (1, 2, 8), 6,
+              both, 1000),
              ("protein12/6rows", random_newick(12, rng), 20, (1, 2, 4, 8),
-              6)]
-    n, k3_err, k4_err = 0, 0.0, 0.0
-    for label, newick, states, cats, max_rows in trees:
+              6, both, 1000),
+             ("protein64/limit", random_newick(64, rng), 20, (8,), "limit",
+              (torch.float64,), 1000),
+             ("protein256/limit", random_newick(256, rng), 20, (8,), "limit",
+              (torch.float32,), 1000),
+             ("random16/8rows/1001", random_newick(16, rng), 4, (4,), 8,
+              both, 1001)]
+    n, k3_err, k4_err, smem = 0, 0.0, 0.0, 0
+    for label, newick, states, cats, max_rows, dtypes, sites in trees:
         for rate_cats in cats:
-            topo, model_np, masks = small_case(newick, 1000, rate_cats,
+            topo, model_np, masks = small_case(newick, sites, rate_cats,
                                                seed=rate_cats, states=states)
-            edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
-            for dtype in (torch.float32, torch.float64):
-                budget = cseg.seg_max_rows(rate_cats, states, dtype)
-                seg = cseg.build_segmented_schedule(
-                    topo.schedule, max_rows=(1 << 20 if max_rows is None
-                                             else min(max_rows, budget)),
-                    ensure_rows=[topo.parent_clv, topo.child_clv])
-                check((max_rows is None) == (len(seg.segments) == 1),
-                      f"{label}: {len(seg.segments)} segments")
-                slabs = cseg.pack_tips_segmented(tip_input(
-                    masks, "clv", rate_cats, dtype, device, states), seg)
-                pm, wvec, pw, _ = kernel_inputs(topo, model_np, dtype,
-                                                device, False)
-                where = f"{label} S={states} C={rate_cats} {dtype}"
-                for scale in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
-                    sweep = cseg.make_segmented_sweep(
-                        seg, scale, rate_cats=rate_cats, states=states)
-                    got = sweep(slabs, pm)
-                    want = sweep.plain(slabs, pm)
-                    torch.cuda.synchronize()
-                    ok, err, agree = sweep_close(*got, *want, dtype)
-                    check(ok, f"K3 {where} scale={scale}: max abs err "
-                              f"{err}, scaler agreement {agree}")
-                    score = cseg.make_segmented_score(
-                        seg, *edge, scale, rate_cats=rate_cats,
-                        states=states)
-                    got = float(score(slabs, pm, wvec, pw))
-                    want = float(score.plain(slabs, pm, wvec, pw))
-                    check(np.isfinite(got) and logl_close(got, want, dtype),
-                          f"K4 {where} scale={scale}: {got} vs plain {want}")
-                    if dtype == torch.float32:
-                        k3_err = max(k3_err, err)
-                        k4_err = max(k4_err, abs(got - want))
-                    n += 2
-    return n, k3_err, k4_err
+            for dtype in dtypes:
+                if max_rows == "limit":
+                    seg = limit_cut(topo, rate_cats, states, dtype)
+                else:
+                    budget = cseg.seg_max_rows(rate_cats, states, dtype)
+                    seg = cseg.build_segmented_schedule(
+                        topo.schedule, max_rows=(1 << 20 if max_rows is None
+                                                 else min(max_rows, budget)),
+                        ensure_rows=[topo.parent_clv, topo.child_clv])
+                    check((max_rows is None) == (len(seg.segments) == 1),
+                          f"{label}: {len(seg.segments)} segments")
+                got = seg_pair(device, topo, model_np, masks, seg, rate_cats,
+                               states, dtype,
+                               f"{label} S={states} C={rate_cats} {dtype}",
+                               scaled if label == "protein256/limit"
+                               else (SCALE_NONE,) + scaled,
+                               split=label == "random16/8rows"
+                               and dtype == torch.float64)
+                n += got[0]
+                k3_err, k4_err = max(k3_err, got[1]), max(k4_err, got[2])
+                smem = max(smem, got[3])
+    return n, k3_err, k4_err, smem
 
 
 README_TIPS, README_SITES = 1024, 32768  # README "Performance": segmented
@@ -976,7 +1068,8 @@ def phase_readme(device, peak):
     sites, GTR+Γ4, float32, per-site scaling, CLV tips, seed 0, cut at
     ``seg_max_rows``.  K4 (``make_segmented_score``) and K3
     (``make_segmented_sweep``) are the main path, each with its counter at
-    0 and its device memory peak; K4's logL, and the edge logL of K3's
+    0 (one launch per call) and its device memory peak; K4's logL, and the
+    edge logL of K3's
     rows, are held to the plain float64 ``make_forward`` within the f32
     budget; K3 to its plain version (scalers at >= 99.9%, CLVs at rtol 1e-5
     where they agree) and K4 to its plain version within the budget; K3's
@@ -1026,8 +1119,9 @@ def phase_readme(device, peak):
     torch.cuda.synchronize()
     k3_launches = cseg.SegmentedSweep.launches
     k3_peak = torch.cuda.max_memory_allocated()
-    check(k4_launches > 0 and k3_launches > 0,
-          f"README config: launches K4 {k4_launches}, K3 {k3_launches}")
+    check(k4_launches == 1 and k3_launches == 1,
+          f"README config: launches K4 {k4_launches}, K3 {k3_launches}; "
+          f"want one per call")
     check(k4_peak < k3_peak, f"K4 peak {k4_peak} B not below K3's {k3_peak}")
 
     m64 = model_from_numpy(model_np, device, torch.float64)
@@ -1068,17 +1162,24 @@ def phase_readme(device, peak):
           "k3": time_ms(lambda: sweep(slabs, pm))[0],
           "k3_plain": time_ms(lambda: sweep.plain(slabs, pm),
                               PLAIN_ITERS, 1)[0]}
+    host = {"k4": host_ms(lambda: score(slabs, pm, wvec, pw)),
+            "k3": host_ms(lambda: sweep(slabs, pm))}
+    smem = score.smem(torch.float32)
+    per_sm = cseg.blocks_per_sm(4, torch.float32, 4, smem)
     cs_bytes = 4 * 4 * 4 * README_SITES  # one float32 row
     tip_bytes = README_TIPS * cs_bytes
     k3_bytes = tip_bytes + sched.n_inner * (cs_bytes + 4 * README_SITES)
     local = max(s.n_local for s in seg.segments)
     print(f"[13 seg README] {README_TIPS} taxa x {README_SITES} sites x 4 "
           f"rates f32 CLV tips, per-site scaling: {len(seg.segments)} "
-          f"segments (max_rows {max_rows}, at most {local} local rows = "
-          f"{local * 128 * (64 + 4) // 1024} KB of shared memory per block "
-          f"of the card's {cseg.max_smem(4, torch.float32) // 1024} KB; "
-          f"set-up {setup_s:.2f} s); K4 make_segmented_score {logl:.6f}, "
-          f"K3 rows' edge logL {k3_logl:.6f}, plain f64 make_forward "
+          f"segments (max_rows {max_rows}, at most {local} local rows, "
+          f"{max(g.r_tip for g in score.rows)} tip rows); a block of "
+          f"{cseg.SLOT_SITES} sites "
+          f"x 4 rates walks them all: pool of {score.pool} slots (K3 "
+          f"{sweep.pool}), {smem} B of shared memory per block of the "
+          f"card's {cseg.max_smem(4, torch.float32)}, {per_sm} blocks per "
+          f"SM; set-up {setup_s:.2f} s); K4 make_segmented_score {logl!r}, "
+          f"K3 rows' edge logL {k3_logl!r}, plain f64 make_forward "
           f"{want:.6f} (|d| {abs(logl - want):.3e}, "
           f"{abs(k3_logl - want):.3e} <= {budget:.3e}); K3 vs plain max abs "
           f"{k3_err:.3e}, scalers agree {agree:.6f}; K4 vs plain |d logL| "
@@ -1090,7 +1191,9 @@ def phase_readme(device, peak):
           flush=True)
     print(f"[13 seg README times] K4 {ms['k4']:.4f} ms vs plain "
           f"{ms['k4_plain']:.2f} ms; K3 {ms['k3']:.4f} ms vs plain "
-          f"{ms['k3_plain']:.2f} ms; K4 reads {tip_bytes / 1e9:.2f} GB of "
+          f"{ms['k3_plain']:.2f} ms; host time of one call with the card "
+          f"idle: K4 {host['k4']:.4f} ms, K3 {host['k3']:.4f} ms; K4 reads "
+          f"{tip_bytes / 1e9:.2f} GB of "
           f"tips: {tip_bytes / ms['k4'] / 1e9:.3f} TB/s; K3 moves "
           f"{k3_bytes / 1e9:.2f} GB (tips in, rows and counters out): "
           f"{k3_bytes / ms['k3'] / 1e9:.3f} TB/s; CUDA events", flush=True)
@@ -1392,10 +1495,11 @@ def main():
                           for lab, r, b in rows), flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    n, k3_small, k4_small = check_seg_small(device)
+    n, k3_small, k4_small, smem = check_seg_small(device)
     print(f"[12 seg small] {n} kernel configurations match their plain "
-          f"versions ({time.perf_counter() - t0:.1f} s); largest f32 "
-          f"deviations: K3 CLV abs {k3_small:.3e}, K4 |d logL| "
+          f"versions ({time.perf_counter() - t0:.1f} s), layouts up to "
+          f"{smem} of a block's {cseg.SMEM_LIMIT} bytes of shared memory; "
+          f"largest f32 deviations: K3 CLV abs {k3_small:.3e}, K4 |d logL| "
           f"{k4_small:.3e}", flush=True)
     readme = phase_readme(device, fp32_peak)
     roof = phase_roofline(device, card, ms["k1"], readme["ms"]["k3"],

@@ -2,7 +2,11 @@
 // clv_dyn.cu, clv_seg.cu): encodings, scaling units, the f32/f64 math
 // overloads, the per-rate contraction, the per-site and per-rate scaling
 // test, the per-rate scaler fold of the edge log-likelihood and the
-// per-block float64 reduction of the per-site log-likelihoods.
+// per-block float64 reduction of the per-site log-likelihoods.  Then what
+// the two pool kernels (clv_dyn.cu, clv_seg.cu) share: a block of 32 sites
+// by C rates, the shared-memory pool of live rows, staged op descriptors,
+// the P-matrices staged per chunk of ops, the per-site scaling vote, the
+// gather of a site's rate terms at the edge and the 32-site partial.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -166,6 +170,223 @@ __device__ void block_sum_store(double v, double* out) {
     for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
     out[blockIdx.x] = total;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The pool kernels (clv_dyn.cu, clv_seg.cu)
+// ---------------------------------------------------------------------------
+constexpr int kTileSites = 32;  // sites per block, and per partial sum
+constexpr int kChunk = 16;      // ops staged at once
+
+// DNA stages each chunk's P-matrices in shared memory (8 KB of float32 at
+// four rates); protein reads its rate rows (1.6 KB) from L1/L2.
+template <int S>
+constexpr bool kStagePm = S == 4;
+
+// What one thread is: rate c of site `site` (clamped to the last site for
+// loads past the end; `live` says whether it is a real site).  Warp c of a
+// block runs rate c of the tile's 32 sites, lane sl site sl.
+struct Lane {
+  int c;
+  int sl;  // site within the tile
+  int64_t site;
+  bool live;
+};
+
+// The shared-memory pool of a block, laid out [slot, S, nt] (one column
+// per thread, nt = 32 * C threads) with its counters [slot, 32] (per rate
+// [slot, nt]), and the P-matrices of the staged ops (DNA).  A site's
+// counter (one per node) is read and written by warp 0 only.
+template <typename T>
+struct Pool {
+  T* clv;
+  int32_t* scal;
+  T* pm;       // [kChunk, 2, C, S, S], or null (S = 20)
+  int nt;      // threads per block
+  int sstride; // counters per slot
+};
+
+// Value 0 of the thread's column of pool slot `slot`; value e is e * nt
+// further.
+template <int S>
+__device__ __forceinline__ int pool_at(int slot, int nt) {
+  return slot * S * nt + threadIdx.x;
+}
+
+// The thread's counter in a slot: its site's (warp 0's), or per rate its
+// own.
+__device__ __forceinline__ int scal_at(bool per_rate, int slot,
+                                       const Lane& ln, int sstride) {
+  return slot * sstride + (per_rate ? (int)threadIdx.x : ln.sl);
+}
+
+// 16-byte vector loads of a P-matrix row.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+
+template <typename T, int S, bool kShared>
+__device__ __forceinline__ void load_pm_row(const T* row, T (&p)[S]) {
+  using V = typename Vec16<T>::type;
+  constexpr int n = Vec16<T>::n;
+  static_assert(S % n == 0, "P-matrix rows load as whole vectors");
+  const V* v = reinterpret_cast<const V*>(row);
+#pragma unroll
+  for (int k = 0; k < S / n; ++k) {
+    const V w = kShared ? v[k] : __ldg(v + k);
+    if constexpr (n == 4) {
+      p[4 * k] = w.x; p[4 * k + 1] = w.y;
+      p[4 * k + 2] = w.z; p[4 * k + 3] = w.w;
+    } else {
+      p[2 * k] = w.x; p[2 * k + 1] = w.y;
+    }
+  }
+}
+
+// sum_d p[d] * x[d], in K1's order (dot above).
+template <typename T, int S>
+__device__ __forceinline__ T dot_regs(const T (&p)[S], const T (&x)[S]) {
+  T acc = p[0] * x[0];
+#pragma unroll
+  for (int d = 1; d < S; ++d) acc = dev_fma(p[d], x[d], acc);
+  return acc;
+}
+
+// t = (P1 x1) * (P2 x2) for the thread's rate (p1, p2 at its [S, S]
+// block): P rows from the staged chunk (kShared) or from device memory.
+template <typename T, int S, bool kShared>
+__device__ __forceinline__ void contract(const T* p1, const T* p2,
+                                         const T (&x1)[S], const T (&x2)[S],
+                                         T (&t)[S]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T row[S];
+    load_pm_row<T, S, kShared>(p1 + s * S, row);
+    t[s] = dot_regs<T, S>(row, x1);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T row[S];
+    load_pm_row<T, S, kShared>(p2 + s * S, row);
+    t[s] *= dot_regs<T, S>(row, x2);
+  }
+}
+
+// An op as the block stages it in shared memory: the parent's local row
+// (-1 for a pad op) and home, the children's and their counters' sources
+// as (kind << 28 | index) (K_ZERO for no counter), the matrices, the
+// scaling flag and, for clv_seg.cu, the device row the parent is also
+// written to (-1 for none).  16-byte aligned: three vector loads read one.
+enum { K_TIP = 0, K_IMP = 1, K_POOL = 2, K_SPILL = 3 };
+constexpr int K_ZERO = -1;
+constexpr int kIndexBits = 28;
+
+struct __align__(16) OpDesc {
+  int parent, home, c[2], s[2], m[2], has, out, pad[2];
+};
+
+__device__ __forceinline__ int desc(int kind, int index) {
+  return (kind << kIndexBits) | index;
+}
+__device__ __forceinline__ int kind_of(int d) { return d >> kIndexBits; }
+__device__ __forceinline__ int index_of(int d) {
+  return d & ((1 << kIndexBits) - 1);
+}
+
+// The P-matrices of a chunk's ops in shared memory, [j, k, C, S, S], read
+// in bulk as 16-byte vectors (kBatch in flight per thread): the ops then
+// read them from shared memory, not from L2 one op at a time.  Pad ops
+// (parent < 0) are skipped.
+template <typename T, int S>
+__device__ void stage_pmatrices(const T* pmatrix, int rate_cats,
+                                const OpDesc* ops, int n, T* pm) {
+  using V = typename Vec16<T>::type;
+  constexpr int kBatch = 4;
+  const int per = rate_cats * S * S / Vec16<T>::n;  // vectors a matrix
+  const int64_t pm_size = (int64_t)rate_cats * S * S;
+  const int total = n * 2 * per;
+  for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
+    V w[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      const int j = it / (2 * per), k = (it / per) & 1;
+      if (it < total && ops[j].parent >= 0)
+        w[u] = __ldg(reinterpret_cast<const V*>(pmatrix +
+                                                ops[j].m[k] * pm_size) +
+                     it % per);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      if (it < total && ops[it / (2 * per)].parent >= 0)
+        reinterpret_cast<V*>(pm)[it] = w[u];
+    }
+  }
+}
+
+// The per-site scaling test of one op: a site scales when all its C*S
+// values are small, so each rate's warp votes and one block barrier shows
+// every warp the C votes (votes[vb], vb alternating: a barrier lies
+// between two uses of one buffer).  Every thread of the block must call
+// it.  Returns whether the thread's site scales.
+template <typename T, int S>
+__device__ __forceinline__ bool site_vote(const T (&t)[S], const Scale<T>& u,
+                                          int C, const Lane& ln,
+                                          unsigned (*votes)[kMaxRates],
+                                          int& vb) {
+  const unsigned small = __ballot_sync(0xffffffffu, max_of<T, S>(t) < u.thresh);
+  if ((threadIdx.x & 31) == 0) votes[vb][ln.c] = small;
+  __syncthreads();
+  unsigned all = 0xffffffffu;
+  for (int c = 0; c < C; ++c) all &= votes[vb][c];
+  vb ^= 1;
+  return (all >> ln.sl) & 1u;
+}
+
+// At the edge every thread gathers its site's C rate terms and counters
+// from term_s/sn_s [C, 32] (the C warps wrote them before a barrier) and
+// sums them in rate order, per rate through the reference's fold; the
+// site's counter goes to snum (per site: warp 0's, the node's counter).
+template <typename T>
+__device__ __forceinline__ T site_term(const T* term_s, const int* sn_s,
+                                       int C, const Lane& ln, bool per_rate,
+                                       T thresh, int& snum) {
+  T term_r[kMaxRates];
+  int sn[kMaxRates];
+#pragma unroll
+  for (int c = 0; c < kMaxRates; ++c) {
+    if (c >= C) break;
+    term_r[c] = term_s[c * kTileSites + ln.sl];
+    sn[c] = sn_s[c * kTileSites + ln.sl];
+  }
+  T term = 0;
+  if (per_rate) {
+    term = fold_rates<T>(term_r, sn, C, thresh, snum);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kMaxRates; ++c) {
+      if (c >= C) break;
+      term += term_r[c];
+    }
+    snum = sn[0];
+  }
+  return term;
+}
+
+// Warp 0's sum of the tile's 32 per-site values in block_sum_store's
+// order (one warp's shuffle tree), stored at out[blockIdx.x].
+__device__ void tile_sum_store(double v, double* out) {
+  if (threadIdx.x >= 32) return;
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
 }  // namespace

@@ -97,16 +97,9 @@
 
 namespace {
 
-constexpr int kFields = 6;      // parent, c1, c2, s1, s2, has_scaler
-constexpr int kTileSites = 32;  // sites per block, and per partial sum
-constexpr int kChunk = 16;      // ops staged at once
+constexpr int kFields = 6;  // parent, c1, c2, s1, s2, has_scaler
 
 enum { MODE_SWEEP = 0, MODE_LEAF = 1, MODE_ROOT = 2 };
-
-// DNA stages each chunk's P-matrices in shared memory (8 KB of float32 at
-// four rates); protein reads its rate rows (1.6 KB) from L1/L2.
-template <int S>
-constexpr bool kStagePm = S == 4;
 
 template <typename T>
 struct DynArgs {
@@ -141,43 +134,6 @@ struct DynArgs {
   double* partials;            // root: [n_blocks]
   Scale<T> u;
 };
-
-// What one thread is: rate c of site `site` (clamped to the last site for
-// loads past the end; `live` says whether it is a real site).  Warp c of a
-// block runs rate c of the tile's 32 sites, lane sl site sl.
-struct Lane {
-  int c;
-  int sl;  // site within the tile
-  int64_t site;
-  bool live;
-};
-
-// The shared-memory pool of a block, laid out [slot, S, nt] (one column
-// per thread, nt = 32 * C threads) with its counters [slot, 32] (per rate
-// [slot, nt]), and the P-matrices of the staged ops (DNA).  A site's
-// counter (one per node) is read and written by warp 0 only.
-template <typename T>
-struct Pool {
-  T* clv;
-  int32_t* scal;
-  T* pm;       // [kChunk, 2, C, S, S], or null (S = 20)
-  int nt;      // threads per block
-  int sstride; // counters per slot
-};
-
-// Value 0 of the thread's column of pool slot `slot`; value e is e * nt
-// further.
-template <int S>
-__device__ __forceinline__ int pool_at(int slot, int nt) {
-  return slot * S * nt + threadIdx.x;
-}
-
-// The thread's counter in a slot: its site's (warp 0's), or per rate its
-// own.
-__device__ __forceinline__ int scal_at(bool per_rate, int slot,
-                                       const Lane& ln, int sstride) {
-  return slot * sstride + (per_rate ? (int)threadIdx.x : ln.sl);
-}
 
 // Value 0 of the thread's rate of device row `row` (rows [*, C*S, sites]);
 // value e is e * sites further.
@@ -255,84 +211,6 @@ __device__ __forceinline__ int count(const DynArgs<T>& a, const Pool<T>& pl,
   return a.loc_scal[((int64_t)h.index * srows + cc) * a.sites + ln.site];
 }
 
-// 16-byte vector loads of a P-matrix row.
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  using type = float4;
-  static constexpr int n = 4;
-};
-template <> struct Vec16<double> {
-  using type = double2;
-  static constexpr int n = 2;
-};
-
-template <typename T, int S, bool kShared>
-__device__ __forceinline__ void load_pm_row(const T* row, T (&p)[S]) {
-  using V = typename Vec16<T>::type;
-  constexpr int n = Vec16<T>::n;
-  static_assert(S % n == 0, "P-matrix rows load as whole vectors");
-  const V* v = reinterpret_cast<const V*>(row);
-#pragma unroll
-  for (int k = 0; k < S / n; ++k) {
-    const V w = kShared ? v[k] : __ldg(v + k);
-    if constexpr (n == 4) {
-      p[4 * k] = w.x; p[4 * k + 1] = w.y;
-      p[4 * k + 2] = w.z; p[4 * k + 3] = w.w;
-    } else {
-      p[2 * k] = w.x; p[2 * k + 1] = w.y;
-    }
-  }
-}
-
-// sum_d p[d] * x[d], in K1's order (clv_common.cuh's dot).
-template <typename T, int S>
-__device__ __forceinline__ T dot_regs(const T (&p)[S], const T (&x)[S]) {
-  T acc = p[0] * x[0];
-#pragma unroll
-  for (int d = 1; d < S; ++d) acc = dev_fma(p[d], x[d], acc);
-  return acc;
-}
-
-// t = (P1 x1) * (P2 x2) for the thread's rate (p1, p2 at its [S, S]
-// block): P rows from the staged chunk (kShared) or from device memory.
-template <typename T, int S, bool kShared>
-__device__ __forceinline__ void contract(const T* p1, const T* p2,
-                                         const T (&x1)[S], const T (&x2)[S],
-                                         T (&t)[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    T row[S];
-    load_pm_row<T, S, kShared>(p1 + s * S, row);
-    t[s] = dot_regs<T, S>(row, x1);
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    T row[S];
-    load_pm_row<T, S, kShared>(p2 + s * S, row);
-    t[s] *= dot_regs<T, S>(row, x2);
-  }
-}
-
-// An op as the block stages it in shared memory: the parent's local row
-// (-1 for a pad op) and home, the children's and their counters' sources
-// as (kind << 28 | index) (K_ZERO for no counter), the matrices, the
-// scaling flag.  16-byte aligned: three vector loads read one.
-enum { K_TIP = 0, K_IMP = 1, K_POOL = 2, K_SPILL = 3 };
-constexpr int K_ZERO = -1;
-constexpr int kIndexBits = 28;
-
-struct __align__(16) OpDesc {
-  int parent, home, c[2], s[2], m[2], has, pad[3];
-};
-
-__device__ __forceinline__ int desc(int kind, int index) {
-  return (kind << kIndexBits) | index;
-}
-__device__ __forceinline__ int kind_of(int d) { return d >> kIndexBits; }
-__device__ __forceinline__ int index_of(int d) {
-  return d & ((1 << kIndexBits) - 1);
-}
-
 template <typename T>
 __device__ __forceinline__ int home_desc(const DynArgs<T>& a, int l) {
   const Home h = home(a, l);
@@ -404,37 +282,6 @@ __device__ void stage_codes(const DynArgs<T>& a, const OpDesc* ops, int n,
       if (it < total)
         codes[it / (2 * kTileSites)][(it / kTileSites) & 1]
              [it % kTileSites] = w[u];
-    }
-  }
-}
-
-// The P-matrices of a chunk's ops in shared memory, [j, k, C, S, S], read
-// in bulk as 16-byte vectors (kBatch in flight per thread): the ops then
-// read them from shared memory, not from L2 one op at a time.
-template <typename T, int S>
-__device__ void stage_pmatrices(const DynArgs<T>& a, const OpDesc* ops,
-                                int n, T* pm) {
-  using V = typename Vec16<T>::type;
-  constexpr int kBatch = 4;
-  const int per = a.rate_cats * S * S / Vec16<T>::n;  // vectors a matrix
-  const int64_t pm_size = (int64_t)a.rate_cats * S * S;
-  const int total = n * 2 * per;
-  for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
-    V w[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int it = it0 + u * blockDim.x;
-      const int j = it / (2 * per), k = (it / per) & 1;
-      if (it < total && ops[j].parent >= 0)
-        w[u] = __ldg(reinterpret_cast<const V*>(a.pmatrix +
-                                                ops[j].m[k] * pm_size) +
-                     it % per);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int it = it0 + u * blockDim.x;
-      if (it < total && ops[it / (2 * per)].parent >= 0)
-        reinterpret_cast<V*>(pm)[it] = w[u];
     }
   }
 }
@@ -525,7 +372,8 @@ __device__ void run_ops(const DynArgs<T>& a, const Pool<T>& pl,
     if ((int)threadIdx.x < n) stage_op(a, base + threadIdx.x, ops[threadIdx.x]);
     __syncthreads();
     if (a.tip_encoding != TIP_CLV) stage_codes(a, ops, n, codes);
-    if (pl.pm != nullptr) stage_pmatrices<T, S>(a, ops, n, pl.pm);
+    if (pl.pm != nullptr)
+      stage_pmatrices<T, S>(a.pmatrix, a.rate_cats, ops, n, pl.pm);
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const OpDesc o = ops[j];
@@ -547,21 +395,11 @@ __device__ void run_ops(const DynArgs<T>& a, const Pool<T>& pl,
       const bool has = o.has != 0;
       if (per_rate) {
         cnt += scale_rate<T, S>(has, t, a.u);
-      } else if (a.scale_mode == SCALE_PER_SITE && has) {
-        // a site scales when all its C*S values are small: each rate's
-        // warp votes, and the block barrier shows every warp the C votes
-        const unsigned small =
-            __ballot_sync(0xffffffffu, max_of<T, S>(t) < a.u.thresh);
-        if ((threadIdx.x & 31) == 0) votes[vb][ln.c] = small;
-        __syncthreads();
-        unsigned all = 0xffffffffu;
-        for (int c = 0; c < C; ++c) all &= votes[vb][c];
-        vb ^= 1;
-        if ((all >> ln.sl) & 1u) {
+      } else if (a.scale_mode == SCALE_PER_SITE && has &&
+                 site_vote<T, S>(t, a.u, C, ln, votes, vb)) {
 #pragma unroll
-          for (int s = 0; s < S; ++s) t[s] *= a.u.factor;
-          cnt += 1;
-        }
+        for (int s = 0; s < S; ++s) t[s] *= a.u.factor;
+        cnt += 1;
       }
       store_local<T, S>(a, pl, ln, o.parent, kind_of(o.home) == K_POOL,
                         index_of(o.home), t, cnt);
@@ -614,37 +452,11 @@ __device__ T edge_site_lnl(const DynArgs<T>& a, const Pool<T>& pl,
   term_s[threadIdx.x] = mine;
   sn_s[threadIdx.x] = my_sn;
   __syncthreads();
-  T term_r[kMaxRates];
-  int sn[kMaxRates];
-#pragma unroll
-  for (int c = 0; c < kMaxRates; ++c) {
-    if (c >= C) break;
-    term_r[c] = term_s[c * kTileSites + ln.sl];
-    sn[c] = sn_s[c * kTileSites + ln.sl];
-  }
-  T term = 0;
   int snum;
-  if (a.scale_mode == SCALE_PER_RATE) {
-    term = fold_rates<T>(term_r, sn, C, a.u.thresh, snum);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kMaxRates; ++c) {
-      if (c >= C) break;
-      term += term_r[c];
-    }
-    snum = sn[0];
-  }
+  T term = site_term<T>(term_s, sn_s, C, ln,
+                        a.scale_mode == SCALE_PER_RATE, a.u.thresh, snum);
   if (a.inv_add != nullptr) term += __ldg(a.inv_add + ln.site);
   return site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + ln.site));
-}
-
-// Warp 0's sum of the tile's 32 per-site values in block_sum_store's
-// order (one warp's shuffle tree), stored at out[blockIdx.x].
-__device__ void tile_sum_store(double v, double* out) {
-  if (threadIdx.x >= 32) return;
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
 template <typename T, int S>

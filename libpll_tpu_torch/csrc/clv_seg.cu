@@ -8,63 +8,68 @@
 //   K4  make_segmented_score  (leaf segments, pallas_call at :600; the
 //                              root segment, pallas_call at :555)
 //
-// What one launch computes: one segment of a tree cut into segments
-// (ops/clv_seg.build_segmented_schedule), over all sites.  The segment's
-// op table (parent, child1, child2, scaler1, scaler2, has_scaler) numbers
-// its state rows tips | imports | locals and its scaler rows imports |
-// locals | the zero dummy, without padding.  Per site, for each op,
+// What one launch computes: every segment of a tree cut into segments
+// (ops/clv_seg.build_segmented_schedule), in order, over all sites.  The
+// host resolves each op once per schedule into a descriptor
+// (clv_common.cuh's OpDesc): the parent's pool slot and the device row it
+// is also written to (K3: its inner row; K4: its export row, or none), and
+// each child and counter as a tip of the segment's slab, an import (a
+// device row an earlier segment wrote) or a pool slot.  Per site, for each
+// op,
 //   x[c,s] = (sum_d P[m1,c,s,d] child1[c,d]) * (sum_d P[m2,c,s,d] child2[c,d])
 // with the parent's counter starting at the sum of its children's and the
-// reference's per-site or per-rate scaling (clv_common.cuh).  Then, by mode:
-//   sweep (K3): every local row and counter row is copied out to the
-//               tree's segment-major inner arrays;
-//   leaf  (K4): only the rows later segments import are copied out;
-//   root  (K4): the edge log-likelihood is folded,
-//     lnl = (log(sum_k parent[k] (P[edge] child)[k] wvec[k])
-//            + counters * log(2^-shift)) * pattern_weight,
-//     per-rate counters through the reference's min/cap fold; one float64
-//     partial per block (no +I, as on the TPU).
+// reference's per-site or per-rate scaling (clv_common.cuh).  K4 then folds
+// the edge log-likelihood after the last segment,
+//   lnl = (log(sum_k parent[k] (P[edge] child)[k] wvec[k])
+//          + counters * log(2^-shift)) * pattern_weight,
+// per-rate counters through the reference's min/cap fold; one float64
+// partial per 32 sites (no +I, as on the TPU).
 //
 // Design on this card, and what was decided:
-//  * The point of the TPU kernels was that a segment is sized so that its
-//    rows stay on chip: only the tip slab comes in and only the export
-//    rows go out (clv_pallas_seg.py:1-25).  The H100's on-chip counterpart
-//    of VMEM is shared memory, up to 227 KB per block.  One block runs a
-//    tile of kThreads = 128 sites, one thread per site, and keeps the
-//    segment's local rows and their counters in dynamic shared memory laid
-//    out [row, C*S, 128] and [row * srows, 128], site innermost: thread t
-//    touches column t only, so the threads never synchronise and a warp's
-//    accesses hit 32 different banks.  A DNA float32 row at four rates
-//    takes 8 KB plus 0.5-2 KB of counters, so 22 local rows fit one block.
-//    The segments are cut to half of that (11 rows, clv_seg.seg_max_rows),
-//    so that two blocks share an SM, and each launch asks for its own
-//    segment's rows only; a caller's larger segments run up to a block's
-//    227 KB.
-//  * Tips are read from the segment's slab in device memory, a warp
-//    reading 32 consecutive sites of one value (coalesced).  Imports are
-//    read where they lie, through one index per import slot: K3 from the
-//    inner rows earlier launches wrote, K4 from earlier segments' export
-//    rows.  K4 allocates nothing of the tree's size.
-//  * The per-site scaling test runs on the row in shared memory: a rate's
-//    product is stored as soon as it is done, the thread keeps the running
-//    maximum, and in the rare case that the site scales it multiplies its
-//    C*S values in shared memory.
-//  * Both children's values of a rate are loaded before either is
-//    contracted, so that a thread has 2*S loads in flight.
-//  * The template is over the dtype and S in {4, 20} (4 instances), as
-//    clv_dyn.cu; the rate count, scale mode and mode are runtime values.
+//  * One launch per call.  Segments depend on each other only site by
+//    site: segment i imports rows earlier segments computed at the same
+//    sites.  So a block owns a tile of 32 sites and walks every segment of
+//    the schedule in order over it (the loop inside the block that stands
+//    for the TPU's sequential grid of pallas_calls).  Imports are read
+//    where this block wrote them (K3: its inner rows; K4: the exports),
+//    each value by the thread that wrote it (the site's counter: warp 0's
+//    lane), and a block barrier lies between two segments.  The host's
+//    work per call no longer grows with the segment count.
+//  * A block is 32 sites by C rates, one thread per (site, rate), warp c
+//    rate c (clv_dyn.cu's mapping: every P-matrix row a warp reads is one
+//    address).  A segment's live local rows sit in a shared-memory pool
+//    [slot, S, 32*C] planned on the host (clv_seg.segment_slots, first fit
+//    in op order, the dyn kernels' planner); the pool holds the schedule's
+//    peak (4 slots at the README cut), so nothing spills.  Per-site
+//    scaling votes across the C warps with one barrier per scaled op; each
+//    chunk of ops' descriptors and (DNA) P-matrices is staged in shared
+//    memory.  At the README cut a block takes 18 KB of shared memory and
+//    64 registers a thread: eight blocks share an SM, and all 1 024 blocks
+//    of 32 768 sites are resident at once on 132 SMs.
+//  * Tips are read from the segment's slab where an op needs them, a
+//    warp reading 32 consecutive sites of one value; while an op runs, its
+//    successor's tip and import rows are prefetched into L1.  The next
+//    segment's tip tile copied into shared memory behind the ops (cp.async
+//    into the second of two buffers, completion on an mbarrier) was
+//    measured and dropped: its 49 KB of buffers a block let only three
+//    blocks share an SM, the grid ran in three waves and K4 took 1.6x as
+//    long (PERF.md).
+//  * The arithmetic of every value is the first port's (dot in K1's
+//    order, products, scaling by exact powers of two): K3's rows and
+//    counters are the same bits.  Partials are summed per 32 sites in
+//    block_sum_store's order and the wrapper adds four into each 128-site
+//    partial as block_sum_store did: K4's logL is the same bits.
+//  * The template is over the dtype and S in {4, 20} (4 instances); the
+//    rate count, scale mode and whether there is an edge are runtime
+//    values.
 //
-// What bounds it: per op and site it reads a tip's or an import's C*S
-// values from device memory (a local child comes from shared memory) and
-// does 2*C*S*S multiply-adds; K4 moves little else, K3 writes every local
-// row once.  At 1 024 taxa x 32 768 sites (DNA, four rates, float32) the
-// tips are 2.15 GB (0.64 ms at 3.35 TB/s) and K3's inner rows 2.19 GB.
-// Shared memory caps the warps in flight: a segment of 22 rows holds one
-// block (four warps) per SM, 11 rows two; that is too few to cover
-// device-memory latency, so this first kernel is bound by the latency of
-// its tip loads, not by bandwidth (on an H100 K4 reads its tips at about a
-// tenth of the card's 3.35 TB/s, and two blocks per SM ran it 1.8x faster
-// than one).
+// What bounds it: per op and site, 2*C*S*S multiply-adds; each tip read
+// once from device memory, and K3 writes every row and counter once.  At
+// 1 024 taxa x 32 768 sites (DNA, four rates, float32) the tips are
+// 2.15 GB (0.64 ms at 3.35 TB/s) and K3's rows and counters 2.28 GB: both
+// kernels are bound by bytes.  They stay above that bound, held by the
+// latency of each op's tip loads (a block's warps meet at every op's
+// vote), with the 32 resident warps of an SM too few to cover it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,220 +78,254 @@
 
 namespace {
 
-constexpr int kFields = 6;  // parent, c1, c2, s1, s2, has_scaler
-
-enum { MODE_SWEEP = 0, MODE_LEAF = 1, MODE_ROOT = 2 };
+constexpr int kSegFields = 4;  // op0, n_ops, n_tip, unused
+// Each op's children that are not pool rows (tips, imports) are
+// prefetched into L1 while the op before it runs.
+constexpr bool kPrefetchL1 = true;
 
 template <typename T>
 struct SegArgs {
-  int mode;
   int rate_cats;
   int scale_mode;
   int64_t sites;
-  int n_tip, n_imp, n_loc, n_out;
-  const int32_t* table;     // [n_loc, kFields]
-  const int32_t* m_ops;     // [n_loc, 2]
-  const int32_t* imp_rows;  // [n_imp]: row of each import in src
-  const T* tips;            // the segment's tip slab [n_tip, C*S, sites]
-  const T* pmatrix;         // [M, C, S, S]
-  const T* src;             // import rows [*, C*S, sites]
-  const int32_t* src_scal;  // their counters [* x srows, sites]
-  const int32_t* out_rows;  // leaf: [n_out] local row of each export;
-                            // sweep: null, output row e is local row e
-  T* out;                   // [n_out, C*S, sites]
-  int32_t* out_scal;        // [n_out x srows, sites]
-  const int32_t* edge;      // root: p_state, c_state, p_scal, c_scal, M
-  const T* weight_vec;      // root: [C*S]
-  const T* pattern_weights; // root: [sites]
-  double* partials;         // root: [n_blocks]
+  int seg0, seg1;            // the segments this launch walks
+  int pool;                  // slots
+  const int32_t* segs;       // [n_seg, kSegFields]
+  const long long* tip_ptrs; // [n_seg]: each segment's slab [n_tip, C*S, sites]
+  const OpDesc* ops;         // [n_ops]
+  const T* pmatrix;          // [M, C, S, S]
+  T* rows;                   // K3: the inner rows; K4: the exports
+                             // [*, C*S, sites]
+  int32_t* rows_scal;        // their counters [* x srows, sites]
+  const int32_t* edge;       // K4: p, c, p_scal, c_scal descriptors, M;
+                             // null: no edge
+  const T* weight_vec;       // K4: [C*S]
+  const T* pattern_weights;  // K4: [sites]
+  double* partials;          // K4: [n_tiles]
   Scale<T> u;
 };
 
-// A state row at one site: value k of the row at ptr[k * stride] (a tip
-// or an import in device memory, or a local row in shared memory).
-template <typename T>
-struct Row {
-  const T* ptr;
-  int64_t stride;
-};
-
+// ------------------------------------------------------------ the walk
+// The thread's S values of a row named by a descriptor: a tip of the
+// segment's slab, an import in device memory (plain loads: this launch
+// wrote it) or a pool slot.
 template <typename T, int S>
-__device__ __forceinline__ Row<T> resolve(const SegArgs<T>& a, const T* loc,
-                                          int row, int64_t site) {
-  const int64_t cs = (int64_t)a.rate_cats * S;
-  if (row < a.n_tip) return {a.tips + row * cs * a.sites + site, a.sites};
-  if (row < a.n_tip + a.n_imp)
-    return {a.src + (int64_t)__ldg(a.imp_rows + row - a.n_tip) * cs * a.sites +
-                site,
-            a.sites};
-  return {loc + (row - a.n_tip - a.n_imp) * cs * kThreads + threadIdx.x,
-          kThreads};
-}
-
-template <typename T, int S>
-__device__ __forceinline__ void load_rate(const Row<T>& r, int c,
-                                          T (&x)[S]) {
-  const T* base = r.ptr + (int64_t)c * S * r.stride;
+__device__ __forceinline__ void load_row(const SegArgs<T>& a,
+                                         const Pool<T>& pl, const Lane& ln,
+                                         const T* slab, int d, T (&x)[S]) {
+  const int kind = kind_of(d);
+  const int v = index_of(d);
+  if (kind == K_POOL) {
 #pragma unroll
-  for (int d = 0; d < S; ++d) x[d] = base[d * r.stride];
+    for (int e = 0; e < S; ++e) x[e] = pl.clv[pool_at<S>(v, pl.nt) + e * pl.nt];
+    return;
+  }
+  const T* p = (kind == K_TIP ? slab : a.rows) +
+               ((int64_t)v * a.rate_cats + ln.c) * S * a.sites + ln.site;
+#pragma unroll
+  for (int e = 0; e < S; ++e) x[e] = p[e * a.sites];
 }
 
-// Counter of scaler row `srow`, rate c (c = 0 with one row per node).
-template <typename T>
-__device__ __forceinline__ int count(const SegArgs<T>& a,
-                                     const int32_t* loc_scal, int srow,
-                                     int srows, int c, int64_t site) {
-  if (srow < a.n_imp)
-    return a.src_scal[((int64_t)__ldg(a.imp_rows + srow) * srows + c) *
-                          a.sites + site];
-  const int l = srow - a.n_imp;
-  if (l < a.n_loc) return loc_scal[(l * srows + c) * kThreads + threadIdx.x];
-  return 0;  // the dummy row
-}
-
+// Prefetch into L1 the thread's values of op o's children that no op of
+// this segment writes (tips, imports).
 template <typename T, int S>
-__device__ void run_ops(const SegArgs<T>& a, T* loc, int32_t* loc_scal,
-                        int64_t site) {
-  const int C = a.rate_cats;
-  const int64_t pm_size = (int64_t)C * S * S;
+__device__ __forceinline__ void prefetch_children(const SegArgs<T>& a,
+                                                  const Lane& ln,
+                                                  const T* slab,
+                                                  const OpDesc& o) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int kind = kind_of(o.c[k]);
+    if (kind == K_POOL) continue;
+    const T* p = (kind == K_TIP ? slab : a.rows) +
+                 ((int64_t)index_of(o.c[k]) * a.rate_cats + ln.c) * S *
+                     a.sites +
+                 ln.site;
+#pragma unroll
+    for (int e = 0; e < S; ++e)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(p + e * a.sites));
+  }
+}
+
+// The thread's counter from a descriptor (K_ZERO: 0).
+template <typename T>
+__device__ __forceinline__ int load_count(const SegArgs<T>& a,
+                                          const Pool<T>& pl, const Lane& ln,
+                                          int d) {
+  if (d < 0) return 0;
+  const int v = index_of(d);
   const bool per_rate = a.scale_mode == SCALE_PER_RATE;
-  const int loc0 = a.n_tip + a.n_imp;
-  for (int i = 0; i < a.n_loc; ++i) {
-    const int32_t* op = a.table + i * kFields;
-    const int local = __ldg(op) - loc0;
-    const Row<T> r1 = resolve<T, S>(a, loc, __ldg(op + 1), site);
-    const Row<T> r2 = resolve<T, S>(a, loc, __ldg(op + 2), site);
-    const int s1 = __ldg(op + 3), s2 = __ldg(op + 4);
-    const bool has = __ldg(op + 5) != 0;
-    const T* p1 = a.pmatrix + __ldg(a.m_ops + 2 * i) * pm_size;
-    const T* p2 = a.pmatrix + __ldg(a.m_ops + 2 * i + 1) * pm_size;
-    T* out = loc + local * C * S * kThreads + threadIdx.x;
-    T site_max = 0;
-    for (int c = 0; c < C; ++c) {
-      T x1[S], x2[S], t[S];
-      load_rate<T, S>(r1, c, x1);
-      load_rate<T, S>(r2, c, x2);
-      contract_rate<T, S>(p1, c, x1, t);
-      mul_contract_rate<T, S>(p2, c, x2, t);
-      const T mx = max_of<T, S>(t);
-      if (per_rate)
-        loc_scal[(local * C + c) * kThreads + threadIdx.x] =
-            count(a, loc_scal, s1, C, c, site) +
-            count(a, loc_scal, s2, C, c, site) +
-            scale_rate<T, S>(has, t, a.u);
-      site_max = (c == 0 || mx > site_max) ? mx : site_max;
+  if (kind_of(d) == K_POOL) return pl.scal[scal_at(per_rate, v, ln, pl.sstride)];
+  const int64_t row = per_rate ? (int64_t)v * a.rate_cats + ln.c : v;
+  return a.rows_scal[row * a.sites + ln.site];
+}
+
+// Store an op's values and counter in its pool slot and, when it has one,
+// in its device row.
+template <typename T, int S>
+__device__ __forceinline__ void store_row(const SegArgs<T>& a,
+                                          const Pool<T>& pl, const Lane& ln,
+                                          const OpDesc& o, const T (&t)[S],
+                                          int cnt) {
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  const int slot = index_of(o.home);
 #pragma unroll
-      for (int s = 0; s < S; ++s) out[(c * S + s) * kThreads] = t[s];
-    }
-    if (!per_rate) {
-      int cnt = count(a, loc_scal, s1, 1, 0, site) +
-                count(a, loc_scal, s2, 1, 0, site);
-      if (a.scale_mode == SCALE_PER_SITE && scales(has, site_max, a.u)) {
-        for (int k = 0; k < C * S; ++k) out[k * kThreads] *= a.u.factor;
-        cnt += 1;
-      }
-      loc_scal[local * kThreads + threadIdx.x] = cnt;
-    }
-  }
+  for (int e = 0; e < S; ++e) pl.clv[pool_at<S>(slot, pl.nt) + e * pl.nt] = t[e];
+  if (per_rate || ln.c == 0)
+    pl.scal[scal_at(per_rate, slot, ln, pl.sstride)] = cnt;
+  if (o.out < 0 || !ln.live) return;
+  T* out = a.rows + ((int64_t)o.out * a.rate_cats + ln.c) * S * a.sites +
+           ln.site;
+#pragma unroll
+  for (int e = 0; e < S; ++e) out[e * a.sites] = t[e];
+  if (per_rate)
+    a.rows_scal[((int64_t)o.out * a.rate_cats + ln.c) * a.sites + ln.site] =
+        cnt;
+  else if (ln.c == 0)
+    a.rows_scal[(int64_t)o.out * a.sites + ln.site] = cnt;
 }
 
-// Sweep and leaf: copy local rows and their counters to the output rows.
+// K4: the weighted log-likelihood of the thread's site across the
+// evaluation edge (the same value in every thread of the site).
 template <typename T, int S>
-__device__ void copy_out(const SegArgs<T>& a, const T* loc,
-                         const int32_t* loc_scal, int64_t site) {
-  const int cs = a.rate_cats * S;
-  const int srows = a.scale_mode == SCALE_PER_RATE ? a.rate_cats : 1;
-  for (int e = 0; e < a.n_out; ++e) {
-    const int l = a.out_rows == nullptr ? e : __ldg(a.out_rows + e);
-    const T* row = loc + l * cs * kThreads + threadIdx.x;
-    T* dst = a.out + (int64_t)e * cs * a.sites + site;
-    for (int k = 0; k < cs; ++k) dst[k * a.sites] = row[k * kThreads];
-    for (int c = 0; c < srows; ++c)
-      a.out_scal[((int64_t)e * srows + c) * a.sites + site] =
-          loc_scal[(l * srows + c) * kThreads + threadIdx.x];
-  }
-}
-
-// Root: the weighted log-likelihood of one site across the evaluation edge.
-template <typename T, int S>
-__device__ T edge_site_lnl(const SegArgs<T>& a, const T* loc,
-                           const int32_t* loc_scal, int64_t site) {
+__device__ T edge_site_lnl(const SegArgs<T>& a, const Pool<T>& pl,
+                           const Lane& ln, const T* slab,
+                           T* term_s, int* sn_s) {
   const int C = a.rate_cats;
-  const Row<T> rp = resolve<T, S>(a, loc, __ldg(a.edge + 0), site);
-  const Row<T> rc = resolve<T, S>(a, loc, __ldg(a.edge + 1), site);
-  const int psc = __ldg(a.edge + 2), csc = __ldg(a.edge + 3);
+  T pv[S], x[S];
+  load_row<T, S>(a, pl, ln, slab, __ldg(a.edge + 0), pv);
+  load_row<T, S>(a, pl, ln, slab, __ldg(a.edge + 1), x);
   const T* pe = a.pmatrix + (int64_t)__ldg(a.edge + 4) * C * S * S;
-  T term_r[kMaxRates];
-#pragma unroll
-  for (int c = 0; c < kMaxRates; ++c) {
-    if (c >= C) break;
-    T pv[S], x[S];
-    load_rate<T, S>(rp, c, pv);
-    load_rate<T, S>(rc, c, x);
-    term_r[c] = edge_rate_term<T, S>(pe, c, pv, x, a.weight_vec);
-  }
-  T term = 0;
+  term_s[threadIdx.x] = edge_rate_term<T, S>(pe, ln.c, pv, x, a.weight_vec);
+  sn_s[threadIdx.x] = load_count(a, pl, ln, __ldg(a.edge + 2)) +
+                      load_count(a, pl, ln, __ldg(a.edge + 3));
+  __syncthreads();
   int snum;
-  if (a.scale_mode == SCALE_PER_RATE) {
-    int sn[kMaxRates];
-#pragma unroll
-    for (int c = 0; c < kMaxRates; ++c) {
-      if (c >= C) break;
-      sn[c] = count(a, loc_scal, psc, C, c, site) +
-              count(a, loc_scal, csc, C, c, site);
-    }
-    term = fold_rates<T>(term_r, sn, C, a.u.thresh, snum);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kMaxRates; ++c) {
-      if (c >= C) break;
-      term += term_r[c];
-    }
-    snum = count(a, loc_scal, psc, 1, 0, site) +
-           count(a, loc_scal, csc, 1, 0, site);
-  }
-  return site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + site));
+  const T term = site_term<T>(term_s, sn_s, C, ln,
+                              a.scale_mode == SCALE_PER_RATE, a.u.thresh,
+                              snum);
+  return site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + ln.site));
 }
 
-template <typename T, int S>
-__global__ void __launch_bounds__(kThreads) seg_kernel(SegArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* loc = reinterpret_cast<T*>(smem);
-  int32_t* loc_scal = reinterpret_cast<int32_t*>(
-      loc + (int64_t)a.n_loc * a.rate_cats * S * kThreads);
-  const int64_t site = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  double lnl = 0.0;
-  if (site < a.sites) {
-    run_ops<T, S>(a, loc, loc_scal, site);
-    if (a.mode == MODE_ROOT)
-      lnl = (double)edge_site_lnl<T, S>(a, loc, loc_scal, site);
-    else
-      copy_out<T, S>(a, loc, loc_scal, site);
-  }
-  // every thread of a root block joins the reduction, masked sites with 0
-  if (a.mode == MODE_ROOT) block_sum_store(lnl, a.partials);
-}
-
-// Dynamic shared memory of one launch: the segment's local rows and
+// Dynamic shared memory, in this order: the staged P-matrices (DNA), the
+// pool's values and counters, the edge's exchange [C*32] terms and
 // counters.
 template <typename T, int S>
 size_t smem_bytes(const SegArgs<T>& a) {
-  const int srows = a.scale_mode == SCALE_PER_RATE ? a.rate_cats : 1;
-  return (size_t)a.n_loc * kThreads *
-         ((size_t)a.rate_cats * S * sizeof(T) + srows * sizeof(int32_t));
+  const size_t nt = (size_t)kTileSites * a.rate_cats;
+  const size_t counters = a.scale_mode == SCALE_PER_RATE ? nt : kTileSites;
+  return (kStagePm<S> ? (size_t)kChunk * 2 * a.rate_cats * S * S * sizeof(T)
+                      : 0) +
+         (size_t)a.pool * (S * nt * sizeof(T) + counters * sizeof(int32_t)) +
+         nt * (sizeof(T) + sizeof(int32_t));
+}
+
+// Every thread runs every op, past-the-end sites included (their loads
+// clamped or zero, their device stores skipped): the votes need whole
+// warps.  The arguments stay in the parameter space (__grid_constant__):
+// the helpers take them by reference, which otherwise makes nvcc copy
+// them to the stack (K4 3% slower at the README cut; PERF.md).
+template <typename T, int S>
+__global__ void __launch_bounds__(kTileSites * kMaxRates)
+    seg_kernel(const __grid_constant__ SegArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ OpDesc ops[kChunk];
+  __shared__ unsigned votes[2][kMaxRates];
+  const int C = a.rate_cats;
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  const bool counts = per_rate || threadIdx.x < kTileSites;  // warp-uniform
+  const int64_t pm_size = (int64_t)C * S * S;
+  Lane ln;
+  ln.c = threadIdx.x / kTileSites;
+  ln.sl = threadIdx.x % kTileSites;
+  const int64_t tile0 = (int64_t)blockIdx.x * kTileSites;
+  ln.live = tile0 + ln.sl < a.sites;
+  ln.site = ln.live ? tile0 + ln.sl : a.sites - 1;
+
+  T* const dyn = reinterpret_cast<T*>(smem);
+  Pool<T> pl;
+  pl.nt = kTileSites * C;
+  pl.sstride = per_rate ? pl.nt : kTileSites;
+  pl.pm = kStagePm<S> ? dyn : nullptr;
+  pl.clv = dyn + (kStagePm<S> ? kChunk * 2 * pm_size : 0);
+  pl.scal = reinterpret_cast<int32_t*>(pl.clv + a.pool * S * pl.nt);
+  T* const term_s = reinterpret_cast<T*>(pl.scal + a.pool * pl.sstride);
+  int* const sn_s = reinterpret_cast<int*>(term_s + pl.nt);
+
+  const T* slab = nullptr;
+  int vb = 0;  // the votes buffer
+  for (int si = a.seg0; si < a.seg1; ++si) {
+    slab = reinterpret_cast<const T*>(__ldg(a.tip_ptrs + si));
+    const int op0 = __ldg(a.segs + si * kSegFields);
+    const int n_ops = __ldg(a.segs + si * kSegFields + 1);
+    // the previous segment is done with what is staged, and what it wrote
+    // is visible to the whole block
+    __syncthreads();
+    // (a final segment may have no ops: its edge reads imports)
+    for (int base = 0; base < n_ops; base += kChunk) {
+      const int n = min(kChunk, n_ops - base);
+      if (base > 0) __syncthreads();  // the previous chunk is done
+      if ((int)threadIdx.x < n) ops[threadIdx.x] = a.ops[op0 + base + threadIdx.x];
+      __syncthreads();
+      if (kPrefetchL1) prefetch_children<T, S>(a, ln, slab, ops[0]);
+      if (pl.pm != nullptr) stage_pmatrices<T, S>(a.pmatrix, C, ops, n, pl.pm);
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+        const OpDesc o = ops[j];
+        int cnt = counts ? load_count(a, pl, ln, o.s[0]) +
+                               load_count(a, pl, ln, o.s[1])
+                         : 0;
+        T x1[S], x2[S], t[S];
+        load_row<T, S>(a, pl, ln, slab, o.c[0], x1);
+        load_row<T, S>(a, pl, ln, slab, o.c[1], x2);
+        if (kPrefetchL1 && j + 1 < n)
+          prefetch_children<T, S>(a, ln, slab, ops[j + 1]);
+        if (pl.pm != nullptr) {
+          const T* p = pl.pm + (2 * j * C + ln.c) * S * S;
+          contract<T, S, true>(p, p + C * S * S, x1, x2, t);
+        } else {
+          contract<T, S, false>(a.pmatrix + o.m[0] * pm_size + ln.c * S * S,
+                                a.pmatrix + o.m[1] * pm_size + ln.c * S * S,
+                                x1, x2, t);
+        }
+        const bool has = o.has != 0;
+        if (per_rate) {
+          cnt += scale_rate<T, S>(has, t, a.u);
+        } else if (a.scale_mode == SCALE_PER_SITE && has &&
+                   site_vote<T, S>(t, a.u, C, ln, votes, vb)) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) t[s] *= a.u.factor;
+          cnt += 1;
+        }
+        store_row<T, S>(a, pl, ln, o, t, cnt);
+      }
+    }
+  }
+  if (a.edge != nullptr) {
+    // the last ops' pool rows and counters (warp 0's) are read by every
+    // warp; past-the-end sites add 0
+    __syncthreads();
+    const double lnl =
+        (double)edge_site_lnl<T, S>(a, pl, ln, slab, term_s, sn_s);
+    tile_sum_store(ln.live ? lnl : 0.0, a.partials);
+  }
 }
 
 template <typename T, int S>
 int launch(const SegArgs<T>& a, cudaStream_t st) {
   const size_t smem = smem_bytes<T, S>(a);
-  // above 48 KB only after raising the kernel's limit; a segment the card
+  // above 48 KB only after raising the kernel's limit; a layout the card
   // cannot hold makes this call fail, and nothing is launched
   cudaError_t err = cudaFuncSetAttribute(
       seg_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(seg_kernel<T, S>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((a.sites + kThreads - 1) / kThreads);
-  seg_kernel<T, S><<<blocks, kThreads, smem, st>>>(a);
+  const unsigned blocks = (unsigned)((a.sites + kTileSites - 1) / kTileSites);
+  seg_kernel<T, S><<<blocks, kTileSites * a.rate_cats, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -303,35 +342,46 @@ int max_dynamic_smem() {
   return optin - (int)attr.sharedSizeBytes;
 }
 
+template <typename T, int S>
+int blocks_per_sm(int rate_cats, size_t smem) {
+  int n = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      seg_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(seg_kernel<T, S>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, seg_kernel<T, S>, kTileSites * rate_cats, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 template <typename T>
-int segment(int mode, int states, int rate_cats, int scale_mode,
-            int64_t sites, int n_tip, int n_imp, int n_loc, int n_out,
-            const int32_t* table, const int32_t* m_ops,
-            const int32_t* imp_rows, const void* tips, const void* pmatrix,
-            const void* src, const int32_t* src_scal,
-            const int32_t* out_rows, void* out, int32_t* out_scal,
-            const int32_t* edge, const void* weight_vec,
-            const void* pattern_weights, double* partials, void* stream) {
-  if (rate_cats < 1 || rate_cats > kMaxRates) return (int)cudaErrorInvalidValue;
+int walk(int states, int rate_cats, int scale_mode, int64_t sites, int seg0,
+         int seg1, int pool, const int32_t* segs, const long long* tip_ptrs,
+         const void* ops, const void* pmatrix, void* rows,
+         int32_t* rows_scal, const int32_t* edge,
+         const void* weight_vec, const void* pattern_weights,
+         double* partials, void* stream) {
+  // the lanes of a site share a warp: C must divide 32
+  if (rate_cats < 1 || rate_cats > kMaxRates || (32 % rate_cats) != 0 ||
+      pool < 1 || seg0 < 0 || seg1 <= seg0 || sites < 1)
+    return (int)cudaErrorInvalidValue;
   SegArgs<T> a;
-  a.mode = mode;
   a.rate_cats = rate_cats;
   a.scale_mode = scale_mode;
   a.sites = sites;
-  a.n_tip = n_tip;
-  a.n_imp = n_imp;
-  a.n_loc = n_loc;
-  a.n_out = n_out;
-  a.table = table;
-  a.m_ops = m_ops;
-  a.imp_rows = imp_rows;
-  a.tips = static_cast<const T*>(tips);
+  a.seg0 = seg0;
+  a.seg1 = seg1;
+  a.pool = pool;
+  a.segs = segs;
+  a.tip_ptrs = tip_ptrs;
+  a.ops = static_cast<const OpDesc*>(ops);
   a.pmatrix = static_cast<const T*>(pmatrix);
-  a.src = static_cast<const T*>(src);
-  a.src_scal = src_scal;
-  a.out_rows = out_rows;
-  a.out = static_cast<T*>(out);
-  a.out_scal = out_scal;
+  a.rows = static_cast<T*>(rows);
+  a.rows_scal = rows_scal;
   a.edge = edge;
   a.weight_vec = static_cast<const T*>(weight_vec);
   a.pattern_weights = static_cast<const T*>(pattern_weights);
@@ -347,27 +397,24 @@ int segment(int mode, int states, int rate_cats, int scale_mode,
 
 }  // namespace
 
-// Plain C interface for ctypes: one segment's kernel on `stream`; returns
-// cudaGetLastError() (0 on success).
+// Plain C interface for ctypes: segments [seg0, seg1) of a schedule over
+// all sites, one launch on `stream`, the edge folded after them when
+// `edge` is not null; returns cudaGetLastError() (0 on success).
 
-#define SEGMENT_PARAMS                                                      \
-  int mode, int states, int rate_cats, int scale_mode, int64_t sites,      \
-      int n_tip, int n_imp, int n_loc, int n_out, const int32_t *table,    \
-      const int32_t *m_ops, const int32_t *imp_rows, const void *tips,     \
-      const void *pmatrix, const void *src, const int32_t *src_scal,       \
-      const int32_t *out_rows, void *out, int32_t *out_scal,               \
-      const int32_t *edge, const void *weight_vec,                         \
+#define WALK_PARAMS                                                          \
+  int states, int rate_cats, int scale_mode, int64_t sites, int seg0,       \
+      int seg1, int pool, const int32_t *segs, const long long *tip_ptrs,   \
+      const void *ops, const void *pmatrix, void *rows, int32_t *rows_scal, \
+      const int32_t *edge, const void *weight_vec,                          \
       const void *pattern_weights, double *partials, void *stream
-#define SEGMENT_ARGS                                                        \
-  mode, states, rate_cats, scale_mode, sites, n_tip, n_imp, n_loc, n_out,  \
-      table, m_ops, imp_rows, tips, pmatrix, src, src_scal, out_rows, out, \
-      out_scal, edge, weight_vec, pattern_weights, partials, stream
+#define WALK_ARGS                                                            \
+  states, rate_cats, scale_mode, sites, seg0, seg1, pool, segs, tip_ptrs,   \
+      ops, pmatrix, rows, rows_scal, edge, weight_vec, pattern_weights,     \
+      partials, stream
 
-extern "C" int clv_seg_segment_f32(SEGMENT_PARAMS) {
-  return segment<float>(SEGMENT_ARGS);
-}
-extern "C" int clv_seg_segment_f64(SEGMENT_PARAMS) {
-  return segment<double>(SEGMENT_ARGS);
+extern "C" int clv_seg_walk_f32(WALK_PARAMS) { return walk<float>(WALK_ARGS); }
+extern "C" int clv_seg_walk_f64(WALK_PARAMS) {
+  return walk<double>(WALK_ARGS);
 }
 
 // The largest dynamic shared memory, in bytes, one block of the instance
@@ -378,6 +425,18 @@ extern "C" int clv_seg_max_smem(int states, int f64) {
                               : max_dynamic_smem<float, 4>();
   if (states == 20) return f64 ? max_dynamic_smem<double, 20>()
                                : max_dynamic_smem<float, 20>();
+  return -(int)cudaErrorInvalidValue;
+}
+
+// How many blocks of the instance fit one SM at `rate_cats` rates and
+// `smem` bytes of dynamic shared memory; a negative CUDA error code on
+// failure.
+extern "C" int clv_seg_blocks_per_sm(int states, int f64, int rate_cats,
+                                     int smem) {
+  if (states == 4) return f64 ? blocks_per_sm<double, 4>(rate_cats, smem)
+                              : blocks_per_sm<float, 4>(rate_cats, smem);
+  if (states == 20) return f64 ? blocks_per_sm<double, 20>(rate_cats, smem)
+                               : blocks_per_sm<float, 20>(rate_cats, smem);
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import heapq
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -72,21 +71,20 @@ from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
                                scale_consts)
 from . import _build
 from . import clv_fused as cf
-from .clv_seg import (TABLE_FIELDS, Segment, _itemsize, _ptr, _Rows,
-                      build_segmented_schedule, check_pmatrix,
-                      plain_edge_partials, plain_op, plain_segment,
-                      segment_table)
+from .clv_seg import (SLOT_SITES, STAGE_OPS, TABLE_FIELDS, Segment,
+                      _itemsize, _ptr, _Rows, build_segmented_schedule,
+                      check_pmatrix, fold_tile_partials, plain_edge_partials,
+                      plain_op, plain_segment, pool_bytes, segment_slots,
+                      segment_table, stage_bytes)
 from .sweep import LevelSchedule
 
 BLOCK_SITES = cf.BLOCK_SITES  # sites per partial sum of the score
-SLOT_SITES = 32  # sites per partial sum of csrc/clv_dyn.cu (kTileSites)
 # shared memory of one block of csrc/clv_dyn.cu: its static part (a chunk of
 # STAGE_OPS staged op descriptors and their tip codes, the per-site votes)
 # and, for DNA, the chunk's P-matrices (stage_bytes); the pool takes at most
 # the rest of a block's 227 KB (POOL_LIMIT), and by default what leaves two
 # blocks per SM (POOL_BUDGET: half an SM's 228 KB less the 1 KB the card
 # reserves per block)
-STAGE_OPS = 16
 STATIC_SMEM = 5120
 POOL_LIMIT = 232448 - STATIC_SMEM
 POOL_BUDGET = 233472 // 2 - 1024 - STATIC_SMEM
@@ -408,39 +406,6 @@ class SlotPlan:
         return max(0, max(self.n_slots, default=0) - cap)
 
 
-def _segment_slots(table: np.ndarray, g: _Rows, keep) -> np.ndarray:
-    """First-fit slots [r_loc] of one segment's local rows.  A row lives
-    from its op to its last reader (a child or scaler reference); rows in
-    ``keep`` live to the end.  An op's children free their slots before
-    its parent takes one: the kernel reads a child into registers before
-    it writes the parent (the same thread's column; counters shared by a
-    site's lanes are fenced by a warp barrier)."""
-    n, loc0 = g.r_loc, g.loc0
-    live_ops = [i for i in range(n) if table[i, 0] != g.trash_state]
-    end = np.full(n, -1, np.int64)
-    for i in live_ops:
-        _, c1, c2, s1, s2, _ = table[i]
-        for ref, base in ((c1, loc0), (c2, loc0), (s1, g.r_imp),
-                          (s2, g.r_imp)):
-            if base <= ref < base + n:
-                end[ref - base] = max(end[ref - base], i)
-    end[list(keep)] = n
-    slots = np.full(n, -1, np.int32)
-    free, n_used, release = [], 0, {}
-    for i in live_ops:
-        for slot in release.pop(i, ()):
-            heapq.heappush(free, slot)
-        if free:
-            slot = heapq.heappop(free)
-        else:
-            slot, n_used = n_used, n_used + 1
-        l = int(table[i, 0]) - loc0
-        slots[l] = slot
-        # a row no later op reads frees its slot at the next op
-        release.setdefault(max(int(end[l]), i + 1), []).append(slot)
-    return slots
-
-
 def dyn_slot_plan(dyn: DynSchedule, final_keep=None,
                   exports: bool = True) -> SlotPlan:
     """The slot plan of ``dyn`` (:class:`SlotPlan`).  Kept to the end: with
@@ -461,27 +426,10 @@ def dyn_slot_plan(dyn: DynSchedule, final_keep=None,
         if si == last:
             keep |= (set(range(s.n_local)) if final_keep is None
                      else set(final_keep))
-        rows.append(_segment_slots(s.table, g, sorted(keep)))
+        rows.append(segment_slots(s.table, g, sorted(keep)))
     slots = np.stack(rows)
     return SlotPlan(slots, tuple(int(r.max()) + 1 if (r >= 0).any() else 0
                                  for r in rows))
-
-
-def pool_bytes(slots: int, rate_cats: int, states: int, dtype,
-               srows: int) -> int:
-    """Shared memory of one block's pool: C·S values and ``srows`` int32
-    counters per slot at each of the block's ``SLOT_SITES`` sites."""
-    return slots * SLOT_SITES * (rate_cats * states * _itemsize(dtype)
-                                 + srows * 4)
-
-
-
-def stage_bytes(rate_cats: int, states: int, dtype) -> int:
-    """Shared memory of the P-matrices a block stages per chunk of ops
-    (DNA only): 8 KB at four rates in float32."""
-    if states != 4:
-        return 0
-    return STAGE_OPS * 2 * rate_cats * states * states * _itemsize(dtype)
 
 
 def pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
@@ -595,18 +543,6 @@ def _stacked(x) -> torch.Tensor:
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise EinvalError(f"dyn kernel input: {what}")
-
-
-def fold_tile_partials(tiles: torch.Tensor, sites: int) -> torch.Tensor:
-    """The kernel's float64 partial of each ``SLOT_SITES`` sites, summed
-    into one per ``BLOCK_SITES`` sites in ``block_sum_store``'s order
-    (``tiles`` zero past the last tile)."""
-    per = BLOCK_SITES // SLOT_SITES
-    v = tiles.view(-(-sites // BLOCK_SITES), per)
-    out = v[:, 0]
-    for k in range(1, per):
-        out = out + v[:, k]
-    return out
 
 
 @dataclass(frozen=True)

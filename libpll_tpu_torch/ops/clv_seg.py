@@ -22,31 +22,37 @@ children without a scaler.  Only the few subtree-root rows that later
 segments import ever cross between segments.
 
 The row budget.  On the TPU a segment's rows lived in VMEM
-(``_max_rows``/``_VMEM_BUDGET``, ``:94-99``, not ported).  K3/K4 keep a
-segment's local rows and counters in a thread block's shared memory, at
-``TILE_SITES`` sites per block: :func:`seg_local_rows` is how many local
-rows fit ``SMEM_BUDGET`` (two blocks per SM), and :func:`seg_max_rows` the
-cut's ``max_rows`` whose segments hold no more (a binary subtree of s
-rows, tips and imports counted, has (s - 1) / 2 locals).  A call whose
-segments need more shared memory than one block may have (``SMEM_LIMIT``)
-raises :class:`EinvalError` before anything runs.  The dyn tier keeps only
-a segment's live rows in shared memory, planned slot by slot
-(``clv_dyn.dyn_slot_plan``), and cuts segments by its own budget
-(``clv_dyn.dyn_max_rows``).
+(``_max_rows``/``_VMEM_BUDGET``, ``:94-99``, not ported).  The cut's
+``max_rows`` here, :func:`seg_max_rows`, is the first kernel's: a
+segment's local rows at ``TILE_SITES`` sites per block in ``SMEM_BUDGET``
+(two blocks per SM; a binary subtree of s rows, tips and imports counted,
+has (s - 1) / 2 locals), 23 rows for DNA at four rates in float32.  The
+kernel now runs one launch per call: a block of ``SLOT_SITES`` sites walks
+every segment, with each segment's live local rows in a shared-memory
+pool planned on the host (:func:`segment_slots`, the dyn kernels'
+planner) and the op descriptors resolved once per schedule.  Its shared
+memory (:func:`kernel_smem`) is checked against ``SMEM_LIMIT`` before
+anything runs (:meth:`_SegKernel.check_budget`, :class:`EinvalError`).
 
 K3/K4 take CLV tips only (per-segment slabs from
 :func:`pack_tips_segmented`, rows rate-major: the JAX package's "mxu"
 layout, the port's only one) and no +I, as on the TPU.  ``impl`` is
 accepted for signature parity: the port has one contraction.  Each wrapper
 takes its plain version for a tensor on the CPU, and only there: on a CUDA
-tensor it launches its kernel, once per segment, or raises.  Each counts
-its launches in its class's ``launches``.
+tensor it launches its kernel, once per call, or raises.  Each counts its
+launches in its class's ``launches``.  The slab list is checked and its
+addresses copied to the card the first time its data pointers are seen.
+Beside the plain versions, ``plain_walk`` runs the kernel's walk (the op
+descriptors, the pool slots, the rows written as the ops make them) with
+PyTorch ops, so the descriptors and the plan are tested where no kernel
+runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import sys
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -64,15 +70,29 @@ from .sweep import LevelSchedule
 
 TABLE_FIELDS = 6  # parent, child1, child2, scaler1, scaler2, has_scaler
 KERNEL_STATES = (4, 20)  # DNA and protein
-TILE_SITES = cf.BLOCK_SITES  # sites per thread block, and per partial sum
+TILE_SITES = cf.BLOCK_SITES  # sites per float64 partial sum
+# the pool kernels (csrc/clv_seg.cu, csrc/clv_dyn.cu): sites per block
+# (kTileSites) and ops staged at once (kChunk)
+SLOT_SITES = 32
+STAGE_OPS = 16
 # dynamic shared memory of one block of csrc/clv_seg.cu.  The limit: an
 # H100 block may use 227 KB (232 448 bytes), less 1 KB kept for the
-# kernel's static reduction buffer.  The budget segments are cut to: half
-# an SM's 228 KB (233 472 bytes) less the 1 KB the card reserves per block
-# and that buffer's 32 bytes, so that two blocks share an SM; at 1 024 taxa
-# x 32 768 sites two blocks ran K4 1.8x faster than one (H100, 700 W)
+# kernel's static part (a chunk of staged op descriptors, the votes, the
+# tip buffers' barriers).  The cut's budget: half an SM's 228 KB (233 472
+# bytes) less the 1 KB the card reserves per block and 32 bytes, for the
+# first kernel's layout of local rows at TILE_SITES sites (two blocks per
+# SM), kept so that the schedule stays as it was
 SMEM_LIMIT = 232448 - 1024
 SMEM_BUDGET = 233472 // 2 - 1024 - 32
+# an op's descriptor (clv_common.cuh's OpDesc: parent, home, child1,
+# child2, scaler1, scaler2, m1, m2, has_scaler, out, 2 unused), a
+# segment's (op0, n_ops, n_tip, unused), and the sources they name as
+# kind << INDEX_BITS | index (K_ZERO: no counter)
+OP_FIELDS = 12
+SEG_FIELDS = 4
+K_TIP, K_IMP, K_POOL = 0, 1, 2
+K_ZERO = -1
+INDEX_BITS = 28
 
 
 @dataclass
@@ -259,7 +279,7 @@ def build_segmented_schedule(schedule: LevelSchedule, *, max_rows: int,
 
 
 # --------------------------------------------------------------------------
-# the row budget
+# the row budget and the kernels' shared memory
 # --------------------------------------------------------------------------
 def _itemsize(dtype) -> int:
     return (dtype.itemsize if isinstance(dtype, torch.dtype)
@@ -268,8 +288,8 @@ def _itemsize(dtype) -> int:
 
 def _smem_bytes(n_local: int, rate_cats: int, states: int, dtype,
                 srows: int) -> int:
-    """Shared memory of one block holding ``n_local`` rows: C·S values and
-    ``srows`` int32 counters per row at each of the tile's sites."""
+    """The cut's budget of ``n_local`` rows: C·S values and ``srows``
+    int32 counters per row at each of ``TILE_SITES`` sites."""
     return n_local * TILE_SITES * (rate_cats * states * _itemsize(dtype)
                                    + srows * 4)
 
@@ -294,6 +314,81 @@ def seg_max_rows(rate_cats: int, states: int, dtype) -> int:
     local rows, since a binary subtree of s rows has (s - 1) / 2 inner
     nodes.  23 for DNA at four rates in float32."""
     return 2 * seg_local_rows(rate_cats, states, dtype) + 1
+
+
+def segment_slots(table: np.ndarray, g: _Rows, keep) -> np.ndarray:
+    """First-fit pool slots [r_loc] of one segment's local rows (the pool
+    kernels' plan: ``clv_dyn.dyn_slot_plan`` and :class:`_SegKernel`).  A
+    row lives from its op to its last reader (a child or scaler
+    reference); rows in ``keep`` live to the end.  An op's children free
+    their slots before its parent takes one: the kernel reads a child into
+    registers before it writes the parent (the same thread's column; a
+    site's counter is read and written by one lane).  Ops whose parent is
+    the trash row are pad ops and get no slot (-1)."""
+    n, loc0 = g.r_loc, g.loc0
+    live_ops = [i for i in range(n) if table[i, 0] != g.trash_state]
+    end = np.full(n, -1, np.int64)
+    for i in live_ops:
+        _, c1, c2, s1, s2, _ = table[i]
+        for ref, base in ((c1, loc0), (c2, loc0), (s1, g.r_imp),
+                          (s2, g.r_imp)):
+            if base <= ref < base + n:
+                end[ref - base] = max(end[ref - base], i)
+    end[list(keep)] = n
+    slots = np.full(n, -1, np.int32)
+    free, n_used, release = [], 0, {}
+    for i in live_ops:
+        for slot in release.pop(i, ()):
+            heapq.heappush(free, slot)
+        if free:
+            slot = heapq.heappop(free)
+        else:
+            slot, n_used = n_used, n_used + 1
+        l = int(table[i, 0]) - loc0
+        slots[l] = slot
+        # a row no later op reads frees its slot at the next op
+        release.setdefault(max(int(end[l]), i + 1), []).append(slot)
+    return slots
+
+
+def pool_bytes(slots: int, rate_cats: int, states: int, dtype,
+               srows: int) -> int:
+    """Shared memory of one block's pool: C·S values and ``srows`` int32
+    counters per slot at each of the block's ``SLOT_SITES`` sites."""
+    return slots * SLOT_SITES * (rate_cats * states * _itemsize(dtype)
+                                 + srows * 4)
+
+
+def stage_bytes(rate_cats: int, states: int, dtype) -> int:
+    """Shared memory of the P-matrices a block stages per chunk of ops
+    (DNA only): 8 KB at four rates in float32."""
+    if states != 4:
+        return 0
+    return STAGE_OPS * 2 * rate_cats * states * states * _itemsize(dtype)
+
+
+def kernel_smem(pool: int, rate_cats: int, states: int, dtype,
+                srows: int) -> int:
+    """Dynamic shared memory of one block of ``csrc/clv_seg.cu``
+    (``smem_bytes`` there): the staged P-matrices, a pool of ``pool``
+    slots and the edge's exchange of one term and one counter per thread
+    (tips are read from device memory).  At the README cut (DNA, four
+    rates, float32, per-site scaling) a pool of 4 slots: 17 920 bytes."""
+    exchange = SLOT_SITES * rate_cats * (_itemsize(dtype) + 4)
+    return (stage_bytes(rate_cats, states, dtype)
+            + pool_bytes(pool, rate_cats, states, dtype, srows) + exchange)
+
+
+def fold_tile_partials(tiles: torch.Tensor, sites: int) -> torch.Tensor:
+    """The kernel's float64 partial of each ``SLOT_SITES`` sites, summed
+    into one per ``TILE_SITES`` sites in ``block_sum_store``'s order
+    (``tiles`` zero past the last tile)."""
+    per = TILE_SITES // SLOT_SITES
+    v = tiles.view(-(-sites // TILE_SITES), per)
+    out = v[:, 0]
+    for k in range(1, per):
+        out = out + v[:, k]
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -499,36 +594,51 @@ def plain_edge_partials(state, scal, edge, pmatrix, weight_vec,
 # --------------------------------------------------------------------------
 # CUDA binding
 # --------------------------------------------------------------------------
-_MODE_SWEEP, _MODE_LEAF, _MODE_ROOT = 0, 1, 2
-_SEGMENT_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 15)
+_WALK_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_int64]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11)
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/clv_seg.cu``, once per
     process."""
-    lib = _build.load("clv_seg")
+    return bind(_build.load("clv_seg"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``clv_seg.cu``."""
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"clv_seg_segment_{suffix}")
-        fn.argtypes = _SEGMENT_ARGTYPES
+        fn = getattr(lib, f"clv_seg_walk_{suffix}")
+        fn.argtypes = _WALK_ARGTYPES
         fn.restype = ctypes.c_int
     lib.clv_seg_max_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.clv_seg_max_smem.restype = ctypes.c_int
+    lib.clv_seg_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.clv_seg_blocks_per_sm.restype = ctypes.c_int
     lib.clv_seg_error_string.argtypes = [ctypes.c_int]
     lib.clv_seg_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _query(got: int, what: str) -> int:
+    if got < 0:
+        msg = load_kernels().clv_seg_error_string(-got).decode()
+        raise KernelError(f"clv_seg {what} query failed: {msg}")
+    return got
+
+
 def max_smem(states: int, dtype) -> int:
     """The largest dynamic shared memory one block of the kernel instance
     may ask for on the current card (bytes)."""
-    lib = load_kernels()
-    got = lib.clv_seg_max_smem(states, int(_itemsize(dtype) == 8))
-    if got < 0:
-        msg = lib.clv_seg_error_string(-got).decode()
-        raise KernelError(f"clv_seg shared-memory query failed: {msg}")
-    return got
+    return _query(load_kernels().clv_seg_max_smem(
+        states, int(_itemsize(dtype) == 8)), "shared-memory")
+
+
+def blocks_per_sm(states: int, dtype, rate_cats: int, smem: int) -> int:
+    """How many blocks of the kernel instance an SM of the current card
+    holds at once with ``smem`` bytes of dynamic shared memory."""
+    return _query(load_kernels().clv_seg_blocks_per_sm(
+        states, int(_itemsize(dtype) == 8), rate_cats, smem), "occupancy")
 
 
 def _ptr(t: Optional[torch.Tensor], row: int = 0, row_elems: int = 0):
@@ -577,11 +687,21 @@ def _i32(rows, width: int = 1) -> torch.Tensor:
     return torch.from_numpy(a if width > 1 else a.reshape(-1))
 
 
+def _desc(kind: int, index: int) -> int:
+    return (kind << INDEX_BITS) | int(index)
+
+
 class _SegKernel:
     """What K3 and K4 share: the schedule and its per-segment tables
     (concatenated segment-major, segment ``si``'s ops at
-    ``seg.seg_offsets[si]``), their per-device copies, the checks and one
-    segment's launch."""
+    ``seg.seg_offsets[si]``) for the plain versions; the kernel's walk
+    (:meth:`_plan_walk`: op and segment descriptors, pool slots); their
+    per-device copies, the checks and the launch."""
+
+    # launch once per segment, with the edge folded after the last (the
+    # first kernel's launch pattern, kept to measure what one launch per
+    # call saves); False: one launch per call
+    split = False
 
     def __init__(self, seg, scale_mode, rate_cats, states, impl,
                  block_sites):
@@ -590,91 +710,184 @@ class _SegKernel:
         if impl not in ("auto", "vpu", "mxu"):
             raise EinvalError(f"unknown impl {impl!r}")
         if block_sites not in (None, TILE_SITES):
-            raise EinvalError(f"block_sites {block_sites}: the kernels run "
-                              f"{TILE_SITES}-site tiles")
+            raise EinvalError(f"block_sites {block_sites}: partial sums run "
+                              f"over {TILE_SITES}-site blocks")
+        if seg.n_inner >= 1 << INDEX_BITS:
+            raise EinvalError(f"{seg.n_inner} inner rows: the kernels name "
+                              f"rows in {INDEX_BITS} bits")
         self.seg, self.scale_mode = seg, scale_mode
         self.rate_cats, self.states = rate_cats, states
         self.srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
         self.rows = [segment_rows(s) for s in seg.segments]
-        tables = [segment_table(s, g) for s, g in zip(seg.segments,
-                                                      self.rows)]
-        self.max_matrix = max((int(m.max()) for _, m in tables if m.size),
-                              default=0)
+        self.tables = [segment_table(s, g) for s, g in zip(seg.segments,
+                                                           self.rows)]
+        self.max_matrix = max((int(m.max()) for _, m in self.tables
+                               if m.size), default=0)
         self.imp_offsets = _offsets(g.r_imp for g in self.rows)
         self._host = {
-            "table": _i32(np.concatenate([t for t, _ in tables]),
+            "table": _i32(np.concatenate([t for t, _ in self.tables]),
                           TABLE_FIELDS),
-            "m_ops": _i32(np.concatenate([m for _, m in tables]), 2)}
+            "m_ops": _i32(np.concatenate([m for _, m in self.tables]), 2)}
         self._device = {}
+        self._budget = set()  # dtypes whose layout fits
+        self._slabs = {}      # slab list -> their addresses on the card
+
+    def _plan_walk(self, imp_row, out_row, keep) -> None:
+        """The kernel's walk: each segment's local rows get pool slots
+        (:func:`segment_slots`; ``keep[si]``: the locals kept to the end),
+        each op a descriptor [n_inner, OP_FIELDS] naming its sources
+        (``imp_row(si, k)``: the device row of segment si's import k) and
+        the device row it is written to (``out_row(si, l)``, -1 for none),
+        each segment (op0, n_ops, n_tip, 0).  The pool is the largest
+        segment's peak of live rows."""
+        ops = np.zeros((self.seg.n_inner, OP_FIELDS), np.int32)
+        segs = np.zeros((len(self.rows), SEG_FIELDS), np.int32)
+        self.slots = []
+        for si, (g, (table, m_ops)) in enumerate(zip(self.rows,
+                                                     self.tables)):
+            slots = segment_slots(table, g, sorted(keep.get(si, ())))
+            self.slots.append(slots)
+            off = self.seg.seg_offsets[si]
+            segs[si] = (off, g.r_loc, g.r_tip, 0)
+            for l, ((_, c1, c2, s1, s2, has), (m1, m2)) in enumerate(zip(
+                    table.tolist(), m_ops.tolist())):
+                ops[off + l] = (
+                    l, _desc(K_POOL, slots[l]),
+                    self._state_desc(si, c1, imp_row),
+                    self._state_desc(si, c2, imp_row),
+                    self._scal_desc(si, s1, imp_row),
+                    self._scal_desc(si, s2, imp_row),
+                    m1, m2, has, out_row(si, l), 0, 0)
+        # (a final segment may have no ops: its edge reads imports)
+        self.pool = max((int(s.max()) + 1 for s in self.slots if s.size),
+                        default=1)
+        self._host["ops"] = torch.from_numpy(ops)
+        self._host["segs"] = torch.from_numpy(segs)
+
+    def _state_desc(self, si, row, imp_row) -> int:
+        """State row ``row`` of segment ``si`` as a descriptor."""
+        g = self.rows[si]
+        if row < g.r_tip:
+            return _desc(K_TIP, row)
+        if row < g.loc0:
+            return _desc(K_IMP, imp_row(si, row - g.r_tip))
+        return _desc(K_POOL, self.slots[si][row - g.loc0])
+
+    def _scal_desc(self, si, srow, imp_row) -> int:
+        """Scaler row ``srow`` of segment ``si`` as a descriptor."""
+        g = self.rows[si]
+        if srow < g.r_imp:
+            return _desc(K_IMP, imp_row(si, srow))
+        if srow < g.dummy_scal:
+            return _desc(K_POOL, self.slots[si][srow - g.r_imp])
+        return K_ZERO
 
     def static(self, name: str, device) -> torch.Tensor:
         """A static table of the schedule, copied to ``device`` once."""
-        key = (name, str(device))
+        key = (name, device)
         if key not in self._device:
             self._device[key] = self._host[name].to(device)
         return self._device[key]
 
-    def check_budget(self, dtype) -> None:
-        """Every segment's local rows fit one block's shared memory."""
-        for si, g in enumerate(self.rows):
-            need = _smem_bytes(g.r_loc, self.rate_cats, self.states, dtype,
-                               self.srows)
-            if need > SMEM_LIMIT:
-                raise EinvalError(
-                    f"segment {si} has {g.r_loc} local rows, {need} bytes "
-                    f"of shared memory over a block's {SMEM_LIMIT}: cut "
-                    f"with max_rows <= seg_max_rows({self.rate_cats}, "
-                    f"{self.states}, {dtype})")
+    def smem(self, dtype) -> int:
+        """The kernel's dynamic shared memory per block at ``dtype``."""
+        return kernel_smem(self.pool, self.rate_cats, self.states, dtype,
+                           self.srows)
 
-    def check(self, tip_slabs, pmatrix, vectors=()) -> str:
-        """Validate what every launch takes; return the dtype suffix."""
+    def check_budget(self, dtype) -> None:
+        """The kernel's layout (:func:`kernel_smem`) fits one block."""
+        if dtype in self._budget:
+            return
+        need = self.smem(dtype)
+        if need > SMEM_LIMIT:
+            raise EinvalError(
+                f"the segments need {need} bytes of shared memory per "
+                f"block (a pool of {self.pool} slots for their live "
+                f"rows), over a block's {SMEM_LIMIT}: cut with max_rows "
+                f"<= seg_max_rows({self.rate_cats}, {self.states}, "
+                f"{dtype})")
+        self._budget.add(dtype)
+
+    def check(self, tip_slabs, pmatrix, vectors=()):
+        """Validate what the launch takes; return (dtype suffix, the slabs'
+        addresses on the card)."""
         device = pmatrix.device
         if device.type != "cuda":
             raise EinvalError(f"segmented kernels run on CUDA tensors, not "
                               f"{device}")
-        c, s = self.rate_cats, self.states
-        suffix = check_pmatrix(pmatrix, c, s, self.max_matrix)
-        _require(len(tip_slabs) == len(self.rows),
-                 f"{len(tip_slabs)} tip slabs for {len(self.rows)} segments")
-        sites = tip_slabs[0].shape[-1]
-        _require(sites > 0, "no sites")
-        for si, (slab, g) in enumerate(zip(tip_slabs, self.rows)):
-            _require(slab.device == device and slab.dtype == pmatrix.dtype
-                     and tuple(slab.shape) == (max(g.r_tip, 1), c * s, sites)
-                     and slab.is_contiguous(),
-                     f"tip slab {si}: {tuple(slab.shape)} {slab.dtype} on "
-                     f"{slab.device}, want [{max(g.r_tip, 1)}, {c * s}, "
-                     f"{sites}] {pmatrix.dtype}")
+        suffix = check_pmatrix(pmatrix, self.rate_cats, self.states,
+                               self.max_matrix)
+        _require(pmatrix.data_ptr() % 16 == 0,
+                 "pmatrix is not 16-byte aligned (its rows load as vectors)")
         for name, t, shape in vectors:
             _require(t.device == device and t.dtype == pmatrix.dtype
                      and tuple(t.shape) == shape and t.is_contiguous(),
                      f"{name} {tuple(t.shape)} {t.dtype} on {t.device}")
-        return suffix
+        return suffix, self._slab_table(tip_slabs, pmatrix)
 
-    def launch(self, suffix, mode, si, slab, pmatrix, *, imp_rows, src,
-               src_scal, n_out, out_rows=None, out=None, out_scal=None,
+    def _slab_table(self, tip_slabs, pmatrix):
+        """The slabs' addresses on the card (int64), checked the first
+        time this list of slabs (each one's data pointer, shape, strides
+        and dtype) is seen at this dtype and card, then cached: a call's
+        host work does not grow with the segment count, and a slab that
+        reuses a freed address with another shape or layout is checked
+        anew."""
+        _require(len(tip_slabs) == len(self.rows),
+                 f"{len(tip_slabs)} tip slabs for {len(self.rows)} segments")
+        sites = tip_slabs[0].shape[-1]
+        key = (pmatrix.dtype, pmatrix.device,
+               tuple(map(torch.Tensor.data_ptr, tip_slabs)),
+               tuple(map(torch.Tensor.size, tip_slabs)),
+               tuple(map(torch.Tensor.stride, tip_slabs)),
+               tuple(s.dtype for s in tip_slabs))
+        hit = self._slabs.get(key)
+        if hit is not None:
+            return hit
+        cs = self.rate_cats * self.states
+        _require(sites > 0, "no sites")
+        for si, (slab, g) in enumerate(zip(tip_slabs, self.rows)):
+            _require(slab.device == pmatrix.device
+                     and slab.dtype == pmatrix.dtype
+                     and tuple(slab.shape) == (max(g.r_tip, 1), cs, sites)
+                     and slab.is_contiguous(),
+                     f"tip slab {si}: {tuple(slab.shape)} {slab.dtype} on "
+                     f"{slab.device}, want [{max(g.r_tip, 1)}, {cs}, "
+                     f"{sites}] {pmatrix.dtype}")
+        if len(self._slabs) >= 8:
+            self._slabs.clear()
+        hit = self._slabs[key] = torch.tensor(
+            [slab.data_ptr() for slab in tip_slabs],
+            dtype=torch.int64).to(pmatrix.device)
+        return hit
+
+    def launch(self, suffix, pmatrix, sites, ptrs, rows, rows_scal, *,
                edge=None, weight_vec=None, pattern_weights=None,
-               partials=None):
-        """Segment ``si``'s kernel on the current stream of the tensors'
-        card.  ``out``/``out_scal`` are addresses."""
-        g, off = self.rows[si], self.seg.seg_offsets[si]
+               partials=None) -> None:
+        """The walk on the current stream of the tensors' card: one launch
+        over every segment (``split``: one per segment), the edge folded
+        after the last segment when ``edge`` is given; ``ptrs``: the
+        slabs' addresses on the card."""
         device = pmatrix.device
         lib = load_kernels()
+        fn = getattr(lib, f"clv_seg_walk_{suffix}")
+        n = len(self.rows)
+        ranges = [(i, i + 1) for i in range(n)] if self.split else [(0, n)]
         with torch.cuda.device(device):
-            rc = getattr(lib, f"clv_seg_segment_{suffix}")(
-                mode, self.states, self.rate_cats, self.scale_mode,
-                slab.shape[-1], g.r_tip, g.r_imp, g.r_loc, n_out,
-                _ptr(self.static("table", device), off, TABLE_FIELDS),
-                _ptr(self.static("m_ops", device), off, 2),
-                _ptr(imp_rows, self.imp_offsets[si], 1) if g.r_imp else None,
-                _ptr(slab), _ptr(pmatrix), _ptr(src), _ptr(src_scal),
-                out_rows, out, out_scal, _ptr(edge), _ptr(weight_vec),
-                _ptr(pattern_weights), _ptr(partials),
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            msg = lib.clv_seg_error_string(rc).decode()
-            raise KernelError(f"segment {si} launch failed: CUDA error {rc} "
-                              f"({msg})")
+            stream = torch.cuda.current_stream().cuda_stream
+            for seg0, seg1 in ranges:
+                rc = fn(self.states, self.rate_cats, self.scale_mode, sites,
+                        seg0, seg1, self.pool,
+                        _ptr(self.static("segs", device)), _ptr(ptrs),
+                        _ptr(self.static("ops", device)), _ptr(pmatrix),
+                        _ptr(rows), _ptr(rows_scal),
+                        _ptr(edge) if seg1 == n else None,
+                        _ptr(weight_vec), _ptr(pattern_weights),
+                        _ptr(partials), stream)
+                if rc != 0:
+                    msg = lib.clv_seg_error_string(rc).decode()
+                    raise KernelError(f"segments {seg0}-{seg1 - 1} launch "
+                                      f"failed: CUDA error {rc} ({msg})")
+                type(self).launches += 1
 
     def run_plain(self, si, slab, pmatrix, imp_clv, imp_scal):
         """Segment ``si`` with PyTorch ops: (state, scalers)."""
@@ -685,6 +898,51 @@ class _SegKernel:
             self._host["m_ops"][off:off + g.r_loc],
             torch.arange(g.r_tip, device=pmatrix.device), imp_clv, imp_scal,
             tips, "clv", pmatrix, self.scale_mode)
+
+    def _walk(self, tip_slabs, pmatrix, rows, rows_scal):
+        """Every segment in order as the kernel walks it, with PyTorch ops
+        over all sites: each op by its descriptor, its children and
+        counters from the segment's tips, ``rows``/``rows_scal`` (imports)
+        or the pool, its parent stored in its slot and, where it has one,
+        in its row of ``rows``/``rows_scal``.  Returns the last segment's
+        (row, count): a descriptor's values and counters, for the edge."""
+        c, s, srows = self.rate_cats, self.states, self.srows
+        sites = tip_slabs[0].shape[-1]
+        thresh, factor = scale_consts(pmatrix.dtype)
+        pool = pmatrix.new_zeros((self.pool, c, s, sites))
+        pool_scal = torch.zeros((self.pool, srows, sites), dtype=torch.int32,
+                                device=pmatrix.device)
+        zero = pool_scal.new_zeros((srows, sites))
+        out = rows.view(-1, c, s, sites)
+        out_scal = rows_scal.view(-1, srows, sites)
+        index = (1 << INDEX_BITS) - 1
+        ops = self._host["ops"].tolist()
+
+        def sources(tips):
+            def row(d):
+                kind = d >> INDEX_BITS
+                return (tips if kind == K_TIP else out if kind == K_IMP
+                        else pool)[d & index]
+
+            def count(d):
+                if d == K_ZERO:
+                    return zero
+                return (out_scal if d >> INDEX_BITS == K_IMP
+                        else pool_scal)[d & index]
+            return row, count
+
+        for si, (op0, n_ops, _, _) in enumerate(
+                self._host["segs"].tolist()):
+            row, count = sources(tip_slabs[si].view(-1, c, s, sites))
+            for (_, home, c1, c2, s1, s2, m1, m2, has, dst,
+                 *_) in ops[op0:op0 + n_ops]:
+                x, cnt = plain_op(pmatrix, m1, m2, row(c1), row(c2),
+                                  count(s1) + count(s2), has,
+                                  self.scale_mode, thresh, factor)
+                pool[home & index], pool_scal[home & index] = x, cnt
+                if dst >= 0:
+                    out[dst], out_scal[dst] = x, cnt
+        return row, count
 
 
 class SegmentedSweep(_SegKernel):
@@ -700,9 +958,16 @@ class SegmentedSweep(_SegKernel):
                  block_sites):
         super().__init__(seg, scale_mode, rate_cats, states, impl,
                          block_sites)
+        offs = seg.seg_offsets
         self._host["imp_rows"] = _i32(
-            [seg.seg_offsets[a] + b for s in seg.segments
-             for (a, b) in s.imports])
+            [offs[a] + b for s in seg.segments for (a, b) in s.imports])
+
+        def imp_row(si, k):
+            a, b = seg.segments[si].imports[k]
+            return offs[a] + b
+        # every row goes out to its inner row as its op makes it: nothing
+        # is kept in the pool past its last reader
+        self._plan_walk(imp_row, lambda si, l: offs[si] + l, {})
 
     def _outputs(self, pmatrix, sites, fill):
         n_inner, c, s = self.seg.n_inner, self.rate_cats, self.states
@@ -736,22 +1001,22 @@ class SegmentedSweep(_SegKernel):
                 scal[g.r_imp * srows:(g.r_imp + n) * srows])
         return self._shaped(inner, scalers)
 
+    def plain_walk(self, tip_slabs, pmatrix):
+        """K3 as the kernel walks it (:meth:`_walk`) with PyTorch ops: the
+        values of :meth:`plain`, bit for bit."""
+        inner, scalers = self._outputs(pmatrix, tip_slabs[0].shape[-1],
+                                       torch.zeros)
+        self._walk(tip_slabs, pmatrix, inner, scalers)
+        return self._shaped(inner, scalers)
+
     def __call__(self, tip_slabs, pmatrix):
         self.check_budget(pmatrix.dtype)
         if pmatrix.device.type == "cpu":
             return self.plain(tip_slabs, pmatrix)
-        suffix = self.check(tip_slabs, pmatrix)
+        suffix, ptrs = self.check(tip_slabs, pmatrix)
         sites = tip_slabs[0].shape[-1]
         inner, scalers = self._outputs(pmatrix, sites, torch.empty)
-        cs, srows = self.rate_cats * self.states, self.srows
-        imp_rows = self.static("imp_rows", pmatrix.device)
-        for si, g in enumerate(self.rows):
-            off = self.seg.seg_offsets[si]
-            self.launch(suffix, _MODE_SWEEP, si, tip_slabs[si], pmatrix,
-                        imp_rows=imp_rows, src=inner, src_scal=scalers,
-                        n_out=g.r_loc, out=_ptr(inner, off, cs * sites),
-                        out_scal=_ptr(scalers, off * srows, sites))
-            SegmentedSweep.launches += 1
+        self.launch(suffix, pmatrix, sites, ptrs, inner, scalers)
         return self._shaped(inner, scalers)
 
 
@@ -767,11 +1032,13 @@ def make_segmented_sweep(seg: SegmentedSchedule,
 
 class SegmentedScore(_SegKernel):
     """K4: ``score(tip_slabs, pmatrix, weight_vec, pattern_weights) ->
-    logl`` (float64).  Leaf segments keep their rows on chip and copy out
-    only the rows later segments import (``sorted(set(export_locals))``);
-    the root segment folds the edge log-likelihood, one float64 partial
-    per ``TILE_SITES`` sites, folded here in float64.  ``weight_vec``:
-    ``clv_fused.pack_weight_vec`` [C·S]; ``pattern_weights`` [L]."""
+    logl`` (float64).  Rows later segments import
+    (``sorted(set(export_locals))``) go out to the exports as their ops
+    make them; every other row stays on chip.  After the last segment the
+    edge log-likelihood is folded, one float64 partial per ``SLOT_SITES``
+    sites, four of them summed into each ``TILE_SITES`` partial and those
+    summed here in float64.  ``weight_vec``: ``clv_fused.pack_weight_vec``
+    [C·S]; ``pattern_weights`` [L]."""
 
     launches = 0
 
@@ -781,7 +1048,8 @@ class SegmentedScore(_SegKernel):
                          block_sites)
         if parent_lm < seg.tips:
             raise EinvalError("edge parent must be an inner node")
-        g = self.rows[-1]
+        last = len(self.rows) - 1
+        g = self.rows[last]
         ends = [locate(seg, parent_lm, "parent"),
                 locate(seg, child_lm, "child")]
         scal = [g.dummy_scal if kind == "tip" else
@@ -790,8 +1058,8 @@ class SegmentedScore(_SegKernel):
         self.edge = [state_row(g, ends[0]), state_row(g, ends[1]), *scal,
                      edge_matrix]
         self.max_matrix = max(self.max_matrix, edge_matrix)
-        self.exports = [sorted(set(s.export_locals)) if si < len(self.rows)
-                        - 1 else [] for si, s in enumerate(seg.segments)]
+        self.exports = [sorted(set(s.export_locals)) if si < last else []
+                        for si, s in enumerate(seg.segments)]
         self.exp_offsets = _offsets(len(e) for e in self.exports)
         self.n_exports = sum(len(e) for e in self.exports)
         self._host["imp_rows"] = _i32(
@@ -799,6 +1067,24 @@ class SegmentedScore(_SegKernel):
              for s in seg.segments for (a, b) in s.imports])
         self._host["out_rows"] = _i32([l for e in self.exports for l in e])
         self._host["edge"] = _i32(self.edge)
+
+        pos = [{l: e for e, l in enumerate(ex)} for ex in self.exports]
+
+        def imp_row(si, k):
+            a, b = seg.segments[si].imports[k]
+            return self.exp_offsets[a] + pos[a][b]
+
+        def out_row(si, l):
+            e = pos[si].get(l)
+            return -1 if e is None else self.exp_offsets[si] + e
+        # the edge's local rows stay in the pool to the end
+        self._plan_walk(imp_row, out_row, {last: [
+            r - g.loc0 for r in self.edge[:2] if r >= g.loc0]})
+        self._host["edge_desc"] = _i32([
+            self._state_desc(last, self.edge[0], imp_row),
+            self._state_desc(last, self.edge[1], imp_row),
+            self._scal_desc(last, self.edge[2], imp_row),
+            self._scal_desc(last, self.edge[3], imp_row), edge_matrix])
 
     def plain(self, tip_slabs, pmatrix, weight_vec, pattern_weights):
         """Plain version of K4: segment by segment with PyTorch ops,
@@ -822,6 +1108,23 @@ class SegmentedScore(_SegKernel):
             state, scal, self.edge, pmatrix, weight_vec, pattern_weights,
             None, self.scale_mode))
 
+    def plain_walk(self, tip_slabs, pmatrix, weight_vec, pattern_weights):
+        """K4 as the kernel walks it (:meth:`_walk`, the edge from its
+        descriptors) with PyTorch ops: the logL of :meth:`plain`, bit for
+        bit."""
+        c, s, srows = self.rate_cats, self.states, self.srows
+        sites = tip_slabs[0].shape[-1]
+        n_exp = max(self.n_exports, 1)
+        exports = pmatrix.new_zeros((n_exp, c, s, sites))
+        exp_scal = torch.zeros((n_exp * srows, sites), dtype=torch.int32,
+                               device=pmatrix.device)
+        row, count = self._walk(tip_slabs, pmatrix, exports, exp_scal)
+        p, ch, ps, cs_, em = self._host["edge_desc"].tolist()
+        return cf.sum_block_partials(plain_edge_partials(
+            torch.stack([row(p), row(ch)]),
+            torch.cat([count(ps), count(cs_)]), (0, 1, 0, 1, em), pmatrix,
+            weight_vec, pattern_weights, None, self.scale_mode))
+
     def __call__(self, tip_slabs, pmatrix, weight_vec, pattern_weights):
         self.check_budget(pmatrix.dtype)
         if pmatrix.device.type == "cpu":
@@ -829,7 +1132,7 @@ class SegmentedScore(_SegKernel):
                               pattern_weights)
         sites = tip_slabs[0].shape[-1]
         cs, srows = self.rate_cats * self.states, self.srows
-        suffix = self.check(tip_slabs, pmatrix, [
+        suffix, ptrs = self.check(tip_slabs, pmatrix, [
             ("weight_vec", weight_vec, (cs,)),
             ("pattern_weights", pattern_weights, (sites,))])
         device, dtype = pmatrix.device, pmatrix.dtype
@@ -837,29 +1140,15 @@ class SegmentedScore(_SegKernel):
         exports = torch.empty((n_exp, cs, sites), dtype=dtype, device=device)
         exp_scal = torch.empty((n_exp * srows, sites), dtype=torch.int32,
                                device=device)
-        partials = torch.empty((-(-sites // TILE_SITES),),
-                               dtype=torch.float64, device=device)
-        out_rows = self.static("out_rows", device)
-        common = dict(imp_rows=self.static("imp_rows", device), src=exports,
-                      src_scal=exp_scal)
-        last = len(self.rows) - 1
-        for si in range(len(self.rows)):
-            if si == last:
-                self.launch(suffix, _MODE_ROOT, si, tip_slabs[si], pmatrix,
-                            n_out=0, edge=self.static("edge", device),
-                            weight_vec=weight_vec,
-                            pattern_weights=pattern_weights,
-                            partials=partials, **common)
-            else:
-                e0 = self.exp_offsets[si]
-                self.launch(suffix, _MODE_LEAF, si, tip_slabs[si], pmatrix,
-                            n_out=len(self.exports[si]),
-                            out_rows=_ptr(out_rows, e0, 1),
-                            out=_ptr(exports, e0, cs * sites),
-                            out_scal=_ptr(exp_scal, e0 * srows, sites),
-                            **common)
-            SegmentedScore.launches += 1
-        return cf.sum_block_partials(partials)
+        # one partial per SLOT_SITES sites, zero past the last tile
+        tiles = torch.zeros(
+            (-(-sites // TILE_SITES) * (TILE_SITES // SLOT_SITES),),
+            dtype=torch.float64, device=device)
+        self.launch(suffix, pmatrix, sites, ptrs, exports, exp_scal,
+                    edge=self.static("edge_desc", device),
+                    weight_vec=weight_vec, pattern_weights=pattern_weights,
+                    partials=tiles)
+        return cf.sum_block_partials(fold_tile_partials(tiles, sites))
 
 
 def make_segmented_score(seg: SegmentedSchedule, parent_lm: int,

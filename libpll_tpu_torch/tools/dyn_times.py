@@ -11,7 +11,9 @@ parent compares two commits on one card).  A TREE is a checkout's root
 with the text substitutions ``SPEC.json`` names for it
 (``{"name": [["old", "new"], ...]}``; an empty list is the source as it
 stands), built by nvcc beside the package's build and loaded in place of
-its library.  Measured, with CUDA events (``chip_smoke.time_ms``):
+its library (``tools/variants.py``: a substitution may also apply to the
+shared ``clv_common.cuh``).  Measured, with CUDA events
+(``chip_smoke.time_ms``):
 
   * K6 (``make_score_unbounded``'s kernel) at the large configuration,
     10 240 taxa x 2^20 sites, DNA, float32, per-site scaling: ms per
@@ -30,6 +32,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from variants import build_variants, card_line  # noqa: E402
 
 
 def measure(tree, lib=None):
@@ -113,60 +118,15 @@ def measure(tree, lib=None):
     print(json.dumps(out), flush=True)
 
 
-def build_variants(spec, names):
-    """nvcc each named variant of csrc/clv_dyn.cu, all at once; return
-    {name: library path}."""
-    sys.path.insert(0, str(ROOT))
-    from libpll_tpu_torch.ops import _build
-
-    unknown = sorted(set(names) - set(spec))
-    if unknown:
-        raise SystemExit(f"variants not in the spec: {', '.join(unknown)}")
-    source = (_build.CSRC_DIR / "clv_dyn.cu").read_text()
-    folder = _build.BUILD_DIR / "variants"
-    folder.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in dict.fromkeys(names):
-        text = source
-        for old, new in spec[name]:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        src = folder / f"clv_dyn_{name}.cu"
-        src.write_text(text)
-        lib = folder / f"clv_dyn_{name}.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
-             "-o", str(lib), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    libs, failed = {}, []
-    for name, (lib, proc) in jobs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"variant {name} does not build:\n{stderr}")
-            continue
-        regs = [line.split("Used")[1].split(",")[0].strip()
-                for line in (stdout + stderr).splitlines()
-                if "Used" in line and "registers" in line]
-        print(f"variant {name}: {', '.join(regs)}", flush=True)
-        libs[name] = lib
-    if failed:
-        raise SystemExit("\n".join(failed))
-    return libs
-
-
 def main(argv):
     if argv[:1] == ["--measure"]:
         measure(argv[1], argv[2] if len(argv) > 2 else None)
         return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}", flush=True)
+    print(f"card: {card_line()}", flush=True)
     if argv[:1] == ["--variants"]:
         names = argv[2:]
-        libs = build_variants(json.loads(Path(argv[1]).read_text()), names)
+        libs = build_variants(json.loads(Path(argv[1]).read_text()), names,
+                              "clv_dyn")
         runs = [(ROOT, libs[name]) for name in names]
     else:
         runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]

@@ -245,6 +245,49 @@ def test_seg_modules_on_card_match_cpu(cuda, states):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sites", [300, 301])
+def test_seg_one_launch_per_call(cuda, sites):
+    """K3 and K4 launch once per call, and once per segment under
+    ``split``, with the same bits either way, and match their plain
+    versions; at 301 sites no tip row is 16-byte aligned."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(24, np.random.default_rng(7)), sites, 4, 7)
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=9,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    n_seg = len(seg.segments)
+    assert n_seg > 2
+    for dtype in (torch.float32, torch.float64):
+        slabs = cseg.pack_tips_segmented(chip_smoke.tip_input(
+            masks, "clv", 4, dtype, cuda), seg)
+        pm, wvec, pw, _ = chip_smoke.kernel_inputs(topo, model_np, dtype,
+                                                   cuda, False)
+        sweep = cseg.make_segmented_sweep(seg, topo.scale_mode, rate_cats=4,
+                                          states=4)
+        score = cseg.make_segmented_score(
+            seg, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+            topo.scale_mode, rate_cats=4, states=4)
+        out = []
+        for split, per_call in ((False, 1), (True, n_seg)):
+            sweep.split = score.split = split
+            before = (cseg.SegmentedSweep.launches,
+                      cseg.SegmentedScore.launches)
+            inner, scalers = sweep(slabs, pm)
+            logl = float(score(slabs, pm, wvec, pw))
+            assert (cseg.SegmentedSweep.launches - before[0],
+                    cseg.SegmentedScore.launches - before[1]) == (
+                        per_call, per_call)
+            out.append((inner, scalers, logl))
+        (i0, c0, l0), (i1, c1, l1) = out
+        assert torch.equal(i0, i1) and torch.equal(c0, c1) and l0 == l1
+        want = sweep.plain(slabs, pm)
+        ok, err, agree = chip_smoke.sweep_close(i0, c0, *want, dtype)
+        assert ok, (err, agree)
+        assert chip_smoke.logl_close(
+            l0, float(score.plain(slabs, pm, wvec, pw)), dtype)
+
+
+@pytest.mark.gpu
 def test_seg_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     topo, model_np, masks = chip_smoke.small_case(
         chip_smoke.random_newick(12, np.random.default_rng(4)), 40, 4, 4)

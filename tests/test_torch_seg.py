@@ -273,8 +273,8 @@ def test_row_budget():
 
 def test_segmented_guards():
     """EinvalError where JAX raises ValueError (an edge end the root
-    segment cannot reach, a tip parent), and for a segment whose local
-    rows exceed one block's shared memory."""
+    segment cannot reach, a tip parent), and for a segment whose live rows
+    exceed one block's shared memory."""
     case = make_case(_caterpillar_newick(48), 32, seed=6, dtype=np.float32)
     jt, tt = case["jtopo"], case["ttopo"]
     jseg, tseg = schedules(jt, tt, 10)
@@ -299,23 +299,28 @@ def test_segmented_guards():
         cseg.make_segmented_sweep(tseg, rate_cats=4, states=4,
                                   block_sites=256)
 
-    # one segment of 46 local rows: 460 KB at four rates in float32
+    # one segment of a 32-taxon tree, protein at eight rates in float64:
+    # its seven live rows take 287 KB of shared memory
+    big = make_case(_random_tree_newick(32, np.random.default_rng(32)), 32,
+                    seed=6, states=20, rate_cats=8)
+    bt = big["ttopo"]
     whole = cseg.build_segmented_schedule(
-        tt.schedule, max_rows=1000, ensure_rows=[tt.parent_clv,
-                                                 tt.child_clv])
-    assert whole.segments[0].n_local == 46
-    pm = port_pmatrix(case, torch.float32)
-    slabs = cseg.pack_tips_segmented(case["clv"][:tt.schedule.tips], whole)
+        bt.schedule, max_rows=1000, ensure_rows=[bt.parent_clv,
+                                                 bt.child_clv])
+    assert len(whole.segments) == 1
+    pm = port_pmatrix(big, torch.float64)
+    slabs = cseg.pack_tips_segmented(big["clv"][:bt.schedule.tips], whole)
+    kw = dict(rate_cats=8, states=20)
     with pytest.raises(EinvalError, match="shared memory"):
-        cseg.make_segmented_sweep(whole, rate_cats=4, states=4)(slabs, pm)
-    tm = model_from_numpy(case["model"], "cpu", torch.float32)
+        cseg.make_segmented_sweep(whole, **kw)(slabs, pm)
+    tm = model_from_numpy(big["model"], "cpu", torch.float64)
     with pytest.raises(EinvalError, match="shared memory"):
         cseg.make_segmented_score(
-            whole, tt.parent_clv, tt.child_clv, tt.edge_matrix,
-            rate_cats=4, states=4)(
+            whole, bt.parent_clv, bt.child_clv, bt.edge_matrix, **kw)(
             slabs, pm, cf.pack_weight_vec(tm["freqs_pc"], tm["rate_weights"]),
             tm["pattern_weights"])
     with pytest.raises(EinvalError):  # a device neither CPU nor CUDA
         cseg.make_segmented_sweep(tseg, rate_cats=4, states=4)(
             [s.to("meta") for s in cseg.pack_tips_segmented(
-                case["clv"][:tt.schedule.tips], tseg)], pm.to("meta"))
+                case["clv"][:tt.schedule.tips], tseg)],
+            port_pmatrix(case, torch.float32).to("meta"))
