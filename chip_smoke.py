@@ -264,15 +264,22 @@ def check_small(device):
                                                   SCALE_PER_SITE)
 
     rng = np.random.default_rng(1)
-    # 1000 sites: a ragged last block of 104 sites; the caterpillar makes
-    # float32 scaling fire
-    trees = [("random16", random_newick(16, rng), (4,)),
-             ("caterpillar48", caterpillar_newick(48), (4,)),
-             ("random12", random_newick(12, rng), (1, 2, 8))]
+    # 1000 sites: a ragged last block of 104 sites; the caterpillars make
+    # float32 scaling fire; 1 000 taxa need a larger pool and more staged
+    # P-matrices than the flagship (chunks of ops).  The two large trees
+    # underflow float32 without scaling (logL -inf in K1 and its plain
+    # version alike): their K1 runs scaled only
+    scaled = (SCALE_PER_SITE,)
+    both = (SCALE_NONE, SCALE_PER_SITE)
+    trees = [("random16", random_newick(16, rng), (4,), 1000, both),
+             ("caterpillar48", caterpillar_newick(48), (4,), 1000, both),
+             ("random12", random_newick(12, rng), (1, 2, 8), 1000, both),
+             ("caterpillar400", caterpillar_newick(400), (4,), 300, scaled),
+             ("random1000", random_newick(1000, rng), (4,), 300, scaled)]
     n, k1_err, k2_err = 0, 0.0, 0.0
-    for label, newick, cats in trees:
+    for label, newick, cats, sites, k1_scales in trees:
         for rate_cats in cats:
-            topo, model_np, masks = small_case(newick, 1000, rate_cats,
+            topo, model_np, masks = small_case(newick, sites, rate_cats,
                                                seed=rate_cats)
             sched = topo.schedule
             edge = dict(parent_clv=topo.parent_clv,
@@ -298,7 +305,7 @@ def check_small(device):
                         if dtype == torch.float32:
                             k2_err = max(k2_err, err)
                         n += 1
-                    for scale in (SCALE_NONE, SCALE_PER_SITE):
+                    for scale in k1_scales:
                         for pinv in (False, True):
                             args = kernel_inputs(topo, model_np, dtype,
                                                  device, pinv)
@@ -602,6 +609,19 @@ def ptxas_report(name):
             rows.append((label, int(m.group(1)), spill))
             current = None
     return rows
+
+
+def ptxas_stack(name):
+    """The largest stack frame, in bytes, of any kernel instance in nvcc's
+    -Xptxas -v log (0: every argument and local stays in registers or the
+    parameter space)."""
+    import re
+
+    from libpll_tpu_torch.ops import _build
+
+    log = _build.library_path(name).with_suffix(".log").read_text()
+    return max((int(b) for b in re.findall(r"(\d+) bytes stack frame", log)),
+               default=0)
 
 
 # ------------------------------------------------------------- timing
@@ -1345,7 +1365,8 @@ def main():
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
           f"in {build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
           f"instances, at most {max(r for _, r, _ in fused)} registers, "
-          f"instances with spills: {sum(1 for *_, b in fused if b)}",
+          f"instances with spills: {sum(1 for *_, b in fused if b)}, "
+          f"largest stack frame {ptxas_stack('clv_fused')} bytes",
           flush=True)
 
     t0 = time.perf_counter()
@@ -1376,15 +1397,19 @@ def main():
     want = float(ev.make_forward(topo).to(device)(m64, clv64, scal)[0])
     del clv64, scal
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     cf.fused_edge_score.launches = 0
     cf.fused_sweep.launches = 0
     got_score = float(score(m32, tp))
+    torch.cuda.synchronize()
+    score_peak = torch.cuda.max_memory_allocated()
     got_fwd = float(fwd(m32, tp)[0])
     torch.cuda.synchronize()
     launches = {"fused_edge_score": cf.fused_edge_score.launches,
                 "fused_sweep": cf.fused_sweep.launches}
-    check(all(v > 0 for v in launches.values()),
-          f"main path skipped a kernel: launches {launches}")
+    check(all(v == 1 for v in launches.values()),
+          f"main path: launches {launches}, want one of each")
     budget = ACC_REL * abs(want) + ACC_ABS
     for name, got in (("make_score", got_score),
                       ("make_forward_fused", got_fwd)):
@@ -1397,11 +1422,11 @@ def main():
                                     False)
     edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
                 edge_matrix=topo.edge_matrix, tip_encoding="chars")
-    k1 = lambda: cf.fused_edge_score(sched, tp, pm, wvec, pw, ops=score.ops,
-                                     **edge)
+    k1 = lambda: cf.fused_edge_score(sched, tp, pm, wvec, pw,
+                                     plan=score.plan, **edge)
     k1_plain = lambda: cf.fused_edge_score_plain(sched, tp, pm, wvec, pw,
                                                  **edge)
-    k2 = lambda: cf.fused_sweep(sched, tp, pm, ops=fwd.ops,
+    k2 = lambda: cf.fused_sweep(sched, tp, pm, plan=fwd.plan,
                                 tip_encoding="chars")
     k2_plain = lambda: cf.fused_sweep_plain(sched, tp, pm,
                                             tip_encoding="chars")
@@ -1410,12 +1435,21 @@ def main():
     ok, k2_err, agree = sweep_close(*k2(), *k2_plain(), torch.float32)
     check(ok, f"flagship K2 vs plain: max abs err {k2_err}, scaler "
               f"agreement {agree}")
+    lay = {name: mod.plan.layout(torch.float32, c, topo.scale_mode, is_k1)
+           for name, mod, is_k1 in (("K1", score, True), ("K2", fwd, False))}
     print(f"[4 flagship] {tips} taxa x {sites} sites x {c} rates f32 chars: "
-          f"make_score {got_score:.6f}, make_forward_fused {got_fwd:.6f}, "
+          f"make_score {got_score!r}, make_forward_fused {got_fwd:.6f}, "
           f"plain f64 make_forward {want:.6f} (|d| {abs(got_score - want):.3e}"
           f", {abs(got_fwd - want):.3e} <= {budget:.3e}); launches "
           f"{launches}; K1-plain |d logL| {k1_err:.3e}; K2-plain max abs "
-          f"{k2_err:.3e}, scalers agree {agree:.6f}", flush=True)
+          f"{k2_err:.3e}, scalers agree {agree:.6f}; walk: pool "
+          f"{score.plan.pool} slots (K2 {fwd.plan.pool}), " + "; ".join(
+              f"{name} {v['smem']} B shared memory per block of "
+              f"{v['threads']} threads x {v['block_sites']} sites, chunks of "
+              f"{v['chunk']} ops, {v['blocks_per_sm']} blocks per SM"
+              for name, v in lay.items())
+          + f"; make_score peak device memory {score_peak / 2**30:.4f} GiB",
+          flush=True)
 
     # ---------------------------------------------------- 5: times
     updates = sched.n_inner * sites * c
@@ -1431,12 +1465,19 @@ def main():
     k2_bound = bound(2 * sched.n_inner * sites * c * CONTRACT_FLOP,
                      (tp.numel() + sched.n_inner * c * s * sites
                       + (sched.n_inner + 1) * sites) * 4, fp32_peak)
+    graphed = score.graphed(m32, tp)  # make_score as one CUDA graph
+    got_graph = float(graphed(m32, tp))
+    check(got_graph == got_score, f"flagship make_score in a CUDA graph "
+                                  f"{got_graph!r}, eager {got_score!r}")
     runs = {"score": lambda: score(m32, tp), "score_plain": score_plain,
             "forward_fused": lambda: fwd(m32, tp), "k1": k1,
-            "k1_plain": k1_plain, "k2": k2, "k2_plain": k2_plain}
+            "k1_plain": k1_plain, "k2": k2, "k2_plain": k2_plain,
+            "score_graph": lambda: graphed(m32, tp)}
     timed = {name: time_ms(fn) for name, fn in runs.items()}
     ms = {name: dev for name, (dev, _) in timed.items()}
     host = {name: h for name, (_, h) in timed.items()}
+    idle = {name: host_ms(runs[name])
+            for name in ("score", "forward_fused", "score_graph")}
     print(f"[5 times] {card}: make_score (K1) {ms['score']:.4f} ms/eval = "
           f"{updates / ms['score'] * 1e3:.4e} CLV updates/s (host issues a "
           f"call in {host['score']:.4f} ms); with the plain K1 "
@@ -1446,7 +1487,13 @@ def main():
           f"{host['forward_fused']:.4f} ms); kernel alone K1 {ms['k1']:.4f} "
           f"ms vs plain {ms['k1_plain']:.4f} ms; K2 {ms['k2']:.4f} ms vs "
           f"plain {ms['k2_plain']:.4f} ms ({TIMED_ITERS} calls after "
-          f"{WARMUP} warm-up, CUDA events)", flush=True)
+          f"{WARMUP} warm-up, CUDA events); host time of one call with the "
+          f"card idle: make_score {idle['score']:.4f} ms, "
+          f"make_forward_fused {idle['forward_fused']:.4f} ms; make_score "
+          f"captured in a CUDA graph {ms['score_graph']:.4f} ms/eval (host "
+          f"{host['score_graph']:.4f} ms a call, {idle['score_graph']:.4f} "
+          f"ms with the card idle; logL equal to the eager call's)",
+          flush=True)
 
     # ---------------------------------------------------- 6-10: dyn tier
     dyn_rows = ptxas_report("clv_dyn")
@@ -1454,7 +1501,7 @@ def main():
           f"(dtype, states): " + "; ".join(
               f"{lab} {r} registers, {b} B spill" for lab, r, b in dyn_rows),
           flush=True)
-    del score, fwd, tp
+    del score, fwd, tp, graphed
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

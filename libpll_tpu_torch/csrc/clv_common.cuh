@@ -1,12 +1,12 @@
 // Device pieces shared by the port's likelihood kernels (clv_fused.cu,
 // clv_dyn.cu, clv_seg.cu): encodings, scaling units, the f32/f64 math
-// overloads, the per-rate contraction, the per-site and per-rate scaling
-// test, the per-rate scaler fold of the edge log-likelihood and the
-// per-block float64 reduction of the per-site log-likelihoods.  Then what
-// the two pool kernels (clv_dyn.cu, clv_seg.cu) share: a block of 32 sites
-// by C rates, the shared-memory pool of live rows, staged op descriptors,
-// the P-matrices staged per chunk of ops, the per-site scaling vote, the
-// gather of a site's rate terms at the edge and the 32-site partial.
+// overloads, the per-site and per-rate scaling test and the per-rate
+// scaler fold of the edge log-likelihood.  Then what the pool kernels
+// share: op descriptors, the P-matrices staged per chunk of ops and their
+// rows read as vectors; and what clv_dyn.cu and clv_seg.cu share: a block
+// of 32 sites by C rates, the shared-memory pool of live rows, the
+// per-site scaling vote, the gather of a site's rate terms at the edge and
+// the 32-site partial.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,7 +16,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;    // sites per block, and per partial sum
+constexpr int kThreads = 128;    // threads per block of clv_fused.cu
 constexpr int kRateMaxDiff = 4;  // SCALE_RATE_MAXDIFF
 constexpr int kMaxRates = 8;
 
@@ -61,26 +61,6 @@ __device__ __forceinline__ T dot(const T* row, const T (&x)[S]) {
 #pragma unroll
   for (int d = 1; d < S; ++d) acc = dev_fma(__ldg(row + d), x[d], acc);
   return acc;
-}
-
-// The contraction of rate c of a child: t[s] = sum_d pm[c, s, d] x[d],
-// with pm one branch's [C, S, S] P-matrices.  Each row is addressed from
-// pm as (c*S + s)*S: the same loop over a pointer advanced to rate c first
-// made the dyn kernels 9% slower on an H100.
-template <typename T, int S>
-__device__ __forceinline__ void contract_rate(const T* pm, int c,
-                                              const T (&x)[S], T (&t)[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) t[s] = dot<T, S>(pm + (c * S + s) * S, x);
-}
-
-// The same contraction of the second child, multiplied into t.
-template <typename T, int S>
-__device__ __forceinline__ void mul_contract_rate(const T* pm, int c,
-                                                  const T (&x)[S],
-                                                  T (&t)[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) t[s] *= dot<T, S>(pm + (c * S + s) * S, x);
 }
 
 template <typename T, int S>
@@ -155,21 +135,6 @@ template <typename T>
 __device__ __forceinline__ T site_lnl(T term, int snum, const Scale<T>& u,
                                       T pattern_weight) {
   return (dev_log(term) + (T)snum * u.log_scale) * pattern_weight;
-}
-
-// Sum `v` over the block's kThreads threads in float64 and store it at
-// out[blockIdx.x].  Every thread of the block must call it.
-__device__ void block_sum_store(double v, double* out) {
-  __shared__ double warp_sums[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double total = 0.0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    out[blockIdx.x] = total;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -380,8 +345,8 @@ __device__ __forceinline__ T site_term(const T* term_s, const int* sn_s,
   return term;
 }
 
-// Warp 0's sum of the tile's 32 per-site values in block_sum_store's
-// order (one warp's shuffle tree), stored at out[blockIdx.x].
+// Warp 0's sum of the tile's 32 per-site values in one warp's shuffle
+// tree (the first fused kernel's order), stored at out[blockIdx.x].
 __device__ void tile_sum_store(double v, double* out) {
   if (threadIdx.x >= 32) return;
   for (int off = 16; off > 0; off >>= 1)

@@ -28,8 +28,8 @@
 //     per-rate counters first folded to their per-site minimum with the
 //     remainder (capped at 4) applied to each rate's term as the reference
 //     does (src/core_likelihood.c:916-941); one float64 partial per 32
-//     sites, the sum of one warp's worth of sites in block_sum_store's
-//     order (the wrapper adds four of them into each 128-site partial).
+//     sites, the sum of one warp's worth of sites in a warp's shuffle tree
+//     (the wrapper adds four of them into each 128-site partial).
 //
 // Design on this card, and what was decided:
 //  * The TPU kernel kept a whole segment's rows in VMEM (10 MB).  An H100
@@ -64,9 +64,10 @@
 //    dependent loads (table, tip id, tip word) and on its P rows from L2.
 //  * The arithmetic of every value is the first port's (dot in K1's order,
 //    products, scaling by exact powers of two), so the float32 results are
-//    the same bits.  Partials are summed per 32-site tile in
-//    block_sum_store's order, and the wrapper adds four into each 128-site
-//    partial as block_sum_store did: the logL is bit for bit the same.
+//    the same bits.  Partials are summed per 32-site tile in a warp's
+//    shuffle tree, and the wrapper adds four into each 128-site partial in
+//    order, as the first port's block sum did: the logL is bit for bit the
+//    same.
 //  * Imports are read where they lie (K5: earlier segments' inner rows;
 //    K6: earlier segments' export rows) through one index per import slot,
 //    and tips from the tree's one packed tip array by global id.  K6

@@ -7,350 +7,543 @@
 //   K2  make_fused_sweep       (pallas_call at :840)
 //
 // What they compute, per site: for every op in post order (children before
-// parents, the op table of clv_fused.flatten_ops),
+// parents),
 //   x[c,s] = (sum_d P[m1,c,s,d] child1[c,d]) * (sum_d P[m2,c,s,d] child2[c,d])
 // with the parent's counter starting at the sum of its children's.  Under
 // per-site scaling, when every one of the site's C*S values is below
 // 2^-shift the values are multiplied by 2^shift and the counter gains 1
 // (shift = 32 at float, 256 at double).  Under per-rate scaling the same
 // test runs per rate category with one counter per (rate, site).  K2 writes
-// every inner CLV and counter out.  K1 then folds the edge log-likelihood:
+// every inner CLV and counter out.  K1 instead folds the edge
+// log-likelihood:
 //   lnl = (log(sum_k parent[k] * (P[edge] child)[k] * wvec[k] (+ inv_add))
 //          + counters * log(2^-shift)) * pattern_weight
-// and writes one float64 partial sum per thread block; the wrapper folds the
-// partials in float64.
+// and writes one float64 partial per 32 sites; the wrapper folds four into
+// each 128-site partial (clv_seg.fold_tile_partials) and those in float64.
 //
 // Tips come as 0/1 CLV rows ("clv", [tips, C*S, L]), as 4-bit ambiguity
 // codes packed eight to an int32 word ("chars", nibble 4*(i%8) of word i/8,
-// masked & 0xF), or as one bitmask word per tip ("masks").  A pattern tip is
-// decoded into the same 0/1 rows a "clv" tip would hold, so the three
-// encodings share one contraction.
+// masked & 0xF), or as one bitmask word per tip ("masks").
 //
-// Design on this card.  The TPU kernel kept every inner CLV of a site block
-// in 10 MB of VMEM.  An H100 block has at most 227 KB of shared memory,
-// and at the flagship (64 taxa, 62 inner nodes, C*S = 16 floats) a site's
-// inner CLVs take ~4 KB, so a useful site tile does not fit on chip.  This
-// first kernel therefore runs one thread per site (blocks over the site
-// axis, the ragged last block masked), keeps each op's C*S values in
-// registers and spills every inner CLV to a global scratch laid out
-// [node, C*S, site] with the site innermost, so that a warp's loads and
-// stores are coalesced.  P-matrices and the op table are read through the
-// read-only cache with warp-uniform addresses; counters are int32.
+// Design on this card.
+//  * The walk is planned once per topology on the host (clv_fused.FusedPlan):
+//    the ops in a post order that visits first the child needing more live
+//    rows, so that only a few inner rows are live at once (3 at the 64-taxon
+//    flagship, 6 at 1 000 taxa), and those rows get slots of a shared-memory
+//    pool by first fit.  Each op is a descriptor (clv_common.cuh's OpDesc)
+//    naming its children and counters as a tip or a pool slot.  K1 keeps
+//    every inner row on chip (no device scratch); K2 writes each row and
+//    counter once, coalesced, as its op makes it, and reads none back.
+//  * One thread runs kSitesPerThread sites of a block's tile (the site
+//    axis is fastest: a warp's loads and stores are coalesced, and its pool
+//    columns sit in distinct banks) and holds each site's C*S values in
+//    registers, so per-site scaling needs no barrier.  Each P row read
+//    serves every site of the thread.
+//  * Each chunk of ops (8 at most) has its descriptors and P-matrices
+//    staged in shared memory (16-byte vectors, a warp reading one address).
+//    A tree whose ops all fit one chunk is staged once per block, and the
+//    blocks loop over the site tiles (grid: the blocks the card holds at
+//    once).  A pattern tip's word is read once per site and op and decoded
+//    into 0/1 values that are contracted as any row.  (A table of the 16
+//    codes' terms per tip child, built per chunk, measured slower on an
+//    H100: it cost more shared memory and build time than its FMAs saved;
+//    PERF.md.)
+//  * The argument struct stays in the parameter space (__grid_constant__):
+//    helpers take it by reference, which otherwise makes nvcc copy it to
+//    the stack (3-5% on clv_seg.cu, PERF.md).
+//  * Per value the arithmetic is the first port's (dot in K1's order,
+//    products, scaling by exact powers of two, the edge sum in row order),
+//    and the partials are summed in the first kernel's order (each warp's
+//    shuffle tree, then four warps in order): the rows, counters and logL
+//    keep their bits.
 //
-// What bounds it, at the flagship per evaluation: ~62 ops x 262,144 sites x
-// 4 rates x ~68 flop = 4.4 GFLOP (0.07 ms at the 67 TFLOP/s FP32 peak)
-// against one write and one read of ~4 KB of scratch per site, ~2 GB (a
-// 0.6 ms floor at 3.35 TB/s): the simple K1 is bound by its scratch
-// traffic, and K2 by its ~1 GB CLV write-out.  Keeping the live post-order
-// frontier on chip is later work.
+// What bounds it, at the flagship (64 taxa x 262 144 sites, four rates,
+// float32) per evaluation: ~3.7 GFLOP of contraction (0.055 ms at the FP32
+// peak) against 8.4 MB of tip words and 1 MB of pattern weights read (K1)
+// and 1.11 GB of rows and counters written (K2, 0.33 ms at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <cmath>
 
 #include "clv_common.cuh"
 
 namespace {
 
-constexpr int kStates = 4;     // DNA; clv_dyn.cu also takes protein
-constexpr int kOpFields = 8;   // prow, c1, m1, c2, m2, s1, s2, has_scaler
+constexpr int kStates = 4;
+constexpr int kMaxChunk = 8;        // ops staged at once, at most
+constexpr int kGroupSites = 32;     // sites per float64 partial (a warp)
+constexpr int kMaxSitesPerThread = 2;
+// P rows read from the staged chunk (else through L1 from device memory)
+constexpr bool kStageP = true;
+
+// Sites per thread: each P row read serves them all.  kMaxSitesPerThread
+// while a site's values take at most 64 bytes of registers (float at up to
+// four rates, double at up to two), else one.
+template <typename T, int C>
+constexpr int kSitesPerThread = sizeof(T) * C <= 16 ? kMaxSitesPerThread : 1;
 
 template <typename T>
-struct SweepArgs {
-  const int32_t* ops;        // [n_ops, kOpFields]
-  int n_ops;
-  int n_tips;
-  int n_inner;
-  int64_t sites;
+struct FusedArgs {
   int tip_encoding;
   int scale_mode;
-  const T* tip_clv;          // [n_tips, C*S, sites]        ("clv")
-  const int32_t* tip_words;  // [ceil(n_tips/8) or n_tips, sites]
+  int64_t sites;
+  int n_ops;
+  // = n_ops.  Without this field nvcc gave the float, four-rate K1 more
+  // than 128 registers a thread: 3 blocks an SM, not 4, and K1 20% slower
+  // on an H100 (PERF.md).
+  int n_inner;
+  int pool;       // slots
+  int chunk;      // ops staged at once
+  int64_t n_groups;  // K1: 32-site partials, four per 128 sites
+  const OpDesc* ops;         // [n_ops]
+  const T* tip_clv;          // [tips, C*S, sites]              ("clv")
+  const int32_t* tip_words;  // [ceil(tips/8) or tips, sites]
   const T* pmatrix;          // [M, C, S, S]
-  T* inner;                  // [n_inner, C*S, sites]; written and re-read
-  int32_t* scalers;          // [(n_inner + 1) * srows, sites]
-  T thresh;
-  T factor;
+  T* inner;                  // K2: [n_inner, C*S, sites]
+  int32_t* scalers;          // K2: [(n_inner + 1) * srows, sites]
+  const int32_t* edge;       // K1: parent, child, their counters, matrix,
+                             // the child's nibble shift
+  const T* weight_vec;       // K1: [C*S]
+  const T* pattern_weights;  // K1: [sites]
+  const T* inv_add;          // K1: [sites], or null without +I
+  double* partials;          // K1: [n_groups]
+  Scale<T> u;
 };
+
+// Dynamic shared memory, in this order: the chunk's descriptors, its
+// P-matrices [j, k, C, S, S], the pool's values [slot, C*S, nb] and
+// counters [slot, srows, nb] (nb: the block's sites).
+template <typename T, int C>
+size_t smem_bytes(int chunk, int pool, int srows, int nb) {
+  return (size_t)chunk * sizeof(OpDesc) +
+         (size_t)chunk * 2 * C * kStates * kStates * sizeof(T) +
+         (size_t)pool * nb * (C * kStates * sizeof(T) + srows * 4);
+}
 
 template <typename T>
-struct ScoreArgs {
-  int parent_clv;
-  int child_clv;
-  int edge_matrix;
-  int parent_srow;           // n_inner (the dummy) for a tip
-  int child_srow;
-  const T* weight_vec;       // [C*S]
-  const T* pattern_weights;  // [sites]
-  const T* inv_add;          // [sites], or null without +I
-  T log_scale;
-  double* partials;          // [n_blocks]
+struct Shared {
+  OpDesc* ops;
+  T* pm;
+  T* pool;
+  int32_t* scal;
+  int nb;  // the block's sites: the pool's row length
 };
 
-// CLV rows of node `idx` at one site.  Inner rows are read with plain
-// loads: this kernel wrote them, so the non-coherent read-only path is
-// not allowed there.
-template <typename T, int C>
-__device__ __forceinline__ void load_clv(const SweepArgs<T>& a, int idx,
-                                         int64_t site, T (&x)[C * kStates]) {
+// Where the thread's sites are: column col[u] of the pool, site site[u]
+// (clamped to the last site for loads past the end; live[u]: a real site).
+template <int U>
+struct Cols {
+  int col[U];
+  int64_t site[U];
+  bool live[U];
+};
+
+// The thread's U rows of C*S values named by descriptor d (a pool slot or
+// a tip; `shift`: a pattern tip's nibble shift).
+template <typename T, int C, int U>
+__device__ __forceinline__ void load_row(const FusedArgs<T>& a,
+                                         const Shared<T>& sh,
+                                         const Cols<U>& q, int d, int shift,
+                                         T (&x)[U][C * kStates]) {
   constexpr int CS = C * kStates;
-  if (idx >= a.n_tips) {
-    const T* base = a.inner + (int64_t)(idx - a.n_tips) * CS * a.sites;
+  const int v = index_of(d);
+  if (kind_of(d) == K_POOL) {
 #pragma unroll
-    for (int k = 0; k < CS; ++k) x[k] = base[k * a.sites + site];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < CS; ++k)
+        x[u][k] = sh.pool[(v * CS + k) * sh.nb + q.col[u]];
     return;
   }
   if (a.tip_encoding == TIP_CLV) {
-    const T* base = a.tip_clv + (int64_t)idx * CS * a.sites;
+    const T* base = a.tip_clv + (int64_t)v * CS * a.sites;
 #pragma unroll
-    for (int k = 0; k < CS; ++k) x[k] = __ldg(base + k * a.sites + site);
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < CS; ++k) x[u][k] = __ldg(base + k * a.sites + q.site[u]);
     return;
   }
-  uint32_t code;
-  if (a.tip_encoding == TIP_CHARS) {
-    const uint32_t word =
-        (uint32_t)__ldg(a.tip_words + (int64_t)(idx >> 3) * a.sites + site);
-    code = (word >> (4 * (idx & 7))) & 0xFu;
-  } else {
-    code = (uint32_t)__ldg(a.tip_words + (int64_t)idx * a.sites + site);
-  }
 #pragma unroll
-  for (int d = 0; d < kStates; ++d) {
-    const T bit = (T)((code >> d) & 1u);
+  for (int u = 0; u < U; ++u) {
+    const uint32_t code =
+        ((uint32_t)__ldg(a.tip_words + (int64_t)v * a.sites + q.site[u]) >>
+         shift) & 0xFu;
 #pragma unroll
-    for (int c = 0; c < C; ++c) x[c * kStates + d] = bit;
+    for (int d2 = 0; d2 < kStates; ++d2) {
+      const T bit = (T)((code >> d2) & 1u);
+#pragma unroll
+      for (int c = 0; c < C; ++c) x[u][c * kStates + d2] = bit;
+    }
   }
 }
 
-// y[c,s] = sum_d pm[c,s,d] * x[c,d] for one [C, S, S] matrix.
-template <typename T, int C>
-__device__ __forceinline__ void contract(const T* pm,
-                                         const T (&x)[C * kStates],
-                                         T (&y)[C * kStates]) {
+// t (=, or *= when kMul) the contraction of x with one branch's [C, S, S]
+// P-matrices pm (staged, or in device memory), in K1's order.
+template <typename T, int C, int U, bool kMul, bool kShared>
+__device__ __forceinline__ void contract_rows(const T* pm,
+                                              const T (&x)[U][C * kStates],
+                                              T (&t)[U][C * kStates]) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
 #pragma unroll
     for (int s = 0; s < kStates; ++s) {
-      const T* row = pm + (c * kStates + s) * kStates;
-      T acc = __ldg(row) * x[c * kStates];
+      T row[kStates];
+      load_pm_row<T, kStates, kShared>(pm + (c * kStates + s) * kStates, row);
 #pragma unroll
-      for (int d = 1; d < kStates; ++d)
-        acc = dev_fma(__ldg(row + d), x[c * kStates + d], acc);
-      y[c * kStates + s] = acc;
+      for (int u = 0; u < U; ++u) {
+        T xc[kStates];
+#pragma unroll
+        for (int e = 0; e < kStates; ++e) xc[e] = x[u][c * kStates + e];
+        const T v = dot_regs<T, kStates>(row, xc);
+        t[u][c * kStates + s] = kMul ? t[u][c * kStates + s] * v : v;
+      }
     }
   }
 }
 
-template <typename T>
-__device__ __forceinline__ int load_count(const SweepArgs<T>& a, int srow,
-                                          int srows, int c, int64_t site) {
-  return srow == a.n_inner
-             ? 0
-             : a.scalers[((int64_t)srow * srows + c) * a.sites + site];
+// One child of op j of the staged chunk into t (=, or *=).
+template <typename T, int C, int U, bool kMul>
+__device__ __forceinline__ void child_term(const FusedArgs<T>& a,
+                                           const Shared<T>& sh,
+                                           const Cols<U>& q, const OpDesc& o,
+                                           int j, int k,
+                                           T (&t)[U][C * kStates]) {
+  constexpr int PM = C * kStates * kStates;
+  T x[U][C * kStates];
+  load_row<T, C, U>(a, sh, q, o.c[k], o.pad[k], x);
+  if (kStageP)
+    contract_rows<T, C, U, kMul, true>(sh.pm + (j * 2 + k) * PM, x, t);
+  else
+    contract_rows<T, C, U, kMul, false>(a.pmatrix + (int64_t)o.m[k] * PM, x,
+                                        t);
 }
 
+// The thread's counter of row r (rate r per rate, else 0) named by a
+// counter descriptor (K_ZERO: 0).
+template <typename T>
+__device__ __forceinline__ int load_count(const Shared<T>& sh, int srows,
+                                          int d, int r, int col) {
+  if (d < 0) return 0;
+  return sh.scal[(index_of(d) * srows + r) * sh.nb + col];
+}
+
+// Stage ops [op0, op0 + n): descriptors and P-matrices.  Every
+// thread of the block must call it; it returns behind a barrier.
 template <typename T, int C>
-__device__ void sweep_site(const SweepArgs<T>& a, int64_t site) {
+__device__ void stage_chunk(const FusedArgs<T>& a, const Shared<T>& sh,
+                            int op0, int n) {
+  __syncthreads();  // every thread is done with the previous chunk
+  if ((int)threadIdx.x < n) sh.ops[threadIdx.x] = a.ops[op0 + threadIdx.x];
+  __syncthreads();
+  if (kStageP) {
+    stage_pmatrices<T, kStates>(a.pmatrix, C, sh.ops, n, sh.pm);
+    __syncthreads();
+  }
+}
+
+// Ops [0, n) of the staged chunk over the thread's U sites.
+template <typename T, int C, int U, bool kScore>
+__device__ void run_chunk(const FusedArgs<T>& a, const Shared<T>& sh,
+                          const Cols<U>& q, int n) {
   constexpr int CS = C * kStates;
-  constexpr int PM = C * kStates * kStates;  // one branch's P-matrices
-  const int srows = a.scale_mode == SCALE_PER_RATE ? C : 1;
-  for (int c = 0; c < srows; ++c)
-    a.scalers[((int64_t)a.n_inner * srows + c) * a.sites + site] = 0;
-
-  for (int i = 0; i < a.n_ops; ++i) {
-    const int32_t* op = a.ops + i * kOpFields;
-    const int prow = __ldg(op + 0);
-    const int s1 = __ldg(op + 5), s2 = __ldg(op + 6);
-    const bool has = __ldg(op + 7) != 0;
-    T x[CS], t1[CS], t2[CS];
-    load_clv<T, C>(a, __ldg(op + 1), site, x);
-    contract<T, C>(a.pmatrix + (int64_t)__ldg(op + 2) * PM, x, t1);
-    load_clv<T, C>(a, __ldg(op + 3), site, x);
-    contract<T, C>(a.pmatrix + (int64_t)__ldg(op + 4) * PM, x, t2);
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  for (int j = 0; j < n; ++j) {
+    const OpDesc o = sh.ops[j];
+    T t[U][CS];
+    child_term<T, C, U, false>(a, sh, q, o, j, 0, t);
+    child_term<T, C, U, true>(a, sh, q, o, j, 1, t);
+    const bool has = o.has != 0;
 #pragma unroll
-    for (int k = 0; k < CS; ++k) t1[k] *= t2[k];
-
-    if (a.scale_mode == SCALE_PER_RATE) {
+    for (int u = 0; u < U; ++u) {
+      const int col = q.col[u];
+      if (per_rate) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        int cnt = load_count(a, s1, C, c, site) + load_count(a, s2, C, c, site);
-        if (has) {
-          T mx = t1[c * kStates];
+        for (int c = 0; c < C; ++c) {
+          int cnt = load_count(sh, C, o.s[0], c, col) +
+                    load_count(sh, C, o.s[1], c, col);
+          T tc[kStates];
 #pragma unroll
-          for (int s = 1; s < kStates; ++s)
-            mx = t1[c * kStates + s] > mx ? t1[c * kStates + s] : mx;
-          if (mx < a.thresh) {
+          for (int s = 0; s < kStates; ++s) tc[s] = t[u][c * kStates + s];
+          if (scale_rate<T, kStates>(has, tc, a.u)) {
 #pragma unroll
-            for (int s = 0; s < kStates; ++s) t1[c * kStates + s] *= a.factor;
+            for (int s = 0; s < kStates; ++s) t[u][c * kStates + s] = tc[s];
             cnt += 1;
           }
+          sh.scal[(o.home * C + c) * sh.nb + col] = cnt;
+          if (!kScore && q.live[u])
+            a.scalers[((int64_t)o.out * C + c) * a.sites + q.site[u]] = cnt;
         }
-        a.scalers[((int64_t)prow * C + c) * a.sites + site] = cnt;
-      }
-    } else {
-      int cnt = load_count(a, s1, 1, 0, site) + load_count(a, s2, 1, 0, site);
-      if (a.scale_mode == SCALE_PER_SITE && has) {
-        T mx = t1[0];
+      } else {
+        int cnt = load_count(sh, 1, o.s[0], 0, col) +
+                  load_count(sh, 1, o.s[1], 0, col);
+        if (a.scale_mode == SCALE_PER_SITE &&
+            scales(has, max_of<T, CS>(t[u]), a.u)) {
 #pragma unroll
-        for (int k = 1; k < CS; ++k) mx = t1[k] > mx ? t1[k] : mx;
-        if (mx < a.thresh) {
-#pragma unroll
-          for (int k = 0; k < CS; ++k) t1[k] *= a.factor;
+          for (int k = 0; k < CS; ++k) t[u][k] *= a.u.factor;
           cnt += 1;
         }
+        sh.scal[o.home * sh.nb + col] = cnt;
+        if (!kScore && q.live[u])
+          a.scalers[(int64_t)o.out * a.sites + q.site[u]] = cnt;
       }
-      a.scalers[(int64_t)prow * a.sites + site] = cnt;
-    }
-
-    T* out = a.inner + (int64_t)prow * CS * a.sites + site;
 #pragma unroll
-    for (int k = 0; k < CS; ++k) out[k * a.sites] = t1[k];
+      for (int k = 0; k < CS; ++k)
+        sh.pool[(o.home * CS + k) * sh.nb + col] = t[u][k];
+      if (!kScore && q.live[u]) {
+        T* out = a.inner + (int64_t)o.out * CS * a.sites + q.site[u];
+#pragma unroll
+        for (int k = 0; k < CS; ++k) out[k * a.sites] = t[u][k];
+      }
+    }
   }
 }
 
-// Weighted log-likelihood of one site across the evaluation edge (per-site
-// or no scaling: K1's scope, as on the TPU).
-template <typename T, int C>
-__device__ T edge_site_lnl(const SweepArgs<T>& a, const ScoreArgs<T>& s,
-                           int64_t site) {
+// K1: the weighted log-likelihood of each of the thread's sites across the
+// evaluation edge (per-site or no scaling), 0 past the last site.
+template <typename T, int C, int U>
+__device__ void edge_site_lnl(const FusedArgs<T>& a, const Shared<T>& sh,
+                              const Cols<U>& q, double (&lnl)[U]) {
   constexpr int CS = C * kStates;
   constexpr int PM = C * kStates * kStates;
-  T pv[CS], x[CS], tb[CS];
-  load_clv<T, C>(a, s.parent_clv, site, pv);
-  load_clv<T, C>(a, s.child_clv, site, x);
-  contract<T, C>(a.pmatrix + (int64_t)s.edge_matrix * PM, x, tb);
-  T site_term = 0;
+  const int pd = __ldg(a.edge + 0), cd = __ldg(a.edge + 1);
+  T pv[U][CS], x[U][CS], tb[U][CS];
+  load_row<T, C, U>(a, sh, q, pd, 0, pv);
+  load_row<T, C, U>(a, sh, q, cd, __ldg(a.edge + 5), x);
+  contract_rows<T, C, U, false, false>(
+      a.pmatrix + (int64_t)__ldg(a.edge + 4) * PM, x, tb);
 #pragma unroll
-  for (int k = 0; k < CS; ++k)
-    site_term = dev_fma(pv[k] * tb[k], __ldg(s.weight_vec + k), site_term);
-  if (s.inv_add != nullptr) site_term += __ldg(s.inv_add + site);
-  const int snum = load_count(a, s.parent_srow, 1, 0, site) +
-                   load_count(a, s.child_srow, 1, 0, site);
-  return (dev_log(site_term) + (T)snum * s.log_scale) *
-         __ldg(s.pattern_weights + site);
+  for (int u = 0; u < U; ++u) {
+    T term = 0;
+#pragma unroll
+    for (int k = 0; k < CS; ++k)
+      term = dev_fma(pv[u][k] * tb[u][k], __ldg(a.weight_vec + k), term);
+    if (a.inv_add != nullptr) term += __ldg(a.inv_add + q.site[u]);
+    const int snum = load_count(sh, 1, __ldg(a.edge + 2), 0, q.col[u]) +
+                     load_count(sh, 1, __ldg(a.edge + 3), 0, q.col[u]);
+    const T v =
+        site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + q.site[u]));
+    lnl[u] = q.live[u] ? (double)v : 0.0;
+  }
+}
+
+// Every thread runs every op, past-the-end sites included (loads clamped,
+// device stores skipped): the staging needs the whole block.
+template <typename T, int C, bool kScore>
+__global__ void __launch_bounds__(kThreads)
+    fused_kernel(const __grid_constant__ FusedArgs<T> a) {
+  constexpr int U = kSitesPerThread<T, C>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = blockDim.x;
+  const int srows = a.scale_mode == SCALE_PER_RATE ? C : 1;
+  Shared<T> sh;
+  sh.nb = nt * U;
+  sh.ops = reinterpret_cast<OpDesc*>(smem);
+  sh.pm = reinterpret_cast<T*>(sh.ops + a.chunk);
+  sh.pool = sh.pm + (size_t)a.chunk * 2 * C * kStates * kStates;
+  sh.scal = reinterpret_cast<int32_t*>(sh.pool +
+                                       (size_t)a.pool * C * kStates * sh.nb);
+
+  const bool one_chunk = a.n_ops <= a.chunk;
+  if (one_chunk) stage_chunk<T, C>(a, sh, 0, a.n_ops);
+  // the tiles cover every 128-site partial's sites
+  const int64_t padded =
+      (a.sites + 4 * kGroupSites - 1) / (4 * kGroupSites) * 4 * kGroupSites;
+  const int64_t n_tiles = (padded + sh.nb - 1) / sh.nb;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    Cols<U> q;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      q.col[u] = u * nt + threadIdx.x;
+      const int64_t site = tile * sh.nb + q.col[u];
+      q.live[u] = site < a.sites;
+      q.site[u] = q.live[u] ? site : a.sites - 1;
+    }
+    if (!kScore) {  // the dummy counters
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        for (int r = 0; q.live[u] && r < srows; ++r)
+          a.scalers[((int64_t)a.n_inner * srows + r) * a.sites + q.site[u]] =
+              0;
+    }
+    for (int op0 = 0; op0 < a.n_ops; op0 += a.chunk) {
+      const int n = min(a.chunk, a.n_ops - op0);
+      if (!one_chunk) stage_chunk<T, C>(a, sh, op0, n);
+      run_chunk<T, C, U, kScore>(a, sh, q, n);
+    }
+    if (kScore) {
+      double lnl[U];
+      edge_site_lnl<T, C, U>(a, sh, q, lnl);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // one warp's 32 sites in the first kernel's order
+        double v = lnl[u];
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_down_sync(0xffffffffu, v, off);
+        const int64_t group =
+            (tile * sh.nb + q.col[u] - (threadIdx.x & 31)) / kGroupSites;
+        if ((threadIdx.x & 31) == 0 && group < a.n_groups)
+          a.partials[group] = v;
+      }
+    }
+  }
+}
+
+// The launch for a plan: the largest chunk (8, 4, 2, 1 ops) and then
+// block (128, 64, 32 threads) whose shared memory fits a block.  out:
+// dynamic shared memory, blocks per SM, threads, chunk, sites per block,
+// SMs.
+// It also raises the kernel's limit of dynamic shared memory to all a block
+// may have, so that every launch of a layout it gave is taken.
+template <typename T, int C, bool kScore>
+int layout(int scale_mode, int pool, int* out) {
+  int device = 0, optin = 0, sms = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, fused_kernel<T, C, kScore>);
+  const int limit = optin - (int)attr.sharedSizeBytes;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_kernel<T, C, kScore>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_kernel<T, C, kScore>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int srows = scale_mode == SCALE_PER_RATE ? C : 1;
+  constexpr int U = kSitesPerThread<T, C>;
+  for (int chunk = kMaxChunk; chunk >= 1; chunk >>= 1) {
+    for (int nt = kThreads; nt >= 32; nt >>= 1) {
+      const size_t smem = smem_bytes<T, C>(chunk, pool, srows, nt * U);
+      if (smem > (size_t)limit) continue;
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_kernel<T, C, kScore>, nt, smem);
+      if (err != cudaSuccess) return (int)err;
+      out[0] = (int)smem;
+      out[1] = per_sm;
+      out[2] = nt;
+      out[3] = chunk;
+      out[4] = nt * U;
+      out[5] = sms;
+      return 0;
+    }
+  }
+  return (int)cudaErrorInvalidValue;  // the pool does not fit one block
 }
 
 template <typename T, int C, bool kScore>
-__global__ void __launch_bounds__(kThreads)
-    fused_kernel(SweepArgs<T> a, ScoreArgs<T> s) {
-  const int64_t site = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  double lnl = 0.0;
-  if (site < a.sites) {
-    sweep_site<T, C>(a, site);
-    if (kScore) lnl = (double)edge_site_lnl<T, C>(a, s, site);
-  }
-  // every thread of the block joins the reduction, masked sites with 0
-  if (kScore) block_sum_store(lnl, s.partials);
-}
-
-template <typename T, bool kScore>
-int launch(const SweepArgs<T>& a, const ScoreArgs<T>& s, int rate_cats,
-           void* stream) {
-  const unsigned blocks = (unsigned)((a.sites + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rate_cats) {
-    case 1: fused_kernel<T, 1, kScore><<<blocks, kThreads, 0, st>>>(a, s); break;
-    case 2: fused_kernel<T, 2, kScore><<<blocks, kThreads, 0, st>>>(a, s); break;
-    case 4: fused_kernel<T, 4, kScore><<<blocks, kThreads, 0, st>>>(a, s); break;
-    case 8: fused_kernel<T, 8, kScore><<<blocks, kThreads, 0, st>>>(a, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch(const FusedArgs<T>& a, int threads, int grid, cudaStream_t st) {
+  const int srows = a.scale_mode == SCALE_PER_RATE ? C : 1;
+  const size_t smem = smem_bytes<T, C>(a.chunk, a.pool, srows,
+                                      threads * kSitesPerThread<T, C>);
+  fused_kernel<T, C, kScore><<<grid, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kScore>
+int dispatch(int rate_cats, const FusedArgs<T>& a, int threads, int grid,
+             cudaStream_t st) {
+  switch (rate_cats) {
+    case 1: return launch<T, 1, kScore>(a, threads, grid, st);
+    case 2: return launch<T, 2, kScore>(a, threads, grid, st);
+    case 4: return launch<T, 4, kScore>(a, threads, grid, st);
+    case 8: return launch<T, 8, kScore>(a, threads, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-SweepArgs<T> sweep_args(const int32_t* ops, int n_ops, int n_tips,
-                        int n_inner, int64_t sites, int tip_encoding,
-                        int scale_mode, const void* tips, const void* pmatrix,
-                        void* inner, int32_t* scalers) {
-  SweepArgs<T> a;
-  a.ops = ops;
-  a.n_ops = n_ops;
-  a.n_tips = n_tips;
-  a.n_inner = n_inner;
-  a.sites = sites;
+int walk(int rate_cats, int tip_encoding, int scale_mode, int64_t sites,
+         int n_ops, int n_inner, int pool, int chunk, int threads,
+         int grid, const void* ops, const void* tips,
+         const void* pmatrix, void* inner, int32_t* scalers,
+         const int32_t* edge, const void* weight_vec,
+         const void* pattern_weights, const void* inv_add, double* partials,
+         void* stream) {
+  if (sites < 1 || n_ops < 1 || pool < 1 || chunk < 1 ||
+      chunk > kMaxChunk || threads < 32 || threads > kThreads ||
+      (threads & 31) != 0 || grid < 1 || (edge != nullptr &&
+      scale_mode == SCALE_PER_RATE))
+    return (int)cudaErrorInvalidValue;
+  FusedArgs<T> a;
   a.tip_encoding = tip_encoding;
   a.scale_mode = scale_mode;
+  a.sites = sites;
+  a.n_ops = n_ops;
+  a.n_inner = n_inner;
+  a.pool = pool;
+  a.chunk = chunk;
+  a.n_groups = (sites + 4 * kGroupSites - 1) / (4 * kGroupSites) * 4;
+  a.ops = static_cast<const OpDesc*>(ops);
   a.tip_clv = tip_encoding == TIP_CLV ? static_cast<const T*>(tips) : nullptr;
   a.tip_words =
       tip_encoding == TIP_CLV ? nullptr : static_cast<const int32_t*>(tips);
   a.pmatrix = static_cast<const T*>(pmatrix);
   a.inner = static_cast<T*>(inner);
   a.scalers = scalers;
-  a.factor = (T)std::ldexp(1.0, Shift<T>::bits);
-  a.thresh = (T)std::ldexp(1.0, -Shift<T>::bits);
-  return a;
+  a.edge = edge;
+  a.weight_vec = static_cast<const T*>(weight_vec);
+  a.pattern_weights = static_cast<const T*>(pattern_weights);
+  a.inv_add = static_cast<const T*>(inv_add);
+  a.partials = partials;
+  a.u = scale_units<T>();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return edge == nullptr ? dispatch<T, false>(rate_cats, a, threads, grid, st)
+                         : dispatch<T, true>(rate_cats, a, threads, grid, st);
 }
 
-template <typename T>
-int sweep(const int32_t* ops, int n_ops, int n_tips, int n_inner,
-          int64_t sites, int rate_cats, int tip_encoding, int scale_mode,
-          const void* tips, const void* pmatrix, void* inner,
-          int32_t* scalers, void* stream) {
-  const SweepArgs<T> a =
-      sweep_args<T>(ops, n_ops, n_tips, n_inner, sites, tip_encoding,
-                    scale_mode, tips, pmatrix, inner, scalers);
-  return launch<T, false>(a, ScoreArgs<T>{}, rate_cats, stream);
-}
-
-template <typename T>
-int score(const int32_t* ops, int n_ops, int n_tips, int n_inner,
-          int64_t sites, int rate_cats, int tip_encoding, int scale_mode,
-          const void* tips, const void* pmatrix, void* inner,
-          int32_t* scalers, int parent_clv, int child_clv, int edge_matrix,
-          int parent_srow, int child_srow, const void* weight_vec,
-          const void* pattern_weights, const void* inv_add, double* partials,
-          void* stream) {
-  const SweepArgs<T> a =
-      sweep_args<T>(ops, n_ops, n_tips, n_inner, sites, tip_encoding,
-                    scale_mode, tips, pmatrix, inner, scalers);
-  ScoreArgs<T> s;
-  s.parent_clv = parent_clv;
-  s.child_clv = child_clv;
-  s.edge_matrix = edge_matrix;
-  s.parent_srow = parent_srow;
-  s.child_srow = child_srow;
-  s.weight_vec = static_cast<const T*>(weight_vec);
-  s.pattern_weights = static_cast<const T*>(pattern_weights);
-  s.inv_add = static_cast<const T*>(inv_add);
-  s.log_scale = (T)(-Shift<T>::bits * 0.69314718055994530942);
-  s.partials = partials;
-  return launch<T, true>(a, s, rate_cats, stream);
+template <typename T, bool kScore>
+int layout_of(int rate_cats, int scale_mode, int pool, int* out) {
+  switch (rate_cats) {
+    case 1: return layout<T, 1, kScore>(scale_mode, pool, out);
+    case 2: return layout<T, 2, kScore>(scale_mode, pool, out);
+    case 4: return layout<T, 4, kScore>(scale_mode, pool, out);
+    case 8: return layout<T, 8, kScore>(scale_mode, pool, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  Each function launches one kernel on
-// `stream` and returns cudaGetLastError() (0 on success).
+// Plain C interface for ctypes.  clv_fused_walk_* launches one kernel on
+// `stream` (K2 when `edge` is null, else K1) and returns cudaGetLastError()
+// (0 on success).
 
-#define SWEEP_PARAMS                                                        \
-  const int32_t *ops, int n_ops, int n_tips, int n_inner, int64_t sites,    \
-      int rate_cats, int tip_encoding, int scale_mode, const void *tips,    \
-      const void *pmatrix, void *inner, int32_t *scalers
-#define SWEEP_ARGS                                                          \
-  ops, n_ops, n_tips, n_inner, sites, rate_cats, tip_encoding, scale_mode,  \
-      tips, pmatrix, inner, scalers
-#define SCORE_PARAMS                                                        \
-  int parent_clv, int child_clv, int edge_matrix, int parent_srow,          \
-      int child_srow, const void *weight_vec, const void *pattern_weights,  \
-      const void *inv_add, double *partials
-#define SCORE_ARGS                                                          \
-  parent_clv, child_clv, edge_matrix, parent_srow, child_srow, weight_vec,  \
-      pattern_weights, inv_add, partials
+#define WALK_PARAMS                                                          \
+  int rate_cats, int tip_encoding, int scale_mode, int64_t sites, int n_ops, \
+      int n_inner, int pool, int chunk, int threads, int grid,               \
+      const void *ops, const void *tips, const void *pmatrix, void *inner,   \
+      int32_t *scalers, const int32_t *edge, const void *weight_vec,         \
+      const void *pattern_weights, const void *inv_add, double *partials,   \
+      void *stream
+#define WALK_ARGS                                                            \
+  rate_cats, tip_encoding, scale_mode, sites, n_ops, n_inner, pool, chunk,   \
+      threads, grid, ops, tips, pmatrix, inner, scalers, edge,               \
+      weight_vec, pattern_weights, inv_add, partials, stream
 
-extern "C" int clv_fused_sweep_f32(SWEEP_PARAMS, void* stream) {
-  return sweep<float>(SWEEP_ARGS, stream);
+extern "C" int clv_fused_walk_f32(WALK_PARAMS) { return walk<float>(WALK_ARGS); }
+extern "C" int clv_fused_walk_f64(WALK_PARAMS) {
+  return walk<double>(WALK_ARGS);
 }
-extern "C" int clv_fused_sweep_f64(SWEEP_PARAMS, void* stream) {
-  return sweep<double>(SWEEP_ARGS, stream);
+
+// The launch of a plan on the current device (see layout above); returns
+// 0, or a CUDA error code (cudaErrorInvalidValue: the pool does not fit).
+extern "C" int clv_fused_layout(int f64, int rate_cats, int scale_mode,
+                                int score, int pool, int* out) {
+  if (f64)
+    return score ? layout_of<double, true>(rate_cats, scale_mode, pool, out)
+                 : layout_of<double, false>(rate_cats, scale_mode, pool, out);
+  return score ? layout_of<float, true>(rate_cats, scale_mode, pool, out)
+               : layout_of<float, false>(rate_cats, scale_mode, pool, out);
 }
-extern "C" int clv_fused_score_f32(SWEEP_PARAMS, SCORE_PARAMS, void* stream) {
-  return score<float>(SWEEP_ARGS, SCORE_ARGS, stream);
-}
-extern "C" int clv_fused_score_f64(SWEEP_PARAMS, SCORE_PARAMS, void* stream) {
-  return score<double>(SWEEP_ARGS, SCORE_ARGS, stream);
-}
+
 extern "C" const char* clv_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

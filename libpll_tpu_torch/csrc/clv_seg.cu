@@ -56,9 +56,10 @@
 //    long (PERF.md).
 //  * The arithmetic of every value is the first port's (dot in K1's
 //    order, products, scaling by exact powers of two): K3's rows and
-//    counters are the same bits.  Partials are summed per 32 sites in
-//    block_sum_store's order and the wrapper adds four into each 128-site
-//    partial as block_sum_store did: K4's logL is the same bits.
+//    counters are the same bits.  Partials are summed per 32 sites in a
+//    warp's shuffle tree and the wrapper adds four into each 128-site
+//    partial in order, as the first port's block sum did: K4's logL is the
+//    same bits.
 //  * The template is over the dtype and S in {4, 20} (4 instances); the
 //    rate count, scale mode and whether there is an edge are runtime
 //    values.

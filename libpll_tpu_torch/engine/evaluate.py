@@ -14,7 +14,9 @@ whose inputs lie on another device raises.
     logL;
   * :func:`make_score` — K1 (``ops.clv_fused.fused_edge_score``), the
     tree-search scoring path, with +I in the kernel and asc-bias through
-    :func:`make_asc_tail`;
+    :func:`make_asc_tail`; ``Score.graphed`` captures one call in a CUDA
+    graph (:class:`GraphedScore`) for callers whose host, not the card,
+    sets the pace;
   * :func:`make_score_unbounded` — K6 (``ops.clv_dyn.make_dyn_score``),
     the same scoring for trees of any size: the tree is cut into segments
     whose rows fit a device-memory budget, and tips are pattern tips.
@@ -183,8 +185,9 @@ class ForwardFused(_TopologyModule):
         cf.check_tip_encoding(tip_encoding, states)
         self.rate_cats, self.states = rate_cats, states
         self.tip_encoding = tip_encoding
-        self.register_buffer("ops", cf.op_table(topo.schedule),
-                             persistent=False)
+        # K2's walk, planned once per topology (a DNA kernel's)
+        self.plan = (cf.FusedPlan(topo.schedule, tip_encoding)
+                     if states == cf.KERNEL_STATES else None)
 
     def _row(self, tips_packed, inner, idx, dtype):
         tips = self.topo.schedule.tips
@@ -200,7 +203,7 @@ class ForwardFused(_TopologyModule):
         dtype = _working_dtype(model, tips_packed, self.tip_encoding)
         pmatrix = self.pmatrices(model, dtype)
         inner, scalers = cf.fused_sweep(
-            topo.schedule, tips_packed, pmatrix, ops=self.ops,
+            topo.schedule, tips_packed, pmatrix, plan=self.plan,
             scale_mode=topo.scale_mode, tip_encoding=self.tip_encoding)
         f = _floats(model, dtype)
         logl, persite = lk_ops.edge_loglikelihood(
@@ -215,10 +218,23 @@ class ForwardFused(_TopologyModule):
         return logl, persite, inner, scalers
 
 
+def _check_impl(impl: str, mxu_precision: str = "highest") -> None:
+    """JAX's kernel choice, taken for signature parity: the port has one
+    contraction, in full precision."""
+    if impl not in ("auto", "vpu", "mxu"):
+        raise EinvalError(f"unknown impl {impl!r}")
+    if mxu_precision != "highest":
+        raise EinvalError(f"mxu_precision {mxu_precision!r}: the port "
+                          "computes in full precision ('highest') only")
+
+
 def make_forward_fused(topo: EvalTopology, rate_cats: int, states: int,
+                       impl: str = "auto", *,
                        tip_encoding: str = "clv") -> ForwardFused:
-    """Build the K2 forward (``evaluate.py:167``); unlike the JAX one it
-    also takes pattern tips, as K2 does."""
+    """Build the K2 forward (``evaluate.py:167``), with JAX's parameters
+    in JAX's order (``impl`` checked, else ignored; ``interpret`` is not
+    ported); unlike the JAX one it also takes pattern tips, as K2 does."""
+    _check_impl(impl)
     return ForwardFused(topo, rate_cats, states, tip_encoding)
 
 
@@ -305,8 +321,11 @@ class Score(_TopologyModule):
         cf.check_tip_encoding(tip_encoding, states)
         self.use_pinv = use_pinv
         self.tip_encoding = tip_encoding
-        self.register_buffer("ops", cf.op_table(topo.schedule),
-                             persistent=False)
+        # K1's walk, planned once per topology and edge (a DNA kernel's)
+        self.plan = (cf.FusedPlan(topo.schedule, tip_encoding,
+                                  (topo.parent_clv, topo.child_clv,
+                                   topo.edge_matrix))
+                     if states == cf.KERNEL_STATES else None)
         self.asc_tail = (AscTail(topo, rate_cats, states)
                          if topo.asc_mode else None)
 
@@ -323,17 +342,74 @@ class Score(_TopologyModule):
             inv_add = None
         logl = cf.fused_edge_score(
             topo.schedule, tips_packed, pmatrix, wvec, f["pattern_weights"],
-            inv_add, ops=self.ops, parent_clv=topo.parent_clv,
+            inv_add, plan=self.plan, parent_clv=topo.parent_clv,
             child_clv=topo.child_clv, edge_matrix=topo.edge_matrix,
             scale_mode=topo.scale_mode, tip_encoding=self.tip_encoding)
         if self.asc_tail is not None:
             logl = logl + self.asc_tail(model, pmatrix)
         return logl
 
+    def graphed(self, model, tips_packed) -> "GraphedScore":
+        """This scorer's call on inputs shaped as ``model`` and
+        ``tips_packed`` (CUDA tensors), captured in a CUDA graph."""
+        return GraphedScore(self, model, tips_packed)
+
+
+class GraphedScore:
+    """One :class:`Score` call captured in a CUDA graph and replayed, the
+    counterpart of the JAX package's single jitted dispatch: the call's
+    device work (P-matrices, K1, the float64 fold) replays as one graph,
+    so the host issues a few input copies and one launch in place of the
+    eager call's dozens of operations.
+
+    ``graphed(model, tips_packed)`` copies each input that is not already
+    the graph's own (``graphed.model``, ``graphed.tips``: update those in
+    place to skip the copy) and replays; inputs keep the captured call's
+    shapes, dtypes and device.  The float64 logL it returns is the graph's
+    output tensor, overwritten by the next replay.  A replay runs K1
+    without passing through its wrapper, so ``fused_edge_score.launches``
+    counts the capture, not the replays."""
+
+    def __init__(self, score: Score, model, tips_packed):
+        device = tips_packed.device
+        if device.type != "cuda":
+            raise EinvalError(f"a CUDA graph takes CUDA tensors, not {device}")
+        self.score = score  # the graph reads its plan's device tables
+        self.model = {k: v.clone() for k, v in model.items()}
+        self.tips = tips_packed.clone()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):  # build, plan layout, cached tables
+            score(self.model, self.tips)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logl = score(self.model, self.tips)
+
+    def __call__(self, model, tips_packed):
+        pairs = [(self.model[k], v) for k, v in model.items()]
+        for static, value in pairs + [(self.tips, tips_packed)]:
+            if value is static:
+                continue
+            if (value.shape, value.dtype, value.device) != (
+                    static.shape, static.dtype, static.device):
+                raise EinvalError(
+                    f"input {tuple(value.shape)} {value.dtype} on "
+                    f"{value.device}; the graph was captured with "
+                    f"{tuple(static.shape)} {static.dtype} on {static.device}")
+            static.copy_(value)
+        self.graph.replay()
+        return self.logl
+
 
 def make_score(topo: EvalTopology, rate_cats: int, states: int,
-               use_pinv: bool = False, tip_encoding: str = "clv") -> Score:
-    """Build the K1 scorer (``evaluate.py:288``)."""
+               impl: str = "auto", use_pinv: bool = False,
+               tip_encoding: str = "clv",
+               mxu_precision: str = "highest") -> Score:
+    """Build the K1 scorer (``evaluate.py:288``), with JAX's parameters in
+    JAX's order (``impl`` checked, else ignored; ``mxu_precision``
+    "highest" only; ``interpret`` is not ported)."""
+    _check_impl(impl, mxu_precision)
     return Score(topo, rate_cats, states, use_pinv, tip_encoding)
 
 

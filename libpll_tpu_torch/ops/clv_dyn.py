@@ -46,7 +46,8 @@ What differs from the TPU tier, and why:
   * ``impl`` ("vpu"/"mxu") is accepted for signature parity: the port has
     one contraction.  ``mxu_precision`` other than "highest" raises.  The
     score's partial sums are per ``BLOCK_SITES`` sites; the kernel's per
-    ``SLOT_SITES`` are folded into them in ``block_sum_store``'s order.
+    ``SLOT_SITES`` are folded into them in order
+    (:func:`clv_seg.fold_tile_partials`).
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there: on a CUDA tensor it launches its kernel, once per segment, or

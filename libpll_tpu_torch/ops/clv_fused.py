@@ -1,5 +1,6 @@
-"""Fused pruning sweep (K2) and fused edge score (K1): the CUDA wrappers,
-their plain PyTorch versions, and the host helpers both share.
+"""Fused pruning sweep (K2) and fused edge score (K1): the host plan of the
+kernels' walk, the CUDA wrappers, their plain PyTorch versions, and the
+host helpers both share.
 
 Counterpart: ``libpll_tpu/ops/clv_pallas.py`` — K1 replaces
 ``make_fused_edge_score`` (``:462``), K2 replaces ``make_fused_sweep``
@@ -14,21 +15,33 @@ last row the always-zero dummy.  Pattern tips are :func:`pack_tipchars`
 nibble words (``"chars"``) or one int32 bitmask per tip and site
 (``"masks"``).
 
+The walk (:class:`FusedPlan`, once per topology): the ops in a post order
+that visits first the child needing more live rows (Sethi–Ullman order),
+so that few inner rows are live at once (3 at the 64-taxon flagship, 6 at
+1 000 taxa); the live rows get slots of a shared-memory pool by first fit
+(``clv_seg.segment_slots``); every op becomes a descriptor naming its
+children and counters (a tip, or a pool slot), its P-matrices, its
+scaling flag and its level-major row.  ``FusedPlan.plain_walk`` and
+``plain_walk_score`` run that walk with PyTorch ops, so the plan is tested
+where no kernel runs.
+
 Each wrapper takes its plain version for a tensor on the CPU, and only
-there: on a CUDA tensor it launches its kernel or raises.  Each counts its
-launches in its ``launches`` attribute.
+there: on a CUDA tensor it launches its kernel, once per call, or raises.
+Each counts its launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..errors import EinvalError, KernelError
-from ..utils.constants import SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE
+from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
+                               scale_consts)
 from . import _build
 from .likelihood import site_lnl
 from .sweep import LevelSchedule, make_level_sweep
@@ -36,25 +49,265 @@ from .sweep import LevelSchedule, make_level_sweep
 TIP_ENCODINGS = ("clv", "chars", "masks")
 KERNEL_RATE_CATS = (1, 2, 4, 8)
 KERNEL_STATES = 4
-BLOCK_SITES = 128  # sites per thread block, and per K1 partial sum
-OP_FIELDS = 8  # prow, c1, m1, c2, m2, s1, s2, has_scaler
+BLOCK_SITES = 128  # sites per K1 partial sum
+# an op's descriptor (clv_common.cuh's OpDesc: parent, home, child1,
+# child2, scaler1, scaler2, m1, m2, has_scaler, out, shift1, shift2), the
+# edge's (parent, child, their counters, the edge matrix, the child's
+# nibble shift, 2 unused), and the sources they name as kind << INDEX_BITS
+# | index (K_ZERO: no counter)
+OP_FIELDS = 12
+EDGE_FIELDS = 8
+K_TIP, K_POOL = 0, 2
+K_ZERO = -1
+INDEX_BITS = 28
 
 
 def flatten_ops(schedule: LevelSchedule) -> np.ndarray:
     """[n_inner, 8] int32 op table in level order (children before parents):
     (inner_row, child1, matrix1, child2, matrix2, scaler1, scaler2,
-    has_scaler) — ``clv_pallas._flatten_ops`` as data for the kernels."""
+    has_scaler) — ``clv_pallas._flatten_ops`` as data."""
     rows = [
         (lev.offset + k - schedule.tips, lev.child1[k], lev.matrix1[k],
          lev.child2[k], lev.matrix2[k], lev.scaler1[k], lev.scaler2[k],
          int(lev.has_scaler[k]))
         for lev in schedule.levels for k in range(len(lev.child1))]
-    return np.asarray(rows, np.int32).reshape(-1, OP_FIELDS)
+    return np.asarray(rows, np.int32).reshape(-1, 8)
 
 
-def op_table(schedule: LevelSchedule, device=None) -> torch.Tensor:
-    """The op table as an int32 tensor, uploaded once per topology."""
-    return torch.as_tensor(flatten_ops(schedule), device=device)
+def walk_order(flat: np.ndarray, tips: int) -> list:
+    """The ops of ``flat`` (:func:`flatten_ops`) in the kernels' walk: a
+    post order that visits first, at every node, the child needing more
+    live inner rows, and the roots in the same way.  A node's need is
+    max(its first child's, the first child's row + the second's need, its
+    children's rows): an op's children are read before its row is written,
+    so it may take a child's slot.  Returns level-major inner rows."""
+    op_of = {int(r[0]): r for r in flat}
+    need, held = {}, {}
+    for r in flat:  # level order: children first
+        g = int(r[0])
+        kids = sorted(((need.get(c - tips, 0), int(c >= tips), c - tips)
+                       for c in (int(r[1]), int(r[3]))),
+                      key=lambda k: -k[0])
+        (na, ha, _), (nb, hb, _) = kids
+        need[g] = max(na, ha + nb, ha + hb, 1)
+        held[g] = [k[2] for k in kids if k[1]]  # inner children, first first
+    children = {c for r in flat for c in (int(r[1]), int(r[3]))}
+    roots = [g for g in op_of if g + tips not in children]
+    roots.sort(key=lambda g: -need[g])
+    order, stack = [], [(g, False) for g in reversed(roots)]
+    while stack:  # iterative: a caterpillar is as deep as it is wide
+        g, expanded = stack.pop()
+        if expanded:
+            order.append(g)
+            continue
+        stack.append((g, True))
+        stack.extend((c, False) for c in reversed(held[g]))
+    return order
+
+
+def _desc(kind: int, index: int) -> int:
+    return (kind << INDEX_BITS) | int(index)
+
+
+class FusedPlan:
+    """The walk of K1/K2 over one schedule and tip encoding (and, for K1,
+    one evaluation edge ``edge = (parent_clv, child_clv, edge_matrix)``,
+    whose inner rows stay in the pool to the end).
+
+    Attributes: ``order`` (level-major inner rows in walk order), ``slots``
+    (each walk position's pool slot), ``pool`` (slots: the walk's peak of
+    live rows), ``max_matrix``; the descriptors ``ops`` [n_inner,
+    OP_FIELDS] and, with an edge, ``edge_desc`` [EDGE_FIELDS] (int32,
+    host), copied to a card once by :meth:`static`.  A pattern tip child
+    is (K_TIP, its word row) with its nibble shift in ``shift``; a CLV tip
+    child is (K_TIP, its tip) and an inner child (K_POOL, slot), both with
+    ``shift`` 0.  An op's ``parent`` and ``out`` fields are its
+    level-major inner row."""
+
+    def __init__(self, schedule: LevelSchedule, tip_encoding: str,
+                 edge: Optional[tuple] = None):
+        from .clv_seg import _Rows, segment_slots
+
+        check_tip_encoding(tip_encoding, KERNEL_STATES)
+        if schedule.n_inner >= 1 << INDEX_BITS:
+            raise EinvalError(f"{schedule.n_inner} inner rows: the kernels "
+                              f"name rows in {INDEX_BITS} bits")
+        self.schedule, self.tip_encoding = schedule, tip_encoding
+        self.edge = None if edge is None else tuple(int(v) for v in edge)
+        tips, n = schedule.tips, schedule.n_inner
+        flat = flatten_ops(schedule)
+        ends = [] if edge is None else [r - tips for r in edge[:2]
+                                        if r >= tips]
+        self.order = walk_order(flat, tips)
+        pos = {g: i for i, g in enumerate(self.order)}
+        op_of = {int(r[0]): r for r in flat}
+
+        # the walk as one segment of clv_seg: state rows tips | locals,
+        # counter rows locals | the zero dummy (n)
+        table = np.zeros((n, 6), np.int32)
+        for i, g in enumerate(self.order):
+            _, c1, _, c2, _, s1, s2, has = op_of[g].tolist()
+            table[i] = (tips + i, *(tips + pos[c - tips] if c >= tips else c
+                                    for c in (c1, c2)),
+                        *(n if s == n else pos[s] for s in (s1, s2)), has)
+        self.slots = segment_slots(table, _Rows(tips, 0, n),
+                                   sorted(pos[e] for e in ends))
+        self.pool = int(self.slots.max()) + 1 if n else 1
+
+        ops = np.zeros((n, OP_FIELDS), np.int32)
+        for i, g in enumerate(self.order):
+            _, c1, m1, c2, m2, s1, s2, has = op_of[g].tolist()
+            child = [self._row_desc(c, pos) for c in (c1, c2)]
+            shift = [self._shift(c) for c in (c1, c2)]
+            scal = [K_ZERO if s == n else _desc(K_POOL, self.slots[pos[s]])
+                    for s in (s1, s2)]
+            ops[i] = (g, self.slots[i], *child, *scal, m1, m2, has, g,
+                      *shift)
+        self._host = {"ops": torch.from_numpy(ops)}
+        self.max_matrix = int(max(flat[:, 2].max(), flat[:, 4].max())
+                              if n else 0)
+        if edge is not None:
+            parent, child_row, matrix = self.edge
+            self.max_matrix = max(self.max_matrix, matrix)
+            self._host["edge_desc"] = torch.tensor(
+                [self._row_desc(parent, pos), self._row_desc(child_row, pos),
+                 self._scal_desc(parent, pos), self._scal_desc(child_row, pos),
+                 matrix, self._shift(child_row), 0, 0], dtype=torch.int32)
+        self._device = {}
+        self._layouts = {}
+
+    def _shift(self, row: int) -> int:
+        """A chars tip's nibble shift (0 for any other row)."""
+        chars = self.tip_encoding == "chars" and row < self.schedule.tips
+        return 4 * (row & 7) if chars else 0
+
+    def _row_desc(self, row: int, pos) -> int:
+        tips = self.schedule.tips
+        if row >= tips:
+            return _desc(K_POOL, self.slots[pos[row - tips]])
+        return _desc(K_TIP, row >> 3 if self.tip_encoding == "chars"
+                     else row)
+
+    def _scal_desc(self, row: int, pos) -> int:
+        tips = self.schedule.tips
+        return (K_ZERO if row < tips
+                else _desc(K_POOL, self.slots[pos[row - tips]]))
+
+    @property
+    def ops(self) -> torch.Tensor:
+        return self._host["ops"]
+
+    def static(self, name: str, device) -> torch.Tensor:
+        """A table of the plan (``ops``, ``edge_desc``), copied to
+        ``device`` once."""
+        key = (name, device)
+        if key not in self._device:
+            self._device[key] = self._host[name].to(device)
+        return self._device[key]
+
+    def layout(self, dtype, rate_cats: int, scale_mode: int,
+               score: bool) -> dict:
+        """How the kernel launches this walk on the current card (asked
+        once per dtype, rate count, scale mode and kernel): ``smem``
+        (dynamic shared memory per block, bytes), ``blocks_per_sm``,
+        ``threads`` and ``block_sites`` per block, ``chunk`` (ops staged
+        at once) and ``sms``; the largest chunk, then block, whose shared
+        memory fits."""
+        key = (dtype, rate_cats, scale_mode, score)
+        if key not in self._layouts:
+            lib = load_kernels()
+            out = (ctypes.c_int * 6)()
+            rc = lib.clv_fused_layout(
+                int(dtype == torch.float64), rate_cats, scale_mode,
+                int(score), self.pool, out)
+            if rc == _INVALID_VALUE:
+                raise EinvalError(
+                    f"the walk's pool of {self.pool} slots does not fit a "
+                    f"block's shared memory at {rate_cats} rates, {dtype}")
+            _check_launch(lib, rc, "fused layout query")
+            smem, per_sm, threads, chunk, sites, sms = out
+            self._layouts[key] = dict(
+                smem=smem, blocks_per_sm=per_sm, threads=threads,
+                chunk=chunk, block_sites=sites, sms=sms)
+        return self._layouts[key]
+
+    # ------------------------------------------------------ the plain walk
+    def _tip(self, tips_packed, d: int, shift: int, c: int, s: int, dtype):
+        """A tip child's CLV [C, S, L] from its descriptor."""
+        row = tips_packed[d & ((1 << INDEX_BITS) - 1)]
+        if self.tip_encoding == "clv":
+            return row
+        bits = torch.arange(s, device=row.device, dtype=row.dtype)
+        codes = row >> shift
+        onehot = ((codes[None, :] >> bits[:, None]) & 1).to(dtype)
+        return onehot[None].expand(c, -1, -1)
+
+    def _walk(self, tips_packed, pmatrix, scale_mode, out=None):
+        """Every op in walk order with PyTorch ops over all sites: its
+        children and counters from the tips or the pool by descriptor, its
+        row and counter stored in its slot and, given ``out`` = (inner,
+        scalers [n_inner + 1, srows, L]), in its level-major row.  Returns
+        (row, count): a descriptor's values and counters."""
+        from .clv_seg import plain_op
+
+        _, c, s, _ = pmatrix.shape
+        sites = tips_packed.shape[-1]
+        srows = c if scale_mode == SCALE_PER_RATE else 1
+        thresh, factor = scale_consts(pmatrix.dtype)
+        pool = pmatrix.new_zeros((self.pool, c, s, sites))
+        pool_scal = torch.zeros((self.pool, srows, sites), dtype=torch.int32,
+                                device=pmatrix.device)
+        zero = pool_scal.new_zeros((srows, sites))
+        index = (1 << INDEX_BITS) - 1
+
+        def row(d, shift=0):
+            if d >> INDEX_BITS == K_POOL:
+                return pool[d & index]
+            return self._tip(tips_packed, d, shift, c, s, pmatrix.dtype)
+
+        def count(d):
+            return zero if d == K_ZERO else pool_scal[d & index]
+
+        for (_, home, c1, c2, s1, s2, m1, m2, has, dst, t1,
+             t2) in self._host["ops"].tolist():
+            x, cnt = plain_op(pmatrix, m1, m2, row(c1, t1), row(c2, t2),
+                              count(s1) + count(s2), has, scale_mode,
+                              thresh, factor)
+            pool[home], pool_scal[home] = x, cnt
+            if out is not None:
+                out[0][dst], out[1][dst] = x, cnt
+        return row, count
+
+    def plain_walk(self, tips_packed, pmatrix, scale_mode=SCALE_PER_SITE):
+        """K2 as the kernel walks it, with PyTorch ops: ``(inner,
+        scalers)`` of :func:`fused_sweep_plain`, bit for bit."""
+        _, c, s, _ = pmatrix.shape
+        n, sites = self.schedule.n_inner, tips_packed.shape[-1]
+        srows = c if scale_mode == SCALE_PER_RATE else 1
+        inner = pmatrix.new_zeros((n, c, s, sites))
+        scalers = torch.zeros((n + 1, srows, sites), dtype=torch.int32,
+                              device=pmatrix.device)
+        self._walk(tips_packed, pmatrix, scale_mode, (inner, scalers))
+        return inner, (scalers if scale_mode == SCALE_PER_RATE
+                       else scalers[:, 0])
+
+    def plain_walk_score(self, tips_packed, pmatrix, weight_vec,
+                         pattern_weights, inv_add=None,
+                         scale_mode=SCALE_PER_SITE):
+        """K1 as the kernel walks it (the edge from its descriptors), with
+        PyTorch ops: the logL of :func:`fused_edge_score_plain`, bit for
+        bit."""
+        _, c, s, _ = pmatrix.shape
+        row, count = self._walk(tips_packed, pmatrix, scale_mode)
+        p, ch, ps, cs_, em, shift, *_ = self._host["edge_desc"].tolist()
+        termb = torch.matmul(pmatrix[em], row(ch, shift))
+        site_term = (row(p) * termb
+                     * weight_vec.reshape(c, s, 1)).sum(dim=(0, 1))
+        if inv_add is not None:
+            site_term = site_term + inv_add
+        return sum_block_partials(site_lnl(
+            site_term, (count(ps) + count(cs_))[0], pattern_weights,
+            pmatrix.dtype))
 
 
 def pack_tipchars(tip_masks) -> torch.Tensor:
@@ -186,26 +439,26 @@ def fused_edge_score_plain(schedule: LevelSchedule, tips_packed, pmatrix,
 # CUDA wrappers
 # --------------------------------------------------------------------------
 _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
-_SWEEP_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-_SCORE_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+_WALK_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_int64]
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 11)
+_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/clv_fused.cu``, once per
     process."""
-    lib = _build.load("clv_fused")
+    return bind(_build.load("clv_fused"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``clv_fused.cu``."""
     for suffix in ("f32", "f64"):
-        sweep = getattr(lib, f"clv_fused_sweep_{suffix}")
-        sweep.argtypes = _SWEEP_ARGTYPES + [ctypes.c_void_p]
-        sweep.restype = ctypes.c_int
-        score = getattr(lib, f"clv_fused_score_{suffix}")
-        score.argtypes = (_SWEEP_ARGTYPES + _SCORE_ARGTYPES
-                          + [ctypes.c_void_p])
-        score.restype = ctypes.c_int
+        fn = getattr(lib, f"clv_fused_walk_{suffix}")
+        fn.argtypes = _WALK_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.clv_fused_layout.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.clv_fused_layout.restype = ctypes.c_int
     lib.clv_fused_error_string.argtypes = [ctypes.c_int]
     lib.clv_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -216,15 +469,20 @@ def _require(cond: bool, what: str) -> None:
         raise EinvalError(f"fused kernel input: {what}")
 
 
-def _sweep_args(schedule, tips_packed, pmatrix, ops, scale_mode,
-                tip_encoding):
+def _check_launch(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.clv_fused_error_string(rc).decode()
+        raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
     """Validate the inputs both kernels share; return (dtype suffix,
-    rate_cats, sites, op table, the sweep's leading C arguments minus the
-    output pointers).  The op table is returned so that the caller holds
-    it until the launch: ``args`` keeps only its address."""
+    rate_cats, sites)."""
     device = tips_packed.device
     if device.type != "cuda":
         raise EinvalError(f"fused kernels run on CUDA tensors, not {device}")
+    _require(plan.schedule is schedule and plan.tip_encoding == tip_encoding,
+             "the plan was built for another schedule or tip encoding")
     m, c, s, s2 = pmatrix.shape
     _require(pmatrix.dtype in (torch.float32, torch.float64),
              f"pmatrix dtype {pmatrix.dtype} (float32 or float64)")
@@ -232,9 +490,9 @@ def _sweep_args(schedule, tips_packed, pmatrix, ops, scale_mode,
     _require(c in KERNEL_RATE_CATS, f"rate_cats {c} (one of 1, 2, 4, 8)")
     _require(scale_mode in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE),
              f"scale mode {scale_mode}")
-    check_tip_encoding(tip_encoding, s)
-    tips, n_inner = schedule.tips, schedule.n_inner
-    sites = tips_packed.shape[-1]
+    _require(plan.max_matrix < m,
+             f"schedule uses matrix {plan.max_matrix} of {m}")
+    tips, sites = schedule.tips, tips_packed.shape[-1]
     if tip_encoding == "clv":
         _require(tips_packed.dtype == pmatrix.dtype
                  and tuple(tips_packed.shape) == (tips, c, s, sites),
@@ -245,57 +503,70 @@ def _sweep_args(schedule, tips_packed, pmatrix, ops, scale_mode,
                  and tuple(tips_packed.shape) == (rows, sites),
                  f"{tip_encoding} tips {tuple(tips_packed.shape)} "
                  f"{tips_packed.dtype}")
-    if ops is None:
-        ops = op_table(schedule, device)
-    _require(ops.dtype == torch.int32
-             and tuple(ops.shape) == (n_inner, OP_FIELDS),
-             f"op table {tuple(ops.shape)} {ops.dtype}")
-    used = max(max(int(lev.matrix1.max()), int(lev.matrix2.max()))
-               for lev in schedule.levels)
-    _require(used < m, f"schedule uses matrix {used} of {m}")
-    for name, t in (("tips", tips_packed), ("pmatrix", pmatrix),
-                    ("ops", ops)):
+    for name, t in (("tips", tips_packed), ("pmatrix", pmatrix)):
         _require(t.device == device, f"{name} on {t.device}, not {device}")
         _require(t.is_contiguous(), f"{name} is not contiguous")
+    _require(pmatrix.data_ptr() % 16 == 0,
+             "pmatrix is not 16-byte aligned (its rows load as vectors)")
     _require(sites > 0, "no sites")
-    suffix = "f32" if pmatrix.dtype == torch.float32 else "f64"
-    args = [ops.data_ptr(), n_inner, tips, n_inner, sites, c,
-            _TIP_CODE[tip_encoding], scale_mode, tips_packed.data_ptr(),
-            pmatrix.data_ptr()]
-    return suffix, c, sites, ops, args
+    return ("f32" if pmatrix.dtype == torch.float32 else "f64"), c, sites
 
 
-def _check_launch(lib, rc: int, name: str) -> None:
-    if rc != 0:
-        msg = lib.clv_fused_error_string(rc).decode()
-        raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
+def _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
+            inner=None, scalers=None, edge=None, weight_vec=None,
+            pattern_weights=None, inv_add=None, partials=None) -> None:
+    """One walk on the current stream of the tensors' card: K2 when
+    ``edge`` is None (rows and counters out), else K1.  The grid is the
+    blocks the card holds at once, or fewer where the sites (padded to
+    whole partials) need fewer."""
+    device = tips_packed.device
+    lib = load_kernels()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(device):
+        lay = plan.layout(pmatrix.dtype, c, scale_mode, edge is not None)
+        padded = -(-sites // BLOCK_SITES) * BLOCK_SITES
+        grid = min(-(-padded // lay["block_sites"]),
+                   max(1, lay["blocks_per_sm"]) * lay["sms"])
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"clv_fused_walk_{suffix}")(
+            c, _TIP_CODE[plan.tip_encoding], scale_mode, sites,
+            plan.schedule.n_inner, plan.schedule.n_inner, plan.pool,
+            lay["chunk"], lay["threads"], grid,
+            ptr(plan.static("ops", device)),
+            ptr(tips_packed), ptr(pmatrix), ptr(inner), ptr(scalers),
+            ptr(edge), ptr(weight_vec), ptr(pattern_weights), ptr(inv_add),
+            ptr(partials), stream)
+    _check_launch(lib, rc, "fused_sweep" if edge is None
+                  else "fused_edge_score")
 
 
-def fused_sweep(schedule: LevelSchedule, tips_packed, pmatrix, *, ops=None,
+def fused_sweep(schedule: LevelSchedule, tips_packed, pmatrix, *,
+                plan: Optional[FusedPlan] = None,
                 scale_mode: int = SCALE_PER_SITE, tip_encoding: str = "clv"):
     """K2: the whole post-order sweep, every inner CLV and scaler written
     out.  Returns ``(inner [n_inner, C, S, L], scalers)``.
 
-    ``ops``: :func:`op_table` on the tensors' device (built here when
-    omitted).  CPU tensors take :func:`fused_sweep_plain`."""
+    ``plan``: a :class:`FusedPlan` of ``schedule`` and ``tip_encoding``
+    (built here when omitted).  CPU tensors take
+    :func:`fused_sweep_plain`."""
     if tips_packed.device.type == "cpu":
         return fused_sweep_plain(schedule, tips_packed, pmatrix,
                                  scale_mode=scale_mode,
                                  tip_encoding=tip_encoding)
-    suffix, c, sites, ops, args = _sweep_args(
-        schedule, tips_packed, pmatrix, ops, scale_mode, tip_encoding)
+    if plan is None:
+        plan = FusedPlan(schedule, tip_encoding)
+    suffix, c, sites = _check(plan, schedule, tips_packed, pmatrix,
+                              scale_mode, tip_encoding)
     device, n_inner = tips_packed.device, schedule.n_inner
     srows = c if scale_mode == SCALE_PER_RATE else 1
     inner = torch.empty((n_inner, c, KERNEL_STATES, sites),
                         dtype=pmatrix.dtype, device=device)
     scalers = torch.empty(((n_inner + 1) * srows, sites), dtype=torch.int32,
                           device=device)
-    lib = load_kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"clv_fused_sweep_{suffix}")(
-            *args, inner.data_ptr(), scalers.data_ptr(), stream)
-    _check_launch(lib, rc, "fused_sweep")
+    _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
+            inner, scalers)
     fused_sweep.launches += 1
     if scale_mode == SCALE_PER_RATE:
         scalers = scalers.view(n_inner + 1, c, sites)
@@ -306,18 +577,22 @@ fused_sweep.launches = 0
 
 
 def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
-                     weight_vec, pattern_weights, inv_add=None, *, ops=None,
-                     parent_clv: int, child_clv: int, edge_matrix: int,
+                     weight_vec, pattern_weights, inv_add=None, *,
+                     plan: Optional[FusedPlan] = None, parent_clv: int,
+                     child_clv: int, edge_matrix: int,
                      scale_mode: int = SCALE_PER_SITE,
                      tip_encoding: str = "clv"):
-    """K1: the whole sweep with the edge log-likelihood folded in; inner
-    CLVs live in a scratch the call allocates and drops.  Returns the
-    float64 log-likelihood.
+    """K1: the whole sweep with the edge log-likelihood folded in; the
+    live inner rows stay on chip.  Returns the float64 log-likelihood.
 
     ``weight_vec``: :func:`pack_weight_vec` ([C*S], with (1 - p_inv)
     folded in under +I); ``pattern_weights`` and ``inv_add``: [L] in the
-    working dtype.  Per-site or no scaling.  CPU tensors take
+    working dtype.  Per-site or no scaling.  ``plan``: a
+    :class:`FusedPlan` of ``schedule``, ``tip_encoding`` and this edge
+    (built here when omitted).  CPU tensors take
     :func:`fused_edge_score_plain`."""
+    from .clv_seg import fold_tile_partials
+
     check_score_scope(schedule, scale_mode, parent_clv)
     if tips_packed.device.type == "cpu":
         return fused_edge_score_plain(
@@ -325,15 +600,18 @@ def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
             inv_add, parent_clv=parent_clv, child_clv=child_clv,
             edge_matrix=edge_matrix, scale_mode=scale_mode,
             tip_encoding=tip_encoding)
-    suffix, c, sites, ops, args = _sweep_args(
-        schedule, tips_packed, pmatrix, ops, scale_mode, tip_encoding)
-    device, n_inner = tips_packed.device, schedule.n_inner
-    cs = c * KERNEL_STATES
-    _require(0 <= edge_matrix < pmatrix.shape[0],
-             f"edge matrix {edge_matrix}")
-    _require(0 <= child_clv < schedule.tips + n_inner
-             and parent_clv < schedule.tips + n_inner, "edge CLV rows")
-    vectors = [("weight_vec", weight_vec, (cs,)),
+    _require(0 <= child_clv < schedule.tips + schedule.n_inner
+             and parent_clv < schedule.tips + schedule.n_inner,
+             "edge CLV rows")
+    if plan is None:
+        plan = FusedPlan(schedule, tip_encoding,
+                         (parent_clv, child_clv, edge_matrix))
+    _require(plan.edge == (parent_clv, child_clv, edge_matrix),
+             f"the plan was built for edge {plan.edge}")
+    suffix, c, sites = _check(plan, schedule, tips_packed, pmatrix,
+                              scale_mode, tip_encoding)
+    device = tips_packed.device
+    vectors = [("weight_vec", weight_vec, (c * KERNEL_STATES,)),
                ("pattern_weights", pattern_weights, (sites,))]
     if inv_add is not None:
         vectors.append(("inv_add", inv_add, (sites,)))
@@ -341,25 +619,15 @@ def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
         _require(t.device == device and t.dtype == pmatrix.dtype
                  and tuple(t.shape) == shape and t.is_contiguous(),
                  f"{name} {tuple(t.shape)} {t.dtype} on {t.device}")
-    inner = torch.empty((n_inner, cs, sites), dtype=pmatrix.dtype,
-                        device=device)
-    scalers = torch.empty((n_inner + 1, sites), dtype=torch.int32,
-                          device=device)
-    partials = torch.empty((-(-sites // BLOCK_SITES),), dtype=torch.float64,
-                           device=device)
-    lib = load_kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"clv_fused_score_{suffix}")(
-            *args, inner.data_ptr(), scalers.data_ptr(), parent_clv,
-            child_clv, edge_matrix, _scaler_row(schedule, parent_clv),
-            _scaler_row(schedule, child_clv), weight_vec.data_ptr(),
-            pattern_weights.data_ptr(),
-            None if inv_add is None else inv_add.data_ptr(),
-            partials.data_ptr(), stream)
-    _check_launch(lib, rc, "fused_edge_score")
+    # one partial per 32 sites (a warp), four to each 128-site partial
+    partials = torch.empty((-(-sites // BLOCK_SITES) * 4,),
+                           dtype=torch.float64, device=device)
+    _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
+            edge=plan.static("edge_desc", device), weight_vec=weight_vec,
+            pattern_weights=pattern_weights, inv_add=inv_add,
+            partials=partials)
     fused_edge_score.launches += 1
-    return sum_block_partials(partials)
+    return sum_block_partials(fold_tile_partials(partials, sites))
 
 
 fused_edge_score.launches = 0

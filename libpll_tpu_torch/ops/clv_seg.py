@@ -381,8 +381,8 @@ def kernel_smem(pool: int, rate_cats: int, states: int, dtype,
 
 def fold_tile_partials(tiles: torch.Tensor, sites: int) -> torch.Tensor:
     """The kernel's float64 partial of each ``SLOT_SITES`` sites, summed
-    into one per ``TILE_SITES`` sites in ``block_sum_store``'s order
-    (``tiles`` zero past the last tile)."""
+    left to right into one per ``TILE_SITES`` sites, the order of the
+    first fused kernel's block sum (``tiles`` zero past the last tile)."""
     per = TILE_SITES // SLOT_SITES
     v = tiles.view(-(-sites // TILE_SITES), per)
     out = v[:, 0]

@@ -1,0 +1,193 @@
+"""Time the fused kernels K1/K2 of several checkouts, or of source variants
+of ``csrc/clv_fused.cu``, in turns on one card.
+
+    python3 libpll_tpu_torch/tools/fused_times.py [TREE ...]
+    python3 libpll_tpu_torch/tools/fused_times.py --variants SPEC.json NAME ...
+
+Each run is its own process, in the order given (parent, change, change,
+parent compares two commits on one card).  A TREE is a checkout's root
+(default: this one); it is measured with its own package and its own
+``chip_smoke.py`` helpers.  A variant is this checkout's ``clv_fused.cu``
+with the text substitutions ``SPEC.json`` names for it (as
+``tools/dyn_times.py``'s; ``tools/fused_ablations.json``), built by nvcc
+beside the package's build and loaded in place of its library.
+
+Measured at the flagship (64 taxa x 262 144 sites, GTR+Γ4, float32,
+per-site scaling, nibble-packed tips, seed 0): K1 alone
+(``fused_edge_score`` with the module's cached op table or plan) and K2
+alone (``fused_sweep``), ``make_score`` and ``make_forward_fused`` per
+evaluation (device ms per call, CUDA events over back-to-back calls,
+``chip_smoke.time_ms``), the host ms of one call of each with the card
+idle (median, ``chip_smoke.host_ms``), the peak device memory of one call
+of each, the logL
+of ``make_score`` to the last digit and whether K2's rows and counters
+are the first run's, bit for bit (a SHA-256 of their bytes).  Where the
+tree has the walk's plan (``FusedPlan``), the host time of one
+``make_score`` call is also taken apart into its sections, each timed
+alone with the card idle; where it has ``Score.graphed``, ``make_score``
+captured in a CUDA graph is timed too, with its logL.  Each run prints one JSON line; the card's name
+and power limit come first.
+"""
+
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from variants import build_variants, card_line  # noqa: E402
+
+def digest(*tensors):
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().data)
+    return h.hexdigest()
+
+
+def host_sections(host_ms, score, sched, tp, m32, edge):
+    """The host ms of each section of one ``make_score`` call (this
+    checkout's ``Score.forward``), each timed alone with the card idle
+    (``host_ms``: chip_smoke's)."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops.clv_seg import fold_tile_partials
+    from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
+
+    dtype = torch.float32
+    pm = score.pmatrices(m32, dtype)
+    f = ev._floats(m32, dtype)
+    w = cf.pack_weight_vec(f["freqs_pc"], f["rate_weights"])
+    sites = tp.shape[-1]
+    partials = torch.empty((-(-sites // cf.BLOCK_SITES) * 4,),
+                           dtype=torch.float64, device=tp.device)
+    parts = {
+        "pmatrices": lambda: score.pmatrices(m32, dtype),
+        "floats": lambda: ev._floats(m32, dtype),
+        "weight_vec": lambda: cf.pack_weight_vec(f["freqs_pc"],
+                                                 f["rate_weights"]),
+        "checks": lambda: cf._check(score.plan, sched, tp, pm,
+                                    SCALE_PER_SITE, "chars"),
+        "allocations": lambda: torch.empty(
+            (-(-sites // cf.BLOCK_SITES) * 4,), dtype=torch.float64,
+            device=tp.device),
+        "launch": lambda: cf._launch(
+            score.plan, "f32", 4, SCALE_PER_SITE, sites, tp, pm,
+            edge=score.plan.static("edge_desc", tp.device), weight_vec=w,
+            pattern_weights=f["pattern_weights"], partials=partials),
+        "f64_sum": lambda: cf.sum_block_partials(
+            fold_tile_partials(partials, sites)),
+        "kernel_wrapper": lambda: cf.fused_edge_score(
+            sched, tp, pm, w, f["pattern_weights"], plan=score.plan,
+            tip_encoding="chars", **edge),
+        "make_score": lambda: score(m32, tp),
+    }
+    return {name: host_ms(fn) for name, fn in parts.items()}
+
+
+def measure(tree, lib=None):
+    """One run in this process: the numbers of the module docstring."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import chip_smoke as cs
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import _build
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.flagship import (FLAGSHIP_SITES,
+                                                 FLAGSHIP_TIPS,
+                                                 build_flagship)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if lib is None:
+        _build.build_all(["clv_fused"])
+    else:
+        loaded = cf.bind(ctypes.CDLL(str(lib)))
+        cf.load_kernels = lambda: loaded
+    device = torch.device("cuda", 0)
+    topo, model_np, masks, _ = build_flagship(FLAGSHIP_TIPS, FLAGSHIP_SITES,
+                                              seed=0, tip_masks=True)
+    sched = topo.schedule
+    tp = cf.pack_tipchars(masks).to(device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    score = ev.make_score(topo, 4, 4, tip_encoding="chars").to(device)
+    fwd = ev.make_forward_fused(topo, 4, 4, tip_encoding="chars").to(device)
+    pm, wvec, pw, _ = cs.kernel_inputs(topo, model_np, torch.float32, device,
+                                       False)
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix)
+    # the module's cached walk: the plan, or the parent's op table
+    k1_extra = ({"plan": score.plan} if hasattr(score, "plan")
+                else {"ops": score.ops})
+    k2_extra = ({"plan": fwd.plan} if hasattr(fwd, "plan")
+                else {"ops": fwd.ops})
+    runs = {
+        "k1": lambda: cf.fused_edge_score(sched, tp, pm, wvec, pw,
+                                          tip_encoding="chars", **edge,
+                                          **k1_extra),
+        "k2": lambda: cf.fused_sweep(sched, tp, pm, tip_encoding="chars",
+                                     **k2_extra),
+        "score": lambda: score(m32, tp),
+        "forward_fused": lambda: fwd(m32, tp),
+    }
+    out = {"tree": str(tree),
+           "variant": None if lib is None else Path(lib).parent.name}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if name in ("k1", "score"):
+            out[f"{name}_logl"] = repr(float(got))
+        elif name == "k2":
+            out["k2_sha256"] = digest(*got)
+        del got
+        torch.cuda.empty_cache()
+        out[f"{name}_ms"] = cs.time_ms(fn)[0]
+        out[f"{name}_host_ms"] = cs.host_ms(fn)
+    if hasattr(score, "graphed"):  # make_score as one CUDA graph
+        graphed = score.graphed(m32, tp)
+        out["score_graph_logl"] = repr(float(graphed(m32, tp)))
+        out["score_graph_ms"] = cs.time_ms(lambda: graphed(m32, tp))[0]
+        out["score_graph_host_ms"] = cs.host_ms(lambda: graphed(m32, tp))
+    if hasattr(score, "plan"):
+        out["k1_layout"] = dict(score.plan.layout(torch.float32, 4,
+                                                  topo.scale_mode, True),
+                                pool=score.plan.pool)
+        out["k2_layout"] = dict(fwd.plan.layout(torch.float32, 4,
+                                                topo.scale_mode, False),
+                                pool=fwd.plan.pool)
+        out["host_sections"] = host_sections(cs.host_ms, score, sched, tp,
+                                             m32, edge)
+    print(json.dumps(out), flush=True)
+
+
+def main(argv):
+    if argv[:1] == ["--measure"]:
+        measure(argv[1], argv[2] if len(argv) > 2 else None)
+        return 0
+    print(f"card: {card_line()}", flush=True)
+    if argv[:1] == ["--variants"]:
+        names = argv[2:]
+        libs = build_variants(json.loads(Path(argv[1]).read_text()), names,
+                              "clv_fused")
+        runs = [(ROOT, libs[name]) for name in names]
+    else:
+        runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]
+    for tree, lib in runs:
+        cmd = [sys.executable, __file__, "--measure", str(tree)]
+        subprocess.run(cmd + ([str(lib)] if lib else []), check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

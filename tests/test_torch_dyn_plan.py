@@ -381,8 +381,8 @@ def test_pool_caps_and_guards():
 
 def test_fold_tile_partials_order():
     """Four 32-site partials make one 128-site partial, added left to
-    right as block_sum_store adds its four warp sums; ragged ends pad with
-    zeros."""
+    right as the first fused kernel added its four warp sums; ragged ends
+    pad with zeros."""
     rng = np.random.default_rng(0)
     tiles = torch.from_numpy(rng.standard_normal(12) * 1e6)
     got = cd.fold_tile_partials(tiles, 300)

@@ -97,7 +97,7 @@ def test_make_forward_fused_f64(tip_encoding, scale_mode):
     want_clv, want_scal = j_sweep(jtopo.schedule, jtopo.scale_mode)(
         jnp.asarray(case["clv"]), jnp.asarray(case["scalers"]),
         jev._pmatrices(jm, jtopo, jnp.float64))
-    fwd = tev.make_forward_fused(ttopo, 4, STATES, tip_encoding)
+    fwd = tev.make_forward_fused(ttopo, 4, STATES, tip_encoding=tip_encoding)
     got, got_ps, inner, scal = fwd(
         model_from_numpy(case["model"], "cpu", torch.float64),
         port_tips(case, masks, tip_encoding))
@@ -118,7 +118,8 @@ def test_make_forward_fused_f32_vs_jax_fused():
                                   interpret=True)
     want32 = float(jfwd(jax_model(case["model"]), cp.pack_tips(
         jnp.asarray(case["clv"][:tips]), "mxu"))[0])
-    got = tev.make_forward_fused(case["ttopo"], 4, STATES, "chars")(
+    got = tev.make_forward_fused(case["ttopo"], 4, STATES,
+                                 tip_encoding="chars")(
         model_from_numpy(case["model"], "cpu", torch.float32),
         cf.pack_tipchars(masks))[0]
     assert_in_budget(float(got), f64_truth(case), want32)
@@ -223,6 +224,47 @@ def test_module_guards_and_devices():
     with pytest.raises(EinvalError):  # inputs elsewhere than the module
         score(model, tips.to("meta"))
     moved = score.to("meta")
-    assert moved.device == torch.device("meta") and moved.ops.is_meta
+    assert moved.device == torch.device("meta")
+    assert moved.matrix_indices.is_meta
     with pytest.raises(EinvalError):
         moved(model, tips)
+    with pytest.raises(EinvalError):  # a CUDA graph takes CUDA tensors
+        score.graphed(model, tips)
+
+
+def test_factories_take_jax_arguments_in_jax_order():
+    """make_score / make_forward_fused take JAX's parameters in JAX's
+    order: ``make_score(topo, 4, 4, "vpu")`` is JAX's scorer without
+    p-inv (the model carries p-inv 0.25, so folding it in would move the
+    logL far outside the float32 budget), ``make_forward_fused(topo, 4, 4,
+    "vpu")`` JAX's forward; ``impl`` outside ("auto", "vpu", "mxu") and
+    ``mxu_precision`` other than "highest" raise."""
+    case, masks = iupac_case(
+        _random_tree_newick(10, np.random.default_rng(12)), 128, seed=12)
+    model = case["model"]
+    model["prop_invar"][:] = 0.25
+    model["prop_invar_pc"][:] = 0.25
+    model["invariant"][:40] = np.arange(40) % STATES
+    jtopo, ttopo = case["jtopo"], case["ttopo"]
+    tips = case["jtopo"].schedule.tips
+    jm = jax_model(model)
+    jtips = cp.pack_tips(jnp.asarray(case["clv"][:tips]), "vpu")
+    tm = model_from_numpy(model, "cpu", torch.float32)
+    ttips = torch.from_numpy(case["clv"][:tips])
+    want = float(jev.make_score(jtopo, 4, STATES, "vpu", interpret=True)(
+        jm, jtips))
+    got = float(tev.make_score(ttopo, 4, STATES, "vpu")(tm, ttips))
+    assert_in_budget(got, want)
+    pinv = float(tev.make_score(ttopo, 4, STATES, "vpu", True)(tm, ttips))
+    assert abs(pinv - want) > 100 * (2e-6 * abs(want) + 5e-3)
+    want_fwd = float(jev.make_forward_fused(jtopo, 4, STATES, "vpu",
+                                            interpret=True)(jm, jtips)[0])
+    got_fwd = float(tev.make_forward_fused(ttopo, 4, STATES, "vpu")(
+        tm, ttips)[0])
+    assert_in_budget(got_fwd, want_fwd)
+    with pytest.raises(EinvalError):
+        tev.make_score(ttopo, 4, STATES, "tensor")
+    with pytest.raises(EinvalError):
+        tev.make_forward_fused(ttopo, 4, STATES, "tensor")
+    with pytest.raises(EinvalError):
+        tev.make_score(ttopo, 4, STATES, mxu_precision="high")

@@ -225,14 +225,27 @@ def test_guards():
 
 
 def test_op_table_follows_the_schedule():
+    """The kernels' walk (the plan's descriptors) covers every op of the
+    schedule once, children before parents, each op writing its own
+    level-major row from the schedule's children and matrices."""
     case = make_case(_caterpillar_newick(10), 8)
     sched = case["ttopo"].schedule
-    table = cf.op_table(sched).numpy()
+    plan = cf.FusedPlan(sched, "clv")
+    table = plan.ops.numpy()
     assert table.shape == (sched.n_inner, cf.OP_FIELDS)
     assert table.dtype == np.int32
-    np.testing.assert_array_equal(np.sort(table[:, 0]),
+    np.testing.assert_array_equal(np.sort(table[:, 9]),
                                   np.arange(sched.n_inner))
-    done = set(range(sched.tips))  # children precede parents
-    for prow, c1, _, c2, *_ in table:
-        assert c1 in done and c2 in done
-        done.add(prow + sched.tips)
+    flat = {int(r[0]): r for r in cf.flatten_ops(sched)}
+    index = (1 << cf.INDEX_BITS) - 1
+    done, home = set(range(sched.tips)), {}  # children precede parents
+    for i, o in enumerate(table):
+        row = flat[int(o[9])]
+        for k, c in enumerate((row[1], row[3])):
+            assert c in done
+            want = ((cf.K_TIP, c) if c < sched.tips
+                    else (cf.K_POOL, home[c]))
+            assert (o[2 + k] >> cf.INDEX_BITS, o[2 + k] & index) == want
+        assert (o[6], o[7]) == (row[2], row[4])
+        done.add(int(o[9]) + sched.tips)
+        home[int(o[9]) + sched.tips] = int(o[1])

@@ -66,7 +66,8 @@ def test_modules_on_card_match_cpu(cuda, tip_encoding):
                                   device)
         score = ev.make_score(topo, 4, 4, use_pinv=True,
                               tip_encoding=tip_encoding).to(device)
-        fwd = ev.make_forward_fused(topo, 4, 4, tip_encoding).to(device)
+        fwd = ev.make_forward_fused(topo, 4, 4,
+                                    tip_encoding=tip_encoding).to(device)
         logl, persite, inner, scalers = fwd(model, tp)
         out[str(device)] = (float(score(model, tp)), float(logl),
                             inner.cpu(), scalers.cpu())
@@ -78,6 +79,57 @@ def test_modules_on_card_match_cpu(cuda, tip_encoding):
     with pytest.raises(EinvalError):  # inputs on another device
         ev.make_score(topo, 4, 4, tip_encoding=tip_encoding)(
             model_from_numpy(model_np, cuda, torch.float64), tp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_kernels_large_tree_on_card(cuda, dtype):
+    """K1/K2 on a 1 000-taxon tree (a pool of more slots than the
+    flagship's, ops staged in chunks) against their plain versions, one
+    launch per call."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(1000, np.random.default_rng(7)), 300, 4, 7)
+    sched = topo.schedule
+    tp = chip_smoke.tip_input(masks, "chars", 4, dtype, cuda)
+    args = chip_smoke.kernel_inputs(topo, model_np, dtype, cuda, True)
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix, tip_encoding="chars")
+    plan = cf.FusedPlan(sched, "chars", (topo.parent_clv, topo.child_clv,
+                                         topo.edge_matrix))
+    chunk = plan.layout(dtype, 4, topo.scale_mode, True)["chunk"]
+    assert plan.pool > 3 and sched.n_inner > chunk
+    before = (cf.fused_sweep.launches, cf.fused_edge_score.launches)
+    got = cf.fused_sweep(sched, tp, args[0], tip_encoding="chars")
+    ok, err, agree = chip_smoke.sweep_close(
+        *got, *cf.fused_sweep_plain(sched, tp, args[0], tip_encoding="chars"),
+        dtype)
+    assert ok, (err, agree)
+    logl = float(cf.fused_edge_score(sched, tp, *args, plan=plan, **edge))
+    want = float(cf.fused_edge_score_plain(sched, tp, *args, **edge))
+    assert np.isfinite(logl) and chip_smoke.logl_close(logl, want, dtype)
+    assert (cf.fused_sweep.launches, cf.fused_edge_score.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_graphed_score_equals_eager(cuda):
+    """make_score captured in a CUDA graph gives the eager call's logL bit
+    for bit, on the captured inputs and after new branch lengths, and
+    refuses inputs of another dtype."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(24, np.random.default_rng(9)), 1000, 4, 9)
+    tp = chip_smoke.tip_input(masks, "chars", 4, torch.float32, cuda)
+    model = model_from_numpy(model_np, cuda, torch.float32)
+    score = ev.make_score(topo, 4, 4, use_pinv=True,
+                          tip_encoding="chars").to(cuda)
+    graphed = score.graphed(model, tp)
+    for scale in (1.0, 1.3):
+        model["branch_lengths"] = model["branch_lengths"] * scale
+        want = float(score(model, tp))
+        assert np.isfinite(want)
+        assert float(graphed(model, tp)) == want
+    with pytest.raises(EinvalError):  # inputs unlike the captured ones
+        graphed(model_from_numpy(model_np, cuda, torch.float64), tp)
 
 
 @pytest.mark.gpu
