@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four main paths, each driven once with the launch counters set to 0 just
+Five main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -20,14 +20,18 @@ before it and read just after:
     score K4 (``make_segmented_score``) and the segmented sweep K3
     (``make_segmented_sweep``), cut at the shared-memory row budget;
   * the roofline probes: the FP32 multiply-add peak K7 and the DNA
-    contraction K8 (``ops/roofline.py``), timed over two chain lengths.
+    contraction K8 (``ops/roofline.py``), timed over two chain lengths;
+  * the training step at the flagship with tips simulated on the tree
+    (``make_train_step_fused``): K2, the edge logL, the sumtable and the
+    Newton solve of the evaluation edge's branch length, kernel N1
+    (``ops/derivatives.py``, one launch per Newton body, 32 in a row).
 
 Phases, one line each:
 
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
-     ``clv_seg.cu`` and ``roofline.cu`` for sm_90a, one process each, all
-     at once;
+     ``clv_seg.cu``, ``roofline.cu`` and ``derivatives.cu`` for sm_90a,
+     one process each, all at once;
   3. small configs: K1/K2 against their plain PyTorch versions on the
      card, for every tip encoding, scale mode, +I and rate-category count,
      in float64 (logL rel <= 1e-12, scalers equal, CLVs rel 1e-12) and
@@ -80,7 +84,21 @@ Phases, one line each:
  14. roofline: K7 and K8 against their plain versions at small chain
      lengths (rel 1e-5), their sustained rates and K7's share of the FP32
      peak, and the contraction rates K1 (flagship) and K3 (README
-     configuration) imply against K8's.
+     configuration) imply against K8's;
+ 15. newton small: N1 against its plain twin on the card
+     (``newton_close``: one body's d1/d2, and t* with the bodies run) for
+     per-site and per-rate scaling, +I, each asc mode, float32/float64,
+     S in {4, 20}, C in {1, 4, 8};
+ 16. train step: ``make_train_step_fused`` at the flagship (float32,
+     chars tips simulated on the tree): K2 once and N1 at most 32 times,
+     t* inside the clamp, the logL ``make_forward_fused``'s bit for bit,
+     ``make_score`` at t* no worse than at t0 less the f32 budget, t*
+     within 1e-5 of the float64 ``make_train_step``'s on the card, two
+     eager steps equal, N1 against its plain twin;
+ 17. train times: the step eager and captured in a CUDA graph (its
+     replay equal to the eager step bit for bit; the capture fails on any
+     host sync), the host's time per call with the card idle, N1 against
+     its bound and its plain twin.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak and its bytes
@@ -1318,6 +1336,284 @@ def phase_roofline(device, card, k1_ms, k3_ms, n_inner_k3):
                                m["peak"]))
 
 
+# ------------------------------------------------------------ train step
+F32_T_REL = 1e-5  # float32 t*: see check_newton_small
+NEWTON_SITES = 300
+NEWTON_VARIANTS = ("site", "rate", "pinv", "lewis", "felsenstein",
+                   "stamatakis")
+
+
+def newton_flop(rate_cats, states):
+    """Operations of one N1 body per site: three dots of C·S (an FMA each,
+    2 flop), the rate mixing (three FMAs a rate), and the site's
+    quotients, products and weighted sums (10)."""
+    return rate_cats * states * 6 + rate_cats * 6 + 10
+
+
+def newton_inputs(variant, newick, rate_cats, states, dtype, device, seed):
+    """N1's arguments on the card, as ``make_train_step`` makes them, for
+    one variant of ``small_case``: per-site scaling (``site``), per-rate
+    (``rate``), +I with invariant sites (``pinv``), or an asc mode with its
+    S pseudo columns (p-inv 0), per-site scalers 0/1 set on those columns
+    so that their factors count."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+    topo, model_np, masks = small_case(newick, NEWTON_SITES, rate_cats, seed,
+                                       states=states)
+    asc = {"lewis": 1, "felsenstein": 2, "stamatakis": 3}.get(variant, 0)
+    model_np = dict(model_np)
+    if variant != "pinv":
+        model_np["prop_invar"] = np.zeros(1)
+        model_np["prop_invar_pc"] = np.zeros(rate_cats)
+    if asc:
+        rng = np.random.default_rng(seed)
+        codes = np.uint32(1) << np.arange(states, dtype=np.uint32)
+        masks = np.concatenate(
+            [masks, np.broadcast_to(codes, (masks.shape[0], states))], 1)
+        model_np["pattern_weights"] = np.concatenate(
+            [model_np["pattern_weights"], rng.uniform(1.0, 4.0, states)])
+        model_np["invariant"] = np.full(NEWTON_SITES + states, -1, np.int32)
+    topo = topo._replace(asc_mode=asc, scale_mode=(
+        SCALE_PER_RATE if variant == "rate" else topo.scale_mode))
+    sched, sites = topo.schedule, masks.shape[1]
+    clv = torch.zeros((sched.tips + sched.n_inner, rate_cats, states, sites),
+                      dtype=dtype, device=device)
+    clv[:sched.tips] = tip_input(masks, "clv", rate_cats, dtype, device,
+                                 states)
+    sshape = ((sched.n_inner + 1, rate_cats, sites) if variant == "rate"
+              else (sched.n_inner + 1, sites))
+    scal = torch.zeros(sshape, dtype=torch.int32, device=device)
+    step = ev.make_train_step(topo, device=device)
+    model = model_from_numpy(model_np, device, dtype)
+    args = step.newton_inputs(model, clv, scal)[3]
+    if asc and variant != "rate":
+        parent = args["scaler_parent"].clone()
+        parent[NEWTON_SITES::2] += 1
+        args["scaler_parent"] = parent
+    return args
+
+
+def newton_abs_sums(args, t):
+    """Σ|w·(−L'/L)| and Σ|w·((L'/L)² − L''/L)| over the sites d1 and d2
+    add up at ``t``, plus nothing for the pseudo-site terms (the caller
+    adds |d|): the size of the sums whose round-off a comparison allows."""
+    import torch
+
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    st = args["sumtable"]
+    ki = args["rates"] / (1.0 - args["prop_invar"])
+    lam = args["eigenvals_pc"] * ki[:, None]
+    e = torch.exp(lam * t)
+    cat = torch.matmul(torch.stack([e, lam * e, lam * lam * e], 1),
+                       st).transpose(0, 1)
+    ef = args["sites"] + (st.shape[1] if args["asc_mode"] == 3 else 0)
+    lk0, lk1, lk2 = dv._mixed(cat[:, :, :ef], args["prop_invar"],
+                              args["freqs_pc"], args["rate_weights"],
+                              args["invariant"][:ef])
+    w = args["pattern_weights"][:ef]
+    d1 = -lk1 / lk0
+    return (float((w * d1).abs().sum()),
+            float((w * (d1 * d1 - lk2 / lk0)).abs().sum()))
+
+
+def newton_close(args, dtype):
+    """N1 against its plain twin on the same inputs.  One body: d1 and d2
+    at t0 within REL of the size of their sums (float64 1e-12: summation
+    order; float32 1e-5: the twin sums float32 terms in float32, N1 in
+    float64).  The whole loop: float64 t* rel 1e-10 with the same number
+    of bodies; float32 t* within F32_T_REL (d1's rounding floor over d2
+    moves t* far less).  Returns (ok, |t* - plain t*|, message)."""
+    import torch
+
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    f64 = dtype == torch.float64
+    rel = 1e-12 if f64 else 1e-5
+    one = dv.newton_solve(**args, max_iters=1)
+    d1, d2 = dv.likelihood_derivatives(
+        **{k: v for k, v in args.items() if k != "t0"},
+        branch_length=args["t0"][0])
+    sizes = newton_abs_sums(args, args["t0"][0])
+    errs = [abs(float(g) - float(w)) for g, w in ((one.d1, d1),
+                                                  (one.d2, d2))]
+    ok = all(np.isfinite(float(w)) and e <= rel * (size + abs(float(w)))
+             for e, w, size in zip(errs, (d1, d2), sizes))
+    got = dv.newton_solve(**args)
+    want = dv.newton_solve_plain(**args)
+    t_err = abs(float(got.t) - float(want.t))
+    if f64:
+        ok = ok and t_err <= 1e-10 * abs(float(want.t)) and int(
+            got.iterations) == int(want.iterations)
+    else:
+        ok = ok and t_err <= F32_T_REL * abs(float(want.t))
+    return ok, t_err, (f"d1 {float(one.d1)!r} vs {float(d1)!r}, d2 "
+                       f"{float(one.d2)!r} vs {float(d2)!r}; t* "
+                       f"{float(got.t)!r} ({int(got.iterations)} bodies) "
+                       f"vs {float(want.t)!r} ({int(want.iterations)})")
+
+
+def check_newton_small(device):
+    """Phase 15: N1 against its plain twin on the card (``newton_close``)
+    at every variant (per-site and per-rate scaling, +I with invariant
+    sites, each asc mode), float32 and float64, S in {4, 20}, C in {1, 4,
+    8}, on a 48-taxon caterpillar (float32 scaling fires).  Returns
+    (configurations, largest float32 |d t*|)."""
+    import torch
+
+    n, f32_err = 0, 0.0
+    newick = caterpillar_newick(48)
+    for states in (4, 20):
+        for rate_cats in (1, 4, 8):
+            for dtype in (torch.float32, torch.float64):
+                for variant in NEWTON_VARIANTS:
+                    args = newton_inputs(variant, newick, rate_cats, states,
+                                         dtype, device, seed=rate_cats)
+                    ok, err, msg = newton_close(args, dtype)
+                    check(ok, f"N1 {variant} S={states} C={rate_cats} "
+                              f"{dtype}: {msg}")
+                    if dtype == torch.float32:
+                        f32_err = max(f32_err, err)
+                    n += 1
+    return n, f32_err
+
+
+def phase_train_step(device, card, peak):
+    """Phases 16-17: the flagship through ``make_train_step_fused`` (the
+    main path of the training step, counters at 0 around one call), its
+    checks, the step as a CUDA graph, and the times.  Returns the numbers
+    the JSON line reports."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
+                                                 FLAGSHIP_SITES,
+                                                 FLAGSHIP_STATES,
+                                                 FLAGSHIP_TIPS,
+                                                 build_flagship)
+
+    tips, sites = FLAGSHIP_TIPS, FLAGSHIP_SITES
+    c, s = FLAGSHIP_RATE_CATS, FLAGSHIP_STATES
+    t0 = time.perf_counter()
+    topo, model_np, masks, _ = build_flagship(tips, sites, rate_cats=c,
+                                              seed=0, tip_masks=True,
+                                              simulate=True)
+    sim_s = time.perf_counter() - t0
+    tp = cf.pack_tipchars(masks).to(device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    step = ev.make_train_step_fused(topo, c, s, tip_encoding="chars",
+                                    device=device)
+    fwd = ev.make_forward_fused(topo, c, s, tip_encoding="chars",
+                                device=device)
+    score = ev.make_score(topo, c, s, tip_encoding="chars", device=device)
+
+    torch.cuda.synchronize()
+    cf.fused_sweep.launches = 0
+    cf.fused_edge_score.launches = 0
+    dv.newton_solve.launches = 0
+    logl, t_star = step(m32, tp)
+    torch.cuda.synchronize()
+    launches = {"fused_sweep": cf.fused_sweep.launches,
+                "newton_solve": dv.newton_solve.launches,
+                "fused_edge_score": cf.fused_edge_score.launches}
+    check(launches["fused_sweep"] == 1 and launches["fused_edge_score"] == 0
+          and 0 < launches["newton_solve"] <= dv.NEWTON_ITERS,
+          f"train step: launches {launches}, want K2 once and N1 1-32 times")
+    logl, t_star = float(logl), float(t_star)
+    again = step(m32, tp)
+    check((float(again[0]), float(again[1])) == (logl, t_star),
+          f"two eager steps differ: {(logl, t_star)} then "
+          f"{tuple(float(v) for v in again)}")
+    check(dv.MIN_T < t_star < dv.MAX_T,
+          f"t* {t_star!r} on the clamp [{dv.MIN_T}, {dv.MAX_T}]")
+    fused_logl = float(fwd(m32, tp)[0])
+    check(fused_logl == logl, f"the step's logL {logl!r} is not "
+                              f"make_forward_fused's {fused_logl!r}")
+
+    budget = ACC_REL * abs(logl) + ACC_ABS
+    at_t0 = float(score(m32, tp))
+    m_opt = dict(m32, branch_lengths=m32["branch_lengths"].clone())
+    m_opt["branch_lengths"][-1] = t_star
+    at_opt = float(score(m_opt, tp))
+    check(at_opt >= at_t0 - budget,
+          f"make_score at t* {at_opt!r} below make_score at t0 {at_t0!r} "
+          f"less the budget {budget}")
+
+    # the float64 make_train_step on the card, from the same tips
+    sched = topo.schedule
+    m64 = model_from_numpy(model_np, device, torch.float64)
+    clv64 = torch.zeros((sched.tips + sched.n_inner, c, s, sites),
+                        dtype=torch.float64, device=device)
+    clv64[:sched.tips] = cf.decode_tips(
+        tp, "chars", torch.arange(sched.tips, device=device), c, s,
+        torch.float64)
+    scal = torch.zeros((sched.n_inner + 1, sites), dtype=torch.int32,
+                       device=device)
+    step64 = ev.make_train_step(topo, device=device)
+    logl64, t64 = (float(v) for v in step64(m64, clv64, scal)[:2])
+    del clv64, scal
+    torch.cuda.empty_cache()
+    check(abs(t_star - t64) <= F32_T_REL * t64,
+          f"float32 t* {t_star!r} vs float64 make_train_step t* {t64!r}")
+    check(abs(logl - logl64) <= budget,
+          f"float32 step logL {logl!r} vs float64 {logl64!r}")
+
+    # N1 against its plain twin at the main path's shapes
+    args = step.newton_inputs(m32, tp)[1]
+    ok, n1_err, msg = newton_close(args, torch.float32)
+    check(ok, f"flagship N1 vs plain: {msg}")
+    n1 = dv.newton_solve(**args)
+    iters = int(n1.iterations)
+    print(f"[16 train step] {tips} taxa x {sites} sites x {c} rates f32 "
+          f"chars, tips simulated on the tree ({sim_s:.1f} s): logL "
+          f"{logl!r} (make_forward_fused's, bit for bit; float64 "
+          f"make_train_step {logl64!r}, |d| {abs(logl - logl64):.3e} <= "
+          f"{budget:.3e}); t0 {float(m32['branch_lengths'][-1])!r} -> t* "
+          f"{t_star!r} (float64 t* {t64!r}, rel "
+          f"{abs(t_star - t64) / t64:.3e} <= {F32_T_REL}); make_score at t0 "
+          f"{at_t0!r}, at t* {at_opt!r}; launches {launches}; N1 {iters} "
+          f"bodies; two eager steps equal; N1 vs plain: {msg}", flush=True)
+
+    # one step captured in a CUDA graph: the capture fails on a host sync
+    graphed = step.graphed(m32, tp)
+    g_logl, g_t = (float(v) for v in graphed(m32, tp))
+    check((g_logl, g_t) == (logl, t_star),
+          f"train step as a CUDA graph {(g_logl, g_t)} vs eager "
+          f"{(logl, t_star)}")
+
+    runs = {"step": lambda: step(m32, tp),
+            "step_graph": lambda: graphed(m32, tp),
+            "n1": lambda: dv.newton_solve(**args)}
+    timed = {name: time_ms(fn) for name, fn in runs.items()}
+    ms = {name: dev for name, (dev, _) in timed.items()}
+    idle = {name: host_ms(runs[name]) for name in ("step", "step_graph")}
+    ms["n1_plain"] = time_ms(lambda: dv.newton_solve_plain(**args), iters=3,
+                             warmup=1)[0]
+    n1_bound = bound(newton_flop(c, s) * sites * iters,
+                     (c * s * sites + 2 * sites) * 4, peak)
+    print(f"[17 train times] {card}: make_train_step_fused "
+          f"{ms['step']:.4f} ms/step eager (host issues a call in "
+          f"{timed['step'][1]:.4f} ms; {idle['step']:.4f} ms with the card "
+          f"idle), {ms['step_graph']:.4f} ms/step as a CUDA graph (host "
+          f"{idle['step_graph']:.4f} ms with the card idle; equal to the "
+          f"eager step bit for bit); N1 {ms['n1']:.4f} ms for {iters} "
+          f"bodies in {dv.NEWTON_ITERS} launches "
+          f"({ms['n1'] / dv.NEWTON_ITERS * 1e3:.2f} us a launch), bound "
+          f"{n1_bound[0]:.4f} ms ({n1_bound[1]}), plain twin "
+          f"{ms['n1_plain']:.4f} ms; CUDA events", flush=True)
+    return dict(launches=launches["newton_solve"], n1_err=n1_err, ms=ms,
+                n1_bound=n1_bound)
+
+
+
+
 def main():
     try:
         import torch
@@ -1338,6 +1634,7 @@ def main():
     from libpll_tpu_torch.ops import clv_dyn as cd
     from libpll_tpu_torch.ops import clv_fused as cf
     from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.ops import derivatives as dv
     from libpll_tpu_torch.ops import roofline as rf
     from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
                                                  FLAGSHIP_SITES,
@@ -1356,10 +1653,10 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    sources = ["clv_fused", "clv_dyn", "clv_seg", "roofline"]
+    sources = _build.SOURCES
     _build.build_all(sources)  # one nvcc each, all at once
     build_s = time.perf_counter() - t0
-    for module in (cf, cd, cseg, rf):
+    for module in (cf, cd, cseg, rf, dv):
         module.load_kernels()
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
@@ -1552,6 +1849,19 @@ def main():
     roof = phase_roofline(device, card, ms["k1"], readme["ms"]["k3"],
                           readme["n_inner"])
 
+    # ---------------------------------------------------- 15-17: train step
+    rows = ptxas_report("derivatives")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n, n1_small = check_newton_small(device)
+    print(f"[15 newton small] derivatives.cu: {len(rows)} kernel instances: "
+          + "; ".join(f"{lab} {r} registers, {b} B spill"
+                      for lab, r, b in rows)
+          + f"; {n} configurations of N1 match its plain twin "
+          f"({time.perf_counter() - t0:.1f} s); largest f32 |d t*| "
+          f"{n1_small:.3e}", flush=True)
+    train = phase_train_step(device, card, fp32_peak)
+
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
         # tree sweep, or a dependent multiply-add chain): no library time
@@ -1561,6 +1871,7 @@ def main():
     dyn_src = "libpll_tpu_torch/csrc/clv_dyn.cu"
     seg_src = "libpll_tpu_torch/csrc/clv_seg.cu"
     roof_src = "libpll_tpu_torch/csrc/roofline.cu"
+    deriv_src = "libpll_tpu_torch/csrc/derivatives.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
@@ -1601,7 +1912,13 @@ def main():
          "replaces": "scripts/bench_vpu_roofline.py:110",
          "launches": roof["launches"]["k8"], "max_abs_err": roof["k8_err"],
          "ms": roof["ms"]["k8"], "plain_ms": roof["ms"]["k8_plain"],
-         **bound_keys(roof["k8_bound"])}]}))
+         **bound_keys(roof["k8_bound"])},
+        # a lax.while_loop in JAX, not a Pallas kernel
+        {"name": "newton_solve", "route": "cuda", "source": deriv_src,
+         "replaces": "libpll_tpu/engine/evaluate.py:657",
+         "launches": train["launches"], "max_abs_err": train["n1_err"],
+         "ms": train["ms"]["n1"], "plain_ms": train["ms"]["n1_plain"],
+         **bound_keys(train["n1_bound"])}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

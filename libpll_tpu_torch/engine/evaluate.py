@@ -15,11 +15,18 @@ whose inputs lie on another device raises.
   * :func:`make_score` — K1 (``ops.clv_fused.fused_edge_score``), the
     tree-search scoring path, with +I in the kernel and asc-bias through
     :func:`make_asc_tail`; ``Score.graphed`` captures one call in a CUDA
-    graph (:class:`GraphedScore`) for callers whose host, not the card,
+    graph (:class:`GraphedCall`) for callers whose host, not the card,
     sets the pace;
   * :func:`make_score_unbounded` — K6 (``ops.clv_dyn.make_dyn_score``),
     the same scoring for trees of any size: the tree is cut into segments
-    whose rows fit a device-memory budget, and tips are pattern tips.
+    whose rows fit a device-memory budget, and tips are pattern tips;
+  * :func:`make_train_step_fused` — K2, the edge logL, the sumtable and
+    the Newton solve of the evaluation edge's branch length (kernel N1,
+    ``ops.derivatives.newton_solve``); :func:`make_train_step` the same
+    on the plain level sweep.
+
+Every factory builds its module on ``device``: the card when it is None
+(a :class:`KernelError` without one), the CPU only when asked for.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..errors import EinvalError
+from ..errors import EinvalError, KernelError
 from ..ops import clv_dyn as cd
 from ..ops import clv_fused as cf
+from ..ops import derivatives as dv
 from ..ops import likelihood as lk_ops
 from ..ops.pmatrix import compute_pmatrices
 from ..ops.sweep import LevelSchedule, build_level_schedule, make_level_sweep
@@ -107,15 +115,28 @@ def _floats(model, dtype):
                       "prop_invar_pc")}
 
 
-class _TopologyModule(nn.Module):
-    """Holds one evaluation topology; its device is that of its buffers."""
+def _resolve_device(device=None) -> torch.device:
+    """The device a module is built on: the card when ``device`` is None;
+    a CUDA device without a card raises :class:`KernelError` (no fallback
+    to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise KernelError("no CUDA card: pass device='cpu' to build the "
+                          "module on the CPU (plain versions of the kernels)")
+    return device
 
-    def __init__(self, topo: EvalTopology):
+
+class _TopologyModule(nn.Module):
+    """Holds one evaluation topology; its device is that of its buffers
+    (built on :func:`_resolve_device` of ``device``)."""
+
+    def __init__(self, topo: EvalTopology, device=None):
         super().__init__()
         self.topo = topo
         self.register_buffer(
             "matrix_indices",
-            torch.as_tensor(topo.matrix_indices, dtype=torch.long),
+            torch.as_tensor(topo.matrix_indices, dtype=torch.long,
+                            device=_resolve_device(device)),
             persistent=False)
 
     @property
@@ -139,17 +160,22 @@ class Forward(_TopologyModule):
     clv: [tips + n_inner, C, S, L] level-major; scalers [n_inner+1, (C,) L].
     """
 
-    def __init__(self, topo: EvalTopology):
-        super().__init__(topo)
+    def __init__(self, topo: EvalTopology, device=None):
+        super().__init__(topo, device)
         self.sweep = make_level_sweep(topo.schedule, topo.scale_mode)
 
     def forward(self, model, clv, scalers):
+        return self.swept(model, clv, scalers)[:2]
+
+    def swept(self, model, clv, scalers):
+        """``(logl, persite, clv, scalers)``, the CLVs and scalers after
+        the sweep."""
         self._check_device(model, clv, scalers)
         topo = self.topo
         pmatrix = self.pmatrices(model, clv.dtype)
         clv, scalers = self.sweep(clv, scalers, pmatrix)
         f = _floats(model, clv.dtype)
-        return lk_ops.edge_loglikelihood(
+        logl, persite = lk_ops.edge_loglikelihood(
             clv[topo.parent_clv], clv[topo.child_clv],
             scalers[topo.scaler_row(topo.parent_clv)],
             scalers[topo.scaler_row(topo.child_clv)],
@@ -157,11 +183,12 @@ class Forward(_TopologyModule):
             f["pattern_weights"], f["prop_invar_pc"], model["invariant"],
             sites=topo.sites, per_rate=topo.scale_mode == SCALE_PER_RATE,
             asc_mode=topo.asc_mode)
+        return logl, persite, clv, scalers
 
 
-def make_forward(topo: EvalTopology) -> Forward:
+def make_forward(topo: EvalTopology, *, device=None) -> Forward:
     """Build the float64 reference forward (``evaluate.py:138``)."""
-    return Forward(topo)
+    return Forward(topo, device)
 
 
 def _working_dtype(model, tips_packed, tip_encoding):
@@ -180,8 +207,9 @@ class ForwardFused(_TopologyModule):
     L] and ``scalers`` are returned for reuse.
     """
 
-    def __init__(self, topo, rate_cats, states, tip_encoding="clv"):
-        super().__init__(topo)
+    def __init__(self, topo, rate_cats, states, tip_encoding="clv",
+                 device=None):
+        super().__init__(topo, device)
         cf.check_tip_encoding(tip_encoding, states)
         self.rate_cats, self.states = rate_cats, states
         self.tip_encoding = tip_encoding
@@ -229,13 +257,13 @@ def _check_impl(impl: str, mxu_precision: str = "highest") -> None:
 
 
 def make_forward_fused(topo: EvalTopology, rate_cats: int, states: int,
-                       impl: str = "auto", *,
-                       tip_encoding: str = "clv") -> ForwardFused:
+                       impl: str = "auto", *, tip_encoding: str = "clv",
+                       device=None) -> ForwardFused:
     """Build the K2 forward (``evaluate.py:167``), with JAX's parameters
     in JAX's order (``impl`` checked, else ignored; ``interpret`` is not
     ported); unlike the JAX one it also takes pattern tips, as K2 does."""
     _check_impl(impl)
-    return ForwardFused(topo, rate_cats, states, tip_encoding)
+    return ForwardFused(topo, rate_cats, states, tip_encoding, device)
 
 
 class AscTail(_TopologyModule):
@@ -245,8 +273,8 @@ class AscTail(_TopologyModule):
     asc-free.  ``model`` carries ``asc_weights`` [S] (Lewis ignores them).
     Counterpart ``make_asc_tail``."""
 
-    def __init__(self, topo, rate_cats, states):
-        super().__init__(topo)
+    def __init__(self, topo, rate_cats, states, device=None):
+        super().__init__(topo, device)
         self.rate_cats, self.states = rate_cats, states
         self.sweep = make_level_sweep(topo.schedule, topo.scale_mode)
 
@@ -282,10 +310,10 @@ class AscTail(_TopologyModule):
             topo.asc_mode, dtype)
 
 
-def make_asc_tail(topo: EvalTopology, rate_cats: int,
-                  states: int) -> AscTail:
+def make_asc_tail(topo: EvalTopology, rate_cats: int, states: int, *,
+                  device=None) -> AscTail:
     """Build the asc-bias side sweep (``evaluate.py:219``)."""
-    return AscTail(topo, rate_cats, states)
+    return AscTail(topo, rate_cats, states, device)
 
 
 def _pinv_score_inputs(model, dtype):
@@ -313,8 +341,8 @@ class Score(_TopologyModule):
     :class:`AscTail`.  ``tips_packed`` as in :class:`ForwardFused`."""
 
     def __init__(self, topo, rate_cats, states, use_pinv=False,
-                 tip_encoding="clv"):
-        super().__init__(topo)
+                 tip_encoding="clv", device=None):
+        super().__init__(topo, device)
         if topo.asc_mode and use_pinv:
             raise EinvalError("asc-bias and prop-invar are mutually exclusive")
         cf.check_score_scope(topo.schedule, topo.scale_mode, topo.parent_clv)
@@ -326,7 +354,7 @@ class Score(_TopologyModule):
                                   (topo.parent_clv, topo.child_clv,
                                    topo.edge_matrix))
                      if states == cf.KERNEL_STATES else None)
-        self.asc_tail = (AscTail(topo, rate_cats, states)
+        self.asc_tail = (AscTail(topo, rate_cats, states, self.device)
                          if topo.asc_mode else None)
 
     def forward(self, model, tips_packed):
@@ -349,42 +377,44 @@ class Score(_TopologyModule):
             logl = logl + self.asc_tail(model, pmatrix)
         return logl
 
-    def graphed(self, model, tips_packed) -> "GraphedScore":
+    def graphed(self, model, tips_packed) -> "GraphedCall":
         """This scorer's call on inputs shaped as ``model`` and
         ``tips_packed`` (CUDA tensors), captured in a CUDA graph."""
-        return GraphedScore(self, model, tips_packed)
+        return GraphedCall(self, model, tips_packed)
 
 
-class GraphedScore:
-    """One :class:`Score` call captured in a CUDA graph and replayed, the
+class GraphedCall:
+    """One call of a module taking ``(model, tips_packed)`` (:class:`Score`,
+    :class:`TrainStepFused`) captured in a CUDA graph and replayed, the
     counterpart of the JAX package's single jitted dispatch: the call's
-    device work (P-matrices, K1, the float64 fold) replays as one graph,
-    so the host issues a few input copies and one launch in place of the
-    eager call's dozens of operations.
+    device work (P-matrices, the kernels, the float64 fold) replays as one
+    graph, so the host issues a few input copies and one launch in place
+    of the eager call's dozens of operations.  The capture fails if the
+    call reads anything back to the host.
 
     ``graphed(model, tips_packed)`` copies each input that is not already
     the graph's own (``graphed.model``, ``graphed.tips``: update those in
     place to skip the copy) and replays; inputs keep the captured call's
-    shapes, dtypes and device.  The float64 logL it returns is the graph's
-    output tensor, overwritten by the next replay.  A replay runs K1
-    without passing through its wrapper, so ``fused_edge_score.launches``
-    counts the capture, not the replays."""
+    shapes, dtypes and device.  It returns the graph's output tensors,
+    overwritten by the next replay.  A replay runs the kernels without
+    passing through their wrappers, so the launch counters count the
+    capture, not the replays."""
 
-    def __init__(self, score: Score, model, tips_packed):
+    def __init__(self, module: nn.Module, model, tips_packed):
         device = tips_packed.device
         if device.type != "cuda":
             raise EinvalError(f"a CUDA graph takes CUDA tensors, not {device}")
-        self.score = score  # the graph reads its plan's device tables
+        self.module = module  # the graph reads its plans' device tables
         self.model = {k: v.clone() for k, v in model.items()}
         self.tips = tips_packed.clone()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):  # build, plan layout, cached tables
-            score(self.model, self.tips)
+            module(self.model, self.tips)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.logl = score(self.model, self.tips)
+            self.out = module(self.model, self.tips)
 
     def __call__(self, model, tips_packed):
         pairs = [(self.model[k], v) for k, v in model.items()]
@@ -399,18 +429,18 @@ class GraphedScore:
                     f"{tuple(static.shape)} {static.dtype} on {static.device}")
             static.copy_(value)
         self.graph.replay()
-        return self.logl
+        return self.out
 
 
 def make_score(topo: EvalTopology, rate_cats: int, states: int,
                impl: str = "auto", use_pinv: bool = False,
                tip_encoding: str = "clv",
-               mxu_precision: str = "highest") -> Score:
+               mxu_precision: str = "highest", *, device=None) -> Score:
     """Build the K1 scorer (``evaluate.py:288``), with JAX's parameters in
     JAX's order (``impl`` checked, else ignored; ``mxu_precision``
     "highest" only; ``interpret`` is not ported)."""
     _check_impl(impl, mxu_precision)
-    return Score(topo, rate_cats, states, use_pinv, tip_encoding)
+    return Score(topo, rate_cats, states, use_pinv, tip_encoding, device)
 
 
 class ScoreUnbounded(_TopologyModule):
@@ -420,15 +450,16 @@ class ScoreUnbounded(_TopologyModule):
 
     ``tips_packed``: the whole tree's pattern tips, ``clv_fused.
     pack_tipchars`` nibbles (``"chars"``) or [tips, L] int32 bitmasks
-    (``"masks"``), on any device; the module's buffers follow ``.to()``.
+    (``"masks"``), copied to the module's device; its buffers follow
+    ``.to()``.
     Segments take at most ``clv_dyn.dyn_max_rows`` rows at the tips' site
     count.  +I through the in-kernel linear fold, asc-bias through
     :class:`AscTail`.  ``return_partials`` returns the float64 partial
     sums of each 128-site block instead of their total."""
 
     def __init__(self, topo, rate_cats, states, tips_packed, tip_encoding,
-                 use_pinv=False, mxu_precision="highest"):
-        super().__init__(topo)
+                 use_pinv=False, mxu_precision="highest", device=None):
+        super().__init__(topo, device)
         if topo.asc_mode and use_pinv:
             raise EinvalError("asc-bias and prop-invar are mutually exclusive")
         self.dyn = cd.build_dyn_schedule(
@@ -446,8 +477,8 @@ class ScoreUnbounded(_TopologyModule):
                         ("tables", torch.stack(tables)),
                         ("m_ops", torch.stack(m_ops)),
                         ("exp_tables", torch.stack(exp_tables))):
-            self.register_buffer(name, t, persistent=False)
-        self.asc_tail = (AscTail(topo, rate_cats, states)
+            self.register_buffer(name, t.to(self.device), persistent=False)
+        self.asc_tail = (AscTail(topo, rate_cats, states, self.device)
                          if topo.asc_mode else None)
 
     def forward(self, model, return_partials=False):
@@ -471,7 +502,7 @@ class ScoreUnbounded(_TopologyModule):
 
 def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
                          tip_masks, use_pinv: bool = False,
-                         mxu_precision: str = "highest"
+                         mxu_precision: str = "highest", *, device=None
                          ) -> ScoreUnbounded:
     """Build the K6 scorer from [tips, sites] ambiguity bitmasks
     (``evaluate.py:451``): nibble-packed where DNA masks fit four bits,
@@ -481,4 +512,99 @@ def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
     tips = (cf.pack_tipchars(masks) if enc == "chars"
             else torch.from_numpy(masks.astype(np.int32)))
     return ScoreUnbounded(topo, rate_cats, states, tips, enc, use_pinv,
-                          mxu_precision)
+                          mxu_precision, device)
+
+
+def _newton_args(model, topo, clv_parent, clv_child, scal_parent, scal_child,
+                 site_scalers):
+    """N1's arguments (``ops.derivatives.newton_solve``) for the evaluation
+    edge, from its two CLVs and their scaler rows: the sumtable (per-rate
+    scalers folded in), the model's vectors in the CLVs' dtype, and
+    ``site_scalers`` (parent, child) for the asc pseudo-site terms."""
+    dtype = clv_parent.dtype
+    pidx = model["params_indices"].long()
+    f = _floats(model, dtype)
+    sumtable = dv.update_sumtable(
+        clv_parent, clv_child, scal_parent, scal_child, f["freqs_pc"],
+        model["left"][pidx].to(dtype), model["right"][pidx].to(dtype),
+        per_rate=topo.scale_mode == SCALE_PER_RATE)
+    # t0: create_operations lists the evaluation edge's branch last
+    return dict(
+        sumtable=sumtable, t0=model["branch_lengths"][-1:].to(dtype),
+        rates=model["rates"].to(dtype), prop_invar=f["prop_invar_pc"],
+        eigenvals_pc=model["eigenvals"][pidx].to(dtype),
+        freqs_pc=f["freqs_pc"], rate_weights=f["rate_weights"],
+        invariant=model["invariant"], pattern_weights=f["pattern_weights"],
+        scaler_parent=site_scalers[0], scaler_child=site_scalers[1],
+        sites=topo.sites, asc_mode=topo.asc_mode)
+
+
+class TrainStepFused(ForwardFused):
+    """``forward(model, tips_packed) -> (logl, t_star)``: the Newton
+    branch-length update of the evaluation edge on the fused path
+    (counterpart ``make_train_step_fused``, ``evaluate.py:596-661``):
+    P-matrices → K2 → edge logL (the :class:`ForwardFused` call, so the
+    logL is its bits) → the sumtable of the edge's two rows, once → N1
+    from ``t0 = branch_lengths[-1]``, all on the card with no host read.
+    The derivative call's site scalers are zeros, asc modes included, as
+    JAX's (``:636``, ``:648``).  ``tips_packed`` as in
+    :class:`ForwardFused`; DNA only on the card, as K2."""
+
+    def newton_inputs(self, model, tips_packed):
+        """``(logl, N1's arguments)`` of one step."""
+        logl, _, inner, scalers = ForwardFused.forward(self, model,
+                                                       tips_packed)
+        topo = self.topo
+        dtype = _working_dtype(model, tips_packed, self.tip_encoding)
+        ends = (topo.parent_clv, topo.child_clv)
+        clv_p, clv_c = (self._row(tips_packed, inner, r, dtype) for r in ends)
+        scal_p, scal_c = (scalers[topo.scaler_row(r)] for r in ends)
+        return logl, _newton_args(model, topo, clv_p, clv_c, scal_p, scal_c,
+                                  (None, None))
+
+    def forward(self, model, tips_packed):
+        logl, args = self.newton_inputs(model, tips_packed)
+        return logl, dv.newton_solve(**args).t
+
+    def graphed(self, model, tips_packed) -> GraphedCall:
+        """This step on inputs shaped as ``model`` and ``tips_packed``
+        (CUDA tensors), captured in a CUDA graph."""
+        return GraphedCall(self, model, tips_packed)
+
+
+def make_train_step_fused(topo: EvalTopology, rate_cats: int, states: int,
+                          impl: str = "auto", *, tip_encoding: str = "clv",
+                          device=None) -> TrainStepFused:
+    """Build the fused Newton step (``evaluate.py:596``), with JAX's
+    parameters in JAX's order (``impl`` checked, else ignored;
+    ``interpret`` is not ported); it takes pattern tips, as K2 does."""
+    _check_impl(impl)
+    return TrainStepFused(topo, rate_cats, states, tip_encoding, device)
+
+
+class TrainStep(Forward):
+    """``forward(model, clv, scalers) -> (logl, t_star, clv, scalers)``:
+    the plain level sweep and edge logL of :class:`Forward`, then the
+    sumtable and N1 (counterpart ``make_train_step``,
+    ``evaluate.py:664-727``), any alphabet N1 takes.  Under per-rate
+    scaling the derivative call's site scalers are zeros (``:701-703``)."""
+
+    def newton_inputs(self, model, clv, scalers):
+        """``(logl, clv, scalers, N1's arguments)`` of one step."""
+        logl, _, clv, scalers = self.swept(model, clv, scalers)
+        topo = self.topo
+        ends = (topo.parent_clv, topo.child_clv)
+        scal_p, scal_c = (scalers[topo.scaler_row(r)] for r in ends)
+        site = ((None, None) if topo.scale_mode == SCALE_PER_RATE
+                else (scal_p, scal_c))
+        return logl, clv, scalers, _newton_args(
+            model, topo, clv[ends[0]], clv[ends[1]], scal_p, scal_c, site)
+
+    def forward(self, model, clv, scalers):
+        logl, clv, scalers, args = self.newton_inputs(model, clv, scalers)
+        return logl, dv.newton_solve(**args).t, clv, scalers
+
+
+def make_train_step(topo: EvalTopology, *, device=None) -> TrainStep:
+    """Build the Newton step on the plain level sweep (``evaluate.py:664``)."""
+    return TrainStep(topo, device)

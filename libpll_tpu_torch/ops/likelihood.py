@@ -35,11 +35,13 @@ ASC_FELSENSTEIN = 2
 ASC_STAMATAKIS = 3
 
 
-def log_scale_threshold(dtype, device=None):
-    """log(2**-shift) in the working dtype (shift: 256 f64, 32 f32)."""
+def log_scale_threshold(dtype) -> float:
+    """log(2**-shift) rounded to the working dtype (shift: 256 f64, 32
+    f32), as a Python float: a scalar operand copies nothing to the card,
+    so a CUDA graph can capture the ops that use it."""
     shift = scale_shift_bits(dtype)
-    return (torch.tensor(-float(shift), dtype=dtype, device=device)
-            * torch.tensor(math.log(2.0), dtype=dtype, device=device))
+    return float(torch.tensor(-float(shift), dtype=dtype)
+                 * torch.tensor(math.log(2.0), dtype=dtype))
 
 
 def scale_pow(scal, dtype):
@@ -100,7 +102,7 @@ def _mix_rates(term_r, freqs_pc, rate_weights, prop_invar, invariant):
 def site_lnl(term, site_scalers, pattern_weights, dtype):
     """Per-site log-likelihood with the scaler fold-back, weighted."""
     return (torch.log(term) + site_scalers.to(dtype)
-            * log_scale_threshold(dtype, term.device)) * pattern_weights
+            * log_scale_threshold(dtype)) * pattern_weights
 
 
 def root_loglikelihood(clv_root, scaler, freqs_pc, rate_weights,
@@ -192,7 +194,7 @@ def asc_correction_terms(term_r_asc, scal_asc, rate_weights, asc_weights,
         # weighted log-likelihood of each pseudo-site; the scaler fold-back is
         # deliberately NOT weighted, matching likelihood.c:96-101
         return (torch.log(t) * asc_weights
-                + scal * log_scale_threshold(dtype, t.device)).sum()
+                + scal * log_scale_threshold(dtype)).sum()
     # Lewis / Felsenstein need the absolute likelihoods
     l_base = (t * scale_pow(scal_asc, dtype)).sum()
     if asc_mode == ASC_LEWIS:

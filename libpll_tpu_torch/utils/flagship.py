@@ -156,13 +156,19 @@ def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
     """(topo, model, tips_data, scalers) for a flagship-shaped problem.
 
     ``tip_masks=True``: ``tips_data`` is [tips, sites] uint32 ambiguity
-    bitmasks and ``scalers`` is None.  Otherwise ``tips_data`` is the
-    [2·tips − 2, C, 4, sites] CLV array (tips one-hot, inner rows zero) and
-    ``scalers`` the zero [n_inner + 1, sites] int32 counters."""
+    bitmasks and ``scalers`` is None; with ``simulate`` too, the masks of
+    the states simulated on the tree (the tips the CLV array of the same
+    seed holds; JAX's builder draws random masks there).  Otherwise
+    ``tips_data`` is the [2·tips − 2, C, 4, sites] CLV array (tips one-hot,
+    inner rows zero) and ``scalers`` the zero [n_inner + 1, sites] int32
+    counters."""
     rng = np.random.default_rng(seed)
     tree, topo, model, (w, left, right, freqs) = _topology_and_model(
         tips, sites, rate_cats, dtype, rng)
 
+    if tip_masks and simulate:
+        states = simulate_tips(tree, tips, sites, w, left, right, freqs, rng)
+        return topo, model, np.uint32(1) << states.astype(np.uint32), None
     if tip_masks:
         return topo, model, draw_tip_masks(rng, tips, sites), None
 

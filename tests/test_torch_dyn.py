@@ -267,7 +267,8 @@ def test_make_score_unbounded_f64(scale_mode, pinv, asc_mode, monkeypatch):
         want += float(jev.make_asc_tail(jt, 4, 4)(
             jm, jev._pmatrices(jm, jt, jnp.float64)))
     row_budget(monkeypatch, 16, 4, 4)
-    score = tev.make_score_unbounded(tt, 4, 4, masks, use_pinv=pinv)
+    score = tev.make_score_unbounded(tt, 4, 4, masks, use_pinv=pinv,
+                                     device="cpu")
     assert len(score.dyn.segments) > 2 and score.kernel.tip_encoding == "chars"
     got = score(model_from_numpy(model, "cpu", torch.float64))
     assert got.dtype == torch.float64 and got.dim() == 0
@@ -291,7 +292,8 @@ def test_make_score_unbounded_vs_jax_f32(states, scale_mode, pinv,
                                       interpret=True)
     want32 = float(jscore(jax_model(case["model"])))
     row_budget(monkeypatch, 16, 4, states)
-    score = tev.make_score_unbounded(tt, 4, states, masks, use_pinv=pinv)
+    score = tev.make_score_unbounded(tt, 4, states, masks, use_pinv=pinv,
+                                     device="cpu")
     assert len(score.dyn.segments) > 1
     assert score.kernel.tip_encoding == ("chars" if states == 4 else "masks")
     got = float(score(model_from_numpy(case["model"], "cpu", torch.float32)))
@@ -390,4 +392,4 @@ def test_dyn_guards():
     assert (cd.DynScore.launches, cd.DynSweep.launches) == before
     with pytest.raises(EinvalError):
         tev.make_score_unbounded(tt._replace(asc_mode=1), 4, 4, masks,
-                                 use_pinv=True)
+                                 use_pinv=True, device="cpu")

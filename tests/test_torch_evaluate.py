@@ -73,7 +73,7 @@ def test_make_forward_f64(scale_mode, asc_mode):
     ttopo = case["ttopo"]._replace(asc_mode=asc_mode)
     want, want_ps = jev.make_forward(jtopo)(
         jax_model(model), jnp.asarray(clv), jnp.asarray(scalers))
-    got, got_ps = tev.make_forward(ttopo)(
+    got, got_ps = tev.make_forward(ttopo, device="cpu")(
         model_from_numpy(model, "cpu", torch.float64),
         torch.from_numpy(clv), torch.from_numpy(scalers))
     assert got.dtype == torch.float64
@@ -97,7 +97,8 @@ def test_make_forward_fused_f64(tip_encoding, scale_mode):
     want_clv, want_scal = j_sweep(jtopo.schedule, jtopo.scale_mode)(
         jnp.asarray(case["clv"]), jnp.asarray(case["scalers"]),
         jev._pmatrices(jm, jtopo, jnp.float64))
-    fwd = tev.make_forward_fused(ttopo, 4, STATES, tip_encoding=tip_encoding)
+    fwd = tev.make_forward_fused(ttopo, 4, STATES, tip_encoding=tip_encoding,
+                                 device="cpu")
     got, got_ps, inner, scal = fwd(
         model_from_numpy(case["model"], "cpu", torch.float64),
         port_tips(case, masks, tip_encoding))
@@ -119,7 +120,7 @@ def test_make_forward_fused_f32_vs_jax_fused():
     want32 = float(jfwd(jax_model(case["model"]), cp.pack_tips(
         jnp.asarray(case["clv"][:tips]), "mxu"))[0])
     got = tev.make_forward_fused(case["ttopo"], 4, STATES,
-                                 tip_encoding="chars")(
+                                 tip_encoding="chars", device="cpu")(
         model_from_numpy(case["model"], "cpu", torch.float32),
         cf.pack_tipchars(masks))[0]
     assert_in_budget(float(got), f64_truth(case), want32)
@@ -142,7 +143,7 @@ def test_make_score_f32(tip_encoding, use_pinv):
     want32 = float(jscore(jax_model(model),
                           jax_tips(case, masks, tip_encoding)))
     score = tev.make_score(case["ttopo"], 4, STATES, use_pinv=use_pinv,
-                           tip_encoding=tip_encoding)
+                           tip_encoding=tip_encoding, device="cpu")
     got = score(model_from_numpy(model, "cpu", torch.float32),
                 port_tips(case, masks, tip_encoding))
     assert got.dtype == torch.float64 and got.dim() == 0
@@ -165,7 +166,7 @@ def test_make_score_asc(asc_mode):
     jscore = jev.make_score(jtopo, 4, STATES, impl="vpu", interpret=True)
     want32 = float(jscore(jax_model(sc_model), cp.pack_tips(
         jnp.asarray(case["clv"][:tips]), "vpu")))
-    got = float(tev.make_score(ttopo, 4, STATES)(
+    got = float(tev.make_score(ttopo, 4, STATES, device="cpu")(
         model_from_numpy(sc_model, "cpu", torch.float32),
         torch.from_numpy(case["clv"][:tips])))
 
@@ -183,7 +184,7 @@ def test_make_score_asc(asc_mode):
     want_tail = float(jev.make_asc_tail(jtopo, 4, STATES)(
         jm, jev._pmatrices(jm, jtopo, jnp.float64)))
     tm = model_from_numpy(m64, "cpu", torch.float64)
-    tail = tev.make_asc_tail(ttopo, 4, STATES)
+    tail = tev.make_asc_tail(ttopo, 4, STATES, device="cpu")
     got_tail = float(tail(tm, tail.pmatrices(tm, torch.float64)))
     np.testing.assert_allclose(got_tail, want_tail, rtol=F64_RTOL)
 
@@ -203,8 +204,8 @@ def test_model_from_numpy_carries_a_jax_model():
     want = float(jev.make_forward(jtopo)(m64, clv.astype(jnp.float64),
                                          scalers)[0])
     topo, _, tclv, tscal = build_flagship(12, 64, seed=2)
-    got = float(tev.make_forward(topo)(model, torch.from_numpy(tclv).double(),
-                                       torch.from_numpy(tscal))[0])
+    got = float(tev.make_forward(topo, device="cpu")(
+        model, torch.from_numpy(tclv).double(), torch.from_numpy(tscal))[0])
     np.testing.assert_allclose(got, want, rtol=F64_RTOL)
 
 
@@ -212,12 +213,14 @@ def test_module_guards_and_devices():
     case = make_case(_random_tree_newick(8, np.random.default_rng(11)), 32)
     topo = case["ttopo"]
     with pytest.raises(EinvalError):
-        tev.make_score(topo._replace(asc_mode=1), 4, STATES, use_pinv=True)
+        tev.make_score(topo._replace(asc_mode=1), 4, STATES, use_pinv=True,
+                       device="cpu")
     with pytest.raises(EinvalError):
-        tev.make_score(topo._replace(scale_mode=SCALE_PER_RATE), 4, STATES)
+        tev.make_score(topo._replace(scale_mode=SCALE_PER_RATE), 4, STATES,
+                       device="cpu")
     with pytest.raises(EinvalError):
-        tev.make_score(topo, 4, 8, tip_encoding="chars")
-    score = tev.make_score(topo, 4, STATES)
+        tev.make_score(topo, 4, 8, tip_encoding="chars", device="cpu")
+    score = tev.make_score(topo, 4, STATES, device="cpu")
     assert score.device == torch.device("cpu")
     model = model_from_numpy(case["model"], "cpu", torch.float64)
     tips = torch.from_numpy(case["clv"][:topo.schedule.tips])
@@ -253,18 +256,21 @@ def test_factories_take_jax_arguments_in_jax_order():
     ttips = torch.from_numpy(case["clv"][:tips])
     want = float(jev.make_score(jtopo, 4, STATES, "vpu", interpret=True)(
         jm, jtips))
-    got = float(tev.make_score(ttopo, 4, STATES, "vpu")(tm, ttips))
+    got = float(tev.make_score(ttopo, 4, STATES, "vpu", device="cpu")(
+        tm, ttips))
     assert_in_budget(got, want)
-    pinv = float(tev.make_score(ttopo, 4, STATES, "vpu", True)(tm, ttips))
+    pinv = float(tev.make_score(ttopo, 4, STATES, "vpu", True,
+                                device="cpu")(tm, ttips))
     assert abs(pinv - want) > 100 * (2e-6 * abs(want) + 5e-3)
     want_fwd = float(jev.make_forward_fused(jtopo, 4, STATES, "vpu",
                                             interpret=True)(jm, jtips)[0])
-    got_fwd = float(tev.make_forward_fused(ttopo, 4, STATES, "vpu")(
+    got_fwd = float(tev.make_forward_fused(ttopo, 4, STATES, "vpu",
+                                           device="cpu")(
         tm, ttips)[0])
     assert_in_budget(got_fwd, want_fwd)
     with pytest.raises(EinvalError):
-        tev.make_score(ttopo, 4, STATES, "tensor")
+        tev.make_score(ttopo, 4, STATES, "tensor", device="cpu")
     with pytest.raises(EinvalError):
-        tev.make_forward_fused(ttopo, 4, STATES, "tensor")
+        tev.make_forward_fused(ttopo, 4, STATES, "tensor", device="cpu")
     with pytest.raises(EinvalError):
-        tev.make_score(ttopo, 4, STATES, mxu_precision="high")
+        tev.make_score(ttopo, 4, STATES, mxu_precision="high", device="cpu")

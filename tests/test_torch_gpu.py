@@ -10,8 +10,9 @@ present and skips without one, so this file imports neither jax nor
 ``libpll_tpu``.  Tolerances are chip_smoke.py's: float64 logL rel 1e-12,
 scalers equal; float32 logL within 2e-6·|logL| + 5e-3, scalers agree at
 >= 99.9%, CLVs rtol 1e-5 where they agree.  K1/K2 (``clv_fused``),
-K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``) and the roofline probes K7/K8
-(``roofline``, rel 1e-5 at small chain lengths) are covered.
+K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``), the roofline probes K7/K8
+(``roofline``, rel 1e-5 at small chain lengths) and the Newton kernel N1
+(``derivatives``, chip_smoke's ``newton_close``) are covered.
 """
 
 import sys
@@ -27,6 +28,7 @@ from libpll_tpu_torch.errors import EinvalError
 from libpll_tpu_torch.ops import clv_dyn as cd
 from libpll_tpu_torch.ops import clv_fused as cf
 from libpll_tpu_torch.ops import clv_seg as cseg
+from libpll_tpu_torch.ops import derivatives as dv
 from libpll_tpu_torch.ops import roofline as rf
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -65,9 +67,9 @@ def test_modules_on_card_match_cpu(cuda, tip_encoding):
         tp = chip_smoke.tip_input(masks, tip_encoding, 4, torch.float64,
                                   device)
         score = ev.make_score(topo, 4, 4, use_pinv=True,
-                              tip_encoding=tip_encoding).to(device)
-        fwd = ev.make_forward_fused(topo, 4, 4,
-                                    tip_encoding=tip_encoding).to(device)
+                              tip_encoding=tip_encoding, device=device)
+        fwd = ev.make_forward_fused(topo, 4, 4, tip_encoding=tip_encoding,
+                                    device=device)
         logl, persite, inner, scalers = fwd(model, tp)
         out[str(device)] = (float(score(model, tp)), float(logl),
                             inner.cpu(), scalers.cpu())
@@ -77,7 +79,7 @@ def test_modules_on_card_match_cpu(cuda, tip_encoding):
     torch.testing.assert_close(i1, i0, rtol=1e-12, atol=0)
     assert torch.equal(c1, c0)
     with pytest.raises(EinvalError):  # inputs on another device
-        ev.make_score(topo, 4, 4, tip_encoding=tip_encoding)(
+        ev.make_score(topo, 4, 4, tip_encoding=tip_encoding, device="cpu")(
             model_from_numpy(model_np, cuda, torch.float64), tp)
 
 
@@ -120,8 +122,8 @@ def test_graphed_score_equals_eager(cuda):
         chip_smoke.random_newick(24, np.random.default_rng(9)), 1000, 4, 9)
     tp = chip_smoke.tip_input(masks, "chars", 4, torch.float32, cuda)
     model = model_from_numpy(model_np, cuda, torch.float32)
-    score = ev.make_score(topo, 4, 4, use_pinv=True,
-                          tip_encoding="chars").to(cuda)
+    score = ev.make_score(topo, 4, 4, use_pinv=True, tip_encoding="chars",
+                          device=cuda)
     graphed = score.graphed(model, tp)
     for scale in (1.0, 1.3):
         model["branch_lengths"] = model["branch_lengths"] * scale
@@ -180,9 +182,8 @@ def test_dyn_modules_on_card_match_cpu(cuda, states, monkeypatch):
     for device in ("cpu", cuda):
         model = model_from_numpy(model_np, device, torch.float64)
         score = ev.make_score_unbounded(topo, 4, states, masks,
-                                        use_pinv=True)
+                                        use_pinv=True, device=device)
         assert len(score.dyn.segments) > 2
-        score = score.to(device)
         sweep = cd.make_dyn_sweep(score.dyn, topo.scale_mode, rate_cats=4,
                                   states=states,
                                   tip_encoding=score.kernel.tip_encoding)
@@ -210,7 +211,8 @@ def test_dyn_spilled_pool_on_card_matches_cpu(cuda, states, monkeypatch):
     out = {}
     for device in ("cpu", cuda):
         model = model_from_numpy(model_np, device, torch.float64)
-        score = ev.make_score_unbounded(topo, 4, states, masks).to(device)
+        score = ev.make_score_unbounded(topo, 4, states, masks,
+                                        device=device)
         sweep = cd.make_dyn_sweep(score.dyn, topo.scale_mode, rate_cats=4,
                                   states=states,
                                   tip_encoding=score.kernel.tip_encoding)
@@ -375,3 +377,51 @@ def test_roofline_probes_match_plain_on_card(cuda):
     assert rate > 0 and per_iter > 0 and dts
     with pytest.raises(EinvalError):  # a tile of the wrong height
         rf.roll_contract(x[:8].contiguous(), rf.roll_inputs(1, cuda)[1], 4)
+
+
+@pytest.mark.gpu
+def test_newton_kernel_matches_plain_on_card(cuda):
+    """chip_smoke's phase 15: N1 against its plain twin for every scaling,
+    +I and asc variant, float32/float64, S 4/20, C 1/4/8; 32 launches a
+    call."""
+    before = dv.newton_solve.launches
+    n = chip_smoke.check_newton_small(cuda)[0]
+    assert dv.newton_solve.launches - before >= n * dv.NEWTON_ITERS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_train_step_on_card(cuda, dtype):
+    """make_train_step_fused and make_train_step on the card against the
+    same modules on the CPU (plain versions): logL at the f32 budget or
+    rel 1e-12, t* within 1e-5 or rel 1e-10; the fused step captured in a
+    CUDA graph equals the eager step bit for bit; N1 rejects what it does
+    not take."""
+    from libpll_tpu_torch.utils.flagship import build_flagship
+
+    topo, model_np, masks, _ = build_flagship(24, 1000, simulate=True,
+                                              tip_masks=True, seed=3)
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, dtype)
+        tp = cf.pack_tipchars(masks).to(device)
+        step = ev.make_train_step_fused(topo, 4, 4, tip_encoding="chars",
+                                        device=device)
+        logl, t_star = step(model, tp)
+        out[str(device)] = (float(logl), float(t_star))
+        if device != "cpu":
+            graphed = step.graphed(model, tp)
+            assert tuple(float(v) for v in graphed(model, tp)) == out[
+                str(device)]
+            args = step.newton_inputs(model, tp)[1]
+    (l0, t0), (l1, t1) = out.values()
+    assert chip_smoke.logl_close(l1, l0, dtype)
+    rel = 1e-10 if dtype == torch.float64 else chip_smoke.F32_T_REL
+    assert 1e-8 < t1 < 100 and abs(t1 - t0) <= rel * t0
+    for bad in ({"t0": args["t0"].cpu()},
+                {"sumtable": args["sumtable"][:, :3].contiguous()},
+                {"rates": args["rates"].double() if dtype == torch.float32
+                 else args["rates"].float()},
+                {"invariant": args["invariant"].long()}):
+        with pytest.raises(EinvalError):
+            dv.newton_solve(**dict(args, **bad))

@@ -25,6 +25,7 @@ PORT_MODULES = [
     "libpll_tpu_torch.ops.clv_fused", "libpll_tpu_torch.ops._build",
     "libpll_tpu_torch.ops.clv_seg", "libpll_tpu_torch.ops.clv_dyn",
     "libpll_tpu_torch.ops.roofline", "libpll_tpu_torch.tools.dyn_times",
+    "libpll_tpu_torch.ops.derivatives",
 ]
 
 
