@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five main paths, each driven once with the launch counters set to 0 just
+Six main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -24,19 +24,26 @@ before it and read just after:
   * the training step at the flagship with tips simulated on the tree
     (``make_train_step_fused``): K2, the edge logL, the sumtable and the
     Newton solve of the evaluation edge's branch length, kernel N1
-    (``ops/derivatives.py``, one launch per Newton body, 32 in a row).
+    (``ops/derivatives.py``, one launch per Newton body, 32 in a row);
+  * the protein path: an LG4X+Γ4 alignment of 64 taxa × 65 536 columns
+    simulated on the flagship's tree, written to FASTA, read back,
+    compressed to site patterns and encoded as 20-bit masks, through
+    ``make_score`` (K1 at 20 states), ``make_forward_fused`` (K2) and
+    ``make_train_step_fused`` (K2 and N1).
 
 Phases, one line each:
 
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
      ``clv_seg.cu``, ``roofline.cu`` and ``derivatives.cu`` for sm_90a,
-     one process each, all at once;
+     one process each, all at once; the protein instances' registers,
+     spills and stack;
   3. small configs: K1/K2 against their plain PyTorch versions on the
-     card, for every tip encoding, scale mode, +I and rate-category count,
-     in float64 (logL rel <= 1e-12, scalers equal, CLVs rel 1e-12) and
-     float32 (logL within the f32 budget, scalers agree at >= 99.9% of
-     entries, CLVs rtol 1e-5 where they agree);
+     card, DNA and protein, for every tip encoding (protein: clv and
+     masks), scale mode, +I and rate-category count, in float64 (logL rel
+     <= 1e-12, scalers equal, CLVs rel 1e-12) and float32 (logL within
+     the f32 budget, scalers agree at >= 99.9% of entries, CLVs rtol 1e-5
+     where they agree);
   4. flagship: ``make_score`` and ``make_forward_fused`` in float32 against
      the plain float64 ``make_forward`` on the card, |ΔlogL| <= 2e-6·|logL|
      + 5e-3 (the engine's f32 budget), launch counters > 0;
@@ -98,7 +105,19 @@ Phases, one line each:
  17. train times: the step eager and captured in a CUDA graph (its
      replay equal to the eager step bit for bit; the capture fails on any
      host sync), the host's time per call with the card idle, N1 against
-     its bound and its plain twin.
+     its bound and its plain twin;
+ 18. protein: the three entry points on the card (K1 once, K2 once, K2
+     once and N1 at most 32 times), each logL within the f32 budget of the
+     plain float64 ``make_forward``, the step's logL
+     ``make_forward_fused``'s bits, ``mxu_precision="high"`` equal to
+     "highest" bit for bit, t* within 1e-5 of the float64
+     ``make_train_step``'s, K1 against its plain version and K2's rows and
+     counters against the plain walk (``FusedPlan.plain_walk``, phase 3's
+     float32 rule), the peak device memory of each call, the walk's
+     layout, and which (rate count, dtype, pool) combinations fit a block;
+ 19. protein times: ms per evaluation and per step, eager and as CUDA
+     graphs (equal to the eager calls bit for bit), K1/K2 against their
+     plain versions and their bounds.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak and its bytes
@@ -287,25 +306,39 @@ def check_small(device):
     # P-matrices than the flagship (chunks of ops).  The two large trees
     # underflow float32 without scaling (logL -inf in K1 and its plain
     # version alike): their K1 runs scaled only
+    # Protein (S = 20, masks with B/Z/X among the tips; clv and masks
+    # tips) on the same shapes: all four rate counts, a caterpillar, and
+    # 1 000 taxa, whose walk is staged in chunks of ops; the protein
+    # caterpillar underflows float32 without scaling
     scaled = (SCALE_PER_SITE,)
     both = (SCALE_NONE, SCALE_PER_SITE)
-    trees = [("random16", random_newick(16, rng), (4,), 1000, both),
-             ("caterpillar48", caterpillar_newick(48), (4,), 1000, both),
-             ("random12", random_newick(12, rng), (1, 2, 8), 1000, both),
-             ("caterpillar400", caterpillar_newick(400), (4,), 300, scaled),
-             ("random1000", random_newick(1000, rng), (4,), 300, scaled)]
+    trees = [("random16", random_newick(16, rng), (4,), 1000, both, 4),
+             ("caterpillar48", caterpillar_newick(48), (4,), 1000, both, 4),
+             ("random12", random_newick(12, rng), (1, 2, 8), 1000, both, 4),
+             ("caterpillar400", caterpillar_newick(400), (4,), 300, scaled,
+              4),
+             ("random1000", random_newick(1000, rng), (4,), 300, scaled, 4),
+             ("protein random12", random_newick(12, rng), (1, 2, 4, 8), 1000,
+              both, 20),
+             ("protein caterpillar48", caterpillar_newick(48), (4,), 1000,
+              scaled, 20),
+             ("protein random1000", random_newick(1000, rng), (4,), 300,
+              scaled, 20)]
     n, k1_err, k2_err = 0, 0.0, 0.0
-    for label, newick, cats, sites, k1_scales in trees:
+    for label, newick, cats, sites, k1_scales, states in trees:
+        encodings = ("clv", "chars", "masks") if states == 4 else ("clv",
+                                                                   "masks")
         for rate_cats in cats:
             topo, model_np, masks = small_case(newick, sites, rate_cats,
-                                               seed=rate_cats)
+                                               seed=rate_cats, states=states)
             sched = topo.schedule
             edge = dict(parent_clv=topo.parent_clv,
                         child_clv=topo.child_clv,
                         edge_matrix=topo.edge_matrix)
             for dtype in (torch.float32, torch.float64):
-                for enc in ("clv", "chars", "masks"):
-                    tp = tip_input(masks, enc, rate_cats, dtype, device)
+                for enc in encodings:
+                    tp = tip_input(masks, enc, rate_cats, dtype, device,
+                                   states)
                     where = f"{label} C={rate_cats} {dtype} {enc}"
                     pm = kernel_inputs(topo, model_np, dtype, device,
                                        False)[0]
@@ -602,44 +635,36 @@ def sweep_logl(topo, dyn, inner, scalers, tips_packed, model, pmatrix):
         per_rate=topo.scale_mode == SCALE_PER_RATE)[0])
 
 
-def ptxas_report(name):
-    """[(instance, registers, spill bytes)] from nvcc's -Xptxas -v log."""
+def ptxas_report(name, kernel=""):
+    """[(instance, registers, spill bytes, stack bytes)] from nvcc's
+    -Xptxas -v log of ``csrc/<name>.cu``, of the kernels whose mangled
+    name holds ``kernel``.  An instance is labelled by its template
+    arguments (``<float,4>``; a trailing bool, K1's score flag, as
+    ``<float,4,1>``) or else by its kernel's name."""
     import re
 
     from libpll_tpu_torch.ops import _build
 
-    rows, current, spill = [], None, 0
+    rows, current, spill, stack = [], None, 0, 0
     log = _build.library_path(name).with_suffix(".log")
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
+            current = m.group(1) if kernel in m.group(1) else None
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
         if m:
-            spill = int(m.group(1))
+            stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
-            t = re.search(r"I([fd])Li(\d+)E", current)
+            t = re.search(r"I([fd])Li(\d+)E(?:Lb([01])E)?", current)
             k = re.search(r"\d([a-z_]+_kernel)", current)
             label = (f"<{'float' if t.group(1) == 'f' else 'double'},"
-                     f"{t.group(2)}>" if t else k.group(1) if k
-                     else current)
-            rows.append((label, int(m.group(1)), spill))
+                     f"{t.group(2)}{',' + t.group(3) if t.group(3) else ''}>"
+                     if t else k.group(1) if k else current)
+            rows.append((label, int(m.group(1)), spill, stack))
             current = None
     return rows
-
-
-def ptxas_stack(name):
-    """The largest stack frame, in bytes, of any kernel instance in nvcc's
-    -Xptxas -v log (0: every argument and local stays in registers or the
-    parameter space)."""
-    import re
-
-    from libpll_tpu_torch.ops import _build
-
-    log = _build.library_path(name).with_suffix(".log").read_text()
-    return max((int(b) for b in re.findall(r"(\d+) bytes stack frame", log)),
-               default=0)
 
 
 # ------------------------------------------------------------- timing
@@ -1613,6 +1638,208 @@ def phase_train_step(device, card, peak):
 
 
 
+PROTEIN_FLOP = 2 * 2 * 20 * 20  # per inner node, rate and site: two children
+
+
+def protein_layouts():
+    """Which (rate count, dtype, pool) combinations of the protein K1/K2
+    fit a block's shared memory under per-site scaling (pools of 3 slots:
+    the 64-taxon walk; 6: 1 000 taxa; up to 10): {(C, dtype, pool):
+    (K1 blocks per SM or 0, K2's)}."""
+    import ctypes
+
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
+
+    lib = cf.load_kernels()
+    out = (ctypes.c_int * 6)()
+    fits = {}
+    for c in cf.KERNEL_RATE_CATS:
+        for f64 in (0, 1):
+            for pool in (3, 6, 10):
+                per = []
+                for score in (1, 0):
+                    rc = lib.clv_fused_layout(20, f64, c, SCALE_PER_SITE,
+                                              score, pool, out)
+                    check(rc in (0, 1), f"protein layout query: CUDA error "
+                                        f"{rc}")
+                    per.append(out[1] if rc == 0 else 0)
+                fits[(c, "f64" if f64 else "f32", pool)] = tuple(per)
+    return fits
+
+
+def phase_protein(device, card, peak):
+    """Phases 18-19: the 64-taxon LG4X+Γ4 protein configuration, read
+    from FASTA (``utils/flagship.build_protein_flagship``), through
+    ``make_score`` (K1 at 20 states), ``make_forward_fused`` (K2) and
+    ``make_train_step_fused`` (K2 + N1), each driven once with the
+    counters at 0 around it; the checks, the graphs, the times.  Returns
+    the numbers the JSON line reports."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
+    from libpll_tpu_torch.utils.flagship import (PROTEIN_RATE_CATS,
+                                                 PROTEIN_SITES,
+                                                 PROTEIN_STATES,
+                                                 PROTEIN_TIPS,
+                                                 build_protein_flagship)
+
+    tips, columns = PROTEIN_TIPS, PROTEIN_SITES
+    c, s = PROTEIN_RATE_CATS, PROTEIN_STATES
+    t0 = time.perf_counter()
+    topo, model_np, masks = build_protein_flagship(tips, columns, seed=0)
+    build_s = time.perf_counter() - t0
+    sites, sched = masks.shape[1], topo.schedule
+    multi = float(((masks & (masks - 1)) != 0).mean())  # several bits
+    tp = torch.from_numpy(masks).to(device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    m64 = model_from_numpy(model_np, device, torch.float64)
+    kw = dict(tip_encoding="masks", device=device)
+    score = ev.make_score(topo, c, s, **kw)
+    fwd = ev.make_forward_fused(topo, c, s, **kw)
+    step = ev.make_train_step_fused(topo, c, s, **kw)
+    want = plain_forward_f64(topo, tp, "masks", m64, s)[0]
+    budget = ACC_REL * abs(want) + ACC_ABS
+
+    # the main path: each entry point once, its counters at 0 around it
+    runs = {"make_score": lambda: (score(m32, tp),),
+            "make_forward_fused": lambda: fwd(m32, tp)[:1],
+            "make_train_step_fused": lambda: step(m32, tp)}
+    out, launches, peaks = {}, {}, {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cf.fused_edge_score.launches = 0
+        cf.fused_sweep.launches = 0
+        dv.newton_solve.launches = 0
+        out[name] = tuple(float(v) for v in run())
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        launches[name] = (cf.fused_edge_score.launches,
+                          cf.fused_sweep.launches, dv.newton_solve.launches)
+    check(launches["make_score"] == (1, 0, 0)
+          and launches["make_forward_fused"] == (0, 1, 0)
+          and launches["make_train_step_fused"][:2] == (0, 1)
+          and 0 < launches["make_train_step_fused"][2] <= dv.NEWTON_ITERS,
+          f"protein main path: launches (K1, K2, N1) {launches}")
+    got_score = out["make_score"][0]
+    got_fwd = out["make_forward_fused"][0]
+    logl, t_star = out["make_train_step_fused"]
+    for name, got in (("make_score", got_score),
+                      ("make_forward_fused", got_fwd)):
+        check(np.isfinite(got) and abs(got - want) <= budget,
+              f"protein {name} f32 logL {got} vs plain f64 {want} (budget "
+              f"{budget})")
+    check(logl == got_fwd, f"protein step logL {logl!r} is not "
+                           f"make_forward_fused's {got_fwd!r}")
+    check(dv.MIN_T < t_star < dv.MAX_T, f"protein t* {t_star!r} on the clamp")
+
+    # "high" is computed at "highest": the same bits
+    high = float(ev.make_score(topo, c, s, mxu_precision="high", **kw)(
+        m32, tp))
+    check(high == got_score, f"protein make_score 'high' {high!r} vs "
+                             f"'highest' {got_score!r}")
+
+    # the float64 make_train_step on the card, from the same tips
+    clv64 = torch.zeros((sched.tips + sched.n_inner, c, s, sites),
+                        dtype=torch.float64, device=device)
+    clv64[:sched.tips] = cf.decode_tips(
+        tp, "masks", torch.arange(sched.tips, device=device), c, s,
+        torch.float64)
+    scal = torch.zeros((sched.n_inner + 1, sites), dtype=torch.int32,
+                       device=device)
+    logl64, t64 = (float(v) for v in ev.make_train_step(
+        topo, device=device)(m64, clv64, scal)[:2])
+    del clv64, scal
+    torch.cuda.empty_cache()
+    check(abs(t_star - t64) <= F32_T_REL * t64,
+          f"protein float32 t* {t_star!r} vs float64 t* {t64!r}")
+    check(abs(logl64 - want) <= F64_REL * abs(want),
+          f"protein float64 step logL {logl64!r} vs make_forward {want!r}")
+
+    # each kernel against its plain version at the main path's shapes
+    pm, wvec, pw, _ = kernel_inputs(topo, model_np, torch.float32, device,
+                                    False)
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix, tip_encoding="masks")
+    k1 = lambda: cf.fused_edge_score(sched, tp, pm, wvec, pw,
+                                     plan=score.plan, **edge)
+    k1_plain = lambda: cf.fused_edge_score_plain(sched, tp, pm, wvec, pw,
+                                                 **edge)
+    k2 = lambda: cf.fused_sweep(sched, tp, pm, plan=fwd.plan,
+                                tip_encoding="masks")
+    k2_plain = lambda: cf.fused_sweep_plain(sched, tp, pm,
+                                            tip_encoding="masks")
+    k1_err = abs(float(k1()) - float(k1_plain()))
+    check(k1_err <= budget, f"protein K1 vs plain: |d logL| {k1_err}")
+    ok, k2_err, agree = sweep_close(
+        *k2(), *fwd.plan.plain_walk(tp, pm, SCALE_PER_SITE), torch.float32)
+    check(ok, f"protein K2 vs the plain walk: max abs err {k2_err}, "
+              f"scalers agree {agree}")
+    lay = {name: mod.plan.layout(torch.float32, c, s, topo.scale_mode,
+                                 is_k1)
+           for name, mod, is_k1 in (("K1", score, True), ("K2", fwd, False))}
+    fits = protein_layouts()
+    print(f"[18 protein] {tips} taxa x {columns} columns LG4X+G4 f32 masks "
+          f"(FASTA round trip, compression, encoding in {build_s:.2f} s): "
+          f"{sites} patterns, {multi * 100:.2f}% multi-bit masks; logL: "
+          f"make_score {got_score!r}, make_forward_fused {got_fwd!r}, "
+          f"make_train_step_fused {logl!r} (make_forward_fused's bits), "
+          f"plain f64 make_forward {want!r} (|d| "
+          f"{abs(got_score - want):.3e}, {abs(got_fwd - want):.3e} <= "
+          f"{budget:.3e}); 'high' equal to 'highest' bit for bit; t0 "
+          f"{float(m32['branch_lengths'][-1])!r} -> t* {t_star!r} (float64 "
+          f"t* {t64!r}, rel {abs(t_star - t64) / t64:.3e} <= {F32_T_REL}); "
+          f"launches (K1, K2, N1) {launches}; K1-plain |d logL| "
+          f"{k1_err:.3e}; K2-plain walk max abs {k2_err:.3e}, scalers agree "
+          f"{agree:.6f}; peak device memory GiB " + ", ".join(
+              f"{k} {v:.4f}" for k, v in peaks.items()) + "; walk: pool "
+          f"{score.plan.pool} slots (K2 {fwd.plan.pool}), " + "; ".join(
+              f"{name} {v['smem']} B shared memory per block of "
+              f"{v['threads']} threads x {v['block_sites']} sites, chunks of "
+              f"{v['chunk']} ops, {v['blocks_per_sm']} blocks per SM"
+              for name, v in lay.items()) + "; fits (K1, K2 blocks per SM; "
+          "0: does not fit) by (C, dtype, pool): " + ", ".join(
+              f"{k[0]}/{k[1]}/{k[2]}: {v}" for k, v in fits.items()),
+          flush=True)
+
+    graphed = {"score": score.graphed(m32, tp), "step": step.graphed(m32, tp)}
+    g_score = float(graphed["score"](m32, tp))
+    g_step = tuple(float(v) for v in graphed["step"](m32, tp))
+    check(g_score == got_score and g_step == (logl, t_star),
+          f"protein CUDA graphs {g_score!r}, {g_step} vs eager "
+          f"{got_score!r}, {(logl, t_star)}")
+    timed_runs = {"score": lambda: score(m32, tp),
+                  "score_graph": lambda: graphed["score"](m32, tp),
+                  "forward_fused": lambda: fwd(m32, tp),
+                  "step": lambda: step(m32, tp),
+                  "step_graph": lambda: graphed["step"](m32, tp),
+                  "k1": k1, "k1_plain": k1_plain, "k2": k2,
+                  "k2_plain": k2_plain}
+    ms = {name: time_ms(fn)[0] for name, fn in timed_runs.items()}
+    flop = sched.n_inner * sites * c * PROTEIN_FLOP
+    k1_bound = bound(flop, (tp.numel() + sites) * 4, peak)
+    k2_bound = bound(flop, (tp.numel() + sched.n_inner * c * s * sites
+                            + (sched.n_inner + 1) * sites) * 4, peak)
+    print(f"[19 protein times] {card}: make_score (K1) {ms['score']:.4f} "
+          f"ms/eval eager, {ms['score_graph']:.4f} ms/eval as a CUDA graph; "
+          f"make_forward_fused (K2) {ms['forward_fused']:.4f} ms/eval; "
+          f"make_train_step_fused {ms['step']:.4f} ms/step eager, "
+          f"{ms['step_graph']:.4f} ms/step as a CUDA graph (graphs equal "
+          f"to the eager calls bit for bit); kernel alone K1 "
+          f"{ms['k1']:.4f} ms vs plain {ms['k1_plain']:.4f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {ms['k2']:.4f} ms vs "
+          f"plain {ms['k2_plain']:.4f} ms, bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]}); {flop:.4e} flop of contraction; CUDA events",
+          flush=True)
+    return dict(launches=launches, k1_err=k1_err, k2_err=k2_err, ms=ms,
+                k1_bound=k1_bound, k2_bound=k2_bound)
+
+
 
 def main():
     try:
@@ -1661,9 +1888,14 @@ def main():
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
           f"in {build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
-          f"instances, at most {max(r for _, r, _ in fused)} registers, "
-          f"instances with spills: {sum(1 for *_, b in fused if b)}, "
-          f"largest stack frame {ptxas_stack('clv_fused')} bytes",
+          f"instances, at most {max(r for _, r, _, _ in fused)} registers, "
+          f"instances with spills: {sum(1 for _, _, b, _ in fused if b)}, "
+          f"largest stack frame {max(st for *_, st in fused)} bytes",
+          flush=True)
+    print("[2 build] clv_fused.cu protein instances <dtype,C,K1> "
+          "(registers, spill bytes, stack bytes): " + "; ".join(
+              f"{lab} {r}, {b}, {st}" for lab, r, b, st in
+              ptxas_report("clv_fused", "fused_protein_kernel")),
           flush=True)
 
     t0 = time.perf_counter()
@@ -1732,7 +1964,8 @@ def main():
     ok, k2_err, agree = sweep_close(*k2(), *k2_plain(), torch.float32)
     check(ok, f"flagship K2 vs plain: max abs err {k2_err}, scaler "
               f"agreement {agree}")
-    lay = {name: mod.plan.layout(torch.float32, c, topo.scale_mode, is_k1)
+    lay = {name: mod.plan.layout(torch.float32, c, s, topo.scale_mode,
+                                 is_k1)
            for name, mod, is_k1 in (("K1", score, True), ("K2", fwd, False))}
     print(f"[4 flagship] {tips} taxa x {sites} sites x {c} rates f32 chars: "
           f"make_score {got_score!r}, make_forward_fused {got_fwd:.6f}, "
@@ -1796,7 +2029,8 @@ def main():
     dyn_rows = ptxas_report("clv_dyn")
     print(f"[6 dyn build] clv_dyn.cu: {len(dyn_rows)} kernel instances "
           f"(dtype, states): " + "; ".join(
-              f"{lab} {r} registers, {b} B spill" for lab, r, b in dyn_rows),
+              f"{lab} {r} registers, {b} B spill"
+              for lab, r, b, _ in dyn_rows),
           flush=True)
     del score, fwd, tp, graphed
     torch.cuda.empty_cache()
@@ -1836,7 +2070,7 @@ def main():
         rows = ptxas_report(name)
         print(f"[11 seg build] {name}.cu: {len(rows)} kernel instances: "
               + "; ".join(f"{lab} {r} registers, {b} B spill"
-                          for lab, r, b in rows), flush=True)
+                          for lab, r, b, _ in rows), flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     n, k3_small, k4_small, smem = check_seg_small(device)
@@ -1856,11 +2090,13 @@ def main():
     n, n1_small = check_newton_small(device)
     print(f"[15 newton small] derivatives.cu: {len(rows)} kernel instances: "
           + "; ".join(f"{lab} {r} registers, {b} B spill"
-                      for lab, r, b in rows)
+                      for lab, r, b, _ in rows)
           + f"; {n} configurations of N1 match its plain twin "
           f"({time.perf_counter() - t0:.1f} s); largest f32 |d t*| "
           f"{n1_small:.3e}", flush=True)
     train = phase_train_step(device, card, fp32_peak)
+    torch.cuda.empty_cache()
+    protein = phase_protein(device, card, fp32_peak)
 
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
@@ -1918,7 +2154,19 @@ def main():
          "replaces": "libpll_tpu/engine/evaluate.py:657",
          "launches": train["launches"], "max_abs_err": train["n1_err"],
          "ms": train["ms"]["n1"], "plain_ms": train["ms"]["n1_plain"],
-         **bound_keys(train["n1_bound"])}]}))
+         **bound_keys(train["n1_bound"])},
+        {"name": "fused_edge_score_protein", "route": "cuda",
+         "source": fused_src, "replaces": "libpll_tpu/ops/clv_pallas.py:462",
+         "launches": protein["launches"]["make_score"][0],
+         "max_abs_err": protein["k1_err"], "ms": protein["ms"]["k1"],
+         "plain_ms": protein["ms"]["k1_plain"],
+         **bound_keys(protein["k1_bound"])},
+        {"name": "fused_sweep_protein", "route": "cuda", "source": fused_src,
+         "replaces": "libpll_tpu/ops/clv_pallas.py:673",
+         "launches": protein["launches"]["make_forward_fused"][1],
+         "max_abs_err": protein["k2_err"], "ms": protein["ms"]["k2"],
+         "plain_ms": protein["ms"]["k2_plain"],
+         **bound_keys(protein["k2_bound"])}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,7 +23,11 @@
 //
 // Tips come as 0/1 CLV rows ("clv", [tips, C*S, L]), as 4-bit ambiguity
 // codes packed eight to an int32 word ("chars", nibble 4*(i%8) of word i/8,
-// masked & 0xF), or as one bitmask word per tip ("masks").
+// masked & 0xF; DNA only), or as one bitmask word per tip ("masks").
+//
+// Instances: DNA (S = 4) and protein (S = 20, where the TPU kernels switch
+// to their MXU variant, a block-diagonal contraction: clv_pallas.py:498,
+// :715), each at C in {1, 2, 4, 8} rates, float32 and float64, K1 and K2.
 //
 // Design on this card.
 //  * The walk is planned once per topology on the host (clv_fused.FusedPlan):
@@ -34,7 +38,7 @@
 //    naming its children and counters as a tip or a pool slot.  K1 keeps
 //    every inner row on chip (no device scratch); K2 writes each row and
 //    counter once, coalesced, as its op makes it, and reads none back.
-//  * One thread runs kSitesPerThread sites of a block's tile (the site
+//  * DNA: one thread runs kSitesPerThread sites of a block's tile (the site
 //    axis is fastest: a warp's loads and stores are coalesced, and its pool
 //    columns sit in distinct banks) and holds each site's C*S values in
 //    registers, so per-site scaling needs no barrier.  Each P row read
@@ -56,11 +60,18 @@
 //    and the partials are summed in the first kernel's order (each warp's
 //    shuffle tree, then four warps in order): the rows, counters and logL
 //    keep their bits.
+//  * Protein takes the pool kernels' layout, one thread per (site, rate)
+//    (see "Protein" below): the contraction stays full FP32 (no tensor
+//    cores), each value in the DNA instances' order, the rate terms of the
+//    edge summed in rate order.
 //
 // What bounds it, at the flagship (64 taxa x 262 144 sites, four rates,
 // float32) per evaluation: ~3.7 GFLOP of contraction (0.055 ms at the FP32
 // peak) against 8.4 MB of tip words and 1 MB of pattern weights read (K1)
 // and 1.11 GB of rows and counters written (K2, 0.33 ms at 3.35 TB/s).
+// Protein (64 taxa, LG4X+G4, float32): 1 600 flop per inner node, site and
+// rate, so K1 is bound by its operations and K2 by the rows it writes
+// (PERF.md has both bounds at the run's pattern count).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -388,33 +399,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The launch for a plan: the largest chunk (8, 4, 2, 1 ops) and then
-// block (128, 64, 32 threads) whose shared memory fits a block.  out:
-// dynamic shared memory, blocks per SM, threads, chunk, sites per block,
-// SMs.
-// It also raises the kernel's limit of dynamic shared memory to all a block
-// may have, so that every launch of a layout it gave is taken.
-template <typename T, int C, bool kScore>
-int layout(int scale_mode, int pool, int* out) {
-  int device = 0, optin = 0, sms = 0;
+// Raise `kernel`'s limit of dynamic shared memory to all a block may have
+// (so that every launch of a layout given for it is taken) and prefer
+// shared memory to L1.  limit: those bytes; sms: the card's SMs.
+template <typename K>
+cudaError_t open_kernel(K* kernel, int* limit, int* sms) {
+  int device = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *limit = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, fused_kernel<T, C, kScore>);
-  const int limit = optin - (int)attr.sharedSizeBytes;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_kernel<T, C, kScore>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               limit);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_kernel<T, C, kScore>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// The launch for a plan: the largest chunk (8, 4, 2, 1 ops) and then
+// block (128, 64, 32 threads) whose shared memory fits a block.  out:
+// dynamic shared memory, blocks per SM, threads, chunk, sites per block,
+// SMs.
+template <typename T, int C, bool kScore>
+int layout(int scale_mode, int pool, int* out) {
+  int limit = 0, sms = 0;
+  cudaError_t err = open_kernel(fused_kernel<T, C, kScore>, &limit, &sms);
   if (err != cudaSuccess) return (int)err;
   const int srows = scale_mode == SCALE_PER_RATE ? C : 1;
   constexpr int U = kSitesPerThread<T, C>;
@@ -459,18 +477,346 @@ int dispatch(int rate_cats, const FusedArgs<T>& a, int threads, int grid,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Protein (S = 20)
+// ---------------------------------------------------------------------------
+// A site's C*S values would take 80 registers a child at four rates, too
+// many to hold as the DNA instances do.  The protein instances take the
+// pool kernels' layout instead (clv_dyn.cu, clv_seg.cu): a block is a tile
+// of 32 sites by C rates, one thread per (site, rate) holding that rate's
+// 20 values (clv_common.cuh's Lane: warp c runs rate c), and the walk's
+// live rows sit in the pool [slot, S, 32*C] in shared memory.  The
+// per-site scaling test votes across the C warps (site_vote, one barrier
+// per op that may scale); K1's edge fold gathers a site's C rate terms
+// through shared memory and sums them in rate order.  Each op's two
+// P-matrices (and, for K1's edge fold, the edge's) are staged in shared
+// memory, transposed on the way (12.8 KB at four rates in float32, between
+// two barriers), and read as 16-byte vectors, one address a warp.  Read
+// through L1 instead, as the pool kernels read protein rows (kStagePm),
+// they took twice as long on an H100: the blocks of an SM walk different
+// ops, and their matrices do not fit the L1 that the pool leaves.  A walk
+// of up to kProtChunk ops has its descriptors staged once per block; the
+// blocks loop over the 32-site tiles.
+constexpr int kProtStates = 20;
+constexpr int kProtChunk = 64;  // ops staged at once, at most
+
+// Dynamic shared memory, in this order: the op's staged matrices
+// [2, C, S, S], the chunk's descriptors, the pool's values
+// [slot, S, 32*C] and counters [slot, 32] (per rate [slot, 32*C]), and
+// K1's edge exchange, [32*C] terms and counters.
+template <typename T, int C, bool kScore>
+size_t protein_smem_bytes(int chunk, int pool, int scale_mode) {
+  constexpr size_t nt = (size_t)kTileSites * C;
+  const size_t counters = scale_mode == SCALE_PER_RATE ? nt : kTileSites;
+  return 2 * C * kProtStates * kProtStates * sizeof(T) +
+         (size_t)chunk * sizeof(OpDesc) +
+         (size_t)pool * (kProtStates * nt * sizeof(T) +
+                         counters * sizeof(int32_t)) +
+         (kScore ? nt * (sizeof(T) + sizeof(int32_t)) : 0);
+}
+
+// The thread's 20 values of the row named by descriptor d: a pool slot, a
+// CLV tip (its rate's rows) or a 20-bit tip mask decoded into 0/1 values.
+template <typename T, int C>
+__device__ __forceinline__ void protein_row(const FusedArgs<T>& a,
+                                            const Pool<T>& pl, const Lane& ln,
+                                            int d, T (&x)[kProtStates]) {
+  constexpr int S = kProtStates;
+  const int v = index_of(d);
+  if (kind_of(d) == K_POOL) {
+#pragma unroll
+    for (int e = 0; e < S; ++e)
+      x[e] = pl.clv[pool_at<S>(v, pl.nt) + e * pl.nt];
+    return;
+  }
+  if (a.tip_encoding == TIP_CLV) {
+    const T* p = a.tip_clv + ((int64_t)v * C + ln.c) * S * a.sites + ln.site;
+#pragma unroll
+    for (int e = 0; e < S; ++e) x[e] = __ldg(p + e * a.sites);
+    return;
+  }
+  const uint32_t code =
+      (uint32_t)__ldg(a.tip_words + (int64_t)v * a.sites + ln.site);
+#pragma unroll
+  for (int e = 0; e < S; ++e) x[e] = (T)((code >> e) & 1u);
+}
+
+// Matrices m0 (and m1 when k is 2) of pmatrix [M, C, S, S] into pm
+// [k, C, S, S] in shared memory, each S x S block transposed (row d holds
+// every parent state's entry for child state d).  Read as 16-byte vectors, kBatch in
+// flight a thread, as stage_pmatrices reads; every thread of the block
+// must call it between two barriers.
+template <typename T, int C>
+__device__ __forceinline__ void stage_protein_pmatrices(const T* pmatrix,
+                                                        int m0, int m1,
+                                                        int k, T* pm) {
+  using V = typename Vec16<T>::type;
+  constexpr int S = kProtStates, n = Vec16<T>::n, kBatch = 4;
+  constexpr int PM = C * S * S, per = PM / n;  // vectors a matrix
+  const int total = k * per;
+  for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
+    V w[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      if (it < total)
+        w[u] = __ldg(reinterpret_cast<const V*>(
+                         pmatrix + (int64_t)(it < per ? m0 : m1) * PM) +
+                     it % per);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int it = it0 + u * blockDim.x;
+      if (it >= total) continue;
+      // the source's (c, s, d .. d + n - 1) go to (c, d + q, s)
+      const int r = (it % per) * n, c = r / (S * S), s = r / S % S,
+                d = r % S;
+      T* out = pm + (it / per) * PM + c * S * S + d * S + s;
+      if constexpr (n == 4) {
+        out[0] = w[u].x; out[S] = w[u].y;
+        out[2 * S] = w[u].z; out[3 * S] = w[u].w;
+      } else {
+        out[0] = w[u].x; out[S] = w[u].y;
+      }
+    }
+  }
+}
+
+// t (=, or *= when kMul) the thread's rate block of a branch's P-matrices
+// times x.  pmt: the branch's [C, S, S] matrices as
+// stage_protein_pmatrices leaves them in shared memory, transposed, so that
+// one child state's 20 entries load as 16-byte vectors and the 20 sums
+// advance together, 20 independent multiply-add chains in place of one;
+// each sum keeps K1's order (d = 0, 1, ..., as dot_regs).
+template <typename T, bool kMul>
+__device__ __forceinline__ void protein_term(const T* pmt, const Lane& ln,
+                                             const T (&x)[kProtStates],
+                                             T (&t)[kProtStates]) {
+  constexpr int S = kProtStates;
+  const T* p = pmt + ln.c * S * S;
+  T acc[S];
+#pragma unroll
+  for (int d = 0; d < S; ++d) {
+    T col[S];
+    load_pm_row<T, S, true>(p + d * S, col);
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      acc[s] = d == 0 ? col[s] * x[0] : dev_fma(col[s], x[d], acc[s]);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) t[s] = kMul ? t[s] * acc[s] : acc[s];
+}
+
+// Rate c's term of the edge sum, edge_rate_term's arithmetic on the edge's
+// staged P-matrices pet.
 template <typename T>
-int walk(int rate_cats, int tip_encoding, int scale_mode, int64_t sites,
-         int n_ops, int n_inner, int pool, int chunk, int threads,
-         int grid, const void* ops, const void* tips,
+__device__ __forceinline__ T protein_edge_term(const T* pet, const Lane& ln,
+                                               const T (&pv)[kProtStates],
+                                               const T (&x)[kProtStates],
+                                               const T* w) {
+  constexpr int S = kProtStates;
+  T tb[S];
+  protein_term<T, false>(pet, ln, x, tb);
+  T acc = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    acc = dev_fma(pv[s] * tb[s], __ldg(w + ln.c * S + s), acc);
+  return acc;
+}
+
+// The thread's counter named by a counter descriptor (a pool slot, or
+// K_ZERO: 0): its site's, or per rate its own.
+template <typename T>
+__device__ __forceinline__ int protein_count(const Pool<T>& pl,
+                                             const Lane& ln, bool per_rate,
+                                             int d) {
+  return d < 0 ? 0 : pl.scal[scal_at(per_rate, index_of(d), ln, pl.sstride)];
+}
+
+// Stage the descriptors of ops [op0, op0 + n).  Every thread of the block
+// must call it; it returns behind a barrier.
+template <typename T>
+__device__ void stage_ops(const FusedArgs<T>& a, OpDesc* ops, int op0,
+                          int n) {
+  __syncthreads();  // every thread is done with the previous chunk
+  for (int j = threadIdx.x; j < n; j += blockDim.x) ops[j] = a.ops[op0 + j];
+  __syncthreads();
+}
+
+// Every thread runs every op, past-the-end sites included (loads clamped,
+// device stores skipped): the votes need whole warps.  A thread reads and
+// writes only its own column of the pool (a site's counter: warp 0's
+// lane), so a parent may take a child's slot and the tiles follow each
+// other without a barrier.
+template <typename T, int C, bool kScore>
+__global__ void __launch_bounds__(kTileSites * C)
+    fused_protein_kernel(const __grid_constant__ FusedArgs<T> a) {
+  constexpr int S = kProtStates;
+  constexpr int PM = C * S * S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned votes[2][kMaxRates];
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  const bool counts = per_rate || threadIdx.x < kTileSites;  // warp-uniform
+  const int srows = per_rate ? C : 1;
+  const int crow = per_rate ? (int)threadIdx.x / kTileSites : 0;
+  Lane ln;
+  ln.c = threadIdx.x / kTileSites;
+  ln.sl = threadIdx.x % kTileSites;
+  Pool<T> pl;
+  pl.nt = kTileSites * C;
+  pl.sstride = per_rate ? pl.nt : kTileSites;
+  T* const pm_s = reinterpret_cast<T*>(smem);  // the op's matrices
+  OpDesc* const ops = reinterpret_cast<OpDesc*>(pm_s + 2 * PM);
+  pl.clv = reinterpret_cast<T*>(ops + a.chunk);
+  pl.scal = reinterpret_cast<int32_t*>(pl.clv + (size_t)a.pool * S * pl.nt);
+  pl.pm = nullptr;
+  T* const term_s = reinterpret_cast<T*>(pl.scal + a.pool * pl.sstride);
+  int* const sn_s = reinterpret_cast<int*>(term_s + pl.nt);
+
+  const bool one_chunk = a.n_ops <= a.chunk;
+  if (one_chunk) stage_ops(a, ops, 0, a.n_ops);
+  int vb = 0;  // the votes buffer; a barrier lies between two uses of one
+  // the 32-site tiles cover every 128-site partial's sites
+  for (int64_t tile = blockIdx.x; tile < a.n_groups; tile += gridDim.x) {
+    const int64_t site = tile * kTileSites + ln.sl;
+    ln.live = site < a.sites;
+    ln.site = ln.live ? site : a.sites - 1;
+    if (!kScore && counts && ln.live)  // the dummy counters
+      a.scalers[((int64_t)a.n_inner * srows + crow) * a.sites + ln.site] = 0;
+    for (int op0 = 0; op0 < a.n_ops; op0 += a.chunk) {
+      const int n = min(a.chunk, a.n_ops - op0);
+      if (!one_chunk) stage_ops(a, ops, op0, n);
+      for (int j = 0; j < n; ++j) {
+        const OpDesc o = ops[j];
+        int cnt = counts ? protein_count(pl, ln, per_rate, o.s[0]) +
+                               protein_count(pl, ln, per_rate, o.s[1])
+                         : 0;
+        T x[S], t[S];
+        __syncthreads();  // every thread is done with the last matrices
+        stage_protein_pmatrices<T, C>(a.pmatrix, o.m[0], o.m[1], 2, pm_s);
+        __syncthreads();
+        protein_row<T, C>(a, pl, ln, o.c[0], x);
+        protein_term<T, false>(pm_s, ln, x, t);
+        protein_row<T, C>(a, pl, ln, o.c[1], x);
+        protein_term<T, true>(pm_s + PM, ln, x, t);
+        const bool has = o.has != 0;
+        if (per_rate) {
+          cnt += scale_rate<T, S>(has, t, a.u);
+        } else if (a.scale_mode == SCALE_PER_SITE && has &&
+                   site_vote<T, S>(t, a.u, C, ln, votes, vb)) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) t[s] *= a.u.factor;
+          cnt += 1;
+        }
+#pragma unroll
+        for (int e = 0; e < S; ++e)
+          pl.clv[pool_at<S>(o.home, pl.nt) + e * pl.nt] = t[e];
+        if (counts) pl.scal[scal_at(per_rate, o.home, ln, pl.sstride)] = cnt;
+        if (!kScore && ln.live) {
+          T* out = a.inner + ((int64_t)o.out * C + ln.c) * S * a.sites +
+                   ln.site;
+#pragma unroll
+          for (int e = 0; e < S; ++e) out[e * a.sites] = t[e];
+          if (counts)
+            a.scalers[((int64_t)o.out * srows + crow) * a.sites + ln.site] =
+                cnt;
+        }
+      }
+    }
+    if (kScore) {
+      // the last ops' counters (warp 0's) are read by every warp, and
+      // every warp is done with the previous tile's exchange and with the
+      // last op's matrices
+      __syncthreads();
+      const int me = __ldg(a.edge + 4);
+      stage_protein_pmatrices<T, C>(a.pmatrix, me, me, 1, pm_s);
+      __syncthreads();
+      T pv[S], x[S];
+      protein_row<T, C>(a, pl, ln, __ldg(a.edge + 0), pv);
+      protein_row<T, C>(a, pl, ln, __ldg(a.edge + 1), x);
+      term_s[threadIdx.x] =
+          protein_edge_term<T>(pm_s, ln, pv, x, a.weight_vec);
+      sn_s[threadIdx.x] = protein_count(pl, ln, false, __ldg(a.edge + 2)) +
+                          protein_count(pl, ln, false, __ldg(a.edge + 3));
+      __syncthreads();
+      int snum;
+      T term = site_term<T>(term_s, sn_s, C, ln, false, a.u.thresh, snum);
+      if (a.inv_add != nullptr) term += __ldg(a.inv_add + ln.site);
+      const T v =
+          site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + ln.site));
+      // warp 0 sums the tile's 32 sites into partial `tile`
+      tile_sum_store(ln.live ? (double)v : 0.0,
+                     a.partials + (tile - blockIdx.x));
+    }
+  }
+}
+
+// The launch of a plan at S = 20: the largest chunk (64 ops, halved down
+// to 1) whose shared memory fits a block of 32*C threads; out as layout's.
+template <typename T, int C, bool kScore>
+int protein_layout(int scale_mode, int pool, int* out) {
+  int limit = 0, sms = 0;
+  cudaError_t err =
+      open_kernel(fused_protein_kernel<T, C, kScore>, &limit, &sms);
+  if (err != cudaSuccess) return (int)err;
+  for (int chunk = kProtChunk; chunk >= 1; chunk >>= 1) {
+    const size_t smem =
+        protein_smem_bytes<T, C, kScore>(chunk, pool, scale_mode);
+    if (smem > (size_t)limit) continue;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_protein_kernel<T, C, kScore>, kTileSites * C, smem);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = (int)smem;
+    out[1] = per_sm;
+    out[2] = kTileSites * C;
+    out[3] = chunk;
+    out[4] = kTileSites;
+    out[5] = sms;
+    return 0;
+  }
+  return (int)cudaErrorInvalidValue;  // the pool does not fit one block
+}
+
+template <typename T, int C, bool kScore>
+int protein_launch(const FusedArgs<T>& a, int threads, int grid,
+                   cudaStream_t st) {
+  const size_t smem =
+      protein_smem_bytes<T, C, kScore>(a.chunk, a.pool, a.scale_mode);
+  fused_protein_kernel<T, C, kScore><<<grid, threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kScore>
+int protein_dispatch(int rate_cats, const FusedArgs<T>& a, int threads,
+                     int grid, cudaStream_t st) {
+  switch (rate_cats) {
+    case 1: return protein_launch<T, 1, kScore>(a, threads, grid, st);
+    case 2: return protein_launch<T, 2, kScore>(a, threads, grid, st);
+    case 4: return protein_launch<T, 4, kScore>(a, threads, grid, st);
+    case 8: return protein_launch<T, 8, kScore>(a, threads, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int walk(int states, int rate_cats, int tip_encoding, int scale_mode,
+         int64_t sites, int n_ops, int n_inner, int pool, int chunk,
+         int threads, int grid, const void* ops, const void* tips,
          const void* pmatrix, void* inner, int32_t* scalers,
          const int32_t* edge, const void* weight_vec,
          const void* pattern_weights, const void* inv_add, double* partials,
          void* stream) {
-  if (sites < 1 || n_ops < 1 || pool < 1 || chunk < 1 ||
-      chunk > kMaxChunk || threads < 32 || threads > kThreads ||
-      (threads & 31) != 0 || grid < 1 || (edge != nullptr &&
-      scale_mode == SCALE_PER_RATE))
+  const bool protein = states == kProtStates;
+  const bool block_ok =
+      protein ? threads == kTileSites * rate_cats && chunk <= kProtChunk &&
+                    tip_encoding != TIP_CHARS  // a nibble holds 4 states
+              : threads >= 32 && threads <= kThreads && (threads & 31) == 0 &&
+                    chunk <= kMaxChunk;
+  if ((states != kStates && !protein) || !block_ok || sites < 1 ||
+      n_ops < 1 || pool < 1 || chunk < 1 || grid < 1 ||
+      (edge != nullptr && scale_mode == SCALE_PER_RATE))
     return (int)cudaErrorInvalidValue;
   FusedArgs<T> a;
   a.tip_encoding = tip_encoding;
@@ -495,12 +841,26 @@ int walk(int rate_cats, int tip_encoding, int scale_mode, int64_t sites,
   a.partials = partials;
   a.u = scale_units<T>();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (protein)
+    return edge == nullptr
+               ? protein_dispatch<T, false>(rate_cats, a, threads, grid, st)
+               : protein_dispatch<T, true>(rate_cats, a, threads, grid, st);
   return edge == nullptr ? dispatch<T, false>(rate_cats, a, threads, grid, st)
                          : dispatch<T, true>(rate_cats, a, threads, grid, st);
 }
 
 template <typename T, bool kScore>
-int layout_of(int rate_cats, int scale_mode, int pool, int* out) {
+int layout_of(int states, int rate_cats, int scale_mode, int pool, int* out) {
+  if (states == kProtStates) {
+    switch (rate_cats) {
+      case 1: return protein_layout<T, 1, kScore>(scale_mode, pool, out);
+      case 2: return protein_layout<T, 2, kScore>(scale_mode, pool, out);
+      case 4: return protein_layout<T, 4, kScore>(scale_mode, pool, out);
+      case 8: return protein_layout<T, 8, kScore>(scale_mode, pool, out);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (states != kStates) return (int)cudaErrorInvalidValue;
   switch (rate_cats) {
     case 1: return layout<T, 1, kScore>(scale_mode, pool, out);
     case 2: return layout<T, 2, kScore>(scale_mode, pool, out);
@@ -513,19 +873,21 @@ int layout_of(int rate_cats, int scale_mode, int pool, int* out) {
 }  // namespace
 
 // Plain C interface for ctypes.  clv_fused_walk_* launches one kernel on
-// `stream` (K2 when `edge` is null, else K1) and returns cudaGetLastError()
-// (0 on success).
+// `stream` (K2 when `edge` is null, else K1; the DNA instances at 4
+// states, the protein ones at 20) and returns cudaGetLastError() (0 on
+// success).
 
 #define WALK_PARAMS                                                          \
-  int rate_cats, int tip_encoding, int scale_mode, int64_t sites, int n_ops, \
-      int n_inner, int pool, int chunk, int threads, int grid,               \
-      const void *ops, const void *tips, const void *pmatrix, void *inner,   \
-      int32_t *scalers, const int32_t *edge, const void *weight_vec,         \
+  int states, int rate_cats, int tip_encoding, int scale_mode,              \
+      int64_t sites, int n_ops, int n_inner, int pool, int chunk,           \
+      int threads, int grid, const void *ops, const void *tips,             \
+      const void *pmatrix, void *inner, int32_t *scalers,                   \
+      const int32_t *edge, const void *weight_vec,                          \
       const void *pattern_weights, const void *inv_add, double *partials,   \
       void *stream
 #define WALK_ARGS                                                            \
-  rate_cats, tip_encoding, scale_mode, sites, n_ops, n_inner, pool, chunk,   \
-      threads, grid, ops, tips, pmatrix, inner, scalers, edge,               \
+  states, rate_cats, tip_encoding, scale_mode, sites, n_ops, n_inner, pool, \
+      chunk, threads, grid, ops, tips, pmatrix, inner, scalers, edge,       \
       weight_vec, pattern_weights, inv_add, partials, stream
 
 extern "C" int clv_fused_walk_f32(WALK_PARAMS) { return walk<float>(WALK_ARGS); }
@@ -533,15 +895,21 @@ extern "C" int clv_fused_walk_f64(WALK_PARAMS) {
   return walk<double>(WALK_ARGS);
 }
 
-// The launch of a plan on the current device (see layout above); returns
-// 0, or a CUDA error code (cudaErrorInvalidValue: the pool does not fit).
-extern "C" int clv_fused_layout(int f64, int rate_cats, int scale_mode,
-                                int score, int pool, int* out) {
+// The launch of a plan on the current device (see layout and
+// protein_layout above); returns 0, or a CUDA error code
+// (cudaErrorInvalidValue: the pool does not fit).
+extern "C" int clv_fused_layout(int states, int f64, int rate_cats,
+                                int scale_mode, int score, int pool,
+                                int* out) {
   if (f64)
-    return score ? layout_of<double, true>(rate_cats, scale_mode, pool, out)
-                 : layout_of<double, false>(rate_cats, scale_mode, pool, out);
-  return score ? layout_of<float, true>(rate_cats, scale_mode, pool, out)
-               : layout_of<float, false>(rate_cats, scale_mode, pool, out);
+    return score ? layout_of<double, true>(states, rate_cats, scale_mode,
+                                           pool, out)
+                 : layout_of<double, false>(states, rate_cats, scale_mode,
+                                            pool, out);
+  return score ? layout_of<float, true>(states, rate_cats, scale_mode, pool,
+                                        out)
+               : layout_of<float, false>(states, rate_cats, scale_mode, pool,
+                                         out);
 }
 
 extern "C" const char* clv_fused_error_string(int code) {

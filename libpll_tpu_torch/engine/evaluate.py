@@ -213,9 +213,9 @@ class ForwardFused(_TopologyModule):
         cf.check_tip_encoding(tip_encoding, states)
         self.rate_cats, self.states = rate_cats, states
         self.tip_encoding = tip_encoding
-        # K2's walk, planned once per topology (a DNA kernel's)
+        # K2's walk, planned once per topology
         self.plan = (cf.FusedPlan(topo.schedule, tip_encoding)
-                     if states == cf.KERNEL_STATES else None)
+                     if states in cf.KERNEL_STATES else None)
 
     def _row(self, tips_packed, inner, idx, dtype):
         tips = self.topo.schedule.tips
@@ -248,12 +248,15 @@ class ForwardFused(_TopologyModule):
 
 def _check_impl(impl: str, mxu_precision: str = "highest") -> None:
     """JAX's kernel choice, taken for signature parity: the port has one
-    contraction, in full precision."""
+    contraction, in full float32 (or float64) precision.  JAX's "high"
+    (bf16x3 on the TPU's matrix unit, within the float32 budget) is
+    accepted and computed at "highest"; any other precision raises."""
     if impl not in ("auto", "vpu", "mxu"):
         raise EinvalError(f"unknown impl {impl!r}")
-    if mxu_precision != "highest":
+    if mxu_precision not in cd.MXU_PRECISIONS:
         raise EinvalError(f"mxu_precision {mxu_precision!r}: the port "
-                          "computes in full precision ('highest') only")
+                          f"takes {cd.MXU_PRECISIONS}, both computed at "
+                          "full precision ('highest')")
 
 
 def make_forward_fused(topo: EvalTopology, rate_cats: int, states: int,
@@ -349,11 +352,11 @@ class Score(_TopologyModule):
         cf.check_tip_encoding(tip_encoding, states)
         self.use_pinv = use_pinv
         self.tip_encoding = tip_encoding
-        # K1's walk, planned once per topology and edge (a DNA kernel's)
+        # K1's walk, planned once per topology and edge
         self.plan = (cf.FusedPlan(topo.schedule, tip_encoding,
                                   (topo.parent_clv, topo.child_clv,
                                    topo.edge_matrix))
-                     if states == cf.KERNEL_STATES else None)
+                     if states in cf.KERNEL_STATES else None)
         self.asc_tail = (AscTail(topo, rate_cats, states, self.device)
                          if topo.asc_mode else None)
 
@@ -438,7 +441,8 @@ def make_score(topo: EvalTopology, rate_cats: int, states: int,
                mxu_precision: str = "highest", *, device=None) -> Score:
     """Build the K1 scorer (``evaluate.py:288``), with JAX's parameters in
     JAX's order (``impl`` checked, else ignored; ``mxu_precision``
-    "highest" only; ``interpret`` is not ported)."""
+    "highest" or "high", the latter computed at "highest";
+    ``interpret`` is not ported)."""
     _check_impl(impl, mxu_precision)
     return Score(topo, rate_cats, states, use_pinv, tip_encoding, device)
 
@@ -506,7 +510,8 @@ def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
                          ) -> ScoreUnbounded:
     """Build the K6 scorer from [tips, sites] ambiguity bitmasks
     (``evaluate.py:451``): nibble-packed where DNA masks fit four bits,
-    one int32 word per tip and site otherwise."""
+    one int32 word per tip and site otherwise.  ``mxu_precision``
+    "highest" or "high", the latter computed at "highest"."""
     masks = np.asarray(tip_masks)
     enc = "chars" if states <= 4 and int(masks.max()) <= 0xF else "masks"
     tips = (cf.pack_tipchars(masks) if enc == "chars"
@@ -548,7 +553,7 @@ class TrainStepFused(ForwardFused):
     from ``t0 = branch_lengths[-1]``, all on the card with no host read.
     The derivative call's site scalers are zeros, asc modes included, as
     JAX's (``:636``, ``:648``).  ``tips_packed`` as in
-    :class:`ForwardFused`; DNA only on the card, as K2."""
+    :class:`ForwardFused`; DNA or protein on the card, as K2."""
 
     def newton_inputs(self, model, tips_packed):
         """``(logl, N1's arguments)`` of one step."""

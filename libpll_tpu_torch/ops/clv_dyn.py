@@ -44,7 +44,8 @@ What differs from the TPU tier, and why:
     segments, by an index per import slot.  Nothing is gathered into a
     per-segment copy.
   * ``impl`` ("vpu"/"mxu") is accepted for signature parity: the port has
-    one contraction.  ``mxu_precision`` other than "highest" raises.  The
+    one contraction.  ``mxu_precision`` "high" (JAX's bf16x3) is
+    computed at "highest", full precision; any other value raises.  The
     score's partial sums are per ``BLOCK_SITES`` sites; the kernel's per
     ``SLOT_SITES`` are folded into them in order
     (:func:`clv_seg.fold_tile_partials`).
@@ -80,6 +81,8 @@ from .clv_seg import (SLOT_SITES, STAGE_OPS, TABLE_FIELDS, Segment,
 from .sweep import LevelSchedule
 
 BLOCK_SITES = cf.BLOCK_SITES  # sites per partial sum of the score
+# JAX's MXU precisions the port takes; both run in full precision
+MXU_PRECISIONS = ("highest", "high")
 # shared memory of one block of csrc/clv_dyn.cu: its static part (a chunk of
 # STAGE_OPS staged op descriptors and their tip codes, the per-site votes)
 # and, for DNA, the chunk's P-matrices (stage_bytes); the pool takes at most
@@ -569,9 +572,10 @@ class _DynKernel:
         cf.check_tip_encoding(tip_encoding, states)
         if impl not in ("auto", "vpu", "mxu"):
             raise EinvalError(f"unknown impl {impl!r}")
-        if mxu_precision != "highest":
-            raise EinvalError("mxu_precision: the port computes in full "
-                              "precision only ('highest')")
+        if mxu_precision not in MXU_PRECISIONS:
+            raise EinvalError(f"mxu_precision {mxu_precision!r}: the port "
+                              f"takes {MXU_PRECISIONS}, both computed at "
+                              "full precision ('highest')")
         self.dyn, self.g = dyn, _rows(dyn)
         self.scale_mode, self.tip_encoding = scale_mode, tip_encoding
         self.rate_cats, self.states = rate_cats, states

@@ -4,8 +4,9 @@ host helpers both share.
 
 Counterpart: ``libpll_tpu/ops/clv_pallas.py`` — K1 replaces
 ``make_fused_edge_score`` (``:462``), K2 replaces ``make_fused_sweep``
-(``:673``).  The kernels are ``csrc/clv_fused.cu``; that file says how
-they are laid out on the card and what bounds them.
+(``:673``), for DNA (S = 4) and protein (S = 20, JAX's MXU variant).
+The kernels are ``csrc/clv_fused.cu``; that file says how they are laid
+out on the card and what bounds them.
 
 Layouts are the JAX package's *unpacked* ones, so the two packages compare
 like with like: tip CLVs ``[tips, C, S, L]``, inner CLVs
@@ -48,7 +49,7 @@ from .sweep import LevelSchedule, make_level_sweep
 
 TIP_ENCODINGS = ("clv", "chars", "masks")
 KERNEL_RATE_CATS = (1, 2, 4, 8)
-KERNEL_STATES = 4
+KERNEL_STATES = (4, 20)  # DNA and protein
 BLOCK_SITES = 128  # sites per K1 partial sum
 # an op's descriptor (clv_common.cuh's OpDesc: parent, home, child1,
 # child2, scaler1, scaler2, m1, m2, has_scaler, out, shift1, shift2), the
@@ -128,7 +129,8 @@ class FusedPlan:
                  edge: Optional[tuple] = None):
         from .clv_seg import _Rows, segment_slots
 
-        check_tip_encoding(tip_encoding, KERNEL_STATES)
+        # the encoding's name; "chars" at 20 states raises at launch
+        check_tip_encoding(tip_encoding, 4)
         if schedule.n_inner >= 1 << INDEX_BITS:
             raise EinvalError(f"{schedule.n_inner} inner rows: the kernels "
                               f"name rows in {INDEX_BITS} bits")
@@ -205,25 +207,27 @@ class FusedPlan:
             self._device[key] = self._host[name].to(device)
         return self._device[key]
 
-    def layout(self, dtype, rate_cats: int, scale_mode: int,
+    def layout(self, dtype, rate_cats: int, states: int, scale_mode: int,
                score: bool) -> dict:
         """How the kernel launches this walk on the current card (asked
-        once per dtype, rate count, scale mode and kernel): ``smem``
-        (dynamic shared memory per block, bytes), ``blocks_per_sm``,
-        ``threads`` and ``block_sites`` per block, ``chunk`` (ops staged
-        at once) and ``sms``; the largest chunk, then block, whose shared
-        memory fits."""
-        key = (dtype, rate_cats, scale_mode, score)
+        once per dtype, rate count, alphabet, scale mode and kernel):
+        ``smem`` (dynamic shared memory per block, bytes),
+        ``blocks_per_sm``, ``threads`` and ``block_sites`` per block,
+        ``chunk`` (ops staged at once) and ``sms``; the largest chunk (DNA:
+        then block) whose shared memory fits.  A protein block is 32 sites
+        by ``rate_cats`` warps, each slot of its pool C·20 values a site."""
+        key = (dtype, rate_cats, states, scale_mode, score)
         if key not in self._layouts:
             lib = load_kernels()
             out = (ctypes.c_int * 6)()
             rc = lib.clv_fused_layout(
-                int(dtype == torch.float64), rate_cats, scale_mode,
+                states, int(dtype == torch.float64), rate_cats, scale_mode,
                 int(score), self.pool, out)
             if rc == _INVALID_VALUE:
                 raise EinvalError(
                     f"the walk's pool of {self.pool} slots does not fit a "
-                    f"block's shared memory at {rate_cats} rates, {dtype}")
+                    f"block's shared memory at {states} states, "
+                    f"{rate_cats} rates, {dtype}")
             _check_launch(lib, rc, "fused layout query")
             smem, per_sm, threads, chunk, sites, sms = out
             self._layouts[key] = dict(
@@ -439,7 +443,7 @@ def fused_edge_score_plain(schedule: LevelSchedule, tips_packed, pmatrix,
 # CUDA wrappers
 # --------------------------------------------------------------------------
 _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
-_WALK_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_int64]
+_WALK_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 11)
 _INVALID_VALUE = 1  # cudaErrorInvalidValue
 
@@ -457,7 +461,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"clv_fused_walk_{suffix}")
         fn.argtypes = _WALK_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.clv_fused_layout.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.clv_fused_layout.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.clv_fused_layout.restype = ctypes.c_int
     lib.clv_fused_error_string.argtypes = [ctypes.c_int]
     lib.clv_fused_error_string.restype = ctypes.c_char_p
@@ -477,7 +481,7 @@ def _check_launch(lib, rc: int, name: str) -> None:
 
 def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
     """Validate the inputs both kernels share; return (dtype suffix,
-    rate_cats, sites)."""
+    rate_cats, states, sites)."""
     device = tips_packed.device
     if device.type != "cuda":
         raise EinvalError(f"fused kernels run on CUDA tensors, not {device}")
@@ -486,7 +490,9 @@ def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
     m, c, s, s2 = pmatrix.shape
     _require(pmatrix.dtype in (torch.float32, torch.float64),
              f"pmatrix dtype {pmatrix.dtype} (float32 or float64)")
-    _require(s == s2 == KERNEL_STATES, f"states {s} (the kernel takes 4)")
+    _require(s == s2 and s in KERNEL_STATES,
+             f"states {s} (the kernels take 4 or 20)")
+    check_tip_encoding(tip_encoding, s)
     _require(c in KERNEL_RATE_CATS, f"rate_cats {c} (one of 1, 2, 4, 8)")
     _require(scale_mode in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE),
              f"scale mode {scale_mode}")
@@ -509,10 +515,10 @@ def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
     _require(pmatrix.data_ptr() % 16 == 0,
              "pmatrix is not 16-byte aligned (its rows load as vectors)")
     _require(sites > 0, "no sites")
-    return ("f32" if pmatrix.dtype == torch.float32 else "f64"), c, sites
+    return ("f32" if pmatrix.dtype == torch.float32 else "f64"), c, s, sites
 
 
-def _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
+def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
             inner=None, scalers=None, edge=None, weight_vec=None,
             pattern_weights=None, inv_add=None, partials=None) -> None:
     """One walk on the current stream of the tensors' card: K2 when
@@ -525,13 +531,13 @@ def _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
     def ptr(t):
         return None if t is None else t.data_ptr()
     with torch.cuda.device(device):
-        lay = plan.layout(pmatrix.dtype, c, scale_mode, edge is not None)
+        lay = plan.layout(pmatrix.dtype, c, s, scale_mode, edge is not None)
         padded = -(-sites // BLOCK_SITES) * BLOCK_SITES
         grid = min(-(-padded // lay["block_sites"]),
                    max(1, lay["blocks_per_sm"]) * lay["sms"])
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"clv_fused_walk_{suffix}")(
-            c, _TIP_CODE[plan.tip_encoding], scale_mode, sites,
+            s, c, _TIP_CODE[plan.tip_encoding], scale_mode, sites,
             plan.schedule.n_inner, plan.schedule.n_inner, plan.pool,
             lay["chunk"], lay["threads"], grid,
             ptr(plan.static("ops", device)),
@@ -557,15 +563,15 @@ def fused_sweep(schedule: LevelSchedule, tips_packed, pmatrix, *,
                                  tip_encoding=tip_encoding)
     if plan is None:
         plan = FusedPlan(schedule, tip_encoding)
-    suffix, c, sites = _check(plan, schedule, tips_packed, pmatrix,
-                              scale_mode, tip_encoding)
+    suffix, c, s, sites = _check(plan, schedule, tips_packed, pmatrix,
+                                 scale_mode, tip_encoding)
     device, n_inner = tips_packed.device, schedule.n_inner
     srows = c if scale_mode == SCALE_PER_RATE else 1
-    inner = torch.empty((n_inner, c, KERNEL_STATES, sites),
-                        dtype=pmatrix.dtype, device=device)
+    inner = torch.empty((n_inner, c, s, sites), dtype=pmatrix.dtype,
+                        device=device)
     scalers = torch.empty(((n_inner + 1) * srows, sites), dtype=torch.int32,
                           device=device)
-    _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
+    _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
             inner, scalers)
     fused_sweep.launches += 1
     if scale_mode == SCALE_PER_RATE:
@@ -608,10 +614,10 @@ def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
                          (parent_clv, child_clv, edge_matrix))
     _require(plan.edge == (parent_clv, child_clv, edge_matrix),
              f"the plan was built for edge {plan.edge}")
-    suffix, c, sites = _check(plan, schedule, tips_packed, pmatrix,
-                              scale_mode, tip_encoding)
+    suffix, c, s, sites = _check(plan, schedule, tips_packed, pmatrix,
+                                 scale_mode, tip_encoding)
     device = tips_packed.device
-    vectors = [("weight_vec", weight_vec, (c * KERNEL_STATES,)),
+    vectors = [("weight_vec", weight_vec, (c * s,)),
                ("pattern_weights", pattern_weights, (sites,))]
     if inv_add is not None:
         vectors.append(("inv_add", inv_add, (sites,)))
@@ -622,7 +628,7 @@ def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
     # one partial per 32 sites (a warp), four to each 128-site partial
     partials = torch.empty((-(-sites // BLOCK_SITES) * 4,),
                            dtype=torch.float64, device=device)
-    _launch(plan, suffix, c, scale_mode, sites, tips_packed, pmatrix,
+    _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
             edge=plan.static("edge_desc", device), weight_vec=weight_vec,
             pattern_weights=pattern_weights, inv_add=inv_add,
             partials=partials)

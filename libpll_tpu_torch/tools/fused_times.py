@@ -1,8 +1,8 @@
 """Time the fused kernels K1/K2 of several checkouts, or of source variants
 of ``csrc/clv_fused.cu``, in turns on one card.
 
-    python3 libpll_tpu_torch/tools/fused_times.py [TREE ...]
-    python3 libpll_tpu_torch/tools/fused_times.py --variants SPEC.json NAME ...
+    python3 libpll_tpu_torch/tools/fused_times.py [--protein] [TREE ...]
+    python3 libpll_tpu_torch/tools/fused_times.py [--protein] --variants SPEC.json NAME ...
 
 Each run is its own process, in the order given (parent, change, change,
 parent compares two commits on one card).  A TREE is a checkout's root
@@ -27,10 +27,16 @@ tree has the walk's plan (``FusedPlan``), the host time of one
 alone with the card idle; where it has ``Score.graphed``, ``make_score``
 captured in a CUDA graph is timed too, with its logL.  Each run prints one JSON line; the card's name
 and power limit come first.
+
+``--protein`` measures the 20-state instances instead, at the protein
+configuration (``utils/flagship.build_protein_flagship``: 64 taxa × 65 536
+LG4X+Γ4 columns read from FASTA, 20-bit masks, float32, seed 0), and adds
+``make_train_step_fused`` eager and graphed (``step``) with its t*.
 """
 
 import ctypes
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -77,10 +83,13 @@ def host_sections(host_ms, score, sched, tp, m32, edge):
         "allocations": lambda: torch.empty(
             (-(-sites // cf.BLOCK_SITES) * 4,), dtype=torch.float64,
             device=tp.device),
+        # the launch takes the alphabet since the protein instances
         "launch": lambda: cf._launch(
-            score.plan, "f32", 4, SCALE_PER_SITE, sites, tp, pm,
-            edge=score.plan.static("edge_desc", tp.device), weight_vec=w,
-            pattern_weights=f["pattern_weights"], partials=partials),
+            score.plan, "f32", 4, *([4] if "s" in inspect.signature(
+                cf._launch).parameters else []), SCALE_PER_SITE, sites, tp,
+            pm, edge=score.plan.static("edge_desc", tp.device),
+            weight_vec=w, pattern_weights=f["pattern_weights"],
+            partials=partials),
         "f64_sum": lambda: cf.sum_block_partials(
             fold_tile_partials(partials, sites)),
         "kernel_wrapper": lambda: cf.fused_edge_score(
@@ -91,7 +100,17 @@ def host_sections(host_ms, score, sched, tp, m32, edge):
     return {name: host_ms(fn) for name, fn in parts.items()}
 
 
-def measure(tree, lib=None):
+def layout(plan, c, s, scale_mode, score):
+    """The plan's float32 layout (the query takes the alphabet since the
+    protein instances)."""
+    import torch
+
+    if "states" in inspect.signature(plan.layout).parameters:
+        return plan.layout(torch.float32, c, s, scale_mode, score)
+    return plan.layout(torch.float32, c, scale_mode, score)
+
+
+def measure(tree, lib=None, protein=False):
     """One run in this process: the numbers of the module docstring."""
     sys.path.insert(0, str(tree))
     import torch
@@ -112,13 +131,21 @@ def measure(tree, lib=None):
         loaded = cf.bind(ctypes.CDLL(str(lib)))
         cf.load_kernels = lambda: loaded
     device = torch.device("cuda", 0)
-    topo, model_np, masks, _ = build_flagship(FLAGSHIP_TIPS, FLAGSHIP_SITES,
-                                              seed=0, tip_masks=True)
+    if protein:
+        from libpll_tpu_torch.utils.flagship import build_protein_flagship
+
+        topo, model_np, masks = build_protein_flagship(seed=0)
+        tp = torch.from_numpy(masks).to(device)
+        enc, c, s = "masks", 4, 20
+    else:
+        topo, model_np, masks, _ = build_flagship(
+            FLAGSHIP_TIPS, FLAGSHIP_SITES, seed=0, tip_masks=True)
+        tp = cf.pack_tipchars(masks).to(device)
+        enc, c, s = "chars", 4, 4
     sched = topo.schedule
-    tp = cf.pack_tipchars(masks).to(device)
     m32 = model_from_numpy(model_np, device, torch.float32)
-    score = ev.make_score(topo, 4, 4, tip_encoding="chars").to(device)
-    fwd = ev.make_forward_fused(topo, 4, 4, tip_encoding="chars").to(device)
+    score = ev.make_score(topo, c, s, tip_encoding=enc).to(device)
+    fwd = ev.make_forward_fused(topo, c, s, tip_encoding=enc).to(device)
     pm, wvec, pw, _ = cs.kernel_inputs(topo, model_np, torch.float32, device,
                                        False)
     edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
@@ -130,14 +157,18 @@ def measure(tree, lib=None):
                 else {"ops": fwd.ops})
     runs = {
         "k1": lambda: cf.fused_edge_score(sched, tp, pm, wvec, pw,
-                                          tip_encoding="chars", **edge,
+                                          tip_encoding=enc, **edge,
                                           **k1_extra),
-        "k2": lambda: cf.fused_sweep(sched, tp, pm, tip_encoding="chars",
+        "k2": lambda: cf.fused_sweep(sched, tp, pm, tip_encoding=enc,
                                      **k2_extra),
         "score": lambda: score(m32, tp),
         "forward_fused": lambda: fwd(m32, tp),
     }
-    out = {"tree": str(tree),
+    if protein:
+        step = ev.make_train_step_fused(topo, c, s, tip_encoding=enc,
+                                        device=device)
+        runs["step"] = lambda: step(m32, tp)
+    out = {"tree": str(tree), "protein": protein, "patterns": tp.shape[-1],
            "variant": None if lib is None else Path(lib).parent.name}
     for name, fn in runs.items():
         fn()
@@ -148,6 +179,8 @@ def measure(tree, lib=None):
         out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if name in ("k1", "score"):
             out[f"{name}_logl"] = repr(float(got))
+        elif name == "step":
+            out["step_logl_t"] = [repr(float(v)) for v in got]
         elif name == "k2":
             out["k2_sha256"] = digest(*got)
         del got
@@ -159,21 +192,25 @@ def measure(tree, lib=None):
         out["score_graph_logl"] = repr(float(graphed(m32, tp)))
         out["score_graph_ms"] = cs.time_ms(lambda: graphed(m32, tp))[0]
         out["score_graph_host_ms"] = cs.host_ms(lambda: graphed(m32, tp))
+    if protein:
+        graphed = step.graphed(m32, tp)
+        out["step_graph_ms"] = cs.time_ms(lambda: graphed(m32, tp))[0]
     if hasattr(score, "plan"):
-        out["k1_layout"] = dict(score.plan.layout(torch.float32, 4,
-                                                  topo.scale_mode, True),
-                                pool=score.plan.pool)
-        out["k2_layout"] = dict(fwd.plan.layout(torch.float32, 4,
-                                                topo.scale_mode, False),
-                                pool=fwd.plan.pool)
-        out["host_sections"] = host_sections(cs.host_ms, score, sched, tp,
-                                             m32, edge)
+        out["k1_layout"] = dict(layout(score.plan, c, s, topo.scale_mode,
+                                       True), pool=score.plan.pool)
+        out["k2_layout"] = dict(layout(fwd.plan, c, s, topo.scale_mode,
+                                       False), pool=fwd.plan.pool)
+        if not protein:
+            out["host_sections"] = host_sections(cs.host_ms, score, sched,
+                                                 tp, m32, edge)
     print(json.dumps(out), flush=True)
 
 
 def main(argv):
+    protein = argv[:1] == ["--protein"]
+    argv = argv[1:] if protein else argv
     if argv[:1] == ["--measure"]:
-        measure(argv[1], argv[2] if len(argv) > 2 else None)
+        measure(argv[1], argv[2] or None, protein)
         return 0
     print(f"card: {card_line()}", flush=True)
     if argv[:1] == ["--variants"]:
@@ -184,8 +221,9 @@ def main(argv):
     else:
         runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]
     for tree, lib in runs:
-        cmd = [sys.executable, __file__, "--measure", str(tree)]
-        subprocess.run(cmd + ([str(lib)] if lib else []), check=True)
+        cmd = [sys.executable, __file__, *(["--protein"] if protein else []),
+               "--measure", str(tree), str(lib or "")]
+        subprocess.run(cmd, check=True)
     return 0
 
 

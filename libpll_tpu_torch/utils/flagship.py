@@ -8,6 +8,12 @@ the arrays come back as numpy (hand the model to
 :func:`libpll_tpu_torch.engine.params.model_from_numpy`).  The flagship
 itself is 64 taxa × 262 144 site patterns, DNA, four Γ categories,
 per-site scaling.
+
+:func:`build_protein_flagship` is the repo's 64-taxon protein
+configuration (``BASELINE.md:72``: 64 taxa × 65 536 sites, four Γ
+categories) under the LG4X mixture: columns simulated on the flagship's
+tree, written to a FASTA file, read back, compressed to site patterns and
+encoded as 20-bit masks, the path a user's alignment takes.
 """
 
 from __future__ import annotations
@@ -36,24 +42,19 @@ def draw_tip_masks(rng, tips, sites, step=None):
     return masks
 
 
-def simulate_tips(tree, tips, sites, w, left, right, freqs, rng):
-    """Evolve sequences down the (unrooted) tree under the GTR process;
-    returns [tips, sites] uint8 states."""
-    def pmat(t):
-        # P(t) = left @ diag(expm1(w t)) @ right + I (ops/pmatrix.py)
-        p = (left * np.expm1(w * t)[None, :]) @ right + np.eye(len(w))
-        p = np.clip(p, 0.0, None)
-        return p / p.sum(1, keepdims=True)
+def _pmat(w, left, right, t):
+    """P(t) = left @ diag(expm1(w t)) @ right + I (ops/pmatrix.py), its
+    rows clipped at 0 and renormalised: parent state -> child state."""
+    p = (left * np.expm1(w * t)[None, :]) @ right + np.eye(len(w))
+    p = np.clip(p, 0.0, None)
+    return p / p.sum(1, keepdims=True)
 
-    def evolve(seq, t):
-        p = pmat(t)  # rows: parent state -> child state distribution
-        u = rng.random(sites)
-        cdf = np.cumsum(p, axis=1)[seq]  # [sites, states]
-        return (u[:, None] > cdf).sum(1).astype(np.uint8)
 
-    states = np.empty((tips, sites), np.uint8)
+def _evolve_down(tree, tips, root_seq, evolve):
+    """[tips, sites] uint8 states: ``root_seq`` at the root's vertex,
+    carried down every branch by ``evolve(seq, length)``."""
+    states = np.empty((tips, root_seq.shape[0]), np.uint8)
     root = tree.root
-    root_seq = rng.choice(len(freqs), size=sites, p=freqs).astype(np.uint8)
     # stack of (node entered via its .back edge, sequence at that vertex)
     stack = [(m.back, evolve(root_seq, m.length))
              for m in (root, root.next, root.next.next)]
@@ -65,6 +66,46 @@ def simulate_tips(tree, tips, sites, w, left, right, freqs, rng):
         for m in (node.next, node.next.next):
             stack.append((m.back, evolve(seq, m.length)))
     return states
+
+
+def simulate_tips(tree, tips, sites, w, left, right, freqs, rng):
+    """Evolve sequences down the (unrooted) tree under the GTR process;
+    returns [tips, sites] uint8 states."""
+    def evolve(seq, t):
+        p = _pmat(w, left, right, t)
+        u = rng.random(sites)
+        cdf = np.cumsum(p, axis=1)[seq]  # [sites, states]
+        return (u[:, None] > cdf).sum(1).astype(np.uint8)
+
+    root_seq = rng.choice(len(freqs), size=sites, p=freqs).astype(np.uint8)
+    return _evolve_down(tree, tips, root_seq, evolve)
+
+
+def simulate_mixture(tree, tips, sites, eigen, freqs, cat_rates, weights,
+                     rng):
+    """Evolve sequences down the tree under a mixture: each column draws a
+    category k with probability ``weights[k]``, its root state from
+    ``freqs[k]``, and evolves under eigensystem ``eigen[k]`` = (w, left,
+    right) at rate ``cat_rates[k]``: one P-matrix per category and branch.
+    Returns [tips, sites] uint8 states."""
+    states = freqs.shape[1]
+    cat = rng.choice(len(weights), size=sites, p=np.asarray(weights))
+    cols = [np.flatnonzero(cat == k) for k in range(len(weights))]
+    root_seq = np.empty(sites, np.uint8)
+    for k, idx in enumerate(cols):
+        root_seq[idx] = rng.choice(states, size=idx.size, p=freqs[k])
+
+    def evolve(seq, t):
+        u = rng.random(sites)
+        out = np.empty_like(seq)
+        for k, idx in enumerate(cols):
+            cdf = np.cumsum(_pmat(*eigen[k], t * cat_rates[k]), axis=1)
+            # rounding may leave a row's last cdf value below u
+            out[idx] = np.minimum(
+                (u[idx, None] > cdf[seq[idx]]).sum(1), states - 1)
+        return out
+
+    return _evolve_down(tree, tips, root_seq, evolve)
 
 
 def _topology_and_model(tips, sites, rate_cats, dtype, rng):
@@ -183,3 +224,96 @@ def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
     clv[:tips] = onehot.transpose(0, 2, 1)[:, None, :, :]
     scalers = np.zeros((topo.schedule.n_inner + 1, sites), np.int32)
     return topo, model, clv.astype(dtype), scalers
+
+
+PROTEIN_TIPS = 64
+PROTEIN_SITES = 65536  # simulated columns; the patterns are fewer
+PROTEIN_RATE_CATS = 4
+PROTEIN_STATES = 20
+PROTEIN_ALPHA = 0.8
+PROTEIN_RATE_WEIGHTS = (0.1, 0.2, 0.3, 0.4)
+PROTEIN_AMBIGUITY = 0.03  # share of cells turned into '-', 'X', 'B', 'Z'
+
+
+def build_protein_flagship(tips=PROTEIN_TIPS, sites=PROTEIN_SITES, seed=0):
+    """(topo, model, masks) of the LG4X+Γ4 protein configuration.
+
+    The tree is :func:`build_flagship`'s of the same seed.  The model is
+    the LG4X mixture (``models/aa_tables``): four rate matrices, one per
+    category (``params_indices`` 0-3), each with its frequencies
+    (``freqs_pc``), Γ(α = 0.8) category rates and weights 0.1, 0.2, 0.3,
+    0.4.  ``sites`` columns are simulated on the tree under the mixture
+    (:func:`simulate_mixture`), ``PROTEIN_AMBIGUITY`` of the cells become
+    '-', 'X', 'B' or 'Z' (multi-bit masks), the alignment is written to a
+    FASTA file in a temporary directory and read back (``io.fasta``),
+    compressed to site patterns (``io.compress``) and encoded
+    (``io.maps.pll_map_aa``).  Returns the topology (its ``sites`` the
+    pattern count), the model as float64 numpy (pattern weights the
+    pattern counts) and the [tips, patterns] int32 masks."""
+    import os
+    import tempfile
+
+    from ..io.compress import compress_site_patterns
+    from ..io.fasta import parse_fasta
+    from ..io.maps import AA_STATES, pll_map_aa
+    from ..models.aa_tables import AA_MIXTURE_MODELS
+    from ..models.gamma import compute_gamma_cats
+    from ..models.gtr import eigen_decompose
+
+    c, s = PROTEIN_RATE_CATS, PROTEIN_STATES
+    rng = np.random.default_rng(seed)
+    tree, topo, dna_model, _ = _topology_and_model(tips, sites, c,
+                                                   np.float64, rng)
+    rates4, freqs4 = AA_MIXTURE_MODELS["lg4x"]
+    freqs = np.asarray(freqs4, np.float64)
+    freqs = freqs / freqs.sum(axis=1, keepdims=True)
+    eigen = [eigen_decompose(rates4[k], freqs[k]) for k in range(c)]
+    cat_rates = compute_gamma_cats(PROTEIN_ALPHA, c)
+    weights = np.asarray(PROTEIN_RATE_WEIGHTS, np.float64)
+    states = simulate_mixture(tree, tips, sites, eigen, freqs, cat_rates,
+                              weights, rng)
+
+    letters = np.frombuffer(AA_STATES.encode(), np.uint8)[states]
+    odd = rng.random(letters.shape) < PROTEIN_AMBIGUITY
+    letters[odd] = np.frombuffer(b"-XBZ", np.uint8)[
+        rng.integers(0, 4, int(odd.sum()))]
+    labels = {}
+    stack = [tree.root.back, tree.root.next.back, tree.root.next.next.back]
+    while stack:
+        node = stack.pop()
+        if node.is_tip:
+            labels[node.label] = node.clv_index
+        else:
+            stack.extend((node.next.back, node.next.next.back))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "protein.fasta")
+        with open(path, "w", encoding="latin-1") as fh:
+            for label, row in labels.items():
+                seq = letters[row].tobytes().decode("latin-1")
+                fh.write(f">{label}\n")
+                fh.writelines(seq[i:i + 80] + "\n"
+                              for i in range(0, sites, 80))
+        headers, seqs = parse_fasta(path)
+    rows = sorted(range(tips), key=lambda i: labels[headers[i]])
+    patterns, counts = compress_site_patterns([seqs[i] for i in rows],
+                                              pll_map_aa)
+    n = counts.shape[0]
+    masks = pll_map_aa[np.frombuffer("".join(patterns).encode("latin-1"),
+                                     np.uint8).reshape(tips, n)]
+
+    model = {
+        "branch_lengths": dna_model["branch_lengths"],
+        "rates": np.asarray(cat_rates, np.float64),
+        "prop_invar": np.zeros((c,), np.float64),
+        "params_indices": np.arange(c, dtype=np.int32),
+        "eigenvals": np.stack([e[0] for e in eigen]),
+        "left": np.stack([e[1] for e in eigen]),
+        "right": np.stack([e[2] for e in eigen]),
+        "freqs_pc": freqs,
+        "prop_invar_pc": np.zeros((c,), np.float64),
+        "rate_weights": weights,
+        "pattern_weights": counts.astype(np.float64),
+        "invariant": np.full((n,), -1, np.int32),
+    }
+    return topo._replace(sites=n), model, masks.astype(np.int32)

@@ -185,12 +185,16 @@ def test_guards_and_default_row_budget():
     # 10 240 taxa x 2**20 sites, 4 rates of 4 states in float32
     assert cd.dyn_max_rows(4, 4, 1 << 20) == 204
     assert cd.dyn_max_rows(4, 20, 1 << 30) == 16
-    for kwargs in (dict(impl="tpu"), dict(mxu_precision="high"),
+    for kwargs in (dict(impl="tpu"), dict(mxu_precision="default"),
                    dict(tip_encoding="bytes")):
         with pytest.raises(EinvalError):
             cd.make_dyn_score(dyn, jtopo.parent_clv, jtopo.child_clv,
                               jtopo.edge_matrix, rate_cats=4, states=4,
                               **kwargs)
+    # JAX's "high" is accepted, and computed at "highest"
+    cd.make_dyn_score(dyn, jtopo.parent_clv, jtopo.child_clv,
+                      jtopo.edge_matrix, rate_cats=4, states=4,
+                      mxu_precision="high")
 
 
 def test_flagship_topology_and_card_tips():

@@ -240,8 +240,10 @@ def test_factories_take_jax_arguments_in_jax_order():
     order: ``make_score(topo, 4, 4, "vpu")`` is JAX's scorer without
     p-inv (the model carries p-inv 0.25, so folding it in would move the
     logL far outside the float32 budget), ``make_forward_fused(topo, 4, 4,
-    "vpu")`` JAX's forward; ``impl`` outside ("auto", "vpu", "mxu") and
-    ``mxu_precision`` other than "highest" raise."""
+    "vpu")`` JAX's forward; ``mxu_precision="high"`` is accepted and
+    computed at "highest" (the same logL); ``impl`` outside ("auto",
+    "vpu", "mxu") and ``mxu_precision`` outside ("highest", "high")
+    raise."""
     case, masks = iupac_case(
         _random_tree_newick(10, np.random.default_rng(12)), 128, seed=12)
     model = case["model"]
@@ -272,5 +274,10 @@ def test_factories_take_jax_arguments_in_jax_order():
         tev.make_score(ttopo, 4, STATES, "tensor", device="cpu")
     with pytest.raises(EinvalError):
         tev.make_forward_fused(ttopo, 4, STATES, "tensor", device="cpu")
+    high = float(tev.make_score(ttopo, 4, STATES, "vpu",
+                                mxu_precision="high", device="cpu")(
+        tm, ttips))
+    assert high == got
     with pytest.raises(EinvalError):
-        tev.make_score(ttopo, 4, STATES, mxu_precision="high", device="cpu")
+        tev.make_score(ttopo, 4, STATES, mxu_precision="default",
+                       device="cpu")

@@ -9,7 +9,8 @@ CPU suite.)  Each test decides inside its fixture whether a card is
 present and skips without one, so this file imports neither jax nor
 ``libpll_tpu``.  Tolerances are chip_smoke.py's: float64 logL rel 1e-12,
 scalers equal; float32 logL within 2e-6·|logL| + 5e-3, scalers agree at
->= 99.9%, CLVs rtol 1e-5 where they agree.  K1/K2 (``clv_fused``),
+>= 99.9%, CLVs rtol 1e-5 where they agree.  K1/K2 (``clv_fused``, DNA
+and protein),
 K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``), the roofline probes K7/K8
 (``roofline``, rel 1e-5 at small chain lengths) and the Newton kernel N1
 (``derivatives``, chip_smoke's ``newton_close``) are covered.
@@ -98,7 +99,7 @@ def test_fused_kernels_large_tree_on_card(cuda, dtype):
                 edge_matrix=topo.edge_matrix, tip_encoding="chars")
     plan = cf.FusedPlan(sched, "chars", (topo.parent_clv, topo.child_clv,
                                          topo.edge_matrix))
-    chunk = plan.layout(dtype, 4, topo.scale_mode, True)["chunk"]
+    chunk = plan.layout(dtype, 4, 4, topo.scale_mode, True)["chunk"]
     assert plan.pool > 3 and sched.n_inner > chunk
     before = (cf.fused_sweep.launches, cf.fused_edge_score.launches)
     got = cf.fused_sweep(sched, tp, args[0], tip_encoding="chars")
@@ -425,3 +426,86 @@ def test_train_step_on_card(cuda, dtype):
                 {"invariant": args["invariant"].long()}):
         with pytest.raises(EinvalError):
             dv.newton_solve(**dict(args, **bad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tip_encoding", ["clv", "masks"])
+def test_protein_modules_on_card_match_cpu(cuda, dtype, tip_encoding):
+    """The protein path (K1/K2 at 20 states): make_score,
+    make_forward_fused and make_train_step_fused on the card launch one
+    K1 or one K2 a call and match the same modules on the CPU (plain
+    versions): float64 logL rel 1e-12, rows rtol 1e-12, scalers equal,
+    t* rel 1e-10; float32 logL within the budget, t* within 1e-5; the
+    step in a CUDA graph equals the eager step; mxu_precision="high"
+    gives the "highest" bits."""
+    from libpll_tpu_torch.utils.flagship import build_protein_flagship
+
+    topo, model_np, masks = build_protein_flagship(12, 700, seed=2)
+    c, s = 4, 20
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, dtype)
+        tp = chip_smoke.tip_input(masks, tip_encoding, c, dtype, device, s)
+        kw = dict(tip_encoding=tip_encoding, device=device)
+        score = ev.make_score(topo, c, s, **kw)
+        fwd = ev.make_forward_fused(topo, c, s, **kw)
+        step = ev.make_train_step_fused(topo, c, s, **kw)
+        before = (cf.fused_edge_score.launches, cf.fused_sweep.launches)
+        logl = float(score(model, tp))
+        f_logl, _, inner, scalers = fwd(model, tp)
+        step_out = tuple(float(v) for v in step(model, tp))
+        launched = (cf.fused_edge_score.launches - before[0],
+                    cf.fused_sweep.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 2))
+        out[str(device)] = (logl, float(f_logl), inner.cpu(), scalers.cpu(),
+                            step_out)
+        if device != "cpu":
+            assert tuple(float(v) for v in step.graphed(model, tp)(
+                model, tp)) == step_out
+            high = ev.make_score(topo, c, s, mxu_precision="high", **kw)
+            assert float(high(model, tp)) == logl
+    (s0, f0, i0, c0, st0), (s1, f1, i1, c1, st1) = out.values()
+    assert st1[0] == f1
+    for got, want in ((s1, s0), (f1, f0), (st1[0], st0[0])):
+        assert chip_smoke.logl_close(got, want, dtype)
+    if dtype == torch.float64:
+        torch.testing.assert_close(i1, i0, rtol=1e-12, atol=0)
+        assert torch.equal(c1, c0)
+        assert abs(st1[1] - st0[1]) <= 1e-10 * st0[1]
+    else:
+        ok, err, agree = chip_smoke.sweep_close(i1, c1, i0, c0, dtype)
+        assert ok, (err, agree)
+        assert abs(st1[1] - st0[1]) <= chip_smoke.F32_T_REL * st0[1]
+
+
+@pytest.mark.gpu
+def test_protein_pool_that_does_not_fit_raises(cuda):
+    """At 1 000 taxa the walk keeps 6 rows live: float64 protein at eight
+    rates needs more shared memory than a block has, so the layout and
+    both wrappers raise, and nothing falls back to the plain versions;
+    float32 at four rates fits.  "chars" tips at 20 states raise."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(1000, np.random.default_rng(8)), 64, 8, 8,
+        states=20)
+    sched = topo.schedule
+    plan = cf.FusedPlan(sched, "masks")
+    assert plan.pool == 6
+    assert plan.layout(torch.float32, 4, 20, 1, False)["blocks_per_sm"] > 0
+    with pytest.raises(EinvalError, match="does not fit"):
+        plan.layout(torch.float64, 8, 20, 1, False)
+    pm, wvec, pw, _ = chip_smoke.kernel_inputs(topo, model_np, torch.float64,
+                                               cuda, False)
+    tp = chip_smoke.tip_input(masks, "masks", 8, torch.float64, cuda, 20)
+    before = (cf.fused_sweep.launches, cf.fused_edge_score.launches)
+    with pytest.raises(EinvalError, match="does not fit"):
+        cf.fused_sweep(sched, tp, pm, plan=plan, tip_encoding="masks")
+    with pytest.raises(EinvalError, match="does not fit"):
+        cf.fused_edge_score(sched, tp, pm, wvec, pw,
+                            parent_clv=topo.parent_clv,
+                            child_clv=topo.child_clv,
+                            edge_matrix=topo.edge_matrix,
+                            tip_encoding="masks")
+    assert (cf.fused_sweep.launches, cf.fused_edge_score.launches) == before
+    with pytest.raises(EinvalError):
+        cf.fused_sweep(sched, tp, pm, tip_encoding="chars")
