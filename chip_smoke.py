@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six main paths, each driven once with the launch counters set to 0 just
+Seven main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -29,7 +29,14 @@ before it and read just after:
     simulated on the flagship's tree, written to FASTA, read back,
     compressed to site patterns and encoded as 20-bit masks, through
     ``make_score`` (K1 at 20 states), ``make_forward_fused`` (K2) and
-    ``make_train_step_fused`` (K2 and N1).
+    ``make_train_step_fused`` (K2 and N1);
+  * the stateful Partition: the flagship's alignment simulated on its
+    tree, written as PHYLIP, read back and compressed, in a float64
+    ``Partition`` on the card (setters, P-matrices, ``update_partials``,
+    the edge logL, sumtable and derivatives), and its parameters through
+    ``model_from_partition`` into ``make_score`` (K1),
+    ``make_forward_fused`` (K2) and ``make_train_step_fused`` (K2 and
+    N1); the protein configuration in a float64 Partition into K1.
 
 Phases, one line each:
 
@@ -117,7 +124,31 @@ Phases, one line each:
      layout, and which (rate count, dtype, pool) combinations fit a block;
  19. protein times: ms per evaluation and per step, eager and as CUDA
      graphs (equal to the eager calls bit for bit), K1/K2 against their
-     plain versions and their bounds.
+     plain versions and their bounds;
+ 20. partition small: 37 configurations, the Partition on the card
+     against the Partition on the CPU (every scaling mode, +I, the three
+     asc modes, several rate matrices, explicit tip CLVs that scale,
+     protein, one rate; ``pad_to`` and an op list that rewrites a
+     buffer), float64 logL rel 1e-12, derivatives rel 1e-10, scalers
+     equal, CLVs rel 1e-12, float32 within the budget; the executors of
+     ``ops/clv`` on random op tables likewise;
+ 21. partition: the flagship in a float64 Partition: logL, CLVs and
+     scalers against ``make_forward`` (rel 1e-12, equal), derivatives
+     against ``make_train_step`` (rel 1e-10); K1/K2 on
+     ``model_from_partition`` within the f32 budget, K2 + N1's t*
+     confirmed by the Partition's derivatives, each entry point with its
+     counters at 0 around it; the float32 Partition within the budget,
+     its rows K2's (phase 3's float32 rule), the TF32 guard; an SPR
+     whose partial traversal equals a full one, its rollback; a
+     checkpoint restored on the card to the same logL bit for bit; the
+     peak device memory;
+ 22. partition times: ``update_partials`` (float64 and float32, the
+     Partition's pick and the grouped executor), K2 at the same size,
+     the partial traversal, the edge logL, sumtable and derivatives, the
+     host's time of each call with the card idle;
+ 23. partition protein: the protein configuration in a float64
+     Partition (four rate matrices) against ``make_forward`` (rel 1e-12)
+     and ``make_score`` (K1 at S = 20, within the budget).
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak and its bytes
@@ -1841,6 +1872,644 @@ def phase_protein(device, card, peak):
 
 
 
+# ------------------------------------------------------------ partition
+PART_DERIV_REL = 1e-10  # Partition vs make_train_step derivatives, f64
+# (name, keyword arguments of partition_case): every scaling mode, +I,
+# the three asc modes, several rate matrices, explicit tip CLVs (tiny
+# entries, so that float64 scaling fires), protein, one rate category
+PARTITION_SMALL = (
+    ("site", {}), ("rate", {"scaling": "rate"}),
+    ("none", {"scaling": "none"}), ("pinv", {"pinv": 0.3}),
+    ("pinv_rate", {"pinv": 0.2, "scaling": "rate"}),
+    ("lewis", {"asc": 1}), ("felsenstein", {"asc": 2}),
+    ("stamatakis", {"asc": 3}), ("lewis_rate", {"asc": 1, "scaling": "rate"}),
+    ("matrices", {"rate_matrices": 3}),
+    ("tip_clv", {"tip_clv": True, "tips": 24}),
+    ("tip_clv_rate", {"tip_clv": True, "tips": 24, "scaling": "rate"}),
+    ("protein", {"states": 20, "rate_cats": 2}),
+    ("one_rate", {"rate_cats": 1}))
+
+
+def partition_case(device, dtype, seed, tips=9, sites=203, states=4,
+                   rate_cats=4, scaling="site", pinv=0.0, asc=None,
+                   rate_matrices=1, tip_clv=False):
+    """A small Partition on ``device``, every setter applied from numpy
+    draws of ``seed``, its P-matrices and a full traversal computed.
+    Returns (partition, tree, full ops, params_indices)."""
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+
+    rng = np.random.default_rng(seed)
+    tree = ut.parse_newick_string(random_newick(tips, rng))
+    part = Partition(tips, tips - 2, states, sites, rate_matrices,
+                     2 * tips - 3, rate_cats, tips - 2, scaling=scaling,
+                     asc_bias_alloc=asc is not None, dtype=dtype,
+                     device=device)
+    n_par = states * (states - 1) // 2
+    for k in range(rate_matrices):
+        part.set_subst_params(k, rng.uniform(0.5, 3.0, n_par))
+        f = rng.uniform(0.2, 1.0, states)
+        part.set_frequencies(k, f / f.sum())
+    part.set_category_rates(compute_gamma_cats(0.6, rate_cats))
+    w = rng.uniform(0.5, 1.0, rate_cats)
+    part.set_category_weights(w / w.sum())
+    part.set_pattern_weights(rng.integers(1, 4, sites))
+    chars, charmap = (("ACGTRYN-", maps.pll_map_nt) if states == 4
+                      else ("ARNDCQEGHILKMFPSTWYVBZX-", maps.pll_map_aa))
+    for node in ut.query_tipnodes(tree):
+        if tip_clv:
+            part.set_tip_clv(node.clv_index, rng.uniform(
+                0.0, 1.0, (sites, states)) * 10.0 ** rng.uniform(
+                    -12, 0, (sites, 1)))
+        else:
+            seq = "".join(rng.choice(list(chars), sites))
+            part.set_tip_states(node.clv_index, charmap,
+                                chars[0] * 5 + seq[5:] if pinv else seq)
+    if pinv:
+        part.update_invariant_sites_proportion(0, pinv)
+    if asc is not None:
+        part.set_asc_bias_type(asc)
+        part.set_asc_state_weights(np.arange(1, states + 1))
+    pidx = (rng.integers(0, rate_matrices, rate_cats) if rate_matrices > 1
+            else np.zeros(rate_cats, int))
+    ops, branches, pmat_idx = ut.create_operations(ut.traverse(tree.root))
+    part.update_prob_matrices(pidx, pmat_idx, branches)
+    part.update_partials(ops)
+    return part, tree, ops, pidx
+
+
+def edge_of(tree):
+    """(parent clv, parent scaler, child clv, child scaler, matrix) of the
+    evaluation edge at ``tree.root``."""
+    r = tree.root
+    return (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+
+
+def rows_close(got, want, rel):
+    """Each entry within ``rel`` of its (row, rate, site) block's largest
+    magnitude: (ok, largest relative error)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    span = want.abs().amax(dim=-2, keepdim=True)
+    err = (got - want).abs() / span.clamp_min(np.finfo(np.float64).tiny)
+    err = float(err.max()) if err.numel() else 0.0
+    return err <= rel, err
+
+
+def partition_results(part, tree, pidx):
+    """(edge logL, root logL, per-site edge logL, d1, d2) at the root edge,
+    the branch's own length."""
+    pc, ps, cc, cs, m = edge_of(tree)
+    logl, persite = part.compute_edge_loglikelihood(pc, ps, cc, cs, m, pidx,
+                                                    persite=True)
+    root = part.compute_root_loglikelihood(pc, ps, pidx)
+    st = part.update_sumtable(pc, cc, ps, cs, pidx)
+    d1, d2 = part.compute_likelihood_derivatives(ps, cs, tree.root.length,
+                                                 pidx, st)
+    return logl, root, persite, d1, d2
+
+
+def check_partition_small(device):
+    """Phase 20: the Partition on the card against the Partition on the
+    CPU, the same setters and op lists: float64 logL (edge, root, per
+    site) rel 1e-12, derivatives rel 1e-10, scalers equal, CLVs rel 1e-12
+    of each block's largest; float32 logL within the budget, derivatives
+    rel 1e-3.  Per configuration, after the full traversal: ``pad_to``
+    (the table padded by repeating its last op) and an op list that
+    rewrites an inner buffer after a child read it, with a "no scaler"
+    write.  Then the three executors of ``ops/clv`` on random op tables
+    (hazards of every kind) against the CPU.  Returns the number of
+    configurations."""
+    import torch
+
+    from libpll_tpu_torch import Operation
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.tree import schedule as sch
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE,
+                                                  SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    cpu = torch.device("cpu")
+    n = 0
+    for seed, (name, kw) in enumerate(PARTITION_SMALL):
+        for dtype in (torch.float64, torch.float32):
+            got, want = (partition_case(dev, dtype, seed, **kw)
+                         for dev in (device, cpu))
+            tips = got[0].tips
+            rewrite = [Operation(tips, 0, 0, 0, -1, 1, 1, -1),
+                       Operation(tips + 1, 1, tips, 2, 0, 2, 2, -1),
+                       Operation(tips, -1, 3, 3, -1, 4, 4, -1),
+                       Operation(tips + 2, 2, tips, 5, -1, tips + 1, 6, 1)]
+            for part, tree, ops, pidx in (got, want):
+                part.update_partials(ops[-3:], pad_to=7)
+                part.update_partials(rewrite)
+                part.update_partials(ops)
+            res = [partition_results(p, t, i) for p, t, _, i in (got, want)]
+            (gl, gr, gps, g1, g2), (wl, wr, wps, w1, w2) = res
+            label = f"partition {name} {dtype}"
+            if dtype == torch.float64:
+                check(all(logl_close(a, b, dtype) for a, b in
+                          ((gl, wl), (gr, wr))),
+                      f"{label}: logL {gl!r}/{gr!r} vs CPU {wl!r}/{wr!r}")
+                check(np.allclose(gps, wps, rtol=F64_REL, atol=0),
+                      f"{label}: per-site logL")
+                check(abs(g1 - w1) <= PART_DERIV_REL * abs(w1)
+                      and abs(g2 - w2) <= PART_DERIV_REL * abs(w2),
+                      f"{label}: derivatives {(g1, g2)} vs {(w1, w2)}")
+                check(torch.equal(got[0].scalers.cpu(), want[0].scalers),
+                      f"{label}: scalers differ")
+                ok, err = rows_close(got[0].clv, want[0].clv, F64_REL)
+                check(ok, f"{label}: CLVs rel {err}")
+                if name.startswith("tip_clv"):
+                    check(bool(want[0].scalers.any()),
+                          f"{label}: scaling never fired")
+            else:
+                check(logl_close(gl, wl, dtype) and logl_close(gr, wr, dtype),
+                      f"{label}: logL {gl!r}/{gr!r} vs CPU {wl!r}/{wr!r}")
+                check(np.allclose((g1, g2), (w1, w2), rtol=1e-3, atol=1e-2),
+                      f"{label}: derivatives {(g1, g2)} vs {(w1, w2)}")
+            n += 1
+
+    # the executors on random op tables, and on build_levels' tables
+    rng = np.random.default_rng(20)
+    tips, inner, c, s, sites, m = 5, 6, 3, 4, 203, 9
+    for mode in (SCALE_PER_SITE, SCALE_PER_RATE, SCALE_NONE):
+        clv = np.zeros((tips + inner, c, s, sites))
+        clv[:tips + 1] = rng.uniform(0.05, 1, (tips + 1, 1, s, sites)) \
+            * 10.0 ** rng.uniform(-60, 0, (tips + 1, 1, 1, sites))
+        pm = rng.uniform(0.05, 1, (m, c, s, s))
+        shape = ((inner + 1, sites) if mode == SCALE_PER_SITE else
+                 (inner + 1, c, sites) if mode == SCALE_PER_RATE
+                 else (1, sites))
+        ops = np.empty((40, 8), np.int32)
+        ops[:, 0] = rng.integers(tips, tips + inner, 40)
+        ops[:, [2, 5]] = rng.integers(0, tips + inner, (40, 2))
+        ops[:, [3, 6]] = rng.integers(0, m, (40, 2))
+        ops[:, [1, 4, 7]] = rng.integers(0, inner + 1, (40, 3))
+        tree = ut.parse_newick_string(random_newick(tips + 1, rng))
+        levels = sch.build_levels(
+            ut.create_operations(ut.traverse(tree.root))[0], inner, width=3)
+        runs = {"by_op": lambda cl, sc, p: clv_ops.update_partials_by_op(
+                    cl, sc, ops, p, mode),
+                "grouped": lambda cl, sc, p: clv_ops.update_partials_grouped(
+                    cl, sc, ops, p, mode),
+                "leveled": lambda cl, sc, p: clv_ops.update_partials_leveled(
+                    cl, sc, *levels, p, mode)}
+        for name, run in runs.items():
+            out = []
+            for dev in (device, cpu):
+                cl = torch.tensor(clv, device=dev)
+                sc = torch.zeros(shape, dtype=torch.int32, device=dev)
+                run(cl, sc, torch.tensor(pm, device=dev))
+                out.append((cl.cpu(), sc.cpu()))
+            (gc, gs), (wc, ws) = out
+            ok, err = rows_close(gc, wc, F64_REL)
+            check(ok and torch.equal(gs, ws),
+                  f"ops.clv {name} mode {mode}: CLVs rel {err}, scalers "
+                  f"equal {torch.equal(gs, ws)}")
+            n += 1
+    return n
+
+
+def flagship_partition(device, dtype, tree, patterns, weights, params, freqs,
+                       rates, states=4, rate_matrices=1, charmap=None):
+    """The Partition of an alignment on ``tree``: ``patterns`` (compressed
+    rows by tip CLV index) and their ``weights``, exchangeabilities and
+    frequencies per rate matrix, the category rates (weights equal unless
+    given as ``rates = (rates, weights)``)."""
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.io import maps
+
+    tips, sites = tree.tip_count, len(patterns[0])
+    part = Partition(tips, tips - 2, states, sites, rate_matrices,
+                     2 * tips - 3, len(rates[0]), tips - 2, dtype=dtype,
+                     device=device)
+    for k in range(rate_matrices):
+        part.set_subst_params(k, params[k])
+        part.set_frequencies(k, freqs[k])
+    part.set_category_rates(rates[0])
+    part.set_category_weights(rates[1])
+    part.set_pattern_weights(weights)
+    for i, seq in enumerate(patterns):
+        part.set_tip_states(i, maps.pll_map_nt if charmap is None
+                            else charmap, seq)
+    return part
+
+
+def read_phylip_flagship(tips, sites):
+    """The flagship alignment simulated on its tree (seed 0), written as
+    sequential PHYLIP to a temporary directory, read back with
+    ``io/phylip`` and compressed: (tree, topo, model, (params, freqs),
+    patterns by tip CLV index, pattern weights, seconds)."""
+    import os
+    import tempfile
+
+    from libpll_tpu_torch.io.compress import compress_site_patterns
+    from libpll_tpu_torch.io.maps import NT_STATES, pll_map_nt
+    from libpll_tpu_torch.io.phylip import parse_phylip_sequential
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import simulate_flagship
+
+    t0 = time.perf_counter()
+    tree, topo, model, gtr, states = simulate_flagship(tips, sites, seed=0)
+    letters = np.frombuffer(NT_STATES.encode(), np.uint8)[states]
+    labels = {n.clv_index: n.label for n in ut.query_tipnodes(tree)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.phy")
+        with open(path, "w", encoding="latin-1") as fh:
+            fh.write(f"{tips} {sites}\n")
+            for i in range(tips):
+                fh.write(f"{labels[i]} "
+                         f"{letters[i].tobytes().decode('latin-1')}\n")
+        msa = parse_phylip_sequential(path)
+    row = {label: k for k, label in enumerate(msa.labels)}
+    patterns, weights = compress_site_patterns(
+        [msa.sequences[row[labels[i]]] for i in range(tips)], pll_map_nt)
+    return (tree, topo, model, gtr, patterns, weights,
+            time.perf_counter() - t0)
+
+
+def pattern_masks(patterns, charmap):
+    """[tips, patterns] uint32 state masks of compressed rows."""
+    n = len(patterns[0])
+    return charmap[np.frombuffer("".join(patterns).encode("latin-1"),
+                                 np.uint8).reshape(len(patterns), n)]
+
+
+def phase_partition(device, card, peak):
+    """Phases 21-22: the stateful Partition path at the DNA flagship in
+    float64 (the alignment through PHYLIP and compression; setters, P-
+    matrices, a full ``update_partials``, the edge logL), held against
+    ``make_forward``; ``model_from_partition`` into ``make_score`` (K1),
+    ``make_forward_fused`` (K2) and ``make_train_step_fused`` (K2 + N1),
+    each with its counters at 0 around it; the sumtable and derivatives
+    against ``make_train_step``; an SPR with its partial traversal and
+    rollback; a checkpoint round trip; the float32 Partition; then the
+    times.  Returns the numbers later phases print."""
+    import os
+    import tempfile
+
+    import torch
+
+    from libpll_tpu_torch.engine import checkpoint as ck
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.partition import operations_to_array
+    from libpll_tpu_torch.errors import EinvalError
+    from libpll_tpu_torch.io.maps import pll_map_nt
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.tree import incremental as inc
+    from libpll_tpu_torch.tree import moves
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
+                                                 FLAGSHIP_SITES,
+                                                 FLAGSHIP_STATES,
+                                                 FLAGSHIP_TIPS)
+
+    tips, c, s = FLAGSHIP_TIPS, FLAGSHIP_RATE_CATS, FLAGSHIP_STATES
+    tree, _, model_np, (params, freqs), patterns, weights, io_s = \
+        read_phylip_flagship(tips, FLAGSHIP_SITES)
+    sites = len(patterns[0])
+    rates = (compute_gamma_cats(1.0, c), np.full(c, 1.0 / c))
+    pidx = np.zeros(c, int)
+    trav = ut.traverse(tree.root)
+    ops, branches, pmat_idx = ut.create_operations(trav)
+    f64, f32 = torch.float64, torch.float32
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    part = flagship_partition(device, f64, tree, patterns, weights,
+                              params[None], freqs[None], rates)
+    part.update_prob_matrices(pidx, pmat_idx, branches)
+    part.update_partials(ops)
+    pc, ps, cc, cs, m = edge_of(tree)
+    logl = part.compute_edge_loglikelihood(pc, ps, cc, cs, m, pidx)
+    torch.cuda.synchronize()
+    part_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    inc.mark_valid(trav)
+
+    # make_forward (f64) on the same tree, rows mapped level-major
+    topo, _ = ev.topology_from_tree(tree, sites)
+    sched = topo.schedule
+    m64 = ev.model_from_partition(part, branches, dtype=f64, device=device)
+    clv = torch.zeros((sched.tips + sched.n_inner, c, s, sites), dtype=f64,
+                      device=device)
+    clv[:tips] = part.clv[:tips]
+    scal = torch.zeros((sched.n_inner + 1, sites), dtype=torch.int32,
+                       device=device)
+    want, _, fclv, fscal = ev.make_forward(topo, device=device).swept(
+        m64, clv, scal)
+    want = float(want)
+    check(abs(logl - want) <= F64_REL * abs(want),
+          f"flagship Partition logL {logl!r} vs make_forward {want!r}")
+    inner = [n.clv_index for n in trav if not n.is_tip]
+    lm = torch.as_tensor([sched.clv_map[i] for i in inner], device=device)
+    ok, clv_err = rows_close(part.clv[inner], fclv[lm], F64_REL)
+    check(ok, f"flagship Partition CLVs vs make_forward: rel {clv_err}")
+    sidx = sorted(sched.scaler_map)
+    check(torch.equal(part.scalers[sidx], fscal[[sched.scaler_map[k]
+                                                 for k in sidx]]),
+          "flagship Partition scalers differ from make_forward's")
+    n_scaled = int(part.scalers.sum())
+    del clv, scal, fclv, fscal
+
+    # derivatives at the root edge against make_train_step's
+    st = part.update_sumtable(pc, cc, ps, cs, pidx)
+    d1, d2 = part.compute_likelihood_derivatives(ps, cs, branches[-1], pidx,
+                                                 st)
+    step64 = ev.make_train_step(topo, device=device)
+    clv = torch.zeros((sched.tips + sched.n_inner, c, s, sites), dtype=f64,
+                      device=device)
+    clv[:tips] = part.clv[:tips]
+    scal = torch.zeros((sched.n_inner + 1, sites), dtype=torch.int32,
+                       device=device)
+    args = step64.newton_inputs(m64, clv, scal)[3]
+    args["branch_length"] = args.pop("t0")
+    w1, w2 = (float(v) for v in dv.likelihood_derivatives(**args))
+    check(abs(d1 - w1) <= PART_DERIV_REL * abs(w1)
+          and abs(d2 - w2) <= PART_DERIV_REL * abs(w2),
+          f"Partition derivatives {(d1, d2)} vs make_train_step {(w1, w2)}")
+    del clv, scal, args, st, m64
+    torch.cuda.empty_cache()
+
+    # the fused entry points on model_from_partition, counters at 0 each
+    m32 = ev.model_from_partition(part, branches, device=device)
+    tp = cf.pack_tipchars(pattern_masks(patterns, pll_map_nt)).to(device)
+    kw = dict(tip_encoding="chars", device=device)
+    score = ev.make_score(topo, c, s, **kw)
+    fwd = ev.make_forward_fused(topo, c, s, **kw)
+    step = ev.make_train_step_fused(topo, c, s, **kw)
+    runs = {"make_score": lambda: (score(m32, tp),),
+            "make_forward_fused": lambda: fwd(m32, tp),
+            "make_train_step_fused": lambda: step(m32, tp)}
+    out, launches = {}, {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        cf.fused_edge_score.launches = 0
+        cf.fused_sweep.launches = 0
+        dv.newton_solve.launches = 0
+        out[name] = run()
+        torch.cuda.synchronize()
+        launches[name] = (cf.fused_edge_score.launches,
+                          cf.fused_sweep.launches, dv.newton_solve.launches)
+    check(launches["make_score"] == (1, 0, 0)
+          and launches["make_forward_fused"] == (0, 1, 0)
+          and launches["make_train_step_fused"][:2] == (0, 1)
+          and 0 < launches["make_train_step_fused"][2] <= dv.NEWTON_ITERS,
+          f"Partition main path: launches (K1, K2, N1) {launches}")
+    budget = ACC_REL * abs(logl) + ACC_ABS
+    k1_logl = float(out["make_score"][0])
+    k2_logl, _, k2_inner, k2_scal = out["make_forward_fused"]
+    k2_logl = float(k2_logl)
+    t_star = float(out["make_train_step_fused"][1])
+    for name, got in (("make_score", k1_logl),
+                      ("make_forward_fused", k2_logl)):
+        check(abs(got - logl) <= budget, f"{name} on model_from_partition "
+                                         f"{got!r} vs the Partition {logl!r}")
+    check(dv.MIN_T < t_star < dv.MAX_T, f"Partition t* {t_star!r} clamped")
+    st = part.update_sumtable(pc, cc, ps, cs, pidx)
+    t1, t2 = part.compute_likelihood_derivatives(ps, cs, t_star, pidx, st)
+    check(t2 > 0 and abs(t1) <= t2 * F32_T_REL * t_star,
+          f"K2 + N1's t* {t_star!r}: the Partition's d1 {t1!r}, d2 {t2!r}")
+    del st
+
+    # the float32 Partition: logL in budget, rows equal to K2's
+    part32 = flagship_partition(device, f32, tree, patterns, weights,
+                                params[None], freqs[None], rates)
+    part32.update_prob_matrices(pidx, pmat_idx, branches)
+    part32.update_partials(ops)
+    logl32 = part32.compute_edge_loglikelihood(pc, ps, cc, cs, m, pidx)
+    check(abs(logl32 - logl) <= budget,
+          f"float32 Partition logL {logl32!r} vs float64 {logl!r}")
+    order = sorted(inner, key=lambda i: sched.clv_map[i])
+    srows = [sched.clv_map[i] - tips for i in order]
+    check(srows == list(range(sched.n_inner)), "schedule rows not dense")
+    scaler_of = {n.clv_index: n.scaler_index for n in trav if not n.is_tip}
+    p_inner = part32.clv[order]
+    p_scal = torch.cat([part32.scalers[[scaler_of[i] for i in order]],
+                        part32.scalers[-1:]])
+    ok, k2_err, k2_agree = sweep_close(k2_inner, k2_scal, p_inner, p_scal,
+                                       f32)
+    check(ok, f"K2 rows vs the float32 Partition's: max abs {k2_err}, "
+              f"scalers agree {k2_agree}")
+    del p_inner, p_scal, k2_inner, k2_scal, out
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        part32.update_partials(ops)
+        fail("float32 update_partials ran with TF32 matmuls on")
+    except EinvalError:
+        pass
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[21 partition] {tips} taxa x {FLAGSHIP_SITES} columns GTR+G4 "
+          f"simulated on the flagship's tree, written as PHYLIP, read back "
+          f"and compressed in {io_s:.2f} s: {sites} patterns; float64 "
+          f"Partition on the card: edge logL {logl!r}, make_forward "
+          f"{want!r} (rel {abs(logl - want) / abs(want):.3e}), CLVs rel "
+          f"{clv_err:.3e}, scalers equal ({n_scaled} scaling events); "
+          f"d1/d2 {d1!r}/{d2!r} vs make_train_step {w1!r}/{w2!r}; "
+          f"model_from_partition: make_score (K1) {k1_logl!r}, "
+          f"make_forward_fused (K2) {k2_logl!r} (|d| "
+          f"{abs(k1_logl - logl):.3e}, {abs(k2_logl - logl):.3e} <= "
+          f"{budget:.3e}), make_train_step_fused t0 {branches[-1]!r} -> t* "
+          f"{t_star!r} (the Partition's d1 {t1:.3e}, d2 {t2:.3e} there); "
+          f"launches (K1, K2, N1) {launches}; float32 Partition logL "
+          f"{logl32!r} (|d| {abs(logl32 - logl):.3e}), K2's rows vs its "
+          f"rows max abs {k2_err:.3e}, scalers agree {k2_agree:.6f}; "
+          f"TF32 guard raises; peak device memory of the float64 Partition "
+          f"{part_gib:.4f} GiB", flush=True)
+
+    # an SPR, its partial traversal, a full recomputation, the rollback
+    nodes = tree.nodes
+    i_p, i_r = next(
+        (i, j) for i in range(len(nodes)) if nodes[i].next is not None
+        for j in range(len(nodes)) if nodes[j] not in (
+            nodes[i], nodes[i].back, nodes[i].next, nodes[i].next.back,
+            nodes[i].next.next, nodes[i].next.next.back)
+        and not moves._subtree_contains(nodes[i].back, nodes[j]))
+    rb = moves.Rollback(moves.MOVE_SPR)
+    changed = moves.spr_safe(nodes[i_p], nodes[i_r], rb)
+    part.update_prob_matrices(pidx, [k for _, k in changed],
+                              [t for t, _ in changed])
+    partial = inc.create_partial_operations(inc.partial_traverse(tree.root))
+    check(0 < len(partial) < len(ops),
+          f"SPR: {len(partial)} partial ops of {len(ops)}")
+    part.update_partials(partial)
+    e_spr = edge_of(tree)
+    logl_partial = part.compute_edge_loglikelihood(*e_spr, pidx)
+    part.update_partials(ut.create_operations(ut.traverse(tree.root))[0])
+    logl_full = part.compute_edge_loglikelihood(*e_spr, pidx)
+    check(abs(logl_partial - logl_full) <= F64_REL * abs(logl_full),
+          f"SPR: partial {logl_partial!r} vs full {logl_full!r}")
+    timed = {"partial": time_ms(lambda: part.update_partials(partial),
+                                iters=5, warmup=1)}
+    idle = {"partial": host_ms(lambda: part.update_partials(partial),
+                               iters=5)}
+    back = moves.rollback_move(rb)
+    part.update_prob_matrices(pidx, [k for _, k in back],
+                              [t for t, _ in back])
+    undo = inc.create_partial_operations(inc.partial_traverse(tree.root))
+    part.update_partials(undo)
+    logl_back = part.compute_edge_loglikelihood(pc, ps, cc, cs, m, pidx)
+    check(abs(logl_back - logl) <= F64_REL * abs(logl),
+          f"rollback: {logl_back!r} vs the first logL {logl!r}")
+
+    # checkpoint round trip on the card: the same logL bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.npz")
+        ck.save_checkpoint(path, ut.export_newick(tree.root), part)
+        header, arrays = ck.load_checkpoint(path)
+    part.update_partials(ops)
+    logl_ref = part.compute_edge_loglikelihood(pc, ps, cc, cs, m, pidx)
+    del part32
+    torch.cuda.empty_cache()
+    tree2 = ut.parse_newick_string(header["newick"])
+    ops2, branches2, pmat2 = ut.create_operations(ut.traverse(tree2.root))
+    restored = ck.restore_partition(header, arrays, device=device)
+    row_of = {n.label: n.clv_index for n in ut.query_tipnodes(tree)}
+    for n in ut.query_tipnodes(tree2):
+        restored.set_tip_states(n.clv_index, pll_map_nt,
+                                patterns[row_of[n.label]])
+    restored.update_prob_matrices(pidx, pmat2, branches2)
+    restored.update_partials(ops2)
+    logl_ck = restored.compute_edge_loglikelihood(*edge_of(tree2), pidx)
+    check(logl_ck == logl_ref, f"checkpoint round trip: {logl_ck!r} vs "
+                               f"{logl_ref!r}")
+    del restored
+    torch.cuda.empty_cache()
+    print(f"[21 partition] SPR (prune {i_p}, regraft {i_r}): "
+          f"{len(partial)} partial ops of {len(ops)}, logL {logl_partial!r}"
+          f" = full recomputation {logl_full!r}; rollback: {len(undo)} ops,"
+          f" logL {logl_back!r} (first {logl!r}); checkpoint "
+          f"{header['dtype']} header -> restore_partition on the card -> "
+          f"{logl_ck!r}, bit for bit", flush=True)
+
+    # times, CUDA events after warm-up; host ms with the card idle
+    part32 = flagship_partition(device, f32, tree, patterns, weights,
+                                params[None], freqs[None], rates)
+    part32.update_prob_matrices(pidx, pmat_idx, branches)
+    ops_table = operations_to_array(ops, part.scale_buffers)
+    levels = clv_ops.hazard_levels(ops_table, part.scale_buffers)
+
+    def grouped(p):
+        return lambda: clv_ops.update_partials_grouped(
+            p.clv, p.scalers, ops_table, p.pmatrix, p.scale_mode)
+
+    pm32 = fwd.pmatrices(m32, f32)
+    runs = {"part64": lambda: part.update_partials(ops),
+            "grouped64": grouped(part),
+            "part32": lambda: part32.update_partials(ops),
+            "grouped32": grouped(part32),
+            "edge64": lambda: part.compute_edge_loglikelihood(
+                pc, ps, cc, cs, m, pidx),
+            "deriv64": lambda: part.compute_likelihood_derivatives(
+                ps, cs, branches[-1], pidx,
+                part.update_sumtable(pc, cc, ps, cs, pidx)),
+            "fwd32": lambda: fwd(m32, tp),
+            "k2": lambda: cf.fused_sweep(sched, tp, pm32, plan=fwd.plan,
+                                         tip_encoding="chars")}
+    for name, run in runs.items():
+        timed[name] = time_ms(run, iters=5, warmup=2)
+        idle[name] = host_ms(run, iters=5)
+    ms = {k: v[0] for k, v in timed.items()}
+    pick = ("one op at a time" if part32.clv[0].numel() * 4
+            >= clv_ops.GROUPED_MAX_ROW_BYTES else "grouped")
+    print(f"[22 partition times] {card}: update_partials (full, "
+          f"{len(ops)} ops) float64 {ms['part64']:.4f} ms (the Partition's "
+          f"pick at these rows: {pick}), {ms['grouped64']:.4f} ms in "
+          f"{int(levels.max()) + 1} hazard groups (ops/clv."
+          f"update_partials_grouped); float32 {ms['part32']:.4f} / "
+          f"{ms['grouped32']:.4f} ms; K2 at the same size (float32) "
+          f"{ms['k2']:.4f} ms, make_forward_fused {ms['fwd32']:.4f} ms; "
+          f"partial traversal after the SPR ({len(partial)} ops, float64) "
+          f"{ms['partial']:.4f} ms; compute_edge_loglikelihood "
+          f"{ms['edge64']:.4f} ms; update_sumtable + "
+          f"compute_likelihood_derivatives {ms['deriv64']:.4f} ms; host ms "
+          f"of a call with the card idle: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in idle.items())
+          + "; CUDA events, 5 calls after 2 warm-up", flush=True)
+    return dict(ms=ms, idle=idle, part_gib=part_gib)
+
+
+def phase_partition_protein(device):
+    """Phase 23: the protein configuration (LG4X+Γ4 through FASTA,
+    ``utils/flagship.protein_flagship_alignment``) in a float64 Partition:
+    four rate matrices, ``params_indices`` [0, 1, 2, 3], category weights
+    0.1-0.4; its logL against ``make_forward`` (rel 1e-12) and against
+    ``make_score`` on ``model_from_partition`` (K1 at S = 20, counters at
+    0 around the call, within the f32 budget)."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.io.maps import pll_map_aa
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import protein_flagship_alignment
+
+    tree, _, _, patterns, counts, lg4x = protein_flagship_alignment(seed=0)
+    exch, freqs, _, cat_rates, weights = lg4x
+    c, s = len(cat_rates), 20
+    sites = len(patterns[0])
+    pidx = np.arange(c)
+    ops, branches, pmat_idx = ut.create_operations(ut.traverse(tree.root))
+    part = flagship_partition(device, torch.float64, tree, patterns, counts,
+                              exch, freqs, (cat_rates, weights), states=s,
+                              rate_matrices=c, charmap=pll_map_aa)
+    part.update_prob_matrices(pidx, pmat_idx, branches)
+    part.update_partials(ops)
+    e = edge_of(tree)
+    logl = part.compute_edge_loglikelihood(*e, pidx)
+
+    topo, _ = ev.topology_from_tree(tree, sites)
+    sched = topo.schedule
+    m64 = ev.model_from_partition(part, branches, pidx, torch.float64,
+                                  device=device)
+    clv = torch.zeros((sched.tips + sched.n_inner, c, s, sites),
+                      dtype=torch.float64, device=device)
+    clv[:sched.tips] = part.clv[:sched.tips]
+    scal = torch.zeros((sched.n_inner + 1, sites), dtype=torch.int32,
+                       device=device)
+    want = float(ev.make_forward(topo, device=device)(m64, clv, scal)[0])
+    check(abs(logl - want) <= F64_REL * abs(want),
+          f"protein Partition logL {logl!r} vs make_forward {want!r}")
+    del clv, scal
+    m32 = ev.model_from_partition(part, branches, pidx, device=device)
+    tp = torch.from_numpy(pattern_masks(patterns, pll_map_aa).astype(
+        np.int32)).to(device)
+    score = ev.make_score(topo, c, s, tip_encoding="masks", device=device)
+    torch.cuda.synchronize()
+    cf.fused_edge_score.launches = 0
+    cf.fused_sweep.launches = 0
+    dv.newton_solve.launches = 0
+    k1 = float(score(m32, tp))
+    torch.cuda.synchronize()
+    launches = (cf.fused_edge_score.launches, cf.fused_sweep.launches,
+                dv.newton_solve.launches)
+    check(launches == (1, 0, 0), f"protein Partition path: launches (K1, "
+                                 f"K2, N1) {launches}")
+    budget = ACC_REL * abs(logl) + ACC_ABS
+    check(abs(k1 - logl) <= budget,
+          f"protein make_score (K1, S = 20) {k1!r} vs the Partition {logl!r}")
+    print(f"[23 partition protein] {tree.tip_count} taxa, {sites} patterns "
+          f"LG4X+G4 from FASTA, float64 Partition on the card (four rate "
+          f"matrices, params_indices {pidx.tolist()}, weights "
+          f"{weights.tolist()}): edge logL {logl!r}, make_forward {want!r} "
+          f"(rel {abs(logl - want) / abs(want):.3e}); make_score (K1, "
+          f"S = 20) on model_from_partition {k1!r} (|d| "
+          f"{abs(k1 - logl):.3e} <= {budget:.3e}); launches (K1, K2, N1) "
+          f"{launches}", flush=True)
+    del part
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -2097,6 +2766,17 @@ def main():
     train = phase_train_step(device, card, fp32_peak)
     torch.cuda.empty_cache()
     protein = phase_protein(device, card, fp32_peak)
+
+    # ---------------------------------------------------- 20-23: partition
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n = check_partition_small(device)
+    print(f"[20 partition small] {n} configurations: the Partition and the "
+          f"executors of ops/clv on the card match the CPU "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_partition(device, card, fp32_peak)
+    torch.cuda.empty_cache()
+    phase_partition_protein(device)
 
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole

@@ -19,10 +19,28 @@ the card unless given ``device="cpu"``):
 * the training step: ``make_train_step_fused`` (K2) and
   ``make_train_step``, with the branch-length derivatives and the Newton
   solve (kernel N1) of ``ops.derivatives``;
-* the roofline probes K7/K8 (``ops.roofline``).
+* the roofline probes K7/K8 (``ops.roofline``);
+* the stateful ``Partition`` API (``engine.partition``; libpll's
+  step-by-step surface, its buffers on the card unless built with
+  ``device="cpu"``) and ``engine.evaluate.model_from_partition``, which
+  hands a Partition's parameters to the factories above; the tree and I/O
+  host layer (``tree.utree``, ``tree.rtree``, ``tree.moves``,
+  ``tree.incremental``, ``tree.compare``, ``tree.svg``, ``tree.schedule``,
+  ``io.phylip``, ``io.fasta``, ``io.compress``), checkpoints
+  (``engine.checkpoint``), the debug printers (``utils.output``) and the
+  run log (``utils.logging``).
 
-Not yet ported: the stateful ``Partition`` API, tree search, parsimony,
-model fitting and multi-GPU sharding.
+The top-level names are ``libpll_tpu``'s, less ``optimize_model``: model
+fitting is not ported yet, nor are tree search, parsimony and multi-GPU
+sharding.
 """
+
+from .engine.partition import (ASC_FELSENSTEIN, ASC_LEWIS, ASC_NONE,
+                               ASC_STAMATAKIS, Operation, Partition)
+from .errors import PllError
+from .io import maps
+from .models.gamma import compute_gamma_cats
+from .utils.constants import (GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN,
+                              SCALE_BUFFER_NONE)
 
 __version__ = "0.1.0"

@@ -23,7 +23,9 @@ whose inputs lie on another device raises.
   * :func:`make_train_step_fused` — K2, the edge logL, the sumtable and
     the Newton solve of the evaluation edge's branch length (kernel N1,
     ``ops.derivatives.newton_solve``); :func:`make_train_step` the same
-    on the plain level sweep.
+    on the plain level sweep;
+  * :func:`model_from_partition` — a ``Partition``'s parameters as the
+    model dict the factories take.
 
 Every factory builds its module on ``device``: the card when it is None
 (a :class:`KernelError` without one), the CPU only when asked for.
@@ -106,6 +108,45 @@ def _pmatrices(model, topo, dtype, matrix_indices):
     pmatrix = pmat.new_zeros((topo.n_pmatrices,) + pmat.shape[1:])
     pmatrix[matrix_indices] = pmat
     return pmatrix
+
+
+def model_from_partition(partition, branches, params_indices=None,
+                         dtype=None, *, device=None) -> dict:
+    """The model dict of the ``make_*`` modules from a Partition's
+    parameter state (counterpart ``evaluate.py:90``), as tensors on
+    ``device`` (None: the card, a KernelError without one).
+
+    ``branches``: branch lengths in traversal order (from
+    create_operations).  ``params_indices``: per-category rate-matrix
+    indices (defaults to all zeros).  ``dtype`` defaults to float32 (the
+    fused kernels' fast path).  The eigen factors are recomputed for
+    every rate matrix, as JAX does."""
+    from ..models.gtr import eigen_decompose
+    from .params import model_from_numpy
+
+    C = partition.rate_cats
+    pidx = np.zeros(C, np.int32) if params_indices is None else \
+        np.asarray(params_indices, np.int32)
+    eigen = [eigen_decompose(partition.subst_params[k],
+                             partition.frequencies[k])
+             for k in range(partition.rate_matrices)]
+    invariant = (np.full(partition.sites_alloc, -1, np.int32)
+                 if partition.invariant is None else partition.invariant)
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    return model_from_numpy({
+        "branch_lengths": f64(branches),
+        "rates": f64(partition.rates),
+        "prop_invar": f64(partition.prop_invar),
+        "params_indices": pidx,
+        "eigenvals": f64([w for w, _, _ in eigen]),
+        "left": f64([left for _, left, _ in eigen]),
+        "right": f64([right for _, _, right in eigen]),
+        "freqs_pc": f64(partition.frequencies[pidx]),
+        "prop_invar_pc": f64(partition.prop_invar[pidx]),
+        "rate_weights": f64(partition.rate_weights),
+        "pattern_weights": f64(partition.pattern_weights),
+        "invariant": invariant.astype(np.int32),
+    }, _resolve_device(device), dtype or torch.float32)
 
 
 def _floats(model, dtype):

@@ -1,0 +1,221 @@
+"""Conditional-likelihood-vector (CLV) updates of the stateful Partition:
+the Felsenstein pruning step on the caller's buffers.
+
+Counterpart: ``libpll_tpu/ops/clv.py`` (``update_partials`` ``:55``,
+``update_partials_leveled`` ``:109``), capability parity with
+``pll_update_partials`` (libpll ``src/partials.c:177-212``).  Each
+operation computes, per rate category,
+
+    ``new[c] = (P_left[c] @ clv_left[c]) * (P_right[c] @ clv_right[c])``
+
+with the reference's scaling (``core_partials.c:607-663``): when every
+entry of a site's span (all rates × states per site, one rate's states per
+rate) falls below 2**-shift, the span is multiplied by 2**shift and the
+counter incremented; a parent's counter starts as the sum of its
+children's.
+
+Unlike the level sweep of :mod:`.sweep` (the evaluation modules' plain
+reference), these functions keep the caller's buffer indices, accept any
+op list (partial traversals, a child computed by an earlier call, a buffer
+written twice) and update ``clv`` and ``scalers`` in place: JAX donates
+the buffers, and at 64 × 262 144 in float64 a copy is 4.3 GB.
+
+Scaler row ``K`` (the last) is the always-zero dummy: ops whose scaler
+index is −1 reach it (``engine.partition.operations_to_array``), read
+zeros there, never scale, and leave it zero.
+
+Two executors with JAX's sequential semantics:
+
+  * :func:`update_partials_by_op` — one op at a time, every operand a
+    view of the buffers (no gather);
+  * :func:`update_partials_grouped` — ops that share no row in a hazard
+    (read after write, write after read, write after write, on CLV and
+    scaler rows alike) run as one gather, two batched matmuls and one
+    scatter per group: fewer launches, more bytes.
+
+:func:`update_partials` (the Partition's) picks one of them by the row
+size and how far the ops group.
+
+:func:`update_partials_leveled` runs JAX's level tables
+(``tree.schedule.build_levels``) the grouped way.  All three are plain
+PyTorch: JAX computes these products in XLA, outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.constants import (SCALE_NONE, SCALE_PER_SITE, scale_consts,
+                               scale_shift_bits)
+from .derivatives import check_full_precision
+
+# rows gathered per side in one grouped matmul: bounds the transient
+# memory of a wide group (the gathered children, two products) near 4×
+GROUP_BYTES = 1 << 30
+# update_partials groups ops only below this row size.  One op at a time
+# costs ~0.15 ms of host issue an op on an H100 (15 kernels), so grouping
+# won 1.5-18x at rows of 0.06-8 MiB (16-2 048 taxa); from 16 MiB rows the
+# card's time per op passes the host's, and the groups' gathers (1.2-1.3x
+# the bytes) lost (tools/partition_times.py; PERF.md)
+GROUPED_MAX_ROW_BYTES = 12 << 20
+
+
+def _dummy(scalers, scale_mode) -> int:
+    return scalers.shape[0] - 1 if scale_mode != SCALE_NONE else 0
+
+
+def _scale_in_place(x, scale_mode, has_scaler=None):
+    """Scale ``x`` [..., C, S, L] in place where a span is below the
+    threshold; returns the bool mask ([..., L] per site, [..., C, L] per
+    rate).  ``has_scaler`` (bool tensor broadcast over the mask, or None
+    for all) clears it for ops that own no scaler.  The factor is a power
+    of two, applied as ``exp2(mask·shift)``: exact, one pass over ``x``."""
+    thresh, _ = scale_consts(x.dtype)
+    shift = scale_shift_bits(x.dtype)
+    per_site = scale_mode == SCALE_PER_SITE
+    mask = x.amax(dim=(-3, -2) if per_site else -2) < thresh
+    if has_scaler is not None:
+        mask &= has_scaler
+    factor = torch.exp2(mask.to(x.dtype) * shift)
+    x.mul_(factor[..., None, None, :] if per_site else factor[..., None, :])
+    return mask
+
+
+def update_partials(clv, scalers, ops, pmatrix, scale_mode=SCALE_PER_SITE):
+    """Execute an op table with JAX's sequential result, in place (the
+    Partition's executor; arguments as :func:`update_partials_by_op`).
+
+    Picks the executor from what it sees: the grouped one while a CLV row
+    is under ``GROUPED_MAX_ROW_BYTES`` and the ops fall into at most half
+    as many hazard groups, else one op at a time."""
+    check_full_precision(clv, "update_partials")
+    ops = np.asarray(ops, np.int64).reshape(-1, 8)
+    dummy = _dummy(scalers, scale_mode)
+    if clv[0].numel() * clv.element_size() < GROUPED_MAX_ROW_BYTES:
+        level = hazard_levels(ops, dummy, scale_mode)
+        groups = level.max(initial=-1) + 1
+        if groups and len(ops) >= 2 * groups:
+            _run_levels(clv, scalers, ops, level, pmatrix, scale_mode,
+                        dummy)
+            return
+    update_partials_by_op(clv, scalers, ops, pmatrix, scale_mode)
+
+
+def update_partials_by_op(clv, scalers, ops, pmatrix,
+                          scale_mode=SCALE_PER_SITE):
+    """Execute an op table in order, one op at a time, in place.
+
+    Args:
+      clv: [N, C, S, L] all CLV buffers (tips first, inner nodes after,
+        the reference's index convention).
+      scalers: [K+1, L] (per-site) or [K+1, C, L] (per-rate) int32
+        exponent counters; row K is the always-zero dummy.
+      ops: int [n_ops, 8] host table of (parent_clv, parent_scaler,
+        child1_clv, child1_matrix, child1_scaler, child2_clv,
+        child2_matrix, child2_scaler); scaler −1 already remapped to K.
+      pmatrix: [M, C, S, S].
+      scale_mode: SCALE_NONE / SCALE_PER_SITE / SCALE_PER_RATE.
+    """
+    check_full_precision(clv, "update_partials")
+    dummy = _dummy(scalers, scale_mode)
+    for p, ps, c1, m1, s1, c2, m2, s2 in np.asarray(ops).tolist():
+        right = torch.matmul(pmatrix[m2], clv[c2])
+        # the product lands in the parent's row unless that row is a child
+        direct = p not in (c1, c2)
+        x = torch.matmul(pmatrix[m1], clv[c1],
+                         out=clv[p] if direct else None).mul_(right)
+        if scale_mode != SCALE_NONE and ps != dummy:
+            mask = _scale_in_place(x, scale_mode)
+            torch.add(scalers[s1], scalers[s2], out=scalers[ps]).add_(mask)
+        if not direct:
+            clv[p] = x
+
+
+def hazard_levels(ops, dummy, scale_mode=SCALE_PER_SITE) -> np.ndarray:
+    """Each op's group: one more than the highest group of an earlier op
+    it shares a hazard with (read after write, write after read, write
+    after write; CLV rows and scaler rows).  Ops of one group touch
+    disjoint rows, so a group runs as one batch, and groups in ascending
+    order keep the table's sequential result.  The dummy scaler row is
+    never a hazard: it reads zero and its writes are dropped."""
+    scaled = scale_mode != SCALE_NONE
+    wrote = {}  # ("c"|"s", row) -> group of its last write
+    read = {}  # ("c"|"s", row) -> highest group that read it
+    level = np.empty(len(ops), np.int64)
+    for i, (p, ps, c1, m1, s1, c2, m2, s2) in enumerate(
+            np.asarray(ops).tolist()):
+        reads = [("c", c1), ("c", c2)]
+        writes = [("c", p)]
+        if scaled and ps != dummy:
+            reads += [("s", s) for s in (s1, s2) if s != dummy]
+            writes.append(("s", ps))
+        lv = 1 + max([wrote.get(r, -1) for r in reads + writes]
+                     + [read.get(w, -1) for w in writes])
+        for r in reads:
+            read[r] = max(read.get(r, -1), lv)
+        for w in writes:
+            wrote[w] = lv
+        level[i] = lv
+    return level
+
+
+def _run_group(clv, scalers, g, pmatrix, scale_mode, dummy, valid=None):
+    """One batch of hazard-free ops: ``g`` [w, 8] long on the card;
+    ``valid`` [w] bool or None (all valid)."""
+    row_bytes = clv[0].numel() * clv.element_size()
+    step = max(1, GROUP_BYTES // row_bytes)
+    for a in range(0, g.shape[0], step):
+        gg = g[a:a + step]
+        x = torch.matmul(pmatrix[gg[:, 3]], clv[gg[:, 2]])
+        x.mul_(torch.matmul(pmatrix[gg[:, 6]], clv[gg[:, 5]]))
+        if scale_mode != SCALE_NONE:
+            has = gg[:, 1] != dummy
+            if valid is not None:
+                has &= valid[a:a + step]
+            has = has[:, None] if scale_mode == SCALE_PER_SITE \
+                else has[:, None, None]
+            mask = _scale_in_place(x, scale_mode, has)
+            # lanes aimed at "no scaler" land in the dummy row; re-zeroed
+            scalers[gg[:, 1]] = scalers[gg[:, 4]] + scalers[gg[:, 7]] + mask
+            scalers[dummy] = 0
+        clv[gg[:, 0]] = x
+
+
+def update_partials_grouped(clv, scalers, ops, pmatrix,
+                            scale_mode=SCALE_PER_SITE):
+    """:func:`update_partials`'s result, the ops batched by
+    :func:`hazard_levels` (one host-to-card copy of the table)."""
+    check_full_precision(clv, "update_partials")
+    ops = np.asarray(ops, np.int64).reshape(-1, 8)
+    dummy = _dummy(scalers, scale_mode)
+    _run_levels(clv, scalers, ops, hazard_levels(ops, dummy, scale_mode),
+                pmatrix, scale_mode, dummy)
+
+
+def _run_levels(clv, scalers, ops, level, pmatrix, scale_mode, dummy):
+    """The ops by ascending ``level``, each level one batch."""
+    order = np.argsort(level, kind="stable")
+    bounds = np.searchsorted(level[order], np.arange(level.max(initial=-1)
+                                                     + 2))
+    table = torch.as_tensor(ops[order], device=clv.device)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        _run_group(clv, scalers, table[a:b], pmatrix, scale_mode, dummy)
+
+
+def update_partials_leveled(clv, scalers, level_ops, level_valid, pmatrix,
+                            scale_mode=SCALE_PER_SITE):
+    """Level-parallel variant (JAX ``:109``): ``level_ops`` int
+    [n_levels, width, 8] from ``tree.schedule.build_levels``, padded by
+    repeating ops of the same level (duplicate lanes write identical
+    values); ``level_valid`` bool [n_levels, width] masks lanes out of
+    scaling.  In place."""
+    check_full_precision(clv, "update_partials_leveled")
+    dummy = _dummy(scalers, scale_mode)
+    table = torch.as_tensor(np.asarray(level_ops, np.int64),
+                            device=clv.device)
+    valid = torch.as_tensor(np.asarray(level_valid, bool),
+                            device=clv.device)
+    for lev in range(table.shape[0]):
+        _run_group(clv, scalers, table[lev], pmatrix, scale_mode, dummy,
+                   valid[lev])

@@ -54,12 +54,13 @@ THREADS = 256  # the kernel's block (csrc/derivatives.cu kBlock)
 BLOCKS_PER_SM = 4
 
 
-def _check_full_precision(t: torch.Tensor) -> None:
-    """The sumtable's products must run in full float32 on the card: a
-    TF32 matmul keeps ~3 decimal digits, far outside the f32 budget."""
+def check_full_precision(t: torch.Tensor, what: str) -> None:
+    """``what``'s products must run in full float32 on the card: a TF32
+    matmul keeps ~3 decimal digits, far outside the f32 budget.  Raises
+    rather than flipping the global flag."""
     if (t.dtype == torch.float32 and t.device.type == "cuda"
             and torch.backends.cuda.matmul.allow_tf32):
-        raise EinvalError("update_sumtable in float32 needs "
+        raise EinvalError(f"{what} in float32 needs "
                           "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
@@ -71,7 +72,7 @@ def update_sumtable(clv_parent, clv_child, scaler_parent, scaler_child,
     clv_parent, clv_child: [C, S, L]; scaler_parent, scaler_child: [C, L]
     int32, read only when ``per_rate``; freqs_pc [C, S]; left_pc, right_pc
     [C, S, S] (per-category eigen factors)."""
-    _check_full_precision(clv_parent)
+    check_full_precision(clv_parent, "update_sumtable")
     # lefterm[c,j,n] = Σ_k (π_k·left[c,k,j])·clvp[c,k,n]
     lefterm = torch.matmul((freqs_pc[:, :, None] * left_pc).transpose(1, 2),
                            clv_parent)

@@ -1,10 +1,6 @@
 """Unrooted phylogenetic trees: circular-linked-node graphs, traversals and
 operation-schedule generation.
 
-Counterpart: ``libpll_tpu/tree/utree.py`` (copied: parsing, index
-conventions, traversal and operation generation; export, cloning and
-integrity checks follow with the tree-search slice of the port).
-
 Capability parity with the reference's tree layer (libpll `src/utree.c`,
 `src/parse_utree.y`): every inner node is a ring of three :class:`UNode`
 records (one per incident edge) whose ``back`` pointers connect edges; tips
@@ -19,6 +15,10 @@ Index conventions are identical to the reference
 from ``tip_count``) and one ``scaler_index`` (numbered from 0); every edge's
 ``pmatrix_index`` equals the clv index of its child-side node (the root edge
 reuses the index of the root's back node).
+
+Counterpart: ``libpll_tpu/tree/utree.py``, copied (parsing, index
+conventions, traversals, operation generation, export, cloning, integrity
+checks).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class UNode:
     """One directed end of an edge; inner nodes are rings of three."""
 
     __slots__ = ("label", "length", "node_index", "clv_index", "scaler_index",
-                 "pmatrix_index", "next", "back")
+                 "pmatrix_index", "next", "back", "data", "clv_valid")
 
     def __init__(self, label: Optional[str] = None, length: float = 0.0):
         self.label = label
@@ -48,6 +48,10 @@ class UNode:
         self.pmatrix_index = 0
         self.next: Optional[UNode] = None
         self.back: Optional[UNode] = None
+        self.data = None
+        # per-direction CLV validity (tree/incremental.py; the reference's
+        # clv_valid-via-data-pointer trick, stepwise.c:103-123)
+        self.clv_valid = False
 
     @property
     def is_tip(self) -> bool:
@@ -60,6 +64,11 @@ class UNode:
         while n is not None and n is not self:
             yield n
             n = n.next
+
+    def __repr__(self):  # pragma: no cover
+        kind = "tip" if self.is_tip else "inner"
+        return (f"<UNode {kind} label={self.label!r} clv={self.clv_index} "
+                f"len={self.length}>")
 
 
 @dataclass
@@ -153,11 +162,13 @@ def _parse_subtree(tk: _Tokenizer) -> UNode:
         c1 = _parse_subtree(tk)
         tk.take(",")
         c2 = _parse_subtree(tk)
-        # multifurcations are rejected, as in the reference grammar
+        children = [c1, c2]
+        # tolerate multifurcations by left-factoring extra children into
+        # nested binary nodes is NOT reference behavior; reference rejects.
         tk.take(")")
         label = tk.label()
         length = tk.length()
-        return _make_inner(c1, c2, label, length)
+        return _make_inner(children[0], children[1], label, length)
     label = tk.label()
     if label is None:
         raise NewickError("expected label")
@@ -191,6 +202,11 @@ def parse_newick_string(text: str) -> UTree:
 
     reset_template_indices(root, _count_tips(root))
     return wraptree(root)
+
+
+def parse_newick(path: str) -> UTree:
+    with open(path) as fh:
+        return parse_newick_string(fh.read())
 
 
 def _count_tips(root: UNode) -> int:
@@ -334,3 +350,143 @@ def create_operations(trav_buffer: List[UNode]):
                 child2_scaler_index=node.next.next.back.scaler_index,
             ))
     return ops, branches, pmatrix_indices
+
+
+# ---------------------------------------------------------------------------
+# export / clone / integrity (utree.c:122-282, 512-611)
+# ---------------------------------------------------------------------------
+def export_newick(root: UNode, precision: int = 6) -> str:
+    """Newick string rooted at an inner node (utree.c:217-282)."""
+
+    def rec(node: UNode) -> str:
+        if node.is_tip:
+            return f"{node.label or ''}:{node.length:.{precision}f}"
+        subs = ",".join(rec(n.back) for n in list(node.ring())[1:])
+        return f"({subs}){node.label or ''}:{node.length:.{precision}f}"
+
+    subs = ",".join(rec(n.back) for n in root.ring())
+    return f"({subs}){root.label or ''};"
+
+
+def clone(tree: UTree) -> UTree:
+    """Deep copy preserving all indices (`pll_utree_clone`,
+    utree.c:546-611)."""
+
+    def clone_node(node: UNode) -> UNode:
+        c = UNode(node.label, node.length)
+        c.node_index = node.node_index
+        c.clv_index = node.clv_index
+        c.scaler_index = node.scaler_index
+        c.pmatrix_index = node.pmatrix_index
+        c.clv_valid = node.clv_valid
+        return c
+
+    def rec(node: UNode) -> UNode:
+        """Clone the subtree hanging below `node` (an up-facing unode);
+        returns the cloned up-facing node."""
+        c = clone_node(node)
+        if node.is_tip:
+            return c
+        ring = list(node.ring())[1:]
+        prev = c
+        for n in ring:
+            cn = clone_node(n)
+            prev.next = cn
+            sub = rec(n.back)
+            cn.back, sub.back = sub, cn
+            prev = cn
+        prev.next = c
+        return c
+
+    root = tree.root
+    croot = clone_node(root)
+    prev = croot
+    subs = []
+    for n in list(root.ring()):
+        if n is not root:
+            cn = clone_node(n)
+            prev.next = cn
+            prev = cn
+        subs.append((prev if n is not root else croot, n.back))
+    prev.next = croot
+    for cn, back in subs:
+        sub = rec(back)
+        cn.back, sub.back = sub, cn
+    return wraptree(croot, tree.tip_count)
+
+
+def check_integrity(tree: UTree) -> bool:
+    """Structural sanity check (`pll_utree_check_integrity`,
+    utree.c:512-544)."""
+    for node in tree.nodes:
+        if node.is_tip:
+            if node.back is None or node.back.back is not node:
+                return False
+            if node.length != node.back.length:
+                return False
+            continue
+        ring = list(node.ring())
+        if len(ring) < 3:
+            return False
+        for n in ring:
+            if n.back is None or n.back.back is not n:
+                return False
+            if n.length != n.back.length:
+                return False
+            if n.clv_index != node.clv_index:
+                return False
+    return True
+
+
+def show_ascii(root: UNode, out=None) -> str:
+    """ASCII rendering (capability parity with `pll_utree_show_ascii`,
+    utree.c:122-176; layout differs)."""
+    lines: List[str] = []
+
+    def rec(node: UNode, prefix: str, is_last: bool) -> None:
+        connector = "`-- " if is_last else "|-- "
+        name = node.label if node.is_tip else "*"
+        lines.append(f"{prefix}{connector}{name}:{node.length:g}")
+        if not node.is_tip:
+            ext = "    " if is_last else "|   "
+            children = [n.back for n in list(node.ring())[1:]]
+            for i, ch in enumerate(children):
+                rec(ch, prefix + ext, i == len(children) - 1)
+
+    lines.append("*")
+    children = [n.back for n in root.ring()]
+    for i, ch in enumerate(children):
+        rec(ch, "", i == len(children) - 1)
+    text = "\n".join(lines)
+    if out is not None:
+        out.write(text + "\n")
+    return text
+
+
+def create_pars_buildops(trav_buffer: List[UNode]):
+    """(parent, child1, child2) score-index triplets for Fitch/Sankoff
+    (reference `pll_utree_create_pars_buildops`, utree.c:740-763)."""
+    return [(n.clv_index, n.next.back.clv_index, n.next.next.back.clv_index)
+            for n in trav_buffer if not n.is_tip]
+
+
+def query_tipnodes(tree: UTree) -> List[UNode]:
+    """All tip nodes (reference pll_utree_query_tipnodes)."""
+    return [n for n in tree.nodes if n.is_tip]
+
+
+def query_innernodes(tree: UTree) -> List[UNode]:
+    """All inner nodes, one ring representative each
+    (reference pll_utree_query_innernodes)."""
+    return [n for n in tree.nodes if not n.is_tip]
+
+
+def every(tree: UTree, cb) -> bool:
+    """Apply ``cb`` to every node (all ring members); True iff all calls
+    return truthy (reference pll_utree_every / pll_utree_every_const)."""
+    ok = True
+    for n in tree.nodes:
+        ring = [n] if n.is_tip else list(n.ring())
+        for m in ring:
+            ok = bool(cb(m)) and ok
+    return ok

@@ -109,8 +109,10 @@ def simulate_mixture(tree, tips, sites, eigen, freqs, cat_rates, weights,
 
 
 def _topology_and_model(tips, sites, rate_cats, dtype, rng):
-    """(tree, topo, model, (w, left, right, freqs)) drawn from ``rng`` in
-    the JAX builder's order: the topology, then the GTR+Γ model."""
+    """(tree, topo, model, (w, left, right, freqs, params)) drawn from
+    ``rng`` in the order of ``__graft_entry__._build_flagship``: the
+    topology, then the GTR+Γ model (``params`` its six
+    exchangeabilities)."""
     from ..engine.evaluate import topology_from_tree
     from ..models.gamma import compute_gamma_cats
     from ..models.gtr import eigen_decompose
@@ -151,7 +153,20 @@ def _topology_and_model(tips, sites, rate_cats, dtype, rng):
         "pattern_weights": np.ones((sites,), dtype),
         "invariant": np.full((sites,), -1, np.int32),
     }
-    return tree, topo, model, (w, left, right, freqs)
+    return tree, topo, model, (w, left, right, freqs, params)
+
+
+def simulate_flagship(tips, sites, rate_cats=4, seed=0):
+    """(tree, topo, model, (params, freqs), states): the flagship's tree
+    and GTR+Γ model with [tips, sites] uint8 states simulated on the tree
+    (row = tip CLV index), as :func:`build_flagship` with ``simulate``
+    draws them.  The model is float64 numpy; ``params``/``freqs`` are the
+    GTR exchangeabilities and frequencies a Partition's setters take."""
+    rng = np.random.default_rng(seed)
+    tree, topo, model, (w, left, right, freqs, params) = \
+        _topology_and_model(tips, sites, rate_cats, np.float64, rng)
+    states = simulate_tips(tree, tips, sites, w, left, right, freqs, rng)
+    return tree, topo, model, (params, freqs), states
 
 
 def build_flagship_topology(tips, sites, rate_cats=4, dtype=np.float32,
@@ -203,13 +218,16 @@ def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
     ``tips_data`` is the [2·tips − 2, C, 4, sites] CLV array (tips one-hot,
     inner rows zero) and ``scalers`` the zero [n_inner + 1, sites] int32
     counters."""
+    if tip_masks and simulate:
+        _, topo, model, _, states = simulate_flagship(tips, sites,
+                                                      rate_cats, seed)
+        model = {k: v.astype(dtype) if v.dtype == np.float64 else v
+                 for k, v in model.items()}
+        return topo, model, np.uint32(1) << states.astype(np.uint32), None
     rng = np.random.default_rng(seed)
-    tree, topo, model, (w, left, right, freqs) = _topology_and_model(
+    tree, topo, model, (w, left, right, freqs, _) = _topology_and_model(
         tips, sites, rate_cats, dtype, rng)
 
-    if tip_masks and simulate:
-        states = simulate_tips(tree, tips, sites, w, left, right, freqs, rng)
-        return topo, model, np.uint32(1) << states.astype(np.uint32), None
     if tip_masks:
         return topo, model, draw_tip_masks(rng, tips, sites), None
 
@@ -235,21 +253,14 @@ PROTEIN_RATE_WEIGHTS = (0.1, 0.2, 0.3, 0.4)
 PROTEIN_AMBIGUITY = 0.03  # share of cells turned into '-', 'X', 'B', 'Z'
 
 
-def build_protein_flagship(tips=PROTEIN_TIPS, sites=PROTEIN_SITES, seed=0):
-    """(topo, model, masks) of the LG4X+Γ4 protein configuration.
-
-    The tree is :func:`build_flagship`'s of the same seed.  The model is
-    the LG4X mixture (``models/aa_tables``): four rate matrices, one per
-    category (``params_indices`` 0-3), each with its frequencies
-    (``freqs_pc``), Γ(α = 0.8) category rates and weights 0.1, 0.2, 0.3,
-    0.4.  ``sites`` columns are simulated on the tree under the mixture
-    (:func:`simulate_mixture`), ``PROTEIN_AMBIGUITY`` of the cells become
-    '-', 'X', 'B' or 'Z' (multi-bit masks), the alignment is written to a
-    FASTA file in a temporary directory and read back (``io.fasta``),
-    compressed to site patterns (``io.compress``) and encoded
-    (``io.maps.pll_map_aa``).  Returns the topology (its ``sites`` the
-    pattern count), the model as float64 numpy (pattern weights the
-    pattern counts) and the [tips, patterns] int32 masks."""
+def protein_flagship_alignment(tips=PROTEIN_TIPS, sites=PROTEIN_SITES,
+                               seed=0):
+    """The alignment of :func:`build_protein_flagship`, compressed:
+    ``(tree, topo, branches, patterns, counts, lg4x)`` with ``patterns``
+    the compressed rows in tip-CLV-index order, ``counts`` their int64
+    pattern weights and ``lg4x`` = (exchangeabilities [4, 190],
+    frequencies [4, 20], eigen factors per matrix, Γ category rates,
+    category weights): what a Partition's setters take."""
     import os
     import tempfile
 
@@ -260,7 +271,7 @@ def build_protein_flagship(tips=PROTEIN_TIPS, sites=PROTEIN_SITES, seed=0):
     from ..models.gamma import compute_gamma_cats
     from ..models.gtr import eigen_decompose
 
-    c, s = PROTEIN_RATE_CATS, PROTEIN_STATES
+    c = PROTEIN_RATE_CATS
     rng = np.random.default_rng(seed)
     tree, topo, dna_model, _ = _topology_and_model(tips, sites, c,
                                                    np.float64, rng)
@@ -298,12 +309,38 @@ def build_protein_flagship(tips=PROTEIN_TIPS, sites=PROTEIN_SITES, seed=0):
     rows = sorted(range(tips), key=lambda i: labels[headers[i]])
     patterns, counts = compress_site_patterns([seqs[i] for i in rows],
                                               pll_map_aa)
+    lg4x = (np.asarray(rates4, np.float64), freqs, eigen, cat_rates,
+            weights)
+    return tree, topo, dna_model["branch_lengths"], patterns, counts, lg4x
+
+
+def build_protein_flagship(tips=PROTEIN_TIPS, sites=PROTEIN_SITES, seed=0):
+    """(topo, model, masks) of the LG4X+Γ4 protein configuration.
+
+    The tree is :func:`build_flagship`'s of the same seed.  The model is
+    the LG4X mixture (``models/aa_tables``): four rate matrices, one per
+    category (``params_indices`` 0-3), each with its frequencies
+    (``freqs_pc``), Γ(α = 0.8) category rates and weights 0.1, 0.2, 0.3,
+    0.4.  ``sites`` columns are simulated on the tree under the mixture
+    (:func:`simulate_mixture`), ``PROTEIN_AMBIGUITY`` of the cells become
+    '-', 'X', 'B' or 'Z' (multi-bit masks), the alignment is written to a
+    FASTA file in a temporary directory and read back (``io.fasta``),
+    compressed to site patterns (``io.compress``) and encoded
+    (``io.maps.pll_map_aa``).  Returns the topology (its ``sites`` the
+    pattern count), the model as float64 numpy (pattern weights the
+    pattern counts) and the [tips, patterns] int32 masks."""
+    from ..io.maps import pll_map_aa
+
+    c = PROTEIN_RATE_CATS
+    _, topo, branches, patterns, counts, lg4x = protein_flagship_alignment(
+        tips, sites, seed)
+    _, freqs, eigen, cat_rates, weights = lg4x
     n = counts.shape[0]
     masks = pll_map_aa[np.frombuffer("".join(patterns).encode("latin-1"),
                                      np.uint8).reshape(tips, n)]
 
     model = {
-        "branch_lengths": dna_model["branch_lengths"],
+        "branch_lengths": branches,
         "rates": np.asarray(cat_rates, np.float64),
         "prop_invar": np.zeros((c,), np.float64),
         "params_indices": np.arange(c, dtype=np.int32),

@@ -13,7 +13,10 @@ scalers equal; float32 logL within 2e-6·|logL| + 5e-3, scalers agree at
 and protein),
 K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``), the roofline probes K7/K8
 (``roofline``, rel 1e-5 at small chain lengths) and the Newton kernel N1
-(``derivatives``, chip_smoke's ``newton_close``) are covered.
+(``derivatives``, chip_smoke's ``newton_close``) are covered, and the
+stateful Partition on the card against the CPU (chip_smoke's phase 20).
+``test_partition_builds_on_the_card_by_default`` needs no card and runs
+in the CPU suite.
 """
 
 import sys
@@ -23,9 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from libpll_tpu_torch import Partition
 from libpll_tpu_torch.engine import evaluate as ev
 from libpll_tpu_torch.engine.params import model_from_numpy
-from libpll_tpu_torch.errors import EinvalError
+from libpll_tpu_torch.errors import EinvalError, KernelError
 from libpll_tpu_torch.ops import clv_dyn as cd
 from libpll_tpu_torch.ops import clv_fused as cf
 from libpll_tpu_torch.ops import clv_seg as cseg
@@ -509,3 +513,32 @@ def test_protein_pool_that_does_not_fit_raises(cuda):
     assert (cf.fused_sweep.launches, cf.fused_edge_score.launches) == before
     with pytest.raises(EinvalError):
         cf.fused_sweep(sched, tp, pm, tip_encoding="chars")
+
+
+@pytest.mark.gpu
+def test_partition_on_card_matches_cpu(cuda):
+    """chip_smoke's phase 20: every scaling mode, +I, the asc modes,
+    explicit tip CLVs, protein, ``pad_to`` and a rewritten buffer, float64
+    and float32, the Partition on the card against the Partition on the
+    CPU; the executors of ``ops/clv`` likewise."""
+    assert chip_smoke.check_partition_small(cuda) > 0
+
+
+def test_partition_builds_on_the_card_by_default(monkeypatch):
+    """No card: Partition(), model_from_partition and restore_partition
+    with device None raise KernelError; nothing carries on on the CPU."""
+    from libpll_tpu_torch.engine import checkpoint as tck
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KernelError):
+        Partition(4, 2, 4, 10, 1, 5, 1, 2)
+    part = Partition(4, 2, 4, 10, 1, 5, 1, 2, device="cpu")
+    assert part.clv.device.type == "cpu"
+    with pytest.raises(KernelError):
+        ev.model_from_partition(part, np.ones(5))
+    header = {"tips": 4, "clv_buffers": 2, "states": 4, "sites": 10,
+              "rate_matrices": 1, "prob_matrices": 5, "rate_cats": 1,
+              "scale_buffers": 2, "scale_mode": 1, "asc_mode": 0,
+              "dtype": "float64"}
+    with pytest.raises(KernelError):
+        tck.restore_partition(header, {})

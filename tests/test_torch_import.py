@@ -14,19 +14,13 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_MODULES = [
-    "libpll_tpu_torch", "libpll_tpu_torch.errors",
-    "libpll_tpu_torch.utils.constants", "libpll_tpu_torch.utils.flagship",
-    "libpll_tpu_torch.io.maps", "libpll_tpu_torch.engine.partition",
-    "libpll_tpu_torch.engine.evaluate", "libpll_tpu_torch.engine.params",
-    "libpll_tpu_torch.tree.utree", "libpll_tpu_torch.models.gamma",
-    "libpll_tpu_torch.models.gtr", "libpll_tpu_torch.ops.sweep",
-    "libpll_tpu_torch.ops.pmatrix", "libpll_tpu_torch.ops.likelihood",
-    "libpll_tpu_torch.ops.clv_fused", "libpll_tpu_torch.ops._build",
-    "libpll_tpu_torch.ops.clv_seg", "libpll_tpu_torch.ops.clv_dyn",
-    "libpll_tpu_torch.ops.roofline", "libpll_tpu_torch.tools.dyn_times",
-    "libpll_tpu_torch.ops.derivatives",
-]
+# every module of the port (tools included), found on disk so that a new
+# module cannot be missed
+PORT_MODULES = sorted(
+    ".".join(path.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for path in (ROOT / "libpll_tpu_torch").rglob("*.py")
+    if "_build" not in path.parts)
 
 
 def _run(code, cwd=ROOT):
@@ -43,6 +37,41 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_modules_listed():
+    for m in ("libpll_tpu_torch.io.fasta", "libpll_tpu_torch.io.compress",
+              "libpll_tpu_torch.io.phylip", "libpll_tpu_torch.models.aa_tables",
+              "libpll_tpu_torch.tools.fused_times",
+              "libpll_tpu_torch.ops.clv", "libpll_tpu_torch.engine.checkpoint",
+              "libpll_tpu_torch.tree.moves", "libpll_tpu_torch.utils.logging"):
+        assert m in PORT_MODULES, m
+
+
+def test_top_level_names_are_jax_packages():
+    """``libpll_tpu_torch`` exports ``libpll_tpu``'s top-level names, less
+    the model fitting (``optimize_model``, ``ModelOptResult``), which is
+    not ported yet."""
+    import types
+
+    import numpy as np
+
+    import libpll_tpu as jpll
+    import libpll_tpu_torch as tpll
+
+    def names(pkg):
+        return {n for n in dir(pkg) if not n.startswith("_")
+                and not (isinstance(getattr(pkg, n), types.ModuleType)
+                         and n != "maps")}
+
+    assert names(tpll) == names(jpll) - {"optimize_model", "ModelOptResult"}
+    for n in ("ASC_NONE", "ASC_LEWIS", "ASC_FELSENSTEIN", "ASC_STAMATAKIS",
+              "GAMMA_RATES_MEAN", "GAMMA_RATES_MEDIAN", "SCALE_BUFFER_NONE"):
+        assert getattr(tpll, n) == getattr(jpll, n), n
+    assert tpll.PllError.__name__ == jpll.PllError.__name__
+    assert np.array_equal(tpll.compute_gamma_cats(0.5, 4),
+                          jpll.compute_gamma_cats(0.5, 4))
+    assert np.array_equal(tpll.maps.pll_map_nt, jpll.maps.pll_map_nt)
 
 
 def _smoke(cwd):
