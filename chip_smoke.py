@@ -44,10 +44,11 @@ Phases, one line each:
   2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
      ``clv_seg.cu``, ``roofline.cu`` and ``derivatives.cu`` for sm_90a,
      one process each, all at once; the protein instances' registers,
-     spills and stack;
+     spills and stack (one and two sites a thread);
   3. small configs: K1/K2 against their plain PyTorch versions on the
      card, DNA and protein, for every tip encoding (protein: clv and
-     masks), scale mode, +I and rate-category count, in float64 (logL rel
+     masks; 1, 63, 64, 65, 300 and 1 000 sites, around a block's tile of
+     32 or 64), scale mode, +I and rate-category count, in float64 (logL rel
      <= 1e-12, scalers equal, CLVs rel 1e-12) and float32 (logL within
      the f32 budget, scalers agree at >= 99.9% of entries, CLVs rtol 1e-5
      where they agree);
@@ -124,7 +125,8 @@ Phases, one line each:
      layout, and which (rate count, dtype, pool) combinations fit a block;
  19. protein times: ms per evaluation and per step, eager and as CUDA
      graphs (equal to the eager calls bit for bit), K1/K2 against their
-     plain versions and their bounds;
+     plain versions and their bounds, each with its share of the bound
+     and its blocks per SM;
  20. partition small: 37 configurations, the Partition on the card
      against the Partition on the CPU (every scaling mode, +I, the three
      asc modes, several rate matrices, explicit tip CLVs that scale,
@@ -354,7 +356,16 @@ def check_small(device):
              ("protein caterpillar48", caterpillar_newick(48), (4,), 1000,
               scaled, 20),
              ("protein random1000", random_newick(1000, rng), (4,), 300,
-              scaled, 20)]
+              scaled, 20),
+             # on both sides of a block's tile (32 or 64 sites)
+             ("protein random12", random_newick(12, rng), (4,), 1, both,
+              20),
+             ("protein random12", random_newick(12, rng), (2, 8), 63, both,
+              20),
+             ("protein caterpillar48", caterpillar_newick(48), (4,), 64,
+              scaled, 20),
+             ("protein random12", random_newick(12, rng), (1, 4), 65, both,
+              20)]
     n, k1_err, k2_err = 0, 0.0, 0.0
     for label, newick, cats, sites, k1_scales, states in trees:
         encodings = ("clv", "chars", "masks") if states == 4 else ("clv",
@@ -370,7 +381,8 @@ def check_small(device):
                 for enc in encodings:
                     tp = tip_input(masks, enc, rate_cats, dtype, device,
                                    states)
-                    where = f"{label} C={rate_cats} {dtype} {enc}"
+                    where = (f"{label} {sites} sites C={rate_cats} {dtype} "
+                             f"{enc}")
                     pm = kernel_inputs(topo, model_np, dtype, device,
                                        False)[0]
                     for scale in (SCALE_NONE, SCALE_PER_SITE,
@@ -671,7 +683,8 @@ def ptxas_report(name, kernel=""):
     -Xptxas -v log of ``csrc/<name>.cu``, of the kernels whose mangled
     name holds ``kernel``.  An instance is labelled by its template
     arguments (``<float,4>``; a trailing bool, K1's score flag, as
-    ``<float,4,1>``) or else by its kernel's name."""
+    ``<float,4,1>``; then an int, the protein instances' sites a thread,
+    as ``<float,4,1,2>``) or else by its kernel's name."""
     import re
 
     from libpll_tpu_torch.ops import _build
@@ -688,10 +701,11 @@ def ptxas_report(name, kernel=""):
             stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
-            t = re.search(r"I([fd])Li(\d+)E(?:Lb([01])E)?", current)
+            t = re.search(r"I([fd])Li(\d+)E(?:Lb([01])E)?(?:Li(\d+)E)?",
+                          current)
             k = re.search(r"\d([a-z_]+_kernel)", current)
             label = (f"<{'float' if t.group(1) == 'f' else 'double'},"
-                     f"{t.group(2)}{',' + t.group(3) if t.group(3) else ''}>"
+                     + ",".join(g for g in t.groups()[1:] if g) + ">"
                      if t else k.group(1) if k else current)
             rows.append((label, int(m.group(1)), spill, stack))
             current = None
@@ -1683,7 +1697,7 @@ def protein_layouts():
     from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
 
     lib = cf.load_kernels()
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     fits = {}
     for c in cf.KERNEL_RATE_CATS:
         for f64 in (0, 1):
@@ -1861,12 +1875,14 @@ def phase_protein(device, card, peak):
           f"make_forward_fused (K2) {ms['forward_fused']:.4f} ms/eval; "
           f"make_train_step_fused {ms['step']:.4f} ms/step eager, "
           f"{ms['step_graph']:.4f} ms/step as a CUDA graph (graphs equal "
-          f"to the eager calls bit for bit); kernel alone K1 "
-          f"{ms['k1']:.4f} ms vs plain {ms['k1_plain']:.4f} ms, bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {ms['k2']:.4f} ms vs "
-          f"plain {ms['k2_plain']:.4f} ms, bound {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]}); {flop:.4e} flop of contraction; CUDA events",
-          flush=True)
+          f"to the eager calls bit for bit); kernel alone " + "; ".join(
+              f"{name} {ms[key]:.4f} ms vs plain {ms[key + '_plain']:.4f} "
+              f"ms, bound {b[0]:.4f} ms ({b[1]}), {b[0] / ms[key] * 100:.1f}% "
+              f"of it, {lay[name]['blocks_per_sm']} blocks per SM of "
+              f"{lay[name]['block_sites']} sites"
+              for name, key, b in (("K1", "k1", k1_bound),
+                                   ("K2", "k2", k2_bound)))
+          + f"; {flop:.4e} flop of contraction; CUDA events", flush=True)
     return dict(launches=launches, k1_err=k1_err, k2_err=k2_err, ms=ms,
                 k1_bound=k1_bound, k2_bound=k2_bound)
 
@@ -2561,8 +2577,8 @@ def main():
           f"instances with spills: {sum(1 for _, _, b, _ in fused if b)}, "
           f"largest stack frame {max(st for *_, st in fused)} bytes",
           flush=True)
-    print("[2 build] clv_fused.cu protein instances <dtype,C,K1> "
-          "(registers, spill bytes, stack bytes): " + "; ".join(
+    print("[2 build] clv_fused.cu protein instances <dtype,C,K1,sites a "
+          "thread> (registers, spill bytes, stack bytes): " + "; ".join(
               f"{lab} {r}, {b}, {st}" for lab, r, b, st in
               ptxas_report("clv_fused", "fused_protein_kernel")),
           flush=True)

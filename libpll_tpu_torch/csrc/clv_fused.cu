@@ -60,10 +60,13 @@
 //    and the partials are summed in the first kernel's order (each warp's
 //    shuffle tree, then four warps in order): the rows, counters and logL
 //    keep their bits.
-//  * Protein takes the pool kernels' layout, one thread per (site, rate)
-//    (see "Protein" below): the contraction stays full FP32 (no tensor
-//    cores), each value in the DNA instances' order, the rate terms of the
-//    edge summed in rate order.
+//  * Protein takes the pool kernels' layout, a warp per rate and two
+//    sites a thread (see "Protein" below): each op's matrices copied by
+//    cp.async while the op before computes, one barrier an op; the
+//    contraction stays full FP32 on CUDA cores (3xTF32 on the tensor
+//    cores measured slower on an H100, and outside F32_RTOL: PERF.md),
+//    each value in the DNA instances' order, the rate terms of the edge
+//    summed in rate order.
 //
 // What bounds it, at the flagship (64 taxa x 262 144 sites, four rates,
 // float32) per evaluation: ~3.7 GFLOP of contraction (0.055 ms at the FP32
@@ -428,7 +431,7 @@ cudaError_t open_kernel(K* kernel, int* limit, int* sms) {
 // The launch for a plan: the largest chunk (8, 4, 2, 1 ops) and then
 // block (128, 64, 32 threads) whose shared memory fits a block.  out:
 // dynamic shared memory, blocks per SM, threads, chunk, sites per block,
-// SMs.
+// SMs, and 1 (the protein instances' matrix buffers).
 template <typename T, int C, bool kScore>
 int layout(int scale_mode, int pool, int* out) {
   int limit = 0, sms = 0;
@@ -450,6 +453,7 @@ int layout(int scale_mode, int pool, int* out) {
       out[3] = chunk;
       out[4] = nt * U;
       out[5] = sms;
+      out[6] = 1;
       return 0;
     }
   }
@@ -484,154 +488,215 @@ int dispatch(int rate_cats, const FusedArgs<T>& a, int threads, int grid,
 // A site's C*S values would take 80 registers a child at four rates, too
 // many to hold as the DNA instances do.  The protein instances take the
 // pool kernels' layout instead (clv_dyn.cu, clv_seg.cu): a block is a tile
-// of 32 sites by C rates, one thread per (site, rate) holding that rate's
-// 20 values (clv_common.cuh's Lane: warp c runs rate c), and the walk's
-// live rows sit in the pool [slot, S, 32*C] in shared memory.  The
-// per-site scaling test votes across the C warps (site_vote, one barrier
-// per op that may scale); K1's edge fold gathers a site's C rate terms
-// through shared memory and sums them in rate order.  Each op's two
-// P-matrices (and, for K1's edge fold, the edge's) are staged in shared
-// memory, transposed on the way (12.8 KB at four rates in float32, between
-// two barriers), and read as 16-byte vectors, one address a warp.  Read
-// through L1 instead, as the pool kernels read protein rows (kStagePm),
-// they took twice as long on an H100: the blocks of an SM walk different
-// ops, and their matrices do not fit the L1 that the pool leaves.  A walk
-// of up to kProtChunk ops has its descriptors staged once per block; the
-// blocks loop over the 32-site tiles.
+// of 32*U sites by C rates, one thread per (rate, U sites) holding that
+// rate's 20 values of each (warp c runs rate c; lane l sites l, l + 32,
+// ...), and the walk's live rows sit in the pool [slot, S, 32*C*U] in
+// shared memory.
+//
+// Each op reads its two [C, S, S] P-matrices from shared memory, as they lie
+// in device memory (untransposed): parent state s's row of 20 entries loads
+// as 16-byte vectors, one address a warp, and feeds the U sites' chains of
+// 20 multiply-adds (d = 0, 1, ..., 19, the first a multiply: K1's order, so
+// the values keep the bits of the transposed staging before them).  Each
+// broadcast vector serves U sites.
+//
+// What bounds it at the protein configuration: K1 its 25.8 GFLOP of FP32
+// contraction, K2 the 1.33 GB of rows and counters it writes; on an H100
+// they take ~2.7x and ~3.3x those bounds (PERF.md: what holds them).
+//
+// The walk is a sequence of stages, each tile's ops and then (K1) its edge.
+// Stage k's matrices land in buffer k % buffers by cp.async, issued at the
+// start of stage k - 1 (two buffers), so that the copy from L2 overlaps
+// the contraction before it, and one block barrier a stage serves both
+// "stage k's matrices have landed" and "stage k - 1's buffer is free".  The
+// same barrier shows every warp the per-site scaling votes of the stage
+// before: an op's values are contracted and voted on in its stage, and
+// scaled, stored in the pool and written out at the start of the next
+// (a thread reads and writes only its own pool columns, so a child's row
+// is stored before its parent reads it).  Where two buffers do not fit a
+// block's shared memory (large pools), one buffer takes each stage's
+// matrices after a second barrier, behind the stage.  K1's edge fold
+// gathers a site's C rate terms through shared memory (a second barrier)
+// and sums them in rate order.  Read through L1 instead of staged, the
+// matrices took twice as long on an H100: the blocks of an SM walk
+// different ops, and their matrices do not fit the L1 that the pool
+// leaves.  A walk of up to kProtChunk ops has its descriptors staged once
+// per block; the blocks loop over the tiles.
 constexpr int kProtStates = 20;
 constexpr int kProtChunk = 64;  // ops staged at once, at most
+// Sites a thread at float (each staged P vector serves them all: K1 -14%,
+// K2 -5% on an H100 against one, PERF.md); double runs one (its K1 takes
+// 254 registers at one).  The layout falls back to one site a thread, and
+// to one matrix buffer, where a block's shared memory does not hold more.
+constexpr int kProtSitesPerThread = 2;
 
-// Dynamic shared memory, in this order: the op's staged matrices
-// [2, C, S, S], the chunk's descriptors, the pool's values
-// [slot, S, 32*C] and counters [slot, 32] (per rate [slot, 32*C]), and
-// K1's edge exchange, [32*C] terms and counters.
+template <typename T>
+constexpr int kProtSites = sizeof(T) == 4 ? kProtSitesPerThread : 1;
+
+// The protein kernels' arguments: the walk's, and the matrix buffers (2,
+// or 1 where two do not fit).
+template <typename T>
+struct ProtArgs {
+  FusedArgs<T> f;
+  int buffers;
+};
+
+// Dynamic shared memory, in this order: the matrix buffers [buffers, 2,
+// C, S, S], the chunk's descriptors, the pool's values [slot, S, cols]
+// and counters [slot, 32*U] (per rate [slot, cols]), and K1's edge
+// exchange, [cols] terms and counters (cols = 32*C*U: a thread's U sites).
 template <typename T, int C, bool kScore>
-size_t protein_smem_bytes(int chunk, int pool, int scale_mode) {
-  constexpr size_t nt = (size_t)kTileSites * C;
-  const size_t counters = scale_mode == SCALE_PER_RATE ? nt : kTileSites;
-  return 2 * C * kProtStates * kProtStates * sizeof(T) +
+size_t protein_smem_bytes(int chunk, int pool, int scale_mode, int sites,
+                          int buffers) {
+  const size_t cols = (size_t)kTileSites * C * sites;
+  const size_t counters =
+      scale_mode == SCALE_PER_RATE ? cols : (size_t)kTileSites * sites;
+  return (size_t)buffers * 2 * C * kProtStates * kProtStates * sizeof(T) +
          (size_t)chunk * sizeof(OpDesc) +
-         (size_t)pool * (kProtStates * nt * sizeof(T) +
+         (size_t)pool * (kProtStates * cols * sizeof(T) +
                          counters * sizeof(int32_t)) +
-         (kScore ? nt * (sizeof(T) + sizeof(int32_t)) : 0);
+         (kScore ? cols * (sizeof(T) + sizeof(int32_t)) : 0);
 }
 
-// The thread's 20 values of the row named by descriptor d: a pool slot, a
+// The block's pool: values [slot, S, cols] and counters [slot, sstride];
+// thread x's site u is column u*nt + x.
+template <typename T>
+struct ProtPool {
+  T* clv;
+  int32_t* scal;
+  int nt;       // threads
+  int cols;     // nt * U
+  int sstride;  // counters a slot
+};
+
+// What one thread is: rate c of U sites (site[u] clamped to the last site
+// for loads past the end; live[u]: a real site).
+template <int U>
+struct ProtLanes {
+  int c;
+  int sl;  // lane: the sites' offset in each 32-site group
+  int64_t site[U];
+  bool live[U];
+};
+
+// The thread's counter of site u in pool slot `slot`: its site's (warp
+// 0's), or per rate its own.
+template <typename T>
+__device__ __forceinline__ int prot_scal_at(const ProtPool<T>& pl,
+                                            bool per_rate, int slot, int u,
+                                            int sl) {
+  return slot * pl.sstride +
+         (per_rate ? u * pl.nt + (int)threadIdx.x : u * kTileSites + sl);
+}
+
+// The thread's U rows of 20 values named by descriptor d: a pool slot, a
 // CLV tip (its rate's rows) or a 20-bit tip mask decoded into 0/1 values.
-template <typename T, int C>
-__device__ __forceinline__ void protein_row(const FusedArgs<T>& a,
-                                            const Pool<T>& pl, const Lane& ln,
-                                            int d, T (&x)[kProtStates]) {
+template <typename T, int C, int U>
+__device__ __forceinline__ void protein_rows(const FusedArgs<T>& a,
+                                             const ProtPool<T>& pl,
+                                             const ProtLanes<U>& q, int d,
+                                             T (&x)[U][kProtStates]) {
   constexpr int S = kProtStates;
   const int v = index_of(d);
   if (kind_of(d) == K_POOL) {
 #pragma unroll
-    for (int e = 0; e < S; ++e)
-      x[e] = pl.clv[pool_at<S>(v, pl.nt) + e * pl.nt];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < S; ++e)
+        x[u][e] = pl.clv[(v * S + e) * pl.cols + u * pl.nt + threadIdx.x];
     return;
   }
   if (a.tip_encoding == TIP_CLV) {
-    const T* p = a.tip_clv + ((int64_t)v * C + ln.c) * S * a.sites + ln.site;
 #pragma unroll
-    for (int e = 0; e < S; ++e) x[e] = __ldg(p + e * a.sites);
+    for (int u = 0; u < U; ++u) {
+      const T* p =
+          a.tip_clv + ((int64_t)v * C + q.c) * S * a.sites + q.site[u];
+#pragma unroll
+      for (int e = 0; e < S; ++e) x[u][e] = __ldg(p + e * a.sites);
+    }
     return;
   }
-  const uint32_t code =
-      (uint32_t)__ldg(a.tip_words + (int64_t)v * a.sites + ln.site);
 #pragma unroll
-  for (int e = 0; e < S; ++e) x[e] = (T)((code >> e) & 1u);
-}
-
-// Matrices m0 (and m1 when k is 2) of pmatrix [M, C, S, S] into pm
-// [k, C, S, S] in shared memory, each S x S block transposed (row d holds
-// every parent state's entry for child state d).  Read as 16-byte vectors, kBatch in
-// flight a thread, as stage_pmatrices reads; every thread of the block
-// must call it between two barriers.
-template <typename T, int C>
-__device__ __forceinline__ void stage_protein_pmatrices(const T* pmatrix,
-                                                        int m0, int m1,
-                                                        int k, T* pm) {
-  using V = typename Vec16<T>::type;
-  constexpr int S = kProtStates, n = Vec16<T>::n, kBatch = 4;
-  constexpr int PM = C * S * S, per = PM / n;  // vectors a matrix
-  const int total = k * per;
-  for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
-    V w[kBatch];
+  for (int u = 0; u < U; ++u) {
+    const uint32_t code =
+        (uint32_t)__ldg(a.tip_words + (int64_t)v * a.sites + q.site[u]);
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int it = it0 + u * blockDim.x;
-      if (it < total)
-        w[u] = __ldg(reinterpret_cast<const V*>(
-                         pmatrix + (int64_t)(it < per ? m0 : m1) * PM) +
-                     it % per);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int it = it0 + u * blockDim.x;
-      if (it >= total) continue;
-      // the source's (c, s, d .. d + n - 1) go to (c, d + q, s)
-      const int r = (it % per) * n, c = r / (S * S), s = r / S % S,
-                d = r % S;
-      T* out = pm + (it / per) * PM + c * S * S + d * S + s;
-      if constexpr (n == 4) {
-        out[0] = w[u].x; out[S] = w[u].y;
-        out[2 * S] = w[u].z; out[3 * S] = w[u].w;
-      } else {
-        out[0] = w[u].x; out[S] = w[u].y;
-      }
-    }
+    for (int e = 0; e < S; ++e) x[u][e] = (T)((code >> e) & 1u);
   }
-}
-
-// t (=, or *= when kMul) the thread's rate block of a branch's P-matrices
-// times x.  pmt: the branch's [C, S, S] matrices as
-// stage_protein_pmatrices leaves them in shared memory, transposed, so that
-// one child state's 20 entries load as 16-byte vectors and the 20 sums
-// advance together, 20 independent multiply-add chains in place of one;
-// each sum keeps K1's order (d = 0, 1, ..., as dot_regs).
-template <typename T, bool kMul>
-__device__ __forceinline__ void protein_term(const T* pmt, const Lane& ln,
-                                             const T (&x)[kProtStates],
-                                             T (&t)[kProtStates]) {
-  constexpr int S = kProtStates;
-  const T* p = pmt + ln.c * S * S;
-  T acc[S];
-#pragma unroll
-  for (int d = 0; d < S; ++d) {
-    T col[S];
-    load_pm_row<T, S, true>(p + d * S, col);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      acc[s] = d == 0 ? col[s] * x[0] : dev_fma(col[s], x[d], acc[s]);
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) t[s] = kMul ? t[s] * acc[s] : acc[s];
-}
-
-// Rate c's term of the edge sum, edge_rate_term's arithmetic on the edge's
-// staged P-matrices pet.
-template <typename T>
-__device__ __forceinline__ T protein_edge_term(const T* pet, const Lane& ln,
-                                               const T (&pv)[kProtStates],
-                                               const T (&x)[kProtStates],
-                                               const T* w) {
-  constexpr int S = kProtStates;
-  T tb[S];
-  protein_term<T, false>(pet, ln, x, tb);
-  T acc = 0;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-    acc = dev_fma(pv[s] * tb[s], __ldg(w + ln.c * S + s), acc);
-  return acc;
 }
 
 // The thread's counter named by a counter descriptor (a pool slot, or
-// K_ZERO: 0): its site's, or per rate its own.
+// K_ZERO: 0) for site u.
 template <typename T>
-__device__ __forceinline__ int protein_count(const Pool<T>& pl,
-                                             const Lane& ln, bool per_rate,
-                                             int d) {
-  return d < 0 ? 0 : pl.scal[scal_at(per_rate, index_of(d), ln, pl.sstride)];
+__device__ __forceinline__ int protein_count(const ProtPool<T>& pl,
+                                             bool per_rate, int d, int u,
+                                             int sl) {
+  return d < 0 ? 0 : pl.scal[prot_scal_at(pl, per_rate, index_of(d), u, sl)];
+}
+
+// cp.async: 16 bytes from device memory to shared memory, not through L1;
+// the copies a thread issued land by the end of its next wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Matrices m0 (and m1 when k is 2) of pmatrix [M, C, S, S] into dst [k, C,
+// S, S] in shared memory, as they are, by cp.async from every thread of
+// the block (16 bytes a copy).
+template <typename T, int C>
+__device__ __forceinline__ void issue_matrices(const T* pmatrix, int m0,
+                                               int m1, int k, T* dst) {
+  constexpr int PM = C * kProtStates * kProtStates;
+  constexpr int per = PM * (int)sizeof(T) / 16;  // copies a matrix
+  const char* src0 = reinterpret_cast<const char*>(pmatrix + (int64_t)m0 * PM);
+  const char* src1 = reinterpret_cast<const char*>(pmatrix + (int64_t)m1 * PM);
+  char* out = reinterpret_cast<char*>(dst);
+  for (int i = threadIdx.x; i < k * per; i += blockDim.x)
+    cp_async16(out + (size_t)i * 16, i < per ? src0 + (size_t)i * 16
+                                             : src1 + (size_t)(i - per) * 16);
+}
+
+// The matrices of walk op g into dst: its descriptor from the staged chunk
+// [op0, op0 + n) when that holds it, else from device memory.
+template <typename T, int C>
+__device__ __forceinline__ void issue_op(const FusedArgs<T>& a,
+                                         const OpDesc* ops, int op0, int n,
+                                         int g, T* dst) {
+  const bool staged = g >= op0 && g < op0 + n;
+  const int m0 = staged ? ops[g - op0].m[0] : __ldg(&a.ops[g].m[0]);
+  const int m1 = staged ? ops[g - op0].m[1] : __ldg(&a.ops[g].m[1]);
+  issue_matrices<T, C>(a.pmatrix, m0, m1, 2, dst);
+}
+
+// t (=, or *= when kMul) the thread's rate block p ([S, S], untransposed,
+// in shared memory) times each of its U rows x: sum_d p[s, d] x[d], in
+// K1's order (dot_regs).
+template <typename T, int U, bool kMul>
+__device__ __forceinline__ void protein_term(const T* p,
+                                             const T (&x)[U][kProtStates],
+                                             T (&t)[U][kProtStates]) {
+  constexpr int S = kProtStates;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T row[S];
+    load_pm_row<T, S, true>(p + s * S, row);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T v = dot_regs<T, S>(row, x[u]);
+      t[u][s] = kMul ? t[u][s] * v : v;
+    }
+  }
 }
 
 // Stage the descriptors of ops [op0, op0 + n).  Every thread of the block
@@ -644,158 +709,319 @@ __device__ void stage_ops(const FusedArgs<T>& a, OpDesc* ops, int op0,
   __syncthreads();
 }
 
-// Every thread runs every op, past-the-end sites included (loads clamped,
-// device stores skipped): the votes need whole warps.  A thread reads and
-// writes only its own column of the pool (a site's counter: warp 0's
-// lane), so a parent may take a child's slot and the tiles follow each
-// other without a barrier.
-template <typename T, int C, bool kScore>
+// An op contracted and voted on, to be scaled and stored at the start of
+// the next stage: its values and counters, where they go, and the tile's
+// sites.
+template <typename T, int U>
+struct Pending {
+  T t[U][kProtStates];
+  int cnt[U];
+  int home, out, vb;
+  bool vote;  // per-site scaling of an op that may scale: read the votes
+  int64_t site[U];
+  bool live[U];
+};
+
+// Store a pending op: scale the sites whose C warps all voted small (the
+// votes of buffer p.vb, cast before the barrier that precedes this call),
+// then its values and counters into the pool and, for K2, out.
+template <typename T, int C, int U, bool kScore>
+__device__ __forceinline__ void store_op(const FusedArgs<T>& a,
+                                         const ProtPool<T>& pl, int c, int sl,
+                                         bool per_rate, bool counts,
+                                         unsigned (*votes)[U][kMaxRates],
+                                         Pending<T, U>& p) {
+  constexpr int S = kProtStates;
+  const int srows = per_rate ? C : 1;
+  const int crow = per_rate ? c : 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (p.vote) {
+      unsigned all = 0xffffffffu;
+#pragma unroll
+      for (int r = 0; r < C; ++r) all &= votes[p.vb][u][r];
+      if ((all >> sl) & 1u) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) p.t[u][s] *= a.u.factor;
+        p.cnt[u] += 1;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < S; ++e)
+      pl.clv[(p.home * S + e) * pl.cols + u * pl.nt + threadIdx.x] = p.t[u][e];
+    if (counts) pl.scal[prot_scal_at(pl, per_rate, p.home, u, sl)] = p.cnt[u];
+    if (!kScore && p.live[u]) {
+      T* out = a.inner + ((int64_t)p.out * C + c) * S * a.sites + p.site[u];
+#pragma unroll
+      for (int e = 0; e < S; ++e) out[e * a.sites] = p.t[u][e];
+      if (counts)
+        a.scalers[((int64_t)p.out * srows + crow) * a.sites + p.site[u]] =
+            p.cnt[u];
+    }
+  }
+}
+
+// Every thread runs every stage, past-the-end sites included (loads
+// clamped, device stores skipped): the votes need whole warps.  A thread
+// reads and writes only its own columns of the pool (a site's counter:
+// warp 0's lane), so a parent may take a child's slot and the tiles
+// follow each other without a barrier of their own.
+template <typename T, int C, bool kScore, int U>
 __global__ void __launch_bounds__(kTileSites * C)
-    fused_protein_kernel(const __grid_constant__ FusedArgs<T> a) {
+    fused_protein_kernel(const __grid_constant__ ProtArgs<T> pa) {
   constexpr int S = kProtStates;
   constexpr int PM = C * S * S;
+  const FusedArgs<T>& a = pa.f;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned votes[2][kMaxRates];
+  __shared__ unsigned votes[2][U][kMaxRates];
   const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  const bool per_site = a.scale_mode == SCALE_PER_SITE;
   const bool counts = per_rate || threadIdx.x < kTileSites;  // warp-uniform
-  const int srows = per_rate ? C : 1;
-  const int crow = per_rate ? (int)threadIdx.x / kTileSites : 0;
-  Lane ln;
-  ln.c = threadIdx.x / kTileSites;
-  ln.sl = threadIdx.x % kTileSites;
-  Pool<T> pl;
+  const bool two = pa.buffers == 2;
+  ProtLanes<U> q;
+  q.c = threadIdx.x / kTileSites;
+  q.sl = threadIdx.x % kTileSites;
+  ProtPool<T> pl;
   pl.nt = kTileSites * C;
-  pl.sstride = per_rate ? pl.nt : kTileSites;
-  T* const pm_s = reinterpret_cast<T*>(smem);  // the op's matrices
-  OpDesc* const ops = reinterpret_cast<OpDesc*>(pm_s + 2 * PM);
+  pl.cols = pl.nt * U;
+  pl.sstride = per_rate ? pl.cols : kTileSites * U;
+  T* const pm_s = reinterpret_cast<T*>(smem);  // the matrix buffers
+  OpDesc* const ops = reinterpret_cast<OpDesc*>(pm_s + pa.buffers * 2 * PM);
   pl.clv = reinterpret_cast<T*>(ops + a.chunk);
-  pl.scal = reinterpret_cast<int32_t*>(pl.clv + (size_t)a.pool * S * pl.nt);
-  pl.pm = nullptr;
+  pl.scal = reinterpret_cast<int32_t*>(pl.clv + (size_t)a.pool * S * pl.cols);
   T* const term_s = reinterpret_cast<T*>(pl.scal + a.pool * pl.sstride);
-  int* const sn_s = reinterpret_cast<int*>(term_s + pl.nt);
+  int* const sn_s = reinterpret_cast<int*>(term_s + pl.cols);
 
+  const int64_t n_tiles = a.n_groups / U;  // 32-site groups, four a 128
   const bool one_chunk = a.n_ops <= a.chunk;
   if (one_chunk) stage_ops(a, ops, 0, a.n_ops);
-  int vb = 0;  // the votes buffer; a barrier lies between two uses of one
-  // the 32-site tiles cover every 128-site partial's sites
-  for (int64_t tile = blockIdx.x; tile < a.n_groups; tile += gridDim.x) {
-    const int64_t site = tile * kTileSites + ln.sl;
-    ln.live = site < a.sites;
-    ln.site = ln.live ? site : a.sites - 1;
-    if (!kScore && counts && ln.live)  // the dummy counters
-      a.scalers[((int64_t)a.n_inner * srows + crow) * a.sites + ln.site] = 0;
+  // stage 0: the first tile's first op
+  if (blockIdx.x < n_tiles)
+    issue_op<T, C>(a, ops, 0, one_chunk ? a.n_ops : 0, 0, pm_s);
+  cp_async_commit();
+  int stage = 0;
+  Pending<T, U> p;
+  bool pending = false;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const bool next_tile = tile + gridDim.x < n_tiles;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t site = (tile * U + u) * kTileSites + q.sl;
+      q.live[u] = site < a.sites;
+      q.site[u] = q.live[u] ? site : a.sites - 1;
+      if (!kScore && counts && q.live[u])  // the dummy counters
+        a.scalers[((int64_t)a.n_inner * (per_rate ? C : 1) +
+                   (per_rate ? q.c : 0)) * a.sites + q.site[u]] = 0;
+    }
     for (int op0 = 0; op0 < a.n_ops; op0 += a.chunk) {
       const int n = min(a.chunk, a.n_ops - op0);
       if (!one_chunk) stage_ops(a, ops, op0, n);
-      for (int j = 0; j < n; ++j) {
-        const OpDesc o = ops[j];
-        int cnt = counts ? protein_count(pl, ln, per_rate, o.s[0]) +
-                               protein_count(pl, ln, per_rate, o.s[1])
-                         : 0;
-        T x[S], t[S];
-        __syncthreads();  // every thread is done with the last matrices
-        stage_protein_pmatrices<T, C>(a.pmatrix, o.m[0], o.m[1], 2, pm_s);
-        __syncthreads();
-        protein_row<T, C>(a, pl, ln, o.c[0], x);
-        protein_term<T, false>(pm_s, ln, x, t);
-        protein_row<T, C>(a, pl, ln, o.c[1], x);
-        protein_term<T, true>(pm_s + PM, ln, x, t);
-        const bool has = o.has != 0;
-        if (per_rate) {
-          cnt += scale_rate<T, S>(has, t, a.u);
-        } else if (a.scale_mode == SCALE_PER_SITE && has &&
-                   site_vote<T, S>(t, a.u, C, ln, votes, vb)) {
-#pragma unroll
-          for (int s = 0; s < S; ++s) t[s] *= a.u.factor;
-          cnt += 1;
+      for (int j = 0; j < n; ++j, ++stage) {
+        T* const buf = pm_s + (two ? (stage & 1) : 0) * 2 * PM;
+        T* const other = pm_s + (two ? (~stage & 1) : 0) * 2 * PM;
+        // what the stage after this one reads: the next op, K1's edge or
+        // the next tile's first op
+        const int g = op0 + j;
+        const bool has_next = g + 1 < a.n_ops || kScore || next_tile;
+        cp_async_wait_all();
+        __syncthreads();  // this stage's matrices; the last stage is done
+        if (two && has_next) {
+          if (g + 1 < a.n_ops)
+            issue_op<T, C>(a, ops, op0, n, g + 1, other);
+          else if (kScore)
+            issue_matrices<T, C>(a.pmatrix, __ldg(a.edge + 4), 0, 1, other);
+          else
+            issue_op<T, C>(a, ops, op0, n, 0, other);
         }
+        cp_async_commit();
+        if (pending)
+          store_op<T, C, U, kScore>(a, pl, q.c, q.sl, per_rate, counts,
+                                    votes, p);
+        const OpDesc o = ops[j];
+        T x[U][S];
 #pragma unroll
-        for (int e = 0; e < S; ++e)
-          pl.clv[pool_at<S>(o.home, pl.nt) + e * pl.nt] = t[e];
-        if (counts) pl.scal[scal_at(per_rate, o.home, ln, pl.sstride)] = cnt;
-        if (!kScore && ln.live) {
-          T* out = a.inner + ((int64_t)o.out * C + ln.c) * S * a.sites +
-                   ln.site;
+        for (int u = 0; u < U; ++u)
+          p.cnt[u] = counts ? protein_count(pl, per_rate, o.s[0], u, q.sl) +
+                                  protein_count(pl, per_rate, o.s[1], u, q.sl)
+                            : 0;
+        protein_rows<T, C, U>(a, pl, q, o.c[0], x);
+        protein_term<T, U, false>(buf + q.c * S * S, x, p.t);
+        protein_rows<T, C, U>(a, pl, q, o.c[1], x);
+        protein_term<T, U, true>(buf + PM + q.c * S * S, x, p.t);
+        const bool has = o.has != 0;
+        p.vote = per_site && has;
+        p.vb = stage & 1;
 #pragma unroll
-          for (int e = 0; e < S; ++e) out[e * a.sites] = t[e];
-          if (counts)
-            a.scalers[((int64_t)o.out * srows + crow) * a.sites + ln.site] =
-                cnt;
+        for (int u = 0; u < U; ++u) {
+          if (per_rate) p.cnt[u] += scale_rate<T, S>(has, p.t[u], a.u);
+          if (p.vote) {
+            const unsigned small =
+                __ballot_sync(0xffffffffu, max_of<T, S>(p.t[u]) < a.u.thresh);
+            if (q.sl == 0) votes[p.vb][u][q.c] = small;
+          }
+          p.site[u] = q.site[u];
+          p.live[u] = q.live[u];
+        }
+        p.home = o.home;
+        p.out = o.out;
+        pending = true;
+        if (!two && has_next) {
+          __syncthreads();  // every thread is done with the buffer
+          if (g + 1 < a.n_ops)
+            issue_op<T, C>(a, ops, op0, n, g + 1, buf);
+          else if (kScore)
+            issue_matrices<T, C>(a.pmatrix, __ldg(a.edge + 4), 0, 1, buf);
+          else
+            issue_op<T, C>(a, ops, op0, n, 0, buf);
+          cp_async_commit();
         }
       }
     }
     if (kScore) {
-      // the last ops' counters (warp 0's) are read by every warp, and
-      // every warp is done with the previous tile's exchange and with the
-      // last op's matrices
-      __syncthreads();
-      const int me = __ldg(a.edge + 4);
-      stage_protein_pmatrices<T, C>(a.pmatrix, me, me, 1, pm_s);
-      __syncthreads();
-      T pv[S], x[S];
-      protein_row<T, C>(a, pl, ln, __ldg(a.edge + 0), pv);
-      protein_row<T, C>(a, pl, ln, __ldg(a.edge + 1), x);
-      term_s[threadIdx.x] =
-          protein_edge_term<T>(pm_s, ln, pv, x, a.weight_vec);
-      sn_s[threadIdx.x] = protein_count(pl, ln, false, __ldg(a.edge + 2)) +
-                          protein_count(pl, ln, false, __ldg(a.edge + 3));
-      __syncthreads();
-      int snum;
-      T term = site_term<T>(term_s, sn_s, C, ln, false, a.u.thresh, snum);
-      if (a.inv_add != nullptr) term += __ldg(a.inv_add + ln.site);
-      const T v =
-          site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + ln.site));
-      // warp 0 sums the tile's 32 sites into partial `tile`
-      tile_sum_store(ln.live ? (double)v : 0.0,
-                     a.partials + (tile - blockIdx.x));
+      T* const buf = pm_s + (two ? (stage & 1) : 0) * 2 * PM;
+      T* const other = pm_s + (two ? (~stage & 1) : 0) * 2 * PM;
+      cp_async_wait_all();
+      __syncthreads();  // the edge's matrices; the last op's votes
+      if (two && next_tile) issue_op<T, C>(a, ops, 0, one_chunk ? a.n_ops : 0,
+                                           0, other);
+      cp_async_commit();
+      store_op<T, C, U, kScore>(a, pl, q.c, q.sl, per_rate, counts, votes,
+                                p);
+      pending = false;
+      T pv[U][S], x[U][S], tb[U][S];
+      protein_rows<T, C, U>(a, pl, q, __ldg(a.edge + 0), pv);
+      protein_rows<T, C, U>(a, pl, q, __ldg(a.edge + 1), x);
+      protein_term<T, U, false>(buf + q.c * S * S, x, tb);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // rate c's term of the edge sum (edge_rate_term's arithmetic); the
+        // site's counters are warp 0's, stored by warp 0 after the barrier
+        T acc = 0;
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          acc = dev_fma(pv[u][s] * tb[u][s], __ldg(a.weight_vec + q.c * S + s),
+                        acc);
+        term_s[u * pl.nt + threadIdx.x] = acc;
+        sn_s[u * pl.nt + threadIdx.x] =
+            counts ? protein_count(pl, false, __ldg(a.edge + 2), u, q.sl) +
+                         protein_count(pl, false, __ldg(a.edge + 3), u, q.sl)
+                   : 0;
+      }
+      __syncthreads();  // the exchange
+      Lane ln;
+      ln.c = q.c;
+      ln.sl = q.sl;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        int snum;
+        T term = site_term<T>(term_s + u * pl.nt, sn_s + u * pl.nt, C, ln,
+                              false, a.u.thresh, snum);
+        if (a.inv_add != nullptr) term += __ldg(a.inv_add + q.site[u]);
+        const T v =
+            site_lnl<T>(term, snum, a.u, __ldg(a.pattern_weights + q.site[u]));
+        // warp 0 sums the 32 sites of group tile*U + u into its partial,
+        // in one warp's shuffle tree (the first fused kernel's order)
+        if (threadIdx.x < kTileSites) {
+          double w = q.live[u] ? (double)v : 0.0;
+          for (int off = 16; off > 0; off >>= 1)
+            w += __shfl_down_sync(0xffffffffu, w, off);
+          if (threadIdx.x == 0) a.partials[tile * U + u] = w;
+        }
+      }
+      if (!two && next_tile) {
+        __syncthreads();  // every thread is done with the edge's matrices
+        issue_op<T, C>(a, ops, 0, one_chunk ? a.n_ops : 0, 0, buf);
+        cp_async_commit();
+      }
+      ++stage;
     }
   }
+  if (pending) {  // K2: the last op of the block's last tile
+    __syncthreads();
+    store_op<T, C, U, kScore>(a, pl, q.c, q.sl, per_rate, counts, votes, p);
+  }
 }
 
-// The launch of a plan at S = 20: the largest chunk (64 ops, halved down
-// to 1) whose shared memory fits a block of 32*C threads; out as layout's.
-template <typename T, int C, bool kScore>
-int protein_layout(int scale_mode, int pool, int* out) {
+// The fit of the U-site instance: two matrix buffers before one, then the
+// largest chunk (64 ops, halved down to 1) whose shared memory fits a
+// block of 32*C threads.  out: as layout's, and out[6] the buffers.
+// Returns cudaErrorInvalidValue where nothing fits.
+template <typename T, int C, bool kScore, int U>
+int protein_fit(int scale_mode, int pool, int* out) {
   int limit = 0, sms = 0;
   cudaError_t err =
-      open_kernel(fused_protein_kernel<T, C, kScore>, &limit, &sms);
+      open_kernel(fused_protein_kernel<T, C, kScore, U>, &limit, &sms);
   if (err != cudaSuccess) return (int)err;
-  for (int chunk = kProtChunk; chunk >= 1; chunk >>= 1) {
-    const size_t smem =
-        protein_smem_bytes<T, C, kScore>(chunk, pool, scale_mode);
-    if (smem > (size_t)limit) continue;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_protein_kernel<T, C, kScore>, kTileSites * C, smem);
-    if (err != cudaSuccess) return (int)err;
-    out[0] = (int)smem;
-    out[1] = per_sm;
-    out[2] = kTileSites * C;
-    out[3] = chunk;
-    out[4] = kTileSites;
-    out[5] = sms;
-    return 0;
+  for (int buffers = 2; buffers >= 1; --buffers) {
+    for (int chunk = kProtChunk; chunk >= 1; chunk >>= 1) {
+      const size_t smem = protein_smem_bytes<T, C, kScore>(
+          chunk, pool, scale_mode, U, buffers);
+      if (smem > (size_t)limit) continue;
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_protein_kernel<T, C, kScore, U>, kTileSites * C,
+          smem);
+      if (err != cudaSuccess) return (int)err;
+      out[0] = (int)smem;
+      out[1] = per_sm;
+      out[2] = kTileSites * C;
+      out[3] = chunk;
+      out[4] = kTileSites * U;
+      out[5] = sms;
+      out[6] = buffers;
+      return 0;
+    }
   }
-  return (int)cudaErrorInvalidValue;  // the pool does not fit one block
+  return (int)cudaErrorInvalidValue;
 }
 
+// The launch of a plan at S = 20: kProtSites sites a thread where that
+// fits, else one.
 template <typename T, int C, bool kScore>
-int protein_launch(const FusedArgs<T>& a, int threads, int grid,
+int protein_layout(int scale_mode, int pool, int* out) {
+  if constexpr (kProtSites<T> >= 2) {
+    const int rc = protein_fit<T, C, kScore, 2>(scale_mode, pool, out);
+    if (rc != (int)cudaErrorInvalidValue) return rc;
+  }
+  return protein_fit<T, C, kScore, 1>(scale_mode, pool, out);
+}
+
+template <typename T, int C, bool kScore, int U>
+int protein_launch(const ProtArgs<T>& pa, int threads, int grid,
                    cudaStream_t st) {
-  const size_t smem =
-      protein_smem_bytes<T, C, kScore>(a.chunk, a.pool, a.scale_mode);
-  fused_protein_kernel<T, C, kScore><<<grid, threads, smem, st>>>(a);
+  const size_t smem = protein_smem_bytes<T, C, kScore>(
+      pa.f.chunk, pa.f.pool, pa.f.scale_mode, U, pa.buffers);
+  fused_protein_kernel<T, C, kScore, U><<<grid, threads, smem, st>>>(pa);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int C, bool kScore>
+int protein_sites(const ProtArgs<T>& pa, int block_sites, int threads,
+                  int grid, cudaStream_t st) {
+  if constexpr (kProtSites<T> >= 2)
+    if (block_sites == 2 * kTileSites)
+      return protein_launch<T, C, kScore, 2>(pa, threads, grid, st);
+  if (block_sites == kTileSites)
+    return protein_launch<T, C, kScore, 1>(pa, threads, grid, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, bool kScore>
-int protein_dispatch(int rate_cats, const FusedArgs<T>& a, int threads,
-                     int grid, cudaStream_t st) {
+int protein_dispatch(int rate_cats, const ProtArgs<T>& pa, int block_sites,
+                     int threads, int grid, cudaStream_t st) {
   switch (rate_cats) {
-    case 1: return protein_launch<T, 1, kScore>(a, threads, grid, st);
-    case 2: return protein_launch<T, 2, kScore>(a, threads, grid, st);
-    case 4: return protein_launch<T, 4, kScore>(a, threads, grid, st);
-    case 8: return protein_launch<T, 8, kScore>(a, threads, grid, st);
+    case 1:
+      return protein_sites<T, 1, kScore>(pa, block_sites, threads, grid,
+                                           st);
+    case 2:
+      return protein_sites<T, 2, kScore>(pa, block_sites, threads, grid,
+                                           st);
+    case 4:
+      return protein_sites<T, 4, kScore>(pa, block_sites, threads, grid,
+                                           st);
+    case 8:
+      return protein_sites<T, 8, kScore>(pa, block_sites, threads, grid,
+                                           st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -803,14 +1029,15 @@ int protein_dispatch(int rate_cats, const FusedArgs<T>& a, int threads,
 template <typename T>
 int walk(int states, int rate_cats, int tip_encoding, int scale_mode,
          int64_t sites, int n_ops, int n_inner, int pool, int chunk,
-         int threads, int grid, const void* ops, const void* tips,
-         const void* pmatrix, void* inner, int32_t* scalers,
-         const int32_t* edge, const void* weight_vec,
+         int threads, int grid, int block_sites, int buffers,
+         const void* ops, const void* tips, const void* pmatrix, void* inner,
+         int32_t* scalers, const int32_t* edge, const void* weight_vec,
          const void* pattern_weights, const void* inv_add, double* partials,
          void* stream) {
   const bool protein = states == kProtStates;
   const bool block_ok =
       protein ? threads == kTileSites * rate_cats && chunk <= kProtChunk &&
+                    (buffers == 1 || buffers == 2) &&
                     tip_encoding != TIP_CHARS  // a nibble holds 4 states
               : threads >= 32 && threads <= kThreads && (threads & 31) == 0 &&
                     chunk <= kMaxChunk;
@@ -841,10 +1068,17 @@ int walk(int states, int rate_cats, int tip_encoding, int scale_mode,
   a.partials = partials;
   a.u = scale_units<T>();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (protein)
-    return edge == nullptr
-               ? protein_dispatch<T, false>(rate_cats, a, threads, grid, st)
-               : protein_dispatch<T, true>(rate_cats, a, threads, grid, st);
+  if (protein) {
+    ProtArgs<T> pa;
+    pa.f = a;
+    pa.buffers = buffers;
+    return edge == nullptr ? protein_dispatch<T, false>(rate_cats, pa,
+                                                        block_sites, threads,
+                                                        grid, st)
+                           : protein_dispatch<T, true>(rate_cats, pa,
+                                                       block_sites, threads,
+                                                       grid, st);
+  }
   return edge == nullptr ? dispatch<T, false>(rate_cats, a, threads, grid, st)
                          : dispatch<T, true>(rate_cats, a, threads, grid, st);
 }
@@ -874,21 +1108,23 @@ int layout_of(int states, int rate_cats, int scale_mode, int pool, int* out) {
 
 // Plain C interface for ctypes.  clv_fused_walk_* launches one kernel on
 // `stream` (K2 when `edge` is null, else K1; the DNA instances at 4
-// states, the protein ones at 20) and returns cudaGetLastError() (0 on
-// success).
+// states, the protein ones at 20, whose sites a block and matrix buffers
+// the layout gives; DNA ignores those two) and returns cudaGetLastError()
+// (0 on success).
 
 #define WALK_PARAMS                                                          \
   int states, int rate_cats, int tip_encoding, int scale_mode,              \
       int64_t sites, int n_ops, int n_inner, int pool, int chunk,           \
-      int threads, int grid, const void *ops, const void *tips,             \
-      const void *pmatrix, void *inner, int32_t *scalers,                   \
+      int threads, int grid, int block_sites, int buffers, const void *ops, \
+      const void *tips, const void *pmatrix, void *inner, int32_t *scalers, \
       const int32_t *edge, const void *weight_vec,                          \
       const void *pattern_weights, const void *inv_add, double *partials,   \
       void *stream
 #define WALK_ARGS                                                            \
   states, rate_cats, tip_encoding, scale_mode, sites, n_ops, n_inner, pool, \
-      chunk, threads, grid, ops, tips, pmatrix, inner, scalers, edge,       \
-      weight_vec, pattern_weights, inv_add, partials, stream
+      chunk, threads, grid, block_sites, buffers, ops, tips, pmatrix,       \
+      inner, scalers, edge, weight_vec, pattern_weights, inv_add, partials, \
+      stream
 
 extern "C" int clv_fused_walk_f32(WALK_PARAMS) { return walk<float>(WALK_ARGS); }
 extern "C" int clv_fused_walk_f64(WALK_PARAMS) {

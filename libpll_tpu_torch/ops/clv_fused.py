@@ -213,13 +213,16 @@ class FusedPlan:
         once per dtype, rate count, alphabet, scale mode and kernel):
         ``smem`` (dynamic shared memory per block, bytes),
         ``blocks_per_sm``, ``threads`` and ``block_sites`` per block,
-        ``chunk`` (ops staged at once) and ``sms``; the largest chunk (DNA:
-        then block) whose shared memory fits.  A protein block is 32 sites
-        by ``rate_cats`` warps, each slot of its pool C·20 values a site."""
+        ``chunk`` (ops staged at once), ``sms`` and ``buffers`` (the
+        protein instances' P-matrix buffers, 2 or 1; DNA 1); the largest
+        chunk (DNA: then block) whose shared memory fits.  A protein block
+        is ``block_sites`` (32 or 64: one or two sites a thread, the most
+        that fit) by ``rate_cats`` warps, each slot of its pool C·20 values
+        a site, with two matrix buffers where they fit."""
         key = (dtype, rate_cats, states, scale_mode, score)
         if key not in self._layouts:
             lib = load_kernels()
-            out = (ctypes.c_int * 6)()
+            out = (ctypes.c_int * 7)()
             rc = lib.clv_fused_layout(
                 states, int(dtype == torch.float64), rate_cats, scale_mode,
                 int(score), self.pool, out)
@@ -229,10 +232,10 @@ class FusedPlan:
                     f"block's shared memory at {states} states, "
                     f"{rate_cats} rates, {dtype}")
             _check_launch(lib, rc, "fused layout query")
-            smem, per_sm, threads, chunk, sites, sms = out
+            smem, per_sm, threads, chunk, sites, sms, buffers = out
             self._layouts[key] = dict(
                 smem=smem, blocks_per_sm=per_sm, threads=threads,
-                chunk=chunk, block_sites=sites, sms=sms)
+                chunk=chunk, block_sites=sites, sms=sms, buffers=buffers)
         return self._layouts[key]
 
     # ------------------------------------------------------ the plain walk
@@ -444,7 +447,7 @@ def fused_edge_score_plain(schedule: LevelSchedule, tips_packed, pmatrix,
 # --------------------------------------------------------------------------
 _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
 _WALK_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
-                  + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 11)
+                  + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 11)
 _INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
@@ -518,13 +521,22 @@ def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
     return ("f32" if pmatrix.dtype == torch.float32 else "f64"), c, s, sites
 
 
+def launch_grid(sites: int, lay: dict) -> int:
+    """The blocks of one walk under layout ``lay`` (:meth:`FusedPlan.
+    layout`): the blocks the card holds at once, or fewer where the sites,
+    padded to whole 128-site partials, need fewer tiles of
+    ``block_sites``."""
+    padded = -(-sites // BLOCK_SITES) * BLOCK_SITES
+    return min(-(-padded // lay["block_sites"]),
+               max(1, lay["blocks_per_sm"]) * lay["sms"])
+
+
 def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
             inner=None, scalers=None, edge=None, weight_vec=None,
             pattern_weights=None, inv_add=None, partials=None) -> None:
     """One walk on the current stream of the tensors' card: K2 when
-    ``edge`` is None (rows and counters out), else K1.  The grid is the
-    blocks the card holds at once, or fewer where the sites (padded to
-    whole partials) need fewer."""
+    ``edge`` is None (rows and counters out), else K1, over
+    :func:`launch_grid` blocks."""
     device = tips_packed.device
     lib = load_kernels()
 
@@ -532,15 +544,13 @@ def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
         return None if t is None else t.data_ptr()
     with torch.cuda.device(device):
         lay = plan.layout(pmatrix.dtype, c, s, scale_mode, edge is not None)
-        padded = -(-sites // BLOCK_SITES) * BLOCK_SITES
-        grid = min(-(-padded // lay["block_sites"]),
-                   max(1, lay["blocks_per_sm"]) * lay["sms"])
+        grid = launch_grid(sites, lay)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"clv_fused_walk_{suffix}")(
             s, c, _TIP_CODE[plan.tip_encoding], scale_mode, sites,
             plan.schedule.n_inner, plan.schedule.n_inner, plan.pool,
-            lay["chunk"], lay["threads"], grid,
-            ptr(plan.static("ops", device)),
+            lay["chunk"], lay["threads"], grid, lay["block_sites"],
+            lay["buffers"], ptr(plan.static("ops", device)),
             ptr(tips_packed), ptr(pmatrix), ptr(inner), ptr(scalers),
             ptr(edge), ptr(weight_vec), ptr(pattern_weights), ptr(inv_add),
             ptr(partials), stream)

@@ -31,7 +31,13 @@ and power limit come first.
 ``--protein`` measures the 20-state instances instead, at the protein
 configuration (``utils/flagship.build_protein_flagship``: 64 taxa × 65 536
 LG4X+Γ4 columns read from FASTA, 20-bit masks, float32, seed 0), and adds
-``make_train_step_fused`` eager and graphed (``step``) with its t*.
+``make_train_step_fused`` eager and graphed (``step``) with its t*.  In
+``tools/fused_ablations.json`` the ``protein_*`` variants take one design
+choice out each (``protein_one_buffer``: the next op's matrices copied
+behind the op, not beside it; ``protein_one_site``: one site a thread)
+or, timed only (their values are wrong), one piece of the work
+(``protein_no_p_reads``, ``protein_no_stage_barrier``,
+``protein_no_row_writes``).
 """
 
 import ctypes

@@ -484,6 +484,112 @@ def test_protein_modules_on_card_match_cpu(cuda, dtype, tip_encoding):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sites", [1, 63, 64, 65, 1001])
+def test_protein_kernels_around_the_tile(cuda, sites):
+    """The protein K1/K2 against their plain versions at site counts on
+    both sides of a block's tile (32 sites, or 64 at two sites a thread):
+    C in {1, 2, 4, 8}, float32 and float64, masks tips, a random tree
+    without and with per-site scaling (K2 also per rate) and a caterpillar
+    whose float32 values scale; chip_smoke's tolerances (float64 logL rel
+    1e-12, scalers equal; float32 within the budget, rows rtol 1e-5 where
+    the counters agree)."""
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE,
+                                                  SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    rng = np.random.default_rng(sites)
+    trees = ((chip_smoke.random_newick(12, rng), (SCALE_NONE,
+                                                  SCALE_PER_SITE)),
+             (chip_smoke.caterpillar_newick(48), (SCALE_PER_SITE,)))
+    before = (cf.fused_sweep.launches, cf.fused_edge_score.launches)
+    for newick, k1_scales in trees:
+        for rate_cats in (1, 2, 4, 8):
+            topo, model_np, masks = chip_smoke.small_case(
+                newick, sites, rate_cats, seed=rate_cats, states=20)
+            sched = topo.schedule
+            edge = dict(parent_clv=topo.parent_clv,
+                        child_clv=topo.child_clv,
+                        edge_matrix=topo.edge_matrix, tip_encoding="masks")
+            for dtype in (torch.float32, torch.float64):
+                tp = chip_smoke.tip_input(masks, "masks", rate_cats, dtype,
+                                          cuda, 20)
+                pm = chip_smoke.kernel_inputs(topo, model_np, dtype, cuda,
+                                              False)[0]
+                for scale in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
+                    got = cf.fused_sweep(sched, tp, pm, scale_mode=scale,
+                                         tip_encoding="masks")
+                    want = cf.fused_sweep_plain(sched, tp, pm,
+                                                scale_mode=scale,
+                                                tip_encoding="masks")
+                    ok, err, agree = chip_smoke.sweep_close(*got, *want,
+                                                            dtype)
+                    assert ok, (rate_cats, dtype, scale, err, agree)
+                for scale in k1_scales:
+                    for pinv in (False, True):
+                        args = chip_smoke.kernel_inputs(topo, model_np,
+                                                        dtype, cuda, pinv)
+                        got = float(cf.fused_edge_score(
+                            sched, tp, *args, scale_mode=scale, **edge))
+                        want = float(cf.fused_edge_score_plain(
+                            sched, tp, *args, scale_mode=scale, **edge))
+                        assert np.isfinite(got) and chip_smoke.logl_close(
+                            got, want, dtype), (rate_cats, dtype, scale,
+                                                pinv, got, want)
+    assert cf.fused_sweep.launches > before[0]
+    assert cf.fused_edge_score.launches > before[1]
+
+
+def balanced_newick(lo, hi):
+    if hi - lo == 1:
+        return f"t{lo}:0.1"
+    mid = (lo + hi) // 2
+    return f"({balanced_newick(lo, mid)},{balanced_newick(mid, hi)}):0.1"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, rate_cats", [(torch.float64, 4),
+                                              (torch.float32, 8)])
+def test_protein_one_matrix_buffer(cuda, dtype, rate_cats):
+    """Balanced trees whose walks keep 9 rows live (K2 at 1 024 taxa, K1,
+    with its edge's rows held, at 512): two matrix buffers do not fit
+    beside that pool (float64 at four rates, float32 at eight), so the
+    layout takes one buffer, one site a thread, and the walk in chunks of
+    ops; K1 and K2 still match their plain versions (chip_smoke's
+    tolerances)."""
+    for tips, score in ((1024, False), (512, True)):
+        newick = (f"({balanced_newick(0, tips // 2)},"
+                  f"{balanced_newick(tips // 2, 3 * tips // 4)},"
+                  f"{balanced_newick(3 * tips // 4, tips)});")
+        topo, model_np, masks = chip_smoke.small_case(newick, 70, rate_cats,
+                                                      3, states=20)
+        sched = topo.schedule
+        edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                    edge_matrix=topo.edge_matrix)
+        plan = cf.FusedPlan(sched, "masks",
+                            tuple(edge.values()) if score else None)
+        assert plan.pool == 9
+        lay = plan.layout(dtype, rate_cats, 20, topo.scale_mode, score)
+        assert (lay["buffers"], lay["block_sites"]) == (1, 32)
+        assert lay["chunk"] < sched.n_inner
+        tp = chip_smoke.tip_input(masks, "masks", rate_cats, dtype, cuda, 20)
+        args = chip_smoke.kernel_inputs(topo, model_np, dtype, cuda, True)
+        if score:
+            got = float(cf.fused_edge_score(sched, tp, *args, plan=plan,
+                                            tip_encoding="masks", **edge))
+            want = float(cf.fused_edge_score_plain(
+                sched, tp, *args, tip_encoding="masks", **edge))
+            assert np.isfinite(got) and chip_smoke.logl_close(got, want,
+                                                              dtype)
+        else:
+            got = cf.fused_sweep(sched, tp, args[0], plan=plan,
+                                 tip_encoding="masks")
+            want = cf.fused_sweep_plain(sched, tp, args[0],
+                                        tip_encoding="masks")
+            ok, err, agree = chip_smoke.sweep_close(*got, *want, dtype)
+            assert ok, (err, agree)
+
+
+@pytest.mark.gpu
 def test_protein_pool_that_does_not_fit_raises(cuda):
     """At 1 000 taxa the walk keeps 6 rows live: float64 protein at eight
     rates needs more shared memory than a block has, so the layout and

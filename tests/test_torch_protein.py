@@ -299,3 +299,36 @@ def test_layout_raises_and_chars(monkeypatch):
                  tev.make_train_step_fused):
         with pytest.raises(EinvalError):
             make(ttopo, C, S, tip_encoding="chars", device="cpu")
+
+
+@pytest.mark.parametrize("block_sites, buffers", [(64, 2), (32, 2), (32, 1)])
+def test_layout_tile_and_grid(monkeypatch, block_sites, buffers):
+    """``FusedPlan.layout`` reads the library's seven answers (the sites a
+    block, 64 at two sites a thread, and the matrix buffers among them;
+    stubbed here: the query needs the card), and ``launch_grid`` covers
+    the sites padded to whole 128-site partials with tiles of that many
+    sites, capped at the blocks the card holds at once: one partial of
+    32 sites per tile and thread row, so the kernel's 32-site partials
+    are ``4 * ceil(sites / 128)`` whatever the tile."""
+    _, ttopo, *_ = protein_case()
+    plan = cf.FusedPlan(ttopo.schedule, "masks")
+
+    class Fits:
+        def clv_fused_layout(self, *args):
+            out = args[-1]
+            for k, v in enumerate((60800, 3, 128, 64, block_sites, 132,
+                                   buffers)):
+                out[k] = v
+            return 0
+
+    monkeypatch.setattr(cf, "load_kernels", lambda: Fits())
+    lay = plan.layout(torch.float32, C, S, SCALE_PER_SITE, True)
+    assert lay == dict(smem=60800, blocks_per_sm=3, threads=128, chunk=64,
+                       block_sites=block_sites, sms=132, buffers=buffers)
+    for sites, tiles in ((1, 128 // block_sites), (128, 128 // block_sites),
+                         (129, 256 // block_sites),
+                         (65132, 65152 // block_sites)):
+        assert cf.launch_grid(sites, lay) == min(tiles, 3 * 132)
+        assert tiles * block_sites == -(-sites // cf.BLOCK_SITES) * 128
+    assert cf.launch_grid(10 ** 7, dict(lay, blocks_per_sm=0)) == 132
+
