@@ -24,7 +24,7 @@ before it and read just after:
   * the training step at the flagship with tips simulated on the tree
     (``make_train_step_fused``): K2, the edge logL, the sumtable and the
     Newton solve of the evaluation edge's branch length, kernel N1
-    (``ops/derivatives.py``, one launch per Newton body, 32 in a row);
+    (``ops/derivatives.py``, the whole solve in one cooperative launch);
   * the protein path: an LG4X+Γ4 alignment of 64 taxa × 65 536 columns
     simulated on the flagship's tree, written to FASTA, read back,
     compressed to site patterns and encoded as 20-bit masks, through
@@ -103,19 +103,22 @@ Phases, one line each:
  15. newton small: N1 against its plain twin on the card
      (``newton_close``: one body's d1/d2, and t* with the bodies run) for
      per-site and per-rate scaling, +I, each asc mode, float32/float64,
-     S in {4, 20}, C in {1, 4, 8};
+     S in {4, 20}, C in {1, 4, 8}, and the path each took (resident or
+     streamed slices);
  16. train step: ``make_train_step_fused`` at the flagship (float32,
-     chars tips simulated on the tree): K2 once and N1 at most 32 times,
+     chars tips simulated on the tree): K2 once and N1 once,
      t* inside the clamp, the logL ``make_forward_fused``'s bit for bit,
      ``make_score`` at t* no worse than at t0 less the f32 budget, t*
-     within 1e-5 of the float64 ``make_train_step``'s on the card, two
-     eager steps equal, N1 against its plain twin;
+     within 1e-5 of the float64 ``make_train_step``'s on the card (its N1
+     on streamed slices, against its plain twin), two eager steps and two
+     N1 calls equal, N1 against its plain twin;
  17. train times: the step eager and captured in a CUDA graph (its
      replay equal to the eager step bit for bit; the capture fails on any
      host sync), the host's time per call with the card idle, N1 against
-     its bound and its plain twin;
+     its bound and its plain twin, its time a body, path, blocks and
+     shared memory;
  18. protein: the three entry points on the card (K1 once, K2 once, K2
-     once and N1 at most 32 times), each logL within the f32 budget of the
+     once and N1 once), each logL within the f32 budget of the
      plain float64 ``make_forward``, the step's logL
      ``make_forward_fused``'s bits, ``mxu_precision="high"`` equal to
      "highest" bit for bit, t* within 1e-5 of the float64
@@ -126,7 +129,8 @@ Phases, one line each:
  19. protein times: ms per evaluation and per step, eager and as CUDA
      graphs (equal to the eager calls bit for bit), K1/K2 against their
      plain versions and their bounds, each with its share of the bound
-     and its blocks per SM;
+     and its blocks per SM; N1 alone on the step's inputs, its time a
+     body and path, against its plain twin;
  20. partition small: 37 configurations, the Partition on the card
      against the Partition on the CPU (every scaling mode, +I, the three
      asc modes, several rate matrices, explicit tip CLVs that scale,
@@ -732,6 +736,23 @@ def time_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
     host = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, host
+
+
+def graph_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
+    """Device ms per call of ``fn`` captured once in a CUDA graph and
+    replayed back to back (``time_ms``): the call's device time, without
+    the host's time to launch it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters, warmup)[0]
 
 
 def host_ms(fn, iters=TIMED_ITERS):
@@ -1420,16 +1441,26 @@ def newton_flop(rate_cats, states):
     return rate_cats * states * 6 + rate_cats * 6 + 10
 
 
-def newton_inputs(variant, newick, rate_cats, states, dtype, device, seed):
+def sumtable_flop(rate_cats, states):
+    """Operations of forming one site's sumtable column from the edge's
+    rows, once a solve: two dots of S a state and rate, and their
+    product."""
+    return rate_cats * states * (4 * states + 1)
+
+
+def newton_inputs(variant, newick, rate_cats, states, dtype, device, seed,
+                  rows=False):
     """N1's arguments on the card, as ``make_train_step`` makes them, for
     one variant of ``small_case``: per-site scaling (``site``), per-rate
     (``rate``), +I with invariant sites (``pinv``), or an asc mode with its
     S pseudo columns (p-inv 0), per-site scalers 0/1 set on those columns
-    so that their factors count."""
+    so that their factors count.  ``rows``: (``newton_solve``'s arguments,
+    ``newton_solve_rows``'s)."""
     import torch
 
     from libpll_tpu_torch.engine import evaluate as ev
     from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import derivatives as dv
     from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
 
     topo, model_np, masks = small_case(newick, NEWTON_SITES, rate_cats, seed,
@@ -1459,12 +1490,13 @@ def newton_inputs(variant, newick, rate_cats, states, dtype, device, seed):
     scal = torch.zeros(sshape, dtype=torch.int32, device=device)
     step = ev.make_train_step(topo, device=device)
     model = model_from_numpy(model_np, device, dtype)
-    args = step.newton_inputs(model, clv, scal)[3]
+    row_args = step.newton_rows(model, clv, scal)[3]
     if asc and variant != "rate":
-        parent = args["scaler_parent"].clone()
+        parent = row_args["site_scalers"][0].clone()
         parent[NEWTON_SITES::2] += 1
-        args["scaler_parent"] = parent
-    return args
+        row_args["site_scalers"] = (parent, row_args["site_scalers"][1])
+    args = dv.sumtable_args(row_args)
+    return (args, row_args) if rows else args
 
 
 def newton_abs_sums(args, t):
@@ -1491,20 +1523,28 @@ def newton_abs_sums(args, t):
             float((w * (d1 * d1 - lk2 / lk0)).abs().sum()))
 
 
-def newton_close(args, dtype):
+def newton_close(args, dtype, rows=None):
     """N1 against its plain twin on the same inputs.  One body: d1 and d2
     at t0 within REL of the size of their sums (float64 1e-12: summation
     order; float32 1e-5: the twin sums float32 terms in float32, N1 in
     float64).  The whole loop: float64 t* rel 1e-10 with the same number
     of bodies; float32 t* within F32_T_REL (d1's rounding floor over d2
-    moves t* far less).  Returns (ok, |t* - plain t*|, message)."""
+    moves t* far less).  With ``rows`` (``newton_solve_rows``'s arguments
+    for the same edge), N1 runs from the rows and the twin from
+    ``args``' sumtable (``update_sumtable``'s).  Returns (ok, |t* - plain
+    t*|, message)."""
     import torch
 
     from libpll_tpu_torch.ops import derivatives as dv
 
+    def run(**kw):
+        if rows is None:
+            return dv.newton_solve(**args, **kw)
+        return dv.newton_solve_rows(**rows, **kw)
+
     f64 = dtype == torch.float64
     rel = 1e-12 if f64 else 1e-5
-    one = dv.newton_solve(**args, max_iters=1)
+    one = run(max_iters=1)
     d1, d2 = dv.likelihood_derivatives(
         **{k: v for k, v in args.items() if k != "t0"},
         branch_length=args["t0"][0])
@@ -1513,7 +1553,7 @@ def newton_close(args, dtype):
                                                   (one.d2, d2))]
     ok = all(np.isfinite(float(w)) and e <= rel * (size + abs(float(w)))
              for e, w, size in zip(errs, (d1, d2), sizes))
-    got = dv.newton_solve(**args)
+    got = run()
     want = dv.newton_solve_plain(**args)
     t_err = abs(float(got.t) - float(want.t))
     if f64:
@@ -1527,29 +1567,51 @@ def newton_close(args, dtype):
                        f"vs {float(want.t)!r} ({int(want.iterations)})")
 
 
+def plan_text(plan):
+    """N1's launch plan in a few words."""
+    return (f"{'resident' if plan.resident else 'streamed'}, {plan.grid} "
+            f"blocks of {plan.threads} threads x {plan.block_sites} sites, "
+            f"{plan.smem} B shared memory")
+
+
 def check_newton_small(device):
     """Phase 15: N1 against its plain twin on the card (``newton_close``)
     at every variant (per-site and per-rate scaling, +I with invariant
     sites, each asc mode), float32 and float64, S in {4, 20}, C in {1, 4,
     8}, on a 48-taxon caterpillar (float32 scaling fires).  Returns
-    (configurations, largest float32 |d t*|)."""
+    (configurations, largest float32 |d t*|, {case: "R" resident or "S"
+    streamed, by variant}).  Each configuration runs N1 from the sumtable
+    (``newton_solve``) and from the edge's rows (``newton_solve_rows``:
+    the sumtable formed in N1's prologue where resident, outside Lewis
+    and Felsenstein)."""
     import torch
 
-    n, f32_err = 0, 0.0
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    n, f32_err, paths = 0, 0.0, {}
     newick = caterpillar_newick(48)
     for states in (4, 20):
         for rate_cats in (1, 4, 8):
             for dtype in (torch.float32, torch.float64):
+                case = f"S{states}C{rate_cats}f{dtype.itemsize * 8}"
+                paths[case] = ""
                 for variant in NEWTON_VARIANTS:
-                    args = newton_inputs(variant, newick, rate_cats, states,
-                                         dtype, device, seed=rate_cats)
-                    ok, err, msg = newton_close(args, dtype)
-                    check(ok, f"N1 {variant} S={states} C={rate_cats} "
-                              f"{dtype}: {msg}")
-                    if dtype == torch.float32:
-                        f32_err = max(f32_err, err)
+                    args, rows = newton_inputs(variant, newick, rate_cats,
+                                               states, dtype, device,
+                                               seed=rate_cats, rows=True)
+                    plan = dv.plan_for(args["sumtable"], args["sites"],
+                                       args["asc_mode"])
+                    for form in (None, rows):
+                        ok, err, msg = newton_close(args, dtype, form)
+                        check(ok, f"N1 {variant} S={states} C={rate_cats} "
+                                  f"{dtype} ({plan_text(plan)}; from "
+                                  f"{'rows' if form else 'sumtable'}): "
+                                  f"{msg}")
+                        if dtype == torch.float32:
+                            f32_err = max(f32_err, err)
+                    paths[case] += "R" if plan.resident else "S"
                     n += 1
-    return n, f32_err
+    return n, f32_err, paths
 
 
 def phase_train_step(device, card, peak):
@@ -1594,8 +1656,8 @@ def phase_train_step(device, card, peak):
                 "newton_solve": dv.newton_solve.launches,
                 "fused_edge_score": cf.fused_edge_score.launches}
     check(launches["fused_sweep"] == 1 and launches["fused_edge_score"] == 0
-          and 0 < launches["newton_solve"] <= dv.NEWTON_ITERS,
-          f"train step: launches {launches}, want K2 once and N1 1-32 times")
+          and launches["newton_solve"] == 1,
+          f"train step: launches {launches}, want K2 and N1 once each")
     logl, t_star = float(logl), float(t_star)
     again = step(m32, tp)
     check((float(again[0]), float(again[1])) == (logl, t_star),
@@ -1627,20 +1689,39 @@ def phase_train_step(device, card, peak):
     scal = torch.zeros((sched.n_inner + 1, sites), dtype=torch.int32,
                        device=device)
     step64 = ev.make_train_step(topo, device=device)
-    logl64, t64 = (float(v) for v in step64(m64, clv64, scal)[:2])
-    del clv64, scal
+    logl64, _, _, args64 = step64.newton_inputs(m64, clv64, scal)
+    logl64 = float(logl64)
+    t64 = float(dv.newton_solve(**args64).t)
+    plan64 = dv.plan_for(args64["sumtable"], args64["sites"],
+                         args64["asc_mode"])
+    check(not plan64.resident, f"float64 flagship N1: {plan_text(plan64)}, "
+                               f"want streamed")
+    ok, _, msg64 = newton_close(args64, torch.float64)
+    check(ok, f"float64 flagship N1 (streamed) vs plain: {msg64}")
+    del clv64, scal, args64
     torch.cuda.empty_cache()
     check(abs(t_star - t64) <= F32_T_REL * t64,
           f"float32 t* {t_star!r} vs float64 make_train_step t* {t64!r}")
     check(abs(logl - logl64) <= budget,
           f"float32 step logL {logl!r} vs float64 {logl64!r}")
 
-    # N1 against its plain twin at the main path's shapes
+    # N1 against its plain twin at the main path's shapes: from the
+    # sumtable, and from the rows as the step runs it
     args = step.newton_inputs(m32, tp)[1]
-    ok, n1_err, msg = newton_close(args, torch.float32)
-    check(ok, f"flagship N1 vs plain: {msg}")
-    n1 = dv.newton_solve(**args)
+    rows = step.newton_rows(m32, tp)[1]
+    ok, _, msg_st = newton_close(args, torch.float32)
+    check(ok, f"flagship N1 (from the sumtable) vs plain: {msg_st}")
+    ok, n1_err, msg = newton_close(args, torch.float32, rows)
+    check(ok, f"flagship N1 (from the rows) vs plain: {msg}")
+    n1 = dv.newton_solve_rows(**rows)
     iters = int(n1.iterations)
+    check(float(n1.t) == t_star, f"N1 from the rows {float(n1.t)!r} is not "
+                                 f"the step's t* {t_star!r}")
+    n1_again = dv.newton_solve_rows(**rows)
+    check(all(float(x) == float(y) for x, y in zip(n1, n1_again)),
+          f"two N1 calls differ: {tuple(map(float, n1))} then "
+          f"{tuple(map(float, n1_again))}")
+    plan = dv.plan_for(args["sumtable"], args["sites"], args["asc_mode"])
     print(f"[16 train step] {tips} taxa x {sites} sites x {c} rates f32 "
           f"chars, tips simulated on the tree ({sim_s:.1f} s): logL "
           f"{logl!r} (make_forward_fused's, bit for bit; float64 "
@@ -1649,7 +1730,10 @@ def phase_train_step(device, card, peak):
           f"{t_star!r} (float64 t* {t64!r}, rel "
           f"{abs(t_star - t64) / t64:.3e} <= {F32_T_REL}); make_score at t0 "
           f"{at_t0!r}, at t* {at_opt!r}; launches {launches}; N1 {iters} "
-          f"bodies; two eager steps equal; N1 vs plain: {msg}", flush=True)
+          f"bodies ({plan_text(plan)}), two calls equal; two eager steps "
+          f"equal; N1 from the rows vs plain: {msg}; from the sumtable: "
+          f"{msg_st}; float64 N1 ({plan_text(plan64)}) vs plain: {msg64}",
+          flush=True)
 
     # one step captured in a CUDA graph: the capture fails on a host sync
     graphed = step.graphed(m32, tp)
@@ -1659,25 +1743,33 @@ def phase_train_step(device, card, peak):
           f"{(logl, t_star)}")
 
     runs = {"step": lambda: step(m32, tp),
-            "step_graph": lambda: graphed(m32, tp),
-            "n1": lambda: dv.newton_solve(**args)}
+            "step_graph": lambda: graphed(m32, tp)}
     timed = {name: time_ms(fn) for name, fn in runs.items()}
     ms = {name: dev for name, (dev, _) in timed.items()}
+    # N1 alone as a graph: its wrapper's host time exceeds the kernel's
+    ms["n1"] = graph_ms(lambda: dv.newton_solve_rows(**rows))
+    ms["n1_sumtable"] = graph_ms(lambda: dv.newton_solve(**args))
     idle = {name: host_ms(runs[name]) for name in ("step", "step_graph")}
-    ms["n1_plain"] = time_ms(lambda: dv.newton_solve_plain(**args), iters=3,
-                             warmup=1)[0]
-    n1_bound = bound(newton_flop(c, s) * sites * iters,
-                     (c * s * sites + 2 * sites) * 4, peak)
+    ms["n1_plain"] = time_ms(
+        lambda: dv.newton_solve_plain(**dv.sumtable_args(rows)), iters=3,
+        warmup=1)[0]
+    n1_bound = bound((newton_flop(c, s) * iters + sumtable_flop(c, s))
+                     * sites, (2 * c * s * sites + 2 * sites) * 4, peak)
     print(f"[17 train times] {card}: make_train_step_fused "
           f"{ms['step']:.4f} ms/step eager (host issues a call in "
           f"{timed['step'][1]:.4f} ms; {idle['step']:.4f} ms with the card "
           f"idle), {ms['step_graph']:.4f} ms/step as a CUDA graph (host "
           f"{idle['step_graph']:.4f} ms with the card idle; equal to the "
-          f"eager step bit for bit); N1 {ms['n1']:.4f} ms for {iters} "
-          f"bodies in {dv.NEWTON_ITERS} launches "
-          f"({ms['n1'] / dv.NEWTON_ITERS * 1e3:.2f} us a launch), bound "
-          f"{n1_bound[0]:.4f} ms ({n1_bound[1]}), plain twin "
-          f"{ms['n1_plain']:.4f} ms; CUDA events", flush=True)
+          f"eager step bit for bit); N1 from the rows {ms['n1']:.4f} ms "
+          f"for {iters} bodies in one launch "
+          f"({ms['n1'] / iters * 1e3:.3f} us a body; {plan_text(plan)}, "
+          f"{dv.blocks_per_sm(plan, torch.float32, s)} blocks an SM fit), "
+          f"bound {n1_bound[0]:.4f} ms ({n1_bound[1]}, "
+          f"{n1_bound[0] / ms['n1'] * 100:.1f}% of it), plain "
+          f"(update_sumtable and the plain twin) {ms['n1_plain']:.4f} ms; "
+          f"from the sumtable {ms['n1_sumtable']:.4f} ms (N1 times: the "
+          f"call captured in a CUDA graph); CUDA events",
+          flush=True)
     return dict(launches=launches["newton_solve"], n1_err=n1_err, ms=ms,
                 n1_bound=n1_bound)
 
@@ -1768,8 +1860,7 @@ def phase_protein(device, card, peak):
                           cf.fused_sweep.launches, dv.newton_solve.launches)
     check(launches["make_score"] == (1, 0, 0)
           and launches["make_forward_fused"] == (0, 1, 0)
-          and launches["make_train_step_fused"][:2] == (0, 1)
-          and 0 < launches["make_train_step_fused"][2] <= dv.NEWTON_ITERS,
+          and launches["make_train_step_fused"] == (0, 1, 1),
           f"protein main path: launches (K1, K2, N1) {launches}")
     got_score = out["make_score"][0]
     got_fwd = out["make_forward_fused"][0]
@@ -1858,18 +1949,31 @@ def phase_protein(device, card, peak):
     check(g_score == got_score and g_step == (logl, t_star),
           f"protein CUDA graphs {g_score!r}, {g_step} vs eager "
           f"{got_score!r}, {(logl, t_star)}")
+    # N1 alone on the step's inputs (from the rows, as the step runs it),
+    # against its plain twin
+    n1_args = step.newton_inputs(m32, tp)[1]
+    n1_rows = step.newton_rows(m32, tp)[1]
+    ok, n1_err, n1_msg = newton_close(n1_args, torch.float32, n1_rows)
+    check(ok, f"protein N1 vs plain: {n1_msg}")
+    n1_bodies = int(dv.newton_solve_rows(**n1_rows).iterations)
+    n1_plan = dv.plan_for(n1_args["sumtable"], n1_args["sites"],
+                          n1_args["asc_mode"])
     timed_runs = {"score": lambda: score(m32, tp),
                   "score_graph": lambda: graphed["score"](m32, tp),
+
                   "forward_fused": lambda: fwd(m32, tp),
                   "step": lambda: step(m32, tp),
                   "step_graph": lambda: graphed["step"](m32, tp),
                   "k1": k1, "k1_plain": k1_plain, "k2": k2,
                   "k2_plain": k2_plain}
     ms = {name: time_ms(fn)[0] for name, fn in timed_runs.items()}
+    ms["n1"] = graph_ms(lambda: dv.newton_solve_rows(**n1_rows))
     flop = sched.n_inner * sites * c * PROTEIN_FLOP
     k1_bound = bound(flop, (tp.numel() + sites) * 4, peak)
     k2_bound = bound(flop, (tp.numel() + sched.n_inner * c * s * sites
                             + (sched.n_inner + 1) * sites) * 4, peak)
+    n1_bound = bound((newton_flop(c, s) * n1_bodies + sumtable_flop(c, s))
+                     * sites, (2 * c * s * sites + 2 * sites) * 4, peak)
     print(f"[19 protein times] {card}: make_score (K1) {ms['score']:.4f} "
           f"ms/eval eager, {ms['score_graph']:.4f} ms/eval as a CUDA graph; "
           f"make_forward_fused (K2) {ms['forward_fused']:.4f} ms/eval; "
@@ -1882,9 +1986,15 @@ def phase_protein(device, card, peak):
               f"{lay[name]['block_sites']} sites"
               for name, key, b in (("K1", "k1", k1_bound),
                                    ("K2", "k2", k2_bound)))
-          + f"; {flop:.4e} flop of contraction; CUDA events", flush=True)
+          + f"; {flop:.4e} flop of contraction; N1 from the rows "
+          f"{ms['n1']:.4f} ms for "
+          f"{n1_bodies} bodies in one launch "
+          f"({ms['n1'] / n1_bodies * 1e3:.3f} us a body; "
+          f"{plan_text(n1_plan)}), bound {n1_bound[0]:.4f} ms "
+          f"({n1_bound[1]}; captured in a CUDA graph), vs plain: {n1_msg}; "
+          f"CUDA events", flush=True)
     return dict(launches=launches, k1_err=k1_err, k2_err=k2_err, ms=ms,
-                k1_bound=k1_bound, k2_bound=k2_bound)
+                k1_bound=k1_bound, k2_bound=k2_bound, n1_err=n1_err)
 
 
 
@@ -2277,8 +2387,7 @@ def phase_partition(device, card, peak):
                           cf.fused_sweep.launches, dv.newton_solve.launches)
     check(launches["make_score"] == (1, 0, 0)
           and launches["make_forward_fused"] == (0, 1, 0)
-          and launches["make_train_step_fused"][:2] == (0, 1)
-          and 0 < launches["make_train_step_fused"][2] <= dv.NEWTON_ITERS,
+          and launches["make_train_step_fused"] == (0, 1, 1),
           f"Partition main path: launches (K1, K2, N1) {launches}")
     budget = ACC_REL * abs(logl) + ACC_ABS
     k1_logl = float(out["make_score"][0])
@@ -2772,13 +2881,15 @@ def main():
     rows = ptxas_report("derivatives")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    n, n1_small = check_newton_small(device)
+    n, n1_small, paths = check_newton_small(device)
     print(f"[15 newton small] derivatives.cu: {len(rows)} kernel instances: "
           + "; ".join(f"{lab} {r} registers, {b} B spill"
                       for lab, r, b, _ in rows)
           + f"; {n} configurations of N1 match its plain twin "
           f"({time.perf_counter() - t0:.1f} s); largest f32 |d t*| "
-          f"{n1_small:.3e}", flush=True)
+          f"{n1_small:.3e}; path (R resident, S streamed) of "
+          f"{'/'.join(NEWTON_VARIANTS)}: " + ", ".join(
+              f"{case} {p}" for case, p in paths.items()), flush=True)
     train = phase_train_step(device, card, fp32_peak)
     torch.cuda.empty_cache()
     protein = phase_protein(device, card, fp32_peak)

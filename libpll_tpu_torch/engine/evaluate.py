@@ -561,27 +561,29 @@ def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
                           mxu_precision, device)
 
 
-def _newton_args(model, topo, clv_parent, clv_child, scal_parent, scal_child,
+def _newton_rows(model, topo, clv_parent, clv_child, scal_parent, scal_child,
                  site_scalers):
-    """N1's arguments (``ops.derivatives.newton_solve``) for the evaluation
-    edge, from its two CLVs and their scaler rows: the sumtable (per-rate
-    scalers folded in), the model's vectors in the CLVs' dtype, and
-    ``site_scalers`` (parent, child) for the asc pseudo-site terms."""
+    """N1's arguments in the form of ``ops.derivatives.newton_solve_rows``
+    for the evaluation edge: its two CLVs and their scaler rows (folded
+    into the sumtable under per-rate scaling), the model's vectors in the
+    CLVs' dtype, and ``site_scalers`` (parent, child) for the asc
+    pseudo-site terms.  ``ops.derivatives.sumtable_args`` turns them into
+    ``newton_solve``'s, the sumtable formed."""
     dtype = clv_parent.dtype
     pidx = model["params_indices"].long()
     f = _floats(model, dtype)
-    sumtable = dv.update_sumtable(
-        clv_parent, clv_child, scal_parent, scal_child, f["freqs_pc"],
-        model["left"][pidx].to(dtype), model["right"][pidx].to(dtype),
-        per_rate=topo.scale_mode == SCALE_PER_RATE)
     # t0: create_operations lists the evaluation edge's branch last
     return dict(
-        sumtable=sumtable, t0=model["branch_lengths"][-1:].to(dtype),
+        clv_parent=clv_parent, clv_child=clv_child,
+        scaler_parent=scal_parent, scaler_child=scal_child,
+        freqs_pc=f["freqs_pc"], left_pc=model["left"][pidx].to(dtype),
+        right_pc=model["right"][pidx].to(dtype),
+        per_rate=topo.scale_mode == SCALE_PER_RATE,
+        t0=model["branch_lengths"][-1:].to(dtype),
         rates=model["rates"].to(dtype), prop_invar=f["prop_invar_pc"],
         eigenvals_pc=model["eigenvals"][pidx].to(dtype),
-        freqs_pc=f["freqs_pc"], rate_weights=f["rate_weights"],
-        invariant=model["invariant"], pattern_weights=f["pattern_weights"],
-        scaler_parent=site_scalers[0], scaler_child=site_scalers[1],
+        rate_weights=f["rate_weights"], invariant=model["invariant"],
+        pattern_weights=f["pattern_weights"], site_scalers=site_scalers,
         sites=topo.sites, asc_mode=topo.asc_mode)
 
 
@@ -594,10 +596,12 @@ class TrainStepFused(ForwardFused):
     from ``t0 = branch_lengths[-1]``, all on the card with no host read.
     The derivative call's site scalers are zeros, asc modes included, as
     JAX's (``:636``, ``:648``).  ``tips_packed`` as in
-    :class:`ForwardFused`; DNA or protein on the card, as K2."""
+    :class:`ForwardFused`; DNA or protein on the card, as K2.  Where N1
+    runs resident, its kernel forms the sumtable from the two rows
+    (``ops.derivatives.newton_solve_rows``)."""
 
-    def newton_inputs(self, model, tips_packed):
-        """``(logl, N1's arguments)`` of one step."""
+    def newton_rows(self, model, tips_packed):
+        """``(logl, N1's arguments in rows form)`` of one step."""
         logl, _, inner, scalers = ForwardFused.forward(self, model,
                                                        tips_packed)
         topo = self.topo
@@ -605,12 +609,17 @@ class TrainStepFused(ForwardFused):
         ends = (topo.parent_clv, topo.child_clv)
         clv_p, clv_c = (self._row(tips_packed, inner, r, dtype) for r in ends)
         scal_p, scal_c = (scalers[topo.scaler_row(r)] for r in ends)
-        return logl, _newton_args(model, topo, clv_p, clv_c, scal_p, scal_c,
+        return logl, _newton_rows(model, topo, clv_p, clv_c, scal_p, scal_c,
                                   (None, None))
 
+    def newton_inputs(self, model, tips_packed):
+        """``(logl, N1's arguments)`` of one step, the sumtable formed."""
+        logl, rows = self.newton_rows(model, tips_packed)
+        return logl, dv.sumtable_args(rows)
+
     def forward(self, model, tips_packed):
-        logl, args = self.newton_inputs(model, tips_packed)
-        return logl, dv.newton_solve(**args).t
+        logl, rows = self.newton_rows(model, tips_packed)
+        return logl, dv.newton_solve_rows(**rows).t
 
     def graphed(self, model, tips_packed) -> GraphedCall:
         """This step on inputs shaped as ``model`` and ``tips_packed``
@@ -635,20 +644,27 @@ class TrainStep(Forward):
     ``evaluate.py:664-727``), any alphabet N1 takes.  Under per-rate
     scaling the derivative call's site scalers are zeros (``:701-703``)."""
 
-    def newton_inputs(self, model, clv, scalers):
-        """``(logl, clv, scalers, N1's arguments)`` of one step."""
+    def newton_rows(self, model, clv, scalers):
+        """``(logl, clv, scalers, N1's arguments in rows form)`` of one
+        step."""
         logl, _, clv, scalers = self.swept(model, clv, scalers)
         topo = self.topo
         ends = (topo.parent_clv, topo.child_clv)
         scal_p, scal_c = (scalers[topo.scaler_row(r)] for r in ends)
         site = ((None, None) if topo.scale_mode == SCALE_PER_RATE
                 else (scal_p, scal_c))
-        return logl, clv, scalers, _newton_args(
+        return logl, clv, scalers, _newton_rows(
             model, topo, clv[ends[0]], clv[ends[1]], scal_p, scal_c, site)
 
+    def newton_inputs(self, model, clv, scalers):
+        """``(logl, clv, scalers, N1's arguments)`` of one step, the
+        sumtable formed."""
+        logl, clv, scalers, rows = self.newton_rows(model, clv, scalers)
+        return logl, clv, scalers, dv.sumtable_args(rows)
+
     def forward(self, model, clv, scalers):
-        logl, clv, scalers, args = self.newton_inputs(model, clv, scalers)
-        return logl, dv.newton_solve(**args).t, clv, scalers
+        logl, clv, scalers, rows = self.newton_rows(model, clv, scalers)
+        return logl, dv.newton_solve_rows(**rows).t, clv, scalers
 
 
 def make_train_step(topo: EvalTopology, *, device=None) -> TrainStep:

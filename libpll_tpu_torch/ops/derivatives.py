@@ -23,11 +23,15 @@ are folded into the sumtable (min/cap, ``2**(-shift·diff)``).
 
 The Newton loop of ``libpll_tpu/engine/evaluate.py`` (``:638-659``,
 ``:707-725``, a ``lax.while_loop``) is :func:`newton_solve`: on a CUDA
-tensor the hand-written kernel N1 of ``csrc/derivatives.cu`` (one launch
-per iteration, 32 launches issued back to back, the loop's state in a
-device buffer, no host read), on a CPU tensor its plain twin
-:func:`newton_solve_plain`, JAX's loop step by step.  The wrapper counts
-its kernel launches in ``newton_solve.launches``.
+tensor the hand-written kernel N1 of ``csrc/derivatives.cu``, the whole
+loop in one cooperative launch (one grid barrier a body, every block
+folding every block's partials, no host read), on a CPU tensor its plain
+twin :func:`newton_solve_plain`, JAX's loop step by step.  The launch
+follows :func:`plan_newton`, a pure function of the sumtable's shape and
+dtype and the card's SMs and shared memory: each block's slice of sites
+held in shared memory for the whole solve where it fits (resident), else
+read from device memory every body (streamed).  The wrapper counts its
+kernel launches in ``newton_solve.launches``, one a call.
 """
 
 from __future__ import annotations
@@ -50,8 +54,10 @@ NEWTON_ITERS = 32
 NEWTON_TOL = 1e-9
 KERNEL_STATES = (4, 20)
 KERNEL_MAX_RATES = 8
-THREADS = 256  # the kernel's block (csrc/derivatives.cu kBlock)
-BLOCKS_PER_SM = 4
+THREADS = 512  # the kernel's block (csrc/derivatives.cu kBlock)
+SLICE_ALIGN = 4  # a resident shared row's length rounds up to this (sites)
+MAX_GRID = 160  # blocks a launch (kMaxGrid: warp 0 folds five a lane)
+PARTIAL_SLOTS = 8  # float64 partials a block and body (kSlots)
 
 
 def check_full_precision(t: torch.Tensor, what: str) -> None:
@@ -191,21 +197,30 @@ def newton_solve_plain(sumtable, t0, rates, prop_invar, eigenvals_pc,
 # CUDA wrapper
 # --------------------------------------------------------------------------
 _SOLVE_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_int64] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 15)
+                   + [ctypes.c_int] * 5 + [ctypes.c_int64]
+                   + [ctypes.c_void_p] * 22)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of ``lib``'s entry points (the
+    library of ``csrc/derivatives.cu``, or a variant of it)."""
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"newton_solve_{suffix}")
+        fn.argtypes = _SOLVE_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.newton_query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                                 ctypes.c_void_p]
+    lib.newton_query.restype = ctypes.c_int
+    lib.newton_error_string.argtypes = [ctypes.c_int]
+    lib.newton_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/derivatives.cu``, once per
     process."""
-    lib = _build.load("derivatives")
-    for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"newton_solve_{suffix}")
-        fn.argtypes = _SOLVE_ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.newton_error_string.argtypes = [ctypes.c_int]
-    lib.newton_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(_build.load("derivatives"))
 
 
 def _require(cond: bool, what: str) -> None:
@@ -213,11 +228,88 @@ def _require(cond: bool, what: str) -> None:
         raise EinvalError(f"newton_solve input: {what}")
 
 
-def _grid(sites: int, device) -> int:
-    """Blocks of one N1 launch: one thread per site up to BLOCKS_PER_SM
-    blocks on each SM of the card (the blocks then stride over sites)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-sites // THREADS), BLOCKS_PER_SM * sms))
+class NewtonPlan(NamedTuple):
+    """One N1 launch: ``grid`` blocks of ``threads``, block b owning sites
+    ``[b·block_sites, (b+1)·block_sites)`` of the evaluated ones, held in
+    ``smem`` bytes of shared memory (``resident``) or read from device
+    memory every body (``smem`` 0)."""
+
+    grid: int
+    threads: int
+    block_sites: int
+    resident: bool
+    smem: int
+
+
+def slice_bytes(rate_cats: int, states: int, itemsize: int,
+                block_sites: int) -> int:
+    """Shared memory of a resident slice: its sumtable rows, weights and
+    invariant codes, each row ``block_sites`` rounded up to
+    ``SLICE_ALIGN`` sites."""
+    stride = -(-block_sites // SLICE_ALIGN) * SLICE_ALIGN
+    return stride * (rate_cats * states * itemsize + itemsize + 4)
+
+
+def plan_newton(shape, itemsize: int, sites: int, asc_mode: int, sms: int,
+                smem_limit: int) -> NewtonPlan:
+    """N1's launch for a sumtable of ``shape`` [C, S, L] and ``itemsize``
+    bytes an entry, on a card of ``sms`` SMs whose blocks may have
+    ``smem_limit`` bytes of dynamic shared memory.  One block an SM at
+    most (every block resident, as the cooperative launch needs) and
+    ``MAX_GRID`` in all, at least ``THREADS`` sites a block; where the
+    slices fit shared memory within those blocks, resident (spread over
+    as many blocks as that takes), else streamed.  Depends on sizes
+    alone."""
+    c, s, _ = shape
+    sms = min(sms, MAX_GRID)
+    ef = sites + (s if asc_mode == ASC_STAMATAKIS else 0)
+    grid = max(1, min(sms, -(-ef // THREADS)))
+    per_site = slice_bytes(c, s, itemsize, SLICE_ALIGN) // SLICE_ALIGN
+    fit = smem_limit // per_site // SLICE_ALIGN * SLICE_ALIGN
+    resident = fit > 0 and -(-ef // fit) <= sms
+    if resident:
+        grid = max(grid, -(-ef // fit))
+    block_sites = -(-ef // grid)
+    grid = -(-ef // block_sites)  # no block without sites
+    smem = slice_bytes(c, s, itemsize, block_sites) if resident else 0
+    return NewtonPlan(grid, THREADS, block_sites, resident, smem)
+
+
+def _query(dtype, states: int, smem: int):
+    """(resident block's shared-memory limit, SMs, blocks an SM holds of
+    the instance ``smem`` picks) on the current card; raises the resident
+    instance's limit first."""
+    lib = load_kernels()
+    out = (ctypes.c_int32 * 3)()
+    rc = lib.newton_query(int(dtype == torch.float64), states, smem, out)
+    if rc != 0:
+        raise KernelError(f"newton_query failed: CUDA error {rc} "
+                          f"({lib.newton_error_string(rc).decode()})")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(device_index: int, dtype, states: int):
+    """(SMs, shared-memory limit) of N1's instance on the card, once per
+    process."""
+    with torch.cuda.device(device_index):
+        limit, sms, _ = _query(dtype, states, 0)
+    return sms, limit
+
+
+def plan_for(sumtable: torch.Tensor, sites: int,
+             asc_mode: int = ASC_NONE) -> NewtonPlan:
+    """:func:`plan_newton` for ``sumtable`` on its card."""
+    sms, limit = _limits(sumtable.device.index or 0, sumtable.dtype,
+                         sumtable.shape[1])
+    return plan_newton(tuple(sumtable.shape), sumtable.element_size(),
+                       sites, asc_mode, sms, limit)
+
+
+def blocks_per_sm(plan: NewtonPlan, dtype, states: int) -> int:
+    """Blocks of ``plan``'s kernel instance an SM of the current card
+    holds at once."""
+    return _query(dtype, states, plan.smem)[2]
 
 
 def _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
@@ -262,15 +354,47 @@ def _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
     _require(device.type == "cuda", f"tensors on {device}, not CUDA")
 
 
+def _launch(plan, dtype, shape, sites, asc_mode, max_iters, tensors):
+    """One N1 launch of ``plan`` on the current stream; ``tensors`` maps the
+    C interface's pointer arguments to tensors (None: null).  Returns the
+    loop's end."""
+    device = tensors["t0"].device
+    lib = load_kernels()
+    out = torch.empty(3, dtype=dtype, device=device)  # t, d1, d2
+    iterations = torch.empty(1, dtype=torch.int32, device=device)
+    partials = torch.empty((2, plan.grid, PARTIAL_SLOTS),
+                           dtype=torch.float64, device=device)
+    arrived = torch.zeros(1, dtype=torch.int32, device=device)
+    names = ("sumtable", "clv_p", "clv_c", "lt", "right", "rscal_p",
+             "rscal_c", "t0", "rates", "pinv", "evals", "freqs", "rw",
+             "invariant", "weights", "scal_p", "scal_c")
+    ptrs = [None if tensors.get(n) is None else tensors[n].data_ptr()
+            for n in names]
+    c, s, length = shape
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, "newton_solve_f32" if dtype == torch.float32
+                     else "newton_solve_f64")(
+            c, s, length, sites, asc_mode, max_iters, plan.threads,
+            plan.grid, plan.block_sites, plan.smem, *ptrs,
+            partials.data_ptr(), arrived.data_ptr(), iterations.data_ptr(),
+            out.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.newton_error_string(rc).decode()
+        raise KernelError(f"newton_solve launch failed: CUDA error {rc} "
+                          f"({msg})")
+    newton_solve.launches += 1
+    return Newton(out[0], out[1], out[2], iterations[0])
+
+
 def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
                  rate_weights, invariant, pattern_weights,
                  scaler_parent=None, scaler_child=None, *, sites,
                  asc_mode=ASC_NONE, max_iters=NEWTON_ITERS) -> Newton:
     """N1: the Newton loop of evaluate.py:638-659 on the card, arguments as
     :func:`newton_solve_plain` (``t0``: one element in the sumtable's
-    dtype).  ``max_iters`` launches, back to back, with no host read: a
-    launch after the loop has ended returns at once.  CPU tensors take
-    :func:`newton_solve_plain`."""
+    dtype), in one launch planned by :func:`plan_for`, with no host read.
+    CPU tensors take :func:`newton_solve_plain`."""
     if sumtable.device.type == "cpu":
         return newton_solve_plain(
             sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
@@ -280,34 +404,88 @@ def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
     _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
            rate_weights, invariant, pattern_weights, scaler_parent,
            scaler_child, sites, asc_mode, max_iters)
-    device, dtype = sumtable.device, sumtable.dtype
-    c, s, length = sumtable.shape
-
-    grid = _grid(length, device)
-    out = torch.empty(3, dtype=dtype, device=device)  # t, d1, d2
-    # iterations, the last-block ticket, done, (pad): zero before launch 0
-    ctl = torch.zeros(4, dtype=torch.int32, device=device)
-    partials = torch.empty((grid, 3), dtype=torch.float64, device=device)
-    lib = load_kernels()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, "newton_solve_f32" if dtype == torch.float32
-                     else "newton_solve_f64")(
-            c, s, length, sites, grid, asc_mode, max_iters, THREADS,
-            ptr(sumtable), ptr(t0), ptr(rates), ptr(prop_invar),
-            ptr(eigenvals_pc), ptr(freqs_pc), ptr(rate_weights),
-            ptr(invariant), ptr(pattern_weights), ptr(scaler_parent),
-            ptr(scaler_child), ptr(partials), ptr(ctl), ptr(out), stream)
-    if rc != 0:
-        msg = lib.newton_error_string(rc).decode()
-        raise KernelError(f"newton_solve launch failed: CUDA error {rc} "
-                          f"({msg})")
-    newton_solve.launches += max_iters
-    return Newton(out[0], out[1], out[2], ctl[0])
+    return _launch(plan_for(sumtable, sites, asc_mode), sumtable.dtype,
+                   tuple(sumtable.shape), sites, asc_mode, max_iters,
+                   dict(sumtable=sumtable, t0=t0, rates=rates,
+                        pinv=prop_invar, evals=eigenvals_pc, freqs=freqs_pc,
+                        rw=rate_weights, invariant=invariant,
+                        weights=pattern_weights, scal_p=scaler_parent,
+                        scal_c=scaler_child))
 
 
 newton_solve.launches = 0
 
+# the arguments of update_sumtable among newton_solve_rows's
+_ROW_KEYS = ("clv_parent", "clv_child", "scaler_parent", "scaler_child",
+             "freqs_pc", "left_pc", "right_pc", "per_rate")
+
+
+def sumtable_args(rows: dict) -> dict:
+    """:func:`newton_solve`'s arguments from :func:`newton_solve_rows`'s:
+    the sumtable formed by :func:`update_sumtable`."""
+    args = {k: v for k, v in rows.items()
+            if k not in _ROW_KEYS and k != "site_scalers"}
+    args["sumtable"] = update_sumtable(*(rows[k] for k in _ROW_KEYS))
+    args["freqs_pc"] = rows["freqs_pc"]
+    args["scaler_parent"], args["scaler_child"] = rows["site_scalers"]
+    return args
+
+
+def newton_solve_rows(clv_parent, clv_child, scaler_parent, scaler_child,
+                      freqs_pc, left_pc, right_pc, t0, rates, prop_invar,
+                      eigenvals_pc, rate_weights, invariant, pattern_weights,
+                      site_scalers=(None, None), *, per_rate=False, sites,
+                      asc_mode=ASC_NONE, max_iters=NEWTON_ITERS) -> Newton:
+    """:func:`update_sumtable` then :func:`newton_solve`, from the edge's
+    two rows (arguments as the two functions', ``site_scalers`` the
+    latter's ``scaler_parent, scaler_child``).  Where N1's plan is
+    resident and no Lewis/Felsenstein pseudo columns lie outside its
+    slices, one launch whose prologue forms each slice of the sumtable in
+    shared memory (it never reaches device memory); else, and on the CPU,
+    the two functions in turn (their plain versions on the CPU)."""
+    check_full_precision(clv_parent, "newton_solve_rows")
+    st_args = (clv_parent, clv_child, scaler_parent, scaler_child, freqs_pc,
+               left_pc, right_pc, per_rate)
+    rest = dict(t0=t0, rates=rates, prop_invar=prop_invar,
+                eigenvals_pc=eigenvals_pc, freqs_pc=freqs_pc,
+                rate_weights=rate_weights, invariant=invariant,
+                pattern_weights=pattern_weights,
+                scaler_parent=site_scalers[0], scaler_child=site_scalers[1],
+                sites=sites, asc_mode=asc_mode, max_iters=max_iters)
+    if (clv_parent.device.type == "cpu"
+            or asc_mode in (ASC_LEWIS, ASC_FELSENSTEIN)):
+        return newton_solve(update_sumtable(*st_args), **rest)
+    _check(clv_parent, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
+           rate_weights, invariant, pattern_weights, *site_scalers, sites,
+           asc_mode, max_iters)
+    plan = plan_for(clv_parent, sites, asc_mode)
+    if not plan.resident:
+        return newton_solve(update_sumtable(*st_args), **rest)
+    c, s, length = clv_parent.shape
+    dtype, device = clv_parent.dtype, clv_parent.device
+    rscal = (scaler_parent, scaler_child) if per_rate else (None, None)
+    for name, t, shape in (("clv_child", clv_child, (c, s, length)),
+                           ("left_pc", left_pc, (c, s, s)),
+                           ("right_pc", right_pc, (c, s, s))):
+        _require(t.dtype == dtype and tuple(t.shape) == shape
+                 and t.device == device,
+                 f"{name} {tuple(t.shape)} {t.dtype} on {t.device}, want "
+                 f"{shape} {dtype} on {device}")
+    for name, t in zip(("scaler_parent", "scaler_child"), rscal):
+        _require(t is None or (t.dtype == torch.int32 and t.device == device
+                               and tuple(t.shape) == (c, length)),
+                 f"{name}: int32 [{c}, {length}] on {device}")
+    # lt[c, j, k] = π[c, k]·left[c, k, j]
+    lt = (freqs_pc[:, :, None] * left_pc).transpose(1, 2).contiguous()
+    return _launch(plan, dtype, (c, s, length), sites, asc_mode, max_iters,
+                   dict(clv_p=clv_parent.contiguous(),
+                        clv_c=clv_child.contiguous(), lt=lt,
+                        right=right_pc.contiguous(),
+                        rscal_p=None if rscal[0] is None
+                        else rscal[0].contiguous(),
+                        rscal_c=None if rscal[1] is None
+                        else rscal[1].contiguous(),
+                        t0=t0, rates=rates, pinv=prop_invar,
+                        evals=eigenvals_pc, freqs=freqs_pc, rw=rate_weights,
+                        invariant=invariant, weights=pattern_weights,
+                        scal_p=site_scalers[0], scal_c=site_scalers[1]))

@@ -269,6 +269,98 @@ def test_newton_solve_max_iters_and_guards():
             dv.newton_solve(**{**meta, "sites": ec["sites"], **bad})
 
 
+# N1's launch planner (plan_newton) with a fake card: H100-like (132 SMs,
+# 227 KB of shared memory a block less the kernel's static share), and
+# smaller ones; no card needed
+H100_SMS, H100_SMEM = 132, 232448 - 8192
+
+
+def covered_once(plan, ef):
+    """Every evaluated site in exactly one block's slice, no empty block,
+    one block an SM at most."""
+    bounds = [(b * plan.block_sites, min((b + 1) * plan.block_sites, ef))
+              for b in range(plan.grid)]
+    assert all(lo < hi for lo, hi in bounds)
+    assert bounds[0][0] == 0 and bounds[-1][1] == ef
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("shape, itemsize, resident", [
+    ((4, 4, 262144), 4, True),     # the DNA flagship, float32
+    ((4, 20, 65132), 4, True),     # the protein configuration, float32
+    ((4, 4, 262144), 8, False),    # the float64 flagship
+    ((4, 20, 65132), 8, False),    # protein, float64
+])
+def test_plan_newton_flagship_shapes(shape, itemsize, resident):
+    """Resident where the slices fit one block an SM, streamed where they
+    do not; the slices cover every site once and fit shared memory."""
+    plan = dv.plan_newton(shape, itemsize, shape[2], 0, H100_SMS,
+                          H100_SMEM)
+    assert plan.resident == resident
+    assert plan.threads == dv.THREADS
+    assert plan.grid <= H100_SMS
+    covered_once(plan, shape[2])
+    if resident:
+        assert plan.smem == dv.slice_bytes(shape[0], shape[1], itemsize,
+                                           plan.block_sites) <= H100_SMEM
+    else:
+        assert plan.smem == 0 and plan.grid == min(
+            H100_SMS, -(-shape[2] // dv.THREADS))
+
+
+@pytest.mark.parametrize("states", [4, 20])
+@pytest.mark.parametrize("rate_cats", [1, 4, 8])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_plan_newton_small_cases_resident(states, rate_cats, itemsize):
+    """chip_smoke's phase 15 (300 sites; the asc modes' S pseudo
+    columns, Stamatakis evaluating them): every case resident, on as few
+    blocks as shared memory allows, at least THREADS sites a block where
+    that fits."""
+    for asc in (0, 1, 2, 3):
+        length = 300 + (states if asc else 0)
+        ef = 300 + (states if asc == 3 else 0)
+        plan = dv.plan_newton((rate_cats, states, length), itemsize, 300,
+                              asc, H100_SMS, H100_SMEM)
+        assert plan.resident and 0 < plan.smem <= H100_SMEM
+        covered_once(plan, ef)
+        per_site = dv.slice_bytes(rate_cats, states, itemsize, 4) // 4
+        assert plan.grid == max(1, -(-ef // (H100_SMEM // per_site // 4
+                                             * 4)))
+
+
+@pytest.mark.parametrize("sms", [1, 3, 8, 132])
+@pytest.mark.parametrize("smem_limit", [48 * 1024 - 4096, 100_000,
+                                        H100_SMEM])
+def test_plan_newton_fake_cards(sms, smem_limit):
+    """On cards of 1-132 SMs and 44-219 KB a block, over random shapes:
+    grid <= SMs x one block an SM, every site in exactly one slice, a
+    resident slice within the limit, streamed only where no grid of at
+    most ``sms`` blocks fits, and the same plan for the same sizes."""
+    rng = np.random.default_rng(sms * 7 + smem_limit % 97)
+    for _ in range(40):
+        c = int(rng.choice([1, 2, 4, 8]))
+        s = int(rng.choice([4, 20]))
+        sites = int(rng.integers(1, 400_000))
+        asc = int(rng.integers(0, 4))
+        item = int(rng.choice([4, 8]))
+        length = sites + (s if asc else 0)
+        ef = sites + (s if asc == 3 else 0)
+        plan = dv.plan_newton((c, s, length), item, sites, asc, sms,
+                              smem_limit)
+        assert 1 <= plan.grid <= sms
+        covered_once(plan, ef)
+        per_site = dv.slice_bytes(c, s, item, 4) // 4
+        fit = smem_limit // per_site // 4 * 4
+        if plan.resident:
+            assert plan.smem == dv.slice_bytes(c, s, item, plan.block_sites)
+            assert plan.smem <= smem_limit
+        else:
+            assert plan.smem == 0 and (fit == 0 or -(-ef // fit) > sms)
+            assert plan.grid == min(sms, -(-ef // dv.THREADS))
+        assert dv.plan_newton((c, s, length), item, sites, asc, sms,
+                              smem_limit) == plan
+
+
 def test_eval_edge_branch_is_last():
     """t0 = branch_lengths[-1] (evaluate.py:634): create_operations lists
     the evaluation edge (the root's) last, its P-matrix index the edge

@@ -387,11 +387,57 @@ def test_roofline_probes_match_plain_on_card(cuda):
 @pytest.mark.gpu
 def test_newton_kernel_matches_plain_on_card(cuda):
     """chip_smoke's phase 15: N1 against its plain twin for every scaling,
-    +I and asc variant, float32/float64, S 4/20, C 1/4/8; 32 launches a
-    call."""
+    +I and asc variant, float32/float64, S 4/20, C 1/4/8, from the
+    sumtable and from the rows; one launch a call (``newton_close`` calls
+    N1 twice, once in each form a case)."""
     before = dv.newton_solve.launches
     n = chip_smoke.check_newton_small(cuda)[0]
-    assert dv.newton_solve.launches - before >= n * dv.NEWTON_ITERS
+    assert dv.newton_solve.launches - before == 4 * n
+
+
+def tiled(args, reps):
+    """N1's arguments (either form) with the sites repeated ``reps`` times
+    (no asc columns): the same terms, a larger sumtable."""
+    length = args["pattern_weights"].shape[-1]
+
+    def tile(t):
+        if isinstance(t, tuple):
+            return tuple(tile(v) for v in t)
+        if isinstance(t, torch.Tensor) and t.shape[-1] == length:
+            return t.repeat(*([1] * (t.dim() - 1)), reps).contiguous()
+        return t
+    return dict({k: tile(v) for k, v in args.items()},
+                sites=args["sites"] * reps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, resident", [(torch.float32, True),
+                                             (torch.float64, False)])
+def test_newton_resident_and_streamed_on_card(cuda, dtype, resident):
+    """N1 past the planner's float64 limit (more sites than a block an SM
+    holds in shared memory: streamed slices) and at the same size in
+    float32 (resident slices) against its plain twin (``newton_close``),
+    from the sumtable and from the rows (where streamed, the rows go
+    through ``update_sumtable``), one launch a call, two calls the same
+    bits."""
+    args, rows = chip_smoke.newton_inputs(
+        "pinv", chip_smoke.caterpillar_newick(48), 4, 4, dtype, cuda, seed=4,
+        rows=True)
+    sms, limit = dv._limits(cuda.index or 0, torch.float64, 4)
+    per_site = dv.slice_bytes(4, 4, 8, dv.SLICE_ALIGN) // dv.SLICE_ALIGN
+    reps = sms * (limit // per_site) // args["sites"] + 2
+    args, rows = tiled(args, reps), tiled(rows, reps)
+    plan = dv.plan_for(args["sumtable"], args["sites"], args["asc_mode"])
+    assert plan.resident == resident and plan.grid <= sms
+    before = dv.newton_solve.launches
+    for form in (None, rows):
+        ok, _, msg = chip_smoke.newton_close(args, dtype, form)
+        assert ok, msg
+    assert dv.newton_solve.launches - before == 4
+    for solve in (lambda: dv.newton_solve(**args),
+                  lambda: dv.newton_solve_rows(**rows)):
+        first, again = solve(), solve()
+        assert [float(v) for v in first] == [float(v) for v in again]
 
 
 @pytest.mark.gpu
