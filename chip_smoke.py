@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven main paths, each driven once with the launch counters set to 0 just
+Eight main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -36,13 +36,19 @@ before it and read just after:
     the edge logL, sumtable and derivatives), and its parameters through
     ``model_from_partition`` into ``make_score`` (K1),
     ``make_forward_fused`` (K2) and ``make_train_step_fused`` (K2 and
-    N1); the protein configuration in a float64 Partition into K1.
+    N1); the protein configuration in a float64 Partition into K1;
+  * parsimony: ``fastparsimony_stepwise`` at scripts/bench_stepwise.py's
+    two configurations (random ACGT, 2 048 taxa x 2 048 sites and 500 x
+    10 000, seed 42), the device engine (the Fitch kernels P2 and P3 of
+    ``csrc/fitch.cu``, no host read inside the insertion loop) and the
+    host engine (P1 and P2), each against libpll_tpu's score and Newick.
 
 Phases, one line each:
 
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
-     ``clv_seg.cu``, ``roofline.cu`` and ``derivatives.cu`` for sm_90a,
+     ``clv_seg.cu``, ``roofline.cu``, ``derivatives.cu`` and ``fitch.cu``
+     for sm_90a,
      one process each, all at once; the protein instances' registers,
      spills and stack (one and two sites a thread);
   3. small configs: K1/K2 against their plain PyTorch versions on the
@@ -154,11 +160,29 @@ Phases, one line each:
      host's time of each call with the card idle;
  23. partition protein: the protein configuration in a float64
      Partition (four rate matrices) against ``make_forward`` (rel 1e-12)
-     and ``make_score`` (K1 at S = 20, within the budget).
+     and ``make_score`` (K1 at S = 20, within the budget);
+ 24. parsimony small: P1-P3 against their plain versions on the card,
+     exactly (words, costs, scores, ``back``, ``edge_rows``), at every
+     launch of 32 configurations (4-200 taxa, DNA and 20 states with
+     ambiguity codes, weighted patterns, 1-3 partitions, seeds 0, 1, 42,
+     12345); the card's FastParsimony, both stepwise engines and the
+     Sankoff Parsimony (float64, rel 0) against the CPU's;
+ 25. stepwise: both engines at 2 048 x 2 048 and 500 x 10 000 with their
+     counters at 0 around each: score and Newick equal to libpll_tpu's
+     (``STEPWISE_JAX``, recorded from the JAX package on the CPU), the
+     score re-derived by the plain Fitch of the final tree, which kernels
+     ran;
+ 26. stepwise times: each build's wall time, P2's and P3's device time a
+     launch under torch.profiler and the device's idle share; P2 and P3
+     at the last insertion and P1 over the final tree against their plain
+     versions and their bounds (integer logic and popcount throughput,
+     bytes at 3.35 TB/s); a whole build at 200 x 2 000 by the plain
+     versions.
 
 The line before the last is a JSON summary of the kernels, each with its
-bound (the larger of its operations at the card's FP32 peak and its bytes
-at 3.35 TB/s, from this run's shapes); the last line is
+bound (the larger of its operations at the card's FP32 peak, or for the
+Fitch kernels its integer logic and popcounts at their pipes' rates, and
+its bytes at 3.35 TB/s, from this run's shapes); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before either is printed; so does a machine without CUDA, or a directory
 without the package.
@@ -2635,6 +2659,650 @@ def phase_partition_protein(device):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- parsimony
+# (tips, sites, states, weighted, partitions), each at PARSIMONY_SEEDS: 32
+# configurations; a second and third partition take the other alphabet
+# and fewer sites
+PARSIMONY_SMALL = ((4, 40, 4, False, 1), (5, 33, 20, True, 1),
+                   (17, 300, 4, True, 2), (33, 97, 20, False, 1),
+                   (64, 500, 4, False, 3), (100, 1000, 4, True, 1),
+                   (150, 257, 20, True, 2), (200, 2000, 4, False, 1))
+PARSIMONY_SEEDS = (0, 1, 42, 12345)
+ENGINES_UP_TO = 64  # tips: both engines on the card against the CPU
+DNA_CODES = "ACGTACGTACGT-RYKMSWN"  # IUPAC ambiguity codes and gaps
+PROTEIN_CODES = "ARNDCQEGHILKMFPSTWYVBZX-"
+# scripts/bench_stepwise.py's configurations: random ACGT from
+# default_rng(7), one FastParsimony partition, stepwise seed 42
+STEPWISE_CASES = ((2048, 2048), (500, 10000))
+STEPWISE_SEED = 42
+# libpll_tpu's fastparsimony_stepwise(engine="device") on these inputs,
+# run on the CPU (JAX_PLATFORMS=cpu): the score, and the SHA-256 and length
+# of export_newick(tree.root)
+STEPWISE_JAX = {
+    (2048, 2048): (2236462, "d8ce04bcc5a033dfe91c5addee105bc1"
+                            "35d8bbbe21ff99bbbb2d8cd7385bc92c", 52107),
+    (500, 10000): (2713550, "2a5ac5ecdd60fc12baca1377aed11a27"
+                            "39fe202ebac83d9ffa3924f826bba7da", 12359)}
+# integer throughput of an H100 SM a clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0): 32-bit
+# logic 64, population count 16
+LOGIC_PER_SM_CLOCK, POPC_PER_SM_CLOCK = 64, 16
+
+
+def parsimony_parts(tips, sites, states, weighted, n_parts, seed, device):
+    """``n_parts`` FastParsimony partitions of one taxon set on
+    ``device``, alignments with ambiguity codes drawn from ``seed``."""
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+
+    parts = []
+    for k in range(n_parts):
+        s = states if k % 2 == 0 else 24 - states
+        rng = np.random.default_rng(7 * seed + k)
+        length = max(1, sites // (k + 1))
+        codes = DNA_CODES if s == 4 else PROTEIN_CODES
+        seqs = ["".join(rng.choice(list(codes), length))
+                for _ in range(tips)]
+        weights = rng.integers(1, 5, length) if weighted else None
+        parts.append(FastParsimony.from_sequences(
+            seqs, maps.pll_map_nt if s == 4 else maps.pll_map_aa, s, weights,
+            device=device))
+    return parts
+
+
+def insert_scores_plain(rows, topo, i, tip):
+    """The summed candidate scores of insertion i by P2's plain version."""
+    from libpll_tpu_torch.ops import fitch
+
+    back, edge_rows = topo[0], topo[1]
+    u = edge_rows[:2 * i - 3].long()
+    total = 0
+    for v, c in rows:
+        total = total + fitch._uint(fitch.fitch_insert_scores_plain(
+            v, c, v[tip], u, back[u].long()))
+    return fitch._bits(total)
+
+
+def commit_pair(rows, topo, **kw):
+    """P3 on ``rows``/``topo`` and its plain version on clones of them;
+    every row, cost, ``back``, ``edge_rows`` and the final scores must be
+    equal.  Returns (the kernel's result, the largest difference: 0)."""
+    from libpll_tpu_torch.ops import fitch
+
+    twins = [(v.clone(), c.clone()) for v, c in rows]
+    ttopo = (topo[0].clone(), topo[1].clone()) + topo[2:]
+    want = fitch.stepwise_commit_plain(twins, *ttopo, **kw)
+    got = fitch.stepwise_commit(rows, *topo, **kw)
+    pairs = [(topo[0], ttopo[0]), (topo[1], ttopo[1])] + [
+        (a, b) for pair in zip(rows, twins) for a, b in zip(*pair)]
+    err = max(max_diff(a, b) for a, b in pairs + (
+        [] if want is None else [(got, want)]))
+    check(err == 0, f"P3 stepwise_commit ({kw['mode']}, insertion "
+                    f"{kw.get('insertion')}) differs from its plain version "
+                    f"by {err}")
+    return got, err
+
+
+def stepwise_pair(parts, order):
+    """The device build step by step on the card, every P2 launch (summed
+    over the partitions) and every P3 launch held against its plain
+    version on the same state, exactly.  Returns (back, finals)."""
+    import torch
+
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.stepwise import direction_rows
+
+    n = len(order)
+    rows = direction_rows(parts)
+    topo = fitch.stepwise_topology(order, parts[0].device)
+    scores = torch.empty(2 * n - 3, dtype=torch.int32,
+                         device=parts[0].device)
+    commit_pair(rows, topo, mode="star")
+    for i in range(3, n):
+        ne = 2 * i - 3
+        for k, (v, c) in enumerate(rows):
+            fitch.fitch_scores(v, c, topo[1][:ne], back=topo[0],
+                               tip=order[i], out=scores[:ne],
+                               accumulate=k > 0)
+        check(torch.equal(scores[:ne], insert_scores_plain(rows, topo, i,
+                                                           order[i])),
+              f"P2 insert scores of insertion {i} differ from the plain "
+              "version")
+        commit_pair(rows, topo, mode="insert", scores=scores, insertion=i,
+                    tip=order[i])
+    return topo[0], commit_pair(rows, topo, mode="final")[0]
+
+
+def check_parsimony_small(device):
+    """Phase 24: P1-P3 against their plain versions on the card, exactly,
+    at PARSIMONY_SMALL x PARSIMONY_SEEDS (4-200 taxa, DNA and 20 states
+    with ambiguity codes, weighted patterns, 1-3 partitions): P1 over a
+    random tree's traversal (and the card's FastParsimony against the
+    CPU's: vectors, costs, edge scores, root scores), P2 in edge mode on
+    random pairs, and the device build step by step (every P2 and P3
+    launch), its final scores and ``back`` against the CPU's; both
+    engines of ``fastparsimony_stepwise`` on the card against the CPU up
+    to ENGINES_UP_TO taxa (score and Newick); the Sankoff ``Parsimony`` on
+    the card against the CPU (float64, rel 0).  Returns (configurations,
+    launches (P1, P2, P3))."""
+    import torch
+
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.parsimony import Parsimony, _group_levels
+    from libpll_tpu_torch.search.stepwise import (direction_rows,
+                                                  fastparsimony_stepwise)
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.rng import shuffled_order
+
+    cpu = torch.device("cpu")
+    n = 0
+    for seed in PARSIMONY_SEEDS:
+        for cfg in PARSIMONY_SMALL:
+            tips, sites = cfg[:2]
+            what = f"parsimony {cfg} seed {seed}"
+            card, host = (parsimony_parts(*cfg, seed, dev)
+                          for dev in (device, cpu))
+            rng = np.random.default_rng(seed)
+            tree = ut.parse_newick_string(random_newick(tips, rng))
+            ops = ut.create_pars_buildops(ut.traverse(tree.root))
+            root = tree.root
+            for pc, ph in zip(card, host):
+                v, c = pc.vectors.clone(), pc.costs.clone()
+                table, offsets = fitch.wave_table(_group_levels(ops),
+                                                  v.shape[0])
+                fitch.fitch_run_waves_plain(
+                    v, c, torch.from_numpy(table).to(device), offsets)
+                pc.update_vectors(ops)
+                ph.update_vectors(ops)
+                check(torch.equal(pc.vectors, v) and torch.equal(pc.costs, c),
+                      f"{what}: P1 differs from its plain version")
+                check(torch.equal(pc.vectors.cpu(), ph.vectors)
+                      and torch.equal(pc.costs.cpu(), ph.costs),
+                      f"{what}: FastParsimony on the card differs from the "
+                      "CPU's")
+                n1, n2 = rng.integers(0, 2 * tips - 1, (2, 64))
+                got = fitch.fitch_scores(pc.vectors, pc.costs, n1, n2)
+                want = fitch.fitch_edge_scores_plain(
+                    pc.vectors, pc.costs, torch.as_tensor(n1, device=device),
+                    torch.as_tensor(n2, device=device))
+                check(torch.equal(got, want),
+                      f"{what}: P2 edge scores differ from the plain version")
+                check(np.array_equal(pc.edge_scores_batch(n1, n2),
+                                     ph.edge_scores_batch(n1, n2))
+                      and pc.edge_score(root.clv_index, root.back.clv_index)
+                      == ph.edge_score(root.clv_index, root.back.clv_index)
+                      and pc.root_score(root.clv_index)
+                      == ph.root_score(root.clv_index),
+                      f"{what}: FastParsimony scores on the card differ")
+            order = shuffled_order(tips, seed)
+            back, finals = stepwise_pair(card, order)
+            hback, _, hfinals = fitch.stepwise_build(direction_rows(host),
+                                                     order)
+            check(torch.equal(back.cpu(), hback)
+                  and torch.equal(finals.cpu(), hfinals),
+                  f"{what}: the device build on the card differs from the "
+                  "CPU's")
+            if tips <= ENGINES_UP_TO:
+                labels = [f"t{i}" for i in range(tips)]
+                want = fastparsimony_stepwise(host, labels, seed)
+                want = (want[1], ut.export_newick(want[0].root))
+                for engine in ("device", "host"):
+                    got = fastparsimony_stepwise(card, labels, seed,
+                                                 engine=engine)
+                    got = (got[1], ut.export_newick(got[0].root))
+                    check(got == want, f"{what}: fastparsimony_stepwise "
+                                       f"{engine} on the card {got[0]} vs "
+                                       f"the CPU {want[0]}")
+            n += 1
+    for tips, sites, states in ((10, 200, 4), (30, 500, 20)):
+        rng = np.random.default_rng(tips)
+        charmap = maps.pll_map_nt if states == 4 else maps.pll_map_aa
+        codes = DNA_CODES if states == 4 else PROTEIN_CODES
+        seqs = ["".join(rng.choice(list(codes), sites)) for _ in range(tips)]
+        sm = rng.integers(1, 6, (states, states)).astype(np.float64)
+        sm = (sm + sm.T) / 2
+        np.fill_diagonal(sm, 0)
+        ops, avail = [], list(range(tips))
+        while len(avail) > 1:
+            a, b = (avail.pop(int(rng.integers(len(avail))))
+                    for _ in range(2))
+            ops.append((tips + len(ops), a, b))
+            avail.append(ops[-1][0])
+        recops = [(ops[-1][0], ops[-1][0])] + [
+            (ch, p) for p, c1, c2 in reversed(ops) for ch in (c1, c2)
+            if ch >= tips]
+        out = []
+        for dev in (device, cpu):
+            sank = Parsimony(tips, states, sites, sm, tips - 1, tips - 1,
+                             device=dev)
+            for i, s in enumerate(seqs):
+                sank.set_sequence(i, charmap, s)
+            out.append((sank.build(ops), sank.sbuffer.cpu(),
+                        sank.reconstruct(charmap, recops)))
+        check(out[0][0] == out[1][0] and torch.equal(out[0][1], out[1][1])
+              and out[0][2] == out[1][2],
+              f"Sankoff {tips} x {sites} x {states}: the card "
+              f"{out[0][0]!r} vs the CPU {out[1][0]!r}")
+        n += 1
+    return n
+
+
+def bench_stepwise_alignment(tips, sites):
+    """scripts/bench_stepwise.py's alignment and labels."""
+    rng = np.random.default_rng(7)
+    seqs = ["".join(rng.choice(list("ACGT"), sites)) for _ in range(tips)]
+    return seqs, [f"t{i}" for i in range(tips)]
+
+
+def newick_digest(tree):
+    import hashlib
+
+    from libpll_tpu_torch.search.stepwise import deep_recursion
+    from libpll_tpu_torch.tree import utree as ut
+
+    with deep_recursion(tree.tip_count):
+        text = ut.export_newick(tree.root)
+    return hashlib.sha256(text.encode()).hexdigest(), len(text)
+
+
+def plain_tree_score(tree, seqs):
+    """The tree's Fitch score by the plain versions, on the CPU: a
+    FastParsimony of ``seqs`` and the traversal of ``tree`` (tips by their
+    labels ``t<i>``)."""
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+    from libpll_tpu_torch.search.stepwise import deep_recursion
+    from libpll_tpu_torch.tree import utree as ut
+
+    part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4,
+                                        device="cpu")
+
+    def sidx(node):
+        return int(node.label[1:]) if node.is_tip else node.clv_index
+
+    with deep_recursion(tree.tip_count):
+        trav = ut.traverse(tree.root)
+    part.update_vectors([(x.clv_index, sidx(x.next.back),
+                          sidx(x.next.next.back))
+                         for x in trav if not x.is_tip])
+    return part.edge_score(sidx(tree.root), sidx(tree.root.back))
+
+
+def phase_stepwise(device):
+    """Phase 25: fastparsimony_stepwise at STEPWISE_CASES on
+    scripts/bench_stepwise.py's data, the device engine (P2 + P3) and the
+    host engine (P1 + P2), each with the counters at 0 before it and read
+    after it: both equal libpll_tpu's score and Newick (STEPWISE_JAX), the
+    score re-derived by the plain Fitch of the final tree on the CPU, the
+    counters show which kernels ran.  Returns per case the wall times, the
+    launches and the peak device memory."""
+    import torch
+
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+    from libpll_tpu_torch.search.stepwise import fastparsimony_stepwise
+
+    counters = (fitch.fitch_waves, fitch.fitch_scores, fitch.stepwise_commit)
+    out = {}
+    for tips, sites in STEPWISE_CASES:
+        seqs, labels = bench_stepwise_alignment(tips, sites)
+        part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
+        res = {"words": part.vectors.shape[-1]}
+        want = STEPWISE_JAX[(tips, sites)]
+        for engine in ("device", "host"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for kernel in counters:
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            tree, score = fastparsimony_stepwise([part], labels,
+                                                 STEPWISE_SEED, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: kernel.launches
+                        for k, kernel in zip(("P1", "P2", "P3"), counters)}
+            digest, length = newick_digest(tree)
+            check((score, digest, length) == want,
+                  f"stepwise {tips} x {sites} {engine}: score {score}, "
+                  f"Newick {digest[:16]}.. of {length} chars; libpll_tpu "
+                  f"{want[0]}, {want[1][:16]}.. of {want[2]}")
+            # device: P2 a insertion, P3 a insertion plus the star and
+            # the final; host: P1 a wave, P2 a insertion plus the final
+            # edge score
+            ran = ({"P1": 0, "P2": tips - 3, "P3": tips - 1}
+                   if engine == "device" else
+                   {"P1": max(launches["P1"], 1), "P2": tips - 2, "P3": 0})
+            check(launches == ran, f"stepwise {tips} x {sites} {engine}: "
+                                   f"launches {launches}, want {ran}")
+            res[engine] = {"s": wall, "launches": launches,
+                           "peak": torch.cuda.max_memory_allocated() - held}
+        plain = plain_tree_score(tree, seqs)
+        check(plain == score, f"stepwise {tips} x {sites}: the plain Fitch "
+                              f"of the final tree {plain} vs {score}")
+        res["score"] = score
+        out[(tips, sites)] = res
+        d, h = res["device"], res["host"]
+        print(f"[25 stepwise] {tips} taxa x {sites} sites (ACGT, "
+              f"default_rng(7), seed {STEPWISE_SEED}, {res['words']} words "
+              f"a state): score {score}, Newick sha256 {want[1][:16]}.. "
+              f"({want[2]} chars), both libpll_tpu's; the plain Fitch of "
+              f"the final tree {plain}; device engine {d['s']:.3f} s "
+              f"(launches {d['launches']}, peak "
+              f"{d['peak'] / 2**20:.1f} MiB), host engine {h['s']:.3f} s "
+              f"(launches {h['launches']})", flush=True)
+        del part
+        torch.cuda.empty_cache()
+    return out
+
+
+# integer operations a word position of S states: a Fitch step 5S logic
+# (S and and S - 1 or for the union, 3S for the parent's words, one not)
+# and one popcount; an insertion score 7S logic (a Fitch step, then the
+# union against the far end) and two popcounts
+FITCH_LOGIC, INSERT_LOGIC = 5, 7
+
+
+def fitch_bound(peaks, logic, popc, nbytes):
+    """(ms, "operations" or "bytes"): integer logic ops and popcounts at
+    ``peaks`` (per second, each on its own pipe: the larger time), bytes at
+    HBM_BYTES_PER_S."""
+    ops_ms = max(logic / peaks[0], popc / peaks[1]) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def fitch_work(peaks, words, states, edges=0, rows=0, ops=0):
+    """The bound of ``edges`` insertion scores (two rows read each),
+    ``rows`` refreshed rows (a clean child read, the row written) and
+    ``ops`` Fitch ops (two children read, the parent written), each row
+    ``states`` x ``words`` words, 16 bytes of indices and costs each."""
+    row = states * words * 4
+    logic = words * states * (INSERT_LOGIC * edges + FITCH_LOGIC
+                              * (rows + ops))
+    popc = words * (2 * edges + rows + ops)
+    nbytes = (2 * edges * row + 2 * rows * row + 3 * ops * row
+              + 16 * (edges + rows + ops))
+    return fitch_bound(peaks, logic, popc, nbytes)
+
+
+def refresh_levels(back, co1, co2, n, first):
+    """(rows, dependent levels) of the refresh from rows first..first+2
+    on the topology ``back`` (host numpy): the chain P3 walks."""
+    rows, levels, level = 0, 0, [first, first + 1, first + 2]
+    while level:
+        rows += len(level)
+        levels += 1
+        level = [d for r in level if back[r] >= n
+                 for d in (co1[back[r]], co2[back[r]])]
+    return rows, levels
+
+
+def max_diff(a, b):
+    """Largest |a - b| of two int32 tensors of uint32 bits, as an int."""
+    from libpll_tpu_torch.ops import fitch
+
+    return int((fitch._uint(a) - fitch._uint(b)).abs().max())
+
+
+def event_ms(fn, prepare=None, iters=5):
+    """Median ms of ``fn()`` on the card's clock over ``iters`` runs, CUDA
+    events around each with the card idle before it (``prepare()`` first,
+    outside the events): the call's whole time, its host work included."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def profiled_ms(fn, name, prepare=None, iters=5):
+    """Device ms a call of the kernels whose name holds ``name`` inside
+    ``fn()``, from torch.profiler over ``iters`` calls (``prepare()``
+    before each): the kernels' own time, without the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if prepare is not None:
+                prepare()
+            fn()
+        torch.cuda.synchronize()
+    return kernel_ms(prof, (name,))[0][name][0] / iters
+
+
+def kernel_ms(prof, names):
+    """{name: (device ms in all, launches)} of the profiler's kernel
+    events whose name holds each of ``names``; and the device's idle share
+    over the span of all kernel events."""
+    import torch
+
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(spans, "the profiler recorded no kernel on the card")
+    out = {}
+    for name in names:
+        mine = [(s, e) for s, e, k in spans if name in k]
+        out[name] = (sum(e - s for s, e in mine) / 1e3, len(mine))
+    busy = sum(e - s for s, e, _ in spans)
+    span = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
+    return out, 1.0 - busy / span
+
+
+def plain_build(parts, order):
+    """The device build by the plain versions alone, on the parts' device
+    (P2's plain sum and P3's plain version, step by step).  Returns the
+    final scores."""
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.stepwise import direction_rows
+
+    rows = direction_rows(parts)
+    topo = fitch.stepwise_topology(order, parts[0].device)
+    fitch.stepwise_commit_plain(rows, *topo, mode="star")
+    for i in range(3, len(order)):
+        fitch.stepwise_commit_plain(
+            rows, *topo, mode="insert", insertion=i, tip=order[i],
+            scores=insert_scores_plain(rows, topo, i, order[i]))
+    return fitch.stepwise_commit_plain(rows, *topo, mode="final")
+
+
+def phase_stepwise_times(device, card, sms, clock_mhz, runs):
+    """Phase 26: at each of STEPWISE_CASES, a device build under
+    torch.profiler (P2's and P3's device time a launch, the device's idle
+    share, each against its bound over the build); at the largest, the
+    state before the last insertion, where P2 and P3 and their plain
+    versions run on clones of the same state, and the final tree's
+    traversal by P1 and its plain version: each kernel's device time by
+    the profiler (and the wrapper's whole call by CUDA events), each plain
+    version's time by CUDA events with the card idle before the call,
+    host work included; each against its bound from this run's work
+    (integer logic at 64 and popcounts at 16 a clock and SM, bytes at
+    3.35 TB/s); a whole build at 200 x 2 000 by the plain versions and by
+    the kernels.  Returns the numbers the JSON line takes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search import stepwise as sw
+    from libpll_tpu_torch.search.parsimony import FastParsimony, _group_levels
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.rng import shuffled_order
+
+    peaks = (sms * LOGIC_PER_SM_CLOCK * clock_mhz * 1e6,
+             sms * POPC_PER_SM_CLOCK * clock_mhz * 1e6)
+    names = ("fitch_scores_kernel", "stepwise_commit_kernel")
+    for tips, sites in STEPWISE_CASES:
+        seqs, labels = bench_stepwise_alignment(tips, sites)
+        part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
+        s, w = part.vectors.shape[1:]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sw.StepwiseBuilder([part], labels).build_device(STEPWISE_SEED)
+            torch.cuda.synchronize()
+        by_name, idle = kernel_ms(prof, names)
+        (p2_ms, p2_n), (p3_ms, p3_n) = (by_name[k] for k in names)
+        # the build's work: insertion i refreshes the 3 rows of its ring
+        # and the 2 rows of each older inner node that face away from the
+        # new tip, 2i - 1 in all (the star 3): (n - 1)^2 - 1 for the build
+        run = runs[(tips, sites)]
+        refreshed = (tips - 1) ** 2 - 1
+        edges = sum(2 * i - 3 for i in range(3, tips))
+        p2 = fitch_work(peaks, w, s, edges=edges)
+        p3 = fitch_work(peaks, w, s, rows=refreshed)
+        print(f"[26 stepwise times] {card}: {tips} x {sites}: device build "
+              f"{run['device']['s']:.3f} s wall, host engine "
+              f"{run['host']['s']:.3f} s; under the profiler P2 {p2_n} "
+              f"launches, {p2_ms / max(p2_n, 1) * 1e3:.2f} us a launch "
+              f"({p2_ms:.2f} ms in all, bound {p2[0]:.2f} ms ({p2[1]}), "
+              f"{p2[0] / p2_ms * 100:.1f}%); P3 {p3_n} launches, "
+              f"{p3_ms / max(p3_n, 1) * 1e3:.2f} us a launch ({p3_ms:.2f} ms "
+              f"in all, {refreshed} rows refreshed, bound {p3[0]:.2f} ms "
+              f"({p3[1]}), {p3[0] / p3_ms * 100:.2f}%); device idle "
+              f"{idle * 100:.1f}% of the kernels' span", flush=True)
+
+    # the largest case up to its last insertion
+    tips, sites = STEPWISE_CASES[0]
+    seqs, labels = bench_stepwise_alignment(tips, sites)
+    part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
+    s, w = part.vectors.shape[1:]
+    order = shuffled_order(tips, STEPWISE_SEED)
+    rows = sw.direction_rows([part])
+    topo = fitch.stepwise_topology(order, device)
+    scores = torch.empty(2 * tips - 3, dtype=torch.int32, device=device)
+    fitch.stepwise_commit(rows, *topo, mode="star")
+    for i in range(3, tips - 1):
+        fitch.fitch_scores(*rows[0], topo[1][:2 * i - 3], back=topo[0],
+                           tip=order[i], out=scores[:2 * i - 3])
+        fitch.stepwise_commit(rows, *topo, mode="insert", scores=scores,
+                              insertion=i, tip=order[i])
+    i, tip = tips - 1, order[tips - 1]
+    ne = 2 * i - 3
+    u = topo[1][:ne]
+
+    def p2_run():
+        return fitch.fitch_scores(*rows[0], u, back=topo[0], tip=tip,
+                                  out=scores[:ne])
+
+    def p2_plain():
+        return fitch.fitch_insert_scores_plain(
+            *rows[0], rows[0][0][tip], u.long(), topo[0][u.long()].long())
+
+    err = {"p2": max_diff(p2_run(), p2_plain())}
+    check(err["p2"] == 0, f"P2 at the last insertion differs from its "
+                          f"plain version by {err['p2']}")
+    ms = {"p2": profiled_ms(p2_run, "fitch_scores_kernel"),
+          "p2_call": event_ms(p2_run), "p2_plain": event_ms(p2_plain)}
+    kw = dict(mode="insert", scores=scores, insertion=i, tip=tip)
+    trial = {}
+
+    def reset():  # the state before the last insertion, afresh
+        trial["rows"] = [(v.clone(), c.clone()) for v, c in rows]
+        trial["topo"] = (topo[0].clone(), topo[1].clone()) + topo[2:]
+
+    ms["p3"] = profiled_ms(lambda: fitch.stepwise_commit(
+        trial["rows"], *trial["topo"], **kw), "stepwise_commit_kernel", reset)
+    ms["p3_plain"] = event_ms(lambda: fitch.stepwise_commit_plain(
+        trial["rows"], *trial["topo"], **kw), reset)
+    reset()
+    err["p3"] = commit_pair(trial["rows"], trial["topo"], **kw)[1]
+    co1, co2 = fitch._ring_co_tables(tips)
+    last_rows, last_levels = refresh_levels(
+        trial["topo"][0].cpu().numpy(), co1, co2, tips, tips + 3 * (i - 2))
+    check(last_rows == 2 * i - 1, f"the last insertion refreshed "
+                                  f"{last_rows} rows, not {2 * i - 1}")
+    bounds = {"p2": fitch_work(peaks, w, s, edges=ne),
+              "p3": fitch_work(peaks, w, s, rows=last_rows)}
+
+    # P1 over the final tree's traversal
+    tree, _ = sw.StepwiseBuilder([part], labels).build_device(STEPWISE_SEED)
+    with sw.deep_recursion(tips):
+        ops = ut.create_pars_buildops(ut.traverse(tree.root))
+    levels = _group_levels(ops)
+    table, offsets = fitch.wave_table(levels, part.vectors.shape[0])
+    table = torch.from_numpy(table).to(device)
+    p1 = {}
+
+    def reset_p1():
+        p1["v"], p1["c"] = part.vectors.clone(), part.costs.clone()
+
+    def p1_run():
+        fitch.fitch_waves(p1["v"], p1["c"], levels)
+
+    ms["p1"] = profiled_ms(p1_run, "fitch_wave_kernel", reset_p1)
+    ms["p1_call"] = event_ms(p1_run, reset_p1)
+    ms["p1_plain"] = event_ms(lambda: fitch.fitch_run_waves_plain(
+        p1["v"], p1["c"], table, offsets), reset_p1)
+    reset_p1()
+    p1_run()
+    got = (p1["v"], p1["c"])
+    reset_p1()
+    fitch.fitch_run_waves_plain(p1["v"], p1["c"], table, offsets)
+    err["p1"] = max(max_diff(got[0], p1["v"]), max_diff(got[1], p1["c"]))
+    check(err["p1"] == 0, f"P1 over the final tree differs from its plain "
+                          f"version by {err['p1']}")
+    bounds["p1"] = fitch_work(peaks, w, s, ops=len(ops))
+    print(f"[26 stepwise times] {card}: {tips} x {sites}, the last "
+          f"insertion ({ne} candidate edges, {last_rows} rows refreshed in "
+          f"{last_levels} dependent levels), "
+          f"each kernel's device time a call (torch.profiler, 5 calls) "
+          f"against its plain version's time a call (CUDA events with the "
+          f"card idle before it, host work included, median of 5): P2 "
+          f"{ms['p2'] * 1e3:.2f} us (the wrapper's whole call "
+          f"{ms['p2_call'] * 1e3:.2f} us) vs plain {ms['p2_plain'] * 1e3:.2f}"
+          f" us, bound {bounds['p2'][0] * 1e3:.3f} us ({bounds['p2'][1]}); "
+          f"P3 {ms['p3'] * 1e3:.2f} us vs plain {ms['p3_plain']:.3f} ms, "
+          f"bound {bounds['p3'][0] * 1e3:.3f} us ({bounds['p3'][1]}); P1 "
+          f"over the final tree ({len(ops)} ops in {len(levels)} waves) "
+          f"{ms['p1']:.4f} ms (the wrapper's whole call {ms['p1_call']:.4f} "
+          f"ms) vs plain {ms['p1_plain']:.4f} ms, bound "
+          f"{bounds['p1'][0] * 1e3:.3f} us ({bounds['p1'][1]})", flush=True)
+
+    # a whole build at a small size: the kernels, then the plain versions
+    small = (200, 2000)
+    seqs, _ = bench_stepwise_alignment(*small)
+    order = shuffled_order(small[0], STEPWISE_SEED)
+    small_part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
+    walls = []
+    for build in (lambda: fitch.stepwise_build(
+            sw.direction_rows([small_part]), order)[2],
+            lambda: plain_build([small_part], order)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finals = build()
+        torch.cuda.synchronize()
+        walls.append(((time.perf_counter() - t0) * 1e3, finals))
+    check(torch.equal(walls[0][1], walls[1][1]),
+          "the small build by the plain versions differs from the kernels'")
+    print(f"[26 stepwise times] {card}: a whole device build at {small[0]} "
+          f"x {small[1]}: kernels {walls[0][0]:.1f} ms, plain versions "
+          f"{walls[1][0]:.1f} ms (wall, the card synchronised at the ends)",
+          flush=True)
+    del part, rows, trial, p1, small_part
+    torch.cuda.empty_cache()
+    big = runs[STEPWISE_CASES[0]]
+    return {"ms": ms, "bounds": bounds, "err": err,
+            "launches": {**big["device"]["launches"],
+                         "P1": big["host"]["launches"]["P1"]}}
+
+
 def main():
     try:
         import torch
@@ -2656,6 +3324,7 @@ def main():
     from libpll_tpu_torch.ops import clv_fused as cf
     from libpll_tpu_torch.ops import clv_seg as cseg
     from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.ops import fitch
     from libpll_tpu_torch.ops import roofline as rf
     from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
                                                  FLAGSHIP_SITES,
@@ -2666,9 +3335,9 @@ def main():
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    fp32_peak = rf.fp32_peak(
-        torch.cuda.get_device_properties(device).multi_processor_count,
-        rf.max_sm_clock_mhz())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_mhz = rf.max_sm_clock_mhz()
+    fp32_peak = rf.fp32_peak(sms, clock_mhz)
     print(f"[1 card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices {torch.cuda.device_count()}",
           flush=True)
@@ -2677,7 +3346,7 @@ def main():
     sources = _build.SOURCES
     _build.build_all(sources)  # one nvcc each, all at once
     build_s = time.perf_counter() - t0
-    for module in (cf, cd, cseg, rf, dv):
+    for module in (cf, cd, cseg, rf, dv, fitch):
         module.load_kernels()
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
@@ -2905,9 +3574,25 @@ def main():
     torch.cuda.empty_cache()
     phase_partition_protein(device)
 
+    # ---------------------------------------------------- 24-26: parsimony
+    torch.cuda.empty_cache()
+    rows = ptxas_report("fitch")
+    t0 = time.perf_counter()
+    n = check_parsimony_small(device)
+    print(f"[24 parsimony small] fitch.cu: {len(rows)} kernels: "
+          + "; ".join(f"{lab} {r} registers, {b} B spill"
+                      for lab, r, b, _ in rows)
+          + f"; {n} configurations: P1-P3 equal their plain versions at "
+          f"every launch, FastParsimony, both stepwise engines and the "
+          f"Sankoff Parsimony on the card equal the CPU "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    runs = phase_stepwise(device)
+    pars = phase_stepwise_times(device, card, sms, clock_mhz, runs)
+
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
-        # tree sweep, or a dependent multiply-add chain): no library time
+        # tree sweep, a dependent multiply-add chain, or a Fitch step on
+        # popcounts, which PyTorch lacks): no library time
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
     fused_src = "libpll_tpu_torch/csrc/clv_fused.cu"
@@ -2915,6 +3600,7 @@ def main():
     seg_src = "libpll_tpu_torch/csrc/clv_seg.cu"
     roof_src = "libpll_tpu_torch/csrc/roofline.cu"
     deriv_src = "libpll_tpu_torch/csrc/derivatives.cu"
+    fitch_src = "libpll_tpu_torch/csrc/fitch.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
@@ -2973,7 +3659,17 @@ def main():
          "launches": protein["launches"]["make_forward_fused"][1],
          "max_abs_err": protein["k2_err"], "ms": protein["ms"]["k2"],
          "plain_ms": protein["ms"]["k2_plain"],
-         **bound_keys(protein["k2_bound"])}]}))
+         **bound_keys(protein["k2_bound"])},
+        # port-only: JAX's Fitch is plain XLA (population_count), no Pallas
+        *({"name": name, "route": "cuda", "source": fitch_src,
+           "replaces": f"libpll_tpu/ops/fitch.py:{line}",
+           "launches": pars["launches"][key.upper()],
+           "max_abs_err": pars["err"][key], "ms": pars["ms"][key],
+           "plain_ms": pars["ms"][f"{key}_plain"],
+           **bound_keys(pars["bounds"][key])}
+          for name, key, line in (("fitch_waves", "p1", 126),
+                                  ("fitch_scores", "p2", 172),
+                                  ("stepwise_commit", "p3", 273)))]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

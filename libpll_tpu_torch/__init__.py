@@ -28,11 +28,25 @@ the card unless given ``device="cpu"``):
   ``tree.incremental``, ``tree.compare``, ``tree.svg``, ``tree.schedule``,
   ``io.phylip``, ``io.fasta``, ``io.compress``), checkpoints
   (``engine.checkpoint``), the debug printers (``utils.output``) and the
-  run log (``utils.logging``).
+  run log (``utils.logging``);
+* parsimony (``search.parsimony``: bit-packed Fitch ``FastParsimony`` on
+  the popcount kernels P1 and P2 of ``ops.fitch``, weighted Sankoff
+  ``Parsimony`` in plain PyTorch, ``ops.sankoff``) and randomized stepwise
+  addition (``search.stepwise.fastparsimony_stepwise``: the host engine
+  on P1 and P2, the device engine on P2 and P3 with no host read inside
+  the insertion loop; ``utils.rng``, glibc's ``random_r``, stream-exact).
+  Both engines give ``libpll_tpu``'s score and tree for every seed.
+
+On the CPU, ``python -m pytest tests/test_torch_parsimony.py
+tests/test_torch_stepwise.py`` holds the parsimony layer to
+``libpll_tpu``'s exactly (about 40 s); on an H100, ``python3
+chip_smoke.py``'s phases 24-26 hold P1-P3 to their plain versions at
+every launch, build the stepwise trees of scripts/bench_stepwise.py's
+2 048 x 2 048 and 500 x 10 000 alignments by both engines, each equal to
+the JAX package's, and time the builds and kernels (PERF.md).
 
 The top-level names are ``libpll_tpu``'s, less ``optimize_model``: model
-fitting is not ported yet, nor are tree search, parsimony and multi-GPU
-sharding.
+fitting is not ported yet, nor are tree search and multi-GPU sharding.
 """
 
 from .engine.partition import (ASC_FELSENSTEIN, ASC_LEWIS, ASC_NONE,

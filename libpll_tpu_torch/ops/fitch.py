@@ -1,0 +1,557 @@
+"""Bit-packed unweighted (Fitch) parsimony: the host packing, plain
+PyTorch versions of the Fitch steps, and the wrappers of the kernels
+P1-P3 of ``csrc/fitch.cu``.
+
+Counterpart: ``libpll_tpu/ops/fitch.py``, capability parity with libpll
+``src/fast_parsimony.c``.  Informative sites are found and bit-packed on
+the host with numpy (``set_informative`` ``:34``, ``pack_vectors``
+``:60``, ``_ring_co_tables`` ``:196``, copied), into per-state 32-site
+words; the Fitch step per word is
+
+    union    = OR_k (c1_k & c2_k)
+    parent_k = (c1_k & c2_k) | (~union & (c1_k | c2_k))
+    cost    += popcount(~union)
+
+Words are held as ``int32`` tensors carrying the ``uint32`` bit patterns of
+JAX's arrays (PyTorch has no popcount and no ``~``/``>>``/``argmin`` on
+``uint32``); node costs and scores likewise, with JAX's wrapping ``uint32``
+sums.  :func:`as_uint32` reads a tensor back as numpy ``uint32``.  The plain
+versions count bits by SWAR on words widened to int64 and masked to 32
+bits, so ``int32``'s arithmetic ``>>`` never reaches them.
+
+JAX computes all of this in XLA with ``jax.lax.population_count`` (no
+Pallas kernel); the port's kernels are port-only, on ``__popc``:
+
+  P1 :func:`fitch_waves`: dependency-ordered waves of Fitch ops, one
+     launch per wave (``fitch_update`` ``:103``, ``fitch_run_waves``
+     ``:126``);
+  P2 :func:`fitch_scores`: the score of every edge (``fitch_edge_score``
+     ``:145``, ``fitch_edge_scores_batch`` ``:158``) or of splicing a tip
+     onto every candidate edge (``fitch_insert_scores`` ``:172``), written
+     or added into one score vector;
+  P3 :func:`stepwise_commit`: one greedy insertion of the device-resident
+     stepwise build, in one block: the first-minimum argmin, the splice of
+     ``back`` and ``edge_rows``, and the dirty-row refresh of every
+     partition; or the star's first refresh, or the final edge score
+     (``_stepwise_range_body`` ``:273``, ``_stepwise_final_body``
+     ``:408``).  :func:`stepwise_build` issues the whole build (JAX's
+     ``_stepwise_build_body`` ``:232``): P2 and P3 a insertion, back to
+     back, no host read.
+
+Each wrapper takes its kernel on CUDA tensors and its plain version
+(``*_plain``) on CPU tensors, and counts its kernel launches in
+``<wrapper>.launches``.  Not ported: JAX's padding of waves and candidate
+lists by repeated ops (compile-shape tricks) and the watchdog segmentation
+of the build.  The plain versions update ``vectors``/``costs`` (and the
+build's ``back``/``edge_rows``) in place where JAX returns new arrays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..errors import EinvalError, KernelError
+from . import _build
+
+BITS = 32
+MASK32 = 0xFFFFFFFF
+MAX_PARTS = 32  # partitions one P3 launch refreshes (csrc/fitch.cu kMaxParts)
+QUEUE_CHUNK = 256  # P3's queue rows a trip (csrc/fitch.cu kChunk)
+STEP_MODES = {"star": 0, "insert": 1, "final": 2}
+
+
+# --------------------------------------------------------------------------
+# host packing (numpy, copied)
+# --------------------------------------------------------------------------
+def set_informative(tip_masks: np.ndarray, states: int,
+                    pattern_weights: np.ndarray):
+    """Identify parsimony-informative sites.
+
+    tip_masks: uint32 [tips, sites] state bitmasks.
+    Returns (informative bool [sites], const_cost int).
+    """
+    tips, sites = tip_masks.shape
+    # per-column value-run analysis, vectorized over the alignment
+    m = np.sort(tip_masks, axis=0)                      # [tips, sites]
+    start = np.ones((tips, sites), dtype=bool)
+    start[1:] = m[1:] != m[:-1]
+    # a run is a singleton iff its start is immediately followed by
+    # another start (or by the end of the column)
+    nxt = np.ones((tips, sites), dtype=bool)
+    nxt[:-1] = start[1:]
+    single = (start & nxt).sum(axis=0)
+    multi = start.sum(axis=0) - single
+    informative = multi > 1
+    const_cost = int((single[~informative]
+                      * np.asarray(pattern_weights)[~informative]).sum())
+    return informative, const_cost
+
+
+def pack_vectors(tip_masks: np.ndarray, states: int,
+                 informative: np.ndarray, pattern_weights: np.ndarray,
+                 n_inner: int, pad_words: int = 8) -> np.ndarray:
+    """Bit-pack informative sites (×weight) into uint32 state vectors.
+
+    Returns uint32 [tips + n_inner, states, words]; tip rows filled, inner
+    rows zero. Pad bits/words are all-ones (they never contribute cost).
+    """
+    tips, sites = tip_masks.shape
+    bitcount = int(pattern_weights[informative].sum())
+    words = (bitcount + BITS - 1) // BITS
+    words = ((words + pad_words - 1) // pad_words) * pad_words
+    words = max(words, pad_words)
+
+    out = np.zeros((tips + n_inner, states, words), dtype=np.uint32)
+
+    # site index replicated by weight, bit position assignment
+    rep_sites = np.repeat(np.nonzero(informative)[0],
+                          pattern_weights[informative].astype(int))
+    bitpos = np.arange(rep_sites.size)
+    word_idx = bitpos // BITS
+    bit_in_word = (bitpos % BITS).astype(np.uint32)
+
+    for i in range(tips):
+        masks = tip_masks[i, rep_sites]  # [bits]
+        for k in range(states):
+            hasbit = ((masks >> k) & 1).astype(bool)
+            np.add.at(out[i, k], word_idx[hasbit],
+                      (np.uint32(1) << bit_in_word[hasbit]))
+    # pad bits within the last used word + all padding words -> ones
+    used = rep_sites.size
+    if used % BITS:
+        last = used // BITS
+        padmask = np.uint32(0xFFFFFFFF) << np.uint32(used % BITS)
+        out[:tips, :, last] |= padmask
+        full_from = last + 1
+    else:
+        full_from = used // BITS
+    out[:tips, :, full_from:] = 0xFFFFFFFF
+    return out
+
+
+def _ring_co_tables(n_tips: int) -> tuple[np.ndarray, np.ndarray]:
+    """Static ring co-member tables for the device-resident stepwise build.
+
+    Direction rows: tips occupy rows 0..n-1; inner directed nodes are
+    allocated in ring triples (b, b+1, b+2) — the star ring at rows
+    n..n+2, then one triple per insertion.  Ring membership never changes
+    after creation, so ``co1[d]``/``co2[d]`` (= d.next / d.next.next in the
+    reference's ring representation, pll.h:312-334) are constants; tips map
+    to themselves (never dereferenced).
+    """
+    D = n_tips + 3 * (n_tips - 2)
+    co1 = np.arange(D, dtype=np.int32)
+    co2 = np.arange(D, dtype=np.int32)
+    for b in range(n_tips, D, 3):
+        co1[b], co1[b + 1], co1[b + 2] = b + 1, b + 2, b
+        co2[b], co2[b + 1], co2[b + 2] = b + 2, b, b + 1
+    return co1, co2
+
+
+def to_words(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy ``uint32`` array as an ``int32`` tensor of the same bits."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+
+
+def as_uint32(t: torch.Tensor) -> np.ndarray:
+    """An ``int32`` tensor of words, costs or scores as numpy ``uint32``."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+# --------------------------------------------------------------------------
+# plain versions (PyTorch, any device)
+# --------------------------------------------------------------------------
+def _uint(t: torch.Tensor) -> torch.Tensor:
+    """``int32`` bit patterns as their ``uint32`` values, in int64."""
+    return t.to(torch.int64) & MASK32
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values modulo 2**32 as ``int32`` bit patterns (the wrap of
+    JAX's ``uint32`` sums)."""
+    x = x & MASK32
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each ``int32`` word (SWAR on the word masked to 32 bits),
+    int64."""
+    x = _uint(words)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & MASK32) >> 24
+
+
+def _union(land: torch.Tensor) -> torch.Tensor:
+    """OR over the state axis (-2) of [..., S, W] words."""
+    union = land[..., 0, :]
+    for k in range(1, land.shape[-2]):
+        union = union | land[..., k, :]
+    return union
+
+
+def _fitch(a: torch.Tensor, b: torch.Tensor):
+    """The Fitch step of [..., S, W] children: (parent words, mutations
+    int64 [...])."""
+    land = a & b
+    union = _union(land)
+    parent = land | (~union.unsqueeze(-2) & (a | b))
+    return parent, popcount(~union).sum(-1)
+
+
+def fitch_update_plain(vectors, costs, parent, child1, child2):
+    """One wave of independent Fitch ops (JAX's ``fitch_update``): the
+    children of every op gathered before any parent row is written."""
+    new, mut = _fitch(vectors[child1], vectors[child2])
+    vectors[parent] = new
+    costs[parent] = _bits(_uint(costs[child1]) + _uint(costs[child2]) + mut)
+    return vectors, costs
+
+
+def fitch_run_waves_plain(vectors, costs, table, offsets):
+    """P1's plain version: wave w is rows ``offsets[w]:offsets[w+1]`` of
+    ``table`` int32 [ops, 3] (parent, child1, child2), in order."""
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        ops = table[lo:hi].long()
+        fitch_update_plain(vectors, costs, ops[:, 0], ops[:, 1], ops[:, 2])
+    return vectors, costs
+
+
+def fitch_edge_scores_plain(vectors, costs, nodes1, nodes2):
+    """P2's plain version, edge mode: the Fitch score of joining each
+    nodes1[e]--nodes2[e], without the constant cost; int32 [E]."""
+    mut = popcount(~_union(vectors[nodes1] & vectors[nodes2])).sum(-1)
+    return _bits(mut + _uint(costs[nodes1]) + _uint(costs[nodes2]))
+
+
+def fitch_insert_scores_plain(vectors, costs, tipvec, u_idx, v_idx):
+    """P2's plain version, insert mode (JAX's ``_insert_scores``): the score
+    of splicing tip words ``tipvec`` [S, W] onto each edge u--v,
+    ``C[u] + C[v] + mut(V[u], T) + mut(X, V[v])`` with ``X = fitch(V[u],
+    T)``; int32 [E]."""
+    x, mut1 = _fitch(vectors[u_idx], tipvec.unsqueeze(0))
+    mut2 = popcount(~_union(x & vectors[v_idx])).sum(-1)
+    return _bits(_uint(costs[u_idx]) + _uint(costs[v_idx]) + mut1 + mut2)
+
+
+def stepwise_commit_plain(parts, back, edge_rows, co1, co2, n_tips, *,
+                          mode, scores=None, insertion=0, tip=0):
+    """P3's plain version.  ``parts``: [(vectors, costs)] of the build's
+    direction rows, one pair per partition.
+
+    ``mode="insert"``: insertion ``insertion`` of tip ``tip``: the first
+    minimum of ``scores[:2i-3]`` picks edge ``u = edge_rows[e]``,
+    ``v = back[u]``; the ring at rows ``r0..r2 = n + 3(i-2) + (0, 1, 2)``
+    splices in (``back``: u-r0, v-r1, tip-r2; ``edge_rows`` gains r1 and
+    r2), then every row whose subtree gained the tip is recomputed, level
+    by level from r0..r2 (the dependents of row d are ``co1[back[d]]``,
+    ``co2[back[d]]`` when ``back[d]`` is an inner row).  ``mode="star"``:
+    that refresh from rows n..n+2.  ``mode="final"``: returns int32 [P],
+    each partition's score at the edge of row n."""
+    if mode == "final":
+        u = torch.tensor([n_tips], device=back.device)
+        v = back[u].long()
+        return torch.cat([fitch_edge_scores_plain(vec, cost, u, v)
+                          for vec, cost in parts])
+    first = n_tips
+    if mode == "insert":
+        ne = 2 * insertion - 3
+        first = n_tips + 3 * (insertion - 2)
+        e = torch.argmin(_uint(scores[:ne]))  # the first minimum
+        u = edge_rows[e].long()
+        v = back[u].long()
+        back[u] = first
+        back[first] = u.to(back.dtype)
+        back[v] = first + 1
+        back[first + 1] = v.to(back.dtype)
+        back[tip] = first + 2
+        back[first + 2] = tip
+        edge_rows[ne] = first + 1
+        edge_rows[ne + 1] = first + 2
+    level = torch.arange(first, first + 3, device=back.device)
+    co1, co2 = co1.long(), co2.long()
+    while level.numel():
+        c1 = back[co1[level]].long()
+        c2 = back[co2[level]].long()
+        for vec, cost in parts:
+            fitch_update_plain(vec, cost, level, c1, c2)
+        b = back[level].long()
+        b = b[b >= n_tips]
+        level = torch.stack([co1[b], co2[b]], 1).reshape(-1)
+    return None
+
+
+# --------------------------------------------------------------------------
+# CUDA wrappers
+# --------------------------------------------------------------------------
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/fitch.cu``, once per process."""
+    lib = _build.load("fitch")
+    lib.fitch_waves.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P]
+    lib.fitch_scores.argtypes = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P,
+                                 _I, _P]
+    lib.stepwise_commit.argtypes = [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                                    _I, _P, _P, _P, _P, _P, _P, _P]
+    for fn in (lib.fitch_waves, lib.fitch_scores, lib.stepwise_commit):
+        fn.restype = ctypes.c_int
+    lib.fitch_error_string.argtypes = [ctypes.c_int]
+    lib.fitch_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise EinvalError(f"fitch kernel input: {what}")
+
+
+def _check(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.fitch_error_string(rc).decode()
+        raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_rows(vectors, costs) -> None:
+    _require(vectors.dtype == torch.int32 and vectors.dim() == 3
+             and vectors.is_contiguous(),
+             f"vectors {tuple(vectors.shape)} {vectors.dtype}, want "
+             "[N, S, W] int32 contiguous")
+    _require(costs.dtype == torch.int32 and costs.is_contiguous()
+             and tuple(costs.shape) == (vectors.shape[0],)
+             and costs.device == vectors.device,
+             f"costs {tuple(costs.shape)} {costs.dtype} on {costs.device}, "
+             f"want [{vectors.shape[0]}] int32 on {vectors.device}")
+    _require(1 <= vectors.shape[1] <= 32, f"{vectors.shape[1]} states")
+
+
+def _indices(idx, device, n_rows, what) -> torch.Tensor:
+    """``idx`` as int32 on ``device``; host indices are range-checked
+    (indices already on the card are the caller's, read by no host)."""
+    t = torch.as_tensor(idx, dtype=torch.int32)
+    if t.device.type == "cpu" and t.numel():
+        _require(int(t.min()) >= 0 and int(t.max()) < n_rows,
+                 f"{what} outside [0, {n_rows})")
+    return t.to(device).contiguous()
+
+
+def wave_table(waves, n_rows: int):
+    """(table int32 numpy [ops, 3], offsets) of a list of waves of
+    (parent, child1, child2) ops.  Raises unless every index lies in
+    [0, n_rows) and no row that a wave writes is written twice or read by
+    an op of the same wave (the kernel's blocks run a wave's ops in no
+    order)."""
+    sizes = [len(w) for w in waves]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
+    table = np.asarray([op[:3] for w in waves for op in w],
+                       np.int64).reshape(-1, 3)
+    _require(table.size == 0 or (table.min() >= 0 and table.max() < n_rows),
+             f"op rows outside [0, {n_rows})")
+    wave = np.repeat(np.arange(len(waves)), sizes)
+    keys_p = table[:, 0] * len(waves) + wave
+    keys_c = table[:, 1:] * len(waves) + wave[:, None]
+    _require(np.unique(keys_p).size == keys_p.size
+             and not np.isin(keys_c, keys_p).any(),
+             "a wave writes a row twice, or a row that one of its ops "
+             "reads")
+    return table.astype(np.int32), offsets
+
+
+def fitch_waves(vectors, costs, waves):
+    """P1: run ``waves`` (a list of waves, each a list of independent
+    (parent, child1, child2) ops; JAX's ``fitch_run_waves``) in order, in
+    place, one launch per wave (the table is copied to the card once).
+    CPU tensors take :func:`fitch_run_waves_plain`."""
+    _check_rows(vectors, costs)
+    table, offsets = wave_table(waves, vectors.shape[0])
+    table = torch.from_numpy(table).to(vectors.device)
+    if vectors.device.type == "cpu":
+        return fitch_run_waves_plain(vectors, costs, table, offsets)
+    n_waves = sum(1 for lo, hi in zip(offsets, offsets[1:]) if hi > lo)
+    if not n_waves:
+        return vectors, costs
+    lib = load_kernels()
+    host_offsets = (ctypes.c_int32 * len(offsets))(*offsets)
+    _, s, w = vectors.shape
+    with torch.cuda.device(vectors.device):
+        rc = lib.fitch_waves(
+            vectors.data_ptr(), costs.data_ptr(), s, w, table.data_ptr(),
+            ctypes.cast(host_offsets, ctypes.c_void_p), len(offsets) - 1,
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib, rc, "fitch_waves")
+    fitch_waves.launches += n_waves
+    return vectors, costs
+
+
+fitch_waves.launches = 0
+
+
+def fitch_scores(vectors, costs, nodes1, nodes2=None, *, back=None,
+                 tip=None, out=None, accumulate=False):
+    """P2: one score per edge e, int32 [E] (``uint32`` bits).  ``tip`` None:
+    the Fitch score of joining nodes1[e]--nodes2[e] (edge mode); ``tip`` a
+    row of ``vectors``: the score of splicing that tip onto the edge
+    (insert mode).  ``nodes2`` None takes ``back[nodes1[e]]`` on the card.
+    ``out`` given: written into (``accumulate``: added to, wrapping, as
+    partitions' scores sum).  CPU tensors take the plain versions."""
+    _check_rows(vectors, costs)
+    n_rows = vectors.shape[0]
+    device = vectors.device
+    n1 = _indices(nodes1, device, n_rows, "nodes1")
+    _require(n1.dim() == 1, "nodes1 must be one-dimensional")
+    if nodes2 is None:
+        _require(back is not None and back.dtype == torch.int32
+                 and back.device == device and back.is_contiguous()
+                 and back.numel() == n_rows,
+                 f"back must be [{n_rows}] int32 on {device}")
+        n2 = None
+    else:
+        n2 = _indices(nodes2, device, n_rows, "nodes2")
+        _require(n2.shape == n1.shape, "nodes1 and nodes2 differ in shape")
+    _require(tip is None or 0 <= tip < n_rows, f"tip row {tip}")
+    E = n1.numel()
+    if out is None:
+        _require(not accumulate, "accumulate needs out")
+        out = torch.empty(E, dtype=torch.int32, device=device)
+    _require(out.dtype == torch.int32 and out.device == device
+             and out.is_contiguous() and out.numel() == E,
+             f"out must be [{E}] int32 contiguous on {device}")
+    if device.type == "cpu":
+        v = back[n1.long()].long() if n2 is None else n2.long()
+        s = (fitch_edge_scores_plain(vectors, costs, n1.long(), v)
+             if tip is None else
+             fitch_insert_scores_plain(vectors, costs, vectors[tip],
+                                       n1.long(), v))
+        out.copy_(_bits(_uint(out) + _uint(s)) if accumulate else s)
+        return out
+    if not E:
+        return out
+    lib = load_kernels()
+    _, s, w = vectors.shape
+    with torch.cuda.device(device):
+        rc = lib.fitch_scores(
+            vectors.data_ptr(), costs.data_ptr(), s, w, n1.data_ptr(),
+            None if n2 is None else n2.data_ptr(),
+            None if back is None else back.data_ptr(),
+            -1 if tip is None else int(tip), E, out.data_ptr(),
+            int(accumulate), torch.cuda.current_stream().cuda_stream)
+    _check(lib, rc, "fitch_scores")
+    fitch_scores.launches += 1
+    return out
+
+
+fitch_scores.launches = 0
+
+
+def stepwise_commit(parts, back, edge_rows, co1, co2, n_tips, *, mode,
+                    scores=None, insertion=0, tip=0):
+    """P3: one step of the device-resident stepwise build in one block
+    (see :func:`stepwise_commit_plain` for ``mode``), in place on
+    ``parts``' rows, ``back`` and ``edge_rows``; ``mode="final"`` returns
+    int32 [P].  Inputs stay on the card: no host read.  CPU tensors take
+    :func:`stepwise_commit_plain`."""
+    _require(mode in STEP_MODES, f"mode {mode!r}")
+    device = back.device
+    D = 4 * n_tips - 6
+    _require(n_tips >= 3 and 1 <= len(parts) <= MAX_PARTS,
+             f"{n_tips} tips, {len(parts)} partitions (at most {MAX_PARTS})")
+    for t, n in ((back, D), (co1, D), (co2, D), (edge_rows, 2 * n_tips - 3)):
+        _require(t.dtype == torch.int32 and t.device == device
+                 and t.is_contiguous() and t.numel() == n,
+                 f"back/co1/co2 [{D}] and edge_rows [{2 * n_tips - 3}] "
+                 f"int32 on {device}")
+    for vec, cost in parts:
+        _check_rows(vec, cost)
+        _require(vec.shape[0] == D and vec.device == device,
+                 f"partition rows {tuple(vec.shape)} on {vec.device}, want "
+                 f"[{D}, S, W] on {device}")
+    if mode == "insert":
+        _require(3 <= insertion < n_tips and 0 <= tip < n_tips,
+                 f"insertion {insertion} of tip {tip}")
+        _require(scores is not None and scores.dtype == torch.int32
+                 and scores.device == device and scores.is_contiguous()
+                 and scores.numel() >= 2 * insertion - 3,
+                 f"scores: at least {2 * insertion - 3} int32 on {device}")
+    if device.type == "cpu":
+        return stepwise_commit_plain(parts, back, edge_rows, co1, co2,
+                                     n_tips, mode=mode, scores=scores,
+                                     insertion=insertion, tip=tip)
+    lib = load_kernels()
+    n = len(parts)
+    vec_ptrs = (ctypes.c_int64 * n)(*(v.data_ptr() for v, _ in parts))
+    cost_ptrs = (ctypes.c_int64 * n)(*(c.data_ptr() for _, c in parts))
+    states = (ctypes.c_int32 * n)(*(v.shape[1] for v, _ in parts))
+    words = (ctypes.c_int32 * n)(*(v.shape[2] for v, _ in parts))
+    queue = torch.empty(D + 3 + 2 * QUEUE_CHUNK, dtype=torch.int32,
+                        device=device)
+    finals = (torch.empty(n, dtype=torch.int32, device=device)
+              if mode == "final" else None)
+    ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)  # noqa: E731
+    with torch.cuda.device(device):
+        rc = lib.stepwise_commit(
+            STEP_MODES[mode], n, ptr(vec_ptrs), ptr(cost_ptrs), ptr(states),
+            ptr(words), n_tips,
+            None if scores is None else scores.data_ptr(),
+            2 * insertion - 3, n_tips + 3 * (insertion - 2), int(tip),
+            back.data_ptr(), edge_rows.data_ptr(), co1.data_ptr(),
+            co2.data_ptr(), queue.data_ptr(),
+            None if finals is None else finals.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib, rc, "stepwise_commit")
+    stepwise_commit.launches += 1
+    return finals
+
+
+stepwise_commit.launches = 0
+
+
+def stepwise_topology(order, device):
+    """The star of the build on ``device``: (``back`` int32 [D] with the
+    first three taxa of ``order`` linked to rows n..n+2 and -1 elsewhere,
+    ``edge_rows`` int32 [2n-3] holding the star's three edges, ``co1``,
+    ``co2``, n), the arguments :func:`stepwise_commit` takes first."""
+    n = len(order)
+    back = np.full(4 * n - 6, -1, np.int32)
+    for k in range(3):
+        back[n + k] = order[k]
+        back[order[k]] = n + k
+    edge_rows = np.zeros(2 * n - 3, np.int32)
+    edge_rows[:3] = (n, n + 1, n + 2)
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in (back, edge_rows, *_ring_co_tables(n))) + (n,)
+
+
+def stepwise_build(parts, order):
+    """The whole greedy build (JAX's ``_stepwise_build_body``) on ``parts``:
+    [(vectors, costs)] per partition, ``4n - 6`` direction rows each with
+    the tips' packed rows first; ``order`` the taxa's insertion order
+    (host ints).  The star's refresh, then per insertion i one
+    :func:`fitch_scores` per partition over the candidate edges
+    ``edge_rows[:2i-3]`` (their sum is the score vector) and one
+    :func:`stepwise_commit`, then the final scores: on the card all
+    issued back to back with no host read.  Updates ``parts`` in place;
+    returns (``back`` int32 [D], ``edge_rows`` int32 [2n-3], the final
+    scores int32 [P]), on the parts' device."""
+    n = len(order)
+    topo = stepwise_topology(order, parts[0][0].device)
+    back, edge_rows = topo[0], topo[1]
+    scores = torch.empty(2 * n - 3, dtype=torch.int32, device=back.device)
+
+    stepwise_commit(parts, *topo, mode="star")
+    for i in range(3, n):
+        ne = 2 * i - 3
+        for k, (vecs, costs) in enumerate(parts):
+            fitch_scores(vecs, costs, edge_rows[:ne], back=back,
+                         tip=order[i], out=scores[:ne], accumulate=k > 0)
+        stepwise_commit(parts, *topo, mode="insert", scores=scores,
+                        insertion=i, tip=order[i])
+    return back, edge_rows, stepwise_commit(parts, *topo, mode="final")

@@ -14,7 +14,9 @@ and protein),
 K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``), the roofline probes K7/K8
 (``roofline``, rel 1e-5 at small chain lengths) and the Newton kernel N1
 (``derivatives``, chip_smoke's ``newton_close``) are covered, and the
-stateful Partition on the card against the CPU (chip_smoke's phase 20).
+stateful Partition on the card against the CPU (chip_smoke's phase 20),
+and the Fitch kernels P1-P3 (``fitch``: exact equality with their plain
+versions; the stepwise build on the card against the CPU).
 ``test_partition_builds_on_the_card_by_default`` needs no card and runs
 in the CPU suite.
 """
@@ -694,3 +696,61 @@ def test_partition_builds_on_the_card_by_default(monkeypatch):
               "dtype": "float64"}
     with pytest.raises(KernelError):
         tck.restore_partition(header, {})
+
+
+@pytest.mark.gpu
+def test_parsimony_kernels_match_plain_on_card(cuda):
+    """chip_smoke's phase 24: P1-P3 (``csrc/fitch.cu``) equal their plain
+    versions at every launch, exactly, over 32 configurations (4-200 taxa,
+    DNA and protein with ambiguity codes, weights, 1-3 partitions); the
+    card's FastParsimony, both stepwise engines and the Sankoff
+    Parsimony equal the CPU's."""
+    from libpll_tpu_torch.ops import fitch
+
+    before = (fitch.fitch_waves.launches, fitch.fitch_scores.launches,
+              fitch.stepwise_commit.launches)
+    assert chip_smoke.check_parsimony_small(cuda) > 0
+    after = (fitch.fitch_waves.launches, fitch.fitch_scores.launches,
+             fitch.stepwise_commit.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_stepwise_on_card_matches_cpu(cuda, engine):
+    """fastparsimony_stepwise on the card (its kernels) against the CPU
+    (the plain versions): the same score and Newick, two partitions."""
+    from libpll_tpu_torch.search.stepwise import fastparsimony_stepwise
+    from libpll_tpu_torch.tree import utree as ut
+
+    out = []
+    for device in (cuda, "cpu"):
+        parts = chip_smoke.parsimony_parts(150, 700, 4, True, 2, 9, device)
+        labels = [f"t{i}" for i in range(150)]
+        tree, score = fastparsimony_stepwise(parts, labels, 9,
+                                             engine=engine)
+        out.append((score, ut.export_newick(tree.root)))
+    assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+def test_fitch_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from libpll_tpu_torch.ops import fitch
+
+    vec = torch.zeros((10, 4, 8), dtype=torch.int32, device=cuda)
+    cost = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(EinvalError):
+        fitch.fitch_scores(vec.long(), cost, [0], [1])
+    with pytest.raises(EinvalError):
+        fitch.fitch_scores(torch.zeros((10, 33, 8), dtype=torch.int32,
+                                       device=cuda), cost, [0], [1])
+    with pytest.raises(EinvalError):
+        fitch.fitch_scores(vec, cost.cpu(), [0], [1])
+    with pytest.raises(EinvalError):
+        fitch.fitch_waves(vec, cost, [[(5, 0, 1), (6, 5, 2)]])
+    parts = [(torch.zeros((10, 4, 8), dtype=torch.int32, device=cuda),
+              torch.zeros(10, dtype=torch.int32, device=cuda))]
+    topo = fitch.stepwise_topology([0, 1, 2, 3], cuda)
+    with pytest.raises(EinvalError):
+        fitch.stepwise_commit(parts, *topo, mode="insert", insertion=3,
+                              tip=3)  # no scores

@@ -44,7 +44,12 @@ def test_port_modules_listed():
               "libpll_tpu_torch.io.phylip", "libpll_tpu_torch.models.aa_tables",
               "libpll_tpu_torch.tools.fused_times",
               "libpll_tpu_torch.ops.clv", "libpll_tpu_torch.engine.checkpoint",
-              "libpll_tpu_torch.tree.moves", "libpll_tpu_torch.utils.logging"):
+              "libpll_tpu_torch.tree.moves", "libpll_tpu_torch.utils.logging",
+              "libpll_tpu_torch.search.stepwise",
+              "libpll_tpu_torch.search.parsimony",
+              "libpll_tpu_torch.ops.fitch", "libpll_tpu_torch.ops.sankoff",
+              "libpll_tpu_torch.utils.rng",
+              "libpll_tpu_torch.tools.stepwise_times"):
         assert m in PORT_MODULES, m
 
 
