@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight main paths, each driven once with the launch counters set to 0 just
+Nine main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -41,14 +41,21 @@ before it and read just after:
     two configurations (random ACGT, 2 048 taxa x 2 048 sites and 500 x
     10 000, seed 42), the device engine (the Fitch kernels P2 and P3 of
     ``csrc/fitch.cu``, no host read inside the insertion loop) and the
-    host engine (P1 and P2), each against libpll_tpu's score and Newick.
+    host engine (P1 and P2), each against libpll_tpu's score and Newick;
+  * branch-length optimisation (``engine/blopt.py``) of the flagship's
+    alignment in a float64 Partition, every length times 2.5:
+    ``optimize_branch_lengths`` (the host loop) and
+    ``optimize_branch_lengths_scan`` (a sweep with no host read, eager and
+    as a CUDA graph), on the op-table kernel U1 (``csrc/partials.cu``,
+    which also runs every ``Partition.update_partials`` on the card) and
+    N1 with blopt's Newton step.
 
 Phases, one line each:
 
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
-     ``clv_seg.cu``, ``roofline.cu``, ``derivatives.cu`` and ``fitch.cu``
-     for sm_90a,
+     ``clv_seg.cu``, ``roofline.cu``, ``derivatives.cu``, ``fitch.cu`` and
+     ``partials.cu`` for sm_90a,
      one process each, all at once; the protein instances' registers,
      spills and stack (one and two sites a thread);
   3. small configs: K1/K2 against their plain PyTorch versions on the
@@ -154,8 +161,8 @@ Phases, one line each:
      whose partial traversal equals a full one, its rollback; a
      checkpoint restored on the card to the same logL bit for bit; the
      peak device memory;
- 22. partition times: ``update_partials`` (float64 and float32, the
-     Partition's pick and the grouped executor), K2 at the same size,
+ 22. partition times: ``update_partials`` (float64 and float32: kernel
+     U1, and the plain grouped executor), K2 at the same size,
      the partial traversal, the edge logL, sumtable and derivatives, the
      host's time of each call with the card idle;
  23. partition protein: the protein configuration in a float64
@@ -177,12 +184,27 @@ Phases, one line each:
      at the last insertion and P1 over the final tree against their plain
      versions and their bounds (integer logic and popcount throughput,
      bytes at 3.35 TB/s); a whole build at 200 x 2 000 by the plain
-     versions.
+     versions;
+ 27. blopt small: U1 against the plain executor at every launch
+     (``ReplayHook``) of phase 20's configurations and of random op
+     tables (every scale mode, S 4/20/5, C 1-8, float64 rel 1e-12 with
+     scalers equal, float32 by phase 3's rule), N1 with blopt's |d2| rule
+     against its plain twin, both optimisers (the scan eager and graphed) at
+     14 taxa on the card against the CPU Partition;
+ 28. blopt flagship: each optimiser two sweeps with its counters at 0
+     around it (U1 and N1 launched): the logL rises and equals a fresh
+     Partition's on the resulting tree (rel 1e-12), the plain versions on
+     the card agree (logL rel 1e-10, lengths rel 1e-7), an eager scan
+     sweep makes no host read (``torch.cuda.set_sync_debug_mode``);
+ 29. blopt times: U1 on a full ``update_partials`` against its bound and
+     the plain executor; ms a sweep and an edge of each optimiser, and the
+     device's idle share over one (torch.profiler).
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
 Fitch kernels its integer logic and popcounts at their pipes' rates, and
-its bytes at 3.35 TB/s, from this run's shapes); the last line is
+its bytes at 3.35 TB/s, from this run's shapes; U1 in float64 at the
+FP64 vector peak, half the FP32 one); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before either is printed; so does a machine without CUDA, or a directory
 without the package.
@@ -2568,11 +2590,9 @@ def phase_partition(device, card, peak):
         timed[name] = time_ms(run, iters=5, warmup=2)
         idle[name] = host_ms(run, iters=5)
     ms = {k: v[0] for k, v in timed.items()}
-    pick = ("one op at a time" if part32.clv[0].numel() * 4
-            >= clv_ops.GROUPED_MAX_ROW_BYTES else "grouped")
     print(f"[22 partition times] {card}: update_partials (full, "
-          f"{len(ops)} ops) float64 {ms['part64']:.4f} ms (the Partition's "
-          f"pick at these rows: {pick}), {ms['grouped64']:.4f} ms in "
+          f"{len(ops)} ops) float64 {ms['part64']:.4f} ms (kernel U1), "
+          f"{ms['grouped64']:.4f} ms in "
           f"{int(levels.max()) + 1} hazard groups (ops/clv."
           f"update_partials_grouped); float32 {ms['part32']:.4f} / "
           f"{ms['grouped32']:.4f} ms; K2 at the same size (float32) "
@@ -3303,6 +3323,588 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
                          "P1": big["host"]["launches"]["P1"]}}
 
 
+# ---------------------------------------------------------- branch lengths
+BLOPT_TIPS = 14  # phase 27's trees (12-16 taxa)
+BLOPT_SITES = 301
+BLOPT_PERTURB = 2.5  # every branch length times this before optimising
+BLOPT_SWEEPS = 2
+BLOPT_LOGL_REL, BLOPT_LEN_REL = 1e-10, 1e-7  # kernel vs plain path, f64
+# (scale mode, states, rate categories) of phase 27's random op tables;
+# S = 5 takes U1's instance for any alphabet
+REPLAY_SMALL = tuple((mode, s, c) for mode in (0, 1, 2) for s in (4, 20)
+                     for c in (1, 2, 3, 4, 8)) + ((1, 5, 3), (2, 5, 2))
+
+
+class ReplayHook:
+    """While active, every U1 launch (``ops.clv.replay_ops`` on a CUDA
+    tensor) is held against the plain executor on copies of its inputs,
+    on the card: float64 CLVs rel F64_REL of each (row, rate, site)
+    block's largest entry with the scalers equal, float32 by phase 3's
+    rule (``sweep_close``).  Counts the launches it checked."""
+
+    def __init__(self):
+        from libpll_tpu_torch.ops import clv as clv_ops
+
+        self.clv_ops = clv_ops
+        self.real = clv_ops.replay_ops
+        self.checked = 0
+        self.f32_err = 0.0
+
+    def __enter__(self):
+        self.clv_ops.replay_ops = self.replay
+        return self
+
+    def __exit__(self, *exc):
+        self.clv_ops.replay_ops = self.real
+
+    def replay(self, clv, scalers, ops, pmatrix, scale_mode=1):
+        import torch
+
+        if clv.device.type != "cuda":
+            return self.real(clv, scalers, ops, pmatrix, scale_mode)
+        table = ops.cpu().numpy() if torch.is_tensor(ops) else ops
+        want_clv, want_scal = clv.clone(), scalers.clone()
+        self.clv_ops.update_partials_by_op(want_clv, want_scal, table,
+                                           pmatrix, scale_mode)
+        launches = self.real.launches
+        self.real(clv, scalers, ops, pmatrix, scale_mode)
+        check(self.real.launches == launches + (len(table) > 0),
+              "replay_ops did not launch U1")
+        torch.cuda.synchronize()
+        what = (f"U1 {tuple(clv.shape)} {clv.dtype} mode {scale_mode}, "
+                f"{len(table)} ops")
+        if clv.dtype == torch.float64:
+            ok, err = rows_close(clv, want_clv, F64_REL)
+            check(ok and torch.equal(scalers, want_scal),
+                  f"{what}: CLVs rel {err}, scalers equal "
+                  f"{torch.equal(scalers, want_scal)}")
+        else:
+            ok, err, agree = replay_close_f32(clv, scalers, want_clv,
+                                              want_scal)
+            check(ok, f"{what}: CLVs rel {err}, scalers agree {agree}")
+            self.f32_err = max(self.f32_err, err)
+        self.checked += 1
+
+
+def replay_close_f32(clv, scalers, want_clv, want_scal):
+    """Phase 3's float32 rule (``sweep_close``) for an op table's buffers:
+    the scalers agree at >= F32_SCALER_AGREE of their entries, and at the
+    sites whose scalers all agree every CLV entry is within F32_RTOL of
+    its (row, rate, site) block's largest.  Returns (ok, largest relative
+    error, share of scalers that agree)."""
+    import torch
+
+    same = scalers == want_scal
+    agree = float(same.double().mean())
+    site_ok = same.reshape(-1, same.shape[-1]).all(dim=0)
+    got, want = (t[..., site_ok].double() for t in (clv, want_clv))
+    # as sweep_close: a block's largest entry counts as at least float32's
+    # smallest normal (below it float32 keeps fewer than 24 bits)
+    span = want.abs().amax(dim=-2, keepdim=True).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    err = float(((got - want).abs() / span).max()) if got.numel() else 0.0
+    return err <= F32_RTOL and agree >= F32_SCALER_AGREE, err, agree
+
+
+class PlainKernels:
+    """While active, U1 and N1 take their plain versions on the card: the
+    Partition's and the sweep's op tables run ``update_partials_by_op``,
+    the Newton solves ``newton_solve_plain`` (after ``update_sumtable``
+    where the sweep hands N1 the edge's rows)."""
+
+    def __init__(self):
+        from libpll_tpu_torch.ops import clv as clv_ops
+        from libpll_tpu_torch.ops import derivatives as dv
+
+        self.clv_ops, self.dv = clv_ops, dv
+        self.real = (clv_ops.replay_ops, dv.newton_solve,
+                     dv.newton_solve_rows)
+
+    def __enter__(self):
+        import torch
+
+        clv_ops, dv = self.clv_ops, self.dv
+
+        def replay(clv, scalers, ops, pmatrix, scale_mode=1):
+            table = ops.cpu().numpy() if torch.is_tensor(ops) else ops
+            clv_ops.update_partials_by_op(clv, scalers, table, pmatrix,
+                                          scale_mode)
+
+        def rows(clv_parent, clv_child, scaler_parent, scaler_child,
+                 freqs_pc, left_pc, right_pc, t0, *rest,
+                 site_scalers=(None, None), per_rate=False, **kw):
+            st = dv.update_sumtable(clv_parent, clv_child, scaler_parent,
+                                    scaler_child, freqs_pc, left_pc,
+                                    right_pc, per_rate)
+            rates, pinv, evals, rw, inv, pw = rest
+            return dv.newton_solve_plain(st, t0, rates, pinv, evals,
+                                         freqs_pc, rw, inv, pw,
+                                         *site_scalers, **kw)
+
+        clv_ops.replay_ops = replay
+        dv.newton_solve = dv.newton_solve_plain
+        dv.newton_solve_rows = rows
+        return self
+
+    def __exit__(self, *exc):
+        (self.clv_ops.replay_ops, self.dv.newton_solve,
+         self.dv.newton_solve_rows) = self.real
+
+
+def blopt_wrappers():
+    """U1's and N1's wrappers, which keep the counts even while
+    ``ReplayHook`` or ``PlainKernels`` stands in for them."""
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    return clv_ops._replay_ops, dv._newton_solve
+
+
+def reset_blopt_counters():
+    for wrapper in blopt_wrappers():
+        wrapper.launches = 0
+
+
+def blopt_counters():
+    """(U1 launches, N1 launches) since the last reset, after a sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    return tuple(w.launches for w in blopt_wrappers())
+
+
+def tree_lengths(tree):
+    """{pmatrix index: length} of every edge."""
+    return {m.pmatrix_index: m.length for n in tree.nodes
+            for m in ([n] if n.is_tip else n.ring())}
+
+
+def scaled_tree(newick, factor):
+    """The tree of ``newick`` with every branch length times ``factor``."""
+    from libpll_tpu_torch.tree import utree as ut
+
+    tree = ut.parse_newick_string(newick)
+    for n in tree.nodes:
+        for m in ([n] if n.is_tip else n.ring()):
+            m.length = m.length * factor
+    return tree
+
+
+def lengths_close(got, want, rel):
+    """(ok, largest relative difference) of two {edge: length} maps."""
+    err = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    return got.keys() == want.keys() and err <= rel, err
+
+
+def run_blopt(mode, tree, part, pidx, **kw):
+    """One optimiser on ``tree`` and ``part``, its counters at 0 around it:
+    (logL, sweeps, lengths, (U1, N1) launches, seconds)."""
+    from libpll_tpu_torch.engine import blopt
+
+    reset_blopt_counters()
+    t0 = time.perf_counter()
+    if mode == "host":
+        logl, sweeps = blopt.optimize_branch_lengths(
+            tree, part, pidx, max_sweeps=BLOPT_SWEEPS, **kw)
+    else:
+        logl, sweeps = blopt.optimize_branch_lengths_scan(
+            tree, part, pidx, max_sweeps=BLOPT_SWEEPS,
+            graphed=mode == "graphed", **kw)
+    counts = blopt_counters()
+    return logl, sweeps, tree_lengths(tree), counts, time.perf_counter() - t0
+
+
+def random_op_table(rng, n, tips, inner, matrices, scalers):
+    """``n`` random ops over ``tips + inner`` rows (parents inner), with
+    hazards of every kind; scaler indices in [0, scalers)."""
+    ops = np.empty((n, 8), np.int32)
+    ops[:, 0] = rng.integers(tips, tips + inner, n)
+    ops[:, [2, 5]] = rng.integers(0, tips + inner, (n, 2))
+    ops[:, [3, 6]] = rng.integers(0, matrices, (n, 2))
+    ops[:, [1, 4, 7]] = rng.integers(0, scalers, (n, 3))
+    return ops
+
+
+def check_blopt_small(device):
+    """Phase 27: U1 against the plain executor at every launch (``ReplayHook``)
+    of phase 20's configurations (setters, full traversal, ``pad_to``, an op
+    list that rewrites a buffer, in float64 and float32) and of random op
+    tables (every scale mode, S 4/20/5, C 1-8, host and device tables, a
+    padded one); N1 with blopt's rule (``abs_d2``) against its plain twin
+    (``newton_close``'s rule, from the sumtable and from the rows) from t0
+    near and far from the optimum; both blopt optimisers (the scan eager and
+    as a CUDA graph) on the card against the CPU Partition, at
+    ``BLOPT_TIPS`` taxa.  Returns a summary dict."""
+    import torch
+
+    from libpll_tpu_torch import Operation, Partition
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.ops.incremental import pad_op_table
+
+    cpu = torch.device("cpu")
+    out = {}
+    with ReplayHook() as hook:
+        for seed, (name, kw) in enumerate(PARTITION_SMALL):
+            for dtype in (torch.float64, torch.float32):
+                part, tree, ops, pidx = partition_case(device, dtype, seed,
+                                                       **kw)
+                tips = part.tips
+                part.update_partials(ops[-3:], pad_to=7)
+                part.update_partials(
+                    [Operation(tips, 0, 0, 0, -1, 1, 1, -1),
+                     Operation(tips + 1, 1, tips, 2, 0, 2, 2, -1),
+                     Operation(tips, -1, 3, 3, -1, 4, 4, -1),
+                     Operation(tips + 2, 2, tips, 5, -1, tips + 1, 6, 1)])
+                part.update_partials(ops)
+        out["partition_launches"] = hook.checked
+        rng = np.random.default_rng(27)
+        tips, inner, m, sites = 5, 6, 9, 203
+        for mode, s, c in REPLAY_SMALL:
+            for dtype in (torch.float64, torch.float32):
+                clv = np.zeros((tips + inner, c, s, sites))
+                clv[:tips + 1] = rng.uniform(
+                    0.05, 1, (tips + 1, 1, s, sites)) * 10.0 ** rng.uniform(
+                        -60 if dtype == torch.float64 else -12, 0,
+                        (tips + 1, 1, 1, sites))
+                # rows summing below one: the products shrink, and scale
+                pm = rng.uniform(0.05, 1, (m, c, s, s)) / s
+                shape = ((inner + 1, sites) if mode == 1 else
+                         (inner + 1, c, sites) if mode == 2 else (1, sites))
+                ops = random_op_table(rng, 40, tips, inner, m, inner + 1)
+                cl = torch.tensor(clv, dtype=dtype, device=device)
+                sc = torch.zeros(shape, dtype=torch.int32, device=device)
+                p = torch.tensor(pm, dtype=dtype, device=device)
+                hook.replay(cl, sc, ops, p, mode)
+                hook.replay(cl, sc, torch.from_numpy(
+                    pad_op_table(ops[:7], 16)).to(device), p, mode)
+        out["launches"] = hook.checked
+        out["u1_f32_err"] = hook.f32_err
+
+        # N1 with blopt's rule, from t0 near and far from the optimum
+        n1, parted = 0, 0
+        newick = caterpillar_newick(24)
+        for states in (4, 20):
+            for rate_cats in (1, 4):
+                for dtype in (torch.float32, torch.float64):
+                    for variant in ("site", "rate", "pinv"):
+                        args, rows = newton_inputs(variant, newick, rate_cats,
+                                                   states, dtype, device,
+                                                   seed=rate_cats, rows=True)
+                        far = (1e-4, 3.0, 30.0) if dtype == torch.float64 \
+                            else (3.0,)
+                        for t0 in (float(args["t0"][0]),) + far:
+                            a = dict(args, t0=torch.tensor(
+                                [t0], dtype=dtype, device=device))
+                            r = dict(rows, t0=a["t0"])
+                            want = dv.newton_solve_plain(**a, abs_d2=True)
+                            for form in (a, r):
+                                run = (dv.newton_solve if form is a
+                                       else dv.newton_solve_rows)
+                                got = run(**form, abs_d2=True)
+                                err = abs(float(got.t) - float(want.t))
+                                ok = (err <= 1e-10 * abs(float(want.t))
+                                      and int(got.iterations)
+                                      == int(want.iterations)
+                                      if dtype == torch.float64 else
+                                      err <= F32_T_REL * abs(float(want.t)))
+                                check(ok, f"N1 |d2| rule {variant} S={states}"
+                                          f" C={rate_cats} {dtype} t0 {t0}: "
+                                          f"t* {float(got.t)!r} vs plain "
+                                          f"{float(want.t)!r}")
+                                n1 += 1
+                            parted += float(dv.newton_solve_plain(
+                                **a).t) != float(want.t)
+        check(parted > 0, "the |d2| rule never changed t*")
+        out["n1"], out["n1_parted"] = n1, parted
+
+        # both optimisers on the card against the CPU
+        rng = np.random.default_rng(15)
+        newick = random_newick(BLOPT_TIPS, rng)
+        seqs = ["".join(rng.choice(list("ACGT"), BLOPT_SITES))
+                for _ in range(BLOPT_TIPS)]
+        rates = compute_gamma_cats(0.7, 4)
+        runs = {}
+        for mode in ("host", "scan", "graphed"):
+            for where, dev in (("card", device), ("cpu", cpu)):
+                if mode == "graphed" and where == "cpu":
+                    continue
+                tree = scaled_tree(newick, BLOPT_PERTURB)
+                part = Partition(BLOPT_TIPS, BLOPT_TIPS - 2, 4, BLOPT_SITES,
+                                 1, 2 * BLOPT_TIPS - 3, 4, BLOPT_TIPS - 2,
+                                 dtype=torch.float64, device=dev)
+                part.set_subst_params(0, [1.1, 2.6, 0.8, 1.3, 2.9, 1.0])
+                part.set_frequencies(0, [0.28, 0.26, 0.22, 0.24])
+                part.set_category_rates(rates)
+                for node in tree.nodes:
+                    if node.is_tip:
+                        part.set_tip_states(node.clv_index, maps.pll_map_nt,
+                                            seqs[int(node.label[1:])])
+                if mode == "graphed":
+                    hook.__exit__()  # a capture reads nothing back
+                    try:
+                        runs[mode, where] = run_blopt(
+                            mode, tree, part, [0] * 4)
+                    finally:
+                        hook.__enter__()
+                else:
+                    runs[mode, where] = run_blopt(mode, tree, part,
+                                                    [0] * 4)
+        for mode in ("host", "scan", "graphed"):
+            got = runs[mode, "card"]
+            want = runs["host" if mode == "host" else "scan", "cpu"]
+            ok, err = lengths_close(got[2], want[2], BLOPT_LEN_REL)
+            check(ok and abs(got[0] - want[0]) <= BLOPT_LOGL_REL * abs(
+                want[0]) and got[1] == want[1] and min(got[3]) > 0,
+                  f"blopt {mode} on the card: logL {got[0]!r}, sweeps "
+                  f"{got[1]}, launches {got[3]} vs the CPU {want[0]!r}, "
+                  f"{want[1]}; lengths rel {err}")
+        out["runs"] = {k: (v[0], v[1], v[3]) for k, v in runs.items()}
+        out["checked"] = hook.checked
+    return out
+
+
+def top_kernels(prof, count):
+    """The ``count`` kernels of a profile with the most device time, as
+    (name cut to 60 characters, ms in all, launches)."""
+    import torch
+
+    totals = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = totals.get(e.name, (0.0, 0))
+            totals[e.name] = (t + (e.time_range.end - e.time_range.start)
+                              / 1e3, n + 1)
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])[:count]
+    return [(name[:60], t, n) for name, (t, n) in ranked]
+
+
+def flagship_blopt_partition(device):
+    """Phase 21's float64 Partition of the flagship alignment (PHYLIP,
+    compression) and its tree: (part, tree newick, pidx, pattern count)."""
+    import torch
+
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
+                                                 FLAGSHIP_SITES,
+                                                 FLAGSHIP_TIPS)
+
+    c = FLAGSHIP_RATE_CATS
+    tree, _, _, (params, freqs), patterns, weights, _ = \
+        read_phylip_flagship(FLAGSHIP_TIPS, FLAGSHIP_SITES)
+    rates = (compute_gamma_cats(1.0, c), np.full(c, 1.0 / c))
+    part = flagship_partition(device, torch.float64, tree, patterns, weights,
+                              params[None], freqs[None], rates)
+    return part, ut.export_newick(tree.root), tree, np.zeros(c, int), \
+        len(patterns[0]), (patterns, weights, params, freqs, rates)
+
+
+def fresh_logl(part, tree, pidx):
+    """The root edge's logL of ``tree`` in ``part`` computed from scratch:
+    every P-matrix, a full traversal."""
+    from libpll_tpu_torch.tree import utree as ut
+
+    ops, branches, pmat_idx = ut.create_operations(ut.traverse(tree.root))
+    part.update_prob_matrices(pidx, pmat_idx, branches)
+    part.update_partials(ops)
+    return part.compute_edge_loglikelihood(*edge_of(tree), pidx)
+
+
+def phase_blopt(device, card, peak):
+    """Phases 28-29: branch-length optimisation at the float64 flagship.
+    28: the flagship alignment in a float64 Partition (phase 21's build),
+    branch lengths times BLOPT_PERTURB; ``optimize_branch_lengths`` and
+    ``optimize_branch_lengths_scan`` (eager and ``graphed``), BLOPT_SWEEPS
+    sweeps each with its counters at 0 around it (U1 and N1 launched):
+    the logL rises and equals a fresh Partition's on the resulting tree
+    (rel F64_REL); the same optimisers on the plain versions on the card
+    (``PlainKernels``) agree (logL rel BLOPT_LOGL_REL, lengths rel
+    BLOPT_LEN_REL); an eager scan sweep runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read).  29: U1's
+    time for a full ``update_partials`` against its bound and the plain
+    executor; ms a sweep and an edge of each optimiser; the device's idle
+    share over a sweep of each (torch.profiler).  Returns the numbers the
+    JSON line reports."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libpll_tpu_torch.engine import blopt
+    from libpll_tpu_torch.engine.evaluate import partition_model
+    from libpll_tpu_torch.engine.partition import operations_to_array
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.tree import utree as ut
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    part, newick, base_tree, pidx, sites, data = \
+        flagship_blopt_partition(device)
+    fresh = flagship_partition(device, torch.float64, base_tree, data[0],
+                               data[1], data[2][None], data[3][None],
+                               data[4])
+    start = scaled_tree(newick, BLOPT_PERTURB)
+    logl0 = fresh_logl(part, start, pidx)
+    n_edges = 2 * base_tree.tip_count - 3
+
+    # each optimiser on the kernels, then on the plain versions
+    real_call = blopt.SweepProgram.__call__
+
+    def no_host_read(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_call(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    runs = {}
+    for mode in ("host", "scan", "graphed"):
+        tree = scaled_tree(newick, BLOPT_PERTURB)
+        if mode == "scan":
+            blopt.SweepProgram.__call__ = no_host_read
+        try:
+            runs[mode] = run_blopt(mode, tree, part, pidx)
+        finally:
+            blopt.SweepProgram.__call__ = real_call
+        logl, sweeps, lens, counts, secs = runs[mode]
+        want = fresh_logl(fresh, tree, pidx)
+        check(logl > logl0 and abs(logl - want) <= F64_REL * abs(want)
+              and min(counts) > 0,
+              f"flagship blopt {mode}: logL {logl0!r} -> {logl!r} "
+              f"({sweeps} sweeps, launches (U1, N1) {counts}), a fresh "
+              f"Partition on the result {want!r}")
+        runs[mode] += (want,)
+    plain = {}
+    with PlainKernels():
+        for mode in ("host", "scan"):
+            tree = scaled_tree(newick, BLOPT_PERTURB)
+            plain[mode] = run_blopt(mode, tree, part, pidx)
+    for mode in ("host", "scan", "graphed"):
+        got = runs[mode]
+        want = plain["host" if mode == "host" else "scan"]
+        ok, err = lengths_close(got[2], want[2], BLOPT_LEN_REL)
+        check(ok and abs(got[0] - want[0]) <= BLOPT_LOGL_REL * abs(want[0])
+              and want[3] == (0, 0),
+              f"flagship blopt {mode}: kernels {got[0]!r} vs plain "
+              f"{want[0]!r} (plain launches {want[3]}), lengths rel {err}")
+        runs[mode] += (err, abs(got[0] - want[0]) / abs(want[0]))
+    print(f"[28 blopt flagship] {base_tree.tip_count} taxa x {sites} "
+          f"patterns GTR+G4 float64 Partition, {n_edges} edges, lengths x"
+          f"{BLOPT_PERTURB}: start logL {logl0!r}; " + "; ".join(
+              f"{d} {runs[d][0]!r} in {runs[d][1]} sweeps ({runs[d][4]:.2f} "
+              f"s, launches (U1, N1) {runs[d][3]}; fresh Partition "
+              f"{runs[d][5]!r}; vs plain: logL rel {runs[d][7]:.3e}, lengths "
+              f"rel {runs[d][6]:.3e})" for d in runs)
+          + f"; plain host loop {plain['host'][4]:.2f} s, plain scan "
+          f"{plain['scan'][4]:.2f} s; an eager scan sweep under "
+          f"set_sync_debug_mode('error'): no host read", flush=True)
+
+    # 29: U1 on a full traversal, against the plain executor and its bound
+    trav = ut.traverse(start.root)
+    ops, branches, pmat_idx = ut.create_operations(trav)
+    part.update_prob_matrices(pidx, pmat_idx, branches)
+    table = operations_to_array(ops, part.scale_buffers)
+    dev_table = torch.from_numpy(table).to(device)
+    snap = (part.clv.clone(), part.scalers.clone())
+
+    def u1():
+        clv_ops.replay_ops(part.clv, part.scalers, dev_table, part.pmatrix,
+                           part.scale_mode)
+
+    def u1_plain():
+        clv_ops.update_partials_by_op(part.clv, part.scalers, table,
+                                      part.pmatrix, part.scale_mode)
+
+    u1_plain()
+    want_clv = part.clv.clone()
+    part.clv.copy_(snap[0])
+    part.scalers.copy_(snap[1])
+    reset_blopt_counters()
+    u1()
+    check(blopt_counters()[0] == 1, "U1: one launch a table")
+    u1_err = float((part.clv - want_clv).abs().max())
+    ok, rel = rows_close(part.clv, want_clv, F64_REL)
+    check(ok, f"flagship U1 vs the plain executor: rel {rel}")
+    del want_clv, snap
+    torch.cuda.empty_cache()
+    ms = {"u1": time_ms(u1, iters=10, warmup=2)[0],
+          "u1_plain": time_ms(u1_plain, iters=3, warmup=1)[0],
+          "part_update": time_ms(lambda: part.update_partials(ops), iters=10,
+                                 warmup=2)[0]}
+    row = part.clv[0].numel() * part.clv.element_size()
+    written, read_first = set(), set()
+    for p, _, c1, _, _, c2, _, _ in table.tolist():
+        read_first |= {c for c in (c1, c2) if c not in written}
+        written.add(p)
+    scal_row = part.scalers[0].numel() * 4
+    u1_bytes = (len(read_first) + len(written)) * row \
+        + len(written) * scal_row + part.pmatrix.numel() * 8
+    s, c = part.states, part.rate_cats
+    u1_flop = len(table) * sites * c * s * (2 * (2 * s - 1) + 1)
+    # float64 work: the FP64 vector peak is half the FP32 one (data sheet)
+    u1_bound = bound(u1_flop, u1_bytes, peak / 2)
+    per_op = 3 * len(table) * row / HBM_BYTES_PER_S * 1e3
+
+    # ms a sweep and an edge: the host loop (one sweep, less the full
+    # evaluation it starts with), the scan program eager and as a graph on
+    # one sweep's inputs; the idle share over a sweep of each
+    tree = scaled_tree(newick, BLOPT_PERTURB)
+    blopt._full_evaluation(tree, part, pidx)
+    tab, er, t0, _ = blopt.sweep_tables(tree.root, part.scale_buffers)
+    tab, er = (torch.from_numpy(a).to(device) for a in (tab, er))
+    t0 = torch.from_numpy(t0).to(device)
+    program = blopt.make_sweep_program(part.nodes, part.scale_buffers,
+                                       tab.shape[1], sites=sites,
+                                       scale_mode=part.scale_mode)
+    model = partition_model(part, pidx)
+    graph = program.graphed(part.clv, part.scalers, part.pmatrix, model,
+                            tab, er, t0)
+
+    def host_sweep():
+        blopt.optimize_branch_lengths(scaled_tree(newick, BLOPT_PERTURB),
+                                      part, pidx, max_sweeps=1)
+
+    sweeps = {"host": host_sweep,
+              "scan": lambda: program(part.clv, part.scalers, part.pmatrix,
+                                      model, tab, er, t0),
+              "graphed": lambda: graph(model, tab, er, t0)}
+    full_ms = event_ms(lambda: fresh_logl(part, start, pidx), iters=3)
+    times, idle = {}, {}
+    for mode, fn in sweeps.items():
+        times[mode] = event_ms(fn, iters=3) - (
+            full_ms if mode == "host" else 0.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        idle[mode] = kernel_ms(prof, ())[1]
+        if mode == "graphed":
+            top = top_kernels(prof, 8)
+    del graph
+    print(f"[29 blopt times] {card}: U1 full update_partials ({len(table)} "
+          f"ops, float64, {sites} patterns) {ms['u1']:.4f} ms vs bound "
+          f"{u1_bound[0]:.4f} ms ({u1_bound[1]}: {len(read_first)} rows read"
+          f" once, {len(written)} written; {per_op:.4f} ms at three rows an "
+          f"op), {u1_bound[0] / ms['u1'] * 100:.1f}% of it; plain "
+          f"update_partials_by_op {ms['u1_plain']:.4f} ms; "
+          f"Partition.update_partials (host table) {ms['part_update']:.4f} "
+          f"ms; U1 vs plain max abs {u1_err:.3e}; a sweep of {n_edges} edges"
+          f" (the host loop less the {full_ms:.2f} ms full evaluation it "
+          f"starts with; the scan program on one sweep's tables, cap "
+          f"{tab.shape[1]}): " + ", ".join(
+              f"{d} {times[d]:.2f} ms ({times[d] / n_edges:.4f} ms an edge, "
+              f"device idle {idle[d] * 100:.1f}%)" for d in times)
+          + "; CUDA events, median of 3; a graphed sweep's longest kernels "
+          "(torch.profiler, ms a sweep, launches): " + "; ".join(
+              f"{name} {t:.3f} ({n})" for name, t, n in top), flush=True)
+    out = dict(ms=ms, u1_bound=u1_bound, u1_err=u1_err, times=times,
+               idle=idle, launches=runs["scan"][3][0])
+    del part, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -3320,6 +3922,7 @@ def main():
     from libpll_tpu_torch.engine import evaluate as ev
     from libpll_tpu_torch.engine.params import model_from_numpy
     from libpll_tpu_torch.ops import _build
+    from libpll_tpu_torch.ops import clv as clv_ops
     from libpll_tpu_torch.ops import clv_dyn as cd
     from libpll_tpu_torch.ops import clv_fused as cf
     from libpll_tpu_torch.ops import clv_seg as cseg
@@ -3346,7 +3949,7 @@ def main():
     sources = _build.SOURCES
     _build.build_all(sources)  # one nvcc each, all at once
     build_s = time.perf_counter() - t0
-    for module in (cf, cd, cseg, rf, dv, fitch):
+    for module in (cf, cd, cseg, rf, dv, fitch, clv_ops):
         module.load_kernels()
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
@@ -3589,6 +4192,30 @@ def main():
     runs = phase_stepwise(device)
     pars = phase_stepwise_times(device, card, sms, clock_mhz, runs)
 
+    # ---------------------------------------------------- 27-29: blopt
+    torch.cuda.empty_cache()
+    rows = ptxas_report("partials")
+    t0 = time.perf_counter()
+    small = check_blopt_small(device)
+    print(f"[27 blopt small] partials.cu: {len(rows)} kernels: "
+          + "; ".join(f"{lab} {r} registers, {b} B spill"
+                      for lab, r, b, _ in rows)
+          + f"; U1 equal to the plain executor at every launch: "
+          f"{small['partition_launches']} of phase 20's {len(PARTITION_SMALL)}"
+          f" configurations (float64, float32), {small['launches']} with the "
+          f"random op tables ({len(REPLAY_SMALL)} (mode, S, C) x 2 dtypes, "
+          f"host and padded device tables), largest f32 rel "
+          f"{small['u1_f32_err']:.3e}; N1 with blopt's |d2| rule equal to "
+          f"its plain twin in {small['n1']} solves (the rule changed t* in "
+          f"{small['n1_parted']} of them); both optimisers at {BLOPT_TIPS} "
+          f"taxa x {BLOPT_SITES} sites, {BLOPT_SWEEPS} sweeps, on the card "
+          f"against the CPU (logL, sweeps, (U1, N1) launches): " + "; ".join(
+              f"{d} {dev} {v[0]!r} {v[1]} {v[2]}"
+              for (d, dev), v in small["runs"].items())
+          + f"; {small['checked']} U1 launches checked in all "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    bl = phase_blopt(device, card, fp32_peak)
+
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
         # tree sweep, a dependent multiply-add chain, or a Fitch step on
@@ -3601,6 +4228,7 @@ def main():
     roof_src = "libpll_tpu_torch/csrc/roofline.cu"
     deriv_src = "libpll_tpu_torch/csrc/derivatives.cu"
     fitch_src = "libpll_tpu_torch/csrc/fitch.cu"
+    partials_src = "libpll_tpu_torch/csrc/partials.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
@@ -3669,7 +4297,13 @@ def main():
            **bound_keys(pars["bounds"][key])}
           for name, key, line in (("fitch_waves", "p1", 126),
                                   ("fitch_scores", "p2", 172),
-                                  ("stepwise_commit", "p3", 273)))]}))
+                                  ("stepwise_commit", "p3", 273))),
+        # port-only: JAX's op-table executor is an XLA lax.scan
+        {"name": "replay_ops", "route": "cuda", "source": partials_src,
+         "replaces": "libpll_tpu/ops/clv.py:58",
+         "launches": bl["launches"], "max_abs_err": bl["u1_err"],
+         "ms": bl["ms"]["u1"], "plain_ms": bl["ms"]["u1_plain"],
+         **bound_keys(bl["u1_bound"])}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,7 +21,9 @@
 //   (ef = sites, or sites + S under Stamatakis, whose pseudo columns count
 //   as real sites); under Lewis / Felsenstein the S pseudo columns add
 //   their terms from absolute likelihoods (per-site scaler powers, no +I);
-//   then step = d1/d2 (d1 where d2 == 0), t = clip(t - step, 1e-8, 100).
+//   then step = d1/d2, or d1/|d2| under blopt's rule (libpll_tpu/engine/
+//   blopt.py:59, which keeps the step downhill where d2 <= 0), d1 where
+//   d2 == 0, and t = clip(t - step, 1e-8, 100).
 //   The loop keeps while_loop's semantics: the condition |d1| > 1e-9 and
 //   iterations < 32 is tested before each body on the previous body's d1
 //   (inf at first), so a body runs in the iteration whose d1 ends the loop.
@@ -140,6 +142,7 @@ struct NewtonArgs {
   int rate_cats;
   int asc_mode;
   int max_iters;
+  int abs_d2;  // step d1/|d2| (blopt's rule), else d1/d2
 };
 
 // The block's constants and the body's staged diagonals.
@@ -534,7 +537,8 @@ __global__ void __launch_bounds__(kBlock, 1)
           d2 = d2 - sum_w_inv * ((a2 * a0 - a1 * a1) / (a0 * a0));
         }
       }
-      const T step = d2 != (T)0 ? d1 / d2 : d1;
+      const T step =
+          d2 != (T)0 ? d1 / (a.abs_d2 ? dev_abs(d2) : d2) : d1;
       const T t_new = t - step;
       // jnp.clip: NaN stays NaN (no fmin/fmax, which would drop it)
       const T lo = (T)1e-8, hi = (T)100;
@@ -599,7 +603,7 @@ cudaError_t launch(NewtonArgs<T>& a, int grid, int64_t smem,
 
 template <typename T>
 int solve(int rate_cats, int states, int64_t length, int64_t sites,
-          int asc_mode, int max_iters, int threads, int grid,
+          int asc_mode, int max_iters, int abs_d2, int threads, int grid,
           int block_sites, int64_t smem, const void* sumtable,
           const void* clv_p, const void* clv_c, const void* lt,
           const void* right, const int32_t* rscal_p, const int32_t* rscal_c,
@@ -658,6 +662,7 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
   a.rate_cats = rate_cats;
   a.asc_mode = asc_mode;
   a.max_iters = max_iters;
+  a.abs_d2 = abs_d2 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool resident = smem > 0 && kResidentOk;
   cudaError_t err;
@@ -674,8 +679,8 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
 
 // Plain C interface for ctypes.  newton_solve_* makes one cooperative
 // launch on `stream` with the wrapper's plan (grid, block_sites, smem: the
-// resident slice's bytes, or 0 to stream) and returns its cudaError_t (0
-// on success); `arrived` must be zero.  A null `sumtable` forms the
+// resident slice's bytes, or 0 to stream; abs_d2 nonzero: blopt's step)
+// and returns its cudaError_t (0 on success); `arrived` must be zero.  A null `sumtable` forms the
 // resident slices from clv_p, clv_c, lt, right (and rscal_p, rscal_c
 // under per-rate scaling), outside Lewis and Felsenstein.  newton_query fills out[3] (see
 // instance_query) after raising the resident instance's shared-memory
@@ -684,7 +689,8 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
 
 #define SOLVE_PARAMS                                                          \
   int rate_cats, int states, int64_t length, int64_t sites, int asc_mode,     \
-      int max_iters, int threads, int grid, int block_sites, int64_t smem,    \
+      int max_iters, int abs_d2, int threads, int grid, int block_sites,      \
+      int64_t smem,                                                           \
       const void *sumtable, const void *clv_p, const void *clv_c,             \
       const void *lt, const void *right, const int32_t *rscal_p,              \
       const int32_t *rscal_c, const void *t0, const void *rates,              \
@@ -694,8 +700,8 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
       int32_t *iterations,                                                    \
       void *out, void *stream
 #define SOLVE_ARGS                                                         \
-  rate_cats, states, length, sites, asc_mode, max_iters, threads, grid,    \
-      block_sites, smem, sumtable, clv_p, clv_c, lt, right, rscal_p,       \
+  rate_cats, states, length, sites, asc_mode, max_iters, abs_d2, threads,  \
+      grid, block_sites, smem, sumtable, clv_p, clv_c, lt, right, rscal_p,       \
       rscal_c, t0, rates, pinv, evals, freqs, rw,                          \
       invariant, weights, scal_p, scal_c, partials, arrived, iterations,  \
       out, stream

@@ -25,7 +25,9 @@ whose inputs lie on another device raises.
     ``ops.derivatives.newton_solve``); :func:`make_train_step` the same
     on the plain level sweep;
   * :func:`model_from_partition` — a ``Partition``'s parameters as the
-    model dict the factories take.
+    model dict the factories take; :func:`partition_model` the same
+    without branch lengths, in the Partition's dtype, as the branch-length
+    sweep (``engine.blopt``) takes it.
 
 Every factory builds its module on ``device``: the card when it is None
 (a :class:`KernelError` without one), the CPU only when asked for.
@@ -147,6 +149,31 @@ def model_from_partition(partition, branches, params_indices=None,
         "pattern_weights": f64(partition.pattern_weights),
         "invariant": invariant.astype(np.int32),
     }, _resolve_device(device), dtype or torch.float32)
+
+
+def partition_model(part, params_indices) -> dict:
+    """The model dict of a Partition's parameter state, without branch
+    lengths, as tensors in its dtype on its device (counterpart
+    ``libpll_tpu/search/spr.py:80 _model_from_partition``): the eigen
+    factors are the Partition's own, brought up to date for the
+    categories' rate matrices."""
+    pidx = np.asarray(params_indices, np.int32).reshape(part.rate_cats)
+    for idx in np.unique(pidx):
+        if not part.eigen_valid[idx]:
+            part.update_eigen(int(idx))
+    return {
+        "rates": part._param("rates"),
+        "prop_invar": part._param("prop_invar"),
+        "params_indices": part._t(pidx, torch.int32),
+        "eigenvals": part._param("eigenvals"),
+        "left": part._param("eigen_left"),
+        "right": part._param("eigen_right"),
+        "freqs_pc": part._freqs_pc(pidx),
+        "prop_invar_pc": part._pinv_pc(pidx),
+        "rate_weights": part._param("rate_weights"),
+        "pattern_weights": part._pattern_weights_arr(),
+        "invariant": part._invariant_arr(),
+    }
 
 
 def _floats(model, dtype):
@@ -461,19 +488,26 @@ class GraphedCall:
             self.out = module(self.model, self.tips)
 
     def __call__(self, model, tips_packed):
-        pairs = [(self.model[k], v) for k, v in model.items()]
-        for static, value in pairs + [(self.tips, tips_packed)]:
-            if value is static:
-                continue
-            if (value.shape, value.dtype, value.device) != (
-                    static.shape, static.dtype, static.device):
-                raise EinvalError(
-                    f"input {tuple(value.shape)} {value.dtype} on "
-                    f"{value.device}; the graph was captured with "
-                    f"{tuple(static.shape)} {static.dtype} on {static.device}")
-            static.copy_(value)
+        copy_to_static([(self.model[k], v) for k, v in model.items()]
+                       + [(self.tips, tips_packed)])
         self.graph.replay()
         return self.out
+
+
+def copy_to_static(pairs) -> None:
+    """Copy each ``(static, value)`` pair's value into a CUDA graph's static
+    input (none where they are one tensor); raises where the shape, dtype
+    or device differs from the captured one."""
+    for static, value in pairs:
+        if value is static:
+            continue
+        if (value.shape, value.dtype, value.device) != (
+                static.shape, static.dtype, static.device):
+            raise EinvalError(
+                f"input {tuple(value.shape)} {value.dtype} on "
+                f"{value.device}; the graph was captured with "
+                f"{tuple(static.shape)} {static.dtype} on {static.device}")
+        static.copy_(value)
 
 
 def make_score(topo: EvalTopology, rate_cats: int, states: int,

@@ -15,9 +15,12 @@ argument order and error classes; the layouts are JAX's:
     ``[prob_matrices, rate_cats, states, states]``;
   * model parameters (frequencies, substitution rates, Γ rates, p-inv,
     pattern weights) and the eigen cache live on the host in float64
-    numpy, as in the reference (``models.c:342-349``);
+    numpy, as in the reference (``models.c:342-349``); the tensors the
+    compute methods take from them are made on the partition's device once
+    and kept until the next setter call (change them through the setters);
   * an operation schedule from the tree layer is an int32 table that
-    :mod:`..ops.clv` executes on the buffers in place.
+    :func:`..ops.clv.replay_ops` executes on the buffers in place: kernel
+    U1 on the card, the plain executors on the CPU.
 
 A Partition is built on the card unless ``device="cpu"`` is asked for;
 with no card it raises :class:`~..errors.KernelError` (the factories'
@@ -177,6 +180,8 @@ class Partition:
 
         # tip state bitmasks, kept for invariant-site detection
         self._tip_masks = np.zeros((tips, sites), dtype=np.uint32)
+        # device copies of the host parameters, cleared by every setter
+        self._params: dict = {}
 
     # ------------------------------------------------------------------
     # setters (reference: pll.c / models.c)
@@ -247,6 +252,7 @@ class Partition:
             raise ParamError("wrong number of substitution parameters")
         self.subst_params[params_index] = p
         self.eigen_valid[params_index] = False
+        self._params.clear()
 
     def set_frequencies(self, freqs_index: int, frequencies) -> None:
         f = np.asarray(frequencies, dtype=np.float64)
@@ -254,19 +260,23 @@ class Partition:
             raise ParamError("wrong number of frequencies")
         self.frequencies[freqs_index] = f
         self.eigen_valid[freqs_index] = False
+        self._params.clear()
 
     def set_category_rates(self, rates) -> None:
         self.rates = np.asarray(rates, dtype=np.float64).reshape(self.rate_cats)
+        self._params.clear()
 
     def set_category_weights(self, weights) -> None:
         self.rate_weights = np.asarray(weights, dtype=np.float64).reshape(
             self.rate_cats)
+        self._params.clear()
 
     def set_pattern_weights(self, weights) -> None:
         w = np.asarray(weights)
         if w.shape != (self.sites,):
             raise ParamError("pattern weights must have length sites")
         self.pattern_weights[:self.sites] = w
+        self._params.clear()
 
     @property
     def pattern_weight_sum(self) -> int:
@@ -292,6 +302,7 @@ class Partition:
         if w.shape != (self.states,):
             raise ParamError("asc state weights must have length states")
         self.pattern_weights[self.sites:] = w
+        self._params.clear()
 
     # ------------------------------------------------------------------
     # invariant sites (reference: models.c:402-647)
@@ -309,6 +320,7 @@ class Partition:
         full = np.full(self.sites_alloc, -1, dtype=np.int32)
         full[:self.sites] = inv
         self.invariant = full
+        self._params.clear()
 
     def update_invariant_sites_proportion(self, params_index: int,
                                           prop_invar: float) -> None:
@@ -325,6 +337,7 @@ class Partition:
             if not np.any(self.invariant >= 0):
                 raise InvarError("no invariant sites found")
         self.prop_invar[params_index] = prop_invar
+        self._params.clear()
 
     def count_invariant_sites(self) -> int:
         if self.invariant is None:
@@ -341,6 +354,18 @@ class Partition:
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
                                device=self.device)
 
+    def _param(self, name: str, index=None, dtype=None) -> torch.Tensor:
+        """The host parameter ``name`` (its rows ``index``, when given) as
+        :meth:`_t` makes it, made once and kept until the next setter."""
+        key = (name, None if index is None else
+               tuple(np.asarray(index).tolist()), dtype)
+        t = self._params.get(key)
+        if t is None:
+            a = getattr(self, name)
+            t = self._t(a if index is None else a[np.asarray(index)], dtype)
+            self._params[key] = t
+        return t
+
     def _check_precision(self, what: str) -> None:
         deriv_ops.check_full_precision(self.pmatrix, what)
 
@@ -351,6 +376,7 @@ class Partition:
         self.eigen_left[params_index] = left
         self.eigen_right[params_index] = right
         self.eigen_valid[params_index] = True
+        self._params.clear()
 
     def update_prob_matrices(self, params_indices, matrix_indices,
                              branch_lengths) -> None:
@@ -364,9 +390,9 @@ class Partition:
             if not self.eigen_valid[idx]:
                 self.update_eigen(int(idx))
         new = compute_pmatrices(
-            self._t(bl), self._t(self.rates), self._t(self.prop_invar),
-            self._t(pi, torch.int32), self._t(self.eigenvals),
-            self._t(self.eigen_left), self._t(self.eigen_right))
+            self._t(bl), self._param("rates"), self._param("prop_invar"),
+            self._t(pi, torch.int32), self._param("eigenvals"),
+            self._param("eigen_left"), self._param("eigen_right"))
         self.pmatrix[self._t(mi, torch.long)] = new
 
     # ------------------------------------------------------------------
@@ -376,24 +402,25 @@ class Partition:
                         pad_to: Optional[int] = None) -> None:
         """``pad_to``: pad the op table to a fixed capacity by repeating the
         final op (idempotent), as JAX does to reuse one compiled schedule
-        executor across incremental updates of varying size."""
+        executor across incremental updates of varying size.  On the card
+        one launch of kernel U1 (``ops.clv.replay_ops``)."""
         ops = operations_to_array(operations, self.scale_buffers)
         if pad_to is not None:
             from ..ops.incremental import pad_op_table
             ops = pad_op_table(ops, pad_to)
-        clv_ops.update_partials(self.clv, self.scalers, ops, self.pmatrix,
-                                scale_mode=self.scale_mode)
+        clv_ops.replay_ops(self.clv, self.scalers, ops, self.pmatrix,
+                           scale_mode=self.scale_mode)
 
     # ------------------------------------------------------------------
     # likelihood (reference: likelihood.c)
     # ------------------------------------------------------------------
     def _freqs_pc(self, freqs_indices) -> torch.Tensor:
         fi = np.asarray(freqs_indices, dtype=np.int64).reshape(self.rate_cats)
-        return self._t(self.frequencies[fi])
+        return self._param("frequencies", fi)
 
     def _pinv_pc(self, freqs_indices) -> torch.Tensor:
         fi = np.asarray(freqs_indices, dtype=np.int64).reshape(self.rate_cats)
-        return self._t(self.prop_invar[fi])
+        return self._param("prop_invar", fi)
 
     def _scaler_row(self, scaler_index: int) -> torch.Tensor:
         if self.scale_mode == SCALE_NONE:
@@ -403,10 +430,15 @@ class Partition:
         return self.scalers[idx]
 
     def _invariant_arr(self) -> torch.Tensor:
-        if self.invariant is None:
-            return torch.full((self.sites_alloc,), -1, dtype=torch.int32,
-                              device=self.device)
-        return self._t(self.invariant, torch.int32)
+        key = ("invariant", None, torch.int32)
+        if key not in self._params:
+            inv = (np.full(self.sites_alloc, -1, np.int32)
+                   if self.invariant is None else self.invariant)
+            self._params[key] = self._t(inv, torch.int32)
+        return self._params[key]
+
+    def _pattern_weights_arr(self) -> torch.Tensor:
+        return self._param("pattern_weights")
 
     def _logl(self, logl, persite, persite_wanted):
         return ((float(logl), persite.cpu().numpy()) if persite_wanted
@@ -417,8 +449,8 @@ class Partition:
         self._check_precision("compute_root_loglikelihood")
         logl, ps = lk_ops.root_loglikelihood(
             self.clv[clv_index], self._scaler_row(scaler_index),
-            self._freqs_pc(freqs_indices), self._t(self.rate_weights),
-            self._t(self.pattern_weights), self._pinv_pc(freqs_indices),
+            self._freqs_pc(freqs_indices), self._param("rate_weights"),
+            self._pattern_weights_arr(), self._pinv_pc(freqs_indices),
             self._invariant_arr(), sites=self.sites,
             per_rate=self.scale_mode == SCALE_PER_RATE,
             asc_mode=self.asc_mode)
@@ -436,7 +468,7 @@ class Partition:
             self._scaler_row(parent_scaler_index),
             self._scaler_row(child_scaler_index),
             self.pmatrix[matrix_index], self._freqs_pc(freqs_indices),
-            self._t(self.rate_weights), self._t(self.pattern_weights),
+            self._param("rate_weights"), self._pattern_weights_arr(),
             self._pinv_pc(freqs_indices), self._invariant_arr(),
             sites=self.sites, per_rate=self.scale_mode == SCALE_PER_RATE,
             asc_mode=self.asc_mode)
@@ -458,8 +490,8 @@ class Partition:
         sc = self._scaler_row(child_scaler_index) if per_rate else zeros
         return deriv_ops.update_sumtable(
             self.clv[parent_clv_index], self.clv[child_clv_index], sp, sc,
-            self._freqs_pc(pi), self._t(self.eigen_left[pi]),
-            self._t(self.eigen_right[pi]), per_rate=per_rate)
+            self._freqs_pc(pi), self._param("eigen_left", pi),
+            self._param("eigen_right", pi), per_rate=per_rate)
 
     def compute_likelihood_derivatives(self, parent_scaler_index: int,
                                        child_scaler_index: int,
@@ -477,9 +509,9 @@ class Partition:
             sp = sc = torch.zeros((self.sites_alloc,), dtype=torch.int32,
                                   device=self.device)
         d1, d2 = deriv_ops.likelihood_derivatives(
-            sumtable, self._t(branch_length), self._t(self.rates),
-            self._pinv_pc(pi), self._t(self.eigenvals[pi]),
-            self._freqs_pc(pi), self._t(self.rate_weights),
-            self._invariant_arr(), self._t(self.pattern_weights), sp, sc,
+            sumtable, self._t(branch_length), self._param("rates"),
+            self._pinv_pc(pi), self._param("eigenvals", pi),
+            self._freqs_pc(pi), self._param("rate_weights"),
+            self._invariant_arr(), self._pattern_weights_arr(), sp, sc,
             sites=self.sites, asc_mode=self.asc_mode)
         return float(d1), float(d2)

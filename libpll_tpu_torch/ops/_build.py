@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every csrc/<name>.cu of the port
 SOURCES = ("clv_fused", "clv_dyn", "clv_seg", "roofline", "derivatives",
-           "fitch")
+           "fitch", "partials")
 
 
 def _nvcc() -> str:

@@ -33,21 +33,32 @@ Two executors with JAX's sequential semantics:
     scaler rows alike) run as one gather, two batched matmuls and one
     scatter per group: fewer launches, more bytes.
 
-:func:`update_partials` (the Partition's) picks one of them by the row
-size and how far the ops group.
+:func:`update_partials` picks one of them by the row size and how far
+the ops group.
 
 :func:`update_partials_leveled` runs JAX's level tables
 (``tree.schedule.build_levels``) the grouped way.  All three are plain
 PyTorch: JAX computes these products in XLA, outside any Pallas kernel.
+
+:func:`replay_ops` is the Partition's executor: on CUDA tensors the
+hand-written kernel U1 of ``csrc/partials.cu`` (a thread a site walks the
+whole table in order, the table read from device memory, one launch), on
+CPU tensors its plain version :func:`update_partials`.  It counts its
+launches in ``replay_ops.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
-from ..utils.constants import (SCALE_NONE, SCALE_PER_SITE, scale_consts,
-                               scale_shift_bits)
+from ..errors import EinvalError, KernelError
+from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
+                               scale_consts, scale_shift_bits)
+from . import _build
 from .derivatives import check_full_precision
 
 # rows gathered per side in one grouped matmul: bounds the transient
@@ -59,6 +70,7 @@ GROUP_BYTES = 1 << 30
 # card's time per op passes the host's, and the groups' gathers (1.2-1.3x
 # the bytes) lost (tools/partition_times.py; PERF.md)
 GROUPED_MAX_ROW_BYTES = 12 << 20
+REPLAY_MAX_STATES = 64  # U1's largest alphabet (kMaxAnyStates)
 
 
 def _dummy(scalers, scale_mode) -> int:
@@ -219,3 +231,113 @@ def update_partials_leveled(clv, scalers, level_ops, level_valid, pmatrix,
     for lev in range(table.shape[0]):
         _run_group(clv, scalers, table[lev], pmatrix, scale_mode, dummy,
                    valid[lev])
+
+
+# --------------------------------------------------------------------------
+# U1: the op table on the card
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/partials.cu``, once per
+    process."""
+    lib = _build.load("partials")
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"replay_ops_{suffix}")
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_int64] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.replay_error_string.argtypes = [ctypes.c_int]
+    lib.replay_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise EinvalError(f"replay_ops input: {what}")
+
+
+def _check_replay(clv, scalers, pmatrix, scale_mode) -> None:
+    """Raise on what U1 does not take: dtypes, shapes, contiguity, devices."""
+    device, dtype = clv.device, clv.dtype
+    _require(device.type == "cuda", f"clv on {device}, not CUDA")
+    _require(dtype in (torch.float32, torch.float64),
+             f"dtype {dtype} (float32 or float64)")
+    _require(clv.dim() == 4 and clv.is_contiguous(),
+             f"clv {tuple(clv.shape)}: [N, C, S, L], contiguous")
+    _, c, s, length = clv.shape
+    _require(2 <= s <= REPLAY_MAX_STATES,
+             f"states {s} (2 to {REPLAY_MAX_STATES})")
+    _require(pmatrix.dtype == dtype and pmatrix.device == device
+             and pmatrix.dim() == 4 and tuple(pmatrix.shape[1:]) == (c, s, s)
+             and pmatrix.is_contiguous(),
+             f"pmatrix {tuple(pmatrix.shape)} {pmatrix.dtype} on "
+             f"{pmatrix.device}: [M, {c}, {s}, {s}] {dtype}, contiguous")
+    want = ((length,) if scale_mode == SCALE_PER_SITE else
+            (c, length) if scale_mode == SCALE_PER_RATE else None)
+    _require(scale_mode in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE),
+             f"scale_mode {scale_mode}")
+    _require(want is None or (
+        scalers.dtype == torch.int32 and scalers.device == device
+        and tuple(scalers.shape[1:]) == want and scalers.is_contiguous()),
+        f"scalers {tuple(scalers.shape)} {scalers.dtype}: int32 "
+        f"[K+1, {', '.join(map(str, want or ()))}] on {device}, contiguous")
+
+
+def _host_table(ops, clv, scalers, pmatrix, scale_mode) -> torch.Tensor:
+    """A host op table checked against the buffers' extents, as an int32
+    tensor on the card (one copy)."""
+    ops = np.asarray(ops, np.int64).reshape(-1, 8)
+    if len(ops):
+        limits = [(0, clv.shape[0]), (2, clv.shape[0]), (5, clv.shape[0]),
+                  (3, pmatrix.shape[0]), (6, pmatrix.shape[0])]
+        if scale_mode != SCALE_NONE:
+            limits += [(k, scalers.shape[0]) for k in (1, 4, 7)]
+        for col, hi in limits:
+            _require(bool(((ops[:, col] >= 0) & (ops[:, col] < hi)).all()),
+                     f"op table column {col} outside [0, {hi})")
+    return torch.from_numpy(ops.astype(np.int32)).to(clv.device)
+
+
+def replay_ops(clv, scalers, ops, pmatrix, scale_mode=SCALE_PER_SITE):
+    """U1: execute an op table in place with JAX's sequential result
+    (arguments as :func:`update_partials_by_op`; ``ops`` a host table, or
+    an int32 [n, 8] tensor on the buffers' card whose indices the caller
+    vouches for, as the branch-length sweep's device tables).  CUDA tensors
+    take one launch of ``csrc/partials.cu`` on the current stream, with no
+    host read; CPU tensors :func:`update_partials`."""
+    check_full_precision(clv, "update_partials")
+    if clv.device.type == "cpu":
+        if torch.is_tensor(ops):
+            ops = ops.numpy()
+        update_partials(clv, scalers, ops, pmatrix, scale_mode)
+        return
+    _check_replay(clv, scalers, pmatrix, scale_mode)
+    if torch.is_tensor(ops):
+        _require(ops.dtype == torch.int32 and ops.device == clv.device
+                 and ops.dim() == 2 and ops.shape[1] == 8
+                 and ops.is_contiguous(),
+                 f"op table {tuple(ops.shape)} {ops.dtype} on {ops.device}: "
+                 f"int32 [n, 8] on {clv.device}, contiguous")
+        table = ops
+    else:
+        table = _host_table(ops, clv, scalers, pmatrix, scale_mode)
+    if table.shape[0] == 0:
+        return
+    _, c, s, length = clv.shape
+    lib = load_kernels()
+    with torch.cuda.device(clv.device):
+        rc = getattr(lib, "replay_ops_f64" if clv.dtype == torch.float64
+                     else "replay_ops_f32")(
+            clv.data_ptr(), scalers.data_ptr(), pmatrix.data_ptr(),
+            table.data_ptr(), table.shape[0], c, s, length, scale_mode,
+            _dummy(scalers, scale_mode),
+            torch.cuda.current_stream(clv.device).cuda_stream)
+    if rc != 0:
+        raise KernelError(f"replay_ops launch failed: CUDA error {rc} "
+                          f"({lib.replay_error_string(rc).decode()})")
+    _replay_ops.launches += 1
+
+
+replay_ops.launches = 0
+_replay_ops = replay_ops  # counts even while a caller wraps replay_ops

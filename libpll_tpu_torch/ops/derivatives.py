@@ -170,13 +170,16 @@ class Newton(NamedTuple):
 def newton_solve_plain(sumtable, t0, rates, prop_invar, eigenvals_pc,
                        freqs_pc, rate_weights, invariant, pattern_weights,
                        scaler_parent=None, scaler_child=None, *, sites,
-                       asc_mode=ASC_NONE, max_iters=NEWTON_ITERS) -> Newton:
+                       asc_mode=ASC_NONE, max_iters=NEWTON_ITERS,
+                       abs_d2=False) -> Newton:
     """Plain twin of N1: the ``while_loop`` of evaluate.py:638-659 step by
     step.  Its condition is tested before each body on the previous body's
     d1 (``inf`` at first): ``|d1| > NEWTON_TOL`` and fewer than
     ``max_iters`` bodies; a body takes ``step = d1/d2`` (``d1`` where
-    ``d2 == 0``) and ``t ← clip(t − step, MIN_T, MAX_T)``.  Reads d1 on
-    the host each iteration."""
+    ``d2 == 0``) and ``t ← clip(t − step, MIN_T, MAX_T)``.  ``abs_d2``:
+    blopt's rule ``step = d1/|d2|`` (``engine/blopt.py:59``, a step that
+    stays downhill where d2 <= 0).  Reads d1 on the host each
+    iteration."""
     dtype = sumtable.dtype
     t = t0.reshape(()).to(dtype)
     d1 = d2 = torch.full((), float("inf"), dtype=dtype, device=t.device)
@@ -186,7 +189,8 @@ def newton_solve_plain(sumtable, t0, rates, prop_invar, eigenvals_pc,
             sumtable, t, rates, prop_invar, eigenvals_pc, freqs_pc,
             rate_weights, invariant, pattern_weights, scaler_parent,
             scaler_child, sites, asc_mode)
-        step = torch.where(d2 != 0.0, d1 / d2, d1)
+        step = torch.where(d2 != 0.0, d1 / (d2.abs() if abs_d2 else d2),
+                           d1)
         t = torch.clamp(t - step, MIN_T, MAX_T)
         it += 1
     return Newton(t, d1, d2, torch.tensor(it, dtype=torch.int32,
@@ -197,7 +201,7 @@ def newton_solve_plain(sumtable, t0, rates, prop_invar, eigenvals_pc,
 # CUDA wrapper
 # --------------------------------------------------------------------------
 _SOLVE_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_int64] * 2
-                   + [ctypes.c_int] * 5 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 6 + [ctypes.c_int64]
                    + [ctypes.c_void_p] * 22)
 
 
@@ -354,7 +358,8 @@ def _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
     _require(device.type == "cuda", f"tensors on {device}, not CUDA")
 
 
-def _launch(plan, dtype, shape, sites, asc_mode, max_iters, tensors):
+def _launch(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2,
+            tensors):
     """One N1 launch of ``plan`` on the current stream; ``tensors`` maps the
     C interface's pointer arguments to tensors (None: null).  Returns the
     loop's end."""
@@ -375,7 +380,8 @@ def _launch(plan, dtype, shape, sites, asc_mode, max_iters, tensors):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, "newton_solve_f32" if dtype == torch.float32
                      else "newton_solve_f64")(
-            c, s, length, sites, asc_mode, max_iters, plan.threads,
+            c, s, length, sites, asc_mode, max_iters, int(abs_d2),
+            plan.threads,
             plan.grid, plan.block_sites, plan.smem, *ptrs,
             partials.data_ptr(), arrived.data_ptr(), iterations.data_ptr(),
             out.data_ptr(), stream)
@@ -383,14 +389,15 @@ def _launch(plan, dtype, shape, sites, asc_mode, max_iters, tensors):
         msg = lib.newton_error_string(rc).decode()
         raise KernelError(f"newton_solve launch failed: CUDA error {rc} "
                           f"({msg})")
-    newton_solve.launches += 1
+    _newton_solve.launches += 1
     return Newton(out[0], out[1], out[2], iterations[0])
 
 
 def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
                  rate_weights, invariant, pattern_weights,
                  scaler_parent=None, scaler_child=None, *, sites,
-                 asc_mode=ASC_NONE, max_iters=NEWTON_ITERS) -> Newton:
+                 asc_mode=ASC_NONE, max_iters=NEWTON_ITERS,
+                 abs_d2=False) -> Newton:
     """N1: the Newton loop of evaluate.py:638-659 on the card, arguments as
     :func:`newton_solve_plain` (``t0``: one element in the sumtable's
     dtype), in one launch planned by :func:`plan_for`, with no host read.
@@ -400,12 +407,12 @@ def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
             sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
             rate_weights, invariant, pattern_weights, scaler_parent,
             scaler_child, sites=sites, asc_mode=asc_mode,
-            max_iters=max_iters)
+            max_iters=max_iters, abs_d2=abs_d2)
     _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
            rate_weights, invariant, pattern_weights, scaler_parent,
            scaler_child, sites, asc_mode, max_iters)
     return _launch(plan_for(sumtable, sites, asc_mode), sumtable.dtype,
-                   tuple(sumtable.shape), sites, asc_mode, max_iters,
+                   tuple(sumtable.shape), sites, asc_mode, max_iters, abs_d2,
                    dict(sumtable=sumtable, t0=t0, rates=rates,
                         pinv=prop_invar, evals=eigenvals_pc, freqs=freqs_pc,
                         rw=rate_weights, invariant=invariant,
@@ -414,6 +421,7 @@ def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
 
 
 newton_solve.launches = 0
+_newton_solve = newton_solve  # counts even while a caller wraps it
 
 # the arguments of update_sumtable among newton_solve_rows's
 _ROW_KEYS = ("clv_parent", "clv_child", "scaler_parent", "scaler_child",
@@ -435,7 +443,8 @@ def newton_solve_rows(clv_parent, clv_child, scaler_parent, scaler_child,
                       freqs_pc, left_pc, right_pc, t0, rates, prop_invar,
                       eigenvals_pc, rate_weights, invariant, pattern_weights,
                       site_scalers=(None, None), *, per_rate=False, sites,
-                      asc_mode=ASC_NONE, max_iters=NEWTON_ITERS) -> Newton:
+                      asc_mode=ASC_NONE, max_iters=NEWTON_ITERS,
+                      abs_d2=False) -> Newton:
     """:func:`update_sumtable` then :func:`newton_solve`, from the edge's
     two rows (arguments as the two functions', ``site_scalers`` the
     latter's ``scaler_parent, scaler_child``).  Where N1's plan is
@@ -451,7 +460,8 @@ def newton_solve_rows(clv_parent, clv_child, scaler_parent, scaler_child,
                 rate_weights=rate_weights, invariant=invariant,
                 pattern_weights=pattern_weights,
                 scaler_parent=site_scalers[0], scaler_child=site_scalers[1],
-                sites=sites, asc_mode=asc_mode, max_iters=max_iters)
+                sites=sites, asc_mode=asc_mode, max_iters=max_iters,
+                abs_d2=abs_d2)
     if (clv_parent.device.type == "cpu"
             or asc_mode in (ASC_LEWIS, ASC_FELSENSTEIN)):
         return newton_solve(update_sumtable(*st_args), **rest)
@@ -478,7 +488,7 @@ def newton_solve_rows(clv_parent, clv_child, scaler_parent, scaler_child,
     # lt[c, j, k] = π[c, k]·left[c, k, j]
     lt = (freqs_pc[:, :, None] * left_pc).transpose(1, 2).contiguous()
     return _launch(plan, dtype, (c, s, length), sites, asc_mode, max_iters,
-                   dict(clv_p=clv_parent.contiguous(),
+                   abs_d2, dict(clv_p=clv_parent.contiguous(),
                         clv_c=clv_child.contiguous(), lt=lt,
                         right=right_pc.contiguous(),
                         rscal_p=None if rscal[0] is None

@@ -16,7 +16,9 @@ K5/K6 (``clv_dyn``), K3/K4 (``clv_seg``), the roofline probes K7/K8
 (``derivatives``, chip_smoke's ``newton_close``) are covered, and the
 stateful Partition on the card against the CPU (chip_smoke's phase 20),
 and the Fitch kernels P1-P3 (``fitch``: exact equality with their plain
-versions; the stepwise build on the card against the CPU).
+versions; the stepwise build on the card against the CPU), and the
+op-table kernel U1 with branch-length optimisation (chip_smoke's phase
+27).
 ``test_partition_builds_on_the_card_by_default`` needs no card and runs
 in the CPU suite.
 """
@@ -754,3 +756,36 @@ def test_fitch_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(EinvalError):
         fitch.stepwise_commit(parts, *topo, mode="insert", insertion=3,
                               tip=3)  # no scores
+
+
+@pytest.mark.gpu
+def test_blopt_on_card_matches_cpu(cuda):
+    """chip_smoke's phase 27: U1 against the plain executor at every
+    launch (phase 20's configurations and random op tables), N1 with
+    blopt's |d2| rule against its plain twin, both blopt optimisers (the scan
+    eager and as a CUDA graph) on the card against the CPU."""
+    out = chip_smoke.check_blopt_small(cuda)
+    assert out["checked"] > 0 and out["n1"] > 0
+
+
+@pytest.mark.gpu
+def test_replay_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from libpll_tpu_torch.ops import clv as clv_ops
+
+    clv = torch.zeros((5, 2, 4, 16), dtype=torch.float64, device=cuda)
+    scal = torch.zeros((3, 16), dtype=torch.int32, device=cuda)
+    pm = torch.zeros((4, 2, 4, 4), dtype=torch.float64, device=cuda)
+    op = [[3, 0, 0, 0, 1, 1, 1, 2]]
+    with pytest.raises(EinvalError):  # a matrix index out of range
+        clv_ops.replay_ops(clv, scal, [[3, 0, 0, 9, 1, 1, 1, 2]], pm)
+    with pytest.raises(EinvalError):  # scalers of another shape
+        clv_ops.replay_ops(clv, scal[:, :8], op, pm)
+    with pytest.raises(EinvalError):  # P-matrices of another dtype
+        clv_ops.replay_ops(clv, scal, op, pm.float())
+    with pytest.raises(EinvalError):  # a device table of int64
+        clv_ops.replay_ops(clv, scal, torch.tensor(op, device=cuda), pm)
+    with pytest.raises(EinvalError):  # more states than U1 takes
+        clv_ops.replay_ops(torch.zeros((5, 1, 65, 4), dtype=torch.float64,
+                                       device=cuda), scal[:, :4],
+                           op, torch.zeros((4, 1, 65, 65),
+                                           dtype=torch.float64, device=cuda))

@@ -49,7 +49,9 @@ def test_port_modules_listed():
               "libpll_tpu_torch.search.parsimony",
               "libpll_tpu_torch.ops.fitch", "libpll_tpu_torch.ops.sankoff",
               "libpll_tpu_torch.utils.rng",
-              "libpll_tpu_torch.tools.stepwise_times"):
+              "libpll_tpu_torch.tools.stepwise_times",
+              "libpll_tpu_torch.engine.blopt",
+              "libpll_tpu_torch.tools.blopt_times"):
         assert m in PORT_MODULES, m
 
 
