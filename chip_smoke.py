@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine main paths, each driven once with the launch counters set to 0 just
+Ten main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -48,7 +48,13 @@ before it and read just after:
     ``optimize_branch_lengths_scan`` (a sweep with no host read, eager and
     as a CUDA graph), on the op-table kernel U1 (``csrc/partials.cu``,
     which also runs every ``Partition.update_partials`` on the card) and
-    N1 with blopt's Newton step.
+    N1 with blopt's Newton step;
+  * tree search's candidate scorer (``search/spr.py``,
+    ``ops/incremental.py``) at scripts/bench_spr.py's configuration
+    (1 024 taxa x 16 384 random ACGT sites, float32, GTR+Γ4): the radius-3
+    SPR neighbourhood of the first 64 inner nodes, encoded on the host and
+    scored by ``score_encoded`` in batches of 32, each batch one launch of
+    the replay kernel C1 (``csrc/partials.cu``) and the edge fold.
 
 Phases, one line each:
 
@@ -198,7 +204,25 @@ Phases, one line each:
      sweep makes no host read (``torch.cuda.set_sync_debug_mode``);
  29. blopt times: U1 on a full ``update_partials`` against its bound and
      the plain executor; ms a sweep and an edge of each optimiser, and the
-     device's idle share over one (torch.profiler).
+     device's idle share over one (torch.profiler);
+ 30. scorer small: C1 against its plain version at every launch
+     (``ScorerHook``: the scratch rows and scalers its tables write,
+     float64 rel 1e-12 with scalers equal, float32 by phase 3's rule) for
+     phase 20's configurations (every scale mode, +I, the asc modes, S
+     4/20, C 1-4) in float64 and float32, SPR and NNI candidates; the
+     logL on the card against the plain scorer on the card and the CPU
+     scorer, the base buffers bit-identical, six candidates a case
+     against a fresh Partition's evaluation of the moved tree; the NaN
+     vote (one NaN at state 1 of rate 0 of every P-matrix): U1, K2 and C1
+     give their plain versions' counters;
+ 31. spr: the configuration above with C1's counter at 0 around the
+     scoring: one launch a batch, finite scores, the base unchanged;
+     candidates, ``n_ops_max`` and the real ops a candidate, the host
+     encode time, the scoring's wall time, the card's busy time and idle
+     share, C1 a launch against its bound and its plain version, the
+     plain scorer a batch, C1 against its plain version on one batch, and
+     four candidates (the best among them) against a fresh evaluation of
+     the moved tree within the f32 budget.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
@@ -3905,6 +3929,609 @@ def phase_blopt(device, card, peak):
     return out
 
 
+# ------------------------------------------------------------- tree search
+SPR_TIPS, SPR_SITES = 1024, 16384  # scripts/bench_spr.py's defaults
+SPR_PRUNE, SPR_RADIUS, SPR_CAP, SPR_BATCH = 64, 3, 128, 32
+SCORER_RADIUS = 4  # phase 30's SPR neighbourhoods
+SCORER_BRUTE = 6  # candidates a case checked by a fresh evaluation
+SCORER_BRUTE_ATOL = 1e-8  # float64, tests/test_spr_search.py's
+
+
+def written_rows(table, n_nodes, n_scalers, scale_mode):
+    """The scratch CLV and scaler rows a candidate's op table writes
+    (C1's rule: skipped repeats write nothing)."""
+    from libpll_tpu_torch.ops import incremental as inc_ops
+
+    clv_rows, scal_rows, prev = [], [], None
+    for op in table.tolist():
+        scaled = scale_mode != 0 and op[1] != n_scalers
+        if prev is None or not inc_ops._repeats(op, prev, scaled):
+            clv_rows.append(op[0] - n_nodes)
+            if scaled:
+                scal_rows.append(op[1] - n_scalers - 1)
+        prev = op
+    return clv_rows, scal_rows
+
+
+class ScorerHook:
+    """While active, every C1 launch (``ops.incremental.replay_candidates``
+    on a CUDA tensor) is held against its plain version on the same
+    inputs, on the card, over the scratch rows its tables write: float64
+    CLVs rel F64_REL of each (row, rate, site) block's largest entry and
+    the scalers equal; float32 by phase 3's rule (``replay_close_f32``).
+    Counts the launches it checked; keeps the largest CLV error."""
+
+    def __init__(self):
+        from libpll_tpu_torch.ops import incremental as inc_ops
+
+        self.inc_ops = inc_ops
+        self.real = inc_ops.replay_candidates
+        self.checked = 0
+        self.max_abs = 0.0
+        self.f32_err = 0.0
+
+    def __enter__(self):
+        self.inc_ops.replay_candidates = self.replay
+        return self
+
+    def __exit__(self, *exc):
+        self.inc_ops.replay_candidates = self.real
+
+    def replay(self, clv, scalers, pmatrix, tables, upd_midx, upd_pmatrix,
+               rows, scale_mode):
+        import torch
+
+        args = (clv, scalers, pmatrix, tables, upd_midx, upd_pmatrix, rows,
+                scale_mode)
+        if clv.device.type != "cuda":
+            return self.real(*args)
+        want = self.inc_ops.replay_candidates_plain(*args)
+        launches = self.real.launches
+        got = self.real(*args)
+        check(self.real.launches == launches + 1,
+              "replay_candidates did not launch C1")
+        torch.cuda.synchronize()
+        n, ns = clv.shape[0], scalers.shape[0] - 1
+        pick = [written_rows(t, n, ns, scale_mode)
+                for t in tables.cpu().numpy()]
+        g_clv, w_clv = (torch.cat([x[b, c] for b, (c, _) in enumerate(pick)])
+                        for x in (got[0], want[0]))
+        if scale_mode:
+            g_sc, w_sc = (torch.cat([x[b, s] for b, (_, s) in
+                                     enumerate(pick)]) for x in (got[1],
+                                                                 want[1]))
+        else:  # no counters: every site is compared
+            g_sc = w_sc = torch.zeros((1, clv.shape[-1]), dtype=torch.int32,
+                                      device=clv.device)
+        what = (f"C1 {tuple(clv.shape)} {clv.dtype} mode {scale_mode}, "
+                f"{tables.shape[0]} candidates")
+        if clv.dtype == torch.float64:
+            ok, err = rows_close(g_clv, w_clv, F64_REL)
+            check(ok and torch.equal(g_sc, w_sc),
+                  f"{what}: CLVs rel {err}, scalers equal "
+                  f"{torch.equal(g_sc, w_sc)}")
+        else:
+            ok, err, agree = replay_close_f32(g_clv, g_sc, w_clv, w_sc)
+            check(ok, f"{what}: CLVs rel {err}, scalers agree {agree}")
+            self.f32_err = max(self.f32_err, err)
+        diff = (g_clv.double() - w_clv.double()).abs()
+        self.max_abs = max(self.max_abs, float(diff.max()) if diff.numel()
+                           else 0.0)
+        self.checked += 1
+        return got
+
+
+class PlainScorer:
+    """While active, the scorer's replay is C1's plain version on the
+    card (``replay_candidates_plain``)."""
+
+    def __enter__(self):
+        from libpll_tpu_torch.ops import incremental as inc_ops
+
+        self.inc_ops, self.real = inc_ops, inc_ops.replay_candidates
+        inc_ops.replay_candidates = inc_ops.replay_candidates_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.inc_ops.replay_candidates = self.real
+
+
+def full_state(tree, part, pidx):
+    """P-matrices and CLVs of the whole tree, validity flags set."""
+    from libpll_tpu_torch.tree import incremental as inc
+    from libpll_tpu_torch.tree import utree as ut
+
+    trav = ut.traverse(tree.root)
+    ops, branches, pmat_idx = ut.create_operations(trav)
+    part.update_prob_matrices(pidx, pmat_idx, branches)
+    part.update_partials(ops)
+    inc.mark_valid(trav)
+
+
+def apply_move(item):
+    """Apply an encoded candidate's move (SPR: (p, r, ...); NNI: (edge,
+    type, ...)); returns its rollback."""
+    from libpll_tpu_torch.tree import moves
+
+    if isinstance(item[1], int):
+        rb = moves.Rollback(moves.MOVE_NNI)
+        moves.nni(item[0], item[1], rollback=rb)
+    else:
+        rb = moves.Rollback(moves.MOVE_SPR)
+        moves.spr(item[0], item[1], rollback=rb)
+    return rb
+
+
+def base_snapshot(part):
+    return tuple(t.clone() for t in (part.clv, part.scalers, part.pmatrix))
+
+
+def base_unchanged(part, snap):
+    import torch
+
+    return all(torch.equal(a, b) for a, b in
+               zip((part.clv, part.scalers, part.pmatrix), snap))
+
+
+def check_scorer_small(device):
+    """Phase 30: the batched candidate scorer at 9-24 taxa, phase 20's
+    Partition configurations (per-site, per-rate and no scaling, +I, the
+    asc modes, S 4/20, C 1-4) in float64 and float32, SPR (radius
+    SCORER_RADIUS) and NNI candidates: C1 against its plain version at
+    every launch (``ScorerHook``), the logL against the scorer on C1's
+    plain version on the card (float64 rel F64_REL, float32 the budget)
+    and against the same scorer on the CPU Partition, the base buffers
+    bit-identical after scoring, and SCORER_BRUTE candidates a case
+    (the best among them) against a fresh Partition's full evaluation of
+    the moved tree (float64 atol SCORER_BRUTE_ATOL, float32 the budget).
+    Then the NaN vote: U1, K2 and C1 with one NaN at state 1 of rate 0 of
+    every P-matrix, tiny rows that would scale without it; each kernel's
+    counters equal its plain version's.  Returns a summary dict."""
+    import torch
+
+    from libpll_tpu_torch.search import spr
+    from libpll_tpu_torch.tree import incremental as inc
+    from libpll_tpu_torch.tree import moves
+
+    cpu = torch.device("cpu")
+    out = {"cases": 0, "candidates": 0, "brute": 0, "logl_err": 0.0}
+    with ScorerHook() as hook:
+        for seed, (name, kw) in enumerate(PARTITION_SMALL):
+            for dtype in (torch.float64, torch.float32):
+                built = {}
+                for where, dev in (("card", device), ("cpu", cpu)):
+                    part, tree, _, pidx = partition_case(dev, dtype, seed,
+                                                         **kw)
+                    full_state(tree, part, pidx)
+                    built[where] = part, tree, pidx
+                scores = {}
+                for kind in ("spr", "nni"):
+                    for where in ("card", "cpu", "plain"):
+                        part, tree, pidx = built["cpu" if where == "cpu"
+                                                 else "card"]
+                        cands = (spr.spr_neighborhood(tree, SCORER_RADIUS)
+                                 if kind == "spr"
+                                 else spr.nni_candidates(tree))
+                        enc, n_max = (spr.encode_candidates if kind == "spr"
+                                      else spr.encode_nni_candidates)(
+                                          tree, cands)
+                        cap = max(8, 1 << (n_max - 1).bit_length())
+                        snap = base_snapshot(part)
+                        scorer = spr.make_round_scorer(part, cap)
+                        run = lambda: spr.score_encoded(  # noqa: E731
+                            tree, part, pidx, enc, cap, 8, scorer)
+                        if where == "plain":
+                            with PlainScorer():
+                                got = run()
+                        else:
+                            got = run()
+                        check(base_unchanged(part, snap),
+                              f"scorer {name} {dtype} {kind} on the {where}"
+                              f": the base buffers changed")
+                        scores[kind, where] = np.asarray(got)
+                        if where == "card":
+                            kept = (enc, pidx)
+                    card = scores[kind, "card"]
+                    for other in ("plain", "cpu"):
+                        want = scores[kind, other]
+                        ok = len(card) == len(want) > 0 and all(
+                            logl_close(g, w, dtype)
+                            for g, w in zip(card, want))
+                        err = float(np.abs(card - want).max())
+                        check(ok, f"scorer {name} {dtype} {kind}: card vs "
+                                  f"{other} max |d logL| {err}")
+                        if other == "plain":
+                            out["logl_err"] = max(out["logl_err"], err)
+                    # a fresh Partition's full evaluation of moved trees
+                    enc, pidx = kept
+                    part, tree, _ = built["card"]
+                    fresh = partition_case(device, dtype, seed, **kw)[0]
+                    flags = inc.snapshot_flags(list(tree.nodes))
+                    for i in np.argsort(card)[::-1][:SCORER_BRUTE]:
+                        rb = apply_move(enc[i])
+                        want = fresh_logl(fresh, tree, pidx)
+                        moves.rollback_move(rb)
+                        ok = (abs(card[i] - want) <= SCORER_BRUTE_ATOL
+                              if dtype == torch.float64
+                              else logl_close(card[i], want, dtype))
+                        check(ok, f"scorer {name} {dtype} {kind} candidate "
+                                  f"{i}: {card[i]!r} vs a fresh Partition "
+                                  f"{want!r}")
+                        out["brute"] += 1
+                    inc.restore_flags(flags)
+                    out["candidates"] += len(card)
+                    out["cases"] += 1
+        out["launches"] = hook.checked
+        out["f32_err"] = hook.f32_err
+    out["nan"] = check_nan_vote(device)
+    return out
+
+
+def nan_rows(rng, rows, c, s, sites, dtype, device):
+    """``rows`` CLV rows of uniform(0.5, 1) values times a scale whose
+    products fall below the dtype's threshold (1e-40 float64, 1e-6
+    float32)."""
+    import torch
+
+    tiny = 1e-40 if dtype == torch.float64 else 1e-6
+    return torch.tensor(rng.uniform(0.5, 1.0, (rows, c, s, sites)) * tiny,
+                        dtype=dtype, device=device)
+
+
+def check_nan_vote(device):
+    """The NaN vote of phase 30: with P[:, 0, 1, :] NaN in every matrix
+    (one NaN at state 1 of rate 0 of each product), a span scales only
+    where no entry is NaN, as JAX's ``jnp.all(x < thresh)``; U1
+    (``replay_ops``), K2 (``fused_sweep``) and C1 (``replay_candidates``) give
+    their plain versions' counters, and without the NaN the same inputs
+    scale (the check has teeth).  Returns the configurations checked."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import incremental as inc_ops
+
+    rng = np.random.default_rng(30)
+    n = 0
+    c, s, sites = 4, 4, 97
+    for dtype in (torch.float64, torch.float32):
+        for mode in (1, 2):
+            # U1 on a chain of three ops over four tip rows
+            ops = np.array([[4, 0, 0, 0, 3, 1, 1, 3],
+                            [5, 1, 2, 2, 3, 4, 3, 0],
+                            [6, 2, 3, 4, 3, 5, 5, 1]], np.int32)
+            shape = (4, sites) if mode == 1 else (4, c, sites)
+            pm = torch.tensor(rng.uniform(0.05, 1, (6, c, s, s)) / s,
+                              dtype=dtype, device=device)
+            nan_pm = pm.clone()
+            nan_pm[:, 0, 1, :] = float("nan")
+            clv = torch.cat([nan_rows(rng, 4, c, s, sites, dtype, device),
+                             torch.zeros((3, c, s, sites), dtype=dtype,
+                                         device=device)])
+            counts = {}
+            for label, p in (("clean", pm), ("nan", nan_pm)):
+                want_c, want_s = clv.clone(), torch.zeros(
+                    shape, dtype=torch.int32, device=device)
+                clv_ops.update_partials_by_op(want_c, want_s, ops, p, mode)
+                got_c, got_s = clv.clone(), torch.zeros_like(want_s)
+                clv_ops.replay_ops(got_c, got_s, ops, p, mode)
+                torch.cuda.synchronize()
+                check(torch.equal(got_s, want_s),
+                      f"NaN vote U1 {dtype} mode {mode} {label}: counters "
+                      f"{int(got_s.sum())} vs plain {int(want_s.sum())}")
+                counts[label] = int(want_s.sum())
+                n += 1
+            check(counts["clean"] > counts["nan"],
+                  f"NaN vote U1 {dtype} mode {mode}: nothing scales "
+                  f"without the NaN ({counts})")
+
+            # K2 on a small tree, CLV tips of tiny values
+            topo, model_np, masks = small_case(random_newick(8, rng), sites,
+                                               c, seed=30)
+            tp = tip_input(masks, "clv", c, dtype, device) * (
+                1e-40 if dtype == torch.float64 else 1e-6)
+            kpm = kernel_inputs(topo, model_np, dtype, device, False)[0]
+            knan = kpm.clone()
+            knan[:, 0, 1, :] = float("nan")
+            counts = {}
+            for label, p in (("clean", kpm), ("nan", knan)):
+                got = cf.fused_sweep(topo.schedule, tp, p, scale_mode=mode,
+                                     tip_encoding="clv")[1]
+                want = cf.fused_sweep_plain(topo.schedule, tp, p,
+                                            scale_mode=mode,
+                                            tip_encoding="clv")[1]
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"NaN vote K2 {dtype} mode {mode} {label}: counters "
+                      f"{int(got.sum())} vs plain {int(want.sum())}")
+                counts[label] = int(want.sum())
+                n += 1
+            check(counts["clean"] > counts["nan"],
+                  f"NaN vote K2 {dtype} mode {mode}: nothing scales "
+                  f"without the NaN ({counts})")
+
+            # C1: two candidates over the tip rows, every op's matrices
+            # from the overlay, which holds the NaN
+            nodes, ns = 4, 3
+            tables = torch.tensor(
+                [[[4, 4, 0, 0, 3, 1, 1, 3], [5, 5, 2, 2, 3, 4, 0, 4],
+                  [5, 5, 2, 2, 3, 4, 0, 4]],
+                 [[4, 4, 3, 1, 3, 2, 2, 3], [5, 3, 4, 0, 4, 0, 1, 0],
+                  [6, 5, 5, 2, 3, 1, 2, 3]]], dtype=torch.int32,
+                device=device)
+            midx = torch.tensor([[0, 1, 2], [0, 1, 2]], dtype=torch.int32,
+                                device=device)
+            base_pm = torch.tensor(rng.uniform(0.05, 1, (3, c, s, s)) / s,
+                                   dtype=dtype, device=device)
+            scal = torch.zeros((ns + 1,) + shape[1:], dtype=torch.int32,
+                               device=device)
+            base = nan_rows(rng, nodes, c, s, sites, dtype, device)
+            counts = {}
+            for label, p in (("clean", pm[:3]), ("nan", nan_pm[:3])):
+                over = p[None].expand(2, 3, c, s, s).contiguous()
+                args = (base, scal, base_pm, tables, midx, over, 3, mode)
+                want = inc_ops.replay_candidates_plain(*args)[1]
+                got = inc_ops._replay_candidates(*args)[1]
+                torch.cuda.synchronize()
+                rows = [written_rows(t, nodes, ns, mode)[1]
+                        for t in tables.cpu().numpy()]
+                same = all(torch.equal(got[b, r], want[b, r])
+                           for b, r in enumerate(rows))
+                check(same, f"NaN vote C1 {dtype} mode {mode} {label}: "
+                            f"counters differ from the plain version's")
+                counts[label] = sum(int(want[b, r].sum())
+                                    for b, r in enumerate(rows))
+                n += 1
+            check(counts["clean"] > counts["nan"],
+                  f"NaN vote C1 {dtype} mode {mode}: nothing scales "
+                  f"without the NaN ({counts})")
+    return n
+
+
+def spr_partition(device):
+    """scripts/bench_spr.py's configuration built with the port: the
+    random-join tree of SPR_TIPS taxa and SPR_SITES random ACGT sites from
+    ``default_rng(3)``, a float32 Partition, GTR [1.2, 2.4, 0.9, 1.1, 3.0,
+    1.0], frequencies [0.3, 0.25, 0.25, 0.2], Γ4 at α = 1.  Returns
+    (partition, tree)."""
+    import torch
+
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+
+    tips, sites = SPR_TIPS, SPR_SITES
+    rng = np.random.default_rng(3)
+    items = [f"t{i}:{rng.uniform(0.05, 0.4):.4f}" for i in range(tips)]
+    while len(items) > 3:
+        i, j = sorted(rng.choice(len(items), 2, replace=False))
+        b = items.pop(j)
+        a = items.pop(i)
+        items.append(f"({a},{b}):{rng.uniform(0.05, 0.4):.4f}")
+    tree = ut.parse_newick_string(f"({items[0]},{items[1]},{items[2]});")
+    part = Partition(tips, tips - 2, 4, sites, 1, 2 * tips - 3, 4,
+                     tips - 2, dtype=torch.float32, device=device)
+    order = {n.label: n.clv_index for n in ut.query_tipnodes(tree)}
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    for i in range(tips):
+        seq = alpha[rng.integers(0, 4, sites)].tobytes().decode()
+        part.set_tip_states(order[f"t{i}"], maps.pll_map_nt, seq)
+    part.set_frequencies(0, [0.3, 0.25, 0.25, 0.2])
+    part.set_subst_params(0, [1.2, 2.4, 0.9, 1.1, 3.0, 1.0])
+    part.set_category_rates(compute_gamma_cats(1.0, 4))
+    return part, tree
+
+
+def c1_bytes(tables, n_nodes, n_scalers, scale_mode, row, scal_row):
+    """C1's bytes on one batch's tables: (each input read once and each
+    output written once: the distinct base CLV and scaler rows the real
+    ops read and every scratch row they write; the real ops; three rows a
+    real op).  The P-matrices are a few KiB and not counted."""
+    base, base_scal, written, scal_written = set(), set(), 0, 0
+    for t in tables:
+        clv_rows, scal_rows = written_rows(t, n_nodes, n_scalers,
+                                           scale_mode)
+        written += len(clv_rows)
+        scal_written += len(scal_rows)
+        for op in t.tolist():
+            base |= {c for c in (op[2], op[5]) if c < n_nodes}
+            if scale_mode and op[1] != n_scalers:
+                base_scal |= {s for s in (op[4], op[7]) if s < n_scalers}
+    strict = ((len(base) + written) * row
+              + (len(base_scal) + scal_written) * scal_row)
+    return strict, written, 3 * written * row
+
+
+def phase_spr(device, card):
+    """Phase 31: SPR scoring at scripts/bench_spr.py's configuration
+    (``spr_partition``): a full evaluation (U1), the radius-SPR_RADIUS
+    neighbourhood of the first SPR_PRUNE inner nodes, ``encode_candidates``
+    on the host, then ``score_encoded`` (capacity SPR_CAP, batches of
+    SPR_BATCH) with the launch counters at 0 around it: one C1 launch a
+    batch, every score finite, the base buffers bit-identical.  Then the
+    host encode time, the scoring's wall time and the device's busy time
+    and idle share (torch.profiler), C1's ms a launch against its bound
+    and its plain version, the plain scorer's ms for one batch, C1
+    against its plain version on one whole batch (``ScorerHook``), and a
+    fresh evaluation of the moved tree (U1 through
+    ``Partition.update_partials``) for four candidates, the best among
+    them, within the f32 budget.  Returns the numbers the JSON line
+    reports."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libpll_tpu_torch.engine.evaluate import partition_model
+    from libpll_tpu_torch.ops import incremental as inc_ops
+    from libpll_tpu_torch.search import spr
+    from libpll_tpu_torch.tree import incremental as inc
+    from libpll_tpu_torch.tree import moves
+    from libpll_tpu_torch.tree import utree as ut
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    part, tree = spr_partition(device)
+    pidx = [0] * 4
+    full_state(tree, part, pidx)
+    logl0 = part.compute_edge_loglikelihood(*edge_of(tree), pidx)
+    setup_s = time.perf_counter() - t0
+    prune = ut.query_innernodes(tree)[:SPR_PRUNE]
+    cands = spr.spr_neighborhood(tree, SPR_RADIUS, prune_nodes=prune)
+    enc_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        enc, n_max = spr.encode_candidates(tree, cands)
+        enc_times.append(time.perf_counter() - t0)
+    enc_ms = float(np.median(enc_times)) * 1e3
+    n_ops = np.array([len(e[3]) for e in enc])
+    check(len(enc) > 0 and n_max <= SPR_CAP,
+          f"SPR: {len(enc)} candidates, n_ops_max {n_max}")
+    scorer = spr.make_round_scorer(part, SPR_CAP)
+    snap = base_snapshot(part)
+    n_batches = -(-len(enc) // SPR_BATCH)
+
+    def score():
+        return spr.score_encoded(tree, part, pidx, enc, SPR_CAP, SPR_BATCH,
+                                 scorer)
+
+    # the main path, its counters at 0 around it
+    inc_ops._replay_candidates.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logls = np.asarray(score())
+    first_s = time.perf_counter() - t0
+    launches = inc_ops._replay_candidates.launches
+    check(launches == n_batches and len(logls) == len(enc)
+          and np.isfinite(logls).all(),
+          f"SPR scoring: C1 launches {launches} for {n_batches} batches, "
+          f"{len(logls)} scores for {len(enc)} candidates, finite "
+          f"{np.isfinite(logls).all()}")
+    check(base_unchanged(part, snap), "SPR scoring changed the base buffers")
+    del snap
+
+    # where the time of a round's scoring goes
+    wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(wall))
+    score_ev = event_ms(score, iters=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        score()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    by, span_idle = kernel_ms(prof, ("candidates_kernel",))
+    busy = sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    c1_prof = by["candidates_kernel"][0] / max(by["candidates_kernel"][1], 1)
+
+    # one batch: C1 alone against its plain version and its bound
+    b, t, mi, bl, er = next(spr.encoded_batches(
+        enc, part.nodes, part.scale_buffers, SPR_CAP, SPR_BATCH))
+    model = partition_model(part, pidx)
+    rows = inc_ops.check_tables(t, mi, er, n_nodes=part.nodes,
+                                n_scale_buffers=part.scale_buffers,
+                                n_matrices=part.pmatrix.shape[0],
+                                capacity=SPR_CAP,
+                                scale_mode=part.scale_mode)
+    tab, midx = (torch.from_numpy(a).to(device) for a in (t, mi))
+    new = inc_ops.compute_pmatrices(
+        torch.from_numpy(bl).to(device, torch.float32).reshape(-1),
+        model["rates"], model["prop_invar"], model["params_indices"],
+        model["eigenvals"], model["left"], model["right"],
+        dtype=torch.float32).reshape((SPR_BATCH, 3) + tuple(
+            part.pmatrix.shape[1:])).contiguous()
+    args = (part.clv, part.scalers, part.pmatrix, tab, midx, new, rows,
+            part.scale_mode)
+    ms = {"c1": time_ms(lambda: inc_ops.replay_candidates(*args))[0],
+          "c1_plain": time_ms(lambda: inc_ops.replay_candidates_plain(*args),
+                              iters=2, warmup=1)[0]}
+    with PlainScorer():
+        ms["plain_scorer"] = event_ms(lambda: scorer(
+            part.clv, part.scalers, part.pmatrix, model, t, mi,
+            bl, er), iters=2)
+        plain_logl = scorer(part.clv, part.scalers, part.pmatrix, model, t,
+                            mi, bl, er)[:b].cpu().numpy()
+    with ScorerHook() as hook:
+        hooked = scorer(part.clv, part.scalers, part.pmatrix, model, t, mi,
+                        bl, er)[:b].cpu().numpy()
+    check(hook.checked == 1 and np.array_equal(hooked, logls[:b]),
+          "SPR batch 0 under the hook: not checked, or other scores")
+    budget = np.abs(plain_logl) * ACC_REL + ACC_ABS
+    check((np.abs(hooked - plain_logl) <= budget).all(),
+          f"SPR batch 0: C1 vs the plain scorer max |d logL| "
+          f"{np.abs(hooked - plain_logl).max()}")
+    row = part.clv[0].numel() * part.clv.element_size()
+    scal_row = part.scalers[0].numel() * 4
+    nbytes, real_ops, three_rows = c1_bytes(t[:b], part.nodes,
+                                            part.scale_buffers,
+                                            part.scale_mode, row, scal_row)
+    c1_bound = bound(0, nbytes, 1.0)
+    fold_rows = 2 * b * row
+    row_bound = (three_rows + fold_rows) / HBM_BYTES_PER_S * 1e3
+
+    # fresh evaluations of moved trees (U1), the best candidate among them
+    picks = [int(np.argmax(logls))] + [
+        int(i) for i in np.linspace(0, len(enc) - 1, 3).round()]
+    brute = []
+    flags = inc.snapshot_flags(list(tree.nodes))
+    for i in picks:
+        rb = apply_move(enc[i])
+        want = fresh_logl(part, tree, pidx)
+        moves.rollback_move(rb)
+        brute.append((i, float(logls[i]), want))
+        check(logl_close(logls[i], want, torch.float32),
+              f"SPR candidate {i}: scored {logls[i]!r}, a fresh evaluation "
+              f"of the moved tree {want!r}")
+    inc.restore_flags(flags)
+    hist = np.bincount(n_ops)
+    print(f"[31 spr] {card}: scripts/bench_spr.py's {SPR_TIPS} taxa x "
+          f"{SPR_SITES} sites float32 Partition (set-up {setup_s:.1f} s, "
+          f"logL {logl0!r}); radius {SPR_RADIUS} around {SPR_PRUNE} prune "
+          f"nodes: {len(cands)} candidates, {len(enc)} encoded, n_ops_max "
+          f"{n_max}, real ops a candidate min {n_ops.min()} median "
+          f"{np.median(n_ops):g} mean {n_ops.mean():.2f} max {n_ops.max()} "
+          f"(count by ops: " + ", ".join(
+              f"{k}: {v}" for k, v in enumerate(hist) if v)
+          + f"); host encode_candidates {enc_ms:.2f} ms "
+          f"({enc_ms / len(enc):.4f} ms a candidate, median of 3); "
+          f"score_encoded (capacity {SPR_CAP}, {n_batches} batches of "
+          f"{SPR_BATCH}, {launches} C1 launches): first call {first_s * 1e3:.2f}"
+          f" ms, wall {wall_ms:.2f} ms ({wall_ms / n_batches:.3f} ms a batch, "
+          f"{wall_ms / len(enc) * 1e3:.1f} us a candidate; median of 3), "
+          f"CUDA events {score_ev:.2f} ms; under torch.profiler {prof_wall:.2f}"
+          f" ms wall, the card busy {busy:.3f} ms ({busy / n_batches:.4f} ms a"
+          f" batch), idle {(1 - busy / prof_wall) * 100:.1f}% of the wall and "
+          f"{span_idle * 100:.1f}% of the kernels' span; a round's scoring "
+          f"(encode + score) {enc_ms + wall_ms:.2f} ms, the host encode "
+          f"{enc_ms / (enc_ms + wall_ms) * 100:.1f}% of it; C1 a launch "
+          f"{ms['c1']:.4f} ms (profiler {c1_prof:.4f} ms) on batch 0 "
+          f"({b} candidates, {real_ops} real ops, {rows} scratch rows) vs "
+          f"bound {c1_bound[0]:.4f} ms (bytes: base rows read once, scratch "
+          f"rows written once), {c1_bound[0] / ms['c1'] * 100:.1f}% of it; "
+          f"{row_bound:.4f} ms at three rows an op plus the fold's two "
+          f"rows; C1's plain version {ms['c1_plain']:.2f} ms; the plain "
+          f"scorer {ms['plain_scorer']:.2f} ms a batch; C1 vs plain on batch"
+          f" 0: CLV max abs {hook.max_abs:.3e} (rel {hook.f32_err:.3e}), "
+          f"logL max |d| {np.abs(hooked - plain_logl).max():.3e}; fresh "
+          f"evaluations of moved trees (candidate, scored, fresh): "
+          + "; ".join(f"{i} {g!r} {w!r}" for i, g, w in brute)
+          + f"; best candidate {picks[0]} (+{logls[picks[0]] - logl0:.4f})",
+          flush=True)
+    out = dict(launches=launches, err=hook.max_abs, ms=ms, bound=c1_bound)
+    del part, args, new
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -3928,6 +4555,7 @@ def main():
     from libpll_tpu_torch.ops import clv_seg as cseg
     from libpll_tpu_torch.ops import derivatives as dv
     from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.ops import incremental as inc_ops
     from libpll_tpu_torch.ops import roofline as rf
     from libpll_tpu_torch.utils.flagship import (FLAGSHIP_RATE_CATS,
                                                  FLAGSHIP_SITES,
@@ -3949,7 +4577,7 @@ def main():
     sources = _build.SOURCES
     _build.build_all(sources)  # one nvcc each, all at once
     build_s = time.perf_counter() - t0
-    for module in (cf, cd, cseg, rf, dv, fitch, clv_ops):
+    for module in (cf, cd, cseg, rf, dv, fitch, clv_ops, inc_ops):
         module.load_kernels()
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
@@ -4216,6 +4844,25 @@ def main():
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     bl = phase_blopt(device, card, fp32_peak)
 
+    # ---------------------------------------------------- 30-31: search
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small = check_scorer_small(device)
+    print(f"[30 scorer small] C1 equal to its plain version at every launch:"
+          f" {small['launches']} launches of {small['cases']} cases "
+          f"({len(PARTITION_SMALL)} of phase 20's configurations x float64, "
+          f"float32 x SPR radius {SCORER_RADIUS}, NNI; {small['candidates']} "
+          f"candidates), largest f32 rel {small['f32_err']:.3e}; the logL on "
+          f"the card equal to the plain scorer's on the card (largest |d| "
+          f"{small['logl_err']:.3e}) and to the CPU scorer's; the base "
+          f"buffers bit-identical after every scoring; {small['brute']} "
+          f"candidates equal to a fresh Partition's evaluation of the moved "
+          f"tree (float64 atol {SCORER_BRUTE_ATOL}, float32 the budget); the "
+          f"NaN vote: U1, K2 and C1 give their plain versions' counters in "
+          f"{small['nan']} configurations ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    sp = phase_spr(device, card)
+
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
         # tree sweep, a dependent multiply-add chain, or a Fitch step on
@@ -4303,7 +4950,13 @@ def main():
          "replaces": "libpll_tpu/ops/clv.py:58",
          "launches": bl["launches"], "max_abs_err": bl["u1_err"],
          "ms": bl["ms"]["u1"], "plain_ms": bl["ms"]["u1_plain"],
-         **bound_keys(bl["u1_bound"])}]}))
+         **bound_keys(bl["u1_bound"])},
+        # port-only: JAX's candidate scorer is an XLA lax.map
+        {"name": "score_candidates", "route": "cuda", "source": partials_src,
+         "replaces": "libpll_tpu/ops/incremental.py:96",
+         "launches": sp["launches"], "max_abs_err": sp["err"],
+         "ms": sp["ms"]["c1"], "plain_ms": sp["ms"]["c1_plain"],
+         **bound_keys(sp["bound"])}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

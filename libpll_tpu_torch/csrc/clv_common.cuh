@@ -63,28 +63,26 @@ __device__ __forceinline__ T dot(const T* row, const T (&x)[S]) {
   return acc;
 }
 
+// The scaling vote of one block of values: true when every value is below
+// 2^-bits.  A NaN anywhere makes it false, as JAX's jnp.all(x < thresh)
+// (libpll_tpu/ops/clv.py:90,93) and the plain versions' amax do; a running
+// maximum by `v > mx` would skip a NaN after the first entry.  Per rate the
+// block is one rate's S values; per site it is the site's C*S values.
 template <typename T, int S>
-__device__ __forceinline__ T max_of(const T (&t)[S]) {
-  T mx = t[0];
+__device__ __forceinline__ bool all_below(const T (&t)[S], T thresh) {
+  bool below = true;
 #pragma unroll
-  for (int s = 1; s < S; ++s) mx = t[s] > mx ? t[s] : mx;
-  return mx;
+  for (int s = 0; s < S; ++s) below &= t[s] < thresh;
+  return below;
 }
 
-// The scaling test of one block of values whose maximum is mx: when a node
-// that may scale has every value below 2^-bits, the values are multiplied
-// by 2^bits.  Returns the counter's increment (0 or 1).  Per rate the
-// block is one rate's S values; per site it is the site's C*S values
-// (their running maximum over the rates).
-template <typename T>
-__device__ __forceinline__ bool scales(bool has, T mx, const Scale<T>& u) {
-  return has && mx < u.thresh;
-}
-
+// The scaling test of one rate's values: when a node that may scale has
+// every value below 2^-bits, the values are multiplied by 2^bits.  Returns
+// the counter's increment (0 or 1).
 template <typename T, int S>
 __device__ __forceinline__ int scale_rate(bool has, T (&t)[S],
                                           const Scale<T>& u) {
-  if (!scales(has, max_of<T, S>(t), u)) return 0;
+  if (!(has && all_below<T, S>(t, u.thresh))) return 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) t[s] *= u.factor;
   return 1;
@@ -306,7 +304,8 @@ __device__ __forceinline__ bool site_vote(const T (&t)[S], const Scale<T>& u,
                                           int C, const Lane& ln,
                                           unsigned (*votes)[kMaxRates],
                                           int& vb) {
-  const unsigned small = __ballot_sync(0xffffffffu, max_of<T, S>(t) < u.thresh);
+  const unsigned small =
+      __ballot_sync(0xffffffffu, all_below<T, S>(t, u.thresh));
   if ((threadIdx.x & 31) == 0) votes[vb][ln.c] = small;
   __syncthreads();
   unsigned all = 0xffffffffu;

@@ -291,7 +291,7 @@ __device__ void run_chunk(const FusedArgs<T>& a, const Shared<T>& sh,
         int cnt = load_count(sh, 1, o.s[0], 0, col) +
                   load_count(sh, 1, o.s[1], 0, col);
         if (a.scale_mode == SCALE_PER_SITE &&
-            scales(has, max_of<T, CS>(t[u]), a.u)) {
+            has && all_below<T, CS>(t[u], a.u.thresh)) {
 #pragma unroll
           for (int k = 0; k < CS; ++k) t[u][k] *= a.u.factor;
           cnt += 1;
@@ -856,7 +856,8 @@ __global__ void __launch_bounds__(kTileSites * C)
           if (per_rate) p.cnt[u] += scale_rate<T, S>(has, p.t[u], a.u);
           if (p.vote) {
             const unsigned small =
-                __ballot_sync(0xffffffffu, max_of<T, S>(p.t[u]) < a.u.thresh);
+                __ballot_sync(0xffffffffu,
+                              all_below<T, S>(p.t[u], a.u.thresh));
             if (q.sl == 0) votes[p.vb][u][q.c] = small;
           }
           p.site[u] = q.site[u];

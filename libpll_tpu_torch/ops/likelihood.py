@@ -52,12 +52,13 @@ def scale_pow(scal, dtype):
 
 
 def fold_rate_scalers(scalers):
-    """min/cap fold of per-rate scalers [C, L] -> (site [L], capped diff [C, L]).
+    """min/cap fold of per-rate scalers [..., C, L] -> (site [..., L],
+    capped diff [..., C, L]).
 
     Reference: core_likelihood.c:916-931.
     """
-    site = scalers.min(dim=0).values
-    diff = torch.clamp(scalers - site[None, :], max=SCALE_RATE_MAXDIFF)
+    site = scalers.min(dim=-2).values
+    diff = torch.clamp(scalers - site[..., None, :], max=SCALE_RATE_MAXDIFF)
     return site, diff
 
 
@@ -83,9 +84,10 @@ def fold_rate_scalers_inkernel(term_r, snum, down):
 def _mix_rates(term_r, freqs_pc, rate_weights, prop_invar, invariant):
     """Rate mixing with invariant-site handling.
 
-    term_r: [C, L] per-rate site likelihoods.
+    term_r: [..., C, L] per-rate site likelihoods.
     invariant: int [L]; -1 for variant sites, else the invariant state.
-    Returns term [L] = Σ_c w_c · ((1-p)·term_r + p·π[inv])   (per-cat p).
+    Returns term [..., L] = Σ_c w_c · ((1-p)·term_r + p·π[inv])   (per-cat
+    p).
     """
     has_inv = invariant >= 0  # [L]
     inv_idx = torch.clamp(invariant, min=0).long()
@@ -96,7 +98,7 @@ def _mix_rates(term_r, freqs_pc, rate_weights, prop_invar, invariant):
     mixed = torch.where(pinv > 0.0,
                         term_r * (1.0 - pinv) + inv_lk * pinv,
                         term_r)
-    return (rate_weights[:, None] * mixed).sum(dim=0)
+    return (rate_weights[:, None] * mixed).sum(dim=-2)
 
 
 def site_lnl(term, site_scalers, pattern_weights, dtype):
@@ -150,7 +152,10 @@ def edge_loglikelihood(clv_parent, clv_child, scaler_parent, scaler_child,
     are 0/1 CLVs so the "ti"/"tt" cases reduce to this one).
 
     pmatrix: [C, S, S] for the connecting branch.
-    Other arguments as in :func:`root_loglikelihood`.
+    Other arguments as in :func:`root_loglikelihood`.  The CLVs, scalers
+    and P-matrices may carry leading batch axes ([B, C, S, L], [B, (C,)
+    L], [B, C, S, S]: tree search's candidates), the model's vectors
+    shared; logl and the per-site values then carry them too.
     """
     dtype = clv_parent.dtype
     # termb[c,j,n] = Σ_k P[c,j,k]·clv_child[c,k,n]
@@ -158,7 +163,7 @@ def edge_loglikelihood(clv_parent, clv_child, scaler_parent, scaler_child,
     # a broadcast sum, not a three-operand einsum: that one lowers to
     # GEMV calls that took 0.93 ms at 262 144 sites on an H100, against
     # 0.04 ms for this
-    term_r = (clv_parent * freqs_pc[:, :, None] * termb).sum(dim=1)
+    term_r = (clv_parent * freqs_pc[:, :, None] * termb).sum(dim=-2)
 
     if per_rate:
         combined = scaler_parent + scaler_child  # [C, L]
@@ -168,9 +173,9 @@ def edge_loglikelihood(clv_parent, clv_child, scaler_parent, scaler_child,
         site_scal = scaler_parent + scaler_child  # [L]
 
     term = _mix_rates(term_r, freqs_pc, rate_weights, prop_invar, invariant)
-    persite = site_lnl(term[:sites], site_scal[:sites],
+    persite = site_lnl(term[..., :sites], site_scal[..., :sites],
                        pattern_weights[:sites], dtype)
-    logl = persite.sum()
+    logl = persite.sum(dim=-1)
 
     if asc_mode:
         logl = logl + _asc_correction(term_r, site_scal, rate_weights,
@@ -182,21 +187,22 @@ def edge_loglikelihood(clv_parent, clv_child, scaler_parent, scaler_child,
 def asc_correction_terms(term_r_asc, scal_asc, rate_weights, asc_weights,
                          sum_w_real, asc_mode, dtype):
     """Ascertainment-bias correction from already-evaluated pseudo-site
-    terms: ``term_r_asc`` [C, S] per-rate likelihoods of the S all-one-state
-    columns (per-rate scalers already folded), ``scal_asc`` [S] their site
+    terms: ``term_r_asc`` [..., C, S] per-rate likelihoods of the S
+    all-one-state columns (per-rate scalers already folded), ``scal_asc``
+    [..., S] their site
     scaler counts, ``asc_weights`` [S] the per-state weights, ``sum_w_real``
     the total real-site pattern weight.  No invariant-site mixing applies on
     these columns (reference likelihood.c:24-119, 170-247, 321-414)."""
-    t = (rate_weights[:, None] * term_r_asc).sum(dim=0)  # [S]
+    t = (rate_weights[:, None] * term_r_asc).sum(dim=-2)  # [..., S]
     scal = scal_asc.to(dtype)
 
     if asc_mode == ASC_STAMATAKIS:
         # weighted log-likelihood of each pseudo-site; the scaler fold-back is
         # deliberately NOT weighted, matching likelihood.c:96-101
         return (torch.log(t) * asc_weights
-                + scal * log_scale_threshold(dtype)).sum()
+                + scal * log_scale_threshold(dtype)).sum(dim=-1)
     # Lewis / Felsenstein need the absolute likelihoods
-    l_base = (t * scale_pow(scal_asc, dtype)).sum()
+    l_base = (t * scale_pow(scal_asc, dtype)).sum(dim=-1)
     if asc_mode == ASC_LEWIS:
         return -(sum_w_real * torch.log(1.0 - l_base))
     # ASC_FELSENSTEIN
@@ -208,6 +214,6 @@ def _asc_correction(term_r, site_scal, rate_weights, pattern_weights,
     """Asc correction from the S extra "pseudo-site" columns riding the
     site axis (everything beyond ``sites``)."""
     return asc_correction_terms(
-        term_r[:, sites:], site_scal[sites:], rate_weights,
+        term_r[..., sites:], site_scal[..., sites:], rate_weights,
         pattern_weights[sites:], pattern_weights[:sites].sum(),
         asc_mode, dtype)

@@ -18,7 +18,8 @@ stateful Partition on the card against the CPU (chip_smoke's phase 20),
 and the Fitch kernels P1-P3 (``fitch``: exact equality with their plain
 versions; the stepwise build on the card against the CPU), and the
 op-table kernel U1 with branch-length optimisation (chip_smoke's phase
-27).
+27), and the candidate-replay kernel C1 with the batched SPR/NNI scorer
+and the scaling vote's NaN rule (chip_smoke's phase 30).
 ``test_partition_builds_on_the_card_by_default`` needs no card and runs
 in the CPU suite.
 """
@@ -789,3 +790,52 @@ def test_replay_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                        device=cuda), scal[:, :4],
                            op, torch.zeros((4, 1, 65, 65),
                                            dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.gpu
+def test_scorer_on_card_matches_plain_and_cpu(cuda):
+    """chip_smoke's phase 30: C1 against its plain version at every launch
+    (phase 20's configurations, float64 and float32, SPR and NNI
+    candidates), the scores against the plain scorer on the card, the CPU
+    scorer and fresh evaluations of the moved trees, the base buffers
+    unchanged; the NaN vote of U1, K2 and C1 against their plain
+    versions."""
+    from libpll_tpu_torch.ops import incremental as inc_ops
+
+    before = inc_ops._replay_candidates.launches
+    out = chip_smoke.check_scorer_small(cuda)
+    assert out["launches"] > 0 and out["brute"] > 0 and out["nan"] > 0
+    assert inc_ops._replay_candidates.launches > before
+
+
+@pytest.mark.gpu
+def test_candidate_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from libpll_tpu_torch.ops import incremental as inc_ops
+
+    clv = torch.zeros((5, 2, 4, 16), dtype=torch.float64, device=cuda)
+    scal = torch.zeros((3, 16), dtype=torch.int32, device=cuda)
+    pm = torch.zeros((4, 2, 4, 4), dtype=torch.float64, device=cuda)
+    tables = torch.tensor([[[5, 3, 0, 0, 1, 1, 1, 2]]], dtype=torch.int32,
+                          device=cuda)
+    midx = torch.tensor([[0, 1, 2]], dtype=torch.int32, device=cuda)
+    new = torch.zeros((1, 3, 2, 4, 4), dtype=torch.float64, device=cuda)
+    ok = (clv, scal, pm, tables, midx, new, 1, 1)
+    scratch, scal_scratch = inc_ops.replay_candidates(*ok)
+    assert scratch.shape == (1, 1, 2, 4, 16)
+    assert scal_scratch.shape == (1, 1, 16)
+
+    def bad(i, value):
+        args = list(ok)
+        args[i] = value
+        with pytest.raises(EinvalError):
+            inc_ops.replay_candidates(*args)
+
+    bad(3, tables.long())  # an int64 table
+    bad(3, tables.cpu())  # a table on the host
+    bad(3, tables[0])  # not [B, K, 8]
+    bad(4, midx[:, :2].contiguous().repeat(2, 1))  # another batch
+    bad(5, new.float())  # overlay of another dtype
+    bad(5, new[:, :2])  # overlay of another U
+    bad(1, scal[:, :8])  # scalers of another shape
+    bad(2, pm.float())  # P-matrices of another dtype
+    bad(6, 0)  # no scratch row

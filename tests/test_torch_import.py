@@ -51,7 +51,9 @@ def test_port_modules_listed():
               "libpll_tpu_torch.utils.rng",
               "libpll_tpu_torch.tools.stepwise_times",
               "libpll_tpu_torch.engine.blopt",
-              "libpll_tpu_torch.tools.blopt_times"):
+              "libpll_tpu_torch.tools.blopt_times",
+              "libpll_tpu_torch.ops.incremental",
+              "libpll_tpu_torch.search.spr"):
         assert m in PORT_MODULES, m
 
 
