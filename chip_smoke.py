@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten main paths, each driven once with the launch counters set to 0 just
+Eleven main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -54,7 +54,13 @@ before it and read just after:
     (1 024 taxa x 16 384 random ACGT sites, float32, GTR+Γ4): the radius-3
     SPR neighbourhood of the first 64 inner nodes, encoded on the host and
     scored by ``score_encoded`` in batches of 32, each batch one launch of
-    the replay kernel C1 (``csrc/partials.cu``) and the edge fold.
+    the replay kernel C1 (``csrc/partials.cu``) and the edge fold;
+  * the inference driver (``search/infer.py``) at scripts/bench_infer.py's
+    call: 1 024 taxa x 16 384 sites simulated under GTR+Γ4
+    (``utils/flagship.infer_alignment``), ``infer_tree`` in float32 with
+    batches of 128 to convergence: the device stepwise build (P2, P3),
+    branch-length sweeps (U1, N1), SPR rounds (C1, and U1 for the
+    verified commits).
 
 Phases, one line each:
 
@@ -222,7 +228,29 @@ Phases, one line each:
      share, C1 a launch against its bound and its plain version, the
      plain scorer a batch, C1 against its plain version on one batch, and
      four candidates (the best among them) against a fresh evaluation of
-     the moved tree within the f32 budget.
+     the moved tree within the f32 budget;
+ 32. search small: ``spr_round`` (commit 1, 4 and 8, per-site and
+     per-rate scalers, one round with a rolled-back commit) and
+     ``nni_round``, two rounds each, and ``infer_tree`` (SPR and NNI,
+     local passes of radius 3 and none, 12 and 16 taxa) on the card
+     against the same calls on the CPU, in float64 (the same results,
+     moves, Newick and topology, logL rel 1e-9) and float32 (the f32
+     budget, the same start score), float64 against libpll_tpu's results
+     recorded on the CPU (``SEARCH_JAX``); every valid CLV row after a
+     round a fresh evaluation's; a round without improvement restores
+     every valid row, scaler and flag bit for bit; the typed errors
+     (capacity 2, a contained regraft, ``moves="tbr"``, ``mesh=``,
+     ``optimize_model=True``); U1 and C1 against their plain versions at
+     every launch (``ReplayHook``, ``ScorerHook``);
+ 33. infer: scripts/bench_infer.py's call with every launch counter at 0
+     around it: the alignment's SHA-256, the start parsimony score equal
+     to libpll_tpu's (``BENCH_INFER_START_JAX``), the trajectory
+     non-decreasing, the final logL within the f32 budget of a fresh
+     float64 Partition on the card, U1, C1, N1, P2 and P3 launched and no
+     plain version run; time-to-tree and the timings by phase, each
+     round's candidates and seconds, each branch-length pass, RF to the
+     generating tree, the peak device memory, and the card's idle share
+     over one SPR round and one full sweep (torch.profiler).
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
@@ -4532,6 +4560,760 @@ def phase_spr(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 32-33: the SPR/NNI rounds and the inference driver
+# ---------------------------------------------------------------------------
+# tests/test_spr_search.py's simulation: GTR+Γ4 DNA on a random tree
+SEARCH_PARAMS = (1.1, 2.6, 0.8, 1.3, 2.9, 1.0)
+SEARCH_FREQS = (0.28, 0.26, 0.22, 0.24)
+SEARCH_ALPHA, SEARCH_CATS = 0.8, 4
+SEARCH_GTR = dict(rate_cats=SEARCH_CATS, alpha=SEARCH_ALPHA,
+                  frequencies=SEARCH_FREQS, subst_params=SEARCH_PARAMS)
+SEARCH_REL = 1e-9  # float64 card vs CPU and vs libpll_tpu: logL
+# phase 32's rounds at 12 taxa x 40 sites: (name, seed, round, arguments,
+# scaling); the data evolved on one random tree of the seed, the round
+# started on a second (tests/test_torch_rounds.py's start_pair).  Seed 173
+# keeps three moves and rolls one back.
+ROUND_CASES = (
+    ("spr commit 1", 21, "spr", dict(radius=5, batch=8, commit=1), "site"),
+    ("spr commit 4", 22, "spr", dict(radius=6, batch=16, commit=4), "rate"),
+    ("spr commit 8", 173, "spr", dict(radius=6, batch=16, commit=8), "site"),
+    ("nni", 32, "nni", dict(batch=16), "rate"),
+)
+# phase 32's inference: (name, seed, tips, sites, arguments); the first
+# four are tests/test_infer.py's data and arguments, max_rounds cut to 3-4
+# (8 and 6 there) to keep the phase near a minute
+INFER_SMALL = (
+    ("spr local 3", 41, 12, 40, dict(seed=42, radius=8, max_rounds=4)),
+    ("spr local 0", 12, 12, 40, dict(seed=5, radius=6, max_rounds=4,
+                                     local_blopt=0)),
+    ("nni local 3", 9, 12, 40, dict(seed=7, moves="nni", max_rounds=3)),
+    ("nni local 0", 13, 12, 40, dict(seed=5, moves="nni", max_rounds=3,
+                                     local_blopt=0)),
+    ("spr 16 taxa", 50, 16, 40, dict(seed=42, max_rounds=3)),
+)
+# libpll_tpu on the CPU (float64, JAX_PLATFORMS=cpu) on the same data:
+# rounds: (logl0, best_logl, best, n_candidates, n_ops_max, Newick after);
+# inference: (start parsimony score, rounds, logL, final Newick)
+SEARCH_JAX = {
+    'nni': (
+        (-637.8882867835907, -632.4764442692311, (15, 1), 18, 5,
+         '(t7:0.266600,((((t9:0.331000,(t8:0.219200,t10:0.073600):'
+         '0.167700):0.151600,(t2:0.173400,t4:0.387100):0.300700):0'
+         '.147600,(t0:0.363900,t1:0.088900):0.178600):0.317500,t5:'
+         '0.094500):0.370400,(t6:0.068000,(t3:0.089400,t11:0.13440'
+         '0):0.230000):0.357900);'),
+        (-632.4764442692311, -629.0909073738123, (24, 1), 18, 6,
+         '(t7:0.266600,(((t4:0.387100,(t2:0.173400,(t9:0.331000,(t'
+         '8:0.219200,t10:0.073600):0.167700):0.151600):0.300700):0'
+         '.147600,(t0:0.363900,t1:0.088900):0.178600):0.317500,t5:'
+         '0.094500):0.370400,(t6:0.068000,(t3:0.089400,t11:0.13440'
+         '0):0.230000):0.357900);'),
+    ),
+    'nni local 0': (137, 3, -532.4927639871983,
+        '((((t8:0.939401,t5:0.506111):0.628587,(t10:0.000000,t7:0'
+        '.181447):0.125474):0.000000,t3:0.508263):0.179890,((((t4'
+        ':0.027602,t9:0.605673):0.042112,t6:0.520155):0.296640,t0'
+        ':0.131576):0.113817,t1:0.495007):0.177936,(t11:0.357869,'
+        't2:0.666804):0.507385);'),
+    'nni local 3': (139, 3, -529.8332126117535,
+        '((t10:0.478297,t4:0.134950):0.000000,(((t3:0.599659,t11:'
+        '0.036273):0.000000,(t0:0.461851,t7:0.769522):0.728769):0'
+        '.448298,t9:1.282887):1.292848,(t8:0.092409,(((t6:0.28275'
+        '1,t5:0.385941):0.150699,t1:0.165751):0.000000,t2:0.24131'
+        '9):0.279277):0.580138);'),
+    'spr 16 taxa': (168, 3, -646.116683309679,
+        '((t11:0.290014,t12:0.119697):0.023243,((((t15:0.319976,t'
+        '6:0.000000):0.275849,t7:0.433335):0.000000,(((t8:0.16582'
+        '9,t2:0.281022):0.069903,t9:0.273083):0.406034,(t10:0.262'
+        '300,((t13:0.059089,((t3:0.187491,t1:0.416204):0.565689,t'
+        '14:0.000000):0.090274):1.024825,t0:0.354757):0.000000):0'
+        '.212305):0.733361):0.000000,t5:0.498003):0.254510,t4:0.3'
+        '81935);'),
+    'spr commit 1': (
+        (-581.8837259284089, -580.8395928592811, (36, 10), 28, 4,
+         '((t4:0.298000,(t0:0.292900,(t9:0.313400,(t5:0.382400,t7:'
+         '0.207600):0.144900):0.078800):0.181800):0.314700,((t2:0.'
+         '394400,t6:0.381000):0.121700,(t3:0.146500,t11:0.214300):'
+         '0.050600):0.050300,(t1:0.147600,(t8:0.212700,t10:0.63070'
+         '0):0.147600):0.379500);'),
+        (-580.8395928592811, -579.6408814313365, (30, 7), 42, 5,
+         '((t4:0.298000,(t0:0.292900,(t9:0.313400,(t5:0.382400,t7:'
+         '0.207600):0.144900):0.078800):0.181800):0.314700,(t3:0.0'
+         '73250,(t11:0.214300,(t2:0.394400,t6:0.381000):0.172300):'
+         '0.073250):0.050300,(t1:0.147600,(t8:0.212700,t10:0.63070'
+         '0):0.147600):0.379500);'),
+    ),
+    'spr commit 4': (
+        (-593.4588597315068, -582.7834906475919, (39, 10), 40, 5,
+         '((t4:0.272700,t10:0.117600):0.386300,t7:0.061700,(t11:0.'
+         '222500,((t0:0.171600,(t2:0.129750,(t3:0.378600,((t9:0.11'
+         '4300,(t6:0.326600,t5:0.091900):0.114300):0.425500,t1:0.1'
+         '64600):0.185300):0.129750):0.180500):0.628700,t8:0.24440'
+         '0):0.289900):0.061700);'),
+        (-582.7834906475919, -576.3950672136576, (21, 3), 70, 9,
+         '((t4:0.272700,t10:0.117600):0.386300,t7:0.061700,(t11:0.'
+         '222500,((t0:0.171600,(t2:0.129750,(t3:0.378600,((t9:0.11'
+         '4300,t5:0.206200):0.425500,(t6:0.326600,t1:0.082300):0.0'
+         '82300):0.185300):0.129750):0.180500):0.628700,t8:0.24440'
+         '0):0.289900):0.061700);'),
+    ),
+    'spr commit 8': (
+        (-632.3305087650839, -617.5270419760307, (39, 5), 46, 5,
+         '(t5:0.269600,t9:0.163150,((((t10:0.115900,(((t11:0.03820'
+         '0,(t1:0.626100,t0:0.361300):0.038200):0.693100,t7:0.1167'
+         '00):0.309300,t3:0.220600):0.115900):0.106300,(t2:0.35110'
+         '0,t8:0.099800):0.459300):0.182500,t4:0.082300):0.225000,'
+         't6:0.359100):0.163150);'),
+        (-617.5270419760307, -603.8920833093862, (36, 7), 78, 9,
+         '(((t10:0.115900,(((t11:0.038200,(t1:0.626100,((t2:0.3511'
+         '00,t8:0.099800):0.459300,t0:0.180650):0.180650):0.038200'
+         '):0.693100,t7:0.116700):0.309300,t3:0.220600):0.115900):'
+         '0.288800,t5:0.134800):0.134800,t9:0.163150,(t4:0.307300,'
+         't6:0.359100):0.163150);'),
+    ),
+    'spr local 0': (126, 4, -494.22432043778457,
+        '((t11:0.120467,t6:0.378024):1.011292,(t7:0.239459,(t3:0.'
+        '068302,t4:0.153764):0.240185):0.070778,((t0:0.004505,((('
+        '(t5:0.021919,t1:0.686332):0.366089,t9:0.602476):0.184805'
+        ',t2:0.136551):0.277191,t8:0.389390):0.127364):0.620574,t'
+        '10:0.108148):0.032467);'),
+    'spr local 3': (157, 4, -559.1043660073608,
+        '((t9:0.000000,(t0:0.284758,(t11:0.281620,t4:0.711687):1.'
+        '108078):0.678572):2.754274,t8:0.000000,(t5:0.060665,((t3'
+        ':0.000000,(t6:0.278351,t10:1.367571):1.486563):0.872806,'
+        '(t1:0.172937,(t7:0.300659,t2:0.248128):0.404393):0.43485'
+        '2):0.191869):0.114277);'),
+}
+
+# scripts/bench_infer.py's call (phase 33)
+BENCH_INFER_TIPS, BENCH_INFER_SITES = 1024, 16384
+BENCH_INFER_ARGS = dict(alpha=0.8, seed=42, min_delta=1e-2, spr_batch=128)
+BENCH_INFER_MAX_ROUNDS = 20  # infer_tree's default, as the script runs it
+# SHA-256 of the alignment (">label\nsequence\n" in label order) from
+# utils/flagship.infer_alignment(1024, 16384), equal to the script's
+# simulate; libpll_tpu's FastParsimony + fastparsimony_stepwise (seed 42)
+# on its 16 384 compressed patterns, on the CPU (BASELINE.md:244)
+BENCH_INFER_SHA256 = ("913fb1f53e034c1a2e01c6ab40f9e546"
+                      "5d14dd18655b266debe5ca1a02abb2b5")
+BENCH_INFER_START_JAX = 3802156
+
+
+def search_newick(tips, rng):
+    """tests/test_spr_search.py's ``_random_tree``."""
+    items = [f"t{i}:{rng.uniform(0.05, 0.4):.4f}" for i in range(tips)]
+    while len(items) > 3:
+        i, j = sorted(rng.choice(len(items), 2, replace=False))
+        b = items.pop(j)
+        a = items.pop(i)
+        items.append(f"({a},{b}):{rng.uniform(0.05, 0.4):.4f}")
+    return f"({items[0]},{items[1]},{items[2]});"
+
+
+def search_simulate(newick, sites, rng):
+    """tests/test_spr_search.py's ``_simulate`` (sites a parameter): the
+    same draws in the same order."""
+    from libpll_tpu_torch.models.gtr import eigen_decompose
+    from libpll_tpu_torch.tree import utree as ut
+
+    tree = ut.parse_newick_string(newick)
+    w, left, right = eigen_decompose(np.asarray(SEARCH_PARAMS),
+                                     np.asarray(SEARCH_FREQS))
+
+    def pmat(t):
+        return (left * np.expm1(w * t)) @ right + np.eye(4)
+
+    seqs = {}
+
+    def walk(node, state):
+        if node.is_tip:
+            seqs[node.label] = state
+            return
+        for m in list(node.ring())[1:]:
+            child = m.back
+            P = pmat(max(child.length, 1e-6))
+            walk(child, np.array([rng.choice(4, p=P[s] / P[s].sum())
+                                  for s in state]))
+
+    root = tree.root
+    base = rng.choice(4, sites, p=list(SEARCH_FREQS))
+    for m in root.ring():
+        child = m.back
+        P = pmat(max(child.length, 1e-6))
+        walk(child, np.array([rng.choice(4, p=P[s] / P[s].sum())
+                              for s in base]))
+    return {lab: "".join("ACGT"[s] for s in st) for lab, st in seqs.items()}
+
+
+def search_data(seed, tips=12, sites=40, start=False):
+    """The sequences of ``seed`` (and, with ``start``, a second random
+    tree's Newick to start a round from)."""
+    rng = np.random.default_rng(seed)
+    seqs = search_simulate(search_newick(tips, rng), sites, rng)
+    return (seqs, search_newick(tips, rng)) if start else seqs
+
+
+def search_partition(tree, seqs, sites, scaling, dtype, device):
+    """tests/test_torch_spr.py's ``_partition``: the model of
+    SEARCH_GTR, the tips from ``seqs`` by label."""
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+
+    tips = tree.tip_count
+    part = Partition(tips, tips - 2, 4, sites, 1, 2 * tips - 3, SEARCH_CATS,
+                     tips - 2, scaling=scaling, dtype=dtype, device=device)
+    order = {n.label: n.clv_index for n in ut.query_tipnodes(tree)}
+    for lab, s in seqs.items():
+        part.set_tip_states(order[lab], maps.pll_map_nt, s)
+    part.set_frequencies(0, SEARCH_FREQS)
+    part.set_subst_params(0, SEARCH_PARAMS)
+    part.set_category_rates(compute_gamma_cats(SEARCH_ALPHA, SEARCH_CATS))
+    return part
+
+
+def valid_dirs(tree):
+    """The inner directions whose CLV row is marked valid."""
+    return [m for n in tree.nodes if not n.is_tip for m in n.ring()
+            if m.clv_valid]
+
+
+def tree_flags(tree):
+    return [(n.node_index, m.clv_valid) for n in tree.nodes
+            for m in ([n] if n.is_tip else n.ring())]
+
+
+def stale_rows(tree, part, seqs, scaling):
+    """Every valid row against a fresh Partition's evaluation of its
+    direction on the same device (float64 rel 1e-10, scalers equal;
+    float32 by ``replay_close_f32``): (rows checked, largest error);
+    fails on a stale row."""
+    import torch
+
+    from libpll_tpu_torch.tree import utree as ut
+
+    fresh = search_partition(tree, seqs, part.sites, scaling, part.dtype,
+                             part.device)
+    _, branches, pmat_idx = ut.create_operations(ut.traverse(tree.root))
+    fresh.update_prob_matrices([0] * SEARCH_CATS, pmat_idx, branches)
+    worst, dirs = 0.0, valid_dirs(tree)
+    for m in dirs:
+        fresh.update_partials(ut.create_operations(ut.traverse(m))[0])
+        got, want = part.clv[m.clv_index], fresh.clv[m.clv_index]
+        scaled = m.scaler_index >= 0 and part.scale_mode
+        sc = [part.scalers[m.scaler_index], fresh.scalers[m.scaler_index]] \
+            if scaled else [torch.zeros(got.shape[-1], dtype=torch.int32,
+                                        device=got.device)] * 2
+        if part.dtype == torch.float64:
+            ok, err = rows_close(got, want, 1e-10)
+            ok = ok and torch.equal(*sc)
+        else:
+            ok, err, _ = replay_close_f32(got[None], sc[0][None],
+                                          want[None], sc[1][None])
+        check(ok, f"a valid row of direction {m.node_index} ({part.dtype} "
+                  f"on {part.device}) is stale: rel {err}")
+        worst = max(worst, err)
+    return len(dirs), worst
+
+
+def state_snapshot(tree, part):
+    from libpll_tpu_torch.tree import utree as ut
+
+    return (tree_flags(tree), ut.export_newick(tree.root),
+            part.clv.clone(), part.scalers.clone())
+
+
+def state_restored(tree, part, snap):
+    """Flags and Newick as in ``snap``, every valid row, its scalers and
+    the tips bit for bit."""
+    import torch
+
+    from libpll_tpu_torch.tree import utree as ut
+
+    flags, newick, clv, scalers = snap
+    rows = [m.clv_index for m in valid_dirs(tree)] + list(range(part.tips))
+    scal = [m.scaler_index for m in valid_dirs(tree)
+            if m.scaler_index >= 0 and part.scale_mode]
+    return (tree_flags(tree) == flags and ut.export_newick(tree.root)
+            == newick and torch.equal(part.clv[rows], clv[rows])
+            and torch.equal(part.scalers[scal], scalers[scal]))
+
+
+def fresh_f64_logl(tree, seqs, sites, device, weights=None, model=None):
+    """A fresh float64 Partition of ``tree`` on ``device`` (the tips from
+    ``seqs`` by label; ``model``: infer_tree's (frequencies, subst params,
+    alpha), default SEARCH_GTR's): the root edge's logL."""
+    import torch
+
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+
+    freqs, params, alpha = model or (SEARCH_FREQS, SEARCH_PARAMS,
+                                     SEARCH_ALPHA)
+    tips = tree.tip_count
+    part = Partition(tips, tips - 2, 4, sites, 1, 2 * tips - 3, SEARCH_CATS,
+                     tips - 2, dtype=torch.float64, device=device)
+    order = {n.label: n.clv_index for n in ut.query_tipnodes(tree)}
+    for lab, s in seqs.items():
+        part.set_tip_states(order[lab], maps.pll_map_nt, s)
+    if weights is not None:
+        part.set_pattern_weights(weights)
+    part.set_frequencies(0, freqs)
+    part.set_subst_params(0, params)
+    part.set_category_rates(compute_gamma_cats(alpha, SEARCH_CATS))
+    logl = fresh_logl(part, tree, [0] * SEARCH_CATS)
+    del part
+    return logl
+
+
+def check_rounds_small(device):
+    """Phase 32, rounds: ROUND_CASES on the card against the same round on
+    the CPU, float64 (the same ``SprResult``: logL rel SEARCH_REL,
+    improved, candidates, ``n_ops_max``, best move and committed nodes
+    equal; the same Newick; valid rows rel 1e-10 to the CPU's) and float32
+    (``logl0`` and, where the same move won, ``best_logl`` within the
+    budget); float64 against SEARCH_JAX; every valid row on the card a
+    fresh evaluation's (no stale row after a rolled-back commit); a
+    round with no improvement restores every valid row, scaler and flag
+    bit for bit; capacity 2 raises CapacityError, a contained regraft is
+    dropped.  Returns a summary dict."""
+    import torch
+
+    from libpll_tpu_torch.errors import CapacityError
+    from libpll_tpu_torch.search import spr
+    from libpll_tpu_torch.tree import utree as ut
+
+    cpu = torch.device("cpu")
+    pidx = [0] * SEARCH_CATS
+    out = {"rounds": 0, "rows": 0, "stale_err": 0.0, "f32_d": 0.0,
+           "commits": [], "restored": 0}
+
+    def start(seed, scaling, dtype, dev):
+        seqs, newick = search_data(seed, start=True)
+        tree = ut.parse_newick_string(newick)
+        part = search_partition(tree, seqs, 40, scaling, dtype, dev)
+        full_state(tree, part, pidx)
+        return seqs, tree, part
+
+    for name, seed, kind, kw, scaling in ROUND_CASES:
+        fn = spr.spr_round if kind == "spr" else spr.nni_round
+        for dtype in (torch.float64, torch.float32):
+            got = {}
+            for where, dev in (("card", device), ("cpu", cpu)):
+                seqs, tree, part = start(seed, scaling, dtype, dev)
+                res, newicks = [], []
+                for _ in range(2):
+                    res.append(fn(tree, part, pidx, **kw))
+                    newicks.append(ut.export_newick(tree.root))
+                got[where] = res, newicks, tree, part
+                if where == "card":
+                    n, err = stale_rows(tree, part, seqs, scaling)
+                    out["rows"] += n
+                    out["stale_err"] = max(out["stale_err"], err)
+            (rc, nc, tc, pc), (rh, nh, th, ph) = got["card"], got["cpu"]
+            what = f"round {name} {dtype}"
+            for a, b in zip(rc, rh):
+                if dtype == torch.float64:
+                    check(round_key(a) == round_key(b) and logl_close(
+                        a.logl0, b.logl0, dtype) and abs(
+                        a.best_logl - b.best_logl) <= SEARCH_REL * abs(
+                        b.best_logl), f"{what}: card {a} vs CPU {b}")
+                else:
+                    ok = logl_close(a.logl0, b.logl0, dtype) and (
+                        a.best != b.best or logl_close(a.best_logl,
+                                                       b.best_logl, dtype))
+                    check(ok and a.improved, f"{what}: card {a} vs CPU {b}")
+                    out["f32_d"] = max(out["f32_d"],
+                                       abs(a.best_logl - b.best_logl))
+                out["rounds"] += 1
+            if dtype == torch.float64:
+                check(nc == nh, f"{what}: Newick on the card {nc}, on the "
+                                f"CPU {nh}")
+                rows = [m.clv_index for m in valid_dirs(tc)]
+                ok, err = rows_close(pc.clv[rows], ph.clv[rows], 1e-10)
+                check(ok and tree_flags(tc) == tree_flags(th),
+                      f"{what}: valid rows card vs CPU rel {err}, flags "
+                      f"equal {tree_flags(tc) == tree_flags(th)}")
+                for r, newick, want in zip(rc, nc, SEARCH_JAX[name]):
+                    check(abs(r.logl0 - want[0]) <= SEARCH_REL * abs(want[0])
+                          and abs(r.best_logl - want[1]) <= SEARCH_REL
+                          * abs(want[1]) and round_key(r)[:4] == (
+                              True, want[3], want[4], tuple(want[2]))
+                          and newick == want[5],
+                          f"{what}: {r} vs libpll_tpu {want}")
+                out["commits"].append(len(rc[0].best_nodes) // 2)
+            del got
+
+    # no improvement: every valid row, scaler and flag as it was
+    for kind in ("spr", "nni"):
+        for dtype in (torch.float64, torch.float32):
+            _, tree, part = start(27, "rate", dtype, device)
+            snap = state_snapshot(tree, part)
+            fn = spr.spr_round if kind == "spr" else spr.nni_round
+            res = fn(tree, part, pidx, min_delta=1e6)
+            check(not res.improved and state_restored(tree, part, snap),
+                  f"{kind} round without improvement ({dtype}): improved "
+                  f"{res.improved}, or the state changed")
+            out["restored"] += 1
+
+    # the typed errors
+    _, tree, part = start(28, "site", torch.float64, device)
+    try:
+        spr.spr_round(tree, part, pidx, radius=6, capacity=2)
+        fail("spr_round at capacity 2 did not raise CapacityError")
+    except CapacityError:
+        pass
+    p = next(n for n in ut.query_innernodes(tree) if n.back.next is not None)
+    before = ut.export_newick(tree.root)
+    res = spr.spr_round(tree, part, pidx, candidates=[(p, p.back.next.back)])
+    check(not res.improved and res.n_candidates == 0
+          and ut.export_newick(tree.root) == before
+          and ut.check_integrity(tree),
+          f"a contained regraft was not dropped: {res}")
+    return out
+
+
+def round_key(r):
+    """A round's integers: (improved, candidates, n_ops_max, best, the
+    committed nodes' indices)."""
+    return (r.improved, r.n_candidates, r.n_ops_max, r.best,
+            None if r.best_nodes is None
+            else tuple(n.node_index for n in r.best_nodes))
+
+
+def check_infer_small(device):
+    """Phase 32, inference: INFER_SMALL through ``infer_tree`` on the card
+    and on the CPU in float64 (start score, rounds and topology equal,
+    trajectory and logL rel SEARCH_REL) and float32 (the start score
+    equal, the trajectory non-decreasing, the final logL within the
+    budget of a fresh float64 Partition of the card's tree, the CPU's
+    logL within the budget where the topology is the same); float64 on
+    the card against SEARCH_JAX (start score, rounds, RF 0, logL rel
+    SEARCH_REL); ``moves="tbr"``, ``mesh=`` and ``optimize_model=True``
+    raise their typed errors.  Returns a summary dict."""
+    import torch
+
+    from libpll_tpu_torch.errors import EinvalError
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.tree.compare import rf_distance
+
+    cpu = torch.device("cpu")
+    out = {"cases": 0, "f32_rf": [], "f32_d": 0.0, "s": {}}
+    for name, seed, tips, sites, kw in INFER_SMALL:
+        seqs = search_data(seed, tips, sites)
+        for dtype in (torch.float64, torch.float32):
+            res = {}
+            for where, dev in (("card", device), ("cpu", cpu)):
+                t0 = time.perf_counter()
+                res[where] = infer_tree(seqs, dtype=dtype, device=dev,
+                                        **SEARCH_GTR, **kw)
+                out["s"][name, str(dtype), where] = time.perf_counter() - t0
+            a, b = res["card"], res["cpu"]
+            what = f"infer_tree {name} {dtype}"
+            rf = rf_distance(a.tree, b.tree)
+            check(a.start_parsimony_score == b.start_parsimony_score
+                  and a.trajectory == sorted(a.trajectory)
+                  and set(a.timings) == {"compress", "stepwise", "setup",
+                                         "blopt", "spr"},
+                  f"{what}: start {a.start_parsimony_score} vs "
+                  f"{b.start_parsimony_score}, trajectory {a.trajectory}")
+            if dtype == torch.float64:
+                traj = len(a.trajectory) == len(b.trajectory) and all(
+                    abs(x - y) <= SEARCH_REL * abs(y)
+                    for x, y in zip(a.trajectory, b.trajectory))
+                check(a.rounds == b.rounds and rf == 0 and traj,
+                      f"{what}: card rounds {a.rounds}, RF {rf} to the "
+                      f"CPU's, trajectory {a.trajectory} vs {b.trajectory}")
+                start, rounds, logl, newick = SEARCH_JAX[name]
+                rf_jax = rf_distance(a.tree, ut.parse_newick_string(newick))
+                check(a.start_parsimony_score == start and a.rounds == rounds
+                      and rf_jax == 0 and abs(a.logl - logl) <= SEARCH_REL
+                      * abs(logl), f"{what}: ({a.start_parsimony_score}, "
+                      f"{a.rounds}, {a.logl!r}), RF {rf_jax}; libpll_tpu "
+                      f"({start}, {rounds}, {logl!r})")
+            else:
+                want = fresh_f64_logl(a.tree, seqs, sites, device)
+                check(logl_close(a.logl, want, dtype)
+                      and (rf or logl_close(a.logl, b.logl, dtype)),
+                      f"{what}: logL {a.logl!r}, a fresh float64 "
+                      f"evaluation {want!r}, the CPU's {b.logl!r} (RF {rf})")
+                check(a.start_parsimony_score == (
+                    SEARCH_JAX[name][0]), f"{what}: start score")
+                out["f32_rf"].append(rf)
+                out["f32_d"] = max(out["f32_d"], abs(a.logl - want))
+            out["cases"] += 1
+            del res
+    seqs = search_data(12)
+    for bad, exc in ((dict(moves="tbr"), ValueError),
+                     (dict(mesh=object()), EinvalError),
+                     (dict(optimize_model=True), EinvalError)):
+        try:
+            infer_tree(seqs, device=device, **bad)
+            fail(f"infer_tree({bad}) did not raise")
+        except exc as err:
+            check(exc is ValueError or "ROADMAP" in str(err),
+                  f"infer_tree({bad}): {err}")
+    return out
+
+
+def alignment_digest(data):
+    """SHA-256 of an alignment as ">label\nsequence\n" in label order."""
+    import hashlib
+
+    text = "".join(f">{k}\n{v}\n" for k, v in data.items())
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+class PlainCalls:
+    """While active, every plain version of the kernels U1, C1, N1 and
+    P1-P3 counts its calls (``calls``): on the card none should run."""
+
+    def __init__(self):
+        from libpll_tpu_torch.ops import clv as clv_ops
+        from libpll_tpu_torch.ops import derivatives as dv
+        from libpll_tpu_torch.ops import fitch
+        from libpll_tpu_torch.ops import incremental as inc_ops
+
+        self.names = [(clv_ops, "update_partials"),
+                      (clv_ops, "update_partials_by_op"),
+                      (clv_ops, "update_partials_grouped"),
+                      (inc_ops, "replay_candidates_plain"),
+                      (dv, "newton_solve_plain"),
+                      (fitch, "fitch_run_waves_plain"),
+                      (fitch, "fitch_edge_scores_plain"),
+                      (fitch, "fitch_insert_scores_plain"),
+                      (fitch, "stepwise_commit_plain")]
+        self.calls = {name: 0 for _, name in self.names}
+        self.real = {}
+
+    def __enter__(self):
+        for module, name in self.names:
+            real = getattr(module, name)
+            self.real[module, name] = real
+
+            def counting(*a, _real=real, _name=name, **k):
+                self.calls[_name] += 1
+                return _real(*a, **k)
+
+            setattr(module, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for (module, name), real in self.real.items():
+            setattr(module, name, real)
+
+
+class Recorder:
+    """While active, the inference driver's rounds and branch-length
+    passes are timed and recorded (card synchronised after each):
+    ``rounds`` [(seconds, SprResult)], ``blopt`` [(seconds, edges or
+    None, sweeps)]."""
+
+    def __init__(self):
+        from libpll_tpu_torch.engine import blopt
+        from libpll_tpu_torch.search import infer as infer_mod
+
+        self.infer_mod, self.blopt = infer_mod, blopt
+        self.rounds, self.passes = [], []
+
+    def __enter__(self):
+        import torch
+
+        infer_mod, blopt = self.infer_mod, self.blopt
+        self.real = (infer_mod.spr_round, infer_mod.nni_round,
+                     blopt.optimize_branch_lengths_scan)
+
+        def timed(fn, out, info):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0, info(res, k)))
+                return res
+            return call
+
+        infer_mod.spr_round = timed(self.real[0], self.rounds,
+                                    lambda r, k: r)
+        infer_mod.nni_round = timed(self.real[1], self.rounds,
+                                    lambda r, k: r)
+        blopt.optimize_branch_lengths_scan = timed(
+            self.real[2], self.passes,
+            lambda r, k: (None if k.get("edges") is None
+                          else len(k["edges"]), r[1]))
+        return self
+
+    def __exit__(self, *exc):
+        (self.infer_mod.spr_round, self.infer_mod.nni_round,
+         self.blopt.optimize_branch_lengths_scan) = self.real
+
+
+def profiled_idle(fn):
+    """(wall ms, the card's busy ms, idle share of the wall, idle share
+    of the kernels' span, kernel launches) of ``fn()`` under
+    torch.profiler (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in kernels)
+    _, span_idle = kernel_ms(prof, ())
+    return wall, busy, 1.0 - busy / wall, span_idle, len(kernels)
+
+
+def phase_infer(device, card):
+    """Phase 33: scripts/bench_infer.py's call on the card:
+    ``infer_alignment(1024, 16384)`` (its SHA-256 BENCH_INFER_SHA256),
+    then ``infer_tree(data, alpha=0.8, seed=42, dtype=torch.float32,
+    min_delta=1e-2, spr_batch=128)`` with every launch counter at 0 around
+    it: the start parsimony score BENCH_INFER_START_JAX, the trajectory
+    non-decreasing, the final logL within the f32 budget of a fresh
+    float64 Partition on the card (the exported Newick, the compressed
+    alignment), U1, C1, N1, P2 and P3 launched and no plain version run.
+    Prints time-to-tree and the timings by phase, each round's candidates,
+    commits and seconds, the branch-length passes, RF to the generating
+    tree, the peak device memory, and the card's idle share over one SPR
+    round and one full branch-length sweep (torch.profiler).  Returns the
+    numbers for the summary."""
+    import torch
+
+    from libpll_tpu_torch.engine import blopt
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.io.compress import compress_site_patterns
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.ops import incremental as inc_ops
+    from libpll_tpu_torch.search import spr
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.search.stepwise import deep_recursion
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.tree.compare import rf_distance
+    from libpll_tpu_torch.utils.flagship import infer_alignment
+
+    tips, sites = BENCH_INFER_TIPS, BENCH_INFER_SITES
+    t0 = time.perf_counter()
+    data, truth = infer_alignment(tips, sites)
+    sim_s = time.perf_counter() - t0
+    digest = alignment_digest(data)
+    check(digest == BENCH_INFER_SHA256,
+          f"bench_infer alignment SHA-256 {digest}, recorded "
+          f"{BENCH_INFER_SHA256} (numpy or scipy draw otherwise here)")
+
+    counters = {"U1": clv_ops._replay_ops, "C1": inc_ops._replay_candidates,
+                "N1": dv._newton_solve, "P2": fitch.fitch_scores,
+                "P3": fitch.stepwise_commit}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    with PlainCalls() as plain, Recorder() as rec:
+        t0 = time.perf_counter()
+        res = infer_tree(data, dtype=torch.float32,
+                         max_rounds=BENCH_INFER_MAX_ROUNDS,
+                         **BENCH_INFER_ARGS)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(v > 0 for v in launches.values())
+          and not any(plain.calls.values()),
+          f"bench_infer: launches {launches}, plain versions run "
+          f"{plain.calls}")
+    check(res.start_parsimony_score == BENCH_INFER_START_JAX,
+          f"bench_infer start parsimony {res.start_parsimony_score}, "
+          f"libpll_tpu {BENCH_INFER_START_JAX}")
+    check(res.trajectory == sorted(res.trajectory)
+          and np.isfinite(res.logl),
+          f"bench_infer trajectory {res.trajectory}")
+
+    labels = list(data)
+    patterns, weights = compress_site_patterns([data[k] for k in labels],
+                                               maps.pll_map_nt)
+    with deep_recursion(tips):
+        newick = ut.export_newick(res.tree.root)
+        tree64 = ut.parse_newick_string(newick)
+        t0 = time.perf_counter()
+        want = fresh_f64_logl(tree64, dict(zip(labels, patterns)),
+                              len(patterns[0]), device, weights,
+                              ([0.25] * 4, [1.0] * 6, 0.8))
+        fresh_s = time.perf_counter() - t0
+        rf = rf_distance(res.tree, ut.parse_newick_string(truth))
+    budget = ACC_REL * abs(want) + ACC_ABS
+    check(abs(res.logl - want) <= budget,
+          f"bench_infer logL {res.logl!r}, a fresh float64 Partition "
+          f"{want!r} (budget {budget})")
+
+    # the card's idle share over one more SPR round and one full sweep
+    part, tree, pidx = res.partition, res.tree, [0] * 4
+    torch.cuda.empty_cache()
+    with deep_recursion(tips):
+        scorer = spr.make_round_scorer(part, 32)
+        rnd = {}
+        spr_idle = profiled_idle(lambda: rnd.setdefault("r", spr.spr_round(
+            tree, part, pidx, radius=5, capacity=32, batch=128,
+            scorer=scorer, min_delta=1e-2, commit=8)))
+        # the round's host encode alone, on the tree it left
+        cands = spr.spr_neighborhood(tree, 5)
+        t0 = time.perf_counter()
+        n_enc = len(spr.encode_candidates(tree, cands)[0])
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        sweep = profiled_idle(lambda: blopt.optimize_branch_lengths_scan(
+            tree, part, pidx, max_sweeps=1, capacity=64))
+    del scorer, part
+    torch.cuda.empty_cache()
+
+    t = res.timings
+    print(f"[33 infer] {card}: scripts/bench_infer.py's call, "
+          f"infer_alignment({tips}, {sites}) (simulated in {sim_s:.1f} s, "
+          f"SHA-256 as recorded, {len(patterns[0])} patterns), infer_tree "
+          f"float32 spr_batch 128 min_delta 1e-2, max_rounds "
+          f"{BENCH_INFER_MAX_ROUNDS}: time-to-tree {total_s:.2f} s (phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
+          + f"); start parsimony {res.start_parsimony_score} (libpll_tpu "
+          f"{BENCH_INFER_START_JAX}); rounds {res.rounds}; logL "
+          f"{res.logl!r}, a fresh float64 Partition {want!r} (|d| "
+          f"{abs(res.logl - want):.4f} <= {budget:.3f}, built and evaluated "
+          f"in {fresh_s:.1f} s); trajectory "
+          + ", ".join(f"{x:.3f}" for x in res.trajectory)
+          + f"; RF to the generating tree {rf} of {2 * (tips - 3)}; peak "
+          f"device memory {peak_gib:.3f} GiB; launches {launches}, plain "
+          f"versions run {sum(plain.calls.values())}; rounds (s, candidates, n_ops_max, moves kept, "
+          f"logL gain): " + "; ".join(
+              f"{s:.3f} {r.n_candidates} {r.n_ops_max} "
+              f"{len(r.best_nodes or ()) // 2} "
+              f"{r.best_logl - r.logl0:.3f}" for s, r in rec.rounds)
+          + f"; branch-length passes (s, edges or full, sweeps): "
+          + "; ".join(f"{s:.3f} {e or 'full'} {n}"
+                      for s, (e, n) in rec.passes), flush=True)
+    r = rnd["r"]
+    print(f"[33 infer] {card}: one more SPR round on the final tree "
+          f"({r.n_candidates} candidates, improved {r.improved}): wall "
+          f"{spr_idle[0]:.1f} ms, the card busy {spr_idle[1]:.1f} ms in "
+          f"{spr_idle[4]} kernels, idle {spr_idle[2] * 100:.1f}% of the wall"
+          f" ({spr_idle[3] * 100:.1f}% of the kernels' span), "
+          f"encode_candidates alone {enc_ms:.1f} ms for {n_enc} candidates "
+          f"({enc_ms / max(n_enc, 1):.4f} ms a candidate); one full "
+          f"branch-length sweep ({2 * tips - 3} edges, eager): wall "
+          f"{sweep[0]:.1f} ms ({sweep[0] / (2 * tips - 3):.3f} ms an edge), "
+          f"busy {sweep[1]:.1f} ms in {sweep[4]} kernels, idle "
+          f"{sweep[2] * 100:.1f}% ({sweep[3] * 100:.1f}% of the span); "
+          f"torch.profiler", flush=True)
+    return dict(total_s=total_s, launches=launches, rounds=res.rounds)
+
+
 def main():
     try:
         import torch
@@ -4862,6 +5644,44 @@ def main():
           f"{small['nan']} configurations ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     sp = phase_spr(device, card)
+
+    # ---------------------------------------------------- 32-33: inference
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # one intra-op thread: the CPU halves issue many tiny tensor
+    # operations, which more threads only slow down
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with ReplayHook() as u1_hook, ScorerHook() as c1_hook:
+        rnd = check_rounds_small(device)
+        inf = check_infer_small(device)
+    torch.set_num_threads(threads)
+    secs = inf["s"]
+    print(f"[32 search small] {len(ROUND_CASES)} rounds x float64, float32 "
+          f"(two rounds each: {rnd['rounds']} results) on the card equal "
+          f"to the CPU's (float64: the same results, moves, Newick and valid"
+          f" rows; float32 within the budget, largest |d best logL| "
+          f"{rnd['f32_d']:.3e}) and, in float64, to libpll_tpu's; moves "
+          f"kept by the float64 first rounds {rnd['commits']}; {rnd['rows']}"
+          f" valid rows on the card equal a fresh evaluation's (largest rel"
+          f" {rnd['stale_err']:.3e}); {rnd['restored']} rounds without "
+          f"improvement restored every valid row, scaler and flag bit for "
+          f"bit; CapacityError at capacity 2, a contained regraft dropped; "
+          f"infer_tree in {inf['cases']} cases ({len(INFER_SMALL)} x float64,"
+          f" float32) on the card equal to the CPU's and, in float64, to "
+          f"libpll_tpu's (start score, rounds, RF 0, logL rel {SEARCH_REL}); "
+          f"float32 within the budget of a fresh float64 Partition (largest "
+          f"|d| {inf['f32_d']:.3e}, RF to the CPU's float32 tree "
+          f"{inf['f32_rf']}); moves='tbr', mesh= and optimize_model=True "
+          f"raise their typed errors; U1 equal to the plain executor at "
+          f"{u1_hook.checked} launches, C1 to its plain version at "
+          f"{c1_hook.checked}; card / CPU seconds a case: " + "; ".join(
+              f"{name} {secs[name, str(d), 'card']:.2f}/"
+              f"{secs[name, str(d), 'cpu']:.2f}"
+              for name, *_ in INFER_SMALL
+              for d in (torch.float64, torch.float32))
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_infer(device, card)
 
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole

@@ -45,8 +45,17 @@ every launch, build the stepwise trees of scripts/bench_stepwise.py's
 2 048 x 2 048 and 500 x 10 000 alignments by both engines, each equal to
 the JAX package's, and time the builds and kernels (PERF.md).
 
+Tree search and inference (``search.spr``, ``search.infer``): branch-length
+optimisation (``engine.blopt``: kernels U1 and N1), the batched SPR/NNI
+candidate scorer (kernel C1), the rounds that commit the best moves
+(``spr_round`` with verified multi-commit, ``nni_round``) and
+``infer_tree``: compression, the device stepwise start, Newton sweeps and
+rounds to convergence, held to ``libpll_tpu``'s on the CPU by
+``tests/test_torch_rounds.py`` and ``tests/test_torch_infer.py``.
+
 The top-level names are ``libpll_tpu``'s, less ``optimize_model``: model
-fitting is not ported yet, nor are tree search and multi-GPU sharding.
+fitting is not ported yet (``infer_tree(optimize_model=True)`` raises), nor
+is multi-GPU sharding (``mesh=`` raises).
 """
 
 from .engine.partition import (ASC_FELSENSTEIN, ASC_LEWIS, ASC_NONE,

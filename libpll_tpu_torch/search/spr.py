@@ -1,14 +1,13 @@
-"""Likelihood SPR/NNI search: candidate generation and batched incremental
-scoring.
+"""Likelihood SPR/NNI search: candidate generation, batched incremental
+scoring, and the rounds that commit the best moves.
 
-Counterpart: the candidate half of ``libpll_tpu/search/spr.py``
-(``spr_neighborhood`` ``:104``, ``encode_candidates`` ``:259``,
-``score_encoded`` ``:301``, ``make_round_scorer`` ``:339``,
-``nni_candidates`` ``:351``, ``encode_nni_candidates`` ``:366``), under
-JAX's names and argument order; JAX's ``_model_from_partition`` (``:80``)
-is ``engine/evaluate.partition_model``.  The rounds (``spr_round``,
-``nni_round``, ``local_edge_set``, the commit and rollback) are not ported
-yet.
+Counterpart: ``libpll_tpu/search/spr.py`` (``SprResult`` ``:46``,
+``local_edge_set`` ``:56``, ``spr_neighborhood`` ``:104``, ``spr_round``
+``:135``, ``encode_candidates`` ``:259``, ``score_encoded`` ``:301``,
+``make_round_scorer`` ``:339``, ``nni_candidates`` ``:351``,
+``encode_nni_candidates`` ``:366``, ``nni_round`` ``:403``), under JAX's
+names and argument order; JAX's ``_model_from_partition`` (``:80``) is
+``engine/evaluate.partition_model``.
 
   1. **host**: for each candidate (prune node p, regraft edge r) apply the
      SPR, collect the 3 changed branches, compute the minimal dirty op
@@ -19,23 +18,71 @@ yet.
      (``ops/incremental.CandidateScorer``: the 3 new P-matrices of every
      candidate, kernel C1 replaying the subsets into scratch rows with the
      base CLVs read only, the edge fold), with no host read until
-     :func:`score_encoded` hands back its scores.
+     :func:`score_encoded` hands back its scores;
+  3. **commit** (:func:`spr_round`, :func:`nni_round`): the best improving
+     move is applied and its dirty subtree updated in place by
+     ``Partition.update_partials`` (kernel U1 on the card), padded to the
+     scorer's capacity or the next power of two above it.  ``commit`` > 1
+     applies further non-overlapping moves in descending score order,
+     each verified by the exact logL and rolled back on regression.
+
+On the card the scores are C1's and the fold's (float32 where the
+Partition is), while the commit's verification is U1's and the edge
+logL's: a move ranked by a score is kept or rolled back by the exact
+evaluation, as in JAX.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..engine.blopt import _full_evaluation
 from ..engine.evaluate import partition_model
-from ..errors import SprError
+from ..errors import CapacityError, SprError
 from ..ops import incremental as inc_ops
 from ..tree import incremental as inc
 from ..tree import moves
 from ..tree import utree as ut
 from ..tree.utree import UNode, UTree
+
+
+@dataclass
+class SprResult:
+    logl0: float
+    best_logl: float
+    improved: bool
+    n_candidates: int
+    n_ops_max: int
+    best: Optional[Tuple[int, int]] = None  # (p.node_index, r.node_index)
+    best_nodes: Optional[tuple] = None  # the committed move's UNodes
+
+
+def local_edge_set(nodes, radius: int) -> set:
+    """pmatrix indices of every edge within ``radius`` edges of ``nodes``
+    — the changed neighborhood of a committed topology move (the
+    reference's `pll_utree_spr` reports exactly the changed branches for
+    selective updates, utree_moves.c:204-251)."""
+    out = set()
+    frontier = []
+    for nd in nodes:
+        for m in ([nd] if nd.is_tip else nd.ring()):
+            frontier.append((m, 0))
+    visited = set()
+    while frontier:
+        m, d = frontier.pop()
+        if id(m) in visited:
+            continue
+        visited.add(id(m))
+        out.add(m.pmatrix_index)
+        if d < radius:
+            b = m.back
+            for nxt in ([b] if b.is_tip else b.ring()):
+                frontier.append((nxt, d + 1))
+    return out
 
 
 def spr_neighborhood(tree: UTree, radius: int = 5,
@@ -72,6 +119,123 @@ def spr_neighborhood(tree: UTree, radius: int = 5,
 def _eval_edge(root: UNode) -> tuple:
     return (root.clv_index, root.scaler_index, root.back.clv_index,
             root.back.scaler_index, root.pmatrix_index)
+
+
+def _round_capacity(capacity: Optional[int], n_ops_max: int) -> int:
+    """The scorer's envelope: ``capacity``, else the next power of two at
+    or above the largest subset (at least 8); raises if the subset does
+    not fit."""
+    cap = capacity or max(8, 1 << (n_ops_max - 1).bit_length())
+    if n_ops_max > cap:
+        raise CapacityError(f"candidate op subset ({n_ops_max}) exceeds "
+                            f"capacity ({cap})")
+    return cap
+
+
+def _commit_dirty(tree: UTree, part, params_indices, cap: int):
+    """Update the dirty subtree of ``tree`` in place, padded to ``cap`` or
+    the next power of two above the subset (a committed subset can
+    outgrow the candidate envelope: it includes the re-orientation to the
+    canonical root); returns (root edge logL, the dirty nodes)."""
+    root = tree.root
+    dirty = inc.partial_traverse(root)
+    pops = inc.create_partial_operations(dirty)
+    if pops:
+        part.update_partials(pops, pad_to=max(
+            cap, 1 << (len(pops) - 1).bit_length()))
+    logl = part.compute_edge_loglikelihood(*_eval_edge(root),
+                                           params_indices)
+    return float(logl), dirty
+
+
+def spr_round(tree: UTree, part, params_indices, *,
+              radius: int = 5, capacity: Optional[int] = None,
+              batch: int = 32, min_delta: float = 1e-9,
+              candidates: Optional[List[Tuple[UNode, UNode]]] = None,
+              scorer=None, commit: int = 1) -> SprResult:
+    """Evaluate an SPR neighborhood incrementally and apply the best
+    improving move.  ``part`` is a Partition whose CLVs are assumed
+    consistent with ``tree`` *or* will be made so by the initial full
+    evaluation here.
+
+    ``commit`` > 1 applies up to that many improving moves per round, in
+    descending score order, skipping candidates whose neighborhoods
+    overlap an already-committed move; every extra commit is verified by
+    an exact incremental evaluation and rolled back if the composite
+    log-likelihood regresses (scores are measured against the pre-round
+    tree, so they go stale once the topology changes).
+
+    Returns an :class:`SprResult`; on improvement the tree and partition
+    are left in the post-move state, otherwise restored exactly.
+    """
+    logl0 = _full_evaluation(tree, part, params_indices)
+
+    if candidates is None:
+        candidates = spr_neighborhood(tree, radius)
+    if not candidates:
+        return SprResult(logl0, logl0, False, 0, 0)
+
+    enc, n_ops_max = encode_candidates(tree, candidates)
+    if not enc:
+        return SprResult(logl0, logl0, False, 0, 0)
+    cap = _round_capacity(capacity, n_ops_max)
+
+    if scorer is None:
+        scorer = make_round_scorer(part, cap)
+    logls = score_encoded(tree, part, params_indices, enc, cap, batch,
+                          scorer)
+    best_logl = float(logls[int(np.argmax(logls))])
+
+    if best_logl <= logl0 + min_delta:
+        return SprResult(logl0, logl0, False, len(enc), n_ops_max)
+
+    # commit improving moves in descending score order (dirty-subtree
+    # updates); moves after the first are verified exactly and rolled
+    # back on regression
+    order = np.argsort(np.asarray(logls))[::-1]
+    logl_cur = logl0
+    committed: List[Tuple[UNode, UNode]] = []
+    blocked: set = set()
+    for ci in order:
+        if len(committed) >= commit:
+            break
+        if float(logls[ci]) <= logl0 + min_delta:
+            break
+        p, r = enc[ci][0], enc[ci][1]
+        if committed:
+            region = local_edge_set((p, r), 2)
+            if region & blocked:
+                continue  # overlaps an already-committed move
+        rb = moves.Rollback(moves.MOVE_SPR)
+        try:
+            changed = moves.spr_safe(p, r, rb)
+        except SprError:
+            continue  # stale candidate no longer applicable
+        part.update_prob_matrices(params_indices,
+                                  [m for _, m in changed],
+                                  [b for b, _ in changed])
+        logl_new, dirty = _commit_dirty(tree, part, params_indices, cap)
+        # the top-scored move is kept even where the exact logL does not
+        # beat the score's baseline (a summation-path discrepancy is the
+        # only way there: scores are exact for the pre-round tree); the
+        # others must improve by min_delta
+        if not committed or logl_new > logl_cur + min_delta:
+            logl_cur = logl_new
+            committed.append((p, r))
+            blocked |= local_edge_set((p, r), 2)
+            continue
+        restored = moves.rollback_move(rb)
+        part.update_prob_matrices(params_indices,
+                                  [m for _, m in restored],
+                                  [b for b, _ in restored])
+        for nd in dirty:  # the verification overwrote these CLV rows
+            for m in nd.ring():
+                m.clv_valid = False
+    logl_new, _ = _commit_dirty(tree, part, params_indices, cap)
+    flat = tuple(n for pair in committed for n in pair)
+    return SprResult(logl0, float(logl_new), True, len(enc), n_ops_max,
+                     (committed[0][0].node_index,
+                      committed[0][1].node_index), flat)
 
 
 def encode_candidates(tree: UTree, candidates):
@@ -170,7 +334,7 @@ def make_round_scorer(part, capacity: int):
 
 
 # ---------------------------------------------------------------------------
-# NNI candidates on the same incremental machinery
+# NNI rounds on the same incremental machinery
 # ---------------------------------------------------------------------------
 def nni_candidates(tree: UTree) -> List[Tuple[UNode, int]]:
     """Both interchanges across every internal edge (reference
@@ -220,3 +384,30 @@ def encode_nni_candidates(tree: UTree, candidates):
         n_ops_max = max(n_ops_max, len(pops))
         enc.append((edge, nni_type, changed, pops, eval_edge))
     return enc, n_ops_max
+
+
+def nni_round(tree: UTree, part, params_indices, *,
+              capacity: Optional[int] = None, batch: int = 32,
+              min_delta: float = 1e-9, scorer=None) -> SprResult:
+    """Evaluate every NNI interchange incrementally (one scorer call per
+    batch) and apply the best improving one; same state guarantees as
+    :func:`spr_round`."""
+    logl0 = _full_evaluation(tree, part, params_indices)
+
+    enc, n_ops_max = encode_nni_candidates(tree, nni_candidates(tree))
+    if not enc:
+        return SprResult(logl0, logl0, False, 0, 0)
+    cap = _round_capacity(capacity, n_ops_max)
+    if scorer is None:
+        scorer = make_round_scorer(part, cap)
+    logls = score_encoded(tree, part, params_indices, enc, cap, batch,
+                          scorer)
+    best_i = int(np.argmax(logls))
+    if float(logls[best_i]) <= logl0 + min_delta:
+        return SprResult(logl0, logl0, False, len(enc), n_ops_max)
+
+    edge, nni_type = enc[best_i][0], enc[best_i][1]
+    moves.nni(edge, nni_type)
+    logl_new, _ = _commit_dirty(tree, part, params_indices, cap)
+    return SprResult(logl0, float(logl_new), True, len(enc), n_ops_max,
+                     (edge.node_index, nni_type), (edge, edge.back))

@@ -14,6 +14,10 @@ configuration (``BASELINE.md:72``: 64 taxa × 65 536 sites, four Γ
 categories) under the LG4X mixture: columns simulated on the flagship's
 tree, written to a FASTA file, read back, compressed to site patterns and
 encoded as 20-bit masks, the path a user's alignment takes.
+
+:func:`infer_alignment` is scripts/bench_infer.py's data (1 024 taxa x
+16 384 sites by default): DNA simulated under GTR+Γ4 down a random
+leaf-split tree, with the generating Newick.
 """
 
 from __future__ import annotations
@@ -354,3 +358,102 @@ def build_protein_flagship(tips=PROTEIN_TIPS, sites=PROTEIN_SITES, seed=0):
         "invariant": np.full((n,), -1, np.int32),
     }
     return topo._replace(sites=n), model, masks.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# scripts/bench_infer.py's alignment (its simulate and expm_gtr, :48-119)
+# ---------------------------------------------------------------------------
+INFER_TIPS = 1024
+INFER_SITES = 16384
+INFER_ALPHA = 0.8
+INFER_FREQS = (0.3, 0.25, 0.2, 0.25)
+INFER_PARAMS = (1.2, 2.7, 0.8, 1.1, 3.2, 1.0)
+
+
+def expm_gtr(params, freqs, t):
+    """P(t) = exp(Qt) of the normalised GTR matrix, by scipy's expm."""
+    from scipy.linalg import expm
+
+    s = np.zeros((4, 4))
+    iu = np.triu_indices(4, 1)
+    s[iu] = params
+    s = s + s.T
+    q = s * freqs[None, :]
+    q[np.diag_indices(4)] = -q.sum(1)
+    q /= -(np.diag(q) * freqs).sum()
+    return expm(q * t)
+
+
+def infer_alignment(tips=INFER_TIPS, sites=INFER_SITES, seed=11):
+    """DNA evolved down a random binary tree under GTR+Γ4 (α 0.8,
+    ``INFER_FREQS``, ``INFER_PARAMS``): data with real signal, so that a
+    tree search has work to do.  Returns ({"t<i>": sequence}, the
+    generating tree's Newick).  The draws are scripts/bench_infer.py's,
+    in its order, so a seed gives its alignment."""
+    from ..models.gamma import compute_gamma_cats
+
+    rng = np.random.default_rng(seed)
+    freqs = np.array(INFER_FREQS)
+    params = np.array(INFER_PARAMS)
+    rates = np.asarray(compute_gamma_cats(INFER_ALPHA, 4))
+
+    # random binary tree by leaf splitting; parents get smaller ids than
+    # their children, so evolving in id order is top-down
+    parent, blen = {0: -1}, {0: 0.0}
+    leaves, next_id = [0], 1
+    while len(leaves) < tips:
+        node = leaves.pop(rng.integers(len(leaves)))
+        for _ in range(2):
+            parent[next_id] = node
+            blen[next_id] = rng.uniform(0.02, 0.4)
+            leaves.append(next_id)
+            next_id += 1
+
+    children = {}
+    for node, par in parent.items():
+        if node:
+            children.setdefault(par, []).append(node)
+    leaf_label = {n: f"t{i}" for i, n in enumerate(leaves)}
+
+    def nw(node):
+        # a loop, not the script's recursion: no recursion limit to
+        # meet however deep the tree
+        out, stack = [], [(node, 0)]
+        while stack:
+            n, state = stack.pop()
+            if n in leaf_label:
+                out.append(f"{leaf_label[n]}:{blen[n]:.5f}")
+            elif state == 0:
+                l, r = children[n]
+                out.append("(")
+                stack += [(n, 2), (r, 0), (n, 1), (l, 0)]
+            elif state == 1:
+                out.append(",")
+            else:
+                out.append(f"):{blen[n]:.5f}")
+        return "".join(out)
+
+    l, r = children[0]
+    rl, rr = children[r] if r in children else (None, None)
+    if rl is None:  # root child r is a leaf: expand the left side instead
+        l, r = r, l
+        rl, rr = children[r]
+    truth_newick = f"({nw(l)},{nw(rl)},{nw(rr)});"
+
+    cat = rng.integers(0, 4, sites)  # per-site Γ category
+    seq = {0: rng.choice(4, sites, p=freqs)}
+    # branch lengths are i.i.d. uniform, so bucket them for P-matrix reuse
+    pm_cache = {}
+    for node in range(1, next_id):
+        key = round(blen[node], 3)
+        if key not in pm_cache:
+            pm_cache[key] = np.stack(
+                [expm_gtr(params, freqs, r * key) for r in rates])
+        P = pm_cache[key]                    # [cats, 4, 4]
+        probs = P[cat, seq[parent[node]]]    # [sites, 4]
+        u = rng.random(sites)
+        seq[node] = (probs.cumsum(1) > u[:, None]).argmax(1)
+
+    alpha = np.array(list("ACGT"))
+    return ({f"t{i}": "".join(alpha[seq[n]]) for i, n in enumerate(leaves)},
+            truth_newick)

@@ -19,7 +19,9 @@ and the Fitch kernels P1-P3 (``fitch``: exact equality with their plain
 versions; the stepwise build on the card against the CPU), and the
 op-table kernel U1 with branch-length optimisation (chip_smoke's phase
 27), and the candidate-replay kernel C1 with the batched SPR/NNI scorer
-and the scaling vote's NaN rule (chip_smoke's phase 30).
+and the scaling vote's NaN rule (chip_smoke's phase 30), and the SPR/NNI
+rounds and a small ``infer_tree`` on the card against the CPU (chip_smoke's
+phase 32; float64 logL rel 1e-9 there, a search's tolerance).
 ``test_partition_builds_on_the_card_by_default`` needs no card and runs
 in the CPU suite.
 """
@@ -839,3 +841,38 @@ def test_candidate_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     bad(1, scal[:, :8])  # scalers of another shape
     bad(2, pm.float())  # P-matrices of another dtype
     bad(6, 0)  # no scratch row
+
+
+@pytest.mark.gpu
+def test_rounds_on_card_match_cpu(cuda):
+    """chip_smoke's phase 32, rounds: SPR (commit 1, 4, 8 with a rollback)
+    and NNI rounds on the card against the CPU and libpll_tpu's recorded
+    results, every valid row a fresh evaluation's, a round without
+    improvement restoring every valid row bit for bit, U1 and C1 held
+    against their plain versions at every launch."""
+    with chip_smoke.ReplayHook() as u1, chip_smoke.ScorerHook() as c1:
+        out = chip_smoke.check_rounds_small(cuda)
+    assert out["rounds"] > 0 and out["restored"] == 4
+    assert max(out["commits"]) > 1 and u1.checked > 0 and c1.checked > 0
+
+
+@pytest.mark.gpu
+def test_small_infer_tree_on_card_matches_cpu(cuda):
+    """A small ``infer_tree`` (tests/test_infer.py's first case) on the
+    card against the same call on the CPU: float64 start score, rounds,
+    topology and logL (rel 1e-9)."""
+    from libpll_tpu_torch.ops import incremental as inc_ops
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.tree.compare import rf_distance
+
+    name, seed, tips, sites, kw = chip_smoke.INFER_SMALL[0]
+    seqs = chip_smoke.search_data(seed, tips, sites)
+    before = inc_ops._replay_candidates.launches
+    got = infer_tree(seqs, device=cuda, **chip_smoke.SEARCH_GTR, **kw)
+    assert inc_ops._replay_candidates.launches > before
+    want = infer_tree(seqs, device="cpu", **chip_smoke.SEARCH_GTR, **kw)
+    assert got.start_parsimony_score == want.start_parsimony_score
+    assert got.rounds == want.rounds
+    assert rf_distance(got.tree, want.tree) == 0
+    np.testing.assert_allclose(got.logl, want.logl, rtol=1e-9)
+    assert got.partition.device.type == "cuda"

@@ -53,7 +53,8 @@ def test_port_modules_listed():
               "libpll_tpu_torch.engine.blopt",
               "libpll_tpu_torch.tools.blopt_times",
               "libpll_tpu_torch.ops.incremental",
-              "libpll_tpu_torch.search.spr"):
+              "libpll_tpu_torch.search.spr",
+              "libpll_tpu_torch.search.infer"):
         assert m in PORT_MODULES, m
 
 
