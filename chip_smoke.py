@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven main paths, each driven once with the launch counters set to 0 just
+Twelve main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -60,7 +60,12 @@ before it and read just after:
     (``utils/flagship.infer_alignment``), ``infer_tree`` in float32 with
     batches of 128 to convergence: the device stepwise build (P2, P3),
     branch-length sweeps (U1, N1), SPR rounds (C1, and U1 for the
-    verified commits).
+    verified commits);
+  * model fitting (``engine/modelopt.py``) on that search's final tree
+    and Partition: ``optimize_model`` as infer_tree's refit after a search
+    calls it (L-BFGS through the plain float32 sweep and its backward, no
+    kernel of the port), then a full branch-length sweep pair under the
+    fitted model (U1, N1).
 
 Phases, one line each:
 
@@ -239,9 +244,9 @@ Phases, one line each:
      recorded on the CPU (``SEARCH_JAX``); every valid CLV row after a
      round a fresh evaluation's; a round without improvement restores
      every valid row, scaler and flag bit for bit; the typed errors
-     (capacity 2, a contained regraft, ``moves="tbr"``, ``mesh=``,
-     ``optimize_model=True``); U1 and C1 against their plain versions at
-     every launch (``ReplayHook``, ``ScorerHook``);
+     (capacity 2, a contained regraft, ``moves="tbr"``, ``mesh=``); U1
+     and C1 against their plain versions at every launch (``ReplayHook``,
+     ``ScorerHook``); ``optimize_model=True`` runs in phase 34;
  33. infer: scripts/bench_infer.py's call with every launch counter at 0
      around it: the alignment's SHA-256, the start parsimony score equal
      to libpll_tpu's (``BENCH_INFER_START_JAX``), the trajectory
@@ -250,7 +255,21 @@ Phases, one line each:
      plain version run; time-to-tree and the timings by phase, each
      round's candidates and seconds, each branch-length pass, RF to the
      generating tree, the peak device memory, and the card's idle share
-     over one SPR round and one full sweep (torch.profiler).
+     over one SPR round and one full sweep (torch.profiler);
+ 34. model fitting: small fits in float64 on the card against the CPU and
+     against libpll_tpu's results recorded on the CPU (``MODELOPT_JAX``):
+     Γ, free and fixed rates, p-inv, an LG4X mixture (free rates and
+     weights over four 20-state matrices) and ``infer_tree(
+     optimize_model=True)`` at 12 taxa, under ``ReplayHook`` and
+     ``ScorerHook``; then phase 33's final tree and Partition fitted
+     (float32, from JC with α 0.8, two rounds): the trajectory
+     non-decreasing, the Partition carrying the fit, the fit's logL within
+     the f32 budget of a fresh float64 Partition under the fitted model,
+     U1 and N1 launched in the sweep pair after it and no plain version
+     run; the fitted parameters beside the generating ones, L-BFGS steps
+     and evaluations, s a fit, ms a value-and-grad and a Brent
+     evaluation, the eigendecomposition's placement and cost, the peak
+     device memory and the card's idle share over one value-and-grad.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
@@ -4992,8 +5011,8 @@ def check_infer_small(device):
     budget of a fresh float64 Partition of the card's tree, the CPU's
     logL within the budget where the topology is the same); float64 on
     the card against SEARCH_JAX (start score, rounds, RF 0, logL rel
-    SEARCH_REL); ``moves="tbr"``, ``mesh=`` and ``optimize_model=True``
-    raise their typed errors.  Returns a summary dict."""
+    SEARCH_REL); ``moves="tbr"`` and ``mesh=`` raise their typed errors.
+    Returns a summary dict."""
     import torch
 
     from libpll_tpu_torch.errors import EinvalError
@@ -5049,8 +5068,7 @@ def check_infer_small(device):
             del res
     seqs = search_data(12)
     for bad, exc in ((dict(moves="tbr"), ValueError),
-                     (dict(mesh=object()), EinvalError),
-                     (dict(optimize_model=True), EinvalError)):
+                     (dict(mesh=object()), EinvalError)):
         try:
             infer_tree(seqs, device=device, **bad)
             fail(f"infer_tree({bad}) did not raise")
@@ -5185,7 +5203,7 @@ def phase_infer(device, card):
     commits and seconds, the branch-length passes, RF to the generating
     tree, the peak device memory, and the card's idle share over one SPR
     round and one full branch-length sweep (torch.profiler).  Returns the
-    numbers for the summary."""
+    result and the compressed alignment (label -> patterns, weights)."""
     import torch
 
     from libpll_tpu_torch.engine import blopt
@@ -5311,7 +5329,619 @@ def phase_infer(device, card):
           f"busy {sweep[1]:.1f} ms in {sweep[4]} kernels, idle "
           f"{sweep[2] * 100:.1f}% ({sweep[3] * 100:.1f}% of the span); "
           f"torch.profiler", flush=True)
-    return dict(total_s=total_s, launches=launches, rounds=res.rounds)
+    return res, (dict(zip(labels, patterns)), weights)
+
+
+# ---------------------------------------------------------------------------
+# 34: model fitting
+# ---------------------------------------------------------------------------
+# phase 34's small fits, float64 on the card against the CPU and against
+# libpll_tpu: (name, seed, tips, sites, Γ shape of the site rates or None,
+# share of sites held still, optimize_model's arguments).  The DNA evolved
+# under SEARCH_PARAMS/SEARCH_FREQS on a random tree of the seed
+# (modelopt_simulate), fitted on that tree from JC with Γ4(1.0) rates (one
+# rate for "fixed"); "lg4x": protein evolved on such a tree under the LG4X
+# mixture (LG4X_WEIGHTS, LG4X_RATES; lg4x_simulate), its rates and weights
+# fitted over LG4X's four fixed matrices from uniform ones (reference
+# examples/lg4/lg4.c's lg4x_opt_weights_and_rates).
+MODELOPT_SMALL = (
+    ("gamma", 61, 12, 200, 0.5, 0.0, dict(alpha=1.0, rounds=1)),
+    ("free", 62, 12, 200, 0.6, 0.0, dict(rate_mode="free", rounds=1)),
+    ("fixed", 63, 12, 200, None, 0.0, dict(opt_alpha=False,
+                                           rate_mode="fixed", rounds=2)),
+    ("pinv", 64, 12, 200, 1.0, 0.3, dict(opt_pinv=True, rounds=1)),
+    ("lg4x", 65, 8, 120, None, 0.0, dict(opt_subst=False, opt_freqs=False,
+                                         opt_alpha=False, rate_mode="free",
+                                         rounds=1)),
+)
+# tests/test_modelopt.py's generating LG4X mixture (its rates normalised
+# to a weighted mean of 1 there)
+LG4X_WEIGHTS = (0.45, 0.30, 0.15, 0.10)
+LG4X_RATES = (0.3, 0.9, 1.6, 2.5)
+# infer_tree(optimize_model=True) on modelopt_data(seed, tips, sites, 0.5)
+# from JC with Γ4(1.0) (tests/test_modelopt.py:289's setting): (seed, tips,
+# sites, infer_tree's arguments)
+MODELOPT_INFER = (66, 12, 160, dict(rate_cats=4, seed=5, radius=4,
+                                    max_rounds=2, optimize_model=True,
+                                    model_rounds=1))
+MODELOPT_PARAM_ABS, MODELOPT_ALPHA_REL = 1e-4, 1e-3
+# the fit at scripts/bench_infer.py's size: run_modelopt's call after a
+# search (libpll_tpu/search/infer.py:226-229)
+BENCH_FIT_ARGS = dict(opt_alpha=True, opt_pinv=False, alpha=0.8, rounds=2)
+MODELOPT_TIMED = 5  # value-and-grad and Brent evaluations timed
+# libpll_tpu's fits on the same data and partitions, on the CPU in float64
+# (JAX_PLATFORMS=cpu, x64): fit_summary of each MODELOPT_SMALL case, and
+# for MODELOPT_INFER the start score, rounds, trajectory, final Newick and
+# the last fit
+MODELOPT_JAX = {'gamma': {'logl': -2052.585205810269,
+               'trajectory': [-2103.726318974098, -2067.2444018043047,
+                              -2052.585205810269],
+               'subst_params': [0.6156604280670243, 2.930610739278195,
+                                0.908692645125377, 0.9088420245681136,
+                                2.0081561660554517, 1.0],
+               'frequencies': [0.2700768752952801, 0.2760773146971612,
+                               0.20918675369146256, 0.2446590563160961],
+               'rates': [0.033398768393440664, 0.25195471086005117,
+                         0.8203117170869909, 2.8943348036595173],
+               'rate_weights': [0.25, 0.25, 0.25, 0.25],
+               'alpha': 0.5000594263163146,
+               'prop_invar': 0.0},
+     'free': {'logl': -2219.8529329227354,
+              'trajectory': [-2250.335707413798, -2219.8529329227354],
+              'subst_params': [1.654606689378731, 3.4806295908799214,
+                               1.4719489363777827, 2.0192660117167103,
+                               3.5073675900148475, 1.0],
+              'frequencies': [0.2928894356802425, 0.2484590565170689,
+                              0.22653851171158865, 0.23211299609109978],
+              'rates': [0.15326442256725575, 0.202230655140101,
+                        1.2326640230239605, 4.258153179145446],
+              'rate_weights': [0.38343483314790316, 0.06021679581580728,
+                               0.4759432643445243, 0.08040510669176516],
+              'alpha': None,
+              'prop_invar': 0.0},
+     'fixed': {'logl': -2627.6061558498423,
+               'trajectory': [-2670.1819572847503, -2627.6061558509064,
+                              -2627.6061558498423],
+               'subst_params': [1.1226305843124054, 1.7928613537448022,
+                                0.506802598756688, 1.0288153821880501,
+                                2.1519356212308507, 1.0],
+               'frequencies': [0.28597054737630895, 0.2518990367514135,
+                               0.21203512920547168, 0.25009528666680586],
+               'rates': [1.0],
+               'rate_weights': [1.0],
+               'alpha': None,
+               'prop_invar': 0.0},
+     'pinv': {'logl': -1788.6298254674982,
+              'trajectory': [-1855.8598813327812, -1812.0419150468636,
+                             -1789.0454304505613, -1788.6298254674982],
+              'subst_params': [0.8571237674543521, 2.0171189510912164,
+                               0.2140738477213911, 1.311032829168747,
+                               2.156364025864722, 1.0],
+              'frequencies': [0.3127526079186615, 0.2584976454247575,
+                              0.17798542360130434, 0.25076432305527663],
+              'rates': [0.020655244456352924, 0.20098093087175858,
+                        0.7580618027627615, 3.020302021909127],
+              'rate_weights': [0.25, 0.25, 0.25, 0.25],
+              'alpha': 0.4261157350404224,
+              'prop_invar': 0.05476835447672689},
+     'lg4x': {'logl': -1350.7586424206818,
+              'trajectory': [-1393.6111620109, -1350.7586424206818],
+              'subst_params': None,
+              'frequencies': None,
+              'rates': [0.32638328937469824, 1.1215905551463292,
+                        1.5046692907763548, 2.297590169613763],
+              'rate_weights': [0.4365491700940493, 0.3422175436840878,
+                               0.04365346335184253, 0.17757982287002025],
+              'alpha': None,
+              'prop_invar': 0.0},
+     'infer': {'start': 400,
+               'rounds': 2,
+               'trajectory': [-1631.7263629597294, -1585.7138902492181,
+                              -1585.58403661714, -1585.5766444435053,
+                              -1585.5762434719627, -1584.0551198239225],
+               'newick': ('((((t2:0.076156,t1:0.209290):0.143960,(t8:0.4010'
+                          '11,t4:0.205872):0.100429):0.564818,(t5:0.601725,'
+                          't0:0.381833):0.565826):0.000000,(t6:0.000000,t7:'
+                          '0.188342):0.305561,((t9:0.476226,(t11:0.158084,t'
+                          '10:0.486869):0.183394):0.184503,t3:0.496046):0.5'
+                          '57565);'),
+               'model': {'logl': -1584.2691843308148,
+                         'trajectory': [-1585.5762434719627,
+                                        -1584.6788861512189,
+                                        -1584.2691843308148],
+                         'subst_params': [3.6468091180511197,
+                                          8.214318465398398,
+                                          1.9689923890716274,
+                                          3.252958362741572, 6.558723193986145,
+                                          1.0],
+                         'frequencies': [0.2917784356619151,
+                                         0.2492834659908171,
+                                         0.20853991075050432,
+                                         0.25039818759676347],
+                         'rates': [0.021294450054532954, 0.20390210579465848,
+                                   0.7619547416009932, 3.0128487025498156],
+                         'rate_weights': [0.25, 0.25, 0.25, 0.25],
+                         'alpha': 0.4301564572004039,
+                         'prop_invar': 0.0}}}
+
+
+def modelopt_simulate(newick, sites, rng, site_rates):
+    """tests/test_modelopt.py's ``_simulate`` under SEARCH_PARAMS and
+    SEARCH_FREQS: sequences evolved down ``newick``, each site's branch
+    lengths scaled by its rate."""
+    from libpll_tpu_torch.models.gtr import eigen_decompose
+    from libpll_tpu_torch.tree import utree as ut
+
+    tree = ut.parse_newick_string(newick)
+    freqs = np.asarray(SEARCH_FREQS)
+    w, left, right = eigen_decompose(np.asarray(SEARCH_PARAMS), freqs)
+
+    def evolve(child, state):
+        t = max(child.length, 1e-6) * site_rates
+        e = np.expm1(w[None, :] * t[:, None])
+        P = np.einsum("ij,sj,jk->sik", left, e, right) + np.eye(4)
+        cdf = np.cumsum(P[np.arange(sites), state], axis=1)
+        cdf /= cdf[:, -1:]
+        return (rng.random(sites)[:, None] > cdf).sum(axis=1)
+
+    seqs = {}
+
+    def descend(node, state):
+        if node.is_tip:
+            seqs[node.label] = state
+            return
+        for m in list(node.ring())[1:]:
+            descend(m.back, evolve(m.back, state))
+
+    base = rng.choice(4, sites, p=freqs / freqs.sum())
+    for m in tree.root.ring():
+        descend(m.back, evolve(m.back, base))
+    return {lab: "".join("ACGT"[s] for s in st) for lab, st in seqs.items()}
+
+
+def lg4x_simulate(newick, sites, rng):
+    """tests/test_modelopt.py's ``_simulate_lg4x``: each site draws a
+    category from LG4X_WEIGHTS and evolves under that category's LG4X
+    matrix at its rate."""
+    from libpll_tpu_torch.models.aa_tables import AA_MIXTURE_MODELS
+    from libpll_tpu_torch.models.gtr import eigen_decompose
+    from libpll_tpu_torch.tree import utree as ut
+
+    rates4, freqs4 = AA_MIXTURE_MODELS["lg4x"]
+    w, r = np.asarray(LG4X_WEIGHTS), np.asarray(LG4X_RATES)
+    tree = ut.parse_newick_string(newick)
+    cat = rng.choice(4, sites, p=w)
+    eig = [eigen_decompose(rates4[k], freqs4[k]) for k in range(4)]
+    site_rate = (r / (w * r).sum())[cat]
+
+    def step(child, state):
+        t = max(child.length, 1e-6)
+        P = np.zeros((sites, 20, 20))
+        for k, (lam, left, right) in enumerate(eig):
+            sel = cat == k
+            if sel.any():
+                e = np.expm1(lam[None, :] * (t * site_rate[sel])[:, None])
+                P[sel] = np.einsum("ij,sj,jk->sik", left, e,
+                                   right) + np.eye(20)
+        cdf = np.cumsum(P[np.arange(sites), state], axis=1)
+        cdf /= cdf[:, -1:]
+        return (rng.random(sites)[:, None] > cdf).sum(axis=1)
+
+    seqs = {}
+
+    def descend(node, state):
+        if node.is_tip:
+            seqs[node.label] = state
+            return
+        for m in list(node.ring())[1:]:
+            descend(m.back, step(m.back, state))
+
+    base = np.zeros(sites, np.int64)
+    for k in range(4):
+        sel = cat == k
+        fk = np.asarray(freqs4[k], np.float64)
+        base[sel] = rng.choice(20, int(sel.sum()), p=fk / fk.sum())
+    for m in tree.root.ring():
+        descend(m.back, step(m.back, base))
+    aas = "ARNDCQEGHILKMFPSTWYV"
+    return {lab: "".join(aas[s] for s in st) for lab, st in seqs.items()}
+
+
+def modelopt_data(seed, tips, sites, alpha=None, invariant=0.0,
+                  protein=False):
+    """(Newick, sequences) of phase 34's small fits: a random tree of the
+    seed (search_newick) and DNA evolved on it with Γ(alpha)-distributed
+    site rates (four categories) and a share ``invariant`` of sites held
+    still, or protein under LG4X (lg4x_simulate)."""
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+
+    rng = np.random.default_rng(seed)
+    newick = search_newick(tips, rng)
+    if protein:
+        return newick, lg4x_simulate(newick, sites, rng)
+    rates = np.ones(sites)
+    if alpha is not None:
+        rates = compute_gamma_cats(alpha, 4)[rng.integers(0, 4, sites)]
+    if invariant:
+        rates = rates * (rng.random(sites) > invariant)
+    return newick, modelopt_simulate(newick, sites, rng, rates)
+
+
+def modelopt_partition(case, dtype, device):
+    """(tree, Partition) of a MODELOPT_SMALL case on ``device``."""
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.models.aa_tables import AA_MIXTURE_MODELS
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+
+    name, seed, tips, sites, alpha, invariant, _ = case
+    protein = name == "lg4x"
+    newick, seqs = modelopt_data(seed, tips, sites, alpha, invariant,
+                                 protein)
+    tree = ut.parse_newick_string(newick)
+    states, matrices = (20, 4) if protein else (4, 1)
+    cats = 1 if name == "fixed" else 4
+    part = Partition(tips, tips - 2, states, sites, matrices, 2 * tips - 3,
+                     cats, tips - 2, dtype=dtype, device=device)
+    cmap = maps.pll_map_aa if protein else maps.pll_map_nt
+    order = {n.label: n.clv_index for n in ut.query_tipnodes(tree)}
+    for lab, s in seqs.items():
+        part.set_tip_states(order[lab], cmap, s)
+    if protein:
+        rates4, freqs4 = AA_MIXTURE_MODELS["lg4x"]
+        for k in range(4):
+            part.set_subst_params(k, rates4[k])
+            part.set_frequencies(k, freqs4[k])
+        part.set_category_rates(np.ones(4))
+    elif cats > 1:
+        part.set_category_rates(compute_gamma_cats(1.0, cats))
+    return tree, part
+
+
+def fit_summary(res):
+    """A ModelOptResult as MODELOPT_JAX holds one."""
+    return dict(logl=res.logl, trajectory=list(res.trajectory),
+                subst_params=np.asarray(res.subst_params).tolist(),
+                frequencies=np.asarray(res.frequencies).tolist(),
+                rates=np.asarray(res.rates).tolist(),
+                rate_weights=np.asarray(res.rate_weights).tolist(),
+                alpha=res.alpha, prop_invar=res.prop_invar)
+
+
+def fits_close(got, want):
+    """(ok, why): trajectory and logL rel SEARCH_REL, the parameters
+    MODELOPT_PARAM_ABS, alpha and p-inv rel MODELOPT_ALPHA_REL."""
+    traj = len(got["trajectory"]) == len(want["trajectory"]) and all(
+        abs(x - y) <= SEARCH_REL * abs(y)
+        for x, y in zip(got["trajectory"], want["trajectory"]))
+    if not (traj and abs(got["logl"] - want["logl"])
+            <= SEARCH_REL * abs(want["logl"])):
+        return False, "trajectory or logL"
+    for key in ("subst_params", "frequencies", "rates", "rate_weights"):
+        if want[key] is None:
+            continue
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        if g.shape != w.shape or np.abs(g - w).max() > MODELOPT_PARAM_ABS:
+            return False, key
+    for key in ("alpha", "prop_invar"):
+        g, w = got[key], want[key]
+        if (g is None) != (w is None) or (
+                w is not None and abs(g - w) > MODELOPT_ALPHA_REL * abs(w)):
+            return False, key
+    return True, ""
+
+
+def written_back(part, res):
+    """The Partition carries the fit: its parameters are the result's."""
+    R = part.rate_matrices
+    return (np.array_equal(part.subst_params,
+                           np.reshape(res.subst_params, (R, -1)))
+            and np.array_equal(part.frequencies,
+                               np.reshape(res.frequencies, (R, -1)))
+            and np.array_equal(part.rates, res.rates)
+            and np.array_equal(part.rate_weights, res.rate_weights))
+
+
+def check_modelopt_small(device):
+    """Phase 34, small: each MODELOPT_SMALL fit on the card and on the CPU
+    in float64 (fits_close, the Partition written back) and against
+    MODELOPT_JAX; ``infer_tree(optimize_model=True)`` (MODELOPT_INFER) on
+    the card and the CPU (start score, rounds, RF 0, trajectory rel
+    SEARCH_REL, the last fit close) and against MODELOPT_JAX.  Returns a
+    summary dict."""
+    import torch
+
+    from libpll_tpu_torch.engine import modelopt
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.tree.compare import rf_distance
+
+    cpu = torch.device("cpu")
+    out = {"fits": 0, "s": {}}
+    for case in MODELOPT_SMALL:
+        name, kw = case[0], case[-1]
+        got = {}
+        for where, dev in (("card", device), ("cpu", cpu)):
+            tree, part = modelopt_partition(case, torch.float64, dev)
+            t0 = time.perf_counter()
+            res = modelopt.optimize_model(part, tree, **kw)
+            out["s"][name, where] = time.perf_counter() - t0
+            # written back through the setters: the eigen cache invalid
+            check(written_back(part, res) and not part.eigen_valid.any()
+                  and res.trajectory == sorted(res.trajectory),
+                  f"fit {name} on the {where}: not written back, or "
+                  f"trajectory {res.trajectory}")
+            got[where] = fit_summary(res)
+        want = MODELOPT_JAX[name]  # None: LG4X's own, not fitted
+        for other, ref in (("the CPU", got["cpu"]), ("libpll_tpu", want)):
+            ok, why = fits_close(got["card"], ref)
+            check(ok, f"fit {name}: the card's {got['card']} vs {other}'s "
+                      f"{ref} ({why})")
+        out["fits"] += 1
+
+    seed, tips, sites, kw = MODELOPT_INFER
+    seqs = modelopt_data(seed, tips, sites, 0.5)[1]
+    res = {}
+    for where, dev in (("card", device), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        res[where] = infer_tree(seqs, device=dev, **kw)
+        out["s"]["infer", where] = time.perf_counter() - t0
+    a, b = res["card"], res["cpu"]
+    want = MODELOPT_JAX["infer"]
+    traj = len(a.trajectory) == len(b.trajectory) == len(
+        want["trajectory"]) and all(
+        abs(x - y) <= SEARCH_REL * abs(y) and abs(x - z) <= SEARCH_REL
+        * abs(z) for x, y, z in zip(a.trajectory, b.trajectory,
+                                    want["trajectory"]))
+    rf = (rf_distance(a.tree, b.tree),
+          rf_distance(a.tree, ut.parse_newick_string(want["newick"])))
+    check(a.start_parsimony_score == b.start_parsimony_score == want["start"]
+          and a.rounds == b.rounds == want["rounds"] and rf == (0, 0)
+          and traj and "modelopt" in a.timings
+          and written_back(a.partition, a.model),
+          f"infer_tree(optimize_model=True): card ({a.start_parsimony_score},"
+          f" {a.rounds}, {a.trajectory}), CPU ({b.start_parsimony_score}, "
+          f"{b.rounds}, {b.trajectory}), libpll_tpu ({want['start']}, "
+          f"{want['rounds']}, {want['trajectory']}), RF {rf}")
+    for other, ref in (("the CPU", fit_summary(b.model)),
+                       ("libpll_tpu", want["model"])):
+        ok, why = fits_close(fit_summary(a.model), ref)
+        check(ok, f"infer_tree(optimize_model=True)'s last fit: the card's "
+                  f"{fit_summary(a.model)} vs {other}'s {ref} ({why})")
+    out["infer"] = (a.logl, a.model.alpha)
+    return out
+
+
+class FitCounter:
+    """While active, model fitting's L-BFGS steps (``steps``) and its
+    scorer's evaluations are counted: ``grad`` under autograd (each one
+    backward: a value-and-grad), ``plain`` under no_grad (Brent)."""
+
+    def __init__(self):
+        from libpll_tpu_torch.engine import lbfgs, modelopt
+
+        self.lbfgs, self.modelopt = lbfgs, modelopt
+        self.steps = self.grad = self.plain = 0
+
+    def __enter__(self):
+        import torch
+
+        real_update = self.lbfgs.update
+        real_make = self.modelopt.make_param_score
+        self.real = real_update, real_make
+
+        def update(*a, **k):
+            self.steps += 1
+            return real_update(*a, **k)
+
+        def make(*a, **k):
+            score, branches = real_make(*a, **k)
+
+            def counted(*args):
+                if torch.is_grad_enabled():
+                    self.grad += 1
+                else:
+                    self.plain += 1
+                return score(*args)
+            return counted, branches
+
+        self.lbfgs.update = update
+        self.modelopt.make_param_score = make
+        return self
+
+    def __exit__(self, *exc):
+        self.lbfgs.update, self.modelopt.make_param_score = self.real
+
+
+def sweep_pair(tree, part, pidx):
+    """infer_tree's ``run_blopt()``: two full sweeps of the scan driver,
+    the capacity doubled on CapacityError.  Returns (logL, sweeps)."""
+    from libpll_tpu_torch.engine import blopt
+    from libpll_tpu_torch.errors import CapacityError
+
+    cap = 32
+    while True:
+        try:
+            return blopt.optimize_branch_lengths_scan(
+                tree, part, pidx, max_sweeps=2, capacity=cap)
+        except CapacityError:
+            cap *= 2
+
+
+def phase_modelopt(device, card, res, alignment):
+    """Phase 34: model fitting on phase 33's final tree and Partition
+    (scripts/bench_infer.py's 1 024 x 16 384, float32), with no second
+    search: ``optimize_model(part, tree, **BENCH_FIT_ARGS,
+    dtype=torch.float32)`` from JC with α 0.8, as infer_tree's refit after
+    a search makes it, then one run_blopt-style sweep pair with the U1
+    and N1 counters at 0 around it.  Checks: the trajectory
+    non-decreasing, the Partition carrying the fit, the fit's logL within
+    the f32 budget of a fresh float64 Partition on the card under the
+    fitted model (the tree as the fit saw it), U1 and N1 launched in the
+    sweeps and no plain version run (PlainCalls).  Prints the fitted
+    parameters beside the generating ones, the logL before and after, the
+    L-BFGS steps and evaluations, s a fit, ms a value-and-grad and a Brent
+    evaluation (CUDA-synchronised wall), where the eigendecomposition runs
+    and what it costs, the peak device memory and the card's idle share
+    over one value-and-grad and its kernels with the most device time
+    (torch.profiler).  Returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine import modelopt
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.models.gtr import eigen_decompose_torch
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.search.stepwise import deep_recursion
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import (INFER_ALPHA, INFER_FREQS,
+                                                 INFER_PARAMS)
+
+    part, tree, pidx = res.partition, res.tree, [0] * 4
+    seqs, weights = alignment
+    tips = tree.tip_count
+    # the search fixed the model at JC with α 0.8: the fit starts there
+    check(np.all(part.subst_params == 1.0) and np.all(part.frequencies
+                                                      == 0.25),
+          "phase 33's Partition is not at JC")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with deep_recursion(tips), FitCounter() as cnt:
+        t0 = time.perf_counter()
+        fit = modelopt.optimize_model(part, tree, dtype=torch.float32,
+                                      **BENCH_FIT_ARGS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        newick = ut.export_newick(tree.root)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(fit.trajectory == sorted(fit.trajectory) and np.isfinite(fit.logl)
+          and written_back(part, fit) and np.allclose(
+              part.rates, compute_gamma_cats(fit.alpha, 4), rtol=0, atol=0),
+          f"bench fit: trajectory {fit.trajectory}, or the Partition does "
+          f"not carry the fit")
+
+    counters = {"U1": clv_ops._replay_ops, "N1": dv._newton_solve}
+    torch.cuda.synchronize()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    with deep_recursion(tips), PlainCalls() as plain:
+        t0 = time.perf_counter()
+        logl_bl, sweeps = sweep_pair(tree, part, pidx)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    check(all(v > 0 for v in launches.values())
+          and not any(plain.calls.values()),
+          f"after the fit: launches {launches}, plain versions run "
+          f"{plain.calls}")
+    check(logl_bl >= fit.logl - ACC_REL * abs(fit.logl) - ACC_ABS,
+          f"the sweeps after the fit lost logL: {logl_bl!r} < {fit.logl!r}")
+
+    with deep_recursion(tips):
+        tree64 = ut.parse_newick_string(newick)
+        t0 = time.perf_counter()
+        want = fresh_f64_logl(tree64, seqs, len(next(iter(seqs.values()))),
+                              device, weights,
+                              (fit.frequencies, fit.subst_params, fit.alpha))
+        fresh_s = time.perf_counter() - t0
+    budget = ACC_REL * abs(want) + ACC_ABS
+    check(abs(fit.logl - want) <= budget,
+          f"bench fit logL {fit.logl!r}, a fresh float64 Partition under "
+          f"the fitted model {want!r} (budget {budget})")
+
+    # a value-and-grad and a Brent evaluation alone, timed and profiled,
+    # on the swept tree under the fitted model
+    torch.cuda.empty_cache()
+    score, bl = modelopt.make_param_score(part, tree, dtype=torch.float32)
+    host = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa
+    ls = torch.log(host(fit.subst_params[:-1]))
+    fl = torch.log(host(fit.frequencies))
+    rest = (host(fit.rates), host(fit.rate_weights), host(0.0), host(bl))
+
+    def value_and_grad():
+        a, b = ls.clone().requires_grad_(), fl.clone().requires_grad_()
+        (-score(a, b, *rest)).backward()
+        return a.grad, b.grad
+
+    def brent_eval():
+        with torch.no_grad():
+            return float(score(ls, fl, *rest))
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MODELOPT_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / MODELOPT_TIMED
+
+    vg_ms, brent_ms = wall_ms(value_and_grad), wall_ms(brent_eval)
+    vg_idle = profiled_idle(value_and_grad)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        value_and_grad()
+        torch.cuda.synchronize()
+    vg_top = top_kernels(prof, 6)
+    levels = len(ev.topology_from_tree(tree, part.sites)[0].schedule.levels)
+    # the eigendecomposition: on the host in float64 with its factors
+    # copied to the card (the fit's placement), against the card's eigh
+    subst = torch.cat([torch.exp(ls), torch.ones(1, dtype=torch.float64)])
+    freqs = torch.softmax(fl, dim=0)
+
+    def eigen_host():
+        w, left, right = eigen_decompose_torch(subst[None], freqs[None])
+        return [t.to(device, torch.float32) for t in (w, left, right)]
+
+    def eigen_card():
+        return eigen_decompose_torch(subst[None].to(device),
+                                     freqs[None].to(device))
+
+    eig_host_ms, eig_card_ms = wall_ms(eigen_host), wall_ms(eigen_card)
+    del score
+    torch.cuda.empty_cache()
+
+    gen = dict(zip(("A-C", "A-G", "A-T", "C-G", "C-T", "G-T"),
+                   INFER_PARAMS))
+    print(f"[34 modelopt] {card}: scripts/bench_infer.py's {tips} x "
+          f"{BENCH_INFER_SITES} ({len(bl)} branches, "
+          f"{len(next(iter(seqs.values())))} patterns), phase 33's final "
+          f"tree, float32: optimize_model(alpha=0.8, rounds=2) from JC in "
+          f"{fit_s:.2f} s: logL {fit.trajectory[0]!r} -> {fit.logl!r} "
+          f"(trajectory " + ", ".join(f"{x:.3f}" for x in fit.trajectory)
+          + f"), a fresh float64 Partition under the fitted model {want!r} "
+          f"(|d| {abs(fit.logl - want):.4f} <= {budget:.3f}, built in "
+          f"{fresh_s:.1f} s); L-BFGS steps {cnt.steps}, value-and-grad "
+          f"evaluations {cnt.grad}, Brent evaluations {cnt.plain}; fitted "
+          f"(generating): " + ", ".join(
+              f"{k} {v:.4f} ({g})" for k, v, g in zip(
+                  gen, fit.subst_params, INFER_PARAMS))
+          + ", freqs " + ", ".join(f"{v:.4f}" for v in fit.frequencies)
+          + f" ({', '.join(str(v) for v in INFER_FREQS)}), alpha "
+          f"{fit.alpha:.4f} ({INFER_ALPHA}); peak device memory "
+          f"{peak_gib:.3f} GiB; then {sweeps} full branch-length sweeps in "
+          f"{sweep_s:.2f} s: logL {logl_bl!r}, launches {launches}, plain "
+          f"versions run {sum(plain.calls.values())}", flush=True)
+    print(f"[34 modelopt] {card}: one value-and-grad (plain float32 sweep "
+          f"forward and backward) {vg_ms:.2f} ms, one Brent evaluation "
+          f"(forward under no_grad) {brent_ms:.2f} ms (mean of "
+          f"{MODELOPT_TIMED}, wall with the card synchronised); a "
+          f"value-and-grad under torch.profiler: wall {vg_idle[0]:.1f} ms, "
+          f"the card busy {vg_idle[1]:.1f} ms in {vg_idle[4]} kernels, idle "
+          f"{vg_idle[2] * 100:.1f}% of the wall ({vg_idle[3] * 100:.1f}% "
+          f"of the kernels' span); the tree's {levels} levels; its kernels "
+          f"with the most device time (ms, launches): " + "; ".join(
+              f"{name} {t:.2f} {n}" for name, t, n in vg_top)
+          + f"; the eigendecomposition on the host in "
+          f"float64 with its factors copied to the card (the fit's "
+          f"placement) {eig_host_ms:.3f} ms, torch.linalg.eigh on the card "
+          f"{eig_card_ms:.3f} ms", flush=True)
+    return dict(fit_s=fit_s, vg_ms=vg_ms, brent_ms=brent_ms,
+                idle=vg_idle[2], steps=cnt.steps, grad=cnt.grad,
+                plain=cnt.plain, launches=launches)
 
 
 def main():
@@ -5672,8 +6302,9 @@ def main():
           f"libpll_tpu's (start score, rounds, RF 0, logL rel {SEARCH_REL}); "
           f"float32 within the budget of a fresh float64 Partition (largest "
           f"|d| {inf['f32_d']:.3e}, RF to the CPU's float32 tree "
-          f"{inf['f32_rf']}); moves='tbr', mesh= and optimize_model=True "
-          f"raise their typed errors; U1 equal to the plain executor at "
+          f"{inf['f32_rf']}); moves='tbr' and mesh= raise their typed "
+          f"errors (optimize_model=True runs in phase 34); U1 equal to "
+          f"the plain executor at "
           f"{u1_hook.checked} launches, C1 to its plain version at "
           f"{c1_hook.checked}; card / CPU seconds a case: " + "; ".join(
               f"{name} {secs[name, str(d), 'card']:.2f}/"
@@ -5681,7 +6312,32 @@ def main():
               for name, *_ in INFER_SMALL
               for d in (torch.float64, torch.float32))
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
-    phase_infer(device, card)
+    found, alignment = phase_infer(device, card)
+
+    # ---------------------------------------------------- 34: model fitting
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)
+    with ReplayHook() as u1_hook, ScorerHook() as c1_hook:
+        mo = check_modelopt_small(device)
+    torch.set_num_threads(threads)
+    secs = mo["s"]
+    print(f"[34 modelopt small] {mo['fits']} fits ("
+          + ", ".join(name for name, *_ in MODELOPT_SMALL)
+          + f") and infer_tree(optimize_model=True) at {MODELOPT_INFER[1]} "
+          f"taxa x {MODELOPT_INFER[2]} sites (logL {mo['infer'][0]!r}, "
+          f"alpha {mo['infer'][1]!r}) on the card in float64 equal to the "
+          f"CPU's and to libpll_tpu's (trajectory and logL rel {SEARCH_REL},"
+          f" parameters {MODELOPT_PARAM_ABS} absolute, alpha and p-inv rel "
+          f"{MODELOPT_ALPHA_REL}); each Partition carries its fit; U1 equal "
+          f"to the plain executor at {u1_hook.checked} launches, C1 to its "
+          f"plain version at {c1_hook.checked}; card / CPU seconds: "
+          + "; ".join(f"{name} {secs[name, 'card']:.2f}/"
+                      f"{secs[name, 'cpu']:.2f}"
+                      for name in [n for n, *_ in MODELOPT_SMALL]
+                      + ["infer"])
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_modelopt(device, card, found, alignment)
 
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole

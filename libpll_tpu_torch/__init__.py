@@ -53,11 +53,19 @@ candidate scorer (kernel C1), the rounds that commit the best moves
 rounds to convergence, held to ``libpll_tpu``'s on the CPU by
 ``tests/test_torch_rounds.py`` and ``tests/test_torch_infer.py``.
 
-The top-level names are ``libpll_tpu``'s, less ``optimize_model``: model
-fitting is not ported yet (``infer_tree(optimize_model=True)`` raises), nor
-is multi-GPU sharding (``mesh=`` raises).
+Model fitting (``engine.modelopt``: ``optimize_model``, GTR rates and
+frequencies by L-BFGS through a differentiable eigendecomposition, Γ shape
+and p-inv by Brent, free rates, LG4-style mixtures; the L-BFGS a copy of
+optax's, ``engine.lbfgs``) runs on the Partition's device and is held to
+``libpll_tpu``'s on the CPU by ``tests/test_torch_modelopt.py``;
+``infer_tree(optimize_model=True)`` fits the model before and after the
+search.
+
+The top-level names are ``libpll_tpu``'s.  Multi-GPU sharding is not
+ported yet (``infer_tree(mesh=...)`` raises).
 """
 
+from .engine.modelopt import ModelOptResult, optimize_model
 from .engine.partition import (ASC_FELSENSTEIN, ASC_LEWIS, ASC_NONE,
                                ASC_STAMATAKIS, Operation, Partition)
 from .errors import PllError

@@ -1,6 +1,7 @@
 """General time-reversible rate matrix construction and eigendecomposition.
 
-Counterpart: ``libpll_tpu/models/gtr.py`` (its numpy part, copied).
+Counterpart: ``libpll_tpu/models/gtr.py`` (its numpy part, copied;
+:func:`eigen_decompose_torch` is ``eigen_decompose_jax`` in PyTorch).
 
 Capability parity with the reference's model layer (libpll
 `src/models.c:182-331`): the substitution parameters (upper triangle of the
@@ -19,6 +20,7 @@ where ``S = V diag(λ) Vᵀ``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def rate_matrix_symmetrized(subst_params: np.ndarray,
@@ -67,4 +69,39 @@ def eigen_decompose(subst_params: np.ndarray, frequencies: np.ndarray):
     d = np.sqrt(freqs)
     left = V / d[:, None]
     right = V.T * d[None, :]
+    return w, left, right
+
+
+def eigen_decompose_torch(subst_params: torch.Tensor,
+                          frequencies: torch.Tensor):
+    """Differentiable :func:`eigen_decompose` (``torch.linalg.eigh``),
+    batched over a leading rate-matrix axis: ``subst_params`` [R, E],
+    ``frequencies`` [R, S] -> ``(eigenvals [R, S], left [R, S, S], right
+    [R, S, S])`` (counterpart ``eigen_decompose_jax``, which model fitting
+    vmaps over the rate matrices).  The same steps in the same order:
+    each row normalised by its last rate where that rate is > 0,
+    symmetrised with √π, divided by the mean rate."""
+    freqs = frequencies
+    params = subst_params
+    s = freqs.shape[-1]
+    params = torch.where(params[:, -1:] > 0.0, params / params[:, -1:],
+                         params)
+
+    iu, ju = (torch.as_tensor(a, device=params.device)
+              for a in np.triu_indices(s, k=1))
+    vals = params * torch.sqrt(freqs[:, iu] * freqs[:, ju])
+    S = params.new_zeros((params.shape[0], s, s))
+    S[:, iu, ju] = vals
+    S[:, ju, iu] = vals
+    diag = (params.new_zeros((params.shape[0], s))
+            .index_add(1, iu, -params * freqs[:, ju])
+            .index_add(1, ju, -params * freqs[:, iu]))
+    S = S + torch.diag_embed(diag)
+    mean = (freqs * -diag).sum(dim=-1)
+    S = S / mean[:, None, None]
+
+    w, V = torch.linalg.eigh(S)
+    d = torch.sqrt(freqs)
+    left = V / d[:, :, None]
+    right = V.transpose(-1, -2) * d[:, None, :]
     return w, left, right

@@ -17,10 +17,14 @@ optimization), packaged as one driver:
           full sweep as the convergence check,
      until neither improves the log-likelihood.
 
+With ``optimize_model=True`` the model (GTR rates, frequencies and Γ
+shape, ``engine/modelopt.py``) is fitted on the start tree after the
+initial sweeps and again on the final tree, each fit followed by a full
+branch-length pass.
+
 Everything runs on the card unless ``device="cpu"`` is given (the plain
-versions of the kernels).  Not ported: ``optimize_model=True`` (model
-fitting, ``engine/modelopt.py``) and ``mesh=`` (the sites-sharded
-inference); both raise :class:`~libpll_tpu_torch.errors.EinvalError`
+versions of the kernels).  Not ported: ``mesh=`` (the sites-sharded
+inference), which raises :class:`~libpll_tpu_torch.errors.EinvalError`
 before any work.
 """
 
@@ -33,7 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..engine import blopt
+from ..engine import blopt, modelopt
 from ..engine.partition import Partition
 from ..errors import CapacityError, EinvalError
 from ..io import maps
@@ -53,7 +57,7 @@ class InferResult:
     rounds: int
     trajectory: List[float] = field(default_factory=list)
     timings: Dict[str, float] = field(default_factory=dict)
-    model: Optional[object] = None  # JAX's ModelOptResult; always None here
+    model: Optional[modelopt.ModelOptResult] = None  # the last fit's
 
 
 def infer_tree(sequences: Dict[str, str], *, states: int = 4,
@@ -86,17 +90,16 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
     on regression).  ``device``: the card when None (the kernels), or
     ``"cpu"`` (their plain versions).
 
-    ``mesh`` (sites-sharded inference, ROADMAP Queue 1 item 11) and
-    ``optimize_model=True`` (model fitting, item 10) are not ported and
-    raise :class:`EinvalError`; ``model_rounds`` and ``opt_pinv`` only
-    serve the latter and are kept for JAX's signature.
+    ``optimize_model`` fits the model (``engine.modelopt.optimize_model``,
+    ``model_rounds`` coordinate rounds, Γ shape when ``rate_cats > 1``,
+    p-inv with ``opt_pinv``) after the initial sweeps and after the
+    search, each fit followed by a full branch-length pass; the result's
+    ``model`` is the last fit's ``ModelOptResult``.  ``mesh``
+    (sites-sharded inference, ROADMAP Queue 1 item 11) is not ported and
+    raises :class:`EinvalError`.
     """
     from ..io.compress import compress_site_patterns
 
-    if optimize_model:
-        raise EinvalError("optimize_model=True: model fitting "
-                          "(engine/modelopt.py) is not ported yet (ROADMAP "
-                          "Queue 1 item 10)")
     if mesh is not None:
         raise EinvalError("mesh=: the sites-sharded inference is not ported "
                           "yet (ROADMAP Queue 1 item 11)")
@@ -199,6 +202,28 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
         timings["spr"] = 0.0
         trajectory = [logl]
 
+        mres = None
+
+        def run_modelopt():
+            # fit the model on the current tree, then re-optimize branch
+            # lengths under the new model (they were tuned under the old
+            # one)
+            nonlocal mres, logl
+            t0 = time.perf_counter()
+            mres = modelopt.optimize_model(
+                part, tree, opt_alpha=rate_cats > 1, opt_pinv=opt_pinv,
+                alpha=mres.alpha if mres is not None else alpha,
+                rounds=model_rounds, dtype=dtype)
+            timings["modelopt"] = (timings.get("modelopt", 0.0)
+                                   + time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            new_logl, _ = run_blopt()
+            timings["blopt"] += time.perf_counter() - t0
+            logl = max(logl, mres.logl, new_logl)
+            trajectory.append(logl)
+
+        if optimize_model:
+            run_modelopt()
         scorer = None
         # a radius-r candidate's dirty path is bounded by the prune ->
         # regraft path plus the eval-edge re-orientation: 2·radius + O(1)
@@ -258,5 +283,9 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
             logl = max(logl, new_logl)
             trajectory.append(logl)
 
+        if optimize_model:
+            # refit on the final topology (branch re-sweep included)
+            run_modelopt()
+
     return InferResult(tree, part, float(logl), int(pscore), rounds,
-                       trajectory, timings)
+                       trajectory, timings, model=mres)

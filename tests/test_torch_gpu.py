@@ -21,7 +21,8 @@ op-table kernel U1 with branch-length optimisation (chip_smoke's phase
 27), and the candidate-replay kernel C1 with the batched SPR/NNI scorer
 and the scaling vote's NaN rule (chip_smoke's phase 30), and the SPR/NNI
 rounds and a small ``infer_tree`` on the card against the CPU (chip_smoke's
-phase 32; float64 logL rel 1e-9 there, a search's tolerance).
+phase 32; float64 logL rel 1e-9 there, a search's tolerance), and model
+fitting's small cases (chip_smoke's phase 34).
 ``test_partition_builds_on_the_card_by_default`` needs no card and runs
 in the CPU suite.
 """
@@ -876,3 +877,16 @@ def test_small_infer_tree_on_card_matches_cpu(cuda):
     assert rf_distance(got.tree, want.tree) == 0
     np.testing.assert_allclose(got.logl, want.logl, rtol=1e-9)
     assert got.partition.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_model_fitting_on_card_matches_cpu(cuda):
+    """chip_smoke's phase 34, small: the five fits (Γ, free, fixed, p-inv,
+    LG4X) and ``infer_tree(optimize_model=True)`` in float64 on the card
+    against the CPU and libpll_tpu's recorded results, each Partition
+    carrying its fit, U1 and C1 held against their plain versions at
+    every launch."""
+    with chip_smoke.ReplayHook() as u1, chip_smoke.ScorerHook() as c1:
+        out = chip_smoke.check_modelopt_small(cuda)
+    assert out["fits"] == len(chip_smoke.MODELOPT_SMALL)
+    assert u1.checked > 0 and c1.checked > 0

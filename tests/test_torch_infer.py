@@ -7,7 +7,8 @@ port with ``device="cpu"``: the plain versions of P2/P3, U1, C1 and N1),
 with ``tests/test_infer.py``'s and ``tests/test_search_quality.py``'s
 data and arguments (``max_rounds`` at most 4 here): SPR and NNI moves, local branch-length passes of
 radius 3 and none, compressed and uncompressed columns, protein (20
-states, two rates) and the 7-taxon exhaustive case's alignment.
+states, two rates) and the 7-taxon exhaustive case's alignment; and
+``optimize_model=True`` on ``tests/test_modelopt.py``'s inference data.
 
 Tolerances.  The starting parsimony score and the number of rounds are
 integers and are held equal; the final topologies are at RF distance 0.
@@ -31,6 +32,7 @@ from libpll_tpu.models.gamma import compute_gamma_cats as jgamma
 from libpll_tpu.search.infer import infer_tree as jinfer
 from libpll_tpu.tree import utree as jut
 
+from libpll_tpu_torch.engine.modelopt import ModelOptResult
 from libpll_tpu_torch.errors import (CapacityError, EinvalError,
                                      KernelError, PllError)
 from libpll_tpu_torch.search import infer as infer_mod
@@ -40,6 +42,7 @@ from libpll_tpu_torch.tree.compare import rf_distance
 from libpll_tpu_torch.utils.flagship import infer_alignment
 
 from test_modelopt import TRUE_FREQS, TRUE_PARAMS
+from test_modelopt import _random_tree as modelopt_tree
 from test_modelopt import _simulate as simulate_sites
 from test_spr_search import (ALPHA, CATS, FREQS, PARAMS, TIPS, _random_tree,
                              _simulate)
@@ -133,16 +136,14 @@ def test_infer_tree_matches_jax(case):
 
 
 def test_infer_tree_errors_are_typed():
-    """``optimize_model=True`` (item 10) and ``mesh=`` (item 11) raise a
-    PllError naming their ROADMAP item, before any work; an unknown move
-    set raises ValueError as JAX's; without a card the default device
-    raises KernelError (no fallback to the CPU)."""
+    """``mesh=`` (item 11) raises a PllError naming its ROADMAP item,
+    before any work; an unknown move set raises ValueError as JAX's;
+    without a card the default device raises KernelError (no fallback to
+    the CPU)."""
     seqs = dna(12)
-    with pytest.raises(EinvalError, match="item 10") as err:
-        infer_tree(seqs, optimize_model=True, device="cpu")
-    assert isinstance(err.value, PllError)
-    with pytest.raises(EinvalError, match="item 11"):
+    with pytest.raises(EinvalError, match="item 11") as err:
         infer_tree(seqs, mesh=object(), device="cpu")
+    assert isinstance(err.value, PllError)
     with pytest.raises(ValueError):
         infer_tree(seqs, moves="tbr", device="cpu")
     if not torch.cuda.is_available():
@@ -150,14 +151,50 @@ def test_infer_tree_errors_are_typed():
             infer_tree(seqs, **GTR)
 
 
-def test_optimize_model_raises_before_any_work(monkeypatch):
-    def no_work(*a, **k):
-        raise AssertionError("infer_tree did work before raising")
+@functools.lru_cache(maxsize=None)
+def model_fit_case():
+    """``tests/test_modelopt.py:289``'s data (10 taxa, Γ(0.5) site rates)
+    at 200 sites, its arguments with ``max_rounds`` 2, and JAX's result."""
+    rng = np.random.default_rng(37)
+    newick = modelopt_tree(10, rng)
+    site_rates = jgamma(0.5, 4)[rng.integers(0, 4, 200)]
+    seqs = simulate_sites(newick, 200, rng, site_rates=site_rates)
+    kw = dict(rate_cats=4, seed=5, radius=4, max_rounds=2,
+              optimize_model=True, model_rounds=1)
+    return seqs, kw, jinfer(seqs, **kw)
 
-    monkeypatch.setattr(infer_mod, "fastparsimony_stepwise", no_work)
-    monkeypatch.setattr(infer_mod, "FastParsimony", no_work)
-    with pytest.raises(EinvalError):
-        infer_tree(dna(12), optimize_model=True, device="cpu")
+
+def test_infer_tree_with_model_optimization_matches_jax():
+    """``infer_tree(optimize_model=True)``: the model fitted after the
+    initial sweeps and after the search, as JAX's: the same start score,
+    rounds and topology (RF 0), the trajectory and logL rel 1e-9, the
+    ``modelopt`` timing, the last fit's ``ModelOptResult`` (logL rel
+    1e-9, parameters 1e-4 absolute, alpha rel 1e-3) and the Partition
+    carrying it."""
+    seqs, kw, want = model_fit_case()
+    got = infer_tree(seqs, device="cpu", **kw)
+    assert got.start_parsimony_score == want.start_parsimony_score
+    assert got.rounds == want.rounds
+    np.testing.assert_allclose(got.trajectory, want.trajectory, rtol=REL)
+    np.testing.assert_allclose(got.logl, want.logl, rtol=REL)
+    assert got.trajectory == sorted(got.trajectory)
+    jtree = tut.parse_newick_string(jut.export_newick(want.tree.root))
+    assert rf_distance(got.tree, jtree) == 0
+    assert "modelopt" in got.timings
+    assert set(got.timings) == set(want.timings)
+    m, w = got.model, want.model
+    assert isinstance(m, ModelOptResult)
+    np.testing.assert_allclose(m.trajectory, w.trajectory, rtol=REL)
+    np.testing.assert_allclose(m.logl, w.logl, rtol=REL)
+    for name in ("subst_params", "frequencies", "rates"):
+        np.testing.assert_allclose(getattr(m, name), getattr(w, name),
+                                   rtol=0, atol=1e-4)
+    np.testing.assert_allclose(m.alpha, w.alpha, rtol=1e-3)
+    np.testing.assert_array_equal(got.partition.subst_params[0],
+                                  m.subst_params)
+    np.testing.assert_array_equal(got.partition.frequencies[0],
+                                  m.frequencies)
+    np.testing.assert_array_equal(got.partition.rates, m.rates)
 
 
 def test_infer_does_not_mask_unrelated_errors(monkeypatch):
