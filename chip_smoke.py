@@ -188,9 +188,14 @@ Phases, one line each:
  24. parsimony small: P1-P3 against their plain versions on the card,
      exactly (words, costs, scores, ``back``, ``edge_rows``), at every
      launch of 32 configurations (4-200 taxa, DNA and 20 states with
-     ambiguity codes, weighted patterns, 1-3 partitions, seeds 0, 1, 42,
-     12345); the card's FastParsimony, both stepwise engines and the
-     Sankoff Parsimony (float64, rel 0) against the CPU's;
+     ambiguity codes, weighted patterns, 1-3 partitions, seeds 0, 1, 42
+     and 12345); the card's FastParsimony, both stepwise engines and the
+     Sankoff Parsimony (float64, rel 0) against the CPU's; P3's builds
+     with its walk's tables forced into device or shared memory over
+     other grids equal to its own plan's (``COMMIT_FORCED`` at
+     ``COMMIT_FORCED_CASES``), and a build past the
+     shared-memory budget (``PAST_BUDGET``), its last insertion against
+     the plain version;
  25. stepwise: both engines at 2 048 x 2 048 and 500 x 10 000 with their
      counters at 0 around each: score and Newick equal to libpll_tpu's
      (``STEPWISE_JAX``, recorded from the JAX package on the CPU), the
@@ -201,7 +206,7 @@ Phases, one line each:
      at the last insertion and P1 over the final tree against their plain
      versions and their bounds (integer logic and popcount throughput,
      bytes at 3.35 TB/s); a whole build at 200 x 2 000 by the plain
-     versions;
+     versions (``stepwise_profile``, ``last_insertion_p3``);
  27. blopt small: U1 against the plain executor at every launch
      (``ReplayHook``) of phase 20's configurations and of random op
      tables (every scale mode, S 4/20/5, C 1-8, float64 rel 1e-12 with
@@ -216,11 +221,15 @@ Phases, one line each:
  29. blopt times: U1 on a full ``update_partials`` against its bound and
      the plain executor; ms a sweep and an edge of each optimiser, and the
      device's idle share over one (torch.profiler);
- 30. scorer small: C1 against its plain version at every launch
-     (``ScorerHook``: the scratch rows and scalers its tables write,
-     float64 rel 1e-12 with scalers equal, float32 by phase 3's rule) for
-     phase 20's configurations (every scale mode, +I, the asc modes, S
-     4/20, C 1-4) in float64 and float32, SPR and NNI candidates; the
+ 30. scorer small: C1 at every launch (``ScorerHook``: its scoring
+     instance's logL against the plain scorer's, float64 rel 1e-12,
+     float32 the budget; its replay instance's scratch rows and scalers
+     against the plain replay's, float64 rel 1e-12 with scalers equal,
+     float32 by phase 3's rule) for phase 20's configurations (every
+     scale mode, +I, the asc modes, S 4/20, C 1-4) and ``SCORER_EXTRA``
+     (five states at eight rates, eight rates per-rate with +I) in float64
+     (also with the pool capped at ``SCORER_POOL_CAPS`` slots, so that
+     rows spill) and float32, SPR and NNI candidates; the
      logL on the card against the plain scorer on the card and the CPU
      scorer, the base buffers bit-identical, six candidates a case
      against a fresh Partition's evaluation of the moved tree; the NaN
@@ -230,8 +239,10 @@ Phases, one line each:
      scoring: one launch a batch, finite scores, the base unchanged;
      candidates, ``n_ops_max`` and the real ops a candidate, the host
      encode time, the scoring's wall time, the card's busy time and idle
-     share, C1 a launch against its bound and its plain version, the
-     plain scorer a batch, C1 against its plain version on one batch, and
+     share, on one batch (``measure_batch``) the scoring instance against
+     its bound and the plain scorer, the batch's card time, the plan's
+     pool and spills, the replay instance against its bound and its
+     plain version, and
      four candidates (the best among them) against a fresh evaluation of
      the moved tree within the f32 budget;
  32. search small: ``spr_round`` (commit 1, 4 and 8, per-site and
@@ -255,7 +266,11 @@ Phases, one line each:
      plain version run; time-to-tree and the timings by phase, each
      round's candidates and seconds, each branch-length pass, RF to the
      generating tree, the peak device memory, and the card's idle share
-     over one SPR round and one full sweep (torch.profiler);
+     over one SPR round and one full sweep (torch.profiler) with C1's, U1's
+     and N1's time a launch in them; C1 on the final tree's first batch of
+     128 (``measure_batch``); the start tree's device build again, P2 and
+     P3 a launch, and P3 at its last insertion against the plain
+     version;
  34. model fitting: small fits in float64 on the card against the CPU and
      against libpll_tpu's results recorded on the CPU (``MODELOPT_JAX``):
      Γ, free and fixed rates, p-inv, an LG4X mixture (free rates and
@@ -281,6 +296,7 @@ before either is printed; so does a machine without CUDA, or a directory
 without the package.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -2864,6 +2880,36 @@ def stepwise_pair(parts, order):
     return topo[0], commit_pair(rows, topo, mode="final")[0]
 
 
+class ForcedCommitPlan:
+    """While active, P3 keeps its walk's tables in ``tables`` ("shared" or
+    "global") memory and splits the words over ``grid`` blocks (None: the
+    plan's own): ``ops.fitch.commit_plan`` at the card's shared-memory
+    limit, or at 0 for device memory."""
+
+    def __init__(self, tables, grid=None):
+        from libpll_tpu_torch.ops import fitch
+
+        self.fitch, self.tables, self.grid = fitch, tables, grid
+        self.real = fitch.plan_for
+
+    def __enter__(self):
+        fitch = self.fitch
+
+        def plan_for(parts, n_tips):
+            sms, smem = fitch._limits(parts[0][0].device.index or 0)
+            plan = fitch.commit_plan(
+                [v.shape[2] for v, _ in parts], n_tips, sms,
+                smem if self.tables == "shared" else 0)
+            check(plan.shared == (self.tables == "shared"),
+                  f"{n_tips} taxa: P3's tables do not fit shared memory")
+            return plan._replace(grid=self.grid) if self.grid else plan
+        fitch.plan_for = plan_for
+        return self
+
+    def __exit__(self, *exc):
+        self.fitch.plan_for = self.real
+
+
 def check_parsimony_small(device):
     """Phase 24: P1-P3 against their plain versions on the card, exactly,
     at PARSIMONY_SMALL x PARSIMONY_SEEDS (4-200 taxa, DNA and 20 states
@@ -2977,6 +3023,69 @@ def check_parsimony_small(device):
               f"{out[0][0]!r} vs the CPU {out[1][0]!r}")
         n += 1
     return n
+
+
+# P3's plan forced at three of phase 24's configurations (seed 0: three
+# DNA partitions, two of 20 states and one, and 63 words at 200 taxa):
+# its tables in device memory over the plan's grid and over three blocks,
+# in shared memory over five
+COMMIT_FORCED = (("global", None), ("global", 3), ("shared", 5))
+COMMIT_FORCED_CASES = tuple(PARSIMONY_SMALL[i] for i in (4, 6, 7))
+PAST_BUDGET = (3000, 300)  # taxa x sites whose walk tables exceed a block's
+
+
+def check_commit_plans(device):
+    """P3 under each of COMMIT_FORCED: the device build of each of
+    COMMIT_FORCED_CASES (seed 0) by the kernels, its ``back``,
+    ``edge_rows``, final scores, rows and costs equal to the build under
+    P3's own plan (which phase 24 holds against the plain version at
+    every launch).  Returns the configurations checked."""
+    import torch
+
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.stepwise import direction_rows
+    from libpll_tpu_torch.utils.rng import shuffled_order
+
+    def build(cfg):
+        rows = direction_rows(parsimony_parts(*cfg, 0, device))
+        return (*fitch.stepwise_build(rows, shuffled_order(cfg[0], 0)),
+                *(t for pair in rows for t in pair))
+
+    n = 0
+    for cfg in COMMIT_FORCED_CASES:
+        want = build(cfg)
+        for tables, grid in COMMIT_FORCED:
+            with ForcedCommitPlan(tables, grid):
+                got = build(cfg)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"P3 {tables} memory, {grid} blocks, {cfg}: the build "
+                  f"differs from the one under P3's own plan")
+        n += 1
+    return n
+
+
+def past_budget_p3(device, sms, clock_mhz):
+    """The device build at PAST_BUDGET (bench_stepwise's data; its walk's
+    tables in device memory), its last insertion held against the plain
+    version (``last_insertion_p3``)."""
+    import torch
+
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+    from libpll_tpu_torch.utils.rng import shuffled_order
+
+    tips, sites = PAST_BUDGET
+    seqs, _ = bench_stepwise_alignment(tips, sites)
+    part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
+    peaks = (sms * LOGIC_PER_SM_CLOCK * clock_mhz * 1e6,
+             sms * POPC_PER_SM_CLOCK * clock_mhz * 1e6)
+    last = last_insertion_p3(part, shuffled_order(tips, STEPWISE_SEED),
+                             peaks)
+    check(not last["plan"].shared, f"{tips} taxa: P3's tables fit shared "
+                                   f"memory ({last['plan']})")
+    del part, last["state"]
+    torch.cuda.empty_cache()
+    return last
 
 
 def bench_stepwise_alignment(tips, sites):
@@ -3160,21 +3269,80 @@ def event_ms(fn, prepare=None, iters=5):
     return float(np.median(times))
 
 
-def profiled_ms(fn, name, prepare=None, iters=5):
+def busy_event_ms(fn, prepare=None, iters=5):
+    """Median device ms of ``fn()`` by CUDA events with the card kept busy
+    (``torch.cuda._sleep``) while the host issues the call, so that the
+    events bracket its kernels back to back and not the host's issue
+    (``prepare()`` first, outside the events)."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the card's clock
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+class DeviceMs(float):
+    """A device time in ms, with how it was measured (``by``)."""
+
+    def __new__(cls, ms, by):
+        out = super().__new__(cls, ms)
+        out.by = by
+        return out
+
+
+def profiled_ms(fn, name, prepare=None, iters=5, sessions=3):
     """Device ms a call of the kernels whose name holds ``name`` inside
     ``fn()``, from torch.profiler over ``iters`` calls (``prepare()``
-    before each): the kernels' own time, without the host's."""
+    before each): the kernels' own time, without the host's.  A session
+    opens with one call and a mark (``torch.cuda._sleep``'s spin_kernel),
+    and counts only the kernels after the mark: the profiler misses some
+    of a session's first kernels.  Every kernel's launches counted must be
+    a whole number a call (it has also dropped some late in a long
+    process); after ``sessions`` sessions that fail this,
+    ``busy_event_ms`` of the call, which also holds the host's work after
+    a blocking copy.  Returns a ``DeviceMs`` whose ``by`` says which, and
+    says so on stdout at the fallback."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if prepare is not None:
-                prepare()
-            fn()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    return kernel_ms(prof, (name,))[0][name][0] / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters + 1):
+                if prepare is not None:
+                    prepare()
+                fn()
+                if i == 0:
+                    torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [i for i, (*_, k) in enumerate(spans) if "spin_kernel" in k]
+        after = spans[marks[-1] + 1:] if marks else []
+        mine = [(s, e, k) for s, e, k in after if name in k]
+        counts = collections.Counter(k for *_, k in mine)
+        if mine and all(c % iters == 0 for c in counts.values()):
+            return DeviceMs(sum(e - s for s, e, _ in mine) / 1e3 / iters,
+                            "profiler")
+    ms = busy_event_ms(fn, prepare, iters)
+    print(f"[profiler] {name or 'kernels'}: launches counted over {iters} "
+          f"calls {dict(counts) if marks else 'none (no mark)'}, not a "
+          f"whole number a call: {ms:.4f} ms by CUDA events with the card "
+          f"kept busy", flush=True)
+    return DeviceMs(ms, "CUDA events, the card kept busy, the host's work "
+                        "after a blocking copy included")
 
 
 def kernel_ms(prof, names):
@@ -3213,6 +3381,104 @@ def plain_build(parts, order):
     return fitch.stepwise_commit_plain(rows, *topo, mode="final")
 
 
+def last_insertion_p3(part, order, peaks):
+    """P3 at the last insertion of the device build of ``part`` in
+    ``order``: the state before it built by the kernels, then P3 and its
+    plain version on clones of it (exactly equal), P3's device time by
+    torch.profiler (5 calls), the plain version's by CUDA events, the rows
+    and dependent levels it refreshes and its bound.  Returns a dict."""
+    import torch
+
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search import stepwise as sw
+
+    tips = len(order)
+    device = part.vectors.device
+    s, w = part.vectors.shape[1:]
+    rows = sw.direction_rows([part])
+    topo = fitch.stepwise_topology(order, device)
+    plan = fitch.plan_for(rows, tips)
+    work = fitch.commit_workspace(plan, 1, tips, device)
+    scores = torch.empty(2 * tips - 3, dtype=torch.int32, device=device)
+    fitch.stepwise_commit(rows, *topo, mode="star", plan=plan, work=work)
+    for i in range(3, tips - 1):
+        fitch.fitch_scores(*rows[0], topo[1][:2 * i - 3], back=topo[0],
+                           tip=order[i], out=scores[:2 * i - 3])
+        fitch.stepwise_commit(rows, *topo, mode="insert", scores=scores,
+                              insertion=i, tip=order[i], plan=plan, work=work)
+    i, tip = tips - 1, order[tips - 1]
+    fitch.fitch_scores(*rows[0], topo[1][:2 * i - 3], back=topo[0], tip=tip,
+                       out=scores[:2 * i - 3])
+    kw = dict(mode="insert", scores=scores, insertion=i, tip=tip)
+    trial = {}
+
+    def reset():  # the state before the last insertion, afresh
+        trial["rows"] = [(v.clone(), c.clone()) for v, c in rows]
+        trial["topo"] = (topo[0].clone(), topo[1].clone()) + topo[2:]
+
+    ms = profiled_ms(lambda: fitch.stepwise_commit(
+        trial["rows"], *trial["topo"], plan=plan, work=work, **kw),
+        "stepwise_commit_kernel", reset)
+    plain_ms = event_ms(lambda: fitch.stepwise_commit_plain(
+        trial["rows"], *trial["topo"], **kw), reset)
+    reset()
+    err = commit_pair(trial["rows"], trial["topo"], **kw)[1]
+    co1, co2 = fitch._ring_co_tables(tips)
+    n_rows, levels = refresh_levels(trial["topo"][0].cpu().numpy(), co1, co2,
+                                    tips, tips + 3 * (i - 2))
+    check(n_rows == 2 * i - 1, f"the last insertion refreshed {n_rows} "
+                               f"rows, not {2 * i - 1}")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, rows=n_rows,
+                levels=levels, bound=fitch_work(peaks, w, s, rows=n_rows),
+                plan=plan, words=w, state=(rows, topo, scores))
+
+
+def stepwise_profile(part, labels, seed, peaks):
+    """A device build of ``part`` under torch.profiler: P2's and P3's
+    device time and launches, the device's idle share, the build's wall
+    time, and P3's bound over the build ((n - 1)^2 - 1 rows refreshed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libpll_tpu_torch.search import stepwise as sw
+
+    tips = len(labels)
+    s, w = part.vectors.shape[1:]
+    names = ("fitch_scores_kernel", "stepwise_commit_kernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sw.StepwiseBuilder([part], labels).build_device(seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if any(e.device_type == torch.autograd.DeviceType.CUDA
+           for e in prof.events()):
+        by_name, idle = kernel_ms(prof, names)
+    else:  # not measured: the profiler recorded no kernel
+        by_name, idle = {k: (float("nan"), 0) for k in names}, float("nan")
+    refreshed = (tips - 1) ** 2 - 1
+    edges = sum(2 * i - 3 for i in range(3, tips))
+    return dict(p2=by_name[names[0]], p3=by_name[names[1]], idle=idle,
+                wall=wall, refreshed=refreshed,
+                p2_bound=fitch_work(peaks, w, s, edges=edges),
+                p3_bound=fitch_work(peaks, w, s, rows=refreshed))
+
+
+def stepwise_text(prof):
+    """``stepwise_profile``'s numbers as text."""
+    (p2_ms, p2_n), (p3_ms, p3_n) = prof["p2"], prof["p3"]
+    p2, p3 = prof["p2_bound"], prof["p3_bound"]
+    return (f"P2 {p2_n} launches, {p2_ms / max(p2_n, 1) * 1e3:.2f} us a "
+            f"launch ({p2_ms:.2f} ms in all, bound {p2[0]:.2f} ms ({p2[1]}),"
+            f" {p2[0] / p2_ms * 100:.1f}%); P3 {p3_n} launches, "
+            f"{p3_ms / max(p3_n, 1) * 1e3:.2f} us a launch ({p3_ms:.2f} ms "
+            f"in all, {prof['refreshed']} rows refreshed, bound {p3[0]:.2f} "
+            f"ms ({p3[1]}), {p3[0] / p3_ms * 100:.2f}%); device idle "
+            f"{prof['idle'] * 100:.1f}% of the kernels' span; the build "
+            f"{prof['wall']:.3f} s wall under the profiler")
+
+
 def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     """Phase 26: at each of STEPWISE_CASES, a device build under
     torch.profiler (P2's and P3's device time a launch, the device's idle
@@ -3227,7 +3493,6 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     3.35 TB/s); a whole build at 200 x 2 000 by the plain versions and by
     the kernels.  Returns the numbers the JSON line takes."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from libpll_tpu_torch.io import maps
     from libpll_tpu_torch.ops import fitch
@@ -3238,36 +3503,15 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
 
     peaks = (sms * LOGIC_PER_SM_CLOCK * clock_mhz * 1e6,
              sms * POPC_PER_SM_CLOCK * clock_mhz * 1e6)
-    names = ("fitch_scores_kernel", "stepwise_commit_kernel")
     for tips, sites in STEPWISE_CASES:
         seqs, labels = bench_stepwise_alignment(tips, sites)
         part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
-        s, w = part.vectors.shape[1:]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sw.StepwiseBuilder([part], labels).build_device(STEPWISE_SEED)
-            torch.cuda.synchronize()
-        by_name, idle = kernel_ms(prof, names)
-        (p2_ms, p2_n), (p3_ms, p3_n) = (by_name[k] for k in names)
-        # the build's work: insertion i refreshes the 3 rows of its ring
-        # and the 2 rows of each older inner node that face away from the
-        # new tip, 2i - 1 in all (the star 3): (n - 1)^2 - 1 for the build
+        prof = stepwise_profile(part, labels, STEPWISE_SEED, peaks)
         run = runs[(tips, sites)]
-        refreshed = (tips - 1) ** 2 - 1
-        edges = sum(2 * i - 3 for i in range(3, tips))
-        p2 = fitch_work(peaks, w, s, edges=edges)
-        p3 = fitch_work(peaks, w, s, rows=refreshed)
         print(f"[26 stepwise times] {card}: {tips} x {sites}: device build "
               f"{run['device']['s']:.3f} s wall, host engine "
-              f"{run['host']['s']:.3f} s; under the profiler P2 {p2_n} "
-              f"launches, {p2_ms / max(p2_n, 1) * 1e3:.2f} us a launch "
-              f"({p2_ms:.2f} ms in all, bound {p2[0]:.2f} ms ({p2[1]}), "
-              f"{p2[0] / p2_ms * 100:.1f}%); P3 {p3_n} launches, "
-              f"{p3_ms / max(p3_n, 1) * 1e3:.2f} us a launch ({p3_ms:.2f} ms "
-              f"in all, {refreshed} rows refreshed, bound {p3[0]:.2f} ms "
-              f"({p3[1]}), {p3[0] / p3_ms * 100:.2f}%); device idle "
-              f"{idle * 100:.1f}% of the kernels' span", flush=True)
+              f"{run['host']['s']:.3f} s; under the profiler "
+              + stepwise_text(prof), flush=True)
 
     # the largest case up to its last insertion
     tips, sites = STEPWISE_CASES[0]
@@ -3275,15 +3519,9 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
     s, w = part.vectors.shape[1:]
     order = shuffled_order(tips, STEPWISE_SEED)
-    rows = sw.direction_rows([part])
-    topo = fitch.stepwise_topology(order, device)
-    scores = torch.empty(2 * tips - 3, dtype=torch.int32, device=device)
-    fitch.stepwise_commit(rows, *topo, mode="star")
-    for i in range(3, tips - 1):
-        fitch.fitch_scores(*rows[0], topo[1][:2 * i - 3], back=topo[0],
-                           tip=order[i], out=scores[:2 * i - 3])
-        fitch.stepwise_commit(rows, *topo, mode="insert", scores=scores,
-                              insertion=i, tip=order[i])
+    last = last_insertion_p3(part, order, peaks)
+    # P2 at the same state
+    rows, topo, scores = last["state"]
     i, tip = tips - 1, order[tips - 1]
     ne = 2 * i - 3
     u = topo[1][:ne]
@@ -3296,31 +3534,14 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
         return fitch.fitch_insert_scores_plain(
             *rows[0], rows[0][0][tip], u.long(), topo[0][u.long()].long())
 
-    err = {"p2": max_diff(p2_run(), p2_plain())}
+    err = {"p2": max_diff(p2_run(), p2_plain()), "p3": last["err"]}
     check(err["p2"] == 0, f"P2 at the last insertion differs from its "
                           f"plain version by {err['p2']}")
     ms = {"p2": profiled_ms(p2_run, "fitch_scores_kernel"),
-          "p2_call": event_ms(p2_run), "p2_plain": event_ms(p2_plain)}
-    kw = dict(mode="insert", scores=scores, insertion=i, tip=tip)
-    trial = {}
-
-    def reset():  # the state before the last insertion, afresh
-        trial["rows"] = [(v.clone(), c.clone()) for v, c in rows]
-        trial["topo"] = (topo[0].clone(), topo[1].clone()) + topo[2:]
-
-    ms["p3"] = profiled_ms(lambda: fitch.stepwise_commit(
-        trial["rows"], *trial["topo"], **kw), "stepwise_commit_kernel", reset)
-    ms["p3_plain"] = event_ms(lambda: fitch.stepwise_commit_plain(
-        trial["rows"], *trial["topo"], **kw), reset)
-    reset()
-    err["p3"] = commit_pair(trial["rows"], trial["topo"], **kw)[1]
-    co1, co2 = fitch._ring_co_tables(tips)
-    last_rows, last_levels = refresh_levels(
-        trial["topo"][0].cpu().numpy(), co1, co2, tips, tips + 3 * (i - 2))
-    check(last_rows == 2 * i - 1, f"the last insertion refreshed "
-                                  f"{last_rows} rows, not {2 * i - 1}")
-    bounds = {"p2": fitch_work(peaks, w, s, edges=ne),
-              "p3": fitch_work(peaks, w, s, rows=last_rows)}
+          "p2_call": event_ms(p2_run), "p2_plain": event_ms(p2_plain),
+          "p3": last["ms"], "p3_plain": last["plain_ms"]}
+    last_rows, last_levels = last["rows"], last["levels"]
+    bounds = {"p2": fitch_work(peaks, w, s, edges=ne), "p3": last["bound"]}
 
     # P1 over the final tree's traversal
     tree, _ = sw.StepwiseBuilder([part], labels).build_device(STEPWISE_SEED)
@@ -3352,17 +3573,22 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     bounds["p1"] = fitch_work(peaks, w, s, ops=len(ops))
     print(f"[26 stepwise times] {card}: {tips} x {sites}, the last "
           f"insertion ({ne} candidate edges, {last_rows} rows refreshed in "
-          f"{last_levels} dependent levels), "
-          f"each kernel's device time a call (torch.profiler, 5 calls) "
-          f"against its plain version's time a call (CUDA events with the "
-          f"card idle before it, host work included, median of 5): P2 "
-          f"{ms['p2'] * 1e3:.2f} us (the wrapper's whole call "
+          f"{last_levels} dependent levels; P3 {last['plan'].grid} blocks of "
+          f"{last['words']} words, tables in "
+          f"{'shared' if last['plan'].shared else 'device'} memory), "
+          f"each kernel's device time a call (torch.profiler, 5 calls, "
+          f"unless said) against its plain version's time a call (CUDA "
+          f"events with the card idle before it, host work included, median"
+          f" of 5): P2 {ms['p2'] * 1e3:.2f} us ({ms['p2'].by}; the wrapper's"
+          f" whole call "
           f"{ms['p2_call'] * 1e3:.2f} us) vs plain {ms['p2_plain'] * 1e3:.2f}"
           f" us, bound {bounds['p2'][0] * 1e3:.3f} us ({bounds['p2'][1]}); "
-          f"P3 {ms['p3'] * 1e3:.2f} us vs plain {ms['p3_plain']:.3f} ms, "
+          f"P3 {ms['p3'] * 1e3:.2f} us ({ms['p3'].by}) vs plain "
+          f"{ms['p3_plain']:.3f} ms, "
           f"bound {bounds['p3'][0] * 1e3:.3f} us ({bounds['p3'][1]}); P1 "
           f"over the final tree ({len(ops)} ops in {len(levels)} waves) "
-          f"{ms['p1']:.4f} ms (the wrapper's whole call {ms['p1_call']:.4f} "
+          f"{ms['p1']:.4f} ms ({ms['p1'].by}; the wrapper's whole call "
+          f"{ms['p1_call']:.4f} "
           f"ms) vs plain {ms['p1_plain']:.4f} ms, bound "
           f"{bounds['p1'][0] * 1e3:.3f} us ({bounds['p1'][1]})", flush=True)
 
@@ -3386,7 +3612,7 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
           f"x {small[1]}: kernels {walls[0][0]:.1f} ms, plain versions "
           f"{walls[1][0]:.1f} ms (wall, the card synchronised at the ends)",
           flush=True)
-    del part, rows, trial, p1, small_part
+    del part, rows, p1, small_part
     torch.cuda.empty_cache()
     big = runs[STEPWISE_CASES[0]]
     return {"ms": ms, "bounds": bounds, "err": err,
@@ -3982,6 +4208,34 @@ SPR_PRUNE, SPR_RADIUS, SPR_CAP, SPR_BATCH = 64, 3, 128, 32
 SCORER_RADIUS = 4  # phase 30's SPR neighbourhoods
 SCORER_BRUTE = 6  # candidates a case checked by a fresh evaluation
 SCORER_BRUTE_ATOL = 1e-8  # float64, tests/test_spr_search.py's
+# phase 30's configurations beyond phase 20's: five states (tip CLVs) at
+# eight rates, and eight rates per-rate with +I
+SCORER_EXTRA = (("five_states", {"states": 5, "tip_clv": True,
+                                 "rate_cats": 8}),
+                ("eight_rates", {"rate_cats": 8, "scaling": "rate",
+                                 "pinv": 0.2}))
+SCORER_POOL_CAPS = (0, 1)  # pool slots that force spills (float64 cases)
+
+
+class PoolCap:
+    """While active, C1's scoring instance gets at most ``slots`` pool
+    slots (``ops.incremental.score_layout`` capped), so that rows spill."""
+
+    def __init__(self, slots):
+        from libpll_tpu_torch.ops import incremental as inc_ops
+
+        self.inc_ops, self.slots = inc_ops, slots
+        self.real = inc_ops.score_layout
+
+    def __enter__(self):
+        def capped(*args):
+            tile, slots, smem = self.real(*args)
+            return tile, min(slots, self.slots), smem
+        self.inc_ops.score_layout = capped
+        return self
+
+    def __exit__(self, *exc):
+        self.inc_ops.score_layout = self.real
 
 
 def written_rows(table, n_nodes, n_scalers, scale_mode):
@@ -4001,41 +4255,76 @@ def written_rows(table, n_nodes, n_scalers, scale_mode):
 
 
 class ScorerHook:
-    """While active, every C1 launch (``ops.incremental.replay_candidates``
-    on a CUDA tensor) is held against its plain version on the same
-    inputs, on the card, over the scratch rows its tables write: float64
-    CLVs rel F64_REL of each (row, rate, site) block's largest entry and
-    the scalers equal; float32 by phase 3's rule (``replay_close_f32``).
-    Counts the launches it checked; keeps the largest CLV error."""
+    """While active, every launch of C1's scoring instance
+    (``ops.incremental.score_candidates`` on a CUDA tensor) is held against
+    the plain scorer (``score_candidates_plain``) on the same inputs on the
+    card: the logL float64 rel F64_REL, float32 within the budget
+    (``logl_close``); and C1's replay instance (``replay_candidates``) on
+    the same tables against its plain version over the scratch rows the
+    tables write: float64 CLVs rel F64_REL of each (row, rate, site)
+    block's largest entry and the scalers equal, float32 by phase 3's rule
+    (``replay_close_f32``).  Counts the scoring launches it checked; keeps
+    the largest |d logL| and CLV errors."""
 
     def __init__(self):
         from libpll_tpu_torch.ops import incremental as inc_ops
 
         self.inc_ops = inc_ops
-        self.real = inc_ops.replay_candidates
+        self.real = inc_ops.score_candidates
         self.checked = 0
         self.max_abs = 0.0
         self.f32_err = 0.0
+        self.logl_err = 0.0
 
     def __enter__(self):
-        self.inc_ops.replay_candidates = self.replay
+        self.inc_ops.score_candidates = self.score
         return self
 
     def __exit__(self, *exc):
-        self.inc_ops.replay_candidates = self.real
+        self.inc_ops.score_candidates = self.real
+
+    def score(self, clv, scalers, pmatrix, model, tables, upd_midx, eval_rows,
+              upd_pmatrix, **kw):
+        import torch
+
+        args = (clv, scalers, pmatrix, model, tables, upd_midx, eval_rows,
+                upd_pmatrix)
+        if clv.device.type != "cuda":
+            return self.real(*args, **kw)
+        want = self.inc_ops.score_candidates_plain(*args, **kw)
+        launches = self.real.launches
+        got = self.real(*args, **kw)
+        check(self.real.launches == launches + 1,
+              "score_candidates did not launch C1")
+        g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+        what = (f"C1 {tuple(clv.shape)} {clv.dtype} mode "
+                f"{kw['scale_mode']} asc {kw['asc_mode']}, {len(g)} "
+                f"candidates")
+        ok = all(logl_close(x, y, clv.dtype) or (np.isnan(x) and np.isnan(y))
+                 for x, y in zip(g, w))
+        d = np.abs(g - w)
+        d = float(d[np.isfinite(d)].max()) if np.isfinite(d).any() else 0.0
+        check(ok, f"{what}: the scoring instance's logL vs the plain "
+                  f"scorer's max |d| {d}")
+        self.logl_err = max(self.logl_err, d)
+        tab, midx = (torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                     .to(clv.device) for x in (tables, upd_midx))
+        self.replay(clv, scalers, pmatrix, tab, midx, upd_pmatrix,
+                    kw["rows"], kw["scale_mode"])
+        self.checked += 1
+        return got
 
     def replay(self, clv, scalers, pmatrix, tables, upd_midx, upd_pmatrix,
                rows, scale_mode):
+        """C1's replay instance against its plain version on one batch."""
         import torch
 
         args = (clv, scalers, pmatrix, tables, upd_midx, upd_pmatrix, rows,
                 scale_mode)
-        if clv.device.type != "cuda":
-            return self.real(*args)
         want = self.inc_ops.replay_candidates_plain(*args)
-        launches = self.real.launches
-        got = self.real(*args)
-        check(self.real.launches == launches + 1,
+        launches = self.inc_ops._replay_candidates.launches
+        got = self.inc_ops.replay_candidates(*args)
+        check(self.inc_ops._replay_candidates.launches == launches + 1,
               "replay_candidates did not launch C1")
         torch.cuda.synchronize()
         n, ns = clv.shape[0], scalers.shape[0] - 1
@@ -4050,8 +4339,8 @@ class ScorerHook:
         else:  # no counters: every site is compared
             g_sc = w_sc = torch.zeros((1, clv.shape[-1]), dtype=torch.int32,
                                       device=clv.device)
-        what = (f"C1 {tuple(clv.shape)} {clv.dtype} mode {scale_mode}, "
-                f"{tables.shape[0]} candidates")
+        what = (f"C1 replay {tuple(clv.shape)} {clv.dtype} mode {scale_mode}"
+                f", {tables.shape[0]} candidates")
         if clv.dtype == torch.float64:
             ok, err = rows_close(g_clv, w_clv, F64_REL)
             check(ok and torch.equal(g_sc, w_sc),
@@ -4064,23 +4353,21 @@ class ScorerHook:
         diff = (g_clv.double() - w_clv.double()).abs()
         self.max_abs = max(self.max_abs, float(diff.max()) if diff.numel()
                            else 0.0)
-        self.checked += 1
-        return got
 
 
 class PlainScorer:
-    """While active, the scorer's replay is C1's plain version on the
-    card (``replay_candidates_plain``)."""
+    """While active, the scorer runs C1's plain version on the card
+    (``score_candidates_plain``)."""
 
     def __enter__(self):
         from libpll_tpu_torch.ops import incremental as inc_ops
 
-        self.inc_ops, self.real = inc_ops, inc_ops.replay_candidates
-        inc_ops.replay_candidates = inc_ops.replay_candidates_plain
+        self.inc_ops, self.real = inc_ops, inc_ops.score_candidates
+        inc_ops.score_candidates = inc_ops.score_candidates_plain
         return self
 
     def __exit__(self, *exc):
-        self.inc_ops.replay_candidates = self.real
+        self.inc_ops.score_candidates = self.real
 
 
 def full_state(tree, part, pidx):
@@ -4143,7 +4430,7 @@ def check_scorer_small(device):
     cpu = torch.device("cpu")
     out = {"cases": 0, "candidates": 0, "brute": 0, "logl_err": 0.0}
     with ScorerHook() as hook:
-        for seed, (name, kw) in enumerate(PARTITION_SMALL):
+        for seed, (name, kw) in enumerate(PARTITION_SMALL + SCORER_EXTRA):
             for dtype in (torch.float64, torch.float32):
                 built = {}
                 for where, dev in (("card", device), ("cpu", cpu)):
@@ -4152,8 +4439,11 @@ def check_scorer_small(device):
                     full_state(tree, part, pidx)
                     built[where] = part, tree, pidx
                 scores = {}
+                wheres = ("card", "cpu", "plain") + (
+                    tuple(f"spill{k}" for k in SCORER_POOL_CAPS)
+                    if dtype == torch.float64 else ())
                 for kind in ("spr", "nni"):
-                    for where in ("card", "cpu", "plain"):
+                    for where in wheres:
                         part, tree, pidx = built["cpu" if where == "cpu"
                                                  else "card"]
                         cands = (spr.spr_neighborhood(tree, SCORER_RADIUS)
@@ -4170,6 +4460,9 @@ def check_scorer_small(device):
                         if where == "plain":
                             with PlainScorer():
                                 got = run()
+                        elif where.startswith("spill"):
+                            with PoolCap(int(where[5:])):
+                                got = run()
                         else:
                             got = run()
                         check(base_unchanged(part, snap),
@@ -4179,7 +4472,7 @@ def check_scorer_small(device):
                         if where == "card":
                             kept = (enc, pidx)
                     card = scores[kind, "card"]
-                    for other in ("plain", "cpu"):
+                    for other in [w for w in wheres if w != "card"]:
                         want = scores[kind, other]
                         ok = len(card) == len(want) > 0 and all(
                             logl_close(g, w, dtype)
@@ -4210,6 +4503,7 @@ def check_scorer_small(device):
                     out["cases"] += 1
         out["launches"] = hook.checked
         out["f32_err"] = hook.f32_err
+        out["hook_logl"] = hook.logl_err
     out["nan"] = check_nan_vote(device)
     return out
 
@@ -4390,7 +4684,141 @@ def c1_bytes(tables, n_nodes, n_scalers, scale_mode, row, scal_row):
     return strict, written, 3 * written * row
 
 
-def phase_spr(device, card):
+def score_bytes(plan, n_scalers, scale_mode, row, scal_row, site_bytes):
+    """The scoring instance's bytes on one batch's plan: each input read
+    once and each output written once: the distinct base CLV and scaler
+    rows its running ops and its edges read, the per-site model vectors
+    (``site_bytes``) and the B logLs; no scratch row is written.  The
+    P-matrices are a few KiB and not counted."""
+    ops, ev = plan.ops.astype(np.int64), plan.eval.astype(np.int64)
+    live = ops[..., 0] >= 0
+
+    def base(d):  # the base rows among descriptors
+        d = d.ravel()
+        return set(d[(d >= 0) & ((d >> 28) == 0)].tolist())
+
+    rows = base(ops[live][:, [2, 5]]) | base(ev[:, [0, 2]])
+    scal = set()
+    if scale_mode:
+        scaled = live & (ops[..., 1] >= 0)
+        scal = (base(ops[scaled][:, [4, 7]]) | base(ev[:, [1, 3]])) - {
+            n_scalers}
+    return (len(rows) * row + len(scal) * scal_row + site_bytes
+            + 8 * len(ev))
+
+
+def op_flop(states):
+    """Flops of one replayed op at one site and rate: two contractions of
+    S (2S - 1) and the S products."""
+    return 2 * states * (2 * states - 1) + states
+
+
+def fold_flop(states):
+    """Flops of the edge fold at one site and rate: the contraction, the
+    parent times the frequencies times it and their sum, the rate's
+    weight and +I."""
+    return states * (2 * states - 1) + 3 * states + 4
+
+
+def measure_batch(scorer, part, model, batch, cap, peak):
+    """One batch of the scorer through C1's scoring instance at its real
+    shapes: its logL against the plain scorer's (the largest |d| over the
+    real candidates), the kernel's device time (torch.profiler), the whole
+    call's time (CUDA events, the host's planning included), the batch's
+    card time (every kernel of one scorer call: the P-matrices, C1, the
+    asc tail), the plain scorer's time; the replay instance on the same
+    tables against its plain version and their times; the plan (slots,
+    spills, running ops) and layout; the scoring instance's bound."""
+    import torch
+
+    from libpll_tpu_torch.ops import incremental as inc_ops
+
+    b, t, mi, bl, er = batch
+    device = part.clv.device
+    rows = inc_ops.check_tables(t, mi, er, n_nodes=part.nodes,
+                                n_scale_buffers=part.scale_buffers,
+                                n_matrices=part.pmatrix.shape[0],
+                                capacity=cap, scale_mode=part.scale_mode)
+    dtype = part.clv.dtype
+    new = inc_ops.compute_pmatrices(
+        torch.from_numpy(bl).to(device, dtype).reshape(-1),
+        model["rates"], model["prop_invar"], model["params_indices"],
+        model["eigenvals"], model["left"], model["right"],
+        dtype=dtype).reshape(mi.shape + tuple(part.pmatrix.shape[1:])
+                             ).contiguous()
+    kw = dict(n_scale_buffers=part.scale_buffers, sites=part.sites,
+              scale_mode=part.scale_mode, asc_mode=part.asc_mode, rows=rows)
+    args = (part.clv, part.scalers, part.pmatrix, model, t, mi, er, new)
+
+    def run():
+        return inc_ops.score_candidates(*args, **kw)
+
+    def plain():
+        return inc_ops.score_candidates_plain(*args, **kw)
+
+    got, want = run()[:b].double().cpu().numpy(), plain()[:b].double(
+        ).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(all(logl_close(g, w, dtype) for g, w in zip(got, want)),
+          f"C1 on a batch of {len(t)}: the scoring instance vs the plain "
+          f"scorer max |d logL| {err}")
+    ms = {"c1": profiled_ms(run, "score_candidates_kernel"),
+          "c1_call": event_ms(run), "c1_plain": event_ms(plain, iters=2),
+          "batch_card": profiled_ms(lambda: scorer(
+              part.clv, part.scalers, part.pmatrix, model, t, mi, bl, er),
+              "")}
+    tab, midx = (torch.from_numpy(a).to(device) for a in (t, mi))
+    rargs = (part.clv, part.scalers, part.pmatrix, tab, midx, new, rows,
+             part.scale_mode)
+    ms["c1r"] = time_ms(lambda: inc_ops.replay_candidates(*rargs))[0]
+    ms["c1r_plain"] = time_ms(
+        lambda: inc_ops.replay_candidates_plain(*rargs), iters=2,
+        warmup=1)[0]
+    with ScorerHook() as hook:
+        hook.replay(*rargs)
+    plan, layout = inc_ops.plan_for(part.clv, t, mi, er,
+                                    n_scale_buffers=part.scale_buffers,
+                                    scale_mode=part.scale_mode)
+    row = part.clv[0].numel() * part.clv.element_size()
+    scal_row = part.scalers[0].numel() * 4
+    site_bytes = part.clv.shape[-1] * (4 + part.clv.element_size())
+    nbytes = score_bytes(plan, part.scale_buffers, part.scale_mode, row,
+                         scal_row, site_bytes)
+    rbytes = c1_bytes(t[:b], part.nodes, part.scale_buffers,
+                      part.scale_mode, row, scal_row)
+    _, c, s, length = part.clv.shape
+    if dtype == torch.float64:
+        peak = peak / 2
+    flop = (plan.live * op_flop(s) + len(t) * fold_flop(s)) * c * length
+    return dict(err=err, replay_err=hook.max_abs, ms=ms, plan=plan,
+                layout=layout, bound=bound(flop, nbytes, peak),
+                replay_bound=bound(rbytes[1] * op_flop(s) * c * length,
+                                   rbytes[0], peak),
+                real_ops=rbytes[1], rows=rows, b=b, size=len(t))
+
+
+def batch_text(m):
+    """One line of ``measure_batch``'s numbers."""
+    ms, plan, (tile, slots, smem) = m["ms"], m["plan"], m["layout"]
+    return (f"batch of {m['size']} ({m['b']} real, {m['real_ops']} real ops,"
+            f" {plan.live} run by the scoring instance, pool {plan.slots} "
+            f"slots, {plan.spills} spilled; tile {tile} sites, {slots} "
+            f"slots, {smem} B shared memory a block): the scoring instance "
+            f"{ms['c1']:.4f} ms ({ms['c1'].by}) vs bound "
+            f"{m['bound'][0]:.4f} ms "
+            f"({m['bound'][1]}), {m['bound'][0] / ms['c1'] * 100:.1f}% of it;"
+            f" the whole call {ms['c1_call']:.4f} ms (CUDA events, the host's"
+            f" planning included); the batch's card time (every kernel of "
+            f"one scorer call) {ms['batch_card']:.4f} ms "
+            f"({ms['batch_card'].by}); the plain scorer "
+            f"{ms['c1_plain']:.2f} ms; logL vs the plain scorer max |d| "
+            f"{m['err']:.3e}; the replay instance {ms['c1r']:.4f} ms vs its "
+            f"bound {m['replay_bound'][0]:.4f} ms, its plain version "
+            f"{ms['c1r_plain']:.2f} ms, CLV max abs vs plain "
+            f"{m['replay_err']:.3e}")
+
+
+def phase_spr(device, card, peak):
     """Phase 31: SPR scoring at scripts/bench_spr.py's configuration
     (``spr_partition``): a full evaluation (U1), the radius-SPR_RADIUS
     neighbourhood of the first SPR_PRUNE inner nodes, ``encode_candidates``
@@ -4399,11 +4827,12 @@ def phase_spr(device, card):
     batch, every score finite, the base buffers bit-identical.  Then the
     host encode time, the scoring's wall time and the device's busy time
     and idle share (torch.profiler), C1's ms a launch against its bound
-    and its plain version, the plain scorer's ms for one batch, C1
-    against its plain version on one whole batch (``ScorerHook``), and a
-    fresh evaluation of the moved tree (U1 through
-    ``Partition.update_partials``) for four candidates, the best among
-    them, within the f32 budget.  Returns the numbers the JSON line
+    and its plain version, on batch 0 (``measure_batch``: the scoring
+    instance against the plain scorer and its bound, the batch's card
+    time, the replay instance against its plain version), the scoring
+    under ``ScorerHook``, and a fresh evaluation of the moved tree (U1
+    through ``Partition.update_partials``) for four candidates, the best
+    among them, within the f32 budget.  Returns the numbers the JSON line
     reports."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4443,12 +4872,12 @@ def phase_spr(device, card):
                                  scorer)
 
     # the main path, its counters at 0 around it
-    inc_ops._replay_candidates.launches = 0
+    inc_ops._score_candidates.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logls = np.asarray(score())
     first_s = time.perf_counter() - t0
-    launches = inc_ops._replay_candidates.launches
+    launches = inc_ops._score_candidates.launches
     check(launches == n_batches and len(logls) == len(enc)
           and np.isfinite(logls).all(),
           f"SPR scoring: C1 launches {launches} for {n_batches} batches, "
@@ -4474,56 +4903,25 @@ def phase_spr(device, card):
         score()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
-    by, span_idle = kernel_ms(prof, ("candidates_kernel",))
+    by, span_idle = kernel_ms(prof, ("score_candidates_kernel",))
     busy = sum((e.time_range.end - e.time_range.start) / 1e3
                for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA)
-    c1_prof = by["candidates_kernel"][0] / max(by["candidates_kernel"][1], 1)
+    c1_prof = (by["score_candidates_kernel"][0]
+               / max(by["score_candidates_kernel"][1], 1))
 
     # one batch: C1 alone against its plain version and its bound
-    b, t, mi, bl, er = next(spr.encoded_batches(
+    batch = next(spr.encoded_batches(
         enc, part.nodes, part.scale_buffers, SPR_CAP, SPR_BATCH))
+    b, t, mi, bl, er = batch
     model = partition_model(part, pidx)
-    rows = inc_ops.check_tables(t, mi, er, n_nodes=part.nodes,
-                                n_scale_buffers=part.scale_buffers,
-                                n_matrices=part.pmatrix.shape[0],
-                                capacity=SPR_CAP,
-                                scale_mode=part.scale_mode)
-    tab, midx = (torch.from_numpy(a).to(device) for a in (t, mi))
-    new = inc_ops.compute_pmatrices(
-        torch.from_numpy(bl).to(device, torch.float32).reshape(-1),
-        model["rates"], model["prop_invar"], model["params_indices"],
-        model["eigenvals"], model["left"], model["right"],
-        dtype=torch.float32).reshape((SPR_BATCH, 3) + tuple(
-            part.pmatrix.shape[1:])).contiguous()
-    args = (part.clv, part.scalers, part.pmatrix, tab, midx, new, rows,
-            part.scale_mode)
-    ms = {"c1": time_ms(lambda: inc_ops.replay_candidates(*args))[0],
-          "c1_plain": time_ms(lambda: inc_ops.replay_candidates_plain(*args),
-                              iters=2, warmup=1)[0]}
-    with PlainScorer():
-        ms["plain_scorer"] = event_ms(lambda: scorer(
-            part.clv, part.scalers, part.pmatrix, model, t, mi,
-            bl, er), iters=2)
-        plain_logl = scorer(part.clv, part.scalers, part.pmatrix, model, t,
-                            mi, bl, er)[:b].cpu().numpy()
+    one = measure_batch(scorer, part, model, batch, SPR_CAP, peak)
+    ms = one["ms"]
     with ScorerHook() as hook:
         hooked = scorer(part.clv, part.scalers, part.pmatrix, model, t, mi,
                         bl, er)[:b].cpu().numpy()
     check(hook.checked == 1 and np.array_equal(hooked, logls[:b]),
           "SPR batch 0 under the hook: not checked, or other scores")
-    budget = np.abs(plain_logl) * ACC_REL + ACC_ABS
-    check((np.abs(hooked - plain_logl) <= budget).all(),
-          f"SPR batch 0: C1 vs the plain scorer max |d logL| "
-          f"{np.abs(hooked - plain_logl).max()}")
-    row = part.clv[0].numel() * part.clv.element_size()
-    scal_row = part.scalers[0].numel() * 4
-    nbytes, real_ops, three_rows = c1_bytes(t[:b], part.nodes,
-                                            part.scale_buffers,
-                                            part.scale_mode, row, scal_row)
-    c1_bound = bound(0, nbytes, 1.0)
-    fold_rows = 2 * b * row
-    row_bound = (three_rows + fold_rows) / HBM_BYTES_PER_S * 1e3
 
     # fresh evaluations of moved trees (U1), the best candidate among them
     picks = [int(np.argmax(logls))] + [
@@ -4559,22 +4957,17 @@ def phase_spr(device, card):
           f" batch), idle {(1 - busy / prof_wall) * 100:.1f}% of the wall and "
           f"{span_idle * 100:.1f}% of the kernels' span; a round's scoring "
           f"(encode + score) {enc_ms + wall_ms:.2f} ms, the host encode "
-          f"{enc_ms / (enc_ms + wall_ms) * 100:.1f}% of it; C1 a launch "
-          f"{ms['c1']:.4f} ms (profiler {c1_prof:.4f} ms) on batch 0 "
-          f"({b} candidates, {real_ops} real ops, {rows} scratch rows) vs "
-          f"bound {c1_bound[0]:.4f} ms (bytes: base rows read once, scratch "
-          f"rows written once), {c1_bound[0] / ms['c1'] * 100:.1f}% of it; "
-          f"{row_bound:.4f} ms at three rows an op plus the fold's two "
-          f"rows; C1's plain version {ms['c1_plain']:.2f} ms; the plain "
-          f"scorer {ms['plain_scorer']:.2f} ms a batch; C1 vs plain on batch"
-          f" 0: CLV max abs {hook.max_abs:.3e} (rel {hook.f32_err:.3e}), "
-          f"logL max |d| {np.abs(hooked - plain_logl).max():.3e}; fresh "
+          f"{enc_ms / (enc_ms + wall_ms) * 100:.1f}% of it; C1's scoring "
+          f"instance a launch {c1_prof:.4f} ms over the round (profiler, "
+          f"{by['score_candidates_kernel'][1]} of {n_batches} launches "
+          f"recorded); "
+          f"batch 0: " + batch_text(one) + "; fresh "
           f"evaluations of moved trees (candidate, scored, fresh): "
           + "; ".join(f"{i} {g!r} {w!r}" for i, g, w in brute)
           + f"; best candidate {picks[0]} (+{logls[picks[0]] - logl0:.4f})",
           flush=True)
-    out = dict(launches=launches, err=hook.max_abs, ms=ms, bound=c1_bound)
-    del part, args, new
+    out = dict(launches=launches, batch=one)
+    del part
     torch.cuda.empty_cache()
     return out
 
@@ -5100,6 +5493,7 @@ class PlainCalls:
                       (clv_ops, "update_partials_by_op"),
                       (clv_ops, "update_partials_grouped"),
                       (inc_ops, "replay_candidates_plain"),
+                      (inc_ops, "score_candidates_plain"),
                       (dv, "newton_solve_plain"),
                       (fitch, "fitch_run_waves_plain"),
                       (fitch, "fitch_edge_scores_plain"),
@@ -5169,10 +5563,21 @@ class Recorder:
          self.blopt.optimize_branch_lengths_scan) = self.real
 
 
-def profiled_idle(fn):
+def roofline_card(device):
+    """(SMs, the SM clock's maximum MHz) of the card, for the peaks."""
+    import torch
+
+    from libpll_tpu_torch.ops import roofline
+
+    return (torch.cuda.get_device_properties(device).multi_processor_count,
+            roofline.max_sm_clock_mhz())
+
+
+def profiled_idle(fn, names=()):
     """(wall ms, the card's busy ms, idle share of the wall, idle share
-    of the kernels' span, kernel launches) of ``fn()`` under
-    torch.profiler (CUDA activity only)."""
+    of the kernels' span, kernel launches, {name: (device ms in all,
+    launches)} of the kernels whose name holds each of ``names``) of
+    ``fn()`` under torch.profiler (CUDA activity only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5186,8 +5591,8 @@ def profiled_idle(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum((e.time_range.end - e.time_range.start) / 1e3
                for e in kernels)
-    _, span_idle = kernel_ms(prof, ())
-    return wall, busy, 1.0 - busy / wall, span_idle, len(kernels)
+    by_name, span_idle = kernel_ms(prof, names)
+    return wall, busy, 1.0 - busy / wall, span_idle, len(kernels), by_name
 
 
 def phase_infer(device, card):
@@ -5207,14 +5612,18 @@ def phase_infer(device, card):
     import torch
 
     from libpll_tpu_torch.engine import blopt
+    from libpll_tpu_torch.engine.evaluate import partition_model
     from libpll_tpu_torch.io import maps
     from libpll_tpu_torch.io.compress import compress_site_patterns
     from libpll_tpu_torch.ops import clv as clv_ops
     from libpll_tpu_torch.ops import derivatives as dv
     from libpll_tpu_torch.ops import fitch
     from libpll_tpu_torch.ops import incremental as inc_ops
+    from libpll_tpu_torch.ops import roofline
     from libpll_tpu_torch.search import spr
     from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+    from libpll_tpu_torch.utils.rng import shuffled_order
     from libpll_tpu_torch.search.stepwise import deep_recursion
     from libpll_tpu_torch.tree import utree as ut
     from libpll_tpu_torch.tree.compare import rf_distance
@@ -5229,7 +5638,7 @@ def phase_infer(device, card):
           f"bench_infer alignment SHA-256 {digest}, recorded "
           f"{BENCH_INFER_SHA256} (numpy or scipy draw otherwise here)")
 
-    counters = {"U1": clv_ops._replay_ops, "C1": inc_ops._replay_candidates,
+    counters = {"U1": clv_ops._replay_ops, "C1": inc_ops._score_candidates,
                 "N1": dv._newton_solve, "P2": fitch.fitch_scores,
                 "P3": fitch.stepwise_commit}
     torch.cuda.synchronize()
@@ -5282,15 +5691,39 @@ def phase_infer(device, card):
         rnd = {}
         spr_idle = profiled_idle(lambda: rnd.setdefault("r", spr.spr_round(
             tree, part, pidx, radius=5, capacity=32, batch=128,
-            scorer=scorer, min_delta=1e-2, commit=8)))
+            scorer=scorer, min_delta=1e-2, commit=8)),
+            ("score_candidates_kernel", "replay_kernel"))
         # the round's host encode alone, on the tree it left
         cands = spr.spr_neighborhood(tree, 5)
         t0 = time.perf_counter()
         n_enc = len(spr.encode_candidates(tree, cands)[0])
         enc_ms = (time.perf_counter() - t0) * 1e3
         sweep = profiled_idle(lambda: blopt.optimize_branch_lengths_scan(
-            tree, part, pidx, max_sweeps=1, capacity=64))
-    del scorer, part
+            tree, part, pidx, max_sweeps=1, capacity=64),
+            ("replay_kernel", "newton_solve_kernel"))
+        # C1 on the first batch of 128 of that neighbourhood
+        enc, n_max = spr.encode_candidates(tree, cands)
+        check(n_max <= 32, f"bench_infer's round needs capacity {n_max}")
+        batch128 = measure_batch(
+            scorer, part, partition_model(part, pidx), next(
+                spr.encoded_batches(enc, part.nodes, part.scale_buffers, 32,
+                                    128)), 32,
+            roofline.fp32_peak(*roofline_card(device)))
+    del scorer, part, enc
+    torch.cuda.empty_cache()
+    # the start tree's build again, P3 under the profiler, and its last
+    # insertion against the plain version
+    sms, clock = roofline_card(device)
+    peaks = (sms * LOGIC_PER_SM_CLOCK * clock * 1e6,
+             sms * POPC_PER_SM_CLOCK * clock * 1e6)
+    pars = FastParsimony.from_sequences(patterns, maps.pll_map_nt, states=4,
+                                        pattern_weights=weights)
+    with deep_recursion(tips):
+        build = stepwise_profile(pars, labels, BENCH_INFER_ARGS["seed"],
+                                 peaks)
+    last = last_insertion_p3(pars, shuffled_order(
+        tips, BENCH_INFER_ARGS["seed"]), peaks)
+    del pars, last["state"]
     torch.cuda.empty_cache()
 
     t = res.timings
@@ -5328,7 +5761,27 @@ def phase_infer(device, card):
           f"{sweep[0]:.1f} ms ({sweep[0] / (2 * tips - 3):.3f} ms an edge), "
           f"busy {sweep[1]:.1f} ms in {sweep[4]} kernels, idle "
           f"{sweep[2] * 100:.1f}% ({sweep[3] * 100:.1f}% of the span); "
-          f"torch.profiler", flush=True)
+          f"a launch in them: " + "; ".join(
+              f"{label} {ms / max(n, 1) * 1e3:.2f} us ({n} launches in the "
+              f"{where})" for label, where, (ms, n) in (
+                  ("C1", "round", spr_idle[5]["score_candidates_kernel"]),
+                  ("U1", "round", spr_idle[5]["replay_kernel"]),
+                  ("U1", "sweep", sweep[5]["replay_kernel"]),
+                  ("N1", "sweep", sweep[5]["newton_solve_kernel"])))
+          + "; torch.profiler", flush=True)
+    print(f"[33 infer] {card}: C1 on that neighbourhood's first "
+          + batch_text(batch128), flush=True)
+    print(f"[33 infer] {card}: the start tree's device build again "
+          f"({tips} taxa, {last['words']} words; P3 {last['plan'].grid} "
+          f"blocks, tables in "
+          f"{'shared' if last['plan'].shared else 'device'} memory): "
+          + stepwise_text(build) + f"; the last insertion ({last['rows']} "
+          f"rows in {last['levels']} dependent levels) P3 "
+          f"{last['ms'] * 1e3:.2f} us ({last['ms'].by}, equal to its plain "
+          f"version"
+          f") vs plain {last['plain_ms']:.3f} ms, bound "
+          f"{last['bound'][0] * 1e3:.3f} us ({last['bound'][1]})",
+          flush=True)
     return res, (dict(zip(labels, patterns)), weights)
 
 
@@ -5975,6 +6428,7 @@ def main():
                                                  FLAGSHIP_TIPS,
                                                  build_flagship)
 
+    starts = [("1-3", time.perf_counter())]  # (phases, start), printed last
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -6011,6 +6465,7 @@ def main():
           f"|d logL| {k1_small:.3e}, K2 CLV abs {k2_small:.3e}", flush=True)
 
     # ---------------------------------------------------- 4: flagship
+    starts.append(("4", time.perf_counter()))
     tips, sites = FLAGSHIP_TIPS, FLAGSHIP_SITES
     c, s = FLAGSHIP_RATE_CATS, FLAGSHIP_STATES
     topo, model_np, masks, _ = build_flagship(tips, sites, rate_cats=c,
@@ -6088,6 +6543,7 @@ def main():
           flush=True)
 
     # ---------------------------------------------------- 5: times
+    starts.append(("5", time.perf_counter()))
     updates = sched.n_inner * sites * c
 
     def score_plain():  # make_score's forward with the plain K1
@@ -6132,6 +6588,7 @@ def main():
           flush=True)
 
     # ---------------------------------------------------- 6-10: dyn tier
+    starts.append(("6-10", time.perf_counter()))
     dyn_rows = ptxas_report("clv_dyn")
     print(f"[6 dyn build] clv_dyn.cu: {len(dyn_rows)} kernel instances "
           f"(dtype, states): " + "; ".join(
@@ -6172,6 +6629,7 @@ def main():
           flush=True)
 
     # ---------------------------------------------------- 11-14: seg tier
+    starts.append(("11-14", time.perf_counter()))
     for name in ("clv_seg", "roofline"):
         rows = ptxas_report(name)
         print(f"[11 seg build] {name}.cu: {len(rows)} kernel instances: "
@@ -6190,6 +6648,7 @@ def main():
                           readme["n_inner"])
 
     # ---------------------------------------------------- 15-17: train step
+    starts.append(("15-19", time.perf_counter()))
     rows = ptxas_report("derivatives")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6207,6 +6666,7 @@ def main():
     protein = phase_protein(device, card, fp32_peak)
 
     # ---------------------------------------------------- 20-23: partition
+    starts.append(("20-23", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     n = check_partition_small(device)
@@ -6218,6 +6678,7 @@ def main():
     phase_partition_protein(device)
 
     # ---------------------------------------------------- 24-26: parsimony
+    starts.append(("24-26", time.perf_counter()))
     torch.cuda.empty_cache()
     rows = ptxas_report("fitch")
     t0 = time.perf_counter()
@@ -6229,10 +6690,24 @@ def main():
           f"every launch, FastParsimony, both stepwise engines and the "
           f"Sankoff Parsimony on the card equal the CPU "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    n = check_commit_plans(device)
+    past = past_budget_p3(device, sms, clock_mhz)
+    print(f"[24 parsimony small] P3 with its tables and grid forced "
+          f"({', '.join(f'{t} memory, {g or 'its own'} blocks'
+                        for t, g in COMMIT_FORCED)}"
+          f"): {n} configurations each equal to the build under its own "
+          f"plan (rows, costs, back, edge_rows, scores); past the "
+          f"shared-memory budget ({PAST_BUDGET[0]} taxa x {PAST_BUDGET[1]} "
+          f"sites, plan {past['plan']}) the last insertion ({past['rows']} "
+          f"rows in {past['levels']} levels) equal to the plain version, P3 "
+          f"{past['ms'] * 1e3:.1f} us ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     runs = phase_stepwise(device)
     pars = phase_stepwise_times(device, card, sms, clock_mhz, runs)
 
     # ---------------------------------------------------- 27-29: blopt
+    starts.append(("27-29", time.perf_counter()))
     torch.cuda.empty_cache()
     rows = ptxas_report("partials")
     t0 = time.perf_counter()
@@ -6257,14 +6732,23 @@ def main():
     bl = phase_blopt(device, card, fp32_peak)
 
     # ---------------------------------------------------- 30-31: search
+    starts.append(("30-31", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    inc_ops._replay_candidates.launches = 0  # the rows check's own path
     small = check_scorer_small(device)
-    print(f"[30 scorer small] C1 equal to its plain version at every launch:"
-          f" {small['launches']} launches of {small['cases']} cases "
-          f"({len(PARTITION_SMALL)} of phase 20's configurations x float64, "
+    replay_launches = inc_ops._replay_candidates.launches
+    print(f"[30 scorer small] C1's scoring instance equal to the plain "
+          f"scorer at every launch ({small['launches']} launches, largest "
+          f"|d logL| {small['hook_logl']:.3e}) and its replay instance's rows "
+          f"and counters to its plain version's on the same tables "
+          f"({replay_launches} launches, largest f32 rel "
+          f"{small['f32_err']:.3e}): {small['cases']} cases "
+          f"({len(PARTITION_SMALL)} of phase 20's configurations and "
+          f"{len(SCORER_EXTRA)} more (five states, eight rates) x float64, "
           f"float32 x SPR radius {SCORER_RADIUS}, NNI; {small['candidates']} "
-          f"candidates), largest f32 rel {small['f32_err']:.3e}; the logL on "
+          f"candidates; float64 also with the pool capped at "
+          f"{SCORER_POOL_CAPS} slots, so that rows spill); the logL on "
           f"the card equal to the plain scorer's on the card (largest |d| "
           f"{small['logl_err']:.3e}) and to the CPU scorer's; the base "
           f"buffers bit-identical after every scoring; {small['brute']} "
@@ -6273,9 +6757,10 @@ def main():
           f"NaN vote: U1, K2 and C1 give their plain versions' counters in "
           f"{small['nan']} configurations ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    sp = phase_spr(device, card)
+    sp = phase_spr(device, card, fp32_peak)
 
     # ---------------------------------------------------- 32-33: inference
+    starts.append(("32-33", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # one intra-op thread: the CPU halves issue many tiny tensor
@@ -6315,6 +6800,7 @@ def main():
     found, alignment = phase_infer(device, card)
 
     # ---------------------------------------------------- 34: model fitting
+    starts.append(("34", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     torch.set_num_threads(1)
@@ -6352,6 +6838,10 @@ def main():
     deriv_src = "libpll_tpu_torch/csrc/derivatives.cu"
     fitch_src = "libpll_tpu_torch/csrc/fitch.cu"
     partials_src = "libpll_tpu_torch/csrc/partials.cu"
+    starts.append(("", time.perf_counter()))
+    print("[wall] seconds a group of phases: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(starts, starts[1:]))
+        + f"; in all {starts[-1][1] - starts[0][1]:.1f}", flush=True)
     print(json.dumps({"kernels": [
         {"name": "fused_edge_score", "route": "cuda", "source": fused_src,
          "replaces": "libpll_tpu/ops/clv_pallas.py:462",
@@ -6427,12 +6917,22 @@ def main():
          "launches": bl["launches"], "max_abs_err": bl["u1_err"],
          "ms": bl["ms"]["u1"], "plain_ms": bl["ms"]["u1_plain"],
          **bound_keys(bl["u1_bound"])},
-        # port-only: JAX's candidate scorer is an XLA lax.map
+        # port-only: JAX's candidate scorer is an XLA lax.map; the scoring
+        # instance is its body (replay and edge logL), the replay instance
+        # the rows check's (phase 30: one a scoring launch under the hook)
         {"name": "score_candidates", "route": "cuda", "source": partials_src,
          "replaces": "libpll_tpu/ops/incremental.py:96",
-         "launches": sp["launches"], "max_abs_err": sp["err"],
-         "ms": sp["ms"]["c1"], "plain_ms": sp["ms"]["c1_plain"],
-         **bound_keys(sp["bound"])}]}))
+         "launches": sp["launches"], "max_abs_err": sp["batch"]["err"],
+         "ms": sp["batch"]["ms"]["c1"],
+         "plain_ms": sp["batch"]["ms"]["c1_plain"],
+         **bound_keys(sp["batch"]["bound"])},
+        {"name": "replay_candidates", "route": "cuda", "source": partials_src,
+         "replaces": "libpll_tpu/ops/incremental.py:96",
+         "launches": replay_launches,
+         "max_abs_err": sp["batch"]["replay_err"],
+         "ms": sp["batch"]["ms"]["c1r"],
+         "plain_ms": sp["batch"]["ms"]["c1r_plain"],
+         **bound_keys(sp["batch"]["replay_bound"])}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,8 +21,9 @@
 // loads of each child, S stores, ~3S logic ops and one popc a word
 // position), so device-memory bytes bound P1/P2 on paper; at the stepwise
 // build's shapes (a few hundred to a few thousand words a row) the launch
-// and, for P3, the chain of dependent global loads between a block's
-// barriers set the time.
+// and, for P3, the latency of each dependent level of the refresh (its
+// bookkeeping, one round trip to L2 for the children's words, two block
+// barriers) set the time.
 //
 // Design:
 //  * P1: a block per op of one wave (blocks of a wave run in no order, so a
@@ -33,18 +34,39 @@
 //    Insert mode forms X = fitch(V[u], T) per word in registers and folds
 //    it against V[v]; edge rows come from edge_rows/back on the card, so the
 //    device build issues P2 with no host read.
-//  * P3: ONE block of 1 024 threads.  The refresh after a splice is a
-//    dependency chain (a row's dirty child is the row that enqueued it), a
-//    few rows wide and ~i/4 levels deep at tree size i, so a grid barrier a
-//    level would cost more than the level's work; __syncthreads is cheap.
-//    Rows come off a FIFO queue in device memory in chunks of up to kChunk
-//    taken from the queue's state at the chunk's start (so a chunk never
-//    holds a row together with its dirty child); each row's two dependents
-//    are appended at an exclusive prefix sum of the chunk's live rows (a
-//    ballot per warp), so the queue's order does not depend on timing.
-//    The argmin packs (score << 32 | index) into 64 bits: the smallest key
-//    is the first minimum.  Nothing P3 writes is read through the
-//    non-coherent path (no __restrict__ on what it writes).
+//  * P3: G blocks of 512 threads, block g owning a contiguous slice of the
+//    words of every partition (ops/fitch.commit_plan picks G from the
+//    words and the SMs: a slice of at least 32 words, one warp-width; G = 1
+//    below 64 words).  The refresh after a splice is a dependency chain (a
+//    row's dirty child is the row that enqueued it), a few rows wide and
+//    ~i/4 levels deep at tree size i.  The Fitch step is independent per
+//    word, so every block walks the same chain over its own words and no
+//    block waits for another: each block does the argmin and the splice
+//    on its own copy of `back` and builds the same queue.  Rows come off a
+//    FIFO queue in chunks of up to kChunk taken from the queue's state at
+//    the chunk's start (so a chunk never holds a row together with its
+//    dirty child); each row's two dependents are appended at an exclusive
+//    prefix sum of the chunk's live rows (a ballot per warp), so the
+//    queue's order does not depend on timing.  `back`, co1, co2, the
+//    queue and each entry's source (the queue position of its dirty child)
+//    live in shared memory where they fit (n up to ~2 900 taxa), else in a
+//    per-block slice of the workspace in device memory, in the same
+//    kernel.  A warp takes one row of a chunk at a time (two at up to four
+//    states where the chunk has more rows than warps), its lanes over the
+//    slice's words; it loads the children's words before it stores any
+//    and sums its popcounts with __reduce_add_sync.
+//    The only quantity across words is a row's cost, and it is linear:
+//    cost[p] = cost[c1] + cost[c2] + mut (uint32 wrap).  Block g keeps its
+//    slice's share of each refreshed row, chain_g[k] = mut_g[k] +
+//    chain_g[dirty child] (block 0 adds the clean children's costs), in the
+//    workspace; the last block to finish (a counter after __threadfence)
+//    writes cost = sum over g of chain_g, bit-identical to the unsliced
+//    sum, and writes the splice into `back` and `edge_rows`, which P2 reads
+//    in the next launch.  The argmin packs (score << 32 | index) into 64
+//    bits: the smallest key is the first minimum.  Nothing P3 writes is
+//    read through the non-coherent path (no __restrict__ on what it
+//    writes); the last block reads the other blocks' shares through L2
+//    (__ldcg).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,9 +75,11 @@ namespace {
 
 constexpr int kWaveThreads = 128;     // P1: a block per op
 constexpr int kScoreWarps = 8;        // P2: a warp per edge
-constexpr int kCommitThreads = 1024;  // P3: one block
-constexpr int kChunk = 256;           // P3: queue rows a trip (fitch.py QUEUE_CHUNK)
+constexpr int kCommitThreads = 512;   // P3: threads a block
+constexpr int kCommitWarps = kCommitThreads / 32;
+constexpr int kChunk = 256;           // P3: queue rows a trip
 constexpr int kMaxParts = 32;         // fitch.py MAX_PARTS
+constexpr int kMaxDevices = 64;       // P3: cards whose smem setting it keeps
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kStar = 0, kInsert = 1, kFinal = 2 };
@@ -160,68 +184,209 @@ __global__ void __launch_bounds__(kScoreWarps * 32)
 }
 
 // ------------------------------------------------------------------ P3
-__global__ void __launch_bounds__(kCommitThreads)
-    stepwise_commit_kernel(int mode, Parts parts, int n_tips,
-                           const uint32_t* scores, int ne, int base, int tip,
-                           int32_t* back, int32_t* edge_rows,
-                           const int32_t* co1, const int32_t* co2,
-                           int32_t* queue, uint32_t* finals) {
-  __shared__ unsigned long long s_key[kCommitThreads / 32];
-  __shared__ uint32_t s_sum[kCommitThreads / 32];
-  __shared__ int s_row[kChunk], s_c1[kChunk], s_c2[kChunk];
-  __shared__ uint32_t s_mut[kChunk];
-  __shared__ int s_live[kChunk / 32];
-  __shared__ int s_head, s_tail;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+struct CommitArgs {
+  int mode;
+  int n_tips;
+  int rows;          // D = 4n - 6 direction rows
+  int shared_tables; // back, co1, co2, queue, sources in shared memory
+  const uint32_t* scores;
+  int ne, base, tip;
+  int32_t* back;
+  int32_t* edge_rows;
+  const int32_t* co1;
+  const int32_t* co2;
+  int32_t* tables;   // [G, 3D]: the tables in device memory
+  uint32_t* chain;   // [G, P, D]: each block's share of the costs
+  unsigned* done;    // blocks finished (the last one resets it to 0)
+  uint32_t* finals;
+};
 
-  if (mode == kFinal) {  // each partition's score at the edge of row n
-    const int u = n_tips, v = back[u];
-    for (int q = 0; q < parts.n; ++q) {
-      const Part P = parts.p[q];
-      const int S = P.states, W = P.words;
-      const uint32_t* a = P.vec + (int64_t)u * S * W;
-      const uint32_t* b = P.vec + (int64_t)v * S * W;
-      uint32_t mut = 0;
-      for (int w = tid; w < W; w += blockDim.x) {
-        uint32_t un = 0;
-        for (int k = 0; k < S; ++k) un |= a[k * W + w] & b[k * W + w];
-        mut += __popc(~un);
-      }
-      const uint32_t total = block_sum(mut, s_sum);
-      if (tid == 0) finals[q] = total + P.cost[u] + P.cost[v];
-      __syncthreads();  // s_sum is reused by the next partition
+__device__ __forceinline__ void final_scores(const Parts& parts,
+                                             const CommitArgs& a,
+                                             uint32_t* scratch) {
+  const int u = a.n_tips, v = a.back[u];
+  for (int q = 0; q < parts.n; ++q) {
+    const Part P = parts.p[q];
+    const int S = P.states, W = P.words;
+    const uint32_t* x = P.vec + (int64_t)u * S * W;
+    const uint32_t* y = P.vec + (int64_t)v * S * W;
+    uint32_t mut = 0;
+    for (int w = threadIdx.x; w < W; w += blockDim.x) {
+      uint32_t un = 0;
+      for (int k = 0; k < S; ++k) un |= x[k * W + w] & y[k * W + w];
+      mut += __popc(~un);
     }
+    const uint32_t total = block_sum(mut, scratch);
+    if (threadIdx.x == 0) a.finals[q] = total + P.cost[u] + P.cost[v];
+    __syncthreads();  // scratch is reused by the next partition
+  }
+}
+
+// One chunk of P3's refresh as a block sees it: the queue positions
+// [head, head + cnt), their rows, children and sources, the block's words
+// [lo, hi) and its share of the costs.
+struct Level {
+  int head, cnt, lo, hi, g;
+  const int32_t* queue;
+  const int* row;
+  const int* c1;
+  const int* c2;
+  const int* src;
+  uint32_t* chain;
+};
+
+// The Fitch step of a chunk's rows over the block's words, R rows a warp
+// at once and a lane a word.  With SB > 0 (up to SB states) every child
+// word of the R rows is loaded into registers before any parent word is
+// stored (a store could alias a later load as far as the compiler knows),
+// so R rows cost one round trip to memory; SB = 0 takes any number of
+// states, one row at a time, reading each child word twice.  Lane 0
+// writes each row's share of its cost: its popcounts, the dirty child's
+// share (this block wrote it in an earlier chunk) and, in block 0, the
+// clean children's whole costs.
+template <int SB, int R>
+__device__ __forceinline__ void refresh_level(const Part& P, const Level& lv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int S = P.states, W = P.words;
+  const int64_t stride = (int64_t)S * W;
+  for (int r0 = warp; r0 < lv.cnt; r0 += R * kCommitWarps) {
+    const uint32_t* x[R];
+    const uint32_t* y[R];
+    uint32_t* o[R];
+    uint32_t carry[R], mut[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      // a missing second row repeats the first: the same stores again
+      const int r = r0 + j * kCommitWarps < lv.cnt ? r0 + j * kCommitWarps : r0;
+      const int c1 = lv.c1[r], c2 = lv.c2[r], sp = lv.src[r];
+      carry[j] = 0;
+      if (lane == 0) {
+        if (sp >= 0) carry[j] = lv.chain[sp];
+        if (lv.g == 0)
+          carry[j] += sp < 0 ? P.cost[c1] + P.cost[c2]
+                             : P.cost[c1 == lv.queue[sp] ? c2 : c1];
+      }
+      x[j] = P.vec + c1 * stride;
+      y[j] = P.vec + c2 * stride;
+      o[j] = P.vec + lv.row[r] * stride;
+      mut[j] = 0;
+    }
+    if constexpr (SB == 0) {
+      for (int w = lv.lo + lane; w < lv.hi; w += 32) {
+        uint32_t u = 0;
+        for (int k = 0; k < S; ++k) u |= x[0][k * W + w] & y[0][k * W + w];
+        for (int k = 0; k < S; ++k) {
+          const uint32_t xs = x[0][k * W + w], ys = y[0][k * W + w];
+          o[0][k * W + w] = (xs & ys) | (~u & (xs | ys));
+        }
+        mut[0] += __popc(~u);
+      }
+    } else {
+      for (int w = lv.lo + lane; w < lv.hi; w += 32) {
+        uint32_t xs[R][SB], ys[R][SB], u[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          u[j] = 0;
+#pragma unroll
+          for (int k = 0; k < SB; ++k)
+            if (k < S) {
+              xs[j][k] = x[j][k * W + w];
+              ys[j][k] = y[j][k * W + w];
+              u[j] |= xs[j][k] & ys[j][k];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+#pragma unroll
+          for (int k = 0; k < SB; ++k)
+            if (k < S)
+              o[j][k * W + w] = (xs[j][k] & ys[j][k]) |
+                                (~u[j] & (xs[j][k] | ys[j][k]));
+          mut[j] += __popc(~u[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      mut[j] = __reduce_add_sync(kFull, mut[j]);
+      const int r = r0 + j * kCommitWarps;
+      if (lane == 0 && r < lv.cnt) lv.chain[lv.head + r] = carry[j] + mut[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kCommitThreads)
+    stepwise_commit_kernel(const __grid_constant__ Parts parts,
+                           const __grid_constant__ CommitArgs a) {
+  extern __shared__ int32_t dyn[];
+  __shared__ unsigned long long s_key[kCommitWarps];
+  __shared__ uint32_t s_sum[kCommitWarps];
+  __shared__ int s_row[kChunk], s_c1[kChunk], s_c2[kChunk], s_src[kChunk];
+  __shared__ int s_live[kChunk / 32];
+  __shared__ int s_head, s_tail, s_u, s_v, s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = blockIdx.x, G = gridDim.x, D = a.rows;
+
+  if (a.mode == kFinal) {  // each partition's score at the edge of row n
+    final_scores(parts, a, s_sum);
     return;
   }
 
-  int first = n_tips;  // the star ring
-  if (mode == kInsert) {
+  // the walk's tables: this block's own copy of back, the ring tables, the
+  // queue and each entry's source (the queue position of its dirty child)
+  int32_t *back, *queue, *src;
+  const int32_t *co1, *co2;
+  if (a.shared_tables) {
+    back = dyn;
+    queue = back + D;
+    src = queue + D;  // a row is queued at most once: D entries
+    int32_t* c1 = src + D;
+    int32_t* c2 = c1 + D;
+    for (int i = tid; i < D; i += blockDim.x) {
+      c1[i] = __ldg(a.co1 + i);
+      c2[i] = __ldg(a.co2 + i);
+    }
+    co1 = c1;
+    co2 = c2;
+  } else {
+    back = a.tables + (int64_t)g * 3 * D;
+    queue = back + D;
+    src = queue + D;
+    co1 = a.co1;
+    co2 = a.co2;
+  }
+  for (int i = tid; i < D; i += blockDim.x) back[i] = a.back[i];
+
+  int first = a.n_tips;  // the star ring
+  if (a.mode == kInsert) {
     unsigned long long best = ~0ull;
-    for (int e = tid; e < ne; e += blockDim.x)
-      best = min(best, ((unsigned long long)scores[e] << 32) | (unsigned)e);
+    for (int e = tid; e < a.ne; e += blockDim.x)
+      best = min(best, ((unsigned long long)a.scores[e] << 32) | (unsigned)e);
 #pragma unroll
-    for (int o = 16; o; o >>= 1) best = min(best, __shfl_xor_sync(kFull, best, o));
+    for (int o = 16; o; o >>= 1)
+      best = min(best, __shfl_xor_sync(kFull, best, o));
     if (lane == 0) s_key[warp] = best;
-    __syncthreads();
+    __syncthreads();  // the keys; this block's copy of back
     if (tid == 0) {
-      for (int w = 1; w < kCommitThreads / 32; ++w) best = min(best, s_key[w]);
+      for (int w = 1; w < kCommitWarps; ++w) best = min(best, s_key[w]);
       const int e = (int)(best & 0xffffffffu);
-      const int u = edge_rows[e], v = back[u];
+      const int u = a.edge_rows[e], v = back[u], base = a.base;
       back[u] = base;
       back[base] = u;
       back[v] = base + 1;
       back[base + 1] = v;
-      back[tip] = base + 2;
-      back[base + 2] = tip;
-      edge_rows[ne] = base + 1;
-      edge_rows[ne + 1] = base + 2;
+      back[a.tip] = base + 2;
+      back[base + 2] = a.tip;
+      s_u = u;
+      s_v = v;
     }
-    first = base;
+    first = a.base;
   }
   if (tid == 0) {
-    queue[0] = first;
-    queue[1] = first + 1;
-    queue[2] = first + 2;
+    for (int k = 0; k < 3; ++k) {
+      queue[k] = first + k;
+      src[k] = -1;
+    }
     s_head = 0;
     s_tail = 3;
   }
@@ -238,8 +403,9 @@ __global__ void __launch_bounds__(kCommitThreads)
       s_row[tid] = row;
       s_c1[tid] = back[co1[row]];
       s_c2[tid] = back[co2[row]];
+      s_src[tid] = src[head + tid];
       dep = back[row];
-      live = dep >= n_tips;
+      live = dep >= a.n_tips;
     }
     if (tid < kChunk) {  // whole warps
       ballot = __ballot_sync(kFull, live);
@@ -252,6 +418,7 @@ __global__ void __launch_bounds__(kCommitThreads)
       const int at = tail + 2 * before;
       queue[at] = co1[dep];
       queue[at + 1] = co2[dep];
+      src[at] = src[at + 1] = head + tid;
     }
     if (tid == 0) {
       int total = 0;
@@ -259,30 +426,55 @@ __global__ void __launch_bounds__(kCommitThreads)
       s_head = head + cnt;
       s_tail = tail + 2 * total;
     }
+    // the Fitch step of this block's words, a warp a row (two at once for
+    // up to four states)
     for (int q = 0; q < parts.n; ++q) {
-      const Part P = parts.p[q];
-      const int S = P.states, W = P.words;
-      const int64_t row = (int64_t)S * W;
-      if (tid < cnt) s_mut[tid] = 0;
-      __syncthreads();
-      for (int it = tid; it < cnt * W; it += blockDim.x) {
-        const int r = it / W, w = it - r * W;
-        const uint32_t* a = P.vec + s_c1[r] * row + w;
-        const uint32_t* b = P.vec + s_c2[r] * row + w;
-        uint32_t* o = P.vec + s_row[r] * row + w;
-        uint32_t u = 0;
-        for (int k = 0; k < S; ++k) u |= a[k * W] & b[k * W];
-        for (int k = 0; k < S; ++k) {
-          const uint32_t x = a[k * W], y = b[k * W];
-          o[k * W] = (x & y) | (~u & (x | y));
-        }
-        atomicAdd(&s_mut[r], (uint32_t)__popc(~u));
-      }
-      __syncthreads();
-      if (tid < cnt)
-        P.cost[s_row[tid]] = P.cost[s_c1[tid]] + P.cost[s_c2[tid]] + s_mut[tid];
+      const Part& P = parts.p[q];
+      const int lo = (int)((int64_t)P.words * g / G);
+      const int hi = (int)((int64_t)P.words * (g + 1) / G);
+      uint32_t* chain = a.chain + ((int64_t)g * parts.n + q) * D;
+      const Level lv{head, cnt, lo, hi, g, queue, s_row, s_c1, s_c2, s_src,
+                     chain};
+      if (P.states > 4)
+        refresh_level<0, 1>(P, lv);
+      else if (cnt > kCommitWarps)
+        refresh_level<4, 2>(P, lv);
+      else
+        refresh_level<4, 1>(P, lv);
     }
-    __syncthreads();  // rows and costs written; the queue's new state
+    __syncthreads();  // rows and shares written; the queue's new state
+  }
+
+  // the last block to finish sums the shares into the costs
+  const int n_rows = s_tail;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.done, 1u) == (unsigned)(G - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int q = 0; q < parts.n; ++q) {
+    uint32_t* cost = parts.p[q].cost;
+    for (int k = tid; k < n_rows; k += blockDim.x) {
+      uint32_t total = 0;
+      for (int h = 0; h < G; ++h)
+        total += __ldcg(a.chain + ((int64_t)h * parts.n + q) * D + k);
+      cost[queue[k]] = total;
+    }
+  }
+  if (tid == 0) {
+    if (a.mode == kInsert) {
+      const int base = a.base;
+      a.back[s_u] = base;
+      a.back[base] = s_u;
+      a.back[s_v] = base + 1;
+      a.back[base + 1] = s_v;
+      a.back[a.tip] = base + 2;
+      a.back[base + 2] = a.tip;
+      a.edge_rows[a.ne] = base + 1;
+      a.edge_rows[a.ne + 1] = base + 2;
+    }
+    *a.done = 0;
   }
 }
 
@@ -326,14 +518,21 @@ extern "C" int fitch_scores(const void* vec, const void* cost, int S, int W,
 }
 
 // vecs/costs: host arrays of n_parts device pointers; states/words: host.
+// `grid` blocks split the words (grid 1 for the final scores); tables in
+// shared memory when `shared_tables`, else in `tables` ([grid, 3D] int32);
+// `chain` [grid, n_parts, D] uint32; `done` one unsigned that
+// is 0 before the launch (and after it).
 extern "C" int stepwise_commit(int mode, int n_parts, const int64_t* vecs,
                                const int64_t* costs, const int32_t* states,
                                const int32_t* words, int n_tips,
                                const void* scores, int ne, int base, int tip,
                                void* back, void* edge_rows, const void* co1,
-                               const void* co2, void* queue, void* finals,
-                               void* stream) {
-  if (n_parts < 1 || n_parts > kMaxParts || mode < kStar || mode > kFinal)
+                               const void* co2, int grid, int shared_tables,
+                               void* tables, void* chain,
+                               void* done, void* finals, void* stream) {
+  if (n_parts < 1 || n_parts > kMaxParts || mode < kStar || mode > kFinal ||
+      grid < 1 || (mode == kFinal && grid != 1) ||
+      (mode != kFinal && (!chain || !done || (!shared_tables && !tables))))
     return (int)cudaErrorInvalidValue;
   Parts parts;
   parts.n = n_parts;
@@ -344,12 +543,57 @@ extern "C" int stepwise_commit(int mode, int n_parts, const int64_t* vecs,
                       reinterpret_cast<uint32_t*>(costs[q]), states[q],
                       words[q]};
   }
-  stepwise_commit_kernel<<<1, kCommitThreads, 0, (cudaStream_t)stream>>>(
-      mode, parts, n_tips, static_cast<const uint32_t*>(scores), ne, base,
-      tip, static_cast<int32_t*>(back), static_cast<int32_t*>(edge_rows),
-      static_cast<const int32_t*>(co1), static_cast<const int32_t*>(co2),
-      static_cast<int32_t*>(queue), static_cast<uint32_t*>(finals));
+  const int D = 4 * n_tips - 6;
+  CommitArgs a;
+  a.mode = mode;
+  a.n_tips = n_tips;
+  a.rows = D;
+  a.shared_tables = shared_tables;
+  a.scores = static_cast<const uint32_t*>(scores);
+  a.ne = ne;
+  a.base = base;
+  a.tip = tip;
+  a.back = static_cast<int32_t*>(back);
+  a.edge_rows = static_cast<int32_t*>(edge_rows);
+  a.co1 = static_cast<const int32_t*>(co1);
+  a.co2 = static_cast<const int32_t*>(co2);
+  a.tables = static_cast<int32_t*>(tables);
+  a.chain = static_cast<uint32_t*>(chain);
+  a.done = static_cast<unsigned*>(done);
+  a.finals = static_cast<uint32_t*>(finals);
+  const size_t smem = (mode != kFinal && shared_tables)
+                          ? sizeof(int32_t) * 5 * (size_t)D
+                          : 0;
+  static size_t allowed[kMaxDevices];  // dynamic shared memory set so far
+  int dev = 0;
+  if (smem > 48 * 1024 && cudaGetDevice(&dev) == cudaSuccess &&
+      (dev >= kMaxDevices || smem > allowed[dev])) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        stepwise_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    if (dev < kMaxDevices) allowed[dev] = smem;
+  }
+  stepwise_commit_kernel<<<grid, kCommitThreads, smem,
+                           (cudaStream_t)stream>>>(parts, a);
   return launch_status();
+}
+
+// The SM count and the largest dynamic shared memory a block may ask for
+// (bytes) on the current device, for ops/fitch.commit_plan.
+extern "C" int stepwise_commit_limits(int* sms, int* smem) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+  cudaFuncAttributes attr;
+  if (rc == cudaSuccess)
+    rc = cudaFuncGetAttributes(&attr, stepwise_commit_kernel);
+  if (rc == cudaSuccess) *smem -= (int)attr.sharedSizeBytes;
+  return (int)rc;
 }
 
 extern "C" const char* fitch_error_string(int code) {

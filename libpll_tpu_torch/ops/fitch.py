@@ -30,11 +30,15 @@ Pallas kernel); the port's kernels are port-only, on ``__popc``:
      onto every candidate edge (``fitch_insert_scores`` ``:172``), written
      or added into one score vector;
   P3 :func:`stepwise_commit`: one greedy insertion of the device-resident
-     stepwise build, in one block: the first-minimum argmin, the splice of
-     ``back`` and ``edge_rows``, and the dirty-row refresh of every
-     partition; or the star's first refresh, or the final edge score
+     stepwise build: the first-minimum argmin, the splice of ``back`` and
+     ``edge_rows``, and the dirty-row refresh of every partition; or the
+     star's first refresh, or the final edge score
      (``_stepwise_range_body`` ``:273``, ``_stepwise_final_body``
-     ``:408``).  :func:`stepwise_build` issues the whole build (JAX's
+     ``:408``).  Its words are split across blocks (:func:`commit_plan`),
+     as JAX's ``_stepwise_range_body`` splits them across devices: each
+     block refreshes its slice and the slices' costs are summed
+     (:func:`stepwise_commit_sliced_plain` is that plan walked with the
+     plain version).  :func:`stepwise_build` issues the whole build (JAX's
      ``_stepwise_build_body`` ``:232``): P2 and P3 a insertion, back to
      back, no host read.
 
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,7 +65,7 @@ from . import _build
 BITS = 32
 MASK32 = 0xFFFFFFFF
 MAX_PARTS = 32  # partitions one P3 launch refreshes (csrc/fitch.cu kMaxParts)
-QUEUE_CHUNK = 256  # P3's queue rows a trip (csrc/fitch.cu kChunk)
+SLICE_WORDS = 32  # the fewest words a P3 block's slice pays for: a warp-width
 STEP_MODES = {"star": 0, "insert": 1, "final": 2}
 
 
@@ -287,6 +292,51 @@ def stepwise_commit_plain(parts, back, edge_rows, co1, co2, n_tips, *,
     return None
 
 
+def word_slices(words: int, grid: int):
+    """The word range [lo, hi) of each of P3's ``grid`` blocks in a
+    partition of ``words`` words (csrc/fitch.cu's split): contiguous,
+    in block order, some empty when ``grid`` exceeds ``words``."""
+    return [(words * g // grid, words * (g + 1) // grid)
+            for g in range(grid)]
+
+
+def stepwise_commit_sliced_plain(parts, back, edge_rows, co1, co2, n_tips,
+                                 *, grid, mode, scores=None, insertion=0,
+                                 tip=0):
+    """P3's plan walked with its plain version: one
+    :func:`stepwise_commit_plain` per word slice of :func:`word_slices`,
+    each on its own copy of ``back``/``edge_rows``, slice 0 from the rows'
+    costs and the others from zero; a refreshed row's cost is the
+    (wrapping) sum of its slices' costs, as the kernel's last block forms
+    it.  Same arguments and effect as :func:`stepwise_commit_plain`."""
+    if mode == "final":
+        return stepwise_commit_plain(parts, back, edge_rows, co1, co2,
+                                     n_tips, mode=mode)
+    shares, topo = [], None
+    for g in range(grid):
+        b, e = back.clone(), edge_rows.clone()
+        sliced = []
+        for vec, cost in parts:
+            lo, hi = word_slices(vec.shape[-1], grid)[g]
+            sliced.append((vec[..., lo:hi].clone(),
+                           cost.clone() if g == 0 else torch.zeros_like(cost)))
+        stepwise_commit_plain(sliced, b, e, co1, co2, n_tips, mode=mode,
+                              scores=scores, insertion=insertion, tip=tip)
+        for (vec, _), (v, _) in zip(parts, sliced):
+            lo, hi = word_slices(vec.shape[-1], grid)[g]
+            vec[..., lo:hi] = v
+        shares.append([c for _, c in sliced])
+        if topo is None:
+            topo = (b, e)
+        elif not (torch.equal(b, topo[0]) and torch.equal(e, topo[1])):
+            raise AssertionError("slices spliced different topologies")
+    back.copy_(topo[0])
+    edge_rows.copy_(topo[1])
+    for q, (_, cost) in enumerate(parts):
+        cost.copy_(_bits(sum(_uint(share[q]) for share in shares)))
+    return None
+
+
 # --------------------------------------------------------------------------
 # CUDA wrappers
 # --------------------------------------------------------------------------
@@ -302,8 +352,11 @@ def load_kernels() -> ctypes.CDLL:
     lib.fitch_scores.argtypes = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P,
                                  _I, _P]
     lib.stepwise_commit.argtypes = [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
-                                    _I, _P, _P, _P, _P, _P, _P, _P]
-    for fn in (lib.fitch_waves, lib.fitch_scores, lib.stepwise_commit):
+                                    _I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                                    _P, _P]
+    lib.stepwise_commit_limits.argtypes = [_P, _P]
+    for fn in (lib.fitch_waves, lib.fitch_scores, lib.stepwise_commit,
+               lib.stepwise_commit_limits):
         fn.restype = ctypes.c_int
     lib.fitch_error_string.argtypes = [ctypes.c_int]
     lib.fitch_error_string.restype = ctypes.c_char_p
@@ -452,13 +505,71 @@ def fitch_scores(vectors, costs, nodes1, nodes2=None, *, back=None,
 fitch_scores.launches = 0
 
 
+class CommitPlan(NamedTuple):
+    """P3's launch (:func:`commit_plan`): ``grid`` blocks, each over a
+    slice of every partition's words; the walk's tables in shared memory
+    (``shared``, ``smem`` bytes of it) or in the workspace."""
+    grid: int
+    shared: bool
+    smem: int
+
+
+def commit_plan(words, n_tips: int, sms: int, smem_limit: int) -> CommitPlan:
+    """P3's launch for partitions of ``words`` words each at ``n_tips``
+    taxa on a card of ``sms`` SMs whose block may ask for ``smem_limit``
+    bytes of dynamic shared memory (pure).  A block per ``SLICE_WORDS``
+    words of the widest partition, at most one per SM: one block below
+    2 * SLICE_WORDS words.  ``back``, co1, co2, the queue and its sources
+    (``4 * 5D`` bytes, D = 4n - 6 rows: a row is queued at most once) in
+    shared memory where they fit, else in device memory (always at a
+    ``smem_limit`` of 0)."""
+    rows = 4 * n_tips - 6
+    grid = max(1, min(sms, max(words) // SLICE_WORDS))
+    smem = 4 * 5 * rows
+    shared = smem <= smem_limit
+    return CommitPlan(grid, shared, smem if shared else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(device_index: int):
+    """(SMs, dynamic shared memory a P3 block may ask for) of a card."""
+    lib = load_kernels()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _check(lib, lib.stepwise_commit_limits(ctypes.byref(sms),
+                                               ctypes.byref(smem)),
+               "stepwise_commit_limits")
+    return sms.value, smem.value
+
+
+def plan_for(parts, n_tips: int) -> CommitPlan:
+    """:func:`commit_plan` for ``parts`` on their card."""
+    sms, smem = _limits(parts[0][0].device.index or 0)
+    return commit_plan([v.shape[2] for v, _ in parts], n_tips, sms, smem)
+
+
+def commit_workspace(plan: CommitPlan, n_parts: int, n_tips: int, device):
+    """P3's device workspace for ``plan``: (the tables when not in shared
+    memory, each block's share of the costs, the blocks' counter at 0).
+    One workspace serves every launch of a build on one stream."""
+    rows = 4 * n_tips - 6
+    tables = torch.empty(0 if plan.shared
+                         else plan.grid * 3 * rows,
+                         dtype=torch.int32, device=device)
+    chain = torch.empty(plan.grid * n_parts * rows, dtype=torch.int32,
+                        device=device)
+    return tables, chain, torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def stepwise_commit(parts, back, edge_rows, co1, co2, n_tips, *, mode,
-                    scores=None, insertion=0, tip=0):
-    """P3: one step of the device-resident stepwise build in one block
-    (see :func:`stepwise_commit_plain` for ``mode``), in place on
-    ``parts``' rows, ``back`` and ``edge_rows``; ``mode="final"`` returns
-    int32 [P].  Inputs stay on the card: no host read.  CPU tensors take
-    :func:`stepwise_commit_plain`."""
+                    scores=None, insertion=0, tip=0, plan=None, work=None):
+    """P3: one step of the device-resident stepwise build (see
+    :func:`stepwise_commit_plain` for ``mode``), in place on ``parts``'
+    rows, ``back`` and ``edge_rows``; ``mode="final"`` returns int32 [P].
+    ``plan`` (:func:`plan_for` when None) splits the words across blocks;
+    ``work`` (:func:`commit_workspace`, made afresh when None) is the
+    launch's device workspace.  Inputs stay on the card: no host read.
+    CPU tensors take :func:`stepwise_commit_plain`."""
     _require(mode in STEP_MODES, f"mode {mode!r}")
     device = back.device
     D = 4 * n_tips - 6
@@ -487,12 +598,22 @@ def stepwise_commit(parts, back, edge_rows, co1, co2, n_tips, *, mode,
                                      insertion=insertion, tip=tip)
     lib = load_kernels()
     n = len(parts)
+    plan = plan or plan_for(parts, n_tips)
+    if mode == "final":
+        plan = plan._replace(grid=1)
+    if work is None:
+        work = commit_workspace(plan, n, n_tips, device)
+    tables, chain, done = work
+    _require(tables.numel() >= (0 if plan.shared else
+                                plan.grid * 3 * D)
+             and chain.numel() >= plan.grid * n * D
+             and all(t.device == device and t.dtype == torch.int32
+                     for t in work),
+             "workspace smaller than the plan or not int32 on the card")
     vec_ptrs = (ctypes.c_int64 * n)(*(v.data_ptr() for v, _ in parts))
     cost_ptrs = (ctypes.c_int64 * n)(*(c.data_ptr() for _, c in parts))
     states = (ctypes.c_int32 * n)(*(v.shape[1] for v, _ in parts))
     words = (ctypes.c_int32 * n)(*(v.shape[2] for v, _ in parts))
-    queue = torch.empty(D + 3 + 2 * QUEUE_CHUNK, dtype=torch.int32,
-                        device=device)
     finals = (torch.empty(n, dtype=torch.int32, device=device)
               if mode == "final" else None)
     ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)  # noqa: E731
@@ -503,8 +624,9 @@ def stepwise_commit(parts, back, edge_rows, co1, co2, n_tips, *, mode,
             None if scores is None else scores.data_ptr(),
             2 * insertion - 3, n_tips + 3 * (insertion - 2), int(tip),
             back.data_ptr(), edge_rows.data_ptr(), co1.data_ptr(),
-            co2.data_ptr(), queue.data_ptr(),
-            None if finals is None else finals.data_ptr(),
+            co2.data_ptr(), plan.grid, int(plan.shared),
+            tables.data_ptr() if tables.numel() else None, chain.data_ptr(),
+            done.data_ptr(), None if finals is None else finals.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _check(lib, rc, "stepwise_commit")
     stepwise_commit.launches += 1
@@ -545,13 +667,19 @@ def stepwise_build(parts, order):
     topo = stepwise_topology(order, parts[0][0].device)
     back, edge_rows = topo[0], topo[1]
     scores = torch.empty(2 * n - 3, dtype=torch.int32, device=back.device)
+    kw = {}
+    if back.device.type == "cuda":  # one plan and workspace a build
+        plan = plan_for(parts, n)
+        kw = dict(plan=plan, work=commit_workspace(plan, len(parts), n,
+                                                   back.device))
 
-    stepwise_commit(parts, *topo, mode="star")
+    stepwise_commit(parts, *topo, mode="star", **kw)
     for i in range(3, n):
         ne = 2 * i - 3
         for k, (vecs, costs) in enumerate(parts):
             fitch_scores(vecs, costs, edge_rows[:ne], back=back,
                          tip=order[i], out=scores[:ne], accumulate=k > 0)
         stepwise_commit(parts, *topo, mode="insert", scores=scores,
-                        insertion=i, tip=order[i])
-    return back, edge_rows, stepwise_commit(parts, *topo, mode="final")
+                        insertion=i, tip=order[i], **kw)
+    return back, edge_rows, stepwise_commit(parts, *topo, mode="final",
+                                            **kw)

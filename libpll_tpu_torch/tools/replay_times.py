@@ -14,13 +14,19 @@ beside the package's build and called in place of its library.
 
 Measured: U1 (``replay_ops_f64``) on a full ``update_partials`` of the
 float64 flagship Partition (chip_smoke's ``flagship_blopt_partition``:
-64 taxa, 262 144 patterns, GTR+Γ4, 62 ops) and, where the tree has it, C1
-(``score_candidates_f32``) on the first batch of chip_smoke phase 31's
-SPR neighbourhood (``spr_partition``: scripts/bench_spr.py's 1 024 taxa x
-16 384 sites, 32 candidates); device ms a call over back-to-back calls
-(``chip_smoke.time_ms``) and a SHA-256 of each kernel's output, to compare
-bits between runs.  Each run prints one JSON line; the card's name and
-power limit come first.
+64 taxa, 262 144 patterns, GTR+Γ4, 62 ops), device ms a call over
+back-to-back calls (``chip_smoke.time_ms``) and a SHA-256 of its output,
+to compare bits between runs; and, for a checkout (not a variant), the
+round scorer (``search/spr.make_round_scorer``, C1 and whatever runs
+around it) on two batches: the first of chip_smoke phase 31's SPR cell
+(``spr_partition``: scripts/bench_spr.py's 1 024 taxa x 16 384 sites, 32
+candidates, capacity 128) and the first of scripts/bench_infer.py's first
+SPR round up to its branch lengths (the stepwise start tree of
+``infer_alignment(1024, 16384)``, radius 5, 128 candidates, capacity 32):
+the card's time a call and C1's alone (torch.profiler), the host's wall
+time a call, the logL summed (a variant's C1 runs through the package's
+scorer too).  Each run prints one JSON line; the card's name and power
+limit come first.
 """
 
 import ctypes
@@ -28,6 +34,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -41,6 +48,101 @@ def _digest(*tensors):
     for t in tensors:
         h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def spr_cell(cs, device):
+    """chip_smoke phase 31's SPR cell: (partition, tree, candidates)."""
+    from libpll_tpu_torch.search import spr
+    from libpll_tpu_torch.tree import utree as ut
+
+    part, tree = cs.spr_partition(device)
+    cs.full_state(tree, part, [0] * 4)
+    prune = ut.query_innernodes(tree)[:cs.SPR_PRUNE]
+    enc, _ = spr.encode_candidates(tree, spr.spr_neighborhood(
+        tree, cs.SPR_RADIUS, prune_nodes=prune))
+    return part, tree, enc
+
+
+def infer_start(cs, device):
+    """scripts/bench_infer.py's first SPR round up to its branch lengths:
+    ``infer_alignment(1024, 16384)`` compressed, the stepwise start tree
+    of seed 42 (zero lengths 0.1, as ``infer_tree`` sets them), a float32
+    Partition of SEARCH_GTR with the pattern weights, fully evaluated, and
+    the radius-5 SPR neighbourhood encoded: (partition, tree,
+    candidates)."""
+    import torch
+
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.io.compress import compress_site_patterns
+    from libpll_tpu_torch.search import spr
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+    from libpll_tpu_torch.search.stepwise import (deep_recursion,
+                                                  fastparsimony_stepwise)
+    from libpll_tpu_torch.utils.flagship import infer_alignment
+
+    data, _ = infer_alignment(cs.BENCH_INFER_TIPS, cs.BENCH_INFER_SITES)
+    labels = list(data)
+    patterns, weights = compress_site_patterns([data[k] for k in labels],
+                                               maps.pll_map_nt)
+    pars = FastParsimony.from_sequences(patterns, maps.pll_map_nt, 4,
+                                        pattern_weights=weights)
+    with deep_recursion(len(labels)):
+        tree, _ = fastparsimony_stepwise([pars], labels, 42)
+        for n in tree.nodes:
+            for m in ([n] if n.is_tip else n.ring()):
+                if m.length == 0.0:
+                    m.length = 0.1
+                m.back.length = m.length
+        part = cs.search_partition(tree, dict(zip(labels, patterns)),
+                                   len(patterns[0]), "site", torch.float32,
+                                   device)
+        part.set_pattern_weights(weights)
+        cs.full_state(tree, part, [0] * 4)
+        enc, _ = spr.encode_candidates(tree, spr.spr_neighborhood(tree, 5))
+    del pars
+    return part, tree, enc
+
+
+def scorer_batch(cs, part, tree, enc, cap, batch):
+    """The round scorer on the first batch of ``enc``: under
+    torch.profiler over five calls, the card's time a call (every kernel:
+    the P-matrices, C1, the fold or the asc tail) and C1's kernel alone;
+    the host's wall time a call (the card synchronised, median of five);
+    the batch's logL summed over its real candidates."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libpll_tpu_torch.engine.evaluate import partition_model
+    from libpll_tpu_torch.search import spr
+
+    b, t, mi, bl, er = next(spr.encoded_batches(
+        enc, part.nodes, part.scale_buffers, cap, batch))
+    scorer = spr.make_round_scorer(part, cap)
+    model = partition_model(part, [0] * 4)
+
+    def call():
+        return scorer(part.clv, part.scalers, part.pmatrix, model, t, mi,
+                      bl, er)
+
+    logl = float(call()[:b].double().sum())
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    got, _ = cs.kernel_ms(prof, ("", "candidates_kernel"))
+    return {"batch": len(t), "real": b, "card_ms": got[""][0] / 5,
+            "kernels_a_call": got[""][1] / 5,
+            "c1_ms": got["candidates_kernel"][0] / 5,
+            "wall_ms": float(np.median(walls)), "logl_sum": logl}
 
 
 def measure(tree, lib_path=None):
@@ -83,55 +185,20 @@ def measure(tree, lib_path=None):
     del part
     torch.cuda.empty_cache()
 
-    if hasattr(lib, "score_candidates_f32") and hasattr(cs, "spr_partition"):
-        from libpll_tpu_torch.engine.evaluate import partition_model
+    if lib_path is not None:  # the package's C1 through the variant
+        from libpll_tpu_torch.ops import _build
         from libpll_tpu_torch.ops import incremental as inc_ops
-        from libpll_tpu_torch.search import spr
 
-        c1 = lib.score_candidates_f32
-        c1.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
-        c1.restype = ctypes.c_int
-        sp, stree = cs.spr_partition(device)
-        cs.full_state(stree, sp, [0] * 4)
-        prune = ut.query_innernodes(stree)[:cs.SPR_PRUNE]
-        enc, _ = spr.encode_candidates(stree, spr.spr_neighborhood(
-            stree, cs.SPR_RADIUS, prune_nodes=prune))
-        _, t, mi, bl, er = next(spr.encoded_batches(
-            enc, sp.nodes, sp.scale_buffers, cs.SPR_CAP, cs.SPR_BATCH))
-        rows = inc_ops.check_tables(
-            t, mi, er, n_nodes=sp.nodes, n_scale_buffers=sp.scale_buffers,
-            n_matrices=sp.pmatrix.shape[0], capacity=cs.SPR_CAP,
-            scale_mode=sp.scale_mode)
-        model = partition_model(sp, [0] * 4)
-        tab, midx = (torch.from_numpy(a).to(device) for a in (t, mi))
-        new = inc_ops.compute_pmatrices(
-            torch.from_numpy(bl).to(device, torch.float32).reshape(-1),
-            model["rates"], model["prop_invar"], model["params_indices"],
-            model["eigenvals"], model["left"], model["right"],
-            dtype=torch.float32).reshape(
-                (cs.SPR_BATCH, mi.shape[1]) + tuple(sp.pmatrix.shape[1:])
-            ).contiguous()
-        scratch, scal = inc_ops._scratch(sp.clv, sp.scalers, cs.SPR_BATCH,
-                                         rows, sp.scale_mode)
-        _, c, s, length = sp.clv.shape
-
-        def run_c1():
-            cs.check(c1(sp.clv.data_ptr(), sp.scalers.data_ptr(),
-                        sp.pmatrix.data_ptr(), tab.data_ptr(), tab.shape[1],
-                        midx.data_ptr(), new.data_ptr(), mi.shape[1],
-                        scratch.data_ptr(), scal.data_ptr(), rows,
-                        cs.SPR_BATCH, sp.nodes, sp.scale_buffers, c, s,
-                        length, sp.scale_mode, stream) == 0,
-                     "C1 launch failed")
-
-        scratch.zero_()
-        scal.zero_()
-        run_c1()
-        out["c1_sha256"] = _digest(scratch, scal)
-        out["c1_ms"] = cs.time_ms(run_c1, iters=20, warmup=3)[0]
+        real_load = _build.load
+        _build.load = lambda name: (ctypes.CDLL(str(lib_path))
+                                    if name == "partials" else real_load(name))
+        for fn in (clv_ops.load_kernels, inc_ops.load_kernels,
+                   inc_ops._smem_limit):
+            fn.cache_clear()
+    if hasattr(cs, "spr_partition"):
+        out["c1_32"] = scorer_batch(cs, *spr_cell(cs, device), cs.SPR_CAP,
+                                    cs.SPR_BATCH)
+        out["c1_128"] = scorer_batch(cs, *infer_start(cs, device), 32, 128)
     print(json.dumps(out), flush=True)
 
 

@@ -740,6 +740,34 @@ def test_stepwise_on_card_matches_cpu(cuda, engine):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tables, grid", [("global", None), ("global", 3),
+                                          ("shared", 5), ("shared", 1)])
+def test_stepwise_commit_plans_on_card(cuda, monkeypatch, tables, grid):
+    """P3 with its walk's tables in device or shared memory and its words
+    split over 1-5 blocks: every launch of a device build equal to its
+    plain version, the build equal to the CPU's."""
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.stepwise import direction_rows
+    from libpll_tpu_torch.utils.rng import shuffled_order
+
+    def plan_for(parts, n):  # a limit of 0 keeps the tables in device memory
+        sms, smem = fitch._limits(parts[0][0].device.index or 0)
+        plan = fitch.commit_plan([v.shape[2] for v, _ in parts], n, sms,
+                                 smem if tables == "shared" else 0)
+        assert plan.shared == (tables == "shared")
+        return plan._replace(grid=grid) if grid else plan
+
+    monkeypatch.setattr(fitch, "plan_for", plan_for)
+    order = shuffled_order(120, 4)
+    card = chip_smoke.parsimony_parts(120, 3000, 4, True, 2, 4, cuda)
+    back, finals = chip_smoke.stepwise_pair(card, order)
+    host = chip_smoke.parsimony_parts(120, 3000, 4, True, 2, 4, "cpu")
+    hback, _, hfinals = fitch.stepwise_build(direction_rows(host), order)
+    assert torch.equal(back.cpu(), hback)
+    assert torch.equal(finals.cpu(), hfinals)
+
+
+@pytest.mark.gpu
 def test_fitch_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from libpll_tpu_torch.ops import fitch
 
@@ -797,18 +825,21 @@ def test_replay_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_scorer_on_card_matches_plain_and_cpu(cuda):
-    """chip_smoke's phase 30: C1 against its plain version at every launch
-    (phase 20's configurations, float64 and float32, SPR and NNI
-    candidates), the scores against the plain scorer on the card, the CPU
-    scorer and fresh evaluations of the moved trees, the base buffers
-    unchanged; the NaN vote of U1, K2 and C1 against their plain
-    versions."""
+    """chip_smoke's phase 30: C1's scoring instance against the plain
+    scorer and its replay instance's rows against its plain version at
+    every launch (phase 20's configurations and more, float64 and
+    float32, SPR and NNI candidates, float64 also with rows spilled), the
+    scores against the plain scorer on the card, the CPU scorer and fresh
+    evaluations of the moved trees, the base buffers unchanged; the NaN
+    vote of U1, K2 and C1 against their plain versions."""
     from libpll_tpu_torch.ops import incremental as inc_ops
 
-    before = inc_ops._replay_candidates.launches
+    before = (inc_ops._score_candidates.launches,
+              inc_ops._replay_candidates.launches)
     out = chip_smoke.check_scorer_small(cuda)
     assert out["launches"] > 0 and out["brute"] > 0 and out["nan"] > 0
-    assert inc_ops._replay_candidates.launches > before
+    assert inc_ops._score_candidates.launches > before[0]
+    assert inc_ops._replay_candidates.launches > before[1]
 
 
 @pytest.mark.gpu
@@ -868,9 +899,9 @@ def test_small_infer_tree_on_card_matches_cpu(cuda):
 
     name, seed, tips, sites, kw = chip_smoke.INFER_SMALL[0]
     seqs = chip_smoke.search_data(seed, tips, sites)
-    before = inc_ops._replay_candidates.launches
+    before = inc_ops._score_candidates.launches
     got = infer_tree(seqs, device=cuda, **chip_smoke.SEARCH_GTR, **kw)
-    assert inc_ops._replay_candidates.launches > before
+    assert inc_ops._score_candidates.launches > before
     want = infer_tree(seqs, device="cpu", **chip_smoke.SEARCH_GTR, **kw)
     assert got.start_parsimony_score == want.start_parsimony_score
     assert got.rounds == want.rounds

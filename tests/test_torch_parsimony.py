@@ -240,6 +240,98 @@ def test_stepwise_build_plain_twin(tips, seed):
         assert np.array_equal(words(tc), np.asarray(c))
 
 
+def _sliced_build(parts, order, grid):
+    """The device build with P3 as its slice plan's plain walk
+    (``stepwise_commit_sliced_plain`` at ``grid`` blocks) and P2's plain
+    scores summed over the partitions."""
+    n = len(order)
+    topo = tfitch.stepwise_topology(order, "cpu")
+    back, edge_rows = topo[0], topo[1]
+    scores = torch.empty(2 * n - 3, dtype=torch.int32)
+    tfitch.stepwise_commit_sliced_plain(parts, *topo, grid=grid,
+                                        mode="star")
+    for i in range(3, n):
+        ne = 2 * i - 3
+        for k, (vecs, costs) in enumerate(parts):
+            tfitch.fitch_scores(vecs, costs, edge_rows[:ne], back=back,
+                                tip=order[i], out=scores[:ne],
+                                accumulate=k > 0)
+        tfitch.stepwise_commit_sliced_plain(
+            parts, *topo, grid=grid, mode="insert", scores=scores,
+            insertion=i, tip=order[i])
+    return back, edge_rows, tfitch.stepwise_commit_sliced_plain(
+        parts, *topo, grid=grid, mode="final")
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("grid", [1, 2, 3, 5, 24])
+def test_commit_slice_plan_walk(grid, n_parts):
+    """P3's slice plan walked with the plain version (one
+    ``stepwise_commit_plain`` per word slice, the slices' costs summed,
+    slice 0 carrying the rows' own costs) equals the unsliced plain build
+    and JAX's device build: every direction row, cost, ``back``,
+    ``edge_rows`` and the final scores.  One or two partitions (DNA of 16
+    words and protein of 8), from one block to more blocks than either
+    has words (empty slices); tip costs near 2**32 so that the slices'
+    sums wrap."""
+    tips, seed = 14, 7 + grid
+    rng = np.random.default_rng(seed)
+    D = 4 * tips - 6
+    parts_np = []
+    for states, alphabet, sites in ((4, DNA, 500), (20, PROTEIN, 200)
+                                    )[:n_parts]:
+        charmap = jmaps.pll_map_nt if states == 4 else jmaps.pll_map_aa
+        masks = np.stack([tmaps.encode_sequence(s, charmap)
+                          for s in sequences(rng, tips, sites, alphabet)])
+        weights = rng.integers(1, 4, sites)
+        inf, _ = tfitch.set_informative(masks, states, weights)
+        packed = tfitch.pack_vectors(masks, states, inf, weights, 0)
+        vec = np.zeros((D,) + packed.shape[1:], U32)
+        vec[:tips] = packed
+        cost = np.zeros(D, U32)
+        cost[:tips] = random_costs(rng, tips)
+        parts_np.append((vec, cost))
+    order = trng.shuffled_order(tips, seed)
+    jv, jc, jback, jedges, jfinals = _jax_build(parts_np, order)
+    plain = [(tfitch.to_words(v, "cpu"), tfitch.to_words(c, "cpu"))
+             for v, c in parts_np]
+    sliced = [(v.clone(), c.clone()) for v, c in plain]
+    want = tfitch.stepwise_build(plain, order)
+    got = _sliced_build(sliced, order, grid)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert np.array_equal(got[0].numpy(), np.asarray(jback))
+    assert np.array_equal(got[1].numpy(), np.asarray(jedges))
+    assert np.array_equal(words(got[2]),
+                          np.asarray([int(f) for f in jfinals], U32))
+    for (sv, sc), (pv, pc), v, c in zip(sliced, plain, jv, jc):
+        assert torch.equal(sv, pv) and torch.equal(sc, pc)
+        assert np.array_equal(words(sv), np.asarray(v))
+        assert np.array_equal(words(sc), np.asarray(c))
+
+
+def test_commit_plan():
+    """P3's launch plan: a block per 32 words of the widest partition (one
+    below 64 words, at most one per SM), the word slices contiguous and
+    whole, the walk's tables in shared memory up to the limit and in
+    device memory past it (always at a limit of 0)."""
+    limit = 232448 - 5 * 1024
+    plan = tfitch.commit_plan([512], 1024, 132, limit)
+    assert plan == tfitch.CommitPlan(16, True, 4 * 5 * 4090)
+    assert tfitch.commit_plan([64, 8], 2048, 132, limit)[:2] == (2, True)
+    assert tfitch.commit_plan([63], 100, 132, limit).grid == 1
+    assert tfitch.commit_plan([8], 10, 132, limit).grid == 1
+    assert tfitch.commit_plan([32 * 500], 100, 132, limit).grid == 132
+    past = tfitch.commit_plan([512], 3000, 132, limit)
+    assert not past.shared and past.smem == 0 and 20 * (4 * 3000 - 6) > limit
+    assert tfitch.commit_plan([512], 100, 132, 0) == (16, False, 0)
+    for w, g in ((16, 5), (8, 24), (512, 16), (7, 3)):
+        cuts = tfitch.word_slices(w, g)
+        assert len(cuts) == g and cuts[0][0] == 0 and cuts[-1][1] == w
+        assert all(a[1] == b[0] and a[0] <= a[1]
+                   for a, b in zip(cuts, cuts[1:]))
+
+
 # ----------------------------------------------------------- FastParsimony
 @pytest.mark.parametrize("states, alphabet", [(4, DNA), (20, PROTEIN)])
 @pytest.mark.parametrize("weighted", [False, True])

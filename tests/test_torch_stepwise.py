@@ -131,3 +131,26 @@ def test_device_engine_call_sequence(monkeypatch):
     assert calls["scores"] == 2 * 13
     assert calls["commit"] == ["star"] + ["insert"] * 13 + ["final"]
     assert score == 2 * jax_build(16, 120, 42)[0]
+
+
+@pytest.mark.parametrize("grid", [2, 9])
+def test_stepwise_with_sliced_commit_matches_jax(monkeypatch, grid):
+    """The device engine with P3 as its slice plan's plain walk (the
+    words split across ``grid`` blocks, the slices' costs summed) gives
+    JAX's score and Newick, one and two partitions."""
+    real = tstep.fitch.stepwise_commit
+
+    def sliced(parts, *topo, **kw):
+        assert kw.pop("plan", None) is None and kw.pop("work", None) is None
+        return tstep.fitch.stepwise_commit_sliced_plain(parts, *topo,
+                                                        grid=grid, **kw)
+
+    monkeypatch.setattr(tstep.fitch, "stepwise_commit", sliced)
+    seqs, labels = alignment(16, 120, 42)
+    part = tpars.FastParsimony.from_sequences(seqs, jmaps.pll_map_nt, 4,
+                                              device="cpu")
+    tree, score = tstep.fastparsimony_stepwise([part], labels, 42)
+    assert (score, tut.export_newick(tree.root)) == jax_build(16, 120, 42)
+    tree, score = tstep.fastparsimony_stepwise([part, part], labels, 42)
+    assert score == 2 * jax_build(16, 120, 42)[0]
+    assert real is not tstep.fitch.stepwise_commit
