@@ -200,17 +200,27 @@ Phases, one line each:
      counters at 0 around each: score and Newick equal to libpll_tpu's
      (``STEPWISE_JAX``, recorded from the JAX package on the CPU), the
      score re-derived by the plain Fitch of the final tree, which kernels
-     ran;
+     ran (the host engine one P1 launch a call);
  26. stepwise times: each build's wall time, P2's and P3's device time a
      launch under torch.profiler and the device's idle share; P2 and P3
      at the last insertion and P1 over the final tree against their plain
      versions and their bounds (integer logic and popcount throughput,
-     bytes at 3.35 TB/s); a whole build at 200 x 2 000 by the plain
-     versions (``stepwise_profile``, ``last_insertion_p3``);
+     bytes at 3.35 TB/s); P1 at forced block counts (one, its plan's and
+     a ragged split; its own with the table in device memory) over the
+     final tree and over a 150-taxon tree at 20 states, each equal to the
+     plain version (``check_wave_grids``); a
+     whole build at 200 x 2 000 by the plain versions
+     (``stepwise_profile``, ``last_insertion_p3``);
  27. blopt small: U1 against the plain executor at every launch
      (``ReplayHook``) of phase 20's configurations and of random op
      tables (every scale mode, S 4/20/5, C 1-8, float64 rel 1e-12 with
-     scalers equal, float32 by phase 3's rule), N1 with blopt's |d2| rule
+     scalers equal, float32 by phase 3's rule; again under
+     ``REPLAY_FORCED``'s plans, one lane a site, one op a window and
+     nothing staged, each bit for bit U1's own plan's; a second draw of
+     those tables, ``replay_second_draw``, its float64 ones under the
+     hook and its float32 ones by the rule against the plain executor on
+     the CPU) and of a bench_infer-shaped sweep's first tables
+     (``sweep_shape_case``: 16 384 sites, float32), N1 with blopt's |d2| rule
      against its plain twin, both optimisers (the scan eager and graphed) at
      14 taxa on the card against the CPU Partition;
  28. blopt flagship: each optimiser two sweeps with its counters at 0
@@ -219,7 +229,9 @@ Phases, one line each:
      the card agree (logL rel 1e-10, lengths rel 1e-7), an eager scan
      sweep makes no host read (``torch.cuda.set_sync_debug_mode``);
  29. blopt times: U1 on a full ``update_partials`` against its bound and
-     the plain executor; ms a sweep and an edge of each optimiser, and the
+     the plain executor, and at bench_infer's sweep tables (µs a launch
+     under torch.profiler against the bytes its tables move, and the plain
+     executor a table); ms a sweep and an edge of each optimiser, and the
      device's idle share over one (torch.profiler);
  30. scorer small: C1 at every launch (``ScorerHook``: its scoring
      instance's logL against the plain scorer's, float64 rel 1e-12,
@@ -3170,11 +3182,11 @@ def phase_stepwise(device):
                   f"Newick {digest[:16]}.. of {length} chars; libpll_tpu "
                   f"{want[0]}, {want[1][:16]}.. of {want[2]}")
             # device: P2 a insertion, P3 a insertion plus the star and
-            # the final; host: P1 a wave, P2 a insertion plus the final
-            # edge score
+            # the final; host: P1 a call (the star, each insertion, the
+            # final tree), P2 a insertion plus the final edge score
             ran = ({"P1": 0, "P2": tips - 3, "P3": tips - 1}
                    if engine == "device" else
-                   {"P1": max(launches["P1"], 1), "P2": tips - 2, "P3": 0})
+                   {"P1": tips - 1, "P2": tips - 2, "P3": 0})
             check(launches == ran, f"stepwise {tips} x {sites} {engine}: "
                                    f"launches {launches}, want {ran}")
             res[engine] = {"s": wall, "launches": launches,
@@ -3479,6 +3491,61 @@ def stepwise_text(prof):
             f"{prof['wall']:.3f} s wall under the profiler")
 
 
+class ForcedWaveGrid:
+    """While active, P1 splits the words over ``grid`` blocks
+    (``ops.fitch.wave_grid``; None: its own) and, unless ``staged``, reads
+    its table from device memory (``ops.fitch.wave_smem`` 0)."""
+
+    def __init__(self, grid, staged=True):
+        from libpll_tpu_torch.ops import fitch
+
+        self.fitch, self.grid, self.staged = fitch, grid, staged
+        self.real = fitch.wave_grid, fitch.wave_smem
+
+    def __enter__(self):
+        if self.grid:
+            self.fitch.wave_grid = lambda vectors: self.grid
+        if not self.staged:
+            self.fitch.wave_smem = lambda *args: 0
+        return self
+
+    def __exit__(self, *exc):
+        self.fitch.wave_grid, self.fitch.wave_smem = self.real
+
+
+def check_wave_grids(part, levels, what):
+    """P1 over ``levels`` on clones of ``part``'s rows at one block, at
+    ``ops.fitch.wave_grid``'s count and at a ragged split (3, 5, 7 or 9
+    blocks, the first that does not divide the words), and at its own
+    count with the table left in device memory: one launch each, every
+    row and cost equal to ``fitch_run_waves_plain``'s.  Returns the block
+    counts (0: its own, unstaged)."""
+    import torch
+
+    from libpll_tpu_torch.ops import fitch
+
+    vec = part.vectors
+    table, offsets = fitch.wave_table(levels, vec.shape[0])
+    want = (vec.clone(), part.costs.clone())
+    fitch.fitch_run_waves_plain(*want, torch.from_numpy(table).to(
+        vec.device), offsets)
+    words = vec.shape[2]
+    grids = tuple(dict.fromkeys((1, fitch.wave_grid(vec), next(
+        g for g in (3, 5, 7, 9) if words % g)))) + (0,)
+    for grid in grids:
+        v, c = vec.clone(), part.costs.clone()
+        before = fitch.fitch_waves.launches
+        with ForcedWaveGrid(grid or None, staged=grid > 0):
+            fitch.fitch_waves(v, c, levels)
+        check(fitch.fitch_waves.launches == before + 1
+              and torch.equal(v, want[0]) and torch.equal(c, want[1]),
+              f"P1 over {what} at {grid} blocks ({words} words): "
+              f"{fitch.fitch_waves.launches - before} launches, rows equal "
+              f"{torch.equal(v, want[0])}, costs equal "
+              f"{torch.equal(c, want[1])} to the plain version's")
+    return grids
+
+
 def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     """Phase 26: at each of STEPWISE_CASES, a device build under
     torch.profiler (P2's and P3's device time a launch, the device's idle
@@ -3571,6 +3638,18 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     check(err["p1"] == 0, f"P1 over the final tree differs from its plain "
                           f"version by {err['p1']}")
     bounds["p1"] = fitch_work(peaks, w, s, ops=len(ops))
+    # P1 at forced block counts: the final tree (4 states) and a random
+    # 150-taxon tree over 20 states
+    grids = {"4 states": (w, check_wave_grids(part, levels,
+                                              "the final tree"))}
+    prot = parsimony_parts(150, 2000, 20, True, 1, 0, device)[0]
+    prot_tree = ut.parse_newick_string(random_newick(
+        150, np.random.default_rng(26)))
+    prot_levels = _group_levels(ut.create_pars_buildops(
+        ut.traverse(prot_tree.root)))
+    grids["20 states"] = (prot.vectors.shape[2], check_wave_grids(
+        prot, prot_levels, "a 150-taxon tree at 20 states"))
+    del prot
     print(f"[26 stepwise times] {card}: {tips} x {sites}, the last "
           f"insertion ({ne} candidate edges, {last_rows} rows refreshed in "
           f"{last_levels} dependent levels; P3 {last['plan'].grid} blocks of "
@@ -3589,8 +3668,14 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
           f"over the final tree ({len(ops)} ops in {len(levels)} waves) "
           f"{ms['p1']:.4f} ms ({ms['p1'].by}; the wrapper's whole call "
           f"{ms['p1_call']:.4f} "
-          f"ms) vs plain {ms['p1_plain']:.4f} ms, bound "
-          f"{bounds['p1'][0] * 1e3:.3f} us ({bounds['p1'][1]})", flush=True)
+          f"ms; one launch, {fitch.wave_grid(part.vectors)} blocks) vs plain "
+          f"{ms['p1_plain']:.4f} ms, bound "
+          f"{bounds['p1'][0] * 1e3:.3f} us ({bounds['p1'][1]}); P1 at forced "
+          f"block counts equal to the plain version, one launch each: "
+          + "; ".join(f"{k} ({words} words) at {', '.join(map(str, g))} "
+                      f"blocks (0: its own, the table in device memory)"
+                      for k, (words, g) in grids.items()),
+          flush=True)
 
     # a whole build at a small size: the kernels, then the plain versions
     small = (200, 2000)
@@ -3822,12 +3907,208 @@ def random_op_table(rng, n, tips, inner, matrices, scalers):
     return ops
 
 
+# U1's plan forced in phase 27 as (lanes a site, ops staged at once; None:
+# ops.clv.replay_plan's own): one lane a site (several rates a lane), two
+# lanes with one op a window (two buffers: the next op staged while one
+# computes), nothing staged (the table and matrices through L1/L2)
+REPLAY_FORCED = ((1, None), (2, 1), (None, 0))
+SWEEP_CHECKED = 8  # phase 27: bench_infer-shaped sweep tables checked
+SWEEP_TIMED = 512  # phase 29: bench_infer-shaped sweep tables timed
+SWEEP_PLAIN = 16  # phase 29: the plain executor's tables timed
+
+
+class ForcedReplayPlan:
+    """While active, U1 runs with ``lanes`` lanes a site and ``window`` ops
+    staged at once (None: ``ops.clv.replay_plan``'s own), its grid and
+    shared memory laid out for them by ``ops.clv.replay_layout``."""
+
+    def __init__(self, lanes=None, window=None):
+        from libpll_tpu_torch.ops import clv as clv_ops
+
+        self.clv_ops, self.lanes, self.window = clv_ops, lanes, window
+        self.real = clv_ops.replay_plan
+
+    def __enter__(self):
+        real, lanes, window = self.real, self.lanes, self.window
+
+        def replay_plan(sites, rate_cats, states, sms, n_ops=8, itemsize=4):
+            plan = real(sites, rate_cats, states, sms, n_ops, itemsize)
+            return self.clv_ops.replay_layout(
+                sites, rate_cats, states, lanes or plan.lanes,
+                plan.window if window is None else window, n_ops, itemsize)
+        self.clv_ops.replay_plan = replay_plan
+        return self
+
+    def __exit__(self, *exc):
+        self.clv_ops.replay_plan = self.real
+
+
+def random_replay_inputs(rng, device):
+    """REPLAY_SMALL x float64, float32 draws of U1's random inputs from
+    ``rng``: (scale mode, dtype, CLVs, scalers, P-matrices, a table of 40
+    ops), over rows whose products shrink and scale."""
+    import torch
+
+    tips, inner, m, sites = 5, 6, 9, 203
+    for mode, s, c in REPLAY_SMALL:
+        for dtype in (torch.float64, torch.float32):
+            clv = np.zeros((tips + inner, c, s, sites))
+            clv[:tips + 1] = rng.uniform(
+                0.05, 1, (tips + 1, 1, s, sites)) * 10.0 ** rng.uniform(
+                    -60 if dtype == torch.float64 else -12, 0,
+                    (tips + 1, 1, 1, sites))
+            # rows summing below one: the products shrink, and scale
+            pm = rng.uniform(0.05, 1, (m, c, s, s)) / s
+            shape = ((inner + 1, sites) if mode == 1 else
+                     (inner + 1, c, sites) if mode == 2 else (1, sites))
+            ops = random_op_table(rng, 40, tips, inner, m, inner + 1)
+            yield (mode, dtype, torch.tensor(clv, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=torch.int32, device=device),
+                   torch.tensor(pm, dtype=dtype, device=device), ops)
+
+
+def replay_random(hook, rng, device, forced=()):
+    """U1 under ``hook`` on random_replay_inputs, each a host table of 40
+    ops and a device table of 7 padded to 16 (repeats); then each table
+    again under each of ``forced``'s plans (ForcedReplayPlan) from the
+    same state, its CLVs and scalers equal bit for bit to those of U1's
+    own plan.  Returns the forced launches."""
+    import torch
+
+    from libpll_tpu_torch.ops.incremental import pad_op_table
+
+    n = 0
+    for mode, dtype, cl, sc, p, ops in random_replay_inputs(rng, device):
+        for table in (ops, torch.from_numpy(pad_op_table(
+                ops[:7], 16)).to(device)):
+            starts = [(cl.clone(), sc.clone()) for _ in forced]
+            hook.replay(cl, sc, table, p, mode)
+            for plan, (fc, fs) in zip(forced, starts):
+                with ForcedReplayPlan(*plan):
+                    hook.real(fc, fs, table, p, mode)
+                check(torch.equal(fc, cl) and torch.equal(fs, sc),
+                      f"U1 {tuple(cl.shape)} {dtype} mode {mode} under "
+                      f"(lanes, window) {plan}: CLVs equal "
+                      f"{torch.equal(fc, cl)}, scalers equal "
+                      f"{torch.equal(fs, sc)} to U1's own plan's")
+                n += 1
+    return n
+
+
+def replay_second_draw(replay, device, hook=None, seed=27):
+    """U1 on the second draw of random_replay_inputs(default_rng(seed))
+    (phase 27's random tables are the first).  Float64 tables, where
+    ``hook`` is given, through it (the 40-op host table and the padded
+    device table).  Float32 host tables by U1 (``replay``, some checkout's
+    ``ops.clv.replay_ops``) and by the plain executor on the card and on
+    the CPU, each pair held by phase 3's float32 rule
+    (``replay_close_f32``).  Returns, for each float32 table, (mode, S, C,
+    U1 vs the card's plain executor, U1 vs the CPU's, the card's vs the
+    CPU's) as (largest relative error, share of scalers that agree), and
+    a SHA-256 of U1's float32 outputs."""
+    import hashlib
+
+    import torch
+
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops.incremental import pad_op_table
+
+    rows, digest = [], hashlib.sha256()
+    rng = np.random.default_rng(seed)
+    for _ in random_replay_inputs(rng, device):
+        pass
+    for mode, dtype, cl, sc, p, ops in random_replay_inputs(rng, device):
+        if dtype == torch.float64:
+            if hook is not None:
+                hook.replay(cl, sc, ops, p, mode)
+                hook.replay(cl, sc, torch.from_numpy(
+                    pad_op_table(ops[:7], 16)).to(device), p, mode)
+            continue
+        card = (cl.clone(), sc.clone())
+        clv_ops.update_partials_by_op(*card, ops, p, mode)
+        host = (cl.to("cpu", copy=True), sc.to("cpu", copy=True))
+        clv_ops.update_partials_by_op(*host, ops, p.cpu(), mode)
+        host = tuple(t.to(device) for t in host)
+        replay(cl, sc, ops, p, mode)
+        torch.cuda.synchronize()
+        digest.update(cl.cpu().numpy().tobytes())
+        digest.update(sc.cpu().numpy().tobytes())
+        rows.append((mode, cl.shape[2], cl.shape[1]) + tuple(
+            replay_close_f32(*a, *b)[1:] for a, b in
+            (((cl, sc), card), ((cl, sc), host), (card, host))))
+    return rows, digest.hexdigest()[:16]
+
+
+def sweep_shape_case(device, seed=29):
+    """A branch-length sweep's U1 tables at scripts/bench_infer.py's shape:
+    a random tree of BENCH_INFER_TIPS taxa, its validity flags set as after
+    a full evaluation, and its sweep's tables (``blopt.sweep_tables``: an
+    edge's re-orientation ops padded by repeats to one capacity, the next
+    power of two at or above the sweep's longest table and at least 8 --
+    32 slots at this tree, where infer_tree's sweeps see 8-64 -- the flags
+    replayed), over float32 buffers of the Partition's rows at
+    BENCH_INFER_SITES sites (4 rates x 4 states, per-site scaling): random
+    CLVs, a tenth of the tips' sites tiny so that products scale, random
+    P-matrices whose rows sum below one.  Returns (clv, scalers, pmatrix,
+    the tables on the card [E, slots, 8] and on the host)."""
+    import torch
+
+    from libpll_tpu_torch.engine import blopt
+    from libpll_tpu_torch.tree import incremental as inc
+    from libpll_tpu_torch.tree import utree as ut
+
+    tips, sites = BENCH_INFER_TIPS, BENCH_INFER_SITES
+    rng = np.random.default_rng(seed)
+    tree = ut.parse_newick_string(random_newick(tips, rng))
+    inc.mark_valid(ut.traverse(tree.root))
+    tables = blopt.sweep_tables(tree.root, tips - 2)[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    clv = torch.rand((2 * tips - 2, 4, 4, sites), generator=gen,
+                     device=device) * 0.95 + 0.05
+    tiny = torch.rand((tips, 1, 1, sites), generator=gen,
+                      device=device) < 0.1
+    clv[:tips] *= torch.where(tiny, 1e-12, 1.0)
+    scalers = torch.zeros((tips - 1, sites), dtype=torch.int32,
+                          device=device)
+    pmatrix = torch.rand((2 * tips - 3, 4, 4, 4), generator=gen,
+                         device=device) / 4
+    return clv, scalers, pmatrix, torch.from_numpy(tables).to(device), \
+        tables
+
+
+def replay_bytes(table, row, scal_row, mat, scaled=True):
+    """The bytes one U1 launch of ``table`` (host [K, 8]) must move: each
+    CLV row it reads before writing it once, each row it writes once, the
+    scaler rows likewise (when ``scaled``), each distinct P-matrix set
+    and the table; padded repeats (an op equal to the one before it whose
+    parent is none of its inputs) add nothing."""
+    written, read, swritten, sread, mats = set(), set(), set(), set(), set()
+    prev = None
+    for op in table.tolist():
+        p, ps, c1, m1, s1, c2, m2, s2 = op
+        if op == prev and p not in (c1, c2) and ps not in (s1, s2):
+            continue
+        prev = op
+        read |= {c for c in (c1, c2) if c not in written}
+        sread |= {c for c in (s1, s2) if c not in swritten}
+        written.add(p)
+        swritten.add(ps)
+        mats |= {m1, m2}
+    scal = (len(sread) + len(swritten)) * scal_row if scaled else 0
+    return (len(read) + len(written)) * row + scal + len(mats) * mat \
+        + table.size * 4
+
+
 def check_blopt_small(device):
     """Phase 27: U1 against the plain executor at every launch (``ReplayHook``)
     of phase 20's configurations (setters, full traversal, ``pad_to``, an op
     list that rewrites a buffer, in float64 and float32) and of random op
     tables (every scale mode, S 4/20/5, C 1-8, host and device tables, a
-    padded one); N1 with blopt's rule (``abs_d2``) against its plain twin
+    padded one), each again under REPLAY_FORCED's plans (equal bit for bit
+    to U1's own plan's), and the first
+    SWEEP_CHECKED of a bench_infer-shaped sweep's tables
+    (``sweep_shape_case``: 16 384 sites, float32); N1 with blopt's rule
+    (``abs_d2``) against its plain twin
     (``newton_close``'s rule, from the sumtable and from the rows) from t0
     near and far from the optimum; both blopt optimisers (the scan eager and
     as a CUDA graph) on the card against the CPU Partition, at
@@ -3838,7 +4119,6 @@ def check_blopt_small(device):
     from libpll_tpu_torch.io import maps
     from libpll_tpu_torch.models.gamma import compute_gamma_cats
     from libpll_tpu_torch.ops import derivatives as dv
-    from libpll_tpu_torch.ops.incremental import pad_op_table
 
     cpu = torch.device("cpu")
     out = {}
@@ -3856,26 +4136,35 @@ def check_blopt_small(device):
                      Operation(tips + 2, 2, tips, 5, -1, tips + 1, 6, 1)])
                 part.update_partials(ops)
         out["partition_launches"] = hook.checked
-        rng = np.random.default_rng(27)
-        tips, inner, m, sites = 5, 6, 9, 203
-        for mode, s, c in REPLAY_SMALL:
-            for dtype in (torch.float64, torch.float32):
-                clv = np.zeros((tips + inner, c, s, sites))
-                clv[:tips + 1] = rng.uniform(
-                    0.05, 1, (tips + 1, 1, s, sites)) * 10.0 ** rng.uniform(
-                        -60 if dtype == torch.float64 else -12, 0,
-                        (tips + 1, 1, 1, sites))
-                # rows summing below one: the products shrink, and scale
-                pm = rng.uniform(0.05, 1, (m, c, s, s)) / s
-                shape = ((inner + 1, sites) if mode == 1 else
-                         (inner + 1, c, sites) if mode == 2 else (1, sites))
-                ops = random_op_table(rng, 40, tips, inner, m, inner + 1)
-                cl = torch.tensor(clv, dtype=dtype, device=device)
-                sc = torch.zeros(shape, dtype=torch.int32, device=device)
-                p = torch.tensor(pm, dtype=dtype, device=device)
-                hook.replay(cl, sc, ops, p, mode)
-                hook.replay(cl, sc, torch.from_numpy(
-                    pad_op_table(ops[:7], 16)).to(device), p, mode)
+        out["forced"] = replay_random(hook, np.random.default_rng(27),
+                                      device, REPLAY_FORCED)
+        # the second draw: float32 U1 within phase 3's rule of the plain
+        # executor on the CPU, which sums in dot_n's order; the card's
+        # (cuBLAS) sums in another, and read rel 1.005e-5 against both on
+        # one table (PERF.md section 7)
+        f32, _ = replay_second_draw(hook.real, device, hook)
+        for mode, states, rates, _, (err, agree), _ in f32:
+            check(err <= F32_RTOL and agree >= F32_SCALER_AGREE,
+                  f"U1 float32 mode {mode} S {states} C {rates}, 40 ops, "
+                  f"second draw: rel {err} against the plain executor on "
+                  f"the CPU, "
+                  f"scalers agree {agree}")
+        out["second"] = {
+            "f32": len(f32),
+            "equal": sum(r[4] == (0.0, 1.0) for r in f32),
+            "u1_cpu": max(r[4][0] for r in f32),
+            "u1_card": max(r[3][0] for r in f32),
+            "card_cpu": max(r[5][0] for r in f32)}
+        out["random_launches"] = hook.checked - out["partition_launches"]
+        # bench_infer's sweep tables: the first ones, real ops 1-3
+        clv, scal, pm, tables, host = sweep_shape_case(device)
+        for e in range(SWEEP_CHECKED):
+            hook.replay(clv, scal, tables[e], pm, 1)
+        out["sweep_real_ops"] = sorted({int((np.diff(
+            host[e], axis=0) != 0).any(1).sum()) + 1
+            for e in range(SWEEP_CHECKED)})
+        del clv, scal, pm, tables
+        torch.cuda.empty_cache()
         out["launches"] = hook.checked
         out["u1_f32_err"] = hook.f32_err
 
@@ -4007,6 +4296,62 @@ def fresh_logl(part, tree, pidx):
     part.update_prob_matrices(pidx, pmat_idx, branches)
     part.update_partials(ops)
     return part.compute_edge_loglikelihood(*edge_of(tree), pidx)
+
+
+def sweep_shape_times(device, peak):
+    """Phase 29's U1 at bench_infer's sweep shape: the first SWEEP_TIMED of
+    ``sweep_shape_case``'s tables in turn, U1's device µs a launch
+    (``profiled_ms``) against the bytes its tables move (``replay_bytes``)
+    and the operations of their real ops at ``peak`` (float32), the plain
+    executor's µs a table (CUDA events, SWEEP_PLAIN tables), and the first
+    table by U1 and by the plain executor on the same rows (phase 3's
+    float32 rule).  Returns a dict of them and U1's plan there."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv as clv_ops
+
+    clv, scal, pm, dev_tabs, host_tabs = sweep_shape_case(device)
+    sw_plan = clv_ops.replay_plan(BENCH_INFER_SITES, 4, 4,
+                                  clv_ops._sms(device.index or 0), 8, 4)
+
+    def sweep_u1():
+        for e in range(SWEEP_TIMED):
+            clv_ops.replay_ops(clv, scal, dev_tabs[e], pm, 1)
+
+    def sweep_plain():
+        for e in range(SWEEP_PLAIN):
+            clv_ops.update_partials_by_op(clv, scal, host_tabs[e], pm, 1)
+
+    sweep_ms = profiled_ms(sweep_u1, "replay_kernel", iters=3)
+    sweep_plain_ms = event_ms(sweep_plain, iters=3)
+    # one table by U1 and by the plain executor on the same rows
+    rows = sorted({int(r) for r in host_tabs[0][:, [0, 2, 5]].ravel()})
+    before = (clv[rows].clone(), scal.clone())
+    clv_ops.replay_ops(clv, scal, dev_tabs[0], pm, 1)
+    got = (clv[rows].clone(), scal.clone())
+    clv[rows], scal[:] = before
+    clv_ops.update_partials_by_op(clv, scal, host_tabs[0], pm, 1)
+    ok, sweep_err, agree = replay_close_f32(got[0], got[1], clv[rows], scal)
+    check(ok, f"U1 at bench_infer's sweep shape vs the plain executor: rel "
+              f"{sweep_err}, scalers agree {agree}")
+    sweep_abs = float((got[0] - clv[rows]).abs().max())
+    del before, got
+    row_b = 4 * 4 * BENCH_INFER_SITES * 4
+    n_real = sum(int((np.diff(t, axis=0) != 0).any(1).sum()) + 1
+                 for t in host_tabs[:SWEEP_TIMED])
+    sweep_bytes = sum(replay_bytes(t, row_b, BENCH_INFER_SITES * 4,
+                                   4 * 4 * 4 * 4)
+                      for t in host_tabs[:SWEEP_TIMED])
+    sweep_bound = bound(n_real * BENCH_INFER_SITES * 4 * 4 * (2 * 7 + 1),
+                        sweep_bytes, peak)
+    sweep = dict(us=sweep_ms / SWEEP_TIMED * 1e3, by=sweep_ms.by,
+                 plain_us=sweep_plain_ms / SWEEP_PLAIN * 1e3,
+                 bound_us=sweep_bound[0] / SWEEP_TIMED * 1e3,
+                 bound_by=sweep_bound[1], real_ops=n_real / SWEEP_TIMED,
+                 err=sweep_abs, plan=sw_plan)
+    del clv, scal, pm, dev_tabs
+    torch.cuda.empty_cache()
+    return sweep
 
 
 def phase_blopt(device, card, peak):
@@ -4142,6 +4487,8 @@ def phase_blopt(device, card, peak):
     u1_bound = bound(u1_flop, u1_bytes, peak / 2)
     per_op = 3 * len(table) * row / HBM_BYTES_PER_S * 1e3
 
+    sweep = sweep_shape_times(device, peak)
+
     # ms a sweep and an edge: the host loop (one sweep, less the full
     # evaluation it starts with), the scan program eager and as a graph on
     # one sweep's inputs; the idle share over a sweep of each
@@ -4195,8 +4542,22 @@ def phase_blopt(device, card, peak):
           + "; CUDA events, median of 3; a graphed sweep's longest kernels "
           "(torch.profiler, ms a sweep, launches): " + "; ".join(
               f"{name} {t:.3f} ({n})" for name, t, n in top), flush=True)
+    print(f"[29 blopt times] {card}: U1 at scripts/bench_infer.py's sweep "
+          f"shape ({BENCH_INFER_TIPS} taxa x {BENCH_INFER_SITES} sites, "
+          f"float32, 4 rates, per-site scaling; sweep_shape_case's first "
+          f"{SWEEP_TIMED} edges' tables, {sweep['real_ops']:.2f} real ops "
+          f"a table; plan: {sweep['plan'].lanes} lanes a site, "
+          f"{sweep['plan'].window} ops staged in {sweep['plan'].smem} B, "
+          f"{sweep['plan'].grid} blocks of {clv_ops.REPLAY_THREADS} "
+          f"threads): {sweep['us']:.2f} us a launch ({sweep['by']}) vs bound "
+          f"{sweep['bound_us']:.3f} us ({sweep['bound_by']}: the rows a table "
+          f"reads once and writes, its scaler rows and matrices), "
+          f"{sweep['bound_us'] / sweep['us'] * 100:.1f}% of it; the plain "
+          f"executor {sweep['plain_us']:.1f} us a table (CUDA events, "
+          f"{SWEEP_PLAIN} tables, host work included); one table vs the "
+          f"plain executor max abs {sweep['err']:.3e}", flush=True)
     out = dict(ms=ms, u1_bound=u1_bound, u1_err=u1_err, times=times,
-               idle=idle, launches=runs["scan"][3][0])
+               idle=idle, launches=runs["scan"][3][0], sweep=sweep)
     del part, fresh
     torch.cuda.empty_cache()
     return out
@@ -5782,7 +6143,7 @@ def phase_infer(device, card):
           f") vs plain {last['plain_ms']:.3f} ms, bound "
           f"{last['bound'][0] * 1e3:.3f} us ({last['bound'][1]})",
           flush=True)
-    return res, (dict(zip(labels, patterns)), weights)
+    return res, (dict(zip(labels, patterns)), weights), launches
 
 
 # ---------------------------------------------------------------------------
@@ -6717,9 +7078,20 @@ def main():
                       for lab, r, b, _ in rows)
           + f"; U1 equal to the plain executor at every launch: "
           f"{small['partition_launches']} of phase 20's {len(PARTITION_SMALL)}"
-          f" configurations (float64, float32), {small['launches']} with the "
-          f"random op tables ({len(REPLAY_SMALL)} (mode, S, C) x 2 dtypes, "
-          f"host and padded device tables), largest f32 rel "
+          f" configurations (float64, float32), {small['random_launches']} "
+          f"with the random op tables ({len(REPLAY_SMALL)} (mode, S, C) x 2 "
+          f"dtypes, host and padded device tables; {small['forced']} more "
+          f"forced to (lanes, window) {REPLAY_FORCED}, each equal bit for "
+          f"bit to U1's own plan), the second draw's float64 tables among "
+          f"them; its {small['second']['f32']} float32 tables within the "
+          f"rule of the plain executor on the CPU (largest rel "
+          f"{small['second']['u1_cpu']:.3e}, {small['second']['equal']} "
+          f"equal), the card's plain executor (cuBLAS) reading "
+          f"{small['second']['u1_card']:.3e} against U1 and "
+          f"{small['second']['card_cpu']:.3e} against the CPU's; "
+          f"{SWEEP_CHECKED} of a "
+          f"bench_infer-shaped sweep's tables ({BENCH_INFER_SITES} sites, "
+          f"float32; real ops {small['sweep_real_ops']}), largest f32 rel "
           f"{small['u1_f32_err']:.3e}; N1 with blopt's |d2| rule equal to "
           f"its plain twin in {small['n1']} solves (the rule changed t* in "
           f"{small['n1_parted']} of them); both optimisers at {BLOPT_TIPS} "
@@ -6797,7 +7169,7 @@ def main():
               for name, *_ in INFER_SMALL
               for d in (torch.float64, torch.float32))
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
-    found, alignment = phase_infer(device, card)
+    found, alignment, infer_launches = phase_infer(device, card)
 
     # ---------------------------------------------------- 34: model fitting
     starts.append(("34", time.perf_counter()))
@@ -6917,6 +7289,15 @@ def main():
          "launches": bl["launches"], "max_abs_err": bl["u1_err"],
          "ms": bl["ms"]["u1"], "plain_ms": bl["ms"]["u1_plain"],
          **bound_keys(bl["u1_bound"])},
+        # the same kernel at infer_tree's sweep tables (phase 29's timing,
+        # phase 33's launches); JAX's blopt op_body (engine/blopt.py:230)
+        {"name": "replay_ops_sweep", "route": "cuda",
+         "source": partials_src, "replaces": "libpll_tpu/engine/blopt.py:230",
+         "launches": infer_launches["U1"], "max_abs_err": bl["sweep"]["err"],
+         "ms": bl["sweep"]["us"] / 1e3,
+         "plain_ms": bl["sweep"]["plain_us"] / 1e3,
+         **bound_keys((bl["sweep"]["bound_us"] / 1e3,
+                       bl["sweep"]["bound_by"]))},
         # port-only: JAX's candidate scorer is an XLA lax.map; the scoring
         # instance is its body (replay and edge logL), the replay instance
         # the rows check's (phase 30: one a scoring launch under the hook)

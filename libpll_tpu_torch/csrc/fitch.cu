@@ -26,10 +26,24 @@
 // barriers) set the time.
 //
 // Design:
-//  * P1: a block per op of one wave (blocks of a wave run in no order, so a
-//    wave's ops must not touch each other's rows: the wrapper checks), the
-//    threads over word positions, a block reduction of the popcounts; one
-//    launch per wave, the waves launched in order from one C call.
+//  * P1: one launch a call, every wave of the table in it (JAX runs a
+//    call's waves in one compiled lax.scan for the same reason: each
+//    insertion of the host engine costs one device call, not one a
+//    dependency level).  ops/fitch.wave_plan splits the words across G
+//    blocks as P3's commit_plan does (a block per SLICE_WORDS words, at
+//    most one an SM); the Fitch step is independent per word, so block g
+//    walks every wave in order over its own slice and waits for no other
+//    block: a warp an op (two at once at up to four states where a wave
+//    has more ops than warps), its lanes over the slice's words, one
+//    __syncthreads between waves; the table and its wave offsets are
+//    first copied to shared memory where they fit, so a wave waits on
+//    one round trip, its children's words.  A wave's ops run in no order,
+//    so none may touch another's rows (the wrapper checks).  Block g
+//    writes its slice's popcounts of each op to shares[g, op]; the last
+//    block to finish (a counter after __threadfence) sums each op's
+//    shares, all ops at once, then forms the costs wave by wave in table
+//    order, cost[p] = cost[c1] + cost[c2] + sum_g shares[g, op] (uint32
+//    wrap: the unsliced sum's bits).
 //  * P2: a warp per edge, lanes over word positions, a warp reduction.
 //    Insert mode forms X = fitch(V[u], T) per word in registers and folds
 //    it against V[v]; edge rows come from edge_rows/back on the card, so the
@@ -73,7 +87,8 @@
 
 namespace {
 
-constexpr int kWaveThreads = 128;     // P1: a block per op
+constexpr int kWaveThreads = 512;     // P1: threads a block
+constexpr int kWaveWarps = kWaveThreads / 32;
 constexpr int kScoreWarps = 8;        // P2: a warp per edge
 constexpr int kCommitThreads = 512;   // P3: threads a block
 constexpr int kCommitWarps = kCommitThreads / 32;
@@ -96,6 +111,23 @@ struct Parts {
   Part p[kMaxParts];
 };
 
+// cp.async of 4 bytes from device memory to shared memory; the copies a
+// thread issued land by the end of its next wait.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -116,28 +148,143 @@ __device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* scratch) {
 }
 
 // ------------------------------------------------------------------ P1
+// The ops [begin, end) of one wave over the block's words [lo, hi), R ops
+// a warp at once and a lane a word (the table in shared or device
+// memory).  With SB > 0 (up to SB states) every
+// child word of the R ops is loaded before any parent word is stored, so
+// R ops cost one round trip to memory; SB = 0 takes any number of states,
+// one op at a time, reading each child word twice.  Lane 0 writes each
+// op's popcount to the block's share row.
+template <int SB, int R>
+__device__ __forceinline__ void wave_ops(uint32_t* vec, int S, int W,
+                                         const int32_t* table, int begin,
+                                         int end, int lo, int hi,
+                                         uint32_t* share) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row = (int64_t)S * W;
+  for (int k0 = begin + warp; k0 < end; k0 += R * kWaveWarps) {
+    const uint32_t* x[R];
+    const uint32_t* y[R];
+    uint32_t* o[R];
+    uint32_t mut[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      // a missing second op repeats the first: the same stores again
+      const int k = k0 + j * kWaveWarps < end ? k0 + j * kWaveWarps : k0;
+      o[j] = vec + table[3 * k] * row;
+      x[j] = vec + table[3 * k + 1] * row;
+      y[j] = vec + table[3 * k + 2] * row;
+      mut[j] = 0;
+    }
+    if constexpr (SB == 0) {
+      for (int w = lo + lane; w < hi; w += 32) {
+        uint32_t u = 0;
+        for (int k = 0; k < S; ++k) u |= x[0][k * W + w] & y[0][k * W + w];
+        for (int k = 0; k < S; ++k) {
+          const uint32_t xs = x[0][k * W + w], ys = y[0][k * W + w];
+          o[0][k * W + w] = (xs & ys) | (~u & (xs | ys));
+        }
+        mut[0] += __popc(~u);
+      }
+    } else {
+      for (int w = lo + lane; w < hi; w += 32) {
+        uint32_t xs[R][SB], ys[R][SB], u[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          u[j] = 0;
+#pragma unroll
+          for (int k = 0; k < SB; ++k)
+            if (k < S) {
+              xs[j][k] = x[j][k * W + w];
+              ys[j][k] = y[j][k * W + w];
+              u[j] |= xs[j][k] & ys[j][k];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+#pragma unroll
+          for (int k = 0; k < SB; ++k)
+            if (k < S)
+              o[j][k * W + w] = (xs[j][k] & ys[j][k]) |
+                                (~u[j] & (xs[j][k] | ys[j][k]));
+          mut[j] += __popc(~u[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      mut[j] = __reduce_add_sync(kFull, mut[j]);
+      const int k = k0 + j * kWaveWarps;
+      if (lane == 0 && k < end) share[k] = mut[j];
+    }
+  }
+}
+
+// P1: table holds the ops [n_ops, 3] (parent, child1, child2), then the
+// waves' offsets [n_waves + 1]; shares [G, n_ops]; done one counter at 0.
+// With `staged`, every block first copies the table to shared memory (and
+// the last block forms the ops' totals there); else both stay in device
+// memory (the totals in the last block's share row).
 __global__ void __launch_bounds__(kWaveThreads)
     fitch_wave_kernel(uint32_t* vec, uint32_t* cost, int S, int W,
-                      const int32_t* __restrict__ ops) {
-  __shared__ uint32_t scratch[kWaveThreads / 32];
-  const int p = ops[3 * blockIdx.x], c1 = ops[3 * blockIdx.x + 1],
-            c2 = ops[3 * blockIdx.x + 2];
-  const int64_t row = (int64_t)S * W;
-  const uint32_t* a = vec + c1 * row;
-  const uint32_t* b = vec + c2 * row;
-  uint32_t* o = vec + p * row;
-  uint32_t mut = 0;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    uint32_t u = 0;
-    for (int k = 0; k < S; ++k) u |= a[k * W + w] & b[k * W + w];
-    for (int k = 0; k < S; ++k) {
-      const uint32_t x = a[k * W + w], y = b[k * W + w];
-      o[k * W + w] = (x & y) | (~u & (x | y));
-    }
-    mut += __popc(~u);
+                      const int32_t* __restrict__ table, int n_ops,
+                      int n_waves, uint32_t* shares, unsigned* done,
+                      int staged) {
+  extern __shared__ int32_t s_table[];
+  __shared__ int s_last;
+  const int g = blockIdx.x, G = gridDim.x;
+  const int lo = (int)((int64_t)W * g / G);
+  const int hi = (int)((int64_t)W * (g + 1) / G);
+  const int n_ints = 3 * n_ops + n_waves + 1;
+  const int32_t* tab = table;
+  if (staged) {
+    for (int i = threadIdx.x; i < n_ints; i += blockDim.x)
+      cp_async4(s_table + i, table + i);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    tab = s_table;
   }
-  const uint32_t total = block_sum(mut, scratch);
-  if (threadIdx.x == 0) cost[p] = cost[c1] + cost[c2] + total;
+  const int32_t* offsets = tab + 3 * n_ops;
+  uint32_t* share = shares + (int64_t)g * n_ops;
+  for (int wave = 0; wave < n_waves; ++wave) {
+    const int begin = offsets[wave], end = offsets[wave + 1];
+    if (S > 4)
+      wave_ops<0, 1>(vec, S, W, tab, begin, end, lo, hi, share);
+    else if (end - begin > kWaveWarps)
+      wave_ops<4, 2>(vec, S, W, tab, begin, end, lo, hi, share);
+    else
+      wave_ops<4, 1>(vec, S, W, tab, begin, end, lo, hi, share);
+    __syncthreads();  // this wave's rows written; the next reads them
+  }
+
+  // the last block to finish forms the costs from the shares
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == (unsigned)(G - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // each op's total over the slices, all at once
+  uint32_t* totals =
+      staged ? reinterpret_cast<uint32_t*>(s_table + n_ints) : share;
+  for (int k = threadIdx.x; k < n_ops; k += blockDim.x) {
+    uint32_t total = 0;
+    for (int h = 0; h < G; ++h)
+      total += __ldcg(shares + (int64_t)h * n_ops + k);
+    totals[k] = total;
+  }
+  __syncthreads();
+  // then the costs wave by wave in table order
+  for (int wave = 0; wave < n_waves; ++wave) {
+    const int begin = offsets[wave], end = offsets[wave + 1];
+    for (int k = begin + threadIdx.x; k < end; k += blockDim.x) {
+      const int p = tab[3 * k], c1 = tab[3 * k + 1], c2 = tab[3 * k + 2];
+      cost[p] = cost[c1] + cost[c2] + totals[k];
+    }
+    __syncthreads();  // this wave's costs written; the next reads them
+  }
+  if (threadIdx.x == 0) *done = 0;
 }
 
 // ------------------------------------------------------------------ P2
@@ -482,23 +629,39 @@ int launch_status() { return (int)cudaGetLastError(); }
 
 }  // namespace
 
-// One launch per non-empty wave; wave w is ops[offsets[w]:offsets[w+1]]
-// (host offsets, ops on the card).
+// P1, one launch on `stream`: `table` (on the card) holds n_ops ops of
+// (parent, child1, child2) and then the n_waves + 1 offsets of the waves
+// (wave w is ops [offsets[w], offsets[w+1])); `grid` blocks split the
+// words (ops/fitch.wave_plan); `shares` [grid, n_ops] uint32 of workspace
+// and `done` one unsigned that is 0 before the launch (and after it);
+// `smem` bytes of shared memory for the staged table and the totals
+// ((4 n_ops + n_waves + 1) * 4), or 0 to leave both in device memory.
 extern "C" int fitch_waves(void* vec, void* cost, int S, int W,
-                           const void* ops, const int32_t* offsets,
-                           int n_waves, void* stream) {
-  if (S < 1 || S > 32 || W < 1) return (int)cudaErrorInvalidValue;
-  const int32_t* table = static_cast<const int32_t*>(ops);
-  for (int w = 0; w < n_waves; ++w) {
-    const int count = offsets[w + 1] - offsets[w];
-    if (count <= 0) continue;
-    fitch_wave_kernel<<<count, kWaveThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<uint32_t*>(vec), static_cast<uint32_t*>(cost), S, W,
-        table + 3 * offsets[w]);
-    const int rc = launch_status();
-    if (rc) return rc;
+                           const void* table, int n_ops, int n_waves,
+                           int grid, void* shares, void* done, int smem,
+                           void* stream) {
+  if (S < 1 || S > 32 || W < 1 || n_ops < 0 || n_waves < 0 || grid < 1 ||
+      smem < 0 || (n_ops > 0 && (!table || !shares || !done)) ||
+      (smem > 0 && smem < 4 * (4 * n_ops + n_waves + 1)))
+    return (int)cudaErrorInvalidValue;
+  if (n_ops == 0) return 0;
+  static int allowed[kMaxDevices];  // dynamic shared memory set so far
+  int dev = 0;
+  if (smem > 48 * 1024 && cudaGetDevice(&dev) == cudaSuccess &&
+      (dev >= kMaxDevices || smem > allowed[dev])) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        fitch_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (rc != cudaSuccess) return (int)rc;
+    if (dev < kMaxDevices) allowed[dev] = smem;
   }
-  return 0;
+  fitch_wave_kernel<<<grid, kWaveThreads, (size_t)smem,
+                      (cudaStream_t)stream>>>(
+      static_cast<uint32_t*>(vec), static_cast<uint32_t*>(cost), S, W,
+      static_cast<const int32_t*>(table), n_ops, n_waves,
+      static_cast<uint32_t*>(shares), static_cast<unsigned*>(done),
+      smem > 0);
+  return launch_status();
 }
 
 extern "C" int fitch_scores(const void* vec, const void* cost, int S, int W,

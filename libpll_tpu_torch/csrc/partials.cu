@@ -25,28 +25,48 @@
 // scalers int32 [K+1, L] per site, [K+1, C, L] per rate (untouched without
 // scaling), ops int32 [n, 8] in device memory.
 //
-// Design: pruning is independent per site, so one thread owns one site and
-// walks the whole table in order.  No barrier is needed anywhere: an op that
-// reads a row an earlier op of the table wrote, or rewrites a row a child
-// read, reads this thread's own earlier stores.  So nothing the kernel writes
-// is __restrict__ or read through the non-coherent path; the P-matrices and
-// the table, which it never writes, are (they stay in L1 and L2: every
-// thread of a warp reads the same entry).  Per rate a thread holds the two
-// children's S values and the S products in registers; per-site scaling
-// writes the products unscaled, keeps the vote over the rates and rescales
-// the row in a second pass only when the site scales.  A span scales only
-// when every entry is below 2^-bits, so a NaN anywhere means no scaling
-// (all_below, as JAX's jnp.all(x < thresh)).  An op equal
-// to the one before it whose parent row and scaler are none of its inputs
-// would recompute the same values (the padding of ops/incremental.
-// pad_op_table repeats the final op), and is skipped.  S = 4 and
-// S = 20 are instances with register arrays; other alphabets up to
-// kMaxAnyStates take one instance with the state loops bounded at run time.
+// Design: pruning is independent per site, and per rate up to the vote.
+// ops/clv.py replay_plan gives a site `lanes` lanes (1, 2, 4 or 8), one a
+// rate (rates q, q + lanes, ... where C exceeds them); a warp holds 32 /
+// lanes sites, each rate's lanes adjacent (lane q * (32 / lanes) + j is
+// rate q of the warp's site j), so a warp's loads of one state are `lanes`
+// runs of consecutive sites.  A lane reads only the CLV entries and
+// counters it wrote itself, so the table's order needs no barrier: an op
+// that reads a row an earlier op wrote, or rewrites a row a child read,
+// reads this lane's own earlier stores.  Nothing the kernel writes is
+// __restrict__ or read through the non-coherent path.  Per rate a lane
+// holds the two children's S values and the S products in registers; the
+// per-site vote is an AND over the site's lanes by shuffles, after which
+// each lane rescales the entries it stored unscaled, its last rate's from
+// registers (per-rate scaling scales a rate's products before it stores
+// them).  A
+// span scales only when every entry is below 2^-bits, so a NaN anywhere
+// means no scaling (all_below, as JAX's jnp.all(x < thresh)).  The
+// table is staged in shared memory a window of ops at a time (the plan's
+// `window`, two buffers when the table takes more than one): each op's
+// eight ints and its two P-matrix sets, every rate's matrix padded by one
+// value so that a warp's rates read distinct banks, copied by cp.async
+// while the window before computes, one barrier a window.  Whether an op
+// repeats the one before it, with a parent row and scaler that are none
+// of its inputs (it would recompute the same values: the padding of
+// ops/incremental.pad_op_table repeats the final op), is decided once a
+// block, and such an op is skipped: a block first finds the table's
+// trailing run of repeats (a sweep's 8-32 slots hold 1-3 real ops) and
+// neither stages nor walks it.  Where one
+// op's matrices exceed the plan's budget (window 0) every lane reads the
+// table and the matrices through L1/L2.  S = 4 and S = 20 are instances
+// with register arrays; other alphabets up to kMaxAnyStates take one
+// instance with the state loops bounded at run time.
 //
 // What bounds it: bytes.  An op reads two child rows and writes the parent
 // row (C*S*L values each) and the scaler rows; at the float64 flagship (64
 // taxa x 262 144 sites x 4 rates, 62 ops) that is 6.24 GB, 1.86 ms at 3.35
-// TB/s, against ~3.9 GFLOP (0.12 ms at the FP64 peak).
+// TB/s, against ~3.9 GFLOP (0.12 ms at the FP64 peak).  A branch-length
+// sweep's table at scripts/bench_infer.py's 1 024 taxa x 16 384 sites in
+// float32 (8-32 slots, 1-3 real ops) moves ~3.2 MB an op: ~1 us at 3.35
+// TB/s.  There a lane per site filled four warps an SM and walked the
+// rates one after another (a dependent round trip each); a lane per rate
+// fills the card C times over, one round trip an op.
 //
 // C1 replaces no Pallas kernel either: JAX scores a batch of SPR/NNI
 // candidates as an XLA lax.map over them (libpll_tpu/ops/incremental.py:96
@@ -78,8 +98,8 @@
 //    NNI passes one slot three times) reads b's new matrix, and every op's
 //    parent lands in scratch row (column 0) - N with U1's rule for skipped
 //    repeats.  The checks of rows and counters use it.
-// Both use U1's per-op code (op_at_site, with each row's stride: a device
-// row's L or the tile).  The base CLVs, scalers and P-matrices are never
+// Both use one per-op device function, a thread a site (op_at_site, with
+// each row's stride: a device row's L or the tile).  The base CLVs, scalers and P-matrices are never
 // written; what C1 writes is not __restrict__ nor read through the
 // non-coherent path.  Shapes: base clv [N, C, S, L], scalers [NS+1, (C,)
 // L], pmatrix [M, C, S, S]; tables int32 [B, K, 8]; the overlay [B, U, C,
@@ -113,6 +133,8 @@ struct ReplayArgs {
   int states;             // S
   int scale_mode;
   int dummy;              // K: the scaler row that stays zero
+  int lanes;              // lanes a site: 1, 2, 4 or 8
+  int window;             // ops staged at once (0: none staged)
 };
 
 // sum_k row[k] x[k] for k < ns.  The loops over states run to ns, a
@@ -191,31 +213,274 @@ __device__ __forceinline__ bool repeats(const int32_t* op, bool scaled) {
   return same;
 }
 
+// ------------------------------------------------------------------ U1
+// cp.async of one N-byte value from device memory to shared memory; the
+// copies a thread issued land by the end of its next wait.
+template <int N>
+__device__ __forceinline__ void cp_async_value(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One P-matrix value: from shared memory (staged) or through __ldg.
+template <typename T, bool kStaged>
+__device__ __forceinline__ T pm_value(const T* p) {
+  if constexpr (kStaged)
+    return *p;
+  else
+    return __ldg(p);
+}
+
+// sum_k row[k] x[k] for k < ns, in dot_n's order.
+template <typename T, int R, bool kStaged>
+__device__ __forceinline__ T dot_pm(const T* row, const T (&x)[R], int ns) {
+  T acc = pm_value<T, kStaged>(row) * x[0];
+#pragma unroll
+  for (int k = 1; k < ns; ++k)
+    acc = dev_fma(pm_value<T, kStaged>(row + k), x[k], acc);
+  return acc;
+}
+
+// The AND of b over a site's lanes (lanes 32 / lanes apart); every lane of
+// the warp takes part.
+__device__ __forceinline__ bool site_all(bool b, int lanes) {
+  for (int o = 16; o >= 32 / lanes; o >>= 1) {
+    const int other = __shfl_xor_sync(0xffffffffu, (int)b, o);
+    b = b && other;
+  }
+  return b;
+}
+
+// An op's rows: parent, its scaler, the children and theirs; `scaled`
+// when the scale mode scales and the parent's scaler is not the dummy.
+struct U1Op {
+  int64_t p, ps, c1, s1, c2, s2;
+  bool scaled;
+};
+
+template <typename T>
+__device__ __forceinline__ U1Op u1_op(const int32_t* op,
+                                      const ReplayArgs<T>& a) {
+  U1Op o;
+  o.p = op[0];
+  o.ps = op[1];
+  o.c1 = op[2];
+  o.s1 = op[4];
+  o.c2 = op[5];
+  o.s2 = op[7];
+  o.scaled = a.scale_mode != SCALE_NONE && o.ps != a.dummy;
+  return o;
+}
+
+// One op at one lane: rates q, q + lanes, ... < C of site n, with U1's
+// semantics (header).  pa, pb: the op's two P-matrix sets, rate c's matrix
+// at c * pstride.  A lane past the last site (live false) reads and writes
+// nothing but takes part in the vote's shuffles.
+template <typename T, int S, bool kStaged>
+__device__ __forceinline__ void u1_lane(const ReplayArgs<T>& a, int ns,
+                                        const U1Op& o, const T* pa,
+                                        const T* pb, int pstride, int q,
+                                        int64_t n, bool live) {
+  constexpr int R = S == kAnyStates ? kMaxAnyStates : S;
+  const int C = a.rate_cats, lanes = a.lanes;
+  const int64_t L = a.sites;
+  const int64_t row = (int64_t)C * ns * L;
+  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
+  const int64_t srow = per_rate ? (int64_t)C * L : L;
+  const T* x1 = a.clv + o.c1 * row + n;
+  const T* x2 = a.clv + o.c2 * row + n;
+  T* out = a.clv + o.p * row + n;
+  int32_t* sc1 = a.scalers + o.s1 * srow + n;
+  int32_t* sc2 = a.scalers + o.s2 * srow + n;
+  int32_t* sout = a.scalers + o.ps * srow + n;
+  // per-site scaling stores the products unscaled and rescales the lane's
+  // entries after the vote, its last rate's from registers (a rate a lane:
+  // no entry is read back); a lane past the last rate votes true
+  bool lane_below = true;
+  const bool site_counts = o.scaled && !per_rate && live && q == 0;
+  const int32_t site_sum = site_counts ? sc1[0] + sc2[0] : 0;
+  T v[R];
+  int last = -1;  // the lane's last rate
+  if (live) {
+    for (int c = q; c < C; c += lanes) {
+      const int64_t sc = (int64_t)c * L;
+      // a rate's counters are loaded with its CLVs: one round trip a rate
+      const int32_t sum = per_rate && o.scaled ? sc1[sc] + sc2[sc] : 0;
+      T l[R], r[R];
+#pragma unroll
+      for (int k = 0; k < ns; ++k) {
+        l[k] = x1[((int64_t)c * ns + k) * L];
+        r[k] = x2[((int64_t)c * ns + k) * L];
+      }
+      bool under = true;
+#pragma unroll
+      for (int j = 0; j < ns; ++j) {
+        const int e = c * pstride + j * ns;
+        v[j] = dot_pm<T, R, kStaged>(pa + e, l, ns) *
+               dot_pm<T, R, kStaged>(pb + e, r, ns);
+        under &= v[j] < a.thresh;
+      }
+      if (per_rate && o.scaled) {
+        if (under)
+#pragma unroll
+          for (int j = 0; j < ns; ++j) v[j] *= a.factor;
+        sout[sc] = sum + (int32_t)under;
+      }
+      lane_below &= under;
+#pragma unroll
+      for (int j = 0; j < ns; ++j) out[((int64_t)c * ns + j) * L] = v[j];
+      last = c;
+    }
+  }
+  if (o.scaled && !per_rate) {
+    const bool site = site_all(lane_below, lanes);
+    if (live) {
+      if (site && last >= 0) {
+        for (int c = q; c < last; c += lanes)
+          for (int j = 0; j < ns; ++j) {
+            const int64_t e = ((int64_t)c * ns + j) * L;
+            out[e] = out[e] * a.factor;
+          }
+#pragma unroll
+        for (int j = 0; j < ns; ++j)
+          out[((int64_t)last * ns + j) * L] = v[j] * a.factor;
+      }
+      if (site_counts) sout[0] = site_sum + (int32_t)site;
+    }
+  }
+}
+
+// The bytes of one staged window's matrices (each rate's matrix padded by
+// one value), rounded up to 16; then its ops' eight ints and skip flags
+// (ops/clv.py replay_plan sizes the stage so; the launcher checks it).
+template <typename T>
+__host__ __device__ __forceinline__ int64_t stage_pm_bytes(int window, int C,
+                                                          int ns) {
+  return ((int64_t)window * 2 * C * (ns * ns + 1) * sizeof(T) + 15) / 16 *
+         16;
+}
+
+__host__ __device__ __forceinline__ int64_t stage_op_bytes(int window) {
+  return ((int64_t)window * 9 * 4 + 15) / 16 * 16;
+}
+
+// Issue the cp.async copies of ops [lo, lo + cnt) into a stage buffer: the
+// ops' ints and their two P-matrix sets; with `flags`, threads below cnt
+// decide whether each op repeats the one before it (plain stores, seen
+// after the window's barrier).
+template <typename T>
+__device__ __forceinline__ void stage_window(const ReplayArgs<T>& a,
+                                             unsigned char* buf,
+                                             int64_t pm_bytes, int lo,
+                                             int cnt, int ns, bool flags) {
+  T* pm = reinterpret_cast<T*>(buf);
+  int32_t* ops = reinterpret_cast<int32_t*>(buf + pm_bytes);
+  int32_t* skip = ops + 8 * a.window;
+  const int ss = ns * ns, mat = a.rate_cats * ss;
+  const int set = a.rate_cats * (ss + 1);
+  const int32_t* table = a.ops + 8 * (int64_t)lo;
+  for (int e = threadIdx.x; e < 2 * mat * cnt; e += blockDim.x) {
+    const int k = e / (2 * mat), rem = e - k * 2 * mat;
+    const int side = rem >= mat, r = rem - side * mat, c = r / ss;
+    const int64_t m = __ldg(table + 8 * k + (side ? 6 : 3));
+    cp_async_value<(int)sizeof(T)>(pm + (2 * k + side) * set + r + c,
+                              a.pmatrix + m * mat + r);
+  }
+  for (int e = threadIdx.x; e < 8 * cnt; e += blockDim.x)
+    cp_async_value<4>(ops + e, table + e);
+  cp_async_commit();
+  for (int k = threadIdx.x; flags && k < cnt; k += blockDim.x) {
+    const int32_t* op = table + 8 * k;
+    const bool scaled =
+        a.scale_mode != SCALE_NONE && __ldg(op + 1) != a.dummy;
+    skip[k] = lo + k > 0 && repeats(op, scaled);
+  }
+}
+
 template <typename T, int S>
 __global__ void __launch_bounds__(kReplayBlock)
     replay_kernel(const __grid_constant__ ReplayArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char stage[];
+  __shared__ int s_runs[kReplayBlock / 32];  // each warp's ops that run
   const int ns = S == kAnyStates ? a.states : S;
-  const int64_t n = (int64_t)blockIdx.x * kReplayBlock + threadIdx.x;
-  if (n >= a.sites) return;
+  const int per_warp = 32 / a.lanes;  // sites a warp
+  const int lane = threadIdx.x & 31;
+  const int q = lane / per_warp;      // the lane's first rate
+  const int64_t n =
+      ((int64_t)blockIdx.x * (kReplayBlock / 32) + (threadIdx.x >> 5)) *
+          per_warp +
+      lane % per_warp;
+  const bool live = n < a.sites;
   const int C = a.rate_cats;
-  const int64_t L = a.sites;
-  const int64_t row = (int64_t)C * ns * L;     // one CLV buffer
-  const int64_t mat = (int64_t)C * ns * ns;    // one P-matrix set
-  const bool per_rate = a.scale_mode == SCALE_PER_RATE;
-  const int64_t srow = per_rate ? (int64_t)C * L : L;  // one scaler row
 
-  for (int i = 0; i < a.n_ops; ++i) {
+  if (a.window == 0) {  // the table and the matrices through L1/L2
+    const int64_t mat = (int64_t)C * ns * ns;
+    for (int i = 0; i < a.n_ops; ++i) {
+      const int32_t* op = a.ops + 8 * (int64_t)i;
+      int32_t v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __ldg(op + k);
+      const U1Op o = u1_op(v, a);
+      if (i > 0 && repeats(op, o.scaled)) continue;
+      u1_lane<T, S, false>(a, ns, o, a.pmatrix + v[3] * mat,
+                           a.pmatrix + v[6] * mat, ns * ns, q, n, live);
+    }
+    return;
+  }
+  const int window = a.window;
+  const int set = C * (ns * ns + 1);  // a staged P-matrix set
+  const int64_t pm_bytes = stage_pm_bytes<T>(window, C, ns);
+  const int64_t buf_bytes = pm_bytes + stage_op_bytes(window);
+  // the ops that run: the table less its trailing repeats (a padded
+  // table's padding), which are neither staged nor walked; the first
+  // window's repeat flags on the way
+  int32_t* skip0 = reinterpret_cast<int32_t*>(stage + pm_bytes) + 8 * window;
+  int last = 0;
+  for (int i = threadIdx.x; i < a.n_ops; i += blockDim.x) {
     const int32_t* op = a.ops + 8 * (int64_t)i;
-    const int64_t p = __ldg(op), ps = __ldg(op + 1), c1 = __ldg(op + 2),
-                  m1 = __ldg(op + 3), s1 = __ldg(op + 4), c2 = __ldg(op + 5),
-                  m2 = __ldg(op + 6), s2 = __ldg(op + 7);
-    const bool scaled = a.scale_mode != SCALE_NONE && ps != a.dummy;
-    if (i > 0 && repeats(op, scaled)) continue;
-    op_at_site<T, S>(a.clv + c1 * row + n, L, a.clv + c2 * row + n, L,
-                     a.clv + p * row + n, L, a.pmatrix + m1 * mat,
-                     a.pmatrix + m2 * mat, a.scalers + s1 * srow + n, L,
-                     a.scalers + s2 * srow + n, L, a.scalers + ps * srow + n,
-                     L, scaled, per_rate, C, ns, a.thresh, a.factor);
+    const bool scaled =
+        a.scale_mode != SCALE_NONE && __ldg(op + 1) != a.dummy;
+    const bool rep = i > 0 && repeats(op, scaled);
+    if (!rep) last = i + 1;
+    if (i < window) skip0[i] = rep;
+  }
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) s_runs[threadIdx.x >> 5] = last;
+  __syncthreads();
+  int n_run = 0;
+#pragma unroll
+  for (int w = 0; w < kReplayBlock / 32; ++w) n_run = max(n_run, s_runs[w]);
+  const int windows = (n_run + window - 1) / window;
+  stage_window(a, stage, pm_bytes, 0, min(window, n_run), ns, false);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int w = 0; w < windows; ++w) {
+    const unsigned char* buf = stage + (w & 1) * buf_bytes;
+    const int lo = (w + 1) * window;
+    if (lo < n_run)  // the next window, while this one computes
+      stage_window(a, stage + ((w + 1) & 1) * buf_bytes, pm_bytes, lo,
+                   min(window, n_run - lo), ns, true);
+    const T* pm = reinterpret_cast<const T*>(buf);
+    const int32_t* ops = reinterpret_cast<const int32_t*>(buf + pm_bytes);
+    const int32_t* skip = ops + 8 * window;
+    const int cnt = min(window, n_run - w * window);
+    for (int k = 0; k < cnt; ++k) {
+      if (skip[k]) continue;
+      u1_lane<T, S, true>(a, ns, u1_op(ops + 8 * k, a), pm + 2 * k * set,
+                          pm + (2 * k + 1) * set, ns * ns + 1, q, n, live);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next window landed; this buffer is free
   }
 }
 
@@ -448,13 +713,27 @@ __global__ void __launch_bounds__(kReplayBlock)
 template <typename T>
 int replay(void* clv, void* scalers, const void* pmatrix,
            const int32_t* ops, int n_ops, int rate_cats, int states,
-           int64_t sites, int scale_mode, int dummy, void* stream) {
+           int64_t sites, int scale_mode, int dummy, int lanes, int window,
+           int grid, int smem, void* stream) {
   if (n_ops < 0 || rate_cats < 1 || states < 2 || states > kMaxAnyStates ||
       sites < 1 || scale_mode < SCALE_NONE || scale_mode > SCALE_PER_RATE ||
       dummy < 0 || !clv || !pmatrix || (n_ops > 0 && !ops) ||
-      (scale_mode != SCALE_NONE && !scalers))
+      (scale_mode != SCALE_NONE && !scalers) ||
+      (lanes != 1 && lanes != 2 && lanes != 4 && lanes != 8) || window < 0 ||
+      window > n_ops || smem < 0)
     return (int)cudaErrorInvalidValue;
   if (n_ops == 0) return 0;
+  // the plan's grid covers every site (a block is kReplayBlock / 32 warps
+  // of 32 / lanes sites) and its shared memory holds its stage buffers
+  // (two when the table takes more than one window)
+  const int64_t need =
+      window == 0 ? 0
+                  : (window < n_ops ? 2 : 1) *
+                        (stage_pm_bytes<T>(window, rate_cats, states) +
+                         stage_op_bytes(window));
+  if (grid < 1 || (int64_t)grid * (kReplayBlock / lanes) < sites ||
+      smem < need)
+    return (int)cudaErrorInvalidValue;
   const Scale<T> u = scale_units<T>();
   ReplayArgs<T> a;
   a.clv = static_cast<T*>(clv);
@@ -469,15 +748,21 @@ int replay(void* clv, void* scalers, const void* pmatrix,
   a.states = states;
   a.scale_mode = scale_mode;
   a.dummy = dummy;
-  const dim3 grid((unsigned)((sites + kReplayBlock - 1) / kReplayBlock));
+  a.lanes = lanes;
+  a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (states == 4)
-    replay_kernel<T, 4><<<grid, kReplayBlock, 0, st>>>(a);
-  else if (states == 20)
-    replay_kernel<T, 20><<<grid, kReplayBlock, 0, st>>>(a);
-  else
-    replay_kernel<T, kAnyStates><<<grid, kReplayBlock, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel) -> int {
+    if (smem > 48 * 1024) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (rc != cudaSuccess) return (int)rc;
+    }
+    kernel<<<grid, kReplayBlock, (size_t)smem, st>>>(a);
+    return (int)cudaGetLastError();
+  };
+  if (states == 4) return launch(replay_kernel<T, 4>);
+  if (states == 20) return launch(replay_kernel<T, 20>);
+  return launch(replay_kernel<T, kAnyStates>);
 }
 
 template <typename T>
@@ -527,22 +812,29 @@ int candidates(const CandidateArgs<T>& args, int score, int tile, int smem,
 
 // Plain C interface for ctypes.  replay_ops_* runs the n_ops ops of the
 // device table `ops` on the buffers in place, one launch on `stream` (none
-// for an empty table), and returns its cudaError_t (0 on success).  The
+// for an empty table), laid out by ops/clv.py replay_plan: `lanes` lanes a
+// site, `window` ops staged at once (0 stages none), `grid` blocks and
+// `smem` bytes of shared memory, refused when they do not cover the sites
+// or hold the stage; it returns its cudaError_t (0 on success).  The
 // caller vouches for the table's indices: every CLV, matrix and (when
 // scaled) scaler index inside its tensor.
 extern "C" int replay_ops_f32(void* clv, void* scalers, const void* pmatrix,
                               const int32_t* ops, int n_ops, int rate_cats,
                               int states, int64_t sites, int scale_mode,
-                              int dummy, void* stream) {
+                              int dummy, int lanes, int window, int grid,
+                              int smem, void* stream) {
   return replay<float>(clv, scalers, pmatrix, ops, n_ops, rate_cats, states,
-                       sites, scale_mode, dummy, stream);
+                       sites, scale_mode, dummy, lanes, window, grid, smem,
+                       stream);
 }
 extern "C" int replay_ops_f64(void* clv, void* scalers, const void* pmatrix,
                               const int32_t* ops, int n_ops, int rate_cats,
                               int states, int64_t sites, int scale_mode,
-                              int dummy, void* stream) {
+                              int dummy, int lanes, int window, int grid,
+                              int smem, void* stream) {
   return replay<double>(clv, scalers, pmatrix, ops, n_ops, rate_cats, states,
-                        sites, scale_mode, dummy, stream);
+                        sites, scale_mode, dummy, lanes, window, grid, smem,
+                        stream);
 }
 
 // C1, both instances, one launch on `stream` each: `args` points at a

@@ -41,16 +41,18 @@ the ops group.
 PyTorch: JAX computes these products in XLA, outside any Pallas kernel.
 
 :func:`replay_ops` is the Partition's executor: on CUDA tensors the
-hand-written kernel U1 of ``csrc/partials.cu`` (a thread a site walks the
-whole table in order, the table read from device memory, one launch), on
-CPU tensors its plain version :func:`update_partials`.  It counts its
-launches in ``replay_ops.launches``.
+hand-written kernel U1 of ``csrc/partials.cu`` (a lane per site and rate
+walks the whole table in order, the ops staged in shared memory a window
+at a time; one launch laid out by :func:`replay_plan`), on CPU tensors its
+plain version :func:`update_partials`.  It counts its launches in
+``replay_ops.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -71,6 +73,13 @@ GROUP_BYTES = 1 << 30
 # the bytes) lost (tools/partition_times.py; PERF.md)
 GROUPED_MAX_ROW_BYTES = 12 << 20
 REPLAY_MAX_STATES = 64  # U1's largest alphabet (kMaxAnyStates)
+REPLAY_THREADS = 128  # U1's block (csrc/partials.cu kReplayBlock)
+# shared memory a U1 block stages ops into: small enough that it does not
+# cap the blocks an SM holds below what the registers allow
+REPLAY_STAGE_BYTES = 16 << 10
+# sites an SM from which one lane a site fills the card; below it a site
+# takes a lane per rate
+REPLAY_FILL_SITES = 1024
 
 
 def _dummy(scalers, scale_mode) -> int:
@@ -244,7 +253,7 @@ def load_kernels() -> ctypes.CDLL:
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"replay_ops_{suffix}")
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_int64] + [ctypes.c_int] * 2
+                       + [ctypes.c_int64] + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.replay_error_string.argtypes = [ctypes.c_int]
@@ -299,13 +308,85 @@ def _host_table(ops, clv, scalers, pmatrix, scale_mode) -> torch.Tensor:
     return torch.from_numpy(ops.astype(np.int32)).to(clv.device)
 
 
+class ReplayPlan(NamedTuple):
+    """U1's launch (:func:`replay_plan`, :func:`replay_layout`): ``lanes``
+    lanes a site (one a rate), ``window`` ops staged in shared memory at
+    once (0: none), ``buffers`` stage buffers of ``smem`` bytes in all,
+    ``grid`` blocks of REPLAY_THREADS threads.  The launcher takes lanes,
+    window, grid and smem as they stand and refuses a grid that misses a
+    site or a stage that does not fit smem."""
+    lanes: int
+    window: int
+    buffers: int
+    smem: int
+    grid: int
+
+
+def _stage_bytes(window: int, rate_cats: int, states: int,
+                 itemsize: int) -> int:
+    """One stage buffer of ``window`` ops (csrc/partials.cu stage_pm_bytes
+    and stage_op_bytes): their P-matrix sets, each rate's matrix padded by
+    one value, then eight ints and a flag an op, each part rounded up to
+    16 bytes."""
+    def up16(b):
+        return -(-b // 16) * 16
+    return (up16(window * 2 * rate_cats * (states * states + 1) * itemsize)
+            + up16(window * 9 * 4))
+
+
+def replay_layout(sites: int, rate_cats: int, states: int, lanes: int,
+                  window: int, n_ops: int, itemsize: int) -> ReplayPlan:
+    """U1's launch for ``lanes`` lanes a site and ``window`` of ``n_ops``
+    ops staged at once (pure): one stage buffer where the window holds the
+    whole table, two where it does not (the next window staged while one
+    computes), none for window 0; the blocks that cover ``sites``."""
+    window = min(window, n_ops)
+    buffers = 0 if not window else 1 if window == n_ops else 2
+    smem = buffers * _stage_bytes(window, rate_cats, states, itemsize)
+    return ReplayPlan(lanes, window, buffers, smem,
+                      -(-sites * lanes // REPLAY_THREADS))
+
+
+@functools.lru_cache(maxsize=1024)
+def replay_plan(sites: int, rate_cats: int, states: int, sms: int,
+                n_ops: int = 8, itemsize: int = 4) -> ReplayPlan:
+    """U1's launch for ``n_ops`` ops on CLV rows of ``sites`` x
+    ``rate_cats`` x ``states`` values of ``itemsize`` bytes on a card of
+    ``sms`` SMs (pure).  Below REPLAY_FILL_SITES sites an SM a site takes
+    a lane per rate (the next power of two at or above the rates, at most
+    8: a larger C loops its rates over the lanes), so a sweep's small
+    tables fill the card; from there one lane a site.  The whole table is
+    staged as one window where it fits REPLAY_STAGE_BYTES, else in windows
+    of two buffers that fit it together, else (one op's matrices past it)
+    none (:func:`replay_layout`)."""
+    group = min(8, 1 << (rate_cats - 1).bit_length())
+    lanes = group if sites < sms * REPLAY_FILL_SITES else 1
+    n_ops = max(n_ops, 1)
+    window = 0
+    if _stage_bytes(n_ops, rate_cats, states, itemsize) <= REPLAY_STAGE_BYTES:
+        window = n_ops
+    else:
+        while 2 * _stage_bytes(window + 1, rate_cats, states,
+                               itemsize) <= REPLAY_STAGE_BYTES:
+            window += 1
+    return replay_layout(sites, rate_cats, states, lanes, window, n_ops,
+                         itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index
+                                            ).multi_processor_count
+
+
 def replay_ops(clv, scalers, ops, pmatrix, scale_mode=SCALE_PER_SITE):
     """U1: execute an op table in place with JAX's sequential result
     (arguments as :func:`update_partials_by_op`; ``ops`` a host table, or
     an int32 [n, 8] tensor on the buffers' card whose indices the caller
     vouches for, as the branch-length sweep's device tables).  CUDA tensors
-    take one launch of ``csrc/partials.cu`` on the current stream, with no
-    host read; CPU tensors :func:`update_partials`."""
+    take one launch of ``csrc/partials.cu`` on the current stream, laid
+    out by :func:`replay_plan`, with no host read; CPU tensors
+    :func:`update_partials`."""
     check_full_precision(clv, "update_partials")
     if clv.device.type == "cpu":
         if torch.is_tensor(ops):
@@ -325,13 +406,16 @@ def replay_ops(clv, scalers, ops, pmatrix, scale_mode=SCALE_PER_SITE):
     if table.shape[0] == 0:
         return
     _, c, s, length = clv.shape
+    plan = replay_plan(length, c, s, _sms(clv.device.index or 0),
+                       table.shape[0], clv.element_size())
     lib = load_kernels()
     with torch.cuda.device(clv.device):
         rc = getattr(lib, "replay_ops_f64" if clv.dtype == torch.float64
                      else "replay_ops_f32")(
             clv.data_ptr(), scalers.data_ptr(), pmatrix.data_ptr(),
             table.data_ptr(), table.shape[0], c, s, length, scale_mode,
-            _dummy(scalers, scale_mode),
+            _dummy(scalers, scale_mode), plan.lanes, plan.window,
+            plan.grid, plan.smem,
             torch.cuda.current_stream(clv.device).cuda_stream)
     if rc != 0:
         raise KernelError(f"replay_ops launch failed: CUDA error {rc} "

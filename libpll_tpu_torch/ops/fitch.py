@@ -22,9 +22,13 @@ bits, so ``int32``'s arithmetic ``>>`` never reaches them.
 JAX computes all of this in XLA with ``jax.lax.population_count`` (no
 Pallas kernel); the port's kernels are port-only, on ``__popc``:
 
-  P1 :func:`fitch_waves`: dependency-ordered waves of Fitch ops, one
-     launch per wave (``fitch_update`` ``:103``, ``fitch_run_waves``
-     ``:126``);
+  P1 :func:`fitch_waves`: dependency-ordered waves of Fitch ops, all of a
+     call in one launch, as JAX's one compiled scan (``fitch_update``
+     ``:103``, ``fitch_run_waves`` ``:126``); its words split across blocks
+     (:func:`wave_plan`), each block walking every wave over its slice and
+     the last one forming the costs from the slices' popcounts
+     (:func:`fitch_run_waves_sliced_plain` is that plan walked with the
+     plain version);
   P2 :func:`fitch_scores`: the score of every edge (``fitch_edge_score``
      ``:145``, ``fitch_edge_scores_batch`` ``:158``) or of splicing a tip
      onto every candidate edge (``fitch_insert_scores`` ``:172``), written
@@ -65,7 +69,7 @@ from . import _build
 BITS = 32
 MASK32 = 0xFFFFFFFF
 MAX_PARTS = 32  # partitions one P3 launch refreshes (csrc/fitch.cu kMaxParts)
-SLICE_WORDS = 32  # the fewest words a P3 block's slice pays for: a warp-width
+SLICE_WORDS = 32  # the fewest words a P1/P3 block's slice pays for: a warp-width
 STEP_MODES = {"star": 0, "insert": 1, "final": 2}
 
 
@@ -228,6 +232,30 @@ def fitch_run_waves_plain(vectors, costs, table, offsets):
     return vectors, costs
 
 
+def fitch_run_waves_sliced_plain(vectors, costs, table, offsets, grid):
+    """P1's plan walked with its plain version: each of :func:`word_slices`'
+    ``grid`` slices runs every wave in order over its own words, keeping
+    its popcounts of each op (its share); then the costs wave by wave in
+    table order, ``cost[p] = cost[c1] + cost[c2] + sum of the op's
+    shares`` (wrapping), as the kernel's last block forms them.  Same
+    arguments and effect as :func:`fitch_run_waves_plain`."""
+    ops = table.long()
+    shares = torch.zeros((grid, ops.shape[0]), dtype=torch.int64,
+                         device=vectors.device)
+    waves = list(zip(offsets[:-1], offsets[1:]))
+    for g, (lo, hi) in enumerate(word_slices(vectors.shape[-1], grid)):
+        v = vectors[..., lo:hi]
+        for a, b in waves:
+            new, mut = _fitch(v[ops[a:b, 1]], v[ops[a:b, 2]])
+            v[ops[a:b, 0]] = new
+            shares[g, a:b] = mut
+    total = shares.sum(0)
+    for a, b in waves:
+        p, c1, c2 = ops[a:b].unbind(1)
+        costs[p] = _bits(_uint(costs[c1]) + _uint(costs[c2]) + total[a:b])
+    return vectors, costs
+
+
 def fitch_edge_scores_plain(vectors, costs, nodes1, nodes2):
     """P2's plain version, edge mode: the Fitch score of joining each
     nodes1[e]--nodes2[e], without the constant cost; int32 [E]."""
@@ -293,7 +321,7 @@ def stepwise_commit_plain(parts, back, edge_rows, co1, co2, n_tips, *,
 
 
 def word_slices(words: int, grid: int):
-    """The word range [lo, hi) of each of P3's ``grid`` blocks in a
+    """The word range [lo, hi) of each of P1's or P3's ``grid`` blocks in a
     partition of ``words`` words (csrc/fitch.cu's split): contiguous,
     in block order, some empty when ``grid`` exceeds ``words``."""
     return [(words * g // grid, words * (g + 1) // grid)
@@ -348,7 +376,8 @@ _I = ctypes.c_int
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/fitch.cu``, once per process."""
     lib = _build.load("fitch")
-    lib.fitch_waves.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P]
+    lib.fitch_waves.argtypes = [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P,
+                                _I, _P]
     lib.fitch_scores.argtypes = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P,
                                  _I, _P]
     lib.stepwise_commit.argtypes = [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
@@ -419,29 +448,61 @@ def wave_table(waves, n_rows: int):
     return table.astype(np.int32), offsets
 
 
+def wave_plan(words: int, sms: int) -> int:
+    """P1's (and P3's, :func:`commit_plan`) blocks for rows of ``words``
+    words on a card of ``sms`` SMs (pure): a block per ``SLICE_WORDS``
+    words, at most one per SM, one below 2 * SLICE_WORDS words."""
+    return max(1, min(sms, words // SLICE_WORDS))
+
+
+def wave_grid(vectors) -> int:
+    """:func:`wave_plan` for ``vectors`` on their card."""
+    sms, _ = _limits(vectors.device.index or 0)
+    return wave_plan(vectors.shape[2], sms)
+
+
+def wave_smem(n_ops: int, n_waves: int, smem_limit: int) -> int:
+    """P1's shared memory (pure): the table's ints, its wave offsets and
+    the ops' totals, ``4 * (4 n_ops + n_waves + 1)`` bytes, where that
+    fits ``smem_limit``; else 0 (both read from device memory)."""
+    need = 4 * (4 * n_ops + n_waves + 1)
+    return need if need <= smem_limit else 0
+
+
 def fitch_waves(vectors, costs, waves):
     """P1: run ``waves`` (a list of waves, each a list of independent
     (parent, child1, child2) ops; JAX's ``fitch_run_waves``) in order, in
-    place, one launch per wave (the table is copied to the card once).
-    CPU tensors take :func:`fitch_run_waves_plain`."""
+    place, in one launch over :func:`wave_grid`'s blocks (the table and
+    its wave offsets copied to the card at once, staged in shared memory
+    where :func:`wave_smem` finds room).  CPU tensors take
+    :func:`fitch_run_waves_plain`."""
     _check_rows(vectors, costs)
     table, offsets = wave_table(waves, vectors.shape[0])
-    table = torch.from_numpy(table).to(vectors.device)
     if vectors.device.type == "cpu":
-        return fitch_run_waves_plain(vectors, costs, table, offsets)
-    n_waves = sum(1 for lo, hi in zip(offsets, offsets[1:]) if hi > lo)
-    if not n_waves:
+        return fitch_run_waves_plain(vectors, costs, torch.from_numpy(table),
+                                     offsets)
+    n_ops = table.shape[0]
+    if not n_ops:
         return vectors, costs
+    packed = torch.from_numpy(np.concatenate(
+        [table.reshape(-1), np.asarray(offsets, np.int32)])).to(
+            vectors.device)
+    grid = wave_grid(vectors)
+    # the blocks' shares [grid, n_ops], then their counter at 0
+    work = torch.zeros(grid * n_ops + 1, dtype=torch.int32,
+                       device=vectors.device)
+    smem = wave_smem(n_ops, len(offsets) - 1,
+                     _limits(vectors.device.index or 0)[1])
     lib = load_kernels()
-    host_offsets = (ctypes.c_int32 * len(offsets))(*offsets)
     _, s, w = vectors.shape
     with torch.cuda.device(vectors.device):
         rc = lib.fitch_waves(
-            vectors.data_ptr(), costs.data_ptr(), s, w, table.data_ptr(),
-            ctypes.cast(host_offsets, ctypes.c_void_p), len(offsets) - 1,
+            vectors.data_ptr(), costs.data_ptr(), s, w, packed.data_ptr(),
+            n_ops, len(offsets) - 1, grid, work.data_ptr(),
+            work[-1:].data_ptr(), smem,
             torch.cuda.current_stream().cuda_stream)
     _check(lib, rc, "fitch_waves")
-    fitch_waves.launches += n_waves
+    fitch_waves.launches += 1
     return vectors, costs
 
 
@@ -524,7 +585,7 @@ def commit_plan(words, n_tips: int, sms: int, smem_limit: int) -> CommitPlan:
     shared memory where they fit, else in device memory (always at a
     ``smem_limit`` of 0)."""
     rows = 4 * n_tips - 6
-    grid = max(1, min(sms, max(words) // SLICE_WORDS))
+    grid = wave_plan(max(words), sms)
     smem = 4 * 5 * rows
     shared = smem <= smem_limit
     return CommitPlan(grid, shared, smem if shared else 0)

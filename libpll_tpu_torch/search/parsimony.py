@@ -70,7 +70,7 @@ class FastParsimony:
 
     def update_vectors(self, buildops: Sequence[Tuple[int, int, int]]) -> None:
         """Execute (parent, child1, child2) Fitch steps; ops grouped into
-        dependency levels, one P1 launch per level."""
+        dependency levels, all of them in one P1 launch."""
         fitch.fitch_waves(self.vectors, self.costs, _group_levels(buildops))
 
     def edge_score(self, node1: int, node2: int) -> int:

@@ -16,7 +16,8 @@ the new tip, and every candidate edge is scored in one call.  Two engines:
     host engine: per insertion the candidate scores (kernel P2, one launch
     per partition) are read back for ``np.argmin``, the splice and the
     dirty-row BFS run on the host's node graph, and the refresh runs as
-    waves of Fitch ops (kernel P1, one launch per wave and partition);
+    waves of Fitch ops (kernel P1, one launch per insertion and
+    partition);
   * ``build_device`` (``"device"``, ``"auto"``): JAX's device-resident
     build: the topology lives on the card as a ``back`` involution over
     direction rows and the ring tables of ``fitch._ring_co_tables``; per

@@ -12,11 +12,19 @@ with the text substitutions ``SPEC.json`` names for it
 (``tools/variants.py``; ``tools/replay_ablations.json``), built by nvcc
 beside the package's build and called in place of its library.
 
-Measured: U1 (``replay_ops_f64``) on a full ``update_partials`` of the
+Measured: U1 (``ops.clv.replay_ops``) on a full ``update_partials`` of the
 float64 flagship Partition (chip_smoke's ``flagship_blopt_partition``:
 64 taxa, 262 144 patterns, GTR+Γ4, 62 ops), device ms a call over
 back-to-back calls (``chip_smoke.time_ms``) and a SHA-256 of its output,
-to compare bits between runs; and, for a checkout (not a variant), the
+to compare bits between runs; U1 at scripts/bench_infer.py's sweep
+tables (this checkout's ``chip_smoke.sweep_shape_case``: a random
+1 024-taxon tree's branch-length sweep tables, 32 slots each, over float32
+rows of 16 384 sites; the first ``SWEEP_TIMED`` tables in turn), device µs
+a launch (torch.profiler) and a SHA-256 of the buffers after one pass;
+U1's float32 error on the second draw of chip_smoke's random op tables
+(``chip_smoke.replay_second_draw``: against the plain executor on the card
+and on the CPU, and those two against each other, by phase 3's rule) with
+a SHA-256 of U1's outputs; the
 round scorer (``search/spr.make_round_scorer``, C1 and whatever runs
 around it) on two batches: the first of chip_smoke phase 31's SPR cell
 (``spr_partition``: scripts/bench_spr.py's 1 024 taxa x 16 384 sites, 32
@@ -24,9 +32,9 @@ candidates, capacity 128) and the first of scripts/bench_infer.py's first
 SPR round up to its branch lengths (the stepwise start tree of
 ``infer_alignment(1024, 16384)``, radius 5, 128 candidates, capacity 32):
 the card's time a call and C1's alone (torch.profiler), the host's wall
-time a call, the logL summed (a variant's C1 runs through the package's
-scorer too).  Each run prints one JSON line; the card's name and power
-limit come first.
+time a call, the logL summed.  A variant's U1 and C1 run through the
+package with the variant's library.  Each run prints one JSON line; the
+card's name and power limit come first.
 """
 
 import ctypes
@@ -145,25 +153,59 @@ def scorer_batch(cs, part, tree, enc, cap, batch):
             "wall_ms": float(np.median(walls)), "logl_sum": logl}
 
 
+def sweep_u1(cs_now, clv_ops, device):
+    """U1 at bench_infer's sweep tables (``sweep_shape_case`` of this
+    checkout's chip_smoke, run on the measured tree's package): device µs
+    a launch over the first SWEEP_TIMED tables (torch.profiler) and a
+    SHA-256 of the buffers after one pass over them from the same start."""
+    import torch
+
+    clv, scal, pm, tables, _ = cs_now.sweep_shape_case(device)
+    start = (clv.clone(), scal.clone())
+    n = cs_now.SWEEP_TIMED
+
+    def run():
+        for e in range(n):
+            clv_ops.replay_ops(clv, scal, tables[e], pm, 1)
+
+    run()
+    torch.cuda.synchronize()
+    out = {"sweep_sha256": _digest(clv, scal)}
+    clv.copy_(start[0])
+    scal.copy_(start[1])
+    out["sweep_us"] = cs_now.profiled_ms(run, "replay_kernel",
+                                         iters=3) / n * 1e3
+    del clv, scal, pm, tables, start
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure(tree, lib_path=None):
     """One run in this process: the numbers of the module docstring."""
     sys.path.insert(0, str(tree))
+    import importlib.util
+
     import torch
 
     import chip_smoke as cs
     from libpll_tpu_torch.engine.partition import operations_to_array
+    from libpll_tpu_torch.ops import _build
     from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import incremental as inc_ops
     from libpll_tpu_torch.tree import utree as ut
 
+    spec = importlib.util.spec_from_file_location("chip_smoke_now",
+                                                  ROOT / "chip_smoke.py")
+    cs_now = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs_now)
     device = torch.device("cuda", 0)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    lib = ctypes.CDLL(str(lib_path)) if lib_path else \
-        clv_ops.load_kernels()
-    u1 = lib.replay_ops_f64
-    u1.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_int64] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    u1.restype = ctypes.c_int
+    if lib_path is not None:  # the package's U1 and C1 through the variant
+        real_load = _build.load
+        _build.load = lambda name: (ctypes.CDLL(str(lib_path))
+                                    if name == "partials" else real_load(name))
+        for fn in (clv_ops.load_kernels, inc_ops.load_kernels,
+                   inc_ops._smem_limit):
+            fn.cache_clear()
     out = {"tree": str(tree), "variant": lib_path and Path(lib_path).parent.name}
 
     part, _, tree_, pidx, _, _ = cs.flagship_blopt_partition(device)
@@ -171,30 +213,20 @@ def measure(tree, lib_path=None):
     part.update_prob_matrices(pidx, pmat_idx, branches)
     table = torch.from_numpy(operations_to_array(
         ops, part.scale_buffers)).to(device)
-    _, c, s, length = part.clv.shape
 
     def run_u1():
-        cs.check(u1(part.clv.data_ptr(), part.scalers.data_ptr(),
-                    part.pmatrix.data_ptr(), table.data_ptr(),
-                    table.shape[0], c, s, length, part.scale_mode,
-                    part.scale_buffers, stream) == 0, "U1 launch failed")
+        clv_ops.replay_ops(part.clv, part.scalers, table, part.pmatrix,
+                           part.scale_mode)
 
     run_u1()
     out["u1_sha256"] = _digest(part.clv, part.scalers)
     out["u1_ms"] = cs.time_ms(run_u1, iters=10, warmup=2)[0]
     del part
     torch.cuda.empty_cache()
+    out.update(sweep_u1(cs_now, clv_ops, device))
+    out["f32_errors"], out["f32_sha256"] = cs_now.replay_second_draw(
+        clv_ops.replay_ops, device)
 
-    if lib_path is not None:  # the package's C1 through the variant
-        from libpll_tpu_torch.ops import _build
-        from libpll_tpu_torch.ops import incremental as inc_ops
-
-        real_load = _build.load
-        _build.load = lambda name: (ctypes.CDLL(str(lib_path))
-                                    if name == "partials" else real_load(name))
-        for fn in (clv_ops.load_kernels, inc_ops.load_kernels,
-                   inc_ops._smem_limit):
-            fn.cache_clear()
     if hasattr(cs, "spr_partition"):
         out["c1_32"] = scorer_batch(cs, *spr_cell(cs, device), cs.SPR_CAP,
                                     cs.SPR_BATCH)
@@ -204,7 +236,7 @@ def measure(tree, lib_path=None):
 
 def main(argv):
     if argv[:1] == ["--measure"]:
-        measure(Path(argv[1]), argv[2] if len(argv) > 2 else None)
+        measure(Path(argv[1]), argv[2] or None)
         return 0
     print(f"card: {card_line()}", flush=True)
     if argv[:1] == ["--variants"]:
@@ -212,7 +244,8 @@ def main(argv):
         libs = build_variants(spec, argv[2:], "partials")
         runs = [(str(ROOT), str(libs[name])) for name in argv[2:]]
     else:
-        runs = [(str(Path(tree).resolve()),) for tree in argv or [ROOT]]
+        runs = [(str(Path(tree).resolve()), "")
+                for tree in argv or [ROOT]]
     for run in runs:
         subprocess.run([sys.executable, __file__, "--measure", *run],
                        check=True)

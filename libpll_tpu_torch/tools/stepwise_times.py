@@ -22,11 +22,15 @@ one device build under ``torch.profiler``: P2's and P3's device time a
 launch and the device's idle share over the kernels' span; the peak
 device memory of a device build; P3 at the last insertion (the state
 before it built by the kernels, five calls on clones of it under the
-profiler).  At 500 x 10 000 the host engine under the profiler too: P1's
-and P2's device time a launch and its idle share (the host engine
-launches one P1 a wave, ~10^5 of them there and ~5 x 10^5 at 2 048
-taxa).  Each run prints one JSON line; the card's name and power limit
-come first.  ``--variants`` times P3's text-substituted variants
+profiler).  For the host engine its P1 launches in the build
+(``fitch_waves.launches``: one a wave before the one-launch P1, ~10^5 at
+500 x 10 000 and ~5 x 10^5 at 2 048 taxa; one a call since), and at
+chip_smoke's configurations P1 over the final tree's traversal, one
+``fitch_waves`` call of its waves: device ms a call (five calls on clones
+of the rows, ``chip_smoke.profiled_ms``).  At 500 x 10 000 the host
+engine under the profiler too: P1's and P2's device time a launch and its
+idle share.  Each run prints one JSON line; the card's name and power
+limit come first.  ``--variants`` times P3's text-substituted variants
 (``tools/variants.py``; ``tools/stepwise_ablations.json``) at the last
 insertions instead (``ablate``).
 """
@@ -106,6 +110,31 @@ def last_insertion_us(cs, part, tips, seed):
     return got[KERNELS["P3"]][0] * 1e3 / 5
 
 
+def final_tree_p1(cs, part, labels):
+    """P1 over the final tree of the device build of ``part``: one
+    ``fitch_waves`` call of its traversal's waves, device ms a call (five
+    calls on clones of the rows under torch.profiler) and the waves."""
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search import stepwise as sw
+    from libpll_tpu_torch.search.parsimony import _group_levels
+    from libpll_tpu_torch.tree import utree as ut
+
+    tree, _ = sw.StepwiseBuilder([part], labels).build_device(
+        cs.STEPWISE_SEED)
+    with sw.deep_recursion(len(labels)):
+        levels = _group_levels(ut.create_pars_buildops(
+            ut.traverse(tree.root)))
+    rows = {}
+
+    def reset():
+        rows["v"], rows["c"] = part.vectors.clone(), part.costs.clone()
+
+    ms = cs.profiled_ms(lambda: fitch.fitch_waves(rows["v"], rows["c"],
+                                                  levels),
+                        KERNELS["P1"], reset)
+    return float(ms), len(levels)
+
+
 def measure(tree):
     """One run in this process: the numbers of the module docstring."""
     sys.path.insert(0, str(tree))
@@ -114,7 +143,7 @@ def measure(tree):
 
     import chip_smoke as cs
     from libpll_tpu_torch.io import maps
-    from libpll_tpu_torch.ops import _build
+    from libpll_tpu_torch.ops import _build, fitch
     from libpll_tpu_torch.search.parsimony import FastParsimony
     from libpll_tpu_torch.search.stepwise import fastparsimony_stepwise
 
@@ -147,7 +176,13 @@ def measure(tree):
             return wall
 
         case = {"device_s": [build("device") for _ in range(2)],
-                "host_s": None if name else build("host")}
+                "host_s": None}
+        if not name:
+            fitch.fitch_waves.launches = 0
+            case["host_s"] = build("host")
+            case["host_p1_launches"] = fitch.fitch_waves.launches
+            case["p1_final_ms"], case["p1_final_waves"] = final_tree_p1(
+                cs, part, labels)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,

@@ -768,6 +768,24 @@ def test_stepwise_commit_plans_on_card(cuda, monkeypatch, tables, grid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tips, sites, states", [(200, 2000, 4),
+                                                 (150, 2000, 20)])
+def test_wave_grids_on_card(cuda, tips, sites, states):
+    """P1 in one launch a call over one block, its plan's blocks and a
+    ragged split (chip_smoke's ``check_wave_grids``): a random tree's
+    waves equal to the plain version, exactly."""
+    from libpll_tpu_torch.search.parsimony import _group_levels
+    from libpll_tpu_torch.tree import utree as ut
+
+    part = chip_smoke.parsimony_parts(tips, sites, states, True, 1, 0,
+                                      cuda)[0]
+    tree = ut.parse_newick_string(chip_smoke.random_newick(
+        tips, np.random.default_rng(tips)))
+    levels = _group_levels(ut.create_pars_buildops(ut.traverse(tree.root)))
+    assert 1 in chip_smoke.check_wave_grids(part, levels, "a random tree")
+
+
+@pytest.mark.gpu
 def test_fitch_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from libpll_tpu_torch.ops import fitch
 

@@ -332,6 +332,95 @@ def test_commit_plan():
                    for a, b in zip(cuts, cuts[1:]))
 
 
+def _host_engine_calls(parts, labels, seed):
+    """Every ``fitch_waves`` call of the host engine's build on the CPU:
+    (the rows and costs before it, its waves), per partition."""
+    from libpll_tpu_torch.search import stepwise as tstep
+
+    calls, real = [], tfitch.fitch_waves
+
+    def record(vectors, costs, waves):
+        calls.append((vectors.clone(), costs.clone(), waves))
+        return real(vectors, costs, waves)
+
+    tfitch.fitch_waves = record
+    try:
+        tstep.StepwiseBuilder(parts, labels).build(seed)
+    finally:
+        tfitch.fitch_waves = real
+    return calls
+
+
+def _padded_waves(waves, n_waves, width):
+    """Waves as JAX's int32 [n_waves, width, 3] table: each wave padded by
+    its last op, the table by its last wave (both idempotent)."""
+    rows = [w + [w[-1]] * (width - len(w)) for w in waves]
+    rows += [rows[-1]] * (n_waves - len(rows))
+    return np.asarray(rows, np.int32)
+
+
+@pytest.mark.parametrize("states, alphabet, sites", [(4, DNA, 600),
+                                                     (20, PROTEIN, 320)])
+def test_wave_slices_match_run_waves(states, alphabet, sites):
+    """P1's slice plan walked with its plain version
+    (``fitch_run_waves_sliced_plain``: each slice every wave over its own
+    words, the costs from the slices' shares wave by wave) on the host
+    engine's waves of a 24-taxon build, bit for bit against JAX's
+    ``fitch_run_waves`` and the unsliced plain version, at one block, two,
+    three (word counts that are not multiples of the slice) and more
+    blocks than words; tip costs near 2**32 so that the shares' sums
+    wrap."""
+    tips, seed = 24, 3 + states
+    rng = np.random.default_rng(seed)
+    charmap = jmaps.pll_map_nt if states == 4 else jmaps.pll_map_aa
+    part = tpars.FastParsimony.from_sequences(
+        sequences(rng, tips, sites, alphabet), charmap, states,
+        rng.integers(1, 4, sites), device="cpu")
+    part.costs[:tips] = tfitch.to_words(random_costs(rng, tips), "cpu")
+    calls = _host_engine_calls([part], [f"t{i}" for i in range(tips)],
+                               seed)
+    # one call an insertion, the star's and the final tree's
+    assert len(calls) == tips - 1
+    w = part.vectors.shape[-1]
+    assert w % tfitch.SLICE_WORDS  # no whole number of slices
+    n_waves = max(len(waves) for *_, waves in calls)
+    width = max(len(wave) for *_, waves in calls for wave in waves)
+    for vec, cost, waves in calls:
+        jv, jc = jfitch.fitch_run_waves(
+            jnp.asarray(words(vec)), jnp.asarray(words(cost)),
+            jnp.asarray(_padded_waves(waves, n_waves, width)))
+        table, offsets = tfitch.wave_table(waves, vec.shape[0])
+        table = torch.from_numpy(table)
+        for grid in (1, 2, 3, w + 3):
+            v, c = vec.clone(), cost.clone()
+            tfitch.fitch_run_waves_sliced_plain(v, c, table, offsets, grid)
+            assert np.array_equal(words(v), np.asarray(jv))
+            assert np.array_equal(words(c), np.asarray(jc))
+        v, c = vec.clone(), cost.clone()
+        tfitch.fitch_run_waves_plain(v, c, table, offsets)
+        assert np.array_equal(words(c), np.asarray(jc))
+
+
+@pytest.mark.parametrize("words_, sms, grid", [
+    (8, 132, 1), (63, 132, 1), (64, 132, 2), (72, 132, 2), (512, 132, 16),
+    (32 * 500, 132, 132), (2048, 7, 7)])
+def test_wave_plan(words_, sms, grid):
+    """P1's blocks: one per SLICE_WORDS words (one below 2 * SLICE_WORDS),
+    at most one per SM, as P3's plan splits them; the slices whole,
+    contiguous and at least a slice wide."""
+    assert tfitch.wave_plan(words_, sms) == grid
+    assert grid == tfitch.commit_plan([words_], 10, sms, 0).grid
+    cuts = tfitch.word_slices(words_, grid)
+    assert cuts[0][0] == 0 and cuts[-1][1] == words_
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    assert grid == 1 or min(hi - lo for lo, hi in cuts) >= tfitch.SLICE_WORDS
+    # the table, its offsets and the totals staged where they fit
+    n_ops, n_waves = 2046, 295
+    need = 4 * (4 * n_ops + n_waves + 1)
+    assert tfitch.wave_smem(n_ops, n_waves, need) == need
+    assert tfitch.wave_smem(n_ops, n_waves, need - 1) == 0
+
+
 # ----------------------------------------------------------- FastParsimony
 @pytest.mark.parametrize("states, alphabet", [(4, DNA), (20, PROTEIN)])
 @pytest.mark.parametrize("weighted", [False, True])
