@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve main paths, each driven once with the launch counters set to 0 just
+Thirteen main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -65,7 +65,13 @@ before it and read just after:
     and Partition: ``optimize_model`` as infer_tree's refit after a search
     calls it (L-BFGS through the plain float32 sweep and its backward, no
     kernel of the port), then a full branch-length sweep pair under the
-    fitted model (U1, N1).
+    fitted model (U1, N1);
+  * site sharding (``parallel/mesh.py``): two ranks on the one card
+    through gloo, ``make_score_sharded`` at the flagship (K1),
+    ``make_score_unbounded_sharded`` at the giant (K6), the word-sharded
+    stepwise build (P2, P3) and ``infer_tree(mesh=)`` at
+    scripts/bench_infer.py's call (P2, P3, U1, C1 and N1's derivative
+    mode, one reduction a Newton body).
 
 Phases, one line each:
 
@@ -190,27 +196,31 @@ Phases, one line each:
      launch of 32 configurations (4-200 taxa, DNA and 20 states with
      ambiguity codes, weighted patterns, 1-3 partitions, seeds 0, 1, 42
      and 12345); the card's FastParsimony, both stepwise engines and the
-     Sankoff Parsimony (float64, rel 0) against the CPU's; P3's builds
+     Sankoff Parsimony (float64, rel 0) against the CPU's (the CPU's
+     builds and engines computed beside phases 3-23 in a process of their
+     own, ``CpuRefs``); P3's builds
      with its walk's tables forced into device or shared memory over
      other grids equal to its own plan's (``COMMIT_FORCED`` at
      ``COMMIT_FORCED_CASES``), and a build past the
      shared-memory budget (``PAST_BUDGET``), its last insertion against
      the plain version;
- 25. stepwise: both engines at 2 048 x 2 048 and 500 x 10 000 with their
-     counters at 0 around each: score and Newick equal to libpll_tpu's
+ 25. stepwise: the device engine at 2 048 x 2 048 and 500 x 10 000, the
+     host engine at 500 x 10 000 (``STEPWISE_HOST_CASES``; its 2 048 x
+     2 048 build is tools/stepwise_times.py's), with their counters at 0
+     around each: score and Newick equal to libpll_tpu's
      (``STEPWISE_JAX``, recorded from the JAX package on the CPU), the
      score re-derived by the plain Fitch of the final tree, which kernels
      ran (the host engine one P1 launch a call);
- 26. stepwise times: each build's wall time, P2's and P3's device time a
-     launch under torch.profiler and the device's idle share; P2 and P3
+ 26. stepwise times: each build's wall time, at 2 048 x 2 048 P2's and
+     P3's device time a launch under torch.profiler and the device's idle
+     share; P2 and P3
      at the last insertion and P1 over the final tree against their plain
      versions and their bounds (integer logic and popcount throughput,
      bytes at 3.35 TB/s); P1 at forced block counts (one, its plan's and
      a ragged split; its own with the table in device memory) over the
      final tree and over a 150-taxon tree at 20 states, each equal to the
-     plain version (``check_wave_grids``); a
-     whole build at 200 x 2 000 by the plain versions
-     (``stepwise_profile``, ``last_insertion_p3``);
+     plain version (``check_wave_grids``); a whole build at 200 x 2 000
+     by the plain versions (``stepwise_profile``, ``last_insertion_p3``);
  27. blopt small: U1 against the plain executor at every launch
      (``ReplayHook``) of phase 20's configurations and of random op
      tables (every scale mode, S 4/20/5, C 1-8, float64 rel 1e-12 with
@@ -263,14 +273,16 @@ Phases, one line each:
      local passes of radius 3 and none, 12 and 16 taxa) on the card
      against the same calls on the CPU, in float64 (the same results,
      moves, Newick and topology, logL rel 1e-9) and float32 (the f32
-     budget, the same start score), float64 against libpll_tpu's results
-     recorded on the CPU (``SEARCH_JAX``); every valid CLV row after a
+     budget, the same start score; the CPU's ``infer_tree`` runs from
+     ``CpuRefs``), float64 against libpll_tpu's results recorded on the
+     CPU (``SEARCH_JAX``); every valid CLV row after a
      round a fresh evaluation's; a round without improvement restores
      every valid row, scaler and flag bit for bit; the typed errors
      (capacity 2, a contained regraft, ``moves="tbr"``, ``mesh=``); U1
      and C1 against their plain versions at every launch (``ReplayHook``,
      ``ScorerHook``); ``optimize_model=True`` runs in phase 34;
- 33. infer: scripts/bench_infer.py's call with every launch counter at 0
+ 33. infer: scripts/bench_infer.py's call, ``max_rounds`` cut from its
+     20 to ``BENCH_INFER_MAX_ROUNDS``, with every launch counter at 0
      around it: the alignment's SHA-256, the start parsimony score equal
      to libpll_tpu's (``BENCH_INFER_START_JAX``), the trajectory
      non-decreasing, the final logL within the f32 budget of a fresh
@@ -278,25 +290,40 @@ Phases, one line each:
      plain version run; time-to-tree and the timings by phase, each
      round's candidates and seconds, each branch-length pass, RF to the
      generating tree, the peak device memory, and the card's idle share
-     over one SPR round and one full sweep (torch.profiler) with C1's, U1's
-     and N1's time a launch in them; C1 on the final tree's first batch of
+     over one SPR round and a pass over 256 of a sweep's edges
+     (torch.profiler) with C1's, U1's and N1's time a launch in them; C1 on the final tree's first batch of
      128 (``measure_batch``); the start tree's device build again, P2 and
      P3 a launch, and P3 at its last insertion against the plain
-     version;
+     version; N1 at this shape (the final tree's root edge, from the
+     rows, blopt's rule) against its plain twin and the bound of one
+     solve;
  34. model fitting: small fits in float64 on the card against the CPU and
      against libpll_tpu's results recorded on the CPU (``MODELOPT_JAX``):
      Γ, free and fixed rates, p-inv, an LG4X mixture (free rates and
      weights over four 20-state matrices) and ``infer_tree(
      optimize_model=True)`` at 12 taxa, under ``ReplayHook`` and
      ``ScorerHook``; then phase 33's final tree and Partition fitted
-     (float32, from JC with α 0.8, two rounds): the trajectory
+     (float32, from JC with α 0.8, one round): the trajectory
      non-decreasing, the Partition carrying the fit, the fit's logL within
      the f32 budget of a fresh float64 Partition under the fitted model,
      U1 and N1 launched in the sweep pair after it and no plain version
      run; the fitted parameters beside the generating ones, L-BFGS steps
      and evaluations, s a fit, ms a value-and-grad and a Brent
      evaluation, the eigendecomposition's placement and cost, the peak
-     device memory and the card's idle share over one value-and-grad.
+     device memory and the card's idle share over one value-and-grad;
+ 35. mesh: site sharding (``parallel/mesh.py``), two ranks, each a
+     process of this script (``--mesh-rank``), joined by gloo on cuda:0
+     with the same arguments: ``make_score_sharded`` at the flagship (K1
+     on 131 072 sites a rank, against its plain version there) and
+     ``make_score_unbounded_sharded`` at the giant (K6 on 524 288 a
+     rank) within the f32 budget of phases 4 and 9, the word-sharded
+     stepwise build at 2 048 x 2 048 equal to libpll_tpu's, and
+     ``infer_tree(mesh=)`` at phase 33's call against phase 33's one-rank
+     result (the start score, the logL within the f32 budget, RF
+     printed), U1, C1, N1's derivative mode, P2 and P3 launched and no
+     plain version run; both ranks' results equal; N1's derivative mode
+     against its plain twin at the final tree's root edge, its time and
+     bound; the reductions and their time of each path.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
@@ -310,6 +337,7 @@ without the package.
 
 import collections
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1166,7 +1194,8 @@ def phase_giant(device, peak):
           f"in {host:.2f} ms); K6 {k6_ms:.2f} ms against its bound "
           f"{k6_bound[0]:.2f} ms ({k6_bound[1]}): "
           f"{k6_bound[0] / k6_ms * 100:.1f}%", flush=True)
-    return dict(launches=launches, ms=ms, k6_err=k6_err, k6_ms=k6_ms,
+    return dict(logl=logl, launches=launches, ms=ms, k6_err=k6_err,
+                k6_ms=k6_ms,
                 k6_plain_ms=k6_plain_ms, k6_bound=k6_bound,
                 peak_gib=peak_mem / 2**30, pool=pool)
 
@@ -2793,6 +2822,9 @@ PROTEIN_CODES = "ARNDCQEGHILKMFPSTWYVBZX-"
 # scripts/bench_stepwise.py's configurations: random ACGT from
 # default_rng(7), one FastParsimony partition, stepwise seed 42
 STEPWISE_CASES = ((2048, 2048), (500, 10000))
+# the host engine's builds (P1 and P2); its 2 048 x 2 048 build takes
+# 13-22 s, and tools/stepwise_times.py times it
+STEPWISE_HOST_CASES = ((500, 10000),)
 STEPWISE_SEED = 42
 # libpll_tpu's fastparsimony_stepwise(engine="device") on these inputs,
 # run on the CPU (JAX_PLATFORMS=cpu): the score, and the SHA-256 and length
@@ -2922,7 +2954,37 @@ class ForcedCommitPlan:
         self.fitch.plan_for = self.real
 
 
-def check_parsimony_small(device):
+def parsimony_cpu_side(seed, cfg):
+    """The CPU's side of phase 24's device build at one configuration:
+    the partitions (their inner rows set by the random tree's traversal,
+    as on the card), then the device build's ``back`` and final scores
+    and, up to ENGINES_UP_TO taxa, fastparsimony_stepwise's (score,
+    Newick), all on the CPU."""
+    import torch
+
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.search.stepwise import (direction_rows,
+                                                  fastparsimony_stepwise)
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.rng import shuffled_order
+
+    tips = cfg[0]
+    host = parsimony_parts(*cfg, seed, torch.device("cpu"))
+    tree = ut.parse_newick_string(random_newick(tips,
+                                                np.random.default_rng(seed)))
+    for part in host:
+        part.update_vectors(ut.create_pars_buildops(ut.traverse(tree.root)))
+    hback, _, hfinals = fitch.stepwise_build(direction_rows(host),
+                                             shuffled_order(tips, seed))
+    engines = None
+    if tips <= ENGINES_UP_TO:
+        found = fastparsimony_stepwise(host, [f"t{i}" for i in range(tips)],
+                                       seed)
+        engines = (found[1], ut.export_newick(found[0].root))
+    return hback, hfinals, engines
+
+
+def check_parsimony_small(device, cpu_refs=None):
     """Phase 24: P1-P3 against their plain versions on the card, exactly,
     at PARSIMONY_SMALL x PARSIMONY_SEEDS (4-200 taxa, DNA and 20 states
     with ambiguity codes, weighted patterns, 1-3 partitions): P1 over a
@@ -2932,15 +2994,16 @@ def check_parsimony_small(device):
     launch), its final scores and ``back`` against the CPU's; both
     engines of ``fastparsimony_stepwise`` on the card against the CPU up
     to ENGINES_UP_TO taxa (score and Newick); the Sankoff ``Parsimony`` on
-    the card against the CPU (float64, rel 0).  Returns (configurations,
-    launches (P1, P2, P3))."""
+    the card against the CPU (float64, rel 0).  The CPU's builds and
+    engines (``parsimony_cpu_side``) come from ``cpu_refs`` (a
+    :class:`CpuRefs`, computed beside the earlier phases) or, without
+    it, are run here.  Returns the configurations checked."""
     import torch
 
     from libpll_tpu_torch.io import maps
     from libpll_tpu_torch.ops import fitch
     from libpll_tpu_torch.search.parsimony import Parsimony, _group_levels
-    from libpll_tpu_torch.search.stepwise import (direction_rows,
-                                                  fastparsimony_stepwise)
+    from libpll_tpu_torch.search.stepwise import fastparsimony_stepwise
     from libpll_tpu_torch.tree import utree as ut
     from libpll_tpu_torch.utils.rng import shuffled_order
 
@@ -2986,16 +3049,15 @@ def check_parsimony_small(device):
                       f"{what}: FastParsimony scores on the card differ")
             order = shuffled_order(tips, seed)
             back, finals = stepwise_pair(card, order)
-            hback, _, hfinals = fitch.stepwise_build(direction_rows(host),
-                                                     order)
+            hback, hfinals, want = (
+                parsimony_cpu_side(seed, cfg) if cpu_refs is None
+                else cpu_refs.result()["parsimony"][seed, cfg])
             check(torch.equal(back.cpu(), hback)
                   and torch.equal(finals.cpu(), hfinals),
                   f"{what}: the device build on the card differs from the "
                   "CPU's")
             if tips <= ENGINES_UP_TO:
                 labels = [f"t{i}" for i in range(tips)]
-                want = fastparsimony_stepwise(host, labels, seed)
-                want = (want[1], ut.export_newick(want[0].root))
                 for engine in ("device", "host"):
                     got = fastparsimony_stepwise(card, labels, seed,
                                                  engine=engine)
@@ -3163,7 +3225,9 @@ def phase_stepwise(device):
         part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
         res = {"words": part.vectors.shape[-1]}
         want = STEPWISE_JAX[(tips, sites)]
-        for engine in ("device", "host"):
+        engines = ("device", "host") if (tips, sites) in (
+            STEPWISE_HOST_CASES) else ("device",)
+        for engine in engines:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -3196,15 +3260,17 @@ def phase_stepwise(device):
                               f"of the final tree {plain} vs {score}")
         res["score"] = score
         out[(tips, sites)] = res
-        d, h = res["device"], res["host"]
+        d, h = res["device"], res.get("host")
         print(f"[25 stepwise] {tips} taxa x {sites} sites (ACGT, "
               f"default_rng(7), seed {STEPWISE_SEED}, {res['words']} words "
               f"a state): score {score}, Newick sha256 {want[1][:16]}.. "
-              f"({want[2]} chars), both libpll_tpu's; the plain Fitch of "
+              f"({want[2]} chars), libpll_tpu's; the plain Fitch of "
               f"the final tree {plain}; device engine {d['s']:.3f} s "
               f"(launches {d['launches']}, peak "
-              f"{d['peak'] / 2**20:.1f} MiB), host engine {h['s']:.3f} s "
-              f"(launches {h['launches']})", flush=True)
+              f"{d['peak'] / 2**20:.1f} MiB)" + (
+                  f", host engine {h['s']:.3f} s (launches "
+                  f"{h['launches']})" if h else ", host engine not run "
+                  "here"), flush=True)
         del part
         torch.cuda.empty_cache()
     return out
@@ -3547,7 +3613,7 @@ def check_wave_grids(part, levels, what):
 
 
 def phase_stepwise_times(device, card, sms, clock_mhz, runs):
-    """Phase 26: at each of STEPWISE_CASES, a device build under
+    """Phase 26: at the first of STEPWISE_CASES, a device build under
     torch.profiler (P2's and P3's device time a launch, the device's idle
     share, each against its bound over the build); at the largest, the
     state before the last insertion, where P2 and P3 and their plain
@@ -3570,14 +3636,15 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
 
     peaks = (sms * LOGIC_PER_SM_CLOCK * clock_mhz * 1e6,
              sms * POPC_PER_SM_CLOCK * clock_mhz * 1e6)
-    for tips, sites in STEPWISE_CASES:
+    for tips, sites in STEPWISE_CASES[:1]:
         seqs, labels = bench_stepwise_alignment(tips, sites)
         part = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4)
         prof = stepwise_profile(part, labels, STEPWISE_SEED, peaks)
         run = runs[(tips, sites)]
+        host = (f"host engine {run['host']['s']:.3f} s" if "host" in run
+                else "host engine not run")
         print(f"[26 stepwise times] {card}: {tips} x {sites}: device build "
-              f"{run['device']['s']:.3f} s wall, host engine "
-              f"{run['host']['s']:.3f} s; under the profiler "
+              f"{run['device']['s']:.3f} s wall, {host}; under the profiler "
               + stepwise_text(prof), flush=True)
 
     # the largest case up to its last insertion
@@ -3702,7 +3769,8 @@ def phase_stepwise_times(device, card, sms, clock_mhz, runs):
     big = runs[STEPWISE_CASES[0]]
     return {"ms": ms, "bounds": bounds, "err": err,
             "launches": {**big["device"]["launches"],
-                         "P1": big["host"]["launches"]["P1"]}}
+                         "P1": runs[STEPWISE_HOST_CASES[0]]["host"][
+                             "launches"]["P1"]}}
 
 
 # ---------------------------------------------------------- branch lengths
@@ -5461,8 +5529,11 @@ SEARCH_JAX = {
 
 # scripts/bench_infer.py's call (phase 33)
 BENCH_INFER_TIPS, BENCH_INFER_SITES = 1024, 16384
+PROFILED_EDGES = 256  # phase 33's profiled branch-length pass
 BENCH_INFER_ARGS = dict(alpha=0.8, seed=42, min_delta=1e-2, spr_batch=128)
-BENCH_INFER_MAX_ROUNDS = 20  # infer_tree's default, as the script runs it
+# the script runs infer_tree's default, 20; cut to 1, which keeps phase
+# 33's one-rank run, phase 35's reference, and phase 35 short
+BENCH_INFER_MAX_ROUNDS = 1
 # SHA-256 of the alignment (">label\nsequence\n" in label order) from
 # utils/flagship.infer_alignment(1024, 16384), equal to the script's
 # simulate; libpll_tpu's FastParsimony + fastparsimony_stepwise (seed 42)
@@ -5757,7 +5828,34 @@ def round_key(r):
             else tuple(n.node_index for n in r.best_nodes))
 
 
-def check_infer_small(device):
+def infer_cpu_side(name):
+    """Phase 32's CPU reruns: INFER_SMALL case ``name`` through
+    ``infer_tree`` on the CPU in float64 and float32, with one intra-op
+    thread as the card's runs have.  Returns, by ``str(dtype)``, its start
+    score, trajectory, rounds, logL, Newick and seconds."""
+    import torch
+
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.tree import utree as ut
+
+    _, seed, tips, sites, kw = next(c for c in INFER_SMALL if c[0] == name)
+    seqs = search_data(seed, tips, sites)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        b = infer_tree(seqs, dtype=dtype, device="cpu", **SEARCH_GTR, **kw)
+        out[str(dtype)] = dict(
+            start=b.start_parsimony_score, trajectory=b.trajectory,
+            rounds=b.rounds, logl=b.logl,
+            newick=ut.export_newick(b.tree.root),
+            s=time.perf_counter() - t0)
+    torch.set_num_threads(threads)
+    return out
+
+
+def check_infer_small(device, cpu_refs=None):
     """Phase 32, inference: INFER_SMALL through ``infer_tree`` on the card
     and on the CPU in float64 (start score, rounds and topology equal,
     trajectory and logL rel SEARCH_REL) and float32 (the start score
@@ -5766,7 +5864,9 @@ def check_infer_small(device):
     logL within the budget where the topology is the same); float64 on
     the card against SEARCH_JAX (start score, rounds, RF 0, logL rel
     SEARCH_REL); ``moves="tbr"`` and ``mesh=`` raise their typed errors.
-    Returns a summary dict."""
+    The CPU's runs (``infer_cpu_side``) come from ``cpu_refs`` (a
+    :class:`CpuRefs`, computed beside the earlier phases) or, without
+    it, are run here.  Returns a summary dict."""
     import torch
 
     from libpll_tpu_torch.errors import EinvalError
@@ -5774,33 +5874,34 @@ def check_infer_small(device):
     from libpll_tpu_torch.tree import utree as ut
     from libpll_tpu_torch.tree.compare import rf_distance
 
-    cpu = torch.device("cpu")
     out = {"cases": 0, "f32_rf": [], "f32_d": 0.0, "s": {}}
     for name, seed, tips, sites, kw in INFER_SMALL:
         seqs = search_data(seed, tips, sites)
+        cpu_runs = (infer_cpu_side(name) if cpu_refs is None
+                    else cpu_refs.result()["infer"][name])
         for dtype in (torch.float64, torch.float32):
-            res = {}
-            for where, dev in (("card", device), ("cpu", cpu)):
-                t0 = time.perf_counter()
-                res[where] = infer_tree(seqs, dtype=dtype, device=dev,
-                                        **SEARCH_GTR, **kw)
-                out["s"][name, str(dtype), where] = time.perf_counter() - t0
-            a, b = res["card"], res["cpu"]
+            t0 = time.perf_counter()
+            a = infer_tree(seqs, dtype=dtype, device=device, **SEARCH_GTR,
+                           **kw)
+            b = cpu_runs[str(dtype)]
+            out["s"][name, str(dtype), "card"] = time.perf_counter() - t0
+            out["s"][name, str(dtype), "cpu"] = b["s"]
             what = f"infer_tree {name} {dtype}"
-            rf = rf_distance(a.tree, b.tree)
-            check(a.start_parsimony_score == b.start_parsimony_score
+            rf = rf_distance(a.tree, ut.parse_newick_string(b["newick"]))
+            check(a.start_parsimony_score == b["start"]
                   and a.trajectory == sorted(a.trajectory)
                   and set(a.timings) == {"compress", "stepwise", "setup",
                                          "blopt", "spr"},
                   f"{what}: start {a.start_parsimony_score} vs "
-                  f"{b.start_parsimony_score}, trajectory {a.trajectory}")
+                  f"{b['start']}, trajectory {a.trajectory}")
             if dtype == torch.float64:
-                traj = len(a.trajectory) == len(b.trajectory) and all(
+                traj = len(a.trajectory) == len(b["trajectory"]) and all(
                     abs(x - y) <= SEARCH_REL * abs(y)
-                    for x, y in zip(a.trajectory, b.trajectory))
-                check(a.rounds == b.rounds and rf == 0 and traj,
+                    for x, y in zip(a.trajectory, b["trajectory"]))
+                check(a.rounds == b["rounds"] and rf == 0 and traj,
                       f"{what}: card rounds {a.rounds}, RF {rf} to the "
-                      f"CPU's, trajectory {a.trajectory} vs {b.trajectory}")
+                      f"CPU's, trajectory {a.trajectory} vs "
+                      f"{b['trajectory']}")
                 start, rounds, logl, newick = SEARCH_JAX[name]
                 rf_jax = rf_distance(a.tree, ut.parse_newick_string(newick))
                 check(a.start_parsimony_score == start and a.rounds == rounds
@@ -5811,15 +5912,16 @@ def check_infer_small(device):
             else:
                 want = fresh_f64_logl(a.tree, seqs, sites, device)
                 check(logl_close(a.logl, want, dtype)
-                      and (rf or logl_close(a.logl, b.logl, dtype)),
+                      and (rf or logl_close(a.logl, b["logl"], dtype)),
                       f"{what}: logL {a.logl!r}, a fresh float64 "
-                      f"evaluation {want!r}, the CPU's {b.logl!r} (RF {rf})")
+                      f"evaluation {want!r}, the CPU's {b['logl']!r} (RF "
+                      f"{rf})")
                 check(a.start_parsimony_score == (
                     SEARCH_JAX[name][0]), f"{what}: start score")
                 out["f32_rf"].append(rf)
                 out["f32_d"] = max(out["f32_d"], abs(a.logl - want))
             out["cases"] += 1
-            del res
+            del a
     seqs = search_data(12)
     for bad, exc in ((dict(moves="tbr"), ValueError),
                      (dict(mesh=object()), EinvalError)):
@@ -5827,9 +5929,91 @@ def check_infer_small(device):
             infer_tree(seqs, device=device, **bad)
             fail(f"infer_tree({bad}) did not raise")
         except exc as err:
-            check(exc is ValueError or "ROADMAP" in str(err),
+            check(exc is ValueError or "SitesMesh" in str(err),
                   f"infer_tree({bad}): {err}")
     return out
+
+
+CPU_REFS_TIMEOUT = 900  # s: the background CPU references' whole run
+
+
+def cpu_refs_main(out_path):
+    """``chip_smoke.py --cpu-refs <out>``: the CPU's sides of phases 24 and
+    32, ``parsimony_cpu_side`` at every configuration and
+    ``infer_cpu_side`` at every case, one intra-op thread, pickled to
+    ``out`` with their seconds (:class:`CpuRefs` runs it)."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = {"parsimony": {(seed, cfg): parsimony_cpu_side(seed, cfg)
+                         for seed in PARSIMONY_SEEDS
+                         for cfg in PARSIMONY_SMALL},
+           "infer": {case[0]: infer_cpu_side(case[0])
+                     for case in INFER_SMALL}}
+    out["s"] = time.perf_counter() - t0
+    part = Path(out_path + ".part")
+    with open(part, "wb") as f:
+        pickle.dump(out, f)
+    part.rename(out_path)
+    return 0
+
+
+class CpuRefs:
+    """The CPU's sides of phases 24 and 32 (the CPU reference builds and
+    engines, the CPU's infer_tree runs) computed in a process of their own
+    (``chip_smoke.py --cpu-refs``) while the card's phases run, so that
+    the checks compare against them without waiting for the CPU.
+    :meth:`result` waits for them (a failed process, or one past
+    CPU_REFS_TIMEOUT from its start, fails the run); :meth:`stop` ends the
+    process and runs at exit."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_cpu_refs_"))
+        self.path = self.dir / "refs.pkl"
+        self.log = open(self.dir / "log", "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-refs",
+             str(self.path)], cwd=ROOT, stdout=self.log,
+            stderr=subprocess.STDOUT)
+        self.refs = None
+        atexit.register(self.stop)
+
+    def result(self):
+        import pickle
+
+        if self.refs is None:
+            left = CPU_REFS_TIMEOUT - (time.perf_counter() - self.t0)
+            try:
+                code = self.proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                code = None
+            if code != 0:
+                self.log.flush()
+                tail = (self.dir / "log").read_text()[-3000:]
+                self.stop()
+                fail(f"the CPU references' process failed or timed out "
+                     f"(exit {code}):\n{tail}")
+            with open(self.path, "rb") as f:
+                self.refs = pickle.load(f)
+        return self.refs
+
+    def stop(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def alignment_digest(data):
@@ -5856,6 +6040,7 @@ class PlainCalls:
                       (inc_ops, "replay_candidates_plain"),
                       (inc_ops, "score_candidates_plain"),
                       (dv, "newton_solve_plain"),
+                      (dv, "newton_derivatives_plain"),
                       (fitch, "fitch_run_waves_plain"),
                       (fitch, "fitch_edge_scores_plain"),
                       (fitch, "fitch_insert_scores_plain"),
@@ -5956,6 +6141,63 @@ def profiled_idle(fn, names=()):
     return wall, busy, 1.0 - busy / wall, span_idle, len(kernels), by_name
 
 
+def newton_at_edge(part, u, peak):
+    """N1 at an edge of a Partition, as a sweep calls it (phase 33: the
+    final tree's root edge at infer_tree's shape): ``newton_solve_rows``
+    with blopt's |d2| rule from the edge's two rows, against its plain
+    twin ``newton_solve_plain`` on ``update_sumtable``'s sumtable (t* within
+    F32_T_REL in float32, rel 1e-10 in float64); ms a solve on the card by
+    torch.profiler and a call's by CUDA events, the twin's by CUDA events;
+    the bound of one solve: the two rows, the weights and the
+    invariant codes read once, the sumtable formed once and the bodies
+    run (N1's count) at the FP32 peak.  Per-site scaling (the rows'
+    scalers cancel).  Returns a dict."""
+    import torch
+
+    from libpll_tpu_torch.engine.evaluate import partition_model
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    model = partition_model(part, [0] * part.rate_cats)
+    pidx = model["params_indices"].long()
+    rows = (part.clv[u.clv_index], part.clv[u.back.clv_index])
+    kw = dict(t0=torch.tensor([u.length], dtype=part.dtype,
+                              device=part.device),
+              rates=model["rates"], prop_invar=model["prop_invar_pc"],
+              eigenvals_pc=model["eigenvals"][pidx],
+              rate_weights=model["rate_weights"],
+              invariant=model["invariant"],
+              pattern_weights=model["pattern_weights"], sites=part.sites,
+              abs_d2=True)
+    left, right = model["left"][pidx], model["right"][pidx]
+
+    def kernel():
+        return dv.newton_solve_rows(rows[0], rows[1], None, None,
+                                    model["freqs_pc"], left, right, **kw)
+
+    def plain():
+        return dv.newton_solve_plain(dv.update_sumtable(
+            rows[0], rows[1], None, None, model["freqs_pc"], left, right),
+            freqs_pc=model["freqs_pc"], **kw)
+
+    got, want = kernel(), plain()
+    err = abs(float(got.t) - float(want.t))
+    rel = F32_T_REL if part.dtype == torch.float32 else 1e-10
+    check(err <= rel * abs(float(want.t)),
+          f"N1 at the edge: t* {float(got.t)!r}, plain {float(want.t)!r}")
+    plan = dv.plan_for(rows[0], part.sites)
+    c, s, length = rows[0].shape
+    item = rows[0].element_size()
+    nbytes = 2 * c * s * length * item + length * (item + 4)
+    flop = (int(got.iterations) * newton_flop(c, s)
+            + sumtable_flop(c, s)) * part.sites
+    return dict(err=err, t=float(got.t), iterations=int(got.iterations),
+                ms=float(profiled_ms(kernel, "newton_solve_kernel")),
+                call_ms=time_ms(kernel)[0],
+                plain_ms=time_ms(plain, iters=5, warmup=1)[0],
+                bound=bound(flop, nbytes, peak), plan=plan_text(plan),
+                shape=(c, s, length))
+
+
 def phase_infer(device, card):
     """Phase 33: scripts/bench_infer.py's call on the card:
     ``infer_alignment(1024, 16384)`` (its SHA-256 BENCH_INFER_SHA256),
@@ -5968,7 +6210,8 @@ def phase_infer(device, card):
     Prints time-to-tree and the timings by phase, each round's candidates,
     commits and seconds, the branch-length passes, RF to the generating
     tree, the peak device memory, and the card's idle share over one SPR
-    round and one full branch-length sweep (torch.profiler).  Returns the
+    round and one branch-length pass over PROFILED_EDGES edges
+    (torch.profiler).  Returns the
     result and the compressed alignment (label -> patterns, weights)."""
     import torch
 
@@ -6044,8 +6287,13 @@ def phase_infer(device, card):
           f"bench_infer logL {res.logl!r}, a fresh float64 Partition "
           f"{want!r} (budget {budget})")
 
-    # the card's idle share over one more SPR round and one full sweep
+    # N1 at this shape against its plain twin and its bound (the final
+    # tree's root edge, as a sweep solves it)
     part, tree, pidx = res.partition, res.tree, [0] * 4
+    n1 = newton_at_edge(part, tree.root,
+                        roofline.fp32_peak(*roofline_card(device)))
+
+    # the card's idle share over one more SPR round and one full sweep
     torch.cuda.empty_cache()
     with deep_recursion(tips):
         scorer = spr.make_round_scorer(part, 32)
@@ -6059,9 +6307,14 @@ def phase_infer(device, card):
         t0 = time.perf_counter()
         n_enc = len(spr.encode_candidates(tree, cands)[0])
         enc_ms = (time.perf_counter() - t0) * 1e3
+        # a pass over the first PROFILED_EDGES edges in the sweep's order
+        # (the profiler's record of a whole sweep's ~166 000 kernels costs
+        # more than the sweep)
+        first = {u.pmatrix_index for u, _ in zip(blopt._edges(tree.root),
+                                                  range(PROFILED_EDGES))}
         sweep = profiled_idle(lambda: blopt.optimize_branch_lengths_scan(
-            tree, part, pidx, max_sweeps=1, capacity=64),
-            ("replay_kernel", "newton_solve_kernel"))
+            tree, part, pidx, max_sweeps=1, capacity=64, edges=first,
+            edge_pad=PROFILED_EDGES), ("replay_kernel", "newton_solve_kernel"))
         # C1 on the first batch of 128 of that neighbourhood
         enc, n_max = spr.encode_candidates(tree, cands)
         check(n_max <= 32, f"bench_infer's round needs capacity {n_max}")
@@ -6117,9 +6370,10 @@ def phase_infer(device, card):
           f"{spr_idle[4]} kernels, idle {spr_idle[2] * 100:.1f}% of the wall"
           f" ({spr_idle[3] * 100:.1f}% of the kernels' span), "
           f"encode_candidates alone {enc_ms:.1f} ms for {n_enc} candidates "
-          f"({enc_ms / max(n_enc, 1):.4f} ms a candidate); one full "
-          f"branch-length sweep ({2 * tips - 3} edges, eager): wall "
-          f"{sweep[0]:.1f} ms ({sweep[0] / (2 * tips - 3):.3f} ms an edge), "
+          f"({enc_ms / max(n_enc, 1):.4f} ms a candidate); a "
+          f"branch-length pass over the sweep's first {PROFILED_EDGES} "
+          f"edges (eager): wall {sweep[0]:.1f} ms "
+          f"({sweep[0] / PROFILED_EDGES:.3f} ms an edge), "
           f"busy {sweep[1]:.1f} ms in {sweep[4]} kernels, idle "
           f"{sweep[2] * 100:.1f}% ({sweep[3] * 100:.1f}% of the span); "
           f"a launch in them: " + "; ".join(
@@ -6132,6 +6386,18 @@ def phase_infer(device, card):
           + "; torch.profiler", flush=True)
     print(f"[33 infer] {card}: C1 on that neighbourhood's first "
           + batch_text(batch128), flush=True)
+    print(f"[33 infer] {card}: N1 at this shape (the final tree's root "
+          f"edge, {n1['shape']} float32 rows, blopt's |d2| rule, from the "
+          f"rows; {n1['plan']}): t* {n1['t']!r} in {n1['iterations']} "
+          f"bodies, equal to its plain twin within {F32_T_REL} (|d t*| "
+          f"{n1['err']:.3e}); {n1['ms'] * 1e3:.2f} us a solve on the card "
+          f"(torch.profiler), {n1['call_ms'] * 1e3:.2f} us a call (CUDA "
+          f"events, {TIMED_ITERS} back to back, the host's work included) "
+          f"vs plain {n1['plain_ms']:.3f} ms; "
+          f"bound {n1['bound'][0] * 1e3:.3f} us ({n1['bound'][1]}: the two "
+          f"rows, weights and codes read once, the sumtable formed once, "
+          f"{n1['iterations']} bodies at the FP32 peak), "
+          f"{n1['bound'][0] / n1['ms'] * 100:.1f}%", flush=True)
     print(f"[33 infer] {card}: the start tree's device build again "
           f"({tips} taxa, {last['words']} words; P3 {last['plan'].grid} "
           f"blocks, tables in "
@@ -6143,7 +6409,8 @@ def phase_infer(device, card):
           f") vs plain {last['plain_ms']:.3f} ms, bound "
           f"{last['bound'][0] * 1e3:.3f} us ({last['bound'][1]})",
           flush=True)
-    return res, (dict(zip(labels, patterns)), weights), launches
+    return res, (dict(zip(labels, patterns)), weights), launches, dict(
+        n1=n1, data=data, newick=newick)
 
 
 # ---------------------------------------------------------------------------
@@ -6181,7 +6448,7 @@ MODELOPT_INFER = (66, 12, 160, dict(rate_cats=4, seed=5, radius=4,
 MODELOPT_PARAM_ABS, MODELOPT_ALPHA_REL = 1e-4, 1e-3
 # the fit at scripts/bench_infer.py's size: run_modelopt's call after a
 # search (libpll_tpu/search/infer.py:226-229)
-BENCH_FIT_ARGS = dict(opt_alpha=True, opt_pinv=False, alpha=0.8, rounds=2)
+BENCH_FIT_ARGS = dict(opt_alpha=True, opt_pinv=False, alpha=0.8, rounds=1)
 MODELOPT_TIMED = 5  # value-and-grad and Brent evaluations timed
 # libpll_tpu's fits on the same data and partitions, on the CPU in float64
 # (JAX_PLATFORMS=cpu, x64): fit_summary of each MODELOPT_SMALL case, and
@@ -6723,7 +6990,8 @@ def phase_modelopt(device, card, res, alignment):
     print(f"[34 modelopt] {card}: scripts/bench_infer.py's {tips} x "
           f"{BENCH_INFER_SITES} ({len(bl)} branches, "
           f"{len(next(iter(seqs.values())))} patterns), phase 33's final "
-          f"tree, float32: optimize_model(alpha=0.8, rounds=2) from JC in "
+          f"tree, float32: optimize_model(alpha=0.8, rounds="
+          f"{BENCH_FIT_ARGS['rounds']}) from JC in "
           f"{fit_s:.2f} s: logL {fit.trajectory[0]!r} -> {fit.logl!r} "
           f"(trajectory " + ", ".join(f"{x:.3f}" for x in fit.trajectory)
           + f"), a fresh float64 Partition under the fitted model {want!r} "
@@ -6758,7 +7026,426 @@ def phase_modelopt(device, card, res, alignment):
                 plain=cnt.plain, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# 35: site sharding, two ranks on the one card
+# ---------------------------------------------------------------------------
+MESH_WORLD = 2
+MESH_TIMEOUT = 600  # s: the two ranks' whole run
+MESH_COLLECTIVE_TIMEOUT = 300  # s: one collective's (a dead peer's) limit
+MESH_REPEATS = 3  # sharded score calls timed
+MESH_PROBES = 500  # reductions of three float64 timed by themselves
+
+
+def mesh_counters():
+    """The wrappers whose launches phase 35 reads: K1, K6, U1, C1, N1 (the
+    one-launch solve and the derivative mode), P2, P3."""
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.ops import fitch
+    from libpll_tpu_torch.ops import incremental as inc_ops
+
+    return {"K1": cf.fused_edge_score, "K6": cd.DynScore,
+            "U1": clv_ops._replay_ops, "C1": inc_ops._score_candidates,
+            "N1": dv._newton_solve, "N1d": dv._newton_derivatives,
+            "P2": fitch.fitch_scores, "P3": fitch.stepwise_commit}
+
+
+class MeshRun:
+    """One main path of a rank: every counter at 0 and the mesh's
+    reduction count and time noted on entry; on exit the launches, the
+    reductions and their seconds, and the wall (the card synchronised)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        for w in mesh_counters().values():
+            w.launches = 0
+        self.red = (self.mesh.reductions, self.mesh.reduce_seconds)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.s = time.perf_counter() - self.t0
+        self.launches = {k: w.launches for k, w in mesh_counters().items()}
+        self.reductions = self.mesh.reductions - self.red[0]
+        self.reduce_s = self.mesh.reduce_seconds - self.red[1]
+
+    def record(self, **kw):
+        return dict(kw, s=self.s, launches=self.launches,
+                    reductions=self.reductions, reduce_s=self.reduce_s)
+
+
+def mesh_rank(init_method, rank, data_path, out_path):
+    """Phase 35 in one rank (``chip_smoke.py --mesh-rank``, spawned by
+    ``phase_mesh``): join the gloo group on cuda:0 and run this rank's
+    share of the four sharded paths with the same arguments as the other
+    rank, writing their results to ``out_path`` (JSON): the flagship
+    through ``make_score_sharded`` (K1 on the rank's 131 072 sites, and
+    that K1 launch against its plain version), the giant through
+    ``make_score_unbounded_sharded`` (K6 on 524 288 sites, the tips drawn
+    on the card as phase 9 draws them), the word-sharded stepwise build at
+    2 048 x 2 048, and ``infer_tree(mesh=)`` at phase 33's call with no
+    plain version run; then N1's derivative mode against its plain twin at
+    the final tree's root edge, both timed, with its bound."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.evaluate import partition_model
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.io import maps
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.ops import roofline
+    from libpll_tpu_torch.parallel import mesh as pm
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.search.parsimony import FastParsimony
+    from libpll_tpu_torch.search.stepwise import (deep_recursion,
+                                                  fastparsimony_stepwise)
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import (FLAGSHIP_SITES,
+                                                 FLAGSHIP_TIPS,
+                                                 build_flagship,
+                                                 build_flagship_topology,
+                                                 draw_tipchars_cuda)
+
+    rank = int(rank)
+    device = torch.device("cuda", 0)
+    # one intra-op thread a rank: the host side issues many tiny operations
+    torch.set_num_threads(1)
+    pm.initialize_distributed(init_method, MESH_WORLD, rank, backend="gloo",
+                              device=device, timeout=MESH_COLLECTIVE_TIMEOUT)
+    mesh = pm.make_sites_mesh(device=device)
+    out = {"rank": rank, "size": mesh.size}
+
+    # a reduction by itself: mesh.sum's exchange against gloo's all_reduce
+    probe = {}
+    for name, reduce in (("exchange", mesh.sum),
+                         ("all_reduce", lambda x: dist.all_reduce(x))):
+        for k in range(MESH_PROBES + 50):  # the first 50 warm up
+            if k == 50:
+                t0 = time.perf_counter()
+            reduce(torch.ones(3, dtype=torch.float64))
+        probe[name] = (time.perf_counter() - t0) / MESH_PROBES * 1e3
+    out["probe"] = probe
+
+    # the flagship: K1 on this rank's sites, one reduction a call
+    topo, model_np, masks, _ = build_flagship(
+        FLAGSHIP_TIPS, FLAGSHIP_SITES, rate_cats=4, seed=0, tip_masks=True)
+    lo, hi = mesh.local(FLAGSHIP_SITES)
+    tp = cf.pack_tipchars(np.ascontiguousarray(masks[:, lo:hi])).to(device)
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    score = ev.make_score_sharded(topo, 4, 4, mesh, tip_encoding="chars")
+    with MeshRun(mesh) as run:
+        logl = float(score(m32, tp))
+    local = score.local
+    pm_ = local.pmatrices(m32, torch.float32)
+    wvec = cf.pack_weight_vec(m32["freqs_pc"], m32["rate_weights"])
+    pw = m32["pattern_weights"][lo:hi]
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix, tip_encoding="chars")
+    k1 = float(cf.fused_edge_score(topo.schedule, tp, pm_, wvec, pw,
+                                   plan=local.plan, **edge))
+    k1_plain = float(cf.fused_edge_score_plain(topo.schedule, tp, pm_, wvec,
+                                               pw, **edge))
+    times = []
+    for _ in range(MESH_REPEATS):
+        with MeshRun(mesh) as t:
+            score(m32, tp)
+        times.append(t.s * 1e3)
+    out["flagship"] = run.record(logl=logl, sites=hi - lo, k1=k1,
+                                 k1_plain=k1_plain, ms=times)
+    del score, local, tp, masks
+    torch.cuda.empty_cache()
+
+    # the giant: K6 on this rank's sites, its layout from the rank's share
+    topo, model_np = build_flagship_topology(GIANT_TIPS, GIANT_SITES, seed=0)
+    lo, hi = mesh.local(GIANT_SITES)
+    full = draw_tipchars_cuda(GIANT_TIPS, GIANT_SITES, 0, device)
+    tp = full[:, lo:hi].contiguous()
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    score = ev.ScoreUnboundedSharded(topo, 4, 4, mesh, tp, "chars")
+    sched_s = time.perf_counter() - t0
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    with MeshRun(mesh) as run:
+        logl = float(score(m32))
+    with MeshRun(mesh) as t:
+        score(m32)
+    out["giant"] = run.record(
+        logl=logl, sites=hi - lo, ms=t.s * 1e3, schedule_s=sched_s,
+        segments=len(score.local.dyn.segments),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del score, tp
+    torch.cuda.empty_cache()
+
+    # the word-sharded stepwise build
+    tips, sites = STEPWISE_CASES[0]
+    seqs, labels = bench_stepwise_alignment(tips, sites)
+    pars = FastParsimony.from_sequences(seqs, maps.pll_map_nt, 4,
+                                        device=device)
+    with MeshRun(mesh) as run:
+        tree, pscore = fastparsimony_stepwise([pars], labels, STEPWISE_SEED,
+                                              mesh=mesh)
+    digest, length = newick_digest(tree)
+    out["stepwise"] = run.record(score=pscore, digest=digest, length=length,
+                                 words=int(pars.vectors.shape[-1]))
+    del pars, tree
+    torch.cuda.empty_cache()
+
+    # infer_tree(mesh=) at phase 33's call
+    with open(data_path, "rb") as f:
+        data = pickle.load(f)
+    with PlainCalls() as plain, MeshRun(mesh) as run:
+        res = infer_tree(data, dtype=torch.float32,
+                         max_rounds=BENCH_INFER_MAX_ROUNDS, mesh=mesh,
+                         **BENCH_INFER_ARGS)
+    with deep_recursion(len(data)):
+        newick = ut.export_newick(res.tree.root)
+    part = res.partition
+    out["infer"] = run.record(
+        logl=res.logl, start=res.start_parsimony_score, rounds=res.rounds,
+        trajectory=res.trajectory, timings=res.timings, newick=newick,
+        plain=sum(plain.calls.values()), sites=part.sites,
+        global_sites=part.global_sites)
+
+    # N1's derivative mode against its plain twin at the root edge
+    u = res.tree.root
+    model = partition_model(part, [0] * 4)
+    pidx = model["params_indices"].long()
+    st = dv.update_sumtable(part.clv[u.clv_index], part.clv[u.back.clv_index],
+                            None, None, model["freqs_pc"],
+                            model["left"][pidx], model["right"][pidx])
+    t = torch.tensor([u.length], dtype=torch.float32, device=device)
+    args = dict(rates=model["rates"], prop_invar=model["prop_invar_pc"],
+                eigenvals_pc=model["eigenvals"][pidx],
+                freqs_pc=model["freqs_pc"],
+                rate_weights=model["rate_weights"],
+                invariant=model["invariant"],
+                pattern_weights=model["pattern_weights"], sites=part.sites)
+    body = dv.derivative_body({}, st, **args)
+    t_host = t.cpu()[0]
+    got = body(t_host)
+    want = dv.newton_derivatives_plain(st, t, **args).cpu()
+    sizes = newton_abs_sums(dict(args, sumtable=st, asc_mode=0), t[0])
+    errs = [abs(float(got[i]) - float(want[i])) for i in range(2)]
+    ok = all(e <= F32_RTOL * (size + abs(float(want[i])))
+             for i, (e, size) in enumerate(zip(errs, sizes)))
+    c, s_, length = st.shape
+    peak = roofline.fp32_peak(*roofline_card(device))
+    out["n1d"] = dict(
+        ok=ok, err=max(errs), got=got.tolist(), want=want.tolist(),
+        ms=float(profiled_ms(lambda: body(t_host), "newton_solve_kernel")),
+        body_ms=time_ms(lambda: body(t_host), iters=50)[0],
+        plain_ms=time_ms(lambda: dv.newton_derivatives_plain(st, t, **args),
+                         iters=10)[0],
+        bound=bound(newton_flop(c, s_) * part.sites,
+                    st.numel() * 4 + length * 8 + 3 * 8, peak),
+        plan=plan_text(dv.plan_for(st, part.sites)), shape=[c, s_, length])
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(device, card, refs):
+    """Phase 35: two ranks, each a process of its own (``mesh_rank``),
+    joined by gloo on the one card (NCCL takes one rank a card); the
+    parent frees its cached device memory first.  Both ranks' results are
+    read back and must be equal; against ``refs`` (the one-rank runs of
+    phases 4, 9 and 33): the flagship's and the giant's logL within the
+    f32 budget of phases 4 and 9 (the same per-site values summed in
+    another order), each rank's K1 launch against its plain version; the
+    stepwise build's score and Newick libpll_tpu's (STEPWISE_JAX), P2 and
+    P3 once an insertion; infer_tree(mesh=)'s start score phase 33's and
+    libpll_tpu's, its logL within the f32 budget of phase 33's, RF
+    printed, U1, C1, N1's derivative mode, P2 and P3 launched and neither
+    the one-launch solve nor a plain version run; N1's derivative mode
+    within F32_RTOL of its plain twin.  A rank that fails, or outlasts
+    MESH_TIMEOUT, fails the phase; the other is killed.  Returns the
+    numbers the JSON line takes."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.tree.compare import rf_distance
+    from libpll_tpu_torch.search.stepwise import deep_recursion
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with open(tmp / "data.pkl", "wb") as f:
+            pickle.dump(refs["data"], f)
+        logs = [open(tmp / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
+        # both ranks on this host: gloo over the loopback device, not the
+        # (slower) interface the host name resolves to
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             f"file://{tmp}/rendezvous", str(r), str(tmp / "data.pkl"),
+             str(tmp / f"rank{r}.json")], cwd=ROOT, stdout=logs[r],
+            stderr=subprocess.STDOUT, env=env) for r in range(MESH_WORLD)]
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = [p.returncode for p in procs
+                          if p.returncode not in (None, 0)]
+                if failed or time.perf_counter() - t0 > MESH_TIMEOUT:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            tails = "\n".join(
+                f"--- rank {r} (exit {c}):\n"
+                + (tmp / f"rank{r}.log").read_text()[-3000:]
+                for r, c in enumerate(codes))
+            fail(f"phase 35: a rank failed or timed out after {wall:.0f} s "
+                 f"(exit codes {codes}):\n{tails}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+
+    r0, r1 = ranks
+    same = {k: (r0[k].get("logl"), r0[k].get("score"), r0[k].get("newick"))
+            == (r1[k].get("logl"), r1[k].get("score"), r1[k].get("newick"))
+            for k in ("flagship", "giant", "stepwise", "infer")}
+    check(all(same.values()), f"phase 35: the ranks disagree: {same}")
+    fl, gi, sw, inf, nd = (r0[k] for k in ("flagship", "giant", "stepwise",
+                                           "infer", "n1d"))
+
+    def within(got, want, what):
+        budget = ACC_REL * abs(want) + ACC_ABS
+        check(np.isfinite(got) and abs(got - want) <= budget,
+              f"phase 35 {what}: logL {got!r}, one rank {want!r} (budget "
+              f"{budget})")
+        return abs(got - want)
+
+    d_fl = within(fl["logl"], refs["flagship"], "flagship")
+    for r in ranks:
+        check(r["flagship"]["launches"]["K1"] == 1,
+              f"phase 35 flagship: K1 launches {r['flagship']['launches']}")
+        err = abs(r["flagship"]["k1"] - r["flagship"]["k1_plain"])
+        check(err <= ACC_REL * abs(r["flagship"]["k1_plain"]) + ACC_ABS,
+              f"phase 35 rank {r['rank']}: K1 on its sites "
+              f"{r['flagship']['k1']!r}, plain {r['flagship']['k1_plain']!r}")
+    d_gi = within(gi["logl"], refs["giant"], "giant")
+    check(all(r["giant"]["launches"]["K6"] > 0 for r in ranks),
+          f"phase 35 giant: K6 launches {gi['launches']}")
+    want = STEPWISE_JAX[STEPWISE_CASES[0]]
+    tips = STEPWISE_CASES[0][0]
+    check((sw["score"], sw["digest"], sw["length"]) == want,
+          f"phase 35 stepwise: score {sw['score']}, Newick "
+          f"{sw['digest'][:16]}.., libpll_tpu {want[0]}, {want[1][:16]}..")
+    check(sw["launches"]["P2"] == tips - 3 and sw["launches"]["P3"]
+          == tips - 1, f"phase 35 stepwise: launches {sw['launches']}")
+    check(inf["start"] == refs["infer"]["start"] == BENCH_INFER_START_JAX,
+          f"phase 35 infer: start {inf['start']}, one rank "
+          f"{refs['infer']['start']}")
+    check(inf["trajectory"] == sorted(inf["trajectory"]),
+          f"phase 35 infer: trajectory {inf['trajectory']}")
+    d_inf = within(inf["logl"], refs["infer"]["logl"], "infer_tree")
+    ran = inf["launches"]
+    check(all(ran[k] > 0 for k in ("U1", "C1", "N1d", "P2", "P3"))
+          and ran["N1"] == 0 and inf["plain"] == 0,
+          f"phase 35 infer: launches {ran}, plain versions {inf['plain']}")
+    with deep_recursion(BENCH_INFER_TIPS):
+        rf = rf_distance(ut.parse_newick_string(inf["newick"]),
+                         ut.parse_newick_string(refs["infer"]["newick"]))
+    check(all(r["n1d"]["ok"] for r in ranks),
+          f"phase 35: N1's derivative mode against its plain twin: "
+          f"{[(r['n1d']['got'], r['n1d']['want']) for r in ranks]}")
+
+    def red(x):
+        return (f"{x['reductions']} reductions in {x['reduce_s']:.3f} s "
+                f"({x['reduce_s'] / max(x['reductions'], 1) * 1e3:.3f} ms "
+                f"each)")
+
+    one = refs["infer"]["s"]
+    print(f"[35 mesh] {card}: {MESH_WORLD} gloo ranks on cuda:0, one "
+          f"process each, {wall:.1f} s in all; flagship "
+          f"{refs['flagship_shape'][0]} x {refs['flagship_shape'][1]} "
+          f"through make_score_sharded ({fl['sites']} "
+          f"sites a rank, one K1 launch each, K1 equal to its plain version "
+          f"on each rank's sites): logL {fl['logl']!r} on both ranks, phase "
+          f"4's {refs['flagship']!r} (|d| {d_fl:.3e}); wall a call "
+          + ", ".join(f"{x:.2f}" for x in fl["ms"]) + f" ms, {red(fl)} in "
+          f"the first; giant {GIANT_TIPS} x {GIANT_SITES} through "
+          f"make_score_unbounded_sharded ({gi['sites']} sites a rank, "
+          f"{gi['segments']} segments, {gi['launches']['K6']} K6 launches "
+          f"a rank, schedule {gi['schedule_s']:.1f} s, peak "
+          f"{gi['peak_gib']:.2f} GiB a rank): logL {gi['logl']!r}, phase "
+          f"9's {refs['giant']!r} (|d| {d_gi:.3e}); {gi['ms']:.1f} ms a "
+          f"call (wall), {red(gi)}", flush=True)
+    print(f"[35 mesh] {card}: the word-sharded stepwise build at {tips} x "
+          f"{STEPWISE_CASES[0][1]} ({sw['words']} words, "
+          f"{sw['words'] // MESH_WORLD} a rank): score {sw['score']} and "
+          f"Newick libpll_tpu's (phase 25's), P2 {sw['launches']['P2']} "
+          f"and P3 {sw['launches']['P3']} launches a rank, "
+          f"{sw['s']:.2f} s, {red(sw)}", flush=True)
+    print(f"[35 mesh] {card}: infer_tree(mesh=) at phase 33's call "
+          f"(max_rounds {BENCH_INFER_MAX_ROUNDS}; {inf['global_sites']} "
+          f"patterns with the pad, {inf['sites']} a rank): time-to-tree "
+          f"{inf['s']:.2f} s (phases " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in inf["timings"].items())
+          + f"; one rank, phase 33: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in one.items())
+          + f"); start parsimony {inf['start']} (one rank "
+          f"{refs['infer']['start']}); rounds {inf['rounds']} (one rank "
+          f"{refs['infer']['rounds']}); logL {inf['logl']!r}, one rank "
+          f"{refs['infer']['logl']!r} (|d| {d_inf:.4f}); RF to the one-rank "
+          f"tree {rf}; launches a rank {ran}, plain versions run 0; "
+          f"{red(inf)}", flush=True)
+    print(f"[35 mesh] {card}: a reduction of three float64 by itself, "
+          f"{MESH_PROBES} back to back after 50 (host clock, rank 0 / rank "
+          f"1): SitesMesh.sum's exchange " + " / ".join(
+              f"{r['probe']['exchange']:.4f}" for r in ranks)
+          + " ms, gloo's all_reduce " + " / ".join(
+              f"{r['probe']['all_reduce']:.4f}" for r in ranks) + " ms",
+          flush=True)
+    print(f"[35 mesh] {card}: N1's derivative mode at the final tree's root"
+          f" edge ({nd['shape']} float32 sumtable a rank; {nd['plan']}): "
+          f"[d1, d2, w] {nd['got']} vs its plain twin {nd['want']} (largest"
+          f" |d| {nd['err']:.3e}, within {F32_RTOL} of the sums' size); "
+          f"{nd['ms'] * 1e3:.2f} us a launch on the card (torch.profiler), "
+          f"{nd['body_ms'] * 1e3:.1f} us a body's wall (the launch, the "
+          f"stream synchronised, the host's work; CUDA events, 50 back to "
+          f"back) vs plain {nd['plain_ms']:.3f} ms; bound "
+          f"{nd['bound'][0] * 1e3:.4f} us ({nd['bound'][1]}), "
+          f"{nd['bound'][0] / nd['ms'] * 100:.1f}%", flush=True)
+    return dict(n1d=nd, launches=ran["N1d"], probe=r0["probe"])
+
+
 def main():
+    if sys.argv[1:2] == ["--mesh-rank"]:  # phase 35's ranks
+        return mesh_rank(*sys.argv[2:])
+    if sys.argv[1:2] == ["--cpu-refs"]:  # phases 24 and 32's CPU sides
+        return cpu_refs_main(*sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -6818,6 +7505,7 @@ def main():
               f"{lab} {r}, {b}, {st}" for lab, r, b, st in
               ptxas_report("clv_fused", "fused_protein_kernel")),
           flush=True)
+    cpu_refs = CpuRefs()  # phases 24 and 32's CPU sides, beside the card's
 
     t0 = time.perf_counter()
     n, k1_small, k2_small = check_small(device)
@@ -7043,14 +7731,16 @@ def main():
     torch.cuda.empty_cache()
     rows = ptxas_report("fitch")
     t0 = time.perf_counter()
-    n = check_parsimony_small(device)
+    n = check_parsimony_small(device, cpu_refs)
     print(f"[24 parsimony small] fitch.cu: {len(rows)} kernels: "
           + "; ".join(f"{lab} {r} registers, {b} B spill"
                       for lab, r, b, _ in rows)
           + f"; {n} configurations: P1-P3 equal their plain versions at "
           f"every launch, FastParsimony, both stepwise engines and the "
           f"Sankoff Parsimony on the card equal the CPU "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s; the CPU's builds, engines "
+          f"and phase 32's CPU runs took {cpu_refs.result()['s']:.1f} s "
+          f"in a process beside phases 3-23)", flush=True)
     t0 = time.perf_counter()
     n = check_commit_plans(device)
     past = past_budget_p3(device, sms, clock_mhz)
@@ -7141,8 +7831,9 @@ def main():
     torch.set_num_threads(1)
     with ReplayHook() as u1_hook, ScorerHook() as c1_hook:
         rnd = check_rounds_small(device)
-        inf = check_infer_small(device)
+        inf = check_infer_small(device, cpu_refs)
     torch.set_num_threads(threads)
+    cpu_refs.stop()
     secs = inf["s"]
     print(f"[32 search small] {len(ROUND_CASES)} rounds x float64, float32 "
           f"(two rounds each: {rnd['rounds']} results) on the card equal "
@@ -7169,7 +7860,10 @@ def main():
               for name, *_ in INFER_SMALL
               for d in (torch.float64, torch.float32))
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
-    found, alignment, infer_launches = phase_infer(device, card)
+    found, alignment, infer_launches, infer_more = phase_infer(device, card)
+    infer_ref = dict(logl=found.logl, start=found.start_parsimony_score,
+                     rounds=found.rounds, newick=infer_more["newick"],
+                     s=found.timings)
 
     # ---------------------------------------------------- 34: model fitting
     starts.append(("34", time.perf_counter()))
@@ -7196,6 +7890,13 @@ def main():
                       + ["infer"])
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     phase_modelopt(device, card, found, alignment)
+    del found, alignment
+
+    # ---------------------------------------------------- 35: site sharding
+    starts.append(("35", time.perf_counter()))
+    mesh = phase_mesh(device, card, dict(
+        flagship=got_score, flagship_shape=(FLAGSHIP_TIPS, FLAGSHIP_SITES),
+        giant=giant["logl"], infer=infer_ref, data=infer_more.pop("data")))
 
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
@@ -7283,6 +7984,22 @@ def main():
           for name, key, line in (("fitch_waves", "p1", 126),
                                   ("fitch_scores", "p2", 172),
                                   ("stepwise_commit", "p3", 273))),
+        # N1 at infer_tree's shape, as a sweep solves an edge (phase 33);
+        # JAX's blopt Newton is a lax.while_loop
+        {"name": "newton_solve_rows", "route": "cuda", "source": deriv_src,
+         "replaces": "libpll_tpu/engine/blopt.py:41",
+         "launches": infer_launches["N1"],
+         "max_abs_err": infer_more["n1"]["err"],
+         "ms": infer_more["n1"]["ms"],
+         "plain_ms": infer_more["n1"]["plain_ms"],
+         **bound_keys(infer_more["n1"]["bound"])},
+        # N1's derivative mode: a body of that loop (likelihood_derivatives)
+        # a launch under a mesh (phase 35, rank 0's infer_tree)
+        {"name": "newton_derivatives", "route": "cuda", "source": deriv_src,
+         "replaces": "libpll_tpu/ops/derivatives.py:71",
+         "launches": mesh["launches"], "max_abs_err": mesh["n1d"]["err"],
+         "ms": mesh["n1d"]["ms"], "plain_ms": mesh["n1d"]["plain_ms"],
+         **bound_keys(mesh["n1d"]["bound"])},
         # port-only: JAX's op-table executor is an XLA lax.scan
         {"name": "replay_ops", "route": "cuda", "source": partials_src,
          "replaces": "libpll_tpu/ops/clv.py:58",

@@ -61,8 +61,18 @@ optax's, ``engine.lbfgs``) runs on the Partition's device and is held to
 ``infer_tree(optimize_model=True)`` fits the model before and after the
 search.
 
-The top-level names are ``libpll_tpu``'s.  Multi-GPU sharding is not
-ported yet (``infer_tree(mesh=...)`` raises).
+Site sharding (``parallel.mesh``: ``initialize_distributed``,
+``make_sites_mesh``, ``pad_sites``, ``shard_partition``): one process a
+rank under ``torch.distributed``, each holding its share of the sites;
+``engine.evaluate.make_score_sharded`` / ``make_score_unbounded_sharded``
+(K1, K6), a sharded ``Partition`` under blopt (N1's derivative mode, one
+reduction a Newton body), the SPR rounds (C1) and model fitting, the
+word-sharded stepwise build (P2, P3) and ``infer_tree(mesh=...)``, every
+sum over sites through the mesh's one reduction; held to ``libpll_tpu``'s
+sharded runs and to the one-rank port by ``tests/test_torch_mesh.py`` (two
+gloo ranks on the CPU).
+
+The top-level names are ``libpll_tpu``'s.
 """
 
 from .engine.modelopt import ModelOptResult, optimize_model

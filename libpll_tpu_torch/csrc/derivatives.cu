@@ -66,6 +66,12 @@
 //  * Under Lewis / Felsenstein, warp 0 of block 0 sums the S pseudo columns'
 //    terms (a lane a column) and stores them in its slot beside its sums;
 //    every block reads them after the barrier.
+//  * Derivative mode (a non-null `sums`, one body, no asc terms): block 0
+//    also writes the body's float64 sums (d1, d2, the real sites' weights)
+//    at t0.  A solve whose sites are sharded across processes launches it
+//    once an iteration and reduces the sums across the ranks on the host
+//    before the step (derivatives.newton_solve_mesh): the one-launch loop
+//    cannot wait for another process's sums.
 //  * No float atomics and a fixed fold order: two calls give the same bits.
 //    The JAX package sums float32 terms in float32; this kernel sums them
 //    in float64 and rounds d1 and d2 to the working type before the step.
@@ -134,6 +140,7 @@ struct NewtonArgs {
   unsigned* arrived;         // [1], zero at launch: blocks' arrivals
   int32_t* iterations;       // [1]: bodies run
   T* out;                    // t, d1, d2
+  double* sums;              // [3] or null: derivative mode (below)
   int64_t length;            // L: sites + pseudo columns
   int64_t sites;
   int64_t ef;                // sites evaluated as real sites
@@ -522,6 +529,10 @@ __global__ void __launch_bounds__(kBlock, 1)
       }
       d1 = (T)f[0];
       d2 = (T)f[1];
+      // derivative mode (one body, no asc terms): the body's float64 sums
+      // (d1, d2, the real sites' weights) out, for a mesh's ranks to add
+      if (a.sums != nullptr && blockIdx.x == 0 && lane == 0)
+        for (int i = 0; i < kValues; ++i) a.sums[i] = f[i];
       if (asc_terms) {
         double ps[kPseudo];
         for (int i = 0; i < kPseudo; ++i) ps[i] = __ldcg(part + kValues + i);
@@ -611,7 +622,8 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
           const void* evals, const void* freqs, const void* rw,
           const int32_t* invariant, const void* weights,
           const int32_t* scal_p, const int32_t* scal_c, double* partials,
-          unsigned* arrived, int32_t* iterations, void* out, void* stream) {
+          unsigned* arrived, int32_t* iterations, void* out, double* sums,
+          void* stream) {
   const bool asc_cols = asc_mode != kAscNone;
   const int64_t ef = asc_mode == kAscStamatakis ? sites + states : sites;
   const int stride =
@@ -627,6 +639,7 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
       (int64_t)grid * block_sites < ef ||
       (int64_t)(grid - 1) * block_sites >= ef ||
       (smem != 0 && smem != slice) ||
+      (sums != nullptr && (asc_mode != kAscNone || max_iters != 1)) ||
       (sumtable == nullptr &&
        (smem == 0 || !kResidentOk || !clv_p || !clv_c || !lt || !right ||
         asc_mode == kAscLewis || asc_mode == kAscFelsenstein ||
@@ -654,6 +667,7 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
   a.arrived = arrived;
   a.iterations = iterations;
   a.out = static_cast<T*>(out);
+  a.sums = sums;
   a.length = length;
   a.sites = sites;
   a.ef = ef;
@@ -680,7 +694,8 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
 // Plain C interface for ctypes.  newton_solve_* makes one cooperative
 // launch on `stream` with the wrapper's plan (grid, block_sites, smem: the
 // resident slice's bytes, or 0 to stream; abs_d2 nonzero: blopt's step)
-// and returns its cudaError_t (0 on success); `arrived` must be zero.  A null `sumtable` forms the
+// and returns its cudaError_t (0 on success); `arrived` must be zero; a
+// non-null `sums` [3] asks for the derivative mode (max_iters 1, no asc).  A null `sumtable` forms the
 // resident slices from clv_p, clv_c, lt, right (and rscal_p, rscal_c
 // under per-rate scaling), outside Lewis and Felsenstein.  newton_query fills out[3] (see
 // instance_query) after raising the resident instance's shared-memory
@@ -698,13 +713,13 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
       const int32_t *invariant, const void *weights, const int32_t *scal_p,   \
       const int32_t *scal_c, double *partials, unsigned *arrived,             \
       int32_t *iterations,                                                    \
-      void *out, void *stream
+      void *out, double *sums, void *stream
 #define SOLVE_ARGS                                                         \
   rate_cats, states, length, sites, asc_mode, max_iters, abs_d2, threads,  \
       grid, block_sites, smem, sumtable, clv_p, clv_c, lt, right, rscal_p,       \
       rscal_c, t0, rates, pinv, evals, freqs, rw,                          \
       invariant, weights, scal_p, scal_c, partials, arrived, iterations,  \
-      out, stream
+      out, sums, stream
 
 extern "C" int newton_solve_f32(SOLVE_PARAMS) {
   return solve<float>(SOLVE_ARGS);
@@ -724,6 +739,12 @@ extern "C" int newton_query(int f64, int states, int64_t smem,
     err = states == 4 ? instance_query<float, 4>(smem, out)
                       : instance_query<float, 20>(smem, out);
   return (int)err;
+}
+
+// The device address of pinned host memory (the derivative mode's t and
+// sums live there), or an error.
+extern "C" int newton_device_pointer(void* host, void** device) {
+  return (int)cudaHostGetDevicePointer(device, host, 0);
 }
 
 extern "C" const char* newton_error_string(int code) {

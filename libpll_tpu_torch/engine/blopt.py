@@ -34,6 +34,15 @@ it.
 
 On CPU tensors every step takes its plain version (the Partition's plain
 executors, N1's plain twin).
+
+On a sharded Partition (``parallel.mesh.shard_partition``) each rank
+replays its own sites and every sum over sites meets the other ranks' in
+the mesh's reduction: a Newton body's (d1, d2)
+(``ops.derivatives.newton_solve_mesh``: N1's derivative mode, one
+reduction and one host round trip a body) and an edge's two logLs (one
+reduction).  Every rank then takes the same steps and the same
+acceptances.  No CUDA graph under a mesh: a collective cannot be captured
+in one, so ``graphed=True`` and :meth:`SweepProgram.graphed` raise.
 """
 
 from __future__ import annotations
@@ -57,11 +66,18 @@ MIN_BL, MAX_BL = deriv_ops.MIN_T, deriv_ops.MAX_T  # 1e-8, 100
 
 def _newton_edge(sumtable, t0, rates, prop_invar_pc, evals_pc, freqs_pc,
                  rate_weights, invariant, pattern_weights, sp_site=None,
-                 sc_site=None, *, sites):
+                 sc_site=None, *, sites, mesh=None, bodies=None):
     """Newton with blopt's step on one edge's sumtable -> t* (0-dim tensor):
     N1 on the card, its plain twin on the CPU.  ``t0``: one element in the
     sumtable's dtype; ``sp_site``, ``sc_site`` the per-site scalers (None:
-    zeros, as blopt passes them)."""
+    zeros, as blopt passes them).  ``mesh``: the sites are this rank's
+    shard (``ops.derivatives.newton_solve_mesh``, its derivative bodies
+    kept in ``bodies`` across the caller's edges)."""
+    if mesh is not None:
+        return deriv_ops.newton_solve_mesh(
+            mesh, sumtable, t0, rates, prop_invar_pc, evals_pc, freqs_pc,
+            rate_weights, invariant, pattern_weights, sites=sites,
+            abs_d2=True, bodies=bodies).t
     return deriv_ops.newton_solve(
         sumtable, t0, rates, prop_invar_pc, evals_pc, freqs_pc, rate_weights,
         invariant, pattern_weights, sp_site, sc_site, sites=sites,
@@ -114,6 +130,7 @@ def optimize_branch_lengths(tree, part, params_indices, *,
     # grow on demand instead of padding every step to the full schedule
     cap = pad_to or 32
     logl = _full_evaluation(tree, part, pidx)
+    bodies = {}  # N1's derivative bodies under a mesh, kept across edges
 
     for sweep in range(max_sweeps):
         max_delta = 0.0
@@ -138,7 +155,7 @@ def optimize_branch_lengths(tree, part, params_indices, *,
                 part._pinv_pc(pidx), part._param("eigenvals", np_pidx),
                 part._freqs_pc(pidx), part._param("rate_weights"),
                 part._invariant_arr(), part._pattern_weights_arr(),
-                sites=part.sites))
+                sites=part.sites, mesh=part.mesh, bodies=bodies))
 
             if not np.isfinite(t_star):
                 continue
@@ -193,11 +210,15 @@ class SweepProgram:
     (parent_clv, parent_scaler_row, child_clv, child_scaler_row,
     pmatrix_index), scaler row ``n_scale_buffers`` the zero dummy.  Every
     tensor lies on one device; on the card the sweep reads nothing back to
-    the host."""
+    the host.  ``mesh``: the sites are this rank's shard; each Newton body
+    and each edge's pair of logLs is then reduced across the ranks (host
+    reads)."""
 
-    def __init__(self, *, sites: int, scale_mode: int):
+    def __init__(self, *, sites: int, scale_mode: int, mesh=None):
         self.sites = sites
         self.scale_mode = scale_mode
+        self.mesh = mesh
+        self.bodies = {}  # N1's derivative bodies under a mesh, by shape
 
     def __call__(self, clv, scalers, pmatrix, model, tables, erows, t0s):
         dtype = clv.dtype
@@ -228,12 +249,20 @@ class SweepProgram:
             srows = (zeros if scale_mode == SCALE_NONE
                      else scalers.index_select(0, scal_idx[e]))
             t0 = t0s[e:e + 1]
-            t_star = deriv_ops.newton_solve_rows(
-                rows[0], rows[1], srows[0] if per_rate else None,
-                srows[1] if per_rate else None, freqs_pc, left_pc, right_pc,
-                t0, rates, pinv_pc, evals_pc, rw, invariant, pw,
-                per_rate=per_rate, sites=sites, asc_mode=lk_ops.ASC_NONE,
-                abs_d2=True).t
+            rscal = ((srows[0], srows[1]) if per_rate else (None, None))
+            if self.mesh is None:
+                t_star = deriv_ops.newton_solve_rows(
+                    rows[0], rows[1], *rscal, freqs_pc, left_pc, right_pc,
+                    t0, rates, pinv_pc, evals_pc, rw, invariant, pw,
+                    per_rate=per_rate, sites=sites,
+                    asc_mode=lk_ops.ASC_NONE, abs_d2=True).t
+            else:
+                t_star = _newton_edge(
+                    deriv_ops.update_sumtable(rows[0], rows[1], *rscal,
+                                              freqs_pc, left_pc, right_pc,
+                                              per_rate=per_rate),
+                    t0, rates, pinv_pc, evals_pc, freqs_pc, rw, invariant,
+                    pw, sites=sites, mesh=self.mesh, bodies=self.bodies)
             pm_new = compute_pmatrices(t_star.reshape(1), rates, prop_invar,
                                        pidx, evals, left, right,
                                        dtype=dtype)[0]
@@ -247,6 +276,8 @@ class SweepProgram:
                 return logl
 
             l_new, l_old = elogl(pm_new), elogl(pm_old)
+            if self.mesh is not None:
+                l_new, l_old = self.mesh.sum(torch.stack([l_new, l_old]))
             accept = l_new >= l_old
             pmatrix.index_copy_(0, mat_idx[e],
                                 torch.where(accept, pm_new, pm_old)[None])
@@ -257,7 +288,8 @@ class SweepProgram:
     def graphed(self, clv, scalers, pmatrix, model, tables, erows, t0s
                 ) -> "GraphedSweep":
         """This sweep captured in a CUDA graph for these buffers and this
-        envelope (edge count, table capacity): :class:`GraphedSweep`."""
+        envelope (edge count, table capacity): :class:`GraphedSweep`.
+        Raises under a mesh."""
         return GraphedSweep(self, clv, scalers, pmatrix, model, tables,
                             erows, t0s)
 
@@ -280,6 +312,9 @@ class GraphedSweep:
     def __init__(self, program: SweepProgram, clv, scalers, pmatrix, model,
                  tables, erows, t0s):
         device = clv.device
+        if program.mesh is not None:
+            raise EinvalError("no CUDA graph under a mesh: a collective "
+                              "cannot be captured in one")
         if device.type != "cuda":
             raise EinvalError(f"a CUDA graph takes CUDA tensors, not {device}")
         self.model = {k: v.clone() for k, v in model.items()}
@@ -308,13 +343,15 @@ class GraphedSweep:
 
 
 def make_sweep_program(n_nodes: int, n_scale_buffers: int, capacity: int,
-                       *, sites: int, scale_mode: int) -> SweepProgram:
+                       *, sites: int, scale_mode: int,
+                       mesh=None) -> SweepProgram:
     """The whole branch-length sweep as one program with no host read
     (counterpart ``blopt.py:180``, one ``lax.scan`` over edges):
     :class:`SweepProgram`.  ``n_nodes``, ``n_scale_buffers`` and
     ``capacity`` are JAX's static shapes, kept for its signature; here the
-    tensors a call takes carry them."""
-    return SweepProgram(sites=sites, scale_mode=scale_mode)
+    tensors a call takes carry them.  ``mesh``: a sharded Partition's (its
+    ``sites`` then the rank's)."""
+    return SweepProgram(sites=sites, scale_mode=scale_mode, mesh=mesh)
 
 
 def _stand_in(u):
@@ -401,6 +438,13 @@ def optimize_branch_lengths_scan(tree, part, params_indices, *,
 
     if max_sweeps < 1:
         raise ParamError("max_sweeps must be >= 1")
+    if graphed and part.mesh is not None:
+        raise EinvalError("graphed=True on a sharded Partition: a "
+                          "collective cannot be captured in a CUDA graph")
+    if (program is not None
+            and getattr(program, "mesh", None) is not part.mesh):
+        raise EinvalError("the sweep program was made for another mesh "
+                          "than the Partition's")
     root = tree.root
     pidx = list(params_indices)
     logl = _full_evaluation(tree, part, pidx)
@@ -425,7 +469,8 @@ def optimize_branch_lengths_scan(tree, part, params_indices, *,
         if program is None:
             program = make_sweep_program(part.nodes, part.scale_buffers,
                                          tab.shape[1], sites=part.sites,
-                                         scale_mode=part.scale_mode)
+                                         scale_mode=part.scale_mode,
+                                         mesh=part.mesh)
         if graphed:
             if graph is None or graph.tables.shape != tab.shape:
                 graph = program.graphed(part.clv, part.scalers,

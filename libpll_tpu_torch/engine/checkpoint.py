@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..errors import EinvalError
 from .partition import numpy_dtype
 
 FORMAT_VERSION = 1
@@ -36,7 +37,12 @@ def save_checkpoint(path: str, newick: str, partition,
     ``partition`` is an engine Partition; only its *parameter* state is
     stored (subst params, frequencies, rates + weights, prop-invar,
     pattern weights, asc-bias mode and weights), never derived buffers.
+    A sharded Partition (``parallel.mesh``) holds one rank's weights and
+    raises.
     """
+    if getattr(partition, "mesh", None) is not None:
+        raise EinvalError("checkpoint of a sharded Partition: save it "
+                          "before shard_partition")
     header = {
         "version": FORMAT_VERSION,
         "newick": newick,

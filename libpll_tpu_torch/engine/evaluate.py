@@ -20,6 +20,10 @@ whose inputs lie on another device raises.
   * :func:`make_score_unbounded` — K6 (``ops.clv_dyn.make_dyn_score``),
     the same scoring for trees of any size: the tree is cut into segments
     whose rows fit a device-memory budget, and tips are pattern tips;
+  * :func:`make_score_sharded`, :func:`make_score_unbounded_sharded` — K1
+    and K6 with the sites sharded across the ranks of a
+    ``parallel.mesh.SitesMesh``: each rank scores its own sites and one
+    reduction adds the partial logLs;
   * :func:`make_train_step_fused` — K2, the edge logL, the sumtable and
     the Newton solve of the evaluation edge's branch length (kernel N1,
     ``ops.derivatives.newton_solve``); :func:`make_train_step` the same
@@ -593,6 +597,133 @@ def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
             else torch.from_numpy(masks.astype(np.int32)))
     return ScoreUnbounded(topo, rate_cats, states, tips, enc, use_pinv,
                           mxu_precision, device)
+
+
+# ---------------------------------------------------------------------------
+# site-sharded scoring: one rank per shard of the sites axis
+# ---------------------------------------------------------------------------
+class _Sharded(nn.Module):
+    """A scorer over one rank's sites (``local``, asc-free) whose float64
+    partial logL meets the other ranks' in one ``mesh.sum``; the asc tail
+    (:class:`AscTail`, replicated) is added once, after the reduction.  The
+    model is the whole alignment's: its pattern weights and invariant codes
+    are cut to the rank's sites here."""
+
+    def __init__(self, topo, rate_cats, states, mesh, local, device):
+        super().__init__()
+        if topo.sites % mesh.size:
+            raise EinvalError(f"{topo.sites} sites do not divide "
+                              f"{mesh.size} ranks: pad with pad_sites")
+        self.topo, self.mesh, self.local = topo, mesh, local
+        self.site_range = mesh.local(topo.sites)
+        self.asc_tail = (AscTail(topo, rate_cats, states, device)
+                         if topo.asc_mode else None)
+
+    def _local_model(self, model):
+        lo, hi = self.site_range
+        out = dict(model)
+        for k in ("pattern_weights", "invariant"):
+            if model[k].shape[-1] != self.topo.sites:
+                raise EinvalError(f"model {k} of {model[k].shape[-1]} "
+                                  f"sites, topology of {self.topo.sites}")
+            out[k] = model[k][lo:hi]
+        return out
+
+    def _reduced(self, model, partial, dtype):
+        logl = self.mesh.sum(partial)
+        if self.asc_tail is not None:
+            logl = logl + self.asc_tail(model,
+                                        self.local.pmatrices(model, dtype))
+        return logl
+
+    def graphed(self, *args):
+        raise EinvalError("no CUDA graph under a mesh: a collective cannot "
+                          "be captured in one")
+
+
+class ScoreSharded(_Sharded):
+    """``forward(model, tips_packed) -> logl`` (float64): K1 on this rank's
+    sites, then one ``mesh.sum`` (counterpart ``make_score_sharded``);
+    ``tips_packed`` the rank's columns ``mesh.local(topo.sites)`` in
+    :class:`Score`'s layout."""
+
+    def __init__(self, topo, rate_cats, states, mesh, use_pinv=False,
+                 tip_encoding="clv", device=None):
+        device = mesh.device if device is None else device
+        if topo.asc_mode and use_pinv:
+            raise EinvalError("asc-bias and prop-invar are mutually exclusive")
+        lo, hi = mesh.local(topo.sites)
+        local = Score(topo._replace(sites=hi - lo, asc_mode=0), rate_cats,
+                      states, use_pinv, tip_encoding, device)
+        super().__init__(topo, rate_cats, states, mesh, local, device)
+
+    def forward(self, model, tips_packed):
+        dtype = _working_dtype(model, tips_packed, self.local.tip_encoding)
+        return self._reduced(model, self.local(self._local_model(model),
+                                               tips_packed), dtype)
+
+
+def make_score_sharded(topo: EvalTopology, rate_cats: int, states: int,
+                       mesh, impl: str = "auto", use_pinv: bool = False, *,
+                       tip_encoding: str = "clv", device=None
+                       ) -> ScoreSharded:
+    """K1 with the sites sharded across ``mesh``'s ranks
+    (``evaluate.py:338``), JAX's arguments in JAX's order (``interpret`` is
+    not ported): each rank calls the module on its own tips slab, all with
+    the same model, and every rank gets the same logL.  Per-site scaling is
+    shard-local by construction; +I through ``inv_add`` cut like the
+    sites; the asc tail replicated and added once, after the reduction.
+    ``device``: the mesh's when None."""
+    _check_impl(impl)
+    return ScoreSharded(topo, rate_cats, states, mesh, use_pinv,
+                        tip_encoding, device)
+
+
+class ScoreUnboundedSharded(_Sharded):
+    """``forward(model) -> logl`` (float64): K6 on this rank's sites, then
+    one ``mesh.sum`` (counterpart ``make_score_unbounded_sharded``).
+    ``tips_packed``: the rank's columns of the pattern tips, as
+    :class:`ScoreUnbounded` takes them; the schedule's layout follows the
+    rank's share (``evaluate.py:544-547``)."""
+
+    def __init__(self, topo, rate_cats, states, mesh, tips_packed,
+                 tip_encoding, use_pinv=False, mxu_precision="highest",
+                 device=None):
+        device = mesh.device if device is None else device
+        lo, hi = mesh.local(topo.sites)
+        if tips_packed.shape[-1] != hi - lo:
+            raise EinvalError(f"tips of {tips_packed.shape[-1]} sites, the "
+                              f"rank's share is {hi - lo}")
+        local = ScoreUnbounded(topo._replace(sites=hi - lo, asc_mode=0),
+                               rate_cats, states, tips_packed, tip_encoding,
+                               use_pinv, mxu_precision, device)
+        super().__init__(topo, rate_cats, states, mesh, local, device)
+
+    def forward(self, model):
+        return self._reduced(model, self.local(self._local_model(model)),
+                             model["freqs_pc"].dtype)
+
+
+def make_score_unbounded_sharded(topo: EvalTopology, rate_cats: int,
+                                 states: int, tip_masks, mesh,
+                                 use_pinv: bool = False, *, device=None
+                                 ) -> ScoreUnboundedSharded:
+    """K6 with the sites sharded across ``mesh``'s ranks
+    (``evaluate.py:514``), JAX's arguments in JAX's order: every rank
+    passes the whole alignment's [tips, sites] bitmasks and keeps its
+    columns, packed as :func:`make_score_unbounded` packs them.
+    ``device``: the mesh's when None."""
+    lo, hi = mesh.local(topo.sites)
+    masks = np.asarray(tip_masks)
+    if masks.shape[1] != topo.sites:
+        raise EinvalError(f"masks of {masks.shape[1]} sites, topology of "
+                          f"{topo.sites}")
+    masks = np.ascontiguousarray(masks[:, lo:hi])
+    enc = "chars" if states <= 4 and int(masks.max()) <= 0xF else "masks"
+    tips = (cf.pack_tipchars(masks) if enc == "chars"
+            else torch.from_numpy(masks.astype(np.int32)))
+    return ScoreUnboundedSharded(topo, rate_cats, states, mesh, tips, enc,
+                                 use_pinv, device=device)
 
 
 def _newton_rows(model, topo, clv_parent, clv_child, scal_parent, scal_child,

@@ -40,6 +40,14 @@ by a deterministic relative jitter (:func:`_jitter_flat`) first.
 
 JAX's L-BFGS loop reports the logL one step behind the parameters (the
 value is taken before the step is applied); the port keeps that as it is.
+
+On a sharded Partition (``parallel.mesh``) the scorer sums this rank's
+sites; :func:`optimize_model` adds the ranks' values and gradients in one
+reduction a value-and-grad, after each rank's own backward (the
+parameters are replicated, so the summed gradient is the whole
+alignment's, as DDP sums its replicas'; no backward runs through the
+collective, which would sum the gradients again), and reduces each Brent
+evaluation.  Every rank then takes the same L-BFGS and Brent steps.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..errors import InvarError, ParamError
+from ..errors import EinvalError, InvarError, ParamError
 from ..models.gamma import compute_gamma_cats
 from ..models.gtr import eigen_decompose_torch
 from ..utils.constants import ALPHA_MIN, SCALE_PER_RATE
@@ -167,6 +175,10 @@ def make_param_score(partition, tree, *, params_indices=None, dtype=None):
     lengths are plain inputs (differentiable too, and reusable as data by
     the Brent passes).
 
+    On a sharded Partition the score is this rank's sites' share of the
+    logL (:func:`optimize_model` reduces it); asc-bias correction is not
+    ported there (its tail would count once a rank).
+
     Mixture partitions (``rate_matrices > 1``, the LG4M/LG4X pattern of
     reference examples/lg4/lg4.c:295-370) are supported: ``log_subst`` and
     ``freq_logits`` carry a leading rate-matrix axis, every matrix is
@@ -174,6 +186,9 @@ def make_param_score(partition, tree, *, params_indices=None, dtype=None):
     Γ category to its matrix (default: category k -> matrix k % R, the LG4
     convention).  ``pinv`` stays a single shared proportion.
     """
+    if partition.mesh is not None and partition.asc_mode:
+        raise EinvalError("model fitting of a sharded Partition under "
+                          "asc-bias correction is not ported")
     R = partition.rate_matrices
     if params_indices is None:
         pidx = (np.zeros(partition.rate_cats, np.int32) if R == 1 else
@@ -291,12 +306,13 @@ def optimize_model(partition, tree, *, opt_subst: bool = True,
                 "p-inv optimization is incompatible with asc-bias")
         if partition.invariant is None:
             partition.update_invariant_sites()
-        if not np.any(partition.invariant >= 0):
+        if not partition._has_invariant_sites():
             raise InvarError("no invariant sites found")
 
     score, branches = make_param_score(partition, tree,
                                        params_indices=params_indices,
                                        dtype=dtype)
+    mesh = partition.mesh
 
     # current parameter state ([R, E] / [R, S]; R = rate_matrices — the
     # LG4-style mixtures optimize weights/rates/freqs over fixed
@@ -353,7 +369,11 @@ def optimize_model(partition, tree, *, opt_subst: bool = True,
             x = flat.detach().clone().requires_grad_(True)
             loss = -score(*full_args(leaves(x), rates_np, pinv_val), bl)
             loss.backward()
-            return float(loss.detach()), x.grad
+            if mesh is None:
+                return float(loss.detach()), x.grad
+            both = mesh.sum(torch.cat([loss.detach().reshape(1).to(**HOST),
+                                       x.grad]))
+            return float(both[0]), both[1:]
 
         p = torch.cat([p0[k].reshape(-1) for k in keys])
         state = lbfgs.init(p)
@@ -371,9 +391,10 @@ def optimize_model(partition, tree, *, opt_subst: bool = True,
 
     def eval_at(rates_np, pinv_val):
         with torch.no_grad():
-            return float(score(_host(np.log(subst[:, :-1])),
-                               _host(np.log(freqs)), _host(rates_np),
-                               _host(rweights), _host(pinv_val), bl))
+            logl = score(_host(np.log(subst[:, :-1])), _host(np.log(freqs)),
+                         _host(rates_np), _host(rweights), _host(pinv_val),
+                         bl)
+        return float(logl if mesh is None else mesh.sum(logl))
 
     trajectory: List[float] = [eval_at(rates, pinv)]
     logl = trajectory[0]

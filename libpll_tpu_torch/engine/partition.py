@@ -30,6 +30,14 @@ product must run in full float32: a method raises
 
 Index conventions match the reference: CLV buffers 0..tips-1 are tips,
 tips..tips+clv_buffers-1 are inner nodes; scaler index -1 means "none".
+
+Sharded (``parallel.mesh.shard_partition``): the Partition holds one
+rank's columns and ``mesh`` is set; the setters still take whole
+alignments (every site), and each method that sums over sites (the root
+and edge logL, the derivatives, the weight and invariant counts) reduces
+once through ``mesh.sum``, the asc pseudo columns' terms added after it.
+``update_partials`` and the sumtable are shard-local; ``persite`` values
+are the rank's.
 """
 
 from __future__ import annotations
@@ -182,6 +190,19 @@ class Partition:
         self._tip_masks = np.zeros((tips, sites), dtype=np.uint32)
         # device copies of the host parameters, cleared by every setter
         self._params: dict = {}
+        # the sites across a mesh's ranks (parallel.mesh.shard_partition)
+        self.mesh = None
+        self.global_sites = sites
+        self.site_range = (0, sites)
+
+    def _reduce(self):
+        """The mesh's reduction, or None for a Partition not sharded."""
+        return None if self.mesh is None else self.mesh.sum
+
+    def _own(self, a):
+        """This rank's sites of a whole alignment's site axis (axis 0)."""
+        lo, hi = self.site_range
+        return a if self.mesh is None else a[lo:hi]
 
     # ------------------------------------------------------------------
     # setters (reference: pll.c / models.c)
@@ -192,10 +213,10 @@ class Partition:
         (`set_tipclv`, pll.c:905-964)."""
         if not (0 <= tip_index < self.tips):
             raise TipDataError(f"tip index {tip_index} out of range")
-        if len(sequence) != self.sites:
-            raise TipDataError(
-                f"sequence length {len(sequence)} != sites {self.sites}")
-        masks = encode_sequence(sequence, charmap)
+        if len(sequence) != self.global_sites:
+            raise TipDataError(f"sequence length {len(sequence)} != sites "
+                               f"{self.global_sites}")
+        masks = self._own(encode_sequence(sequence, charmap))
         self._tip_masks[tip_index] = masks
         site_clv = tipmask_to_clv(masks, self.states)  # [sites, S]
         self._install_tip_clv(tip_index, site_clv.T)  # [S, sites]
@@ -204,9 +225,10 @@ class Partition:
         """Set an explicit per-site tip CLV [sites, states]
         (`pll_set_tip_clv`, pll.c:1001-1045)."""
         arr = np.asarray(tip_clv, dtype=np.float64)
-        if arr.shape != (self.sites, self.states):
-            raise TipDataError(
-                f"expected tip CLV of shape {(self.sites, self.states)}")
+        if arr.shape != (self.global_sites, self.states):
+            raise TipDataError("expected tip CLV of shape "
+                               f"{(self.global_sites, self.states)}")
+        arr = self._own(arr)
         # approximate the bitmask for invariant detection: nonzero -> bit set
         self._tip_masks[tip_index] = (
             (arr > 0).astype(np.uint32)
@@ -273,14 +295,21 @@ class Partition:
 
     def set_pattern_weights(self, weights) -> None:
         w = np.asarray(weights)
-        if w.shape != (self.sites,):
+        if w.shape != (self.global_sites,):
             raise ParamError("pattern weights must have length sites")
-        self.pattern_weights[:self.sites] = w
+        self.pattern_weights[:self.sites] = self._own(w)
         self._params.clear()
+
+    def _site_count(self, local) -> int:
+        """An integer count over this rank's sites, summed over the mesh."""
+        if self.mesh is None:
+            return int(local)
+        return int(self.mesh.sum(torch.tensor(float(local),
+                                              dtype=torch.float64)))
 
     @property
     def pattern_weight_sum(self) -> int:
-        return int(self.pattern_weights[:self.sites].sum())
+        return self._site_count(self.pattern_weights[:self.sites].sum())
 
     def set_asc_bias_type(self, asc_mode: int) -> None:
         """reference: pll_set_asc_bias_type (pll.c:1061-1107)."""
@@ -334,16 +363,20 @@ class Partition:
             raise InvarError(f"invalid params index ({params_index})")
         if prop_invar > 0.0 and self.invariant is None:
             self.update_invariant_sites()
-            if not np.any(self.invariant >= 0):
+            if not self._has_invariant_sites():
                 raise InvarError("no invariant sites found")
         self.prop_invar[params_index] = prop_invar
         self._params.clear()
+
+    def _has_invariant_sites(self) -> bool:
+        """Whether any site (of any rank, when sharded) is invariant."""
+        return self._site_count(np.sum(self.invariant >= 0)) > 0
 
     def count_invariant_sites(self) -> int:
         if self.invariant is None:
             self.update_invariant_sites()
         mask = self.invariant[:self.sites] >= 0
-        return int(self.pattern_weights[:self.sites][mask].sum())
+        return self._site_count(self.pattern_weights[:self.sites][mask].sum())
 
     # ------------------------------------------------------------------
     # eigen / P-matrices (reference: models.c:251-364, core_pmatrix.c)
@@ -453,7 +486,7 @@ class Partition:
             self._pattern_weights_arr(), self._pinv_pc(freqs_indices),
             self._invariant_arr(), sites=self.sites,
             per_rate=self.scale_mode == SCALE_PER_RATE,
-            asc_mode=self.asc_mode)
+            asc_mode=self.asc_mode, reduce=self._reduce())
         return self._logl(logl, ps, persite)
 
     def compute_edge_loglikelihood(self, parent_clv_index: int,
@@ -471,7 +504,7 @@ class Partition:
             self._param("rate_weights"), self._pattern_weights_arr(),
             self._pinv_pc(freqs_indices), self._invariant_arr(),
             sites=self.sites, per_rate=self.scale_mode == SCALE_PER_RATE,
-            asc_mode=self.asc_mode)
+            asc_mode=self.asc_mode, reduce=self._reduce())
         return self._logl(logl, ps, persite)
 
     # ------------------------------------------------------------------
@@ -513,5 +546,5 @@ class Partition:
             self._pinv_pc(pi), self._param("eigenvals", pi),
             self._freqs_pc(pi), self._param("rate_weights"),
             self._invariant_arr(), self._pattern_weights_arr(), sp, sc,
-            sites=self.sites, asc_mode=self.asc_mode)
+            sites=self.sites, asc_mode=self.asc_mode, reduce=self._reduce())
         return float(d1), float(d2)

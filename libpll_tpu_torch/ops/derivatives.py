@@ -32,6 +32,13 @@ dtype and the card's SMs and shared memory: each block's slice of sites
 held in shared memory for the whole solve where it fits (resident), else
 read from device memory every body (streamed).  The wrapper counts its
 kernel launches in ``newton_solve.launches``, one a call.
+
+Sites sharded across processes (``parallel.mesh``): a body needs every
+rank's sums, which a launch cannot wait for, so :func:`newton_solve_mesh`
+runs the loop on the host, a launch of N1's derivative mode
+(:func:`newton_derivatives`: one body at t, its float64 sums out, no step)
+and one reduction across the ranks a body; its plain twin is
+:func:`newton_derivatives_plain`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..errors import EinvalError, KernelError
@@ -108,7 +116,7 @@ def _mixed(cat, prop_invar, freqs_pc, rate_weights, invariant):
 def likelihood_derivatives(sumtable, branch_length, rates, prop_invar,
                            eigenvals_pc, freqs_pc, rate_weights, invariant,
                            pattern_weights, scaler_parent, scaler_child,
-                           sites, asc_mode=ASC_NONE):
+                           sites, asc_mode=ASC_NONE, reduce=None):
     """Phase 2: ``(d1, d2)``, d(−lnL)/dt and d²(−lnL)/dt², at
     ``branch_length``, as 0-dim tensors in the sumtable's dtype.
 
@@ -116,7 +124,10 @@ def likelihood_derivatives(sumtable, branch_length, rates, prop_invar,
     invariant int32 [L] (−1: variant); pattern_weights [L];
     scaler_parent, scaler_child: [L] int32 per-site scalers or None
     (zeros), read only by the Lewis/Felsenstein pseudo-site terms;
-    ``sites`` real sites (the asc pseudo columns follow them)."""
+    ``sites`` real sites (the asc pseudo columns follow them).
+    ``reduce``: a mesh's ``sum`` where the sites are one rank's shard: the
+    real sites' sums are reduced, then the pseudo columns' terms, which
+    every rank holds alike, are added once."""
     s = sumtable.shape[1]
     ki = rates / (1.0 - prop_invar)
     lam = eigenvals_pc * ki[:, None]
@@ -124,16 +135,26 @@ def likelihood_derivatives(sumtable, branch_length, rates, prop_invar,
     diag = torch.stack([e, lam * e, lam * lam * e], dim=1)  # [C, 3, S]
     cat = torch.matmul(diag, sumtable).transpose(0, 1)  # [3, C, L]
 
+    def sums(lo, hi):
+        lk0, lk1, lk2 = _mixed(cat[:, :, lo:hi], prop_invar, freqs_pc,
+                               rate_weights, invariant[lo:hi])
+        deriv1 = -lk1 / lk0
+        deriv2 = deriv1 * deriv1 - lk2 / lk0
+        w = pattern_weights[lo:hi]
+        return (w * deriv1).sum(), (w * deriv2).sum()
+
     # Stamatakis evaluates the pseudo columns as real sites
     # (core_derivatives.c:536-545); otherwise only [:sites]
-    ef = sites + (s if asc_mode == ASC_STAMATAKIS else 0)
-    lk0, lk1, lk2 = _mixed(cat[:, :, :ef], prop_invar, freqs_pc,
-                           rate_weights, invariant[:ef])
-    deriv1 = -lk1 / lk0
-    deriv2 = deriv1 * deriv1 - lk2 / lk0
-    w = pattern_weights[:ef]
-    d1 = (w * deriv1).sum()
-    d2 = (w * deriv2).sum()
+    stam = asc_mode == ASC_STAMATAKIS
+    sum_w = pattern_weights[:sites].sum()
+    if reduce is None:
+        d1, d2 = sums(0, sites + (s if stam else 0))
+    else:
+        d1, d2 = sums(0, sites)
+        d1, d2, sum_w = reduce(torch.stack([d1, d2, sum_w]))
+        if stam:
+            a1, a2 = sums(sites, sites + s)
+            d1, d2 = d1 + a1, d2 + a2
 
     if asc_mode in (ASC_LEWIS, ASC_FELSENSTEIN):
         # pseudo sites with absolute scaling and no invariant mixing
@@ -145,7 +166,6 @@ def likelihood_derivatives(sumtable, branch_length, rates, prop_invar,
                 scal = scal + sv[sites:]
         a0, a1, a2 = (a * scale_pow(scal, sumtable.dtype)).sum(dim=1)
         if asc_mode == ASC_LEWIS:
-            sum_w = pattern_weights[:sites].sum()
             d1 = d1 + sum_w * (a1 / (a0 - 1.0))
             d2 = d2 + sum_w * (((a0 - 1.0) * a2 - a1 * a1)
                                / ((a0 - 1.0) * (a0 - 1.0)))
@@ -202,7 +222,7 @@ def newton_solve_plain(sumtable, t0, rates, prop_invar, eigenvals_pc,
 # --------------------------------------------------------------------------
 _SOLVE_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_int64] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_int64]
-                   + [ctypes.c_void_p] * 22)
+                   + [ctypes.c_void_p] * 23)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -215,6 +235,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.newton_query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                                  ctypes.c_void_p]
     lib.newton_query.restype = ctypes.c_int
+    lib.newton_device_pointer.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.newton_device_pointer.restype = ctypes.c_int
     lib.newton_error_string.argtypes = [ctypes.c_int]
     lib.newton_error_string.restype = ctypes.c_char_p
     return lib
@@ -358,39 +380,65 @@ def _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
     _require(device.type == "cuda", f"tensors on {device}, not CUDA")
 
 
-def _launch(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2,
-            tensors):
-    """One N1 launch of ``plan`` on the current stream; ``tensors`` maps the
-    C interface's pointer arguments to tensors (None: null).  Returns the
-    loop's end."""
-    device = tensors["t0"].device
-    lib = load_kernels()
-    out = torch.empty(3, dtype=dtype, device=device)  # t, d1, d2
-    iterations = torch.empty(1, dtype=torch.int32, device=device)
-    partials = torch.empty((2, plan.grid, PARTIAL_SLOTS),
-                           dtype=torch.float64, device=device)
-    arrived = torch.zeros(1, dtype=torch.int32, device=device)
-    names = ("sumtable", "clv_p", "clv_c", "lt", "right", "rscal_p",
+_POINTERS = ("sumtable", "clv_p", "clv_c", "lt", "right", "rscal_p",
              "rscal_c", "t0", "rates", "pinv", "evals", "freqs", "rw",
              "invariant", "weights", "scal_p", "scal_c")
-    ptrs = [None if tensors.get(n) is None else tensors[n].data_ptr()
-            for n in names]
+
+
+class _Work(NamedTuple):
+    """N1's scratch for launches of one plan: its outputs (t, d1, d2 and
+    the body count), the blocks' float64 partials, and one zeroed arrival
+    counter a launch (``slots`` of them)."""
+
+    out: torch.Tensor
+    iterations: torch.Tensor
+    partials: torch.Tensor
+    arrived: torch.Tensor
+
+
+def _work(plan, dtype, device, slots=1) -> _Work:
+    return _Work(torch.empty(3, dtype=dtype, device=device),
+                 torch.empty(1, dtype=torch.int32, device=device),
+                 torch.empty((2, plan.grid, PARTIAL_SLOTS),
+                             dtype=torch.float64, device=device),
+                 torch.zeros(slots, dtype=torch.int32, device=device))
+
+
+def _call(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2, ptrs,
+          work, device, slot=0, sums_ptr=None):
+    """One N1 launch of ``plan`` on ``device``'s current stream: ``ptrs``
+    the C interface's pointer arguments in ``_POINTERS`` order (None:
+    null), ``work`` its scratch (arrival counter ``slot``, zero),
+    ``sums_ptr`` the derivative mode's output or None."""
+    lib = load_kernels()
     c, s, length = shape
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, "newton_solve_f32" if dtype == torch.float32
                      else "newton_solve_f64")(
             c, s, length, sites, asc_mode, max_iters, int(abs_d2),
-            plan.threads,
-            plan.grid, plan.block_sites, plan.smem, *ptrs,
-            partials.data_ptr(), arrived.data_ptr(), iterations.data_ptr(),
-            out.data_ptr(), stream)
+            plan.threads, plan.grid, plan.block_sites, plan.smem, *ptrs,
+            work.partials.data_ptr(), work.arrived.data_ptr() + 4 * slot,
+            work.iterations.data_ptr(), work.out.data_ptr(), sums_ptr,
+            stream)
     if rc != 0:
         msg = lib.newton_error_string(rc).decode()
         raise KernelError(f"newton_solve launch failed: CUDA error {rc} "
                           f"({msg})")
+
+
+def _launch(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2,
+            tensors):
+    """One N1 launch of ``plan`` on the current stream; ``tensors`` maps the
+    C interface's pointer arguments to tensors (None: null).  Returns the
+    loop's end."""
+    device = tensors["t0"].device
+    work = _work(plan, dtype, device)
+    _call(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2,
+          [None if tensors.get(n) is None else tensors[n].data_ptr()
+           for n in _POINTERS], work, device)
     _newton_solve.launches += 1
-    return Newton(out[0], out[1], out[2], iterations[0])
+    return Newton(work.out[0], work.out[1], work.out[2], work.iterations[0])
 
 
 def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
@@ -422,6 +470,203 @@ def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
 
 newton_solve.launches = 0
 _newton_solve = newton_solve  # counts even while a caller wraps it
+
+
+def newton_derivatives_plain(sumtable, t, rates, prop_invar, eigenvals_pc,
+                             freqs_pc, rate_weights, invariant,
+                             pattern_weights, *, sites) -> torch.Tensor:
+    """Plain twin of N1's derivative mode: float64 ``[d1, d2, w]`` at
+    ``t``, the sums of :func:`likelihood_derivatives` over the ``sites``
+    real sites (no asc terms) and their pattern weights' sum."""
+    d1, d2 = likelihood_derivatives(
+        sumtable, t.reshape(()), rates, prop_invar, eigenvals_pc, freqs_pc,
+        rate_weights, invariant, pattern_weights, None, None, sites)
+    return torch.stack([d1, d2, pattern_weights[:sites].sum()]).to(
+        torch.float64)
+
+
+class NewtonDerivatives:
+    """N1's derivative mode for sumtables of one shape and dtype on one
+    device, over ``sites`` real sites (no asc terms).  :meth:`bind` points
+    it at a sumtable and the model's tensors; ``self(t)``, with t a host
+    scalar (a 0-dim tensor or a numpy scalar) in the sumtable's dtype, is
+    then one body at t with no step: float64 ``[d1, d2, w]`` (the sums of
+    :func:`likelihood_derivatives` over the sites, in N1's fixed order,
+    and the sites' weight sum) as a host tensor.  The plan, the scratch
+    and the pinned host memory through which the kernel reads t and
+    writes the sums are made once, so a caller keeps one instance for its
+    edges (:func:`derivative_body`); on the card each call is one launch
+    and a stream synchronisation, with no copy kernel.  Launches count in
+    ``newton_derivatives.launches``.  On the CPU each call is
+    :func:`newton_derivatives_plain`."""
+
+    def __init__(self, shape, dtype, device, *, sites):
+        self.shape, self.dtype = tuple(shape), dtype
+        self.device, self.sites = torch.device(device), sites
+        self.args = self.sumtable = None
+        if self.device.type == "cpu":
+            return
+        self.t = torch.empty(1, dtype=dtype, pin_memory=True)
+        self.t_host = self.t.numpy()
+        self.sums = torch.empty(3, dtype=torch.float64, pin_memory=True)
+        self.plan = plan_newton(self.shape, self.t.element_size(), sites,
+                                ASC_NONE, *_limits(self.device.index or 0,
+                                                   dtype, self.shape[1]))
+        self.work = _work(self.plan, dtype, self.device, NEWTON_ITERS)
+        self.slot = 0
+        self.t_dev = torch.empty(1, dtype=dtype, device=self.device)
+        self.t_ptr = _device_pointer(self.t)
+        self.sums_ptr = _device_pointer(self.sums)
+
+    def bind(self, sumtable, rates, prop_invar, eigenvals_pc, freqs_pc,
+             rate_weights, invariant, pattern_weights
+             ) -> "NewtonDerivatives":
+        """Point the body at ``sumtable`` [C, S, L] (this instance's shape,
+        dtype and device) and the model's tensors; returns self."""
+        _require(tuple(sumtable.shape) == self.shape
+                 and sumtable.dtype == self.dtype
+                 and sumtable.device == self.device,
+                 f"sumtable {tuple(sumtable.shape)} {sumtable.dtype} on "
+                 f"{sumtable.device}, want {self.shape} {self.dtype} on "
+                 f"{self.device}")
+        self.sumtable = sumtable
+        self.args = dict(rates=rates, prop_invar=prop_invar,
+                         eigenvals_pc=eigenvals_pc, freqs_pc=freqs_pc,
+                         rate_weights=rate_weights, invariant=invariant,
+                         pattern_weights=pattern_weights, sites=self.sites)
+        if self.device.type == "cpu":
+            return self
+        _check(sumtable, self.t_dev, rates, prop_invar,
+               eigenvals_pc, freqs_pc, rate_weights, invariant,
+               pattern_weights, None, None, self.sites, ASC_NONE, 1)
+        tensors = dict(sumtable=sumtable, rates=rates, pinv=prop_invar,
+                       evals=eigenvals_pc, freqs=freqs_pc, rw=rate_weights,
+                       invariant=invariant, weights=pattern_weights)
+        self.ptrs = [self.t_ptr if n == "t0" else
+                     None if tensors.get(n) is None else
+                     tensors[n].data_ptr() for n in _POINTERS]
+        return self
+
+    def __call__(self, t) -> torch.Tensor:
+        if self.sumtable is None:
+            raise EinvalError("NewtonDerivatives called before bind()")
+        if self.device.type == "cpu":
+            return newton_derivatives_plain(
+                self.sumtable, torch.as_tensor(t, dtype=self.dtype),
+                **self.args)
+        if self.slot == NEWTON_ITERS:  # fresh counters, in stream order
+            self.work.arrived.zero_()
+            self.slot = 0
+        self.t_host[0] = t
+        _call(self.plan, self.dtype, self.shape, self.sites, ASC_NONE, 1,
+              False, self.ptrs, self.work, self.device, self.slot,
+              self.sums_ptr)
+        self.slot += 1
+        _newton_derivatives.launches += 1
+        torch.cuda.current_stream(self.device).synchronize()
+        return self.sums.clone()
+
+
+def derivative_body(bodies: dict, sumtable, rates, prop_invar,
+                    eigenvals_pc, freqs_pc, rate_weights, invariant,
+                    pattern_weights, *, sites) -> NewtonDerivatives:
+    """The :class:`NewtonDerivatives` of ``bodies`` (a caller's cache, by
+    shape, dtype, device and sites; one made on first use) bound to this
+    sumtable and model."""
+    key = (tuple(sumtable.shape), sumtable.dtype, sumtable.device, sites)
+    body = bodies.get(key)
+    if body is None:
+        body = bodies[key] = NewtonDerivatives(
+            sumtable.shape, sumtable.dtype, sumtable.device, sites=sites)
+    return body.bind(sumtable, rates, prop_invar, eigenvals_pc, freqs_pc,
+                     rate_weights, invariant, pattern_weights)
+
+
+def _device_pointer(host: torch.Tensor) -> int:
+    """The device address of pinned host memory (the kernel reads and
+    writes it directly)."""
+    out = ctypes.c_void_p()
+    rc = load_kernels().newton_device_pointer(host.data_ptr(),
+                                              ctypes.byref(out))
+    if rc != 0:
+        raise KernelError(f"cudaHostGetDevicePointer failed: CUDA error "
+                          f"{rc}")
+    return out.value
+
+
+def newton_derivatives(sumtable, t, rates, prop_invar, eigenvals_pc,
+                       freqs_pc, rate_weights, invariant, pattern_weights, *,
+                       sites) -> torch.Tensor:
+    """N1's derivative mode once (:class:`NewtonDerivatives`): float64
+    ``[d1, d2, w]`` at ``t`` (one element in the sumtable's dtype) on the
+    host."""
+    return derivative_body({}, sumtable, rates, prop_invar, eigenvals_pc,
+                           freqs_pc, rate_weights, invariant,
+                           pattern_weights, sites=sites)(
+        t.detach().reshape(()).cpu())
+
+
+newton_derivatives.launches = 0
+_newton_derivatives = newton_derivatives
+
+
+def newton_solve_mesh(mesh, sumtable, t0, rates, prop_invar, eigenvals_pc,
+                      freqs_pc, rate_weights, invariant, pattern_weights, *,
+                      sites, max_iters=NEWTON_ITERS, abs_d2=False,
+                      bodies=None) -> Newton:
+    """The Newton loop of :func:`newton_solve_plain` on a sumtable whose
+    sites are sharded across ``mesh``'s ranks (``sites``: this rank's;
+    no asc pseudo columns: blopt's solve).  Each body is one
+    :class:`NewtonDerivatives` call (N1's derivative mode on the card) at
+    the current t, its float64 sums added across the ranks by
+    ``mesh.sum`` and rounded to the working dtype; the host then takes
+    JAX's step: ``d1/d2`` (``d1/|d2|`` with ``abs_d2``), ``d1`` where
+    ``d2 == 0``, t clipped to [MIN_T, MAX_T], while ``|d1| > NEWTON_TOL``
+    and fewer than ``max_iters`` bodies, in numpy scalars of the working
+    dtype (IEEE operations, the bits of the tensors' step).  Every rank
+    reads the same reduced bits, so every rank takes the same steps.  One
+    reduction and one host round trip a body.  ``bodies``: a cache for
+    :func:`derivative_body` kept across the caller's solves.
+
+    A body is a function of its t alone (N1's fold and the reduction have
+    a fixed order), so once t comes back to the t some earlier body
+    started from, the bodies after it repeat that cycle, and the loop's
+    end is known without running them: the same (t, d1, d2) and body
+    count as the full loop's.  In float32 ``|d1|`` seldom falls to
+    NEWTON_TOL, and this spares most of the 32 bodies' reductions."""
+    dtype, device = sumtable.dtype, sumtable.device
+    body = derivative_body({} if bodies is None else bodies, sumtable, rates,
+                           prop_invar, eigenvals_pc, freqs_pc, rate_weights,
+                           invariant, pattern_weights, sites=sites)
+    real = np.float32 if dtype == torch.float32 else np.float64
+    lo, hi, tol = real(MIN_T), real(MAX_T), real(NEWTON_TOL)
+    t = real(t0.reshape(()).item())
+    d1 = d2 = real(np.inf)
+    it = 0
+    ts, ds = [t], [None]  # t after each body (t0 first), its (d1, d2)
+    seen = {float(t): 0}  # t -> the first body that ended there
+    while it < max_iters and abs(d1) > tol:
+        sums = mesh.sum(body(t)).numpy()
+        d1, d2 = real(sums[0]), real(sums[1])
+        with np.errstate(all="ignore"):  # inf and NaN as the tensors'
+            step = d1 / (abs(d2) if abs_d2 else d2) if d2 != 0 else d1
+            t = np.minimum(np.maximum(t - step, lo), hi)
+        it += 1
+        ts.append(t)
+        ds.append((d1, d2))
+        j = seen.setdefault(float(t), it)
+        if j < it and it < max_iters and abs(d1) > tol:
+            # t_it == t_j: bodies j+1..it repeat with period it - j, every
+            # one of them going on (their |d1| exceeded the tolerance)
+            period = it - j
+            t = ts[j + (max_iters - j) % period]
+            d1, d2 = ds[j + (max_iters - 1 - j) % period + 1]
+            it = max_iters
+            break
+    out = torch.tensor([t, d1, d2], dtype=dtype).to(device)
+    return Newton(out[0], out[1], out[2],
+                  torch.tensor(it, dtype=torch.int32, device=device))
+
 
 # the arguments of update_sumtable among newton_solve_rows's
 _ROW_KEYS = ("clv_parent", "clv_child", "scaler_parent", "scaler_child",

@@ -713,7 +713,7 @@ def stepwise_topology(order, device):
                  for t in (back, edge_rows, *_ring_co_tables(n))) + (n,)
 
 
-def stepwise_build(parts, order):
+def stepwise_build(parts, order, mesh=None):
     """The whole greedy build (JAX's ``_stepwise_build_body``) on ``parts``:
     [(vectors, costs)] per partition, ``4n - 6`` direction rows each with
     the tips' packed rows first; ``order`` the taxa's insertion order
@@ -723,7 +723,14 @@ def stepwise_build(parts, order):
     :func:`stepwise_commit`, then the final scores: on the card all
     issued back to back with no host read.  Updates ``parts`` in place;
     returns (``back`` int32 [D], ``edge_rows`` int32 [2n-3], the final
-    scores int32 [P]), on the parts' device."""
+    scores int32 [P]), on the parts' device.
+
+    ``mesh``: the words are this rank's slice of the Fitch word axis
+    (``search.stepwise.StepwiseBuilder.build_device_sharded``); each
+    insertion's scores are summed across the ranks (``mesh.sum``, wrapping
+    as uint32) between P2 and P3, before P3's argmin over the first 2i-3,
+    and so are the final scores (JAX's ``psum``s, ``fitch.py:386-387``,
+    ``:422-423``): every rank splices the same edges."""
     n = len(order)
     topo = stepwise_topology(order, parts[0][0].device)
     back, edge_rows = topo[0], topo[1]
@@ -740,7 +747,9 @@ def stepwise_build(parts, order):
         for k, (vecs, costs) in enumerate(parts):
             fitch_scores(vecs, costs, edge_rows[:ne], back=back,
                          tip=order[i], out=scores[:ne], accumulate=k > 0)
+        if mesh is not None:
+            scores[:ne] = mesh.sum(scores[:ne])
         stepwise_commit(parts, *topo, mode="insert", scores=scores,
                         insertion=i, tip=order[i], **kw)
-    return back, edge_rows, stepwise_commit(parts, *topo, mode="final",
-                                            **kw)
+    finals = stepwise_commit(parts, *topo, mode="final", **kw)
+    return back, edge_rows, (finals if mesh is None else mesh.sum(finals))

@@ -107,9 +107,20 @@ def site_lnl(term, site_scalers, pattern_weights, dtype):
             * log_scale_threshold(dtype)) * pattern_weights
 
 
+def reduce_with_weights(reduce, logl, pattern_weights, sites):
+    """(``logl``, the real sites' weight sum), each summed across a mesh's
+    ranks by ``reduce`` (``SitesMesh.sum``) in one call: the asc tail, which
+    every rank computes alike from its replicated pseudo columns, is added
+    once, after it, with the global weight sum (Lewis)."""
+    flat = reduce(torch.cat([logl.reshape(-1),
+                             pattern_weights[:sites].sum().reshape(1)]))
+    return flat[:-1].reshape(logl.shape), flat[-1]
+
+
 def root_loglikelihood(clv_root, scaler, freqs_pc, rate_weights,
                        pattern_weights, prop_invar, invariant,
-                       sites, per_rate=False, asc_mode=ASC_NONE):
+                       sites, per_rate=False, asc_mode=ASC_NONE,
+                       reduce=None):
     """Root log-likelihood (+ per-site vector).
 
     Args:
@@ -119,6 +130,8 @@ def root_loglikelihood(clv_root, scaler, freqs_pc, rate_weights,
       rate_weights: [C]. pattern_weights: [L] in the working dtype.
       prop_invar: [C]. invariant: int32 [L].
       sites: number of real sites.
+      reduce: a mesh's ``sum`` where the sites are one rank's shard: the
+        real sites' logL is reduced before the asc tail is added.
 
     Returns:
       (logl scalar, per-site log-likelihood [sites]).
@@ -136,18 +149,22 @@ def root_loglikelihood(clv_root, scaler, freqs_pc, rate_weights,
     persite = site_lnl(term[:sites], site_scal[:sites],
                        pattern_weights[:sites], dtype)
     logl = persite.sum()
+    sum_w = None
+    if reduce is not None:
+        logl, sum_w = reduce_with_weights(reduce, logl, pattern_weights,
+                                          sites)
 
     if asc_mode:
         logl = logl + _asc_correction(term_r, site_scal, rate_weights,
                                       pattern_weights, sites, asc_mode,
-                                      dtype)
+                                      dtype, sum_w)
     return logl, persite
 
 
 def edge_loglikelihood(clv_parent, clv_child, scaler_parent, scaler_child,
                        pmatrix, freqs_pc, rate_weights, pattern_weights,
                        prop_invar, invariant, sites, per_rate=False,
-                       asc_mode=ASC_NONE):
+                       asc_mode=ASC_NONE, reduce=None):
     """Edge log-likelihood between two CLVs (reference "ii" kernel; tips
     are 0/1 CLVs so the "ti"/"tt" cases reduce to this one).
 
@@ -176,11 +193,15 @@ def edge_loglikelihood(clv_parent, clv_child, scaler_parent, scaler_child,
     persite = site_lnl(term[..., :sites], site_scal[..., :sites],
                        pattern_weights[:sites], dtype)
     logl = persite.sum(dim=-1)
+    sum_w = None
+    if reduce is not None:
+        logl, sum_w = reduce_with_weights(reduce, logl, pattern_weights,
+                                          sites)
 
     if asc_mode:
         logl = logl + _asc_correction(term_r, site_scal, rate_weights,
                                       pattern_weights, sites, asc_mode,
-                                      dtype)
+                                      dtype, sum_w)
     return logl, persite
 
 
@@ -210,10 +231,11 @@ def asc_correction_terms(term_r_asc, scal_asc, rate_weights, asc_weights,
 
 
 def _asc_correction(term_r, site_scal, rate_weights, pattern_weights,
-                    sites, asc_mode, dtype):
+                    sites, asc_mode, dtype, sum_w_real=None):
     """Asc correction from the S extra "pseudo-site" columns riding the
-    site axis (everything beyond ``sites``)."""
+    site axis (everything beyond ``sites``); ``sum_w_real`` the real
+    sites' weight sum, this tensor's own when None."""
     return asc_correction_terms(
         term_r[..., sites:], site_scal[..., sites:], rate_weights,
-        pattern_weights[sites:], pattern_weights[:sites].sum(),
-        asc_mode, dtype)
+        pattern_weights[sites:], pattern_weights[:sites].sum()
+        if sum_w_real is None else sum_w_real, asc_mode, dtype)

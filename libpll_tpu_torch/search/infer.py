@@ -23,9 +23,13 @@ initial sweeps and again on the final tree, each fit followed by a full
 branch-length pass.
 
 Everything runs on the card unless ``device="cpu"`` is given (the plain
-versions of the kernels).  Not ported: ``mesh=`` (the sites-sharded
-inference), which raises :class:`~libpll_tpu_torch.errors.EinvalError`
-before any work.
+versions of the kernels).  ``mesh=`` (a ``parallel.mesh.SitesMesh``; every
+rank calls ``infer_tree`` with the same arguments) runs the whole
+inference sites-sharded: the stepwise build shards its Fitch word axis
+(one integer reduction an insertion), the Partition keeps the rank's
+sites (weight-0 pad columns even out the division), and every sum over
+sites in the sweeps, rounds and fits meets the other ranks' in the mesh's
+reduction, so every rank ends with the same tree and logL.
 """
 
 from __future__ import annotations
@@ -94,15 +98,19 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
     ``model_rounds`` coordinate rounds, Γ shape when ``rate_cats > 1``,
     p-inv with ``opt_pinv``) after the initial sweeps and after the
     search, each fit followed by a full branch-length pass; the result's
-    ``model`` is the last fit's ``ModelOptResult``.  ``mesh``
-    (sites-sharded inference, ROADMAP Queue 1 item 11) is not ported and
-    raises :class:`EinvalError`.
+    ``model`` is the last fit's ``ModelOptResult``.  ``mesh``: a
+    ``parallel.mesh.SitesMesh`` whose ranks share the sites; every rank
+    makes this call with the same arguments (and ``device`` its own, the
+    mesh's when None) and gets the same result.
     """
     from ..io.compress import compress_site_patterns
 
     if mesh is not None:
-        raise EinvalError("mesh=: the sites-sharded inference is not ported "
-                          "yet (ROADMAP Queue 1 item 11)")
+        from ..parallel.mesh import SitesMesh
+
+        if not isinstance(mesh, SitesMesh):
+            raise EinvalError(f"mesh={mesh!r}: a parallel.mesh.SitesMesh")
+        device = mesh.device if device is None else device
     if moves not in ("spr", "nni"):
         raise ValueError(f"moves must be 'spr' or 'nni', got {moves!r}")
     labels = list(sequences)
@@ -117,6 +125,18 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
     if compress:
         seqs, weights = compress_site_patterns(seqs, cmap)
     sites = len(seqs[0])
+    if mesh is not None:
+        # zero-weight pad columns make the sites divide the mesh evenly
+        # (the reference's zero-weight SIMD padding)
+        pad = (-sites) % mesh.size
+        if pad:
+            if weights is None:
+                weights = np.ones(sites, np.int64)
+            padchar = chr(int(np.argmax(cmap > 0))) * pad
+            seqs = [s + padchar for s in seqs]
+            weights = np.concatenate([np.asarray(weights),
+                                      np.zeros(pad, np.int64)])
+            sites += pad
     timings["compress"] = time.perf_counter() - t0
 
     # the tree layer's walks recurse once a level: room for a deep tree
@@ -126,7 +146,8 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
         pars = FastParsimony.from_sequences(seqs, cmap, states=states,
                                             pattern_weights=weights,
                                             device=device)
-        tree, pscore = fastparsimony_stepwise([pars], labels, seed)
+        tree, pscore = fastparsimony_stepwise([pars], labels, seed,
+                                              mesh=mesh)
         timings["stepwise"] = time.perf_counter() - t0
         del pars
         for n in tree.nodes:  # stepwise emits zero-length branches
@@ -150,6 +171,10 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
         part.set_subst_params(0, subst_params if subst_params is not None
                               else [1.0] * n_params)
         part.set_category_rates(compute_gamma_cats(alpha, rate_cats))
+        if mesh is not None:
+            from ..parallel.mesh import shard_partition
+
+            shard_partition(part, mesh)
         pidx = [0] * rate_cats
 
         # 3. alternate branch-length sweeps and SPR rounds: one blopt
@@ -158,7 +183,7 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
         bl_cap = 32
         bl_program = blopt.make_sweep_program(
             part.nodes, part.scale_buffers, bl_cap, sites=part.sites,
-            scale_mode=part.scale_mode)
+            scale_mode=part.scale_mode, mesh=part.mesh)
         timings["setup"] = time.perf_counter() - t0
 
         # the local sweeps' edge envelope, sized for spr_commit moves'
@@ -189,7 +214,8 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
                     bl_cap *= 2
                     bl_program = blopt.make_sweep_program(
                         part.nodes, part.scale_buffers, bl_cap,
-                        sites=part.sites, scale_mode=part.scale_mode)
+                        sites=part.sites, scale_mode=part.scale_mode,
+                        mesh=part.mesh)
 
         t0 = time.perf_counter()
         # the stepwise start's crude branch lengths need the initial full

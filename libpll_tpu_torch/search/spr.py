@@ -30,6 +30,11 @@ On the card the scores are C1's and the fold's (float32 where the
 Partition is), while the commit's verification is U1's and the edge
 logL's: a move ranked by a score is kept or rolled back by the exact
 evaluation, as in JAX.
+
+On a sharded Partition (``parallel.mesh``) each rank scores its own sites
+and :func:`score_encoded` adds the ranks' scores in one reduction a round;
+the verified commits read the Partition's reduced logL, so every rank
+commits and rolls back the same moves.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 
 from ..engine.blopt import _full_evaluation
 from ..engine.evaluate import partition_model
-from ..errors import CapacityError, SprError
+from ..errors import CapacityError, EinvalError, SprError
 from ..ops import incremental as inc_ops
 from ..tree import incremental as inc
 from ..tree import moves
@@ -315,18 +320,29 @@ def score_encoded(tree: UTree, part, params_indices, enc, cap: int,
                   batch: int, scorer) -> List[float]:
     """Device pass: one scorer call per batch of encoded candidates
     (:func:`encoded_batches`); returns the real candidates'
-    log-likelihoods, read back once at the end."""
+    log-likelihoods, read back once at the end (on a sharded Partition
+    summed across the ranks in that one read)."""
     model = partition_model(part, params_indices)
     out = [scorer(part.clv, part.scalers, part.pmatrix, model, t, mi, bl,
                   er)[:b]
            for b, t, mi, bl, er in encoded_batches(
                enc, part.nodes, part.scale_buffers, cap, batch)]
-    return torch.cat(out).cpu().tolist() if out else []
+    if not out:
+        return []
+    scores = torch.cat(out)
+    if part.mesh is not None:
+        scores = part.mesh.sum(scores)
+    return scores.cpu().tolist()
 
 
 def make_round_scorer(part, capacity: int):
     """The batched scorer for a partition envelope (N, NS, capacity,
-    sites, scale mode): one scorer serves every topology of it."""
+    sites, scale mode): one scorer serves every topology of it.  A
+    sharded Partition's scorer takes no asc-bias correction (its tail
+    would be added on every rank)."""
+    if part.mesh is not None and part.asc_mode:
+        raise EinvalError("SPR scoring of a sharded Partition under "
+                          "asc-bias correction is not ported")
     return inc_ops.make_candidate_scorer(
         part.nodes, part.scale_buffers, capacity,
         sites=part.sites, scale_mode=part.scale_mode,

@@ -30,8 +30,10 @@ stepwise.c:288-297).  Tie-breaking matches the reference exactly: candidate
 edges are enumerated in the reference's edge-list order (the three star
 edges, then the two edges created by each insertion appended at the end,
 stepwise.c:491-520) and the first minimum wins — so the same seed produces
-the same topology and score.  Not ported: ``mesh=`` (the word-sharded
-build), and JAX's compile-shape padding and dispatch segmentation.
+the same topology and score.  ``mesh=`` (a ``parallel.mesh.SitesMesh``)
+runs the device build with the Fitch word axis sharded across the ranks
+(:meth:`StepwiseBuilder.build_device_sharded`).  Not ported: JAX's
+compile-shape padding and dispatch segmentation.
 """
 
 from __future__ import annotations
@@ -216,6 +218,40 @@ class StepwiseBuilder:
         with deep_recursion(n):
             return self._reconstruct(back), score
 
+    def build_device_sharded(self, seed: int, mesh) -> Tuple[UTree, int]:
+        """The device build with the Fitch word axis sharded across
+        ``mesh``'s ranks (JAX's ``build_device_sharded``,
+        ``libpll_tpu/search/stepwise.py:257``): each rank holds its slice
+        of every direction row's words, the tips' rows padded with
+        all-ones words to equal slices (a pad word's union is all-ones: it
+        costs nothing), and the costs of its words; per insertion the
+        ranks' candidate scores meet in one integer reduction before P3's
+        argmin (``ops.fitch.stepwise_build``), so the tree and the score
+        are the one-device build's, bit for bit."""
+        n = self.tips
+        if n < 4:
+            return self.build(seed)
+        if mesh.device != self.device:
+            raise EinvalError(f"partitions on {self.device}, mesh rank on "
+                              f"{mesh.device}")
+        order = shuffled_order(n, seed)
+        parts = []
+        for vecs, costs in direction_rows(self.partitions):
+            pad = (-vecs.shape[-1]) % mesh.size
+            if pad:
+                vecs = torch.cat([vecs, vecs.new_zeros(
+                    vecs.shape[:-1] + (pad,))], dim=-1)
+                vecs[:n, :, -pad:] = -1  # 0xFFFFFFFF
+            share = vecs.shape[-1] // mesh.size
+            lo = mesh.rank * share
+            parts.append((vecs[..., lo:lo + share].contiguous(), costs))
+        back, _, finals = fitch.stepwise_build(parts, order, mesh=mesh)
+        back = back.cpu().numpy()
+        score = int(fitch.as_uint32(finals).astype(np.int64).sum()
+                    + sum(p.const_cost for p in self.partitions))
+        with deep_recursion(n):
+            return self._reconstruct(back), score
+
     def _reconstruct(self, back: np.ndarray) -> UTree:
         """Rebuild the UNode graph from the device ``back`` involution +
         the static ring layout (tips 0..n-1; inner rows in ring triples)."""
@@ -284,13 +320,17 @@ def fastparsimony_stepwise(partitions: Sequence[FastParsimony],
     build (P2 and P3 a insertion, no host read inside the loop);
     engine="host" keeps the insertion loop on the host (P1 and P2).  Both
     are seed- and tie-break-exact with the reference and with each other.
-    ``mesh`` (the word-sharded build) is not ported and raises.
+    ``mesh`` (a ``parallel.mesh.SitesMesh``) runs the device build with
+    the word axis sharded across its ranks, whatever ``engine`` says, as
+    JAX does.
     """
-    if mesh is not None:
-        raise EinvalError("mesh=: the stepwise build with the Fitch word "
-                          "axis sharded across devices is not ported yet "
-                          "(ROADMAP Queue 1 item 11)")
     builder = StepwiseBuilder(partitions, labels)
+    if mesh is not None:
+        from ..parallel.mesh import SitesMesh
+
+        if not isinstance(mesh, SitesMesh):
+            raise EinvalError(f"mesh={mesh!r}: a parallel.mesh.SitesMesh")
+        return builder.build_device_sharded(seed, mesh)
     if engine in ("auto", "device"):
         return builder.build_device(seed)
     if engine == "host":

@@ -54,7 +54,8 @@ def test_port_modules_listed():
               "libpll_tpu_torch.tools.blopt_times",
               "libpll_tpu_torch.ops.incremental",
               "libpll_tpu_torch.search.spr",
-              "libpll_tpu_torch.search.infer"):
+              "libpll_tpu_torch.search.infer",
+              "libpll_tpu_torch.parallel.mesh"):
         assert m in PORT_MODULES, m
 
 

@@ -136,12 +136,13 @@ def test_infer_tree_matches_jax(case):
 
 
 def test_infer_tree_errors_are_typed():
-    """``mesh=`` (item 11) raises a PllError naming its ROADMAP item,
-    before any work; an unknown move set raises ValueError as JAX's;
-    without a card the default device raises KernelError (no fallback to
-    the CPU)."""
+    """A ``mesh=`` that is not a ``parallel.mesh.SitesMesh`` raises a
+    PllError before any work (the sharded inference itself:
+    tests/test_torch_mesh.py); an unknown move set raises ValueError as
+    JAX's; without a card the default device raises KernelError (no
+    fallback to the CPU)."""
     seqs = dna(12)
-    with pytest.raises(EinvalError, match="item 11") as err:
+    with pytest.raises(EinvalError, match="SitesMesh") as err:
         infer_tree(seqs, mesh=object(), device="cpu")
     assert isinstance(err.value, PllError)
     with pytest.raises(ValueError):

@@ -96,7 +96,7 @@ def test_stepwise_refuses_what_is_not_ported():
     seqs, labels = alignment(8, 30, 2)
     part = tpars.FastParsimony.from_sequences(seqs, jmaps.pll_map_nt, 4,
                                               device="cpu")
-    with pytest.raises(EinvalError, match="Queue 1 item 11") as err:
+    with pytest.raises(EinvalError, match="SitesMesh") as err:
         tstep.fastparsimony_stepwise([part], labels, 1, mesh=object())
     assert isinstance(err.value, PllError)
     with pytest.raises(ValueError):
