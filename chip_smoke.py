@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen main paths, each driven once with the launch counters set to 0 just
+Fourteen main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -71,16 +71,29 @@ before it and read just after:
     ``make_score_unbounded_sharded`` at the giant (K6), the word-sharded
     stepwise build (P2, P3) and ``infer_tree(mesh=)`` at
     scripts/bench_infer.py's call (P2, P3, U1, C1 and N1's derivative
-    mode, one reduction a Newton body).
+    mode, one reduction a Newton body);
+  * every alphabet and rate count: a 16-state alignment (CellPhy's GT16
+    alphabet under GTR+Γ4, float32, per-site scaling, 16-bit masks)
+    simulated on the flagship's tree at 64 taxa × 262 144 sites through
+    ``make_score``, ``make_forward_fused`` and ``make_train_step_fused``
+    (K1, K2 and N1's any-alphabet instances).
 
-Phases, one line each:
+Phases, one line each (or a few), numbered as below.  They run in two
+parts: first 1-2 and the phases that time what they run (4-6, 8-11,
+13-14, 16-19, 21-23, 25-26, 28-29, 31, 33 and 36's timed part) on a
+card with nothing else on it; then phase 35's two ranks start and run
+their sharded paths while the check-only phases (3, 7, 12, 15, 20, 24,
+27, 30, 32, 34 and 36's checks) run in this process beside them; last,
+the ranks time their part alone and phase 35 compares.  The ``[wall]``
+line gives each group's seconds in that order.
 
   1. card: name and power limit (nvidia-smi);
-  2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_dyn.cu``,
-     ``clv_seg.cu``, ``roofline.cu``, ``derivatives.cu``, ``fitch.cu`` and
-     ``partials.cu`` for sm_90a,
+  2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_any.cu``,
+     ``clv_dyn.cu``, ``clv_seg.cu``, ``roofline.cu``, ``derivatives.cu``,
+     ``fitch.cu`` and ``partials.cu`` for sm_90a,
      one process each, all at once; the protein instances' registers,
-     spills and stack (one and two sites a thread);
+     spills and stack (one and two sites a thread), and the any-alphabet
+     instances';
   3. small configs: K1/K2 against their plain PyTorch versions on the
      card, DNA and protein, for every tip encoding (protein: clv and
      masks; 1, 63, 64, 65, 300 and 1 000 sites, around a block's tile of
@@ -197,8 +210,8 @@ Phases, one line each:
      ambiguity codes, weighted patterns, 1-3 partitions, seeds 0, 1, 42
      and 12345); the card's FastParsimony, both stepwise engines and the
      Sankoff Parsimony (float64, rel 0) against the CPU's (the CPU's
-     builds and engines computed beside phases 3-23 in a process of their
-     own, ``CpuRefs``); P3's builds
+     builds and engines computed beside the timed phases in a process of
+     their own, ``CpuRefs``); P3's builds
      with its walk's tables forced into device or shared memory over
      other grids equal to its own plan's (``COMMIT_FORCED`` at
      ``COMMIT_FORCED_CASES``), and a build past the
@@ -308,9 +321,9 @@ Phases, one line each:
      the f32 budget of a fresh float64 Partition under the fitted model,
      U1 and N1 launched in the sweep pair after it and no plain version
      run; the fitted parameters beside the generating ones, L-BFGS steps
-     and evaluations, s a fit, ms a value-and-grad and a Brent
-     evaluation, the eigendecomposition's placement and cost, the peak
-     device memory and the card's idle share over one value-and-grad;
+     and evaluations, s a fit and the peak device memory (a
+     value-and-grad's and a Brent evaluation's times:
+     ``libpll_tpu_torch/tools/modelopt_times.py``);
  35. mesh: site sharding (``parallel/mesh.py``), two ranks, each a
      process of this script (``--mesh-rank``), joined by gloo on cuda:0
      with the same arguments: ``make_score_sharded`` at the flagship (K1
@@ -322,8 +335,32 @@ Phases, one line each:
      result (the start score, the logL within the f32 budget, RF
      printed), U1, C1, N1's derivative mode, P2 and P3 launched and no
      plain version run; both ranks' results equal; N1's derivative mode
-     against its plain twin at the final tree's root edge, its time and
-     bound; the reductions and their time of each path.
+     against its plain twin at the final tree's root edge; then, once the
+     check-only phases are over, a reduction's time by itself, the
+     sharded flagship's and giant's calls, N1's derivative mode's time and
+     bound; the reductions and their time of each path;
+ 36. alphabets: K1/K2's and N1's any-alphabet instances (2 <= S <= 64,
+     any C) against their plain versions with phase 3's and phase 15's
+     rules at S in ``ALPHABET_STATES`` and C in ``ALPHABET_RATES``,
+     float32 and float64, every tip encoding and scale mode, +I, an asc
+     mode, pools of 0 and 1 shared slots (rows spill), N1's tables in
+     shared memory and forced to device memory (``DeviceTables``), and
+     the float64 eight-rate 1 000-taxon protein walk that the protein
+     instance's block cannot hold; the entry points (``make_score``,
+     ``make_forward_fused``, ``make_train_step_fused``,
+     ``make_train_step``) at every (S, C, dtype) of that grid with the
+     any-instance counters at 0 around each, both branch-length
+     optimisers on a float64 Partition at each S against the same
+     optimisers on the plain versions, and
+     ``infer_tree(rate_cats=INFER_RATES)`` on the card against the CPU;
+     the GT16 flagship and the codon-sized check (61 states, Γ4, 64 ×
+     16 384, CLV tips) through the three entry points,
+     logL within the f32 budget of the plain float64 ``make_forward``, t*
+     within 1e-5 of N1's plain twin, the any-instance counters; K1, K2
+     and N1 against their plain versions and bounds; a float64 binary
+     Partition (six rates, 64 × 65 536, tip CLVs by ``set_tip_clv``)
+     under both branch-length optimisers against the same optimisers on the
+     plain versions.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
@@ -338,6 +375,7 @@ without the package.
 import collections
 import json
 import os
+from contextlib import nullcontext
 import subprocess
 import sys
 import time
@@ -426,9 +464,23 @@ def small_case(newick, sites, rate_cats, seed, states=4):
         "pattern_weights": rng.integers(1, 4, sites).astype(np.float64),
         "invariant": invariant,
     }
-    pool = IUPAC_POOL if states == 4 else PROTEIN_POOL
-    masks = pool[rng.integers(0, len(pool), (topo.schedule.tips, sites))]
+    tips = topo.schedule.tips
+    if states in (4, 20):
+        pool = IUPAC_POOL if states == 4 else PROTEIN_POOL
+        masks = pool[rng.integers(0, len(pool), (tips, sites))]
+    else:
+        masks = alphabet_masks(rng, tips, sites, states)
     return topo, model, masks
+
+
+def alphabet_masks(rng, tips, sites, states):
+    """[tips, sites] uint64 ambiguity masks of an S-state alphabet (up to
+    64): one state a cell, a second one in a cell of ten."""
+    one = np.uint64(1)
+    masks = one << rng.integers(0, states, (tips, sites)).astype(np.uint64)
+    extra = one << rng.integers(0, states, (tips, sites)).astype(np.uint64)
+    return masks | np.where(rng.random((tips, sites)) < 0.1, extra,
+                            np.uint64(0))
 
 
 def tip_input(masks, tip_encoding, rate_cats, dtype, device, states=4):
@@ -438,7 +490,13 @@ def tip_input(masks, tip_encoding, rate_cats, dtype, device, states=4):
 
     if tip_encoding == "chars":
         return cf.pack_tipchars(masks).to(device)
-    words = torch.from_numpy(masks.astype(np.int32)).to(device)
+    if states > cf.MASK_MAX_STATES:  # wider than a word: decode here
+        bits = (np.asarray(masks, np.uint64)[:, None, :] >> np.arange(
+            states, dtype=np.uint64)[None, :, None]) & np.uint64(1)
+        rows = torch.from_numpy(bits.astype(np.float64)).to(device, dtype)
+        return rows[:, None].expand(-1, rate_cats, -1, -1).contiguous()
+    words = torch.from_numpy(
+        np.asarray(masks).astype(np.uint32).view(np.int32)).to(device)
     if tip_encoding == "masks":
         return words
     rows = torch.arange(masks.shape[0], device=device)
@@ -1646,9 +1704,10 @@ def newton_inputs(variant, newick, rate_cats, states, dtype, device, seed,
         model_np["prop_invar_pc"] = np.zeros(rate_cats)
     if asc:
         rng = np.random.default_rng(seed)
-        codes = np.uint32(1) << np.arange(states, dtype=np.uint32)
+        codes = np.uint64(1) << np.arange(states, dtype=np.uint64)
         masks = np.concatenate(
-            [masks, np.broadcast_to(codes, (masks.shape[0], states))], 1)
+            [np.asarray(masks, np.uint64),
+             np.broadcast_to(codes, (masks.shape[0], states))], 1)
         model_np["pattern_weights"] = np.concatenate(
             [model_np["pattern_weights"], rng.uniform(1.0, 4.0, states)])
         model_np["invariant"] = np.full(NEWTON_SITES + states, -1, np.int32)
@@ -3946,7 +4005,7 @@ def lengths_close(got, want, rel):
     return got.keys() == want.keys() and err <= rel, err
 
 
-def run_blopt(mode, tree, part, pidx, **kw):
+def run_blopt(mode, tree, part, pidx, sweeps=BLOPT_SWEEPS, **kw):
     """One optimiser on ``tree`` and ``part``, its counters at 0 around it:
     (logL, sweeps, lengths, (U1, N1) launches, seconds)."""
     from libpll_tpu_torch.engine import blopt
@@ -3955,10 +4014,10 @@ def run_blopt(mode, tree, part, pidx, **kw):
     t0 = time.perf_counter()
     if mode == "host":
         logl, sweeps = blopt.optimize_branch_lengths(
-            tree, part, pidx, max_sweeps=BLOPT_SWEEPS, **kw)
+            tree, part, pidx, max_sweeps=sweeps, **kw)
     else:
         logl, sweeps = blopt.optimize_branch_lengths_scan(
-            tree, part, pidx, max_sweeps=BLOPT_SWEEPS,
+            tree, part, pidx, max_sweeps=sweeps,
             graphed=mode == "graphed", **kw)
     counts = blopt_counters()
     return logl, sweeps, tree_lengths(tree), counts, time.perf_counter() - t0
@@ -5965,7 +6024,7 @@ def cpu_refs_main(out_path):
 class CpuRefs:
     """The CPU's sides of phases 24 and 32 (the CPU reference builds and
     engines, the CPU's infer_tree runs) computed in a process of their own
-    (``chip_smoke.py --cpu-refs``) while the card's phases run, so that
+    (``chip_smoke.py --cpu-refs``) while the timed phases run, so that
     the checks compare against them without waiting for the CPU.
     :meth:`result` waits for them (a failed process, or one past
     CPU_REFS_TIMEOUT from its start, fails the run); :meth:`stop` ends the
@@ -6862,18 +6921,13 @@ def phase_modelopt(device, card, res, alignment):
     fitted model (the tree as the fit saw it), U1 and N1 launched in the
     sweeps and no plain version run (PlainCalls).  Prints the fitted
     parameters beside the generating ones, the logL before and after, the
-    L-BFGS steps and evaluations, s a fit, ms a value-and-grad and a Brent
-    evaluation (CUDA-synchronised wall), where the eigendecomposition runs
-    and what it costs, the peak device memory and the card's idle share
-    over one value-and-grad and its kernels with the most device time
-    (torch.profiler).  Returns the numbers."""
+    L-BFGS steps and evaluations, s a fit (beside phase 35's ranks) and
+    the peak device memory; its evaluations' times are
+    tools/modelopt_times.py's.  Returns the numbers."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from libpll_tpu_torch.engine import evaluate as ev
     from libpll_tpu_torch.engine import modelopt
     from libpll_tpu_torch.models.gamma import compute_gamma_cats
-    from libpll_tpu_torch.models.gtr import eigen_decompose_torch
     from libpll_tpu_torch.ops import clv as clv_ops
     from libpll_tpu_torch.ops import derivatives as dv
     from libpll_tpu_torch.search.stepwise import deep_recursion
@@ -6934,61 +6988,10 @@ def phase_modelopt(device, card, res, alignment):
           f"bench fit logL {fit.logl!r}, a fresh float64 Partition under "
           f"the fitted model {want!r} (budget {budget})")
 
-    # a value-and-grad and a Brent evaluation alone, timed and profiled,
-    # on the swept tree under the fitted model
-    torch.cuda.empty_cache()
-    score, bl = modelopt.make_param_score(part, tree, dtype=torch.float32)
-    host = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa
-    ls = torch.log(host(fit.subst_params[:-1]))
-    fl = torch.log(host(fit.frequencies))
-    rest = (host(fit.rates), host(fit.rate_weights), host(0.0), host(bl))
-
-    def value_and_grad():
-        a, b = ls.clone().requires_grad_(), fl.clone().requires_grad_()
-        (-score(a, b, *rest)).backward()
-        return a.grad, b.grad
-
-    def brent_eval():
-        with torch.no_grad():
-            return float(score(ls, fl, *rest))
-
-    def wall_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(MODELOPT_TIMED):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / MODELOPT_TIMED
-
-    vg_ms, brent_ms = wall_ms(value_and_grad), wall_ms(brent_eval)
-    vg_idle = profiled_idle(value_and_grad)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        value_and_grad()
-        torch.cuda.synchronize()
-    vg_top = top_kernels(prof, 6)
-    levels = len(ev.topology_from_tree(tree, part.sites)[0].schedule.levels)
-    # the eigendecomposition: on the host in float64 with its factors
-    # copied to the card (the fit's placement), against the card's eigh
-    subst = torch.cat([torch.exp(ls), torch.ones(1, dtype=torch.float64)])
-    freqs = torch.softmax(fl, dim=0)
-
-    def eigen_host():
-        w, left, right = eigen_decompose_torch(subst[None], freqs[None])
-        return [t.to(device, torch.float32) for t in (w, left, right)]
-
-    def eigen_card():
-        return eigen_decompose_torch(subst[None].to(device),
-                                     freqs[None].to(device))
-
-    eig_host_ms, eig_card_ms = wall_ms(eigen_host), wall_ms(eigen_card)
-    del score
-    torch.cuda.empty_cache()
-
     gen = dict(zip(("A-C", "A-G", "A-T", "C-G", "C-T", "G-T"),
                    INFER_PARAMS))
     print(f"[34 modelopt] {card}: scripts/bench_infer.py's {tips} x "
-          f"{BENCH_INFER_SITES} ({len(bl)} branches, "
+          f"{BENCH_INFER_SITES} ({2 * tips - 3} branches, "
           f"{len(next(iter(seqs.values())))} patterns), phase 33's final "
           f"tree, float32: optimize_model(alpha=0.8, rounds="
           f"{BENCH_FIT_ARGS['rounds']}) from JC in "
@@ -7006,23 +7009,10 @@ def phase_modelopt(device, card, res, alignment):
           f"{fit.alpha:.4f} ({INFER_ALPHA}); peak device memory "
           f"{peak_gib:.3f} GiB; then {sweeps} full branch-length sweeps in "
           f"{sweep_s:.2f} s: logL {logl_bl!r}, launches {launches}, plain "
-          f"versions run {sum(plain.calls.values())}", flush=True)
-    print(f"[34 modelopt] {card}: one value-and-grad (plain float32 sweep "
-          f"forward and backward) {vg_ms:.2f} ms, one Brent evaluation "
-          f"(forward under no_grad) {brent_ms:.2f} ms (mean of "
-          f"{MODELOPT_TIMED}, wall with the card synchronised); a "
-          f"value-and-grad under torch.profiler: wall {vg_idle[0]:.1f} ms, "
-          f"the card busy {vg_idle[1]:.1f} ms in {vg_idle[4]} kernels, idle "
-          f"{vg_idle[2] * 100:.1f}% of the wall ({vg_idle[3] * 100:.1f}% "
-          f"of the kernels' span); the tree's {levels} levels; its kernels "
-          f"with the most device time (ms, launches): " + "; ".join(
-              f"{name} {t:.2f} {n}" for name, t, n in vg_top)
-          + f"; the eigendecomposition on the host in "
-          f"float64 with its factors copied to the card (the fit's "
-          f"placement) {eig_host_ms:.3f} ms, torch.linalg.eigh on the card "
-          f"{eig_card_ms:.3f} ms", flush=True)
-    return dict(fit_s=fit_s, vg_ms=vg_ms, brent_ms=brent_ms,
-                idle=vg_idle[2], steps=cnt.steps, grad=cnt.grad,
+          f"versions run {sum(plain.calls.values())}; a value-and-grad's "
+          f"and a Brent evaluation's times, idle share and kernels: "
+          f"libpll_tpu_torch/tools/modelopt_times.py", flush=True)
+    return dict(fit_s=fit_s, steps=cnt.steps, grad=cnt.grad,
                 plain=cnt.plain, launches=launches)
 
 
@@ -7030,7 +7020,10 @@ def phase_modelopt(device, card, res, alignment):
 # 35: site sharding, two ranks on the one card
 # ---------------------------------------------------------------------------
 MESH_WORLD = 2
-MESH_TIMEOUT = 600  # s: the two ranks' whole run
+# torch intra-op threads of the parent beside phase 35's ranks (each has
+# one): the card's checks do little on the host's cores
+BESIDE_THREADS = 4
+MESH_TIMEOUT = 780  # s: the two ranks' whole run, their wait included
 MESH_COLLECTIVE_TIMEOUT = 300  # s: one collective's (a dead peer's) limit
 MESH_REPEATS = 3  # sharded score calls timed
 MESH_PROBES = 500  # reductions of three float64 timed by themselves
@@ -7084,9 +7077,9 @@ class MeshRun:
                     reductions=self.reductions, reduce_s=self.reduce_s)
 
 
-def mesh_rank(init_method, rank, data_path, out_path):
+def mesh_rank(init_method, rank, data_path, out_path, go_path):
     """Phase 35 in one rank (``chip_smoke.py --mesh-rank``, spawned by
-    ``phase_mesh``): join the gloo group on cuda:0 and run this rank's
+    :class:`MeshRanks`): join the gloo group on cuda:0 and run this rank's
     share of the four sharded paths with the same arguments as the other
     rank, writing their results to ``out_path`` (JSON): the flagship
     through ``make_score_sharded`` (K1 on the rank's 131 072 sites, and
@@ -7095,7 +7088,10 @@ def mesh_rank(init_method, rank, data_path, out_path):
     on the card as phase 9 draws them), the word-sharded stepwise build at
     2 048 x 2 048, and ``infer_tree(mesh=)`` at phase 33's call with no
     plain version run; then N1's derivative mode against its plain twin at
-    the final tree's root edge, both timed, with its bound."""
+    the final tree's root edge.  Then it waits for ``go_path`` (the
+    parent's other phases over) and times what it times: a reduction by
+    itself, the flagship and giant calls, N1's derivative mode and its
+    twin, with its bound."""
     import pickle
 
     import torch
@@ -7132,17 +7128,6 @@ def mesh_rank(init_method, rank, data_path, out_path):
     mesh = pm.make_sites_mesh(device=device)
     out = {"rank": rank, "size": mesh.size}
 
-    # a reduction by itself: mesh.sum's exchange against gloo's all_reduce
-    probe = {}
-    for name, reduce in (("exchange", mesh.sum),
-                         ("all_reduce", lambda x: dist.all_reduce(x))):
-        for k in range(MESH_PROBES + 50):  # the first 50 warm up
-            if k == 50:
-                t0 = time.perf_counter()
-            reduce(torch.ones(3, dtype=torch.float64))
-        probe[name] = (time.perf_counter() - t0) / MESH_PROBES * 1e3
-    out["probe"] = probe
-
     # the flagship: K1 on this rank's sites, one reduction a call
     topo, model_np, masks, _ = build_flagship(
         FLAGSHIP_TIPS, FLAGSHIP_SITES, rate_cats=4, seed=0, tip_masks=True)
@@ -7162,14 +7147,10 @@ def mesh_rank(init_method, rank, data_path, out_path):
                                    plan=local.plan, **edge))
     k1_plain = float(cf.fused_edge_score_plain(topo.schedule, tp, pm_, wvec,
                                                pw, **edge))
-    times = []
-    for _ in range(MESH_REPEATS):
-        with MeshRun(mesh) as t:
-            score(m32, tp)
-        times.append(t.s * 1e3)
     out["flagship"] = run.record(logl=logl, sites=hi - lo, k1=k1,
-                                 k1_plain=k1_plain, ms=times)
-    del score, local, tp, masks
+                                 k1_plain=k1_plain)
+    flagship = (score, m32, tp)  # timed after the go
+    del local, masks
     torch.cuda.empty_cache()
 
     # the giant: K6 on this rank's sites, its layout from the rank's share
@@ -7186,13 +7167,12 @@ def mesh_rank(init_method, rank, data_path, out_path):
     m32 = model_from_numpy(model_np, device, torch.float32)
     with MeshRun(mesh) as run:
         logl = float(score(m32))
-    with MeshRun(mesh) as t:
-        score(m32)
     out["giant"] = run.record(
-        logl=logl, sites=hi - lo, ms=t.s * 1e3, schedule_s=sched_s,
+        logl=logl, sites=hi - lo, schedule_s=sched_s,
         segments=len(score.local.dyn.segments),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    del score, tp
+    giant = (score, m32)  # timed after the go
+    del tp
     torch.cuda.empty_cache()
 
     # the word-sharded stepwise build
@@ -7249,6 +7229,37 @@ def mesh_rank(init_method, rank, data_path, out_path):
              for i, (e, size) in enumerate(zip(errs, sizes)))
     c, s_, length = st.shape
     peak = roofline.fp32_peak(*roofline_card(device))
+
+    # the timed part, once the parent's other phases are over
+    t0 = time.perf_counter()
+    while not os.path.exists(go_path):
+        if time.perf_counter() - t0 > MESH_TIMEOUT:
+            raise RuntimeError(f"no go from the parent in {MESH_TIMEOUT} s")
+        time.sleep(0.2)
+    out["waited_s"] = time.perf_counter() - t0
+    # a reduction by itself: mesh.sum's exchange against gloo's all_reduce
+    probe = {}
+    for name, reduce in (("exchange", mesh.sum),
+                         ("all_reduce", lambda x: dist.all_reduce(x))):
+        for k in range(MESH_PROBES + 50):  # the first 50 warm up
+            if k == 50:
+                t0 = time.perf_counter()
+            reduce(torch.ones(3, dtype=torch.float64))
+        probe[name] = (time.perf_counter() - t0) / MESH_PROBES * 1e3
+    out["probe"] = probe
+    score, m32, tp = flagship
+    times = []
+    for _ in range(MESH_REPEATS):
+        with MeshRun(mesh) as run:
+            score(m32, tp)
+        times.append(run.s * 1e3)
+    out["flagship"]["ms"] = times
+    score, m32 = giant
+    with MeshRun(mesh) as run:
+        score(m32)
+    out["giant"]["ms"] = run.s * 1e3
+    del flagship, giant, score, m32, tp
+    torch.cuda.empty_cache()
     out["n1d"] = dict(
         ok=ok, err=max(errs), got=got.tolist(), want=want.tolist(),
         ms=float(profiled_ms(lambda: body(t_host), "newton_solve_kernel")),
@@ -7264,73 +7275,105 @@ def mesh_rank(init_method, rank, data_path, out_path):
     return 0
 
 
-def phase_mesh(device, card, refs):
-    """Phase 35: two ranks, each a process of its own (``mesh_rank``),
-    joined by gloo on the one card (NCCL takes one rank a card); the
-    parent frees its cached device memory first.  Both ranks' results are
-    read back and must be equal; against ``refs`` (the one-rank runs of
-    phases 4, 9 and 33): the flagship's and the giant's logL within the
-    f32 budget of phases 4 and 9 (the same per-site values summed in
-    another order), each rank's K1 launch against its plain version; the
-    stepwise build's score and Newick libpll_tpu's (STEPWISE_JAX), P2 and
-    P3 once an insertion; infer_tree(mesh=)'s start score phase 33's and
-    libpll_tpu's, its logL within the f32 budget of phase 33's, RF
-    printed, U1, C1, N1's derivative mode, P2 and P3 launched and neither
-    the one-launch solve nor a plain version run; N1's derivative mode
-    within F32_RTOL of its plain twin.  A rank that fails, or outlasts
-    MESH_TIMEOUT, fails the phase; the other is killed.  Returns the
-    numbers the JSON line takes."""
-    import pickle
-    import tempfile
+class MeshRanks:
+    """Phase 35's two ranks, each a process of its own (``mesh_rank``),
+    joined by gloo on the one card (NCCL takes one rank a card), started
+    here on ``data`` (phase 33's alignment) to run their sharded paths
+    beside the parent's check-only phases.  :meth:`finish` tells them
+    that those are over (the go file), after which they time their part,
+    and reads their results; a rank that fails, or outlasts MESH_TIMEOUT
+    from its start, fails the run and the other is killed (also at
+    exit)."""
 
-    import torch
+    def __init__(self, data):
+        import atexit
+        import pickle
+        import tempfile
 
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+        with open(self.dir / "data.pkl", "wb") as f:
+            pickle.dump(data, f)
+        self.go = self.dir / "go"
+        self.logs = [open(self.dir / f"rank{r}.log", "w")
+                     for r in range(MESH_WORLD)]
+        # both ranks on this host: gloo over the loopback device, not the
+        # (slower) interface the host name resolves to
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+        self.t0 = time.perf_counter()
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             f"file://{self.dir}/rendezvous", str(r),
+             str(self.dir / "data.pkl"), str(self.dir / f"rank{r}.json"),
+             str(self.go)], cwd=ROOT, stdout=self.logs[r],
+            stderr=subprocess.STDOUT, env=env) for r in range(MESH_WORLD)]
+        atexit.register(self.stop)
+
+    def finish(self):
+        """(the ranks' results, seconds from their start, seconds waited
+        here)."""
+        self.go.touch()
+        t1 = time.perf_counter()
+        while any(p.poll() is None for p in self.procs):
+            failed = [p.returncode for p in self.procs
+                      if p.returncode not in (None, 0)]
+            if failed or time.perf_counter() - self.t0 > MESH_TIMEOUT:
+                break
+            time.sleep(0.5)
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            f.close()
+        now = time.perf_counter()
+        codes = [p.returncode for p in self.procs]
+        if any(codes):
+            tails = "\n".join(
+                f"--- rank {r} (exit {c}):\n"
+                + (self.dir / f"rank{r}.log").read_text()[-3000:]
+                for r, c in enumerate(codes))
+            self.stop()
+            fail(f"phase 35: a rank failed or timed out after "
+                 f"{now - self.t0:.0f} s (exit codes {codes}):\n{tails}")
+        ranks = [json.loads((self.dir / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        self.stop()
+        return ranks, now - self.t0, now - t1
+
+    def stop(self):
+        import shutil
+
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            if not f.closed:
+                f.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def phase_mesh(mesh_ranks, card, refs):
+    """Phase 35: the results of :class:`MeshRanks`' two ranks, which must
+    be equal; against ``refs`` (the one-rank runs of phases 4, 9 and 33):
+    the flagship's and the giant's logL within the f32 budget of phases 4
+    and 9 (the same per-site values summed in another order), each rank's
+    K1 launch against its plain version; the stepwise build's score and
+    Newick libpll_tpu's (STEPWISE_JAX), P2 and P3 once an insertion;
+    infer_tree(mesh=)'s start score phase 33's and libpll_tpu's, its logL
+    within the f32 budget of phase 33's, RF printed, U1, C1, N1's
+    derivative mode, P2 and P3 launched and neither the one-launch solve
+    nor a plain version run; N1's derivative mode within F32_RTOL of its
+    plain twin.  Returns the numbers the JSON line takes."""
     from libpll_tpu_torch.tree import utree as ut
     from libpll_tpu_torch.tree.compare import rf_distance
     from libpll_tpu_torch.search.stepwise import deep_recursion
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        with open(tmp / "data.pkl", "wb") as f:
-            pickle.dump(refs["data"], f)
-        logs = [open(tmp / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
-        # both ranks on this host: gloo over the loopback device, not the
-        # (slower) interface the host name resolves to
-        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-             f"file://{tmp}/rendezvous", str(r), str(tmp / "data.pkl"),
-             str(tmp / f"rank{r}.json")], cwd=ROOT, stdout=logs[r],
-            stderr=subprocess.STDOUT, env=env) for r in range(MESH_WORLD)]
-        try:
-            while any(p.poll() is None for p in procs):
-                failed = [p.returncode for p in procs
-                          if p.returncode not in (None, 0)]
-                if failed or time.perf_counter() - t0 > MESH_TIMEOUT:
-                    break
-                time.sleep(0.5)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        wall = time.perf_counter() - t0
-        codes = [p.returncode for p in procs]
-        if any(codes):
-            tails = "\n".join(
-                f"--- rank {r} (exit {c}):\n"
-                + (tmp / f"rank{r}.log").read_text()[-3000:]
-                for r, c in enumerate(codes))
-            fail(f"phase 35: a rank failed or timed out after {wall:.0f} s "
-                 f"(exit codes {codes}):\n{tails}")
-        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
-                 for r in range(MESH_WORLD)]
-
+    ranks, wall, waited = mesh_ranks.finish()
     r0, r1 = ranks
     same = {k: (r0[k].get("logl"), r0[k].get("score"), r0[k].get("newick"))
             == (r1[k].get("logl"), r1[k].get("score"), r1[k].get("newick"))
@@ -7388,7 +7431,10 @@ def phase_mesh(device, card, refs):
 
     one = refs["infer"]["s"]
     print(f"[35 mesh] {card}: {MESH_WORLD} gloo ranks on cuda:0, one "
-          f"process each, {wall:.1f} s in all; flagship "
+          f"process each, {wall:.1f} s in all, their main paths beside "
+          f"phases 3-34's checks and 36's (the parent then waited "
+          f"{waited:.1f} s, the ranks {r0['waited_s']:.1f} s for the go; "
+          f"what they time, after it); flagship "
           f"{refs['flagship_shape'][0]} x {refs['flagship_shape'][1]} "
           f"through make_score_sharded ({fl['sites']} "
           f"sites a rank, one K1 launch each, K1 equal to its plain version "
@@ -7441,6 +7487,664 @@ def phase_mesh(device, card, refs):
     return dict(n1d=nd, launches=ran["N1d"], probe=r0["probe"])
 
 
+# ------------------------------------------------------------ alphabets
+ALPHABET_STATES = (2, 3, 5, 10, 16, 32, 61, 64)  # phase 36's small configs
+ALPHABET_RATES = (1, 3, 5, 6, 10, 16)
+ALPHABET_SITES = 301
+ALPHABET_TIPS = 64  # the GT16 flagship: 64 x 262 144, Γ4, float32, masks
+ALPHABET_RATE_CATS = 4
+CODON = (61, 4, 64, 16384)  # states, rates, taxa, sites; float32, clv tips
+BINARY_PART = (2, 6, 64, 65536)  # the float64 Partition's
+BINARY_SWEEPS = 1
+INFER_RATES = 10  # phase 36's infer_tree(rate_cats=...)
+
+
+class AnyCap:
+    """While active, the any-alphabet instance's layout keeps at most
+    ``cap`` pool slots in shared memory (the rest spill to device rows);
+    plans made inside take it."""
+
+    def __init__(self, cap):
+        self.cap = cap
+
+    def __enter__(self):
+        from libpll_tpu_torch.ops import clv_fused as cf
+        from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+        self.cf, self.real = cf, cf.any_layout
+
+        def capped(pool, c, s, itemsize, scale_mode, limit):
+            srows = c if scale_mode == SCALE_PER_RATE else 1
+            slot = cf.ANY_THREADS * (c * s * itemsize + 4 * srows)
+            return self.real(pool, c, s, itemsize, scale_mode,
+                             min(limit, 2 * self.cap * slot))
+        cf.any_layout = capped
+        return self
+
+    def __exit__(self, *exc):
+        self.cf.any_layout = self.real
+
+
+class DeviceTables:
+    """While active, N1's any-alphabet plans that would hold their per-rate
+    tables in shared memory hold them in device memory instead (a row a
+    block; ``NewtonPlan.tables`` "device"), the slices as planned or, with
+    ``streamed``, read from device memory every body."""
+
+    def __init__(self, streamed=False):
+        self.streamed = streamed
+
+    def __enter__(self):
+        from libpll_tpu_torch.ops import derivatives as dv
+
+        self.dv, self.real = dv, dv.plan_newton
+
+        def forced(shape, itemsize, *args, **kw):
+            plan = self.real(shape, itemsize, *args, **kw)
+            if plan.tables == "shared":
+                c, s, _ = shape
+                plan = plan._replace(tables="device", smem=plan.smem
+                                     - dv.table_bytes(c, s, itemsize))
+            if plan.tables and self.streamed:
+                plan = plan._replace(resident=False, smem=0)
+            return plan
+        dv.plan_newton = forced
+        return self
+
+    def __exit__(self, *exc):
+        self.dv.plan_newton = self.real
+
+
+def any_counts():
+    """(K1, K2, N1) launches of the any-alphabet instances."""
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    return (cf.fused_edge_score.any_launches, cf.fused_sweep.any_launches,
+            dv.newton_solve.any_launches)
+
+
+def reset_counts():
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    for w in (cf.fused_edge_score, cf.fused_sweep, dv.newton_solve):
+        w.launches = w.any_launches = 0
+
+
+def check_alphabets_small(device):
+    """Phase 36's small configurations: every S of ALPHABET_STATES and C of
+    ALPHABET_RATES in float32 and float64, each with every tip encoding
+    its alphabet takes: K2 at every scale mode, K1 per-site and unscaled
+    with and without +I, against their plain versions (phase 3's rule);
+    float64 again with the pool capped at 0 and 1 slots (rows spill); N1
+    from the sumtable and the rows against its plain twin (phase 15's
+    rule) at per-site, per-rate, +I and the Stamatakis asc mode in turn,
+    its tables where its plan puts them (shared memory) and forced to
+    device memory (``DeviceTables``), its slices as planned and
+    streamed; and the float64 eight-rate
+    1 000-taxon protein walk, which the protein instance's block cannot
+    hold.  An unscaled K1 run whose plain logL underflows is held to a
+    non-finite logL of its own and counted (the same inputs run with
+    per-site scaling beside it, compared by value).  Returns
+    (configurations, largest float32 K1 |d logL|, largest float32 K2 abs
+    error, (K1, K2, N1) any-instance launches, largest float32 |d t*|,
+    the protein walk's layout, N1's plans by (tables, resident), the
+    underflowing unscaled K1 runs)."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE, SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    rng = np.random.default_rng(36)
+    reset_counts()
+    n, k1_err, k2_err, t_err = 0, 0.0, 0.0, 0.0
+    tables = collections.Counter()  # N1's plans by (tables, resident)
+    unscaled_inf = 0  # unscaled K1 runs whose plain logL underflows
+    variants = ("site", "rate", "pinv", "stamatakis")
+    for i, states in enumerate(ALPHABET_STATES):
+        newick = (caterpillar_newick(24) if i % 2 else random_newick(12, rng))
+        for k, dtype in enumerate((torch.float32, torch.float64)):
+            rate_cats = ALPHABET_RATES[(2 * i + k) % len(ALPHABET_RATES)]
+            topo, model_np, masks = small_case(newick, ALPHABET_SITES,
+                                               rate_cats, seed=i,
+                                               states=states)
+            sched = topo.schedule
+            edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                        edge_matrix=topo.edge_matrix)
+            encodings = [e for e in ("clv", "chars", "masks")
+                         if not (e == "chars" and states > 4)
+                         and not (e == "masks"
+                                  and states > cf.MASK_MAX_STATES)]
+            caps = (None, 0, 1) if dtype == torch.float64 else (None,)
+            for enc in encodings:
+                tp = tip_input(masks, enc, rate_cats, dtype, device, states)
+                pm = kernel_inputs(topo, model_np, dtype, device, False)[0]
+                where = (f"S={states} C={rate_cats} {dtype} {enc} "
+                         f"{ALPHABET_SITES} sites")
+                for cap in caps:
+                    with AnyCap(cap) if cap is not None else nullcontext():
+                        plan = cf.FusedPlan(sched, enc)
+                        lay = plan.layout(dtype, rate_cats, states,
+                                          SCALE_PER_SITE, False)
+                        check("shared_slots" in lay,
+                              f"{where}: not the any-alphabet instance")
+                        for scale in (SCALE_NONE, SCALE_PER_SITE,
+                                      SCALE_PER_RATE):
+                            got = cf.fused_sweep(sched, tp, pm, plan=plan,
+                                                 scale_mode=scale,
+                                                 tip_encoding=enc)
+                            want = cf.fused_sweep_plain(
+                                sched, tp, pm, scale_mode=scale,
+                                tip_encoding=enc)
+                            ok, err, agree = sweep_close(*got, *want, dtype)
+                            check(ok, f"K2 {where} cap={cap} scale={scale}: "
+                                      f"max abs err {err}, scalers agree "
+                                      f"{agree}")
+                            if dtype == torch.float32:
+                                k2_err = max(k2_err, err)
+                            n += 1
+                        splan = cf.FusedPlan(sched, enc,
+                                             tuple(edge.values()))
+                        for scale in (SCALE_NONE, SCALE_PER_SITE):
+                            for pinv in (False, True):
+                                args = kernel_inputs(topo, model_np, dtype,
+                                                     device, pinv)
+                                got = float(cf.fused_edge_score(
+                                    sched, tp, *args, plan=splan,
+                                    scale_mode=scale, tip_encoding=enc,
+                                    **edge))
+                                want = float(cf.fused_edge_score_plain(
+                                    sched, tp, *args, scale_mode=scale,
+                                    tip_encoding=enc, **edge))
+                                check(np.isfinite(want) == np.isfinite(got)
+                                      and (not np.isfinite(want) or
+                                           logl_close(got, want, dtype)),
+                                      f"K1 {where} cap={cap} scale={scale} "
+                                      f"pinv={pinv}: {got} vs plain {want}")
+                                if dtype == torch.float32 and np.isfinite(
+                                        want):
+                                    k1_err = max(k1_err, abs(got - want))
+                                unscaled_inf += not np.isfinite(want)
+                                check(scale == SCALE_NONE
+                                      or np.isfinite(want),
+                                      f"K1 {where} per-site scaling: plain "
+                                      f"logL {want}")
+                                n += 1
+            variant = variants[(2 * i + k) % len(variants)]
+            args, rows = newton_inputs(variant, newick, rate_cats, states,
+                                       dtype, device, seed=i, rows=True)
+            for forced in (None, "resident", "streamed"):
+                with (DeviceTables(forced == "streamed") if forced
+                      else nullcontext()):
+                    plan = dv.plan_for(args["sumtable"], args["sites"],
+                                       args["asc_mode"])
+                    check(plan.tables == ("device" if forced else "shared")
+                          and (forced != "streamed" or not plan.resident),
+                          f"N1 S={states} C={rate_cats}: tables "
+                          f"{plan.tables!r}, resident {plan.resident}")
+                    tables[plan.tables, plan.resident] += 1
+                    for form in (None, rows):
+                        ok, err, msg = newton_close(args, dtype, form)
+                        check(ok, f"N1 {variant} S={states} C={rate_cats} "
+                                  f"{dtype} ({plan_text(plan)}, tables "
+                                  f"{plan.tables}; from "
+                                  f"{'rows' if form else 'sumtable'}): {msg}")
+                        if dtype == torch.float32:
+                            t_err = max(t_err, err)
+                n += 1
+    # the protein walk the protein instance's block cannot hold
+    topo, model_np, masks = small_case(random_newick(1000, rng), 64, 8, 8,
+                                       states=20)
+    sched = topo.schedule
+    plan = cf.FusedPlan(sched, "masks")
+    lay = plan.layout(torch.float64, 8, 20, SCALE_PER_SITE, False)
+    check(plan.pool == 6 and "shared_slots" in lay,
+          f"1 000-taxon float64 protein at eight rates: pool {plan.pool}, "
+          f"layout {lay}")
+    tp = tip_input(masks, "masks", 8, torch.float64, device, 20)
+    pm, wvec, pw, _ = kernel_inputs(topo, model_np, torch.float64, device,
+                                    False)
+    ok, err, agree = sweep_close(
+        *cf.fused_sweep(sched, tp, pm, plan=plan, tip_encoding="masks"),
+        *cf.fused_sweep_plain(sched, tp, pm, tip_encoding="masks"),
+        torch.float64)
+    check(ok, f"K2 protein 1 000 taxa f64 C=8: {err}, {agree}")
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix, tip_encoding="masks")
+    got = float(cf.fused_edge_score(sched, tp, pm, wvec, pw, **edge))
+    want = float(cf.fused_edge_score_plain(sched, tp, pm, wvec, pw, **edge))
+    check(logl_close(got, want, torch.float64),
+          f"K1 protein 1 000 taxa f64 C=8: {got} vs plain {want}")
+    n += 2
+    torch.cuda.synchronize()
+    return (n, k1_err, k2_err, any_counts(), t_err, lay, tables,
+            unscaled_inf)
+
+
+def alphabet_flop(states):
+    """Contraction operations of one op per site and rate: two children,
+    S x S multiply-adds each (2 flop)."""
+    return 2 * 2 * states * states
+
+
+def alphabet_main_path(name, topo, c, s, tp, encoding, m, m64, device):
+    """One configuration's main path: make_score, make_forward_fused and
+    make_train_step_fused once each with the counters at 0 around it, in
+    the dtype of the model ``m``; the logL against the plain float64
+    make_forward (float32: the f32 budget; float64: rel F64_REL) and t*
+    against N1's plain twin on the step's own inputs.  Returns what the
+    report and the times need."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    dtype = m["freqs_pc"].dtype
+    kw = dict(tip_encoding=encoding, device=device)
+    score = ev.make_score(topo, c, s, **kw)
+    fwd = ev.make_forward_fused(topo, c, s, **kw)
+    step = ev.make_train_step_fused(topo, c, s, **kw)
+    want = plain_forward_f64(topo, tp, encoding, m64, s)[0]
+    torch.cuda.empty_cache()
+    f64 = dtype == torch.float64
+    budget = F64_REL * abs(want) if f64 else ACC_REL * abs(want) + ACC_ABS
+    t_rel = 1e-10 if f64 else F32_T_REL
+    runs = {"make_score": lambda: (score(m, tp),),
+            "make_forward_fused": lambda: fwd(m, tp)[:1],
+            "make_train_step_fused": lambda: step(m, tp)}
+    out, launches = {}, {}
+    for key, run in runs.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out[key] = tuple(float(v) for v in run())
+        torch.cuda.synchronize()
+        launches[key] = any_counts()
+    check(launches["make_score"] == (1, 0, 0)
+          and launches["make_forward_fused"] == (0, 1, 0)
+          and launches["make_train_step_fused"] == (0, 1, 1),
+          f"{name} main path: any-instance launches (K1, K2, N1) {launches}")
+    got_score = out["make_score"][0]
+    got_fwd = out["make_forward_fused"][0]
+    logl, t_star = out["make_train_step_fused"]
+    for key, got in (("make_score", got_score),
+                     ("make_forward_fused", got_fwd)):
+        check(np.isfinite(got) and abs(got - want) <= budget,
+              f"{name} {key} logL {got!r} vs plain f64 {want!r} "
+              f"(budget {budget})")
+    check(logl == got_fwd, f"{name} step logL {logl!r} is not "
+                           f"make_forward_fused's {got_fwd!r}")
+    n1_args = step.newton_inputs(m, tp)[1]
+    n1_rows = step.newton_rows(m, tp)[1]
+    plain_t = float(dv.newton_solve_plain(**n1_args).t)
+    check(abs(t_star - plain_t) <= t_rel * abs(plain_t),
+          f"{name} t* {t_star!r} vs N1's plain twin {plain_t!r}")
+    ok, n1_err, n1_msg = newton_close(n1_args, dtype, n1_rows)
+    check(ok, f"{name} N1 vs plain: {n1_msg}")
+    return dict(score=score, fwd=fwd, step=step, want=want, budget=budget,
+                got_score=got_score, got_fwd=got_fwd, logl=logl,
+                t_star=t_star, plain_t=plain_t, launches=launches,
+                n1_args=n1_args, n1_rows=n1_rows, n1_err=n1_err,
+                n1_msg=n1_msg)
+
+
+def alphabet_times(name, r, topo, c, s, tp, encoding, m32, device, peak,
+                   iters):
+    """K1, K2 and N1 of one configuration against their plain versions and
+    bounds (CUDA events)."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    sched = topo.schedule
+    sites = tp.shape[-1]
+    pm, wvec, pw, _ = kernel_inputs(topo, r["model_np"], torch.float32,
+                                    device, False)
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix, tip_encoding=encoding)
+    k1 = lambda: cf.fused_edge_score(sched, tp, pm, wvec, pw,
+                                     plan=r["score"].plan, **edge)
+    k1_plain = lambda: cf.fused_edge_score_plain(sched, tp, pm, wvec, pw,
+                                                 **edge)
+    k2 = lambda: cf.fused_sweep(sched, tp, pm, plan=r["fwd"].plan,
+                                tip_encoding=encoding)
+    k2_plain = lambda: cf.fused_sweep_plain(sched, tp, pm,
+                                            tip_encoding=encoding)
+    k1_err = abs(float(k1()) - float(k1_plain()))
+    check(k1_err <= r["budget"], f"{name} K1 vs plain: |d logL| {k1_err}")
+    ok, k2_err, agree = sweep_close(*k2(), *k2_plain(), torch.float32)
+    check(ok, f"{name} K2 vs plain: max abs err {k2_err}, scalers agree "
+              f"{agree}")
+    torch.cuda.empty_cache()
+    ms = {key: time_ms(fn, iters=iters[plain], warmup=1)[0]
+          for key, fn, plain in (("k1", k1, 0), ("k2", k2, 0),
+                                 ("k1_plain", k1_plain, 1),
+                                 ("k2_plain", k2_plain, 1))}
+    n1_rows, n1_args = r["n1_rows"], r["n1_args"]
+    bodies = int(dv.newton_solve_rows(**n1_rows).iterations)
+    ms["n1"] = time_ms(lambda: dv.newton_solve_rows(**n1_rows),
+                       iters=iters[0], warmup=1)[0]
+    ms["n1_plain"] = time_ms(lambda: dv.newton_solve_plain(**n1_args),
+                             iters=iters[1], warmup=1)[0]
+    flop = sched.n_inner * sites * c * alphabet_flop(s)
+    edge_flop = sites * c * (2 * s * s + 2 * s)
+    tip_bytes = tp.numel() * tp.element_size()
+    k1_bound = bound(flop + edge_flop, tip_bytes + sites * 4, peak)
+    k2_bound = bound(flop, tip_bytes + (sched.n_inner * c * s * sites
+                                        + (sched.n_inner + 1) * sites) * 4,
+                     peak)
+    n1_bound = bound((newton_flop(c, s) * bodies + sumtable_flop(c, s))
+                     * sites, (2 * c * s * sites + 2 * sites) * 4, peak)
+    lay = {key: mod.plan.layout(torch.float32, c, s, topo.scale_mode, k1_)
+           for key, mod, k1_ in (("K1", r["score"], True),
+                                 ("K2", r["fwd"], False))}
+    plan = dv.plan_for(n1_args["sumtable"], n1_args["sites"],
+                       n1_args["asc_mode"])
+    return dict(ms=ms, k1_err=k1_err, k2_err=k2_err, agree=agree,
+                k1_bound=k1_bound, k2_bound=k2_bound, n1_bound=n1_bound,
+                bodies=bodies, lay=lay, n1_plan=plan)
+
+
+def alphabet_line(name, r, t, card):
+    ms = t["ms"]
+    return (f"{name}: logL make_score {r['got_score']!r}, "
+            f"make_forward_fused {r['got_fwd']!r} (the step's bits), plain "
+            f"f64 make_forward {r['want']!r} (|d| "
+            f"{abs(r['got_score'] - r['want']):.3e}, "
+            f"{abs(r['got_fwd'] - r['want']):.3e} <= {r['budget']:.3e}); t* "
+            f"{r['t_star']!r} vs N1's plain twin {r['plain_t']!r}; N1 vs "
+            f"plain: {r['n1_msg']}; any-instance launches (K1, K2, N1) "
+            f"{r['launches']}; K1-plain |d logL| {t['k1_err']:.3e}, K2-plain "
+            f"max abs {t['k2_err']:.3e} (scalers agree {t['agree']:.6f}); "
+            f"{card}: " + "; ".join(
+                f"{key} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]}), {b[0] / ms[k] * 100:.2f}% of "
+                f"it" for key, k, b in (("K1", "k1", t["k1_bound"]),
+                                        ("K2", "k2", t["k2_bound"]),
+                                        ("N1", "n1", t["n1_bound"])))
+            + f" ({t['bodies']} bodies; {plan_text(t['n1_plan'])}, tables "
+            f"{t['n1_plan'].tables}); layouts " + "; ".join(
+                f"{key} {v['shared_slots']} of the pool's slots in "
+                f"{v['smem']} B shared memory, {v['blocks_per_sm']} blocks "
+                f"of {v['threads']} an SM" for key, v in t["lay"].items()))
+
+
+def phase_alphabets(device, card, peak):
+    """Phase 36's timed part: the GT16 flagship (64 x 262 144, 16 states,
+    Γ4, float32, per-site scaling, 16-bit masks simulated on the
+    flagship's tree) and the codon-sized check (61 states, Γ4, 64 x
+    16 384, float32, CLV tips) through make_score, make_forward_fused and
+    make_train_step_fused (K1, K2, N1's any-alphabet instances), each
+    kernel against its plain version, timed, with its bound.  Returns the
+    kernels line's numbers by configuration."""
+    import torch
+
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.utils.flagship import (ALPHABET_STATES as GT,
+                                                 FLAGSHIP_SITES,
+                                                 build_alphabet_flagship)
+
+    out = {}
+    for name, (s, c, tips, sites, enc) in (
+            ("gt16", (GT, ALPHABET_RATE_CATS, ALPHABET_TIPS, FLAGSHIP_SITES,
+                      "masks")),
+            ("codon", (*CODON, "clv"))):
+        t0 = time.perf_counter()
+        _, topo, model_np, cols = build_alphabet_flagship(tips, sites, s, c,
+                                                          seed=0)
+        build_s = time.perf_counter() - t0
+        masks = np.uint64(1) << cols.astype(np.uint64)
+        tp = tip_input(masks, enc, c, torch.float32, device, s)
+        m32 = model_from_numpy(model_np, device, torch.float32)
+        m64 = model_from_numpy(model_np, device, torch.float64)
+        r = alphabet_main_path(name, topo, c, s, tp, enc, m32, m64, device)
+        r["model_np"] = model_np
+        t = alphabet_times(name, r, topo, c, s, tp, enc, m32, device, peak,
+                           (10, 2))
+        print(f"[36 {name}] {tips} taxa x {sites} sites x {s} states x {c} "
+              f"rates f32 {enc} (simulated in {build_s:.2f} s): "
+              + alphabet_line(name, r, t, card), flush=True)
+        out[name] = dict(launches=r["launches"], n1_err=r["n1_err"], **t)
+        del r, t, tp, m32, m64
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_alphabet_checks(device):
+    """Phase 36's checks (beside phase 35's ranks): the small
+    configurations (``check_alphabets_small``), the entry points at every
+    (S, C, dtype) of that grid (``check_alphabet_entries``), the float64
+    binary Partition at 64 x 65 536 (``phase_alphabet_partition``)."""
+    t0 = time.perf_counter()
+    (n, k1_small, k2_small, small_launches, t_small, lay, tables,
+     unscaled_inf) = check_alphabets_small(device)
+    print(f"[36 alphabets small] {n} configurations of K1/K2/N1's "
+          f"any-alphabet instances match their plain versions (S in "
+          f"{ALPHABET_STATES}, C in {ALPHABET_RATES}, float32 and float64, "
+          f"every tip encoding an alphabet takes, every scale mode, +I, "
+          f"Stamatakis; float64 also with pools of 0 and 1 slots in shared "
+          f"memory; N1 from the sumtable and the rows, its plans by "
+          f"(tables, resident) " + ", ".join(
+              f"{k} {v}" for k, v in sorted(tables.items()))
+          + f"; {unscaled_inf} unscaled K1 runs whose plain logL underflows,"
+          f" held to a non-finite logL of their own; the 1 000-taxon "
+          f"float64 protein walk at eight rates: {lay['shared_slots']} of 6 "
+          f"slots in shared memory) in {time.perf_counter() - t0:.1f} s; "
+          f"any-instance launches (K1, K2, N1) {small_launches}; largest "
+          f"f32 deviations: K1 |d logL| {k1_small:.3e}, K2 abs "
+          f"{k2_small:.3e}, t* {t_small:.3e}", flush=True)
+    check_alphabet_entries(device)
+    phase_alphabet_partition(device)
+
+
+def check_alphabet_entries(device):
+    """Phase 36's entry points at every (S, C, dtype) of the small grid
+    (ALPHABET_STATES x the rate counts check_alphabets_small pairs with
+    them), 12 taxa x ALPHABET_SITES sites, "masks" tips up to 32 states,
+    CLV tips above: make_score, make_forward_fused, make_train_step_fused
+    (``alphabet_main_path``) and make_train_step (the plain sweep and N1)
+    with the any-alphabet counters at 0 around each, against the plain
+    float64 make_forward and N1's plain twin; in float64 both
+    branch-length optimisers on a Partition of that (S, C) (tip CLVs by
+    set_tip_clv, one sweep) against the same optimisers on the plain
+    versions (logL rel 1e-9, lengths rel 1e-6, the sweeps); and
+    infer_tree(rate_cats=INFER_RATES) on a small alignment, float64, on
+    the card against the CPU (start score, rounds, RF 0, trajectory rel
+    SEARCH_REL)."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import derivatives as dv
+    from libpll_tpu_torch.search.infer import infer_tree
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.tree.compare import rf_distance
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(362)
+    done, parts = [], []
+    for i, states in enumerate(ALPHABET_STATES):
+        newick = random_newick(12, rng)
+        for k, dtype in enumerate((torch.float32, torch.float64)):
+            c = ALPHABET_RATES[(2 * i + k) % len(ALPHABET_RATES)]
+            name = f"S={states} C={c} {dtype}"
+            topo, model_np, masks = small_case(newick, ALPHABET_SITES, c,
+                                               seed=100 + i, states=states)
+            # make_score's default takes no +I: none in the model either
+            model_np = dict(model_np, prop_invar=np.zeros(1),
+                            prop_invar_pc=np.zeros(c))
+            enc = "masks" if states <= cf.MASK_MAX_STATES else "clv"
+            tp = tip_input(masks, enc, c, dtype, device, states)
+            m = model_from_numpy(model_np, device, dtype)
+            m64 = model_from_numpy(model_np, device, torch.float64)
+            r = alphabet_main_path(name, topo, c, states, tp, enc, m, m64,
+                                   device)
+            # make_train_step: the plain level sweep, then N1
+            sched = topo.schedule
+            clv = torch.zeros((sched.tips + sched.n_inner, c, states,
+                               ALPHABET_SITES), dtype=dtype, device=device)
+            clv[:sched.tips] = cf.decode_tips(
+                tp, enc, torch.arange(sched.tips, device=device), c, states,
+                dtype)
+            scal = torch.zeros(
+                (sched.n_inner + 1, c, ALPHABET_SITES)
+                if topo.scale_mode == SCALE_PER_RATE
+                else (sched.n_inner + 1, ALPHABET_SITES), dtype=torch.int32,
+                device=device)
+            step = ev.make_train_step(topo, device=device)
+            args = step.newton_inputs(m, clv.clone(), scal.clone())[3]
+            reset_counts()
+            logl, t_star = (float(v) for v in step(m, clv, scal)[:2])
+            torch.cuda.synchronize()
+            plain_t = float(dv.newton_solve_plain(**args).t)
+            t_rel = 1e-10 if dtype == torch.float64 else F32_T_REL
+            check(any_counts() == (0, 0, 1) and abs(t_star - plain_t)
+                  <= t_rel * abs(plain_t) and abs(logl - r["want"])
+                  <= r["budget"],
+                  f"{name} make_train_step: any-instance launches "
+                  f"{any_counts()}, t* {t_star!r} vs plain {plain_t!r}, "
+                  f"logL {logl!r} vs plain f64 {r['want']!r}")
+            done.append(name)
+            if dtype == torch.float64:
+                parts.append(alphabet_blopt(device, states, c, seed=i))
+            del r, step, clv, scal
+    torch.cuda.empty_cache()
+    # infer_tree at a rate count outside the DNA instances'
+    seqs = search_data(41, 12, 40)
+    kw = dict(SEARCH_GTR, rate_cats=INFER_RATES, seed=42, radius=8,
+              max_rounds=2)
+    card = infer_tree(seqs, device=device, **kw)
+    cpu = infer_tree(seqs, device="cpu", **kw)
+    rf = rf_distance(card.tree, cpu.tree)
+    check(card.start_parsimony_score == cpu.start_parsimony_score
+          and card.rounds == cpu.rounds and rf == 0
+          and len(card.trajectory) == len(cpu.trajectory)
+          and all(abs(x - y) <= SEARCH_REL * abs(y)
+                  for x, y in zip(card.trajectory, cpu.trajectory)),
+          f"infer_tree(rate_cats={INFER_RATES}): card ({card.rounds}, "
+          f"{card.trajectory}), CPU ({cpu.rounds}, {cpu.trajectory}), RF "
+          f"{rf}")
+    print(f"[36 alphabet entries] make_score, make_forward_fused, "
+          f"make_train_step_fused and make_train_step at {len(done)} (S, C, "
+          f"dtype) ({', '.join(done)}), {ALPHABET_SITES} sites, each through "
+          f"the any-alphabet K1/K2/N1 (counters at 0 around each call) and "
+          f"within the rule of the plain float64 make_forward and N1's "
+          f"plain twin; both branch-length optimisers on a float64 "
+          f"Partition at each S, on the card equal to the same optimisers "
+          f"on the plain versions ((S, C): (U1, N1) launches host / scan, "
+          f"N1 any-instance launches): " + "; ".join(
+              f"({s_}, {c_}): {h} / {sc}, {a}" for s_, c_, h, sc, a in parts)
+          + f"; infer_tree(rate_cats={INFER_RATES}) float64 on the card "
+          f"equal to the CPU's (start {card.start_parsimony_score}, rounds "
+          f"{card.rounds}, RF 0, logL {card.logl!r} vs {cpu.logl!r}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def alphabet_partition(device, states, rate_cats, tips, sites, seed):
+    """A float64 Partition maker at (S, C): tip CLVs of states simulated on
+    the flagship's tree (``build_alphabet_flagship``) set by set_tip_clv,
+    a random GTR, Γ(0.6), lengths x BLOPT_PERTURB.  Returns ``make``:
+    ``make()`` gives a fresh (tree, Partition)."""
+    from libpll_tpu_torch import Partition
+    from libpll_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll_tpu_torch.tree import utree as ut
+    from libpll_tpu_torch.utils.flagship import build_alphabet_flagship
+
+    s, c = states, rate_cats
+    tree0, _, model_np, cols = build_alphabet_flagship(tips, sites, s, c,
+                                                       seed=seed)
+    newick = ut.export_newick(tree0.root)
+    row = {n.label: n.clv_index for n in ut.query_tipnodes(tree0)}
+    params = np.random.default_rng(seed + 1).uniform(0.5, 2.0,
+                                                     s * (s - 1) // 2)
+    freqs = model_np["freqs_pc"][0]
+    clv = np.eye(s)[cols]  # [tips, sites, S]
+
+    def make():
+        tree = scaled_tree(newick, BLOPT_PERTURB)
+        part = Partition(tips, tips - 2, s, sites, 1, 2 * tips - 3, c,
+                         tips - 2, device=device)
+        for node in ut.query_tipnodes(tree):
+            part.set_tip_clv(node.clv_index, clv[row[node.label]])
+        part.set_frequencies(0, freqs)
+        part.set_subst_params(0, params)
+        part.set_category_rates(compute_gamma_cats(0.6, c))
+        return tree, part
+    return make
+
+
+def blopt_pair(make, rate_cats, sweeps, what):
+    """Both optimisers on fresh (tree, Partition) pairs from ``make``, on
+    the card and on the plain versions (``PlainKernels``), their counters
+    at 0 around each: logL rel 1e-9, lengths rel 1e-6, the same sweeps,
+    the card's logL a fresh evaluation's (rel 1e-9), U1 and N1 launched.
+    Returns {mode: (card result, plain result)}, each (logL, sweeps,
+    lengths, (U1, N1) launches, seconds, fresh logL)."""
+    pidx = np.zeros(rate_cats, int)
+    res = {}
+    for mode in ("host", "scan"):
+        for plain in (False, True):
+            tree, part = make()
+            with PlainKernels() if plain else nullcontext():
+                out = run_blopt(mode, tree, part, pidx, sweeps)
+            res[mode, plain] = (*out, fresh_logl(part, tree, pidx))
+        got, want = res[mode, False], res[mode, True]
+        check(got[3][0] > 0 and got[3][1] > 0,
+              f"{what} {mode}: (U1, N1) launches {got[3]}")
+        ok, err = lengths_close(got[2], want[2], 1e-6)
+        check(abs(got[0] - want[0]) <= 1e-9 * abs(want[0]) and ok
+              and got[1] == want[1]
+              and abs(got[5] - got[0]) <= 1e-9 * abs(got[0]),
+              f"{what} {mode}: logL {got[0]!r} vs plain {want[0]!r} (fresh "
+              f"{got[5]!r}), sweeps {got[1]} vs {want[1]}, lengths rel "
+              f"{err:.3e}")
+    return {m: (res[m, False], res[m, True]) for m in ("host", "scan")}
+
+
+def alphabet_blopt(device, states, rate_cats, seed):
+    """``blopt_pair`` on a small float64 Partition at (S, C): 12 taxa x
+    ALPHABET_SITES sites, one sweep.  Returns (S, C, host launches, scan
+    launches, N1 any-instance launches)."""
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    make = alphabet_partition(device, states, rate_cats, 12, ALPHABET_SITES,
+                              seed=370 + seed)
+    dv.newton_solve.any_launches = 0
+    res = blopt_pair(make, rate_cats, 1,
+                     f"Partition S={states} C={rate_cats}")
+    return (states, rate_cats, res["host"][0][3], res["scan"][0][3],
+            dv.newton_solve.any_launches)
+
+
+def phase_alphabet_partition(device):
+    """Phase 36's float64 binary Partition: BINARY_PART's states, rates,
+    taxa and sites (``alphabet_partition``), both optimisers
+    (BINARY_SWEEPS sweeps) against the same optimisers on the plain
+    versions (``blopt_pair``)."""
+    from libpll_tpu_torch.ops import derivatives as dv
+
+    s, c, tips, sites = BINARY_PART
+    t0 = time.perf_counter()
+    make = alphabet_partition(device, s, c, tips, sites, seed=0)
+    dv.newton_solve.any_launches = 0
+    res = blopt_pair(make, c, BINARY_SWEEPS, "binary Partition")
+    print(f"[36 partition] float64 Partition of {s} states x {c} rates, "
+          f"{tips} taxa x {sites} sites (tip CLVs by set_tip_clv), lengths x"
+          f"{BLOPT_PERTURB}, {BINARY_SWEEPS} sweep(s) of each optimiser on "
+          f"the card equal to the same optimisers on the plain versions: "
+          + "; ".join(f"{m} logL {res[m][0][0]!r} (plain "
+                      f"{res[m][1][0]!r}), (U1, N1) launches "
+                      f"{res[m][0][3]}, {res[m][0][4]:.2f} s (plain "
+                      f"{res[m][1][4]:.2f} s)" for m in ("host", "scan"))
+          + f"; N1 any-instance launches {dv.newton_solve.any_launches} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main():
     if sys.argv[1:2] == ["--mesh-rank"]:  # phase 35's ranks
         return mesh_rank(*sys.argv[2:])
@@ -7476,7 +8180,7 @@ def main():
                                                  FLAGSHIP_TIPS,
                                                  build_flagship)
 
-    starts = [("1-3", time.perf_counter())]  # (phases, start), printed last
+    starts = [("1-2", time.perf_counter())]  # (phases, start), printed last
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -7493,6 +8197,7 @@ def main():
     build_s = time.perf_counter() - t0
     for module in (cf, cd, cseg, rf, dv, fitch, clv_ops, inc_ops):
         module.load_kernels()
+    cf.load_any_kernels()
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
           f"in {build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
@@ -7503,15 +8208,12 @@ def main():
     print("[2 build] clv_fused.cu protein instances <dtype,C,K1,sites a "
           "thread> (registers, spill bytes, stack bytes): " + "; ".join(
               f"{lab} {r}, {b}, {st}" for lab, r, b, st in
-              ptxas_report("clv_fused", "fused_protein_kernel")),
+              ptxas_report("clv_fused", "fused_protein_kernel"))
+          + "; clv_any.cu instances <dtype,R,K1>: " + "; ".join(
+              f"{lab} {r}, {b}, {st}" for lab, r, b, st in
+              ptxas_report("clv_any", "fused_any_kernel")),
           flush=True)
     cpu_refs = CpuRefs()  # phases 24 and 32's CPU sides, beside the card's
-
-    t0 = time.perf_counter()
-    n, k1_small, k2_small = check_small(device)
-    print(f"[3 small] {n} kernel configurations match their plain versions "
-          f"({time.perf_counter() - t0:.1f} s); largest f32 deviations: K1 "
-          f"|d logL| {k1_small:.3e}, K2 CLV abs {k2_small:.3e}", flush=True)
 
     # ---------------------------------------------------- 4: flagship
     starts.append(("4", time.perf_counter()))
@@ -7637,7 +8339,7 @@ def main():
           flush=True)
 
     # ---------------------------------------------------- 6-10: dyn tier
-    starts.append(("6-10", time.perf_counter()))
+    starts.append(("6, 8-10", time.perf_counter()))
     dyn_rows = ptxas_report("clv_dyn")
     print(f"[6 dyn build] clv_dyn.cu: {len(dyn_rows)} kernel instances "
           f"(dtype, states): " + "; ".join(
@@ -7646,15 +8348,6 @@ def main():
           flush=True)
     del score, fwd, tp, graphed
     torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    n, k5_small, k6_small, n_spill = check_dyn_small(device)
-    print(f"[7 dyn small] {n} kernel configurations match their plain "
-          f"versions, {n_spill} of them with pools capped at "
-          f"{SPILL_CAPS} slots so that rows spill "
-          f"({time.perf_counter() - t0:.1f} s); largest f32 "
-          f"deviations: K5 CLV abs {k5_small:.3e}, K6 |d logL| "
-          f"{k6_small:.3e}", flush=True)
 
     mid = phase_mid(device, fp32_peak)
     giant = phase_giant(device, fp32_peak)
@@ -7678,12 +8371,78 @@ def main():
           flush=True)
 
     # ---------------------------------------------------- 11-14: seg tier
-    starts.append(("11-14", time.perf_counter()))
+    starts.append(("11, 13-14", time.perf_counter()))
     for name in ("clv_seg", "roofline"):
         rows = ptxas_report(name)
         print(f"[11 seg build] {name}.cu: {len(rows)} kernel instances: "
               + "; ".join(f"{lab} {r} registers, {b} B spill"
                           for lab, r, b, _ in rows), flush=True)
+    torch.cuda.empty_cache()
+    readme = phase_readme(device, fp32_peak)
+    roof = phase_roofline(device, card, ms["k1"], readme["ms"]["k3"],
+                          readme["n_inner"])
+
+    # ---------------------------------------------------- 15-17: train step
+    starts.append(("16-19", time.perf_counter()))
+    train = phase_train_step(device, card, fp32_peak)
+    torch.cuda.empty_cache()
+    protein = phase_protein(device, card, fp32_peak)
+
+    # ---------------------------------------------------- 20-23: partition
+    starts.append(("21-23", time.perf_counter()))
+    phase_partition(device, card, fp32_peak)
+    torch.cuda.empty_cache()
+    phase_partition_protein(device)
+
+    # ---------------------------------------------------- 24-26: parsimony
+    starts.append(("25-26", time.perf_counter()))
+    runs = phase_stepwise(device)
+    pars = phase_stepwise_times(device, card, sms, clock_mhz, runs)
+
+    # ---------------------------------------------------- 27-29: blopt
+    starts.append(("28-29", time.perf_counter()))
+    bl = phase_blopt(device, card, fp32_peak)
+
+    # ---------------------------------------------------- 30-31: search
+    starts.append(("31", time.perf_counter()))
+    sp = phase_spr(device, card, fp32_peak)
+
+    # ---------------------------------------------------- 32-33: inference
+    starts.append(("33", time.perf_counter()))
+    found, alignment, infer_launches, infer_more = phase_infer(device, card)
+    infer_ref = dict(logl=found.logl, start=found.start_parsimony_score,
+                     rounds=found.rounds, newick=infer_more["newick"],
+                     s=found.timings)
+
+    # ------------------------------------------ 36: alphabets, timed part
+    starts.append(("36 timed", time.perf_counter()))
+    torch.cuda.empty_cache()
+    alpha = phase_alphabets(device, card, fp32_peak)
+
+    # ------------------------------------ 35 beside the check-only phases
+    # phase 35's ranks run their sharded paths while the phases below
+    # check what they check (no number of theirs enters the kernels line);
+    # the ranks time their part once those end (MeshRanks.finish)
+    ranks = MeshRanks(infer_more.pop("data"))
+    all_threads = torch.get_num_threads()
+    torch.set_num_threads(BESIDE_THREADS)
+    starts.append(("3", time.perf_counter()))
+    t0 = time.perf_counter()
+    n, k1_small, k2_small = check_small(device)
+    print(f"[3 small] {n} kernel configurations match their plain versions "
+          f"({time.perf_counter() - t0:.1f} s); largest f32 deviations: K1 "
+          f"|d logL| {k1_small:.3e}, K2 CLV abs {k2_small:.3e}", flush=True)
+    starts.append(("7", time.perf_counter()))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n, k5_small, k6_small, n_spill = check_dyn_small(device)
+    print(f"[7 dyn small] {n} kernel configurations match their plain "
+          f"versions, {n_spill} of them with pools capped at "
+          f"{SPILL_CAPS} slots so that rows spill "
+          f"({time.perf_counter() - t0:.1f} s); largest f32 "
+          f"deviations: K5 CLV abs {k5_small:.3e}, K6 |d logL| "
+          f"{k6_small:.3e}", flush=True)
+    starts.append(("12", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     n, k3_small, k4_small, smem = check_seg_small(device)
@@ -7692,12 +8451,7 @@ def main():
           f"{smem} of a block's {cseg.SMEM_LIMIT} bytes of shared memory; "
           f"largest f32 deviations: K3 CLV abs {k3_small:.3e}, K4 |d logL| "
           f"{k4_small:.3e}", flush=True)
-    readme = phase_readme(device, fp32_peak)
-    roof = phase_roofline(device, card, ms["k1"], readme["ms"]["k3"],
-                          readme["n_inner"])
-
-    # ---------------------------------------------------- 15-17: train step
-    starts.append(("15-19", time.perf_counter()))
+    starts.append(("15", time.perf_counter()))
     rows = ptxas_report("derivatives")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7710,24 +8464,14 @@ def main():
           f"{n1_small:.3e}; path (R resident, S streamed) of "
           f"{'/'.join(NEWTON_VARIANTS)}: " + ", ".join(
               f"{case} {p}" for case, p in paths.items()), flush=True)
-    train = phase_train_step(device, card, fp32_peak)
-    torch.cuda.empty_cache()
-    protein = phase_protein(device, card, fp32_peak)
-
-    # ---------------------------------------------------- 20-23: partition
-    starts.append(("20-23", time.perf_counter()))
+    starts.append(("20", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     n = check_partition_small(device)
     print(f"[20 partition small] {n} configurations: the Partition and the "
           f"executors of ops/clv on the card match the CPU "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    phase_partition(device, card, fp32_peak)
-    torch.cuda.empty_cache()
-    phase_partition_protein(device)
-
-    # ---------------------------------------------------- 24-26: parsimony
-    starts.append(("24-26", time.perf_counter()))
+    starts.append(("24", time.perf_counter()))
     torch.cuda.empty_cache()
     rows = ptxas_report("fitch")
     t0 = time.perf_counter()
@@ -7740,7 +8484,7 @@ def main():
           f"Sankoff Parsimony on the card equal the CPU "
           f"({time.perf_counter() - t0:.1f} s; the CPU's builds, engines "
           f"and phase 32's CPU runs took {cpu_refs.result()['s']:.1f} s "
-          f"in a process beside phases 3-23)", flush=True)
+          f"in a process beside the timed phases)", flush=True)
     t0 = time.perf_counter()
     n = check_commit_plans(device)
     past = past_budget_p3(device, sms, clock_mhz)
@@ -7754,11 +8498,7 @@ def main():
           f"rows in {past['levels']} levels) equal to the plain version, P3 "
           f"{past['ms'] * 1e3:.1f} us ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    runs = phase_stepwise(device)
-    pars = phase_stepwise_times(device, card, sms, clock_mhz, runs)
-
-    # ---------------------------------------------------- 27-29: blopt
-    starts.append(("27-29", time.perf_counter()))
+    starts.append(("27", time.perf_counter()))
     torch.cuda.empty_cache()
     rows = ptxas_report("partials")
     t0 = time.perf_counter()
@@ -7791,10 +8531,7 @@ def main():
               for (d, dev), v in small["runs"].items())
           + f"; {small['checked']} U1 launches checked in all "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    bl = phase_blopt(device, card, fp32_peak)
-
-    # ---------------------------------------------------- 30-31: search
-    starts.append(("30-31", time.perf_counter()))
+    starts.append(("30", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     inc_ops._replay_candidates.launches = 0  # the rows check's own path
@@ -7819,10 +8556,7 @@ def main():
           f"NaN vote: U1, K2 and C1 give their plain versions' counters in "
           f"{small['nan']} configurations ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    sp = phase_spr(device, card, fp32_peak)
-
-    # ---------------------------------------------------- 32-33: inference
-    starts.append(("32-33", time.perf_counter()))
+    starts.append(("32", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # one intra-op thread: the CPU halves issue many tiny tensor
@@ -7860,12 +8594,6 @@ def main():
               for name, *_ in INFER_SMALL
               for d in (torch.float64, torch.float32))
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
-    found, alignment, infer_launches, infer_more = phase_infer(device, card)
-    infer_ref = dict(logl=found.logl, start=found.start_parsimony_score,
-                     rounds=found.rounds, newick=infer_more["newick"],
-                     s=found.timings)
-
-    # ---------------------------------------------------- 34: model fitting
     starts.append(("34", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7891,12 +8619,16 @@ def main():
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     phase_modelopt(device, card, found, alignment)
     del found, alignment
+    starts.append(("36 checks", time.perf_counter()))
+    torch.cuda.empty_cache()
+    phase_alphabet_checks(device)
+    torch.set_num_threads(all_threads)
 
     # ---------------------------------------------------- 35: site sharding
-    starts.append(("35", time.perf_counter()))
-    mesh = phase_mesh(device, card, dict(
+    starts.append(("35 wait", time.perf_counter()))
+    mesh = phase_mesh(ranks, card, dict(
         flagship=got_score, flagship_shape=(FLAGSHIP_TIPS, FLAGSHIP_SITES),
-        giant=giant["logl"], infer=infer_ref, data=infer_more.pop("data")))
+        giant=giant["logl"], infer=infer_ref))
 
     def bound_keys(b):
         # no single PyTorch call computes any of these functions (a whole
@@ -7905,6 +8637,7 @@ def main():
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
     fused_src = "libpll_tpu_torch/csrc/clv_fused.cu"
+    any_src = "libpll_tpu_torch/csrc/clv_any.cu"
     dyn_src = "libpll_tpu_torch/csrc/clv_dyn.cu"
     seg_src = "libpll_tpu_torch/csrc/clv_seg.cu"
     roof_src = "libpll_tpu_torch/csrc/roofline.cu"
@@ -8030,7 +8763,25 @@ def main():
          "max_abs_err": sp["batch"]["replay_err"],
          "ms": sp["batch"]["ms"]["c1r"],
          "plain_ms": sp["batch"]["ms"]["c1r_plain"],
-         **bound_keys(sp["batch"]["replay_bound"])}]}))
+         **bound_keys(sp["batch"]["replay_bound"])},
+        # the any-alphabet instances of K1, K2 and N1 (phase 36): at the
+        # GT16 flagship (16 states) and the codon-sized check (61)
+        *({"name": f"{name}_{cell}", "route": "cuda", "source": src,
+           "replaces": line,
+           "launches": alpha[cell]["launches"][entry][k],
+           "max_abs_err": alpha[cell][f"{key}_err"],
+           "ms": alpha[cell]["ms"][key],
+           "plain_ms": alpha[cell]["ms"][f"{key}_plain"],
+           **bound_keys(alpha[cell][f"{key}_bound"])}
+          for cell in ("gt16", "codon")
+          for name, key, src, line, entry, k in (
+              ("fused_edge_score_any", "k1", any_src,
+               "libpll_tpu/ops/clv_pallas.py:462", "make_score", 0),
+              ("fused_sweep_any", "k2", any_src,
+               "libpll_tpu/ops/clv_pallas.py:673", "make_forward_fused", 1),
+              ("newton_solve_any", "n1", deriv_src,
+               "libpll_tpu/engine/evaluate.py:657", "make_train_step_fused",
+               2)))]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

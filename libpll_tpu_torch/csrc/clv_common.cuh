@@ -353,4 +353,160 @@ __device__ void tile_sum_store(double v, double* out) {
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
+// ---------------------------------------------------------------- any S
+// The any-alphabet op (clv_any.cu's K1/K2 and partials.cu's C1 at S not in
+// {4, 20}): the state loops run to a compile-time bound R with the states
+// past S masked, the P-matrices in rows padded with zeros to whole 16-byte
+// vectors (clv_fused.pad_rows), read as vectors in K1's dot order (a zero
+// entry adds 0 * 0, which changes no bit).
+// R at or below which a row's state loop is unrolled whole
+constexpr int kAnyUnrolled = 16;
+
+// A row's entries at one site: entry (c, k) at p[(c*ns + k) * stride].
+template <typename T>
+struct RowAt {
+  const T* p;
+  int64_t stride;
+  __device__ __forceinline__ T operator()(int c, int k, int ns) const {
+    return p[((int64_t)c * ns + k) * stride];
+  }
+};
+
+// A pattern tip's 0/1 entries: bit k of its code, at every rate.
+template <typename T>
+struct CodeAt {
+  uint32_t code;
+  __device__ __forceinline__ T operator()(int, int k, int) const {
+    return (T)((code >> k) & 1u);
+  }
+};
+
+// f(j) for each state j < ns: unrolled whole at R <= kAnyUnrolled, so that
+// arrays indexed by j stay in registers, else a loop.
+template <int R, typename F>
+__device__ __forceinline__ void each_state(int ns, F&& f) {
+  if constexpr (R <= kAnyUnrolled) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j >= ns) break;
+      f(j);
+    }
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < ns; ++j) f(j);
+  }
+}
+
+// Rate c's child values into x (0 past ns), always in registers.
+template <typename T, int R, typename X>
+__device__ __forceinline__ void any_child(const X& child, int c, int ns,
+                                           T (&x)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) x[k] = k < ns ? child(c, k, ns) : (T)0;
+}
+
+// sum_k row[k] x[k] in K1's order, the padded row read as 16-byte vectors
+// (its zeros past ns meet zeros in x).
+template <typename T, int R>
+__device__ __forceinline__ T dot_row(const T* row_p, int ns,
+                                     const T (&x)[R]) {
+  using V = typename Vec16<T>::type;
+  constexpr int n = Vec16<T>::n;
+  const V* row = reinterpret_cast<const V*>(row_p);
+  T acc = 0;
+#pragma unroll
+  for (int q = 0; q < R / n; ++q) {
+    if (q * n >= ns) break;
+    const V w = __ldg(row + q);
+    if constexpr (n == 4) {
+      acc = q == 0 ? w.x * x[0] : dev_fma(w.x, x[4 * q], acc);
+      acc = dev_fma(w.y, x[4 * q + 1], acc);
+      acc = dev_fma(w.z, x[4 * q + 2], acc);
+      acc = dev_fma(w.w, x[4 * q + 3], acc);
+    } else {
+      acc = q == 0 ? w.x * x[0] : dev_fma(w.x, x[2 * q], acc);
+      acc = dev_fma(w.y, x[2 * q + 1], acc);
+    }
+  }
+  return acc;
+}
+
+// t[j] (=, or *= when kMul) sum_k pm[j, k] x[k] for j < ns: pm is one
+// rate's [ns, sp] padded rows.
+template <typename T, int R, bool kMul>
+__device__ __forceinline__ void contract_any(const T* pm, int ns, int sp,
+                                             const T (&x)[R], T (&t)[R]) {
+  each_state<R>(ns, [&](int j) {
+    const T acc = dot_row<T, R>(pm + (int64_t)j * sp, ns, x);
+    t[j] = kMul ? t[j] * acc : acc;
+  });
+}
+
+// One op at one site (U1's semantics, partials.cu): per rate c the two
+// children's products, the vote and the counters.  out: the parent's row
+// (entry (c, k) (c*ns + k) strides of lo further), which may be a child's:
+// a rate's child values are read before its products are written.  The
+// counters (sc1, sc2 in, sout out; rate c c strides further) are read and
+// written only when `counts`; the products scale only where `may` (the
+// op's flag) holds.  Per-site scaling stores the products unscaled and
+// rescales the row where every rate voted small.  The vote is all_below's:
+// a NaN anywhere means no scaling, as in JAX.
+template <typename T, int R, typename X1, typename X2>
+__device__ __forceinline__ void any_op(
+    const X1& x1, const X2& x2, T* out, int64_t lo, const T* p1,
+    const T* p2, RowAt<int32_t> sc1, RowAt<int32_t> sc2, int32_t* sout,
+    int64_t lso, bool counts, bool may, bool per_rate, int C, int ns,
+    int sp, const Scale<T>& u) {
+  bool site_below = true;
+  for (int c = 0; c < C; ++c) {
+    T x[R], t[R];
+    const int64_t m = (int64_t)c * ns * sp;
+    any_child<T, R>(x1, c, ns, x);
+    contract_any<T, R, false>(p1 + m, ns, sp, x, t);
+    any_child<T, R>(x2, c, ns, x);
+    contract_any<T, R, true>(p2 + m, ns, sp, x, t);
+    bool below = may;
+    each_state<R>(ns, [&](int j) { below &= t[j] < u.thresh; });
+    if (per_rate && counts) {
+      if (below) each_state<R>(ns, [&](int j) { t[j] *= u.factor; });
+      sout[c * lso] = sc1(0, c, 1) + sc2(0, c, 1) + (int32_t)below;
+    }
+    site_below &= below;
+    each_state<R>(ns, [&](int j) { out[((int64_t)c * ns + j) * lo] = t[j]; });
+  }
+  if (counts && !per_rate) {
+    if (site_below)
+      for (int64_t k = 0; k < (int64_t)C * ns; ++k)
+        out[k * lo] = out[k * lo] * u.factor;
+    sout[0] = sc1(0, 0, 1) + sc2(0, 0, 1) + (int32_t)site_below;
+  }
+}
+
+// ------------------------------------------------------------------ host
+// Raise `kernel`'s limit of dynamic shared memory to all a block may have
+// (so that every launch of a layout given for it is taken) and prefer
+// shared memory to L1.  limit: those bytes; sms: the card's SMs.
+template <typename K>
+cudaError_t open_kernel(K* kernel, int* limit, int* sms) {
+  int device = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *limit = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
 }  // namespace

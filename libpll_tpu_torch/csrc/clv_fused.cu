@@ -402,32 +402,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Raise `kernel`'s limit of dynamic shared memory to all a block may have
-// (so that every launch of a layout given for it is taken) and prefer
-// shared memory to L1.  limit: those bytes; sms: the card's SMs.
-template <typename K>
-cudaError_t open_kernel(K* kernel, int* limit, int* sms) {
-  int device = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  *limit = optin - (int)attr.sharedSizeBytes;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             *limit);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  return err;
-}
-
 // The launch for a plan: the largest chunk (8, 4, 2, 1 ops) and then
 // block (128, 64, 32 threads) whose shared memory fits a block.  out:
 // dynamic shared memory, blocks per SM, threads, chunk, sites per block,

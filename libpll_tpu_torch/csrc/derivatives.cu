@@ -103,6 +103,7 @@ constexpr int kSlots = 8;       // float64 partials a block and body
 // Lewis / Felsenstein, the pseudo columns' A0, A1, A2 and weight sum
 constexpr int kValues = 3, kPseudo = 4;
 constexpr int kMaxIters = 32;
+constexpr int kMaxAnyStates = 64;  // the any-alphabet instance's largest S
 constexpr int kAscNone = 0, kAscLewis = 1, kAscFelsenstein = 2,
               kAscStamatakis = 3;
 constexpr bool kSiteWork = true;    // false: timing only (no site terms)
@@ -569,11 +570,311 @@ __global__ void __launch_bounds__(kBlock, 1)
   }
 }
 
-template <typename T, int S>
-cudaError_t instance_query(int64_t smem, int32_t* out) {
-  // [0]: the dynamic shared memory a resident block may have, after
-  // raising the resident instance's limit to it; [1]: SMs; [2]: blocks an
-  // SM holds of the instance `smem` picks (resident when smem > 0)
+// ---------------------------------------------------------------------------
+// Any alphabet (2 <= S <= kMaxAnyStates) and any rate count
+// ---------------------------------------------------------------------------
+// N1 at every (S, C) the S = 4 and S = 20 instances at C <= 8 do not take:
+// the same solve (one cooperative launch, the grid barrier, the fold in
+// block order, the step), with S and C read at run time.  The per-rate
+// tables those instances hold in a static shared struct (the body's
+// diagonals e, lam e, lam^2 e, lam, the invariant terms, p-inv, 1 - p-inv,
+// the rate weights: 5 C S + 3 C values) lie at the front of the dynamic
+// shared memory where they fit half a block's (derivatives.plan_newton),
+// else in a device row of their own a block (`tables`); the resident slice
+// follows them.  A thread carries one site through the rates at a time.
+// Bound: as the instances above (operations, ~(6 S + 10) C flop a site and
+// body; the slice's bytes once).
+template <typename T>
+struct AnyTables {
+  T* diag;  // [C, 3, S]
+  T* lam;   // [C*S]
+  T* inv_lk;
+  T* one_minus;  // [C]
+  T* pinv;
+  T* rw;
+};
+
+__host__ __device__ __forceinline__ int64_t any_table_values(int C, int S) {
+  return 5LL * C * S + 3LL * C;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ int64_t any_table_bytes(int C, int S) {
+  return (any_table_values(C, S) * (int64_t)sizeof(T) + 15) / 16 * 16;
+}
+
+template <typename T>
+__device__ __forceinline__ void any_stage_diag(const AnyTables<T>& tb, int C,
+                                               int S, T t, int first,
+                                               int step) {
+  for (int i = first; i < C * S; i += step) {
+    const T lam = tb.lam[i];
+    const T e = dev_exp(lam * t);
+    const int c = i / S, j = i % S;
+    tb.diag[(c * 3 + 0) * S + j] = e;
+    tb.diag[(c * 3 + 1) * S + j] = lam * e;
+    tb.diag[(c * 3 + 2) * S + j] = lam * lam * e;
+  }
+}
+
+// site_pass's terms of one site n (below count) of the slice, any S.
+template <typename T, bool Resident>
+__device__ __forceinline__ void any_site(const NewtonArgs<T>& a,
+                                         const AnyTables<T>& tb, int S,
+                                         const T* st, const T* wt,
+                                         const int32_t* inv, int64_t row,
+                                         int64_t first, int n,
+                                         double (&acc)[3]) {
+  T lk[3] = {(T)0, (T)0, (T)0};
+  for (int c = 0; c < a.rate_cats; ++c) {
+    T cat[3] = {(T)0, (T)0, (T)0};
+    const T* col = st + (int64_t)c * S * row;
+    const T* dg = tb.diag + c * 3 * S;
+    for (int j = 0; j < S; ++j) {
+      const T v = slice_at<Resident>(col, j * row + n);
+      cat[0] += v * dg[j];
+      cat[1] += v * dg[S + j];
+      cat[2] += v * dg[2 * S + j];
+    }
+    const T p = tb.pinv[c];
+    if (p > (T)0) {
+      const int code = slice_at<Resident>(inv, n);
+      const T inv_lk = code >= 0 ? tb.inv_lk[c * S + code] : (T)0;
+      const T om = tb.one_minus[c];
+      cat[0] = cat[0] * om + inv_lk;
+      cat[1] = cat[1] * om;
+      cat[2] = cat[2] * om;
+    }
+    const T w = tb.rw[c];
+    lk[0] += w * cat[0];
+    lk[1] += w * cat[1];
+    lk[2] += w * cat[2];
+  }
+  const T deriv1 = -lk[1] / lk[0];
+  const T deriv2 = deriv1 * deriv1 - lk[2] / lk[0];
+  const T w = slice_at<Resident>(wt, n);
+  acc[0] += (double)(w * deriv1);
+  acc[1] += (double)(w * deriv2);
+  if (first + n < a.sites) acc[2] += (double)w;
+}
+
+// pseudo_terms for any S: lane l takes columns l, l + 32, ...
+template <typename T>
+__device__ __forceinline__ void any_pseudo_terms(const NewtonArgs<T>& a,
+                                                 const AnyTables<T>& tb,
+                                                 int S, double (&p)[4]) {
+  p[0] = p[1] = p[2] = p[3] = 0.0;
+  for (int j = threadIdx.x & 31; j < S; j += 32) {
+    const int64_t n = a.sites + j;
+    T lk[3] = {0, 0, 0};
+    for (int c = 0; c < a.rate_cats; ++c) {
+      T cat[3] = {0, 0, 0};
+      for (int i = 0; i < S; ++i) {
+        const T v = a.sumtable[((int64_t)c * S + i) * a.length + n];
+        for (int k = 0; k < 3; ++k) cat[k] += v * tb.diag[(c * 3 + k) * S + i];
+      }
+      for (int k = 0; k < 3; ++k) lk[k] += tb.rw[c] * cat[k];
+    }
+    const int sc = (a.scal_p ? a.scal_p[n] : 0) + (a.scal_c ? a.scal_c[n] : 0);
+    const T factor = (T)ldexp(1.0, -Shift<T>::bits * sc);
+    for (int k = 0; k < 3; ++k) p[k] += (double)(lk[k] * factor);
+    p[3] += (double)a.weights[n];
+  }
+  for (int k = 0; k < 4; ++k) p[k] = warp_sum(p[k]);
+}
+
+// form_slice for any S: each entry's two dots read the rows from device
+// memory (no register copy of a row).
+template <typename T>
+__device__ __forceinline__ void any_form_slice(const NewtonArgs<T>& a, int S,
+                                               T* st_s, int64_t first,
+                                               int count) {
+  const int C = a.rate_cats;
+  for (int n = threadIdx.x; n < count; n += kBlock) {
+    const int64_t col = first + n;
+    int low = 0;
+    if (a.rscal_p) {
+      low = a.rscal_p[col] + a.rscal_c[col];
+      for (int c = 1; c < C; ++c) {
+        const int sc = a.rscal_p[c * a.length + col] +
+                       a.rscal_c[c * a.length + col];
+        low = sc < low ? sc : low;
+      }
+    }
+    for (int c = 0; c < C; ++c) {
+      T factor = (T)1;
+      if (a.rscal_p) {
+        int d = a.rscal_p[c * a.length + col] +
+                a.rscal_c[c * a.length + col] - low;
+        d = d < kRateMaxDiff ? d : kRateMaxDiff;
+        factor = (T)ldexp(1.0, -Shift<T>::bits * d);
+      }
+      T* out = st_s + (int64_t)c * S * a.stride + n;
+      for (int j = 0; j < S; ++j) {
+        T left = (T)0, right = (T)0;
+        const T* ml = a.lt + ((int64_t)c * S + j) * S;
+        const T* mr = a.right + ((int64_t)c * S + j) * S;
+        for (int k = 0; k < S; ++k) {
+          const int64_t e = ((int64_t)c * S + k) * a.length + col;
+          left += __ldg(ml + k) * a.clv_p[e];
+          right += __ldg(mr + k) * a.clv_c[e];
+        }
+        T v = left * right;
+        if (a.rscal_p) v = v * factor;
+        out[j * a.stride] = v;
+      }
+    }
+  }
+}
+
+template <typename T>
+struct AnyNewtonArgs {
+  NewtonArgs<T> a;
+  int states;
+  T* tables;  // [grid, any_table_values] or null: in shared memory
+};
+
+template <typename T, bool Resident>
+__global__ void __launch_bounds__(kBlock, 1)
+    newton_any_kernel(const __grid_constant__ AnyNewtonArgs<T> aa) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ double scratch[kWarps][kValues];
+  __shared__ int more_s;
+  const NewtonArgs<T>& a = aa.a;
+  const int C = a.rate_cats, S = aa.states;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t first = (int64_t)blockIdx.x * a.block_sites;
+  const int count = (int)(a.ef - first < a.block_sites ? a.ef - first
+                                                       : a.block_sites);
+  const bool asc_terms =
+      a.asc_mode == kAscLewis || a.asc_mode == kAscFelsenstein;
+  T* tab = aa.tables ? aa.tables + blockIdx.x * any_table_values(C, S)
+                     : reinterpret_cast<T*>(dyn);
+  AnyTables<T> tb;
+  tb.diag = tab;
+  tb.lam = tab + 3 * C * S;
+  tb.inv_lk = tb.lam + C * S;
+  tb.one_minus = tb.inv_lk + C * S;
+  tb.pinv = tb.one_minus + C;
+  tb.rw = tb.pinv + C;
+  unsigned char* slice_raw = dyn + (aa.tables ? 0 : any_table_bytes<T>(C, S));
+
+  for (int k = tid; k < C * S; k += kBlock) {
+    const int c = k / S;
+    tb.lam[k] = a.evals[k] * (a.rates[c] / ((T)1 - a.pinv[c]));
+    tb.inv_lk[k] = a.freqs[k] * a.pinv[c];
+  }
+  for (int c = tid; c < C; c += kBlock) {
+    tb.pinv[c] = a.pinv[c];
+    tb.one_minus[c] = (T)1 - a.pinv[c];
+    tb.rw[c] = a.rw[c];
+  }
+  T* st_s = reinterpret_cast<T*>(slice_raw);
+  T* w_s = st_s + (int64_t)C * S * a.stride;
+  int32_t* inv_s = reinterpret_cast<int32_t*>(w_s + a.stride);
+  if (Resident) {
+    if (a.sumtable == nullptr) {
+      any_form_slice<T>(a, S, st_s, first, count);
+    } else {
+      for (int k = 0; k < C * S; ++k) {
+        const T* src = a.sumtable + (int64_t)k * a.length + first;
+        for (int n = tid; n < count; n += kBlock)
+          cp_async_elem(st_s + (int64_t)k * a.stride + n, src + n);
+      }
+    }
+    for (int n = tid; n < count; n += kBlock) {
+      cp_async_elem(w_s + n, a.weights + first + n);
+      cp_async_elem(inv_s + n, a.invariant + first + n);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();  // lam staged
+  T t = a.t0[0], d1 = (T)0, d2 = (T)0;  // warp 0's
+  any_stage_diag(tb, C, S, t, tid, kBlock);
+  __syncthreads();
+
+  const int64_t row = Resident ? a.stride : a.length;
+  const T* st = Resident ? st_s : a.sumtable + first;
+  const T* wt = Resident ? w_s : a.weights + first;
+  const int32_t* inv = Resident ? inv_s : a.invariant + first;
+  int k = 0;
+  for (;; ++k) {
+    double acc[kValues] = {0.0, 0.0, 0.0};
+    for (int n = tid; n < count; n += kBlock)
+      any_site<T, Resident>(a, tb, S, st, wt, inv, row, first, n, acc);
+    double pseudo[kPseudo] = {0.0, 0.0, 0.0, 0.0};
+    if (asc_terms && blockIdx.x == 0 && warp == 0)
+      any_pseudo_terms(a, tb, S, pseudo);
+#pragma unroll
+    for (int i = 0; i < kValues; ++i) acc[i] = warp_sum(acc[i]);
+    if (lane == 0)
+      for (int i = 0; i < kValues; ++i) scratch[warp][i] = acc[i];
+    __syncthreads();
+
+    // warp 0: as newton_solve_kernel's
+    if (warp == 0) {
+      double v[kValues];
+#pragma unroll
+      for (int i = 0; i < kValues; ++i)
+        v[i] = warp_sum(lane < kWarps ? scratch[lane][i] : 0.0);
+      double* part = a.partials + (int64_t)(k & 1) * gridDim.x * kSlots;
+      double f[kValues];
+      if (lane == 0) {
+        double* mine = part + (int64_t)blockIdx.x * kSlots;
+        for (int i = 0; i < kValues; ++i) mine[i] = v[i];
+        if (asc_terms && blockIdx.x == 0)
+          for (int i = 0; i < kPseudo; ++i) mine[kValues + i] = pseudo[i];
+        arrive_and_wait(a.arrived, (unsigned)(k + 1) * gridDim.x);
+      }
+      __syncwarp();
+      fold(part, (int)gridDim.x, f);
+      d1 = (T)f[0];
+      d2 = (T)f[1];
+      if (a.sums != nullptr && blockIdx.x == 0 && lane == 0)
+        for (int i = 0; i < kValues; ++i) a.sums[i] = f[i];
+      if (asc_terms) {
+        double ps[kPseudo];
+        for (int i = 0; i < kPseudo; ++i) ps[i] = __ldcg(part + kValues + i);
+        const T a0 = (T)ps[0], a1 = (T)ps[1], a2 = (T)ps[2];
+        if (a.asc_mode == kAscLewis) {
+          const T sum_w = (T)f[2];
+          d1 = d1 + sum_w * (a1 / (a0 - (T)1));
+          d2 = d2 + sum_w * (((a0 - (T)1) * a2 - a1 * a1) /
+                             ((a0 - (T)1) * (a0 - (T)1)));
+        } else {
+          const T sum_w_inv = (T)ps[3];
+          d1 = d1 - sum_w_inv * (a1 / a0);
+          d2 = d2 - sum_w_inv * ((a2 * a0 - a1 * a1) / (a0 * a0));
+        }
+      }
+      const T step =
+          d2 != (T)0 ? d1 / (a.abs_d2 ? dev_abs(d2) : d2) : d1;
+      const T t_new = t - step;
+      const T lo = (T)1e-8, hi = (T)100;
+      t = t_new < lo ? lo : (t_new > hi ? hi : t_new);
+      const bool more = dev_abs(d1) > (T)1e-9 && k + 1 < a.max_iters;
+      if (more) any_stage_diag(tb, C, S, t, lane, 32);
+      if (lane == 0) more_s = more;
+    }
+    __syncthreads();
+    if (!more_s) break;
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    a.out[0] = t;
+    a.out[1] = d1;
+    a.out[2] = d2;
+    a.iterations[0] = k + 1;
+  }
+}
+
+// [0]: the dynamic shared memory a block of the resident kernel `res` may
+// have, after raising the limit of it and of the streamed `str` to it;
+// [1]: SMs; [2]: blocks an SM holds of `res` (resident) or `str` at
+// `smem` bytes.
+template <typename K>
+cudaError_t query_pair(K* res, K* str, int64_t smem, bool resident,
+                       int32_t* out) {
   int device = 0, optin = 0, sms = 0, blocks = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&device);
@@ -583,24 +884,36 @@ cudaError_t instance_query(int64_t smem, int32_t* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, newton_solve_kernel<T, S, true>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, res);
   if (err != cudaSuccess) return err;
   const int limit = optin - (int)attr.sharedSizeBytes;
-  err = cudaFuncSetAttribute(newton_solve_kernel<T, S, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             limit);
+  K* const kernels[2] = {res, str};
+  for (K* k : kernels)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
   if (err == cudaSuccess)
-    err = smem > 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, newton_solve_kernel<T, S, true>, kBlock,
-                         (size_t)smem)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, newton_solve_kernel<T, S, false>, kBlock,
-                         0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, resident ? res : str, kBlock, (size_t)smem);
   out[0] = limit;
   out[1] = sms;
   out[2] = blocks;
   return err;
+}
+
+// The S = 4 / S = 20 instance's query (resident when smem > 0).
+template <typename T, int S>
+cudaError_t instance_query(int64_t smem, int32_t* out) {
+  return query_pair(newton_solve_kernel<T, S, true>,
+                    newton_solve_kernel<T, S, false>, smem, smem > 0, out);
+}
+
+// The any-alphabet instance's card: as instance_query, for the instance
+// `resident` picks, at `smem` bytes.
+template <typename T>
+cudaError_t any_instance_query(int64_t smem, int resident, int32_t* out) {
+  return query_pair(newton_any_kernel<T, true>, newton_any_kernel<T, false>,
+                    smem, resident != 0, out);
 }
 
 template <typename T, int S, bool Resident>
@@ -689,6 +1002,84 @@ int solve(int rate_cats, int states, int64_t length, int64_t sites,
   return (int)err;
 }
 
+template <typename T>
+int solve_any(int rate_cats, int states, int64_t length, int64_t sites,
+              int asc_mode, int max_iters, int abs_d2, int threads, int grid,
+              int block_sites, int64_t smem, const void* sumtable,
+              const void* clv_p, const void* clv_c, const void* lt,
+              const void* right, const int32_t* rscal_p,
+              const int32_t* rscal_c, const void* t0, const void* rates,
+              const void* pinv, const void* evals, const void* freqs,
+              const void* rw, const int32_t* invariant, const void* weights,
+              const int32_t* scal_p, const int32_t* scal_c,
+              double* partials, unsigned* arrived, int32_t* iterations,
+              void* out, double* sums, void* stream, int resident,
+              void* tables) {
+  const bool asc_cols = asc_mode != kAscNone;
+  const int64_t ef = asc_mode == kAscStamatakis ? sites + states : sites;
+  const int stride =
+      (block_sites + kSliceAlign - 1) / kSliceAlign * kSliceAlign;
+  const int64_t slice = (int64_t)stride * ((int64_t)rate_cats * states *
+                                               sizeof(T) +
+                                           sizeof(T) + sizeof(int32_t));
+  const int64_t want = (tables ? 0 : any_table_bytes<T>(rate_cats, states)) +
+                       (resident ? slice : 0);
+  if (rate_cats < 1 || states < 2 || states > kMaxAnyStates || sites < 1 ||
+      sites > length || (asc_cols && length - sites != states) ||
+      asc_mode < kAscNone || asc_mode > kAscStamatakis || max_iters < 1 ||
+      max_iters > kMaxIters || threads != kBlock || grid < 1 ||
+      grid > kMaxGrid || block_sites < 1 ||
+      (int64_t)grid * block_sites < ef ||
+      (int64_t)(grid - 1) * block_sites >= ef || smem != want ||
+      (sums != nullptr && (asc_mode != kAscNone || max_iters != 1)) ||
+      (sumtable == nullptr &&
+       (!resident || !clv_p || !clv_c || !lt || !right ||
+        asc_mode == kAscLewis || asc_mode == kAscFelsenstein ||
+        (rscal_p == nullptr) != (rscal_c == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  AnyNewtonArgs<T> aa;
+  NewtonArgs<T>& a = aa.a;
+  a.sumtable = static_cast<const T*>(sumtable);
+  a.clv_p = static_cast<const T*>(clv_p);
+  a.clv_c = static_cast<const T*>(clv_c);
+  a.lt = static_cast<const T*>(lt);
+  a.right = static_cast<const T*>(right);
+  a.rscal_p = rscal_p;
+  a.rscal_c = rscal_c;
+  a.t0 = static_cast<const T*>(t0);
+  a.rates = static_cast<const T*>(rates);
+  a.pinv = static_cast<const T*>(pinv);
+  a.evals = static_cast<const T*>(evals);
+  a.freqs = static_cast<const T*>(freqs);
+  a.rw = static_cast<const T*>(rw);
+  a.invariant = invariant;
+  a.weights = static_cast<const T*>(weights);
+  a.scal_p = scal_p;
+  a.scal_c = scal_c;
+  a.partials = partials;
+  a.arrived = arrived;
+  a.iterations = iterations;
+  a.out = static_cast<T*>(out);
+  a.sums = sums;
+  a.length = length;
+  a.sites = sites;
+  a.ef = ef;
+  a.block_sites = block_sites;
+  a.stride = stride;
+  a.rate_cats = rate_cats;
+  a.asc_mode = asc_mode;
+  a.max_iters = max_iters;
+  a.abs_d2 = abs_d2 != 0;
+  aa.states = states;
+  aa.tables = static_cast<T*>(tables);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* args[] = {&aa};
+  return (int)cudaLaunchCooperativeKernel(
+      resident ? (const void*)newton_any_kernel<T, true>
+               : (const void*)newton_any_kernel<T, false>,
+      dim3(grid), dim3(kBlock), args, (size_t)smem, st);
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  newton_solve_* makes one cooperative
@@ -739,6 +1130,26 @@ extern "C" int newton_query(int f64, int states, int64_t smem,
     err = states == 4 ? instance_query<float, 4>(smem, out)
                       : instance_query<float, 20>(smem, out);
   return (int)err;
+}
+
+// newton_solve_any_* is newton_solve_* for the any-alphabet instance
+// (2 <= states <= 64, any rate count): `resident` says whether the slices
+// sit in shared memory; `tables` is a device scratch of [grid, 5 C S + 3 C]
+// values for the per-rate tables, or null to hold them at the front of the
+// shared memory; smem is then their bytes (rounded up to 16) plus the
+// resident slice's.  newton_any_query is newton_query for that instance.
+extern "C" int newton_solve_any_f32(SOLVE_PARAMS, int resident,
+                                    void* tables) {
+  return solve_any<float>(SOLVE_ARGS, resident, tables);
+}
+extern "C" int newton_solve_any_f64(SOLVE_PARAMS, int resident,
+                                    void* tables) {
+  return solve_any<double>(SOLVE_ARGS, resident, tables);
+}
+extern "C" int newton_any_query(int f64, int64_t smem, int resident,
+                                int32_t* out) {
+  return (int)(f64 ? any_instance_query<double>(smem, resident, out)
+                   : any_instance_query<float>(smem, resident, out));
 }
 
 // The device address of pinned host memory (the derivative mode's t and

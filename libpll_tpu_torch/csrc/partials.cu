@@ -98,13 +98,16 @@
 //    NNI passes one slot three times) reads b's new matrix, and every op's
 //    parent lands in scratch row (column 0) - N with U1's rule for skipped
 //    repeats.  The checks of rows and counters use it.
-// Both use one per-op device function, a thread a site (op_at_site, with
-// each row's stride: a device row's L or the tile).  The base CLVs, scalers and P-matrices are never
-// written; what C1 writes is not __restrict__ nor read through the
-// non-coherent path.  Shapes: base clv [N, C, S, L], scalers [NS+1, (C,)
-// L], pmatrix [M, C, S, S]; tables int32 [B, K, 8]; the overlay [B, U, C,
-// S, S]; scratch [B, R, C, S, L] and [B, R, (C,) L].  What bounds the
-// scoring instance: bytes, the distinct base rows the batch reads, each
+// Both use one per-op device function, a thread a site (op_at_site at
+// S = 4 and 20, clv_common.cuh's any_op for any other alphabet, which
+// reads the P-matrices in rows padded to 16 bytes; each row with its
+// stride: a device row's L or the tile).  The base CLVs, scalers and
+// P-matrices are never written; what C1 writes is not __restrict__ nor
+// read through the non-coherent path.  Shapes: base clv [N, C, S, L],
+// scalers [NS+1, (C,) L], pmatrix [M, C, S, S]; tables int32 [B, K, 8];
+// the overlay [B, U, C, S, S] (C1's P-matrices' rows padded to sp values
+// at S not in {4, 20}); scratch [B, R, C, S, L] and [B, R, (C,) L].  What
+// bounds the scoring instance: bytes, the distinct base rows the batch reads, each
 // once (the candidates of a tile share them through L2); at
 // scripts/bench_spr.py's 1 024 taxa x 16 384 sites in float32 a row is
 // 1 MiB.
@@ -139,7 +142,7 @@ struct ReplayArgs {
 
 // sum_k row[k] x[k] for k < ns.  The loops over states run to ns, a
 // constant in the S = 4 and S = 20 instances (unrolled whole) and the
-// alphabet's size in the kAnyStates one (not unrolled).
+// alphabet's size in U1's kAnyStates one (not unrolled).
 template <typename T, int R>
 __device__ __forceinline__ T dot_n(const T* row, const T (&x)[R], int ns) {
   T acc = __ldg(row) * x[0];
@@ -148,8 +151,9 @@ __device__ __forceinline__ T dot_n(const T* row, const T (&x)[R], int ns) {
   return acc;
 }
 
-// One op at one site: per rate c the two children's products, the
-// scaling vote and the counters, with U1's semantics (header).  x1, x2 and
+// One op at one site (C1 at S = 4 and 20): per rate c the two children's
+// products, the scaling vote and the counters, with U1's semantics
+// (header).  x1, x2 and
 // out point at the site's entry of rate 0, state 0 of their CLV rows, entry
 // (c, k) lying (c*ns + k) strides further (l1, l2, lo: the sites of a
 // device row, or a block's tile for a row in C1's shared-memory pool);
@@ -165,7 +169,7 @@ __device__ __forceinline__ void op_at_site(
     const T* p1, const T* p2, const int32_t* sc1, int64_t ls1,
     const int32_t* sc2, int64_t ls2, int32_t* sout, int64_t lso,
     bool scaled, bool per_rate, int C, int ns, T thresh, T factor) {
-  constexpr int R = S == kAnyStates ? kMaxAnyStates : S;
+  constexpr int R = S;
   bool site_below = true;
   for (int c = 0; c < C; ++c) {
     T l[R], r[R], v[R];
@@ -523,6 +527,8 @@ struct CandidateArgs {
   int scale_mode;
   int batch;                   // B
   int slots;                   // pool slots a block (score)
+  int sp;                      // a P-matrix row: S, or at S not in {4, 20}
+                               // S padded to 16 bytes (pad_rows)
 };
 
 // Where a descriptor's row lives, as (pointer at the site's entry, stride
@@ -544,10 +550,12 @@ __device__ __forceinline__ void candidates_body(const CandidateArgs<T>& a) {
   const int64_t n = (int64_t)(blockIdx.x / a.batch) * tile + t;
   const bool live = n < a.sites;
   if (!kScore && !live) return;
+  constexpr int R = S == kAnyStates ? kMaxAnyStates : S;
+  const int pw = S == kAnyStates ? a.sp : S;  // a P-matrix row's values
   const int C = a.rate_cats;
   const int64_t L = a.sites;
   const int64_t row = (int64_t)C * ns * L;
-  const int64_t mat = (int64_t)C * ns * ns;
+  const int64_t mat = (int64_t)C * ns * pw;
   const bool per_rate = a.scale_mode == SCALE_PER_RATE;
   const int64_t srow = per_rate ? (int64_t)C * L : L;
   const int N = a.n_nodes, NS = a.dummy, U = a.n_upd;
@@ -557,6 +565,10 @@ __device__ __forceinline__ void candidates_body(const CandidateArgs<T>& a) {
   int32_t* spool =
       reinterpret_cast<int32_t*>(pool + (int64_t)a.slots * width * tile);
   const int32_t* table = a.tables + b * a.n_ops * 8;
+  Scale<T> u;  // any_op's units: the threshold and factor (no log)
+  u.thresh = a.thresh;
+  u.factor = a.factor;
+  u.log_scale = a.log_scale;
   int32_t* scalers = const_cast<int32_t*>(a.scalers);  // read only
   T* scratch = a.scratch + b * a.rows * row;
   int32_t* scal_scratch = a.scal_scratch + b * a.rows * srow;
@@ -617,10 +629,18 @@ __device__ __forceinline__ void candidates_body(const CandidateArgs<T>& a) {
         sc2 = scal_at(__ldg(op + 7));
         so = scal_at(ps);
       }
-      op_at_site<T, S>(x1.p, x1.stride, x2.p, x2.stride, out.p, out.stride,
-                       matrix(__ldg(op + 3)), matrix(__ldg(op + 6)), sc1.p,
-                       sc1.stride, sc2.p, sc2.stride, so.p, so.stride, scaled,
-                       per_rate, C, ns, a.thresh, a.factor);
+      if constexpr (S == kAnyStates)
+        any_op<T, R>(RowAt<T>{x1.p, x1.stride}, RowAt<T>{x2.p, x2.stride},
+                     out.p, out.stride, matrix(__ldg(op + 3)),
+                     matrix(__ldg(op + 6)), RowAt<int32_t>{sc1.p, sc1.stride},
+                     RowAt<int32_t>{sc2.p, sc2.stride}, so.p, so.stride,
+                     scaled, true, per_rate, C, ns, pw, u);
+      else
+        op_at_site<T, S>(x1.p, x1.stride, x2.p, x2.stride, out.p,
+                         out.stride, matrix(__ldg(op + 3)),
+                         matrix(__ldg(op + 6)), sc1.p, sc1.stride, sc2.p,
+                         sc2.stride, so.p, so.stride, scaled, per_rate, C,
+                         ns, a.thresh, a.factor);
     }
   }
   if constexpr (kScore) {
@@ -650,17 +670,24 @@ __device__ __forceinline__ void candidates_body(const CandidateArgs<T>& a) {
       const int64_t na = n - a.real_sites, n_asc = L - a.real_sites;
       T term = 0;
       for (int c = 0; c < C; ++c) {
-        constexpr int R = S == kAnyStates ? kMaxAnyStates : S;
         T x[R];
+        if constexpr (S == kAnyStates)
+          any_child<T, R>(RowAt<T>{chi.p, chi.stride}, c, ns, x);
+        else
 #pragma unroll
-        for (int k = 0; k < ns; ++k)
-          x[k] = chi.p[((int64_t)c * ns + k) * chi.stride];
+          for (int k = 0; k < ns; ++k)
+            x[k] = chi.p[((int64_t)c * ns + k) * chi.stride];
         T term_r = 0;
 #pragma unroll
         for (int j = 0; j < ns; ++j) {
           const T pv = par.p[((int64_t)c * ns + j) * par.stride] *
                        __ldg(a.freqs + c * ns + j);
-          const T pc = dot_n<T, R>(pe + ((int64_t)c * ns + j) * ns, x, ns);
+          const T* pr = pe + ((int64_t)c * ns + j) * pw;
+          T pc;
+          if constexpr (S == kAnyStates)
+            pc = dot_row<T, R>(pr, ns, x);
+          else
+            pc = dot_n<T, R>(pr, x, ns);
           term_r = dev_fma(pv, pc, term_r);
         }
         if (per_rate && has_scal) {
@@ -772,6 +799,10 @@ int candidates(const CandidateArgs<T>& args, int score, int tile, int smem,
   if (a.n_ops < 1 || a.n_upd < 0 || a.rows < 0 || a.batch < 1 ||
       a.n_nodes < 1 || a.dummy < 0 || a.rate_cats < 1 || a.states < 2 ||
       a.states > kMaxAnyStates || a.sites < 1 ||
+      a.sp != (a.states == 4 || a.states == 20
+                   ? a.states
+                   : (a.states * (int)sizeof(T) + 15) / 16 * 16 /
+                         (int)sizeof(T)) ||
       a.scale_mode < SCALE_NONE || a.scale_mode > SCALE_PER_RATE ||
       !a.clv || !a.pmatrix || !a.tables || tile < 32 || tile > kReplayBlock ||
       tile % 32 || smem < 0 || (a.n_upd > 0 && !a.upd_pmatrix) ||

@@ -286,8 +286,7 @@ class ForwardFused(_TopologyModule):
         self.rate_cats, self.states = rate_cats, states
         self.tip_encoding = tip_encoding
         # K2's walk, planned once per topology
-        self.plan = (cf.FusedPlan(topo.schedule, tip_encoding)
-                     if states in cf.KERNEL_STATES else None)
+        self.plan = cf.FusedPlan(topo.schedule, tip_encoding)
 
     def _row(self, tips_packed, inner, idx, dtype):
         tips = self.topo.schedule.tips
@@ -425,10 +424,9 @@ class Score(_TopologyModule):
         self.use_pinv = use_pinv
         self.tip_encoding = tip_encoding
         # K1's walk, planned once per topology and edge
-        self.plan = (cf.FusedPlan(topo.schedule, tip_encoding,
-                                  (topo.parent_clv, topo.child_clv,
-                                   topo.edge_matrix))
-                     if states in cf.KERNEL_STATES else None)
+        self.plan = cf.FusedPlan(topo.schedule, tip_encoding,
+                                 (topo.parent_clv, topo.child_clv,
+                                  topo.edge_matrix))
         self.asc_tail = (AscTail(topo, rate_cats, states, self.device)
                          if topo.asc_mode else None)
 

@@ -4,9 +4,12 @@ host helpers both share.
 
 Counterpart: ``libpll_tpu/ops/clv_pallas.py`` — K1 replaces
 ``make_fused_edge_score`` (``:462``), K2 replaces ``make_fused_sweep``
-(``:673``), for DNA (S = 4) and protein (S = 20, JAX's MXU variant).
-The kernels are ``csrc/clv_fused.cu``; that file says how they are laid
-out on the card and what bounds them.
+(``:673``): DNA (S = 4) and protein (S = 20, JAX's MXU variant)
+instances at C in {1, 2, 4, 8} (``csrc/clv_fused.cu``), and one instance
+for any other alphabet (2 <= S <= 64) and rate count
+(``csrc/clv_any.cu``), which also takes any walk whose pool does not fit
+the DNA or protein instances' shared memory.  Those files say how the
+kernels are laid out on the card and what bounds them.
 
 Layouts are the JAX package's *unpacked* ones, so the two packages compare
 like with like: tip CLVs ``[tips, C, S, L]``, inner CLVs
@@ -24,11 +27,14 @@ so that few inner rows are live at once (3 at the 64-taxon flagship, 6 at
 children and counters (a tip, or a pool slot), its P-matrices, its
 scaling flag and its level-major row.  ``FusedPlan.plain_walk`` and
 ``plain_walk_score`` run that walk with PyTorch ops, so the plan is tested
-where no kernel runs.
+where no kernel runs; given the any-alphabet instance's layout
+(:func:`any_layout`) they keep the pool's first ``shared_slots`` slots
+apart from the spilled ones, as that kernel does.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there: on a CUDA tensor it launches its kernel, once per call, or raises.
-Each counts its launches in its ``launches`` attribute.
+Each counts its launches in its ``launches`` attribute, and those of the
+any-alphabet instance also in ``any_launches``.
 """
 
 from __future__ import annotations
@@ -50,6 +56,12 @@ from .sweep import LevelSchedule, make_level_sweep
 TIP_ENCODINGS = ("clv", "chars", "masks")
 KERNEL_RATE_CATS = (1, 2, 4, 8)
 KERNEL_STATES = (4, 20)  # DNA and protein
+# the any-alphabet instance: 2 <= S <= ANY_MAX_STATES at any rate count
+# (csrc/clv_common.cuh kMaxAnyStates); "masks" tips are one int32 word, as
+# JAX's (clv_pallas.py make_tipdecode shifts an int32 word by each state)
+ANY_MAX_STATES = 64
+MASK_MAX_STATES = 32
+ANY_THREADS = 128  # sites a block of the any-alphabet instance
 BLOCK_SITES = 128  # sites per K1 partial sum
 # an op's descriptor (clv_common.cuh's OpDesc: parent, home, child1,
 # child2, scaler1, scaler2, m1, m2, has_scaler, out, shift1, shift2), the
@@ -218,25 +230,43 @@ class FusedPlan:
         chunk (DNA: then block) whose shared memory fits.  A protein block
         is ``block_sites`` (32 or 64: one or two sites a thread, the most
         that fit) by ``rate_cats`` warps, each slot of its pool C·20 values
-        a site, with two matrix buffers where they fit."""
+        a site, with two matrix buffers where they fit.  Every other
+        (S, C), and a walk whose pool those instances cannot hold, takes
+        the any-alphabet instance: :func:`any_layout`'s block, with
+        ``shared_slots`` (its pool's slots in shared memory; the rest
+        spill to device rows) among the keys."""
         key = (dtype, rate_cats, states, scale_mode, score)
         if key not in self._layouts:
-            lib = load_kernels()
-            out = (ctypes.c_int * 7)()
-            rc = lib.clv_fused_layout(
-                states, int(dtype == torch.float64), rate_cats, scale_mode,
-                int(score), self.pool, out)
-            if rc == _INVALID_VALUE:
-                raise EinvalError(
-                    f"the walk's pool of {self.pool} slots does not fit a "
-                    f"block's shared memory at {states} states, "
-                    f"{rate_cats} rates, {dtype}")
+            f64 = int(dtype == torch.float64)
+            rc = _INVALID_VALUE
+            if states in KERNEL_STATES and rate_cats in KERNEL_RATE_CATS:
+                lib = load_kernels()
+                out = (ctypes.c_int * 7)()
+                rc = lib.clv_fused_layout(states, f64, rate_cats, scale_mode,
+                                          int(score), self.pool, out)
+            if rc == _INVALID_VALUE:  # not an instance, or its pool too big
+                self._layouts[key] = self._any_layout(
+                    f64, rate_cats, states, scale_mode, score)
+                return self._layouts[key]
             _check_launch(lib, rc, "fused layout query")
             smem, per_sm, threads, chunk, sites, sms, buffers = out
             self._layouts[key] = dict(
                 smem=smem, blocks_per_sm=per_sm, threads=threads,
                 chunk=chunk, block_sites=sites, sms=sms, buffers=buffers)
         return self._layouts[key]
+
+    def _any_layout(self, f64, rate_cats, states, scale_mode, score):
+        lib = load_any_kernels()
+        out = (ctypes.c_int * 3)()
+        _check_launch(lib, lib.clv_any_query(
+            states, f64, int(score), 0, 0, out), "any layout query")
+        limit, sms = out[0], out[1]
+        lay = any_layout(self.pool, rate_cats, states, 8 if f64 else 4,
+                         scale_mode, limit)
+        _check_launch(lib, lib.clv_any_query(
+            states, f64, int(score), lay["threads"], lay["smem"], out),
+            "any layout query")
+        return dict(lay, blocks_per_sm=out[2], sms=sms)
 
     # ------------------------------------------------------ the plain walk
     def _tip(self, tips_packed, d: int, shift: int, c: int, s: int, dtype):
@@ -249,63 +279,82 @@ class FusedPlan:
         onehot = ((codes[None, :] >> bits[:, None]) & 1).to(dtype)
         return onehot[None].expand(c, -1, -1)
 
-    def _walk(self, tips_packed, pmatrix, scale_mode, out=None):
+    def _walk(self, tips_packed, pmatrix, scale_mode, out=None,
+              shared_slots=None):
         """Every op in walk order with PyTorch ops over all sites: its
         children and counters from the tips or the pool by descriptor, its
         row and counter stored in its slot and, given ``out`` = (inner,
-        scalers [n_inner + 1, srows, L]), in its level-major row.  Returns
-        (row, count): a descriptor's values and counters."""
+        scalers [n_inner + 1, srows, L]), in its level-major row.  With
+        ``shared_slots`` (the any-alphabet instance's layout) the pool's
+        first slots and the spilled ones are kept apart, as that kernel
+        keeps them in shared memory and in device rows.  Returns (row,
+        count): a descriptor's values and counters."""
         from .clv_seg import plain_op
 
         _, c, s, _ = pmatrix.shape
         sites = tips_packed.shape[-1]
         srows = c if scale_mode == SCALE_PER_RATE else 1
         thresh, factor = scale_consts(pmatrix.dtype)
-        pool = pmatrix.new_zeros((self.pool, c, s, sites))
-        pool_scal = torch.zeros((self.pool, srows, sites), dtype=torch.int32,
-                                device=pmatrix.device)
-        zero = pool_scal.new_zeros((srows, sites))
+        shared = self.pool if shared_slots is None else shared_slots
+        homes = [(pmatrix.new_zeros((n, c, s, sites)),
+                  torch.zeros((n, srows, sites), dtype=torch.int32,
+                              device=pmatrix.device))
+                 for n in (shared, self.pool - shared)]
+        zero = homes[0][1].new_zeros((srows, sites))
         index = (1 << INDEX_BITS) - 1
+
+        def home(slot):  # (the pool's part, its index) of a slot
+            return (homes[0], slot) if slot < shared else (homes[1],
+                                                           slot - shared)
 
         def row(d, shift=0):
             if d >> INDEX_BITS == K_POOL:
-                return pool[d & index]
+                part, i = home(d & index)
+                return part[0][i]
             return self._tip(tips_packed, d, shift, c, s, pmatrix.dtype)
 
         def count(d):
-            return zero if d == K_ZERO else pool_scal[d & index]
+            if d == K_ZERO:
+                return zero
+            part, i = home(d & index)
+            return part[1][i]
 
-        for (_, home, c1, c2, s1, s2, m1, m2, has, dst, t1,
+        for (_, slot, c1, c2, s1, s2, m1, m2, has, dst, t1,
              t2) in self._host["ops"].tolist():
             x, cnt = plain_op(pmatrix, m1, m2, row(c1, t1), row(c2, t2),
                               count(s1) + count(s2), has, scale_mode,
                               thresh, factor)
-            pool[home], pool_scal[home] = x, cnt
+            part, i = home(slot)
+            part[0][i], part[1][i] = x, cnt
             if out is not None:
                 out[0][dst], out[1][dst] = x, cnt
         return row, count
 
-    def plain_walk(self, tips_packed, pmatrix, scale_mode=SCALE_PER_SITE):
+    def plain_walk(self, tips_packed, pmatrix, scale_mode=SCALE_PER_SITE,
+                   shared_slots=None):
         """K2 as the kernel walks it, with PyTorch ops: ``(inner,
-        scalers)`` of :func:`fused_sweep_plain`, bit for bit."""
+        scalers)`` of :func:`fused_sweep_plain`, bit for bit
+        (``shared_slots``: as :meth:`_walk`)."""
         _, c, s, _ = pmatrix.shape
         n, sites = self.schedule.n_inner, tips_packed.shape[-1]
         srows = c if scale_mode == SCALE_PER_RATE else 1
         inner = pmatrix.new_zeros((n, c, s, sites))
         scalers = torch.zeros((n + 1, srows, sites), dtype=torch.int32,
                               device=pmatrix.device)
-        self._walk(tips_packed, pmatrix, scale_mode, (inner, scalers))
+        self._walk(tips_packed, pmatrix, scale_mode, (inner, scalers),
+                   shared_slots)
         return inner, (scalers if scale_mode == SCALE_PER_RATE
                        else scalers[:, 0])
 
     def plain_walk_score(self, tips_packed, pmatrix, weight_vec,
                          pattern_weights, inv_add=None,
-                         scale_mode=SCALE_PER_SITE):
+                         scale_mode=SCALE_PER_SITE, shared_slots=None):
         """K1 as the kernel walks it (the edge from its descriptors), with
         PyTorch ops: the logL of :func:`fused_edge_score_plain`, bit for
-        bit."""
+        bit (``shared_slots``: as :meth:`_walk`)."""
         _, c, s, _ = pmatrix.shape
-        row, count = self._walk(tips_packed, pmatrix, scale_mode)
+        row, count = self._walk(tips_packed, pmatrix, scale_mode,
+                                shared_slots=shared_slots)
         p, ch, ps, cs_, em, shift, *_ = self._host["edge_desc"].tolist()
         termb = torch.matmul(pmatrix[em], row(ch, shift))
         site_term = (row(p) * termb
@@ -315,6 +364,29 @@ class FusedPlan:
         return sum_block_partials(site_lnl(
             site_term, (count(ps) + count(cs_))[0], pattern_weights,
             pmatrix.dtype))
+
+
+def pad_rows(pmatrix: torch.Tensor) -> torch.Tensor:
+    """[M, C, S, S] P-matrices with each row padded with zeros to a whole
+    number of 16-byte vectors, as the any-alphabet instance reads them."""
+    per = 16 // pmatrix.element_size()
+    s = pmatrix.shape[-1]
+    return torch.nn.functional.pad(pmatrix, (0, -s % per)).contiguous()
+
+
+def any_layout(pool: int, rate_cats: int, states: int, itemsize: int,
+               scale_mode: int, limit: int) -> dict:
+    """The any-alphabet instance's block for a walk of ``pool`` slots on a
+    card whose blocks may have ``limit`` bytes of dynamic shared memory:
+    ``ANY_THREADS`` sites a block, a thread a site, and as many of the
+    pool's slots in shared memory as fit half of ``limit`` (two blocks an
+    SM), the rest spilled to device rows.  Pure: the plain walk follows it
+    on the CPU."""
+    srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
+    slot = ANY_THREADS * (rate_cats * states * itemsize + 4 * srows)
+    shared = min(pool, limit // 2 // slot)
+    return dict(smem=shared * slot, threads=ANY_THREADS, chunk=0,
+                block_sites=ANY_THREADS, buffers=1, shared_slots=shared)
 
 
 def pack_tipchars(tip_masks) -> torch.Tensor:
@@ -358,6 +430,11 @@ def check_tip_encoding(tip_encoding: str, states: int) -> None:
         # a nibble holds 4 state bits (clv_pallas.py:516-521)
         raise EinvalError("tip_encoding='chars' requires states <= 4; "
                           "use 'masks' for wider alphabets")
+    if tip_encoding == "masks" and states > MASK_MAX_STATES:
+        # one int32 word a tip and site (clv_pallas.py make_tipdecode)
+        raise EinvalError(f"tip_encoding='masks' holds {MASK_MAX_STATES} "
+                          f"states in its int32 word, not {states}; use "
+                          "'clv' tips")
 
 
 def decode_tips(tips_packed: torch.Tensor, tip_encoding: str,
@@ -448,6 +525,8 @@ def fused_edge_score_plain(schedule: LevelSchedule, tips_packed, pmatrix,
 _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
 _WALK_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 11)
+_ANY_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_int64]
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13)
 _INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
@@ -468,6 +547,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.clv_fused_layout.restype = ctypes.c_int
     lib.clv_fused_error_string.argtypes = [ctypes.c_int]
     lib.clv_fused_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.clv_fused_error_string
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_any_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/clv_any.cu``, the any-alphabet
+    instance, once per process."""
+    return bind_any(_build.load("clv_any"))
+
+
+def bind_any(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``clv_any.cu``."""
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"clv_any_walk_{suffix}")
+        fn.argtypes = _ANY_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.clv_any_query.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.clv_any_query.restype = ctypes.c_int
+    lib.clv_any_error_string.argtypes = [ctypes.c_int]
+    lib.clv_any_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.clv_any_error_string
     return lib
 
 
@@ -478,7 +579,7 @@ def _require(cond: bool, what: str) -> None:
 
 def _check_launch(lib, rc: int, name: str) -> None:
     if rc != 0:
-        msg = lib.clv_fused_error_string(rc).decode()
+        msg = lib.error_string(rc).decode()
         raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
 
 
@@ -493,10 +594,10 @@ def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
     m, c, s, s2 = pmatrix.shape
     _require(pmatrix.dtype in (torch.float32, torch.float64),
              f"pmatrix dtype {pmatrix.dtype} (float32 or float64)")
-    _require(s == s2 and s in KERNEL_STATES,
-             f"states {s} (the kernels take 4 or 20)")
+    _require(s == s2 and 2 <= s <= ANY_MAX_STATES,
+             f"states {s} (the kernels take 2 to {ANY_MAX_STATES})")
     check_tip_encoding(tip_encoding, s)
-    _require(c in KERNEL_RATE_CATS, f"rate_cats {c} (one of 1, 2, 4, 8)")
+    _require(c >= 1, f"rate_cats {c}")
     _require(scale_mode in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE),
              f"scale mode {scale_mode}")
     _require(plan.max_matrix < m,
@@ -533,12 +634,13 @@ def launch_grid(sites: int, lay: dict) -> int:
 
 def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
             inner=None, scalers=None, edge=None, weight_vec=None,
-            pattern_weights=None, inv_add=None, partials=None) -> None:
+            pattern_weights=None, inv_add=None, partials=None) -> bool:
     """One walk on the current stream of the tensors' card: K2 when
     ``edge`` is None (rows and counters out), else K1, over
-    :func:`launch_grid` blocks."""
+    :func:`launch_grid` blocks of the instance :meth:`FusedPlan.layout`
+    picks (the any-alphabet one with its spill rows made here).  Returns
+    whether that was the any-alphabet instance."""
     device = tips_packed.device
-    lib = load_kernels()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -546,16 +648,37 @@ def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
         lay = plan.layout(pmatrix.dtype, c, s, scale_mode, edge is not None)
         grid = launch_grid(sites, lay)
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"clv_fused_walk_{suffix}")(
-            s, c, _TIP_CODE[plan.tip_encoding], scale_mode, sites,
-            plan.schedule.n_inner, plan.schedule.n_inner, plan.pool,
-            lay["chunk"], lay["threads"], grid, lay["block_sites"],
-            lay["buffers"], ptr(plan.static("ops", device)),
-            ptr(tips_packed), ptr(pmatrix), ptr(inner), ptr(scalers),
-            ptr(edge), ptr(weight_vec), ptr(pattern_weights), ptr(inv_add),
-            ptr(partials), stream)
+        n = plan.schedule.n_inner
+        if "shared_slots" in lay:  # the any-alphabet instance
+            lib = load_any_kernels()
+            spilled = plan.pool - lay["shared_slots"]
+            srows = c if scale_mode == SCALE_PER_RATE else 1
+            spill = (torch.empty((spilled, c * s, sites), dtype=pmatrix.dtype,
+                                 device=device) if spilled else None)
+            spill_scal = (torch.empty((spilled, srows, sites),
+                                      dtype=torch.int32, device=device)
+                          if spilled else None)
+            padded = pad_rows(pmatrix)
+            rc = getattr(lib, f"clv_any_walk_{suffix}")(
+                s, padded.shape[-1], c, _TIP_CODE[plan.tip_encoding],
+                scale_mode, sites, n, n, plan.pool, lay["shared_slots"],
+                lay["threads"], grid, ptr(plan.static("ops", device)),
+                ptr(tips_packed), ptr(padded), ptr(inner), ptr(scalers),
+                ptr(spill), ptr(spill_scal), ptr(edge), ptr(weight_vec),
+                ptr(pattern_weights), ptr(inv_add), ptr(partials), stream)
+        else:
+            lib = load_kernels()
+            rc = getattr(lib, f"clv_fused_walk_{suffix}")(
+                s, c, _TIP_CODE[plan.tip_encoding], scale_mode, sites, n, n,
+                plan.pool, lay["chunk"], lay["threads"], grid,
+                lay["block_sites"], lay["buffers"],
+                ptr(plan.static("ops", device)), ptr(tips_packed),
+                ptr(pmatrix), ptr(inner), ptr(scalers), ptr(edge),
+                ptr(weight_vec), ptr(pattern_weights), ptr(inv_add),
+                ptr(partials), stream)
     _check_launch(lib, rc, "fused_sweep" if edge is None
                   else "fused_edge_score")
+    return "shared_slots" in lay
 
 
 def fused_sweep(schedule: LevelSchedule, tips_packed, pmatrix, *,
@@ -581,15 +704,17 @@ def fused_sweep(schedule: LevelSchedule, tips_packed, pmatrix, *,
                         device=device)
     scalers = torch.empty(((n_inner + 1) * srows, sites), dtype=torch.int32,
                           device=device)
-    _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
-            inner, scalers)
+    any_ = _launch(plan, suffix, c, s, scale_mode, sites, tips_packed,
+                   pmatrix, inner, scalers)
     fused_sweep.launches += 1
+    fused_sweep.any_launches += any_
     if scale_mode == SCALE_PER_RATE:
         scalers = scalers.view(n_inner + 1, c, sites)
     return inner, scalers
 
 
 fused_sweep.launches = 0
+fused_sweep.any_launches = 0  # those of the any-alphabet instance
 
 
 def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
@@ -638,12 +763,14 @@ def fused_edge_score(schedule: LevelSchedule, tips_packed, pmatrix,
     # one partial per 32 sites (a warp), four to each 128-site partial
     partials = torch.empty((-(-sites // BLOCK_SITES) * 4,),
                            dtype=torch.float64, device=device)
-    _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
-            edge=plan.static("edge_desc", device), weight_vec=weight_vec,
-            pattern_weights=pattern_weights, inv_add=inv_add,
-            partials=partials)
+    any_ = _launch(plan, suffix, c, s, scale_mode, sites, tips_packed,
+                   pmatrix, edge=plan.static("edge_desc", device),
+                   weight_vec=weight_vec, pattern_weights=pattern_weights,
+                   inv_add=inv_add, partials=partials)
     fused_edge_score.launches += 1
+    fused_edge_score.any_launches += any_
     return sum_block_partials(fold_tile_partials(partials, sites))
 
 
 fused_edge_score.launches = 0
+fused_edge_score.any_launches = 0

@@ -30,8 +30,12 @@ twin :func:`newton_solve_plain`, JAX's loop step by step.  The launch
 follows :func:`plan_newton`, a pure function of the sumtable's shape and
 dtype and the card's SMs and shared memory: each block's slice of sites
 held in shared memory for the whole solve where it fits (resident), else
-read from device memory every body (streamed).  The wrapper counts its
-kernel launches in ``newton_solve.launches``, one a call.
+read from device memory every body (streamed).  N1 has instances at
+S = 4 and S = 20 with C <= 8, and one for any other alphabet
+(2 <= S <= 64) and rate count, whose per-rate tables take shared memory
+before the slice where they fit (:func:`plan_newton`'s ``tables``).  The
+wrapper counts its kernel launches in ``newton_solve.launches``, one a
+call, and the any-alphabet instance's also in ``any_launches``.
 
 Sites sharded across processes (``parallel.mesh``): a body needs every
 rank's sums, which a launch cannot wait for, so :func:`newton_solve_mesh`
@@ -45,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,6 +66,7 @@ NEWTON_ITERS = 32
 NEWTON_TOL = 1e-9
 KERNEL_STATES = (4, 20)
 KERNEL_MAX_RATES = 8
+ANY_MAX_STATES = 64  # the any-alphabet instance (kMaxAnyStates)
 THREADS = 512  # the kernel's block (csrc/derivatives.cu kBlock)
 SLICE_ALIGN = 4  # a resident shared row's length rounds up to this (sites)
 MAX_GRID = 160  # blocks a launch (kMaxGrid: warp 0 folds five a lane)
@@ -223,18 +228,24 @@ def newton_solve_plain(sumtable, t0, rates, prop_invar, eigenvals_pc,
 _SOLVE_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_int64] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_int64]
                    + [ctypes.c_void_p] * 23)
+_ANY_ARGTYPES = _SOLVE_ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of ``lib``'s entry points (the
     library of ``csrc/derivatives.cu``, or a variant of it)."""
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"newton_solve_{suffix}")
-        fn.argtypes = _SOLVE_ARGTYPES
-        fn.restype = ctypes.c_int
+        for name, types in (("newton_solve", _SOLVE_ARGTYPES),
+                            ("newton_solve_any", _ANY_ARGTYPES)):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     lib.newton_query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                                  ctypes.c_void_p]
     lib.newton_query.restype = ctypes.c_int
+    lib.newton_any_query.argtypes = [ctypes.c_int, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.newton_any_query.restype = ctypes.c_int
     lib.newton_device_pointer.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.newton_device_pointer.restype = ctypes.c_int
     lib.newton_error_string.argtypes = [ctypes.c_int]
@@ -258,13 +269,33 @@ class NewtonPlan(NamedTuple):
     """One N1 launch: ``grid`` blocks of ``threads``, block b owning sites
     ``[b·block_sites, (b+1)·block_sites)`` of the evaluated ones, held in
     ``smem`` bytes of shared memory (``resident``) or read from device
-    memory every body (``smem`` 0)."""
+    memory every body.  ``tables``: "" for the S = 4 / S = 20 instances;
+    for the any-alphabet instance where its per-rate tables lie, "shared"
+    (their bytes at the front of ``smem``) or "device" (a row a block)."""
 
     grid: int
     threads: int
     block_sites: int
     resident: bool
     smem: int
+    tables: str = ""
+
+
+def any_instance(rate_cats: int, states: int) -> bool:
+    """Whether (C, S) takes N1's any-alphabet instance."""
+    return states not in KERNEL_STATES or rate_cats > KERNEL_MAX_RATES
+
+
+def table_values(rate_cats: int, states: int) -> int:
+    """The any-alphabet instance's per-rate tables, in values: the body's
+    three diagonals, lam and the invariant terms (C·S each), p-inv,
+    1 - p-inv and the rate weights (C each)."""
+    return 5 * rate_cats * states + 3 * rate_cats
+
+
+def table_bytes(rate_cats: int, states: int, itemsize: int) -> int:
+    """Their shared memory, rounded up to 16 bytes (the slice follows)."""
+    return -(-table_values(rate_cats, states) * itemsize // 16) * 16
 
 
 def slice_bytes(rate_cats: int, states: int, itemsize: int,
@@ -284,30 +315,42 @@ def plan_newton(shape, itemsize: int, sites: int, asc_mode: int, sms: int,
     most (every block resident, as the cooperative launch needs) and
     ``MAX_GRID`` in all, at least ``THREADS`` sites a block; where the
     slices fit shared memory within those blocks, resident (spread over
-    as many blocks as that takes), else streamed.  Depends on sizes
-    alone."""
+    as many blocks as that takes), else streamed.  The any-alphabet
+    instance's tables take the front of the shared memory where they fit
+    half of it (else a device row a block), and the slices what is left.
+    Depends on sizes alone."""
     c, s, _ = shape
     sms = min(sms, MAX_GRID)
     ef = sites + (s if asc_mode == ASC_STAMATAKIS else 0)
+    tables, front = "", 0
+    if any_instance(c, s):
+        front = table_bytes(c, s, itemsize)
+        tables = "shared" if front <= smem_limit // 2 else "device"
+        front = front if tables == "shared" else 0
     grid = max(1, min(sms, -(-ef // THREADS)))
     per_site = slice_bytes(c, s, itemsize, SLICE_ALIGN) // SLICE_ALIGN
-    fit = smem_limit // per_site // SLICE_ALIGN * SLICE_ALIGN
+    fit = (smem_limit - front) // per_site // SLICE_ALIGN * SLICE_ALIGN
     resident = fit > 0 and -(-ef // fit) <= sms
     if resident:
         grid = max(grid, -(-ef // fit))
     block_sites = -(-ef // grid)
     grid = -(-ef // block_sites)  # no block without sites
-    smem = slice_bytes(c, s, itemsize, block_sites) if resident else 0
-    return NewtonPlan(grid, THREADS, block_sites, resident, smem)
+    smem = front + (slice_bytes(c, s, itemsize, block_sites) if resident
+                    else 0)
+    return NewtonPlan(grid, THREADS, block_sites, resident, smem, tables)
 
 
-def _query(dtype, states: int, smem: int):
+def _query(dtype, states: int, smem: int, any_: bool = False,
+           resident: bool = True):
     """(resident block's shared-memory limit, SMs, blocks an SM holds of
-    the instance ``smem`` picks) on the current card; raises the resident
-    instance's limit first."""
+    the instance ``smem`` picks) on the current card; raises the
+    instance's limit first.  ``any_``: the any-alphabet instance, asked
+    for its ``resident`` or streamed kernel."""
     lib = load_kernels()
     out = (ctypes.c_int32 * 3)()
-    rc = lib.newton_query(int(dtype == torch.float64), states, smem, out)
+    f64 = int(dtype == torch.float64)
+    rc = (lib.newton_any_query(f64, smem, int(resident), out) if any_
+          else lib.newton_query(f64, states, smem, out))
     if rc != 0:
         raise KernelError(f"newton_query failed: CUDA error {rc} "
                           f"({lib.newton_error_string(rc).decode()})")
@@ -315,19 +358,20 @@ def _query(dtype, states: int, smem: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _limits(device_index: int, dtype, states: int):
+def _limits(device_index: int, dtype, states: int, rate_cats: int = 1):
     """(SMs, shared-memory limit) of N1's instance on the card, once per
     process."""
     with torch.cuda.device(device_index):
-        limit, sms, _ = _query(dtype, states, 0)
+        limit, sms, _ = _query(dtype, states, 0,
+                               any_instance(rate_cats, states))
     return sms, limit
 
 
 def plan_for(sumtable: torch.Tensor, sites: int,
              asc_mode: int = ASC_NONE) -> NewtonPlan:
     """:func:`plan_newton` for ``sumtable`` on its card."""
-    sms, limit = _limits(sumtable.device.index or 0, sumtable.dtype,
-                         sumtable.shape[1])
+    c, s, _ = sumtable.shape
+    sms, limit = _limits(sumtable.device.index or 0, sumtable.dtype, s, c)
     return plan_newton(tuple(sumtable.shape), sumtable.element_size(),
                        sites, asc_mode, sms, limit)
 
@@ -335,7 +379,8 @@ def plan_for(sumtable: torch.Tensor, sites: int,
 def blocks_per_sm(plan: NewtonPlan, dtype, states: int) -> int:
     """Blocks of ``plan``'s kernel instance an SM of the current card
     holds at once."""
-    return _query(dtype, states, plan.smem)[2]
+    return _query(dtype, states, plan.smem, bool(plan.tables),
+                  plan.resident)[2]
 
 
 def _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
@@ -349,8 +394,8 @@ def _check(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
     _require(sumtable.dim() == 3 and sumtable.is_contiguous(),
              f"sumtable {tuple(sumtable.shape)}: [C, S, L], contiguous")
     c, s, length = sumtable.shape
-    _require(1 <= c <= KERNEL_MAX_RATES, f"rate_cats {c} (1 to 8)")
-    _require(s in KERNEL_STATES, f"states {s} (4 or 20)")
+    _require(c >= 1, f"rate_cats {c}")
+    _require(2 <= s <= ANY_MAX_STATES, f"states {s} (2 to {ANY_MAX_STATES})")
     _require(asc_mode in (ASC_NONE, ASC_LEWIS, ASC_FELSENSTEIN,
                           ASC_STAMATAKIS), f"asc_mode {asc_mode}")
     _require(0 < sites <= length and (
@@ -387,21 +432,27 @@ _POINTERS = ("sumtable", "clv_p", "clv_c", "lt", "right", "rscal_p",
 
 class _Work(NamedTuple):
     """N1's scratch for launches of one plan: its outputs (t, d1, d2 and
-    the body count), the blocks' float64 partials, and one zeroed arrival
-    counter a launch (``slots`` of them)."""
+    the body count), the blocks' float64 partials, one zeroed arrival
+    counter a launch (``slots`` of them), and the any-alphabet instance's
+    tables in device memory where its plan puts them there (else None)."""
 
     out: torch.Tensor
     iterations: torch.Tensor
     partials: torch.Tensor
     arrived: torch.Tensor
+    tables: Optional[torch.Tensor] = None
 
 
-def _work(plan, dtype, device, slots=1) -> _Work:
+def _work(plan, dtype, device, shape, slots=1) -> _Work:
+    c, s, _ = shape
     return _Work(torch.empty(3, dtype=dtype, device=device),
                  torch.empty(1, dtype=torch.int32, device=device),
                  torch.empty((2, plan.grid, PARTIAL_SLOTS),
                              dtype=torch.float64, device=device),
-                 torch.zeros(slots, dtype=torch.int32, device=device))
+                 torch.zeros(slots, dtype=torch.int32, device=device),
+                 torch.empty((plan.grid, table_values(c, s)), dtype=dtype,
+                             device=device)
+                 if plan.tables == "device" else None)
 
 
 def _call(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2, ptrs,
@@ -412,15 +463,19 @@ def _call(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2, ptrs,
     ``sums_ptr`` the derivative mode's output or None."""
     lib = load_kernels()
     c, s, length = shape
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    any_ = [] if not plan.tables else [
+        int(plan.resident),
+        None if work.tables is None else work.tables.data_ptr()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, "newton_solve_f32" if dtype == torch.float32
-                     else "newton_solve_f64")(
+        rc = getattr(lib, f"newton_solve_any_{suffix}" if plan.tables
+                     else f"newton_solve_{suffix}")(
             c, s, length, sites, asc_mode, max_iters, int(abs_d2),
             plan.threads, plan.grid, plan.block_sites, plan.smem, *ptrs,
             work.partials.data_ptr(), work.arrived.data_ptr() + 4 * slot,
             work.iterations.data_ptr(), work.out.data_ptr(), sums_ptr,
-            stream)
+            stream, *any_)
     if rc != 0:
         msg = lib.newton_error_string(rc).decode()
         raise KernelError(f"newton_solve launch failed: CUDA error {rc} "
@@ -433,11 +488,12 @@ def _launch(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2,
     C interface's pointer arguments to tensors (None: null).  Returns the
     loop's end."""
     device = tensors["t0"].device
-    work = _work(plan, dtype, device)
+    work = _work(plan, dtype, device, shape)
     _call(plan, dtype, shape, sites, asc_mode, max_iters, abs_d2,
           [None if tensors.get(n) is None else tensors[n].data_ptr()
            for n in _POINTERS], work, device)
     _newton_solve.launches += 1
+    _newton_solve.any_launches += bool(plan.tables)
     return Newton(work.out[0], work.out[1], work.out[2], work.iterations[0])
 
 
@@ -469,6 +525,7 @@ def newton_solve(sumtable, t0, rates, prop_invar, eigenvals_pc, freqs_pc,
 
 
 newton_solve.launches = 0
+newton_solve.any_launches = 0  # those of the any-alphabet instance
 _newton_solve = newton_solve  # counts even while a caller wraps it
 
 
@@ -511,8 +568,10 @@ class NewtonDerivatives:
         self.sums = torch.empty(3, dtype=torch.float64, pin_memory=True)
         self.plan = plan_newton(self.shape, self.t.element_size(), sites,
                                 ASC_NONE, *_limits(self.device.index or 0,
-                                                   dtype, self.shape[1]))
-        self.work = _work(self.plan, dtype, self.device, NEWTON_ITERS)
+                                                   dtype, self.shape[1],
+                                                   self.shape[0]))
+        self.work = _work(self.plan, dtype, self.device, self.shape,
+                          NEWTON_ITERS)
         self.slot = 0
         self.t_dev = torch.empty(1, dtype=dtype, device=self.device)
         self.t_ptr = _device_pointer(self.t)
@@ -563,6 +622,7 @@ class NewtonDerivatives:
               self.sums_ptr)
         self.slot += 1
         _newton_derivatives.launches += 1
+        _newton_derivatives.any_launches += bool(self.plan.tables)
         torch.cuda.current_stream(self.device).synchronize()
         return self.sums.clone()
 
@@ -607,6 +667,7 @@ def newton_derivatives(sumtable, t, rates, prop_invar, eigenvals_pc,
 
 
 newton_derivatives.launches = 0
+newton_derivatives.any_launches = 0
 _newton_derivatives = newton_derivatives
 
 

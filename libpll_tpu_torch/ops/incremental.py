@@ -208,7 +208,7 @@ def _args_struct(real):
     fields += [("sites", ctypes.c_int64), ("real_sites", ctypes.c_int64)]
     fields += [(n, I) for n in (
         "n_ops", "n_upd", "rows", "n_nodes", "dummy", "rate_cats", "states",
-        "scale_mode", "batch", "slots")]
+        "scale_mode", "batch", "slots", "sp")]
     return type("CandidateArgs", (ctypes.Structure,), {"_fields_": fields})
 
 
@@ -245,6 +245,20 @@ def _launch(args: dict, dtype, score: bool, tile: int, smem: int,
                 torch.cuda.current_stream(device).cuda_stream)
     _launch_check(lib, rc, "score_candidates launch" if score
                   else "replay_candidates launch")
+
+
+def _padded(pmatrix, upd_pmatrix):
+    """(base, overlay, sp): the P-matrices as C1's instance reads them:
+    rows of S at S = 4 and S = 20, else padded with zeros to whole
+    16-byte vectors (``clv_fused.pad_rows``, the any-alphabet op's
+    layout), ``sp`` values a row."""
+    from .clv_fused import KERNEL_STATES, pad_rows
+
+    s = pmatrix.shape[-1]
+    if s in KERNEL_STATES:
+        return pmatrix, upd_pmatrix, s
+    pm = pad_rows(pmatrix)
+    return pm, pad_rows(upd_pmatrix), pm.shape[-1]
 
 
 def _require(cond: bool, what: str) -> None:
@@ -305,6 +319,7 @@ def replay_candidates(clv, scalers, pmatrix, tables, upd_midx, upd_pmatrix,
     scratch, scal_scratch = _scratch(clv, scalers, b, rows, scale_mode)
     _, c, s, length = clv.shape
     scaled = scale_mode != SCALE_NONE
+    pmatrix, upd_pmatrix, sp = _padded(pmatrix, upd_pmatrix)
     _launch(dict(
         clv=clv.data_ptr(), scalers=scalers.data_ptr() if scaled else None,
         pmatrix=pmatrix.data_ptr(), tables=tables.data_ptr(),
@@ -314,8 +329,8 @@ def replay_candidates(clv, scalers, pmatrix, tables, upd_midx, upd_pmatrix,
         sites=length, real_sites=length, n_ops=k, n_upd=upd_midx.shape[1],
         rows=rows, n_nodes=clv.shape[0],
         dummy=clv_ops._dummy(scalers, scale_mode), rate_cats=c, states=s,
-        scale_mode=scale_mode, batch=b), clv.dtype, False, REPLAY_TILE, 0,
-        clv.device)
+        scale_mode=scale_mode, batch=b, sp=sp), clv.dtype, False,
+        REPLAY_TILE, 0, clv.device)
     _replay_candidates.launches += 1
     return scratch, scal_scratch
 
@@ -699,6 +714,7 @@ def score_candidates(clv, scalers, pmatrix, model, tables, upd_midx,
     def ptr(x):
         return None if x is None or not x.numel() else x.data_ptr()
 
+    pmatrix, upd_pmatrix, sp = _padded(pmatrix, upd_pmatrix)
     _launch(dict(
         clv=clv.data_ptr(), scalers=scalers.data_ptr() if scaled else None,
         pmatrix=pmatrix.data_ptr(), tables=ops.data_ptr(),
@@ -714,8 +730,8 @@ def score_candidates(clv, scalers, pmatrix, model, tables, upd_midx,
         sites=length, real_sites=sites, n_ops=ops.shape[1],
         n_upd=upd_pmatrix.shape[1], rows=plan.rows, n_nodes=clv.shape[0],
         dummy=n_scale_buffers if scaled else 0, rate_cats=c, states=s,
-        scale_mode=scale_mode, batch=b, slots=slots), dtype, True, tile,
-        smem, device)
+        scale_mode=scale_mode, batch=b, slots=slots, sp=sp), dtype, True,
+        tile, smem, device)
     _score_candidates.launches += 1
     logl = partials.sum(dim=1).to(dtype)
     if asc_mode:

@@ -3,6 +3,7 @@ variants of ``csrc/partials.cu``, in turns on one card.
 
     python3 libpll_tpu_torch/tools/replay_times.py [TREE ...]
     python3 libpll_tpu_torch/tools/replay_times.py --variants SPEC.json NAME ...
+    python3 libpll_tpu_torch/tools/replay_times.py --alphabet
 
 Each run is its own process, in the order given (parent, change, change,
 parent compares two commits on one card).  A TREE is a checkout's root
@@ -35,6 +36,16 @@ the card's time a call and C1's alone (torch.profiler), the host's wall
 time a call, the logL summed.  A variant's U1 and C1 run through the
 package with the variant's library.  Each run prints one JSON line; the
 card's name and power limit come first.
+
+``--alphabet`` (this checkout, one process): U1 outside the DNA and
+protein instances, a full ``update_partials`` of chip_smoke phase 36's
+binary float64 Partition (``alphabet_partition``: 2 states, 6 rates,
+64 taxa x 65 536 sites), device ms a call and a SHA-256 of its output
+under ``replay_plan``'s own layout and under each of ``ALPHABET_FORCED``
+(``chip_smoke.ForcedReplayPlan``): one lane a site with the table staged,
+and one lane a site with nothing staged, the layout of the any-alphabet
+op that K1/K2 and C1 run (a thread a site, P-matrices read from device
+memory).
 """
 
 import ctypes
@@ -180,6 +191,48 @@ def sweep_u1(cs_now, clv_ops, device):
     return out
 
 
+ALPHABET_FORCED = ((1, None), (1, 0))  # (lanes, window): see the docstring
+
+
+def measure_alphabet():
+    """``--alphabet``: the numbers of the module docstring's last part."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from libpll_tpu_torch.engine.partition import operations_to_array
+    from libpll_tpu_torch.ops import clv as clv_ops
+    from libpll_tpu_torch.tree import utree as ut
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    s, c, tips, sites = cs.BINARY_PART
+    tree, part = cs.alphabet_partition(device, s, c, tips, sites, seed=0)()
+    ops, branches, pmat_idx = ut.create_operations(ut.traverse(tree.root))
+    part.update_prob_matrices([0] * c, pmat_idx, branches)
+    table = torch.from_numpy(operations_to_array(
+        ops, part.scale_buffers)).to(device)
+    start = (part.clv.clone(), part.scalers.clone())
+    out = {"states": s, "rate_cats": c, "tips": tips, "sites": sites}
+    for lanes, window in ((None, None),) + ALPHABET_FORCED:
+        key = "plan" if lanes is None else f"lanes{lanes}_window{window}"
+        with cs.ForcedReplayPlan(lanes, window):
+            plan = clv_ops.replay_plan(sites, c, s, clv_ops._sms(0),
+                                       table.shape[0], 8)
+
+            def run_u1():
+                clv_ops.replay_ops(part.clv, part.scalers, table,
+                                   part.pmatrix, part.scale_mode)
+
+            part.clv.copy_(start[0])
+            part.scalers.copy_(start[1])
+            run_u1()
+            out[key] = dict(lanes=plan.lanes, window=plan.window,
+                            sha256=_digest(part.clv, part.scalers),
+                            ms=cs.time_ms(run_u1, iters=10, warmup=2)[0])
+    print(json.dumps(out), flush=True)
+
+
 def measure(tree, lib_path=None):
     """One run in this process: the numbers of the module docstring."""
     sys.path.insert(0, str(tree))
@@ -235,6 +288,10 @@ def measure(tree, lib_path=None):
 
 
 def main(argv):
+    if argv[:1] == ["--alphabet"]:
+        print(f"card: {card_line()}", flush=True)
+        measure_alphabet()
+        return 0
     if argv[:1] == ["--measure"]:
         measure(Path(argv[1]), argv[2] or None)
         return 0

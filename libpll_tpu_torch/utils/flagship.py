@@ -15,6 +15,11 @@ categories) under the LG4X mixture: columns simulated on the flagship's
 tree, written to a FASTA file, read back, compressed to site patterns and
 encoded as 20-bit masks, the path a user's alignment takes.
 
+:func:`build_alphabet_flagship` is an S-state alignment (2 <= S <= 64:
+binary characters, CellPhy's 16 diploid genotypes, 61 codons) simulated
+on the flagship's tree under a GTR model with S(S-1)/2 exchangeabilities
+and Γ at C rates, all drawn from the seed.
+
 :func:`infer_alignment` is scripts/bench_infer.py's data (1 024 taxa x
 16 384 sites by default): DNA simulated under GTR+Γ4 down a random
 leaf-split tree, with the generating Newick.
@@ -246,6 +251,44 @@ def build_flagship(tips, sites, rate_cats=4, dtype=np.float32, seed=0,
     clv[:tips] = onehot.transpose(0, 2, 1)[:, None, :, :]
     scalers = np.zeros((topo.schedule.n_inner + 1, sites), np.int32)
     return topo, model, clv.astype(dtype), scalers
+
+
+ALPHABET_STATES = 16  # CellPhy's GT16 alphabet (unphased genotypes)
+ALPHABET_ALPHA = 1.0
+
+
+def build_alphabet_flagship(tips, sites, states, rate_cats=4, seed=0,
+                            alpha=ALPHABET_ALPHA):
+    """(tree, topo, model, columns): the flagship's tree (the topology of
+    :func:`build_flagship` at this seed) with an S-state GTR+Γ model and
+    [tips, sites] uint8 states simulated on it, one column a site (pattern
+    weights 1, no invariant codes, per-site scaling).  The model draws
+    S(S-1)/2 exchangeabilities in [0.5, 2) and S frequencies in [0.1, 1)
+    (normalised) from the seed's stream after the tree; each column draws
+    one of the C equiprobable Γ(alpha) categories and evolves at its rate.
+    The model is float64 numpy; ``np.uint32(1) << columns`` are the
+    columns as tip masks (at most 32 states), a one-hot of them the tip
+    CLVs; row i of ``columns`` is the tip whose CLV index is i in
+    ``tree``."""
+    from ..models.gamma import compute_gamma_cats
+    from ..models.gtr import eigen_decompose
+
+    rng = np.random.default_rng(seed)
+    tree, topo, model, _ = _topology_and_model(tips, sites, rate_cats,
+                                               np.float64, rng)
+    params = rng.uniform(0.5, 2.0, states * (states - 1) // 2)
+    freqs = rng.uniform(0.1, 1.0, states)
+    freqs /= freqs.sum()
+    w, left, right = eigen_decompose(params, freqs)
+    rates = np.asarray(compute_gamma_cats(alpha, rate_cats), np.float64)
+    weights = np.full(rate_cats, 1.0 / rate_cats)
+    columns = simulate_mixture(tree, tips, sites, [(w, left, right)] *
+                               rate_cats, np.tile(freqs, (rate_cats, 1)),
+                               rates, weights, rng)
+    model.update(
+        rates=rates, eigenvals=w[None], left=left[None], right=right[None],
+        freqs_pc=np.tile(freqs, (rate_cats, 1)), rate_weights=weights)
+    return tree, topo, model, columns
 
 
 PROTEIN_TIPS = 64

@@ -260,7 +260,7 @@ def test_newton_solve_max_iters_and_guards():
         with pytest.raises(EinvalError, match="not CUDA"):
             dv.newton_solve(**meta, sites=ec["sites"])
     for bad, what in (
-            ({"sumtable": meta["sumtable"][:, :3].contiguous()}, "states 3"),
+            ({"sumtable": meta["sumtable"][:, :1].contiguous()}, "states 1"),
             ({"rates": meta["rates"].float()}, "rates"),
             ({"invariant": meta["invariant"].long()}, "invariant"),
             ({"t0": t0}, "t0 on cpu"),

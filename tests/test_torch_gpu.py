@@ -150,7 +150,7 @@ def test_graphed_score_equals_eager(cuda):
 @pytest.mark.gpu
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     newick = chip_smoke.random_newick(8, np.random.default_rng(4))
-    for rate_cats, bad in ((3, "rate_cats"), (4, "dtype"),
+    for rate_cats, bad in ((3, "states"), (4, "dtype"),
                            (4, "contiguity"), (4, "device")):
         topo, model_np, masks = chip_smoke.small_case(newick, 40, rate_cats,
                                                       4)
@@ -158,7 +158,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                       False)[0]
         tips = chip_smoke.tip_input(masks, "clv", rate_cats, torch.float64,
                                     cuda)
-        if bad == "dtype":
+        if bad == "states":  # the tips' and the matrices' alphabets
+            tips = tips[:, :, :3].contiguous()
+        elif bad == "dtype":
             tips = tips.float()
         elif bad == "contiguity":
             tips = tips.transpose(1, 2)
@@ -646,33 +648,104 @@ def test_protein_one_matrix_buffer(cuda, dtype, rate_cats):
 @pytest.mark.gpu
 def test_protein_pool_that_does_not_fit_raises(cuda):
     """At 1 000 taxa the walk keeps 6 rows live: float64 protein at eight
-    rates needs more shared memory than a block has, so the layout and
-    both wrappers raise, and nothing falls back to the plain versions;
-    float32 at four rates fits.  "chars" tips at 20 states raise."""
+    rates needs more shared memory than the protein instance's block has,
+    so the layout takes the any-alphabet instance (rows spilled to device
+    memory) and both wrappers match their plain versions, one launch
+    each; float32 at four rates keeps the protein instance.  "chars" tips
+    at 20 states raise."""
     topo, model_np, masks = chip_smoke.small_case(
         chip_smoke.random_newick(1000, np.random.default_rng(8)), 64, 8, 8,
         states=20)
     sched = topo.schedule
     plan = cf.FusedPlan(sched, "masks")
     assert plan.pool == 6
-    assert plan.layout(torch.float32, 4, 20, 1, False)["blocks_per_sm"] > 0
-    with pytest.raises(EinvalError, match="does not fit"):
-        plan.layout(torch.float64, 8, 20, 1, False)
+    lay32 = plan.layout(torch.float32, 4, 20, 1, False)
+    assert lay32["blocks_per_sm"] > 0 and "shared_slots" not in lay32
+    assert plan.layout(torch.float64, 8, 20, 1, False)["shared_slots"] < 6
     pm, wvec, pw, _ = chip_smoke.kernel_inputs(topo, model_np, torch.float64,
                                                cuda, False)
     tp = chip_smoke.tip_input(masks, "masks", 8, torch.float64, cuda, 20)
-    before = (cf.fused_sweep.launches, cf.fused_edge_score.launches)
-    with pytest.raises(EinvalError, match="does not fit"):
-        cf.fused_sweep(sched, tp, pm, plan=plan, tip_encoding="masks")
-    with pytest.raises(EinvalError, match="does not fit"):
-        cf.fused_edge_score(sched, tp, pm, wvec, pw,
-                            parent_clv=topo.parent_clv,
-                            child_clv=topo.child_clv,
-                            edge_matrix=topo.edge_matrix,
-                            tip_encoding="masks")
-    assert (cf.fused_sweep.launches, cf.fused_edge_score.launches) == before
+    before = (cf.fused_sweep.any_launches, cf.fused_edge_score.any_launches)
+    ok, err, agree = chip_smoke.sweep_close(
+        *cf.fused_sweep(sched, tp, pm, plan=plan, tip_encoding="masks"),
+        *cf.fused_sweep_plain(sched, tp, pm, tip_encoding="masks"),
+        torch.float64)
+    assert ok, (err, agree)
+    edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                edge_matrix=topo.edge_matrix, tip_encoding="masks")
+    got = float(cf.fused_edge_score(sched, tp, pm, wvec, pw, **edge))
+    want = float(cf.fused_edge_score_plain(sched, tp, pm, wvec, pw, **edge))
+    assert chip_smoke.logl_close(got, want, torch.float64)
+    assert (cf.fused_sweep.any_launches,
+            cf.fused_edge_score.any_launches) == (before[0] + 1,
+                                                  before[1] + 1)
     with pytest.raises(EinvalError):
         cf.fused_sweep(sched, tp, pm, tip_encoding="chars")
+
+
+@pytest.mark.gpu
+def test_any_alphabet_instances_match_plain_on_card(cuda):
+    """chip_smoke's phase 36 small configurations: K1/K2's and N1's
+    any-alphabet instances at S 2-64 and C 1-16, float32 and float64,
+    every tip encoding and scale mode, +I, an asc mode, pools that spill,
+    N1's per-rate tables in shared memory and forced to device memory
+    (resident and streamed slices), from the sumtable and from the rows,
+    against their plain versions; each instance launched."""
+    n, _, _, launches, _, lay, tables, _ = chip_smoke.check_alphabets_small(
+        cuda)
+    assert n > 0 and all(v > 0 for v in launches)
+    assert lay["shared_slots"] < 6
+    assert {("shared", True), ("device", True),
+            ("device", False)} <= set(tables)
+
+
+@pytest.mark.gpu
+def test_alphabet_entry_points_on_card(cuda):
+    """chip_smoke's phase 36 entry points: make_score, make_forward_fused,
+    make_train_step_fused and make_train_step at every (S, C, dtype) of
+    the small grid through the any-alphabet instances (counted), both
+    branch-length optimisers on a float64 Partition at each S against
+    the plain versions, infer_tree(rate_cats=10) against the CPU."""
+    chip_smoke.check_alphabet_entries(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("states, rate_cats, encoding", [
+    (16, 4, "masks"), (2, 6, "masks"), (61, 3, "clv"), (4, 10, "chars")])
+def test_alphabet_modules_on_card_match_cpu(cuda, dtype, states, rate_cats,
+                                            encoding):
+    """make_score, make_forward_fused and make_train_step_fused at an
+    alphabet or rate count outside the DNA and protein instances: the
+    card's (K1, K2, N1's any-alphabet instances, counted) against the
+    CPU's plain versions (float64 rel 1e-12, t* rel 1e-10; float32 the
+    budget, t* rel 1e-5)."""
+    from libpll_tpu_torch.utils.flagship import build_alphabet_flagship
+
+    _, topo, model_np, cols = build_alphabet_flagship(12, 700, states,
+                                                      rate_cats, seed=2)
+    masks = np.uint64(1) << cols.astype(np.uint64)
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, dtype)
+        tp = chip_smoke.tip_input(masks, encoding, rate_cats, dtype, device,
+                                  states)
+        kw = dict(tip_encoding=encoding, device=device)
+        before = chip_smoke.any_counts()
+        res = (float(ev.make_score(topo, rate_cats, states, **kw)(model, tp)),
+               float(ev.make_forward_fused(topo, rate_cats, states, **kw)(
+                   model, tp)[0]),
+               *(float(v) for v in ev.make_train_step_fused(
+                   topo, rate_cats, states, **kw)(model, tp)))
+        if device != "cpu":
+            assert [a - b for a, b in zip(chip_smoke.any_counts(),
+                                          before)] == [1, 2, 1]
+        out[str(device)] = res
+    want, got = out["cpu"], out[str(cuda)]
+    for g, w in zip(got[:3], want[:3]):
+        assert chip_smoke.logl_close(g, w, dtype), (got, want)
+    rel = 1e-10 if dtype == torch.float64 else chip_smoke.F32_T_REL
+    assert abs(got[3] - want[3]) <= rel * abs(want[3]), (got, want)
 
 
 @pytest.mark.gpu

@@ -278,10 +278,11 @@ def test_precision_high():
 
 
 def test_layout_raises_and_chars(monkeypatch):
-    """A pool that does not fit a block's shared memory raises
-    EinvalError from ``FusedPlan.layout`` (the library's answer stubbed
-    here: the query needs the card); pattern tips at 20 states are
-    "masks", "chars" (a nibble) raises."""
+    """A pool that does not fit the protein instance's block takes the
+    any-alphabet instance from ``FusedPlan.layout`` (the library's
+    answers stubbed here: the queries need the card), its rows spilled
+    where half a block's shared memory cannot hold them; pattern tips at
+    20 states are "masks", "chars" (a nibble) raises."""
     _, ttopo, *_ = protein_case()
     plan = cf.FusedPlan(ttopo.schedule, "masks")
 
@@ -290,11 +291,18 @@ def test_layout_raises_and_chars(monkeypatch):
             self.args = args
             return 1  # cudaErrorInvalidValue
 
+        def clv_any_query(self, states, f64, score, threads, smem, out):
+            out[0], out[1], out[2] = 1024, 132, 4
+            return 0
+
     lib = NoFit()
     monkeypatch.setattr(cf, "load_kernels", lambda: lib)
-    with pytest.raises(EinvalError, match="does not fit"):
-        plan.layout(torch.float64, 8, 20, SCALE_PER_SITE, True)
+    monkeypatch.setattr(cf, "load_any_kernels", lambda: lib)
+    lay = plan.layout(torch.float64, 8, 20, SCALE_PER_SITE, True)
     assert lib.args[:6] == (20, 1, 8, SCALE_PER_SITE, 1, plan.pool)
+    assert lay["shared_slots"] == 0 and lay["smem"] == 0
+    assert (lay["threads"], lay["blocks_per_sm"], lay["sms"]) == (
+        cf.ANY_THREADS, 4, 132)
     for make in (tev.make_score, tev.make_forward_fused,
                  tev.make_train_step_fused):
         with pytest.raises(EinvalError):
