@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen main paths, each driven once with the launch counters set to 0 just
+Fifteen main paths, each driven once with the launch counters set to 0 just
 before it and read just after:
 
   * the flagship (GTR+Γ4 DNA, 64 taxa × 262 144 site patterns, float32,
@@ -76,24 +76,32 @@ before it and read just after:
     alphabet under GTR+Γ4, float32, per-site scaling, 16-bit masks)
     simulated on the flagship's tree at 64 taxa × 262 144 sites through
     ``make_score``, ``make_forward_fused`` and ``make_train_step_fused``
-    (K1, K2 and N1's any-alphabet instances).
+    (K1, K2 and N1's any-alphabet instances);
+  * the large-tree tiers at every alphabet and rate count: the same
+    16-state model (GT16, GTR+Γ4, float32, 16-bit masks drawn on the
+    card) through ``make_score_unbounded`` on the large tier's 10 240-taxon
+    tree at 65 536 sites (K6's any-alphabet instance, over 26 segments),
+    ``make_dyn_sweep`` at 4 096 × 8 192 per rate (K5's) and
+    ``make_segmented_score`` / ``make_segmented_sweep`` at the README's
+    1 024 × 32 768 with CLV tips (K4's and K3's).
 
 Phases, one line each (or a few), numbered as below.  They run in two
 parts: first 1-2 and the phases that time what they run (4-6, 8-11,
-13-14, 16-19, 21-23, 25-26, 28-29, 31, 33 and 36's timed part) on a
-card with nothing else on it; then phase 35's two ranks start and run
-their sharded paths while the check-only phases (3, 7, 12, 15, 20, 24,
-27, 30, 32, 34 and 36's checks) run in this process beside them; last,
+13-14, 16-19, 21-23, 25-26, 28-29, 31, 33 and 36's and 37's timed parts)
+on a card with nothing else on it; then phase 35's two ranks start and
+run their sharded paths while the check-only phases (3, 7, 12, 15, 20,
+24, 27, 30, 32, 34 and 36's and 37's checks) run in this process beside
+them; last,
 the ranks time their part alone and phase 35 compares.  The ``[wall]``
 line gives each group's seconds in that order.
 
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc builds ``csrc/clv_fused.cu``, ``clv_any.cu``,
-     ``clv_dyn.cu``, ``clv_seg.cu``, ``roofline.cu``, ``derivatives.cu``,
-     ``fitch.cu`` and ``partials.cu`` for sm_90a,
-     one process each, all at once; the protein instances' registers,
-     spills and stack (one and two sites a thread), and the any-alphabet
-     instances';
+     ``clv_dyn.cu``, ``clv_dyn_any.cu``, ``clv_seg.cu``,
+     ``clv_seg_any.cu``, ``roofline.cu``, ``derivatives.cu``, ``fitch.cu``
+     and ``partials.cu`` for sm_90a, one process each, all at once; the
+     protein instances' registers, spills and stack (one and two sites a
+     thread), and the any-alphabet instances';
   3. small configs: K1/K2 against their plain PyTorch versions on the
      card, DNA and protein, for every tip encoding (protein: clv and
      masks; 1, 63, 64, 65, 300 and 1 000 sites, around a block's tile of
@@ -360,7 +368,27 @@ line gives each group's seconds in that order.
      and N1 against their plain versions and bounds; a float64 binary
      Partition (six rates, 64 × 65 536, tip CLVs by ``set_tip_clv``)
      under both branch-length optimisers against the same optimisers on the
-     plain versions.
+     plain versions;
+ 37. large alphabets: K3-K6's any-alphabet instances (``clv_seg_any.cu``,
+     ``clv_dyn_any.cu``) against their plain versions with phase 3's rules
+     at the (S, C) of ``LARGE_ANY_SMALL`` (binary at six rates, DNA at
+     three with chars and masks, 16, 20, 32, 61 and 64 states), float32
+     and float64, every scale mode, +I, a 24-taxon tree in segments, the
+     float64 pools capped at ``LARGE_ANY_CAPS`` slots (rows spill), the
+     float64 eight-rate protein pool the protein instance cannot hold, a
+     16-state table swap (``dynamic_edge``); and timed, with the
+     any-instance counters at 0 around each main path: the GT16 model
+     through ``make_score_unbounded`` at 10 240 × 65 536 (its logL against
+     the plain float64 ``make_forward`` in 2 048-site steps, eight blocks'
+     partials against that path's, K6 against its plain version in logL
+     and every block),
+     ``make_dyn_sweep`` at 4 096 × 8 192 per rate (the rows' edge logL
+     against the plain float64 ``make_forward`` in 1 024-site steps, the
+     rows against the plain version by phase 3's rule), and the segmented
+     score and sweep at 1 024 × 32 768 (K4's logL and K3's rows' edge
+     logL against the plain float64 ``make_forward``, each against its
+     plain version), each kernel's time against its plain version's and
+     its bound.
 
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its operations at the card's FP32 peak, or for the
@@ -534,23 +562,37 @@ def logl_close(got, want, dtype):
     return abs(got - want) <= ACC_REL * abs(want) + ACC_ABS
 
 
+SWEEP_CLOSE_ELEMS = 1 << 26  # values a step of sweep_close (512 MB float64)
+
+
 def sweep_close(inner_k, scal_k, inner_p, scal_p, dtype):
     """Kernel vs plain K2 output.  Returns (ok, max abs CLV error where the
     counters agree, share of counters that agree).  CLV errors are taken
     relative to the largest entry of each (node, site) block: entries far
-    below it may sit in float32 subnormals."""
+    below it may sit in float32 subnormals.  Compared ``SWEEP_CLOSE_ELEMS``
+    values at a time (the GT16 sizes' rows take gigabytes, and the
+    comparison holds several float64 copies of what it compares)."""
     import torch
 
     same = scal_k == scal_p
     agree = float(same.double().mean())
-    keep = same[:-1]
-    keep = (keep[:, None, None, :] if keep.dim() == 2
-            else keep[:, :, None, :]).expand_as(inner_p)
-    diff = (inner_k.double() - inner_p.double()).abs()
-    span = inner_p.double().abs().amax(dim=(1, 2), keepdim=True)
-    rel = diff / span.clamp_min(torch.finfo(torch.float32).tiny)
-    max_abs = float(diff[keep].max()) if keep.any() else 0.0
-    max_rel = float(rel[keep].max()) if keep.any() else 0.0
+    max_abs = max_rel = 0.0
+    n = inner_p.shape[0]
+    chunk = max(1, SWEEP_CLOSE_ELEMS // max(1, inner_p[:1].numel()))
+    for r0 in range(0, n, chunk):
+        r1 = min(r0 + chunk, n)
+        keep = same[r0:r1]
+        keep = (keep[:, None, None, :] if keep.dim() == 2
+                else keep[:, :, None, :]).expand_as(inner_p[r0:r1])
+        want = inner_p[r0:r1].double()
+        diff = (inner_k[r0:r1].double() - want).abs()
+        span = want.abs().amax(dim=(1, 2), keepdim=True)
+        del want
+        rel = diff / span.clamp_min(torch.finfo(torch.float32).tiny)
+        if keep.any():
+            max_abs = max(max_abs, float(diff[keep].max()))
+            max_rel = max(max_rel, float(rel[keep].max()))
+        del diff, rel
     if dtype == torch.float64:
         ok = bool(same.all()) and max_rel <= F64_REL
     else:
@@ -802,7 +844,7 @@ def check_dyn_spill(device):
     return n
 
 
-def check_dyn_swap(device):
+def check_dyn_swap(device, states=4, rate_cats=4, enc="chars"):
     """One K6 instance (``dynamic_edge``) scores two 16-taxon topologies
     built with matching envelope floors by swapping their tables, eval
     locations, edge matrix, import wiring and tip rows: each result equals
@@ -813,12 +855,13 @@ def check_dyn_swap(device):
     from libpll_tpu_torch.ops import clv_dyn as cd
 
     rng = np.random.default_rng(7)
-    cases = [small_case(random_newick(16, rng), 1000, 4, seed=7)
+    cases = [small_case(random_newick(16, rng), 1000, rate_cats, seed=7,
+                        states=states)
              for _ in range(2)]
 
     def schedule(topo, floors):
         return cd.build_dyn_schedule(
-            topo.schedule, rate_cats=4, states=4, max_rows=8,
+            topo.schedule, rate_cats=rate_cats, states=states, max_rows=8,
             ensure_rows=[topo.parent_clv, topo.child_clv], **floors)
 
     probes = [schedule(topo, {}) for topo, _, _ in cases]
@@ -830,12 +873,12 @@ def check_dyn_swap(device):
         min_r_exp=max(cd._export_tables(p)[2] for p in probes) + 2)
     dyns = [schedule(topo, floors) for topo, _, _ in cases]
     topo0 = cases[0][0]
+    kw = dict(rate_cats=rate_cats, states=states, tip_encoding=enc)
     shared = cd.make_dyn_score(dyns[0], topo0.parent_clv, topo0.child_clv,
-                               topo0.edge_matrix, rate_cats=4, states=4,
-                               dynamic_edge=True)
+                               topo0.edge_matrix, dynamic_edge=True, **kw)
     n = 0
     for (topo, model_np, masks), dyn in zip(cases, dyns):
-        tp = tip_input(masks, "chars", 4, None, device)
+        tp = tip_input(masks, enc, rate_cats, torch.float64, device, states)
         tables, m_g, exp_t, imp_src, plan = cd.dyn_swap_args(dyn)
         data = dict(
             eval_locs=torch.from_numpy(cd.dyn_eval_locs(
@@ -845,7 +888,7 @@ def check_dyn_swap(device):
             tip_globals=cd.dyn_tip_globals(dyn).to(device))
         tabs = stacked((tables, m_g, exp_t), device)
         fresh = cd.make_dyn_score(dyn, topo.parent_clv, topo.child_clv,
-                                  topo.edge_matrix, rate_cats=4, states=4)
+                                  topo.edge_matrix, **kw)
         for dtype in (torch.float32, torch.float64):
             args = kernel_inputs(topo, model_np, dtype, device, False)
             got = float(shared(tp, *tabs, *args, **data))
@@ -882,7 +925,8 @@ def plain_forward_f64(topo, tips_packed, tip_encoding, model64, states):
     return float(logl), persite
 
 
-def sweep_logl(topo, dyn, inner, scalers, tips_packed, model, pmatrix):
+def sweep_logl(topo, dyn, inner, scalers, tips_packed, model, pmatrix,
+               tip_encoding="chars", states=4):
     """The edge log-likelihood of a K5 output (segment-major rows)."""
     from libpll_tpu_torch.engine import evaluate as ev
     from libpll_tpu_torch.ops import clv_fused as cf
@@ -897,7 +941,7 @@ def sweep_logl(topo, dyn, inner, scalers, tips_packed, model, pmatrix):
         if idx >= tips:
             return inner[dyn.inner_row(idx - tips)]
         rows = torch.arange(idx, idx + 1, device=tips_packed.device)
-        return cf.decode_tips(tips_packed, "chars", rows, c, 4,
+        return cf.decode_tips(tips_packed, tip_encoding, rows, c, states,
                               pmatrix.dtype)[0]
 
     def srow(idx):
@@ -8145,6 +8189,538 @@ def phase_alphabet_partition(device):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+# ------------------------------------------ 37: large-tree tiers, any S
+# phase 37's check grid: (states, rates, the dyn tier's tip encodings)
+LARGE_ANY_SMALL = ((2, 6, ("masks",)), (3, 3, ("clv",)),
+                   (4, 3, ("chars", "masks")), (5, 10, ("masks",)),
+                   (16, 4, ("masks",)), (20, 3, ("masks",)),
+                   (32, 2, ("clv",)), (61, 2, ("clv",)), (64, 1, ("clv",)))
+LARGE_ANY_SITES = 301
+LARGE_ANY_CAPS = (0, 1)  # shared pool slots that force spills (float64)
+# the timed GT16 configurations (16 states, Γ4, float32, 16-bit masks):
+# K6 through make_score_unbounded on phase 9's tree at 65 536 of its 2**20
+# sites, K5 on the mid tree per rate, K3/K4 on the README's tree (CLV tips)
+GT16_STATES, GT16_RATES = 16, 4
+GT16_LARGE = (GIANT_TIPS, 65536)
+GT16_MID = (MID_TIPS, MID_SITES)
+GT16_SEG = (README_TIPS, README_SITES)
+GT16_CHUNK = 1024  # sites a step of the float64 plain make_forward
+GT16_LARGE_CHUNK = 2048  # the same at 10 240 taxa (21.5 GB of rows a step)
+GT16_ITERS = (3, 1)  # timed calls: a kernel, a plain version
+
+
+class SegAnyCap:
+    """While active, the segmented tier's any-alphabet instance keeps at
+    most ``cap`` of its pool's slots in shared memory (the rest spill)."""
+
+    def __init__(self, cap):
+        self.cap = cap
+
+    def __enter__(self):
+        from libpll_tpu_torch.ops import clv_seg as cseg
+
+        self.cseg, self.real = cseg, cseg.any_shared_slots
+        cseg.any_shared_slots = lambda pool, *a: min(self.cap,
+                                                     self.real(pool, *a))
+        return self
+
+    def __exit__(self, *exc):
+        self.cseg.any_shared_slots = self.real
+
+
+def large_counts():
+    """(K3, K4, K5, K6) launches of the large tiers' any instances."""
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_seg as cseg
+
+    return (cseg.SegmentedSweep.any_launches,
+            cseg.SegmentedScore.any_launches, cd.DynSweep.any_launches,
+            cd.DynScore.any_launches)
+
+
+def reset_large_counts():
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_seg as cseg
+
+    for cls in (cseg.SegmentedSweep, cseg.SegmentedScore, cd.DynSweep,
+                cd.DynScore):
+        cls.launches = cls.any_launches = 0
+
+
+def check_large_alphabets_small(device):
+    """Phase 37's checks: K3-K6's any-alphabet instances against their
+    plain versions with phase 3's rules at every (S, C) of
+    ``LARGE_ANY_SMALL`` (2-64 states, 1-10 rates: binary at six rates, DNA
+    at three, 61 states with CLV tips), float32 and float64, every scale
+    mode, the dyn tier's tip encodings, +I (K6), a 24-taxon tree cut into
+    segments (K5/K6 at 8 rows, K3/K4 at 9); float64 again with the
+    shared pools capped at ``LARGE_ANY_CAPS`` slots (rows spill); the
+    float64 eight-rate protein schedule whose pool the protein instance's
+    block cannot hold; one K6 scoring two 16-state topologies by a table
+    swap.  Returns (configurations, launches (K3, K4, K5, K6), largest
+    float32 K5/K3 CLV abs and K6/K4 |d logL|, unscaled runs whose plain
+    logL underflows)."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.utils.constants import (SCALE_NONE, SCALE_PER_RATE,
+                                                  SCALE_PER_SITE)
+
+    reset_large_counts()
+    newick = random_newick(24, np.random.default_rng(37))
+    n, rows_err, logl_err, underflows = 0, 0.0, 0.0, 0
+
+    def rows_ok(got, want, dtype, what):
+        nonlocal rows_err
+        torch.cuda.synchronize()
+        ok, err, agree = sweep_close(*got, *want, dtype)
+        check(ok, f"{what}: max abs err {err}, scaler agreement {agree}")
+        if dtype == torch.float32:
+            rows_err = max(rows_err, err)
+
+    def logl_ok(got, want, dtype, what):
+        nonlocal logl_err, underflows
+        if not np.isfinite(want):  # unscaled, the plain logL underflows
+            check(got == want, f"{what}: {got!r} vs plain {want!r}")
+            underflows += 1
+            return
+        check(np.isfinite(got) and logl_close(got, want, dtype),
+              f"{what}: {got!r} vs plain {want!r}")
+        if dtype == torch.float32:
+            logl_err = max(logl_err, abs(got - want))
+
+    for states, rate_cats, encs in LARGE_ANY_SMALL:
+        topo, model_np, masks = small_case(newick, LARGE_ANY_SITES,
+                                           rate_cats, seed=states,
+                                           states=states)
+        ensure = [topo.parent_clv, topo.child_clv]
+        edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
+        dyn = cd.build_dyn_schedule(topo.schedule, rate_cats=rate_cats,
+                                    states=states, max_rows=8,
+                                    ensure_rows=ensure)
+        seg = cseg.build_segmented_schedule(topo.schedule, max_rows=9,
+                                            ensure_rows=ensure)
+        check(len(dyn.segments) > 2 and len(seg.segments) > 2,
+              f"S={states}: {len(dyn.segments)} dyn and "
+              f"{len(seg.segments)} seg segments")
+        tables = stacked(cd.dyn_score_args(dyn), device)
+        kw = dict(rate_cats=rate_cats, states=states)
+        for dtype in (torch.float32, torch.float64):
+            caps = (None,) + (LARGE_ANY_CAPS if dtype == torch.float64
+                              else ())
+            slabs = cseg.pack_tips_segmented(tip_input(
+                masks, "clv", rate_cats, dtype, device, states), seg)
+            for scale in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
+                where = f"S={states} C={rate_cats} {dtype} scale={scale}"
+                pm, wvec, pw, _ = kernel_inputs(topo, model_np, dtype,
+                                                device, False)
+                for enc in encs:
+                    tp = tip_input(masks, enc, rate_cats, dtype, device,
+                                   states)
+                    sweep = cd.make_dyn_sweep(dyn, scale, tip_encoding=enc,
+                                              **kw)
+                    k5_want = sweep.plain(tp, *tables[:2], pm)
+                    k6 = []
+                    for pinv in (False, True):
+                        args = kernel_inputs(topo, model_np, dtype, device,
+                                             pinv)
+                        score = cd.make_dyn_score(dyn, *edge, scale,
+                                                  tip_encoding=enc,
+                                                  use_pinv=pinv, **kw)
+                        k6.append((score, args, float(score.plain(
+                            tp, *tables, *args))))
+                    for cap in caps:
+                        sweep.slot_cap = cap
+                        rows_ok(sweep(tp, *tables[:2], pm), k5_want, dtype,
+                                f"K5 {where} {enc} cap {cap}")
+                        n += 1
+                        for pinv, (score, args, want) in enumerate(k6):
+                            score.slot_cap = cap
+                            logl_ok(float(score(tp, *tables, *args)), want,
+                                    dtype, f"K6 {where} {enc} pinv={pinv} "
+                                    f"cap {cap}")
+                            n += 1
+                sweep = cseg.make_segmented_sweep(seg, scale, **kw)
+                score = cseg.make_segmented_score(seg, *edge, scale, **kw)
+                k3_want = sweep.plain(slabs, pm)
+                k4_want = float(score.plain(slabs, pm, wvec, pw))
+                for cap in caps:
+                    with (nullcontext() if cap is None else SegAnyCap(cap)):
+                        rows_ok(sweep(slabs, pm), k3_want, dtype,
+                                f"K3 {where} cap {cap}")
+                        logl_ok(float(score(slabs, pm, wvec, pw)), k4_want,
+                                dtype, f"K4 {where} cap {cap}")
+                    n += 2
+        torch.cuda.empty_cache()
+
+    # protein at eight rates in float64: one segment of a 32-taxon tree,
+    # whose seven live rows the protein instance's block cannot hold
+    topo, model_np, masks = small_case(
+        random_newick(32, np.random.default_rng(32)), LARGE_ANY_SITES, 8,
+        seed=32, states=20)
+    whole = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=1000,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    slabs = cseg.pack_tips_segmented(tip_input(
+        masks, "clv", 8, torch.float64, device, 20), whole)
+    pm, wvec, pw, _ = kernel_inputs(topo, model_np, torch.float64, device,
+                                    False)
+    sweep = cseg.make_segmented_sweep(whole, rate_cats=8, states=20)
+    score = cseg.make_segmented_score(
+        whole, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+        rate_cats=8, states=20)
+    check(sweep.instance(torch.float64) and score.instance(torch.float64),
+          "the float64 eight-rate protein pool takes the any instance")
+    rows_ok(sweep(slabs, pm), sweep.plain(slabs, pm), torch.float64,
+            "K3 protein C=8 float64 one segment")
+    logl_ok(float(score(slabs, pm, wvec, pw)),
+            float(score.plain(slabs, pm, wvec, pw)), torch.float64,
+            "K4 protein C=8 float64 one segment")
+    n += 2 + check_dyn_swap(device, states=GT16_STATES,
+                            rate_cats=GT16_RATES, enc="masks")
+    launches = large_counts()
+    check(all(v > 0 for v in launches),
+          f"phase 37 checks: any-instance launches (K3, K4, K5, K6) "
+          f"{launches}")
+    return n, launches, rows_err, logl_err, underflows
+
+
+def f64_chunked(topo, tips_packed, enc, model_np, states, chunk):
+    """The plain float64 make_forward on the card, ``chunk`` sites at a
+    time (the scaling and the site terms are site-local): (logL,
+    per-site [L])."""
+    import torch
+
+    from libpll_tpu_torch.engine.params import model_from_numpy
+
+    sites = tips_packed.shape[-1]
+    out = []
+    for lo in range(0, sites, chunk):
+        hi = min(sites, lo + chunk)
+        sub = dict(model_np, pattern_weights=model_np["pattern_weights"][
+            lo:hi], invariant=model_np["invariant"][lo:hi])
+        out.append(plain_forward_f64(
+            topo._replace(sites=hi - lo),
+            tips_packed[..., lo:hi].contiguous(), enc,
+            model_from_numpy(sub, tips_packed.device, torch.float64),
+            states)[1])
+        torch.cuda.empty_cache()
+    persite = torch.cat(out)
+    return float(persite.sum()), persite
+
+
+def gt16_large(device, peak):
+    """Phase 37's K6 at GT16: make_score_unbounded over phase 9's tree
+    (10 240 taxa) at 65 536 sites, 16-bit masks drawn on the card; its
+    logL against the plain float64 make_forward (``GT16_LARGE_CHUNK``
+    sites a step) within the f32 budget, and the kernel's partials of
+    eight 128-site blocks against that path's sums of their sites, K6
+    against its plain version (float32, segment by segment) in logL and
+    every block, times and bound."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.flagship import (build_alphabet_topology,
+                                                 draw_tipmasks_cuda)
+
+    tips, sites = GT16_LARGE
+    s, c = GT16_STATES, GT16_RATES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    topo, model_np = build_alphabet_topology(tips, sites, s, c, seed=0)
+    tp = draw_tipmasks_cuda(tips, sites, s, 0, device)
+    score = ev.ScoreUnbounded(topo, c, s, tp, "masks").to(device)
+    setup_s = time.perf_counter() - t0
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    torch.cuda.synchronize()
+    reset_large_counts()
+    logl = float(score(m32))
+    torch.cuda.synchronize()
+    launches = large_counts()
+    check(launches[3] > 0 and launches[3] == cd.DynScore.launches
+          and launches[:3] == (0, 0, 0),
+          f"GT16 make_score_unbounded: any-instance launches (K3, K4, K5, "
+          f"K6) {launches} of {cd.DynScore.launches}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    partials = score(m32, return_partials=True)
+    check(np.isfinite(logl)
+          and abs(float(partials.sum()) - logl) <= 1e-9 * abs(logl),
+          f"GT16 large logL {logl}, partials {float(partials.sum())}")
+    t0 = time.perf_counter()
+    want_logl, persite = f64_chunked(topo, tp, "masks", model_np, s,
+                                     GT16_LARGE_CHUNK)
+    f64_s = time.perf_counter() - t0
+    budget = ACC_REL * abs(want_logl) + ACC_ABS
+    check(abs(logl - want_logl) <= budget,
+          f"GT16 make_score_unbounded {logl!r} vs plain f64 {want_logl!r}")
+    n_blocks = partials.shape[0]
+    blocks = sorted({int(b) for b in
+                     np.linspace(0, n_blocks - 1, GIANT_BLOCKS).round()})
+    want = torch.stack([persite[b * cd.BLOCK_SITES:
+                                (b + 1) * cd.BLOCK_SITES].sum()
+                        for b in blocks])
+    diff = (partials[blocks] - want).abs()
+    check(bool((diff <= ACC_REL * want.abs() + ACC_ABS).all()),
+          f"GT16 large blocks {blocks}: kernel {partials[blocks].tolist()} "
+          f"vs plain f64 {want.tolist()}")
+    del persite
+    torch.cuda.empty_cache()
+    pm = score.pmatrices(m32, torch.float32)
+    wvec = cf.pack_weight_vec(m32["freqs_pc"], m32["rate_weights"])
+    k6_args = (score.tips, score.tables, score.m_ops, score.exp_tables, pm,
+               wvec, m32["pattern_weights"])
+    t0 = time.perf_counter()
+    plain = score.kernel.plain(*k6_args, return_partials=True)
+    torch.cuda.synchronize()
+    k6_plain_ms = (time.perf_counter() - t0) * 1e3
+    k6_err = abs(float(partials.sum()) - float(plain.sum()))
+    block_err = (partials - plain).abs()
+    check(k6_err <= ACC_REL * abs(logl) + ACC_ABS and bool(
+        (block_err <= ACC_REL * plain.abs() + ACC_ABS).all()),
+        f"GT16 large K6 vs plain: |d logL| {k6_err}, largest block |d| "
+        f"{float(block_err.max())}")
+    del plain, partials
+    torch.cuda.empty_cache()
+    ms, host = time_ms(lambda: score(m32), iters=GT16_ITERS[0], warmup=1)
+    k6_ms = time_ms(lambda: score.kernel(*k6_args), iters=GT16_ITERS[0],
+                    warmup=0)[0]
+    flop = (topo.schedule.n_inner * c * alphabet_flop(s)
+            + c * (2 * s * s + 2 * s)) * sites
+    k6_bound = bound(flop, tp.numel() * 4 + sites * 4, peak)
+    pool, lay = pool_line(score.kernel, torch.float32)
+    print(f"[37 gt16 large] {tips} taxa x {sites} sites x {s} states x {c} "
+          f"rates f32 masks (drawn on the card, set-up {setup_s:.2f} s), "
+          f"per-site scaling: make_score_unbounded logL {logl!r} vs plain "
+          f"f64 make_forward {want_logl!r} (|d| {abs(logl - want_logl):.3e} "
+          f"<= {budget:.3e}; {GT16_LARGE_CHUNK} sites a step, "
+          f"{f64_s:.1f} s); {len(score.dyn.segments)} segments (max_rows "
+          f"{cd.dyn_max_rows(c, s, sites)}), any-instance launches (K3, K4, "
+          f"K5, K6) {launches}; blocks {blocks} match the plain f64 path "
+          f"(largest |d| {float(diff.max()):.3e}); K6 vs its "
+          f"plain version |d logL| {k6_err:.3e}, largest block |d| "
+          f"{float(block_err.max()):.3e}; K6 {pool}; peak device memory "
+          f"{peak_mem / 2**30:.2f} GiB; {ms:.2f} ms/eval (host {host:.2f} "
+          f"ms); K6 {k6_ms:.2f} ms vs plain {k6_plain_ms:.2f} ms against its "
+          f"bound {k6_bound[0]:.2f} ms ({k6_bound[1]}): "
+          f"{k6_bound[0] / k6_ms * 100:.2f}%", flush=True)
+    del score, tp, k6_args
+    torch.cuda.empty_cache()
+    return dict(launches=launches[3], err=k6_err, ms=k6_ms,
+                plain_ms=k6_plain_ms, bound=k6_bound, logl=logl, eval_ms=ms)
+
+
+def gt16_mid(device, peak):
+    """Phase 37's K5 at GT16: make_dyn_sweep on the mid tree (4 096 x
+    8 192, per-rate scaling, cut at ``K5_MAX_ROWS``), 16-bit masks drawn
+    on the card: the rows' edge logL against the plain float64
+    make_forward (in ``GT16_CHUNK``-site steps) within the f32 budget, K5
+    against its plain version by phase 3's rule, times and bound."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+    from libpll_tpu_torch.utils.flagship import (build_alphabet_topology,
+                                                 draw_tipmasks_cuda)
+
+    tips, sites = GT16_MID
+    s, c = GT16_STATES, GT16_RATES
+    topo, model_np = build_alphabet_topology(tips, sites, s, c, seed=1)
+    topo = topo._replace(scale_mode=SCALE_PER_RATE)
+    tp = draw_tipmasks_cuda(tips, sites, s, 1, device)
+    want = f64_chunked(topo, tp, "masks", model_np, s, GT16_CHUNK)[0]
+    budget = ACC_REL * abs(want) + ACC_ABS
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    dyn = cd.build_dyn_schedule(
+        topo.schedule, rate_cats=c, states=s, max_rows=K5_MAX_ROWS,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    sweep = cd.make_dyn_sweep(dyn, SCALE_PER_RATE, rate_cats=c, states=s,
+                              tip_encoding="masks")
+    tables = stacked(cd.dyn_runtime_args(dyn), device)
+    pm = ev._pmatrices(m32, topo, torch.float32, torch.as_tensor(
+        topo.matrix_indices, dtype=torch.long, device=device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_large_counts()
+    inner, scal = sweep(tp, *tables, pm)
+    torch.cuda.synchronize()
+    launches = large_counts()
+    check(launches[2] == len(dyn.segments) == cd.DynSweep.launches
+          and launches[3] == 0,
+          f"GT16 make_dyn_sweep: any-instance launches (K3, K4, K5, K6) "
+          f"{launches}, {len(dyn.segments)} segments")
+    peak_mem = torch.cuda.max_memory_allocated()
+    got = sweep_logl(topo, dyn, inner, scal, tp, m32, pm, "masks", s)
+    check(abs(got - want) <= budget,
+          f"GT16 mid K5 rows' logL {got!r} vs plain f64 {want!r}")
+    t0 = time.perf_counter()
+    plain = sweep.plain(tp, *tables, pm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ok, err, agree = sweep_close(inner, scal, *plain, torch.float32)
+    check(ok, f"GT16 mid K5 vs plain: max abs err {err}, scalers agree "
+              f"{agree}")
+    del inner, scal, plain
+    torch.cuda.empty_cache()
+    k5_ms = time_ms(lambda: sweep(tp, *tables, pm), iters=GT16_ITERS[0],
+                    warmup=1)[0]
+    n_inner = topo.schedule.n_inner
+    nbytes = (n_inner * c * s * sites + (n_inner + 1) * c * sites
+              + tp.numel()) * 4
+    k5_bound = bound(n_inner * sites * c * alphabet_flop(s), nbytes, peak)
+    pool, _ = pool_line(sweep, torch.float32)
+    print(f"[37 gt16 mid] {tips} x {sites} x {s} states x {c} rates f32 "
+          f"masks, per-rate scaling: K5 (make_dyn_sweep, "
+          f"{len(dyn.segments)} segments) rows' edge logL {got!r} vs plain "
+          f"f64 make_forward {want!r} (|d| {abs(got - want):.3e} <= "
+          f"{budget:.3e}); K5 vs plain max abs {err:.3e}, scalers agree "
+          f"{agree:.6f}; any-instance launches (K3, K4, K5, K6) {launches};"
+          f" K5 {pool}; peak device memory {peak_mem / 2**30:.2f} GiB; K5 "
+          f"{k5_ms:.2f} ms vs plain {plain_ms:.2f} ms against its bound "
+          f"{k5_bound[0]:.3f} ms ({k5_bound[1]}): "
+          f"{k5_bound[0] / k5_ms * 100:.2f}%", flush=True)
+    del tp, tables, pm
+    torch.cuda.empty_cache()
+    return dict(launches=launches[2], err=err, ms=k5_ms, plain_ms=plain_ms,
+                bound=k5_bound)
+
+
+def gt16_seg(device, peak):
+    """Phase 37's K3/K4 at GT16: make_segmented_score and
+    make_segmented_sweep on the README's tree (1 024 x 32 768, per-site
+    scaling, CLV tips decoded from 16-bit masks drawn on the card, cut at
+    ``seg_max_rows``), one launch per call each: K4's logL and K3's rows'
+    edge logL against the plain float64 make_forward within the f32
+    budget, each against its plain version, times and bounds."""
+    import torch
+
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
+    from libpll_tpu_torch.utils.flagship import (build_alphabet_topology,
+                                                 draw_tipmasks_cuda)
+
+    tips, sites = GT16_SEG
+    s, c = GT16_STATES, GT16_RATES
+    topo, model_np = build_alphabet_topology(tips, sites, s, c, seed=2)
+    words = draw_tipmasks_cuda(tips, sites, s, 2, device)
+    want = f64_chunked(topo, words, "masks", model_np, s, 4 * GT16_CHUNK)[0]
+    budget = ACC_REL * abs(want) + ACC_ABS
+    max_rows = cseg.seg_max_rows(c, s, torch.float32)
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=max_rows,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    slabs = cseg.pack_tips_segmented(cf.decode_tips(
+        words, "masks", torch.arange(tips, device=device), c, s,
+        torch.float32).contiguous(), seg)
+    torch.cuda.empty_cache()
+    m32 = model_from_numpy(model_np, device, torch.float32)
+    pm, wvec, pw, _ = kernel_inputs(topo, model_np, torch.float32, device,
+                                    False)
+    score = cseg.make_segmented_score(
+        seg, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+        SCALE_PER_SITE, rate_cats=c, states=s)
+    sweep = cseg.make_segmented_sweep(seg, SCALE_PER_SITE, rate_cats=c,
+                                      states=s)
+    torch.cuda.synchronize()
+    reset_large_counts()
+    logl = float(score(slabs, pm, wvec, pw))
+    torch.cuda.synchronize()
+    k4_launches = large_counts()
+    reset_large_counts()
+    inner, scal = sweep(slabs, pm)
+    torch.cuda.synchronize()
+    k3_launches = large_counts()
+    check(k4_launches == (0, 1, 0, 0) and k3_launches == (1, 0, 0, 0),
+          f"GT16 segmented: any-instance launches (K3, K4, K5, K6) K4's call"
+          f" {k4_launches}, K3's {k3_launches}; want one each")
+    k3_logl = sweep_logl(topo, seg, inner, scal, words, m32, pm, "masks", s)
+    check(np.isfinite(logl) and abs(logl - want) <= budget
+          and abs(k3_logl - want) <= budget,
+          f"GT16 segmented K4 {logl!r}, K3 rows' {k3_logl!r} vs plain f64 "
+          f"{want!r}")
+    t0 = time.perf_counter()
+    plain = sweep.plain(slabs, pm)
+    torch.cuda.synchronize()
+    k3_plain_ms = (time.perf_counter() - t0) * 1e3
+    ok, k3_err, agree = sweep_close(inner, scal, *plain, torch.float32)
+    check(ok, f"GT16 segmented K3 vs plain: max abs err {k3_err}, scalers "
+              f"agree {agree}")
+    del inner, scal, plain
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k4_plain = float(score.plain(slabs, pm, wvec, pw))
+    k4_plain_ms = (time.perf_counter() - t0) * 1e3
+    k4_err = abs(logl - k4_plain)
+    check(k4_err <= budget, f"GT16 segmented K4 vs plain: |d logL| {k4_err}")
+    ms = {"k4": time_ms(lambda: score(slabs, pm, wvec, pw),
+                        iters=GT16_ITERS[0], warmup=1)[0],
+          "k3": time_ms(lambda: sweep(slabs, pm), iters=GT16_ITERS[0],
+                        warmup=1)[0]}
+    sched = topo.schedule
+    flop = sched.n_inner * sites * c * alphabet_flop(s)
+    tip_bytes = sum(t.numel() for t in slabs) * 4
+    k3_bytes = tip_bytes + sched.n_inner * (c * s + 1) * sites * 4
+    k3_bound, k4_bound = bound(flop, k3_bytes, peak), bound(
+        flop + c * (2 * s * s + 2 * s) * sites, tip_bytes + sites * 4, peak)
+    shared = score.any_shared(torch.float32)
+    print(f"[37 gt16 seg] {tips} x {sites} x {s} states x {c} rates f32 CLV "
+          f"tips, per-site scaling: {len(seg.segments)} segments (max_rows "
+          f"{max_rows}); pool of {score.pool} slots (K3 {sweep.pool}), "
+          f"{shared} in shared memory; K4 make_segmented_score {logl!r}, K3 "
+          f"rows' edge logL {k3_logl!r}, plain f64 make_forward {want!r} "
+          f"(|d| {abs(logl - want):.3e}, {abs(k3_logl - want):.3e} <= "
+          f"{budget:.3e}); K3 vs plain max abs {k3_err:.3e}, scalers agree "
+          f"{agree:.6f}; K4 vs plain |d logL| {k4_err:.3e}; K4 "
+          f"{ms['k4']:.2f} ms vs plain {k4_plain_ms:.2f} ms, bound "
+          f"{k4_bound[0]:.3f} ms ({k4_bound[1]}), "
+          f"{k4_bound[0] / ms['k4'] * 100:.2f}%; K3 {ms['k3']:.2f} ms vs "
+          f"plain {k3_plain_ms:.2f} ms, bound {k3_bound[0]:.3f} ms "
+          f"({k3_bound[1]}), {k3_bound[0] / ms['k3'] * 100:.2f}%",
+          flush=True)
+    del slabs, words
+    torch.cuda.empty_cache()
+    return dict(k3=dict(launches=k3_launches[0], err=k3_err, ms=ms["k3"],
+                        plain_ms=k3_plain_ms, bound=k3_bound),
+                k4=dict(launches=k4_launches[1], err=k4_err, ms=ms["k4"],
+                        plain_ms=k4_plain_ms, bound=k4_bound))
+
+
+def phase_large_alphabets(device, peak):
+    """Phase 37's timed part: the GT16 configurations through K6, K5 and
+    K3/K4's any-alphabet instances.  Returns the kernels line's numbers
+    by kernel."""
+    seg = gt16_seg(device, peak)
+    return dict(k6=gt16_large(device, peak), k5=gt16_mid(device, peak),
+                k3=seg["k3"], k4=seg["k4"])
+
+
+def phase_large_alphabet_checks(device):
+    """Phase 37's checks (beside phase 35's ranks)."""
+    t0 = time.perf_counter()
+    n, launches, rows_err, logl_err, underflows = \
+        check_large_alphabets_small(device)
+    print(f"[37 large alphabets small] {n} configurations of K3-K6's "
+          f"any-alphabet instances match their plain versions ((S, C) in "
+          f"{[(s, c) for s, c, _ in LARGE_ANY_SMALL]}, float32 and float64, "
+          f"every scale mode, the dyn tier's tip encodings, +I, 24 taxa in "
+          f"segments; float64 also with shared pools of {LARGE_ANY_CAPS} "
+          f"slots (rows spill); the float64 eight-rate protein pool; a "
+          f"16-state table swap; {underflows} unscaled runs whose plain "
+          f"logL underflows, held to the same non-finite logL) in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"any-instance launches (K3, K4, K5, K6) {launches}; largest f32 "
+          f"deviations: K5/K3 CLV abs {rows_err:.3e}, K6/K4 |d logL| "
+          f"{logl_err:.3e}", flush=True)
+
+
 def main():
     if sys.argv[1:2] == ["--mesh-rank"]:  # phase 35's ranks
         return mesh_rank(*sys.argv[2:])
@@ -8197,7 +8773,8 @@ def main():
     build_s = time.perf_counter() - t0
     for module in (cf, cd, cseg, rf, dv, fitch, clv_ops, inc_ops):
         module.load_kernels()
-    cf.load_any_kernels()
+    for module in (cf, cd, cseg):
+        module.load_any_kernels()
     fused = ptxas_report("clv_fused")
     print(f"[2 build] {', '.join(f'{n}.cu' for n in sources)} for sm_90a "
           f"in {build_s:.2f} s (in parallel); clv_fused: {len(fused)} kernel "
@@ -8211,7 +8788,13 @@ def main():
               ptxas_report("clv_fused", "fused_protein_kernel"))
           + "; clv_any.cu instances <dtype,R,K1>: " + "; ".join(
               f"{lab} {r}, {b}, {st}" for lab, r, b, st in
-              ptxas_report("clv_any", "fused_any_kernel")),
+              ptxas_report("clv_any", "fused_any_kernel"))
+          + "; clv_dyn_any.cu <dtype,R>: " + "; ".join(
+              f"{lab} {r}, {b}, {st}" for lab, r, b, st in
+              ptxas_report("clv_dyn_any", "dyn_any_kernel"))
+          + "; clv_seg_any.cu <dtype,R>: " + "; ".join(
+              f"{lab} {r}, {b}, {st}" for lab, r, b, st in
+              ptxas_report("clv_seg_any", "seg_any_kernel")),
           flush=True)
     cpu_refs = CpuRefs()  # phases 24 and 32's CPU sides, beside the card's
 
@@ -8419,6 +9002,11 @@ def main():
     torch.cuda.empty_cache()
     alpha = phase_alphabets(device, card, fp32_peak)
 
+    # --------------------------------- 37: large tiers at any S, timed part
+    starts.append(("37 timed", time.perf_counter()))
+    torch.cuda.empty_cache()
+    large = phase_large_alphabets(device, fp32_peak)
+
     # ------------------------------------ 35 beside the check-only phases
     # phase 35's ranks run their sharded paths while the phases below
     # check what they check (no number of theirs enters the kernels line);
@@ -8622,6 +9210,9 @@ def main():
     starts.append(("36 checks", time.perf_counter()))
     torch.cuda.empty_cache()
     phase_alphabet_checks(device)
+    starts.append(("37 checks", time.perf_counter()))
+    torch.cuda.empty_cache()
+    phase_large_alphabet_checks(device)
     torch.set_num_threads(all_threads)
 
     # ---------------------------------------------------- 35: site sharding
@@ -8640,6 +9231,8 @@ def main():
     any_src = "libpll_tpu_torch/csrc/clv_any.cu"
     dyn_src = "libpll_tpu_torch/csrc/clv_dyn.cu"
     seg_src = "libpll_tpu_torch/csrc/clv_seg.cu"
+    dyn_any_src = "libpll_tpu_torch/csrc/clv_dyn_any.cu"
+    seg_any_src = "libpll_tpu_torch/csrc/clv_seg_any.cu"
     roof_src = "libpll_tpu_torch/csrc/roofline.cu"
     deriv_src = "libpll_tpu_torch/csrc/derivatives.cu"
     fitch_src = "libpll_tpu_torch/csrc/fitch.cu"
@@ -8781,7 +9374,24 @@ def main():
                "libpll_tpu/ops/clv_pallas.py:673", "make_forward_fused", 1),
               ("newton_solve_any", "n1", deriv_src,
                "libpll_tpu/engine/evaluate.py:657", "make_train_step_fused",
-               2)))]}))
+               2))),
+        # the large tiers' any-alphabet instances (phase 37) at GT16: K6
+        # through make_score_unbounded at 10 240 x 65 536, K5 at the mid
+        # tree, K3/K4 at the README's tree
+        *({"name": name, "route": "cuda", "source": src, "replaces": line,
+           "launches": large[key]["launches"],
+           "max_abs_err": large[key]["err"], "ms": large[key]["ms"],
+           "plain_ms": large[key]["plain_ms"],
+           **bound_keys(large[key]["bound"])}
+          for name, key, src, line in (
+              ("segmented_sweep_any", "k3", seg_any_src,
+               "libpll_tpu/ops/clv_pallas_seg.py:327"),
+              ("segmented_score_any", "k4", seg_any_src,
+               "libpll_tpu/ops/clv_pallas_seg.py:425"),
+              ("dyn_sweep_any", "k5", dyn_any_src,
+               "libpll_tpu/ops/clv_pallas_dyn.py:383"),
+              ("dyn_score_any", "k6", dyn_any_src,
+               "libpll_tpu/ops/clv_pallas_dyn.py:695")))]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -354,9 +354,10 @@ __device__ void tile_sum_store(double v, double* out) {
 }
 
 // ---------------------------------------------------------------- any S
-// The any-alphabet op (clv_any.cu's K1/K2 and partials.cu's C1 at S not in
-// {4, 20}): the state loops run to a compile-time bound R with the states
-// past S masked, the P-matrices in rows padded with zeros to whole 16-byte
+// The any-alphabet op (clv_any.cu's K1/K2, partials.cu's C1,
+// clv_dyn_any.cu's K5/K6 and clv_seg_any.cu's K3/K4 at S not in {4, 20}):
+// the state loops run to a compile-time bound R with the states past S
+// masked, the P-matrices in rows padded with zeros to whole 16-byte
 // vectors (clv_fused.pad_rows), read as vectors in K1's dot order (a zero
 // entry adds 0 * 0, which changes no bit).
 // R at or below which a row's state loop is unrolled whole
@@ -480,6 +481,71 @@ __device__ __forceinline__ void any_op(
         out[k * lo] = out[k * lo] * u.factor;
     sout[0] = sc1(0, 0, 1) + sc2(0, 0, 1) + (int32_t)site_below;
   }
+}
+
+// A row's entries at one site where the kind is known only at run time
+// (the large tiers' exports and edge): values at p (entry (c, k) at
+// (c*ns + k) strides further), or a pattern tip's code; code 0 with
+// `coded` is a row of zeros.
+template <typename T>
+struct AnyRow {
+  const T* p;
+  int64_t stride;
+  uint32_t code;
+  bool coded;
+  __device__ __forceinline__ T operator()(int c, int k, int ns) const {
+    return coded ? (T)((code >> k) & 1u) : p[((int64_t)c * ns + k) * stride];
+  }
+};
+
+// The edge's summed term at one site, any alphabet and rate count (the
+// large tiers' any instances): per rate c, sum_j par(c, j) (P_e[c]
+// x_c)(j) w[c*ns + j] with x_c the child's values, rates summed in order.
+// The counters (cp, cc: rate c c strides further) give the site's counter
+// snum: per site their sum; per rate the minimum over rates of their sum,
+// each rate's term multiplied by 2^-bits once per count above it, at most
+// kRateMaxDiff times (fold_rates' rule, src/core_likelihood.c:916-941).
+template <typename T, int R>
+__device__ __forceinline__ T any_edge_term(
+    const AnyRow<T>& par, const AnyRow<T>& ch, const T* pe, const T* w,
+    RowAt<int32_t> cp, RowAt<int32_t> cc, bool counts, bool per_rate,
+    int C, int ns, int sp, T thresh, int& snum) {
+  snum = 0;
+  if (counts && per_rate) {
+    for (int c = 0; c < C; ++c) {
+      const int s = cp(0, c, 1) + cc(0, c, 1);
+      snum = (c == 0 || s < snum) ? s : snum;
+    }
+  } else if (counts) {
+    snum = cp(0, 0, 1) + cc(0, 0, 1);
+  }
+  T term = 0;
+  for (int c = 0; c < C; ++c) {
+    T x[R], tb[R];
+    any_child<T, R>(ch, c, ns, x);
+    contract_any<T, R, false>(pe + (int64_t)c * ns * sp, ns, sp, x, tb);
+    T tc = 0;
+    each_state<R>(ns, [&](int j) {
+      tc = dev_fma(par(c, j, ns) * tb[j], __ldg(w + c * ns + j), tc);
+    });
+    if (counts && per_rate) {
+      const int diff =
+          min(cp(0, c, 1) + cc(0, c, 1) - snum, kRateMaxDiff);
+      for (int k = 0; k < diff; ++k) tc *= thresh;
+    }
+    term += tc;
+  }
+  return term;
+}
+
+// Warp-wide sum of one float64 per site in the first kernel's order, lane
+// 0's stored at out[group] when group < n (the large tiers' any
+// instances: a warp is 32 consecutive sites).
+__device__ __forceinline__ void warp_sum_store(double v, double* out,
+                                               int64_t group, int64_t n) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0 && group < n) out[group] = v;
 }
 
 // ------------------------------------------------------------------ host

@@ -589,12 +589,20 @@ def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
     (``evaluate.py:451``): nibble-packed where DNA masks fit four bits,
     one int32 word per tip and site otherwise.  ``mxu_precision``
     "highest" or "high", the latter computed at "highest"."""
-    masks = np.asarray(tip_masks)
-    enc = "chars" if states <= 4 and int(masks.max()) <= 0xF else "masks"
-    tips = (cf.pack_tipchars(masks) if enc == "chars"
-            else torch.from_numpy(masks.astype(np.int32)))
+    enc, tips = _pattern_tips(np.asarray(tip_masks), states)
     return ScoreUnbounded(topo, rate_cats, states, tips, enc, use_pinv,
                           mxu_precision, device)
+
+
+def _pattern_tips(masks: np.ndarray, states: int):
+    """(encoding, packed tips) of [tips, sites] bitmasks for K6: nibbles
+    where DNA masks fit four bits, else one int32 word a tip and site,
+    which must fit 31 bits (JAX's guard, ``clv_pallas_dyn.py:235``)."""
+    if states <= 4 and int(masks.max()) <= 0xF:
+        return "chars", cf.pack_tipchars(masks)
+    if int(masks.max()) > 0x7FFFFFFF or int(masks.min()) < 0:
+        raise EinvalError("tip masks must fit 31 bits (states <= 31)")
+    return "masks", torch.from_numpy(masks.astype(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -716,10 +724,7 @@ def make_score_unbounded_sharded(topo: EvalTopology, rate_cats: int,
     if masks.shape[1] != topo.sites:
         raise EinvalError(f"masks of {masks.shape[1]} sites, topology of "
                           f"{topo.sites}")
-    masks = np.ascontiguousarray(masks[:, lo:hi])
-    enc = "chars" if states <= 4 and int(masks.max()) <= 0xF else "masks"
-    tips = (cf.pack_tipchars(masks) if enc == "chars"
-            else torch.from_numpy(masks.astype(np.int32)))
+    enc, tips = _pattern_tips(np.ascontiguousarray(masks[:, lo:hi]), states)
     return ScoreUnboundedSharded(topo, rate_cats, states, mesh, tips, enc,
                                  use_pinv, device=device)
 

@@ -29,8 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every csrc/<name>.cu of the port
-SOURCES = ("clv_fused", "clv_any", "clv_dyn", "clv_seg", "roofline",
-           "derivatives", "fitch", "partials")
+SOURCES = ("clv_fused", "clv_any", "clv_dyn", "clv_dyn_any", "clv_seg",
+           "clv_seg_any", "roofline", "derivatives", "fitch", "partials")
 
 
 def _nvcc() -> str:

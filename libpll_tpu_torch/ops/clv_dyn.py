@@ -5,8 +5,10 @@ wrappers.
 Counterpart: ``libpll_tpu/ops/clv_pallas_dyn.py``.  K5 replaces
 ``make_dyn_sweep`` (``:383``, ``pallas_call`` at ``:521``); K6 replaces
 ``make_dyn_score`` (``:695``; leaf segments at ``:928``, the root segment at
-``:990``).  Both kernels are ``csrc/clv_dyn.cu``; that file says how they
-are laid out on the card and what bounds them.
+``:990``).  Both kernels are ``csrc/clv_dyn.cu`` (DNA and protein, S in
+{4, 20} at C in {1, 2, 4, 8}) and ``csrc/clv_dyn_any.cu`` (every other
+2 <= S <= 64 and any C, a thread a site); those files say how they are
+laid out on the card and what bounds them.
 
 The host part is the JAX package's, table for table: a tree is cut into
 segments of at most ``max_rows`` rows (``ops/clv_seg.py``), and every
@@ -26,7 +28,8 @@ What differs from the TPU tier, and why:
     (first fit in op order; a row lives from its op to its last reader,
     exports and the edge's rows to the end), and a block holds each
     segment's peak number of slots up to :func:`pool_cap` (two blocks per
-    SM).  A row whose slot is past the pool spills to device memory: K6
+    SM; the any-alphabet instance's :func:`any_pool_cap`, which may be
+    0).  A row whose slot is past the pool spills to device memory: K6
     keeps it in a scratch allocated only then, K5 in its own output row.
     The plan is data beside the op table (:func:`dyn_swap_args` carries
     it).  The segment cut's ``max_rows`` is unchanged: :func:`dyn_max_rows`
@@ -52,7 +55,8 @@ What differs from the TPU tier, and why:
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there: on a CUDA tensor it launches its kernel, once per segment, or
-raises.  Each counts its launches in its class's ``launches``.  Beside
+raises.  Each counts its launches in its class's ``launches``, and those
+of the any-alphabet instance also in ``any_launches``.  Beside
 the plain versions, ``plain_slotted`` runs the same tables through the
 kernels' pool and spill addressing (:func:`plain_slotted_segment`), so the
 slot plan is tested where no kernel runs.
@@ -73,8 +77,9 @@ from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
                                scale_consts)
 from . import _build
 from . import clv_fused as cf
-from .clv_seg import (SLOT_SITES, STAGE_OPS, TABLE_FIELDS, Segment,
-                      _itemsize, _ptr, _Rows, build_segmented_schedule,
+from .clv_seg import (ANY_POOL_BUDGET, SLOT_SITES, STAGE_OPS, TABLE_FIELDS,
+                      Segment, _itemsize, _ptr, _Rows, any_instance,
+                      any_slot_bytes, build_segmented_schedule,
                       check_pmatrix, fold_tile_partials, plain_edge_partials,
                       plain_op, plain_segment, pool_bytes, segment_slots,
                       segment_table, stage_bytes)
@@ -97,6 +102,8 @@ POOL_BUDGET = 233472 // 2 - 1024 - STATIC_SMEM
 # 4 states at 2**20 sites in float32 (64 MiB of CLV and 16 MiB of per-rate
 # counters each), and every row of smaller problems
 SCRATCH_BUDGET = 16 << 30
+# "masks" tips in the dyn tier: JAX's 31-bit guard (clv_pallas_dyn.py:235)
+DYN_MASK_MAX_STATES = 31
 
 
 @dataclass(frozen=True)
@@ -444,6 +451,15 @@ def pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
             // pool_bytes(1, rate_cats, states, dtype, srows))
 
 
+def any_pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
+    """The most slots the any-alphabet instance's pool takes
+    (``csrc/clv_dyn_any.cu``: a block of ``clv_seg.ANY_SITES`` sites, a
+    thread a site): as many as fit ``ANY_POOL_BUDGET`` (two blocks an
+    SM); 3 for 16 states at four rates in float32, 0 for 61 states at
+    eight rates in float64, where every local row spills."""
+    return ANY_POOL_BUDGET // any_slot_bytes(rate_cats, states, dtype, srows)
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
@@ -523,6 +539,9 @@ _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
 _MODE_SWEEP, _MODE_LEAF, _MODE_ROOT = 0, 1, 2
 _SEGMENT_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_int64]
                      + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 20)
+_ANY_SEGMENT_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_int64]
+                         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 19
+                         + [ctypes.c_int64, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -536,6 +555,20 @@ def load_kernels() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.clv_dyn_error_string.argtypes = [ctypes.c_int]
     lib.clv_dyn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_any_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/clv_dyn_any.cu``, the
+    any-alphabet instance, once per process."""
+    lib = _build.load("clv_dyn_any")
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"clv_dyn_any_segment_{suffix}")
+        fn.argtypes = _ANY_SEGMENT_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.clv_dyn_any_error_string.argtypes = [ctypes.c_int]
+    lib.clv_dyn_any_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -570,6 +603,10 @@ class _DynKernel:
         if scale_mode not in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
             raise EinvalError(f"unsupported scale mode {scale_mode}")
         cf.check_tip_encoding(tip_encoding, states)
+        if tip_encoding == "masks" and states > DYN_MASK_MAX_STATES:
+            raise EinvalError(f"tip masks must fit 31 bits (states <= "
+                              f"{DYN_MASK_MAX_STATES}), not {states}: use "
+                              "'clv' tips")
         if impl not in ("auto", "vpu", "mxu"):
             raise EinvalError(f"unknown impl {impl!r}")
         if mxu_precision not in MXU_PRECISIONS:
@@ -580,6 +617,8 @@ class _DynKernel:
         self.scale_mode, self.tip_encoding = scale_mode, tip_encoding
         self.rate_cats, self.states = rate_cats, states
         self.srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
+        # the any-alphabet instance (csrc/clv_dyn_any.cu) takes the call
+        self.any = any_instance(states, rate_cats)
         self.plan = plan
         # the most pool slots a launch takes; None: pool_cap's budget
         self.slot_cap: Optional[int] = None
@@ -601,9 +640,15 @@ class _DynKernel:
         topology's, from :func:`dyn_swap_args`) gets the cap, or ``r_loc``
         below it, and scratch for every row above."""
         c, s, srows = self.rate_cats, self.states, self.srows
-        cap = (pool_cap(c, s, dtype, srows) if self.slot_cap is None
-               else self.slot_cap)
-        need = pool_bytes(cap, c, s, dtype, srows) + stage_bytes(c, s, dtype)
+        if self.any:
+            cap = (any_pool_cap(c, s, dtype, srows) if self.slot_cap is None
+                   else self.slot_cap)
+            need = cap * any_slot_bytes(c, s, dtype, srows)
+        else:
+            cap = (pool_cap(c, s, dtype, srows) if self.slot_cap is None
+                   else self.slot_cap)
+            need = (pool_bytes(cap, c, s, dtype, srows)
+                    + stage_bytes(c, s, dtype))
         if cap < 0 or need > POOL_LIMIT:
             raise EinvalError(f"a pool of {cap} slots takes {need} bytes "
                               f"of shared memory, over the {POOL_LIMIT} a "
@@ -672,27 +717,39 @@ class _DynKernel:
                edge=None, weight_vec=None, pattern_weights=None,
                inv_add=None, partials=None):
         """One segment's kernel on the current stream of the tensors'
-        card.  ``loc``/``loc_scal``/``exp``/``exp_scal`` are addresses."""
+        card.  ``loc``/``loc_scal``/``exp``/``exp_scal`` are addresses.
+        The any-alphabet instance takes ``pmatrix`` padded to 16-byte rows
+        (``clv_fused.pad_rows``)."""
         g = self.g
-        lib = load_kernels()
+        lib = load_any_kernels() if self.any else load_kernels()
+        head = (mode, self.states) + ((pmatrix.shape[-1],) if self.any
+                                      else ())
         with torch.cuda.device(tips_packed.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = getattr(lib, f"clv_dyn_segment_{suffix}")(
-                mode, self.states, self.rate_cats,
-                _TIP_CODE[self.tip_encoding], self.scale_mode,
-                tips_packed.shape[-1], g.r_tip, g.r_imp, g.r_loc, r_exp,
-                pool, _ptr(table[si]), _ptr(m_ops[si]),
-                _ptr(tip_globals[si]), _ptr(imp_rows[si]), _ptr(slots[si]),
-                _ptr(tips_packed), _ptr(pmatrix), _ptr(src), _ptr(src_scal),
-                loc, loc_scal,
-                None if exp_table is None else _ptr(exp_table[si]), exp,
-                exp_scal, _ptr(edge), _ptr(weight_vec),
-                _ptr(pattern_weights), _ptr(inv_add), _ptr(partials),
-                stream)
+            args = (*head, self.rate_cats,
+                    _TIP_CODE[self.tip_encoding], self.scale_mode,
+                    tips_packed.shape[-1], g.r_tip, g.r_imp, g.r_loc, r_exp,
+                    pool, _ptr(table[si]), _ptr(m_ops[si]),
+                    _ptr(tip_globals[si]), _ptr(imp_rows[si]),
+                    _ptr(slots[si]), _ptr(tips_packed), _ptr(pmatrix),
+                    _ptr(src), _ptr(src_scal), loc, loc_scal,
+                    None if exp_table is None else _ptr(exp_table[si]), exp,
+                    exp_scal, _ptr(edge), _ptr(weight_vec),
+                    _ptr(pattern_weights), _ptr(inv_add), _ptr(partials))
+            if self.any:
+                rc = getattr(lib, f"clv_dyn_any_segment_{suffix}")(
+                    *args, 0 if partials is None else partials.numel(),
+                    stream)
+                error = lib.clv_dyn_any_error_string
+            else:
+                rc = getattr(lib, f"clv_dyn_segment_{suffix}")(*args, stream)
+                error = lib.clv_dyn_error_string
         if rc != 0:
-            msg = lib.clv_dyn_error_string(rc).decode()
+            msg = error(rc).decode()
             raise KernelError(f"dyn segment launch failed: CUDA error {rc} "
                               f"({msg})")
+        type(self).launches += 1
+        type(self).any_launches += self.any
 
 
 class DynSweep(_DynKernel):
@@ -706,6 +763,7 @@ class DynSweep(_DynKernel):
     schedule's need their ``slot_plan`` (:func:`dyn_slot_plan`)."""
 
     launches = 0
+    any_launches = 0  # those of the any-alphabet instance
 
     def __init__(self, dyn, scale_mode, rate_cats, states, tip_encoding,
                  impl, mxu_precision):
@@ -798,15 +856,15 @@ class DynSweep(_DynKernel):
         sites = tips_packed.shape[-1]
         inner, scalers = self._outputs(pmatrix, sites, torch.empty)
         cs, srows = self.rate_cats * self.states, self.srows
+        kpm = cf.pad_rows(pmatrix) if self.any else pmatrix
         for si in range(len(self.dyn.segments)):
             off = self.dyn.seg_offsets[si]
-            self.launch(suffix, _MODE_SWEEP, tips_packed, pmatrix, si,
+            self.launch(suffix, _MODE_SWEEP, tips_packed, kpm, si,
                         lay.pools[si], table=tables, m_ops=m_ops,
                         tip_globals=tg, imp_rows=imp_rows, slots=slots,
                         src=inner, src_scal=scalers,
                         loc=_ptr(inner, off, cs * sites),
                         loc_scal=_ptr(scalers, off * srows, sites))
-            DynSweep.launches += 1
         return self._shaped(inner, scalers)
 
 
@@ -839,6 +897,7 @@ class DynScore(_DynKernel):
     card all of them are read there, without a sync to the host."""
 
     launches = 0
+    any_launches = 0
 
     def __init__(self, dyn, parent_lm, child_lm, edge_matrix, scale_mode,
                  rate_cats, states, tip_encoding, impl, use_pinv,
@@ -1011,11 +1070,12 @@ class DynScore(_DynKernel):
         # one partial per SLOT_SITES sites, zero past the last tile
         tiles = torch.zeros((n_blocks * (BLOCK_SITES // SLOT_SITES),),
                             dtype=torch.float64, device=device)
+        kpm = cf.pad_rows(pmatrix) if self.any else pmatrix
         for si in range(n_seg):
             root = si == n_seg - 1
             self.launch(
                 suffix, _MODE_ROOT if root else _MODE_LEAF, tips_packed,
-                pmatrix, si, lay.pools[si], table=tables, m_ops=m_ops,
+                kpm, si, lay.pools[si], table=tables, m_ops=m_ops,
                 tip_globals=tg, imp_rows=imp_rows, slots=slots,
                 src=exports, src_scal=exp_scal, loc=_ptr(scratch),
                 loc_scal=_ptr(scratch_scal), exp_table=exp_tabs,
@@ -1024,7 +1084,6 @@ class DynScore(_DynKernel):
                 edge=edge, weight_vec=weight_vec,
                 pattern_weights=pattern_weights, inv_add=inv_add,
                 partials=tiles)
-            DynScore.launches += 1
         partials = fold_tile_partials(tiles, sites)
         return partials if return_partials else cf.sum_block_partials(
             partials)

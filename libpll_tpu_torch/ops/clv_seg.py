@@ -9,8 +9,10 @@ Python; the dyn tier (``ops/clv_dyn.py``) pads these segments into its
 tables.  K3 replaces ``make_segmented_sweep`` (``:327``, ``pallas_call`` at
 ``:386``), K4 replaces ``make_segmented_score`` (``:425``; leaf segments at
 ``:600``, the root segment at ``:555``).  Both kernels are
-``csrc/clv_seg.cu``; that file says how they are laid out on the card and
-what bounds them.
+``csrc/clv_seg.cu`` (DNA and protein, S in {4, 20} at C in {1, 2, 4, 8})
+and ``csrc/clv_seg_any.cu`` (every other 2 <= S <= 64 and C, and any
+schedule whose pool those instances cannot hold); those files say how they
+are laid out on the card and what bounds them.
 
 The cut: a DFS from the root; a node whose accumulated subtree row count
 would exceed ``max_rows`` closes its larger child subtree into a segment
@@ -26,13 +28,18 @@ The row budget.  On the TPU a segment's rows lived in VMEM
 ``max_rows`` here, :func:`seg_max_rows`, is the first kernel's: a
 segment's local rows at ``TILE_SITES`` sites per block in ``SMEM_BUDGET``
 (two blocks per SM; a binary subtree of s rows, tips and imports counted,
-has (s - 1) / 2 locals), 23 rows for DNA at four rates in float32.  The
+has (s - 1) / 2 locals), 23 rows for DNA at four rates in float32; where
+one row is wider than a block's shared memory it is JAX's floor of 8 rows
+(9 here), and the any-alphabet instance spills.  The
 kernel now runs one launch per call: a block of ``SLOT_SITES`` sites walks
 every segment, with each segment's live local rows in a shared-memory
 pool planned on the host (:func:`segment_slots`, the dyn kernels'
 planner) and the op descriptors resolved once per schedule.  Its shared
 memory (:func:`kernel_smem`) is checked against ``SMEM_LIMIT`` before
-anything runs (:meth:`_SegKernel.check_budget`, :class:`EinvalError`).
+anything runs (:meth:`_SegKernel.instance`): a schedule whose pool does
+not fit takes the any-alphabet instance, which keeps the slots that fit
+two blocks an SM (:func:`any_shared_slots`) in shared memory and spills
+the rest to device rows.
 
 K3/K4 take CLV tips only (per-segment slabs from
 :func:`pack_tips_segmented`, rows rate-major: the JAX package's "mxu"
@@ -40,8 +47,12 @@ layout, the port's only one) and no +I, as on the TPU.  ``impl`` is
 accepted for signature parity: the port has one contraction.  Each wrapper
 takes its plain version for a tensor on the CPU, and only there: on a CUDA
 tensor it launches its kernel, once per call, or raises.  Each counts its
-launches in its class's ``launches``.  The slab list is checked and its
-addresses copied to the card the first time its data pointers are seen.
+launches in its class's ``launches``, and those of the any-alphabet
+instance also in ``any_launches``.  ``block_sites`` is taken as JAX takes
+it: any block that divides the sites (JAX's error otherwise); the partial
+sums stay per ``TILE_SITES`` sites, their float64 total the logL.  The
+slab list is checked and its addresses copied to the card the first time
+its data pointers are seen.
 Beside the plain versions, ``plain_walk`` runs the kernel's walk (the op
 descriptors, the pool slots, the rows written as the ops make them) with
 PyTorch ops, so the descriptors and the plan are tested where no kernel
@@ -71,6 +82,16 @@ from .sweep import LevelSchedule
 TABLE_FIELDS = 6  # parent, child1, child2, scaler1, scaler2, has_scaler
 KERNEL_STATES = (4, 20)  # DNA and protein
 TILE_SITES = cf.BLOCK_SITES  # sites per float64 partial sum
+# the any-alphabet instance (csrc/clv_seg_any.cu): 2 <= S <= ANY_MAX_STATES
+# at any rate count, a block of ANY_SITES sites (a thread a site)
+ANY_MAX_STATES = cf.ANY_MAX_STATES
+ANY_SITES = 128
+# its pool's shared memory: half an SM's 228 KB less the 1 KB the card
+# reserves per block (two blocks an SM)
+ANY_POOL_BUDGET = 233472 // 2 - 1024
+# JAX's floor of a segment's rows (clv_pallas_seg.py:_max_rows), where one
+# row is wider than a block's shared memory: 2 * 4 + 1 rows
+FLOOR_LOCAL_ROWS = 4
 # the pool kernels (csrc/clv_seg.cu, csrc/clv_dyn.cu): sites per block
 # (kTileSites) and ops staged at once (kChunk)
 SLOT_SITES = 32
@@ -299,13 +320,11 @@ def seg_local_rows(rate_cats: int, states: int, dtype) -> int:
     rate, at each of ``TILE_SITES`` sites) fit ``SMEM_BUDGET``: 11 for DNA
     at four rates in float32, 6 in float64.  A row larger than the budget
     gets the one row ``SMEM_LIMIT`` holds (protein at eight rates in
+    float64); a row larger than that ``FLOOR_LOCAL_ROWS``, JAX's floor
+    (the any-alphabet instance spills them: 61 states at eight rates in
     float64)."""
     row = _smem_bytes(1, rate_cats, states, dtype, rate_cats)
-    rows = SMEM_BUDGET // row or SMEM_LIMIT // row
-    if rows < 1:
-        raise EinvalError(f"one row of {rate_cats} x {states} {dtype} "
-                          "exceeds a block's shared memory")
-    return rows
+    return SMEM_BUDGET // row or SMEM_LIMIT // row or FLOOR_LOCAL_ROWS
 
 
 def seg_max_rows(rate_cats: int, states: int, dtype) -> int:
@@ -377,6 +396,29 @@ def kernel_smem(pool: int, rate_cats: int, states: int, dtype,
     exchange = SLOT_SITES * rate_cats * (_itemsize(dtype) + 4)
     return (stage_bytes(rate_cats, states, dtype)
             + pool_bytes(pool, rate_cats, states, dtype, srows) + exchange)
+
+
+def any_instance(states: int, rate_cats: int) -> bool:
+    """Whether (S, C) takes the any-alphabet instance of the large tiers
+    (``csrc/clv_seg_any.cu``, ``csrc/clv_dyn_any.cu``): every (S, C) but
+    the DNA and protein instances' S in {4, 20} at C in {1, 2, 4, 8}."""
+    return not (states in KERNEL_STATES and rate_cats in cf.KERNEL_RATE_CATS)
+
+
+def any_slot_bytes(rate_cats: int, states: int, dtype, srows: int) -> int:
+    """Shared memory of one pool slot of the large tiers' any-alphabet
+    instances: C·S values and ``srows`` counters at each of ``ANY_SITES``
+    sites."""
+    return ANY_SITES * (rate_cats * states * _itemsize(dtype) + 4 * srows)
+
+
+def any_shared_slots(pool: int, rate_cats: int, states: int, dtype,
+                     srows: int) -> int:
+    """How many of a pool's ``pool`` slots the any-alphabet instance keeps
+    in shared memory: as many as fit half an SM (two blocks an SM, 3 for
+    16 states at four rates in float32); the rest spill to device rows."""
+    return min(pool, ANY_POOL_BUDGET
+               // any_slot_bytes(rate_cats, states, dtype, srows))
 
 
 def fold_tile_partials(tiles: torch.Tensor, sites: int) -> torch.Tensor:
@@ -596,6 +638,9 @@ def plain_edge_partials(state, scal, edge, pmatrix, weight_vec,
 # --------------------------------------------------------------------------
 _WALK_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_int64]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11)
+_ANY_WALK_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 12
+                      + [ctypes.c_int64, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -603,6 +648,25 @@ def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/clv_seg.cu``, once per
     process."""
     return bind(_build.load("clv_seg"))
+
+
+@functools.lru_cache(maxsize=None)
+def load_any_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/clv_seg_any.cu``, the
+    any-alphabet instance, once per process."""
+    return bind_any(_build.load("clv_seg_any"))
+
+
+def bind_any(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``clv_seg_any.cu``."""
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"clv_seg_any_walk_{suffix}")
+        fn.argtypes = _ANY_WALK_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.clv_seg_any_error_string.argtypes = [ctypes.c_int]
+    lib.clv_seg_any_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -657,17 +721,19 @@ def _require(cond: bool, what: str) -> None:
 def check_pmatrix(pmatrix, rate_cats: int, states: int,
                   max_matrix: int) -> str:
     """What the segment kernels (K3-K6) take of the P-matrices
-    [M, C, S, S]: float32 or float64, contiguous, S in {4, 20}, C in
-    {1, 2, 4, 8}, every matrix the schedule uses.  Returns the dtype
-    suffix of the kernel's C entry points."""
+    [M, C, S, S]: float32 or float64, contiguous, 2 <= S <= 64 (S in
+    {4, 20} at C in {1, 2, 4, 8} for the DNA and protein instances, any
+    other (S, C) for the any-alphabet one), every matrix the schedule
+    uses.  Returns the dtype suffix of the kernel's C entry points."""
     c, s = rate_cats, states
     _require(pmatrix.dtype in (torch.float32, torch.float64),
              f"pmatrix dtype {pmatrix.dtype} (float32 or float64)")
     _require(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:]) == (c, s, s)
              and pmatrix.is_contiguous(),
              f"pmatrix {tuple(pmatrix.shape)} for C={c}, S={s}")
-    _require(s in KERNEL_STATES, f"states {s} (the kernels take 4 or 20)")
-    _require(c in cf.KERNEL_RATE_CATS, f"rate_cats {c} (one of 1, 2, 4, 8)")
+    _require(2 <= s <= ANY_MAX_STATES,
+             f"states {s} (the kernels take 2 to {ANY_MAX_STATES})")
+    _require(c >= 1, f"rate_cats {c}")
     _require(max_matrix < pmatrix.shape[0],
              f"schedule uses matrix {max_matrix} of {pmatrix.shape[0]}")
     return "f32" if pmatrix.dtype == torch.float32 else "f64"
@@ -709,14 +775,15 @@ class _SegKernel:
             raise EinvalError(f"unsupported scale mode {scale_mode}")
         if impl not in ("auto", "vpu", "mxu"):
             raise EinvalError(f"unknown impl {impl!r}")
-        if block_sites not in (None, TILE_SITES):
-            raise EinvalError(f"block_sites {block_sites}: partial sums run "
-                              f"over {TILE_SITES}-site blocks")
+        if block_sites is not None and (not isinstance(block_sites, int)
+                                        or block_sites < 1):
+            raise EinvalError(f"block_sites {block_sites!r}")
         if seg.n_inner >= 1 << INDEX_BITS:
             raise EinvalError(f"{seg.n_inner} inner rows: the kernels name "
                               f"rows in {INDEX_BITS} bits")
         self.seg, self.scale_mode = seg, scale_mode
         self.rate_cats, self.states = rate_cats, states
+        self.block_sites = block_sites
         self.srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
         self.rows = [segment_rows(s) for s in seg.segments]
         self.tables = [segment_table(s, g) for s, g in zip(seg.segments,
@@ -729,7 +796,7 @@ class _SegKernel:
                           TABLE_FIELDS),
             "m_ops": _i32(np.concatenate([m for _, m in self.tables]), 2)}
         self._device = {}
-        self._budget = set()  # dtypes whose layout fits
+        self._instance = {}  # dtype -> whether the any-alphabet instance
         self._slabs = {}      # slab list -> their addresses on the card
 
     def _plan_walk(self, imp_row, out_row, keep) -> None:
@@ -794,19 +861,30 @@ class _SegKernel:
         return kernel_smem(self.pool, self.rate_cats, self.states, dtype,
                            self.srows)
 
-    def check_budget(self, dtype) -> None:
-        """The kernel's layout (:func:`kernel_smem`) fits one block."""
-        if dtype in self._budget:
-            return
-        need = self.smem(dtype)
-        if need > SMEM_LIMIT:
-            raise EinvalError(
-                f"the segments need {need} bytes of shared memory per "
-                f"block (a pool of {self.pool} slots for their live "
-                f"rows), over a block's {SMEM_LIMIT}: cut with max_rows "
-                f"<= seg_max_rows({self.rate_cats}, {self.states}, "
-                f"{dtype})")
-        self._budget.add(dtype)
+    def instance(self, dtype) -> bool:
+        """Whether the call at ``dtype`` takes the any-alphabet instance:
+        (S, C) outside the DNA and protein instances', or a pool whose
+        layout (:func:`kernel_smem`) does not fit their block's
+        ``SMEM_LIMIT``.  Raises where no instance takes S."""
+        if dtype not in self._instance:
+            if not 2 <= self.states <= ANY_MAX_STATES:
+                raise EinvalError(f"states {self.states}: the kernels take "
+                                  f"2 to {ANY_MAX_STATES}")
+            self._instance[dtype] = (
+                any_instance(self.states, self.rate_cats)
+                or self.smem(dtype) > SMEM_LIMIT)
+        return self._instance[dtype]
+
+    def any_shared(self, dtype) -> int:
+        """The any-alphabet instance's pool slots in shared memory."""
+        return any_shared_slots(self.pool, self.rate_cats, self.states,
+                                dtype, self.srows)
+
+    def check_sites(self, sites: int) -> None:
+        """JAX's guard: the sites divide into ``block_sites`` blocks."""
+        if self.block_sites is not None and sites % self.block_sites:
+            raise EinvalError(f"sites ({sites}) must be divisible by "
+                              f"{self.block_sites}")
 
     def check(self, tip_slabs, pmatrix, vectors=()):
         """Validate what the launch takes; return (dtype suffix, the slabs'
@@ -817,6 +895,7 @@ class _SegKernel:
                               f"{device}")
         suffix = check_pmatrix(pmatrix, self.rate_cats, self.states,
                                self.max_matrix)
+        self.instance(pmatrix.dtype)
         _require(pmatrix.data_ptr() % 16 == 0,
                  "pmatrix is not 16-byte aligned (its rows load as vectors)")
         for name, t, shape in vectors:
@@ -866,28 +945,55 @@ class _SegKernel:
         """The walk on the current stream of the tensors' card: one launch
         over every segment (``split``: one per segment), the edge folded
         after the last segment when ``edge`` is given; ``ptrs``: the
-        slabs' addresses on the card."""
+        slabs' addresses on the card.  The any-alphabet instance
+        (:meth:`instance`) takes the P-matrices padded to 16-byte rows and
+        its spill rows, made here."""
         device = pmatrix.device
-        lib = load_kernels()
-        fn = getattr(lib, f"clv_seg_walk_{suffix}")
+        any_ = self.instance(pmatrix.dtype)
         n = len(self.rows)
         ranges = [(i, i + 1) for i in range(n)] if self.split else [(0, n)]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream().cuda_stream
+            if any_:
+                lib = load_any_kernels()
+                fn = getattr(lib, f"clv_seg_any_walk_{suffix}")
+                padded = cf.pad_rows(pmatrix)
+                shared = self.any_shared(pmatrix.dtype)
+                spilled = self.pool - shared
+                cs = self.rate_cats * self.states
+                spill = (torch.empty((spilled, cs, sites), dtype=pmatrix.dtype,
+                                     device=device) if spilled else None)
+                spill_scal = (torch.empty((spilled, self.srows, sites),
+                                          dtype=torch.int32, device=device)
+                              if spilled else None)
+                error = lib.clv_seg_any_error_string
+            else:
+                lib = load_kernels()
+                fn = getattr(lib, f"clv_seg_walk_{suffix}")
+                error = lib.clv_seg_error_string
             for seg0, seg1 in ranges:
-                rc = fn(self.states, self.rate_cats, self.scale_mode, sites,
-                        seg0, seg1, self.pool,
-                        _ptr(self.static("segs", device)), _ptr(ptrs),
-                        _ptr(self.static("ops", device)), _ptr(pmatrix),
-                        _ptr(rows), _ptr(rows_scal),
-                        _ptr(edge) if seg1 == n else None,
-                        _ptr(weight_vec), _ptr(pattern_weights),
-                        _ptr(partials), stream)
+                common = (_ptr(self.static("segs", device)), _ptr(ptrs),
+                          _ptr(self.static("ops", device)))
+                tail = (_ptr(edge) if seg1 == n else None, _ptr(weight_vec),
+                        _ptr(pattern_weights), _ptr(partials))
+                if any_:
+                    rc = fn(self.states, padded.shape[-1], self.rate_cats,
+                            self.scale_mode, sites, seg0, seg1, self.pool,
+                            shared, *common, _ptr(padded), _ptr(rows),
+                            _ptr(rows_scal), _ptr(spill), _ptr(spill_scal),
+                            *tail, 0 if partials is None
+                            else partials.numel(), stream)
+                else:
+                    rc = fn(self.states, self.rate_cats, self.scale_mode,
+                            sites, seg0, seg1, self.pool, *common,
+                            _ptr(pmatrix), _ptr(rows), _ptr(rows_scal),
+                            *tail, stream)
                 if rc != 0:
-                    msg = lib.clv_seg_error_string(rc).decode()
+                    msg = error(rc).decode()
                     raise KernelError(f"segments {seg0}-{seg1 - 1} launch "
                                       f"failed: CUDA error {rc} ({msg})")
                 type(self).launches += 1
+                type(self).any_launches += any_
 
     def run_plain(self, si, slab, pmatrix, imp_clv, imp_scal):
         """Segment ``si`` with PyTorch ops: (state, scalers)."""
@@ -953,6 +1059,7 @@ class SegmentedSweep(_SegKernel):
     :func:`pack_tips_segmented`."""
 
     launches = 0
+    any_launches = 0  # those of the any-alphabet instance
 
     def __init__(self, seg, scale_mode, rate_cats, states, impl,
                  block_sites):
@@ -1010,11 +1117,11 @@ class SegmentedSweep(_SegKernel):
         return self._shaped(inner, scalers)
 
     def __call__(self, tip_slabs, pmatrix):
-        self.check_budget(pmatrix.dtype)
+        sites = tip_slabs[0].shape[-1]
+        self.check_sites(sites)
         if pmatrix.device.type == "cpu":
             return self.plain(tip_slabs, pmatrix)
         suffix, ptrs = self.check(tip_slabs, pmatrix)
-        sites = tip_slabs[0].shape[-1]
         inner, scalers = self._outputs(pmatrix, sites, torch.empty)
         self.launch(suffix, pmatrix, sites, ptrs, inner, scalers)
         return self._shaped(inner, scalers)
@@ -1041,6 +1148,7 @@ class SegmentedScore(_SegKernel):
     [C·S]; ``pattern_weights`` [L]."""
 
     launches = 0
+    any_launches = 0
 
     def __init__(self, seg, parent_lm, child_lm, edge_matrix, scale_mode,
                  rate_cats, states, impl, block_sites):
@@ -1126,11 +1234,11 @@ class SegmentedScore(_SegKernel):
             weight_vec, pattern_weights, None, self.scale_mode))
 
     def __call__(self, tip_slabs, pmatrix, weight_vec, pattern_weights):
-        self.check_budget(pmatrix.dtype)
+        sites = tip_slabs[0].shape[-1]
+        self.check_sites(sites)
         if pmatrix.device.type == "cpu":
             return self.plain(tip_slabs, pmatrix, weight_vec,
                               pattern_weights)
-        sites = tip_slabs[0].shape[-1]
         cs, srows = self.rate_cats * self.states, self.srows
         suffix, ptrs = self.check(tip_slabs, pmatrix, [
             ("weight_vec", weight_vec, (cs,)),

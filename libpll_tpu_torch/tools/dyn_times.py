@@ -1,7 +1,7 @@
 """Time the dyn kernels K5/K6 of several checkouts, or of source variants
 of ``csrc/clv_dyn.cu``, in turns on one card.
 
-    python3 libpll_tpu_torch/tools/dyn_times.py [TREE ...]
+    python3 libpll_tpu_torch/tools/dyn_times.py [--alphabet] [TREE ...]
     python3 libpll_tpu_torch/tools/dyn_times.py --variants SPEC.json NAME ...
 
 Each run is its own process, in the order given (parent, change, change,
@@ -20,7 +20,12 @@ shared ``clv_common.cuh``).  Measured, with CUDA events
     evaluation, the logL and the peak device memory of one evaluation;
   * K6 and K5 at the mid configuration, 4 096 x 8 192 DNA, per-rate
     scaling (K5 cut at chip_smoke's K5_MAX_ROWS);
-  * K6 at the protein configuration, 256 x 16 384, 20-bit masks.
+  * K6 at the protein configuration, 256 x 16 384, 20-bit masks;
+  * with ``--alphabet``, also the any-alphabet instance
+    (``csrc/clv_dyn_any.cu``) at chip_smoke's phase 37 configurations,
+    16 states (GT16), four rates, float32, 16-bit masks drawn on the card:
+    K6 at 10 240 x 65 536 per site and K5 at 4 096 x 8 192 per rate (cut
+    at K5_MAX_ROWS); a tree without that instance records null.
 
 Each run prints one JSON line; the card's name and power limit come first.
 """
@@ -37,7 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from variants import build_variants, card_line  # noqa: E402
 
 
-def measure(tree, lib=None):
+def measure(tree, lib=None, alphabet=False):
     """One run in this process: the numbers of the module docstring."""
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -115,13 +120,74 @@ def measure(tree, lib=None):
     pargs = k6_args(pscore, model_from_numpy(pmodel, device, torch.float32))
     out["protein_logl"] = float(pscore.kernel(*pargs))
     out["protein_k6_ms"] = cs.time_ms(lambda: pscore.kernel(*pargs))[0]
+    del pscore, pargs
+    torch.cuda.empty_cache()
+    if alphabet:
+        out.update(measure_alphabet(cs, device))
     print(json.dumps(out), flush=True)
+
+
+def measure_alphabet(cs, device):
+    """K6 and K5 of the any-alphabet instance at GT16 (module docstring);
+    None where the checkout has no such instance."""
+    import torch
+
+    from libpll_tpu_torch.engine import evaluate as ev
+    from libpll_tpu_torch.engine.params import model_from_numpy
+    from libpll_tpu_torch.ops import clv_dyn as cd
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils import flagship
+    from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
+
+    keys = ("gt16_large_logl", "gt16_large_k6_ms", "gt16_mid_k5_ms")
+    if not hasattr(flagship, "draw_tipmasks_cuda"):
+        return dict.fromkeys(keys)
+    s, c = cs.GT16_STATES, cs.GT16_RATES
+    out = {}
+    for name, (tips, sites), seed in (("large", cs.GT16_LARGE, 0),
+                                      ("mid", cs.GT16_MID, 1)):
+        topo, model_np = flagship.build_alphabet_topology(tips, sites, s, c,
+                                                          seed=seed)
+        tp = flagship.draw_tipmasks_cuda(tips, sites, s, seed, device)
+        m32 = model_from_numpy(model_np, device, torch.float32)
+        if name == "large":
+            score = ev.ScoreUnbounded(topo, c, s, tp, "masks").to(device)
+            pm = score.pmatrices(m32, torch.float32)
+            args = (score.tips, score.tables, score.m_ops, score.exp_tables,
+                    pm, cf.pack_weight_vec(m32["freqs_pc"],
+                                           m32["rate_weights"]),
+                    m32["pattern_weights"])
+            out["gt16_large_logl"] = float(score.kernel(*args))
+            out["gt16_large_k6_ms"] = cs.time_ms(
+                lambda: score.kernel(*args), iters=2, warmup=0)[0]
+            del score, args
+        else:
+            topo = topo._replace(scale_mode=SCALE_PER_RATE)
+            dyn = cd.build_dyn_schedule(
+                topo.schedule, rate_cats=c, states=s,
+                max_rows=cs.K5_MAX_ROWS,
+                ensure_rows=[topo.parent_clv, topo.child_clv])
+            sweep = cd.make_dyn_sweep(dyn, SCALE_PER_RATE, rate_cats=c,
+                                      states=s, tip_encoding="masks")
+            tables = cs.stacked(cd.dyn_runtime_args(dyn), device)
+            pm = ev._pmatrices(m32, topo, torch.float32, torch.as_tensor(
+                topo.matrix_indices, dtype=torch.long, device=device))
+            out["gt16_mid_k5_ms"] = cs.time_ms(
+                lambda: sweep(tp, *tables, pm), iters=5, warmup=1)[0]
+            del tables
+        del tp, pm
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv):
     if argv[:1] == ["--measure"]:
-        measure(argv[1], argv[2] if len(argv) > 2 else None)
+        alphabet = "--alphabet" in argv
+        argv = [a for a in argv if a != "--alphabet"]
+        measure(argv[1], argv[2] if len(argv) > 2 else None, alphabet)
         return 0
+    flags = [a for a in argv if a == "--alphabet"]
+    argv = [a for a in argv if a != "--alphabet"]
     print(f"card: {card_line()}", flush=True)
     if argv[:1] == ["--variants"]:
         names = argv[2:]
@@ -132,7 +198,8 @@ def main(argv):
         runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]
     for tree, lib in runs:
         cmd = [sys.executable, __file__, "--measure", str(tree)]
-        subprocess.run(cmd + ([str(lib)] if lib else []), check=True)
+        subprocess.run(cmd + ([str(lib)] if lib else []) + flags,
+                       check=True)
     return 0
 
 

@@ -1,7 +1,7 @@
 """Time the segmented kernels K3/K4 of several checkouts, or of source
 variants of ``csrc/clv_seg.cu``, in turns on one card.
 
-    python3 libpll_tpu_torch/tools/seg_times.py [TREE ...]
+    python3 libpll_tpu_torch/tools/seg_times.py [--alphabet] [TREE ...]
     python3 libpll_tpu_torch/tools/seg_times.py --variants SPEC.json NAME ...
 
 Each run is its own process, in the order given (parent, change, change,
@@ -19,7 +19,11 @@ the edge logL of its rows; for each, the launches of one call, the peak
 device memory of one call, the device ms per call (CUDA events over
 back-to-back calls, ``chip_smoke.time_ms``) and the host ms of one call
 with the card idle (median).  Where the kernel can launch once per segment
-(``split``) the same times that way too.  Each run prints one JSON line;
+(``split``) the same times that way too.  With ``--alphabet``, also K4
+and K3 of the any-alphabet instance (``csrc/clv_seg_any.cu``) on the same
+tree at 16 states (GT16), four rates, float32, CLV tips decoded from
+16-bit masks drawn on the card (chip_smoke's phase 37 configuration); a
+tree without that instance records null.  Each run prints one JSON line;
 the card's name and power limit come first.
 """
 
@@ -53,7 +57,7 @@ def host_ms(fn):
     return float(np.median(times))
 
 
-def measure(tree, lib=None):
+def measure(tree, lib=None, alphabet=False):
     """One run in this process: the numbers of the module docstring."""
     sys.path.insert(0, str(tree))
     import torch
@@ -118,13 +122,60 @@ def measure(tree, lib=None):
             out[f"{name}_split_ms"] = cs.time_ms(fn)[0]
             out[f"{name}_split_host_ms"] = host_ms(fn)
         out["k4_split_logl"] = float(k4())
+    if alphabet:
+        del slabs
+        torch.cuda.empty_cache()
+        out.update(measure_alphabet(cs, device))
     print(json.dumps(out), flush=True)
+
+
+def measure_alphabet(cs, device):
+    """K4 and K3 of the any-alphabet instance at GT16 (module docstring);
+    None where the checkout has no such instance."""
+    import torch
+
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.ops import clv_seg as cseg
+    from libpll_tpu_torch.utils import flagship
+    from libpll_tpu_torch.utils.constants import SCALE_PER_SITE
+
+    if not hasattr(flagship, "draw_tipmasks_cuda"):
+        return dict.fromkeys(("gt16_k4_logl", "gt16_k4_ms", "gt16_k3_ms"))
+    s, c = cs.GT16_STATES, cs.GT16_RATES
+    tips, sites = cs.GT16_SEG
+    topo, model_np = flagship.build_alphabet_topology(tips, sites, s, c,
+                                                      seed=2)
+    words = flagship.draw_tipmasks_cuda(tips, sites, s, 2, device)
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=cseg.seg_max_rows(c, s, torch.float32),
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    slabs = cseg.pack_tips_segmented(cf.decode_tips(
+        words, "masks", torch.arange(tips, device=device), c, s,
+        torch.float32).contiguous(), seg)
+    del words
+    pm, wvec, pw, _ = cs.kernel_inputs(topo, model_np, torch.float32, device,
+                                       False)
+    score = cseg.make_segmented_score(
+        seg, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+        SCALE_PER_SITE, rate_cats=c, states=s)
+    sweep = cseg.make_segmented_sweep(seg, SCALE_PER_SITE, rate_cats=c,
+                                      states=s)
+    out = {"gt16_k4_logl": float(score(slabs, pm, wvec, pw))}
+    out["gt16_k4_ms"] = cs.time_ms(lambda: score(slabs, pm, wvec, pw),
+                                   iters=5, warmup=0)[0]
+    out["gt16_k3_ms"] = cs.time_ms(lambda: sweep(slabs, pm), iters=5,
+                                   warmup=1)[0]
+    return out
 
 
 def main(argv):
     if argv[:1] == ["--measure"]:
-        measure(argv[1], argv[2] if len(argv) > 2 else None)
+        alphabet = "--alphabet" in argv
+        argv = [a for a in argv if a != "--alphabet"]
+        measure(argv[1], argv[2] if len(argv) > 2 else None, alphabet)
         return 0
+    flags = [a for a in argv if a == "--alphabet"]
+    argv = [a for a in argv if a != "--alphabet"]
     print(f"card: {card_line()}", flush=True)
     if argv[:1] == ["--variants"]:
         names = argv[2:]
@@ -135,7 +186,8 @@ def main(argv):
         runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]
     for tree, lib in runs:
         cmd = [sys.executable, __file__, "--measure", str(tree)]
-        subprocess.run(cmd + ([str(lib)] if lib else []), check=True)
+        subprocess.run(cmd + ([str(lib)] if lib else []) + flags,
+                       check=True)
     return 0
 
 

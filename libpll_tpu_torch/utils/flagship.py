@@ -291,6 +291,57 @@ def build_alphabet_flagship(tips, sites, states, rate_cats=4, seed=0,
     return tree, topo, model, columns
 
 
+def build_alphabet_topology(tips, sites, states, rate_cats=4, seed=0,
+                            alpha=ALPHABET_ALPHA):
+    """(topo, model) of :func:`build_alphabet_flagship` without simulating
+    columns: the same tree and S-state GTR+Γ model, drawn from the seed's
+    stream in the same order, for the large tiers' sizes (10 240 taxa,
+    where simulated host columns would take most of a run;
+    :func:`draw_tipmasks_cuda` draws the tips on the card)."""
+    from ..models.gamma import compute_gamma_cats
+    from ..models.gtr import eigen_decompose
+
+    rng = np.random.default_rng(seed)
+    _, topo, model, _ = _topology_and_model(tips, sites, rate_cats,
+                                            np.float64, rng)
+    params = rng.uniform(0.5, 2.0, states * (states - 1) // 2)
+    freqs = rng.uniform(0.1, 1.0, states)
+    freqs /= freqs.sum()
+    w, left, right = eigen_decompose(params, freqs)
+    rates = np.asarray(compute_gamma_cats(alpha, rate_cats), np.float64)
+    model.update(
+        rates=rates, eigenvals=w[None], left=left[None], right=right[None],
+        freqs_pc=np.tile(freqs, (rate_cats, 1)),
+        rate_weights=np.full(rate_cats, 1.0 / rate_cats))
+    return topo, model
+
+
+def draw_tipmasks_cuda(tips, sites, states, seed, device, ambiguity=0.02,
+                       tips_per_chunk=256):
+    """Random S-state tips (S <= 31) as one int32 bitmask a tip and site,
+    [tips, sites], drawn on ``device`` from a seeded ``torch.Generator``:
+    one state a cell, and in a share ``ambiguity`` of the cells a second
+    state (an ambiguous genotype call).  Rows are drawn ``tips_per_chunk``
+    at a time.  (The numbers are not numpy's: a card-drawn alignment has
+    no host twin.)"""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = torch.empty((tips, sites), dtype=torch.int32, device=device)
+    one = torch.ones((), dtype=torch.int32, device=device)
+    for t0 in range(0, tips, tips_per_chunk):
+        rows = min(tips_per_chunk, tips - t0)
+        codes = one << torch.randint(0, states, (rows, sites), generator=gen,
+                                     device=device, dtype=torch.int32)
+        extra = one << torch.randint(0, states, (rows, sites), generator=gen,
+                                     device=device, dtype=torch.int32)
+        odd = torch.rand((rows, sites), generator=gen,
+                         device=device) < ambiguity
+        out[t0:t0 + rows] = torch.where(odd, codes | extra, codes)
+    return out
+
+
 PROTEIN_TIPS = 64
 PROTEIN_SITES = 65536  # simulated columns; the patterns are fewer
 PROTEIN_RATE_CATS = 4

@@ -22,7 +22,10 @@ op-table kernel U1 with branch-length optimisation (chip_smoke's phase
 and the scaling vote's NaN rule (chip_smoke's phase 30), and the SPR/NNI
 rounds and a small ``infer_tree`` on the card against the CPU (chip_smoke's
 phase 32; float64 logL rel 1e-9 there, a search's tolerance), and model
-fitting's small cases (chip_smoke's phase 34).
+fitting's small cases (chip_smoke's phase 34), and the large tiers'
+any-alphabet instances of K3-K6 (``clv_seg_any``, ``clv_dyn_any``:
+chip_smoke's phase 37 checks, and the entry points on the card against
+the CPU).
 ``test_partition_builds_on_the_card_by_default`` needs no card and runs
 in the CPU suite.
 """
@@ -250,24 +253,33 @@ def test_dyn_spilled_pool_on_card_matches_cpu(cuda, states, monkeypatch):
 
 @pytest.mark.gpu
 def test_dyn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """EinvalError before any launch: tables on the host, P-matrices of
+    another rate count, an alphabet no instance takes (65 states)."""
     newick = chip_smoke.random_newick(8, np.random.default_rng(4))
-    for rate_cats, states, bad in ((3, 4, "rate_cats"), (4, 5, "states"),
-                                   (4, 4, "tables on the host")):
-        topo, model_np, masks = chip_smoke.small_case(newick, 40, rate_cats,
-                                                      4, states=states)
-        dyn = cd.build_dyn_schedule(
-            topo.schedule, rate_cats=rate_cats, states=states, sites=40,
-            ensure_rows=[topo.parent_clv, topo.child_clv])
-        tables = [torch.stack(t) for t in cd.dyn_runtime_args(dyn)]
-        if bad != "tables on the host":
-            tables = [t.to(cuda) for t in tables]
-        pm = chip_smoke.kernel_inputs(topo, model_np, torch.float64, cuda,
-                                      False)[0]
-        tips = torch.from_numpy(masks.astype(np.int32)).to(cuda)
+    topo, model_np, masks = chip_smoke.small_case(newick, 40, 4, 4)
+    dyn = cd.build_dyn_schedule(
+        topo.schedule, rate_cats=4, states=4, sites=40,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    host = [torch.stack(t) for t in cd.dyn_runtime_args(dyn)]
+    tables = [t.to(cuda) for t in host]
+    pm = chip_smoke.kernel_inputs(topo, model_np, torch.float64, cuda,
+                                  False)[0]
+    tips = torch.from_numpy(masks.astype(np.int32)).to(cuda)
+    before = cd.DynSweep.launches
+    for rate_cats, states, args in (
+            (4, 4, (tips, *host, pm)),  # tables on the host
+            (3, 4, (tips, *tables, pm)),  # three rates, a C = 4 pmatrix
+            (1, 65, (torch.zeros((topo.schedule.tips, 1, 65, 40),
+                                 dtype=torch.float64, device=cuda),
+                     *tables, torch.zeros((pm.shape[0], 1, 65, 65),
+                                          dtype=torch.float64,
+                                          device=cuda)))):
         sweep = cd.make_dyn_sweep(dyn, rate_cats=rate_cats, states=states,
-                                  tip_encoding="masks")
+                                  tip_encoding="clv" if states > 31
+                                  else "masks")
         with pytest.raises(EinvalError):
-            sweep(tips, *tables, pm)
+            sweep(*args)
+    assert cd.DynSweep.launches == before
 
 
 @pytest.mark.gpu
@@ -374,6 +386,13 @@ def test_seg_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             sweep(bad, pm)
     with pytest.raises(EinvalError):  # three rates against a C = 4 pmatrix
         cseg.make_segmented_sweep(seg, rate_cats=3, states=4)(slabs, pm)
+    wide = [torch.zeros((max(len(x.tip_globals), 1), 65, 40),
+                        dtype=torch.float64, device=cuda)
+            for x in seg.segments]
+    with pytest.raises(EinvalError):  # no instance takes 65 states
+        cseg.make_segmented_sweep(seg, rate_cats=1, states=65)(
+            wide, torch.zeros((pm.shape[0], 1, 65, 65), dtype=torch.float64,
+                              device=cuda))
     assert cseg.max_smem(4, torch.float32) >= cseg.SMEM_LIMIT
 
 
@@ -1012,3 +1031,63 @@ def test_model_fitting_on_card_matches_cpu(cuda):
         out = chip_smoke.check_modelopt_small(cuda)
     assert out["fits"] == len(chip_smoke.MODELOPT_SMALL)
     assert u1.checked > 0 and c1.checked > 0
+
+
+@pytest.mark.gpu
+def test_large_any_instances_match_plain_on_card(cuda):
+    """chip_smoke's phase 37 checks: K3-K6's any-alphabet instances at S
+    2-64 and C 1-10, float32 and float64, every scale mode and dyn tip
+    encoding, +I, pools that spill, the float64 eight-rate protein pool,
+    a 16-state table swap, against their plain versions; each launched."""
+    n, launches, *_ = chip_smoke.check_large_alphabets_small(cuda)
+    assert n > 0 and all(v > 0 for v in launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("states, rate_cats", [(16, 3), (2, 6)])
+def test_large_any_modules_on_card_match_cpu(cuda, states, rate_cats,
+                                             monkeypatch):
+    """make_score_unbounded (+I), make_dyn_sweep and the segmented
+    sweep and score on a multi-segment tree, on the card (the
+    any-alphabet instances, counted) against the same calls on the CPU,
+    float64: logL rel 1e-12, rows rel 1e-12, scalers equal."""
+    topo, model_np, masks = chip_smoke.small_case(
+        chip_smoke.random_newick(24, np.random.default_rng(23)), 300,
+        rate_cats, 23, states=states)
+    monkeypatch.setattr(cd, "SCRATCH_BUDGET",
+                        16 * 300 * 4 * (rate_cats * states + rate_cats))
+    seg = cseg.build_segmented_schedule(
+        topo.schedule, max_rows=9,
+        ensure_rows=[topo.parent_clv, topo.child_clv])
+    chip_smoke.reset_large_counts()
+    out = {}
+    for device in ("cpu", cuda):
+        model = model_from_numpy(model_np, device, torch.float64)
+        score = ev.make_score_unbounded(topo, rate_cats, states, masks,
+                                        use_pinv=True, device=device)
+        assert len(score.dyn.segments) > 1 and score.kernel.any
+        pm = score.pmatrices(model, torch.float64)
+        sweep = cd.make_dyn_sweep(score.dyn, topo.scale_mode,
+                                  rate_cats=rate_cats, states=states,
+                                  tip_encoding=score.kernel.tip_encoding)
+        inner, scalers = sweep(score.tips, score.tables, score.m_ops, pm)
+        slabs = cseg.pack_tips_segmented(chip_smoke.tip_input(
+            masks, "clv", rate_cats, torch.float64, device, states), seg)
+        kw = dict(rate_cats=rate_cats, states=states)
+        k3 = cseg.make_segmented_sweep(seg, topo.scale_mode, **kw)(slabs, pm)
+        wvec = cf.pack_weight_vec(model["freqs_pc"], model["rate_weights"])
+        k4 = float(cseg.make_segmented_score(
+            seg, topo.parent_clv, topo.child_clv, topo.edge_matrix,
+            topo.scale_mode, **kw)(slabs, pm, wvec,
+                                   model["pattern_weights"]))
+        out[str(device)] = (float(score(model)), inner.cpu(), scalers.cpu(),
+                            k3[0].cpu(), k3[1].cpu(), k4)
+    assert all(v > 0 for v in chip_smoke.large_counts())
+    cpu, card = out.values()
+    for a, b in zip(cpu, card):
+        if isinstance(a, float):
+            assert abs(b - a) <= 1e-12 * abs(a)
+        elif a.dtype == torch.int32:
+            assert torch.equal(b, a)
+        else:
+            torch.testing.assert_close(b, a, rtol=1e-12, atol=0)

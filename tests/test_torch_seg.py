@@ -267,14 +267,17 @@ def test_row_budget():
         assert max(s.n_local for s in seg.segments) <= cseg.seg_local_rows(
             4, 4, dtype)
         for mode in (SCALE_NONE, SCALE_PER_SITE, SCALE_PER_RATE):
-            cseg.make_segmented_sweep(seg, mode, rate_cats=4,
-                                      states=4).check_budget(dtype)
+            # the DNA instance's block holds the layout (no any instance)
+            assert not cseg.make_segmented_sweep(seg, mode, rate_cats=4,
+                                                 states=4).instance(dtype)
 
 
 def test_segmented_guards():
     """EinvalError where JAX raises ValueError (an edge end the root
-    segment cannot reach, a tip parent), and for a segment whose live rows
-    exceed one block's shared memory."""
+    segment cannot reach, a tip parent, sites that a ``block_sites`` does
+    not divide); a ``block_sites`` that divides the sites runs as JAX's
+    does; a segment whose live rows exceed the protein instance's block
+    runs (the any-alphabet instance spills them) and matches JAX."""
     case = make_case(_caterpillar_newick(48), 32, seed=6, dtype=np.float32)
     jt, tt = case["jtopo"], case["ttopo"]
     jseg, tseg = schedules(jt, tt, 10)
@@ -295,12 +298,41 @@ def test_segmented_guards():
     with pytest.raises(EinvalError):  # a tip at the parent end
         cseg.make_segmented_score(tseg, far_tip, tt.child_clv,
                                   tt.edge_matrix, rate_cats=4, states=4)
-    with pytest.raises(EinvalError):
-        cseg.make_segmented_sweep(tseg, rate_cats=4, states=4,
-                                  block_sites=256)
+    # block_sites as JAX takes it: 256 and 5 do not divide 32 sites
+    tips = jt.schedule.tips
+    jslabs = cps.pack_tips_segmented(jnp.asarray(case["clv"][:tips]), jseg,
+                                     "mxu")
+    jpm = jev._pmatrices(jax_model(case["model"]), jt, jnp.float32)
+    slabs = cseg.pack_tips_segmented(case["clv"][:tips], tseg)
+    pm = port_pmatrix(case, torch.float32)
+    for bs in (256, 5):
+        with pytest.raises(ValueError, match="divisible"):
+            cps.make_segmented_sweep(jseg, rate_cats=4, states=4,
+                                     block_sites=bs, impl="mxu",
+                                     interpret=True)(jslabs, jpm)
+        with pytest.raises(EinvalError, match="divisible"):
+            cseg.make_segmented_sweep(tseg, rate_cats=4, states=4,
+                                      block_sites=bs)(slabs, pm)
+    want = cseg.make_segmented_sweep(tseg, rate_cats=4, states=4)(slabs, pm)
+    for bs in (16, 32):
+        got = cseg.make_segmented_sweep(tseg, rate_cats=4, states=4,
+                                        block_sites=bs)(slabs, pm)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tm = model_from_numpy(case["model"], "cpu", torch.float32)
+    got = float(cseg.make_segmented_score(
+        tseg, tt.parent_clv, tt.child_clv, tt.edge_matrix, rate_cats=4,
+        states=4, block_sites=16)(
+        slabs, pm, cf.pack_weight_vec(tm["freqs_pc"], tm["rate_weights"]),
+        tm["pattern_weights"]))
+    jm = jax_model(case["model"])
+    np.testing.assert_allclose(got, float(jev.make_forward(jt)(
+        jm, jnp.asarray(case["clv"]), jnp.asarray(case["scalers"]))[0]),
+        rtol=LOGL_RTOL)
 
     # one segment of a 32-taxon tree, protein at eight rates in float64:
-    # its seven live rows take 287 KB of shared memory
+    # its seven live rows (287 KB) exceed the protein instance's block, so
+    # the any-alphabet instance takes it; the rows and logL match JAX's
+    # float64 level sweep and make_forward
     big = make_case(_random_tree_newick(32, np.random.default_rng(32)), 32,
                     seed=6, states=20, rate_cats=8)
     bt = big["ttopo"]
@@ -311,14 +343,31 @@ def test_segmented_guards():
     pm = port_pmatrix(big, torch.float64)
     slabs = cseg.pack_tips_segmented(big["clv"][:bt.schedule.tips], whole)
     kw = dict(rate_cats=8, states=20)
-    with pytest.raises(EinvalError, match="shared memory"):
-        cseg.make_segmented_sweep(whole, **kw)(slabs, pm)
+    sweep = cseg.make_segmented_sweep(whole, **kw)
+    assert sweep.smem(torch.float64) > cseg.SMEM_LIMIT
+    assert sweep.instance(torch.float64) and not sweep.instance(
+        torch.float32)
+    inner, scal = sweep(slabs, pm)
+    jb = big["jtopo"]
+    want_clv, want_scal = (np.asarray(a) for a in j_sweep(
+        jb.schedule, jb.scale_mode)(
+        jnp.asarray(big["clv"]), jnp.asarray(big["scalers"]),
+        jev._pmatrices(jax_model(big["model"]), jb, jnp.float64)))
+    btips = jb.schedule.tips
+    for r in range(whole.n_inner):
+        np.testing.assert_array_equal(scal[whole.inner_row(r)].numpy(),
+                                      want_scal[r])
+        np.testing.assert_allclose(inner[whole.inner_row(r)].numpy(),
+                                   want_clv[btips + r], rtol=F64_RTOL,
+                                   atol=0)
     tm = model_from_numpy(big["model"], "cpu", torch.float64)
-    with pytest.raises(EinvalError, match="shared memory"):
-        cseg.make_segmented_score(
-            whole, bt.parent_clv, bt.child_clv, bt.edge_matrix, **kw)(
-            slabs, pm, cf.pack_weight_vec(tm["freqs_pc"], tm["rate_weights"]),
-            tm["pattern_weights"])
+    got = float(cseg.make_segmented_score(
+        whole, bt.parent_clv, bt.child_clv, bt.edge_matrix, **kw)(
+        slabs, pm, cf.pack_weight_vec(tm["freqs_pc"], tm["rate_weights"]),
+        tm["pattern_weights"]))
+    np.testing.assert_allclose(got, float(jev.make_forward(jb)(
+        jax_model(big["model"]), jnp.asarray(big["clv"]),
+        jnp.asarray(big["scalers"]))[0]), rtol=F64_RTOL)
     with pytest.raises(EinvalError):  # a device neither CPU nor CUDA
         cseg.make_segmented_sweep(tseg, rate_cats=4, states=4)(
             [s.to("meta") for s in cseg.pack_tips_segmented(

@@ -296,7 +296,7 @@ def test_readme_cut_layout():
         assert max(g.r_tip for g in kernel.rows) == 12
         assert kernel.smem(torch.float32) == 8192 + 4 * 32 * 68 + 128 * 8
         assert 8 * (kernel.smem(torch.float32) + 2048) <= 233472
-        kernel.check_budget(torch.float64)
+        assert not kernel.instance(torch.float64)
 
 
 def test_slab_table_checked_once():
