@@ -8190,9 +8190,14 @@ def phase_alphabet_partition(device):
 
 
 # ------------------------------------------ 37: large-tree tiers, any S
-# phase 37's check grid: (states, rates, the dyn tier's tip encodings)
+# phase 37's check grid: (states, rates, the dyn tier's tip encodings);
+# for K5/K6's any instance (clv_dyn.any_warps, any_tail_bytes) 5 x 10 runs
+# two rates a warp, 7 x 9 a last warp with one rate of two, 12 x 8 the
+# largest rings (eight warps, float64: 64 KB), S > 16 the P-matrices
+# through L1
 LARGE_ANY_SMALL = ((2, 6, ("masks",)), (3, 3, ("clv",)),
                    (4, 3, ("chars", "masks")), (5, 10, ("masks",)),
+                   (7, 9, ("masks",)), (12, 8, ("masks",)),
                    (16, 4, ("masks",)), (20, 3, ("masks",)),
                    (32, 2, ("clv",)), (61, 2, ("clv",)), (64, 1, ("clv",)))
 LARGE_ANY_SITES = 301
@@ -8511,7 +8516,8 @@ def gt16_large(device, peak):
     del score, tp, k6_args
     torch.cuda.empty_cache()
     return dict(launches=launches[3], err=k6_err, ms=k6_ms,
-                plain_ms=k6_plain_ms, bound=k6_bound, logl=logl, eval_ms=ms)
+                plain_ms=k6_plain_ms, bound=k6_bound, logl=logl, eval_ms=ms,
+                pool_slots=max(lay.pools), spilled_rows=lay.spills)
 
 
 def gt16_mid(device, peak):
@@ -8574,7 +8580,7 @@ def gt16_mid(device, peak):
     nbytes = (n_inner * c * s * sites + (n_inner + 1) * c * sites
               + tp.numel()) * 4
     k5_bound = bound(n_inner * sites * c * alphabet_flop(s), nbytes, peak)
-    pool, _ = pool_line(sweep, torch.float32)
+    pool, lay = pool_line(sweep, torch.float32)
     print(f"[37 gt16 mid] {tips} x {sites} x {s} states x {c} rates f32 "
           f"masks, per-rate scaling: K5 (make_dyn_sweep, "
           f"{len(dyn.segments)} segments) rows' edge logL {got!r} vs plain "
@@ -8588,7 +8594,8 @@ def gt16_mid(device, peak):
     del tp, tables, pm
     torch.cuda.empty_cache()
     return dict(launches=launches[2], err=err, ms=k5_ms, plain_ms=plain_ms,
-                bound=k5_bound)
+                bound=k5_bound, pool_slots=max(lay.pools),
+                spilled_rows=lay.spills)
 
 
 def gt16_seg(device, peak):
@@ -9377,12 +9384,15 @@ def main():
                2))),
         # the large tiers' any-alphabet instances (phase 37) at GT16: K6
         # through make_score_unbounded at 10 240 x 65 536, K5 at the mid
-        # tree, K3/K4 at the README's tree
+        # tree (each with its pool's slots and spilled rows), K3/K4 at the
+        # README's tree
         *({"name": name, "route": "cuda", "source": src, "replaces": line,
            "launches": large[key]["launches"],
            "max_abs_err": large[key]["err"], "ms": large[key]["ms"],
            "plain_ms": large[key]["plain_ms"],
-           **bound_keys(large[key]["bound"])}
+           **bound_keys(large[key]["bound"]),
+           **{k: large[key][k] for k in ("pool_slots", "spilled_rows")
+              if k in large[key]}}
           for name, key, src, line in (
               ("segmented_sweep_any", "k3", seg_any_src,
                "libpll_tpu/ops/clv_pallas_seg.py:327"),

@@ -7,8 +7,8 @@ Counterpart: ``libpll_tpu/ops/clv_pallas_dyn.py``.  K5 replaces
 ``make_dyn_score`` (``:695``; leaf segments at ``:928``, the root segment at
 ``:990``).  Both kernels are ``csrc/clv_dyn.cu`` (DNA and protein, S in
 {4, 20} at C in {1, 2, 4, 8}) and ``csrc/clv_dyn_any.cu`` (every other
-2 <= S <= 64 and any C, a thread a site); those files say how they are
-laid out on the card and what bounds them.
+2 <= S <= 64 and any C, a warp a rate of 32 sites); those files say how
+they are laid out on the card and what bounds them.
 
 The host part is the JAX package's, table for table: a tree is cut into
 segments of at most ``max_rows`` rows (``ops/clv_seg.py``), and every
@@ -77,11 +77,11 @@ from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
                                scale_consts)
 from . import _build
 from . import clv_fused as cf
-from .clv_seg import (ANY_POOL_BUDGET, SLOT_SITES, STAGE_OPS, TABLE_FIELDS,
-                      Segment, _itemsize, _ptr, _Rows, any_instance,
-                      any_slot_bytes, build_segmented_schedule,
-                      check_pmatrix, fold_tile_partials, plain_edge_partials,
-                      plain_op, plain_segment, pool_bytes, segment_slots,
+from .clv_seg import (SLOT_SITES, STAGE_OPS, TABLE_FIELDS, Segment,
+                      _itemsize, _ptr, _Rows, any_instance,
+                      build_segmented_schedule, check_pmatrix,
+                      fold_tile_partials, plain_edge_partials, plain_op,
+                      plain_segment, pool_bytes, segment_slots,
                       segment_table, stage_bytes)
 from .sweep import LevelSchedule
 
@@ -104,6 +104,20 @@ POOL_BUDGET = 233472 // 2 - 1024 - STATIC_SMEM
 SCRATCH_BUDGET = 16 << 30
 # "masks" tips in the dyn tier: JAX's 31-bit guard (clv_pallas_dyn.py:235)
 DYN_MASK_MAX_STATES = 31
+# the any-alphabet instance (csrc/clv_dyn_any.cu): a block of ANY_SITES
+# sites, a warp a rate up to ANY_MAX_WARPS warps (:func:`any_warps`); its
+# static shared memory (a chunk of STAGE_OPS op descriptors and their tip
+# codes, the votes); by default its pool and rings take what leaves
+# ANY_SM_WARPS warps an SM (:func:`any_pool_budget`; at GT16 the registers
+# hold an SM to 16 warps, and 16 with most rows spilled ran faster than 4,
+# 8 or 12 with fewer spills, PERF.md), beside each warp's ring of
+# ANY_RING_UNITS (op, rate) units of P-matrices at S <= 16 (the kernel's
+# kDepth: a double buffer)
+ANY_SITES = 32
+ANY_MAX_WARPS = 8
+ANY_STATIC_SMEM = 5120
+ANY_SM_WARPS = 16
+ANY_RING_UNITS = 2
 
 
 @dataclass(frozen=True)
@@ -451,13 +465,66 @@ def pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
             // pool_bytes(1, rate_cats, states, dtype, srows))
 
 
+def any_bound(states: int) -> int:
+    """The compile-time state bound R of the any-alphabet instance that
+    takes ``states``: 4, 8 or 16 (P-matrices staged, transposed), else
+    64."""
+    return next(r for r in (4, 8, 16, cf.ANY_MAX_STATES) if states <= r)
+
+
+def any_warps(rate_cats: int) -> Tuple[int, int]:
+    """(warps a block, rates a warp) of the any-alphabet instance: a warp
+    a rate up to ``ANY_MAX_WARPS``, then ceil(C/8) rates a warp."""
+    per = -(-rate_cats // ANY_MAX_WARPS)
+    return -(-rate_cats // per), per
+
+
+def any_slot_bytes(rate_cats: int, states: int, dtype, srows: int) -> int:
+    """Shared memory of one pool slot of the any-alphabet instance: C·S
+    values and ``srows`` counters at each of ``ANY_SITES`` sites."""
+    return ANY_SITES * (rate_cats * states * _itemsize(dtype) + 4 * srows)
+
+
+def any_tail_bytes(rate_cats: int, states: int, dtype) -> int:
+    """Dynamic shared memory of the any-alphabet instance past its pool:
+    the warps' rings of staged P-matrices (S <= 16; above, they are read
+    through L1), or the root's edge exchange where that is larger."""
+    r = any_bound(states)
+    ring = (any_warps(rate_cats)[0] * ANY_RING_UNITS * 2 * r * r
+            * _itemsize(dtype)) if r <= 16 else 0
+    return max(ring, rate_cats * ANY_SITES * (_itemsize(dtype) + 4))
+
+
+def any_pool_budget(rate_cats: int) -> int:
+    """Dynamic shared memory of one any-alphabet block (pool and rings)
+    that leaves room for ``ANY_SM_WARPS`` warps an SM: the SM's 228 KB
+    over the blocks, less the 1 KB the card reserves per block and the
+    static part; four blocks of four warps at four rates."""
+    blocks = max(1, ANY_SM_WARPS // any_warps(rate_cats)[0])
+    return 233472 // blocks - 1024 - ANY_STATIC_SMEM
+
+
 def any_pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
-    """The most slots the any-alphabet instance's pool takes
-    (``csrc/clv_dyn_any.cu``: a block of ``clv_seg.ANY_SITES`` sites, a
-    thread a site): as many as fit ``ANY_POOL_BUDGET`` (two blocks an
-    SM); 3 for 16 states at four rates in float32, 0 for 61 states at
-    eight rates in float64, where every local row spills."""
-    return ANY_POOL_BUDGET // any_slot_bytes(rate_cats, states, dtype, srows)
+    """The most slots the any-alphabet instance's pool takes: as many as
+    fit :func:`any_pool_budget` beside its rings; 4 for 16 states at four
+    rates in float32, 0 for 61 states at eight rates in float64, where
+    every local row spills.  Never negative."""
+    free = (any_pool_budget(rate_cats)
+            - any_tail_bytes(rate_cats, states, dtype))
+    return max(0, free // any_slot_bytes(rate_cats, states, dtype, srows))
+
+
+def any_kernel_pmatrix(pmatrix: torch.Tensor) -> torch.Tensor:
+    """[M, C, S, S] P-matrices as the any-alphabet instance reads them: at
+    S <= 16 each matrix transposed (entry [k, j] = P[j, k]) and padded
+    with zeros to [R, R] (:func:`any_bound`); else each row padded with
+    zeros to whole 16-byte vectors (``clv_fused.pad_rows``)."""
+    s = pmatrix.shape[-1]
+    r = any_bound(s)
+    if r > 16:
+        return cf.pad_rows(pmatrix)
+    return torch.nn.functional.pad(pmatrix.transpose(-1, -2),
+                                   (0, r - s, 0, r - s)).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -643,15 +710,18 @@ class _DynKernel:
         if self.any:
             cap = (any_pool_cap(c, s, dtype, srows) if self.slot_cap is None
                    else self.slot_cap)
-            need = cap * any_slot_bytes(c, s, dtype, srows)
+            need = (cap * any_slot_bytes(c, s, dtype, srows)
+                    + any_tail_bytes(c, s, dtype))
+            limit = 232448 - ANY_STATIC_SMEM
         else:
             cap = (pool_cap(c, s, dtype, srows) if self.slot_cap is None
                    else self.slot_cap)
             need = (pool_bytes(cap, c, s, dtype, srows)
                     + stage_bytes(c, s, dtype))
-        if cap < 0 or need > POOL_LIMIT:
+            limit = POOL_LIMIT
+        if cap < 0 or need > limit:
             raise EinvalError(f"a pool of {cap} slots takes {need} bytes "
-                              f"of shared memory, over the {POOL_LIMIT} a "
+                              f"of shared memory, over the {limit} a "
                               f"block has for it")
         if slot_plan is None:
             return PoolLayout(None, self.plan.pools(cap),
@@ -711,15 +781,16 @@ class _DynKernel:
                      f"want [{n_seg}, {', '.join(map(str, tail))}] int32")
         return suffix
 
-    def launch(self, suffix, mode, tips_packed, pmatrix, si, pool, *, table,
+    def launch(self, suffix, mode, tips_packed, pmatrix, si, lay, *, table,
                m_ops, tip_globals, imp_rows, slots, src, src_scal, loc,
                loc_scal, exp_table=None, r_exp=0, exp=None, exp_scal=None,
                edge=None, weight_vec=None, pattern_weights=None,
                inv_add=None, partials=None):
         """One segment's kernel on the current stream of the tensors'
-        card.  ``loc``/``loc_scal``/``exp``/``exp_scal`` are addresses.
-        The any-alphabet instance takes ``pmatrix`` padded to 16-byte rows
-        (``clv_fused.pad_rows``)."""
+        card, with segment ``si``'s pool of ``lay``.
+        ``loc``/``loc_scal``/``exp``/``exp_scal`` are addresses.  The
+        any-alphabet instance takes ``pmatrix`` as
+        :func:`any_kernel_pmatrix` lays it out."""
         g = self.g
         lib = load_any_kernels() if self.any else load_kernels()
         head = (mode, self.states) + ((pmatrix.shape[-1],) if self.any
@@ -729,7 +800,7 @@ class _DynKernel:
             args = (*head, self.rate_cats,
                     _TIP_CODE[self.tip_encoding], self.scale_mode,
                     tips_packed.shape[-1], g.r_tip, g.r_imp, g.r_loc, r_exp,
-                    pool, _ptr(table[si]), _ptr(m_ops[si]),
+                    lay.pools[si], _ptr(table[si]), _ptr(m_ops[si]),
                     _ptr(tip_globals[si]), _ptr(imp_rows[si]),
                     _ptr(slots[si]), _ptr(tips_packed), _ptr(pmatrix),
                     _ptr(src), _ptr(src_scal), loc, loc_scal,
@@ -856,11 +927,11 @@ class DynSweep(_DynKernel):
         sites = tips_packed.shape[-1]
         inner, scalers = self._outputs(pmatrix, sites, torch.empty)
         cs, srows = self.rate_cats * self.states, self.srows
-        kpm = cf.pad_rows(pmatrix) if self.any else pmatrix
+        kpm = any_kernel_pmatrix(pmatrix) if self.any else pmatrix
         for si in range(len(self.dyn.segments)):
             off = self.dyn.seg_offsets[si]
-            self.launch(suffix, _MODE_SWEEP, tips_packed, kpm, si,
-                        lay.pools[si], table=tables, m_ops=m_ops,
+            self.launch(suffix, _MODE_SWEEP, tips_packed, kpm, si, lay,
+                        table=tables, m_ops=m_ops,
                         tip_globals=tg, imp_rows=imp_rows, slots=slots,
                         src=inner, src_scal=scalers,
                         loc=_ptr(inner, off, cs * sites),
@@ -1070,12 +1141,12 @@ class DynScore(_DynKernel):
         # one partial per SLOT_SITES sites, zero past the last tile
         tiles = torch.zeros((n_blocks * (BLOCK_SITES // SLOT_SITES),),
                             dtype=torch.float64, device=device)
-        kpm = cf.pad_rows(pmatrix) if self.any else pmatrix
+        kpm = any_kernel_pmatrix(pmatrix) if self.any else pmatrix
         for si in range(n_seg):
             root = si == n_seg - 1
             self.launch(
                 suffix, _MODE_ROOT if root else _MODE_LEAF, tips_packed,
-                kpm, si, lay.pools[si], table=tables, m_ops=m_ops,
+                kpm, si, lay, table=tables, m_ops=m_ops,
                 tip_globals=tg, imp_rows=imp_rows, slots=slots,
                 src=exports, src_scal=exp_scal, loc=_ptr(scratch),
                 loc_scal=_ptr(scratch_scal), exp_table=exp_tabs,

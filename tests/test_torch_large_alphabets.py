@@ -265,8 +265,8 @@ def score_inputs(case, model, dtype, pinv):
 def test_dyn_sweep_any_vs_jax(states, rate_cats, encoding, scale_mode,
                               dtype):
     """K5's plain version against JAX's level sweep; its slotted runner
-    under the any-alphabet layout (the plan's pool, one slot, none)
-    equal to it bit for bit."""
+    under the any-alphabet layout (the budget's pool, one slot, none, the
+    plan's peak) equal to it bit for bit."""
     case, masks = large_case(states, rate_cats, scale_mode, dtype)
     dyn = dyn_schedule(case)
     sweep = cd.make_dyn_sweep(dyn, scale_mode, rate_cats=rate_cats,
@@ -277,7 +277,7 @@ def test_dyn_sweep_any_vs_jax(states, rate_cats, encoding, scale_mode,
     args = (tips, *cd.dyn_runtime_args(dyn), pm)
     inner, scal = sweep(*args)
     assert_rows(inner, scal, case, dtype, dyn.inner_row)
-    for cap in (None, 1, 0):
+    for cap in (None, 1, 0, max(sweep.plan.n_slots)):
         sweep.slot_cap = cap
         lay = sweep.layout(pm.dtype)
         assert min(lay.pools) >= 0 and (cap is None or max(lay.pools) <= cap)
@@ -291,7 +291,7 @@ def test_dyn_score_any_vs_jax(states, rate_cats, encoding, scale_mode,
                               dtype):
     """K6's plain version, with and without +I (float64), against JAX's
     float64 make_forward; its slotted runner at pools of 0 and 1 slots
-    equal to it bit for bit."""
+    and the plan's peak equal to it bit for bit."""
     case, masks = large_case(states, rate_cats, scale_mode, dtype)
     tt = case["ttopo"]
     dyn = dyn_schedule(case)
@@ -307,8 +307,10 @@ def test_dyn_score_any_vs_jax(states, rate_cats, encoding, scale_mode,
         args = (tips, *cd.dyn_score_args(dyn), pm, wvec, pw, inv_add)
         got = float(score(*args))
         assert_logl(got, case, model, dtype, pinv)
-        for cap in (1, 0):
+        for cap in (1, 0, max(score.plan.n_slots)):
             score.slot_cap = cap
+            assert score.layout(pm.dtype).spills == int(
+                (score.plan.slots >= cap).sum())
             assert float(score.plain_slotted(*args)) == got
 
 
@@ -495,7 +497,7 @@ def test_large_alphabet_guards():
         cseg.FLOOR_LOCAL_ROWS
     assert cseg.seg_max_rows(8, 61, torch.float64) == 9
     assert cd.any_pool_cap(8, 61, torch.float64, 8) == 0
-    assert cd.any_pool_cap(4, 16, torch.float32, 1) == 3
+    assert cd.any_pool_cap(4, 16, torch.float32, 1) == 4
     assert cseg.any_shared_slots(5, 4, 16, torch.float32, 1) == 3
     sweep = cd.make_dyn_sweep(dyn, rate_cats=8, states=61)
     lay = sweep.layout(torch.float64)
@@ -506,3 +508,48 @@ def test_large_alphabet_guards():
             dyn, rate_cats=c, states=s).any
     for s, c in ((4, 4), (20, 8), (4, 1)):
         assert not cseg.any_instance(s, c)
+
+
+# (rates, states, dtype, counter rows, pool cap, bytes past the pool, warps,
+# rates a warp) of the dyn tier's any-alphabet block (csrc/clv_dyn_any.cu)
+ANY_LAYOUTS = [
+    (4, 16, torch.float32, 1, 4, 16384, 4, 1),    # GT16, per site
+    (4, 16, torch.float32, 4, 4, 16384, 4, 1),    # GT16, per rate
+    (8, 61, torch.float64, 8, 0, 3072, 8, 1),     # no slot fits: all spill
+    (2, 61, torch.float32, 1, 1, 512, 2, 1),      # P-matrices through L1
+    (8, 12, torch.float64, 1, 1, 65536, 8, 1),    # the largest rings
+    (10, 5, torch.float64, 10, 4, 10240, 5, 2),   # two rates a warp
+    (9, 7, torch.float32, 1, 8, 5120, 5, 2),      # a warp with one rate
+    (40, 64, torch.float64, 40, 0, 15360, 8, 5),  # the root's exchange
+    (1, 16, torch.float32, 1, 2, 4096, 1, 1),     # one warp a block
+]
+
+
+@pytest.mark.parametrize("c,s,dtype,srows,cap,tail,warps,per",
+                         ANY_LAYOUTS)
+def test_dyn_any_layout(c, s, dtype, srows, cap, tail, warps, per):
+    """The any-alphabet K5/K6 block's sizes: the pool cap beside the
+    warps' rings (or the root's exchange) within the budget of 16 warps
+    an SM (never negative), the warps; the P-matrices as the kernel reads
+    them, transposed and zero-padded to [R, R] at S <= 16 (rows padded to
+    16 bytes above)."""
+    assert cd.any_pool_cap(c, s, dtype, srows) == cap
+    assert cd.any_tail_bytes(c, s, dtype) == tail
+    assert cd.any_warps(c) == (warps, per)
+    assert warps * per >= c > (warps - 1) * per
+    budget = cd.any_pool_budget(c)
+    assert (cd.ANY_SM_WARPS // warps or 1) * (
+        budget + 1024 + cd.ANY_STATIC_SMEM) <= 233472
+    used = cap * cd.any_slot_bytes(c, s, dtype, srows) + tail
+    assert used <= budget or cap == 0
+    assert used + cd.any_slot_bytes(c, s, dtype, srows) > budget
+    pm = torch.from_numpy(np.random.default_rng(s).random(
+        (3, c, s, s))).to(dtype)
+    kpm = cd.any_kernel_pmatrix(pm)
+    r = cd.any_bound(s)
+    if r <= 16:
+        assert kpm.shape == (3, c, r, r) and kpm.is_contiguous()
+        assert torch.equal(kpm[..., :s, :s], pm.transpose(-1, -2))
+        assert not kpm[..., s:, :].any() and not kpm[..., :, s:].any()
+    else:
+        assert torch.equal(kpm, cf.pad_rows(pm))
