@@ -7534,6 +7534,8 @@ def phase_mesh(mesh_ranks, card, refs):
 # ------------------------------------------------------------ alphabets
 ALPHABET_STATES = (2, 3, 5, 10, 16, 32, 61, 64)  # phase 36's small configs
 ALPHABET_RATES = (1, 3, 5, 6, 10, 16)
+ALPHABET_MIXED_STATES = (7, 32)  # R = 8 and 64 with warps of 1 and 2 rates
+ALPHABET_MIXED_RATES = 9
 ALPHABET_SITES = 301
 ALPHABET_TIPS = 64  # the GT16 flagship: 64 x 262 144, Γ4, float32, masks
 ALPHABET_RATE_CATS = 4
@@ -7553,15 +7555,12 @@ class AnyCap:
 
     def __enter__(self):
         from libpll_tpu_torch.ops import clv_fused as cf
-        from libpll_tpu_torch.utils.constants import SCALE_PER_RATE
 
         self.cf, self.real = cf, cf.any_layout
 
-        def capped(pool, c, s, itemsize, scale_mode, limit):
-            srows = c if scale_mode == SCALE_PER_RATE else 1
-            slot = cf.ANY_THREADS * (c * s * itemsize + 4 * srows)
-            return self.real(pool, c, s, itemsize, scale_mode,
-                             min(limit, 2 * self.cap * slot))
+        def capped(pool, c, s, itemsize, scale_mode, cap=None, blocks=None):
+            return self.real(pool, c, s, itemsize, scale_mode, self.cap,
+                             blocks)
         cf.any_layout = capped
         return self
 
@@ -7621,7 +7620,9 @@ def check_alphabets_small(device):
     ALPHABET_RATES in float32 and float64, each with every tip encoding
     its alphabet takes: K2 at every scale mode, K1 per-site and unscaled
     with and without +I, against their plain versions (phase 3's rule);
-    float64 again with the pool capped at 0 and 1 slots (rows spill); N1
+    float64 again with the pool capped at 0 and 1 slots (rows spill); the
+    same at C = 9 (warps of one rate and of two in one block) for S in
+    ALPHABET_MIXED_STATES, float32 and float64, each at every cap; N1
     from the sumtable and the rows against its plain twin (phase 15's
     rule) at per-site, per-rate, +I and the Stamatakis asc mode in turn,
     its tables where its plan puts them (shared memory) and forced to
@@ -7647,76 +7648,89 @@ def check_alphabets_small(device):
     n, k1_err, k2_err, t_err = 0, 0.0, 0.0, 0.0
     tables = collections.Counter()  # N1's plans by (tables, resident)
     unscaled_inf = 0  # unscaled K1 runs whose plain logL underflows
+
+    def k1k2(newick, states, rate_cats, dtype, seed, caps):
+        """K2 at every scale mode and K1 per-site and unscaled, with and
+        without +I, at every tip encoding and pool cap of one
+        configuration, against their plain versions; returns the per-site
+        K2 runs whose counters scaled."""
+        nonlocal n, k1_err, k2_err, unscaled_inf
+        scaled = 0
+        topo, model_np, masks = small_case(newick, ALPHABET_SITES,
+                                           rate_cats, seed=seed,
+                                           states=states)
+        sched = topo.schedule
+        edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
+                    edge_matrix=topo.edge_matrix)
+        encodings = [e for e in ("clv", "chars", "masks")
+                     if not (e == "chars" and states > 4)
+                     and not (e == "masks"
+                              and states > cf.MASK_MAX_STATES)]
+        for enc in encodings:
+            tp = tip_input(masks, enc, rate_cats, dtype, device, states)
+            pm = kernel_inputs(topo, model_np, dtype, device, False)[0]
+            where = (f"S={states} C={rate_cats} {dtype} {enc} "
+                     f"{ALPHABET_SITES} sites")
+            for cap in caps:
+                with AnyCap(cap) if cap is not None else nullcontext():
+                    plan = cf.FusedPlan(sched, enc)
+                    lay = plan.layout(dtype, rate_cats, states,
+                                      SCALE_PER_SITE, False)
+                    check("shared_slots" in lay,
+                          f"{where}: not the any-alphabet instance")
+                    for scale in (SCALE_NONE, SCALE_PER_SITE,
+                                  SCALE_PER_RATE):
+                        got = cf.fused_sweep(sched, tp, pm, plan=plan,
+                                             scale_mode=scale,
+                                             tip_encoding=enc)
+                        want = cf.fused_sweep_plain(
+                            sched, tp, pm, scale_mode=scale,
+                            tip_encoding=enc)
+                        ok, err, agree = sweep_close(*got, *want, dtype)
+                        scaled += (scale == SCALE_PER_SITE
+                                   and bool(got[1].any()))
+                        check(ok, f"K2 {where} cap={cap} scale={scale}: "
+                                  f"max abs err {err}, scalers agree "
+                                  f"{agree}")
+                        if dtype == torch.float32:
+                            k2_err = max(k2_err, err)
+                        n += 1
+                    splan = cf.FusedPlan(sched, enc,
+                                         tuple(edge.values()))
+                    for scale in (SCALE_NONE, SCALE_PER_SITE):
+                        for pinv in (False, True):
+                            args = kernel_inputs(topo, model_np, dtype,
+                                                 device, pinv)
+                            got = float(cf.fused_edge_score(
+                                sched, tp, *args, plan=splan,
+                                scale_mode=scale, tip_encoding=enc,
+                                **edge))
+                            want = float(cf.fused_edge_score_plain(
+                                sched, tp, *args, scale_mode=scale,
+                                tip_encoding=enc, **edge))
+                            check(np.isfinite(want) == np.isfinite(got)
+                                  and (not np.isfinite(want) or
+                                       logl_close(got, want, dtype)),
+                                  f"K1 {where} cap={cap} scale={scale} "
+                                  f"pinv={pinv}: {got} vs plain {want}")
+                            if dtype == torch.float32 and np.isfinite(
+                                    want):
+                                k1_err = max(k1_err, abs(got - want))
+                            unscaled_inf += not np.isfinite(want)
+                            check(scale == SCALE_NONE
+                                  or np.isfinite(want),
+                                  f"K1 {where} per-site scaling: plain "
+                                  f"logL {want}")
+                            n += 1
+        return scaled
+
     variants = ("site", "rate", "pinv", "stamatakis")
     for i, states in enumerate(ALPHABET_STATES):
         newick = (caterpillar_newick(24) if i % 2 else random_newick(12, rng))
         for k, dtype in enumerate((torch.float32, torch.float64)):
             rate_cats = ALPHABET_RATES[(2 * i + k) % len(ALPHABET_RATES)]
-            topo, model_np, masks = small_case(newick, ALPHABET_SITES,
-                                               rate_cats, seed=i,
-                                               states=states)
-            sched = topo.schedule
-            edge = dict(parent_clv=topo.parent_clv, child_clv=topo.child_clv,
-                        edge_matrix=topo.edge_matrix)
-            encodings = [e for e in ("clv", "chars", "masks")
-                         if not (e == "chars" and states > 4)
-                         and not (e == "masks"
-                                  and states > cf.MASK_MAX_STATES)]
-            caps = (None, 0, 1) if dtype == torch.float64 else (None,)
-            for enc in encodings:
-                tp = tip_input(masks, enc, rate_cats, dtype, device, states)
-                pm = kernel_inputs(topo, model_np, dtype, device, False)[0]
-                where = (f"S={states} C={rate_cats} {dtype} {enc} "
-                         f"{ALPHABET_SITES} sites")
-                for cap in caps:
-                    with AnyCap(cap) if cap is not None else nullcontext():
-                        plan = cf.FusedPlan(sched, enc)
-                        lay = plan.layout(dtype, rate_cats, states,
-                                          SCALE_PER_SITE, False)
-                        check("shared_slots" in lay,
-                              f"{where}: not the any-alphabet instance")
-                        for scale in (SCALE_NONE, SCALE_PER_SITE,
-                                      SCALE_PER_RATE):
-                            got = cf.fused_sweep(sched, tp, pm, plan=plan,
-                                                 scale_mode=scale,
-                                                 tip_encoding=enc)
-                            want = cf.fused_sweep_plain(
-                                sched, tp, pm, scale_mode=scale,
-                                tip_encoding=enc)
-                            ok, err, agree = sweep_close(*got, *want, dtype)
-                            check(ok, f"K2 {where} cap={cap} scale={scale}: "
-                                      f"max abs err {err}, scalers agree "
-                                      f"{agree}")
-                            if dtype == torch.float32:
-                                k2_err = max(k2_err, err)
-                            n += 1
-                        splan = cf.FusedPlan(sched, enc,
-                                             tuple(edge.values()))
-                        for scale in (SCALE_NONE, SCALE_PER_SITE):
-                            for pinv in (False, True):
-                                args = kernel_inputs(topo, model_np, dtype,
-                                                     device, pinv)
-                                got = float(cf.fused_edge_score(
-                                    sched, tp, *args, plan=splan,
-                                    scale_mode=scale, tip_encoding=enc,
-                                    **edge))
-                                want = float(cf.fused_edge_score_plain(
-                                    sched, tp, *args, scale_mode=scale,
-                                    tip_encoding=enc, **edge))
-                                check(np.isfinite(want) == np.isfinite(got)
-                                      and (not np.isfinite(want) or
-                                           logl_close(got, want, dtype)),
-                                      f"K1 {where} cap={cap} scale={scale} "
-                                      f"pinv={pinv}: {got} vs plain {want}")
-                                if dtype == torch.float32 and np.isfinite(
-                                        want):
-                                    k1_err = max(k1_err, abs(got - want))
-                                unscaled_inf += not np.isfinite(want)
-                                check(scale == SCALE_NONE
-                                      or np.isfinite(want),
-                                      f"K1 {where} per-site scaling: plain "
-                                      f"logL {want}")
-                                n += 1
+            k1k2(newick, states, rate_cats, dtype, i,
+                 (None, 0, 1) if dtype == torch.float64 else (None,))
             variant = variants[(2 * i + k) % len(variants)]
             args, rows = newton_inputs(variant, newick, rate_cats, states,
                                        dtype, device, seed=i, rows=True)
@@ -7739,6 +7753,17 @@ def check_alphabets_small(device):
                         if dtype == torch.float32:
                             t_err = max(t_err, err)
                 n += 1
+    # K1/K2 blocks whose warps hold one rate and two (C = 9: warps 0-3 take
+    # rates w and w + 5, warp 4 rate 4), so that under per-site scaling
+    # products held in registers until the vote meet products stored and
+    # rescaled; a deep tree, so that float32's scaling fires
+    for states in ALPHABET_MIXED_STATES:
+        for dtype in (torch.float32, torch.float64):
+            scaled = k1k2(caterpillar_newick(24), states,
+                          ALPHABET_MIXED_RATES, dtype, states, (None, 0, 1))
+            check(dtype == torch.float64 or scaled > 0,
+                  f"S={states} C={ALPHABET_MIXED_RATES} {dtype}: per-site "
+                  f"scaling never fired")
     # the protein walk the protein instance's block cannot hold
     topo, model_np, masks = small_case(random_newick(1000, rng), 64, 8, 8,
                                        states=20)
@@ -7882,14 +7907,22 @@ def alphabet_times(name, r, topo, c, s, tp, encoding, m32, device, peak,
                      peak)
     n1_bound = bound((newton_flop(c, s) * bodies + sumtable_flop(c, s))
                      * sites, (2 * c * s * sites + 2 * sites) * 4, peak)
-    lay = {key: mod.plan.layout(torch.float32, c, s, topo.scale_mode, k1_)
-           for key, mod, k1_ in (("K1", r["score"], True),
-                                 ("K2", r["fwd"], False))}
+    lay = {key: any_pool(mod.plan, mod.plan.layout(
+        torch.float32, c, s, topo.scale_mode, k1_))
+        for key, mod, k1_ in (("K1", r["score"], True),
+                              ("K2", r["fwd"], False))}
     plan = dv.plan_for(n1_args["sumtable"], n1_args["sites"],
                        n1_args["asc_mode"])
     return dict(ms=ms, k1_err=k1_err, k2_err=k2_err, agree=agree,
                 k1_bound=k1_bound, k2_bound=k2_bound, n1_bound=n1_bound,
                 bodies=bodies, lay=lay, n1_plan=plan)
+
+
+def any_pool(plan, lay):
+    """An any-alphabet layout with the walk's pool and its spilled rows
+    (the ops whose slot lies past the shared ones)."""
+    return dict(lay, pool=plan.pool, spilled_rows=int(
+        (plan.slots >= lay["shared_slots"]).sum()))
 
 
 def alphabet_line(name, r, t, card):
@@ -7911,9 +7944,12 @@ def alphabet_line(name, r, t, card):
                                         ("N1", "n1", t["n1_bound"])))
             + f" ({t['bodies']} bodies; {plan_text(t['n1_plan'])}, tables "
             f"{t['n1_plan'].tables}); layouts " + "; ".join(
-                f"{key} {v['shared_slots']} of the pool's slots in "
-                f"{v['smem']} B shared memory, {v['blocks_per_sm']} blocks "
-                f"of {v['threads']} an SM" for key, v in t["lay"].items()))
+                f"{key} {v['shared_slots']} of the pool's {v['pool']} slots "
+                f"in {v['smem']} B shared memory, {v['spilled_rows']} rows "
+                f"spilled, {v.get('warps', '-')} warps ("
+                f"{v.get('rates_per_warp', '-')} rates a warp) a block of "
+                f"{v['block_sites']} sites, {v['blocks_per_sm']} blocks an SM"
+                for key, v in t["lay"].items()))
 
 
 def phase_alphabets(device, card, peak):
@@ -7970,7 +8006,8 @@ def phase_alphabet_checks(device):
           f"{ALPHABET_STATES}, C in {ALPHABET_RATES}, float32 and float64, "
           f"every tip encoding an alphabet takes, every scale mode, +I, "
           f"Stamatakis; float64 also with pools of 0 and 1 slots in shared "
-          f"memory; N1 from the sumtable and the rows, its plans by "
+          f"memory; C={ALPHABET_MIXED_RATES} at S in {ALPHABET_MIXED_STATES}"
+          f", float32 and float64, every pool; N1 from the sumtable and the rows, its plans by "
           f"(tables, resident) " + ", ".join(
               f"{k} {v}" for k, v in sorted(tables.items()))
           + f"; {unscaled_inf} unscaled K1 runs whose plain logL underflows,"
@@ -9372,7 +9409,10 @@ def main():
            "max_abs_err": alpha[cell][f"{key}_err"],
            "ms": alpha[cell]["ms"][key],
            "plain_ms": alpha[cell]["ms"][f"{key}_plain"],
-           **bound_keys(alpha[cell][f"{key}_bound"])}
+           **bound_keys(alpha[cell][f"{key}_bound"]),
+           **({"pool_slots": alpha[cell]["lay"][key.upper()]["shared_slots"],
+               "spilled_rows": alpha[cell]["lay"][key.upper()][
+                   "spilled_rows"]} if key != "n1" else {})}
           for cell in ("gt16", "codon")
           for name, key, src, line, entry, k in (
               ("fused_edge_score_any", "k1", any_src,

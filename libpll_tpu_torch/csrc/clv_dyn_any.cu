@@ -63,6 +63,9 @@
 //    through L1: at 61 states one rate's matrix is 15.6 KB.
 //  * Pattern tips are decoded bit by bit from the tree's packed tip words
 //    (chars: a nibble; masks: up to 31 states).
+//  * The block's device pieces (the cp.async ring, contract_t, the tip-code
+//    staging, the vote) are any_warp.cuh's, shared with K1/K2's
+//    clv_any.cu, in forms that leave this kernel's SASS as it was.
 //
 // What bounds it: operations, 2 C S^2 multiply-adds per op and site (at
 // GT16, 10 240 taxa x 65 536 sites x 4 rates, float32: 2.75e12 flop,
@@ -78,14 +81,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "clv_common.cuh"
+#include "any_warp.cuh"
 
 namespace {
 
 constexpr int kFields = 6;  // parent, c1, c2, s1, s2, has_scaler
-constexpr int kAnyMaxStates = 64;
-constexpr int kMaxWarps = 8;  // warps a block: a rate each up to eight
-constexpr int kDepth = 2;     // a warp's ring: (op, rate) units, two
 
 enum { MODE_SWEEP = 0, MODE_LEAF = 1, MODE_ROOT = 2 };
 
@@ -126,44 +126,6 @@ struct DynAnyArgs {
   int64_t n_groups;            // root: partials' length
   Scale<T> u;
 };
-
-// ------------------------------------------------------------ cp.async
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most kDepth - 1 of the thread's groups are in flight.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  static_assert(kDepth == 2, "the wait's count is kDepth - 1");
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// t[j] = sum_k pt[k, j] x[k] for j < R, k-outer over the [R, R] transposed
-// matrix (rows from shared memory, or with kGlobal through __ldg): product
-// at k = 0, then fma, so each dot is K1's order.
-template <typename T, int R, bool kGlobal>
-__device__ __forceinline__ void contract_t(const T* pt, const T (&x)[R],
-                                           T (&t)[R]) {
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    T p[R];
-    load_pm_row<T, R, !kGlobal>(pt + k * R, p);
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-      t[j] = k == 0 ? p[j] * x[0] : dev_fma(p[j], x[k], t[j]);
-  }
-}
 
 template <typename T, int R>
 __global__ void __launch_bounds__(kTileSites * kMaxWarps)
@@ -335,34 +297,18 @@ __global__ void __launch_bounds__(kTileSites * kMaxWarps)
     }
     __syncthreads();
     if (code_tips) {  // the chunk's tip codes at the tile's sites, in bulk
-      constexpr int kBatch = 8;
-      const int total = cnt * 2 * kTileSites;
-      for (int it0 = threadIdx.x; it0 < total; it0 += kBatch * blockDim.x) {
-        uint32_t v[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int it = it0 + b * blockDim.x;
-          v[b] = 0;
-          if (it >= total) continue;
-          const OpDesc& o = ops[it / (2 * kTileSites)];
-          const int d = o.c[(it / kTileSites) & 1];
-          if (o.parent < 0 || kind_of(d) != K_TIP) continue;
-          const int64_t g = index_of(d);
-          const int64_t at = (int64_t)blockIdx.x * kTileSites + it % kTileSites;
-          const int64_t s = at < L ? at : L - 1;
-          v[b] = a.tip_encoding == TIP_CHARS
-                     ? ((uint32_t)__ldg(a.tip_words + (g >> 3) * L + s) >>
-                        (4 * (g & 7))) & 0xFu
-                     : (uint32_t)__ldg(a.tip_words + g * L + s);
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int it = it0 + b * blockDim.x;
-          if (it < total)
-            codes[it / (2 * kTileSites)][(it / kTileSites) & 1]
-                 [it % kTileSites] = v[b];
-        }
-      }
+      stage_codes(
+          ops, codes, cnt, L,
+          [&](const OpDesc& o, int d) {
+            return o.parent >= 0 && kind_of(d) == K_TIP;
+          },
+          [&](const OpDesc&, int, int d, int64_t s) {
+            const int64_t g = index_of(d);
+            return a.tip_encoding == TIP_CHARS
+                       ? ((uint32_t)__ldg(a.tip_words + (g >> 3) * L + s) >>
+                          (4 * (g & 7))) & 0xFu
+                       : (uint32_t)__ldg(a.tip_words + g * L + s);
+          });
       __syncthreads();
     }
     for (int j = 0; j < cnt; ++j) {
@@ -433,13 +379,8 @@ __global__ void __launch_bounds__(kTileSites * kMaxWarps)
       if (per_site) {
         bool scale = false;
         if (may) {  // the site's vote across the warps
-          const unsigned small = __ballot_sync(0xffffffffu, site_below);
-          if (lane == 0) votes[vb][w] = small;
-          __syncthreads();
-          unsigned all = 0xffffffffu;
-          for (int k = 0; k < W; ++k) all &= votes[vb][k];
+          scale = site_vote_warps(site_below, votes, vb, W, w, lane);
           vb ^= 1;
-          scale = (all >> lane) & 1u;
         }
         if (hold) {
           if (scale) each_state<R>(ns, [&](int jj) { t[jj] *= a.u.factor; });
@@ -550,19 +491,6 @@ __global__ void __launch_bounds__(kTileSites * kMaxWarps)
       warp_sum_store(lnl, a.partials, blockIdx.x, a.n_groups);
     }
   }
-}
-
-// The bound of the instance that takes `states`.
-int any_bound(int states) {
-  return states <= 4 ? 4 : states <= 8 ? 8 : states <= 16 ? 16
-                                                            : kAnyMaxStates;
-}
-
-// Warps a block for C rates: one a rate up to kMaxWarps, then ceil(C/8)
-// rates a warp (clv_dyn.any_warps).
-int any_warps(int rate_cats) {
-  const int per = (rate_cats + kMaxWarps - 1) / kMaxWarps;
-  return (rate_cats + per - 1) / per;
 }
 
 template <typename T, int R>

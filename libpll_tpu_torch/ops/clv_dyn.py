@@ -77,6 +77,8 @@ from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
                                scale_consts)
 from . import _build
 from . import clv_fused as cf
+from .any_block import (ANY_RING_UNITS, ANY_SITES, ANY_STATIC_SMEM,
+                        any_bound, any_pool_budget, any_pt, any_warps)
 from .clv_seg import (SLOT_SITES, STAGE_OPS, TABLE_FIELDS, Segment,
                       _itemsize, _ptr, _Rows, any_instance,
                       build_segmented_schedule, check_pmatrix,
@@ -104,20 +106,6 @@ POOL_BUDGET = 233472 // 2 - 1024 - STATIC_SMEM
 SCRATCH_BUDGET = 16 << 30
 # "masks" tips in the dyn tier: JAX's 31-bit guard (clv_pallas_dyn.py:235)
 DYN_MASK_MAX_STATES = 31
-# the any-alphabet instance (csrc/clv_dyn_any.cu): a block of ANY_SITES
-# sites, a warp a rate up to ANY_MAX_WARPS warps (:func:`any_warps`); its
-# static shared memory (a chunk of STAGE_OPS op descriptors and their tip
-# codes, the votes); by default its pool and rings take what leaves
-# ANY_SM_WARPS warps an SM (:func:`any_pool_budget`; at GT16 the registers
-# hold an SM to 16 warps, and 16 with most rows spilled ran faster than 4,
-# 8 or 12 with fewer spills, PERF.md), beside each warp's ring of
-# ANY_RING_UNITS (op, rate) units of P-matrices at S <= 16 (the kernel's
-# kDepth: a double buffer)
-ANY_SITES = 32
-ANY_MAX_WARPS = 8
-ANY_STATIC_SMEM = 5120
-ANY_SM_WARPS = 16
-ANY_RING_UNITS = 2
 
 
 @dataclass(frozen=True)
@@ -465,20 +453,6 @@ def pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
             // pool_bytes(1, rate_cats, states, dtype, srows))
 
 
-def any_bound(states: int) -> int:
-    """The compile-time state bound R of the any-alphabet instance that
-    takes ``states``: 4, 8 or 16 (P-matrices staged, transposed), else
-    64."""
-    return next(r for r in (4, 8, 16, cf.ANY_MAX_STATES) if states <= r)
-
-
-def any_warps(rate_cats: int) -> Tuple[int, int]:
-    """(warps a block, rates a warp) of the any-alphabet instance: a warp
-    a rate up to ``ANY_MAX_WARPS``, then ceil(C/8) rates a warp."""
-    per = -(-rate_cats // ANY_MAX_WARPS)
-    return -(-rate_cats // per), per
-
-
 def any_slot_bytes(rate_cats: int, states: int, dtype, srows: int) -> int:
     """Shared memory of one pool slot of the any-alphabet instance: C·S
     values and ``srows`` counters at each of ``ANY_SITES`` sites."""
@@ -493,15 +467,6 @@ def any_tail_bytes(rate_cats: int, states: int, dtype) -> int:
     ring = (any_warps(rate_cats)[0] * ANY_RING_UNITS * 2 * r * r
             * _itemsize(dtype)) if r <= 16 else 0
     return max(ring, rate_cats * ANY_SITES * (_itemsize(dtype) + 4))
-
-
-def any_pool_budget(rate_cats: int) -> int:
-    """Dynamic shared memory of one any-alphabet block (pool and rings)
-    that leaves room for ``ANY_SM_WARPS`` warps an SM: the SM's 228 KB
-    over the blocks, less the 1 KB the card reserves per block and the
-    static part; four blocks of four warps at four rates."""
-    blocks = max(1, ANY_SM_WARPS // any_warps(rate_cats)[0])
-    return 233472 // blocks - 1024 - ANY_STATIC_SMEM
 
 
 def any_pool_cap(rate_cats: int, states: int, dtype, srows: int) -> int:
@@ -519,12 +484,9 @@ def any_kernel_pmatrix(pmatrix: torch.Tensor) -> torch.Tensor:
     S <= 16 each matrix transposed (entry [k, j] = P[j, k]) and padded
     with zeros to [R, R] (:func:`any_bound`); else each row padded with
     zeros to whole 16-byte vectors (``clv_fused.pad_rows``)."""
-    s = pmatrix.shape[-1]
-    r = any_bound(s)
-    if r > 16:
+    if any_bound(pmatrix.shape[-1]) > 16:
         return cf.pad_rows(pmatrix)
-    return torch.nn.functional.pad(pmatrix.transpose(-1, -2),
-                                   (0, r - s, 0, r - s)).contiguous()
+    return any_pt(pmatrix)
 
 
 # --------------------------------------------------------------------------

@@ -28,8 +28,9 @@ children and counters (a tip, or a pool slot), its P-matrices, its
 scaling flag and its level-major row.  ``FusedPlan.plain_walk`` and
 ``plain_walk_score`` run that walk with PyTorch ops, so the plan is tested
 where no kernel runs; given the any-alphabet instance's layout
-(:func:`any_layout`) they keep the pool's first ``shared_slots`` slots
-apart from the spilled ones, as that kernel does.
+(:func:`any_layout`: 32-site blocks, a warp a rate, its pool sized for 16
+warps an SM) they keep the pool's first ``shared_slots`` slots apart from
+the spilled ones, as that kernel does.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there: on a CUDA tensor it launches its kernel, once per call, or raises.
@@ -50,18 +51,18 @@ from ..errors import EinvalError, KernelError
 from ..utils.constants import (SCALE_NONE, SCALE_PER_RATE, SCALE_PER_SITE,
                                scale_consts)
 from . import _build
+from .any_block import (ANY_CHUNK, ANY_MAX_STATES, ANY_RING_UNITS, ANY_SITES,
+                        any_bound, any_pool_budget, any_pt, any_warps)
 from .likelihood import site_lnl
 from .sweep import LevelSchedule, make_level_sweep
 
 TIP_ENCODINGS = ("clv", "chars", "masks")
 KERNEL_RATE_CATS = (1, 2, 4, 8)
 KERNEL_STATES = (4, 20)  # DNA and protein
-# the any-alphabet instance: 2 <= S <= ANY_MAX_STATES at any rate count
-# (csrc/clv_common.cuh kMaxAnyStates); "masks" tips are one int32 word, as
-# JAX's (clv_pallas.py make_tipdecode shifts an int32 word by each state)
-ANY_MAX_STATES = 64
+# the any-alphabet instance (any_block's block): 2 <= S <= ANY_MAX_STATES
+# at any rate count; "masks" tips are one int32 word, as JAX's
+# (clv_pallas.py make_tipdecode shifts an int32 word by each state)
 MASK_MAX_STATES = 32
-ANY_THREADS = 128  # sites a block of the any-alphabet instance
 BLOCK_SITES = 128  # sites per K1 partial sum
 # an op's descriptor (clv_common.cuh's OpDesc: parent, home, child1,
 # child2, scaler1, scaler2, m1, m2, has_scaler, out, shift1, shift2), the
@@ -234,7 +235,8 @@ class FusedPlan:
         (S, C), and a walk whose pool those instances cannot hold, takes
         the any-alphabet instance: :func:`any_layout`'s block, with
         ``shared_slots`` (its pool's slots in shared memory; the rest
-        spill to device rows) among the keys."""
+        spill to device rows), ``warps`` and ``rates_per_warp`` among the
+        keys."""
         key = (dtype, rate_cats, states, scale_mode, score)
         if key not in self._layouts:
             f64 = int(dtype == torch.float64)
@@ -258,11 +260,17 @@ class FusedPlan:
     def _any_layout(self, f64, rate_cats, states, scale_mode, score):
         lib = load_any_kernels()
         out = (ctypes.c_int * 3)()
+        # the blocks an SM its registers allow (no shared memory)
         _check_launch(lib, lib.clv_any_query(
-            states, f64, int(score), 0, 0, out), "any layout query")
+            states, f64, int(score), 32 * any_warps(rate_cats)[0], 0, out),
+            "any layout query")
         limit, sms = out[0], out[1]
         lay = any_layout(self.pool, rate_cats, states, 8 if f64 else 4,
-                         scale_mode, limit)
+                         scale_mode, blocks=out[2])
+        if lay["smem"] > limit:
+            raise EinvalError(f"a pool of {lay['shared_slots']} slots takes "
+                              f"{lay['smem']} bytes of shared memory, over "
+                              f"the {limit} a block has")
         _check_launch(lib, lib.clv_any_query(
             states, f64, int(score), lay["threads"], lay["smem"], out),
             "any layout query")
@@ -368,25 +376,38 @@ class FusedPlan:
 
 def pad_rows(pmatrix: torch.Tensor) -> torch.Tensor:
     """[M, C, S, S] P-matrices with each row padded with zeros to a whole
-    number of 16-byte vectors, as the any-alphabet instance reads them."""
+    number of 16-byte vectors, as ``clv_common.cuh``'s any-alphabet op
+    reads them (C1, K3/K4 and K5/K6 at S > 16)."""
     per = 16 // pmatrix.element_size()
     s = pmatrix.shape[-1]
     return torch.nn.functional.pad(pmatrix, (0, -s % per)).contiguous()
 
 
 def any_layout(pool: int, rate_cats: int, states: int, itemsize: int,
-               scale_mode: int, limit: int) -> dict:
-    """The any-alphabet instance's block for a walk of ``pool`` slots on a
-    card whose blocks may have ``limit`` bytes of dynamic shared memory:
-    ``ANY_THREADS`` sites a block, a thread a site, and as many of the
-    pool's slots in shared memory as fit half of ``limit`` (two blocks an
-    SM), the rest spilled to device rows.  Pure: the plain walk follows it
-    on the CPU."""
+               scale_mode: int, cap: Optional[int] = None,
+               blocks: Optional[int] = None) -> dict:
+    """The any-alphabet instance's block for a walk of ``pool`` slots:
+    ``ANY_SITES`` sites, a warp a rate (``any_block.any_warps``: ``warps``,
+    ``rates_per_warp``), at S <= 16 each warp's ring of ``buffers`` (op,
+    rate) units of [R, R] P-matrices (:func:`any_pt`), and as many of the
+    pool's slots in shared memory (``shared_slots``, each C·S values and
+    ``srows`` counters a site) as fit ``any_block.any_pool_budget`` beside
+    the rings (16 warps an SM, or the ``blocks`` an SM the kernel's
+    registers allow where fewer), or ``cap``; the rest spilled to device
+    rows.  ``smem``: the block's dynamic shared memory.  Pure: the plain
+    walk follows it on the CPU."""
     srows = rate_cats if scale_mode == SCALE_PER_RATE else 1
-    slot = ANY_THREADS * (rate_cats * states * itemsize + 4 * srows)
-    shared = min(pool, limit // 2 // slot)
-    return dict(smem=shared * slot, threads=ANY_THREADS, chunk=0,
-                block_sites=ANY_THREADS, buffers=1, shared_slots=shared)
+    warps, per = any_warps(rate_cats)
+    r = any_bound(states)
+    buffers = ANY_RING_UNITS if r <= 16 else 0
+    ring = warps * buffers * 2 * r * r * itemsize
+    slot = ANY_SITES * (rate_cats * states * itemsize + 4 * srows)
+    if cap is None:
+        cap = max(0, (any_pool_budget(rate_cats, blocks) - ring) // slot)
+    shared = min(pool, cap)
+    return dict(smem=shared * slot + ring, threads=32 * warps,
+                chunk=ANY_CHUNK, block_sites=ANY_SITES, buffers=buffers,
+                shared_slots=shared, warps=warps, rates_per_warp=per)
 
 
 def pack_tipchars(tip_masks) -> torch.Tensor:
@@ -525,8 +546,8 @@ def fused_edge_score_plain(schedule: LevelSchedule, tips_packed, pmatrix,
 _TIP_CODE = {"clv": 0, "chars": 1, "masks": 2}
 _WALK_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 11)
-_ANY_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_int64]
-                 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13)
+_ANY_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_int64]
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 13)
 _INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
@@ -624,12 +645,15 @@ def _check(plan, schedule, tips_packed, pmatrix, scale_mode, tip_encoding):
 
 def launch_grid(sites: int, lay: dict) -> int:
     """The blocks of one walk under layout ``lay`` (:meth:`FusedPlan.
-    layout`): the blocks the card holds at once, or fewer where the sites,
-    padded to whole 128-site partials, need fewer tiles of
-    ``block_sites``."""
+    layout`): the sites padded to whole 128-site partials, in tiles of
+    ``block_sites``; the DNA and protein instances launch at most the
+    blocks the card holds at once, the any-alphabet instance a block a
+    tile."""
     padded = -(-sites // BLOCK_SITES) * BLOCK_SITES
-    return min(-(-padded // lay["block_sites"]),
-               max(1, lay["blocks_per_sm"]) * lay["sms"])
+    tiles = -(-padded // lay["block_sites"])
+    if "shared_slots" in lay:
+        return tiles
+    return min(tiles, max(1, lay["blocks_per_sm"]) * lay["sms"])
 
 
 def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
@@ -658,12 +682,12 @@ def _launch(plan, suffix, c, s, scale_mode, sites, tips_packed, pmatrix,
             spill_scal = (torch.empty((spilled, srows, sites),
                                       dtype=torch.int32, device=device)
                           if spilled else None)
-            padded = pad_rows(pmatrix)
+            pt = any_pt(pmatrix)
             rc = getattr(lib, f"clv_any_walk_{suffix}")(
-                s, padded.shape[-1], c, _TIP_CODE[plan.tip_encoding],
-                scale_mode, sites, n, n, plan.pool, lay["shared_slots"],
-                lay["threads"], grid, ptr(plan.static("ops", device)),
-                ptr(tips_packed), ptr(padded), ptr(inner), ptr(scalers),
+                s, c, _TIP_CODE[plan.tip_encoding], scale_mode, sites, n, n,
+                plan.pool, lay["shared_slots"],
+                ptr(plan.static("ops", device)), ptr(tips_packed), ptr(pt),
+                ptr(inner), ptr(scalers),
                 ptr(spill), ptr(spill_scal), ptr(edge), ptr(weight_vec),
                 ptr(pattern_weights), ptr(inv_add), ptr(partials), stream)
         else:

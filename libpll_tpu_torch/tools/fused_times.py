@@ -1,8 +1,11 @@
 """Time the fused kernels K1/K2 of several checkouts, or of source variants
-of ``csrc/clv_fused.cu``, in turns on one card.
+of ``csrc/clv_fused.cu`` or ``csrc/clv_any.cu``, in turns on one card.
 
     python3 libpll_tpu_torch/tools/fused_times.py [--protein] [TREE ...]
     python3 libpll_tpu_torch/tools/fused_times.py [--protein] --variants SPEC.json NAME ...
+    python3 libpll_tpu_torch/tools/fused_times.py --alphabet [--cap SLOTS] [TREE ...]
+    python3 libpll_tpu_torch/tools/fused_times.py --alphabet [--cap SLOTS]
+        --source clv_any --variants SPEC.json NAME ...
 
 Each run is its own process, in the order given (parent, change, change,
 parent compares two commits on one card).  A TREE is a checkout's root
@@ -38,6 +41,21 @@ behind the op, not beside it; ``protein_one_site``: one site a thread)
 or, timed only (their values are wrong), one piece of the work
 (``protein_no_p_reads``, ``protein_no_stage_barrier``,
 ``protein_no_row_writes``).
+
+``--alphabet`` measures the any-alphabet instance (``csrc/clv_any.cu``)
+instead, K1 and K2 alone (CUDA events, ``chip_smoke.time_ms``) at chip_smoke
+phase 36's two cells, each built in the run by the tree's own helpers:
+the GT16 flagship (``utils/flagship.build_alphabet_flagship``: 64 taxa x
+262 144 sites, 16 states, Γ4, float32, per-site scaling, 16-bit masks)
+and the codon cell (``chip_smoke.CODON``: 61 states, Γ4, 64 x 16 384,
+CLV tips) in float32 and in float64 (``codon_f64``).  For each: K1's logL to the last digit, a SHA-256 of
+K2's rows and counters, and for K1 and K2 the pool's slots in shared
+memory, its spilled rows (walk positions whose slot lies past them), the
+warps a block and the blocks an SM of its layout.  ``--cap SLOTS`` caps
+the slots in shared memory (``chip_smoke.AnyCap``); ``--source clv_any
+--variants tools/fused_any_ablations.json NAME ...`` times variants of
+``clv_any.cu`` (``kernel``: the source as it stands; the others take one
+design choice out, or, timed only, one piece of the work).
 """
 
 import ctypes
@@ -52,6 +70,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from variants import build_variants, card_line  # noqa: E402
+
+ALPHABET_ITERS = 10  # timed calls of K1 and K2 a cell
 
 def digest(*tensors):
     """SHA-256 of the tensors' bytes, in order."""
@@ -212,23 +232,116 @@ def measure(tree, lib=None, protein=False):
     print(json.dumps(out), flush=True)
 
 
+def measure_alphabet(tree, lib=None, cap=None):
+    """One ``--alphabet`` run in this process: the numbers of the module
+    docstring."""
+    sys.path.insert(0, str(tree))
+    from contextlib import nullcontext
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from libpll_tpu_torch.ops import _build
+    from libpll_tpu_torch.ops import clv_fused as cf
+    from libpll_tpu_torch.utils.flagship import (ALPHABET_STATES,
+                                                 FLAGSHIP_SITES,
+                                                 build_alphabet_flagship)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["clv_any"])
+    if lib is not None:
+        loaded = cf.bind_any(ctypes.CDLL(str(lib)))
+        cf.load_any_kernels = lambda: loaded
+    device = torch.device("cuda", 0)
+    out = {"tree": str(tree), "cap": cap,
+           "variant": None if lib is None else Path(lib).parent.name}
+    cells = (("gt16", (ALPHABET_STATES, cs.ALPHABET_RATE_CATS,
+                       cs.ALPHABET_TIPS, FLAGSHIP_SITES, "masks"),
+              torch.float32),
+             ("codon", (*cs.CODON, "clv"), torch.float32),
+             ("codon_f64", (*cs.CODON, "clv"), torch.float64))
+    for name, (s, c, tips, sites, enc), dtype in cells:
+        _, topo, model_np, cols = build_alphabet_flagship(tips, sites, s, c,
+                                                          seed=0)
+        masks = np.uint64(1) << cols.astype(np.uint64)
+        tp = cs.tip_input(masks, enc, c, dtype, device, s)
+        pm, wvec, pw, _ = cs.kernel_inputs(topo, model_np, dtype, device,
+                                           False)
+        sched = topo.schedule
+        edge = (topo.parent_clv, topo.child_clv, topo.edge_matrix)
+        with cs.AnyCap(cap) if cap is not None else nullcontext():
+            plans = {"k1": cf.FusedPlan(sched, enc, edge),
+                     "k2": cf.FusedPlan(sched, enc)}
+            runs = {
+                "k1": lambda: cf.fused_edge_score(
+                    sched, tp, pm, wvec, pw, plan=plans["k1"],
+                    parent_clv=edge[0], child_clv=edge[1],
+                    edge_matrix=edge[2], tip_encoding=enc),
+                "k2": lambda: cf.fused_sweep(sched, tp, pm, plan=plans["k2"],
+                                             tip_encoding=enc)}
+            before = (cf.fused_edge_score.any_launches,
+                      cf.fused_sweep.any_launches)
+            out[f"{name}_k1_logl"] = repr(float(runs["k1"]()))
+            got = runs["k2"]()
+            torch.cuda.synchronize()
+            out[f"{name}_k2_sha256"] = digest(*got)
+            del got
+            torch.cuda.empty_cache()
+            out[f"{name}_any_launches"] = [
+                cf.fused_edge_score.any_launches - before[0],
+                cf.fused_sweep.any_launches - before[1]]
+            for key, fn in runs.items():
+                out[f"{name}_{key}_ms"] = cs.time_ms(
+                    fn, iters=ALPHABET_ITERS, warmup=1)[0]
+                plan = plans[key]
+                lay = plan.layout(dtype, c, s, topo.scale_mode, key == "k1")
+                shared = lay["shared_slots"]
+                out[f"{name}_{key}_layout"] = dict(
+                    pool=plan.pool, shared_slots=shared,
+                    spilled_rows=int((plan.slots >= shared).sum()),
+                    warps=lay["threads"] // 32,
+                    blocks_per_sm=lay["blocks_per_sm"], smem=lay["smem"])
+        del tp, pm
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
 def main(argv):
-    protein = argv[:1] == ["--protein"]
-    argv = argv[1:] if protein else argv
+    def option(name):
+        if name not in argv:
+            return None
+        k = argv.index(name)
+        value = argv[k + 1]
+        del argv[k:k + 2]
+        return value
+
+    argv = list(argv)
+    protein = "--protein" in argv
+    alphabet = "--alphabet" in argv
+    argv = [a for a in argv if a not in ("--protein", "--alphabet")]
+    cap = option("--cap")
+    source = option("--source") or ("clv_any" if alphabet else "clv_fused")
     if argv[:1] == ["--measure"]:
-        measure(argv[1], argv[2] or None, protein)
+        lib = argv[2] if len(argv) > 2 and argv[2] else None
+        if alphabet:
+            measure_alphabet(argv[1], lib, None if cap is None else int(cap))
+        else:
+            measure(argv[1], lib, protein)
         return 0
+    flags = (["--protein"] if protein else []) + (
+        ["--alphabet"] if alphabet else []) + (["--cap", cap] if cap else [])
     print(f"card: {card_line()}", flush=True)
     if argv[:1] == ["--variants"]:
         names = argv[2:]
         libs = build_variants(json.loads(Path(argv[1]).read_text()), names,
-                              "clv_fused")
+                              source)
         runs = [(ROOT, libs[name]) for name in names]
     else:
         runs = [(Path(tree).resolve(), None) for tree in argv or [ROOT]]
     for tree, lib in runs:
-        cmd = [sys.executable, __file__, *(["--protein"] if protein else []),
-               "--measure", str(tree), str(lib or "")]
+        cmd = [sys.executable, __file__, "--measure", str(tree),
+               str(lib or ""), *flags]
         subprocess.run(cmd, check=True)
     return 0
 

@@ -53,14 +53,26 @@ def build_variants(spec, names, source):
         if proc.returncode != 0:
             failed.append(f"variant {name} does not build:\n{stderr}")
             continue
-        regs = [line.split("Used")[1].split(",")[0].strip()
-                for line in (stdout + stderr).splitlines()
-                if "Used" in line and "registers" in line]
-        print(f"variant {name}: {', '.join(regs)}", flush=True)
+        print(f"variant {name}: {', '.join(ptxas_usage(stdout + stderr))}",
+              flush=True)
         libs[name] = lib
     if failed:
         raise SystemExit("\n".join(failed))
     return libs
+
+
+def ptxas_usage(log):
+    """Each kernel's "N registers" (", S B spilled" where it spills) from
+    nvcc's -Xptxas -v output, in the order compiled."""
+    usage, spill = [], 0
+    for line in log.splitlines():
+        if "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        if "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            usage.append(regs + (f", {spill} B spilled" if spill else ""))
+            spill = 0
+    return usage
 
 
 def card_line():

@@ -4,8 +4,8 @@
 libpll_tpu on the same numpy inputs.
 
   * The walk of the new instance (``FusedPlan.plain_walk`` /
-    ``plain_walk_score`` under :func:`clv_fused.any_layout`, its pool cut
-    so that rows spill) at (S, C) in (2, 6), (3, 3), (16, 4), (32, 5),
+    ``plain_walk_score`` under :func:`clv_fused.any_layout`, its pool at
+    the default cap and cut so that rows spill) at (S, C) in (2, 6), (3, 3), (16, 4), (32, 5),
     (61, 2), (4, 10), (20, 3), every tip encoding the alphabet takes
     (32 states: the widest "masks" JAX's int32 word holds), against JAX's
     ``make_fused_sweep`` and ``make_score`` in interpret mode and the
@@ -16,7 +16,10 @@ libpll_tpu on the same numpy inputs.
     libpll_tpu's.
   * The float64, eight-rate, 1 000-taxon protein walk now plans (the
     any-alphabet instance) where the protein instance's pool does not fit;
-    the guards raise only where JAX raises.
+    the instance's block (``ANY_FUSED_LAYOUTS``: warps, rates a warp, the
+    pool's cap within the budget of 16 warps an SM, the P-matrices
+    transposed and padded to [R, R]); the guards raise only where JAX
+    raises.
 
 Tolerances: float64 rel 1e-12 (rows of each node's site block, logL),
 scalers exact, t* rel 1e-10; float32 the f32 budget |ΔlogL| <= 2e-6·|logL|
@@ -42,6 +45,7 @@ from libpll_tpu_torch.engine import blopt as tblopt
 from libpll_tpu_torch.engine import evaluate as tev
 from libpll_tpu_torch.engine.params import model_from_numpy
 from libpll_tpu_torch.errors import EinvalError
+from libpll_tpu_torch.ops import clv_dyn as cd
 from libpll_tpu_torch.ops import clv_fused as cf
 from libpll_tpu_torch.ops import derivatives as dv
 from libpll_tpu_torch.tree import utree as tut
@@ -125,14 +129,14 @@ def f64_logl(case):
 
 
 def any_layout_of(plan, case, dtype, scale_mode, cap):
-    """The any-alphabet instance's layout at a shared-memory limit that
-    holds ``cap`` of the plan's slots at two blocks an SM."""
+    """The any-alphabet instance's layout with at most ``cap`` of the
+    plan's slots in shared memory (None: the default cap, the budget of 16
+    warps an SM)."""
     _, c, s, _ = port_pmatrix(case, dtype).shape
     item = 8 if dtype == torch.float64 else 4
-    srows = c if scale_mode == SCALE_PER_RATE else 1
-    slot = cf.ANY_THREADS * (c * s * item + 4 * srows)
-    lay = cf.any_layout(plan.pool, c, s, item, scale_mode, 2 * cap * slot)
-    assert lay["shared_slots"] == min(cap, plan.pool)
+    lay = cf.any_layout(plan.pool, c, s, item, scale_mode, cap)
+    if cap is not None:
+        assert lay["shared_slots"] == min(cap, plan.pool)
     return lay
 
 
@@ -140,9 +144,9 @@ def any_layout_of(plan, case, dtype, scale_mode, cap):
                          ids=IDS)
 def test_any_walk_sweep_vs_jax(states, rate_cats, encoding, scale_mode,
                                dtype):
-    """K2's walk under the any-alphabet layout, with every slot in shared
-    memory, one, and none (all spilled), equal bit for bit to the plain
-    sweep; against JAX's fused sweep (interpret mode)."""
+    """K2's walk under the any-alphabet layout, with the default cap, every
+    slot in shared memory, one, and none (all spilled), equal bit for bit
+    to the plain sweep; against JAX's fused sweep (interpret mode)."""
     case, masks, tips = alphabet_case(states, rate_cats, encoding,
                                       scale_mode, dtype)
     tdtype = torch.float64 if dtype == np.float64 else torch.float32
@@ -151,7 +155,7 @@ def test_any_walk_sweep_vs_jax(states, rate_cats, encoding, scale_mode,
     plan = cf.FusedPlan(sched, encoding)
     want = cf.fused_sweep_plain(sched, tips, pm, scale_mode=scale_mode,
                                 tip_encoding=encoding)
-    for cap in (plan.pool, 1, 0):
+    for cap in (None, plan.pool, 1, 0):
         lay = any_layout_of(plan, case, tdtype, scale_mode, cap)
         got = plan.plain_walk(tips, pm, scale_mode, lay["shared_slots"])
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -179,8 +183,9 @@ def test_any_walk_sweep_vs_jax(states, rate_cats, encoding, scale_mode,
 def test_any_walk_score_vs_jax(states, rate_cats, encoding, scale_mode,
                                dtype):
     """K1's walk under the any-alphabet layout (per-site scaling, +I),
-    pools split three ways, equal to the plain score bit for bit; against
-    JAX's ``make_score`` (interpret mode) and the float64 truth."""
+    pools split four ways (the default cap, all, one and no slots in
+    shared memory), equal to the plain score bit for bit; against JAX's
+    ``make_score`` (interpret mode) and the float64 truth."""
     case, masks, tips = alphabet_case(states, rate_cats, encoding,
                                       scale_mode, dtype)
     model = dict(case["model"])
@@ -199,7 +204,7 @@ def test_any_walk_score_vs_jax(states, rate_cats, encoding, scale_mode,
         tt.schedule, tips, pm, wvec, tm["pattern_weights"], inv_add,
         parent_clv=edge[0], child_clv=edge[1], edge_matrix=edge[2],
         tip_encoding=encoding))
-    for cap in (plan.pool, 1, 0):
+    for cap in (None, plan.pool, 1, 0):
         lay = any_layout_of(plan, case, tdtype, SCALE_PER_SITE, cap)
         got = float(plan.plain_walk_score(tips, pm, wvec,
                                           tm["pattern_weights"], inv_add,
@@ -345,18 +350,28 @@ class _Card:
         return 0
 
 
-@pytest.mark.parametrize("states,rate_cats,dtype,shared", [
-    (20, 8, torch.float64, 0), (61, 4, torch.float64, 0),
-    (16, 4, torch.float32, 3), (2, 6, torch.float64, 6)])
-def test_layout_routes_to_any(monkeypatch, states, rate_cats, dtype, shared):
+def thousand_taxa_plan():
+    """The 1 000-taxon walk (6 live rows, CLV tips)."""
+    if "plan1000" not in _MEMO:
+        topo = tev.topology_from_tree(tut.parse_newick_string(
+            _random_tree_newick(1000, np.random.default_rng(8))), 64)[0]
+        _MEMO["plan1000"] = cf.FusedPlan(topo.schedule, "clv")
+    return _MEMO["plan1000"]
+
+
+@pytest.mark.parametrize("states,rate_cats,dtype,shared,warps,ring", [
+    (20, 8, torch.float64, 2, 8, 0), (61, 4, torch.float64, 1, 4, 0),
+    (16, 4, torch.float32, 6, 4, 16384), (2, 6, torch.float64, 6, 6, 3072)])
+def test_layout_routes_to_any(monkeypatch, states, rate_cats, dtype, shared,
+                              warps, ring):
     """The float64, eight-rate, 1 000-taxon protein walk (6 slots, which
     the protein instance's block cannot hold) and every (S, C) outside the
     DNA and protein instances plan on the any-alphabet instance: a block
-    of 128 sites, the slots that fit half the block limit in shared
-    memory, the rest spilled."""
-    topo = tev.topology_from_tree(tut.parse_newick_string(
-        _random_tree_newick(1000, np.random.default_rng(8))), 64)[0]
-    plan = cf.FusedPlan(topo.schedule, "clv")
+    of 32 sites and a warp a rate, the slots that fit the budget of 16
+    warps an SM, or of the stub's 3 blocks an SM where fewer, beside the
+    warps' P-matrix rings in shared memory, the rest spilled; a block a
+    32-site tile."""
+    plan = thousand_taxa_plan()
     assert plan.pool == 6
     card = _Card()
     monkeypatch.setattr(cf, "load_kernels", lambda: card)
@@ -364,11 +379,11 @@ def test_layout_routes_to_any(monkeypatch, states, rate_cats, dtype, shared):
     lay = plan.layout(dtype, rate_cats, states, SCALE_PER_SITE, True)
     assert lay["shared_slots"] == shared
     assert (lay["threads"], lay["block_sites"], lay["blocks_per_sm"],
-            lay["sms"]) == (128, 128, 3, 132)
+            lay["sms"], lay["warps"]) == (32 * warps, 32, 3, 132, warps)
     item = 8 if dtype == torch.float64 else 4
-    assert lay["smem"] == shared * 128 * (rate_cats * states * item + 4)
-    assert lay["smem"] <= 232448 // 2
-    assert cf.launch_grid(10 ** 6, lay) == 3 * 132
+    assert lay["smem"] == shared * 32 * (rate_cats * states * item + 4) + ring
+    assert lay["smem"] <= cd.any_pool_budget(rate_cats, 3)
+    assert cf.launch_grid(10 ** 6, lay) == -(-10 ** 6 // 128) * 4
     fixed = states in cf.KERNEL_STATES and rate_cats in cf.KERNEL_RATE_CATS
     assert hasattr(card, "fixed") == fixed
     # the instance reads each P-matrix row as whole 16-byte vectors
@@ -378,6 +393,71 @@ def test_layout_routes_to_any(monkeypatch, states, rate_cats, dtype, shared):
     assert padded.shape[-1] - states < 16 // padded.element_size()
     assert torch.equal(padded[..., :states], pm)
     assert not padded[..., states:].any()
+
+
+# (rates, states, dtype, counter rows, pool, blocks an SM the registers
+# allow, shared slots, bytes past the pool, warps, rates a warp) of K1/K2's
+# any-alphabet block (csrc/clv_any.cu); pool None: the 1 000-taxon walk's
+# plan (its layout from the stub card's 3 blocks)
+ANY_FUSED_LAYOUTS = [
+    (4, 16, torch.float32, 1, 3, 4, 3, 16384, 4, 1),     # the GT16 flagship
+    (4, 16, torch.float32, 4, 6, 4, 4, 16384, 4, 1),     # per rate: spills
+    (4, 61, torch.float32, 1, 3, None, 1, 0, 4, 1),      # 16 warps' budget
+    (4, 61, torch.float32, 1, 3, 2, 3, 0, 4, 1),         # the codon cell
+    (8, 20, torch.float64, 1, None, 3, 2, 0, 8, 1),      # 1 000-taxon protein
+    (8, 61, torch.float64, 8, 6, None, 0, 0, 8, 1),      # no slot fits
+    (10, 5, torch.float64, 10, 6, None, 4, 10240, 5, 2),  # two rates a warp
+    (9, 7, torch.float32, 1, 6, None, 6, 5120, 5, 2),    # a one-rate warp
+    (40, 64, torch.float64, 40, 6, None, 0, 0, 8, 5),    # five rates a warp
+    (1, 16, torch.float32, 1, 6, 32, 2, 4096, 1, 1),     # one warp a block
+    (2, 2, torch.float32, 1, 6, None, 6, 512, 2, 1),     # the smallest rings
+]
+
+
+@pytest.mark.parametrize(
+    "c,s,dtype,srows,pool,blocks,shared,tail,warps,per", ANY_FUSED_LAYOUTS)
+def test_fused_any_layout(monkeypatch, c, s, dtype, srows, pool, blocks,
+                          shared, tail, warps, per):
+    """K1/K2's any-alphabet block: the pool's default cap within the
+    budget of 16 warps an SM, or of the blocks an SM its registers allow
+    where fewer, beside the warps' rings (never negative; the next slot
+    would not fit), a cap obeyed, the warps and rates a
+    warp; the P-matrices as the kernel reads them, transposed and
+    zero-padded to [R, R] at every R (4, 8, 16, 64); the float64 eight-rate
+    1 000-taxon protein walk on this instance."""
+    item = 8 if dtype == torch.float64 else 4
+    mode = SCALE_PER_RATE if srows > 1 else SCALE_PER_SITE
+    if pool is None:
+        plan = thousand_taxa_plan()
+        card = _Card()
+        monkeypatch.setattr(cf, "load_kernels", lambda: card)
+        monkeypatch.setattr(cf, "load_any_kernels", lambda: card)
+        lay = plan.layout(dtype, c, s, mode, False)
+        assert hasattr(card, "fixed") and plan.pool == 6
+        pool = plan.pool
+    else:
+        lay = cf.any_layout(pool, c, s, item, mode, blocks=blocks)
+    slot = 32 * (c * s * item + 4 * srows)
+    budget = cd.any_pool_budget(c, blocks)
+    cap = (budget - tail) // slot
+    assert cap >= 0 and lay["shared_slots"] == min(pool, cap) == shared
+    assert lay["smem"] == shared * slot + tail <= budget
+    assert (cap + 1) * slot + tail > budget
+    assert (lay["warps"], lay["rates_per_warp"], lay["threads"]) == (
+        warps, per, 32 * warps)
+    assert warps * per >= c > (warps - 1) * per
+    assert lay["buffers"] == (cf.ANY_RING_UNITS if tail and s <= 16 else 0)
+    for k in (0, 1, pool + 3):
+        capped = cf.any_layout(pool, c, s, item, mode, k, blocks)
+        assert capped["shared_slots"] == min(pool, k)
+        assert capped["smem"] == min(pool, k) * slot + tail
+    pm = torch.from_numpy(np.random.default_rng(s).random(
+        (3, c, s, s))).to(dtype)
+    pt = cf.any_pt(pm)
+    r = cd.any_bound(s)
+    assert pt.shape == (3, c, r, r) and pt.is_contiguous()
+    assert torch.equal(pt[..., :s, :s], pm.transpose(-1, -2))
+    assert not pt[..., s:, :].any() and not pt[..., :, s:].any()
 
 
 @pytest.mark.parametrize("states,rate_cats", [(2, 6), (16, 4), (61, 2),

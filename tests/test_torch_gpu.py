@@ -680,7 +680,10 @@ def test_protein_pool_that_does_not_fit_raises(cuda):
     assert plan.pool == 6
     lay32 = plan.layout(torch.float32, 4, 20, 1, False)
     assert lay32["blocks_per_sm"] > 0 and "shared_slots" not in lay32
-    assert plan.layout(torch.float64, 8, 20, 1, False)["shared_slots"] < 6
+    lay64 = plan.layout(torch.float64, 8, 20, 1, False)
+    assert 0 < lay64["shared_slots"] < 6 and lay64["warps"] == 8
+    assert lay64["shared_slots"] == cf.any_layout(
+        6, 8, 20, 8, 1, blocks=lay64["blocks_per_sm"])["shared_slots"]
     pm, wvec, pw, _ = chip_smoke.kernel_inputs(topo, model_np, torch.float64,
                                                cuda, False)
     tp = chip_smoke.tip_input(masks, "masks", 8, torch.float64, cuda, 20)
@@ -713,7 +716,7 @@ def test_any_alphabet_instances_match_plain_on_card(cuda):
     n, _, _, launches, _, lay, tables, _ = chip_smoke.check_alphabets_small(
         cuda)
     assert n > 0 and all(v > 0 for v in launches)
-    assert lay["shared_slots"] < 6
+    assert 0 < lay["shared_slots"] < 6 and lay["block_sites"] == cf.ANY_SITES
     assert {("shared", True), ("device", True),
             ("device", False)} <= set(tables)
 

@@ -43,6 +43,7 @@ from libpll_tpu.tree import utree as jut
 from libpll_tpu_torch.engine import evaluate as tev
 from libpll_tpu_torch.engine.params import model_from_numpy
 from libpll_tpu_torch.errors import EinvalError
+from libpll_tpu_torch.ops import any_block as ab
 from libpll_tpu_torch.ops import clv_dyn as cd
 from libpll_tpu_torch.ops import clv_fused as cf
 from libpll_tpu_torch.ops import clv_seg as cseg
@@ -538,7 +539,7 @@ def test_dyn_any_layout(c, s, dtype, srows, cap, tail, warps, per):
     assert cd.any_warps(c) == (warps, per)
     assert warps * per >= c > (warps - 1) * per
     budget = cd.any_pool_budget(c)
-    assert (cd.ANY_SM_WARPS // warps or 1) * (
+    assert (ab.ANY_SM_WARPS // warps or 1) * (
         budget + 1024 + cd.ANY_STATIC_SMEM) <= 233472
     used = cap * cd.any_slot_bytes(c, s, dtype, srows) + tail
     assert used <= budget or cap == 0

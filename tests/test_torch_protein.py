@@ -281,7 +281,7 @@ def test_layout_raises_and_chars(monkeypatch):
     """A pool that does not fit the protein instance's block takes the
     any-alphabet instance from ``FusedPlan.layout`` (the library's
     answers stubbed here: the queries need the card), its rows spilled
-    where half a block's shared memory cannot hold them; pattern tips at
+    where the budget of 16 warps an SM cannot hold them; pattern tips at
     20 states are "masks", "chars" (a nibble) raises."""
     _, ttopo, *_ = protein_case()
     plan = cf.FusedPlan(ttopo.schedule, "masks")
@@ -292,7 +292,7 @@ def test_layout_raises_and_chars(monkeypatch):
             return 1  # cudaErrorInvalidValue
 
         def clv_any_query(self, states, f64, score, threads, smem, out):
-            out[0], out[1], out[2] = 1024, 132, 4
+            out[0], out[1], out[2] = 232448, 132, 4
             return 0
 
     lib = NoFit()
@@ -300,9 +300,15 @@ def test_layout_raises_and_chars(monkeypatch):
     monkeypatch.setattr(cf, "load_any_kernels", lambda: lib)
     lay = plan.layout(torch.float64, 8, 20, SCALE_PER_SITE, True)
     assert lib.args[:6] == (20, 1, 8, SCALE_PER_SITE, 1, plan.pool)
-    assert lay["shared_slots"] == 0 and lay["smem"] == 0
-    assert (lay["threads"], lay["blocks_per_sm"], lay["sms"]) == (
-        cf.ANY_THREADS, 4, 132)
+    # a block of 32 sites and eight warps: 2 slots (41 088 bytes each) fit
+    # the budget of 16 warps an SM, the rest of a pool spills; capped at
+    # one slot, the other spills
+    assert plan.pool == 2
+    assert lay["shared_slots"] == 2 and lay["smem"] == 2 * 41088
+    assert (lay["threads"], lay["block_sites"], lay["blocks_per_sm"],
+            lay["sms"]) == (8 * 32, cf.ANY_SITES, 4, 132)
+    lay = cf.any_layout(plan.pool, 8, 20, 8, SCALE_PER_SITE, 1)
+    assert lay["shared_slots"] == 1 and lay["smem"] == 41088
     for make in (tev.make_score, tev.make_forward_fused,
                  tev.make_train_step_fused):
         with pytest.raises(EinvalError):
